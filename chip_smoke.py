@@ -1,0 +1,506 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (written for an H100).
+
+Phases, each of which must pass (any failed check exits non-zero before the
+last line is printed):
+
+1. Card name and power limit (``nvidia-smi``); build every CUDA source of
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for sm_90a, one process
+   per source, all started together.
+2. Kernel vs its plain PyTorch version on the card, both in the working
+   type (fp32 tolerance 2e-4, bf16 3e-2 — the JAX kernel tests' tolerances):
+   GQA groups 1/5/8, head dims 8/64/128, holes and scrambled tables, a fully
+   unmapped slot, a window, append and post-update modes, lane_base and
+   pos_stride off their defaults, a page wider than the kernel's tile.  At
+   the serving shape the kernel, the plain version and a library yardstick
+   (page gather + ``scaled_dot_product_attention``) are timed with CUDA
+   events, each launch on another layer's pages so every launch reads cold
+   K/V, as decode does.
+3. Full-width, full-depth ``minicpm-2b`` (random weights from ``--seed``)
+   served through ``ServingFrontend`` -> ``DecodeScheduler(attn_backend=
+   'paged_kernel')`` on the simulated cloud: 16 requests over 4 sessions,
+   prompt 512, 32 new tokens, 8 slots, page size 16, prefill chunk 256.
+   Checks: every request served, per-session FIFO order, tokens below the
+   vocab, ``audit()``, and 40 kernel launches per decode step.
+4. Backend agreement at full width: on one shared cache state (8 slots
+   prefilled through a gather scheduler), one decode step with
+   ``paged_kernel`` and one with ``gather``; logits must agree within 5% of
+   the logits' largest magnitude (bf16 activations through 40 layers; the
+   two paths differ only in whether attention probabilities are rounded to
+   bf16 before the PV product).
+
+The line before the last is the kernels' JSON record, then the card's
+``name, power.limit``; the last line is the device JSON.
+
+Phase 4 also traces one decode step per backend with ``torch.profiler``
+(wall time with the profiler on, device busy time, idle share, kernel
+launches and the heaviest kernels).
+
+Usage:  python3 chip_smoke.py [--seed N]
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+AGREE_REL_TOL = 0.05
+DEVICE = "cuda"                  # the phases' device (a CPU rehearsal may set "cpu")
+
+ARCH = "minicpm-2b"
+N_REQUESTS, SESSIONS, PROMPT, MAX_NEW = 16, 4, 512, 32
+SLOTS, PAGE, CHUNK = 8, 16, 256
+
+
+class Failures(list):
+    def check(self, ok: bool, what: str) -> bool:
+        print(f"  [{'ok' if ok else 'FAIL'}] {what}")
+        if not ok:
+            self.append(what)
+        return ok
+
+
+def sync() -> None:
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 5) -> float:
+    """Mean ms per call over ``iters`` calls, timed with CUDA events after
+    ``warmup`` calls; ``fn(i)`` gets the iteration index."""
+    import torch
+
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# -- phase 2: kernel vs plain version ------------------------------------------------
+
+
+def paged_case(gen, *, B, Hkv, G, D, ps, mp, n_pages, dtype, holes=0, fill=0.8):
+    """Random pool and scrambled per-slot tables with ragged lengths and
+    optional unmapped holes below the live length."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(int(torch.randint(0, 2**31, (1,), generator=gen)))
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+            device=DEVICE, dtype=dtype)
+
+    q = rnd(B, 1, Hkv * G, D)
+    kp, vp = rnd(n_pages, ps, Hkv, D), rnd(n_pages, ps, Hkv, D)
+    k_new, v_new = rnd(B, 1, Hkv, D), rnd(B, 1, Hkv, D)
+    lengths = rng.integers(1, max(2, int(mp * ps * fill)), size=B)
+    pt = np.full((B, mp), -1, np.int32)
+    for b in range(B):
+        need = -(-int(lengths[b]) // ps)
+        pt[b, :need] = rng.choice(n_pages, size=need, replace=False)
+        for _ in range(holes):
+            pt[b, rng.integers(0, mp)] = -1
+        # keep the newest live token's page mapped: post-update mode attends
+        # that token, and a row with no live lane has no defined oracle
+        last = (int(lengths[b]) - 1) // ps
+        if pt[b, last] < 0:
+            pt[b, last] = rng.choice(np.setdiff1d(np.arange(n_pages), pt[b]))
+    as_dev = lambda a: torch.as_tensor(a, dtype=torch.int32).to(DEVICE)  # noqa: E731
+    return q, kp, vp, as_dev(pt), as_dev(lengths), k_new, v_new
+
+
+def phase_kernel_cases(fails: Failures, seed: int) -> None:
+    import torch
+
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_kernel,
+                                                     paged_attention_plain,
+                                                     reference_paged_attention)
+
+    gen = torch.Generator().manual_seed(seed)
+    cases = [
+        dict(B=3, Hkv=4, G=1, D=64, ps=16, mp=6, n_pages=32, holes=1),
+        dict(B=2, Hkv=2, G=5, D=128, ps=8, mp=5, n_pages=24, window=12),
+        dict(B=2, Hkv=3, G=8, D=64, ps=16, mp=4, n_pages=16, holes=2, post=True),
+        dict(B=2, Hkv=2, G=8, D=128, ps=48, mp=3, n_pages=10, window=40),
+        dict(B=3, Hkv=2, G=3, D=8, ps=4, mp=6, n_pages=20, holes=1),
+        dict(B=2, Hkv=1, G=5, D=64, ps=8, mp=6, n_pages=16, unmapped=True),
+        dict(B=3, Hkv=2, G=1, D=128, ps=8, mp=6, n_pages=24, lane_base=8, stride=16),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[-1]]
+        for c in cases:
+            q, kp, vp, pt, lengths, k_new, v_new = paged_case(
+                gen, B=c["B"], Hkv=c["Hkv"], G=c["G"], D=c["D"], ps=c["ps"],
+                mp=c["mp"], n_pages=c["n_pages"], dtype=dtype, holes=c.get("holes", 0))
+            if c.get("unmapped"):
+                pt[1] = -1
+                lengths[1] = 0
+            B, Hkv, G, D = c["B"], c["Hkv"], c["G"], c["D"]
+            window = c.get("window")
+            q_pos = lengths - 1 if c.get("post") else lengths
+            qg = q.reshape(B, Hkv, G, D).contiguous()
+            kw = dict(lane_base=c.get("lane_base", 0), pos_stride=c.get("stride"),
+                      window=window)
+            acc, m, l = paged_attention_kernel(qg, kp, vp, pt, lengths, q_pos, **kw)
+            racc, rm, rl = paged_attention_plain(qg, kp, vp, pt, lengths, q_pos, **kw)
+            sync()
+            o = acc / l.clamp(min=1e-30)[..., None]
+            ro = racc / rl.clamp(min=1e-30)[..., None]
+            err = max((o - ro).abs().max().item(), (m - rm).abs().max().item(),
+                      ((l - rl).abs() / rl.clamp(min=1.0)).max().item())
+            name = ", ".join(f"{k}={v}" for k, v in c.items())
+            fails.check(err <= tol and torch.isfinite(o).all().item(),
+                        f"kernel vs plain {str(dtype)[6:]} [{name}]: max err {err:.3g} <= {tol}")
+            if "lane_base" in c:
+                continue
+            # end to end through ops.py against the gather oracle
+            post = c.get("post", False)
+            out = paged_attention(q, kp, vp, pt, lengths, q_pos=q_pos, window=window,
+                                  k_new=None if post else k_new,
+                                  v_new=None if post else v_new)
+            ref = reference_paged_attention(q, kp, vp, pt, lengths, q_pos=q_pos,
+                                            window=window, k_new=None if post else k_new,
+                                            v_new=None if post else v_new)
+            err = (out.float() - ref.float()).abs().max().item()
+            fails.check(err <= tol, f"ops.paged_attention vs gather oracle "
+                        f"{str(dtype)[6:]} [{name}]: max err {err:.3g} <= {tol}")
+
+
+def phase_kernel_timing(fails: Failures, cfg, seed: int) -> dict:
+    """The kernel at the serving shape: B=8 slots of 512..543 live tokens,
+    every slot's 34 pages scrambled over a 272-page pool, one pool per layer
+    for all 40 layers (1.6 GB, far past the 50 MB L2)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import (paged_attention_kernel,
+                                                     paged_attention_plain)
+
+    L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.the_head_dim()
+    G = cfg.n_heads // Hkv
+    mp = -(-(PROMPT + MAX_NEW) // PAGE)
+    n_pages = SLOTS * mp
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kp = torch.randn(L, n_pages, PAGE, Hkv, D, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    vp = torch.randn_like(kp)
+    qs = torch.randn(L, SLOTS, Hkv, G, D, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    pt_np = rng.permutation(n_pages).reshape(SLOTS, mp).astype(np.int32)
+    len_np = rng.integers(PROMPT, PROMPT + MAX_NEW, size=SLOTS).astype(np.int32)
+    pt = torch.as_tensor(pt_np).cuda()
+    lengths = torch.as_tensor(len_np).cuda()
+
+    def kernel(i):
+        return paged_attention_kernel(qs[i % L], kp[i % L], vp[i % L], pt, lengths, lengths)
+
+    def plain(i):
+        return paged_attention_plain(qs[i % L], kp[i % L], vp[i % L], pt, lengths, lengths)
+
+    T = mp * PAGE
+    live = (torch.arange(T, device="cuda")[None] < lengths[:, None])[:, None, None, :]
+
+    def library(i):
+        k = kp[i % L][pt.long()].reshape(SLOTS, T, Hkv, D).transpose(1, 2)
+        v = vp[i % L][pt.long()].reshape(SLOTS, T, Hkv, D).transpose(1, 2)
+        return F.scaled_dot_product_attention(qs[i % L], k, v, attn_mask=live)
+
+    acc, m, l = kernel(0)
+    racc, rm, rl = plain(0)
+    o = acc / l.clamp(min=1e-30)[..., None]
+    ro = racc / rl.clamp(min=1e-30)[..., None]
+    max_err = (o - ro).abs().max().item()
+    lib_err = (o - library(0).float()).abs().max().item()
+    fails.check(max_err <= TOL["bfloat16"],
+                f"kernel vs plain at the serving shape: max err {max_err:.3g}")
+    fails.check(lib_err <= TOL["bfloat16"],
+                f"kernel vs gather+SDPA at the serving shape: max err {lib_err:.3g}")
+
+    ms = cuda_time_ms(kernel, 400, warmup=40)
+    plain_ms = cuda_time_ms(plain, 40)
+    library_ms = cuda_time_ms(library, 40)
+    ms_again = cuda_time_ms(kernel, 400, warmup=0)
+
+    live_tokens = int(len_np.sum())
+    elt = 2
+    bytes_moved = (qs[0].numel() * elt                           # q
+                   + 2 * live_tokens * Hkv * D * elt             # live K and V lanes
+                   + sum(-(-int(n) // PAGE) for n in len_np) * 4  # page-table entries
+                   + 2 * SLOTS * 4                               # lengths, q_pos
+                   + SLOTS * Hkv * G * (D + 2) * 4)              # acc, m, l (fp32)
+    flops = 4 * live_tokens * Hkv * G * D                        # QK and PV, 2 each
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    print(f"  serving shape: B={SLOTS} Hkv={Hkv} G={G} D={D} page={PAGE} "
+          f"max_pages={mp} live tokens={live_tokens} layers rotated={L}")
+    print(f"  kernel {ms:.4f} ms (again {ms_again:.4f}), plain {plain_ms:.4f} ms, "
+          f"gather+SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bytes_moved/1e6:.2f} MB, {flops/1e6:.2f} MFLOP)")
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:99",
+            "launches": None, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+# -- phase 3: full-width serving ------------------------------------------------------
+
+
+class TimedScheduler:
+    """Times each ``step()`` of a scheduler on the host clock, synchronized
+    with the card; every other attribute passes through."""
+
+    def __init__(self, sched):
+        self.sched = sched
+        self.chunk_s = self.decode_s = 0.0
+        self.chunk_tokens = self.decode_only_tokens = 0
+        self.decode_only_steps = 0
+
+    def __getattr__(self, name):
+        return getattr(self.sched, name)
+
+    def step(self):
+        s = self.sched
+        pf0, dec0 = s.prefill_tokens, s.decode_tokens
+        sync()
+        t0 = time.perf_counter()
+        out = s.step()
+        sync()
+        dt = time.perf_counter() - t0
+        if s.prefill_tokens > pf0:
+            self.chunk_s += dt
+            self.chunk_tokens += s.prefill_tokens - pf0
+        elif s.decode_tokens > dec0:
+            self.decode_s += dt
+            self.decode_only_tokens += s.decode_tokens - dec0
+            self.decode_only_steps += 1
+        return out
+
+
+def phase_serving(fails: Failures, model, cfg, seed: int) -> int:
+    import numpy as np
+    import torch
+
+    from repro_torch.coord.serving_front import ServingFrontend
+    from repro_torch.core import SimCloud
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.launch.serve import spawn_workload
+    from repro_torch.serve.scheduler import DecodeScheduler
+
+    sched = DecodeScheduler(model, n_slots=SLOTS, max_seq=PROMPT + MAX_NEW,
+                            page_size=PAGE, prefill_chunk=CHUNK,
+                            attn_backend="paged_kernel", seed=seed, device=DEVICE)
+    timed = TimedScheduler(sched)
+    cloud = SimCloud(seed=seed)
+    front = ServingFrontend(cloud, scheduler=timed, batch_size=SLOTS)
+    spawn_workload(cloud, front, vocab=cfg.vocab, n_requests=N_REQUESTS,
+                   sessions=SESSIONS, prompt_len=PROMPT, max_new=MAX_NEW, seed=seed)
+    sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    paged_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    cloud.run()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = paged_attention_kernel.launches
+
+    served = sum(len(v) for v in front.completions.values())
+    fails.check(served == N_REQUESTS, f"served {served}/{N_REQUESTS} requests")
+    fifo = all(ids == sorted(ids, key=lambda r: int(r[1:]))
+               for ids in front.completions.values())
+    fails.check(fifo and len(front.completions) == SESSIONS,
+                f"per-session FIFO over {len(front.completions)} sessions: "
+                f"{dict(sorted(front.completions.items()))}")
+    toks = [np.asarray(t) for outs in front.results.values() for t in outs]
+    fails.check(all(t.shape == (MAX_NEW,) and (t >= 0).all() and (t < cfg.vocab).all()
+                    for t in toks), f"every token in [0, {cfg.vocab}), {MAX_NEW} per request")
+    try:
+        sched.audit()
+        fails.check(True, "scheduler audit")
+    except AssertionError as e:
+        fails.check(False, f"scheduler audit: {e}")
+    steps = sched.steps
+    fails.check(launches == cfg.n_layers * steps,
+                f"kernel launches {launches} == {cfg.n_layers} layers x {steps} decode steps")
+    st = front.serving_stats()
+    print(f"  served in {wall:.3f} s wall: {steps} decode steps, occupancy "
+          f"{st['occupancy']} slots/step, {st['decode_tokens']} decode + "
+          f"{st['prefill_tokens']} prefill tokens, {st['prefill_chunks']} chunks")
+    print(f"  decode tok/s (steps without a chunk): "
+          f"{timed.decode_only_tokens / max(timed.decode_s, 1e-9):.1f} "
+          f"({timed.decode_only_tokens} tokens in {timed.decode_only_steps} steps, "
+          f"{timed.decode_s:.3f} s, {1e3 * timed.decode_s / max(timed.decode_only_steps, 1):.2f} ms/step)")
+    print(f"  prefill tok/s (steps with a chunk, their decode included): "
+          f"{timed.chunk_tokens / max(timed.chunk_s, 1e-9):.1f} "
+          f"({timed.chunk_tokens} tokens, {timed.chunk_s:.3f} s)")
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    print(f"  peak device memory {peak / 2**30:.3f} GiB; "
+          f"KV pool {st['kv_pool_bytes'] / 2**30:.3f} GiB "
+          f"({st['kv_bytes_per_token']} B/token, {st['kv_pages']} pages, "
+          f"high water {st['kv_pages_high_water']})")
+    return launches
+
+
+# -- phase 4: backend agreement ---------------------------------------------------------
+
+
+def phase_agreement(fails: Failures, model, cfg, seed: int) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.scheduler import DecodeScheduler
+
+    sched = DecodeScheduler(model, n_slots=SLOTS, max_seq=PROMPT + MAX_NEW,
+                            page_size=PAGE, prefill_chunk=CHUNK, seed=seed,
+                            device=DEVICE)
+    rng = np.random.default_rng(seed + 1)
+    for i in range(SLOTS):
+        sched.submit(f"a{i}", f"a{i}", rng.integers(0, cfg.vocab, size=PROMPT), MAX_NEW)
+    while sched.active_slots() < SLOTS:
+        sched.step()
+    fused = copy.copy(model)
+    fused.cfg = dataclasses.replace(cfg, attn_backend="paged_kernel")
+    tokens = sched.last_tokens[:, None]
+    # each step writes its own KV at lane `length` before any read of it
+    # (gather) or masks that lane (kernel), so both can run on one cache
+    lg, _ = model.decode_step(sched.cache, tokens)
+    lk, _ = fused.decode_step(sched.cache, tokens)
+    lg, lk = lg[:, -1, :cfg.vocab].float(), lk[:, -1, :cfg.vocab].float()
+    diff = (lg - lk).abs().max().item()
+    scale = lg.abs().max().item()
+    agree = (lg.argmax(-1) == lk.argmax(-1)).float().mean().item()
+    print(f"  logits max |gather| {scale:.4f}, max |delta| {diff:.4g}, "
+          f"argmax agreement {agree:.3f}")
+    fails.check(math.isfinite(diff) and diff <= AGREE_REL_TOL * scale,
+                f"paged_kernel vs gather logits: max |delta| {diff:.4g} <= "
+                f"{AGREE_REL_TOL} x {scale:.4f}")
+    if DEVICE == "cuda":
+        for label, m in (("gather", model), ("paged_kernel", fused)):
+            profile_step(label, lambda m=m: m.decode_step(sched.cache, tokens))
+
+
+def profile_step(label: str, fn) -> None:
+    """One decode step under ``torch.profiler``: wall time (profiler on),
+    the device's busy time summed over kernels, the idle share, and the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
+    if not busy:
+        print(f"  profile {label}: no device time recorded (not measured)")
+        return
+    print(f"  profile {label} decode step: wall {wall_us / 1e3:.2f} ms (profiler on), "
+          f"device busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
+          f"{launches} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fails = Failures()
+    t_start = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    print(f"[1] card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
+          f"| {name} x{torch.cuda.device_count()}")
+    secs = build.build()
+    print(f"  built {', '.join(build.sources())} in {secs:.2f} s")
+    for src in build.sources():
+        for line in build.build_log(src).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {src}: {line.strip()}")
+
+    print("[2] kernel vs plain version")
+    phase_kernel_cases(fails, args.seed)
+    cfg = configs.get(ARCH)
+    record = phase_kernel_timing(fails, cfg, args.seed)
+
+    print(f"[3] full-width {ARCH} serving: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}x{cfg.the_head_dim()} heads, vocab "
+          f"{cfg.vocab} (padded {cfg.padded_vocab}), {cfg.param_count() / 1e9:.3f} B params")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"  random init in {time.perf_counter() - t0:.2f} s, weights "
+          f"{wbytes / 1e9:.3f} GB")
+    record["launches"] = phase_serving(fails, model, cfg, args.seed)
+
+    print("[4] backend agreement at full width")
+    phase_agreement(fails, model, cfg, args.seed)
+
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    if fails:
+        print(f"chip_smoke: {len(fails)} check(s) failed:", file=sys.stderr)
+        for f in fails:
+            print(f"  {f}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": [record]}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
