@@ -28,13 +28,40 @@ last line is printed):
    the logits' largest magnitude (bf16 activations through 40 layers; the
    two paths differ only in whether attention probabilities are rounded to
    bf16 before the PV product).
+5. RG-LRU scan kernel vs its plain left fold on the card: fp32 and bf16;
+   B 1/2/8; L 1/16/17/29/256/2048; W 8/24/2560; a near-one decay
+   (a = 0.999, L = 2048) and a = 0 resets.  fp32 must be bitwise the plain
+   fold, bf16 within 3e-2.  The paged kernel at recurrentgemma's shape
+   (D = 256, G = 10, Hkv = 1), with and without a window, in append and
+   post-update modes.
+6. Full-width, full-depth ``recurrentgemma-2b`` (26 layers ``rra``: 18
+   RG-LRU, 8 local attention; random weights from ``--seed``) served through
+   ``ServingFrontend`` -> ``DecodeScheduler(attn_backend='paged_kernel')``:
+   8 requests over 8 sessions, prompt 2300, 16 new tokens, 8 slots, page
+   16, prefill chunk 256 (the last chunk is 252 tokens; decode runs past the
+   2048-token window).  Checks as in phase 3, and exact launch counts:
+   paged kernel = 8 x decode steps, RG-LRU = 18 x (decode steps + chunks).
+7. Both kernels timed with CUDA events at recurrentgemma-2b's serving
+   shapes, each against its bound: the scan at (1, 256, 2560) (one prefill
+   chunk), (8, 1, 2560) (one decode step) and (1, 2048, 2560); paged
+   attention at B = 8, D = 256, G = 10, 145 pages per slot, window 2048.
+8. Backend agreement at full width for the hybrid, as in phase 4.
+9. Decode vs chunk prefill on the card, one slot at full width: the RG-LRU
+   recurrence (the scan kernel with ``h0`` folded in, and the conv tail)
+   run as N S=1 steps leaves, bitwise, the rows one N-token chunk leaves,
+   on every RG-LRU layer's gates for a real token stream.  The same
+   comparison through the whole model (every projection included) is
+   printed: its matmuls run through cuBLAS, whose kernel for M = 1 rows may
+   differ from the one for M = N.
 
-The line before the last is the kernels' JSON record, then the card's
-``name, power.limit``; the last line is the device JSON.
+Phases 4 and 8 also trace one decode step per backend and one prefill
+chunk with ``torch.profiler`` (wall time with the profiler on, device busy
+time, idle share, kernel launches and the heaviest kernels).
 
-Phase 4 also traces one decode step per backend with ``torch.profiler``
-(wall time with the profiler on, device busy time, idle share, kernel
-launches and the heaviest kernels).
+Each serving phase sets the launch counts to 0 just before it drives the
+path and reads them just after.  The line before the last is the kernels'
+JSON record (one entry per timed shape), then the card's ``name,
+power.limit``; the last line is the device JSON.
 
 Usage:  python3 chip_smoke.py [--seed N]
 """
@@ -63,6 +90,10 @@ DEVICE = "cuda"                  # the phases' device (a CPU rehearsal may set "
 ARCH = "minicpm-2b"
 N_REQUESTS, SESSIONS, PROMPT, MAX_NEW = 16, 4, 512, 32
 SLOTS, PAGE, CHUNK = 8, 16, 256
+
+HYBRID = "recurrentgemma-2b"
+H_REQUESTS, H_SESSIONS, H_PROMPT, H_MAX_NEW = 8, 8, 2300, 16
+PARITY_PREFIX, PARITY_TOKENS = 40, 29     # phase 9: prefix chunk, then N tokens
 
 
 class Failures(list):
@@ -104,6 +135,24 @@ def cuda_time_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms_per_launch(fn, iters: int, kernel: str):
+    """Device time per launch of the kernels whose name contains ``kernel``
+    over ``iters`` calls of ``fn(i)``, from ``torch.profiler`` (None when
+    the profiler records no device time).  Unlike the CUDA-event time of
+    back-to-back calls, it leaves out the host's launch path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        sync()
+    evs = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in evs)
+    return sum(e.self_device_time_total for e in evs) / count / 1e3 if count else None
+
+
 # -- phase 2: kernel vs plain version ------------------------------------------------
 
 
@@ -138,7 +187,27 @@ def paged_case(gen, *, B, Hkv, G, D, ps, mp, n_pages, dtype, holes=0, fill=0.8):
     return q, kp, vp, as_dev(pt), as_dev(lengths), k_new, v_new
 
 
-def phase_kernel_cases(fails: Failures, seed: int) -> None:
+PAGED_CASES = [
+    dict(B=3, Hkv=4, G=1, D=64, ps=16, mp=6, n_pages=32, holes=1),
+    dict(B=2, Hkv=2, G=5, D=128, ps=8, mp=5, n_pages=24, window=12),
+    dict(B=2, Hkv=3, G=8, D=64, ps=16, mp=4, n_pages=16, holes=2, post=True),
+    dict(B=2, Hkv=2, G=8, D=128, ps=48, mp=3, n_pages=10, window=40),
+    dict(B=3, Hkv=2, G=3, D=8, ps=4, mp=6, n_pages=20, holes=1),
+    dict(B=2, Hkv=1, G=5, D=64, ps=8, mp=6, n_pages=16, unmapped=True),
+    dict(B=3, Hkv=2, G=1, D=128, ps=8, mp=6, n_pages=24, lane_base=8, stride=16),
+]
+
+# recurrentgemma-2b's local attention: MQA, 10 query heads of 256
+PAGED_CASES_D256 = [
+    dict(B=3, Hkv=1, G=10, D=256, ps=16, mp=12, n_pages=40),
+    dict(B=3, Hkv=1, G=10, D=256, ps=16, mp=12, n_pages=40, post=True),
+    dict(B=3, Hkv=1, G=10, D=256, ps=16, mp=12, n_pages=40, window=48, holes=1),
+    dict(B=3, Hkv=1, G=10, D=256, ps=16, mp=12, n_pages=40, window=48, post=True),
+    dict(B=2, Hkv=1, G=10, D=256, ps=8, mp=20, n_pages=48, window=100, post=True, holes=2),
+]
+
+
+def phase_kernel_cases(fails: Failures, seed: int, cases=PAGED_CASES) -> None:
     import torch
 
     from repro_torch.kernels.paged_attention import (paged_attention,
@@ -147,15 +216,6 @@ def phase_kernel_cases(fails: Failures, seed: int) -> None:
                                                      reference_paged_attention)
 
     gen = torch.Generator().manual_seed(seed)
-    cases = [
-        dict(B=3, Hkv=4, G=1, D=64, ps=16, mp=6, n_pages=32, holes=1),
-        dict(B=2, Hkv=2, G=5, D=128, ps=8, mp=5, n_pages=24, window=12),
-        dict(B=2, Hkv=3, G=8, D=64, ps=16, mp=4, n_pages=16, holes=2, post=True),
-        dict(B=2, Hkv=2, G=8, D=128, ps=48, mp=3, n_pages=10, window=40),
-        dict(B=3, Hkv=2, G=3, D=8, ps=4, mp=6, n_pages=20, holes=1),
-        dict(B=2, Hkv=1, G=5, D=64, ps=8, mp=6, n_pages=16, unmapped=True),
-        dict(B=3, Hkv=2, G=1, D=128, ps=8, mp=6, n_pages=24, lane_base=8, stride=16),
-    ]
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[-1]]
         for c in cases:
@@ -252,6 +312,7 @@ def phase_kernel_timing(fails: Failures, cfg, seed: int) -> dict:
     plain_ms = cuda_time_ms(plain, 40)
     library_ms = cuda_time_ms(library, 40)
     ms_again = cuda_time_ms(kernel, 400, warmup=0)
+    dev_ms = device_ms_per_launch(kernel, 40, "paged_attn_kernel")
 
     live_tokens = int(len_np.sum())
     elt = 2
@@ -265,13 +326,13 @@ def phase_kernel_timing(fails: Failures, cfg, seed: int) -> dict:
     bound_ms = max(t_bytes, t_ops) * 1e3
     print(f"  serving shape: B={SLOTS} Hkv={Hkv} G={G} D={D} page={PAGE} "
           f"max_pages={mp} live tokens={live_tokens} layers rotated={L}")
-    print(f"  kernel {ms:.4f} ms (again {ms_again:.4f}), plain {plain_ms:.4f} ms, "
-          f"gather+SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bytes_moved/1e6:.2f} MB, {flops/1e6:.2f} MFLOP)")
+    print(f"  kernel {ms:.4f} ms (again {ms_again:.4f}; device time per launch "
+          f"{dev_ms} ms), plain {plain_ms:.4f} ms, gather+SDPA {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bytes_moved/1e6:.2f} MB, {flops/1e6:.2f} MFLOP)")
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:99",
-            "launches": None, "max_abs_err": max_err, "ms": ms,
+            "launches": None, "max_abs_err": max_err, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms}
@@ -311,54 +372,60 @@ class TimedScheduler:
         return out
 
 
-def phase_serving(fails: Failures, model, cfg, seed: int) -> int:
+def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUESTS,
+                  sessions=SESSIONS, prompt=PROMPT, max_new=MAX_NEW) -> dict:
+    """Serve the workload through ``ServingFrontend`` -> ``DecodeScheduler(
+    attn_backend='paged_kernel')`` and check what came out.  Every kernel's
+    launch count is set to 0 just before the run and read just after;
+    returns those counts with the scheduler's decode steps and chunks."""
     import numpy as np
     import torch
 
     from repro_torch.coord.serving_front import ServingFrontend
     from repro_torch.core import SimCloud
     from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.rglru_scan import rglru_scan_kernel
     from repro_torch.launch.serve import spawn_workload
     from repro_torch.serve.scheduler import DecodeScheduler
 
-    sched = DecodeScheduler(model, n_slots=SLOTS, max_seq=PROMPT + MAX_NEW,
+    sched = DecodeScheduler(model, n_slots=SLOTS, max_seq=prompt + max_new,
                             page_size=PAGE, prefill_chunk=CHUNK,
                             attn_backend="paged_kernel", seed=seed, device=DEVICE)
     timed = TimedScheduler(sched)
     cloud = SimCloud(seed=seed)
     front = ServingFrontend(cloud, scheduler=timed, batch_size=SLOTS)
-    spawn_workload(cloud, front, vocab=cfg.vocab, n_requests=N_REQUESTS,
-                   sessions=SESSIONS, prompt_len=PROMPT, max_new=MAX_NEW, seed=seed)
+    spawn_workload(cloud, front, vocab=cfg.vocab, n_requests=n_requests,
+                   sessions=sessions, prompt_len=prompt, max_new=max_new, seed=seed)
     sync()
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
     paged_attention_kernel.launches = 0
+    rglru_scan_kernel.launches = 0
     t0 = time.perf_counter()
     cloud.run()
     sync()
     wall = time.perf_counter() - t0
-    launches = paged_attention_kernel.launches
+    counts = {"paged_attention": paged_attention_kernel.launches,
+              "rglru_scan": rglru_scan_kernel.launches,
+              "steps": sched.steps, "chunks": sched.prefill_chunks}
 
     served = sum(len(v) for v in front.completions.values())
-    fails.check(served == N_REQUESTS, f"served {served}/{N_REQUESTS} requests")
+    fails.check(served == n_requests, f"served {served}/{n_requests} requests")
     fifo = all(ids == sorted(ids, key=lambda r: int(r[1:]))
                for ids in front.completions.values())
-    fails.check(fifo and len(front.completions) == SESSIONS,
+    fails.check(fifo and len(front.completions) == sessions,
                 f"per-session FIFO over {len(front.completions)} sessions: "
                 f"{dict(sorted(front.completions.items()))}")
     toks = [np.asarray(t) for outs in front.results.values() for t in outs]
-    fails.check(all(t.shape == (MAX_NEW,) and (t >= 0).all() and (t < cfg.vocab).all()
-                    for t in toks), f"every token in [0, {cfg.vocab}), {MAX_NEW} per request")
+    fails.check(all(t.shape == (max_new,) and (t >= 0).all() and (t < cfg.vocab).all()
+                    for t in toks), f"every token in [0, {cfg.vocab}), {max_new} per request")
     try:
         sched.audit()
         fails.check(True, "scheduler audit")
     except AssertionError as e:
         fails.check(False, f"scheduler audit: {e}")
-    steps = sched.steps
-    fails.check(launches == cfg.n_layers * steps,
-                f"kernel launches {launches} == {cfg.n_layers} layers x {steps} decode steps")
     st = front.serving_stats()
-    print(f"  served in {wall:.3f} s wall: {steps} decode steps, occupancy "
+    print(f"  served in {wall:.3f} s wall: {sched.steps} decode steps, occupancy "
           f"{st['occupancy']} slots/step, {st['decode_tokens']} decode + "
           f"{st['prefill_tokens']} prefill tokens, {st['prefill_chunks']} chunks")
     print(f"  decode tok/s (steps without a chunk): "
@@ -373,31 +440,38 @@ def phase_serving(fails: Failures, model, cfg, seed: int) -> int:
           f"KV pool {st['kv_pool_bytes'] / 2**30:.3f} GiB "
           f"({st['kv_bytes_per_token']} B/token, {st['kv_pages']} pages, "
           f"high water {st['kv_pages_high_water']})")
-    return launches
+    print(f"  kernel launches: {counts}")
+    return counts
 
 
 # -- phase 4: backend agreement ---------------------------------------------------------
 
 
-def phase_agreement(fails: Failures, model, cfg, seed: int) -> None:
+def phase_agreement(fails: Failures, model, cfg, seed: int, *, prompt=PROMPT,
+                    max_new=MAX_NEW) -> None:
     import numpy as np
     import torch
 
+    from repro_torch.serve.engine import make_chunk_step
     from repro_torch.serve.scheduler import DecodeScheduler
 
-    sched = DecodeScheduler(model, n_slots=SLOTS, max_seq=PROMPT + MAX_NEW,
+    sched = DecodeScheduler(model, n_slots=SLOTS, max_seq=prompt + max_new,
                             page_size=PAGE, prefill_chunk=CHUNK, seed=seed,
                             device=DEVICE)
     rng = np.random.default_rng(seed + 1)
     for i in range(SLOTS):
-        sched.submit(f"a{i}", f"a{i}", rng.integers(0, cfg.vocab, size=PROMPT), MAX_NEW)
-    while sched.active_slots() < SLOTS:
+        sched.submit(f"a{i}", f"a{i}", rng.integers(0, cfg.vocab, size=prompt), max_new)
+    while sched.active_slots() < SLOTS and sched.busy():
         sched.step()
+    if not fails.check(sched.active_slots() == SLOTS,
+                       f"{sched.active_slots()}/{SLOTS} slots decoding at once"):
+        return
     fused = copy.copy(model)
     fused.cfg = dataclasses.replace(cfg, attn_backend="paged_kernel")
     tokens = sched.last_tokens[:, None]
     # each step writes its own KV at lane `length` before any read of it
-    # (gather) or masks that lane (kernel), so both can run on one cache
+    # (gather, post-update kernel) or masks that lane (append kernel), and
+    # returns new recurrent rows, so both can run on one cache
     lg, _ = model.decode_step(sched.cache, tokens)
     lk, _ = fused.decode_step(sched.cache, tokens)
     lg, lk = lg[:, -1, :cfg.vocab].float(), lk[:, -1, :cfg.vocab].float()
@@ -411,11 +485,18 @@ def phase_agreement(fails: Failures, model, cfg, seed: int) -> None:
                 f"{AGREE_REL_TOL} x {scale:.4f}")
     if DEVICE == "cuda":
         for label, m in (("gather", model), ("paged_kernel", fused)):
-            profile_step(label, lambda m=m: m.decode_step(sched.cache, tokens))
+            profile_step(f"{label} decode step",
+                         lambda m=m: m.decode_step(sched.cache, tokens))
+        # one prefill chunk for slot 0 past its live length (the slot's
+        # unmapped pages take the writes; the cache is not used afterwards)
+        chunk = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, CHUNK)),
+                                dtype=torch.int32).to(DEVICE)
+        step = make_chunk_step(model)
+        profile_step(f"prefill chunk of {CHUNK}", lambda: step(sched.cache, chunk, 0))
 
 
 def profile_step(label: str, fn) -> None:
-    """One decode step under ``torch.profiler``: wall time (profiler on),
+    """One step under ``torch.profiler``: wall time (profiler on),
     the device's busy time summed over kernels, the idle share, and the
     kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -434,11 +515,293 @@ def profile_step(label: str, fn) -> None:
     if not busy:
         print(f"  profile {label}: no device time recorded (not measured)")
         return
-    print(f"  profile {label} decode step: wall {wall_us / 1e3:.2f} ms (profiler on), "
+    print(f"  profile {label}: wall {wall_us / 1e3:.2f} ms (profiler on), "
           f"device busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
           f"{launches} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+# -- phase 5: RG-LRU scan kernel vs its plain fold ---------------------------------------
+
+
+RGLRU_CASES = [  # (B, L, W, kind)
+    (1, 1, 8, "random"), (2, 16, 24, "random"), (2, 17, 2560, "random"),
+    (8, 1, 2560, "random"), (1, 29, 24, "random"), (8, 29, 8, "resets"),
+    (1, 256, 2560, "random"), (8, 256, 24, "resets"), (2, 2048, 8, "near_one"),
+    (1, 2048, 2560, "random"),
+]
+
+
+def rglru_inputs(gen, B, L, W, kind, dtype):
+    """a in (0.01, 0.99) and standard-normal b; ``near_one``: a = 0.999 and
+    b = 0.01 (a trained RG-LRU's slow channels); ``resets``: a tenth of
+    the a's exactly 0."""
+    import torch
+
+    if kind == "near_one":
+        a = torch.full((B, L, W), 0.999, device=DEVICE)
+        b = torch.full((B, L, W), 0.01, device=DEVICE)
+    else:
+        a = torch.sigmoid(torch.randn(B, L, W, generator=gen).to(DEVICE)) * 0.98 + 0.01
+        b = torch.randn(B, L, W, generator=gen).to(DEVICE)
+        if kind == "resets":
+            a = torch.where(torch.rand(B, L, W, generator=gen).to(DEVICE) < 0.1, 0.0, a)
+    return a.to(dtype).contiguous(), b.to(dtype).contiguous()
+
+
+def phase_rglru_cases(fails: Failures, seed: int) -> None:
+    import torch
+
+    from repro_torch.kernels.rglru_scan import rglru_scan_kernel, rglru_scan_plain
+
+    gen = torch.Generator().manual_seed(seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for B, L, W, kind in RGLRU_CASES:
+            a, b = rglru_inputs(gen, B, L, W, kind, dtype)
+            got = rglru_scan_kernel(a, b)
+            want = rglru_scan_plain(a, b)
+            sync()
+            err = (got.float() - want.float()).abs().max().item()
+            same = torch.equal(got, want)
+            label = f"rglru kernel vs plain {name} [B={B} L={L} W={W} {kind}]"
+            if dtype == torch.float32:
+                fails.check(same, f"{label}: bitwise (max err {err:.3g})")
+            else:
+                fails.check(err <= TOL[name] and torch.isfinite(got).all().item(),
+                            f"{label}: max err {err:.3g} <= {TOL[name]} (bitwise: {same})")
+
+
+# -- phase 7: both kernels at recurrentgemma-2b's serving shapes ---------------------------
+
+
+def input_sets(make, nbytes: int, cold_bytes: float = 120e6, cap: int = 256):
+    """Enough copies of one kernel call's inputs that a loop over them
+    streams more than the 50 MB L2: every timed launch reads cold inputs,
+    as the serving path does."""
+    n = max(2, min(cap, math.ceil(cold_bytes / max(nbytes, 1))))
+    return [make(i) for i in range(n)]
+
+
+def phase_rglru_timing(fails: Failures, seed: int, shape, launches: int) -> dict:
+    import torch
+
+    from repro_torch.kernels.rglru_scan import rglru_scan_kernel, rglru_scan_plain
+
+    B, L, W = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(i):
+        a = torch.sigmoid(torch.randn(B, L, W, generator=gen, device="cuda")) * 0.98 + 0.01
+        return a, torch.randn(B, L, W, generator=gen, device="cuda")
+
+    sets = input_sets(make, 8 * B * L * W)
+    n = len(sets)
+    got = rglru_scan_kernel(*sets[0])
+    want = rglru_scan_plain(*sets[0])
+    max_err = (got - want).abs().max().item()
+    fails.check(torch.equal(got, want),
+                f"rglru kernel vs plain at {shape} fp32: bitwise (max err {max_err:.3g})")
+    iters = max(n, 40)
+    ms = cuda_time_ms(lambda i: rglru_scan_kernel(*sets[i % n]), iters, warmup=n)
+    plain_iters = 3 if L >= 1024 else 10
+    plain_ms = cuda_time_ms(lambda i: rglru_scan_plain(*sets[i % n]), plain_iters, warmup=1)
+    ms_again = cuda_time_ms(lambda i: rglru_scan_kernel(*sets[i % n]), iters, warmup=0)
+    dev_ms = device_ms_per_launch(lambda i: rglru_scan_kernel(*sets[i % n]),
+                                  max(n, 20), "rglru_scan_kernel")
+    elems = B * L * W
+    t_bytes = 12 * elems / HBM_BYTES_PER_S          # read a and b, write h (fp32)
+    t_ops = 2 * elems / FP32_FLOPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    print(f"  rglru_scan {shape} fp32 ({n} input sets): kernel {ms:.4f} ms "
+          f"(again {ms_again:.4f}; device time per launch {dev_ms} ms), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({12 * elems / 1e6:.2f} MB)")
+    return {"name": "rglru_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru_scan/kernel.py:54",
+            "shape": f"a,b {B}x{L}x{W} fp32", "launches": launches,
+            "max_abs_err": max_err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def phase_paged_timing_d256(fails: Failures, cfg, seed: int, launches: int) -> dict:
+    """The paged kernel at the hybrid's decode shape: 8 slots of 2301..2316
+    live tokens (post-update: the new token is in the pool), 145 scrambled
+    pages per slot, window 2048, one pool per attention layer (8 pools,
+    152 MB) rotated so every launch reads cold K/V."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import (paged_attention_kernel,
+                                                     paged_attention_plain)
+    from repro_torch.models.config import layer_pattern
+
+    L = layer_pattern(cfg).count("a")
+    Hkv, D, window = cfg.n_kv_heads, cfg.the_head_dim(), cfg.hybrid.local_window
+    G = cfg.n_heads // Hkv
+    mp = -(-(H_PROMPT + H_MAX_NEW) // PAGE)
+    n_pages = SLOTS * mp
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kp = torch.randn(L, n_pages, PAGE, Hkv, D, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    vp = torch.randn_like(kp)
+    qs = torch.randn(L, SLOTS, Hkv, G, D, generator=gen, device="cuda", dtype=torch.bfloat16)
+    pt = torch.as_tensor(rng.permutation(n_pages).reshape(SLOTS, mp).astype(np.int32)).cuda()
+    pos_np = rng.integers(H_PROMPT, H_PROMPT + H_MAX_NEW, size=SLOTS).astype(np.int32)
+    q_pos = torch.as_tensor(pos_np).cuda()
+    lengths = q_pos + 1                           # post-update: lane pos is attended
+
+    def kernel(i):
+        return paged_attention_kernel(qs[i % L], kp[i % L], vp[i % L], pt, lengths, q_pos,
+                                      window=window)
+
+    def plain(i):
+        return paged_attention_plain(qs[i % L], kp[i % L], vp[i % L], pt, lengths, q_pos,
+                                     window=window)
+
+    T = mp * PAGE
+    lane = torch.arange(T, device="cuda")[None]
+    live = ((lane < lengths[:, None]) & (lane > q_pos[:, None] - window))[:, None, None, :]
+
+    def library(i):
+        # G query rows against the one kv head: (B, Hkv, G, D) as (B, heads, L, D)
+        k = kp[i % L][pt.long()].reshape(SLOTS, T, Hkv, D).transpose(1, 2)
+        v = vp[i % L][pt.long()].reshape(SLOTS, T, Hkv, D).transpose(1, 2)
+        return F.scaled_dot_product_attention(qs[i % L], k, v, attn_mask=live)
+
+    acc, m, l = kernel(0)
+    racc, rm, rl = plain(0)
+    o = acc / l.clamp(min=1e-30)[..., None]
+    ro = racc / rl.clamp(min=1e-30)[..., None]
+    max_err = (o - ro).abs().max().item()
+    lib_err = (o - library(0).float()).abs().max().item()
+    fails.check(max_err <= TOL["bfloat16"],
+                f"kernel vs plain at the hybrid decode shape: max err {max_err:.3g}")
+    fails.check(lib_err <= TOL["bfloat16"],
+                f"kernel vs gather+SDPA at the hybrid decode shape: max err {lib_err:.3g}")
+    ms = cuda_time_ms(kernel, 400, warmup=40)
+    plain_ms = cuda_time_ms(plain, 40)
+    library_ms = cuda_time_ms(library, 40)
+    ms_again = cuda_time_ms(kernel, 400, warmup=0)
+    dev_ms = device_ms_per_launch(kernel, 40, "paged_attn_kernel")
+
+    lanes = int(np.minimum(pos_np + 1, window).sum())    # the lanes the function needs
+    pages = sum(-(-int(p + 1) // PAGE) - (int(p + 1) - min(int(p + 1), window)) // PAGE
+                for p in pos_np)
+    read_lanes = int((pos_np + 1).sum())                 # what the kernel streams
+    elt = 2
+    bytes_moved = (qs[0].numel() * elt + 2 * lanes * Hkv * D * elt + pages * 4
+                   + 2 * SLOTS * 4 + SLOTS * Hkv * G * (D + 2) * 4)
+    flops = 4 * lanes * Hkv * G * D
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    print(f"  hybrid decode shape: B={SLOTS} Hkv={Hkv} G={G} D={D} page={PAGE} "
+          f"max_pages={mp} window={window} in-window lanes={lanes} (kernel streams "
+          f"{read_lanes}) layers rotated={L}")
+    print(f"  kernel {ms:.4f} ms (again {ms_again:.4f}; device time per launch "
+          f"{dev_ms} ms), plain {plain_ms:.4f} ms, gather+SDPA {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bytes_moved/1e6:.2f} MB, {flops/1e6:.2f} MFLOP)")
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:99",
+            "shape": f"recurrentgemma-2b decode: B={SLOTS} Hkv={Hkv} G={G} D={D} "
+                     f"window={window} bf16",
+            "launches": launches, "max_abs_err": max_err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+# -- phase 9: decode vs chunk prefill of the recurrent rows --------------------------------
+
+
+def phase_recurrent_parity(fails: Failures, model, cfg, seed: int) -> None:
+    """One slot: a prefix as one chunk, then N tokens as one chunk or as N
+    S=1 steps from copies of the same state.
+
+    Gated, bitwise: on every RG-LRU layer's gates for the N tokens (taken
+    from the chunk run), the scan with ``h0`` folded in and the conv-tail
+    update, as one N-token chunk and as N S=1 steps, leave the same ``h``
+    and ``conv`` rows, and the per-token states agree.  Printed: the same
+    comparison through the whole model."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import kvcache, layers
+    from repro_torch.models import rglru as rg
+
+    n0, n = PARITY_PREFIX, PARITY_TOKENS
+    n_pages = -(-(n0 + n) // PAGE)
+    toks = torch.as_tensor(np.random.default_rng(seed + 2).integers(
+        0, cfg.vocab, size=(1, n0 + n)), dtype=torch.int32).to(DEVICE)
+    base = kvcache.paged_cache(model, 1, page_size=PAGE, n_pages=n_pages, max_pages=n_pages)
+    base["page_table"][0] = torch.arange(n_pages, dtype=torch.int32)
+    _, base = model.decode_step(base, toks[:, :n0])
+
+    def clone(c):
+        return {k: v.clone() for k, v in c.items()}
+
+    # capture every RG-LRU layer's conv input, conv carry and gates during
+    # the chunk run
+    convs, gates = [], []
+    orig_conv, orig_gates = rg.causal_conv, rg.rglru_gates
+
+    def conv_spy(p, xw, prev):
+        convs.append((p, xw, prev))
+        return orig_conv(p, xw, prev)
+
+    def gates_spy(p, x, nb):
+        a, g = orig_gates(p, x, nb)
+        gates.append((a, g))
+        return a, g
+
+    rg.causal_conv, rg.rglru_gates = conv_spy, gates_spy
+    try:
+        _, whole = model.decode_step(clone(base), toks[:, n0:])
+    finally:
+        rg.causal_conv, rg.rglru_gates = orig_conv, orig_gates
+    stepped = clone(base)
+    for t in range(n):
+        _, stepped = model.decode_step(stepped, toks[:, n0 + t:n0 + t + 1])
+    sync()
+
+    # the recurrence alone: chunk vs S=1 steps on the same inputs
+    ok, worst = len(gates) == len(convs) == base["h"].shape[0], 0.0
+    for j, ((p, xw, prev), (a, g)) in enumerate(zip(convs, gates)):
+        h0 = base["h"][j]
+        chunk = rg.rglru_scan(g, a, h0)
+        xc_chunk, tail_chunk = rg.causal_conv(p, xw, prev)
+        h, tail, hs, xcs = h0, prev, [], []
+        for t in range(n):
+            h = rg.rglru_scan(g[:, t:t + 1], a[:, t:t + 1], h)[:, 0]
+            xc, tail = rg.causal_conv(p, xw[:, t:t + 1], tail)
+            hs.append(h)
+            xcs.append(xc)
+        hs = torch.stack(hs, 1)
+        ok &= (torch.equal(chunk, hs) and torch.equal(chunk[:, -1], whole["h"][j])
+               and torch.equal(xc_chunk, torch.cat(xcs, 1))
+               and torch.equal(tail_chunk, tail) and torch.equal(tail, whole["conv"][j]))
+        worst = max(worst, (chunk - hs).abs().max().item())
+    fails.check(ok, f"RG-LRU h and conv rows, {n}-token chunk vs {n} S=1 steps on the "
+                f"same inputs, {len(gates)} layers: bitwise (max |delta h| {worst:.3g})")
+
+    # the whole model: every projection too (cuBLAS picks kernels by shape)
+    diffs = {key: (whole[key].float() - stepped[key].float()).abs().max().item()
+             for key in ("h", "conv")}
+    lanes = slice(n0, n0 + n)
+    for key in ("kp", "vp"):
+        a_ = whole[key][:, :n_pages].flatten(1, 2)[:, lanes].float()
+        b_ = stepped[key][:, :n_pages].flatten(1, 2)[:, lanes].float()
+        diffs[key] = (a_ - b_).abs().max().item()
+    bitwise = all(v == 0.0 for v in diffs.values())
+    scale = whole["h"].abs().max().item()
+    print(f"  whole model, {n}-token chunk vs {n} S=1 steps: bitwise {bitwise}, "
+          f"max |delta| {diffs} (|h| up to {scale:.4g}, hidden dtype "
+          f"{layers.COMPUTE_DTYPE})")
 
 
 def main() -> int:
@@ -454,6 +817,7 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.kernels import build
     from repro_torch.models import build_model
+    from repro_torch.models.config import layer_pattern
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -484,10 +848,66 @@ def main() -> int:
     wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
     print(f"  random init in {time.perf_counter() - t0:.2f} s, weights "
           f"{wbytes / 1e9:.3f} GB")
-    record["launches"] = phase_serving(fails, model, cfg, args.seed)
+    counts = phase_serving(fails, model, cfg, args.seed)
+    fails.check(counts["paged_attention"] == cfg.n_layers * counts["steps"],
+                f"paged kernel launches {counts['paged_attention']} == {cfg.n_layers} "
+                f"layers x {counts['steps']} decode steps")
+    record["shape"] = f"{ARCH} decode: B={SLOTS} Hkv={cfg.n_kv_heads} G=1 " \
+                      f"D={cfg.the_head_dim()} bf16"
+    record["launches"] = counts["paged_attention"]
 
     print("[4] backend agreement at full width")
     phase_agreement(fails, model, cfg, args.seed)
+    del model
+    torch.cuda.empty_cache()
+
+    print("[5] RG-LRU scan kernel and the paged kernel at D=256 vs plain versions")
+    phase_rglru_cases(fails, args.seed)
+    phase_kernel_cases(fails, args.seed, cases=PAGED_CASES_D256)
+
+    hcfg = configs.get(HYBRID)
+    pat = layer_pattern(hcfg)
+    n_rec, n_attn = pat.count("r"), pat.count("a")
+    print(f"[6] full-width {HYBRID} serving: {hcfg.n_layers} layers ({n_rec} RG-LRU, "
+          f"{n_attn} local attention, window {hcfg.hybrid.local_window}), d_model "
+          f"{hcfg.d_model}, {hcfg.n_heads}x{hcfg.the_head_dim()} heads (kv "
+          f"{hcfg.n_kv_heads}), lru width {hcfg.hybrid.lru_width}, vocab {hcfg.vocab}, "
+          f"{hcfg.param_count() / 1e9:.3f} B params")
+    t0 = time.perf_counter()
+    hmodel = build_model(hcfg, device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in hmodel.parameters())
+    nparams = sum(p.numel() for p in hmodel.parameters())
+    print(f"  random init in {time.perf_counter() - t0:.2f} s, {nparams / 1e9:.3f} B "
+          f"weights, {wbytes / 1e9:.3f} GB")
+    hcounts = phase_serving(fails, hmodel, hcfg, args.seed, n_requests=H_REQUESTS,
+                            sessions=H_SESSIONS, prompt=H_PROMPT, max_new=H_MAX_NEW)
+    steps, chunks = hcounts["steps"], hcounts["chunks"]
+    fails.check(hcounts["paged_attention"] == n_attn * steps,
+                f"paged kernel launches {hcounts['paged_attention']} == {n_attn} "
+                f"attention layers x {steps} decode steps")
+    fails.check(hcounts["rglru_scan"] == n_rec * (steps + chunks),
+                f"rglru kernel launches {hcounts['rglru_scan']} == {n_rec} RG-LRU layers "
+                f"x ({steps} decode steps + {chunks} prefill chunks)")
+    fails.check(chunks == H_REQUESTS * -(-H_PROMPT // CHUNK),
+                f"{chunks} prefill chunks == {H_REQUESTS} x ceil({H_PROMPT}/{CHUNK})")
+
+    print("[7] kernels at the hybrid's serving shapes (CUDA events)")
+    records = [record]
+    records.append(phase_paged_timing_d256(fails, hcfg, args.seed,
+                                           hcounts["paged_attention"]))
+    W = hcfg.hybrid.lru_width
+    # launches on the serving path by shape: a chunk launch per RG-LRU layer
+    # and chunk, a decode launch per layer and step; no 2048-token chunk runs
+    for shape, launches in (((1, CHUNK, W), n_rec * chunks), ((SLOTS, 1, W), n_rec * steps),
+                            ((1, 2048, W), 0)):
+        records.append(phase_rglru_timing(fails, args.seed, shape, launches))
+
+    print("[8] backend agreement at full width (hybrid)")
+    phase_agreement(fails, hmodel, hcfg, args.seed, prompt=H_PROMPT, max_new=H_MAX_NEW)
+
+    print("[9] decode vs chunk prefill of one slot's recurrent rows (full width)")
+    phase_recurrent_parity(fails, hmodel, hcfg, args.seed)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if fails:
@@ -495,7 +915,7 @@ def main() -> int:
         for f in fails:
             print(f"  {f}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Each module defines ``CONFIG``, the full-scale config.  Only the dense
-architectures have a model in this package; the others raise until their
-family is ported.
+Each module defines ``CONFIG``, the full-scale config.  The dense
+architectures and the recurrentgemma hybrid have a model in this package;
+the others raise until their family is ported.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ _ALIAS = {
     "qwen3-14b": "qwen3_14b",
     "qwen1.5-110b": "qwen1p5_110b",
     "minicpm-2b": "minicpm_2b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 # architectures of families this package does not serve yet

@@ -33,6 +33,12 @@
 // context runs in one block, so B x Hkv blocks (288 at the serving shape) are
 // only ~2 waves on 132 SMs and a long context has no split over pages
 // (split-K with a merge pass); with G = 1 only one warp scores a tile.
+//
+// recurrentgemma-2b's local-attention layers call it at D = 256, Hkv = 1,
+// G = 10 with a 2048-token window: 87.5 KB of shared memory (the opt-in path
+// above 48 KB) and a grid of Hkv x B = 8 blocks at 8 slots.  The page loop
+// starts at page 0 and masks lanes outside the window, so past the window it
+// reads pages that no lane attends.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -199,6 +205,7 @@ cudaError_t launch_dim(int D, const void* q, const void* kp, const void* vp,
         PA_CASE(32)
         PA_CASE(64)
         PA_CASE(128)
+        PA_CASE(256)
         default:
             return cudaErrorInvalidValue;
     }

@@ -22,7 +22,7 @@ import torch
 
 from .ref import paged_attention_plain
 
-_HEAD_DIMS = (8, 16, 32, 64, 128)
+_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 

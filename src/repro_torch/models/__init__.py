@@ -1,4 +1,4 @@
-"""Data-plane model zoo (dense family so far).
+"""Data-plane model zoo (dense and hybrid families so far).
 
 ``build_model(cfg, device=..., seed=...)`` dispatches on ``cfg.family`` and
 returns an ``nn.Module`` with the interface::
@@ -17,7 +17,7 @@ import torch
 
 from .config import ArchConfig
 
-_NOT_PORTED = ("moe", "ssm", "hybrid", "audio", "vlm")
+_NOT_PORTED = ("moe", "ssm", "audio", "vlm")
 
 
 def build_model(cfg: ArchConfig, *, device="cuda", seed: Optional[int] = 0):
@@ -28,6 +28,11 @@ def build_model(cfg: ArchConfig, *, device="cuda", seed: Optional[int] = 0):
 
         gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
         return DenseLM(cfg, device=device, generator=gen)
+    if cfg.family == "hybrid":
+        from .rglru import RecurrentLM
+
+        gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+        return RecurrentLM(cfg, device=device, generator=gen)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     raise ValueError(f"unknown family {cfg.family}")

@@ -1,18 +1,19 @@
 """Architecture configuration for the data plane.
 
 One :class:`ArchConfig` instance fully describes a model family member; the
-dense architectures live in :mod:`repro_torch.configs` as module-level
+architectures live in :mod:`repro_torch.configs` as module-level
 constants built from this dataclass.  ``reduced()`` produces the smoke-test
 scale of the same family (same code paths, tiny dims).
 
 The sub-configs of the other families (MoE, SSM, hybrid, enc-dec, VLM) are
-kept so ``reduced()`` builds the same dataclass for every family; only the
-dense family has a model in this package so far.
+kept so ``reduced()`` builds the same dataclass for every family; the dense
+and hybrid families have a model in this package so far.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -119,13 +120,23 @@ class ArchConfig:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
 
     def param_count(self) -> int:
-        """Parameters of a dense member (embedding + head + layers)."""
+        """Parameters of a dense or hybrid member (embedding + head +
+        layers), counted as the JAX package counts them."""
         d, f = self.d_model, self.d_ff
         hd = self.the_head_dim()
         q_dim, kv = self.n_heads * hd, self.n_kv_heads * hd
         attn = d * (q_dim + 2 * kv) + q_dim * d
         mlp = d * f * (3 if self.mlp in ("swiglu", "geglu") else 2)
-        n = self.n_layers * (attn + mlp)
+        if self.family == "hybrid":
+            h = self.hybrid
+            lw = h.lru_width or d
+            pat = layer_pattern(self)
+            # x/y projections, conv, output projection, gates (the JAX
+            # package's estimate: block-diagonal gates as 8 blocks)
+            rec = d * lw * 2 + lw * h.d_conv + lw * d + 3 * lw + 2 * lw * (lw // 8)
+            n = pat.count("r") * rec + pat.count("a") * attn + self.n_layers * mlp
+        else:
+            n = self.n_layers * (attn + mlp)
         return n + self.vocab * d * (1 if self.tie_embeddings else 2)
 
     def reduced(self) -> "ArchConfig":
@@ -155,3 +166,10 @@ class ArchConfig:
         if self.vlm is not None:
             kw["vlm"] = VLMConfig(n_patches=4, patch_dim=64)
         return dataclasses.replace(self, **kw)
+
+
+def layer_pattern(cfg: ArchConfig) -> str:
+    """Expanded per-layer kind string for hybrid archs, e.g. 'rrarra...'."""
+    assert cfg.hybrid is not None
+    p = cfg.hybrid.pattern
+    return (p * math.ceil(cfg.n_layers / len(p)))[: cfg.n_layers]

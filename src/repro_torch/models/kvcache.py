@@ -18,6 +18,14 @@ A cache is a dict of tensors; KV leaves are stacked over layers.
                                                     map (-1 = unmapped)
   length     : (B,) int32
 
+**Recurrent rows** (hybrid models, beside either layout)::
+
+  h          : (n_rec, B, W) fp32                 RG-LRU state per slot
+  conv       : (n_rec, B, K-1, W) bf16            conv tail per slot
+
+The K/V leaves stack only the layers that keep K/V (``model.n_kv_layers``:
+every layer of a dense model, the local-attention layers of a hybrid).
+
 Token at absolute position ``p`` of slot ``b`` lives at
 ``kp[:, page_table[b, p // page_size], p % page_size]``.  One page table
 serves every layer (the JAX package replicates it per layer so its layer
@@ -26,12 +34,14 @@ are handed out by the host-side :class:`PageAllocator` (alloc-on-write,
 free-on-completion).  Validity is derived, not stored: lane ``t`` is
 attendable iff its page is mapped and ``t < upto``.
 
-**Writes are in place.**  The JAX package returns a new cache from every
-update; here ``cache_update_layer``, ``cache_clear_slot``, ``set_page_row``
-and ``cache_insert_slot`` write into the caller's tensors, so the pool is
-never copied.  A write through an unmapped page-table entry goes to the
-scratch page, which no table maps, so a freed slot's stale decode traffic
-can never land in a page that now belongs to another slot.
+**K/V writes are in place.**  The JAX package returns a new cache from
+every update; here ``cache_update_layer``, ``cache_clear_slot``,
+``set_page_row`` and ``cache_insert_slot`` write into the caller's tensors,
+so the pool is never copied.  A decode step returns new recurrent rows
+instead (they are small), so :func:`mask_slot_rows` can restore them.  A
+write through an unmapped page-table entry goes to the scratch page, which
+no table maps, so a freed slot's stale decode traffic can never land in a
+page that now belongs to another slot.
 """
 
 from __future__ import annotations
@@ -45,6 +55,8 @@ from .layers import COMPUTE_DTYPE
 
 # Leaf keys of the shared page pool: no slot axis, never sliced per slot.
 POOL_KEYS = frozenset({"kp", "vp"})
+# Per-slot recurrent leaves, stacked over layers: the slot axis is 1.
+RECURRENT_KEYS = ("h", "conv")
 
 
 def init_attn_cache(n_layers: int, B: int, T: int, n_kv: int, head_dim: int,
@@ -171,7 +183,8 @@ def _paged_kv_view(layer_cache: Dict, upto: torch.Tensor) -> Tuple[torch.Tensor,
 def paged_attn_decode(layer_cache: Dict, q: torch.Tensor, pos: torch.Tensor, *,
                       window: Optional[int] = None,
                       k_new: Optional[torch.Tensor] = None,
-                      v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      v_new: Optional[torch.Tensor] = None,
+                      include_new: bool = False) -> torch.Tensor:
     """Table-indirect decode attention over the paged pool through the CUDA
     kernel (``attn_backend='paged_kernel'``): the slot's K/V pages stream
     straight from the pool, the gathered (B, T, Hkv, D) view never exists.
@@ -182,7 +195,9 @@ def paged_attn_decode(layer_cache: Dict, q: torch.Tensor, pos: torch.Tensor, *,
     contract: the pre-update pool plus a rank-1 new-token term).  The pool
     may already hold the token at lane ``pos`` — writes are in place — but
     the kernel masks lanes ``>= lengths = pos``, so it is not read twice.
-    q: (B, 1, H, D).
+    With ``include_new`` the token was already written into the pool
+    (hybrid local-attention layers) and lane ``pos`` itself is attended
+    (lengths ``pos + 1``).  q: (B, 1, H, D).
     """
     from ..kernels.paged_attention import paged_attention
 
@@ -190,8 +205,9 @@ def paged_attn_decode(layer_cache: Dict, q: torch.Tensor, pos: torch.Tensor, *,
     pos = pos.to(torch.int32)
     if pos.ndim == 0:
         pos = pos.expand(B)
+    lengths = pos + 1 if include_new else pos
     return paged_attention(q, layer_cache["kp"], layer_cache["vp"],
-                           layer_cache["page_table"], pos, q_pos=pos,
+                           layer_cache["page_table"], lengths, q_pos=pos,
                            window=window, k_new=k_new, v_new=v_new)
 
 
@@ -283,54 +299,75 @@ class PageAllocator:
 def paged_cache(model, n_slots: int, *, page_size: int, n_pages: int,
                 max_pages: int) -> Dict[str, torch.Tensor]:
     """A paged decode cache for ``n_slots`` slots on the model's device:
-    a shared pool, an unmapped ``(n_slots, max_pages)`` page table and
-    per-slot lengths.  The pool holds ``n_pages`` allocatable pages plus one
-    scratch page at index ``n_pages`` that no table maps: writes through
-    unmapped entries land there (the JAX package drops them as
-    out-of-bounds scatters)."""
+    a shared pool for the layers that keep K/V, an unmapped ``(n_slots,
+    max_pages)`` page table, per-slot lengths and the model's per-slot
+    recurrent rows (none for a dense model).  The pool holds ``n_pages``
+    allocatable pages plus one scratch page at index ``n_pages`` that no
+    table maps: writes through unmapped entries land there (the JAX package
+    drops them as out-of-bounds scatters)."""
     cfg, device = model.cfg, model.device
-    shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads,
+    shape = (model.n_kv_layers, n_pages + 1, page_size, cfg.n_kv_heads,
              cfg.the_head_dim())
-    return {
+    cache = {
         "kp": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
         "vp": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
         "page_table": torch.full((n_slots, max_pages), -1, dtype=torch.int32,
                                  device=device),
         "length": torch.zeros((n_slots,), dtype=torch.int32, device=device),
     }
+    cache.update(model.recurrent_rows(n_slots))
+    return cache
+
+
+def _recurrent(cache: Dict):
+    return [k for k in RECURRENT_KEYS if k in cache]
 
 
 def mask_slot_rows(new_cache: Dict, old_cache: Dict, keep: torch.Tensor) -> Dict:
     """Keep a decode step's updates only for slots where ``keep`` is True.
 
-    A decode step on the paged cache replaces only ``length`` (pool writes
-    are in place and, for inactive slots, land in pages the slot owns past
-    its length — overwritten by the slot's next chunk before any read — or
-    are dropped by an unmapped table row).  Ring leaves are written in place
-    per slot and cannot be restored after the fact, so ring caches are
-    refused."""
+    A decode step on the paged cache replaces ``length`` and the recurrent
+    rows with new tensors; inactive slots get their old rows back, so a
+    batched step cannot advance their lengths or evolve their recurrent
+    state.  Pool writes are in place and, for inactive slots, land in pages
+    the slot owns past its length — overwritten by the slot's next chunk
+    before any read — or are dropped by an unmapped table row.  Ring leaves
+    are written in place per slot and cannot be restored after the fact, so
+    ring caches are refused."""
     if not is_paged(new_cache):
         raise ValueError("mask_slot_rows needs a paged cache: ring rows are "
                          "written in place")
     out = dict(new_cache)
     out["length"] = torch.where(keep, new_cache["length"], old_cache["length"])
+    for key in _recurrent(new_cache):
+        new = new_cache[key]
+        k = keep.reshape((1, -1) + (1,) * (new.ndim - 2))
+        out[key] = torch.where(k, new, old_cache[key])
     return out
 
 
 def cache_slot_view(batch_cache: Dict, slot: int) -> Dict:
-    """The B=1 view of one slot of a paged cache: its page-table row and
-    length as views into the batch cache, the pool passed through whole."""
-    return {"kp": batch_cache["kp"], "vp": batch_cache["vp"],
+    """The B=1 view of one slot of a paged cache: its page-table row,
+    length and recurrent rows as views into the batch cache, the pool
+    passed through whole."""
+    view = {"kp": batch_cache["kp"], "vp": batch_cache["vp"],
             "page_table": batch_cache["page_table"].narrow(0, slot, 1),
             "length": batch_cache["length"].narrow(0, slot, 1)}
+    for key in _recurrent(batch_cache):
+        view[key] = batch_cache[key].narrow(1, slot, 1)
+    return view
 
 
 def cache_clear_slot(batch_cache: Dict, slot: int) -> Dict:
-    """Unmap one slot's page-table row and zero its length, in place: fresh
-    state for an admission and, on completion, an unmapped row so the freed
-    slot's residual decode writes go to the scratch page."""
+    """Unmap one slot's page-table row and zero its length and recurrent
+    rows, in place: fresh state for an admission (a request admitted into a
+    reused slot must not start from its predecessor's state) and, on
+    completion, an unmapped row so the freed slot's residual decode writes
+    go to the scratch page."""
     batch_cache["page_table"][slot] = -1
     batch_cache["length"][slot] = 0
+    for key in _recurrent(batch_cache):
+        batch_cache[key][:, slot] = 0
     return batch_cache
 
 
@@ -343,9 +380,11 @@ def set_page_row(batch_cache: Dict, slot: int, row) -> Dict:
 
 def cache_insert_slot(batch_cache: Dict, one_cache: Dict, slot: int) -> Dict:
     """Write back a B=1 step on a :func:`cache_slot_view`: the pool and the
-    page-table row were written through in place, so only the slot's
-    advanced length is copied."""
+    page-table row were written through in place, so the slot's advanced
+    length and its new recurrent rows are copied."""
     batch_cache["length"][slot] = one_cache["length"].reshape(())
+    for key in _recurrent(batch_cache):
+        batch_cache[key][:, slot] = one_cache[key][:, 0]
     return batch_cache
 
 

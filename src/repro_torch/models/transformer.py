@@ -125,9 +125,18 @@ class DenseLM(nn.Module):
 
     # -- decode ------------------------------------------------------------------
 
+    @property
+    def n_kv_layers(self) -> int:
+        """Layers that keep K/V (all of them)."""
+        return self.cfg.n_layers
+
     def cache_len(self, seq_len: int) -> int:
         w = self.cfg.sliding_window
         return min(seq_len, w) if w else seq_len
+
+    def recurrent_rows(self, B: int) -> Dict[str, torch.Tensor]:
+        """Per-slot recurrent state beside the K/V: none in a dense model."""
+        return {}
 
     def init_cache(self, B: int, seq_len: int) -> Dict[str, torch.Tensor]:
         cfg = self.cfg

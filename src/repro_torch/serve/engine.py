@@ -22,10 +22,10 @@ def make_chunk_step(model) -> Callable:
     """Prefill one prompt chunk for a *single slot* of a batched paged cache.
 
     The chunk runs as a B=1 forward against the shared page pool: per-slot
-    leaves (length, page-table row) are viewed at ``slot``, the pool is
-    passed whole (the slot exclusively owns the pages its row maps, so its
-    writes cannot race the other slots), and the advanced length is written
-    back.
+    leaves (length, page-table row, recurrent rows) are viewed at ``slot``,
+    the pool is passed whole (the slot exclusively owns the pages its row
+    maps, so its writes cannot race the other slots), and the advanced
+    length and new recurrent rows are written back.
     """
 
     def chunk_step(cache, tokens, slot: int):

@@ -21,10 +21,11 @@ uncommitted pages cover its worst case, so lazy mapping can never deadlock
 mid-decode.
 
 The batched decode step masks non-ACTIVE slots out of the token write, the
-output ring and the length advance (:func:`kvcache.mask_slot_rows`): a
-freed or mid-admission slot's stale state cannot advance, and its pool
-writes either land past its length in pages it owns (overwritten by its next
-chunk before any read) or go to the scratch page through an unmapped row.
+output ring, the length advance and (hybrid models) the recurrent rows
+(:func:`kvcache.mask_slot_rows`): a freed or mid-admission slot's stale
+state cannot advance, and its pool writes either land past its length in
+pages it owns (overwritten by its next chunk before any read) or go to the
+scratch page through an unmapped row.
 
 Per-session FIFO is structural: a session's next request is admitted only
 after its predecessor completes, and the pending list is scanned in arrival
@@ -53,7 +54,7 @@ from . import sampling
 from .engine import make_chunk_step
 from .lifecycle import Slot, SlotState
 
-CONTINUOUS_FAMILIES = ("dense",)
+CONTINUOUS_FAMILIES = ("dense", "hybrid")
 
 
 def supports_continuous(cfg) -> bool:
