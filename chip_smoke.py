@@ -54,9 +54,33 @@ last line is printed):
    printed: its matmuls run through cuBLAS, whose kernel for M = 1 rows may
    differ from the one for M = N.
 
-Phases 4 and 8 also trace one decode step per backend and one prefill
-chunk with ``torch.profiler`` (wall time with the profiler on, device busy
-time, idle share, kernel launches and the heaviest kernels).
+10. SSD scan kernel vs its plain chunked form on the card: fp32 and bf16;
+    B 1/2/8; L 1/8/37/252/256/2048; H 6/64; P 4/64; N 8/128; zero and
+    nonzero ``h0``; rows with dt = 0; |A dt| up to ~100.  fp32 within 1e-4
+    (the JAX kernel-vs-model tolerance), bf16 ``y`` within 3e-2 x 5, the
+    fp32 final state within 1e-4.
+11. Full-width, full-depth ``mamba2-1.3b`` (48 layers, d_model 2048, 64 SSD
+    heads of 64, d_state 128; random weights from ``--seed``) served
+    through ``ServingFrontend`` -> ``DecodeScheduler(kv_mode='paged')``
+    (gather backend: there is no attention): 8 requests over 8 sessions,
+    prompt 2300 (9 chunks of 256, the last 252), 32 new tokens, 8 slots.
+    Checks as in phase 3, no pool pages, and SSD launches exactly 48 x
+    (decode steps + chunks).
+12. The SSD kernel timed with CUDA events at (1, 256, 64, 64, 128) (one
+    prefill chunk), (8, 1, 64, 64, 128) (one decode step) and
+    (1, 2048, 64, 64, 128), each against its bound and its plain version.
+13. The SSM decode step's costs outside the kernel (``mask_slot_rows``
+    over the 768 MiB of SSD state of 8 slots, the per-layer
+    ``torch.stack``), and one decode step and one prefill chunk traced.
+14. Decode vs chunk prefill of one SSM slot at full width: the kernel on
+    every layer's inputs, one N-token launch vs N one-token launches
+    carrying the state (tolerances as in phase 10), and the whole model
+    (logits and rows within 5% of their scale); the max |delta| printed.
+
+Phases 4, 8 and 13 trace steps with ``torch.profiler`` (wall time with the
+profiler on, device busy time, idle share, kernel launches and the
+heaviest kernels).  No phase is cut in depth: every path runs at its full
+depth and the whole script stays well inside its time limit.
 
 Each serving phase sets the launch counts to 0 just before it drives the
 path and reads them just after.  The line before the last is the kernels'
@@ -93,7 +117,10 @@ SLOTS, PAGE, CHUNK = 8, 16, 256
 
 HYBRID = "recurrentgemma-2b"
 H_REQUESTS, H_SESSIONS, H_PROMPT, H_MAX_NEW = 8, 8, 2300, 16
-PARITY_PREFIX, PARITY_TOKENS = 40, 29     # phase 9: prefix chunk, then N tokens
+PARITY_PREFIX, PARITY_TOKENS = 40, 29     # phases 9, 14: prefix chunk, then N tokens
+
+SSM = "mamba2-1.3b"
+S_REQUESTS, S_SESSIONS, S_PROMPT, S_MAX_NEW = 8, 8, 2300, 32
 
 
 class Failures(list):
@@ -373,11 +400,12 @@ class TimedScheduler:
 
 
 def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUESTS,
-                  sessions=SESSIONS, prompt=PROMPT, max_new=MAX_NEW) -> dict:
+                  sessions=SESSIONS, prompt=PROMPT, max_new=MAX_NEW,
+                  attn_backend="paged_kernel") -> dict:
     """Serve the workload through ``ServingFrontend`` -> ``DecodeScheduler(
-    attn_backend='paged_kernel')`` and check what came out.  Every kernel's
-    launch count is set to 0 just before the run and read just after;
-    returns those counts with the scheduler's decode steps and chunks."""
+    attn_backend=...)`` and check what came out.  Every kernel's launch
+    count is set to 0 just before the run and read just after; returns
+    those counts with the scheduler's decode steps, chunks and pool pages."""
     import numpy as np
     import torch
 
@@ -385,12 +413,13 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
     from repro_torch.core import SimCloud
     from repro_torch.kernels.paged_attention import paged_attention_kernel
     from repro_torch.kernels.rglru_scan import rglru_scan_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
     from repro_torch.launch.serve import spawn_workload
     from repro_torch.serve.scheduler import DecodeScheduler
 
     sched = DecodeScheduler(model, n_slots=SLOTS, max_seq=prompt + max_new,
                             page_size=PAGE, prefill_chunk=CHUNK,
-                            attn_backend="paged_kernel", seed=seed, device=DEVICE)
+                            attn_backend=attn_backend, seed=seed, device=DEVICE)
     timed = TimedScheduler(sched)
     cloud = SimCloud(seed=seed)
     front = ServingFrontend(cloud, scheduler=timed, batch_size=SLOTS)
@@ -401,13 +430,16 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
         torch.cuda.reset_peak_memory_stats()
     paged_attention_kernel.launches = 0
     rglru_scan_kernel.launches = 0
+    ssd_scan_kernel.launches = 0
     t0 = time.perf_counter()
     cloud.run()
     sync()
     wall = time.perf_counter() - t0
     counts = {"paged_attention": paged_attention_kernel.launches,
               "rglru_scan": rglru_scan_kernel.launches,
-              "steps": sched.steps, "chunks": sched.prefill_chunks}
+              "ssd_scan": ssd_scan_kernel.launches,
+              "steps": sched.steps, "chunks": sched.prefill_chunks,
+              "pages": sched.allocator.n_pages}
 
     served = sum(len(v) for v in front.completions.values())
     fails.check(served == n_requests, f"served {served}/{n_requests} requests")
@@ -804,6 +836,285 @@ def phase_recurrent_parity(fails: Failures, model, cfg, seed: int) -> None:
           f"{layers.COMPUTE_DTYPE})")
 
 
+# -- phase 10: SSD scan kernel vs its plain chunked form ---------------------------------
+
+
+SSD_CASES = [  # (B, L, H, P, N, h0, kind)
+    (1, 1, 6, 4, 8, True, "random"), (2, 8, 6, 4, 8, False, "random"),
+    (2, 37, 6, 4, 8, True, "dt_zero"), (2, 37, 6, 4, 8, True, "big_decay"),
+    (8, 8, 6, 64, 128, True, "dt_zero"),
+    (8, 1, 64, 64, 128, True, "random"), (2, 37, 64, 64, 128, True, "big_decay"),
+    (1, 252, 64, 64, 128, True, "random"), (1, 256, 64, 64, 128, False, "random"),
+    (1, 256, 64, 64, 128, True, "big_decay"), (1, 2048, 64, 64, 128, True, "dt_zero"),
+]
+
+
+def ssd_inputs(gen, B, L, H, P, N, h0, kind, dtype, device=None):
+    """x normal; dt = softplus(normal); A = -exp(0.3 normal); B and C 0.5
+    normal; h0 normal or None.  ``dt_zero``: every third token has dt = 0
+    (the padding the plain version uses); ``big_decay``: A from -1 to -16
+    (mamba2's init range) and dt x 4, so |A dt| reaches ~100 in a step."""
+    import torch
+    import torch.nn.functional as F
+
+    device = device or DEVICE
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=gen.device).to(device)
+
+    x = rnd(B, L, H, P)
+    dt = F.softplus(rnd(B, L, H))
+    A = -torch.exp(rnd(H) * 0.3)
+    Bm, Cm = rnd(B, L, N) * 0.5, rnd(B, L, N) * 0.5
+    h = rnd(B, H, P, N) if h0 else None
+    if kind == "dt_zero":
+        dt[:, ::3] = 0.0
+    if kind == "big_decay":
+        dt = dt * 4
+        A = -torch.linspace(1.0, 16.0, H, device=device)
+    return (x.to(dtype).contiguous(), dt.contiguous(), A.contiguous(),
+            Bm.to(dtype).contiguous(), Cm.to(dtype).contiguous(), h)
+
+
+def ssd_close(got, want, tol: float, normwise: bool = False) -> bool:
+    """``|got - want| <= atol + tol |want|`` elementwise (``allclose``), with
+    ``atol = tol``, or ``tol`` times the largest ``|want|`` when
+    ``normwise``."""
+    got, want = got.double(), want.double()
+    atol = tol * (want.abs().max().item() if normwise else 1.0)
+    return bool(((got - want).abs() <= atol + tol * want.abs()).all().item())
+
+
+def phase_ssd_cases(fails: Failures, seed: int) -> None:
+    """fp32 within 1e-4 (the JAX kernel-vs-model tolerance), bf16 ``y``
+    within ``3e-2 * 5`` (the JAX sweep's), the fp32 final state within 1e-4
+    in both.
+
+    At |A dt| up to ~100 (``big_decay``, fp32) ``y`` is held normwise:
+    1e-4 of its largest magnitude.  There cums falls to -thousands, and
+    exp(cums_i - cums_j) of two such fp32 numbers carries their rounding;
+    the plain version itself (chunk 256) then misses the float64 answer by
+    more than 1e-4 elementwise, and the kernel (chunk 64) by less.  Both
+    are printed against the plain version run in float64, and the kernel is
+    held to that normwise too."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_plain
+
+    gen = torch.Generator().manual_seed(seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        tol = 1e-4 if dtype == torch.float32 else TOL[name] * 5
+        for B, L, H, P, N, h0, kind in SSD_CASES:
+            args = ssd_inputs(gen, B, L, H, P, N, h0, kind, dtype)
+            y, h = ssd_scan_kernel(*args)
+            yr, hr = ssd_scan_plain(*args)
+            sync()
+            err = (y.float() - yr.float()).abs().max().item()
+            herr = (h - hr).abs().max().item()
+            normwise = kind == "big_decay" and dtype == torch.float32
+            ok = (ssd_close(y, yr, tol, normwise) and ssd_close(h, hr, 1e-4)
+                  and torch.isfinite(y.float()).all().item())
+            label = f"[B={B} L={L} H={H} P={P} N={N} h0={h0} {kind}]"
+            fails.check(ok, f"ssd kernel vs plain {name} {label}: max err y {err:.3g}, "
+                        f"h {herr:.3g} ({'normwise ' if normwise else ''}allclose {tol:g})")
+            if normwise:
+                y64, h64 = ssd_scan_plain(*(None if a is None else a.double() for a in args))
+                errs = {k: (v.double() - y64).abs().max().item()
+                        for k, v in (("kernel", y), ("plain fp32", yr))}
+                fails.check(ssd_close(y, y64, tol, True) and ssd_close(h, h64, 1e-4),
+                            f"  against the plain version in float64 {label}: max err y "
+                            f"{errs} (scale {y64.abs().max().item():.4g}), kernel h "
+                            f"{(h.double() - h64).abs().max().item():.3g}")
+
+
+# -- phase 12: the SSD kernel at mamba2-1.3b's serving shapes -----------------------------
+
+
+def ssd_bound(B, L, H, P, N, elt: int, chunk: int):
+    """(bytes, operations) the function needs: each input read once, each
+    output written once; operations the fewer of the token-by-token
+    recurrence (5 P N + P per token and head: decay, outer-product update,
+    C . h) and the chunked form at the model's chunk (C . B^T once per chunk,
+    and per head the (q, q) product, C . h_prev, the state product and the
+    carry)."""
+    nbytes = (B * L * H * P * elt * 2          # x in, y out
+              + B * L * H * 4 + H * 4          # dt, A
+              + 2 * B * L * N * elt            # B, C
+              + 2 * B * H * P * N * 4)         # h0 in, h_final out
+    seq = B * L * H * (5 * P * N + P)
+    chunked = 0
+    for lo in range(0, L, chunk):
+        q = min(chunk, L - lo)
+        chunked += B * (2 * q * q * N + H * (2 * q * q * P + 4 * q * P * N + 2 * P * N))
+    return nbytes, min(seq, chunked)
+
+
+def phase_ssd_timing(fails: Failures, seed: int, shape, launches: int) -> dict:
+    """The kernel, its plain version and their bound at one shape, bf16 x,
+    B and C as the model gives them, fp32 dt and h0; enough input sets that
+    every launch reads cold inputs."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_plain
+
+    B, L, H, P, N = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    nbytes, ops = ssd_bound(B, L, H, P, N, 2, CHUNK)
+    sets = input_sets(lambda i: ssd_inputs(gen, B, L, H, P, N, True, "random",
+                                           torch.bfloat16, "cuda"), nbytes)
+    n = len(sets)
+    y, h = ssd_scan_kernel(*sets[0])
+    yr, hr = ssd_scan_plain(*sets[0])
+    max_err = (y.float() - yr.float()).abs().max().item()
+    fails.check(ssd_close(y, yr, TOL["bfloat16"] * 5) and ssd_close(h, hr, 1e-4),
+                f"ssd kernel vs plain at {shape} bf16: max err y {max_err:.3g}, "
+                f"h {(h - hr).abs().max().item():.3g}")
+    iters = max(n, 20)
+    ms = cuda_time_ms(lambda i: ssd_scan_kernel(*sets[i % n]), iters, warmup=n)
+    plain_ms = cuda_time_ms(lambda i: ssd_scan_plain(*sets[i % n]), 3 if L >= 1024 else 10,
+                            warmup=1)
+    ms_again = cuda_time_ms(lambda i: ssd_scan_kernel(*sets[i % n]), iters, warmup=0)
+    dev_ms = device_ms_per_launch(lambda i: ssd_scan_kernel(*sets[i % n]), max(n, 10),
+                                  "ssd_scan_kernel")
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    print(f"  ssd_scan {shape} bf16 ({n} input sets): kernel {ms:.4f} ms (again "
+          f"{ms_again:.4f}; device time per launch {dev_ms} ms), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.5f} ms ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:68",
+            "shape": f"x {B}x{L}x{H}x{P} bf16, N={N}, h0 fp32", "launches": launches,
+            "max_abs_err": max_err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+# -- phase 13: the SSM step's costs outside the kernel, and one traced step of each ---------
+
+
+def phase_ssm_steps(fails: Failures, model, cfg, seed: int) -> None:
+    """All 8 slots decoding at once: one scheduler decode step and one
+    256-token prefill chunk traced with ``torch.profiler``; the full-size
+    ``mask_slot_rows`` over the 768 MiB of SSD state and the per-layer
+    ``torch.stack`` of new states timed with CUDA events."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import kvcache
+    from repro_torch.serve.engine import make_chunk_step
+    from repro_torch.serve.scheduler import DecodeScheduler
+
+    sched = DecodeScheduler(model, n_slots=SLOTS, max_seq=CHUNK + 64, page_size=PAGE,
+                            prefill_chunk=CHUNK, seed=seed, device=DEVICE)
+    rng = np.random.default_rng(seed + 3)
+    for i in range(SLOTS):
+        sched.submit(f"p{i}", f"p{i}", rng.integers(0, cfg.vocab, size=16), 64)
+    while sched.active_slots() < SLOTS and sched.busy():
+        sched.step()
+    if not fails.check(sched.active_slots() == SLOTS,
+                       f"{sched.active_slots()}/{SLOTS} slots decoding at once"):
+        return
+    if DEVICE != "cuda":
+        return
+    cache = sched.cache
+    state_bytes = cache["ssm"].numel() * 4
+    new = dict(cache, ssm=cache["ssm"].clone(), conv=cache["conv"].clone())
+    keep = torch.ones(SLOTS, dtype=torch.bool, device=DEVICE)
+    mask_ms = cuda_time_ms(lambda i: kvcache.mask_slot_rows(new, cache, keep), 10, warmup=2)
+    rows = list(new["ssm"].unbind(0))
+    stack_ms = cuda_time_ms(lambda i: torch.stack(rows), 10, warmup=2)
+    print(f"  SSD state {state_bytes / 2**20:.0f} MiB for {SLOTS} slots: mask_slot_rows "
+          f"{mask_ms:.3f} ms ({3 * state_bytes / mask_ms / 1e6:.0f} GB/s over 3x the state), "
+          f"per-layer torch.stack {stack_ms:.3f} ms ({2 * state_bytes / stack_ms / 1e6:.0f} "
+          f"GB/s over 2x)")
+    del new, rows
+    profile_step("ssm decode step (scheduler, 8 slots)", sched.step)
+    chunk = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, CHUNK)),
+                            dtype=torch.int32).to(DEVICE)
+    step = make_chunk_step(model)
+    profile_step(f"ssm prefill chunk of {CHUNK}", lambda: step(sched.cache, chunk, 0))
+
+
+# -- phase 14: decode vs chunk prefill of one SSM slot ------------------------------------
+
+
+def phase_ssm_parity(fails: Failures, model, cfg, seed: int) -> None:
+    """One slot: a prefix as one chunk, then N tokens as one chunk or as N
+    S=1 steps from copies of the same state.
+
+    The kernel alone, on every layer's SSD inputs for the N tokens (taken
+    from the chunk run): one N-token launch vs N one-token launches that
+    carry the state, in the model's bf16 (``y`` within 0.15, the final
+    state within 1e-4) and in fp32 (both within 1e-4).  The whole model:
+    logits within 5% of their largest magnitude, the SSD and conv rows
+    within 5% of theirs.  No bitwise claim: the chunked form reassociates."""
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels.ssd_scan as ssd_pkg
+    from repro_torch.models import kvcache
+
+    n0, n = PARITY_PREFIX, PARITY_TOKENS
+    toks = torch.as_tensor(np.random.default_rng(seed + 4).integers(
+        0, cfg.vocab, size=(1, n0 + n)), dtype=torch.int32).to(DEVICE)
+    base = kvcache.paged_cache(model, 1, page_size=PAGE, n_pages=0, max_pages=1)
+    _, base = model.decode_step(base, toks[:, :n0])
+
+    def clone(c):
+        return {k: v.clone() for k, v in c.items()}
+
+    calls, orig = [], ssd_pkg.ssd_scan
+
+    def spy(*args, **kw):
+        calls.append(args)
+        return orig(*args, **kw)
+
+    ssd_pkg.ssd_scan = spy
+    try:
+        lw, whole = model.decode_step(clone(base), toks[:, n0:])
+    finally:
+        ssd_pkg.ssd_scan = orig
+    stepped, ls = clone(base), []
+    for t in range(n):
+        lt, stepped = model.decode_step(stepped, toks[:, n0 + t:n0 + t + 1])
+        ls.append(lt)
+    sync()
+
+    ok, worst = len(calls) == cfg.n_layers, {}
+    for x, dt, A, Bm, Cm, h0 in calls:
+        for label, cast, ytol in (("bf16", lambda t: t, TOL["bfloat16"] * 5),
+                                  ("fp32", lambda t: t.float(), 1e-4)):
+            xx, bb, cc = cast(x), cast(Bm), cast(Cm)
+            y_chunk, h_chunk = orig(xx, dt, A, bb, cc, h0)
+            h, ys = h0, []
+            for t in range(n):
+                y_t, h = orig(xx[:, t:t + 1], dt[:, t:t + 1], A, bb[:, t:t + 1],
+                              cc[:, t:t + 1], h)
+                ys.append(y_t)
+            y_steps = torch.cat(ys, 1)
+            ok &= ssd_close(y_steps, y_chunk, ytol) and ssd_close(h, h_chunk, 1e-4)
+            dy = (y_steps.float() - y_chunk.float()).abs().max().item()
+            dh = (h - h_chunk).abs().max().item()
+            wy, wh = worst.get(label, (0.0, 0.0))
+            worst[label] = (max(wy, dy), max(wh, dh))
+    fails.check(ok, f"SSD kernel, {n}-token chunk vs {n} one-token launches carrying the "
+                f"state, {len(calls)} layers: max |delta| (y, h) {worst}")
+
+    lw = lw[0, :, :cfg.vocab].float()
+    lsteps = torch.cat(ls, 1)[0, :, :cfg.vocab].float()
+    dl, scale = (lw - lsteps).abs().max().item(), lw.abs().max().item()
+    deltas = {key: (whole[key].float() - stepped[key].float()).abs().max().item()
+              for key in ("ssm", "conv")}
+    scales = {key: whole[key].float().abs().max().item() for key in ("ssm", "conv")}
+    print(f"  whole model, {n}-token chunk vs {n} S=1 steps: max |delta| logits {dl:.4g} "
+          f"(scale {scale:.4g}), states {deltas} (scales {scales})")
+    fails.check(dl <= AGREE_REL_TOL * scale and all(
+        deltas[k] <= AGREE_REL_TOL * scales[k] for k in deltas),
+        f"whole model chunk vs S=1 steps within {AGREE_REL_TOL} of each scale")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -908,6 +1219,50 @@ def main() -> int:
 
     print("[9] decode vs chunk prefill of one slot's recurrent rows (full width)")
     phase_recurrent_parity(fails, hmodel, hcfg, args.seed)
+    del hmodel
+    torch.cuda.empty_cache()
+
+    print("[10] SSD scan kernel vs its plain chunked form")
+    phase_ssd_cases(fails, args.seed)
+
+    scfg = configs.get(SSM)
+    ss = scfg.ssm
+    H, P, N = ss.n_heads(scfg.d_model), ss.head_dim, ss.d_state
+    print(f"[11] full-width {SSM} serving: {scfg.n_layers} layers, d_model {scfg.d_model}, "
+          f"d_inner {ss.d_inner(scfg.d_model)}, {H} SSD heads of {P}, d_state {N}, d_conv "
+          f"{ss.d_conv}, vocab {scfg.vocab} (padded {scfg.padded_vocab}), "
+          f"{scfg.param_count() / 1e9:.3f} B params")
+    t0 = time.perf_counter()
+    smodel = build_model(scfg, device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in smodel.parameters())
+    nparams = sum(p.numel() for p in smodel.parameters())
+    print(f"  random init in {time.perf_counter() - t0:.2f} s, {nparams / 1e9:.3f} B "
+          f"weights, {wbytes / 1e9:.3f} GB")
+    scounts = phase_serving(fails, smodel, scfg, args.seed, n_requests=S_REQUESTS,
+                            sessions=S_SESSIONS, prompt=S_PROMPT, max_new=S_MAX_NEW,
+                            attn_backend="gather")
+    steps, chunks = scounts["steps"], scounts["chunks"]
+    fails.check(scounts["ssd_scan"] == scfg.n_layers * (steps + chunks),
+                f"ssd kernel launches {scounts['ssd_scan']} == {scfg.n_layers} layers x "
+                f"({steps} decode steps + {chunks} prefill chunks)")
+    fails.check(chunks == S_REQUESTS * -(-S_PROMPT // CHUNK),
+                f"{chunks} prefill chunks == {S_REQUESTS} x ceil({S_PROMPT}/{CHUNK})")
+    fails.check(scounts["pages"] == 0 and scounts["paged_attention"] == 0
+                and scounts["rglru_scan"] == 0,
+                f"no pool pages ({scounts['pages']}) and no attention or RG-LRU launches")
+
+    print(f"[12] SSD kernel at {SSM}'s serving shapes (CUDA events)")
+    for shape, launches in (((1, CHUNK, H, P, N), scfg.n_layers * chunks),
+                            ((SLOTS, 1, H, P, N), scfg.n_layers * steps),
+                            ((1, 2048, H, P, N), 0)):
+        records.append(phase_ssd_timing(fails, args.seed, shape, launches))
+
+    print(f"[13] {SSM} decode step and prefill chunk: costs outside the kernel, traces")
+    phase_ssm_steps(fails, smodel, scfg, args.seed)
+
+    print("[14] decode vs chunk prefill of one SSM slot (full width)")
+    phase_ssm_parity(fails, smodel, scfg, args.seed)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if fails:

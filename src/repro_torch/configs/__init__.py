@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
 Each module defines ``CONFIG``, the full-scale config.  The dense
-architectures and the recurrentgemma hybrid have a model in this package;
-the others raise until their family is ported.
+architectures, the recurrentgemma hybrid and mamba2 have a model in this
+package; the others raise until their family is ported.
 """
 
 from __future__ import annotations
@@ -18,11 +18,12 @@ _ALIAS = {
     "qwen1.5-110b": "qwen1p5_110b",
     "minicpm-2b": "minicpm_2b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "mamba2-1.3b": "mamba2_1p3b",
 }
 
 # architectures of families this package does not serve yet
-_NOT_PORTED = ("internvl2-2b", "mamba2-1.3b", "moonshot-v1-16b-a3b",
-               "qwen3-moe-235b-a22b", "whisper-base", "recurrentgemma-2b")
+_NOT_PORTED = ("internvl2-2b", "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b",
+               "whisper-base")
 
 
 def get(name: str) -> ArchConfig:

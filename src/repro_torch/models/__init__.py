@@ -1,4 +1,4 @@
-"""Data-plane model zoo (dense and hybrid families so far).
+"""Data-plane model zoo (dense, hybrid and SSM families so far).
 
 ``build_model(cfg, device=..., seed=...)`` dispatches on ``cfg.family`` and
 returns an ``nn.Module`` with the interface::
@@ -17,25 +17,24 @@ import torch
 
 from .config import ArchConfig
 
-_NOT_PORTED = ("moe", "ssm", "audio", "vlm")
+_NOT_PORTED = ("moe", "audio", "vlm")
 
 
 def build_model(cfg: ArchConfig, *, device="cuda", seed: Optional[int] = 0):
     """The model for ``cfg`` on ``device``, weights drawn from a
     ``torch.Generator`` on that device seeded with ``seed``."""
-    if cfg.family == "dense":
-        from .transformer import DenseLM
-
-        gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
-        return DenseLM(cfg, device=device, generator=gen)
-    if cfg.family == "hybrid":
-        from .rglru import RecurrentLM
-
-        gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
-        return RecurrentLM(cfg, device=device, generator=gen)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    raise ValueError(f"unknown family {cfg.family}")
+    if cfg.family == "dense":
+        from .transformer import DenseLM as model_cls
+    elif cfg.family == "hybrid":
+        from .rglru import RecurrentLM as model_cls
+    elif cfg.family == "ssm":
+        from .mamba2 import Mamba2LM as model_cls
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
+    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    return model_cls(cfg, device=device, generator=gen)
 
 
 __all__ = ["ArchConfig", "build_model"]

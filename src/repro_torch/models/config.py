@@ -6,8 +6,8 @@ constants built from this dataclass.  ``reduced()`` produces the smoke-test
 scale of the same family (same code paths, tiny dims).
 
 The sub-configs of the other families (MoE, SSM, hybrid, enc-dec, VLM) are
-kept so ``reduced()`` builds the same dataclass for every family; the dense
-and hybrid families have a model in this package so far.
+kept so ``reduced()`` builds the same dataclass for every family; the dense,
+hybrid and SSM families have a model in this package so far.
 """
 
 from __future__ import annotations
@@ -120,14 +120,22 @@ class ArchConfig:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
 
     def param_count(self) -> int:
-        """Parameters of a dense or hybrid member (embedding + head +
+        """Parameters of a dense, hybrid or SSM member (embedding + head +
         layers), counted as the JAX package counts them."""
         d, f = self.d_model, self.d_ff
         hd = self.the_head_dim()
         q_dim, kv = self.n_heads * hd, self.n_kv_heads * hd
         attn = d * (q_dim + 2 * kv) + q_dim * d
         mlp = d * f * (3 if self.mlp in ("swiglu", "geglu") else 2)
-        if self.family == "hybrid":
+        if self.family == "ssm":
+            s = self.ssm
+            di, nh, n_bc = s.d_inner(d), s.n_heads(d), 2 * s.d_state
+            # in_proj -> [z, x, B, C, dt], conv over (x, B, C), out_proj,
+            # A_log, dt_bias and the gated norm (the JAX package's count)
+            per_layer = (d * (2 * di + n_bc + nh) + (di + n_bc) * s.d_conv + di * d
+                         + nh * 2 + di)
+            n = self.n_layers * per_layer
+        elif self.family == "hybrid":
             h = self.hybrid
             lw = h.lru_width or d
             pat = layer_pattern(self)

@@ -18,13 +18,15 @@ A cache is a dict of tensors; KV leaves are stacked over layers.
                                                     map (-1 = unmapped)
   length     : (B,) int32
 
-**Recurrent rows** (hybrid models, beside either layout)::
+**Recurrent rows** (hybrid and SSM models, beside either layout)::
 
   h          : (n_rec, B, W) fp32                 RG-LRU state per slot
+  ssm        : (n_layers, B, H, P, N) fp32        SSD state per slot
   conv       : (n_rec, B, K-1, W) bf16            conv tail per slot
 
 The K/V leaves stack only the layers that keep K/V (``model.n_kv_layers``:
-every layer of a dense model, the local-attention layers of a hybrid).
+every layer of a dense model, the local-attention layers of a hybrid, none
+of an SSM, whose paged cache has no pool at all).
 
 Token at absolute position ``p`` of slot ``b`` lives at
 ``kp[:, page_table[b, p // page_size], p % page_size]``.  One page table
@@ -56,7 +58,7 @@ from .layers import COMPUTE_DTYPE
 # Leaf keys of the shared page pool: no slot axis, never sliced per slot.
 POOL_KEYS = frozenset({"kp", "vp"})
 # Per-slot recurrent leaves, stacked over layers: the slot axis is 1.
-RECURRENT_KEYS = ("h", "conv")
+RECURRENT_KEYS = ("h", "conv", "ssm")
 
 
 def init_attn_cache(n_layers: int, B: int, T: int, n_kv: int, head_dim: int,
@@ -80,8 +82,10 @@ def decode_positions(pos: torch.Tensor, B: int, S: int) -> torch.Tensor:
     return (pos + ar).expand(B, S)
 
 
-def is_paged(layer_cache: Dict) -> bool:
-    return "kp" in layer_cache
+def is_paged(cache: Dict) -> bool:
+    """A paged cache or layer cache (it has a page table; an SSM's paged
+    cache has the table but no pool)."""
+    return "page_table" in cache
 
 
 def cache_capacity(layer_cache: Dict) -> int:
@@ -304,17 +308,19 @@ def paged_cache(model, n_slots: int, *, page_size: int, n_pages: int,
     recurrent rows (none for a dense model).  The pool holds ``n_pages``
     allocatable pages plus one scratch page at index ``n_pages`` that no
     table maps: writes through unmapped entries land there (the JAX package
-    drops them as out-of-bounds scatters)."""
+    drops them as out-of-bounds scatters).  A model with no K/V layers (an
+    SSM) gets no pool."""
     cfg, device = model.cfg, model.device
-    shape = (model.n_kv_layers, n_pages + 1, page_size, cfg.n_kv_heads,
-             cfg.the_head_dim())
     cache = {
-        "kp": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
-        "vp": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
         "page_table": torch.full((n_slots, max_pages), -1, dtype=torch.int32,
                                  device=device),
         "length": torch.zeros((n_slots,), dtype=torch.int32, device=device),
     }
+    if model.n_kv_layers:
+        shape = (model.n_kv_layers, n_pages + 1, page_size, cfg.n_kv_heads,
+                 cfg.the_head_dim())
+        for key in ("kp", "vp"):
+            cache[key] = torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
     cache.update(model.recurrent_rows(n_slots))
     return cache
 
@@ -350,9 +356,9 @@ def cache_slot_view(batch_cache: Dict, slot: int) -> Dict:
     """The B=1 view of one slot of a paged cache: its page-table row,
     length and recurrent rows as views into the batch cache, the pool
     passed through whole."""
-    view = {"kp": batch_cache["kp"], "vp": batch_cache["vp"],
-            "page_table": batch_cache["page_table"].narrow(0, slot, 1),
-            "length": batch_cache["length"].narrow(0, slot, 1)}
+    view = {key: batch_cache[key] for key in POOL_KEYS if key in batch_cache}
+    view["page_table"] = batch_cache["page_table"].narrow(0, slot, 1)
+    view["length"] = batch_cache["length"].narrow(0, slot, 1)
     for key in _recurrent(batch_cache):
         view[key] = batch_cache[key].narrow(1, slot, 1)
     return view
@@ -391,7 +397,7 @@ def cache_insert_slot(batch_cache: Dict, one_cache: Dict, slot: int) -> Dict:
 def kv_bytes_per_token(cache: Dict) -> int:
     """Bytes of pool KV state per stored token, summed over layers."""
     total = 0
-    for key in POOL_KEYS:
+    for key in POOL_KEYS & cache.keys():
         leaf = cache[key]                  # (L, Np, ps, H, D)
         total += leaf.numel() * leaf.element_size() // (leaf.shape[1] * leaf.shape[2])
     return total

@@ -35,6 +35,10 @@ order.
 CUDA paged-attention kernel; ``'gather'`` materializes each slot's pages
 and runs the chunk path at S=1.  Chunked prefill always gathers.
 
+An SSM keeps no K/V: its paged cache has a page table but no pool, the
+allocator holds 0 pages, admissions reserve none, and only its per-slot
+recurrent rows (``ssm``, ``conv``) are masked, cleared and written back.
+
 Not ported yet, and refused rather than ignored: ``kv_mode='ring'``, KV
 offload, prefix sharing, session parking, speculative decoding and
 ``mesh=``.
@@ -54,7 +58,7 @@ from . import sampling
 from .engine import make_chunk_step
 from .lifecycle import Slot, SlotState
 
-CONTINUOUS_FAMILIES = ("dense", "hybrid")
+CONTINUOUS_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def supports_continuous(cfg) -> bool:
@@ -115,7 +119,11 @@ class DecodeScheduler:
         device = torch.device(device)
         if model.device.type != device.type:
             raise ValueError(f"model is on {model.device}, scheduler on {device}")
+        self._has_kv = model.n_kv_layers > 0     # an SSM's state is pool-free
         if attn_backend == "paged_kernel":
+            if not self._has_kv:
+                raise ValueError("attn_backend='paged_kernel' needs attention layers; "
+                                 "SSM decode has no KV pool")
             # rebind a shallow copy (shared weights) so a gather-mode
             # scheduler sharing this model object keeps the reference dispatch
             model = copy.copy(model)
@@ -134,7 +142,9 @@ class DecodeScheduler:
         self.page_size = page_size
         self.max_pages = -(-max_seq // page_size)
         self.n_pages = kv_pages if kv_pages is not None else n_slots * self.max_pages
-        if self.n_pages < self.max_pages:
+        if not self._has_kv:
+            self.n_pages = 0
+        elif self.n_pages < self.max_pages:
             raise ValueError(f"kv_pages={self.n_pages} cannot hold even one slot's "
                              f"max_pages={self.max_pages}")
         self.prefill_chunk = prefill_chunk   # None -> whole prompt, one chunk
@@ -177,24 +187,26 @@ class DecodeScheduler:
         caps it at ``max_seq``, and on full attention generation past
         ``max_seq - len(prompt)`` would run off the page table; a prompt
         that leaves no decode room is rejected outright.  Windowed families
-        are bounded by the table's ``max_pages * page_size`` span instead.
+        are bounded by the table's ``max_pages * page_size`` span instead,
+        and an SSM's state by nothing but the output ring.
         """
         prompt = np.asarray(prompt)
         P = int(prompt.shape[-1])
         limit = self.max_seq
-        if self.model.cache_len(self.max_seq + 1) > self.max_seq:
+        if self._has_kv and self.model.cache_len(self.max_seq + 1) > self.max_seq:
             room = self.max_seq - P
             if room <= 0:
                 raise ValueError(
                     f"request {request_id!r}: prompt of {P} tokens leaves no decode "
                     f"room in max_seq={self.max_seq}; size max_seq >= prompt + max_new")
-        else:
+            limit = min(limit, room)
+        elif self._has_kv:
             room = self.max_pages * self.page_size - P
             if room <= 0:
                 raise ValueError(
                     f"request {request_id!r}: prompt of {P} tokens overruns "
                     f"the {self.max_pages}x{self.page_size} page table")
-        limit = min(limit, room)
+            limit = min(limit, room)
         max_new = max(1, min(max_new, limit))
         self.pending.append(_Request(session, request_id, prompt, max_new,
                                      submit_step=self.steps))
@@ -219,7 +231,10 @@ class DecodeScheduler:
 
     def _pages_needed(self, req: _Request) -> int:
         """Worst-case page count: prompt + all decode writes (the completing
-        step samples its last token from a write at P + max_new - 2)."""
+        step samples its last token from a write at P + max_new - 2); 0 for
+        a model that keeps no K/V."""
+        if not self._has_kv:
+            return 0
         tokens = int(np.asarray(req.prompt).shape[-1]) + req.max_new - 1
         return -(-tokens // self.page_size)
 

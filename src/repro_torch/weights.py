@@ -8,6 +8,10 @@ every per-layer leaf on a leading ``(L, ...)`` axis::
                 "mlp": {...}},            # every leaf (L, ...)
      "final_norm": {"scale", ["bias"]}}
 
+An SSM (``Mamba2LM.init``) stacks its layers the same way, with the groups
+``norm`` and ``ssm`` (``in_proj``, ``conv_w``, ``conv_b``, ``A_log``,
+``dt_bias``, ``D``, ``norm``, ``out_proj``) and an untied ``head``.
+
 A hybrid model (``RecurrentLM.init``) stacks ``pattern`` super-blocks and
 keeps the non-divisible tail unstacked::
 
@@ -18,11 +22,13 @@ keeps the non-divisible tail unstacked::
 
 :func:`params_from_jax` takes such a tree **as nested dicts of numpy arrays**
 (the caller converts; this module never imports JAX) and returns a state
-dict for :class:`repro_torch.models.transformer.DenseLM` or
-:class:`repro_torch.models.rglru.RecurrentLM`, one entry per layer.  Leaves
+dict for :class:`repro_torch.models.transformer.DenseLM`,
+:class:`repro_torch.models.rglru.RecurrentLM` or
+:class:`repro_torch.models.mamba2.Mamba2LM`, one entry per layer.  Leaves
 are stored in the port's dtypes: bf16 for everything the JAX package casts
 to bf16 at use (identical values), fp32 for what it computes with in fp32
-(qk-norm scales, the RG-LRU gates).  :func:`params_to_numpy` is the inverse
+(qk-norm scales, the RG-LRU gates, the SSD's decay, step, skip and norm
+parameters).  :func:`params_to_numpy` is the inverse
 (fp32 numpy, restacked), so a test can round-trip.
 """
 
@@ -34,18 +40,21 @@ import numpy as np
 import torch
 
 from .models.layers import COMPUTE_DTYPE
+from .models.mamba2 import FP32_PARAMS
 from .models.rglru import FP32_LEAVES
 
-_GROUPS = ("attn_norm", "attn", "mlp_norm", "mlp")
+
+def _dtype(cfg, group: str, name: str) -> torch.dtype:
+    if cfg.family == "ssm":
+        fp32 = (group, name) in FP32_PARAMS
+    else:
+        fp32 = name in FP32_LEAVES
+    return torch.float32 if fp32 else COMPUTE_DTYPE
 
 
-def _dtype(name: str) -> torch.dtype:
-    return torch.float32 if name in FP32_LEAVES else COMPUTE_DTYPE
-
-
-def _tensor(a, name: str, device) -> torch.Tensor:
+def _tensor(a, cfg, group: str, name: str, device) -> torch.Tensor:
     t = torch.from_numpy(np.array(a, dtype=np.float32))
-    return t.to(device=device, dtype=_dtype(name))
+    return t.to(device=device, dtype=_dtype(cfg, group, name))
 
 
 def _hybrid_layout(cfg):
@@ -73,8 +82,8 @@ def _flat_layers(tree: Mapping, cfg):
                 for name, a in leaves.items():
                     yield n_sb * n + int(j[1:]), group, name, a
         return
-    for group in _GROUPS:
-        for name, a in tree["layers"][group].items():
+    for group, leaves in tree["layers"].items():
+        for name, a in leaves.items():
             a = np.asarray(a)
             if a.shape[0] != cfg.n_layers:
                 raise ValueError(f"layers.{group}.{name}: leading dim {a.shape[0]} "
@@ -86,12 +95,11 @@ def _flat_layers(tree: Mapping, cfg):
 def params_from_jax(tree: Mapping, cfg, device="cuda") -> Dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) -> the port's state dict."""
     sd: Dict[str, torch.Tensor] = {}
-    for name, a in tree["embedding"].items():
-        sd[f"embedding.{name}"] = _tensor(a, name, device)
-    for name, a in tree["final_norm"].items():
-        sd[f"final_norm.{name}"] = _tensor(a, name, device)
+    for group in ("embedding", "final_norm"):
+        for name, a in tree[group].items():
+            sd[f"{group}.{name}"] = _tensor(a, cfg, group, name, device)
     for i, group, name, a in _flat_layers(tree, cfg):
-        sd[f"layers.{i}.{group}.{name}"] = _tensor(a, name, device)
+        sd[f"layers.{i}.{group}.{name}"] = _tensor(a, cfg, group, name, device)
     return sd
 
 
@@ -110,9 +118,10 @@ def params_to_numpy(state: Mapping[str, torch.Tensor], cfg) -> Dict:
         else:
             tree[parts[0]][parts[1]] = arr(t)
     if cfg.family != "hybrid":
-        tree["layers"] = {g: {} for g in _GROUPS}
+        tree["layers"] = {}
         for (group, name), rows in per_layer.items():
-            tree["layers"][group][name] = np.stack([rows[i] for i in range(cfg.n_layers)])
+            tree["layers"].setdefault(group, {})[name] = \
+                np.stack([rows[i] for i in range(cfg.n_layers)])
         return tree
     n_sb, n = _hybrid_layout(cfg)
     tree["blocks"] = {}

@@ -189,16 +189,17 @@ def test_weights_round_trip():
 
 
 def test_unported_families_and_archs_raise():
-    for family in ("moe", "ssm"):
+    for family in ("moe", "audio"):
         cfg = ArchConfig(name="m", family=family, n_layers=1, d_model=8, n_heads=2,
                          n_kv_heads=2, d_ff=8, vocab=16)
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(cfg, device="cpu")
-    for arch in ("mamba2-1.3b", "moonshot-v1-16b-a3b"):
+    for arch in ("moonshot-v1-16b-a3b", "whisper-base"):
         with pytest.raises(KeyError, match="not ported"):
             configs.get(arch)
     assert set(configs.list_archs()) == {"minicpm-2b", "qwen3-14b", "qwen1.5-110b",
-                                         "starcoder2-3b", "recurrentgemma-2b"}
+                                         "starcoder2-3b", "recurrentgemma-2b",
+                                         "mamba2-1.3b"}
     for arch in configs.list_archs():
         tcfg, jcfg = configs.get(arch), jconfigs.get(arch)
         assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
