@@ -76,8 +76,35 @@ last line is printed):
     every layer's inputs, one N-token launch vs N one-token launches
     carrying the state (tolerances as in phase 10), and the whole model
     (logits and rows within 5% of their scale); the max |delta| printed.
+15. Flash-attention kernel vs its plain version on the card (fp32 2e-4,
+    bf16 3e-2): head dims 8/16/64/128/256, GQA groups 1/2/5/10, S = T,
+    S < T and S > T under a window (rows that see no key take the mean of
+    v), T not a multiple of the tile, windows 8 and 2048, B 1 and 2, kv rows
+    past ``t_real``, one non-causal case; an unsupported call raises.
+16. The flash kernel timed with CUDA events against its plain version,
+    ``scaled_dot_product_attention`` as the library yardstick, and its
+    bound, at the prefills of qwen3-14b (1, 4096, 40, 8, 128; causal),
+    minicpm-2b (1, 4096, 36, 36, 64) and recurrentgemma-2b's local
+    attention (1, 4200, 10, 1, 256; window 2048), bf16.
+17. Full-width, full-depth ``qwen3-14b`` (40 layers, d_model 5120, 40 query
+    heads of 128 over 8 kv heads, qk-norm; random weights from ``--seed``)
+    served through ``ServingFrontend`` -> ``DecodeScheduler(kv_mode=
+    'ring')``: 8 requests over 8 sessions, prompt 4096, 32 new tokens,
+    greedy, 8 slots, ``max_seq`` 4128 (5.41 GB of rings).  Checks as in
+    phase 3, flash launches exactly 40 x admissions (every admission is a
+    4096-token from-scratch prefill), no paged, RG-LRU or SSD launch; one
+    prefill and one decode step traced.  The earlier models are freed first.
+18. In-situ agreement at full width: on one 4096-token prompt, qwen3-14b's
+    last-position logits from the ring prefill (flash) and from paged
+    chunked prefill (chunks of 256 through ``sdpa``) agree within 5% of the
+    logits' largest magnitude.
+19. ``recurrentgemma-2b`` in ring mode on phase 6's model (so it runs right
+    after phase 9): 4 requests over 4 sessions, prompt 4200 (past the
+    2048-token window, so every local-attention layer's prefill runs the
+    windowed flash kernel at D = 256), 16 new tokens.  Exact launch counts:
+    flash = 8 x admissions, RG-LRU = 18 x (admissions + decode steps).
 
-Phases 4, 8 and 13 trace steps with ``torch.profiler`` (wall time with the
+Phases 4, 8, 13 and 17 trace steps with ``torch.profiler`` (wall time with the
 profiler on, device busy time, idle share, kernel launches and the
 heaviest kernels).  No phase is cut in depth: every path runs at its full
 depth and the whole script stays well inside its time limit.
@@ -107,6 +134,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 on the tensor cores
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 AGREE_REL_TOL = 0.05
 DEVICE = "cuda"                  # the phases' device (a CPU rehearsal may set "cpu")
@@ -121,6 +149,10 @@ PARITY_PREFIX, PARITY_TOKENS = 40, 29     # phases 9, 14: prefix chunk, then N t
 
 SSM = "mamba2-1.3b"
 S_REQUESTS, S_SESSIONS, S_PROMPT, S_MAX_NEW = 8, 8, 2300, 32
+
+DENSE_RING = "qwen3-14b"
+Q_REQUESTS, Q_SESSIONS, Q_PROMPT, Q_MAX_NEW = 8, 8, 4096, 32
+R_REQUESTS, R_SESSIONS, R_PROMPT, R_MAX_NEW = 4, 4, 4200, 16     # phase 19
 
 
 class Failures(list):
@@ -171,12 +203,17 @@ def device_ms_per_launch(fn, iters: int, kernel: str):
 
     fn(0)
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(iters):
             fn(i)
         sync()
-    evs = [e for e in prof.key_averages() if kernel in e.key]
+    averages = prof.key_averages()
+    evs = [e for e in averages if kernel in e.key]
     count = sum(e.count for e in evs)
+    if not count:
+        seen = sorted({e.key[:60] for e in averages if e.self_device_time_total > 0})
+        print(f"  profiler: no event named {kernel!r} over {iters} calls; "
+              f"device events seen: {seen[:6]}")
     return sum(e.self_device_time_total for e in evs) / count / 1e3 if count else None
 
 
@@ -369,8 +406,9 @@ def phase_kernel_timing(fails: Failures, cfg, seed: int) -> dict:
 
 
 class TimedScheduler:
-    """Times each ``step()`` of a scheduler on the host clock, synchronized
-    with the card; every other attribute passes through."""
+    """Times each ``step()`` of a scheduler, and each ``submit()`` (where a
+    ring admission prefills), on the host clock, synchronized with the card;
+    every other attribute passes through."""
 
     def __init__(self, sched):
         self.sched = sched
@@ -380,6 +418,17 @@ class TimedScheduler:
 
     def __getattr__(self, name):
         return getattr(self.sched, name)
+
+    def submit(self, *args, **kw):
+        s = self.sched
+        pf0 = s.prefill_tokens
+        sync()
+        t0 = time.perf_counter()
+        s.submit(*args, **kw)
+        sync()
+        if s.prefill_tokens > pf0:
+            self.chunk_s += time.perf_counter() - t0
+            self.chunk_tokens += s.prefill_tokens - pf0
 
     def step(self):
         s = self.sched
@@ -401,16 +450,19 @@ class TimedScheduler:
 
 def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUESTS,
                   sessions=SESSIONS, prompt=PROMPT, max_new=MAX_NEW,
-                  attn_backend="paged_kernel") -> dict:
+                  attn_backend="paged_kernel", kv_mode="paged", then=None) -> dict:
     """Serve the workload through ``ServingFrontend`` -> ``DecodeScheduler(
-    attn_backend=...)`` and check what came out.  Every kernel's launch
-    count is set to 0 just before the run and read just after; returns
-    those counts with the scheduler's decode steps, chunks and pool pages."""
+    attn_backend=..., kv_mode=...)`` and check what came out.  Every
+    kernel's launch count is set to 0 just before the run and read just
+    after; returns those counts with the scheduler's decode steps, chunks,
+    admissions and pool pages.  ``then(scheduler)`` runs last (phase 17's
+    traced steps)."""
     import numpy as np
     import torch
 
     from repro_torch.coord.serving_front import ServingFrontend
     from repro_torch.core import SimCloud
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.paged_attention import paged_attention_kernel
     from repro_torch.kernels.rglru_scan import rglru_scan_kernel
     from repro_torch.kernels.ssd_scan import ssd_scan_kernel
@@ -418,7 +470,7 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
     from repro_torch.serve.scheduler import DecodeScheduler
 
     sched = DecodeScheduler(model, n_slots=SLOTS, max_seq=prompt + max_new,
-                            page_size=PAGE, prefill_chunk=CHUNK,
+                            page_size=PAGE, prefill_chunk=CHUNK, kv_mode=kv_mode,
                             attn_backend=attn_backend, seed=seed, device=DEVICE)
     timed = TimedScheduler(sched)
     cloud = SimCloud(seed=seed)
@@ -431,6 +483,7 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
     paged_attention_kernel.launches = 0
     rglru_scan_kernel.launches = 0
     ssd_scan_kernel.launches = 0
+    flash_attention_kernel.launches = 0
     t0 = time.perf_counter()
     cloud.run()
     sync()
@@ -438,8 +491,9 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
     counts = {"paged_attention": paged_attention_kernel.launches,
               "rglru_scan": rglru_scan_kernel.launches,
               "ssd_scan": ssd_scan_kernel.launches,
+              "flash_attention": flash_attention_kernel.launches,
               "steps": sched.steps, "chunks": sched.prefill_chunks,
-              "pages": sched.allocator.n_pages}
+              "admitted": sched.admitted, "pages": sched.allocator.n_pages}
 
     served = sum(len(v) for v in front.completions.values())
     fails.check(served == n_requests, f"served {served}/{n_requests} requests")
@@ -464,15 +518,18 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
           f"{timed.decode_only_tokens / max(timed.decode_s, 1e-9):.1f} "
           f"({timed.decode_only_tokens} tokens in {timed.decode_only_steps} steps, "
           f"{timed.decode_s:.3f} s, {1e3 * timed.decode_s / max(timed.decode_only_steps, 1):.2f} ms/step)")
-    print(f"  prefill tok/s (steps with a chunk, their decode included): "
+    print(f"  prefill tok/s (calls that prefilled, their decode included): "
           f"{timed.chunk_tokens / max(timed.chunk_s, 1e-9):.1f} "
           f"({timed.chunk_tokens} tokens, {timed.chunk_s:.3f} s)")
     peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    pool = (f"{st['kv_pages']} pages, high water {st['kv_pages_high_water']}"
+            if kv_mode == "paged" else f"{SLOTS} rings of {model.cache_len(prompt + max_new)}")
     print(f"  peak device memory {peak / 2**30:.3f} GiB; "
-          f"KV pool {st['kv_pool_bytes'] / 2**30:.3f} GiB "
-          f"({st['kv_bytes_per_token']} B/token, {st['kv_pages']} pages, "
-          f"high water {st['kv_pages_high_water']})")
+          f"KV {kv_mode} {st['kv_pool_bytes'] / 2**30:.3f} GiB "
+          f"({st['kv_bytes_per_token']} B/token, {pool})")
     print(f"  kernel launches: {counts}")
+    if then is not None:
+        then(sched)
     return counts
 
 
@@ -1115,6 +1172,216 @@ def phase_ssm_parity(fails: Failures, model, cfg, seed: int) -> None:
         f"whole model chunk vs S=1 steps within {AGREE_REL_TOL} of each scale")
 
 
+# -- phase 15: flash-attention kernel vs its plain version ---------------------------------
+
+
+FLASH_CASES = [  # (B, S, T, H, Hkv, D, window, extra)
+    (1, 16, 16, 1, 1, 8, None, {}),                 # D 8, G 1
+    (2, 77, 77, 4, 2, 16, 8, {}),                   # G 2, window 8, T off the tile, B 2
+    (1, 12, 4, 2, 1, 8, 2, {}),                     # S > T: rows 5..11 see no key
+    (1, 130, 70, 10, 1, 256, 8, {}),                # D 256, G 10, S > T under a window
+    (1, 200, 130, 10, 1, 64, None, {}),             # S > T, causal only
+    (2, 100, 300, 40, 8, 128, 2048, {}),            # S < T, G 5, window 2048
+    (1, 2100, 2100, 10, 1, 256, 2048, {}),          # the hybrid's window in play
+    (1, 1000, 1000, 40, 8, 128, None, {}),          # qwen3-14b's heads
+    (2, 64, 64, 2, 2, 64, None, {"t_real": 41}),    # kv rows past t_real masked
+    (1, 50, 90, 4, 2, 32, None, {"causal": False}),
+]
+
+
+def flash_inputs(gen, B, S, T, H, Hkv, D, dtype):
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    return rnd(B, S, H, D), rnd(B, T, Hkv, D), rnd(B, T, Hkv, D)
+
+
+def phase_flash_cases(fails: Failures, seed: int) -> None:
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_kernel,
+                                                     flash_attention_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tol = TOL[name]
+        for B, S, T, H, Hkv, D, window, extra in FLASH_CASES:
+            q, k, v = flash_inputs(gen, B, S, T, H, Hkv, D, dtype)
+            kw = dict(causal=extra.get("causal", True), window=window,
+                      t_real=extra.get("t_real"))
+            n0 = flash_attention_kernel.launches
+            got = flash_attention_kernel(q, k, v, **kw)
+            want = flash_attention_plain(q, k, v, **kw)
+            sync()
+            err = (got.float() - want.float()).abs().max().item()
+            label = (f"flash kernel vs plain {name} [B={B} S={S} T={T} H={H} Hkv={Hkv} "
+                     f"D={D} window={window}{' ' + str(extra) if extra else ''}]")
+            fails.check(flash_attention_kernel.launches == n0 + 1 and err <= tol
+                        and torch.isfinite(got).all().item(),
+                        f"{label}: max err {err:.3g} <= {tol}")
+            if window is not None and S >= T + window:
+                mean = v.float().mean(dim=1).repeat_interleave(H // Hkv, dim=1)
+                e = (got[:, T + window - 1:].float() - mean[:, None]).abs().max().item()
+                fails.check(e <= tol, f"{label}: rows with no key are the mean of v "
+                            f"(max err {e:.3g})")
+        # the model-layout entry point (k, v brought to q's dtype)
+        q, k, v = flash_inputs(gen, 2, 300, 300, 40, 8, 128, dtype)
+        got = flash_attention(q, k.float(), v.float(), window=64)
+        err = (got.float() - flash_attention_plain(q, k, v, window=64).float()).abs().max()
+        fails.check(err.item() <= tol, f"ops.flash_attention {name}: max err {err:.3g}")
+    q, k, v = flash_inputs(gen, 1, 8, 8, 2, 1, 264, torch.bfloat16)
+    for label, args in (("head dim 264", (q, k, v)),
+                        ("float16", tuple(t[..., :64].half().contiguous() for t in (q, k, v)))):
+        try:
+            flash_attention_kernel(*args)
+            fails.check(False, f"flash kernel refuses {label}")
+        except (ValueError, TypeError) as e:
+            fails.check(True, f"flash kernel refuses {label}: {e}")
+
+
+# -- phase 16: the flash kernel at the prefill shapes ---------------------------------------
+
+
+def flash_bound(S, T, H, Hkv, D, window, elt: int):
+    """(bytes, operations) the function needs at one batch row: q, k, v read
+    once and o written once; 4 D operations (Q.K^T and P.V, 2 each) per
+    query head and attended (row, key) pair, causal from position 0."""
+    nbytes = (2 * S * H * D + 2 * T * Hkv * D) * elt
+    pairs = sum(min(i + 1, T, window or T) for i in range(S))
+    return nbytes, 4 * D * H * pairs
+
+
+def phase_flash_timing(fails: Failures, seed: int, label: str, shape, window,
+                       launches: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_attention_plain
+
+    B, S, H, Hkv, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    nbytes, ops = flash_bound(S, S, H, Hkv, D, window, 2)
+    sets = input_sets(lambda i: flash_inputs(gen, B, S, S, H, Hkv, D, torch.bfloat16),
+                      B * nbytes)
+    n = len(sets)
+    got = flash_attention_kernel(*sets[0], window=window)
+    want = flash_attention_plain(*sets[0], window=window)
+    max_err = (got.float() - want.float()).abs().max().item()
+    fails.check(max_err <= TOL["bfloat16"],
+                f"flash kernel vs plain at {label} {shape}: max err {max_err:.3g}")
+    # bf16's 3e-2 is about the size of a typical |o| over thousands of keys;
+    # fp32 on the same inputs holds every kv tile of the long rows to 2e-4
+    q32, k32, v32 = (t.float() for t in sets[0])
+    want32 = flash_attention_plain(q32, k32, v32, window=window)
+    err32 = (flash_attention_kernel(q32, k32, v32, window=window)
+             - want32).abs().max().item()
+    rms = want32.square().mean().sqrt().item()
+    fails.check(err32 <= TOL["float32"],
+                f"flash kernel vs plain fp32 at {label} {shape}: max err {err32:.3g} "
+                f"<= {TOL['float32']} (output rms {rms:.3g})")
+    del q32, k32, v32, want32
+    mask = None
+    if window is not None:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+    def library(j):
+        q, k, v = (t.transpose(1, 2) for t in sets[j % n])
+        if mask is None:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=H != Hkv)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=H != Hkv)
+
+    lib_err = (got.float() - library(0).transpose(1, 2).float()).abs().max().item()
+    fails.check(lib_err <= TOL["bfloat16"],
+                f"flash kernel vs scaled_dot_product_attention at {label}: max err "
+                f"{lib_err:.3g}")
+    ms = cuda_time_ms(lambda j: flash_attention_kernel(*sets[j % n], window=window),
+                      max(n, 10), warmup=2)
+    plain_ms = cuda_time_ms(lambda j: flash_attention_plain(*sets[j % n], window=window),
+                            3, warmup=1)
+    library_ms = cuda_time_ms(library, max(n, 10), warmup=2)
+    ms_again = cuda_time_ms(lambda j: flash_attention_kernel(*sets[j % n], window=window),
+                            max(n, 10), warmup=0)
+    dev_ms = device_ms_per_launch(lambda j: flash_attention_kernel(*sets[j % n], window=window),
+                                  n, "flash_attn_kernel")
+    t_bytes = B * nbytes / HBM_BYTES_PER_S
+    t_bf16, t_fp32 = B * ops / BF16_FLOPS_PER_S, B * ops / FP32_FLOPS_PER_S
+    bound_ms = max(t_bytes, t_bf16) * 1e3
+    print(f"  flash {label} {shape} window={window} bf16 ({n} input sets): kernel {ms:.4f} ms "
+          f"(again {ms_again:.4f}; device time per launch {dev_ms} ms, "
+          f"{B * ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms at 989 TFLOP/s bf16 "
+          f"({t_fp32 * 1e3:.4f} ms at 67 TFLOP/s fp32; {B * nbytes / 1e6:.2f} MB, "
+          f"{B * ops / 1e9:.2f} GFLOP)")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
+            "shape": f"{label} prefill: q {B}x{S}x{H}x{D}, kv heads {Hkv}, "
+                     f"{'causal' if window is None else f'window {window}'}, bf16",
+            "launches": launches, "max_abs_err": max_err, "max_abs_err_fp32": err32,
+            "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_bf16 else "operations",
+            "bound_fp32_ms": max(t_bytes, t_fp32) * 1e3, "library_ms": library_ms}
+
+
+# -- phases 17-18: qwen3-14b from per-slot rings ----------------------------------------------
+
+
+def phase_ring_traces(model, cfg, sched, seed: int) -> None:
+    """One 4096-token ring prefill and one decode step of all slots traced
+    (the decode writes into the finished serving run's rings)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 2)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, Q_PROMPT)),
+                           dtype=torch.int32).to(DEVICE)
+    profile_step(f"ring prefill of {Q_PROMPT}",
+                 lambda: model.prefill(toks, seq_len=Q_PROMPT + Q_MAX_NEW))
+    last = sched.last_tokens[:, None]
+    profile_step(f"ring decode step, {SLOTS} slots",
+                 lambda: model.decode_step(sched.cache, last))
+
+
+def phase_ring_agreement(fails: Failures, model, cfg, seed: int) -> None:
+    """Last-position logits of one 4096-token prompt: the ring prefill
+    (every layer through the flash kernel) against paged chunked prefill
+    (chunks of 256 through ``sdpa`` over the gathered pool)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import kvcache
+    from repro_torch.serve.engine import make_chunk_step
+
+    rng = np.random.default_rng(seed + 3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, Q_PROMPT)),
+                           dtype=torch.int32).to(DEVICE)
+    max_seq = Q_PROMPT + Q_MAX_NEW
+    ring, _ = model.prefill(toks, seq_len=max_seq)
+    ring = ring[0, -1, :cfg.vocab].float()
+    mp = -(-max_seq // PAGE)
+    cache = kvcache.paged_cache(model, 1, page_size=PAGE, n_pages=mp, max_pages=mp)
+    kvcache.set_page_row(cache, 0, np.arange(mp))
+    step = make_chunk_step(model)
+    for lo in range(0, Q_PROMPT, CHUNK):
+        logits, cache = step(cache, toks[:, lo:lo + CHUNK], 0)
+    paged = logits[0, -1, :cfg.vocab].float()
+    del cache
+    diff = (ring - paged).abs().max().item()
+    scale = paged.abs().max().item()
+    print(f"  last-position logits: max |paged chunked| {scale:.4f}, max |delta| {diff:.4g}, "
+          f"argmax ring {ring.argmax().item()} / paged {paged.argmax().item()}")
+    fails.check(math.isfinite(diff) and diff <= AGREE_REL_TOL * scale,
+                f"ring prefill (flash) vs paged chunked prefill logits: max |delta| "
+                f"{diff:.4g} <= {AGREE_REL_TOL} x {scale:.4f}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1163,6 +1430,8 @@ def main() -> int:
     fails.check(counts["paged_attention"] == cfg.n_layers * counts["steps"],
                 f"paged kernel launches {counts['paged_attention']} == {cfg.n_layers} "
                 f"layers x {counts['steps']} decode steps")
+    fails.check(counts["flash_attention"] == 0,
+                f"no flash launch in chunked prefill ({counts['flash_attention']})")
     record["shape"] = f"{ARCH} decode: B={SLOTS} Hkv={cfg.n_kv_heads} G=1 " \
                       f"D={cfg.the_head_dim()} bf16"
     record["launches"] = counts["paged_attention"]
@@ -1202,6 +1471,8 @@ def main() -> int:
                 f"x ({steps} decode steps + {chunks} prefill chunks)")
     fails.check(chunks == H_REQUESTS * -(-H_PROMPT // CHUNK),
                 f"{chunks} prefill chunks == {H_REQUESTS} x ceil({H_PROMPT}/{CHUNK})")
+    fails.check(hcounts["flash_attention"] == 0,
+                f"no flash launch in chunked prefill ({hcounts['flash_attention']})")
 
     print("[7] kernels at the hybrid's serving shapes (CUDA events)")
     records = [record]
@@ -1219,6 +1490,23 @@ def main() -> int:
 
     print("[9] decode vs chunk prefill of one slot's recurrent rows (full width)")
     phase_recurrent_parity(fails, hmodel, hcfg, args.seed)
+
+    print(f"[19] {HYBRID} in ring mode on phase 6's model: {R_REQUESTS} requests, prompt "
+          f"{R_PROMPT} (window {hcfg.hybrid.local_window}), {R_MAX_NEW} new")
+    rcounts = phase_serving(fails, hmodel, hcfg, args.seed, n_requests=R_REQUESTS,
+                            sessions=R_SESSIONS, prompt=R_PROMPT, max_new=R_MAX_NEW,
+                            attn_backend="gather", kv_mode="ring")
+    adm, steps = rcounts["admitted"], rcounts["steps"]
+    fails.check(adm == R_REQUESTS and rcounts["flash_attention"] == n_attn * adm,
+                f"flash launches {rcounts['flash_attention']} == {n_attn} attention layers x "
+                f"{adm} admissions")
+    fails.check(rcounts["rglru_scan"] == n_rec * (adm + steps),
+                f"rglru kernel launches {rcounts['rglru_scan']} == {n_rec} RG-LRU layers x "
+                f"({adm} admissions + {steps} decode steps)")
+    fails.check(rcounts["paged_attention"] == 0 and rcounts["ssd_scan"] == 0
+                and rcounts["chunks"] == 0,
+                "no paged or SSD launch and no prefill chunk in ring mode")
+    r_flash = rcounts["flash_attention"]
     del hmodel
     torch.cuda.empty_cache()
 
@@ -1249,7 +1537,7 @@ def main() -> int:
     fails.check(chunks == S_REQUESTS * -(-S_PROMPT // CHUNK),
                 f"{chunks} prefill chunks == {S_REQUESTS} x ceil({S_PROMPT}/{CHUNK})")
     fails.check(scounts["pages"] == 0 and scounts["paged_attention"] == 0
-                and scounts["rglru_scan"] == 0,
+                and scounts["rglru_scan"] == 0 and scounts["flash_attention"] == 0,
                 f"no pool pages ({scounts['pages']}) and no attention or RG-LRU launches")
 
     print(f"[12] SSD kernel at {SSM}'s serving shapes (CUDA events)")
@@ -1263,6 +1551,51 @@ def main() -> int:
 
     print("[14] decode vs chunk prefill of one SSM slot (full width)")
     phase_ssm_parity(fails, smodel, scfg, args.seed)
+    del smodel
+    torch.cuda.empty_cache()
+
+    print("[15] flash-attention kernel vs its plain version")
+    phase_flash_cases(fails, args.seed)
+
+    qcfg = configs.get(DENSE_RING)
+    print("[16] flash kernel at the prefill shapes (CUDA events)")
+    flash_shapes = (
+        (DENSE_RING, (1, Q_PROMPT, qcfg.n_heads, qcfg.n_kv_heads, qcfg.the_head_dim()), None),
+        (ARCH, (1, Q_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.the_head_dim()), None),
+        (HYBRID, (1, R_PROMPT, hcfg.n_heads, hcfg.n_kv_heads, hcfg.the_head_dim()),
+         hcfg.hybrid.local_window))
+    flash_records = [phase_flash_timing(fails, args.seed, label, shape, window, launches)
+                     for (label, shape, window), launches
+                     in zip(flash_shapes, (None, 0, r_flash), strict=True)]
+    records.extend(flash_records)
+
+    print(f"[17] full-width {DENSE_RING} served from per-slot rings: {qcfg.n_layers} layers, "
+          f"d_model {qcfg.d_model}, {qcfg.n_heads}x{qcfg.the_head_dim()} heads over "
+          f"{qcfg.n_kv_heads} kv heads, qk-norm {qcfg.qk_norm}, d_ff {qcfg.d_ff}, vocab "
+          f"{qcfg.vocab}, {qcfg.param_count() / 1e9:.3f} B params")
+    t0 = time.perf_counter()
+    qmodel = build_model(qcfg, device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in qmodel.parameters())
+    nparams = sum(p.numel() for p in qmodel.parameters())
+    print(f"  random init in {time.perf_counter() - t0:.2f} s, {nparams / 1e9:.3f} B "
+          f"weights, {wbytes / 1e9:.3f} GB")
+    qcounts = phase_serving(fails, qmodel, qcfg, args.seed, n_requests=Q_REQUESTS,
+                            sessions=Q_SESSIONS, prompt=Q_PROMPT, max_new=Q_MAX_NEW,
+                            attn_backend="gather", kv_mode="ring",
+                            then=lambda sched: phase_ring_traces(qmodel, qcfg, sched, args.seed))
+    adm = qcounts["admitted"]
+    fails.check(adm == Q_REQUESTS and qcounts["flash_attention"] == qcfg.n_layers * adm,
+                f"flash launches {qcounts['flash_attention']} == {qcfg.n_layers} layers x "
+                f"{adm} admissions")
+    fails.check(qcounts["paged_attention"] == 0 and qcounts["rglru_scan"] == 0
+                and qcounts["ssd_scan"] == 0 and qcounts["chunks"] == 0,
+                "no paged, RG-LRU or SSD launch and no prefill chunk in ring mode")
+    flash_records[0]["launches"] = qcounts["flash_attention"]
+    torch.cuda.empty_cache()
+
+    print(f"[18] ring prefill (flash) vs paged chunked prefill at full width ({DENSE_RING})")
+    phase_ring_agreement(fails, qmodel, qcfg, args.seed)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if fails:

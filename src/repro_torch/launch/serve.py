@@ -2,10 +2,10 @@
 
 Requests enter through the paper's per-session FIFO queues, route into one
 shared dispatch queue, and are served by the continuous-batching decode
-scheduler over the paged KV pool (slots re-admitted across sessions between
-decode steps), or by whole-batch generation (``--mode shared`` /
-``per-session``).  Runs the ``.reduced()`` config of ``--arch`` on
-``--device`` (default ``cuda``).
+scheduler over the paged KV pool or per-slot rings (``--kv-mode ring``;
+slots re-admitted across sessions between decode steps), or by whole-batch
+generation (``--mode shared`` / ``per-session``).  Runs the ``.reduced()``
+config of ``--arch`` on ``--device`` (default ``cuda``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
@@ -79,16 +79,19 @@ def build_frontend(cloud: SimCloud, cfg, model, *, mode: str, batch_size: int,
                    device="cuda") -> ServingFrontend:
     """Frontend for ``mode`` in {'continuous', 'shared', 'per-session'}.
 
-    ``continuous`` serves from the shared paged KV pool with chunked
-    prefill through :class:`DecodeScheduler`; ``attn_backend`` picks the
-    gather path or the CUDA paged-attention kernel for S=1 decode.
+    ``continuous`` serves through :class:`DecodeScheduler`: from the shared
+    paged KV pool with chunked prefill (``kv_mode='paged'``; ``attn_backend``
+    picks the gather path or the CUDA paged-attention kernel for S=1
+    decode), or from per-slot rings with one prefill per admission
+    (``kv_mode='ring'``; the pool sizing check does not apply).
     """
     if mode not in ("continuous", "shared", "per-session"):
         raise ValueError(f"unknown serving mode {mode!r}")
     if mode == "continuous" and supports_continuous(cfg):
-        validate_pool_sizing(batch_size=batch_size, prompt_len=prompt_len,
-                             max_new=max_new, page_size=page_size,
-                             kv_pages=kv_pages, prefill_chunk=prefill_chunk)
+        if kv_mode == "paged":
+            validate_pool_sizing(batch_size=batch_size, prompt_len=prompt_len,
+                                 max_new=max_new, page_size=page_size,
+                                 kv_pages=kv_pages, prefill_chunk=prefill_chunk)
         sched = DecodeScheduler(model, n_slots=batch_size,
                                 max_seq=prompt_len + max_new,
                                 temperature=temperature, top_k=top_k, seed=seed,
@@ -168,10 +171,14 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
                   f"slots/step over {s['steps']} steps, "
                   f"{s['decode_tokens']} decode + {s['prefill_tokens']} "
                   f"prefill tokens, attn_backend {s['attn_backend']}")
-            print(f"kv pool: {s['kv_pages_high_water']}/{s['kv_pages']} "
-                  f"pages high-water ({s['kv_high_water_bytes']/1024:.1f} "
-                  f"of {s['kv_pool_bytes']/1024:.1f} KiB), "
-                  f"{s['prefill_chunks']} prefill chunks")
+            if s["kv_mode"] == "paged":
+                print(f"kv pool: {s['kv_pages_high_water']}/{s['kv_pages']} "
+                      f"pages high-water ({s['kv_high_water_bytes']/1024:.1f} "
+                      f"of {s['kv_pool_bytes']/1024:.1f} KiB), "
+                      f"{s['prefill_chunks']} prefill chunks")
+            else:
+                print(f"kv rings: {s['kv_pool_bytes']/1024:.1f} KiB "
+                      f"({s['kv_bytes_per_token']} B/token), one prefill per admission")
     return frontend
 
 
@@ -189,7 +196,7 @@ def main() -> None:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--kv-mode", default="paged", choices=["paged", "ring"],
-                    help="paged-block KV pool (ring is not ported yet)")
+                    help="paged-block KV pool (default) or per-slot rings")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV pool page")
     ap.add_argument("--prefill-chunk", type=int, default=None,

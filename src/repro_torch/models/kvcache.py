@@ -4,7 +4,7 @@ Two storage layouts behind one layer-level interface
 (:func:`cache_update_layer` / :func:`cache_kv_view` dispatch on the keys).
 A cache is a dict of tensors; KV leaves are stacked over layers.
 
-**Ring** (solo generation)::
+**Ring** (solo generation, and the scheduler's ``kv_mode='ring'``)::
 
   k, v      : (L, B, T, Hkv, D)  ring buffer (T = window for SWA archs)
   positions : (L, B, T) int32    absolute position stored in each lane (-1 empty)
@@ -57,6 +57,8 @@ from .layers import COMPUTE_DTYPE
 
 # Leaf keys of the shared page pool: no slot axis, never sliced per slot.
 POOL_KEYS = frozenset({"kp", "vp"})
+# Per-slot ring leaves, stacked over layers: the slot axis is 1.
+RING_KEYS = ("k", "v", "positions")
 # Per-slot recurrent leaves, stacked over layers: the slot axis is 1.
 RECURRENT_KEYS = ("h", "conv", "ssm")
 
@@ -300,6 +302,15 @@ class PageAllocator:
 # ---------------------------------------------------------------------------
 
 
+def batched_cache(model, n_slots: int, seq_len: int) -> Dict[str, torch.Tensor]:
+    """A ring decode cache for ``n_slots`` independent sequences: the model's
+    own cache (rings sized ``cache_len(seq_len)``, recurrent rows) with the
+    shared scalar ``length`` widened to a per-slot ``(n_slots,)`` vector."""
+    cache = dict(model.init_cache(n_slots, seq_len))
+    cache["length"] = torch.zeros((n_slots,), dtype=torch.int32, device=model.device)
+    return cache
+
+
 def paged_cache(model, n_slots: int, *, page_size: int, n_pages: int,
                 max_pages: int) -> Dict[str, torch.Tensor]:
     """A paged decode cache for ``n_slots`` slots on the model's device:
@@ -329,20 +340,24 @@ def _recurrent(cache: Dict):
     return [k for k in RECURRENT_KEYS if k in cache]
 
 
+def _per_slot(cache: Dict):
+    """Per-slot leaves stacked over layers (slot axis 1): ring and recurrent."""
+    return [k for k in RING_KEYS + RECURRENT_KEYS if k in cache]
+
+
 def mask_slot_rows(new_cache: Dict, old_cache: Dict, keep: torch.Tensor) -> Dict:
     """Keep a decode step's updates only for slots where ``keep`` is True.
 
-    A decode step on the paged cache replaces ``length`` and the recurrent
-    rows with new tensors; inactive slots get their old rows back, so a
-    batched step cannot advance their lengths or evolve their recurrent
-    state.  Pool writes are in place and, for inactive slots, land in pages
-    the slot owns past its length — overwritten by the slot's next chunk
-    before any read — or are dropped by an unmapped table row.  Ring leaves
-    are written in place per slot and cannot be restored after the fact, so
-    ring caches are refused."""
-    if not is_paged(new_cache):
-        raise ValueError("mask_slot_rows needs a paged cache: ring rows are "
-                         "written in place")
+    A decode step replaces ``length`` and the recurrent rows with new
+    tensors; inactive slots get their old rows back, so a batched step
+    cannot advance their lengths or evolve their recurrent state.  K/V
+    writes are in place and are not restored.  In the pool an inactive
+    slot's write lands in a page it owns past its length — overwritten by
+    its next chunk before any read — or is dropped by an unmapped table row.
+    In a ring it lands in the slot's own row, at lane ``length % T``: a ring
+    slot is only ever EMPTY or ACTIVE (admission is one monolithic prefill),
+    and :func:`cache_insert_slot` overwrites the whole row, every lane of
+    ``k``, ``v`` and ``positions``, before the next request reads it."""
     out = dict(new_cache)
     out["length"] = torch.where(keep, new_cache["length"], old_cache["length"])
     for key in _recurrent(new_cache):
@@ -353,27 +368,29 @@ def mask_slot_rows(new_cache: Dict, old_cache: Dict, keep: torch.Tensor) -> Dict
 
 
 def cache_slot_view(batch_cache: Dict, slot: int) -> Dict:
-    """The B=1 view of one slot of a paged cache: its page-table row,
-    length and recurrent rows as views into the batch cache, the pool
-    passed through whole."""
+    """The B=1 view of one slot: its page-table row, length, ring rows and
+    recurrent rows as views into the batch cache, the pool passed through
+    whole."""
     view = {key: batch_cache[key] for key in POOL_KEYS if key in batch_cache}
-    view["page_table"] = batch_cache["page_table"].narrow(0, slot, 1)
+    if "page_table" in batch_cache:
+        view["page_table"] = batch_cache["page_table"].narrow(0, slot, 1)
     view["length"] = batch_cache["length"].narrow(0, slot, 1)
-    for key in _recurrent(batch_cache):
+    for key in _per_slot(batch_cache):
         view[key] = batch_cache[key].narrow(1, slot, 1)
     return view
 
 
 def cache_clear_slot(batch_cache: Dict, slot: int) -> Dict:
-    """Unmap one slot's page-table row and zero its length and recurrent
-    rows, in place: fresh state for an admission (a request admitted into a
-    reused slot must not start from its predecessor's state) and, on
-    completion, an unmapped row so the freed slot's residual decode writes
-    go to the scratch page."""
-    batch_cache["page_table"][slot] = -1
+    """Unmap one slot's page-table row, empty its ring rows (positions -1)
+    and zero its length and recurrent rows, in place: fresh state for an
+    admission (a request admitted into a reused slot must not start from its
+    predecessor's state) and, on completion, an unmapped row so the freed
+    slot's residual decode writes go to the scratch page."""
+    if "page_table" in batch_cache:
+        batch_cache["page_table"][slot] = -1
     batch_cache["length"][slot] = 0
-    for key in _recurrent(batch_cache):
-        batch_cache[key][:, slot] = 0
+    for key in _per_slot(batch_cache):
+        batch_cache[key][:, slot] = -1 if key == "positions" else 0
     return batch_cache
 
 
@@ -385,19 +402,23 @@ def set_page_row(batch_cache: Dict, slot: int, row) -> Dict:
 
 
 def cache_insert_slot(batch_cache: Dict, one_cache: Dict, slot: int) -> Dict:
-    """Write back a B=1 step on a :func:`cache_slot_view`: the pool and the
-    page-table row were written through in place, so the slot's advanced
-    length and its new recurrent rows are copied."""
+    """Copy a B=1 cache into row ``slot``: the slot's length, its whole ring
+    rows (``k``, ``v``, ``positions``: a ring prefill-on-admit) and its
+    recurrent rows.  The pool and the page-table row of a chunk step on a
+    :func:`cache_slot_view` were written through in place."""
     batch_cache["length"][slot] = one_cache["length"].reshape(())
-    for key in _recurrent(batch_cache):
+    for key in _per_slot(batch_cache):
         batch_cache[key][:, slot] = one_cache[key][:, 0]
     return batch_cache
 
 
 def kv_bytes_per_token(cache: Dict) -> int:
-    """Bytes of pool KV state per stored token, summed over layers."""
+    """Bytes of K/V state per stored token, summed over layers (pool ``kp``/
+    ``vp`` or ring ``k``/``v`` leaves; recurrent rows are O(1) per slot and
+    left out)."""
     total = 0
-    for key in POOL_KEYS & cache.keys():
-        leaf = cache[key]                  # (L, Np, ps, H, D)
-        total += leaf.numel() * leaf.element_size() // (leaf.shape[1] * leaf.shape[2])
+    for key in ("kp", "vp", "k", "v"):
+        if key in cache:
+            leaf = cache[key]              # (L, Np, ps, H, D) or (L, B, T, H, D)
+            total += leaf.numel() * leaf.element_size() // (leaf.shape[1] * leaf.shape[2])
     return total

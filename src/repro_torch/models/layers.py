@@ -22,6 +22,8 @@ from typing import Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.flash_attention import flash_attention
+
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
 NEG_INF = -1e30
@@ -161,9 +163,21 @@ def qkv_project(p, cfg, x: torch.Tensor, positions: torch.Tensor
 
 
 # Above this many kv positions (with S > 1), sdpa streams the softmax over kv
-# blocks so the full (S, T) score tensor is never materialized.
+# blocks so the full (S, T) score tensor is never materialized: a sequence
+# attending itself from position 0 (``aligned``, a from-scratch prefill)
+# through the flash kernel, which is the case the JAX package gives its
+# Pallas kernel (its ``layers.py`` comment at STREAM_KV_THRESHOLD), and a
+# query block offset into a longer kv view (a later chunk of chunked
+# prefill) through the plain ``_sdpa_streaming``.
 STREAM_KV_THRESHOLD = 4096
 STREAM_KV_BLOCK = 1024
+
+
+def takes_flash(S: int, aligned: bool) -> bool:
+    """Whether :func:`sdpa` sends an aligned self-attention of ``S`` tokens
+    to the flash kernel.  Below the threshold every call keeps the
+    materialized-score path, bit for bit."""
+    return aligned and S >= STREAM_KV_THRESHOLD
 
 
 def _attn_mask(q_positions, kv_positions, kv_valid, causal, window):
@@ -190,16 +204,25 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          causal: bool = True, window: Optional[int] = None,
          q_positions: Optional[torch.Tensor] = None,
          kv_positions: Optional[torch.Tensor] = None,
-         kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+         kv_valid: Optional[torch.Tensor] = None,
+         aligned: bool = False) -> torch.Tensor:
     """Grouped-query scaled-dot-product attention.
 
     q: (B, S, H, D); k, v: (B, T, Hkv, D).  H must be a multiple of Hkv.
     ``q_positions``/``kv_positions`` (B, S)/(B, T) define the mask when the
     query block is not aligned with the kv block (decode with a cache).
-    ``kv_valid`` (B, T) masks unfilled cache lanes.
+    ``kv_valid`` (B, T) masks unfilled cache lanes.  ``aligned`` is the
+    caller's word that q, k and v are one sequence from position 0 (S == T,
+    positions ``arange``, no ``kv_valid``): from STREAM_KV_THRESHOLD tokens
+    on, that call runs in the flash kernel (fp32 probabilities).
     """
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    if aligned and (S != T or kv_valid is not None):
+        raise ValueError(f"aligned attention needs S == T and no kv_valid, got S={S}, "
+                         f"T={T}, kv_valid {'set' if kv_valid is not None else 'None'}")
+    if takes_flash(S, aligned):
+        return flash_attention(q, k, v, causal=causal, window=window)
     q_positions = _default_positions(q_positions, B, S, q.device)
     kv_positions = _default_positions(kv_positions, B, T, q.device)
 
@@ -278,9 +301,10 @@ def _sdpa_streaming(q, k, v, *, causal, window, q_positions, kv_positions,
 
 def attention_block(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                     window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention; ``positions`` are ``arange(S)``."""
     q, k, v = qkv_project(p, cfg, x, positions)
     o = sdpa(q, k, v, causal=causal, window=window,
-             q_positions=positions, kv_positions=positions)
+             q_positions=positions, kv_positions=positions, aligned=True)
     B, S = x.shape[0], x.shape[1]
     o = o.reshape(B, S, cfg.n_heads * cfg.the_head_dim())
     return o @ cast(p["wo"])

@@ -189,17 +189,20 @@ class HybridLayer(nn.Module):
 
 
 def _attn_decode(p, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
-                 lc: Dict, pos: torch.Tensor) -> torch.Tensor:
+                 lc: Dict, pos: torch.Tensor, fresh: bool = False) -> torch.Tensor:
     """Local attention against one layer of a ring or paged cache, written
     in place.  S=1 on the paged kernel attends the post-update pool: the
-    token is written first and lane ``pos`` itself is attended."""
+    token is written first and lane ``pos`` itself is attended.  ``fresh``:
+    the cache was empty (a from-scratch prefill)."""
     window = cfg.hybrid.local_window
     B, S = h.shape[0], h.shape[1]
     q, k, v = layers.qkv_project(p, cfg, h, positions)
     kvcache.cache_update_layer(lc, k, v, pos)
-    if S > kvcache.cache_capacity(lc):   # prefill longer than the ring window
+    if S > kvcache.cache_capacity(lc) or layers.takes_flash(S, fresh):
+        # a from-scratch prefill longer than the ring window, or long enough
+        # for the flash kernel, attends its fresh full-sequence k/v
         o = layers.sdpa(q, k, v, causal=True, window=window,
-                        q_positions=positions, kv_positions=positions)
+                        q_positions=positions, kv_positions=positions, aligned=fresh)
     elif S == 1 and cfg.attn_backend == "paged_kernel" and kvcache.is_paged(lc):
         o = kvcache.paged_attn_decode(lc, q, pos, window=window, include_new=True)
     else:
@@ -289,11 +292,12 @@ class RecurrentLM(nn.Module):
         cache.update(self.recurrent_rows(B))
         return cache
 
-    def decode_step(self, cache: Dict, tokens: torch.Tensor
+    def decode_step(self, cache: Dict, tokens: torch.Tensor, *, fresh: bool = False
                     ) -> Tuple[torch.Tensor, Dict]:
         """tokens: (B, S_new).  K/V are written into ``cache`` in place; the
         returned cache shares those tensors and carries the advanced
-        ``length`` and new ``h``/``conv`` tensors."""
+        ``length`` and new ``h``/``conv`` tensors.  ``fresh``: the cache is
+        empty (a from-scratch prefill)."""
         cfg = self.cfg
         B, S = tokens.shape
         x = layers.embed_tokens(self.embedding, cfg, tokens)
@@ -315,7 +319,7 @@ class RecurrentLM(nn.Module):
                 else:
                     lc = {"k": cache["k"][j], "v": cache["v"][j],
                           "positions": cache["positions"][j]}
-                h = _attn_decode(p.attn, cfg, h, positions, lc, pos)
+                h = _attn_decode(p.attn, cfg, h, positions, lc, pos, fresh)
             x = _mlp_residual(p, cfg, x + h)
         x = layers.apply_norm(cfg.norm, self.final_norm, x)
         logits = layers.lm_head(self.embedding, cfg, x)
@@ -330,4 +334,4 @@ class RecurrentLM(nn.Module):
         """Full-sequence forward that also fills a fresh cache sized for
         ``seq_len`` tokens (default: the prompt length)."""
         cache = self.init_cache(tokens.shape[0], seq_len or tokens.shape[1])
-        return self.decode_step(cache, tokens)
+        return self.decode_step(cache, tokens, fresh=True)

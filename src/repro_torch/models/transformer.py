@@ -53,20 +53,23 @@ def dense_layer_fwd(p: DenseLayer, cfg: ArchConfig, x: torch.Tensor,
 
 
 def dense_layer_decode(p: DenseLayer, cfg: ArchConfig, x: torch.Tensor,
-                       layer_cache: Dict, pos: torch.Tensor) -> torch.Tensor:
+                       layer_cache: Dict, pos: torch.Tensor, fresh: bool = False
+                       ) -> torch.Tensor:
     """One-token (or short-S) step against one layer of a ring or paged
-    cache, written in place.  ``pos`` scalar (lockstep batch) or (B,)."""
+    cache, written in place.  ``pos`` scalar (lockstep batch) or (B,);
+    ``fresh``: the cache was empty, so ``x`` is a sequence from position 0."""
     rs = layers.bf16_scalar(cfg.residual_scale)
     B, S = x.shape[0], x.shape[1]
     positions = kvcache.decode_positions(pos, B, S)
     h = layers.apply_norm(cfg.norm, p.attn_norm, x)
     q, k, v = layers.qkv_project(p.attn, cfg, h, positions)
     kvcache.cache_update_layer(layer_cache, k, v, pos)
-    if S > kvcache.cache_capacity(layer_cache):
-        # prefill longer than the (windowed) ring: the ring keeps only the
-        # trailing window, so attend the fresh full-sequence k/v
+    if S > kvcache.cache_capacity(layer_cache) or layers.takes_flash(S, fresh):
+        # a from-scratch prefill attends its fresh full-sequence k/v (the
+        # values the cache now holds): the ring keeps only the trailing
+        # window when S exceeds it, and a long one runs in the flash kernel
         o = layers.sdpa(q, k, v, causal=True, window=cfg.sliding_window,
-                        q_positions=positions, kv_positions=positions)
+                        q_positions=positions, kv_positions=positions, aligned=fresh)
     elif S == 1 and cfg.attn_backend == "paged_kernel" and kvcache.is_paged(layer_cache):
         # stream the slot's pages through the CUDA kernel (pre-update pool +
         # fp32 new-token append); the gathered view never materializes
@@ -143,11 +146,12 @@ class DenseLM(nn.Module):
         return kvcache.init_attn_cache(cfg.n_layers, B, self.cache_len(seq_len),
                                        cfg.n_kv_heads, cfg.the_head_dim(), self.device)
 
-    def decode_step(self, cache: Dict, tokens: torch.Tensor
+    def decode_step(self, cache: Dict, tokens: torch.Tensor, *, fresh: bool = False
                     ) -> Tuple[torch.Tensor, Dict]:
         """tokens: (B, S_new) — one (or a few) new tokens per sequence.
         KV is written into ``cache`` in place; the returned cache shares its
-        tensors and carries the advanced ``length``."""
+        tensors and carries the advanced ``length``.  ``fresh``: the cache
+        is empty (a from-scratch prefill)."""
         cfg = self.cfg
         x = layers.embed_tokens(self.embedding, cfg, tokens)
         pos = cache["length"]
@@ -159,7 +163,7 @@ class DenseLM(nn.Module):
             else:
                 lc = {"k": cache["k"][i], "v": cache["v"][i],
                       "positions": cache["positions"][i]}
-            x = dense_layer_decode(p, cfg, x, lc, pos)
+            x = dense_layer_decode(p, cfg, x, lc, pos, fresh)
         x = layers.apply_norm(cfg.norm, self.final_norm, x)
         logits = layers.lm_head(self.embedding, cfg, x)
         new_cache = dict(cache)
@@ -171,4 +175,4 @@ class DenseLM(nn.Module):
         """Full-sequence forward that also fills a fresh ring cache sized
         for ``seq_len`` tokens (default: the prompt length)."""
         cache = self.init_cache(tokens.shape[0], seq_len or tokens.shape[1])
-        return self.decode_step(cache, tokens)
+        return self.decode_step(cache, tokens, fresh=True)

@@ -1,4 +1,5 @@
-"""Slot-based continuous-batching decode scheduler over a paged KV pool.
+"""Slot-based continuous-batching decode scheduler over a paged KV pool
+(or per-slot rings).
 
 A fixed-width decode batch (``n_slots``) steps one token per active slot per
 call; free slots are re-admitted from a shared cross-session queue of pending
@@ -39,9 +40,17 @@ An SSM keeps no K/V: its paged cache has a page table but no pool, the
 allocator holds 0 pages, admissions reserve none, and only its per-slot
 recurrent rows (``ssm``, ``conv``) are masked, cleared and written back.
 
-Not ported yet, and refused rather than ignored: ``kv_mode='ring'``, KV
-offload, prefix sharing, session parking, speculative decoding and
-``mesh=``.
+``kv_mode='ring'`` is the baseline the pool replaces: every slot owns a
+ring sized ``cache_len(max_seq)`` (:func:`kvcache.batched_cache`), and
+admission is one monolithic ``model.prefill(prompt, seq_len=max_seq)``
+whose cache is copied whole into the slot's rows (EMPTY -> ACTIVE within
+one call).  A from-scratch prefill of STREAM_KV_THRESHOLD tokens or more
+attends its fresh k/v through the flash-attention kernel.  There is no
+pool, so ``paged_kernel`` is refused, and ``reset``/``audit`` have no pool
+to touch.
+
+Not ported yet, and refused rather than ignored: KV offload, prefix
+sharing, session parking, speculative decoding and ``mesh=``.
 """
 
 from __future__ import annotations
@@ -89,7 +98,7 @@ def _not_ported(what: str):
 
 
 class DecodeScheduler:
-    """Continuous batching over a shared paged pool."""
+    """Continuous batching over a shared paged pool (or per-slot rings)."""
 
     def __init__(self, model, *, n_slots: int = 4, max_seq: int = 64,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
@@ -103,9 +112,7 @@ class DecodeScheduler:
             raise ValueError(
                 f"family {model.cfg.family!r} has no per-slot decode path here; "
                 f"continuous batching supports {CONTINUOUS_FAMILIES}")
-        if kv_mode == "ring":
-            raise _not_ported("kv_mode='ring'")
-        if kv_mode != "paged":
+        if kv_mode not in ("paged", "ring"):
             raise ValueError(f"kv_mode must be 'paged' or 'ring', got {kv_mode!r}")
         for flag, what in ((mesh is not None, "mesh="), (offload, "KV offload"),
                            (prefix_sharing, "prefix sharing"),
@@ -121,6 +128,10 @@ class DecodeScheduler:
             raise ValueError(f"model is on {model.device}, scheduler on {device}")
         self._has_kv = model.n_kv_layers > 0     # an SSM's state is pool-free
         if attn_backend == "paged_kernel":
+            if kv_mode != "paged":
+                raise ValueError(
+                    "attn_backend='paged_kernel' streams the shared page pool "
+                    "through the CUDA kernel; it needs kv_mode='paged'")
             if not self._has_kv:
                 raise ValueError("attn_backend='paged_kernel' needs attention layers; "
                                  "SSM decode has no KV pool")
@@ -142,7 +153,7 @@ class DecodeScheduler:
         self.page_size = page_size
         self.max_pages = -(-max_seq // page_size)
         self.n_pages = kv_pages if kv_pages is not None else n_slots * self.max_pages
-        if not self._has_kv:
+        if not (kv_mode == "paged" and self._has_kv):
             self.n_pages = 0
         elif self.n_pages < self.max_pages:
             raise ValueError(f"kv_pages={self.n_pages} cannot hold even one slot's "
@@ -153,9 +164,13 @@ class DecodeScheduler:
         # admitted-but-not-yet-mapped growth (the admission gate)
         self._page_rows = np.full((n_slots, self.max_pages), -1, np.int32)
         self._reserved = 0
-        self.cache = kvcache.paged_cache(model, n_slots, page_size=page_size,
-                                         n_pages=self.n_pages, max_pages=self.max_pages)
-        self._chunk = make_chunk_step(model)
+        if kv_mode == "paged":
+            self.cache = kvcache.paged_cache(model, n_slots, page_size=page_size,
+                                             n_pages=self.n_pages,
+                                             max_pages=self.max_pages)
+            self._chunk = make_chunk_step(model)
+        else:
+            self.cache = kvcache.batched_cache(model, n_slots, max_seq)
 
         self.slots: List[Slot] = [Slot(index=i) for i in range(n_slots)]
         # device-side per-slot output ring: tokens accumulate on device and
@@ -185,9 +200,10 @@ class DecodeScheduler:
 
         ``max_new`` is clamped to what the slot can hold: the output ring
         caps it at ``max_seq``, and on full attention generation past
-        ``max_seq - len(prompt)`` would run off the page table; a prompt
-        that leaves no decode room is rejected outright.  Windowed families
-        are bounded by the table's ``max_pages * page_size`` span instead,
+        ``max_seq - len(prompt)`` would wrap the ring or run off the page
+        table; a prompt that leaves no decode room is rejected outright.
+        Windowed rings wrap by design; the page table is linear, so windowed
+        families are bounded by its ``max_pages * page_size`` span instead,
         and an SSM's state by nothing but the output ring.
         """
         prompt = np.asarray(prompt)
@@ -197,10 +213,11 @@ class DecodeScheduler:
             room = self.max_seq - P
             if room <= 0:
                 raise ValueError(
-                    f"request {request_id!r}: prompt of {P} tokens leaves no decode "
-                    f"room in max_seq={self.max_seq}; size max_seq >= prompt + max_new")
+                    f"request {request_id!r}: prompt of {P} "
+                    f"tokens leaves no decode room in the max_seq={self.max_seq} "
+                    "full-attention ring; size max_seq >= prompt + max_new")
             limit = min(limit, room)
-        elif self._has_kv:
+        elif self.kv_mode == "paged" and self._has_kv:
             room = self.max_pages * self.page_size - P
             if room <= 0:
                 raise ValueError(
@@ -232,8 +249,8 @@ class DecodeScheduler:
     def _pages_needed(self, req: _Request) -> int:
         """Worst-case page count: prompt + all decode writes (the completing
         step samples its last token from a write at P + max_new - 2); 0 for
-        a model that keeps no K/V."""
-        if not self._has_kv:
+        a model that keeps no K/V or keeps it in rings."""
+        if not (self.kv_mode == "paged" and self._has_kv):
             return 0
         tokens = int(np.asarray(req.prompt).shape[-1]) + req.max_new - 1
         return -(-tokens // self.page_size)
@@ -256,8 +273,22 @@ class DecodeScheduler:
                 held.append(req)
                 held_sessions.add(req.session)
                 continue
-            self._admit_paged(slot, req, need)
+            self._admit(slot, req, need)
         self.pending = held
+
+    def _admit(self, slot: Slot, req: _Request, need: int) -> None:
+        if self.kv_mode == "paged":
+            self._admit_paged(slot, req, need)
+            return
+        # ring: one monolithic prefill into a fresh B=1 ring, copied whole
+        # into the slot's rows; the slot is ACTIVE when this returns
+        self._begin(slot, req)
+        prompt = torch.as_tensor(np.asarray(req.prompt, np.int32).reshape(1, -1))
+        logits, one = self.model.prefill(prompt.to(self.device), seq_len=self.max_seq)
+        kvcache.cache_insert_slot(self.cache, one, slot.index)
+        slot.len = prompt.shape[1]
+        self.prefill_tokens += prompt.shape[1]
+        self._activate(slot, logits)
 
     def _admit_paged(self, slot: Slot, req: _Request, need: int) -> None:
         """Begin a chunked admission: clear the slot's rows, reserve its
@@ -268,27 +299,43 @@ class DecodeScheduler:
         kvcache.cache_clear_slot(self.cache, slot.index)
         self._page_rows[slot.index, :] = -1
         self._reserved += need
-        slot.to(SlotState.ADMITTING)
-        slot.req = req
+        self._begin(slot, req)
         slot.chunks = [prompt[i:i + size] for i in range(0, len(prompt), size)]
         slot.chunk_i = 0
         slot.len = 0                  # host mirror of the slot's live length
         slot.pages = []
         slot.need = need
+
+    def _begin(self, slot: Slot, req: _Request) -> None:
+        """EMPTY -> ADMITTING: bind the request and close its session's FIFO gate."""
+        slot.to(SlotState.ADMITTING)
+        slot.req = req
         slot.n_out = 0
         slot.admitted_step = self.steps
         slot.submitted_step = req.submit_step
         self._active_sessions.add(req.session)
 
+    def _activate(self, slot: Slot, logits: torch.Tensor) -> None:
+        """ADMITTING -> ACTIVE: the prompt's last logits give the first token."""
+        tok = self._sample(logits[:, -1])
+        self.last_tokens[slot.index] = tok[0]
+        self.out_buf[slot.index, 0] = tok[0]
+        self.out_pos[slot.index] = 1
+        slot.to(SlotState.ACTIVE)
+        slot.active_since = self.steps
+        slot.n_out = 1
+        self.admitted += 1
+
     def _release_slot(self, slot: Slot) -> None:
         """Free a DRAINED slot's pages and unused reservation, and unmap its
         device page-table row so residual decode traffic is dropped."""
         slot.to(SlotState.EMPTY)
-        self._reserved -= slot.need - len(slot.pages)
-        if slot.pages:
-            self.allocator.release(slot.pages)
-        self._page_rows[slot.index, :] = -1
-        kvcache.set_page_row(self.cache, slot.index, self._page_rows[slot.index])
+        if self.kv_mode == "paged":
+            self._reserved -= slot.need - len(slot.pages)
+            if slot.pages:
+                self.allocator.release(slot.pages)
+            self._page_rows[slot.index, :] = -1
+            kvcache.set_page_row(self.cache, slot.index, self._page_rows[slot.index])
         self.slots[slot.index] = Slot(index=slot.index)
 
     def _prepare_write_span(self, slot: Slot, pos0: int, count: int) -> None:
@@ -321,15 +368,8 @@ class DecodeScheduler:
         self.prefill_tokens += C
         self.prefill_chunks += 1
         if slot.chunk_i == len(slot.chunks):
-            tok = self._sample(logits[:, -1])
-            self.last_tokens[slot.index] = tok[0]
-            self.out_buf[slot.index, 0] = tok[0]
-            self.out_pos[slot.index] = 1
-            slot.to(SlotState.ACTIVE)
-            slot.active_since = self.steps
-            slot.n_out = 1
             slot.chunks = None
-            self.admitted += 1
+            self._activate(slot, logits)
 
     # -- decode loop ---------------------------------------------------------------
 
@@ -364,11 +404,12 @@ class DecodeScheduler:
         active = [s.index for s in self.slots if s.decoding]
         if not active:
             return []
-        for i in active:
-            # alloc-on-write for decode growth: map the page this step's
-            # token write lands in (within the reservation)
-            st = self.slots[i]
-            self._prepare_write_span(st, st.len, 1)
+        if self.kv_mode == "paged":
+            for i in active:
+                # alloc-on-write for decode growth: map the page this step's
+                # token write lands in (within the reservation)
+                st = self.slots[i]
+                self._prepare_write_span(st, st.len, 1)
         mask = np.zeros((self.n_slots,), bool)
         mask[active] = True
         self.cache, self.last_tokens, self.out_buf, self.out_pos = self._step_impl(
@@ -406,7 +447,8 @@ class DecodeScheduler:
         redelivers; completed requests are deduped by the frontend).  The
         pool returns to fully free and every page-table row to unmapped; the
         schedule and the sampling generator restart, so a replay is a pure
-        function of the submitted work."""
+        function of the submitted work.  Rings have no pool: each admission
+        overwrites its slot's rows whole."""
         self.slots = [s.force_empty() for s in self.slots]
         self.pending = []
         self._active_sessions.clear()
@@ -415,11 +457,12 @@ class DecodeScheduler:
         self.last_tokens.zero_()
         self.out_buf.zero_()
         self.out_pos.zero_()
-        self.allocator.reset()
-        self._reserved = 0
-        self._page_rows[:] = -1
-        for slot in range(self.n_slots):
-            kvcache.cache_clear_slot(self.cache, slot)
+        if self.kv_mode == "paged":
+            self.allocator.reset()
+            self._reserved = 0
+            self._page_rows[:] = -1
+            for slot in range(self.n_slots):
+                kvcache.cache_clear_slot(self.cache, slot)
 
     # -- invariant audit -------------------------------------------------------------
 
@@ -428,7 +471,10 @@ class DecodeScheduler:
         invariant is violated: ``free + in_use == n_pages``; every mapped
         page has refcount 1 and one owner; each slot's host row maps exactly
         the pages it holds and equals the device row; the reservation ledger
-        equals the outstanding worst-case growth."""
+        equals the outstanding worst-case growth.  Rings have no pool to
+        audit."""
+        if self.kv_mode != "paged":
+            return
         a = self.allocator
         a.check()
         owned: set = set()
@@ -469,8 +515,16 @@ class DecodeScheduler:
         return self.page_step_sum / (self.steps * self.n_pages)
 
     def kv_memory_stats(self) -> Dict[str, float]:
-        """KV bytes: allocated pool footprint and the live high-water mark."""
+        """KV bytes: allocated pool or ring footprint and the live
+        high-water mark (rings are allocated whole, so the two are equal)."""
         per_token = kvcache.kv_bytes_per_token(self.cache)
+        if self.kv_mode == "ring":
+            ring_tokens = self.model.cache_len(self.max_seq) if self._has_kv else 0
+            return {
+                "kv_bytes_per_token": per_token,
+                "kv_pool_bytes": per_token * self.n_slots * ring_tokens,
+                "kv_high_water_bytes": per_token * self.n_slots * ring_tokens,
+            }
         return {
             "kv_bytes_per_token": per_token,
             "kv_pool_bytes": per_token * self.n_pages * self.page_size,

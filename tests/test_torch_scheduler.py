@@ -239,7 +239,7 @@ def test_scheduler_matches_jax_scheduler_teacher_forced(arch):
 
 def test_unported_options_raise():
     cfg, model = tiny()
-    for kw in (dict(kv_mode="ring"), dict(offload=True), dict(prefix_sharing=True),
+    for kw in (dict(offload=True), dict(prefix_sharing=True),
                dict(park_sessions=True), dict(spec_k=2), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="not ported"):
             DecodeScheduler(model, device="cpu", **kw)
@@ -247,9 +247,6 @@ def test_unported_options_raise():
         DecodeScheduler(model, device="cpu", attn_backend="flash")
     with pytest.raises(ValueError, match="model is on"):
         DecodeScheduler(model, device="meta")
-    with pytest.raises(ValueError, match="ring rows"):
-        ring = model.init_cache(2, 8)
-        kvcache.mask_slot_rows(ring, ring, torch.ones(2, dtype=torch.bool))
     with pytest.raises(ValueError, match="kv-pages"):
         validate_pool_sizing(batch_size=4, prompt_len=16, max_new=8, page_size=4,
                              kv_pages=8)
