@@ -1,15 +1,22 @@
 """Flash attention: the hand-written CUDA kernel's wrapper.
 
-The kernel (``kernels/csrc/flash_attention.cu``) runs one block per (q tile
-of 64 rows, head, batch row) with the kv loop inside the block, the q tile
-and one kv tile staged in shared memory as fp32 and the online-softmax
-state in registers.  It reads the model's layout directly and indexes the
-kv head of each query head's group.
+The kernel (``kernels/csrc/flash_attention.cu``) runs the kv loop inside
+one block per (q tile, head, batch row) and reads the model's layout
+directly, indexing the kv head of each query head's group.  It has two
+routes, chosen by :func:`route` from the dtype and the head dim alone:
+
+* ``"tensor_core"``: bfloat16 with D a multiple of 16 (every main-path
+  shape).  128-row q tiles (64 at D > 128), mma.sync on bf16 tiles staged
+  by cp.async, fp32 softmax state, P rounded to bf16 for P.V.
+* ``"cuda_core"``: float32 (TF32 would break its 2e-4 contract), and
+  bfloat16 at any other D (the sweeps' D = 8).  64-row q tiles staged as
+  fp32, fp32 arithmetic throughout.
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version (:func:`.ref.flash_attention_plain`), CUDA tensors launch
 the kernel or raise.  ``flash_attention_kernel.launches`` counts kernel
-launches (never plain-version calls).
+launches (never plain-version calls), and
+``flash_attention_kernel.launches_by_route`` counts them per route.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 from .ref import flash_attention_plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("cuda_core", "tensor_core")        # index = the C interface's route code
 MAX_HEAD_DIM = 256
 _lib = None
 
@@ -33,12 +41,19 @@ def _library() -> ctypes.CDLL:
 
         lib = load("flash_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        lib.flash_attention_launch.argtypes = [i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.flash_attention_launch.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel route a call of this dtype and head dim takes: bf16 at a
+    multiple of 16 runs on the tensor cores, everything else on the CUDA
+    cores.  Nothing else (no shape, no failure) picks the route."""
+    return "tensor_core" if dtype == torch.bfloat16 and head_dim % 16 == 0 else "cuda_core"
 
 
 def _check(q, k, v, t_real, window) -> None:
@@ -65,6 +80,9 @@ def _check(q, k, v, t_real, window) -> None:
         raise ValueError("q, k and v must be contiguous")
     if B > 65535 or H > 65535:
         raise ValueError(f"batch {B} or heads {H} exceed the grid's limit 65535")
+    if route(q.dtype, D) == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the tensor-core route copies q, k and v by 16 bytes: their data "
+                         "must be 16-byte aligned")
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -86,18 +104,22 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     if S == 0:
         return o
+    path = route(q.dtype, D)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            ROUTES.index(path), _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(),
             B, S, T, H, Hkv, D, t_real, int(causal), window or 0, stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed for q {tuple(q.shape)}, "
-                           f"k {tuple(k.shape)}: {msg} ({err})")
+        raise RuntimeError(f"flash_attention kernel ({path}) launch failed for q "
+                           f"{tuple(q.shape)}, k {tuple(k.shape)}: {msg} ({err})")
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.launches_by_route[path] += 1
     return o
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)

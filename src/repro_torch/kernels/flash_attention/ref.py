@@ -13,7 +13,8 @@ the mean of v over the ``t_real`` rows, the value a plain softmax over
 equally masked scores gives (the JAX ``reference_attention`` and
 ``layers.sdpa`` give it too).  The wrapper in ``kernel.py`` runs this for
 tensors on the CPU; ``chip_smoke.py`` holds the CUDA kernel against it on
-the card.
+the card.  :func:`bf16_rounding_bound` is the per-element limit the
+tensor-core route's bf16 result is held to against this version in fp32.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 NEG_INF = -1e30
 BLOCK = 1024
+BF16_U = 2.0 ** -8          # bf16's unit roundoff: half an ulp, relative
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -67,3 +69,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = torch.where(empty, float(t_real), l)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+def bf16_rounding_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        t_real: Optional[int] = None):
+    """``(want, bound)``: the fp32 plain output on the (bf16-valued) inputs,
+    and the per-element bound of the tensor-core route's two bf16
+    roundings: P before P.V (``u sum_j p_j |v_j| / l``) and o at the store
+    (``u |o|``, plus ``u^2 sum_j p_j |v_j| / l``), ``u = 2^-8``, with 1e-5
+    for fp32 summation order."""
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    kw = dict(causal=causal, window=window, t_real=t_real)
+    want = flash_attention_plain(q32, k32, v32, **kw)
+    pv_abs = flash_attention_plain(q32, k32, v32.abs(), **kw)
+    return want, 1e-5 + BF16_U * (want.abs() + (1 + BF16_U) * pv_abs)

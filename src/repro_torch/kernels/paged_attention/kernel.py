@@ -5,12 +5,17 @@ pages straight out of the shared ``(n_pages, page_size, Hkv, D)`` pool
 through the slot's page-table row, so the gathered ``(B, T, Hkv, D)`` cache
 never exists in device memory.  It returns the **unnormalized** fp32
 online-softmax state ``(acc, m, l)``; ``ops.py`` splices in the new token and
-normalizes.
+normalizes.  When ``B x Hkv`` blocks would leave the SMs idle, the launch
+splits each slot's live pages ``plan.split_count(...)`` ways and merges the
+splits' states inside the same launch; the scratch it merges through is
+allocated once per device, stream and shape and cached here, so launches
+on two streams never share partials or tickets.
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version (:func:`.ref.paged_attention_plain`), CUDA tensors launch
 the kernel or raise.  ``paged_attention_kernel.launches`` counts kernel
-launches (never plain-version calls).
+launches (never plain-version calls); ``paged_attention_kernel.last_splits``
+holds the split count of the last launch.
 """
 
 from __future__ import annotations
@@ -20,11 +25,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from .plan import split_count
 from .ref import paged_attention_plain
 
 _HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+_sms: dict = {}          # device index -> SM count
+_scratch: dict = {}      # (device index, stream, B, Hkv, G, D, n_split) -> (partials, tickets)
 
 
 def _library() -> ctypes.CDLL:
@@ -35,8 +43,10 @@ def _library() -> ctypes.CDLL:
         lib = load("paged_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.paged_attention_launch.argtypes = [
-            i, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p]
+            i, i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p, p]
         lib.paged_attention_launch.restype = i
+        lib.paged_attention_partial_floats.argtypes = [i, i]
+        lib.paged_attention_partial_floats.restype = i
         lib.paged_attention_error_string.argtypes = [i]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -52,6 +62,27 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _split_plan(lib, dev: torch.device, stream: int, B: int, Hkv: int, G: int, D: int,
+                max_pages: int):
+    """``(n_split, partials pointer, tickets pointer)`` for a launch on
+    ``stream``; the scratch of a split launch is allocated once per device,
+    stream and shape (the tickets zeroed; the kernel leaves them zero).
+    Launches on one stream run in order, so they may share it."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    n_split = split_count(B, Hkv, max_pages, _sms[idx])
+    if n_split == 1:
+        return 1, None, None
+    key = (idx, stream, B, Hkv, G, D, n_split)
+    if key not in _scratch:
+        floats = B * Hkv * n_split * lib.paged_attention_partial_floats(G, D)
+        _scratch[key] = (torch.empty(floats, dtype=torch.float32, device=dev),
+                         torch.zeros(B * Hkv, dtype=torch.int32, device=dev))
+    part, tickets = _scratch[key]
+    return n_split, part.data_ptr(), tickets.data_ptr()
 
 
 def paged_attention_kernel(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
@@ -86,6 +117,10 @@ def paged_attention_kernel(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the grid's y limit 65535")
     pos_stride = page_size if pos_stride is None else int(pos_stride)
+    if pos_stride < 1:
+        raise ValueError(f"pos_stride must be >= 1, got {pos_stride}")
+    if kp.data_ptr() % 16 or vp.data_ptr() % 16:
+        raise ValueError("kp and vp are copied by 16 bytes: their data must be 16-byte aligned")
     dev = q.device
     _check("q", q, q.dtype, (B, Hkv, G, D), dev)
     _check("kp", kp, q.dtype, (n_pages, page_size, Hkv, D), dev)
@@ -101,17 +136,21 @@ def paged_attention_kernel(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        n_split, part, tickets = _split_plan(lib, dev, stream, B, Hkv, G, D, max_pages)
         err = lib.paged_attention_launch(
             _DTYPE_CODE[q.dtype], D, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), q_pos.data_ptr(),
             int(lane_base), pos_stride, int(window is not None),
-            int(window or 0), B, Hkv, G, page_size, max_pages,
-            acc.data_ptr(), m.data_ptr(), l.data_ptr(), stream)
+            int(window or 0), B, Hkv, G, page_size, max_pages, n_split,
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), part, tickets, stream)
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
-        raise RuntimeError(f"paged_attention kernel launch failed: {msg} ({err})")
+        raise RuntimeError(f"paged_attention kernel launch failed ({n_split} splits): "
+                           f"{msg} ({err})")
     paged_attention_kernel.launches += 1
+    paged_attention_kernel.last_splits = n_split
     return acc, m, l
 
 
 paged_attention_kernel.launches = 0
+paged_attention_kernel.last_splits = None

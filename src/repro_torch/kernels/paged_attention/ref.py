@@ -5,6 +5,10 @@
   with no live lane as ``(0, -1e30, 0)`` — computed in one dense pass
   instead of a page loop.  The wrapper in ``kernel.py`` runs it for tensors
   on the CPU; ``chip_smoke.py`` holds the CUDA kernel against it on the card.
+* :func:`paged_attention_split_plain` runs :func:`paged_attention_plain`
+  over each page split of :mod:`.plan` and merges the states with
+  :func:`merge_partials`: what the kernel computes when it splits a
+  slot's pages, in plain PyTorch.
 * :func:`reference_paged_attention` is the end-to-end oracle: the slot's
   pages gathered in logical order and dense fp32 softmax attention,
   optionally with the appended new token (the gather path the kernel
@@ -17,6 +21,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from .plan import live_pages, split_pages
 
 NEG_INF = -1e30
 
@@ -62,6 +68,48 @@ def paged_attention_plain(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     l = p.sum(dim=-1)
     acc = torch.einsum("bhgt,bthd->bhgd", p, v)
     return acc, m, l
+
+
+def merge_partials(parts) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge the ``(acc, m, l)`` states of disjoint lane sets, in order:
+    m is the max of the m's, acc and l the sums rescaled by ``exp(m_s -
+    m)``.  An empty state ``(0, -1e30, 0)`` drops out, and states that are
+    all empty merge to ``(0, -1e30, 0)``."""
+    accs, ms, ls = zip(*parts)
+    m = torch.stack(ms).amax(dim=0)
+    acc, l = torch.zeros_like(accs[0]), torch.zeros_like(ls[0])
+    for a_s, m_s, l_s in parts:
+        w = torch.exp(m_s - m)
+        acc = acc + a_s * w[..., None]
+        l = l + l_s * w
+    return acc, m, l
+
+
+def paged_attention_split_plain(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                                page_table: torch.Tensor, lengths: torch.Tensor,
+                                q_pos: torch.Tensor, *, n_split: int, lane_base: int = 0,
+                                pos_stride: Optional[int] = None,
+                                window: Optional[int] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`paged_attention_plain` over each of ``n_split`` splits of every
+    slot's live pages (``plan.live_pages``, ``plan.split_pages``; the pages
+    outside a split are unmapped for it), merged by :func:`merge_partials`."""
+    B, max_pages = page_table.shape
+    ps = kp.shape[1]
+    pos_stride = ps if pos_stride is None else pos_stride
+    lengths = _per_slot(lengths, B, q.device)
+    q_pos = _per_slot(q_pos, B, q.device)
+    ranges = [live_pages(int(lengths[b]), int(q_pos[b]), window, lane_base, pos_stride, ps,
+                         max_pages) for b in range(B)]
+    page = torch.arange(max_pages, device=page_table.device)[None]
+    parts = []
+    for s in range(n_split):
+        lo, hi = (torch.tensor(x, device=page_table.device)[:, None] for x in zip(
+            *(split_pages(a, b, n_split, s) for a, b in ranges)))
+        pt = torch.where((page >= lo) & (page < hi), page_table, -1).to(torch.int32)
+        parts.append(paged_attention_plain(q, kp, vp, pt, lengths, q_pos, lane_base=lane_base,
+                                           pos_stride=pos_stride, window=window))
+    return merge_partials(parts)
 
 
 def reference_paged_attention(q: torch.Tensor, kp: torch.Tensor,

@@ -12,27 +12,41 @@ the flash kernel's entry point, and must then agree with the JAX ``sdpa``
 (which streams the same softmax over kv blocks of 1024 in XLA) to fp32
 summation noise, 1e-5; below 4096 tokens the call is bitwise what it was.
 On the CPU the wrapper runs the plain version and counts no launch.  The
-CUDA kernel runs only on a card: its test skips here.
+CUDA kernel runs only on a card: its tests skip here, and on the card
+(which has no JAX) they run alone with ``pytest -m gpu``.  bf16 at a head
+dim that is a multiple of 16 takes the tensor-core route, which rounds the
+probabilities to bf16 before P.V; its card test also holds it against the
+fp32 plain version on the same bf16 values, within the bound of its two bf16
+roundings (P, and o at the store).
 """
 
 from __future__ import annotations
 
-import jax.numpy as jnp
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.flash_attention import flash_attention as jax_flash_attention
-from repro.kernels.flash_attention import reference_attention
-from repro.models import layers as jl
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_kernel,
                                                  flash_attention_plain)
+from repro_torch.kernels.flash_attention.kernel import ROUTES, route
+from repro_torch.kernels.flash_attention.ref import bf16_rounding_bound
 from repro_torch.models import layers as tl
+
+try:    # the card's machine has no JAX: there only the gpu-marked tests run
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention import flash_attention as jax_flash_attention
+    from repro.kernels.flash_attention import reference_attention
+    from repro.models import layers as jl
+except ModuleNotFoundError:
+    jnp = None
 
 torch.set_num_threads(2)
 
 ATOL = {"float32": 2e-4, "bfloat16": 3e-2}
-JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+JDT = {"float32": "float32", "bfloat16": "bfloat16"}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -43,7 +57,7 @@ def inputs(seed, B, S, T, H, Hkv, D, dtype):
     arrays = [rng.standard_normal(s).astype(np.float32)
               for s in ((B, S, H, D), (B, T, Hkv, D), (B, T, Hkv, D))]
     ts = [torch.from_numpy(a).to(TDT[dtype]) for a in arrays]
-    js = [jnp.asarray(t.float().numpy(), JDT[dtype]) for t in ts]
+    js = [jnp.asarray(t.float().numpy(), JDT[dtype]) for t in ts] if jnp is not None else None
     return js, ts
 
 
@@ -157,10 +171,44 @@ def test_sdpa_below_the_threshold_is_unchanged(monkeypatch):
 def test_cpu_dispatch_counts_no_launch():
     _, (q, k, v) = inputs(7, 1, 20, 20, 4, 2, 16, "bfloat16")
     n0 = flash_attention_kernel.launches
+    by_route = dict(flash_attention_kernel.launches_by_route)
     out = flash_attention(q, k, v, window=5)
     flash_attention_kernel(q, k, v, causal=False, t_real=11)
     assert flash_attention_kernel.launches == n0
+    assert flash_attention_kernel.launches_by_route == by_route
+    assert set(by_route) == set(ROUTES)
     assert out.dtype == torch.bfloat16 and out.device.type == "cpu"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [8, 16, 24, 64, 128, 200, 256])
+def test_route_by_dtype_and_head_dim(dtype, D):
+    """bf16 at a multiple of 16 runs on the tensor cores (every main-path
+    shape: D 64, 128, 256); fp32 and other head dims on the CUDA cores."""
+    want = "tensor_core" if dtype == "bfloat16" and D % 16 == 0 else "cuda_core"
+    assert route(TDT[dtype], D) == want
+
+
+def test_bf16_rounding_bound_holds_for_rounded_probabilities():
+    """The bound's arithmetic on the CPU: attention whose probabilities and
+    output are rounded to bf16 (what the tensor-core route does) stays
+    inside it, and leaving out one 64-key tile of a long row does not."""
+    B, S, H, Hkv, D = 1, 600, 4, 2, 32
+    _, ts = inputs(9, B, S, S, H, Hkv, D, "bfloat16")
+    q, k, v = (t.float() for t in ts)
+    want, bound = bf16_rounding_bound(q, k, v)
+    G = H // Hkv
+    s = torch.einsum("bshgd,bthd->bhgst", q.reshape(B, S, Hkv, G, D), k) / math.sqrt(D)
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgst,bthd->bhgsd", p.bfloat16().float(), v) / l
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).bfloat16().float()
+    assert ((o - want).abs() <= bound).all()
+    keep = torch.ones(S, dtype=torch.bool)
+    keep[256:320] = False
+    dropped = torch.einsum("bhgt,bthd->bhgd", torch.softmax(s[..., -1, keep], -1), v[:, keep])
+    assert (dropped.reshape(B, H, D) - want[:, -1]).abs().max() > bound[:, -1].max()
 
 
 GPU_CASES = [  # (B, S, T, H, Hkv, D, window)
@@ -187,3 +235,35 @@ def test_cuda_kernel_matches_plain_version(dtype):
         torch.cuda.synchronize()
         assert flash_attention_kernel.launches == n0 + 1
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+GPU_TC_CASES = [  # (B, S, T, H, Hkv, D, window, extra): several 128-row q tiles and kv stages
+    (2, 700, 700, 8, 2, 64, None, {"t_real": 650}),
+    (1, 1000, 1000, 40, 8, 128, 300, {}),
+    (1, 900, 900, 10, 1, 256, 256, {"t_real": 870}),
+    (1, 520, 600, 4, 1, 128, None, {"causal": False, "t_real": 555}),
+    (1, 400, 200, 2, 1, 64, 40, {}),
+    (1, 300, 300, 4, 2, 80, 100, {}),          # head dims known only at run time
+    (1, 200, 200, 2, 2, 192, None, {}),
+]
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_core_route_matches_plain_versions():
+    """bf16 at D 64/128/256 takes the tensor-core route and agrees with the
+    bf16 plain version at 3e-2 and with the fp32 plain version on the same
+    values within the bound of its bf16 roundings."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    for seed, (B, S, T, H, Hkv, D, window, extra) in enumerate(GPU_TC_CASES):
+        _, ts = inputs(seed, B, S, T, H, Hkv, D, "bfloat16")
+        q, k, v = (t.cuda() for t in ts)
+        kw = dict(causal=extra.get("causal", True), window=window, t_real=extra.get("t_real"))
+        n0 = flash_attention_kernel.launches_by_route["tensor_core"]
+        got = flash_attention_kernel(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention_kernel.launches_by_route["tensor_core"] == n0 + 1
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+        want32, bound = bf16_rounding_bound(q, k, v, **kw)
+        assert ((got.float() - want32).abs() <= bound).all()

@@ -5,33 +5,47 @@ The same numpy inputs (from a seed) go through the JAX oracle
 (as the JAX kernel tests run it on the CPU) and the port's plain version
 and wrapper.  Tolerances are the JAX kernel tests' (``tests/test_kernels.py``):
 fp32 2e-4 (summation order only), bf16 3e-2 (the output is rounded to bf16).
-The CUDA kernel itself runs only on a card: its test skips here.
+
+The kernel splits each slot's live pages when few (slot, kv head) rows
+would leave the card idle, and merges the splits' states in the same
+launch.  Its plan (``plan.py``: the split count, the window's first page,
+the live page range, each split's share) is held against brute force here,
+and the plain split-and-merge version against the unsplit plain version and
+the JAX oracle.  The CUDA kernel itself runs only on a card: its tests skip
+here, and on the card (which has no JAX) they run alone with ``pytest -m gpu``.
 """
 
 from __future__ import annotations
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.paged_attention import paged_attention as jax_paged_attention
-from repro.kernels.paged_attention import reference_paged_attention as jax_reference
-from repro.kernels.paged_attention.kernel import paged_attention_kernel as jax_kernel
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention import (paged_attention,
+from repro_torch.kernels.paged_attention import (merge_partials, paged_attention,
                                                  paged_attention_kernel,
                                                  paged_attention_plain,
+                                                 paged_attention_split_plain,
                                                  reference_paged_attention)
+from repro_torch.kernels.paged_attention import plan
+
+try:    # the card's machine has no JAX: there only the gpu-marked tests run
+    import jax.numpy as jnp
+
+    from repro.kernels.paged_attention import paged_attention as jax_paged_attention
+    from repro.kernels.paged_attention import reference_paged_attention as jax_reference
+    from repro.kernels.paged_attention.kernel import paged_attention_kernel as jax_kernel
+except ModuleNotFoundError:
+    jnp = None
 
 torch.set_num_threads(2)
 
 ATOL = {"float32": 2e-4, "bfloat16": 3e-2}
-JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+JDT = {"float32": "float32", "bfloat16": "bfloat16"}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def paged_inputs(seed, B, Hkv, G, D, ps, mp, n_pages, fill=0.8, holes=0):
+def paged_inputs(seed, B, Hkv, G, D, ps, mp, n_pages, fill=0.8, holes=0, min_len=1):
     """numpy fp32 pool + scrambled per-slot tables with ragged live lengths
     and optional unmapped holes (the layout of ``test_kernels.paged_inputs``)."""
     rng = np.random.default_rng(seed)
@@ -40,7 +54,8 @@ def paged_inputs(seed, B, Hkv, G, D, ps, mp, n_pages, fill=0.8, holes=0):
                 vp=rng.standard_normal((n_pages, ps, Hkv, D), np.float32),
                 k_new=rng.standard_normal((B, 1, Hkv, D), np.float32),
                 v_new=rng.standard_normal((B, 1, Hkv, D), np.float32))
-    lengths = rng.integers(1, max(2, int(mp * ps * fill)), size=B).astype(np.int32)
+    lengths = rng.integers(min_len, max(min_len + 1, int(mp * ps * fill)),
+                           size=B).astype(np.int32)
     pt = np.full((B, mp), -1, np.int32)
     for b in range(B):
         need = -(-int(lengths[b]) // ps)
@@ -212,6 +227,129 @@ def test_build_names_library_by_source_hash_and_needs_nvcc(monkeypatch, tmp_path
         build.build(["paged_attention"])
 
 
+PLACEMENTS = [  # (page_size, pos_stride, lane_base): defaults and lane decompositions
+    (4, 4, 0), (8, 8, 0), (16, 16, 0), (4, 8, 0), (4, 8, 4), (8, 32, 16), (3, 5, 2),
+]
+
+
+@pytest.mark.parametrize("ps,stride,lane_base", PLACEMENTS)
+def test_live_pages_match_brute_force(ps, stride, lane_base):
+    """Every live lane lies on a page of ``live_pages``'s range, and at the
+    decode query positions (``q_pos`` = length or length - 1) the range is
+    exactly the pages that hold a live lane; ``window_first_page`` is the
+    first page with a lane inside the window."""
+    mp = 12
+    pos = np.arange(mp)[:, None] * stride + lane_base + np.arange(ps)[None]   # (page, lane)
+    for length in range(0, mp * stride + lane_base + 2):
+        for q_pos in {length, max(length - 1, 0), length + 7}:
+            for window in (None, 1, 2, 5, 17, 40):
+                live = pos < length
+                if window is not None:
+                    live &= pos > q_pos - window
+                    first = np.flatnonzero((pos > q_pos - window).any(axis=1))
+                    got = plan.window_first_page(q_pos, window, lane_base, stride, ps)
+                    assert got == first[0] if len(first) else got >= mp
+                pages = np.flatnonzero(live.any(axis=1))
+                lo, hi = plan.live_pages(length, q_pos, window, lane_base, stride, ps, mp)
+                assert 0 <= lo <= hi <= mp
+                assert all(lo <= j < hi for j in pages)
+                if len(pages) and q_pos <= length and stride >= ps:
+                    assert (lo, hi) == (pages[0], pages[-1] + 1)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7, 33, 64])
+def test_split_pages_partition_the_live_range(n_split):
+    """The splits' shares are ordered, disjoint, of near-equal size and
+    cover ``[lo, hi)``; a range shorter than the split count leaves the
+    last splits empty."""
+    for lo in range(0, 9):
+        for hi in range(lo, lo + 150, 7):
+            runs = [plan.split_pages(lo, hi, n_split, s) for s in range(n_split)]
+            assert runs[0][0] == lo and runs[-1][1] == hi
+            for (a0, a1), (b0, b1) in zip(runs, runs[1:]):
+                assert a0 <= a1 == b0 <= b1
+            sizes = [b - a for a, b in runs]
+            assert max(sizes) == -(-(hi - lo) // n_split)
+            if hi - lo < n_split:
+                assert sizes[-1] == 0
+
+
+def test_split_count_from_shapes():
+    """One split once B x Hkv rows fill the SMs (minicpm-2b: 8 x 36 = 288);
+    recurrentgemma-2b's decode (8 slots x 1 kv head, 145 pages) gets ~2
+    blocks per SM; splits keep >= 4 pages each and stay <= 64."""
+    assert plan.split_count(8, 36, 34) == 1
+    assert plan.split_count(132, 1, 1000) == 1
+    assert plan.split_count(8, 1, 145) == 33
+    assert plan.split_count(1, 1, 145) == 37
+    assert plan.split_count(1, 1, 10_000) == plan.MAX_SPLITS
+    assert plan.split_count(2, 1, 3) == 1
+    for B in range(1, 140, 3):
+        for mp in (1, 4, 5, 50, 500):
+            n = plan.split_count(B, 1, mp)
+            assert 1 <= n <= plan.MAX_SPLITS
+            assert n == 1 or (B < plan.H100_SMS and (mp - 1) // (n - 1) >= 4)
+
+
+SPLIT_CASES = [  # (B, Hkv, G, D, ps, mp, n_pages, holes, window, lane_base, stride, post)
+    (3, 2, 3, 16, 8, 12, 48, 1, None, 0, None, False),
+    (2, 1, 5, 8, 4, 30, 70, 2, 20, 0, None, True),
+    (3, 1, 10, 16, 8, 20, 70, 0, 40, 0, None, False),
+    (2, 2, 2, 8, 8, 10, 24, 1, 30, 8, 16, True),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("n_split", [1, 3, 8, 50])
+def test_split_merge_matches_unsplit_and_jax(case, n_split):
+    """The plain version run over each split's pages and merged equals the
+    unsplit plain version (fp32 summation order: 2e-4), with empty splits
+    (more splits than live pages, pages before the window) and a row with
+    no live lane, which stays ``(0, -1e30, 0)``; normalized, it equals the
+    JAX oracle (default placement) or the Pallas kernel in interpret mode
+    (``lane_base``/``pos_stride``)."""
+    B, Hkv, G, D, ps, mp, n_pages, holes, window, lane_base, stride, post = case
+    arrs, pt, lengths = paged_inputs(40 + n_split, B, Hkv, G, D, ps, mp, n_pages,
+                                     holes=holes, fill=1.0)
+    pt[-1] = -1                                          # a row with no live lane
+    q_pos = lengths - 1 if post else lengths
+    qg = torch.from_numpy(arrs["q"].reshape(B, Hkv, G, D))
+    args = (qg, torch.from_numpy(arrs["kp"]), torch.from_numpy(arrs["vp"]),
+            torch.from_numpy(pt), torch.from_numpy(lengths), torch.from_numpy(q_pos))
+    kw = dict(lane_base=lane_base, pos_stride=stride, window=window)
+    got = paged_attention_split_plain(*args, n_split=n_split, **kw)
+    want = paged_attention_plain(*args, **kw)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-4, rtol=2e-4)
+    acc, m, l = got
+    assert (acc[-1] == 0).all() and (m[-1] == -1e30).all() and (l[-1] == 0).all()
+    out = (acc / l.clamp(min=1e-30)[..., None]).numpy()
+    if lane_base == 0 and stride is None:
+        ref = np.asarray(jax_reference(jnp.asarray(arrs["q"]), jnp.asarray(arrs["kp"]),
+                                       jnp.asarray(arrs["vp"]), jnp.asarray(pt),
+                                       jnp.asarray(lengths), q_pos=jnp.asarray(q_pos),
+                                       window=window), np.float32).reshape(B, Hkv, G, D)
+    else:
+        jacc, _, jl = jax_kernel(jnp.asarray(qg.numpy()), jnp.asarray(arrs["kp"]),
+                                 jnp.asarray(arrs["vp"]), jnp.asarray(pt),
+                                 jnp.asarray(lengths), jnp.asarray(q_pos),
+                                 lane_base=jnp.asarray([lane_base], jnp.int32),
+                                 pos_stride=stride, window=window, interpret=True)
+        ref = np.asarray(jacc) / np.maximum(np.asarray(jl), 1e-30)[..., None]
+    np.testing.assert_allclose(out[:-1], ref[:-1], atol=2e-4, rtol=2e-4)
+
+
+def test_merge_of_empty_states_is_empty():
+    """Merging only ``(0, -1e30, 0)`` states gives ``(0, -1e30, 0)``; an
+    empty state beside a live one changes nothing."""
+    empty = (torch.zeros(2, 3, 4), torch.full((2, 3), -1e30), torch.zeros(2, 3))
+    acc, m, l = merge_partials([empty, empty, empty])
+    assert (acc == 0).all() and (m == -1e30).all() and (l == 0).all()
+    live = (torch.randn(2, 3, 4), torch.randn(2, 3), torch.rand(2, 3) + 0.5)
+    for g, w in zip(merge_partials([empty, live, empty]), live, strict=True):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(dtype):
@@ -233,3 +371,80 @@ def test_cuda_kernel_matches_plain_version(dtype):
         close((acc / l.clamp(min=1e-30)[..., None]).cpu(),
               (racc / rl.clamp(min=1e-30)[..., None]).cpu(), dtype)
         close(m.cpu(), rm.cpu(), dtype)
+
+
+GPU_SPLIT_CASES = [  # (B, ps, mp, n_pages, holes, window, lane_base, stride, post, min_len)
+    (1, 16, 145, 150, 0, 2048, 0, None, True, 2100),    # past the window, ~37 splits
+    (8, 16, 145, 1200, 3, 2048, 0, None, True, 2100),   # the hybrid's decode, 33 splits
+    (8, 16, 145, 1200, 0, 2048, 0, None, False, 2100),  # append mode
+    (3, 16, 40, 130, 0, 100, 0, None, False, 1),        # a 3-token slot, an unmapped slot
+    (2, 8, 60, 130, 2, 200, 8, 16, True, 1),            # lane_base / pos_stride
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_splits_match_plain_version(dtype):
+    """recurrentgemma-2b's head shape (Hkv 1, G 10, D 256) at few slots, so
+    the kernel splits each slot's pages and merges in the launch: long
+    contexts past the window, scrambled tables with holes, splits with no
+    live lane and a row with none, lane_base / pos_stride off the default."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    for seed, (B, ps, mp, n_pages, holes, window, lane_base, stride, post,
+               min_len) in enumerate(GPU_SPLIT_CASES):
+        arrs, pt, lengths = paged_inputs(seed, B, 1, 10, 256, ps, mp, n_pages, holes=holes,
+                                         fill=1.0, min_len=min_len)
+        if seed == 3:
+            lengths[0], pt[1] = 3, -1
+        q_pos = lengths - 1 if post else lengths
+        t = {k: v.cuda() for k, v in to_torch(arrs, dtype).items()}
+        qg = t["q"].reshape(B, 1, 10, 256).contiguous()
+        pt_t, len_t = torch.from_numpy(pt).cuda(), torch.from_numpy(lengths).cuda()
+        qp_t = torch.from_numpy(q_pos).cuda()
+        kw = dict(lane_base=lane_base, pos_stride=stride, window=window)
+        acc, m, l = paged_attention_kernel(qg, t["kp"], t["vp"], pt_t, len_t, qp_t, **kw)
+        racc, rm, rl = paged_attention_plain(qg, t["kp"], t["vp"], pt_t, len_t, qp_t, **kw)
+        torch.cuda.synchronize()
+        close((acc / l.clamp(min=1e-30)[..., None]).cpu(),
+              (racc / rl.clamp(min=1e-30)[..., None]).cpu(), dtype)
+        close(m.cpu(), rm.cpu(), dtype)
+        close((l / rl.clamp(min=1.0)).cpu(), (rl / rl.clamp(min=1.0)).cpu(), dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_split_launches_on_two_streams_keep_their_own_scratch():
+    """Split launches of one shape on two streams at once each merge through
+    their own partials and tickets, and both agree with the plain version;
+    the wrapper reports the split count it launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.paged_attention import kernel as paged_kernel
+
+    B, ps, mp, n_pages = 8, 16, 145, 1200
+    runs = []
+    for seed in (0, 1):
+        arrs, pt, lengths = paged_inputs(seed, B, 1, 10, 256, ps, mp, n_pages, fill=1.0,
+                                         min_len=2100)
+        t = {k: v.cuda() for k, v in to_torch(arrs, "float32").items()}
+        qg = t["q"].reshape(B, 1, 10, 256).contiguous()
+        pt_t, len_t = torch.from_numpy(pt).cuda(), torch.from_numpy(lengths).cuda()
+        runs.append((qg, t["kp"], t["vp"], pt_t, len_t, len_t - 1))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(20):
+        for s, args in zip(streams, runs):
+            with torch.cuda.stream(s):
+                outs.append(paged_attention_kernel(*args, window=2048))
+    torch.cuda.synchronize()
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_split = paged_attention_kernel.last_splits
+    assert n_split == plan.split_count(B, 1, mp, n_sms) > 1
+    used = {k[1] for k in paged_kernel._scratch if k[2:] == (B, 1, 10, 256, n_split)}
+    assert used >= {s.cuda_stream for s in streams}
+    for i, (acc, m, l) in enumerate(outs):
+        racc, rm, rl = paged_attention_plain(*runs[i % 2], window=2048)
+        close((acc / l.clamp(min=1e-30)[..., None]).cpu(),
+              (racc / rl.clamp(min=1e-30)[..., None]).cpu(), "float32")
+        close(m.cpu(), rm.cpu(), "float32")
