@@ -1,13 +1,18 @@
 """RG-LRU diagonal linear recurrence: the hand-written CUDA kernel's wrapper.
 
-The kernel (``kernels/csrc/rglru_scan.cu``) runs one thread per ``(b, w)``
-channel, each walking the sequence with its state in a register; its fp32
-result is bitwise the plain left fold (:func:`.ref.rglru_scan_plain`).
+The kernel (``kernels/csrc/rglru_scan.cu``) runs one lane per ``(b, w)``
+channel, each walking the sequence with its state in a register; a warp of
+32 channels streams a and b through a 4-stage cp.async ring of 32 steps
+(calls shorter than a stage, and rows that are not whole 16-byte chunks,
+load each step directly).  Its fp32 result is bitwise the plain left fold
+(:func:`.ref.rglru_scan_plain`).
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version, CUDA tensors launch the kernel or raise.
 ``rglru_scan_kernel.launches`` counts kernel launches (never plain-version
-calls).
+calls), and ``rglru_scan_kernel.launches_by_kernel`` counts them per kernel
+(``"staged"`` or ``"direct"``), as the library's ``rglru_scan_kernel_of``
+names the one it runs.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 from .ref import rglru_scan_plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+KERNELS = ("direct", "staged")          # index = rglru_scan_kernel_of's answer
 _lib = None
 
 
@@ -31,6 +37,8 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rglru_scan_launch.argtypes = [i, p, p, p, i, i, i, p]
         lib.rglru_scan_launch.restype = i
+        lib.rglru_scan_kernel_of.argtypes = [i, i, i, p, p]
+        lib.rglru_scan_kernel_of.restype = i
         lib.rglru_scan_error_string.argtypes = [i]
         lib.rglru_scan_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -67,8 +75,12 @@ def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if err != 0:
         msg = lib.rglru_scan_error_string(err).decode()
         raise RuntimeError(f"rglru_scan kernel launch failed: {msg} ({err})")
+    kernel = KERNELS[lib.rglru_scan_kernel_of(_DTYPE_CODE[a.dtype], L, W, a.data_ptr(),
+                                              b.data_ptr())]
     rglru_scan_kernel.launches += 1
+    rglru_scan_kernel.launches_by_kernel[kernel] += 1
     return h
 
 
 rglru_scan_kernel.launches = 0
+rglru_scan_kernel.launches_by_kernel = dict.fromkeys(KERNELS, 0)

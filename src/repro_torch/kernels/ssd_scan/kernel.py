@@ -1,13 +1,28 @@
 """Mamba-2 SSD chunked scan: the hand-written CUDA kernel's wrapper.
 
-The kernel (``kernels/csrc/ssd_scan.cu``) runs one block per ``(b, head)``
-that walks the sequence in chunks of up to 64 tokens with the (P, N) fp32
-state in shared memory; it enters from ``h0`` and returns the final state.
+The kernel (``kernels/csrc/ssd_scan.cu``) enters from ``h0`` and returns
+the final state.  It has two routes, chosen from the dtype and the dims
+alone by the rule that ``ssd_scan.cu`` states once (``route_of``, exported
+as ``ssd_scan_route``; :func:`route` asks the built library):
+
+* ``"tensor_core"``: bfloat16 with P a multiple of 16 and N 64, 128 or 256
+  (mamba2-1.3b's P = 64, N = 128, prefill and decode alike).  For L >= 2,
+  one block per (head, 32 or 16 rows of P, batch row) walks 128-token
+  chunks (64 at N = 256) with its slab of the fp32 state in registers; the
+  products run on mma.sync with bf16 operands, the fp32 operands (the
+  decayed C.B^T weights, h_prev and x * wend) as bf16 hi + lo pairs, so
+  ``y`` departs from the fp32 plain version by about one bf16 rounding
+  (:func:`.ref.bf16_rounding_bound`).  L = 1 (a decode step) streams each
+  state row once in fp32 with 16-byte loads.
+* ``"cuda_core"``: float32, and bfloat16 at any other P or N.  One block
+  per (b, head) over chunks of up to 64 tokens with the (P, N) fp32 state
+  in shared memory, fp32 arithmetic throughout.
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version (:func:`.ref.ssd_scan_plain`, chunked by ``chunk``), CUDA
 tensors launch the kernel or raise.  ``ssd_scan_kernel.launches`` counts
-kernel launches (never plain-version calls).
+kernel launches (never plain-version calls), and
+``ssd_scan_kernel.launches_by_route`` counts them per route.
 """
 
 from __future__ import annotations
@@ -20,6 +35,7 @@ import torch
 from .ref import ssd_scan_plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("cuda_core", "tensor_core")        # index = the C interface's route code
 _lib = None
 
 
@@ -32,10 +48,21 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ssd_scan_launch.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.ssd_scan_launch.restype = i
+        lib.ssd_scan_route.argtypes = [i, i, i]
+        lib.ssd_scan_route.restype = i
         lib.ssd_scan_error_string.argtypes = [i]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def route(dtype: torch.dtype, P: int, N: int) -> str:
+    """The kernel route a call of this dtype, head dim P and state dim N
+    takes, as the built library's ``ssd_scan_route`` gives it: bf16 with P
+    a multiple of 16 and N 64, 128 or 256 on the tensor cores, everything
+    else on the CUDA cores.  Nothing else (no length, no failure) picks the
+    route.  Needs the library, so the card's toolchain."""
+    return ROUTES[_library().ssd_scan_route(_DTYPE_CODE[dtype], P, N)]
 
 
 def _check(x, dt, A, Bm, Cm, h0) -> None:
@@ -61,7 +88,7 @@ def _check(x, dt, A, Bm, Cm, h0) -> None:
     if not all(t.is_contiguous() for t in (x, dt, A, Bm, Cm) + ((h0,) if h0 is not None else ())):
         raise ValueError("x, dt, A, Bm, Cm and h0 must be contiguous")
     if Bsz > 65535:
-        raise ValueError(f"batch {Bsz} exceeds the grid's y limit 65535")
+        raise ValueError(f"batch {Bsz} exceeds the grid's limit 65535")
 
 
 def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -71,8 +98,9 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torc
     bfloat16); dt (B, L, H), A (H,) and h0 (B, H, P, N) or None, float32;
     all contiguous -> ``(y (B, L, H, P) in x's dtype, h_final (B, H, P, N)
     float32)``.  ``chunk`` is the plain version's chunk length (CPU
-    tensors); the kernel picks its own (64 tokens where shared memory
-    allows), which changes only the rounding."""
+    tensors); the kernel picks its own (128 or 64 tokens on the tensor-core
+    route, up to 64 on the CUDA-core route), which changes only the
+    rounding."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, h0, chunk=chunk)
     if x.device.type != "cuda":
@@ -88,6 +116,11 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torc
         else:
             h_final.zero_()
         return y, h_final
+    path = route(x.dtype, P, N)
+    if path == "tensor_core" and any(
+            t.data_ptr() % 16 for t in (x, Bm, Cm) + ((h0,) if h0 is not None else ())):
+        raise ValueError("the tensor-core route copies x, Bm, Cm and h0 by 16 bytes: their "
+                         "data must be 16-byte aligned")
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -97,10 +130,12 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torc
             h_final.data_ptr(), Bsz, L, H, P, N, stream)
     if err != 0:
         msg = lib.ssd_scan_error_string(err).decode()
-        raise RuntimeError(f"ssd_scan kernel launch failed for x {tuple(x.shape)}, "
+        raise RuntimeError(f"ssd_scan kernel ({path}) launch failed for x {tuple(x.shape)}, "
                            f"N={N}: {msg} ({err})")
     ssd_scan_kernel.launches += 1
+    ssd_scan_kernel.launches_by_route[path] += 1
     return y, h_final
 
 
 ssd_scan_kernel.launches = 0
+ssd_scan_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -214,7 +214,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_valid`` (B, T) masks unfilled cache lanes.  ``aligned`` is the
     caller's word that q, k and v are one sequence from position 0 (S == T,
     positions ``arange``, no ``kv_valid``): from STREAM_KV_THRESHOLD tokens
-    on, that call runs in the flash kernel (fp32 probabilities).
+    on, that call runs in the flash kernel.  bf16 at a head dim that is a
+    multiple of 16 takes its tensor-core route, which rounds the
+    probabilities P to bf16 for P.V; fp32 takes its CUDA-core route, with
+    fp32 probabilities throughout.
     """
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]

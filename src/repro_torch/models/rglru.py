@@ -70,23 +70,38 @@ def rglru_scan(x_in: torch.Tensor, a: torch.Tensor,
     return scan(a, x_in)
 
 
-def _block_diag(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def block_diag_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, S, nb, Wb) @ per-block w (nb, Wb, Wb) -> (B, S, nb, Wb), one
     row-vector product per token and block: a token's result does not depend
     on how many tokens share the call, so a chunk computes each token's
-    gates as its S=1 step does."""
+    gates as its S=1 step does.  The broadcast copies w once per token
+    (S x nb x Wb x Wb floats), so it is kept for CPU tensors, where the
+    port's decode == chunked-prefill tests hold the gates bitwise."""
     return torch.matmul(x.unsqueeze(-2), w).squeeze(-2)
+
+
+def block_diag_batched(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, nb, Wb) @ per-block w (nb, Wb, Wb) -> (B, S, nb, Wb) as one
+    batched product per block, (nb, B*S, Wb) x (nb, Wb, Wb): the reference's
+    ``einsum("bskw,kwv->bskv")``, with no copy of w.  Its low bits may
+    depend on B*S (the library picks its kernel by shape)."""
+    B, S, nb, Wb = x.shape
+    xt = x.permute(2, 0, 1, 3).reshape(nb, B * S, Wb)
+    return torch.bmm(xt, w).reshape(nb, B, S, Wb).permute(1, 2, 0, 3)
 
 
 def rglru_gates(p, x: torch.Tensor, n_blocks: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Block-diagonal gate projections (Griffin) in fp32: returns
-    ``(a, gated_input)``, both (B, S, W) fp32."""
+    ``(a, gated_input)``, both (B, S, W) fp32.  The device picks the form
+    of the two products: :func:`block_diag_batched` on the card,
+    :func:`block_diag_rows` on the CPU."""
     B, S, W = x.shape
     Wb = W // n_blocks
     xb = x.reshape(B, S, n_blocks, Wb).float()
-    r = torch.sigmoid(_block_diag(xb, p["gate_w_a"].float()) + p["gate_b_a"].float())
-    i = torch.sigmoid(_block_diag(xb, p["gate_w_x"].float()) + p["gate_b_x"].float())
+    block_diag = block_diag_rows if x.device.type == "cpu" else block_diag_batched
+    r = torch.sigmoid(block_diag(xb, p["gate_w_a"].float()) + p["gate_b_a"].float())
+    i = torch.sigmoid(block_diag(xb, p["gate_w_x"].float()) + p["gate_b_x"].float())
     r = r.reshape(B, S, W)
     i = i.reshape(B, S, W)
     log_a = -C_RGLRU * torch.nn.functional.softplus(p["a_param"].float()) * r

@@ -16,27 +16,40 @@ wrapper.  Tolerances:
   test's tolerance).
 
 The port's own contract: a sequence split anywhere into calls that carry
-the final state as the next ``h0`` equals the whole sequence, to 1e-5.  The
-CUDA kernel runs only on a card: its test skips here.
+the final state as the next ``h0`` equals the whole sequence, to 1e-5.
+
+The kernel's limits (``ref.bf16_rounding_bound`` for bf16,
+``ref.fp32_rounding_bound`` for fp32 where |A dt| is large): the plain
+version's own ``y`` lies within each of the float64 oracle, and on the row
+of the token whose input moves that row the most the limit is smaller than
+that move.  The CUDA kernel and the route rule (the built library's) run
+only on a card: their tests skip here.
 """
 
 from __future__ import annotations
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.ssd_scan import reference_ssd
-from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
-from repro.models.mamba2 import ssd_chunked, ssd_decode_step
+try:    # the card's machine has no JAX: there only the gpu-marked tests run
+    import jax.numpy as jnp
+
+    from repro.kernels.ssd_scan import reference_ssd
+    from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
+    from repro.models.mamba2 import ssd_chunked, ssd_decode_step
+except ModuleNotFoundError:
+    jnp = None
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_kernel, ssd_scan_plain
+from repro_torch.kernels.ssd_scan.kernel import ROUTES, route
+from repro_torch.kernels.ssd_scan.ref import (KERNEL_CHUNK, bf16_rounding_bound,
+                                              dropped_token_effect, fp32_rounding_bound)
 
 torch.set_num_threads(2)
 
 ATOL = {"float32": 2e-4, "bfloat16": 3e-2}
-JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+JDT = {"float32": "float32", "bfloat16": "bfloat16"}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 EXACT = 1e-5
 
@@ -193,33 +206,167 @@ def test_build_knows_the_ssd_source():
     lib = build.library_path("ssd_scan")
     assert lib.parent == build.BUILD_DIR and lib.name.startswith("ssd_scan.")
     src = (build.CSRC / "ssd_scan.cu").read_text()
-    assert "extern \"C\"" in src and "ssd_scan_launch" in src
-    # the four contractions live in the kernel, not in a library call
+    assert "extern \"C\"" in src and "ssd_scan_launch" in src and "ssd_scan_route" in src
+    # the four contractions live in the kernel, not in a library call: on
+    # the CUDA cores through tile_product, on the tensor cores through mma.sync
     assert "cublas" not in src.lower() and src.count("tile_product(") >= 4
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,P,N,want", [
+    (torch.bfloat16, 64, 128, "tensor_core"),      # mamba2-1.3b
+    (torch.bfloat16, 16, 64, "tensor_core"), (torch.bfloat16, 48, 256, "tensor_core"),
+    (torch.float32, 64, 128, "cuda_core"),         # fp32 stays on the CUDA cores
+    (torch.bfloat16, 4, 8, "cuda_core"), (torch.bfloat16, 64, 96, "cuda_core"),
+    (torch.bfloat16, 24, 128, "cuda_core")])
+def test_route_is_chosen_from_dtype_and_dims(dtype, P, N, want):
+    """The rule lives once, in the library (``ssd_scan_route``), so this
+    needs the card's build."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the route rule is the built library's")
+    assert route(dtype, P, N) == want and want in ROUTES
+
+
+def test_entry_point_copies_views_off_16_byte_boundary():
+    """The tensor-core route copies x, B, C and h0 by 16 bytes: the entry
+    point hands it a copy of any view that starts elsewhere, same values."""
+    x, dt, A, Bm, Cm, h0 = to_torch(*ssd_inputs(5, 1, 6, 2, 16, 64, h0=True),
+                                    dtype=torch.bfloat16)
+    wide = torch.cat([torch.zeros(1, 6, 2, 16, dtype=x.dtype), x], dim=-1)[..., 16:]
+    view = torch.cat([torch.zeros(1, 6, 1, dtype=Bm.dtype), Bm], dim=-1)[..., 1:]
+    assert view.data_ptr() % 16 and not view.is_contiguous()
+    got = ssd_scan(wide, dt, A, view, Cm, h0)
+    want = ssd_scan(x, dt, A, Bm, Cm, h0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+BOUND_CASES = [  # (B, L, H, P, N, h0, big_decay)
+    (1, 1, 6, 4, 8, True, False), (2, 37, 6, 16, 64, True, False),
+    (2, 37, 4, 16, 64, True, True), (1, 160, 3, 16, 64, False, False),
+    (1, 300, 2, 16, 32, True, False)]
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("B,L,H,P,N,with_h0,big_decay", BOUND_CASES)
+def test_bf16_rounding_bound_holds_and_sees_one_token(B, L, H, P, N, with_h0, big_decay,
+                                                      split):
+    """bf16 ``y`` of the plain version (fp32 math, one rounding) lies within
+    ``bf16_rounding_bound`` of the float64 oracle, and the fp32 state within
+    its state bound, with the hi + lo split terms (the tensor-core chunk
+    kernel) and without (the decode kernel, the CUDA-core route); the limit
+    on the row of the token whose input moves that row the most is smaller
+    than that move."""
+    arrays = ssd_inputs(L * 10 + H, B, L, H, P, N, h0=with_h0, big_decay=big_decay)
+    args = to_torch(*arrays, dtype=torch.bfloat16)
+    want_y, bound_y, want_h, bound_h = bf16_rounding_bound(
+        *args, kernel_chunk=KERNEL_CHUNK if split else None)
+    y, h = ssd_scan_plain(*args)
+    assert torch.equal(y.float(), want_y.to(torch.bfloat16).float())
+    y64, h64 = ssd_scan_plain(*(None if a is None else a.double() for a in args))
+    assert ((y.double() - y64).abs() <= bound_y.double()).all()
+    assert ((want_h.double() - h64).abs() <= bound_h.double()).all()
+    assert torch.equal(h, want_h)
+    t, effect = dropped_token_effect(*args)
+    assert bound_y[:, t].max().item() < effect
+
+
+@pytest.mark.parametrize("B,L,H,P,N,with_h0,big_decay", BOUND_CASES)
+def test_fp32_rounding_bound_holds_and_sees_one_token(B, L, H, P, N, with_h0, big_decay):
+    """fp32 ``y`` of the plain version on the CUDA-core route's chunks (64
+    tokens) lies within ``fp32_rounding_bound`` of the float64 oracle, and
+    the limit on the row of the token whose input moves that row the most
+    is smaller than that move."""
+    args = to_torch(*ssd_inputs(L * 10 + H + 1, B, L, H, P, N, h0=with_h0,
+                                big_decay=big_decay))
+    want_y, bound_y = fp32_rounding_bound(*args)
+    y64, _ = ssd_scan_plain(*(None if a is None else a.double() for a in args))
+    assert torch.equal(want_y, y64)
+    y, _ = ssd_scan_plain(*args, chunk=KERNEL_CHUNK)
+    assert ((y.double() - y64).abs() <= bound_y).all()
+    t, effect = dropped_token_effect(*args)
+    assert bound_y[:, t].max().item() < effect
+
+
+def test_dropped_token_is_the_one_that_moves_its_row_most():
+    """The witness token is the one whose own term, dt_t (C_t . B_t) x_t,
+    is largest, and leaving its input out moves its row by that term."""
+    x, dt, A, Bm, Cm, h0 = to_torch(*ssd_inputs(9, 2, 40, 3, 8, 16, h0=True))
+    own = (dt * (Cm * Bm).sum(-1)[..., None])[..., None] * x
+    t, effect = dropped_token_effect(x, dt, A, Bm, Cm, h0)
+    per_token = own.abs().amax(dim=(0, 2, 3))
+    assert t == int(per_token.argmax())
+    np.testing.assert_allclose(effect, per_token[t].item(), rtol=1e-4)
 
 
 GPU_CASES = [  # (B, L, H, P, N, h0, kind)
     (1, 1, 2, 4, 8, True, "plain"), (2, 37, 6, 8, 16, True, "plain"),
     (8, 1, 64, 64, 128, True, "plain"), (1, 252, 64, 64, 128, True, "plain"),
     (1, 256, 64, 64, 128, False, "plain"), (1, 256, 64, 64, 128, True, "big_decay"),
+    (2, 37, 6, 16, 64, True, "plain"), (1, 130, 3, 48, 256, False, "plain"),
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(dtype):
-    """Kernel vs plain version on the card: fp32 to 1e-4 (absolute and
-    relative, the JAX kernel-vs-model tolerance), bf16 to ``ATOL * 5``."""
+    """Kernel vs plain version on the card, per element.  fp32: ``y`` and
+    the state within 1e-4 (absolute and relative, the JAX kernel-vs-model
+    tolerance); in the big-decay case (|A dt| ~ 100, where the plain
+    version's own fp32 cumsums miss float64 by more than that) ``y`` within
+    ``fp32_rounding_bound`` of the plain version in float64 instead.  bf16:
+    ``y`` and state within ``bf16_rounding_bound``, with the split terms on
+    the tensor-core chunk kernel only (the P = 8, N = 16 case takes the
+    CUDA cores, the rest the tensor cores)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    tol = 1e-4 if dtype == "float32" else ATOL[dtype] * 5
     for seed, (B, L, H, P, N, with_h0, kind) in enumerate(GPU_CASES):
         arrays = ssd_inputs(seed, B, L, H, P, N, h0=with_h0, big_decay=kind == "big_decay")
         args = [t.cuda() for t in to_torch(*arrays, dtype=TDT[dtype])]
-        n0 = ssd_scan_kernel.launches
+        path = route(TDT[dtype], P, N)
+        n0 = dict(ssd_scan_kernel.launches_by_route)
         y, h = ssd_scan_kernel(*args)
-        yr, hr = ssd_scan_plain(*args)
         torch.cuda.synchronize()
-        assert ssd_scan_kernel.launches == n0 + 1
-        torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
-        torch.testing.assert_close(h, hr, atol=tol, rtol=tol)
+        assert ssd_scan_kernel.launches_by_route[path] == n0[path] + 1
+        if dtype == "float32":
+            yr, hr = ssd_scan_plain(*args)
+            torch.testing.assert_close(h, hr, atol=1e-4, rtol=1e-4)
+            if kind != "big_decay":
+                torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+                continue
+            y64, bound = fp32_rounding_bound(*args)
+            assert ((y.double() - y64).abs() <= bound).all(), (B, L, H, P, N, kind)
+        else:
+            split = path == "tensor_core" and L > 1
+            want_y, bound_y, want_h, bound_h = bf16_rounding_bound(
+                *args, kernel_chunk=KERNEL_CHUNK if split else None)
+            assert ((y.float() - want_y).abs() <= bound_y).all(), (B, L, H, P, N, kind)
+            assert ((h - want_h).abs() <= bound_h).all(), (B, L, H, P, N, kind)
+
+
+@pytest.mark.gpu
+def test_cuda_serving_shapes_take_the_tensor_core_route():
+    """mamba2-1.3b's prefill chunk and decode step, bf16: one tensor-core
+    launch each, within the bound, and a chunk split into two calls that
+    carry the state agrees with the whole chunk within the bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    for B, L in ((1, 256), (8, 1), (1, 300)):
+        arrays = ssd_inputs(B + L, B, L, 64, 64, 128, h0=True)
+        args = [t.cuda() for t in to_torch(*arrays, dtype=torch.bfloat16)]
+        n0 = ssd_scan_kernel.launches_by_route["tensor_core"]
+        y, h = ssd_scan(*args)
+        torch.cuda.synchronize()
+        assert ssd_scan_kernel.launches_by_route["tensor_core"] == n0 + 1
+        want_y, bound_y, want_h, bound_h = bf16_rounding_bound(
+            *args, kernel_chunk=KERNEL_CHUNK if L > 1 else None)
+        assert ((y.float() - want_y).abs() <= bound_y).all(), (B, L)
+        assert ((h - want_h).abs() <= bound_h).all(), (B, L)
+        if L > 1:
+            x, dt, A, Bm, Cm, h0 = args
+            cut = L // 3
+            y1, h1 = ssd_scan(x[:, :cut], dt[:, :cut], A, Bm[:, :cut], Cm[:, :cut], h0)
+            y2, h2 = ssd_scan(x[:, cut:], dt[:, cut:], A, Bm[:, cut:], Cm[:, cut:], h1)
+            y12 = torch.cat([y1, y2], 1).float()
+            assert ((y12 - want_y).abs() <= bound_y).all(), (B, L, cut)
+            assert ((h2 - want_h).abs() <= bound_h).all(), (B, L, cut)
