@@ -145,10 +145,33 @@ last line is printed):
     device memory is printed (the 4200-token prefills' gates run as one
     batched product per block).
 
-Phases 4, 8, 13 and 17 trace steps with ``torch.profiler`` (wall time with the
-profiler on, device busy time, idle share, kernel launches and the
-heaviest kernels).  No phase is cut in depth: every path runs at its full
-depth and the whole script stays well inside its time limit.
+20. CUDA graphs vs the eager step at full width, on minicpm-2b
+    (``paged_kernel`` and ``gather``), recurrentgemma-2b (``paged_kernel``),
+    mamba2-1.3b and qwen3-14b rings, each greedy and with temperature 0.8 /
+    top-k 50: 8 slots decoding after a 300-token prompt (one graphed chunk
+    of 256, an eager tail of 44), slots 1, 4 and 7 masked out, then from
+    one copied state 8 replays of the decode graph and 8 eager
+    ``_step_impl`` steps with the generator restored between; every cache
+    leaf (lengths, recurrent rows, the whole pool or every ring), the token
+    buffers and the output rings must agree bitwise, and the masked slots'
+    lengths and output rings must not move.  In paged mode the 256-token
+    chunk graph at slot 3 (its length set back to 0, so the chunk writes
+    into the pages its table maps) against the eager chunk, the logits and
+    the token drawn from them bitwise, as every leaf.  Runs after phase 4
+    (minicpm), 9 (hybrid), 14 (mamba2) and 18 (qwen3-14b).
+
+On the card the scheduler replays a CUDA graph for every decode step and
+every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17 and 19
+serve on graphs; their exact launch counts are counted through replays
+(each replay adds the launches its capture recorded).  Phases 4, 8, 13 and
+17 trace steps with ``torch.profiler`` (wall time with the profiler on,
+device busy time, idle share, kernels the device ran, launch calls the
+host made, and the heaviest kernels): each traces its scheduler's eager
+decode step (and 256-token chunk) beside the replayed graph, times both
+without the profiler, and prints the captures made, the seconds each took
+and the graph pool's memory; phase 20 does the same for the
+``paged_kernel`` schedulers.  No phase is cut in depth: every path runs at
+its full depth and the whole script stays well inside its time limit.
 
 Each serving phase sets the launch counts to 0 just before it drives the
 path and reads them just after.  The line before the last is the kernels'
@@ -668,11 +691,14 @@ def phase_agreement(fails: Failures, model, cfg, seed: int, *, prompt=PROMPT,
             clones = weight_clones(prof, cfg) if prof is not None else None
             fails.check(clones == [], f"no per-token copy of the RG-LRU gate weights in the "
                         f"traced chunk (aten::clone of (..., nb, Wb, Wb): {clones})")
+        trace_graphs("gather scheduler", sched, chunk, slot=0)
 
 
 def profile_step(label: str, fn, record_shapes: bool = False):
     """One step under ``torch.profiler``: wall time (profiler on),
-    the device's busy time summed over kernels, the idle share, and the
+    the device's busy time summed over kernels, the idle share, the kernels
+    the device ran, the launch calls the host made (``cudaLaunchKernel``
+    and the like, one ``cudaGraphLaunch`` for a replayed graph), and the
     kernels that take the most device time.  Returns the profile (None
     when no device time was recorded)."""
     from torch.profiler import ProfilerActivity, profile
@@ -684,17 +710,20 @@ def profile_step(label: str, fn, record_shapes: bool = False):
         fn()
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    kernels = [e for e in averages
                if getattr(e, "device_type", None) is not None
                and str(e.device_type).endswith("CUDA")]
     busy = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
+    calls = {e.key: e.count for e in averages if e.key.startswith(("cuda", "cu"))
+             and ("Launch" in e.key)}
     if not busy:
         print(f"  profile {label}: no device time recorded (not measured)")
         return None
     print(f"  profile {label}: wall {wall_us / 1e3:.2f} ms (profiler on), "
           f"device busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
-          f"{launches} kernel launches")
+          f"{launches} kernel launches, host launch calls {sum(calls.values())} {calls}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
     return prof
@@ -710,6 +739,177 @@ def weight_clones(prof, cfg) -> list:
     return [tuple(e.input_shapes[0]) for e in prof.events()
             if e.name == "aten::clone" and e.input_shapes and len(e.input_shapes[0]) > 3
             and list(e.input_shapes[0][-3:]) == [nb, Wb, Wb]]
+
+
+# -- phase 20 and the traced phases: the scheduler's CUDA graphs ----------------------------
+
+
+GRAPH_STEPS = 8                    # decode steps replayed and run eagerly, phase 20
+GRAPH_INACTIVE = (1, 4, 7)         # slots masked out of those steps
+GRAPH_PROMPT = CHUNK + 44          # one full chunk (the graph) and a tail (eager)
+SAMPLINGS = (("greedy", 0.0, 0), ("temperature 0.8 / top-k 50", 0.8, 50))
+
+
+def step_state(sched) -> tuple:
+    """Copies of everything a decode step or a chunk writes: every cache
+    leaf (lengths, recurrent rows, the whole pool or every ring), and the
+    token buffers."""
+    return ({k: v.clone() for k, v in sched.cache.items()}, sched.last_tokens.clone(),
+            sched.out_buf.clone(), sched.out_pos.clone())
+
+
+def state_diff(a, b) -> list:
+    """Names of the leaves where two ``step_state``s differ in any bit."""
+    import torch
+
+    names = [f"cache.{k}" for k in a[0]] + ["last_tokens", "out_buf", "out_pos"]
+    leaves_a = list(a[0].values()) + list(a[1:])
+    leaves_b = [b[0][k] for k in a[0]] + list(b[1:])
+    return [n for n, x, y in zip(names, leaves_a, leaves_b, strict=True)
+            if not torch.equal(x, y)]
+
+
+def graph_report(label: str, sched) -> None:
+    """The captures a scheduler made, the seconds each took, and the memory
+    its graphs' pool holds."""
+    caps = ", ".join(f"{key} {1e3 * sec:.1f} ms" for key, sec in sched.graphs.captures)
+    print(f"  {label}: {len(sched.graphs.captures)} captures ({caps}), graph pool "
+          f"{sched.graphs.pool_bytes() / 2**20:.1f} MiB")
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean ms per call on the host clock, synchronized, no profiler."""
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def trace_graphs(label: str, sched, tokens=None, slot: int = 0, iters: int = 5) -> None:
+    """A scheduler's eager decode step (``_step_impl`` on its own state)
+    beside its replayed decode graph, and with ``tokens`` its eager
+    ``prefill_chunk``-token chunk beside the replayed chunk graph at
+    ``slot``: each traced once, then timed ``iters`` times without the
+    profiler.  Both write the scheduler's state: run it last."""
+    import torch
+
+    def eager_step():
+        sched._step_impl(sched.cache, sched.last_tokens, sched.out_buf, sched.out_pos,
+                         sched._active)
+
+    steps = [("decode step", eager_step, lambda: sched.graphs.replay("decode"))]
+    if tokens is not None and "chunk" in sched.graphs:
+        at = torch.tensor(slot, device=DEVICE)
+        sched._chunk_tokens.copy_(tokens)
+        sched._chunk_at.fill_(slot)
+        steps.append((f"chunk of {tokens.shape[1]}", lambda: sched._chunk(sched.cache, tokens, at),
+                      lambda: sched.graphs.replay("chunk")))
+    for what, eager, replay in steps:
+        profile_step(f"{label} {what}, eager", eager)
+        profile_step(f"{label} {what}, replayed graph", replay)
+        e_ms, r_ms = host_ms(eager, iters), host_ms(replay, iters)
+        print(f"  {label} {what}, no profiler: eager {e_ms:.3f} ms, replayed {r_ms:.3f} ms "
+              f"({iters} each)")
+    graph_report(label, sched)
+
+
+def phase_graph_replay(fails: Failures, model, cfg, seed: int, label: str, *,
+                       kv_mode: str = "paged", attn_backend: str = "gather",
+                       trace: bool = False) -> None:
+    """Replay vs eager at full width, greedy and with temperature / top-k:
+    from one copied state, ``GRAPH_STEPS`` replays of the decode graph and
+    as many eager ``_step_impl`` steps, slots ``GRAPH_INACTIVE`` masked out,
+    the generator restored between; then (paged mode) one replay of the
+    ``CHUNK``-token chunk graph at slot 3 (from length 0, into mapped pages)
+    and the eager chunk, each with the token drawn from its last logits.  Every cache leaf, the token buffers,
+    the logits and the drawn token must agree bitwise.  ``trace``: the
+    greedy scheduler's steps are traced last, as in ``trace_graphs``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.scheduler import DecodeScheduler
+
+    if DEVICE != "cuda":
+        print("  no CUDA graph off the card (a CPU rehearsal runs every step eagerly)")
+        return
+    rng = np.random.default_rng(seed + 20)
+    # room for every slot to decode while the last one is admitted, then more
+    max_new = SLOTS * -(-GRAPH_PROMPT // CHUNK) + 2 * GRAPH_STEPS
+    for sampling, temperature, top_k in SAMPLINGS:
+        sched = DecodeScheduler(model, n_slots=SLOTS, max_seq=GRAPH_PROMPT + max_new,
+                                page_size=PAGE, prefill_chunk=CHUNK, kv_mode=kv_mode,
+                                attn_backend=attn_backend, temperature=temperature,
+                                top_k=top_k, seed=seed, device=DEVICE)
+        for i in range(SLOTS):
+            sched.submit(f"g{i}", f"g{i}", rng.integers(0, cfg.vocab, size=GRAPH_PROMPT),
+                         max_new)
+        while (sched.active_slots() < SLOTS or "decode" not in sched.graphs) and sched.busy():
+            sched.step()
+        what = f"{label}, {sampling}"
+        if not fails.check(sched.active_slots() == SLOTS and "decode" in sched.graphs,
+                           f"{what}: {sched.active_slots()}/{SLOTS} slots decoding, decode "
+                           "graph captured"):
+            continue
+        if kv_mode == "paged":
+            for st in sched.slots:       # map the pages the steps' writes land in
+                sched._prepare_write_span(st, st.len, GRAPH_STEPS)
+        active = torch.tensor([i not in GRAPH_INACTIVE for i in range(SLOTS)], device=DEVICE)
+        sched._active.copy_(active)
+        start, gen0 = step_state(sched), sched._gen.get_state()
+        want = torch.stack([start[0]["length"], start[3]]) + GRAPH_STEPS * active.int()
+        for _ in range(GRAPH_STEPS):
+            sched.graphs.replay("decode")
+        replayed = step_state(sched)
+        sched._gen.set_state(gen0)
+        for _ in range(GRAPH_STEPS):
+            sched._step_impl(*start, active)
+        sync()
+        bad = state_diff(replayed, start)
+        moved = torch.equal(torch.stack([replayed[0]["length"], replayed[3]]), want)
+        fails.check(not bad and moved,
+                    f"{what}: {GRAPH_STEPS} decode replays bitwise {GRAPH_STEPS} eager steps "
+                    f"(slots {GRAPH_INACTIVE} inactive, their lengths and output rings "
+                    f"unmoved: {moved}): "
+                    f"{'every leaf equal' if not bad else f'differ in {bad}'}")
+        del start, replayed
+        if kv_mode == "paged":
+            # the chunk prefills slot 3's first CHUNK positions again, into
+            # pages its table maps, as a first chunk does (past the table
+            # every write would go to the scratch page, where the colliding
+            # writes of one launch land in no fixed order)
+            slot = 3
+            sched.cache["length"][slot] = 0
+            tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, CHUNK)),
+                                     dtype=torch.int32).to(DEVICE)
+            start, gen0 = step_state(sched), sched._gen.get_state()
+            sched._chunk_tokens.copy_(tokens)
+            sched._chunk_at.fill_(slot)
+            lr = sched.graphs.replay("chunk").clone()
+            tr = sched._sample(lr[:, -1])
+            replayed = step_state(sched)
+            sched._gen.set_state(gen0)
+            le, _ = sched._chunk(start[0], tokens, torch.tensor(slot, device=DEVICE))
+            te = sched._sample(le[:, -1])
+            sync()
+            bad = state_diff(replayed, start)
+            same = torch.equal(lr, le) and torch.equal(tr, te)
+            fails.check(not bad and same,
+                        f"{what}: {CHUNK}-token chunk graph at slot {slot} bitwise the eager "
+                        f"chunk (logits {'equal' if torch.equal(lr, le) else 'DIFFER'}, token "
+                        f"{tr.tolist()} / {te.tolist()}, "
+                        f"{'every leaf equal' if not bad else f'differ in {bad}'})")
+            del start, replayed
+        if temperature == 0.0:
+            if trace:
+                trace_graphs(what, sched, torch.as_tensor(
+                    rng.integers(0, cfg.vocab, size=(1, CHUNK)), dtype=torch.int32).to(DEVICE),
+                    slot=0)
+            else:
+                graph_report(what, sched)
+        del sched
+        torch.cuda.empty_cache()
 
 
 # -- phase 5: RG-LRU scan kernel vs its plain fold ---------------------------------------
@@ -1258,15 +1458,15 @@ def phase_ssd_timing(fails: Failures, seed: int, shape, launches: int) -> dict:
 
 
 def phase_ssm_steps(fails: Failures, model, cfg, seed: int) -> None:
-    """All 8 slots decoding at once: one scheduler decode step and one
-    256-token prefill chunk traced with ``torch.profiler``; the full-size
-    ``mask_slot_rows`` over the 768 MiB of SSD state and the per-layer
-    ``torch.stack`` of new states timed with CUDA events."""
+    """All 8 slots decoding at once: one scheduler step (a replayed decode
+    graph) traced, and the eager decode step and 256-token prefill chunk
+    beside their replayed graphs (``trace_graphs``); the full-size
+    ``mask_slot_rows`` over the 768 MiB of SSD state (merged in place) and
+    the per-layer ``torch.stack`` of new states timed with CUDA events."""
     import numpy as np
     import torch
 
     from repro_torch.models import kvcache
-    from repro_torch.serve.engine import make_chunk_step
     from repro_torch.serve.scheduler import DecodeScheduler
 
     sched = DecodeScheduler(model, n_slots=SLOTS, max_seq=CHUNK + 64, page_size=PAGE,
@@ -1293,11 +1493,10 @@ def phase_ssm_steps(fails: Failures, model, cfg, seed: int) -> None:
           f"per-layer torch.stack {stack_ms:.3f} ms ({2 * state_bytes / stack_ms / 1e6:.0f} "
           f"GB/s over 2x)")
     del new, rows
-    profile_step("ssm decode step (scheduler, 8 slots)", sched.step)
-    chunk = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, CHUNK)),
-                            dtype=torch.int32).to(DEVICE)
-    step = make_chunk_step(model)
-    profile_step(f"ssm prefill chunk of {CHUNK}", lambda: step(sched.cache, chunk, 0))
+    profile_step("ssm decode step (scheduler.step(), replayed graph, 8 slots)", sched.step)
+    chunk = rng.integers(0, cfg.vocab, size=CHUNK).astype(np.int32)
+    sched._chunk_logits(chunk, 0)          # the prompts were one short chunk: capture one
+    trace_graphs("ssm scheduler", sched, torch.as_tensor(chunk[None]).to(DEVICE), slot=0)
 
 
 # -- phase 14: decode vs chunk prefill of one SSM slot ------------------------------------
@@ -1637,6 +1836,7 @@ def phase_ring_traces(model, cfg, sched, seed: int) -> None:
     last = sched.last_tokens[:, None]
     profile_step(f"ring decode step, {SLOTS} slots",
                  lambda: model.decode_step(sched.cache, last))
+    trace_graphs("ring scheduler", sched)
 
 
 def phase_ring_agreement(fails: Failures, model, cfg, seed: int) -> None:
@@ -1728,6 +1928,10 @@ def main() -> int:
 
     print("[4] backend agreement at full width")
     phase_agreement(fails, model, cfg, args.seed)
+    print(f"[20] graph replay vs eager: {ARCH}, paged_kernel and gather")
+    phase_graph_replay(fails, model, cfg, args.seed, f"{ARCH} paged_kernel",
+                       attn_backend="paged_kernel", trace=True)
+    phase_graph_replay(fails, model, cfg, args.seed, f"{ARCH} gather")
     del model
     torch.cuda.empty_cache()
 
@@ -1782,6 +1986,9 @@ def main() -> int:
 
     print("[9] decode vs chunk prefill of one slot's recurrent rows (full width)")
     phase_recurrent_parity(fails, hmodel, hcfg, args.seed)
+    print(f"[20] graph replay vs eager: {HYBRID}, paged_kernel")
+    phase_graph_replay(fails, hmodel, hcfg, args.seed, f"{HYBRID} paged_kernel",
+                       attn_backend="paged_kernel", trace=True)
 
     print(f"[19] {HYBRID} in ring mode on phase 6's model: {R_REQUESTS} requests, prompt "
           f"{R_PROMPT} (window {hcfg.hybrid.local_window}), {R_MAX_NEW} new")
@@ -1849,6 +2056,8 @@ def main() -> int:
 
     print("[14] decode vs chunk prefill of one SSM slot (full width)")
     phase_ssm_parity(fails, smodel, scfg, args.seed)
+    print(f"[20] graph replay vs eager: {SSM}")
+    phase_graph_replay(fails, smodel, scfg, args.seed, SSM)
     del smodel
     torch.cuda.empty_cache()
 
@@ -1897,6 +2106,8 @@ def main() -> int:
 
     print(f"[18] ring prefill (flash) vs paged chunked prefill at full width ({DENSE_RING})")
     phase_ring_agreement(fails, qmodel, qcfg, args.seed)
+    print(f"[20] graph replay vs eager: {DENSE_RING} rings (decode)")
+    phase_graph_replay(fails, qmodel, qcfg, args.seed, f"{DENSE_RING} ring", kv_mode="ring")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if fails:

@@ -15,7 +15,8 @@ routes, chosen by :func:`route` from the dtype and the head dim alone:
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version (:func:`.ref.flash_attention_plain`), CUDA tensors launch
 the kernel or raise.  ``flash_attention_kernel.launches`` counts kernel
-launches (never plain-version calls), and
+launches (never plain-version calls; a CUDA graph's replay adds the
+launches it holds, ``serve/graphs.py``), and
 ``flash_attention_kernel.launches_by_route`` counts them per route.
 """
 

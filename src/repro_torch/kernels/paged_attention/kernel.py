@@ -14,8 +14,10 @@ on two streams never share partials or tickets.
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version (:func:`.ref.paged_attention_plain`), CUDA tensors launch
 the kernel or raise.  ``paged_attention_kernel.launches`` counts kernel
-launches (never plain-version calls); ``paged_attention_kernel.last_splits``
-holds the split count of the last launch.
+launches (never plain-version calls; a CUDA graph's replay adds the
+launches it holds, ``serve/graphs.py``);
+``paged_attention_kernel.last_splits`` holds the split count of the last
+launch or capture.
 """
 
 from __future__ import annotations
@@ -68,8 +70,11 @@ def _split_plan(lib, dev: torch.device, stream: int, B: int, Hkv: int, G: int, D
                 max_pages: int):
     """``(n_split, partials pointer, tickets pointer)`` for a launch on
     ``stream``; the scratch of a split launch is allocated once per device,
-    stream and shape (the tickets zeroed; the kernel leaves them zero).
-    Launches on one stream run in order, so they may share it."""
+    stream and shape (the tickets zeroed; the kernel leaves them zero, so
+    every replay of a captured launch finds them zero).  Launches on one
+    stream run in order, so they may share it.  A capture must find the
+    scratch already there (the warm-up of ``serve/graphs.py`` allocates it
+    on the capture stream)."""
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     if idx not in _sms:
         _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
@@ -78,6 +83,11 @@ def _split_plan(lib, dev: torch.device, stream: int, B: int, Hkv: int, G: int, D
         return 1, None, None
     key = (idx, stream, B, Hkv, G, D, n_split)
     if key not in _scratch:
+        if torch.cuda.is_current_stream_capturing():
+            # allocated here it would live in the graph's pool, zeroed by the graph
+            raise RuntimeError("paged_attention: no split scratch for this stream and shape "
+                               "yet; run the launch once on the capture stream before "
+                               "capturing it")
         floats = B * Hkv * n_split * lib.paged_attention_partial_floats(G, D)
         _scratch[key] = (torch.empty(floats, dtype=torch.float32, device=dev),
                          torch.zeros(B * Hkv, dtype=torch.int32, device=dev))

@@ -10,7 +10,8 @@ load each step directly).  Its fp32 result is bitwise the plain left fold
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version, CUDA tensors launch the kernel or raise.
 ``rglru_scan_kernel.launches`` counts kernel launches (never plain-version
-calls), and ``rglru_scan_kernel.launches_by_kernel`` counts them per kernel
+calls; a CUDA graph's replay adds the launches it holds,
+``serve/graphs.py``), and ``rglru_scan_kernel.launches_by_kernel`` counts them per kernel
 (``"staged"`` or ``"direct"``), as the library's ``rglru_scan_kernel_of``
 names the one it runs.
 """

@@ -21,7 +21,8 @@ as ``ssd_scan_route``; :func:`route` asks the built library):
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version (:func:`.ref.ssd_scan_plain`, chunked by ``chunk``), CUDA
 tensors launch the kernel or raise.  ``ssd_scan_kernel.launches`` counts
-kernel launches (never plain-version calls), and
+kernel launches (never plain-version calls; a CUDA graph's replay adds
+the launches it holds, ``serve/graphs.py``), and
 ``ssd_scan_kernel.launches_by_route`` counts them per route.
 """
 

@@ -40,7 +40,8 @@ attendable iff its page is mapped and ``t < upto``.
 every update; here ``cache_update_layer``, ``cache_clear_slot``,
 ``set_page_row`` and ``cache_insert_slot`` write into the caller's tensors,
 so the pool is never copied.  A decode step returns new recurrent rows
-instead (they are small), so :func:`mask_slot_rows` can restore them.  A
+instead (they are small), and :func:`mask_slot_rows` merges them into the
+old rows in place, keeping the old ones for inactive slots.  A
 write through an unmapped page-table entry goes to the scratch page, which
 no table maps, so a freed slot's stale decode traffic can never land in a
 page that now belongs to another slot.
@@ -346,12 +347,16 @@ def _per_slot(cache: Dict):
 
 
 def mask_slot_rows(new_cache: Dict, old_cache: Dict, keep: torch.Tensor) -> Dict:
-    """Keep a decode step's updates only for slots where ``keep`` is True.
+    """Keep a decode step's updates only for slots where ``keep`` is True,
+    written into ``old_cache``'s own ``length`` and recurrent rows.
 
     A decode step replaces ``length`` and the recurrent rows with new
-    tensors; inactive slots get their old rows back, so a batched step
-    cannot advance their lengths or evolve their recurrent state.  K/V
-    writes are in place and are not restored.  In the pool an inactive
+    tensors; each is merged into the old tensor in place (the new row where
+    ``keep``, the old one elsewhere), so a batched step cannot advance an
+    inactive slot's length or evolve its recurrent state, and the caller's
+    tensors keep their storage (a CUDA graph replays into them).  Returns
+    ``new_cache`` with those leaves replaced by the old cache's tensors.
+    K/V writes are in place and are not restored.  In the pool an inactive
     slot's write lands in a page it owns past its length — overwritten by
     its next chunk before any read — or is dropped by an unmapped table row.
     In a ring it lands in the slot's own row, at lane ``length % T``: a ring
@@ -359,33 +364,51 @@ def mask_slot_rows(new_cache: Dict, old_cache: Dict, keep: torch.Tensor) -> Dict
     and :func:`cache_insert_slot` overwrites the whole row, every lane of
     ``k``, ``v`` and ``positions``, before the next request reads it."""
     out = dict(new_cache)
-    out["length"] = torch.where(keep, new_cache["length"], old_cache["length"])
-    for key in _recurrent(new_cache):
-        new = new_cache[key]
-        k = keep.reshape((1, -1) + (1,) * (new.ndim - 2))
-        out[key] = torch.where(k, new, old_cache[key])
+    for key in ("length", *_recurrent(new_cache)):
+        old = old_cache[key]
+        k = keep if key == "length" else keep.reshape((1, -1) + (1,) * (old.ndim - 2))
+        out[key] = torch.where(k, new_cache[key], old, out=old)
     return out
 
 
-def cache_slot_view(batch_cache: Dict, slot: int) -> Dict:
-    """The B=1 view of one slot: its page-table row, length, ring rows and
-    recurrent rows as views into the batch cache, the pool passed through
-    whole."""
+def _slot_rows(leaf: torch.Tensor, dim: int, slot) -> torch.Tensor:
+    """Row ``slot`` of ``leaf`` along ``dim``, kept as a size-1 axis: a view
+    for an int, a copy (``index_select``) for a 0-d device tensor."""
+    if isinstance(slot, torch.Tensor):
+        return leaf.index_select(dim, slot.reshape(1))
+    return leaf.narrow(dim, slot, 1)
+
+
+def cache_slot_view(batch_cache: Dict, slot) -> Dict:
+    """The B=1 cache of one slot: its page-table row, length, ring rows and
+    recurrent rows, the pool passed through whole.  ``slot`` is an int (the
+    rows are views into the batch cache) or a 0-d int64 device tensor (the
+    rows are copies, so no host sync picks them; :func:`cache_insert_slot`
+    writes back what the step changes, and the pool is written in place)."""
     view = {key: batch_cache[key] for key in POOL_KEYS if key in batch_cache}
     if "page_table" in batch_cache:
-        view["page_table"] = batch_cache["page_table"].narrow(0, slot, 1)
-    view["length"] = batch_cache["length"].narrow(0, slot, 1)
+        view["page_table"] = _slot_rows(batch_cache["page_table"], 0, slot)
+    view["length"] = _slot_rows(batch_cache["length"], 0, slot)
     for key in _per_slot(batch_cache):
-        view[key] = batch_cache[key].narrow(1, slot, 1)
+        view[key] = _slot_rows(batch_cache[key], 1, slot)
     return view
 
 
-def cache_clear_slot(batch_cache: Dict, slot: int) -> Dict:
+def cache_clear_slot(batch_cache: Dict, slot) -> Dict:
     """Unmap one slot's page-table row, empty its ring rows (positions -1)
     and zero its length and recurrent rows, in place: fresh state for an
     admission (a request admitted into a reused slot must not start from its
     predecessor's state) and, on completion, an unmapped row so the freed
-    slot's residual decode writes go to the scratch page."""
+    slot's residual decode writes go to the scratch page.  ``slot`` is an
+    int or a 0-d int64 device tensor."""
+    if isinstance(slot, torch.Tensor):
+        idx = slot.reshape(1)
+        if "page_table" in batch_cache:
+            batch_cache["page_table"].index_fill_(0, idx, -1)
+        batch_cache["length"].index_fill_(0, idx, 0)
+        for key in _per_slot(batch_cache):
+            batch_cache[key].index_fill_(1, idx, -1 if key == "positions" else 0)
+        return batch_cache
     if "page_table" in batch_cache:
         batch_cache["page_table"][slot] = -1
     batch_cache["length"][slot] = 0
@@ -395,17 +418,25 @@ def cache_clear_slot(batch_cache: Dict, slot: int) -> Dict:
 
 
 def set_page_row(batch_cache: Dict, slot: int, row) -> Dict:
-    """Install a slot's (max_pages,) page-table row in place."""
+    """Install a slot's (max_pages,) page-table row in place (a host copy:
+    the scheduler calls it between steps, never inside a captured one)."""
     pt = batch_cache["page_table"]
     pt[slot] = torch.as_tensor(np.asarray(row, np.int32)).to(pt.device)
     return batch_cache
 
 
-def cache_insert_slot(batch_cache: Dict, one_cache: Dict, slot: int) -> Dict:
-    """Copy a B=1 cache into row ``slot``: the slot's length, its whole ring
-    rows (``k``, ``v``, ``positions``: a ring prefill-on-admit) and its
-    recurrent rows.  The pool and the page-table row of a chunk step on a
+def cache_insert_slot(batch_cache: Dict, one_cache: Dict, slot) -> Dict:
+    """Copy a B=1 cache into row ``slot`` (an int or a 0-d int64 device
+    tensor): the slot's length, its whole ring rows (``k``, ``v``,
+    ``positions``: a ring prefill-on-admit) and its recurrent rows.  The
+    pool and the page-table row of a chunk step on a
     :func:`cache_slot_view` were written through in place."""
+    if isinstance(slot, torch.Tensor):
+        idx = slot.reshape(1)
+        batch_cache["length"].index_copy_(0, idx, one_cache["length"].reshape(1))
+        for key in _per_slot(batch_cache):
+            batch_cache[key].index_copy_(1, idx, one_cache[key])
+        return batch_cache
     batch_cache["length"][slot] = one_cache["length"].reshape(())
     for key in _per_slot(batch_cache):
         batch_cache[key][:, slot] = one_cache[key][:, 0]

@@ -22,13 +22,16 @@ def make_chunk_step(model) -> Callable:
     """Prefill one prompt chunk for a *single slot* of a batched paged cache.
 
     The chunk runs as a B=1 forward against the shared page pool: per-slot
-    leaves (length, page-table row, recurrent rows) are viewed at ``slot``,
+    leaves (length, page-table row, recurrent rows) are taken at ``slot``,
     the pool is passed whole (the slot exclusively owns the pages its row
     maps, so its writes cannot race the other slots), and the advanced
-    length and new recurrent rows are written back.
+    length and new recurrent rows are written back in place.  ``slot`` is an
+    int or a 0-d int64 device tensor; with a tensor no host value picks the
+    rows, so one CUDA graph per chunk length covers every slot (the
+    reference's traced ``slot``), and the result is bitwise the int slot's.
     """
 
-    def chunk_step(cache, tokens, slot: int):
+    def chunk_step(cache, tokens, slot):
         one = kvcache.cache_slot_view(cache, slot)
         logits, one_new = model.decode_step(one, tokens)
         kvcache.cache_insert_slot(cache, one_new, slot)

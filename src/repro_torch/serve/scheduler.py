@@ -49,6 +49,18 @@ attends its fresh k/v through the flash-attention kernel.  There is no
 pool, so ``paged_kernel`` is refused, and ``reset``/``audit`` have no pool
 to touch.
 
+On a CUDA device the batched decode step and the ``prefill_chunk``-token
+chunk step each run as a CUDA graph (:mod:`repro_torch.serve.graphs`),
+captured at their first call and replayed after, the counterpart of the
+reference's jitted steps.  The decode step is fixed-shape and mask-only:
+every row is computed, and ``active`` decides per row what is kept.  Both
+steps read their inputs from, and write their results into, tensors whose
+storage never moves: the cache, ``last_tokens``, ``out_buf``, ``out_pos``,
+the ``active`` mask and the chunk's token and slot buffers.  A chunk of
+another length (a prompt's tail, or the whole prompt when
+``prefill_chunk`` is None) and ring mode's monolithic prefill run eagerly
+on the same kernels.  On the CPU every step runs eagerly.
+
 Not ported yet, and refused rather than ignored: KV offload, prefix
 sharing, session parking, speculative decoding and ``mesh=``.
 """
@@ -65,6 +77,7 @@ import torch
 from ..models import kvcache
 from . import sampling
 from .engine import make_chunk_step
+from .graphs import StepGraphs
 from .lifecycle import Slot, SlotState
 
 CONTINUOUS_FAMILIES = ("dense", "ssm", "hybrid")
@@ -178,6 +191,14 @@ class DecodeScheduler:
         self.last_tokens = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
         self.out_buf = torch.zeros((n_slots, max_seq), dtype=torch.int32, device=self.device)
         self.out_pos = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
+        # static inputs of the graphed steps: the decode step's slot mask,
+        # and the full-size chunk's tokens and slot index
+        self._active = torch.zeros((n_slots,), dtype=torch.bool, device=self.device)
+        self._chunk_tokens = torch.zeros((1, prefill_chunk or 0), dtype=torch.int32,
+                                         device=self.device)
+        self._chunk_at = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.graphs = (StepGraphs(self.device, self._gen)
+                       if self.device.type == "cuda" else None)
         self.pending: List[_Request] = []
         self._active_sessions: set = set()
         self._chunk_rr = 0            # round-robin over admitting slots
@@ -361,8 +382,7 @@ class DecodeScheduler:
         chunk = slot.chunks[slot.chunk_i]
         C = len(chunk)
         self._prepare_write_span(slot, slot.len, C)
-        tokens = torch.as_tensor(chunk, dtype=torch.int32).to(self.device)[None]
-        logits, self.cache = self._chunk(self.cache, tokens, slot.index)
+        logits = self._chunk_logits(chunk, slot.index)
         slot.len += C
         slot.chunk_i += 1
         self.prefill_tokens += C
@@ -370,6 +390,20 @@ class DecodeScheduler:
         if slot.chunk_i == len(slot.chunks):
             slot.chunks = None
             self._activate(slot, logits)
+
+    def _chunk_logits(self, chunk: np.ndarray, slot: int) -> torch.Tensor:
+        """Run one prefill chunk for ``slot`` and return its logits.  On the
+        card a ``prefill_chunk``-token chunk replays the chunk graph from
+        the static token and slot buffers (the logits are the graph's
+        output, valid until its next replay); any other chunk runs
+        eagerly."""
+        if self.graphs is not None and len(chunk) == self.prefill_chunk:
+            self._chunk_tokens.copy_(torch.from_numpy(chunk).view(1, -1))
+            self._chunk_at.fill_(slot)
+            return self.graphs.run("chunk", lambda: self._chunk(
+                self.cache, self._chunk_tokens, self._chunk_at)[0])
+        tokens = torch.as_tensor(chunk, dtype=torch.int32).to(self.device)[None]
+        return self._chunk(self.cache, tokens, slot)[0]
 
     # -- decode loop ---------------------------------------------------------------
 
@@ -379,16 +413,34 @@ class DecodeScheduler:
         return sampling.temperature_sample(self._gen, logits, self.temperature,
                                            self.top_k)
 
-    def _step_impl(self, cache, last_tokens, out_buf, out_pos, active, active_idx):
-        """Decode one token per *active* slot, sample, append to the output
-        ring — all on the device, nothing returns to the host.  ``active``
-        (n_slots,) bool masks freed and mid-admission slots out of the token
-        write, the output-ring advance and the length advance."""
+    def _step_impl(self, cache, last_tokens, out_buf, out_pos, active) -> None:
+        """Decode one token per slot, sample, append to the output ring,
+        all on the device and in place: nothing returns to the host, and
+        the results go into the given ``cache``, ``last_tokens``,
+        ``out_buf`` and ``out_pos``.  Fixed-shape and mask-only: every row
+        is computed, and ``active`` (n_slots,) bool keeps freed and
+        mid-admission slots' tokens, output rings, lengths and recurrent
+        rows as they were."""
         logits, new_cache = self.model.decode_step(cache, last_tokens[:, None])
-        new_cache = kvcache.mask_slot_rows(new_cache, cache, active)
+        kvcache.mask_slot_rows(new_cache, cache, active)
         toks = torch.where(active, self._sample(logits[:, -1]), last_tokens)
-        out_buf[active_idx, out_pos[active_idx] % self.max_seq] = toks[active_idx]
-        return new_cache, toks, out_buf, out_pos + active.to(torch.int32)
+        col = (out_pos % self.max_seq).long()[:, None]
+        out_buf.scatter_(1, col, torch.where(active[:, None], toks[:, None],
+                                             out_buf.gather(1, col)))
+        out_pos.add_(active.to(torch.int32))
+        last_tokens.copy_(toks)
+
+    def _decode(self) -> None:
+        """The batched decode step over ``self._active``: on the card the
+        decode graph's replay (captured at the first call), on the CPU the
+        eager step."""
+        def step():
+            self._step_impl(self.cache, self.last_tokens, self.out_buf, self.out_pos,
+                            self._active)
+        if self.graphs is None:
+            step()
+        else:
+            self.graphs.run("decode", step)
 
     def step(self) -> List[CompletedRequest]:
         """One scheduler tick: at most one prefill chunk (round-robin over
@@ -412,10 +464,8 @@ class DecodeScheduler:
                 self._prepare_write_span(st, st.len, 1)
         mask = np.zeros((self.n_slots,), bool)
         mask[active] = True
-        self.cache, self.last_tokens, self.out_buf, self.out_pos = self._step_impl(
-            self.cache, self.last_tokens, self.out_buf, self.out_pos,
-            torch.as_tensor(mask).to(self.device),
-            torch.as_tensor(active, dtype=torch.long).to(self.device))
+        self._active.copy_(torch.from_numpy(mask))
+        self._decode()
         self.decode_tokens += len(active)
         for i in active:
             self.slots[i].n_out += 1
@@ -448,7 +498,8 @@ class DecodeScheduler:
         pool returns to fully free and every page-table row to unmapped; the
         schedule and the sampling generator restart, so a replay is a pure
         function of the submitted work.  Rings have no pool: each admission
-        overwrites its slot's rows whole."""
+        overwrites its slot's rows whole.  The CUDA graphs are kept: their
+        static buffers are zeroed in place."""
         self.slots = [s.force_empty() for s in self.slots]
         self.pending = []
         self._active_sessions.clear()
@@ -457,6 +508,9 @@ class DecodeScheduler:
         self.last_tokens.zero_()
         self.out_buf.zero_()
         self.out_pos.zero_()
+        self._active.zero_()
+        self._chunk_tokens.zero_()
+        self._chunk_at.zero_()
         if self.kv_mode == "paged":
             self.allocator.reset()
             self._reserved = 0
