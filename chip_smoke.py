@@ -94,7 +94,11 @@ last line is printed):
     prefill chunk), (8, 1, 64, 64, 128) (one decode step) and
     (1, 2048, 64, 64, 128), each against its plain version and its bound
     (operations at the route's rate: 989 TFLOP/s bf16 on the tensor cores),
-    each held to the bf16 bound as in phase 10.
+    each held to the bf16 bound as in phase 10.  The timed launches rotate
+    over input sets moving 400 MB (12 sets of the decode step's 16.8 MB
+    state) and keep every launch's outputs until the timing ends, so no
+    launch reads a state or writes into lines an earlier one left in the
+    50 MB L2.
 13. The SSM decode step's costs outside the kernel (``mask_slot_rows``
     over the 768 MiB of SSD state of 8 slots, the per-layer
     ``torch.stack``), and one decode step and one prefill chunk traced.
@@ -160,11 +164,51 @@ last line is printed):
     the token drawn from them bitwise, as every leaf.  Runs after phase 4
     (minicpm), 9 (hybrid), 14 (mamba2) and 18 (qwen3-14b).
 
+21. The grouped expert kernel (``kernels/csrc/moe_experts.cu``, two
+    launches per layer through ``expert_ffn``: gate/up with the SwiGLU
+    epilogue, then down; the shared expert rides in both as a second group)
+    against its plain version (a ``torch.matmul`` per expert), within 3e-2
+    of the output's largest magnitude: P from 1 to 24576 pairs, E 4/64/128,
+    k 1/2/6/8, (D, F) (64, 32), (2048, 1408) and (4096, 1536), empty experts,
+    every pair on one expert, segments that are not a multiple of the
+    tile, segments long enough for the 128-row tile.  Row invariance: rows
+    of the 1536-row and of the 24576-row call (128-row tiles) alone, with
+    their shared rows, bitwise the same rows inside them.  One launch
+    captured in a CUDA graph: its replay bitwise the eager launch.  The
+    router kernel against the fp64 product within 1e-5 of the largest
+    logit, a row alone bitwise the same row in the call.  Timed at
+    moonshot's P = 48 (decode, 8 slots), 1536 (a 256-token chunk) and 24576
+    (a 4096-token ring prefill), uniform routing (the experts hit counted),
+    beside the plain version, ``torch._grouped_mm`` where this torch has
+    it, and its bound; the router beside the fp32 matmul.  The paged kernel
+    at moonshot's decode shape (B 8, 16 kv heads of 128, 2300..2331 live
+    tokens, 8 layers' pools rotated) and flash at its ring prefill (1, 4096,
+    16, 16, 128), causal, as in phases 2 and 16.
+22. Full-width, full-depth ``moonshot-v1-16b-a3b`` (48 layers, d_model
+    2048, 16 x 128 heads, 64 experts top-6 of width 1408 and a shared
+    expert of 2816, vocab 163840; 28.9 B weights, 57.8 GB in bf16, random
+    from ``--seed``), loaded after every earlier model is freed (free memory
+    printed), served through ``ServingFrontend`` -> ``DecodeScheduler(
+    attn_backend='paged_kernel')``: 8 requests over 8 sessions, prompt 2300
+    in chunks of 256 (the last 252), 32 new, 8 slots, page 16.  Checks as
+    in phase 3 and exact launch counts: paged = 48 x decode steps,
+    moe_experts = 2 x 48 x (decode steps + chunks) (half of them gate/up),
+    router = 48 x (decode steps + chunks), no flash.  Backend agreement as
+    in phase 4 (traced steps), phase 20's replay checks, and one slot's
+    29-token chunk vs 29 S=1 steps: every layer's MoE output on the same
+    inputs bitwise (router, routing, both launches, shared expert,
+    combine); the whole model printed, as phase 9 does.
+23. The same model from per-slot rings: 4 requests over 4 sessions, prompt
+    4096, 16 new, 4 slots.  flash = 48 x admissions, all on the tensor-core
+    route; moe_experts = 2 x 48 x (admissions + decode steps); no paged,
+    RG-LRU or SSD launch; peak memory printed.  Ring prefill vs paged
+    chunked prefill logits within 5%, as in phase 18.
+
 On the card the scheduler replays a CUDA graph for every decode step and
-every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17 and 19
-serve on graphs; their exact launch counts are counted through replays
-(each replay adds the launches its capture recorded).  Phases 4, 8, 13 and
-17 trace steps with ``torch.profiler`` (wall time with the profiler on,
+every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19, 22
+and 23 serve on graphs; their exact launch counts are counted through replays
+(each replay adds the launches its capture recorded).  Phases 4, 8, 13, 17
+and 22 trace steps with ``torch.profiler`` (wall time with the profiler on,
 device busy time, idle share, kernels the device ran, launch calls the
 host made, and the heaviest kernels): each traces its scheduler's eager
 decode step (and 256-token chunk) beside the replayed graph, times both
@@ -184,6 +228,8 @@ Usage:  python3 chip_smoke.py [--seed N]
 from __future__ import annotations
 
 import argparse
+import bisect
+import contextlib
 import copy
 import dataclasses
 import json
@@ -223,6 +269,11 @@ DENSE_RING = "qwen3-14b"
 Q_REQUESTS, Q_SESSIONS, Q_PROMPT, Q_MAX_NEW = 8, 8, 4096, 32
 R_REQUESTS, R_SESSIONS, R_PROMPT, R_MAX_NEW = 4, 4, 4200, 16     # phase 19
 
+MOE = "moonshot-v1-16b-a3b"
+M_REQUESTS, M_SESSIONS, M_PROMPT, M_MAX_NEW = 8, 8, 2300, 32      # phase 22, paged
+MR_REQUESTS, MR_SESSIONS, MR_PROMPT, MR_MAX_NEW = 4, 4, 4096, 16  # phase 23, rings
+M_PAGED_LAYERS = 8               # pools rotated when timing the paged kernel at moonshot
+
 
 class Failures(list):
     def check(self, ok: bool, what: str) -> bool:
@@ -237,6 +288,18 @@ def sync() -> None:
 
     if DEVICE == "cuda":
         torch.cuda.synchronize()
+
+
+def release() -> None:
+    """Free what the last phase left: its schedulers, frontends and graphs
+    hold reference cycles (a model among them), which only the cyclic
+    collector frees, and then the allocator's cache."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def smi_line() -> str:
@@ -409,10 +472,12 @@ def phase_kernel_cases(fails: Failures, seed: int, cases=PAGED_CASES) -> None:
                         f"{str(dtype)[6:]} [{name}]: max err {err:.3g} <= {tol}")
 
 
-def phase_kernel_timing(fails: Failures, cfg, seed: int) -> dict:
-    """The kernel at the serving shape: B=8 slots of 512..543 live tokens,
-    every slot's 34 pages scrambled over a 272-page pool, one pool per layer
-    for all 40 layers (1.6 GB, far past the 50 MB L2)."""
+def phase_kernel_timing(fails: Failures, cfg, seed: int, *, prompt: int = PROMPT,
+                        max_new: int = MAX_NEW, layers=None) -> dict:
+    """The kernel at the serving shape: B=8 slots of prompt..prompt+max_new-1
+    live tokens, every slot's pages scrambled over the pool, one pool per
+    layer for ``layers`` layers (default all; minicpm-2b's 40 hold 1.6 GB,
+    moonshot's 8 rotated 1.2 GB, far past the 50 MB L2)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -420,9 +485,9 @@ def phase_kernel_timing(fails: Failures, cfg, seed: int) -> dict:
     from repro_torch.kernels.paged_attention import (paged_attention_kernel,
                                                      paged_attention_plain)
 
-    L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.the_head_dim()
+    L, Hkv, D = layers or cfg.n_layers, cfg.n_kv_heads, cfg.the_head_dim()
     G = cfg.n_heads // Hkv
-    mp = -(-(PROMPT + MAX_NEW) // PAGE)
+    mp = -(-(prompt + max_new) // PAGE)
     n_pages = SLOTS * mp
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -432,7 +497,7 @@ def phase_kernel_timing(fails: Failures, cfg, seed: int) -> dict:
     qs = torch.randn(L, SLOTS, Hkv, G, D, generator=gen, device="cuda",
                      dtype=torch.bfloat16)
     pt_np = rng.permutation(n_pages).reshape(SLOTS, mp).astype(np.int32)
-    len_np = rng.integers(PROMPT, PROMPT + MAX_NEW, size=SLOTS).astype(np.int32)
+    len_np = rng.integers(prompt, prompt + max_new, size=SLOTS).astype(np.int32)
     pt = torch.as_tensor(pt_np).cuda()
     lengths = torch.as_tensor(len_np).cuda()
 
@@ -541,7 +606,8 @@ class TimedScheduler:
 
 def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUESTS,
                   sessions=SESSIONS, prompt=PROMPT, max_new=MAX_NEW,
-                  attn_backend="paged_kernel", kv_mode="paged", then=None) -> dict:
+                  attn_backend="paged_kernel", kv_mode="paged", then=None,
+                  slots=SLOTS) -> dict:
     """Serve the workload through ``ServingFrontend`` -> ``DecodeScheduler(
     attn_backend=..., kv_mode=...)`` and check what came out.  Every
     kernel's launch count is set to 0 just before the run and read just
@@ -554,18 +620,19 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
     from repro_torch.coord.serving_front import ServingFrontend
     from repro_torch.core import SimCloud
     from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.moe_experts import moe_experts_kernel, moe_router_kernel
     from repro_torch.kernels.paged_attention import paged_attention_kernel
     from repro_torch.kernels.rglru_scan import rglru_scan_kernel
     from repro_torch.kernels.ssd_scan import ssd_scan_kernel
     from repro_torch.launch.serve import spawn_workload
     from repro_torch.serve.scheduler import DecodeScheduler
 
-    sched = DecodeScheduler(model, n_slots=SLOTS, max_seq=prompt + max_new,
+    sched = DecodeScheduler(model, n_slots=slots, max_seq=prompt + max_new,
                             page_size=PAGE, prefill_chunk=CHUNK, kv_mode=kv_mode,
                             attn_backend=attn_backend, seed=seed, device=DEVICE)
     timed = TimedScheduler(sched)
     cloud = SimCloud(seed=seed)
-    front = ServingFrontend(cloud, scheduler=timed, batch_size=SLOTS)
+    front = ServingFrontend(cloud, scheduler=timed, batch_size=slots)
     spawn_workload(cloud, front, vocab=cfg.vocab, n_requests=n_requests,
                    sessions=sessions, prompt_len=prompt, max_new=max_new, seed=seed)
     sync()
@@ -579,6 +646,9 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
     flash_attention_kernel.launches = 0
     flash_attention_kernel.launches_by_route = dict.fromkeys(
         flash_attention_kernel.launches_by_route, 0)
+    moe_experts_kernel.launches = 0
+    moe_experts_kernel.launches_by_mode = dict.fromkeys(moe_experts_kernel.launches_by_mode, 0)
+    moe_router_kernel.launches = 0
     t0 = time.perf_counter()
     cloud.run()
     sync()
@@ -590,6 +660,9 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
               "ssd_tensor_core": ssd_scan_kernel.launches_by_route["tensor_core"],
               "flash_attention": flash_attention_kernel.launches,
               "flash_tensor_core": flash_attention_kernel.launches_by_route["tensor_core"],
+              "moe_experts": moe_experts_kernel.launches,
+              "moe_experts_swiglu": moe_experts_kernel.launches_by_mode["swiglu"],
+              "moe_router": moe_router_kernel.launches,
               "steps": sched.steps, "chunks": sched.prefill_chunks,
               "admitted": sched.admitted, "pages": sched.allocator.n_pages}
 
@@ -621,7 +694,7 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
           f"({timed.chunk_tokens} tokens, {timed.chunk_s:.3f} s)")
     peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
     pool = (f"{st['kv_pages']} pages, high water {st['kv_pages_high_water']}"
-            if kv_mode == "paged" else f"{SLOTS} rings of {model.cache_len(prompt + max_new)}")
+            if kv_mode == "paged" else f"{slots} rings of {model.cache_len(prompt + max_new)}")
     print(f"  peak device memory {peak / 2**30:.3f} GiB; "
           f"KV {kv_mode} {st['kv_pool_bytes'] / 2**30:.3f} GiB "
           f"({st['kv_bytes_per_token']} B/token, {pool})")
@@ -632,6 +705,78 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
 
 
 # -- phase 4: backend agreement ---------------------------------------------------------
+
+
+class RouteLog:
+    """The experts every MoE layer picks, by layer and token, across the
+    ``moe_ffn`` calls of a forward (one per layer, or one per layer and
+    chunk).  ``record()`` keeps a run's picks; ``compare()`` counts the
+    (token, layer) routes of another run that differ from them; ``force()``
+    makes another run pick them (each call takes its gates at the recorded
+    experts), so that two runs which differ only in attention can be
+    compared where a route would flip: routing is discrete, and a one-ulp
+    difference in a hidden state moves a near-tied gate past another."""
+
+    def __init__(self, cfg):
+        self.n_layers = cfg.n_layers
+        self.picks = {}
+        self.flipped = self.routes = 0
+
+    @contextlib.contextmanager
+    def _patched(self, pick):
+        from repro_torch.models import moe as moe_mod
+
+        orig, calls = moe_mod.top_k_lower_first, [0]
+        self.pos = dict.fromkeys(range(self.n_layers), 0)
+
+        def top_k(gates, k):
+            layer = calls[0] % self.n_layers
+            calls[0] += 1
+            return pick(orig, gates, k, layer)
+
+        moe_mod.top_k_lower_first = top_k
+        try:
+            yield self
+        finally:
+            moe_mod.top_k_lower_first = orig
+
+    def record(self):
+        import torch
+
+        self.picks = {}
+
+        def pick(orig, gates, k, layer):
+            vals, idx = orig(gates, k)
+            prev = self.picks.get(layer)
+            self.picks[layer] = idx.clone() if prev is None else torch.cat([prev, idx])
+            return vals, idx
+        return self._patched(pick)
+
+    def _recorded(self, gates, layer):
+        lo = self.pos[layer]
+        self.pos[layer] += gates.shape[0]
+        return self.picks[layer][lo:lo + gates.shape[0]]
+
+    def compare(self):
+        self.flipped = self.routes = 0
+
+        def pick(orig, gates, k, layer):
+            vals, idx = orig(gates, k)
+            want = self._recorded(gates, layer)
+            self.flipped += int((idx.sort(-1)[0] != want.sort(-1)[0]).any(-1).sum())
+            self.routes += idx.shape[0]
+            return vals, idx
+        return self._patched(pick)
+
+    def force(self):
+        def pick(orig, gates, k, layer):
+            idx = self._recorded(gates, layer)
+            return gates.gather(-1, idx), idx
+        return self._patched(pick)
+
+    def report(self) -> str:
+        return (f"{self.flipped} of {self.routes} (token, layer) routes picked another "
+                "expert set than the reference run")
 
 
 def phase_agreement(fails: Failures, model, cfg, seed: int, *, prompt=PROMPT,
@@ -653,23 +798,40 @@ def phase_agreement(fails: Failures, model, cfg, seed: int, *, prompt=PROMPT,
     if not fails.check(sched.active_slots() == SLOTS,
                        f"{sched.active_slots()}/{SLOTS} slots decoding at once"):
         return
+    for st in sched.slots:
+        # map the page each slot's next write lands in, as a scheduler step
+        # does before its decode: through an unmapped row the write goes to
+        # the scratch page, where the gather drops the token and the append
+        # kernel still attends it
+        sched._prepare_write_span(st, st.len, 1)
     fused = copy.copy(model)
     fused.cfg = dataclasses.replace(cfg, attn_backend="paged_kernel")
     tokens = sched.last_tokens[:, None]
     # each step writes its own KV at lane `length` before any read of it
     # (gather, post-update kernel) or masks that lane (append kernel), and
     # returns new recurrent rows, so both can run on one cache
-    lg, _ = model.decode_step(sched.cache, tokens)
-    lk, _ = fused.decode_step(sched.cache, tokens)
-    lg, lk = lg[:, -1, :cfg.vocab].float(), lk[:, -1, :cfg.vocab].float()
+    def last(logits):
+        return logits[:, -1, :cfg.vocab].float()
+
+    routes = RouteLog(cfg) if cfg.family == "moe" else None
+    with routes.record() if routes else contextlib.nullcontext():
+        lg = last(model.decode_step(sched.cache, tokens)[0])
+    with routes.compare() if routes else contextlib.nullcontext():
+        lk = last(fused.decode_step(sched.cache, tokens)[0])
     diff = (lg - lk).abs().max().item()
     scale = lg.abs().max().item()
     agree = (lg.argmax(-1) == lk.argmax(-1)).float().mean().item()
     print(f"  logits max |gather| {scale:.4f}, max |delta| {diff:.4g}, "
           f"argmax agreement {agree:.3f}")
+    what = "paged_kernel vs gather logits"
+    if routes:
+        print(f"  free-running, {routes.report()}")
+        with routes.force():
+            lk = last(fused.decode_step(sched.cache, tokens)[0])
+        diff = (lg - lk).abs().max().item()
+        what += ", paged_kernel's experts forced to gather's routes"
     fails.check(math.isfinite(diff) and diff <= AGREE_REL_TOL * scale,
-                f"paged_kernel vs gather logits: max |delta| {diff:.4g} <= "
-                f"{AGREE_REL_TOL} x {scale:.4f}")
+                f"{what}: max |delta| {diff:.4g} <= {AGREE_REL_TOL} x {scale:.4f}")
     if DEVICE == "cuda":
         for label, m in (("gather", model), ("paged_kernel", fused)):
             profile_step(f"{label} decode step",
@@ -1407,12 +1569,18 @@ def ssd_bound(B, L, H, P, N, elt: int, chunk: int):
     return nbytes, min(seq, chunked)
 
 
+SSD_COLD_BYTES = 400e6      # input sets per SSD timing: 8x the 50 MB L2
+
+
 def phase_ssd_timing(fails: Failures, seed: int, shape, launches: int) -> dict:
     """The kernel, its plain version and their bound at one shape, bf16 x,
-    B and C as the model gives them, fp32 dt and h0; enough input sets that
-    every launch reads cold inputs.  The bound takes the operations at the
-    route's rate: 989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s
-    fp32 on the CUDA cores."""
+    B and C as the model gives them, fp32 dt and h0.  Every timed launch
+    reads cold inputs and writes fresh memory: the launches rotate over
+    enough input sets to move SSD_COLD_BYTES (at the decode shape 12 sets,
+    each h0 16.8 MB), and each launch's outputs are kept until the timing
+    ends, so no launch writes into lines the last one left in L2.  The
+    bound takes the operations at the route's rate: 989 TFLOP/s dense bf16
+    on the tensor cores, 67 TFLOP/s fp32 on the CUDA cores."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_plain
@@ -1423,8 +1591,14 @@ def phase_ssd_timing(fails: Failures, seed: int, shape, launches: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     nbytes, ops = ssd_bound(B, L, H, P, N, 2, CHUNK)
     sets = input_sets(lambda i: ssd_inputs(gen, B, L, H, P, N, True, "random",
-                                           torch.bfloat16, "cuda"), nbytes)
+                                           torch.bfloat16, "cuda"), nbytes,
+                      cold_bytes=SSD_COLD_BYTES)
     n = len(sets)
+    kept = []
+
+    def kernel(i):
+        kept.append(ssd_scan_kernel(*sets[i % n]))
+
     before = ssd_scan_kernel.launches_by_route[path]
     y, h = ssd_scan_kernel(*sets[0])
     fails.check(ssd_scan_kernel.launches_by_route[path] == before + 1,
@@ -1432,16 +1606,20 @@ def phase_ssd_timing(fails: Failures, seed: int, shape, launches: int) -> dict:
     max_err = ssd_bf16_check(fails, f"ssd kernel vs plain at {shape}", y, h, sets[0],
                              split=path == "tensor_core" and L > 1)
     iters = max(n, 20)
-    ms = cuda_time_ms(lambda i: ssd_scan_kernel(*sets[i % n]), iters, warmup=n)
+    ms = cuda_time_ms(kernel, iters, warmup=n)
+    kept.clear()
     plain_ms = cuda_time_ms(lambda i: ssd_scan_plain(*sets[i % n]), 3 if L >= 1024 else 10,
                             warmup=1)
-    ms_again = cuda_time_ms(lambda i: ssd_scan_kernel(*sets[i % n]), iters, warmup=0)
-    dev_ms = device_ms_per_launch(lambda i: ssd_scan_kernel(*sets[i % n]), max(n, 10), "ssd_")
+    ms_again = cuda_time_ms(kernel, iters, warmup=0)
+    kept.clear()
+    dev_ms = device_ms_per_launch(kernel, max(n, 10), "ssd_")
+    kept.clear()
     rate = BF16_FLOPS_PER_S if path == "tensor_core" else FP32_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_fp32_ms = max(t_bytes, ops / FP32_FLOPS_PER_S) * 1e3
-    print(f"  ssd_scan {shape} bf16, {path} route ({n} input sets): kernel {ms:.4f} ms (again "
+    print(f"  ssd_scan {shape} bf16, {path} route ({n} input sets, outputs kept): kernel "
+          f"{ms:.4f} ms (again "
           f"{ms_again:.4f}; device time per launch {dev_ms} ms), plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.5f} ms ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP at "
           f"{rate / 1e12:.0f} TFLOP/s; {bound_fp32_ms:.5f} ms at 67 TFLOP/s fp32)")
@@ -1839,8 +2017,9 @@ def phase_ring_traces(model, cfg, sched, seed: int) -> None:
     trace_graphs("ring scheduler", sched)
 
 
-def phase_ring_agreement(fails: Failures, model, cfg, seed: int) -> None:
-    """Last-position logits of one 4096-token prompt: the ring prefill
+def phase_ring_agreement(fails: Failures, model, cfg, seed: int, *, prompt: int = Q_PROMPT,
+                         max_new: int = Q_MAX_NEW) -> None:
+    """Last-position logits of one ``prompt``-token prompt: the ring prefill
     (every layer through the flash kernel) against paged chunked prefill
     (chunks of 256 through ``sdpa`` over the gathered pool)."""
     import numpy as np
@@ -1850,26 +2029,376 @@ def phase_ring_agreement(fails: Failures, model, cfg, seed: int) -> None:
     from repro_torch.serve.engine import make_chunk_step
 
     rng = np.random.default_rng(seed + 3)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, Q_PROMPT)),
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, prompt)),
                            dtype=torch.int32).to(DEVICE)
-    max_seq = Q_PROMPT + Q_MAX_NEW
-    ring, _ = model.prefill(toks, seq_len=max_seq)
-    ring = ring[0, -1, :cfg.vocab].float()
+    max_seq = prompt + max_new
     mp = -(-max_seq // PAGE)
-    cache = kvcache.paged_cache(model, 1, page_size=PAGE, n_pages=mp, max_pages=mp)
-    kvcache.set_page_row(cache, 0, np.arange(mp))
     step = make_chunk_step(model)
-    for lo in range(0, Q_PROMPT, CHUNK):
-        logits, cache = step(cache, toks[:, lo:lo + CHUNK], 0)
-    paged = logits[0, -1, :cfg.vocab].float()
-    del cache
+
+    def chunked():
+        cache = kvcache.paged_cache(model, 1, page_size=PAGE, n_pages=mp, max_pages=mp)
+        kvcache.set_page_row(cache, 0, np.arange(mp))
+        for lo in range(0, prompt, CHUNK):
+            logits, cache = step(cache, toks[:, lo:lo + CHUNK], 0)
+        return logits[0, -1, :cfg.vocab].float()
+
+    routes = RouteLog(cfg) if cfg.family == "moe" else None
+    with routes.record() if routes else contextlib.nullcontext():
+        ring = model.prefill(toks, seq_len=max_seq)[0][0, -1, :cfg.vocab].float()
+    with routes.compare() if routes else contextlib.nullcontext():
+        paged = chunked()
     diff = (ring - paged).abs().max().item()
     scale = paged.abs().max().item()
     print(f"  last-position logits: max |paged chunked| {scale:.4f}, max |delta| {diff:.4g}, "
           f"argmax ring {ring.argmax().item()} / paged {paged.argmax().item()}")
+    what = "ring prefill (flash) vs paged chunked prefill logits"
+    if routes:
+        print(f"  free-running, {routes.report()}")
+        with routes.force():
+            paged = chunked()
+        diff = (ring - paged).abs().max().item()
+        what += ", the chunks' experts forced to the ring prefill's routes"
     fails.check(math.isfinite(diff) and diff <= AGREE_REL_TOL * scale,
-                f"ring prefill (flash) vs paged chunked prefill logits: max |delta| "
-                f"{diff:.4g} <= {AGREE_REL_TOL} x {scale:.4f}")
+                f"{what}: max |delta| {diff:.4g} <= {AGREE_REL_TOL} x {scale:.4f}")
+
+
+# -- phase 21: the grouped expert kernel and the router kernel vs their plain versions -----
+
+
+# (T tokens, E, k, D, F, routing, shared expert): P = T k pairs
+MOE_CASES = [
+    (1, 4, 1, 64, 32, "random", False),           # P = 1
+    (1, 4, 2, 64, 32, "random", False),           # P = 2
+    (3, 4, 2, 64, 32, "one", True),               # every pair on one expert
+    (37, 64, 6, 64, 32, "random", True),          # empty experts, ragged segments
+    (1, 64, 6, 2048, 1408, "random", False),      # P = 6
+    (8, 64, 6, 2048, 1408, "random", True),       # moonshot decode, 8 slots: P = 48
+    (200, 64, 6, 2048, 1408, "half", True),       # half the experts empty
+    (256, 64, 6, 2048, 1408, "random", True),     # moonshot chunk: P = 1536
+    (4096, 64, 6, 2048, 1408, "random", True),    # moonshot ring prefill: P = 24576
+    (2048, 8, 2, 64, 32, "random", True),         # segments of ~512 rows: 128-row tiles
+    (64, 128, 8, 4096, 1536, "random", False),    # qwen3-moe widths: P = 512
+    (700, 128, 8, 4096, 1536, "one", False),      # P = 5600 on one expert (88 tiles)
+]
+MOE_TIMED = ((8, "decode, 8 slots"), (CHUNK, f"chunk of {CHUNK}"),
+             (4096, "ring prefill of 4096"))      # moonshot's T per layer on the main path
+
+
+def moe_routing(gen, T: int, E: int, k: int, kind: str):
+    """(T k,) expert ids, token-major: ``random`` k distinct experts per
+    token, uniform (the spread of a trained router at its best);
+    ``half`` the same over the first E / 2; ``one`` every pair on E / 2."""
+    import torch
+
+    if kind == "one":
+        return torch.full((T * k,), E // 2, dtype=torch.int32, device=DEVICE)
+    pool = E // 2 if kind == "half" else E
+    scores = torch.rand(T, pool, generator=gen, device=gen.device).to(DEVICE)
+    return scores.argsort(dim=-1)[:, :k].reshape(-1).to(torch.int32)
+
+
+def moe_inputs(gen, T, E, k, D, F, kind, shared):
+    """The layer's rows x (T, D), its pairs in expert order, their offsets
+    and expert weights (and a shared expert 2F wide), bf16, weights scaled
+    as the model draws them."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=gen.device) * scale).to(
+            device=DEVICE, dtype=torch.bfloat16)
+
+    e_flat = moe_routing(gen, T, E, k, kind)
+    order = torch.argsort(e_flat, stable=True)
+    offsets = torch.searchsorted(e_flat[order], torch.arange(E + 1, dtype=torch.int32,
+                                                             device=DEVICE), out_int32=True)
+    x = rnd(T, D)
+    xs = x[torch.div(order, k, rounding_mode="floor")].contiguous()
+    experts = {"w_gate": rnd(E, D, F, scale=D ** -0.5), "w_up": rnd(E, D, F, scale=D ** -0.5),
+               "w_down": rnd(E, F, D, scale=F ** -0.5)}
+    sh = None
+    if shared:
+        sh = {"w_gate": rnd(D, 2 * F, scale=D ** -0.5), "w_up": rnd(D, 2 * F, scale=D ** -0.5),
+              "w_down": rnd(2 * F, D, scale=(2 * F) ** -0.5)}
+    return x, xs, offsets, experts, sh
+
+
+def moe_plain_layer(x, xs, offsets, experts, sh):
+    """The plain version of the two launches ``expert_ffn`` makes."""
+    from repro_torch.kernels.moe_experts import moe_experts_plain
+
+    h, h_s = moe_experts_plain("swiglu", xs, offsets, experts["w_gate"], experts["w_up"],
+                               None if sh is None else (x, sh["w_gate"], sh["w_up"]))
+    return moe_experts_plain("plain", h, offsets, experts["w_down"],
+                             shared=None if sh is None else (h_s, sh["w_down"], None))
+
+
+def moe_rel_err(got, want) -> tuple:
+    """(max |got - want|, max |want|) over both outputs."""
+    err = scale = 0.0
+    for g, w in zip(got, want):
+        if w is not None:
+            err = max(err, (g.float() - w.float()).abs().max().item())
+            scale = max(scale, w.float().abs().max().item())
+    return err, scale
+
+
+def phase_moe_cases(fails: Failures, seed: int) -> None:
+    """Every case through ``expert_ffn`` (the model's two launches) against
+    the plain version, within 3e-2 of the output's largest magnitude; row
+    invariance and a CUDA graph's replay bitwise; the router kernel against
+    the fp32 product."""
+    import torch
+
+    from repro_torch.kernels.moe_experts import (expert_ffn, moe_experts_kernel,
+                                                 moe_router_kernel, moe_router_plain)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    tol = TOL["bfloat16"]
+    for T, E, k, D, F, kind, shared in MOE_CASES:
+        x, xs, offsets, experts, sh = moe_inputs(gen, T, E, k, D, F, kind, shared)
+        before = moe_experts_kernel.launches
+        got = expert_ffn("swiglu", xs, offsets, experts, None if sh is None else (x, sh))
+        want = moe_plain_layer(x, xs, offsets, experts, sh)
+        sync()
+        err, scale = moe_rel_err(got, want)
+        hit = int((offsets[1:] > offsets[:-1]).sum())
+        fails.check(moe_experts_kernel.launches == before + 2 and err <= tol * scale
+                    and all(torch.isfinite(g.float()).all().item() for g in got if g is not None),
+                    f"moe_experts vs plain [T={T} E={E} k={k} P={T * k} D={D} F={F} {kind}, "
+                    f"{hit} experts hit, shared {shared}]: 2 launches, max err {err:.3g} <= "
+                    f"{tol} x {scale:.4g}")
+        if D == 2048 and T in (CHUNK, 4096):
+            # row invariance: a row alone (and its token's shared row) bitwise
+            # the same row inside the 1536-row call, and inside the
+            # 24576-row call, whose segments take 128-row tiles
+            same = True
+            bounds = offsets.tolist()
+            for r in (0, 777, T * k - 1):
+                e = bisect.bisect_right(bounds, r) - 1
+                one_off = torch.zeros(E + 1, dtype=torch.int32, device=DEVICE)
+                one_off[e + 1:] = 1
+                t = r % T
+                ys, y_s = expert_ffn("swiglu", xs[r:r + 1], one_off, experts,
+                                     (x[t:t + 1].contiguous(), sh))
+                same &= torch.equal(ys[0], got[0][r]) and torch.equal(y_s[0], got[1][t])
+            fails.check(same, f"moe_experts row invariance: rows 0, 777, {T * k - 1} alone "
+                        "(1-row calls, with their shared rows) bitwise the same rows of the "
+                        f"{T * k}-row call")
+        if (T, D) == (CHUNK, 2048):
+            # one launch captured in a CUDA graph, replayed: bitwise the eager launch
+            eager, _ = moe_experts_kernel("swiglu", xs, offsets, experts["w_gate"],
+                                          experts["w_up"])
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                moe_experts_kernel("swiglu", xs, offsets, experts["w_gate"], experts["w_up"])
+            torch.cuda.current_stream().wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured, _ = moe_experts_kernel("swiglu", xs, offsets, experts["w_gate"],
+                                                 experts["w_up"])
+            captured.zero_()
+            graph.replay()
+            sync()
+            fails.check(torch.equal(captured, eager),
+                        "moe_experts launch captured in a CUDA graph: replay bitwise the "
+                        "eager launch")
+        del x, xs, offsets, experts, sh, got, want
+        torch.cuda.empty_cache()
+    # the router: fp32 within 1e-5 of the largest logit, row-invariant
+    for T, D, E in ((1, 64, 4), (8, 2048, 64), (CHUNK, 2048, 64), (4096, 2048, 64),
+                    (37, 4096, 128)):
+        xr = torch.randn(T, D, generator=gen, device=gen.device).to(torch.bfloat16)
+        wr = torch.randn(D, E, generator=gen, device=gen.device) * D ** -0.5
+        got = moe_router_kernel(xr, wr)
+        want = moe_router_plain(xr, wr)
+        ref = xr.double() @ wr.double()
+        err = (got.double() - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        one = moe_router_kernel(xr[T - 1:T].contiguous(), wr)
+        fails.check(err <= 1e-5 * scale and torch.equal(one[0], got[T - 1]),
+                    f"moe_router vs fp64 product [T={T} D={D} E={E}]: max err {err:.3g} <= "
+                    f"1e-5 x {scale:.4g} (fp32 matmul's {(want.double() - ref).abs().max().item():.3g}); "
+                    "last row alone bitwise")
+
+
+def moe_bound(T: int, P: int, hit: int, D: int, F: int, shared: bool):
+    """(bytes, operations) of one layer's expert FFN: the weights of the
+    experts hit (3 D F bf16 each) and of the shared expert, the xs rows, h
+    written and read, ys written (and the shared expert's rows); 6 P D F
+    operations, 6 T D 2F for the shared expert."""
+    nbytes = hit * 3 * D * F * 2 + 2 * P * D * 2 + 2 * P * F * 2
+    ops = 6 * P * D * F
+    if shared:
+        nbytes += 3 * D * 2 * F * 2 + 2 * T * D * 2 + 2 * T * 2 * F * 2
+        ops += 6 * T * D * 2 * F
+    return nbytes, ops
+
+
+def grouped_mm_layer(x, xs, offsets, experts, sh):
+    """The layer's expert FFN through ``torch._grouped_mm`` (the yardstick,
+    never on the port's path) and plain matmuls for the shared expert; None
+    where this torch has no grouped product that takes these operands."""
+    import torch
+    import torch.nn.functional as F
+
+    mm = getattr(torch, "_grouped_mm", None)
+    if mm is None:
+        return None
+    ends = offsets[1:]
+
+    def fn():
+        g = mm(xs, experts["w_gate"], offs=ends)
+        u = mm(xs, experts["w_up"], offs=ends)
+        y = mm(F.silu(g) * u, experts["w_down"], offs=ends)
+        hs = F.silu(x @ sh["w_gate"]) * (x @ sh["w_up"])
+        return y, hs @ sh["w_down"]
+    return fn
+
+
+def phase_moe_timing(fails: Failures, seed: int, T: int, label: str) -> list:
+    """moonshot's expert FFN of one layer (the two launches, with the
+    shared expert) at T tokens x 6 = P pairs, uniform routing, against its
+    plain version (a ``torch.matmul`` per expert), ``torch._grouped_mm``
+    where this torch has it, and its bound; and the router kernel at the
+    same T against the fp32 matmul.  The weights of one layer are 1.1 GB:
+    every launch streams its experts from HBM."""
+    import torch
+
+    from repro_torch.kernels.moe_experts import expert_ffn, moe_router_kernel
+
+    E, k, D, F = 64, 6, 2048, 1408
+    gen = torch.Generator(device="cuda").manual_seed(seed + T)
+    x, xs, offsets, experts, sh = moe_inputs(gen, T, E, k, D, F, "random", True)
+    P = T * k
+    hit = int((offsets[1:] > offsets[:-1]).sum())
+    got = expert_ffn("swiglu", xs, offsets, experts, (x, sh))
+    want = moe_plain_layer(x, xs, offsets, experts, sh)
+    err, scale = moe_rel_err(got, want)
+    fails.check(err <= TOL["bfloat16"] * scale,
+                f"moe_experts at {label} (P={P}): max err {err:.3g} <= 3e-2 x {scale:.4g}")
+    iters = 20 if P <= 2048 else 10
+    ms = cuda_time_ms(lambda i: expert_ffn("swiglu", xs, offsets, experts, (x, sh)), iters)
+    plain_ms = cuda_time_ms(lambda i: moe_plain_layer(x, xs, offsets, experts, sh), 5,
+                            warmup=1)
+    ms_again = cuda_time_ms(lambda i: expert_ffn("swiglu", xs, offsets, experts, (x, sh)),
+                            iters, warmup=0)
+    dev_ms = device_ms_per_launch(lambda i: expert_ffn("swiglu", xs, offsets, experts,
+                                                       (x, sh)), 10, "moe_experts_kernel")
+    library_ms, lib_note = None, "torch._grouped_mm: absent"
+    gmm = grouped_mm_layer(x, xs, offsets, experts, sh)
+    if gmm is not None:
+        try:
+            lib = gmm()
+            lib_err, _ = moe_rel_err(lib, want)
+            library_ms = cuda_time_ms(lambda i: gmm(), iters)
+            lib_note = f"torch._grouped_mm {library_ms:.4f} ms (max err {lib_err:.3g})"
+        except (RuntimeError, TypeError, ValueError, NotImplementedError) as e:
+            lib_note = f"torch._grouped_mm refused these operands: {str(e).splitlines()[0][:160]}"
+    nbytes, ops = moe_bound(T, P, hit, D, F, True)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    print(f"  moe_experts {label}: P={P}, {hit} of {E} experts hit + the shared expert; "
+          f"layer (2 launches) {ms:.4f} ms (again {ms_again:.4f}; device time per launch "
+          f"{dev_ms} ms), {ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+          f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s; plain (matmul per expert) {plain_ms:.4f} ms; "
+          f"{lib_note}; bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
+    record = {"name": "moe_experts", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/moe_experts.cu",
+              "replaces": "src/repro/models/moe.py:53 (_dispatch_ffn einsums; no Pallas kernel)",
+              "shape": f"moonshot {label}: one layer's 2 launches, P={P} pairs ({T} tokens "
+                       f"x top-{k}), {hit} experts hit, D={D} F={F}, shared 2F, bf16",
+              "launches": None, "experts_hit": hit, "max_abs_err": err, "ms": ms,
+              "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "library_ms": library_ms}
+    # the router at the same T
+    w = torch.randn(D, E, generator=gen, device="cuda") * D ** -0.5
+    xf = x.contiguous()
+    lr = moe_router_kernel(xf, w)
+    ref = xf.float() @ w
+    r_err = (lr - ref).abs().max().item()
+    r_ms = cuda_time_ms(lambda i: moe_router_kernel(xf, w), 40)
+    r_dev = device_ms_per_launch(lambda i: moe_router_kernel(xf, w), 20, "moe_router_kernel")
+    r_lib = cuda_time_ms(lambda i: xf.float() @ w, 40)
+    r_bytes, r_ops = T * D * 2 + D * E * 4 + T * E * 4, 2 * T * D * E
+    rb, ro = r_bytes / HBM_BYTES_PER_S, r_ops / FP32_FLOPS_PER_S
+    print(f"  moe_router {label}: ({T}, {D}) x ({D}, {E}) fp32: kernel {r_ms:.4f} ms "
+          f"(device time per launch {r_dev} ms), "
+          f"fp32 matmul {r_lib:.4f} ms, bound {max(rb, ro) * 1e3:.5f} ms, max err {r_err:.3g}")
+    router = {"name": "moe_router", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/moe_experts.cu",
+              "replaces": "src/repro/models/moe.py:170 (router einsum in fp32; no Pallas kernel)",
+              "shape": f"moonshot {label}: x ({T}, {D}) bf16 . w ({D}, {E}) fp32",
+              "launches": None, "max_abs_err": r_err, "ms": r_ms, "device_ms": r_dev,
+              "plain_ms": r_lib,
+              "bound_ms": max(rb, ro) * 1e3, "bound_by": "bytes" if rb >= ro else "operations",
+              "library_ms": r_lib}
+    return [record, router]
+
+
+# -- phases 22-23: moonshot-v1-16b-a3b (MoE) paged and from rings ----------------------------
+
+
+def phase_moe_parity(fails: Failures, model, cfg, seed: int) -> None:
+    """One slot: a prefix as one chunk, then N tokens as one chunk or as N
+    S=1 steps from copies of the same state.  Gated, bitwise: on every
+    layer's MoE input taken from the chunk run, ``moe_ffn`` over the N
+    tokens equals ``moe_ffn`` of each token alone (router, routing, both
+    launches, the shared expert and the combine).  Printed: the same
+    comparison through the whole model (cuBLAS picks its attention
+    projections' kernels by row count)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import kvcache
+    from repro_torch.models import moe as moe_mod
+
+    n0, n = PARITY_PREFIX, PARITY_TOKENS
+    n_pages = -(-(n0 + n) // PAGE)
+    toks = torch.as_tensor(np.random.default_rng(seed + 4).integers(
+        0, cfg.vocab, size=(1, n0 + n)), dtype=torch.int32).to(DEVICE)
+    base = kvcache.paged_cache(model, 1, page_size=PAGE, n_pages=n_pages, max_pages=n_pages)
+    base["page_table"][0] = torch.arange(n_pages, dtype=torch.int32)
+    _, base = model.decode_step(base, toks[:, :n0])
+
+    def clone(c):
+        return {k_: v.clone() for k_, v in c.items()}
+
+    inputs = []
+    orig = moe_mod.moe_ffn
+
+    def spy(p, cfg_, h, **kw):
+        inputs.append((p, h))
+        return orig(p, cfg_, h, **kw)
+
+    moe_mod.moe_ffn = spy
+    try:
+        lw, whole = model.decode_step(clone(base), toks[:, n0:])
+    finally:
+        moe_mod.moe_ffn = orig
+    stepped, ls = clone(base), []
+    for t in range(n):
+        lt, stepped = model.decode_step(stepped, toks[:, n0 + t:n0 + t + 1])
+        ls.append(lt)
+    ok = len(inputs) == cfg.n_layers
+    worst = 0.0
+    for p, h in inputs:
+        chunk, _ = orig(p, cfg, h, no_drop=True)
+        steps = torch.cat([orig(p, cfg, h[:, t:t + 1].contiguous(), no_drop=True)[0]
+                           for t in range(n)], dim=1)
+        ok &= torch.equal(chunk, steps)
+        worst = max(worst, (chunk.float() - steps.float()).abs().max().item())
+    sync()
+    fails.check(ok, f"MoE layer output, {n}-token chunk vs {n} one-token calls on the same "
+                f"inputs, {len(inputs)} layers: bitwise (max |delta| {worst:.3g})")
+    lanes = slice(n0, n0 + n)
+    diffs = {key: (whole[key][:, :n_pages].flatten(1, 2)[:, lanes].float()
+                   - stepped[key][:, :n_pages].flatten(1, 2)[:, lanes].float()).abs().max().item()
+             for key in ("kp", "vp")}
+    lg = (lw[0].float() - torch.cat(ls, dim=1)[0].float()).abs().max().item()
+    print(f"  whole model, {n}-token chunk vs {n} S=1 steps: K/V max |delta| {diffs}, logits "
+          f"max |delta| {lg:.4g} (|logits| up to {lw.float().abs().max().item():.4g})")
 
 
 def main() -> int:
@@ -2108,6 +2637,98 @@ def main() -> int:
     phase_ring_agreement(fails, qmodel, qcfg, args.seed)
     print(f"[20] graph replay vs eager: {DENSE_RING} rings (decode)")
     phase_graph_replay(fails, qmodel, qcfg, args.seed, f"{DENSE_RING} ring", kv_mode="ring")
+    del qmodel
+    release()
+
+    mcfg = configs.get(MOE)
+    mm = mcfg.moe
+    print("[21] grouped expert kernel and router kernel vs their plain versions")
+    phase_moe_cases(fails, args.seed)
+    print(f"[21] kernels at {MOE}'s shapes (CUDA events)")
+    moe_records = []
+    for T, label in MOE_TIMED:
+        moe_records.extend(phase_moe_timing(fails, args.seed, T, label))
+    m_paged = phase_kernel_timing(fails, mcfg, args.seed, prompt=M_PROMPT, max_new=M_MAX_NEW,
+                                  layers=M_PAGED_LAYERS)
+    m_paged["shape"] = (f"{MOE} decode: B={SLOTS} Hkv={mcfg.n_kv_heads} G=1 "
+                        f"D={mcfg.the_head_dim()}, {M_PROMPT}..{M_PROMPT + M_MAX_NEW - 1} live "
+                        f"tokens, bf16")
+    m_flash = phase_flash_timing(fails, args.seed, MOE, (1, MR_PROMPT, mcfg.n_heads,
+                                                         mcfg.n_kv_heads, mcfg.the_head_dim()),
+                                 None, None)
+    release()
+
+    free, total = torch.cuda.mem_get_info()
+    print(f"[22] full-width {MOE} served paged: {mcfg.n_layers} layers, d_model "
+          f"{mcfg.d_model}, {mcfg.n_heads}x{mcfg.the_head_dim()} heads (kv {mcfg.n_kv_heads}), "
+          f"{mm.n_experts} experts top-{mm.top_k} of width {mm.d_expert} + a shared expert of "
+          f"{2 * mm.d_expert}, vocab {mcfg.vocab}; param_count {mcfg.param_count() / 1e9:.3f} B "
+          f"(the JAX package's count, no shared expert); free before the load "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    mmodel = build_model(mcfg, device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in mmodel.parameters())
+    nparams = sum(p.numel() for p in mmodel.parameters())
+    print(f"  random init in {time.perf_counter() - t0:.2f} s, {nparams / 1e9:.3f} B weights, "
+          f"{wbytes / 1e9:.3f} GB ({wbytes / 2**30:.2f} GiB); peak during init "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    mcounts = phase_serving(fails, mmodel, mcfg, args.seed, n_requests=M_REQUESTS,
+                            sessions=M_SESSIONS, prompt=M_PROMPT, max_new=M_MAX_NEW)
+    steps, chunks = mcounts["steps"], mcounts["chunks"]
+    L = mcfg.n_layers
+    fails.check(mcounts["paged_attention"] == L * steps,
+                f"paged kernel launches {mcounts['paged_attention']} == {L} layers x {steps} "
+                "decode steps")
+    fails.check(mcounts["moe_experts"] == 2 * L * (steps + chunks)
+                and mcounts["moe_experts_swiglu"] == L * (steps + chunks)
+                and mcounts["moe_router"] == L * (steps + chunks),
+                f"moe_experts launches {mcounts['moe_experts']} == 2 x {L} layers x ({steps} "
+                f"decode steps + {chunks} chunks), half of them gate/up "
+                f"({mcounts['moe_experts_swiglu']}); router launches {mcounts['moe_router']}")
+    fails.check(chunks == M_REQUESTS * -(-M_PROMPT // CHUNK),
+                f"{chunks} prefill chunks == {M_REQUESTS} x ceil({M_PROMPT}/{CHUNK})")
+    fails.check(mcounts["flash_attention"] == 0 and mcounts["rglru_scan"] == 0
+                and mcounts["ssd_scan"] == 0,
+                "no flash, RG-LRU or SSD launch in chunked serving")
+    m_paged["launches"] = mcounts["paged_attention"]
+    for rec in moe_records:
+        rec["launches"] = mcounts["moe_experts" if rec["name"] == "moe_experts"
+                                  else "moe_router"]
+    release()
+    print(f"[22] backend agreement at full width ({MOE})")
+    phase_agreement(fails, mmodel, mcfg, args.seed, prompt=M_PROMPT, max_new=M_MAX_NEW)
+    release()
+    print(f"[20] graph replay vs eager: {MOE}, paged_kernel")
+    phase_graph_replay(fails, mmodel, mcfg, args.seed, f"{MOE} paged_kernel",
+                       attn_backend="paged_kernel", trace=True)
+    print(f"[22] decode vs chunk prefill of one slot's MoE layers (full width)")
+    phase_moe_parity(fails, mmodel, mcfg, args.seed)
+    release()
+
+    print(f"[23] {MOE} from per-slot rings: {MR_REQUESTS} requests, prompt {MR_PROMPT}, "
+          f"{MR_MAX_NEW} new, {MR_REQUESTS} slots")
+    rcounts = phase_serving(fails, mmodel, mcfg, args.seed, n_requests=MR_REQUESTS,
+                            sessions=MR_SESSIONS, prompt=MR_PROMPT, max_new=MR_MAX_NEW,
+                            attn_backend="gather", kv_mode="ring", slots=MR_REQUESTS)
+    adm, steps = rcounts["admitted"], rcounts["steps"]
+    fails.check(adm == MR_REQUESTS and rcounts["flash_attention"] == L * adm
+                and rcounts["flash_tensor_core"] == rcounts["flash_attention"],
+                f"flash launches {rcounts['flash_attention']} == {L} layers x {adm} admissions, "
+                f"{rcounts['flash_tensor_core']} on the tensor cores")
+    fails.check(rcounts["moe_experts"] == 2 * L * (adm + steps)
+                and rcounts["moe_router"] == L * (adm + steps),
+                f"moe_experts launches {rcounts['moe_experts']} == 2 x {L} layers x ({adm} "
+                f"admissions + {steps} decode steps); router {rcounts['moe_router']}")
+    fails.check(rcounts["paged_attention"] == 0 and rcounts["rglru_scan"] == 0
+                and rcounts["ssd_scan"] == 0 and rcounts["chunks"] == 0,
+                "no paged, RG-LRU or SSD launch and no prefill chunk in ring mode")
+    m_flash["launches"] = rcounts["flash_attention"]
+    release()
+    print(f"[23] ring prefill (flash) vs paged chunked prefill at full width ({MOE})")
+    phase_ring_agreement(fails, mmodel, mcfg, args.seed, prompt=MR_PROMPT,
+                         max_new=MR_MAX_NEW)
+    records.extend(moe_records + [m_paged, m_flash])
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if fails:

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
 Each module defines ``CONFIG``, the full-scale config.  The dense
-architectures, the recurrentgemma hybrid and mamba2 have a model in this
-package; the others raise until their family is ported.
+architectures, the recurrentgemma hybrid, mamba2 and the two MoE
+architectures have a model in this package; the others raise until their
+family is ported.
 """
 
 from __future__ import annotations
@@ -19,11 +20,12 @@ _ALIAS = {
     "minicpm-2b": "minicpm_2b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "mamba2-1.3b": "mamba2_1p3b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
 }
 
 # architectures of families this package does not serve yet
-_NOT_PORTED = ("internvl2-2b", "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b",
-               "whisper-base")
+_NOT_PORTED = ("internvl2-2b", "whisper-base")
 
 
 def get(name: str) -> ArchConfig:

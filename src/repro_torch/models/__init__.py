@@ -1,4 +1,4 @@
-"""Data-plane model zoo (dense, hybrid and SSM families so far).
+"""Data-plane model zoo (dense, MoE, hybrid and SSM families so far).
 
 ``build_model(cfg, device=..., seed=...)`` dispatches on ``cfg.family`` and
 returns an ``nn.Module`` with the interface::
@@ -17,7 +17,7 @@ import torch
 
 from .config import ArchConfig
 
-_NOT_PORTED = ("moe", "audio", "vlm")
+_NOT_PORTED = ("audio", "vlm")
 
 
 def build_model(cfg: ArchConfig, *, device="cuda", seed: Optional[int] = 0):
@@ -27,6 +27,8 @@ def build_model(cfg: ArchConfig, *, device="cuda", seed: Optional[int] = 0):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.family == "dense":
         from .transformer import DenseLM as model_cls
+    elif cfg.family == "moe":
+        from .moe import MoELM as model_cls
     elif cfg.family == "hybrid":
         from .rglru import RecurrentLM as model_cls
     elif cfg.family == "ssm":

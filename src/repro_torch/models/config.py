@@ -7,7 +7,7 @@ scale of the same family (same code paths, tiny dims).
 
 The sub-configs of the other families (MoE, SSM, hybrid, enc-dec, VLM) are
 kept so ``reduced()`` builds the same dataclass for every family; the dense,
-hybrid and SSM families have a model in this package so far.
+MoE, hybrid and SSM families have a model in this package so far.
 """
 
 from __future__ import annotations
@@ -119,9 +119,10 @@ class ArchConfig:
     def the_head_dim(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
 
-    def param_count(self) -> int:
-        """Parameters of a dense, hybrid or SSM member (embedding + head +
-        layers), counted as the JAX package counts them."""
+    def param_count(self, active_only: bool = False) -> int:
+        """Parameters (embedding + head + layers), counted as the JAX package
+        counts them: an MoE member's experts and router but not moonshot's
+        shared expert (``active_only``: the top-k experts of a token)."""
         d, f = self.d_model, self.d_ff
         hd = self.the_head_dim()
         q_dim, kv = self.n_heads * hd, self.n_kv_heads * hd
@@ -143,6 +144,11 @@ class ArchConfig:
             # package's estimate: block-diagonal gates as 8 blocks)
             rec = d * lw * 2 + lw * h.d_conv + lw * d + 3 * lw + 2 * lw * (lw // 8)
             n = pat.count("r") * rec + pat.count("a") * attn + self.n_layers * mlp
+        elif self.family == "moe" and self.moe is not None:
+            m = self.moe
+            n_exp = m.top_k if active_only else m.n_experts
+            experts = n_exp * d * m.d_expert * (3 if self.mlp == "swiglu" else 2)
+            n = self.n_layers * (attn + experts + d * m.n_experts)
         else:
             n = self.n_layers * (attn + mlp)
         return n + self.vocab * d * (1 if self.tie_embeddings else 2)

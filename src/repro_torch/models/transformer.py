@@ -41,15 +41,26 @@ class DenseLayer(nn.Module):
         self.mlp = _params(_store(layers.init_mlp(gen, cfg)))
 
 
-def dense_layer_fwd(p: DenseLayer, cfg: ArchConfig, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
+def attn_residual_fwd(p, cfg: ArchConfig, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+    """The attention half of a full-sequence layer: ``x + attn(norm(x))``."""
     rs = layers.bf16_scalar(cfg.residual_scale)
     h = layers.apply_norm(cfg.norm, p.attn_norm, x)
     h = layers.attention_block(p.attn, cfg, h, positions, window=cfg.sliding_window)
-    x = x + h * rs
+    return x + h * rs
+
+
+def mlp_residual(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The MLP half of a dense layer: ``x + mlp(norm(x))``."""
+    rs = layers.bf16_scalar(cfg.residual_scale)
     h = layers.apply_norm(cfg.norm, p.mlp_norm, x)
     h = layers.apply_mlp(p.mlp, cfg, h)
     return x + h * rs
+
+
+def dense_layer_fwd(p: DenseLayer, cfg: ArchConfig, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    return mlp_residual(p, cfg, attn_residual_fwd(p, cfg, x, positions))
 
 
 def dense_layer_decode(p: DenseLayer, cfg: ArchConfig, x: torch.Tensor,
@@ -58,6 +69,13 @@ def dense_layer_decode(p: DenseLayer, cfg: ArchConfig, x: torch.Tensor,
     """One-token (or short-S) step against one layer of a ring or paged
     cache, written in place.  ``pos`` scalar (lockstep batch) or (B,);
     ``fresh``: the cache was empty, so ``x`` is a sequence from position 0."""
+    return mlp_residual(p, cfg, attn_residual_decode(p, cfg, x, layer_cache, pos, fresh))
+
+
+def attn_residual_decode(p, cfg: ArchConfig, x: torch.Tensor, layer_cache: Dict,
+                         pos: torch.Tensor, fresh: bool = False) -> torch.Tensor:
+    """The attention half of :func:`dense_layer_decode`: ``x + attn(norm(x))``
+    against the layer's cache, whose K/V it writes in place."""
     rs = layers.bf16_scalar(cfg.residual_scale)
     B, S = x.shape[0], x.shape[1]
     positions = kvcache.decode_positions(pos, B, S)
@@ -84,10 +102,7 @@ def dense_layer_decode(p: DenseLayer, cfg: ArchConfig, x: torch.Tensor,
         o = layers.sdpa(q, ck, cv, causal=True, window=cfg.sliding_window,
                         q_positions=positions, kv_positions=kv_pos, kv_valid=kv_valid)
     o = o.reshape(B, S, cfg.n_heads * cfg.the_head_dim())
-    x = x + (o @ layers.cast(p.attn["wo"])) * rs
-    h = layers.apply_norm(cfg.norm, p.mlp_norm, x)
-    h = layers.apply_mlp(p.mlp, cfg, h)
-    return x + h * rs
+    return x + (o @ layers.cast(p.attn["wo"])) * rs
 
 
 class DenseLM(nn.Module):
@@ -105,9 +120,16 @@ class DenseLM(nn.Module):
         if generator.device.type != device.type:
             raise ValueError(f"generator on {generator.device}, model on {device}")
         self.embedding = _params(_store(layers.init_embedding(generator, cfg)))
-        self.layers = nn.ModuleList(DenseLayer(cfg, generator)
+        self.layers = nn.ModuleList(self._make_layer(cfg, generator)
                                     for _ in range(cfg.n_layers))
         self.final_norm = _params(_store(layers.init_norm(cfg.norm, cfg.d_model, device)))
+
+    def _make_layer(self, cfg: ArchConfig, gen: torch.Generator) -> nn.Module:
+        return DenseLayer(cfg, gen)
+
+    def _layer_decode(self, p, x: torch.Tensor, layer_cache: Dict, pos: torch.Tensor,
+                      fresh: bool) -> torch.Tensor:
+        return dense_layer_decode(p, self.cfg, x, layer_cache, pos, fresh)
 
     @property
     def device(self) -> torch.device:
@@ -163,7 +185,7 @@ class DenseLM(nn.Module):
             else:
                 lc = {"k": cache["k"][i], "v": cache["v"][i],
                       "positions": cache["positions"][i]}
-            x = dense_layer_decode(p, cfg, x, lc, pos, fresh)
+            x = self._layer_decode(p, x, lc, pos, fresh)
         x = layers.apply_norm(cfg.norm, self.final_norm, x)
         logits = layers.lm_head(self.embedding, cfg, x)
         new_cache = dict(cache)

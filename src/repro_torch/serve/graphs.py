@@ -35,11 +35,13 @@ import torch
 
 def _wrappers() -> tuple:
     from ..kernels.flash_attention.kernel import flash_attention_kernel
+    from ..kernels.moe_experts.kernel import moe_experts_kernel, moe_router_kernel
     from ..kernels.paged_attention.kernel import paged_attention_kernel
     from ..kernels.rglru_scan.kernel import rglru_scan_kernel
     from ..kernels.ssd_scan.kernel import ssd_scan_kernel
 
-    return paged_attention_kernel, flash_attention_kernel, rglru_scan_kernel, ssd_scan_kernel
+    return (paged_attention_kernel, flash_attention_kernel, rglru_scan_kernel, ssd_scan_kernel,
+            moe_experts_kernel, moe_router_kernel)
 
 
 def _launch_counts() -> Dict[tuple, int]:

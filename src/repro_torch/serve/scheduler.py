@@ -36,6 +36,10 @@ order.
 CUDA paged-attention kernel; ``'gather'`` materializes each slot's pages
 and runs the chunk path at S=1.  Chunked prefill always gathers.
 
+An MoE model is attention-only here, as a dense one is: its layers keep
+K/V and no recurrent rows, and it routes drop-free in every step (a
+token's expert output does not depend on what shares its step).
+
 An SSM keeps no K/V: its paged cache has a page table but no pool, the
 allocator holds 0 pages, admissions reserve none, and only its per-slot
 recurrent rows (``ssm``, ``conv``) are masked, cleared and written back.
@@ -80,7 +84,7 @@ from .engine import make_chunk_step
 from .graphs import StepGraphs
 from .lifecycle import Slot, SlotState
 
-CONTINUOUS_FAMILIES = ("dense", "ssm", "hybrid")
+CONTINUOUS_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def supports_continuous(cfg) -> bool:

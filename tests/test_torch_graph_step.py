@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.kernels.moe_experts import moe_experts_kernel, moe_router_kernel
 from repro_torch.kernels.paged_attention import paged_attention_kernel
 from repro_torch.kernels.rglru_scan import rglru_scan_kernel
 from repro_torch.kernels.ssd_scan import ssd_scan_kernel
@@ -34,12 +35,15 @@ from repro_torch.serve.scheduler import DecodeScheduler
 
 torch.set_num_threads(2)
 
-# (arch, kv_mode, attn_backend): dense, hybrid and SSM, paged on both
+# (arch, kv_mode, attn_backend): dense, hybrid, SSM and MoE, paged on both
 # backends where there is attention, and rings
 CASES = [("minicpm-2b", "paged", "gather"), ("minicpm-2b", "paged", "paged_kernel"),
          ("minicpm-2b", "ring", "gather"), ("recurrentgemma-2b", "paged", "gather"),
          ("recurrentgemma-2b", "paged", "paged_kernel"), ("recurrentgemma-2b", "ring", "gather"),
-         ("mamba2-1.3b", "paged", "gather"), ("mamba2-1.3b", "ring", "gather")]
+         ("mamba2-1.3b", "paged", "gather"), ("mamba2-1.3b", "ring", "gather"),
+         ("moonshot-v1-16b-a3b", "paged", "gather"),
+         ("moonshot-v1-16b-a3b", "paged", "paged_kernel"),
+         ("moonshot-v1-16b-a3b", "ring", "gather")]
 IDS = [f"{a}-{m}-{b}" for a, m, b in CASES]
 SAMPLING = {"greedy": (0.0, 0), "temperature": (0.8, 50)}
 N_SLOTS, CHUNK = 4, 5
@@ -129,7 +133,8 @@ def test_mask_only_step_is_bitwise_the_gathered_step(arch, kv_mode, backend, sam
 
 
 @pytest.mark.parametrize("slot", [0, N_SLOTS - 1])
-@pytest.mark.parametrize("arch", ["minicpm-2b", "recurrentgemma-2b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "recurrentgemma-2b", "mamba2-1.3b",
+                                  "moonshot-v1-16b-a3b"])
 def test_chunk_step_with_a_tensor_slot_is_bitwise_the_int_slot(arch, slot):
     cfg = configs.get(arch).reduced()
     model = build_model(cfg, device="cpu", seed=0)
@@ -167,7 +172,8 @@ def storage(sched) -> dict:
 
 
 @pytest.mark.parametrize("kv_mode", ["paged", "ring"])
-@pytest.mark.parametrize("arch", ["minicpm-2b", "recurrentgemma-2b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "recurrentgemma-2b", "mamba2-1.3b",
+                                  "moonshot-v1-16b-a3b"])
 def test_state_keeps_its_storage_across_steps_chunks_and_reset(arch, kv_mode):
     cfg = configs.get(arch).reduced()
     model = build_model(cfg, device="cpu", seed=0)
@@ -242,25 +248,28 @@ def test_replay_is_bitwise_the_eager_step(arch, kv_mode, backend, sampling):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["minicpm-2b", "recurrentgemma-2b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "recurrentgemma-2b", "mamba2-1.3b",
+                                  "moonshot-v1-16b-a3b"])
 def test_kernel_counters_advance_on_replay(arch):
     cuda_or_skip()
     backend = "gather" if arch == "mamba2-1.3b" else "paged_kernel"
     cfg, sched = mixed_scheduler(arch, "paged", backend, device="cuda")
     pattern = layer_pattern(cfg) if cfg.family == "hybrid" else ""
+    moe = cfg.family == "moe"
     per_step = {"paged": pattern.count("a") if pattern else
                 (cfg.n_layers if backend == "paged_kernel" else 0),
                 "rglru": pattern.count("r"),
-                "ssd": cfg.n_layers if cfg.family == "ssm" else 0}
-    before = (paged_attention_kernel.launches, rglru_scan_kernel.launches,
-              ssd_scan_kernel.launches)
+                "ssd": cfg.n_layers if cfg.family == "ssm" else 0,
+                "moe_experts": 2 * cfg.n_layers if moe else 0,
+                "moe_router": cfg.n_layers if moe else 0}
+    wrappers = (paged_attention_kernel, rglru_scan_kernel, ssd_scan_kernel,
+                moe_experts_kernel, moe_router_kernel)
+    before = [w.launches for w in wrappers]
     for _ in range(3):
         sched.graphs.replay("decode")
     torch.cuda.synchronize()
-    after = (paged_attention_kernel.launches, rglru_scan_kernel.launches,
-             ssd_scan_kernel.launches)
-    assert [a - b for a, b in zip(after, before)] == \
-        [3 * per_step["paged"], 3 * per_step["rglru"], 3 * per_step["ssd"]]
+    after = [w.launches for w in wrappers]
+    assert [a - b for a, b in zip(after, before)] == [3 * n for n in per_step.values()]
     assert len(sched.graphs.captures) == 2 and sched.graphs.pool_bytes() > 0
 
 

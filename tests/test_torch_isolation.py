@@ -46,7 +46,8 @@ def test_no_source_imports_jax_or_repro():
                  if FORBIDDEN.search(p.read_text())]
     assert offenders == []
     assert sorted(p.name for p in (PKG / "kernels" / "csrc").glob("*.cu")) == \
-        ["flash_attention.cu", "paged_attention.cu", "rglru_scan.cu", "ssd_scan.cu"]
+        ["flash_attention.cu", "moe_experts.cu", "paged_attention.cu", "rglru_scan.cu",
+         "ssd_scan.cu"]
 
 
 def _run_smoke(cwd: Path):

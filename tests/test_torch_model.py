@@ -139,7 +139,7 @@ def _one_slot(tm, n_pages, ps):
 
 
 @pytest.mark.parametrize("arch,window", [("minicpm-2b", None), ("minicpm-2b", 8),
-                                         ("qwen3-14b", None)])
+                                         ("qwen3-14b", None), ("moonshot-v1-16b-a3b", None)])
 def test_decode_is_bitwise_chunked_prefill(arch, window):
     """Within the port, S=1 decode is the chunk path at S=1: the same token
     stream fed as one chunk, mixed chunks or single steps leaves bitwise
@@ -189,17 +189,18 @@ def test_weights_round_trip():
 
 
 def test_unported_families_and_archs_raise():
-    for family in ("moe", "audio"):
+    for family in ("audio", "vlm"):
         cfg = ArchConfig(name="m", family=family, n_layers=1, d_model=8, n_heads=2,
                          n_kv_heads=2, d_ff=8, vocab=16)
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(cfg, device="cpu")
-    for arch in ("moonshot-v1-16b-a3b", "whisper-base"):
+    for arch in ("internvl2-2b", "whisper-base"):
         with pytest.raises(KeyError, match="not ported"):
             configs.get(arch)
     assert set(configs.list_archs()) == {"minicpm-2b", "qwen3-14b", "qwen1.5-110b",
                                          "starcoder2-3b", "recurrentgemma-2b",
-                                         "mamba2-1.3b"}
+                                         "mamba2-1.3b", "moonshot-v1-16b-a3b",
+                                         "qwen3-moe-235b-a22b"}
     for arch in configs.list_archs():
         tcfg, jcfg = configs.get(arch), jconfigs.get(arch)
         assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)

@@ -67,7 +67,8 @@ def staggered(cfg, seed, lengths=(6, 12, 20), max_new=4):
     return prompts, submits
 
 
-@pytest.mark.parametrize("arch,seed", [("minicpm-2b", 0), ("qwen3-14b", 0)])
+@pytest.mark.parametrize("arch,seed", [("minicpm-2b", 0), ("qwen3-14b", 0),
+                                       ("moonshot-v1-16b-a3b", 0)])
 def test_paged_kernel_equals_gather_equals_solo(arch, seed):
     """Prompts spanning 1..3 pages of 8, admitted at different steps and
     prefilled in chunks of 5: the paged-kernel scheduler, the gather
@@ -92,7 +93,17 @@ def test_paged_kernel_equals_gather_equals_solo(arch, seed):
 def test_decode_pool_bytes_equal_chunked_prefill():
     """The KV a request's batched S=1 decode steps wrote into the pool is
     bitwise what one chunked prefill of the same consumed tokens writes."""
-    cfg, model = tiny()
+    _decode_pool_bytes_case("minicpm-2b")
+
+
+def test_decode_pool_bytes_equal_chunked_prefill_moe():
+    """The same for the MoE arch: drop-free routing computes each token's
+    experts (and the router) the same in a decode step as in a chunk."""
+    _decode_pool_bytes_case("moonshot-v1-16b-a3b")
+
+
+def _decode_pool_bytes_case(arch):
+    cfg, model = tiny(arch)
     ps, P, N = 4, 13, 7
     prompt = np.random.default_rng(5).integers(0, cfg.vocab, size=P).astype(np.int32)
     other = np.random.default_rng(6).integers(0, cfg.vocab, size=9).astype(np.int32)
@@ -202,7 +213,7 @@ class ForcedScheduler(DecodeScheduler):
         return out
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen3-14b"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen3-14b", "moonshot-v1-16b-a3b"])
 def test_scheduler_matches_jax_scheduler_teacher_forced(arch):
     jm, jp, tm = jax_and_port(arch)
     prompts, submits = staggered(tm.cfg, 11, lengths=(7, 12, 17), max_new=5)
