@@ -171,10 +171,19 @@ last line is printed):
     of the output's largest magnitude: P from 1 to 24576 pairs, E 4/64/128,
     k 1/2/6/8, (D, F) (64, 32), (2048, 1408) and (4096, 1536), empty experts,
     every pair on one expert, segments that are not a multiple of the
-    tile, segments long enough for the 128-row tile.  Row invariance: rows
-    of the 1536-row and of the 24576-row call (128-row tiles) alone, with
-    their shared rows, bitwise the same rows inside them.  One launch
-    captured in a CUDA graph: its replay bitwise the eager launch.  The
+    tile, segments long enough for the 128-row tile; each case's two
+    launches counted on the route of the library's own plan
+    (``moe_experts_plan``: ``wgmma`` on 64- or 128-row tiles), and that
+    plan (tile rows, ring stages, shared memory, grid) equal to the model in
+    ``kernels/moe_experts/plan.py``.  Row
+    invariance at both tile shapes: rows of the 1536-row call (64-row
+    tiles) and of the 24576-row call (128-row tiles) alone (1-row calls on
+    64-row tiles), with their shared rows, bitwise the same rows inside
+    them.  One launch captured in a CUDA graph: its replay bitwise the
+    eager launch.  The ``ptxas`` report of the kernel's six instances is
+    printed, and fails on a wgmma that ``ptxas`` serialised (C7515, C7517,
+    C7518); the work items per SM at each timed shape (``plan.py``'s item
+    map over the offsets) are printed.  The
     router kernel against the fp64 product within 1e-5 of the largest
     logit, a row alone bitwise the same row in the call.  Timed at
     moonshot's P = 48 (decode, 8 slots), 1536 (a 256-token chunk) and 24576
@@ -193,14 +202,17 @@ last line is printed):
     in chunks of 256 (the last 252), 32 new, 8 slots, page 16.  Checks as
     in phase 3 and exact launch counts: paged = 48 x decode steps,
     moe_experts = 2 x 48 x (decode steps + chunks) (half of them gate/up),
-    router = 48 x (decode steps + chunks), no flash.  Backend agreement as
+    every one on the ``wgmma`` route with 64-row tiles, router = 48 x
+    (decode steps + chunks), no flash.  Backend agreement as
     in phase 4 (traced steps), phase 20's replay checks, and one slot's
     29-token chunk vs 29 S=1 steps: every layer's MoE output on the same
     inputs bitwise (router, routing, both launches, shared expert,
     combine); the whole model printed, as phase 9 does.
 23. The same model from per-slot rings: 4 requests over 4 sessions, prompt
     4096, 16 new, 4 slots.  flash = 48 x admissions, all on the tensor-core
-    route; moe_experts = 2 x 48 x (admissions + decode steps); no paged,
+    route; moe_experts = 2 x 48 x (admissions + decode steps), every
+    launch on the ``wgmma`` route, each admission's on 128-row tiles and
+    each decode step's on 64-row tiles; no paged,
     RG-LRU or SSD launch; peak memory printed.  Ring prefill vs paged
     chunked prefill logits within 5%, as in phase 18.
 
@@ -232,8 +244,10 @@ import bisect
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -294,8 +308,6 @@ def release() -> None:
     """Free what the last phase left: its schedulers, frontends and graphs
     hold reference cycles (a model among them), which only the cyclic
     collector frees, and then the allocator's cache."""
-    import gc
-
     import torch
 
     gc.collect()
@@ -648,6 +660,7 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
         flash_attention_kernel.launches_by_route, 0)
     moe_experts_kernel.launches = 0
     moe_experts_kernel.launches_by_mode = dict.fromkeys(moe_experts_kernel.launches_by_mode, 0)
+    moe_experts_kernel.launches_by_route = dict.fromkeys(moe_experts_kernel.launches_by_route, 0)
     moe_router_kernel.launches = 0
     t0 = time.perf_counter()
     cloud.run()
@@ -662,6 +675,7 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
               "flash_tensor_core": flash_attention_kernel.launches_by_route["tensor_core"],
               "moe_experts": moe_experts_kernel.launches,
               "moe_experts_swiglu": moe_experts_kernel.launches_by_mode["swiglu"],
+              **{f"moe_experts_{r}": n for r, n in moe_experts_kernel.launches_by_route.items()},
               "moe_router": moe_router_kernel.launches,
               "steps": sched.steps, "chunks": sched.prefill_chunks,
               "admitted": sched.admitted, "pages": sched.allocator.n_pages}
@@ -2149,24 +2163,39 @@ def phase_moe_cases(fails: Failures, seed: int) -> None:
     the fp32 product."""
     import torch
 
-    from repro_torch.kernels.moe_experts import (expert_ffn, moe_experts_kernel,
-                                                 moe_router_kernel, moe_router_plain)
+    from repro_torch.kernels.moe_experts import (expert_ffn, library_plan, moe_experts_kernel,
+                                                 moe_router_kernel, moe_router_plain, plan)
+    from repro_torch.kernels.moe_experts.kernel import ROUTES
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     tol = TOL["bfloat16"]
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    routes_seen = set()
     for T, E, k, D, F, kind, shared in MOE_CASES:
         x, xs, offsets, experts, sh = moe_inputs(gen, T, E, k, D, F, kind, shared)
+        P, R = T * k, (T if shared else 0)
+        plans = {(mode, n0, n1): library_plan(mode, P, E, n0, R, n1)
+                 for mode, n0, n1 in (("swiglu", F, 2 * F), ("plain", D, D))}
+        mirror = {key: plan.make_plan(key[0], P, E, key[1], R, key[2], n_sms) for key in plans}
+        fails.check(plans == mirror, f"moe_experts plan [P={P} E={E}]: the library's "
+                    f"{list(plans.values())} == plan.py's")
+        route = f"wgmma_bm{plans[('swiglu', F, 2 * F)].bm}"
         before = moe_experts_kernel.launches
+        by_route = dict(moe_experts_kernel.launches_by_route)
         got = expert_ffn("swiglu", xs, offsets, experts, None if sh is None else (x, sh))
         want = moe_plain_layer(x, xs, offsets, experts, sh)
         sync()
         err, scale = moe_rel_err(got, want)
         hit = int((offsets[1:] > offsets[:-1]).sum())
+        took = {r: n - by_route[r] for r, n in moe_experts_kernel.launches_by_route.items()
+                if n != by_route[r]}
         fails.check(moe_experts_kernel.launches == before + 2 and err <= tol * scale
+                    and took == {route: 2}
                     and all(torch.isfinite(g.float()).all().item() for g in got if g is not None),
-                    f"moe_experts vs plain [T={T} E={E} k={k} P={T * k} D={D} F={F} {kind}, "
-                    f"{hit} experts hit, shared {shared}]: 2 launches, max err {err:.3g} <= "
-                    f"{tol} x {scale:.4g}")
+                    f"moe_experts vs plain [T={T} E={E} k={k} P={P} D={D} F={F} {kind}, "
+                    f"{hit} experts hit, shared {shared}]: 2 launches on {route} ({took}), max "
+                    f"err {err:.3g} <= {tol} x {scale:.4g}")
+        routes_seen.update(took)
         if D == 2048 and T in (CHUNK, 4096):
             # row invariance: a row alone (and its token's shared row) bitwise
             # the same row inside the 1536-row call, and inside the
@@ -2182,8 +2211,8 @@ def phase_moe_cases(fails: Failures, seed: int) -> None:
                                      (x[t:t + 1].contiguous(), sh))
                 same &= torch.equal(ys[0], got[0][r]) and torch.equal(y_s[0], got[1][t])
             fails.check(same, f"moe_experts row invariance: rows 0, 777, {T * k - 1} alone "
-                        "(1-row calls, with their shared rows) bitwise the same rows of the "
-                        f"{T * k}-row call")
+                        "(1-row calls on 64-row tiles, with their shared rows) bitwise the same "
+                        f"rows of the {T * k}-row call ({route})")
         if (T, D) == (CHUNK, 2048):
             # one launch captured in a CUDA graph, replayed: bitwise the eager launch
             eager, _ = moe_experts_kernel("swiglu", xs, offsets, experts["w_gate"],
@@ -2194,6 +2223,7 @@ def phase_moe_cases(fails: Failures, seed: int) -> None:
                 moe_experts_kernel("swiglu", xs, offsets, experts["w_gate"], experts["w_up"])
             torch.cuda.current_stream().wait_stream(stream)
             graph = torch.cuda.CUDAGraph()
+            gc.collect()    # no garbage CUDAGraph freed (and destroyed) mid-capture
             with torch.cuda.graph(graph):
                 captured, _ = moe_experts_kernel("swiglu", xs, offsets, experts["w_gate"],
                                                  experts["w_up"])
@@ -2205,6 +2235,9 @@ def phase_moe_cases(fails: Failures, seed: int) -> None:
                         "eager launch")
         del x, xs, offsets, experts, sh, got, want
         torch.cuda.empty_cache()
+    fails.check(routes_seen == set(ROUTES),
+                f"moe_experts cases ran every route the kernel has: {sorted(routes_seen)}")
+    print(f"  launches by route: {moe_experts_kernel.launches_by_route}")
     # the router: fp32 within 1e-5 of the largest logit, row-invariant
     for T, D, E in ((1, 64, 4), (8, 2048, 64), (CHUNK, 2048, 64), (4096, 2048, 64),
                     (37, 4096, 128)):
@@ -2233,6 +2266,50 @@ def moe_bound(T: int, P: int, hit: int, D: int, F: int, shared: bool):
         nbytes += 3 * D * 2 * F * 2 + 2 * T * D * 2 + 2 * T * 2 * F * 2
         ops += 6 * T * D * 2 * F
     return nbytes, ops
+
+
+def moe_schedule(offsets, P: int, E: int, D: int, F: int, T: int) -> None:
+    """Prints the two launches' schedules: the library's plan (tile rows,
+    ring, shared memory, grid) and the work items of gate/up (N = F, shared
+    2F) and of down (N = D) per SM, as ``kernels/moe_experts/plan.py``'s
+    item map counts them over these offsets (the kernel's own list stays on
+    the device)."""
+    from repro_torch.kernels.moe_experts import library_plan, plan
+
+    offs = offsets.tolist()
+    for label, mode, n0, n1 in (("gate/up", "swiglu", F, 2 * F), ("down", "plain", D, D)):
+        pl = library_plan(mode, P, E, n0, T, n1)
+        n = len(plan.items(offs, P, n0, T, n1, bm=pl.bm))
+        per = plan.items_per_block(n, pl.grid)
+        print(f"  moe_experts {label} schedule: wgmma_bm{pl.bm}, {pl.stages}-stage ring, "
+              f"{pl.smem} B shared memory, {pl.grid} blocks (one an SM); plan.py's item map: "
+              f"{n} work items, {n / pl.grid:.2f} per SM ({min(per)}-{max(per)})")
+
+
+def ptxas_report(fails: Failures, src: str, kernel: str, instances: int) -> None:
+    """Prints ``ptxas -v``'s registers, spills and warnings for each instance of
+    ``kernel`` in the build of ``src``; fails unless all ``instances`` are in
+    the build's log and none has a wgmma serialised by ``ptxas`` (C7515,
+    C7517 or C7518: a wait after each wgmma)."""
+    from repro_torch.kernels import build
+
+    name, seen, serialised = None, set(), []
+    for line in build.build_log(src).splitlines():
+        serial = re.search(r"\(C75(15|17|18)\)", line)
+        if "Compiling entry" in line:
+            m = re.search(rf"{kernel}ILi(\d)ELi(\d)E", line)
+            name = m and f"{kernel}<mode {m.group(1)}, {m.group(2)} consumer warpgroup(s)>"
+            if name:
+                seen.add(name)
+        elif serial or (kernel in line and ("Performance Loss" in line or "injected" in line)):
+            print(f"  ptxas warning: {line.strip()}")
+            if serial:
+                serialised.append(line.strip())
+        elif name and ("Used" in line or "spill" in line):
+            print(f"  ptxas {name}: {line.strip().replace('ptxas info    : ', '')}")
+    fails.check(len(seen) == instances and not serialised,
+                f"ptxas report of {src}.cu: {len(seen)} of {instances} instances of {kernel}, "
+                f"{len(serialised)} with a wgmma serialised (C7515/C7517/C7518)")
 
 
 def grouped_mm_layer(x, xs, offsets, experts, sh):
@@ -2265,18 +2342,23 @@ def phase_moe_timing(fails: Failures, seed: int, T: int, label: str) -> list:
     every launch streams its experts from HBM."""
     import torch
 
-    from repro_torch.kernels.moe_experts import expert_ffn, moe_router_kernel
+    from repro_torch.kernels.moe_experts import expert_ffn, moe_experts_kernel, moe_router_kernel
 
     E, k, D, F = 64, 6, 2048, 1408
     gen = torch.Generator(device="cuda").manual_seed(seed + T)
     x, xs, offsets, experts, sh = moe_inputs(gen, T, E, k, D, F, "random", True)
     P = T * k
     hit = int((offsets[1:] > offsets[:-1]).sum())
+    by_route = dict(moe_experts_kernel.launches_by_route)
     got = expert_ffn("swiglu", xs, offsets, experts, (x, sh))
+    tile_route = "+".join(r for r, n in moe_experts_kernel.launches_by_route.items()
+                          if n != by_route[r])
     want = moe_plain_layer(x, xs, offsets, experts, sh)
     err, scale = moe_rel_err(got, want)
     fails.check(err <= TOL["bfloat16"] * scale,
-                f"moe_experts at {label} (P={P}): max err {err:.3g} <= 3e-2 x {scale:.4g}")
+                f"moe_experts at {label} (P={P}) on {tile_route}: max err {err:.3g} <= 3e-2 x "
+                f"{scale:.4g}")
+    moe_schedule(offsets, P, E, D, F, T)
     iters = 20 if P <= 2048 else 10
     ms = cuda_time_ms(lambda i: expert_ffn("swiglu", xs, offsets, experts, (x, sh)), iters)
     plain_ms = cuda_time_ms(lambda i: moe_plain_layer(x, xs, offsets, experts, sh), 5,
@@ -2308,7 +2390,8 @@ def phase_moe_timing(fails: Failures, seed: int, T: int, label: str) -> list:
               "replaces": "src/repro/models/moe.py:53 (_dispatch_ffn einsums; no Pallas kernel)",
               "shape": f"moonshot {label}: one layer's 2 launches, P={P} pairs ({T} tokens "
                        f"x top-{k}), {hit} experts hit, D={D} F={F}, shared 2F, bf16",
-              "launches": None, "experts_hit": hit, "max_abs_err": err, "ms": ms,
+              "launches": None, "tile_route": tile_route, "experts_hit": hit,
+              "max_abs_err": err, "ms": ms,
               "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
               "library_ms": library_ms}
@@ -2643,6 +2726,7 @@ def main() -> int:
     mcfg = configs.get(MOE)
     mm = mcfg.moe
     print("[21] grouped expert kernel and router kernel vs their plain versions")
+    ptxas_report(fails, "moe_experts", "moe_experts_kernel", 6)
     phase_moe_cases(fails, args.seed)
     print(f"[21] kernels at {MOE}'s shapes (CUDA events)")
     moe_records = []
@@ -2686,6 +2770,10 @@ def main() -> int:
                 f"moe_experts launches {mcounts['moe_experts']} == 2 x {L} layers x ({steps} "
                 f"decode steps + {chunks} chunks), half of them gate/up "
                 f"({mcounts['moe_experts_swiglu']}); router launches {mcounts['moe_router']}")
+    fails.check(mcounts["moe_experts_wgmma_bm64"] == mcounts["moe_experts"],
+                f"every moe_experts launch of paged serving on the wgmma route with 64-row "
+                f"tiles: {mcounts['moe_experts_wgmma_bm64']} of {mcounts['moe_experts']} "
+                f"({mcounts['moe_experts_wgmma_bm128']} on 128-row tiles)")
     fails.check(chunks == M_REQUESTS * -(-M_PROMPT // CHUNK),
                 f"{chunks} prefill chunks == {M_REQUESTS} x ceil({M_PROMPT}/{CHUNK})")
     fails.check(mcounts["flash_attention"] == 0 and mcounts["rglru_scan"] == 0
@@ -2720,6 +2808,12 @@ def main() -> int:
                 and rcounts["moe_router"] == L * (adm + steps),
                 f"moe_experts launches {rcounts['moe_experts']} == 2 x {L} layers x ({adm} "
                 f"admissions + {steps} decode steps); router {rcounts['moe_router']}")
+    fails.check(rcounts["moe_experts_wgmma_bm128"] == 2 * L * adm
+                and rcounts["moe_experts_wgmma_bm64"] == 2 * L * steps,
+                f"every moe_experts launch of ring serving on the wgmma route: "
+                f"{rcounts['moe_experts_wgmma_bm128']} on 128-row tiles == 2 x {L} x {adm} "
+                f"admissions, {rcounts['moe_experts_wgmma_bm64']} on 64-row tiles == 2 x {L} x "
+                f"{steps} decode steps")
     fails.check(rcounts["paged_attention"] == 0 and rcounts["rglru_scan"] == 0
                 and rcounts["ssd_scan"] == 0 and rcounts["chunks"] == 0,
                 "no paged, RG-LRU or SSD launch and no prefill chunk in ring mode")

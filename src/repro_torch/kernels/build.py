@@ -6,12 +6,13 @@ a shared library with a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <build>/<name>.<hash>.so csrc/<name>.cu
 
-The library's file name carries a hash of the source, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  Builds go to
-``build/repro_torch_kernels/`` at the repository root (``REPO/build`` is
-ignored by git).  A missing ``nvcc`` or a failed compile raises; there is no
-fallback.  ``ptxas``'s register and shared-memory report is kept beside each
-library as ``<name>.<hash>.log``.
+The library's file name carries a hash of the source and of every header
+under ``csrc/`` (``*.cuh``, ``*.h``; a source may include any of them), so
+an edited source or header is rebuilt and an unchanged one is loaded as it
+is.  Builds go to ``build/repro_torch_kernels/`` at the repository root
+(``REPO/build`` is ignored by git).  A missing ``nvcc`` or a failed compile
+raises; there is no fallback.  ``ptxas``'s register and shared-memory report
+is kept beside each library as ``<name>.<hash>.log``.
 """
 
 from __future__ import annotations
@@ -50,10 +51,18 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def headers() -> Tuple[Path, ...]:
+    """Every header under ``csrc/``, in a fixed order."""
+    return tuple(sorted(p for pat in ("*.cuh", "*.h") for p in CSRC.glob(pat)))
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}.{digest}.so"
+    """``<build>/<name>.<hash>.so``: the hash covers the source and every
+    header under ``csrc/`` (names and contents)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in headers():
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    return BUILD_DIR / f"{name}.{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -11,9 +11,10 @@ that row) and sized from shapes alone, so a CUDA graph can hold them.
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version (:mod:`.ref`), CUDA tensors launch the kernel or raise.
 ``moe_experts_kernel.launches`` counts launches (``launches_by_mode`` per
-epilogue mode) and ``moe_router_kernel.launches`` the router's, never
-plain-version calls; a CUDA graph's replay adds the launches it holds
-(``serve/graphs.py``).
+epilogue mode, ``launches_by_route`` per route: every launch is ``wgmma``,
+on tiles of the rows the library's own plan picks, :func:`library_plan`)
+and ``moe_router_kernel.launches`` the router's, never plain-version calls;
+a CUDA graph's replay adds the launches it holds (``serve/graphs.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +24,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import plan
 from .ref import MODES, moe_experts_plain, moe_router_plain
+
+ROUTES = ("wgmma_bm64", "wgmma_bm128")      # wgmma on tiles of 64 or 128 rows
 
 _lib = None
 
@@ -38,6 +42,8 @@ def _library() -> ctypes.CDLL:
         lib.moe_experts_launch.argtypes = [i, p, p, i, i, p, p, p, i, i,
                                            p, i, p, p, p, i, i, p]
         lib.moe_experts_launch.restype = i
+        lib.moe_experts_plan.argtypes = [i, i, i, i, i, i, p]
+        lib.moe_experts_plan.restype = i
         lib.moe_router_launch.argtypes = [p, p, p, i, i, i, p]
         lib.moe_router_launch.restype = i
         lib.moe_experts_error_string.argtypes = [i]
@@ -125,6 +131,7 @@ def moe_experts_kernel(mode: str, x: torch.Tensor, offsets: torch.Tensor, w1: to
 
     lib = _library()
     with torch.cuda.device(x.device):
+        tile_rows = library_plan(mode, P, E, N, R, Ns).bm
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.moe_experts_launch(MODES.index(mode), x.data_ptr(), offsets.data_ptr(), P, E,
                                      w1.data_ptr(), ptr(w2), out.data_ptr(), K, N,
@@ -136,11 +143,27 @@ def moe_experts_kernel(mode: str, x: torch.Tensor, offsets: torch.Tensor, w1: to
                            f"w1 {tuple(w1.shape)}: {msg} ({err})")
     moe_experts_kernel.launches += 1
     moe_experts_kernel.launches_by_mode[mode] += 1
+    moe_experts_kernel.launches_by_route[f"wgmma_bm{tile_rows}"] += 1
     return out, out_s
 
 
 moe_experts_kernel.launches = 0
 moe_experts_kernel.launches_by_mode = dict.fromkeys(MODES, 0)
+moe_experts_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def library_plan(mode: str, rows0: int, n_exp: int, N0: int, rows1: int = 0,
+                 N1: int = 0) -> plan.Plan:
+    """The plan ``moe_experts_launch`` makes for these shapes on the current
+    CUDA device (``moe_experts_plan``: the tile rows, ring stages, shared
+    memory and grid), the one rule for all of them; :func:`.plan.make_plan`
+    models it for the CPU tests."""
+    out = (ctypes.c_int * 5)()
+    err = _library().moe_experts_plan(MODES.index(mode), rows0, n_exp, N0, rows1, N1, out)
+    if err != 0:
+        raise ValueError(f"moe_experts_plan refused mode {mode!r}, rows {rows0}, {n_exp} "
+                         f"experts ({err})")
+    return plan.Plan(*out)
 
 
 def moe_router_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,7 @@ pool holds.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Hashable, List, Tuple
 
@@ -102,10 +103,18 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         before = _launch_counts()
+        # A CUDAGraph that the cycle collector frees while this capture runs
+        # (an earlier scheduler's) would destroy its graph mid-capture, which
+        # invalidates the capture: collect now, and not again until it ends.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
                 out = fn()
         finally:
+            if collecting:
+                gc.enable()
             torch.cuda.set_stream(main)     # also when a failed capture skipped it
             after = _launch_counts()
             delta = {k: n - before.get(k, 0) for k, n in after.items()

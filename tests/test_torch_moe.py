@@ -21,6 +21,7 @@ card (which has no JAX) it runs alone with ``pytest -m gpu``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -328,42 +329,104 @@ def test_model_builds_and_mesh_paths_raise():
                      mesh=object())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["swiglu", "gelu", "plain"])
-def test_cuda_kernel_matches_plain_version(mode):
-    """On the card: the grouped kernel against its plain version (bf16
-    3e-2), empty experts and segments that are not a multiple of the tile,
-    a row alone bitwise the same row inside the call, and the router kernel
-    within 1e-5 of the fp32 product."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    gen = torch.Generator().manual_seed(3)
-    E, K, N = 8, 256, 96
-    lens = [70, 0, 1, 129, 0, 64, 3, 40]
+def _cuda_case(mode, gen, lens, K, N, shared_rows):
+    """Routed rows in expert order with segments ``lens``, weights (E, K,
+    N) and a shared expert (K, 2N) over ``shared_rows`` rows, on the card."""
+    E = len(lens)
     offsets = torch.tensor(np.concatenate([[0], np.cumsum(lens)]), dtype=torch.int32).cuda()
     x = torch.randn(sum(lens), K, generator=gen).bfloat16().cuda()
     w1 = (torch.randn(E, K, N, generator=gen) / 16).bfloat16().cuda()
     w2 = ((torch.randn(E, K, N, generator=gen) / 16).bfloat16().cuda()
           if mode == "swiglu" else None)
-    shared = (torch.randn(5, K, generator=gen).bfloat16().cuda(),
+    shared = (torch.randn(shared_rows, K, generator=gen).bfloat16().cuda(),
               (torch.randn(K, 2 * N, generator=gen) / 16).bfloat16().cuda(),
               (torch.randn(K, 2 * N, generator=gen) / 16).bfloat16().cuda()
               if mode == "swiglu" else None)
-    before = moe_experts_kernel.launches
-    got, got_s = moe_experts_kernel(mode, x, offsets, w1, w2, shared)
-    want, want_s = moe_experts_plain(mode, x, offsets, w1, w2, shared)
-    torch.cuda.synchronize()
-    assert moe_experts_kernel.launches == before + 1
-    assert (got.float() - want.float()).abs().max().item() <= 3e-2
-    assert (got_s.float() - want_s.float()).abs().max().item() <= 3e-2
-    r = int(offsets[3]) + 77
-    e_off = torch.zeros(E + 1, dtype=torch.int32)
-    e_off[4:] = 1
-    one, _ = moe_experts_kernel(mode, x[r:r + 1].contiguous(), e_off.cuda(), w1, w2)
-    assert torch.equal(one[0], got[r])
+    return offsets, x, w1, w2, shared
+
+
+# segment lengths of the two tile shapes the kernel picks: 64-row tiles
+# (segments average under 128 rows) and 128-row tiles
+TILE_CASES = {64: [70, 0, 1, 129, 0, 64, 3, 40], 128: [300, 0, 129, 200]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["swiglu", "gelu", "plain"])
+def test_cuda_kernel_matches_plain_version(mode):
+    """On the card: the grouped kernel against its plain version (bf16
+    3e-2), empty experts and segments that are not a multiple of the tile,
+    at both tile shapes (64 and 128 rows, counted per route); rows alone
+    (1-row calls on 64-row tiles, the shared rows too) bitwise the same rows
+    inside both calls; and the router kernel within 1e-5 of the fp32
+    product."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.moe_experts import library_plan
+
+    gen = torch.Generator().manual_seed(3)
+    K, N = 256, 96
+    for bm, lens in TILE_CASES.items():
+        E = len(lens)
+        offsets, x, w1, w2, shared = _cuda_case(mode, gen, lens, K, N, 5)
+        assert library_plan(mode, x.shape[0], E, N, 5, 2 * N).bm == bm
+        before = moe_experts_kernel.launches
+        route = dict(moe_experts_kernel.launches_by_route)
+        got, got_s = moe_experts_kernel(mode, x, offsets, w1, w2, shared)
+        want, want_s = moe_experts_plain(mode, x, offsets, w1, w2, shared)
+        torch.cuda.synchronize()
+        assert moe_experts_kernel.launches == before + 1
+        assert moe_experts_kernel.launches_by_route[f"wgmma_bm{bm}"] == \
+            route[f"wgmma_bm{bm}"] + 1
+        assert (got.float() - want.float()).abs().max().item() <= 3e-2
+        assert (got_s.float() - want_s.float()).abs().max().item() <= 3e-2
+        bounds = np.concatenate([[0], np.cumsum(lens)])
+        for r in (0, int(bounds[3]) + 77, int(bounds[-1]) - 1, int(bounds[2]) + 63):
+            e = int(np.searchsorted(bounds, r, side="right")) - 1
+            e_off = torch.zeros(E + 1, dtype=torch.int32)
+            e_off[e + 1:] = 1
+            t = r % 5
+            on64 = moe_experts_kernel.launches_by_route["wgmma_bm64"]
+            one, one_s = moe_experts_kernel(mode, x[r:r + 1].contiguous(), e_off.cuda(), w1, w2,
+                                            (shared[0][t:t + 1].contiguous(), *shared[1:]))
+            assert moe_experts_kernel.launches_by_route["wgmma_bm64"] == on64 + 1
+            assert torch.equal(one[0], got[r]) and torch.equal(one_s[0], got_s[t]), (bm, r)
     xr = torch.randn(40, K, generator=gen).bfloat16().cuda()
     wr = torch.randn(K, 64, generator=gen).cuda()
     lr = moe_router_kernel(xr, wr)
     ref = (xr.double() @ wr.double())
     assert (lr.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
     assert torch.equal(moe_router_kernel(xr[7:8].contiguous(), wr)[0], lr[7])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bm", sorted(TILE_CASES))
+def test_cuda_kernel_replays_bitwise_from_a_graph(bm):
+    """A launch captured in a CUDA graph (tensor maps by value, grid from
+    shapes alone) replays bitwise the eager launch, and again after the
+    inputs change in place (the graph reads the captured addresses)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(5)
+    offsets, x, w1, w2, shared = _cuda_case("swiglu", gen, TILE_CASES[bm], 256, 96, 5)
+    eager, eager_s = moe_experts_kernel("swiglu", x, offsets, w1, w2, shared)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        moe_experts_kernel("swiglu", x, offsets, w1, w2, shared)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = moe_experts_kernel.launches
+    gc.collect()        # no garbage CUDAGraph freed (and destroyed) mid-capture
+    with torch.cuda.graph(graph):
+        out, out_s = moe_experts_kernel("swiglu", x, offsets, w1, w2, shared)
+    out.zero_()
+    out_s.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager) and torch.equal(out_s, eager_s)
+    x.copy_(x.flip(0))
+    graph.replay()
+    again, again_s = moe_experts_kernel("swiglu", x, offsets, w1, w2, shared)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(out_s, again_s)
+    assert moe_experts_kernel.launches == before + 2      # the capture and the eager call
