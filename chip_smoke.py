@@ -216,10 +216,54 @@ last line is printed):
     RG-LRU or SSD launch; peak memory printed.  Ring prefill vs paged
     chunked prefill logits within 5%, as in phase 18.
 
+24. Storage-backed preemption, copy-on-write prefix sharing and session
+    parking on phase 3's ``minicpm-2b`` (``paged_kernel``, 8 slots, page
+    16, chunk 256), each sub-run served through ``ServingFrontend`` and a
+    scheduler that audits after every step:
+    (a) 16 requests over 8 sessions, prompt 512, 32 new, a pool of 136
+    pages (4 slots' worst case), ``offload=True``,
+    ``idle_preempt_steps=8``: at least one preemption, as many restores,
+    every blob leaf on the host, every request's tokens bitwise the
+    unpressured run's (default pool, offload off).  (b) 16 requests over
+    8 sessions, each a shared 384-token system prompt and 128 unique
+    tokens, ``prefix_sharing=True``: at least 8 index hits, 384 shared
+    tokens per hit, every indexed page bitwise as published at the end.
+    (c) 8 sessions x 3 turns (512 tokens, then 64 more user tokens a
+    turn), ``park_sessions=True`` on a pool that holds every journal: 16
+    park hits, at least 16 copy-on-write splits (each reused span ends
+    inside a page), the parked pages and rows bitwise at every unpark;
+    (c') the same on a pool of 8 first-turn journals + 16 pages: journals
+    offload, and every park-blob restore writes back the pages parked,
+    bitwise.  (b), (c) and (c') run teacher-forced on their feature-off
+    run's token stream: logits within 5% of the logit scale (phase 4's
+    check), the token streams they would have produced unforced counted.
+    Every sub-run: paged launches exactly 40 x decode steps, one
+    decode-graph capture, and the decode replay right after a restore, a
+    copy-on-write split, an unpark, a park-blob restore and an index hit
+    bitwise the eager step on a copy of the state (the scratch page aside:
+    unmapped rows write there in no fixed order, and nothing reads it).
+    Printed: ms and GB/s
+    per gather to the host (preemptions and journal offloads) and per
+    restore chunk, bytes offloaded, prefill tokens saved, TPOT and decode
+    tok/s beside phase 3's, peak memory, and one blob's gather and host
+    copy four ways (fresh, reused and given pinned memory, pageable).
+25. Session parking and forced preemption on phase 6's
+    ``recurrentgemma-2b`` (before phase 19): 8 sessions x 2 turns (prompt
+    2300, then 64 more user tokens), 16 new, on 4 slots so that parked
+    slots are evicted and their rows reinstalled elsewhere,
+    ``park_sessions=True`` and ``offload=True``, and one preemption forced
+    mid-decode with ``sched.preempt(i)`` in each turn.  The preempted
+    requests' tokens bitwise the unpreempted run's; the ``h``, ``conv``
+    and ``length`` rows of every evicted slot's host snapshot, and of every
+    unpark (in place or reinstalled), bitwise the rows parked; paged
+    launches exactly 8 x decode steps and RG-LRU exactly 18 x (decode
+    steps + chunks); the replay checks as in phase 24.  Both phases print
+    their wall time.
+
 On the card the scheduler replays a CUDA graph for every decode step and
-every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19, 22
-and 23 serve on graphs; their exact launch counts are counted through replays
-(each replay adds the launches its capture recorded).  Phases 4, 8, 13, 17
+every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19,
+22, 23, 24 and 25 serve on graphs; their exact launch counts are counted
+through replays (each replay adds the launches its capture recorded).  Phases 4, 8, 13, 17
 and 22 trace steps with ``torch.profiler`` (wall time with the profiler on,
 device busy time, idle share, kernels the device ran, launch calls the
 host made, and the heaviest kernels): each traces its scheduler's eager
@@ -650,18 +694,7 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
     sync()
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    paged_attention_kernel.launches = 0
-    rglru_scan_kernel.launches = 0
-    rglru_scan_kernel.launches_by_kernel = dict.fromkeys(rglru_scan_kernel.launches_by_kernel, 0)
-    ssd_scan_kernel.launches = 0
-    ssd_scan_kernel.launches_by_route = dict.fromkeys(ssd_scan_kernel.launches_by_route, 0)
-    flash_attention_kernel.launches = 0
-    flash_attention_kernel.launches_by_route = dict.fromkeys(
-        flash_attention_kernel.launches_by_route, 0)
-    moe_experts_kernel.launches = 0
-    moe_experts_kernel.launches_by_mode = dict.fromkeys(moe_experts_kernel.launches_by_mode, 0)
-    moe_experts_kernel.launches_by_route = dict.fromkeys(moe_experts_kernel.launches_by_route, 0)
-    moe_router_kernel.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     cloud.run()
     sync()
@@ -713,6 +746,8 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
           f"KV {kv_mode} {st['kv_pool_bytes'] / 2**30:.3f} GiB "
           f"({st['kv_bytes_per_token']} B/token, {pool})")
     print(f"  kernel launches: {counts}")
+    counts["tpot_ms"] = 1e3 * timed.decode_s / max(timed.decode_only_steps, 1)
+    counts["decode_tok_s"] = timed.decode_only_tokens / max(timed.decode_s, 1e-9)
     if then is not None:
         then(sched)
     return counts
@@ -2484,6 +2519,697 @@ def phase_moe_parity(fails: Failures, model, cfg, seed: int) -> None:
           f"max |delta| {lg:.4g} (|logits| up to {lw.float().abs().max().item():.4g})")
 
 
+# -- phases 24-25: storage-backed preemption, prefix sharing, session parking -----------
+
+
+P24_REQUESTS, P24_SESSIONS, P24_PROMPT, P24_MAX_NEW = 16, 8, 512, 32
+P24_IDLE = 8                       # (a): idle_preempt_steps
+P24_SYS, P24_UNIQUE = 384, 128     # (b): a shared system prompt + unique tokens
+P24_TURNS, P24_TURN_TOKENS = 3, 64  # (c): turns per session, user tokens per turn
+P24_SMALL_POOL_SPARE = 16          # (c'): pages past 8 parked first-turn journals
+P25_SESSIONS, P25_TURNS, P25_PROMPT, P25_MAX_NEW = 8, 2, 2300, 16
+P25_TURN_TOKENS, P25_SLOTS = 64, 4  # fewer slots than sessions: parked slots get evicted
+P25_PREEMPT_AFTER = 4              # a forced preemption takes a slot this many tokens in
+
+_CHECKED = None
+
+
+def checked_scheduler():
+    """``DecodeScheduler`` instrumented for phases 24-25 (defined on first
+    use: the port is imported only once a card is known to be there).
+
+    - ``audit()`` after every ``step()``; each failure is kept.
+    - Step times on the host clock, synchronized, without the audit and the
+      checks below (as ``TimedScheduler`` splits them: steps that prefilled
+      vs decode-only steps).
+    - Every sampling's logits kept on the card, by (request, token index):
+      the decode graph copies its logits into a static buffer.  With
+      ``forced`` (request -> tokens) every token is taken from that stream
+      instead of sampled, on the card inside the graph (teacher forcing).
+    - After a restore completes, a copy-on-write split, an unpark and an
+      index hit, the next decode replay is checked against the eager step on
+      a copy of the state (every cache leaf, the token buffers, the logits,
+      bitwise); the eager step's launches are taken back from the counts.
+    - ``_extract`` (gather + copy to the host: preemptions, journal
+      offloads) and each restore chunk timed; every blob leaf's device kept.
+    - Parked and published pages, and parked rows, snapshotted on the card
+      and held bitwise when they come back: published pages at the end
+      (``index_unchanged``), parked pages and rows at the unpark, a
+      park-blob restore's pages against the pages parked, an evicted
+      slot's host snapshot and its reinstall against the rows parked.
+    - ``preempt_budget`` forced preemptions: each takes the first ACTIVE
+      slot ``P25_PREEMPT_AFTER`` tokens into its request.
+    """
+    global _CHECKED
+    if _CHECKED is not None:
+        return _CHECKED
+    import numpy as np
+    import torch
+
+    from repro_torch.models import kvcache
+    from repro_torch.serve.graphs import _add, _launch_counts
+    from repro_torch.serve.lifecycle import SlotState
+    from repro_torch.serve.scheduler import DecodeScheduler
+
+    def equal(a, b) -> bool:
+        return a.shape == b.shape and torch.equal(a.to(b.device), b)
+
+    class CheckedScheduler(DecodeScheduler):
+        def __init__(self, model, *, forced=None, **kw):
+            super().__init__(model, **kw)
+            self.forced = forced
+            vocab = model.cfg.padded_vocab
+            self._logit_buf = torch.zeros((self.n_slots, vocab), dtype=torch.float32,
+                                          device=self.device)
+            self._force_buf = torch.zeros((self.n_slots,), dtype=torch.int32,
+                                          device=self.device)
+            self._in_step = False
+            self._act_slot = None
+            self.logits = {}
+            self.audit_errors = []
+            self.pending_checks = set()
+            self.checks = []            # (event, ok, what)
+            self.excluded = 0.0
+            self.chunk_s = self.decode_s = 0.0
+            self.chunk_tokens = self.decode_only_tokens = self.decode_only_steps = 0
+            self.extract_s, self.extract_bytes, self.extracts = 0.0, 0, 0
+            self.restore_s, self.restore_bytes, self.restore_calls = 0.0, 0, 0
+            self.blob_devices = set()
+            self.preempt_budget = 0
+            self.forced_preempts = []   # request ids
+            self.index_snap = {}        # chain hash -> (kp, vp) at publish
+            self.park_snap = {}         # session -> (pages (kp, vp), rows) at park
+            self.unchanged = []         # (what, ok)
+            extract = self._extract
+
+            def timed_extract(cache, ids):
+                sync()
+                t0 = time.perf_counter()
+                blob = extract(cache, ids)
+                sync()
+                self.extract_s += time.perf_counter() - t0
+                self.extract_bytes += kvcache.blob_nbytes(blob)
+                self.extracts += 1
+                self.blob_devices |= {leaf.device.type for leaf in blob.values()}
+                return blob
+            self._extract = timed_extract
+
+        # -- excluded-time helpers --
+        def _timed_out(self, fn):
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            self.excluded += time.perf_counter() - t0
+            return out
+
+        def _pages(self, ids):
+            idx = torch.as_tensor([int(i) for i in ids], device=self.device)
+            return tuple(self.cache[k].index_select(1, idx) for k in ("kp", "vp"))
+
+        # -- sampling: logits kept, tokens optionally forced --
+        def _sample(self, logits):
+            if self._in_step:
+                self._logit_buf.copy_(logits)
+                if self.forced is not None:
+                    return self._force_buf.clone()
+                return super()._sample(logits)
+            slot = self._act_slot
+            rid = slot.req.request_id
+            self.logits[(rid, 0)] = logits[0].float().clone()
+            if self.forced is not None:
+                return torch.tensor([int(self.forced[rid][0])], dtype=torch.int32,
+                                    device=self.device)
+            return super()._sample(logits)
+
+        def _activate(self, slot, logits):
+            self._act_slot = slot
+            try:
+                super()._activate(slot, logits)
+            finally:
+                self._act_slot = None
+
+        def _step_impl(self, *args):
+            self._in_step = True
+            try:
+                super()._step_impl(*args)
+            finally:
+                self._in_step = False
+
+        def _decode(self):
+            rows = [(s.index, s.req.request_id, s.n_out) for s in self.slots if s.decoding]
+            if self.forced is not None:
+                force = np.zeros((self.n_slots,), np.int32)
+                for i, rid, idx in rows:
+                    force[i] = self.forced[rid][idx]
+                self._force_buf.copy_(torch.from_numpy(force))
+            check = (self.pending_checks and self.graphs is not None
+                     and "decode" in self.graphs)
+            if check:
+                start = self._timed_out(lambda: step_state(self))
+            super()._decode()
+            logits = self._logit_buf.clone()
+            if check:
+                self._timed_out(lambda: self._check_replay(start, logits))
+            for i, rid, idx in rows:
+                self.logits[(rid, idx)] = logits[i]
+
+        def _check_replay(self, start, logits):
+            replayed = step_state(self)
+            before = _launch_counts()
+            self._step_impl(*start, self._active)
+            after = _launch_counts()
+            _add({k: n - before.get(k, 0) for k, n in after.items()}, -1)
+            bad = state_diff(replayed, start)
+            # the pool's last page is the scratch page: rows with an unmapped
+            # table (parked, preempted, empty slots) write there, colliding
+            # writes of one launch land in no fixed order, and nothing reads it
+            scratch = []
+            for key in ("kp", "vp"):
+                if f"cache.{key}" in bad:
+                    pages = (replayed[0][key] != start[0][key]).flatten(2).any(-1).any(0)
+                    where = torch.nonzero(pages).flatten().tolist()
+                    if where == [self.n_pages]:
+                        bad.remove(f"cache.{key}")
+                        scratch.append(key)
+            same = torch.equal(logits, self._logit_buf)
+            note = f", the scratch page's {scratch} aside" if scratch else ""
+            for event in sorted(self.pending_checks):
+                self.checks.append((event, not bad and same,
+                                    f"after {event}: decode replay bitwise the eager step "
+                                    f"(logits {'equal' if same else 'DIFFER'}, "
+                                    f"{'every leaf equal' if not bad else f'differ in {bad}'}"
+                                    f"{note})"))
+            self.pending_checks = set()
+
+        # -- events that call for a replay check, and the snapshots --
+        def _run_restore_chunk(self, slot):
+            done0 = self.restored_pages
+            sync()
+            t0 = time.perf_counter()
+            super()._run_restore_chunk(slot)
+            sync()
+            self.restore_s += time.perf_counter() - t0
+            self.restore_calls += 1
+            self.restore_bytes += ((self.restored_pages - done0) * self.page_size
+                                   * kvcache.kv_bytes_per_token(self.cache))
+            if slot.state is SlotState.ACTIVE:
+                self.pending_checks.add("restore")
+
+        def _prepare_write_span(self, slot, pos0, count):
+            cow = self.cow_splits
+            super()._prepare_write_span(slot, pos0, count)
+            if self.cow_splits > cow:
+                self.pending_checks.add("copy-on-write split")
+
+        def _publish_index(self, row, history, hashes=None):
+            had = set(self.prefix_index._pages)
+            super()._publish_index(row, history, hashes)
+
+            def snap():
+                for h, pid in self.prefix_index._pages.items():
+                    if h not in had:
+                        self.index_snap[h] = self._pages([pid])
+            self._timed_out(snap)
+
+        def index_unchanged(self):
+            """Every page still indexed, bitwise as it was published."""
+            bad = [h for h, pid in self.prefix_index._pages.items()
+                   if not all(equal(a, b) for a, b in zip(self._pages([pid]),
+                                                          self.index_snap[h], strict=True))]
+            return len(self.prefix_index), bad
+
+        def _park_slot(self, slot, req, tokens):
+            index = slot.index
+            super()._park_slot(slot, req, tokens)
+            rec = self._parked[req.session]
+
+            def snap():
+                npg = -(-rec.consumed // self.page_size)
+                rows = kvcache.gather_slot_state(self.cache, index)
+                self.park_snap[req.session] = (self._pages(rec.page_row[:npg]), rows)
+            self._timed_out(snap)
+
+        def _evict_parked_slot(self, rec):
+            super()._evict_parked_slot(rec)
+            snap = self.park_snap.get(rec.session)
+            if snap is not None:
+                ok = all(equal(rec.state[k], v) for k, v in snap[1].items())
+                self.unchanged.append((f"evicted parked slot's host snapshot ({rec.session}) "
+                                       "bitwise the rows parked", ok))
+
+        def _admit_paged(self, slot, req, plan):
+            moved = plan.record is not None and plan.record.slot != slot.index
+            super()._admit_paged(slot, req, plan)
+            if plan.kind == "index":
+                self.pending_checks.add("index hit")
+            if plan.kind not in ("park", "park-blob"):
+                return
+            self.pending_checks.add("unpark" if plan.kind == "park" else "park-blob restore")
+            snap = self.park_snap.get(req.session)
+            if snap is None:
+                return
+
+            def compare():
+                pages, rows = snap
+                npg = -(-plan.C // self.page_size)
+                mine = self._pages(self._page_rows[slot.index, :npg])
+                ok = all(equal(a, b[:, :npg]) for a, b in zip(mine, pages, strict=True))
+                if plan.kind == "park-blob":
+                    what = "park-blob restore: the restored pages bitwise the pages parked"
+                else:
+                    theirs = self._pages(plan.record.page_row[:npg])
+                    ok = ok and all(equal(a, b[:, :npg])
+                                    for a, b in zip(theirs, pages, strict=True))
+                    what = ("unpark: the slot's mapped (and copy-on-write) pages and the "
+                            "journal's own pages bitwise the pages parked")
+                self.unchanged.append((what, ok))
+                now = kvcache.gather_slot_state(self.cache, slot.index)
+                rows_ok = all(equal(now[k], v) for k, v in rows.items() if k != "length")
+                rows_ok = rows_ok and int(now["length"][0]) == plan.C
+                how = "reinstalled in another slot" if moved else "kept in the slot"
+                self.unchanged.append((f"unparked rows ({sorted(rows)}, {how}) bitwise the "
+                                       f"rows parked, length set to {plan.C}", rows_ok))
+            self._timed_out(compare)
+
+        def step(self):
+            if self.preempt_budget:
+                victim = next((s for s in self.slots if s.state is SlotState.ACTIVE
+                               and s.pages and s.n_out >= P25_PREEMPT_AFTER), None)
+                if victim is not None:
+                    self.forced_preempts.append(victim.req.request_id)
+                    self.preempt(victim.index)
+                    self.preempt_budget -= 1
+            pf0, dec0 = self.prefill_tokens, self.decode_tokens
+            self.excluded = 0.0
+            sync()
+            t0 = time.perf_counter()
+            out = super().step()
+            sync()
+            dt = time.perf_counter() - t0 - self.excluded
+            if self.prefill_tokens > pf0:
+                self.chunk_s += dt
+                self.chunk_tokens += self.prefill_tokens - pf0
+            elif self.decode_tokens > dec0:
+                self.decode_s += dt
+                self.decode_only_tokens += self.decode_tokens - dec0
+                self.decode_only_steps += 1
+            try:
+                self.audit()
+            except AssertionError as e:
+                self.audit_errors.append(f"step {self.steps}: {e}")
+            return out
+
+    _CHECKED = CheckedScheduler
+    return CheckedScheduler
+
+
+def reset_launch_counts() -> None:
+    """Every kernel wrapper's launch counts to 0."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.moe_experts import moe_experts_kernel, moe_router_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.rglru_scan import rglru_scan_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+
+    for w in (paged_attention_kernel, rglru_scan_kernel, ssd_scan_kernel,
+              flash_attention_kernel, moe_experts_kernel, moe_router_kernel):
+        w.launches = 0
+        for name, val in list(vars(w).items()):
+            if name.startswith("launches_by_"):
+                setattr(w, name, dict.fromkeys(val, 0))
+
+
+def serve_turn(cloud, front, reqs) -> None:
+    """Submit ``reqs`` (each session's in order, on its own FIFO channel, all
+    sessions at once) through the frontend and run the cloud dry."""
+    by_session = {}
+    for r in reqs:
+        by_session.setdefault(r.session, []).append(r)
+
+    def driver(rs):
+        for r in rs:
+            yield from front.submit(r)
+
+    for sess, rs in by_session.items():
+        cloud.spawn(driver(rs), name=f"client:{sess}")
+    cloud.run()
+
+
+def tokens_by_request(front) -> dict:
+    import numpy as np
+
+    return {rid: np.asarray(t) for sess, ids in front.completions.items()
+            for rid, t in zip(ids, front.results[sess], strict=True)}
+
+
+def p24_serve(fails, model, cfg, seed, label, turns, *, slots=SLOTS, max_seq, forced=None,
+              preempts_per_turn=0, **kw):
+    """Serve ``turns`` (each a function of the frontend so far that returns the
+    turn's ``InferenceRequest``s) through ``ServingFrontend`` ->
+    ``CheckedScheduler(attn_backend='paged_kernel')``, turn after turn, and
+    check what every phase 24-25 sub-run must hold.  Returns the scheduler,
+    the frontend and the launch counts."""
+    import torch
+
+    from repro_torch.coord.serving_front import ServingFrontend
+    from repro_torch.core import SimCloud
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.rglru_scan import rglru_scan_kernel
+
+    sched = checked_scheduler()(model, forced=forced, n_slots=slots, max_seq=max_seq,
+                                page_size=PAGE, prefill_chunk=CHUNK,
+                                attn_backend="paged_kernel", seed=seed, device=DEVICE, **kw)
+    cloud = SimCloud(seed=seed)
+    front = ServingFrontend(cloud, scheduler=sched, batch_size=slots)
+    sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    n_requests = 0
+    t0 = time.perf_counter()
+    for make in turns:
+        sched.preempt_budget = preempts_per_turn
+        reqs = make(front)
+        n_requests += len(reqs)
+        serve_turn(cloud, front, reqs)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = {"paged_attention": paged_attention_kernel.launches,
+              "rglru_scan": rglru_scan_kernel.launches,
+              "steps": sched.steps, "chunks": sched.prefill_chunks}
+    served = sum(len(v) for v in front.completions.values())
+    fails.check(served == n_requests, f"{label}: served {served}/{n_requests} requests")
+    fifo = all(ids == sorted(ids, key=lambda r: int(r[1:]))
+               for ids in front.completions.values())
+    fails.check(fifo, f"{label}: per-session FIFO over {len(front.completions)} sessions")
+    fails.check(not sched.audit_errors,
+                f"{label}: audit() clean after every one of {sched.steps} decode steps"
+                + (f" ({sched.audit_errors[:3]})" if sched.audit_errors else ""))
+    n_attn = model.n_kv_layers
+    fails.check(counts["paged_attention"] == n_attn * sched.steps,
+                f"{label}: paged kernel launches {counts['paged_attention']} == {n_attn} "
+                f"attention layers x {sched.steps} decode steps")
+    if cfg.family == "hybrid":
+        n_rec = cfg.n_layers - n_attn
+        fails.check(counts["rglru_scan"] == n_rec * (sched.steps + sched.prefill_chunks),
+                    f"{label}: rglru launches {counts['rglru_scan']} == {n_rec} RG-LRU layers "
+                    f"x ({sched.steps} decode steps + {sched.prefill_chunks} chunks)")
+    if sched.graphs is not None:
+        caps = [key for key, _ in sched.graphs.captures]
+        fails.check(caps.count("decode") == 1,
+                    f"{label}: exactly one decode-graph capture (captures {caps})")
+    for event, ok, what in sched.checks:
+        fails.check(ok, f"{label}: {what}")
+    for what, ok in sched.unchanged:
+        fails.check(ok, f"{label}: {what}")
+    st = front.serving_stats()
+    dec_ms = 1e3 * sched.decode_s / max(sched.decode_only_steps, 1)
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    print(f"  {label}: {wall:.3f} s wall, {sched.steps} decode steps, {st['prefill_chunks']} "
+          f"chunks, {st['prefill_tokens']} prefill + {st['decode_tokens']} decode tokens; "
+          f"TPOT {dec_ms:.2f} ms ({sched.decode_only_steps} decode-only steps, "
+          f"{sched.decode_only_tokens / max(sched.decode_s, 1e-9):.1f} decode tok/s), "
+          f"prefill {sched.chunk_tokens / max(sched.chunk_s, 1e-9):.1f} tok/s; peak "
+          f"{peak / 2**30:.3f} GiB (check copies of the pool included); pool "
+          f"{st['kv_pages']} pages, high water {st['kv_pages_high_water']}")
+    keys = ("preemptions", "restores", "restore_chunks", "offload_pages", "restored_pages",
+            "offload_bytes", "restore_bytes", "shared_prefix_tokens", "index_hits",
+            "park_hits", "park_misses", "parks", "park_evictions", "park_offloads",
+            "cow_splits", "offload_storage_ops", "offload_storage_usd", "park_storage_usd")
+    if any(k in st for k in keys):
+        print(f"  {label}: " + ", ".join(f"{k} {st[k]}" for k in keys if k in st))
+    if sched.extracts:
+        print(f"  {label}: {sched.extracts} gathers to the host (preemptions + journal "
+              f"offloads): {1e3 * sched.extract_s / sched.extracts:.3f} ms and "
+              f"{sched.extract_bytes / sched.extracts / 1e6:.1f} MB each, "
+              f"{sched.extract_bytes / max(sched.extract_s, 1e-9) / 1e9:.2f} GB/s")
+    if sched.restore_calls:
+        print(f"  {label}: {sched.restore_calls} restore chunks: "
+              f"{1e3 * sched.restore_s / sched.restore_calls:.3f} ms and "
+              f"{sched.restore_bytes / sched.restore_calls / 1e6:.1f} MB each, "
+              f"{sched.restore_bytes / max(sched.restore_s, 1e-9) / 1e9:.2f} GB/s")
+    counts.update(wall=wall, tpot_ms=dec_ms, peak=peak,
+                  decode_tok_s=sched.decode_only_tokens / max(sched.decode_s, 1e-9))
+    return sched, front, counts
+
+
+def conversation(front, first, user, s: int, t: int):
+    """Session ``s``'s turn-``t`` prompt: its first prompt, then for each
+    earlier turn the tokens the frontend returned and that turn's
+    ``user[t']`` tokens."""
+    import numpy as np
+
+    parts = [first]
+    for j in range(t):
+        parts += [np.asarray(front.results[f"s{s}"][j], np.int32), user[j + 1]]
+    return np.concatenate(parts)
+
+
+def host_copy_breakdown(cache, n_pages: int) -> None:
+    """Where a preemption's time goes: one ``n_pages``-page blob gathered
+    on the card, then copied to the host four ways — into fresh pinned
+    memory (what the store keeps: the caching host allocator has no free
+    block to reuse while earlier blobs are held), into pinned memory it
+    reuses, into a pinned buffer given in advance, and into pageable
+    memory.  Host clock, synchronized, mean of 5 (the fresh one: once)."""
+    import torch
+
+    if DEVICE != "cuda":
+        print("  host copies: not measured off the card (no pinned memory)")
+        return
+
+    from repro_torch.models import kvcache
+
+    def timed(fn, iters=5):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn()
+        sync()
+        return 1e3 * (time.perf_counter() - t0) / iters, out
+
+    ids = list(range(n_pages))
+    gather_ms, blob = timed(lambda: kvcache.gather_pages(cache, ids))
+    nbytes = kvcache.blob_nbytes(blob)
+    held = []
+    fresh_ms, _ = timed(lambda: held.append(kvcache.to_host(blob)), iters=1)
+    held.clear()
+    reused_ms, _ = timed(lambda: kvcache.to_host(blob))
+    buf = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for k, v in blob.items()}
+
+    def into():
+        for k, v in blob.items():
+            buf[k].copy_(v, non_blocking=True)
+    given_ms, _ = timed(into)
+    pageable_ms, _ = timed(lambda: {k: v.cpu() for k, v in blob.items()})
+    rates = ", ".join(f"{what} {ms:.3f} ms ({nbytes / ms / 1e6:.2f} GB/s)"
+                      for what, ms in (("fresh pinned", fresh_ms), ("reused pinned", reused_ms),
+                                       ("given pinned buffer", given_ms),
+                                       ("pageable", pageable_ms)))
+    print(f"  a {n_pages}-page blob ({nbytes / 1e6:.1f} MB): gather on the card "
+          f"{gather_ms:.3f} ms; to the host: {rates}")
+
+
+def logit_agreement(fails, label, off, on, vocab) -> None:
+    """The forced run's logits against the free run's, on the free run's
+    token stream: within ``AGREE_REL_TOL`` of the logit scale (phase 4's
+    check), and the token streams the forced run would have produced
+    unforced counted (argmax equal to the stream at every position)."""
+    import torch
+
+    keys = sorted(off.logits)
+    if not fails.check(set(on.logits) == set(keys),
+                       f"{label}: logits for the same {len(keys)} (request, token) positions"):
+        return
+    a = torch.stack([off.logits[k][:vocab] for k in keys]).float()
+    b = torch.stack([on.logits[k][:vocab] for k in keys]).float()
+    diff, scale = (a - b).abs().max().item(), a.abs().max().item()
+    want = torch.tensor([int(on.forced[rid][i]) for rid, i in keys], device=b.device)
+    flips = {keys[j][0] for j in torch.nonzero(b.argmax(-1) != want).flatten().tolist()}
+    rids = {rid for rid, _ in keys}
+    row = ((a - b).abs().amax(-1) / a.abs().amax(-1)).max().item()
+    print(f"  {label}: {len(rids) - len(flips)} of {len(rids)} token streams identical "
+          f"(unforced argmax equal to the feature-off stream at every position); worst "
+          f"row max |delta| / its max |logit| {row:.4f}")
+    fails.check(math.isfinite(diff) and diff <= AGREE_REL_TOL * scale,
+                f"{label}: logits vs the feature-off run, teacher-forced on its stream: max "
+                f"|delta| {diff:.4g} <= {AGREE_REL_TOL} x {scale:.4f}")
+
+
+def phase_offload_sharing(fails: Failures, model, cfg, seed: int, p3: dict) -> None:
+    """Phase 24 on phase 3's model: (a) storage-backed preemption, (b) prefix
+    sharing, (c) session parking, (c') parking on a pool small enough that
+    journals offload."""
+    import numpy as np
+
+    from repro_torch.coord.serving_front import InferenceRequest
+
+    rng = np.random.default_rng(seed + 24)
+    V = cfg.vocab
+
+    def one_turn(reqs):
+        return [lambda front: reqs]
+
+    # (a) offload: a pool of 4 slots' worst case for 8 slots
+    max_seq = P24_PROMPT + P24_MAX_NEW
+    worst = -(-(max_seq - 1) // PAGE)
+    reqs = [InferenceRequest(f"s{i % P24_SESSIONS}", f"r{i}",
+                             rng.integers(0, V, size=P24_PROMPT).astype(np.int32), P24_MAX_NEW)
+            for i in range(P24_REQUESTS)]
+    base, bfront, _ = p24_serve(fails, model, cfg, seed, "(a) unpressured", one_turn(reqs),
+                                max_seq=max_seq)
+    want = tokens_by_request(bfront)
+    del base
+    sched, front, c = p24_serve(fails, model, cfg, seed, "(a) offload", one_turn(reqs),
+                                max_seq=max_seq, kv_pages=4 * worst, offload=True,
+                                idle_preempt_steps=P24_IDLE)
+    got = tokens_by_request(front)
+    fails.check(sched.preemptions >= 1,
+                f"(a) {sched.preemptions} preemptions under a {4 * worst}-page pool (>= 1)")
+    fails.check(sched.restores == sched.preemptions,
+                f"(a) restores {sched.restores} == preemptions {sched.preemptions}")
+    fails.check(sched.blob_devices == {"cpu"} and sched.extracts >= 1,
+                f"(a) every blob leaf on the host (devices {sorted(sched.blob_devices)})")
+    same = [rid for rid in want if np.array_equal(got.get(rid), want[rid])]
+    fails.check(len(same) == len(want),
+                f"(a) tokens of all {len(want)} requests bitwise the unpressured run's "
+                f"({len(same)} equal; preempted requests included)")
+    print(f"  (a) TPOT {c['tpot_ms']:.2f} ms, {c['decode_tok_s']:.1f} decode tok/s (phase 3: "
+          f"{p3['tpot_ms']:.2f} ms, {p3['decode_tok_s']:.1f} tok/s)")
+    host_copy_breakdown(sched.cache, worst)
+    del sched, front
+    release()
+
+    # (b) prefix sharing: a shared system prompt ahead of unique tokens
+    sys_prompt = rng.integers(0, V, size=P24_SYS).astype(np.int32)
+    reqs = [InferenceRequest(f"s{i % P24_SESSIONS}", f"r{i}", np.concatenate(
+        [sys_prompt, rng.integers(0, V, size=P24_UNIQUE).astype(np.int32)]), P24_MAX_NEW)
+        for i in range(P24_REQUESTS)]
+    off, ofront, _ = p24_serve(fails, model, cfg, seed, "(b) sharing off", one_turn(reqs),
+                               max_seq=max_seq)
+    on, front, c = p24_serve(fails, model, cfg, seed, "(b) sharing", one_turn(reqs),
+                             max_seq=max_seq, prefix_sharing=True,
+                             forced=tokens_by_request(ofront))
+    fails.check(on.index_hits >= P24_SESSIONS,
+                f"(b) index hits {on.index_hits} >= {P24_SESSIONS}")
+    fails.check(on.shared_prefix_tokens == on.index_hits * P24_SYS,
+                f"(b) shared prefix tokens {on.shared_prefix_tokens} == {on.index_hits} hits x "
+                f"{P24_SYS}")
+    n_idx, bad = on.index_unchanged()
+    fails.check(n_idx > 0 and not bad,
+                f"(b) all {n_idx} indexed pages bitwise as published, at the end "
+                f"({len(bad)} changed)")
+    logit_agreement(fails, "(b)", off, on, V)
+    print(f"  (b) prefill tokens saved {on.shared_prefix_tokens}; TPOT {c['tpot_ms']:.2f} ms "
+          f"(phase 3: {p3['tpot_ms']:.2f})")
+    del off, on, front, ofront
+    release()
+
+    # (c) parking: multi-turn sessions, each turn 64 user tokens past the last
+    user = rng.integers(0, V, size=(P24_TURNS, P24_SESSIONS, P24_TURN_TOKENS)).astype(np.int32)
+    first = rng.integers(0, V, size=(P24_SESSIONS, P24_PROMPT)).astype(np.int32)
+    max_seq = P24_PROMPT + (P24_TURNS - 1) * (P24_MAX_NEW + P24_TURN_TOKENS) + P24_MAX_NEW
+
+    def turn(t):
+        def make(front):
+            return [InferenceRequest(f"s{s}", f"r{t * P24_SESSIONS + s}",
+                                     conversation(front, first[s], user[:, s], s, t),
+                                     P24_MAX_NEW) for s in range(P24_SESSIONS)]
+        return make
+
+    turns = [turn(t) for t in range(P24_TURNS)]
+    off, ofront, _ = p24_serve(fails, model, cfg, seed, "(c) parking off", turns,
+                               max_seq=max_seq)
+    forced = tokens_by_request(ofront)
+    # room for every session's journal beside every slot's worst case: no
+    # journal offloads here, (c') is the run under pool pressure
+    roomy = 2 * SLOTS * -(-max_seq // PAGE)
+    on, front, c = p24_serve(fails, model, cfg, seed, "(c) parking", turns, max_seq=max_seq,
+                             park_sessions=True, forced=forced, kv_pages=roomy)
+    hits = (P24_TURNS - 1) * P24_SESSIONS
+    fails.check(on.park_hits == hits, f"(c) park hits {on.park_hits} == {hits}")
+    fails.check(on.cow_splits >= hits,
+                f"(c) copy-on-write splits {on.cow_splits} >= {hits} (each reused span ends "
+                "inside a page)")
+    logit_agreement(fails, "(c)", off, on, V)
+    print(f"  (c) prefill tokens saved {on.shared_prefix_tokens} (of {off.prefill_tokens} the "
+          f"feature-off run prefilled); TPOT {c['tpot_ms']:.2f} ms (phase 3: "
+          f"{p3['tpot_ms']:.2f})")
+    del on, front
+    release()
+    first_turn = P24_SESSIONS * -(-(P24_PROMPT + P24_MAX_NEW - 1) // PAGE)
+    small, front, _ = p24_serve(fails, model, cfg, seed, "(c') parking, small pool", turns,
+                                max_seq=max_seq, park_sessions=True, forced=forced,
+                                kv_pages=first_turn + P24_SMALL_POOL_SPARE)
+    fails.check(small.park_offloads >= 1,
+                f"(c') parked journals offloaded under pool pressure: {small.park_offloads}")
+    blob = [ok for what, ok in small.unchanged if what.startswith("park-blob")]
+    fails.check(len(blob) >= 1 and all(blob) and small.blob_devices == {"cpu"},
+                f"(c') {len(blob)} park-blob restores bitwise the pages parked, blobs on "
+                f"the host ({sorted(small.blob_devices)})")
+    logit_agreement(fails, "(c')", off, small, V)
+    print(f"  (c') replay checks after: {sorted({e for e, _, _ in small.checks})}")
+    del off, ofront, small, front
+    release()
+
+
+def phase_hybrid_parking(fails: Failures, model, cfg, seed: int) -> None:
+    """Phase 25 on phase 6's model: two turns of 8 sessions on 4 slots,
+    parking and offload on, two preemptions forced mid-decode, against the
+    same run without them."""
+    import numpy as np
+
+    from repro_torch.coord.serving_front import InferenceRequest
+
+    rng = np.random.default_rng(seed + 25)
+    V = cfg.vocab
+    first = rng.integers(0, V, size=(P25_SESSIONS, P25_PROMPT)).astype(np.int32)
+    user = rng.integers(0, V, size=(P25_TURNS, P25_SESSIONS, P25_TURN_TOKENS)).astype(np.int32)
+    max_seq = P25_PROMPT + P25_MAX_NEW + P25_TURN_TOKENS + P25_MAX_NEW
+    kv_pages = 2 * P25_SESSIONS * -(-max_seq // PAGE)   # every journal beside every slot
+
+    def turn(t):
+        def make(front):
+            return [InferenceRequest(f"s{s}", f"r{t * P25_SESSIONS + s}",
+                                     conversation(front, first[s], user[:, s], s, t),
+                                     P25_MAX_NEW) for s in range(P25_SESSIONS)]
+        return make
+
+    turns = [turn(t) for t in range(P25_TURNS)]
+    kw = dict(slots=P25_SLOTS, max_seq=max_seq, kv_pages=kv_pages, park_sessions=True,
+              offload=True)
+    base, bfront, _ = p24_serve(fails, model, cfg, seed, "unpreempted", turns, **kw)
+    want = tokens_by_request(bfront)
+    del base, bfront
+    release()
+    sched, front, _ = p24_serve(fails, model, cfg, seed, "two forced preemptions", turns,
+                                preempts_per_turn=1, **kw)
+    got = tokens_by_request(front)
+    pre = sched.forced_preempts
+    fails.check(len(pre) == 2 and sched.restores == sched.preemptions == 2,
+                f"two preemptions forced mid-decode ({pre}), both restored "
+                f"({sched.restores})")
+    fails.check(all(np.array_equal(got.get(r), want[r]) for r in pre),
+                f"the preempted requests' tokens {pre} bitwise the unpreempted run's")
+    same = sum(np.array_equal(got.get(r), w) for r, w in want.items())
+    print(f"  {same} of {len(want)} requests' tokens bitwise the unpreempted run's")
+    evicted = [ok for what, ok in sched.unchanged if what.startswith("evicted")]
+    rows = [(ok, "reinstalled" in what) for what, ok in sched.unchanged
+            if what.startswith("unparked rows")]
+    moved = sum(m for _, m in rows)
+    fails.check(sched.park_evictions >= 1 and len(evicted) >= 1 and all(evicted),
+                f"{sched.park_evictions} parked-slot evictions, {len(evicted)} host snapshots "
+                "bitwise the h, conv and length rows parked")
+    fails.check(len(rows) == sched.park_hits >= 1 and moved >= 1 and all(ok for ok, _ in rows),
+                f"{len(rows)} unparks ({sched.park_hits} park hits, {moved} of them reinstalled "
+                "in another slot after an eviction): h and conv bitwise the rows parked, "
+                "length the reused span")
+    print(f"  replay checks after: {sorted({e for e, _, _ in sched.checks})}")
+    del sched, front
+    release()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2544,6 +3270,11 @@ def main() -> int:
     phase_graph_replay(fails, model, cfg, args.seed, f"{ARCH} paged_kernel",
                        attn_backend="paged_kernel", trace=True)
     phase_graph_replay(fails, model, cfg, args.seed, f"{ARCH} gather")
+    release()
+    print(f"[24] {ARCH}: storage-backed preemption, prefix sharing, session parking")
+    t24 = time.perf_counter()
+    phase_offload_sharing(fails, model, cfg, args.seed, counts)
+    print(f"  phase 24 wall {time.perf_counter() - t24:.1f} s")
     del model
     torch.cuda.empty_cache()
 
@@ -2601,6 +3332,12 @@ def main() -> int:
     print(f"[20] graph replay vs eager: {HYBRID}, paged_kernel")
     phase_graph_replay(fails, hmodel, hcfg, args.seed, f"{HYBRID} paged_kernel",
                        attn_backend="paged_kernel", trace=True)
+    release()
+    print(f"[25] {HYBRID}: {P25_SESSIONS} sessions x {P25_TURNS} turns on {P25_SLOTS} slots, "
+          f"parking and offload, two preemptions forced mid-decode")
+    t25 = time.perf_counter()
+    phase_hybrid_parking(fails, hmodel, hcfg, args.seed)
+    print(f"  phase 25 wall {time.perf_counter() - t25:.1f} s")
 
     print(f"[19] {HYBRID} in ring mode on phase 6's model: {R_REQUESTS} requests, prompt "
           f"{R_PROMPT} (window {hcfg.hybrid.local_window}), {R_MAX_NEW} new")

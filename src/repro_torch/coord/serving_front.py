@@ -22,8 +22,11 @@ session's next request only after its predecessor completes.  Delivery is
 at-least-once: completions are deduped by request id, so a crashed handler
 redelivers its batch without duplicating completions, and
 claimed-but-unfinished messages are requeued.  ``mode='per-session'`` keeps
-the one-queue-per-session batcher as the cost baseline.  The elastic fleet
-flavour is not ported yet.
+the one-queue-per-session batcher as the cost baseline.  A scheduler that
+offloads, shares or parks KV pages journals its page-blob traffic; the
+frontend bills each op under the object-store latency models and Table-4
+rates, and the bytes it keeps stored as S3 retention over simulated time.
+The elastic fleet flavour is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Generator, List, Optional
 
 from ..core import FifoQueue, FunctionRuntime, SimCloud, Sleep
+from ..core.cost import page_blob_op_cost, page_blob_retention_cost
 
 
 @dataclass
@@ -84,6 +88,13 @@ class ServingFrontend:
         self.results: Dict[str, List[Any]] = {}
         self.completions: Dict[str, List[str]] = {}
         self._done_ids: set = set()
+        # page-blob storage accounting (continuous flavour): ops drained from
+        # the scheduler's blob store and billed here, and the S3 GB-time of
+        # the bytes it keeps stored between requests
+        self.offload_storage_usd = 0.0
+        self.offload_storage_ops = 0
+        self.park_storage_usd = 0.0
+        self._retention_billed_at = cloud.now
 
     def queue_for(self, session: str) -> FifoQueue:
         q = self.queues.get(session)
@@ -150,13 +161,39 @@ class ServingFrontend:
         if self.scheduler is not None:
             out.update(self.scheduler.stats())
             out.update(self.scheduler.kv_memory_stats())
+            sharing = (getattr(self.scheduler, "prefix_sharing", False)
+                       or getattr(self.scheduler, "park_sessions", False))
+            if getattr(self.scheduler, "offload", False) or sharing:
+                # blob op spend covers preemption *and* parking traffic:
+                # they share the store and the billing path
+                out["offload_storage_usd"] = self.offload_storage_usd
+                out["offload_storage_ops"] = self.offload_storage_ops
+            if sharing:
+                # the other side of the retention trade: the S3 GB-time of
+                # keeping parked state durable sits next to
+                # shared_prefix_tokens (the prefill it avoided)
+                out["park_storage_usd"] = self.park_storage_usd
         return out
 
     def _bill_offload_ops(self) -> Generator:
-        """Billing hook for the scheduler's page-blob traffic: KV offload is
-        not ported yet, so there is nothing to bill."""
-        return
-        yield
+        """Replay the scheduler's page-blob journal against the calibrated
+        object-store latency models and Table-4 S3 op rates.  The blob data
+        itself applied synchronously inside ``step()`` (a blocking S3
+        client); what the cloud sees is the op's wire time and its bill.
+        Stored blob bytes additionally accrue S3 retention over simulated
+        time — the storage side of the parking-vs-re-prefill trade."""
+        sched = self.scheduler
+        now = self.cloud.now
+        stored = sched.blob_store.bytes_stored
+        if stored and now > self._retention_billed_at:
+            self.park_storage_usd += page_blob_retention_cost(
+                stored * (now - self._retention_billed_at))
+        self._retention_billed_at = now
+        for op, _key, kb in sched.drain_offload_ops():
+            kind = "obj_read" if op == "get" else "obj_write"
+            yield Sleep(self.cloud.sample(kind, kb))
+            self.offload_storage_usd += page_blob_op_cost(op)
+            self.offload_storage_ops += 1
 
     # -- event function: whole-batch flavour ------------------------------------------
 

@@ -7,9 +7,14 @@ slots re-admitted across sessions between decode steps), or by whole-batch
 generation (``--mode shared`` / ``per-session``).  Runs the ``.reduced()``
 config of ``--arch`` on ``--device`` (default ``cuda``).
 
+``--offload`` turns on storage-backed preemption, ``--prefix-sharing``
+copy-on-write prefix sharing and ``--park-sessions`` cross-request session
+parking (paged mode only).
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
-      --requests 12 --sessions 3 --batch-size 4 --prompt-len 16 [--device cpu]
+      --requests 12 --sessions 3 --batch-size 4 --prompt-len 16 [--device cpu] \\
+      [--offload] [--prefix-sharing] [--park-sessions]
 """
 
 from __future__ import annotations
@@ -48,26 +53,41 @@ def _whole_batch_model_fn(model, max_new: int):
 
 def validate_pool_sizing(*, batch_size: int, prompt_len: int, max_new: int,
                          page_size: int, kv_pages: Optional[int] = None,
-                         prefill_chunk: Optional[int] = None) -> int:
+                         prefill_chunk: Optional[int] = None,
+                         offload: bool = False) -> int:
     """Fail fast, with the arithmetic spelled out, instead of letting an
-    undersized pool stall the first admission mid-run: the pool must fit
-    one max-size admission (``ceil((prompt_len + max_new - 1) /
-    page_size)`` pages, reserved up front) plus one decode page for each
-    other slot.  Returns the minimum page count."""
+    undersized pool stall the first admission mid-run.
+
+    Without offload the pool must fit one max-size admission
+    (``ceil((prompt_len + max_new - 1) / page_size)`` pages, reserved up
+    front) plus one decode page for each other slot.  With ``offload`` the
+    preemption policy turns pool pressure into bounded preempt/restore
+    cycles, so the floor relaxes to the one hard requirement: the largest
+    single admission must fit on its own.  Returns the minimum page count."""
     if page_size < 1:
         raise ValueError(f"--page-size must be >= 1, got {page_size}")
     if prefill_chunk is not None and prefill_chunk < 1:
         raise ValueError(f"--prefill-chunk must be >= 1, got {prefill_chunk}")
     admission_pages = -(-(prompt_len + max_new - 1) // page_size)
-    min_pages = admission_pages + (batch_size - 1)
+    min_pages = admission_pages if offload else admission_pages + (batch_size - 1)
     if kv_pages is not None and kv_pages < min_pages:
+        if offload:
+            raise ValueError(
+                f"--kv-pages {kv_pages} cannot fit even one max-size "
+                f"admission: a {prompt_len}-token prompt with {max_new} "
+                f"decode tokens reserves "
+                f"ceil(({prompt_len}+{max_new}-1)/{page_size}) = "
+                f"{admission_pages} pages, and preempting every other slot "
+                f"cannot make the pool larger than it is.")
         raise ValueError(
             f"--kv-pages {kv_pages} cannot fit one max-size admission plus "
             f"one active decode batch: a {prompt_len}-token prompt with "
             f"{max_new} decode tokens reserves "
             f"ceil(({prompt_len}+{max_new}-1)/{page_size}) = "
             f"{admission_pages} pages, and the other {batch_size - 1} slots "
-            f"need one decode page each -> minimum {min_pages} pages.")
+            f"need one decode page each -> minimum {min_pages} pages "
+            f"(or enable --offload, which turns pool pressure into bounded "
+            f"preempt/restore cycles).")
     return min_pages
 
 
@@ -76,6 +96,9 @@ def build_frontend(cloud: SimCloud, cfg, model, *, mode: str, batch_size: int,
                    top_k: int = 0, seed: int = 0, kv_mode: str = "paged",
                    page_size: int = 16, prefill_chunk: Optional[int] = None,
                    kv_pages: Optional[int] = None, attn_backend: str = "gather",
+                   offload: bool = False, preempt_policy: Optional[str] = None,
+                   idle_preempt_steps: int = 0, prefix_sharing: bool = False,
+                   park_sessions: bool = False, park_ttl_steps: int = 0,
                    device="cuda") -> ServingFrontend:
     """Frontend for ``mode`` in {'continuous', 'shared', 'per-session'}.
 
@@ -84,6 +107,10 @@ def build_frontend(cloud: SimCloud, cfg, model, *, mode: str, batch_size: int,
     picks the gather path or the CUDA paged-attention kernel for S=1
     decode), or from per-slot rings with one prefill per admission
     (``kv_mode='ring'``; the pool sizing check does not apply).
+    ``offload`` enables storage-backed preemption; ``prefix_sharing`` maps
+    indexed prompt prefixes read-only with copy-on-write splits;
+    ``park_sessions`` retains a completed session's KV across requests
+    (``park_ttl_steps`` bounds the retention; paged mode only).
     """
     if mode not in ("continuous", "shared", "per-session"):
         raise ValueError(f"unknown serving mode {mode!r}")
@@ -91,12 +118,18 @@ def build_frontend(cloud: SimCloud, cfg, model, *, mode: str, batch_size: int,
         if kv_mode == "paged":
             validate_pool_sizing(batch_size=batch_size, prompt_len=prompt_len,
                                  max_new=max_new, page_size=page_size,
-                                 kv_pages=kv_pages, prefill_chunk=prefill_chunk)
+                                 kv_pages=kv_pages, prefill_chunk=prefill_chunk,
+                                 offload=offload)
         sched = DecodeScheduler(model, n_slots=batch_size,
                                 max_seq=prompt_len + max_new,
                                 temperature=temperature, top_k=top_k, seed=seed,
                                 kv_mode=kv_mode, page_size=page_size,
                                 prefill_chunk=prefill_chunk, kv_pages=kv_pages,
+                                offload=offload, preempt_policy=preempt_policy,
+                                idle_preempt_steps=idle_preempt_steps,
+                                prefix_sharing=prefix_sharing,
+                                park_sessions=park_sessions,
+                                park_ttl_steps=park_ttl_steps,
                                 attn_backend=attn_backend, device=device)
         return ServingFrontend(cloud, scheduler=sched, batch_size=batch_size)
     if temperature or top_k:
@@ -140,6 +173,9 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
                 kv_mode: str = "paged", page_size: int = 16,
                 prefill_chunk: Optional[int] = None,
                 kv_pages: Optional[int] = None, attn_backend: str = "gather",
+                offload: bool = False, preempt_policy: Optional[str] = None,
+                idle_preempt_steps: int = 0, prefix_sharing: bool = False,
+                park_sessions: bool = False, park_ttl_steps: int = 0,
                 device="cuda") -> ServingFrontend:
     cfg = configs.get(arch).reduced()
     model = build_model(cfg, device=device, seed=0)
@@ -149,7 +185,12 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
                               temperature=temperature, top_k=top_k, seed=seed,
                               kv_mode=kv_mode, page_size=page_size,
                               prefill_chunk=prefill_chunk, kv_pages=kv_pages,
-                              attn_backend=attn_backend, device=device)
+                              attn_backend=attn_backend, offload=offload,
+                              preempt_policy=preempt_policy,
+                              idle_preempt_steps=idle_preempt_steps,
+                              prefix_sharing=prefix_sharing,
+                              park_sessions=park_sessions,
+                              park_ttl_steps=park_ttl_steps, device=device)
     t0 = time.time()
     spawn_workload(cloud, frontend, vocab=cfg.vocab, n_requests=n_requests,
                    sessions=sessions, prompt_len=prompt_len, max_new=max_new)
@@ -179,6 +220,20 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
             else:
                 print(f"kv rings: {s['kv_pool_bytes']/1024:.1f} KiB "
                       f"({s['kv_bytes_per_token']} B/token), one prefill per admission")
+            if "offload_bytes" in s:
+                print(f"kv offload: {s['preemptions']} preemptions / "
+                      f"{s['restores']} restores, "
+                      f"{s['offload_bytes']/1024:.1f} KiB offloaded + "
+                      f"{s['restore_bytes']/1024:.1f} KiB restored "
+                      f"({s['offload_puts']} puts / {s['offload_gets']} gets, "
+                      f"storage ${s['offload_storage_usd']:.6f})")
+            if "shared_prefix_tokens" in s:
+                print(f"prefix sharing: {s['shared_prefix_tokens']} prompt "
+                      f"tokens served from resident pages "
+                      f"({s['park_hits']} park hits / {s['index_hits']} index "
+                      f"hits, {s['cow_splits']} CoW splits, "
+                      f"{s['parked_sessions']} sessions parked, retention "
+                      f"${s['park_storage_usd']:.9f})")
     return frontend
 
 
@@ -203,6 +258,26 @@ def main() -> None:
                     help="admission chunk size in tokens (default: whole prompt)")
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="pool size in pages (default: slots x max_pages)")
+    ap.add_argument("--offload", action="store_true",
+                    help="storage-backed preemption: evict a victim slot's "
+                         "KV pages to the object store under pool pressure "
+                         "and restore them chunked (paged mode only)")
+    ap.add_argument("--preempt-policy", default=None, choices=["none", "pressure"],
+                    help="victim policy (default: pressure when --offload)")
+    ap.add_argument("--idle-preempt-steps", type=int, default=0,
+                    help="minimum steps a slot must be resident before it "
+                         "is preemptible (anti-thrash floor)")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="map indexed prompt prefixes read-only from the "
+                         "refcounted page pool and prefill only the tail "
+                         "(copy-on-write on shared-page writes; paged only)")
+    ap.add_argument("--park-sessions", action="store_true",
+                    help="retain a completed session's KV pages across "
+                         "requests so its next request restores instead of "
+                         "re-prefilling (paged only)")
+    ap.add_argument("--park-ttl-steps", type=int, default=0,
+                    help="drop a parked session after this many scheduler "
+                         "steps (0 = retain until evicted or reset)")
     ap.add_argument("--attn-backend", default="gather",
                     choices=["gather", "paged_kernel"],
                     help="decode attention over the paged pool: gather the "
@@ -218,6 +293,10 @@ def main() -> None:
                 temperature=args.temperature, top_k=args.top_k,
                 kv_mode=args.kv_mode, page_size=args.page_size,
                 prefill_chunk=args.prefill_chunk, kv_pages=args.kv_pages,
+                offload=args.offload, preempt_policy=args.preempt_policy,
+                idle_preempt_steps=args.idle_preempt_steps,
+                prefix_sharing=args.prefix_sharing, park_sessions=args.park_sessions,
+                park_ttl_steps=args.park_ttl_steps,
                 attn_backend=args.attn_backend, device=args.device)
 
 

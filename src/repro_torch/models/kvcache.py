@@ -45,10 +45,20 @@ old rows in place, keeping the old ones for inactive slots.  A
 write through an unmapped page-table entry goes to the scratch page, which
 no table maps, so a freed slot's stale decode traffic can never land in a
 page that now belongs to another slot.
+
+Pages are refcounted (:class:`PageAllocator`): a page may be mapped by
+several slots, published in the :class:`PrefixIndex` and retained by a
+parked session at once, and a writer copy-on-write splits a shared page
+(:func:`copy_pages`) before it writes.  :func:`gather_pages` /
+:func:`scatter_pages` move pages to and from host blobs (preemption and
+parked-session offload), and :func:`gather_slot_state` /
+:func:`scatter_slot_state` snapshot a slot's rows; the writers are in
+place too.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -227,15 +237,16 @@ class PageAllocator:
     """Refcounted free-list allocator for the paged pool.
 
     Pure host-side bookkeeping: the device only ever sees the page table.
-    :meth:`alloc` hands a page out with refcount 1 and :meth:`release` drops
-    one reference — the page returns to the free list when its last
-    reference dies.  (Extra references arrive with prefix sharing, which is
-    not ported yet.)
+    Pages are a *shared* resource: :meth:`alloc` hands a page out with
+    refcount 1, :meth:`share` takes an additional reference (a second slot
+    mapping the page read-only, the prefix index publishing it, a parked
+    session retaining it), and :meth:`release` drops one reference — the
+    page only returns to the free list when its last reference dies.
 
     Invariants (checked by :meth:`check` and the scheduler's ``audit()``):
     ``free_count + in_use == n_pages``, every in-use page has refcount >= 1,
-    no free page carries a refcount, and :meth:`reset` returns the pool to
-    fully free.
+    no free page carries a refcount, no page is handed out twice, and
+    :meth:`reset` returns the pool to fully free.
     """
 
     def __init__(self, n_pages: int):
@@ -254,7 +265,12 @@ class PageAllocator:
 
     @property
     def total_refs(self) -> int:
+        """Sum of refcounts over mapped pages (== the mappings held by slots,
+        the prefix index and parked sessions; the audit cross-checks)."""
         return sum(self._rc.values())
+
+    def refcount(self, page: int) -> int:
+        return self._rc.get(page, 0)
 
     def alloc(self, n: int = 1) -> List[int]:
         if n > len(self._free):
@@ -267,6 +283,13 @@ class PageAllocator:
         self.high_water = max(self.high_water, len(self._rc))
         return pages
 
+    def share(self, pages: Sequence[int]) -> None:
+        """Take one extra reference on each (already mapped) page."""
+        for p in pages:
+            if p not in self._rc:
+                raise ValueError(f"sharing unmapped page {p}")
+            self._rc[p] += 1
+
     def release(self, pages: Sequence[int]) -> None:
         """Drop one reference per page; a page with none left is freed."""
         for p in pages:
@@ -278,6 +301,9 @@ class PageAllocator:
                 self._free.append(p)
             else:
                 self._rc[p] = rc - 1
+
+    # The name completion-time frees had before refcounts: one release.
+    free = release
 
     def check(self) -> None:
         """Raise if the allocator invariants do not hold."""
@@ -296,6 +322,114 @@ class PageAllocator:
         self._free = list(range(self.n_pages - 1, -1, -1))
         self._rc.clear()
         self.high_water = 0
+
+
+# ---------------------------------------------------------------------------
+# Prefix index: content-addressed full pages for cross-request sharing
+# ---------------------------------------------------------------------------
+
+
+def page_hashes(tokens, page_size: int) -> List[bytes]:
+    """Chain hashes of the *full* pages of a token sequence.
+
+    ``h_i = H(h_{i-1} || tokens[i*ps : (i+1)*ps])`` (blake2b, 16-byte
+    digest, int32 token bytes) — keyed on the whole token prefix, not the
+    page content alone, so two sequences share a chain entry iff they agree
+    on every token up to that page boundary.  Only full pages get a hash: a
+    partial page's content is still growing and cannot be content-addressed.
+    The bytes are the JAX package's, entry for entry.
+    """
+    arr = np.asarray(tokens, np.int32).reshape(-1)
+    out: List[bytes] = []
+    h = b"\x00" * 16
+    for i in range(len(arr) // page_size):
+        m = hashlib.blake2b(digest_size=16)
+        m.update(h)
+        m.update(arr[i * page_size:(i + 1) * page_size].tobytes())
+        h = m.digest()
+        out.append(h)
+    return out
+
+
+class PrefixIndex:
+    """Content-addressed map from token-chain hashes to resident pool pages.
+
+    A full page whose tokens are fixed is an immutable journal entry, so it
+    can be shared read-only by any request whose prompt carries the same
+    token prefix.  The index holds **one allocator reference per published
+    page** (taken via :meth:`PageAllocator.share` at publish time), which is
+    what keeps a page alive after the slot that wrote it completes.  Pages
+    are immutable once published: appends only ever write at
+    ``pos >= length``, and a writer that must touch a shared page first
+    copy-on-write splits it.
+
+    Eviction is LRU over publish/hit order and only reclaims the *index's*
+    reference — a page another slot or parked session still maps survives
+    with its remaining refcount.  The index is worker-local: physical page
+    ids mean nothing outside one pool.
+    """
+
+    def __init__(self):
+        self._pages: Dict[bytes, int] = {}       # chain hash -> physical page
+
+    def __len__(self) -> int:
+        return len(self._pages)
+
+    @property
+    def pages(self) -> List[int]:
+        return list(self._pages.values())
+
+    def has(self, h: bytes) -> bool:
+        return h in self._pages
+
+    def publish(self, hashes: Sequence[bytes], page_ids: Sequence[int],
+                allocator: PageAllocator) -> int:
+        """Publish (hash, page) pairs not already indexed; the index takes
+        one reference per page it actually adopts.  Returns how many."""
+        n = 0
+        for h, pid in zip(hashes, page_ids, strict=True):
+            if h in self._pages:
+                continue
+            allocator.share([pid])
+            self._pages[h] = int(pid)
+            n += 1
+        return n
+
+    def lookup(self, hashes: Sequence[bytes]) -> List[int]:
+        """Longest indexed chain prefix: physical pages for ``hashes[:k]``
+        where ``k`` is the first miss.  Hits are re-marked most recent."""
+        out: List[int] = []
+        for h in hashes:
+            pid = self._pages.get(h)
+            if pid is None:
+                break
+            self._pages[h] = self._pages.pop(h)   # LRU bump
+            out.append(pid)
+        return out
+
+    def evict(self, allocator: PageAllocator, need_free: int,
+              pinned: Sequence[int] = ()) -> int:
+        """Drop LRU entries (releasing the index's reference) until the
+        allocator has ``need_free`` free pages or every unpinned entry is
+        gone.  ``pinned`` pages are skipped — the admission driving the
+        eviction may be about to map them.  Returns the number dropped."""
+        keep = set(pinned)
+        n = 0
+        for h in list(self._pages):               # LRU first
+            if allocator.free_count >= need_free:
+                break
+            pid = self._pages[h]
+            if pid in keep:
+                continue
+            allocator.release([self._pages.pop(h)])
+            n += 1
+        return n
+
+    def clear(self, allocator: Optional[PageAllocator] = None) -> None:
+        if allocator is not None:
+            for pid in self._pages.values():
+                allocator.release([pid])
+        self._pages.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -357,8 +491,14 @@ def mask_slot_rows(new_cache: Dict, old_cache: Dict, keep: torch.Tensor) -> Dict
     tensors keep their storage (a CUDA graph replays into them).  Returns
     ``new_cache`` with those leaves replaced by the old cache's tensors.
     K/V writes are in place and are not restored.  In the pool an inactive
-    slot's write lands in a page it owns past its length — overwritten by
-    its next chunk before any read — or is dropped by an unmapped table row.
+    slot's write lands at its length: in a page it owns past its live
+    tokens (an ADMITTING slot's next chunk, or a RESTORING slot's next
+    decode step, overwrites it before any read), or in the scratch page
+    through an unmapped table row (EMPTY, PARKED and PREEMPTED slots have
+    one).  The page under the length must never be shared: an admission
+    over a resident prefix that ends inside a page copy-on-write splits
+    that page before the next decode step, so the masked write cannot land
+    in a page the prefix index, a parked session or another slot reads.
     In a ring it lands in the slot's own row, at lane ``length % T``: a ring
     slot is only ever EMPTY or ACTIVE (admission is one monolithic prefill),
     and :func:`cache_insert_slot` overwrites the whole row, every lane of
@@ -453,3 +593,118 @@ def kv_bytes_per_token(cache: Dict) -> int:
             leaf = cache[key]              # (L, Np, ps, H, D) or (L, B, T, H, D)
             total += leaf.numel() * leaf.element_size() // (leaf.shape[1] * leaf.shape[2])
     return total
+
+
+# ---------------------------------------------------------------------------
+# Page-level offload and slot snapshots (preemption, sharing, parking)
+# ---------------------------------------------------------------------------
+#
+# A blob is ``{"kp": (L, n, page_size, Hkv, D), "vp": ...}``: the pool
+# leaves restricted to ``n`` pages, in the order their ids were given.  A
+# slot snapshot is ``{"length": (1,), "h": (n_rec, 1, W), ...}``: every
+# per-slot leaf at one slot, the slot axis kept.  The writers work in place
+# (``index_copy_``) and return nothing: the scheduler's CUDA graphs read the
+# pool, the rows and the lengths at the addresses they captured.
+
+_PAGE_DIM = 1     # page axis of a pool leaf (L, n_pages + 1, page_size, Hkv, D)
+
+
+def _ids(page_ids, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(page_ids, np.int64).reshape(-1)).to(device)
+
+
+def gather_pages(cache: Dict, page_ids) -> Dict[str, torch.Tensor]:
+    """Copy physical pages ``page_ids`` out of every pool leaf, on the
+    pool's device.  The caller supplies the ids in *logical* order (the
+    slot's page-table order), so the blob is position-ordered however
+    scrambled the physical table is.  Exact inverse of
+    :func:`scatter_pages` through any page table."""
+    out = {}
+    for key in sorted(POOL_KEYS):
+        if key in cache:
+            leaf = cache[key]
+            out[key] = leaf.index_select(_PAGE_DIM, _ids(page_ids, leaf.device))
+    return out
+
+
+def scatter_pages(cache: Dict, page_ids, blob: Dict) -> None:
+    """Write a page blob (on any device) into the pool at physical pages
+    ``page_ids``, in place — the restore half of offload; the ids need not
+    be those the blob was gathered from (the page table re-maps them).  A
+    host blob crosses to the card one layer at a time: a restore chunk is a
+    view along the page axis, so each layer's slice is one contiguous run
+    (of pinned memory, for a blob :func:`to_host` made), while the whole
+    view is not."""
+    for key, src in blob.items():
+        leaf = cache[key]
+        if src.device != leaf.device:
+            staged = torch.empty(src.shape, dtype=src.dtype, device=leaf.device)
+            for layer in range(src.shape[0]):
+                staged[layer].copy_(src[layer], non_blocking=True)
+            src = staged
+        leaf.index_copy_(_PAGE_DIM, _ids(page_ids, leaf.device), src.to(leaf.dtype))
+
+
+def copy_pages(cache: Dict, src_ids, dst_ids) -> None:
+    """Copy pool pages ``src_ids`` onto ``dst_ids``, in place: the
+    copy-on-write split (a writer about to mutate a page with refcount > 1
+    duplicates it onto a fresh page and remaps its own table; every other
+    reference keeps reading the original bytes)."""
+    for key in sorted(POOL_KEYS):
+        if key in cache:
+            leaf = cache[key]
+            vals = leaf.index_select(_PAGE_DIM, _ids(src_ids, leaf.device))
+            leaf.index_copy_(_PAGE_DIM, _ids(dst_ids, leaf.device), vals)
+
+
+def gather_slot_state(cache: Dict, slot: int) -> Dict[str, torch.Tensor]:
+    """Snapshot one slot's per-slot rows: its length and recurrent rows
+    (and ring rows in ring mode) — everything but the shared pool and the
+    page table, which the scheduler mirrors on the host.  A copy, on the
+    cache's device; :func:`scatter_slot_state` is its exact inverse into
+    any slot."""
+    idx = torch.tensor([slot], device=cache["length"].device)
+    out = {"length": cache["length"].index_select(0, idx)}
+    for key in _per_slot(cache):
+        out[key] = cache[key].index_select(1, idx)
+    return out
+
+
+def scatter_slot_state(cache: Dict, slot: int, state: Dict) -> None:
+    """Install a :func:`gather_slot_state` snapshot (on any device) into row
+    ``slot``, in place (the restore half of parked-slot eviction; the
+    target slot need not be the one the snapshot came from)."""
+    for key, src in state.items():
+        leaf = cache[key]
+        idx = torch.tensor([slot], device=leaf.device)
+        leaf.index_copy_(0 if key == "length" else 1, idx,
+                         src.to(device=leaf.device, dtype=leaf.dtype))
+
+
+def slice_page_blob(blob: Dict, lo: int, hi: int) -> Dict[str, torch.Tensor]:
+    """Pages ``[lo, hi)`` of a blob (views) — the unit of a chunked restore."""
+    return {key: leaf[:, lo:hi] for key, leaf in blob.items()}
+
+
+def blob_nbytes(blob: Dict) -> int:
+    """Payload size of a page blob or a row snapshot (drives the storage
+    billing)."""
+    return sum(leaf.numel() * leaf.element_size() for leaf in blob.values())
+
+
+def to_host(blob: Dict) -> Dict[str, torch.Tensor]:
+    """A blob's leaves copied to host memory (the object store holds CPU
+    tensors; a blob left on the card would free nothing).  Leaves on the
+    card go to pinned memory, and the copies are waited for, so the blob
+    is readable when this returns; CPU leaves pass through."""
+    out, card = {}, None
+    for key, leaf in blob.items():
+        if leaf.device.type == "cuda":
+            host = torch.empty(leaf.shape, dtype=leaf.dtype, pin_memory=True)
+            host.copy_(leaf, non_blocking=True)
+            out[key], card = host, leaf.device
+        else:
+            out[key] = leaf
+    if card is not None:
+        torch.cuda.current_stream(card).synchronize()
+    return out

@@ -40,6 +40,28 @@ def make_chunk_step(model) -> Callable:
     return chunk_step
 
 
+def make_offload_steps() -> tuple:
+    """The staging steps of storage-backed preemption and parked-session
+    offload, ``(extract, inject)``.
+
+    ``extract(cache, page_ids)`` gathers pool pages (in the page table's
+    logical order) and copies them to host memory: the blob the scheduler
+    puts in the object store is a dict of CPU tensors, so an offload frees
+    device memory.  ``inject(cache, page_ids, blob)`` writes a blob (or a
+    chunk of one) back onto freshly allocated pages, in place.  Both are
+    plain calls: the reference jits them, and its mesh variant runs them
+    under ``shard_map``, which the port does not have yet.
+    """
+
+    def extract(cache, page_ids):
+        return kvcache.to_host(kvcache.gather_pages(cache, page_ids))
+
+    def inject(cache, page_ids, blob) -> None:
+        kvcache.scatter_pages(cache, page_ids, blob)
+
+    return extract, inject
+
+
 def make_prefill(model, seq_len: Optional[int] = None) -> Callable:
     """``seq_len`` sizes the cache for the *total* sequence (prompt + decode
     budget): without it the prompt-sized ring evicts the oldest prompt

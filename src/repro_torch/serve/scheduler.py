@@ -6,13 +6,13 @@ call; free slots are re-admitted from a shared cross-session queue of pending
 requests.  Every slot runs the explicit lifecycle in
 :mod:`repro_torch.serve.lifecycle`::
 
-    EMPTY -> ADMITTING -> ACTIVE -> DRAINED -> EMPTY
+    EMPTY -> ADMITTING -> ACTIVE -> (PREEMPTED -> RESTORING -> ACTIVE)* -> DRAINED
 
 KV lives in one shared ``(n_pages, page_size, Hkv, D)`` pool per layer plus
 a per-slot page table (:func:`repro_torch.models.kvcache.paged_cache`).
-Pages are handed out by a host-side free list
+Pages are handed out by a host-side refcounted free list
 (:class:`~repro_torch.models.kvcache.PageAllocator`) — mapped on first
-write, freed on completion — so KV memory scales with live tokens, not
+write, released on completion — so KV memory scales with live tokens, not
 ``n_slots * max_seq``.  Admission is **chunked**: the prompt is split into
 ``prefill_chunk``-sized pieces and one chunk runs per :meth:`step` (a B=1
 forward against the shared pool, interleaved with the batch's decode step),
@@ -21,12 +21,56 @@ Admission is reservation-gated: a request is admitted only when the pool's
 uncommitted pages cover its worst case, so lazy mapping can never deadlock
 mid-decode.
 
+**Storage-backed preemption** (``offload=True``, paged mode): durable state
+belongs in cloud storage, compute is reclaimable.  When a pending request
+is pool-gated, the preemption policy picks victims among the ACTIVE slots
+(longest resident first, then most pages pinned; ``idle_preempt_steps`` is
+the minimum residency), gathers each victim's pages through its page table
+into a position-ordered blob, copies it to host memory, puts it in the
+:class:`~repro_torch.core.storage.PageBlobStore`, and releases the pages
+and the victim's whole reservation.  The victim sits in PREEMPTED: its rows
+(recurrent state, length, output ring) stay frozen under the decode mask,
+but it pins no pool capacity.  When pool pressure clears (no pending request
+is pool-gated and the uncommitted margin covers the victim's worst case),
+the blob is fetched and written back **chunk by chunk, interleaved with
+decode like prefill chunks** onto freshly allocated pages, and the slot
+resumes ACTIVE — token for token a never-preempted run, because gather and
+scatter are exact inverses through the page table and the masked rows never
+advanced.  Restores are FIFO in preemption order and run to completion once
+funded, so offload cannot deadlock or livelock the pool.  Storage traffic is
+journaled on the blob store and billed by the serving frontend.
+
+**Refcounted copy-on-write prefix sharing** (``prefix_sharing=True``, paged
+mode): completed requests publish their *full* pages — generated span
+included, since decode-written KV is bitwise prefill KV — into a
+content-addressed :class:`~repro_torch.models.kvcache.PrefixIndex` keyed by
+token-chain hashes, and a new request whose prompt carries an indexed prefix
+maps those pages **read-only** (one extra reference each) and prefills only
+its tail.  Any write through a page with refcount > 1 first copy-on-write
+splits the page onto a fresh one and remaps only the writer's table row.
+Index sharing serves only pure-attention families (dense, moe): recurrent
+rows cannot be rebuilt from KV pages.
+
+**Cross-request session parking** (``park_sessions=True``): a completed slot
+enters PARKED instead of releasing its pages; a per-session record takes
+ownership of the page references, the token history and (once the slot is
+reclaimed) a host snapshot of the slot's rows, so the session's next request
+— whose prompt extends the recorded history — maps the parked pages shared
+and prefills only the new tokens.  Parked capacity is reclaimable: a new
+admission may take the slot (rows snapshot to the record), and under pool
+pressure parked pages offload through the blob store, after which the next
+request restores the blob instead of re-prefilling.  ``park_ttl_steps``
+bounds retention.  ``reset()`` clears the prefix index, the parked table and
+(by default) the blob store.
+
 The batched decode step masks non-ACTIVE slots out of the token write, the
 output ring, the length advance and (hybrid models) the recurrent rows
-(:func:`kvcache.mask_slot_rows`): a freed or mid-admission slot's stale
-state cannot advance, and its pool writes either land past its length in
-pages it owns (overwritten by its next chunk before any read) or go to the
-scratch page through an unmapped row.
+(:func:`kvcache.mask_slot_rows`).  Their K/V writes still happen: each lands
+at the slot's length in a page it owns (past its live tokens), or in the
+scratch page through an unmapped row — EMPTY, PARKED and PREEMPTED slots
+have one.  An admission over a resident prefix that ends inside a page
+splits that shared page at once, before the next decode step, so the masked
+write cannot reach a page another holder reads.
 
 Per-session FIFO is structural: a session's next request is admitted only
 after its predecessor completes, and the pending list is scanned in arrival
@@ -42,7 +86,8 @@ token's expert output does not depend on what shares its step).
 
 An SSM keeps no K/V: its paged cache has a page table but no pool, the
 allocator holds 0 pages, admissions reserve none, and only its per-slot
-recurrent rows (``ssm``, ``conv``) are masked, cleared and written back.
+recurrent rows (``ssm``, ``conv``) are masked, cleared and written back;
+offload, sharing and parking do nothing for it.
 
 ``kv_mode='ring'`` is the baseline the pool replaces: every slot owns a
 ring sized ``cache_len(max_seq)`` (:func:`kvcache.batched_cache`), and
@@ -50,8 +95,8 @@ admission is one monolithic ``model.prefill(prompt, seq_len=max_seq)``
 whose cache is copied whole into the slot's rows (EMPTY -> ACTIVE within
 one call).  A from-scratch prefill of STREAM_KV_THRESHOLD tokens or more
 attends its fresh k/v through the flash-attention kernel.  There is no
-pool, so ``paged_kernel`` is refused, and ``reset``/``audit`` have no pool
-to touch.
+pool, so ``paged_kernel``, offload, sharing and parking are refused, and
+``reset``/``audit`` have no pool to touch.
 
 On a CUDA device the batched decode step and the ``prefill_chunk``-token
 chunk step each run as a CUDA graph (:mod:`repro_torch.serve.graphs`),
@@ -60,31 +105,39 @@ reference's jitted steps.  The decode step is fixed-shape and mask-only:
 every row is computed, and ``active`` decides per row what is kept.  Both
 steps read their inputs from, and write their results into, tensors whose
 storage never moves: the cache, ``last_tokens``, ``out_buf``, ``out_pos``,
-the ``active`` mask and the chunk's token and slot buffers.  A chunk of
-another length (a prompt's tail, or the whole prompt when
-``prefill_chunk`` is None) and ring mode's monolithic prefill run eagerly
-on the same kernels.  On the CPU every step runs eagerly.
+the ``active`` mask and the chunk's token and slot buffers.  So every write
+the scheduler makes between steps — a restored or copy-on-write page, a
+reinstalled row, a rewound length, a page-table row — goes into those
+tensors in place; a rebound tensor would raise no error, the graphs would
+go on reading the old storage.  A chunk of another length (a prompt's tail,
+or the whole prompt when ``prefill_chunk`` is None) and ring mode's
+monolithic prefill run eagerly on the same kernels.  On the CPU every step
+runs eagerly.
 
-Not ported yet, and refused rather than ignored: KV offload, prefix
-sharing, session parking, speculative decoding and ``mesh=``.
+Not ported yet, and refused rather than ignored: speculative decoding,
+``mesh=``, and the fleet's hooks — ``index_journal=True``, and with it
+``externalize_session``, ``adopt_parked`` and ``adopt_index_journal``.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..core.storage import PageBlobStore
 from ..models import kvcache
 from . import sampling
-from .engine import make_chunk_step
+from .engine import make_chunk_step, make_offload_steps
 from .graphs import StepGraphs
 from .lifecycle import Slot, SlotState
 
 CONTINUOUS_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+PREEMPT_POLICIES = ("none", "pressure")
 
 
 def supports_continuous(cfg) -> bool:
@@ -98,6 +151,8 @@ class _Request:
     prompt: Any                 # (P,) int tokens
     max_new: int
     submit_step: int = 0
+    hashes: Any = None          # prompt page-chain hashes, computed once (a
+    # held request is re-matched every _fill_slots pass)
 
 
 @dataclasses.dataclass
@@ -108,6 +163,41 @@ class CompletedRequest:
     admitted_step: int
     finished_step: int
     submitted_step: int = 0     # admission stall = admitted - submitted
+    preempts: int = 0           # times this request was preempted mid-decode
+    reused_tokens: int = 0      # prompt tokens served from shared/parked pages
+
+
+@dataclasses.dataclass
+class ParkedSession:
+    """The durable half of a parked session: the KV-page journal a completed
+    request leaves behind so its session's next request restores instead of
+    re-prefilling.  Owns one allocator reference per resident page; the
+    journal is immutable (writers copy-on-write split), dropped only when
+    superseded by a longer history, diverged from, expired, or reset."""
+
+    session: str
+    history: np.ndarray         # prompt + generated tokens
+    consumed: int               # tokens whose KV/recurrent state is captured
+    # (decode-written KV is bitwise what a re-prefill would write — the S=1
+    # decode path IS the chunk path at S=1 — so the whole consumed span is
+    # reusable, generated tokens included)
+    page_row: np.ndarray        # logical -> physical page map at park time
+    pages: List[int]            # resident page references the record owns
+    slot: Optional[int] = None  # still holding its slot (rows live on the card)
+    state: Any = None           # host row snapshot once the slot is reclaimed
+    blob_key: Optional[str] = None        # pages offloaded under pool pressure
+    blob_pidx: List[int] = dataclasses.field(default_factory=list)
+    parked_step: int = 0
+
+
+@dataclasses.dataclass
+class _MatchPlan:
+    """How much of an arriving prompt is already resident, and where."""
+
+    kind: str = "none"          # none | park | park-blob | index
+    C: int = 0                  # matched tokens (their KV will be reused)
+    pages: List[int] = dataclasses.field(default_factory=list)  # logical order
+    record: Optional[ParkedSession] = None
 
 
 def _not_ported(what: str):
@@ -122,18 +212,24 @@ class DecodeScheduler:
                  kv_mode: str = "paged", page_size: int = 16,
                  kv_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
+                 offload: bool = False,
+                 preempt_policy: Optional[str] = None,
+                 idle_preempt_steps: int = 0,
+                 blob_store: Optional[PageBlobStore] = None,
+                 prefix_sharing: bool = False,
+                 park_sessions: bool = False,
+                 park_ttl_steps: int = 0,
                  attn_backend: str = "gather", device="cuda",
-                 mesh=None, offload: bool = False, prefix_sharing: bool = False,
-                 park_sessions: bool = False, draft_model=None, spec_k: int = 0):
+                 mesh=None, index_journal: bool = False,
+                 draft_model=None, spec_k: int = 0):
         if not supports_continuous(model.cfg):
             raise ValueError(
                 f"family {model.cfg.family!r} has no per-slot decode path here; "
                 f"continuous batching supports {CONTINUOUS_FAMILIES}")
         if kv_mode not in ("paged", "ring"):
             raise ValueError(f"kv_mode must be 'paged' or 'ring', got {kv_mode!r}")
-        for flag, what in ((mesh is not None, "mesh="), (offload, "KV offload"),
-                           (prefix_sharing, "prefix sharing"),
-                           (park_sessions, "session parking"),
+        for flag, what in ((mesh is not None, "mesh="),
+                           (index_journal, "index_journal (the fleet's prefix-index journal)"),
                            (draft_model is not None or spec_k, "speculative decoding")):
             if flag:
                 raise _not_ported(what)
@@ -156,6 +252,18 @@ class DecodeScheduler:
             # scheduler sharing this model object keeps the reference dispatch
             model = copy.copy(model)
             model.cfg = dataclasses.replace(model.cfg, attn_backend="paged_kernel")
+        if preempt_policy is None:
+            preempt_policy = "pressure" if offload else "none"
+        if preempt_policy not in PREEMPT_POLICIES:
+            raise ValueError(f"preempt_policy must be one of {PREEMPT_POLICIES}, "
+                             f"got {preempt_policy!r}")
+        if offload and kv_mode != "paged":
+            raise ValueError("KV offload needs the paged pool (kv_mode='paged'); "
+                             "per-slot rings have no page granularity to evict")
+        if (prefix_sharing or park_sessions) and kv_mode != "paged":
+            raise ValueError(
+                "prefix sharing / session parking need the paged pool "
+                "(kv_mode='paged'); per-slot rings have no shareable pages")
         self.attn_backend = attn_backend
         self.model = model
         self.device = model.device
@@ -166,11 +274,35 @@ class DecodeScheduler:
         self.kv_mode = kv_mode
         self._seed = seed
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        paged_kv = kv_mode == "paged" and self._has_kv
+        self.offload = bool(offload) and paged_kv
+        self.preempt_policy = preempt_policy if self.offload else "none"
+        self.idle_preempt_steps = idle_preempt_steps
+        # -- prefix sharing / session parking -------------------------------
+        self.prefix_sharing = bool(prefix_sharing) and paged_kv
+        self.park_sessions = bool(park_sessions) and paged_kv
+        self.park_ttl_steps = park_ttl_steps
+        # index sharing rebuilds state from KV pages alone, which only
+        # pure-attention families allow (hybrid conv/RG-LRU rows are not in
+        # the pool); parking keeps the rows, so it covers every family
+        self._attention_only = model.cfg.family in ("dense", "moe")
+        self._index_sharing = self.prefix_sharing and self._attention_only
+        self.prefix_index = kvcache.PrefixIndex()
+        self._parked: Dict[str, ParkedSession] = {}
+        self.shared_prefix_tokens = 0   # prompt tokens never re-prefilled
+        self.park_hits = 0
+        self.park_misses = 0
+        self.index_hits = 0
+        self.cow_splits = 0
+        self.parks = 0
+        self.park_evictions = 0         # parked slots reclaimed for admissions
+        self.park_offloads = 0          # parked page sets pushed to the blob store
+        self.park_expirations = 0
 
         self.page_size = page_size
         self.max_pages = -(-max_seq // page_size)
         self.n_pages = kv_pages if kv_pages is not None else n_slots * self.max_pages
-        if not (kv_mode == "paged" and self._has_kv):
+        if not paged_kv:
             self.n_pages = 0
         elif self.n_pages < self.max_pages:
             raise ValueError(f"kv_pages={self.n_pages} cannot hold even one slot's "
@@ -189,6 +321,20 @@ class DecodeScheduler:
         else:
             self.cache = kvcache.batched_cache(model, n_slots, max_seq)
 
+        # -- offload plumbing ------------------------------------------------
+        self.blob_store = blob_store if blob_store is not None else PageBlobStore()
+        self._extract, self._inject = make_offload_steps()
+        # restore chunking mirrors prefill chunking: a restore step moves
+        # about one prefill chunk's worth of tokens (>= 1 page)
+        self._restore_chunk_pages = (max(1, prefill_chunk // page_size)
+                                     if kv_mode == "paged" and prefill_chunk else None)
+        self._preempted_order: List[int] = []   # slot indices, FIFO restores
+        self.preemptions = 0
+        self.restores = 0
+        self.restore_chunks = 0
+        self.offload_pages = 0
+        self.restored_pages = 0
+
         self.slots: List[Slot] = [Slot(index=i) for i in range(n_slots)]
         # device-side per-slot output ring: tokens accumulate on device and
         # are pulled to the host once per completion, not once per step
@@ -206,6 +352,7 @@ class DecodeScheduler:
         self.pending: List[_Request] = []
         self._active_sessions: set = set()
         self._chunk_rr = 0            # round-robin over admitting slots
+        self._restore_rr = 0          # round-robin over restoring slots
         # -- occupancy / throughput accounting --------------------------------
         self.steps = 0
         self.slot_steps = 0           # sum over steps of active slots
@@ -221,7 +368,8 @@ class DecodeScheduler:
     def submit(self, session: str, request_id: str, prompt, max_new: int) -> None:
         """Enqueue a request; admitted into a free slot as soon as its
         session has no in-flight predecessor (per-session FIFO gate) and the
-        pool's uncommitted pages cover its worst case.
+        pool's uncommitted pages cover its worst case (or the preemption
+        policy can evict enough to make them).
 
         ``max_new`` is clamped to what the slot can hold: the output ring
         caps it at ``max_seq``, and on full attention generation past
@@ -255,14 +403,28 @@ class DecodeScheduler:
         self._fill_slots()
 
     def busy(self) -> bool:
+        """In-flight work pending.  PARKED retention is not work: a parked
+        slot is a cache entry, not a request."""
         return any(s.working for s in self.slots) or bool(self.pending)
 
     def free_slots(self) -> int:
-        return sum(1 for s in self.slots if s.empty)
+        """Slots a new admission can take (EMPTY, plus PARKED ones — parked
+        residency is reclaimable, its record survives on the host)."""
+        return sum(1 for s in self.slots if s.empty or s.parked)
+
+    def parked_slots(self) -> int:
+        return sum(1 for s in self.slots if s.parked)
 
     def active_slots(self) -> int:
-        """Slots decoding+sampling this step (admitting excluded)."""
+        """Slots decoding+sampling this step (admitting/preempted excluded)."""
         return sum(1 for s in self.slots if s.decoding)
+
+    def admitting_slots(self) -> int:
+        return sum(1 for s in self.slots if s.state is SlotState.ADMITTING)
+
+    def preempted_slots(self) -> int:
+        return sum(1 for s in self.slots
+                   if s.state in (SlotState.PREEMPTED, SlotState.RESTORING))
 
     def wants_more(self) -> bool:
         """Whether claiming more queued work could improve occupancy: any
@@ -286,24 +448,127 @@ class DecodeScheduler:
 
     def _fill_slots(self) -> None:
         held: List[_Request] = []
-        held_sessions: set = set()    # a held request gates its whole session
+        held_sessions: set = set()    # a held request gates its whole session:
+        # a page-starved r0 must not be overtaken by its session's smaller r1
+        pool_starved = False
+        if self.park_sessions and self.park_ttl_steps > 0:
+            self._expire_parked()
         for req in self.pending:
             if req.session in self._active_sessions or req.session in held_sessions:
                 held.append(req)      # FIFO gate: predecessor decoding or held
                 held_sessions.add(req.session)
                 continue
-            slot = next((s for s in self.slots if s.empty), None)
-            need = self._pages_needed(req)
-            if slot is None or self._uncommitted() < need:
+            plan = self._match_prefix(req)
+            slot = self._slot_for(plan)
+            if slot is None and not any(s.parked for s in self.slots):
                 held.append(req)
                 held_sessions.add(req.session)
                 continue
-            self._admit(slot, req, need)
+            need = self._plan_pages(req, plan)
+            if need and self._uncommitted() < need:
+                # pool gate: reclaim shareable capacity first (index refs,
+                # then parked retention), then try the preemption policy
+                self._reclaim_pool(need, keep=plan.record, pinned=plan.pages)
+                if self._uncommitted() < need and not self._preempt_for(need):
+                    pool_starved = True
+                    held.append(req)
+                    held_sessions.add(req.session)
+                    continue
+            if slot is None:
+                # only now — with the pool gate passed — reclaim a parked
+                # residency (a held request must not cost a snapshot);
+                # _reclaim_pool may already have freed one by offloading
+                slot = next((s for s in self.slots if s.empty), None)
+                if slot is None:
+                    victim = min((s for s in self.slots if s.parked),
+                                 key=lambda s: s.parked_step)
+                    self._evict_parked_slot(self._parked[victim.session])
+                    slot = self.slots[victim.index]
+            self._admit(slot, req, plan)
         self.pending = held
+        # restores only start when pool pressure has cleared: no pending
+        # request is pool-gated, and the uncommitted margin funds the
+        # victim's whole worst case (prevents preempt<->restore thrash)
+        if not pool_starved:
+            self._start_restores()
 
-    def _admit(self, slot: Slot, req: _Request, need: int) -> None:
+    # -- prefix matching / parked-capacity planning -------------------------
+
+    def _match_prefix(self, req: _Request) -> _MatchPlan:
+        """The longest resident prefix of this prompt: the session's parked
+        journal if the prompt extends it (pages or blob), else the longest
+        indexed full-page chain.  At least the last prompt token always
+        re-runs — its logits seed sampling."""
+        plan = _MatchPlan()
+        if not (self.kv_mode == "paged" and self._has_kv):
+            return plan
+        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        P = len(prompt)
+        rec = self._parked.get(req.session) if self.park_sessions else None
+        if rec is not None:
+            lim = min(P, len(rec.history))
+            eq = prompt[:lim] == rec.history[:lim]
+            common = lim if eq.all() else int(np.argmin(eq))
+            if self._attention_only:
+                # reuse everything consumed — generated tokens included
+                # (decode KV is bitwise prefill KV) — capped at P-1: the
+                # last prompt token always re-runs to seed sampling
+                C = min(rec.consumed, common, P - 1)
+            else:
+                # recurrent rows advanced through every consumed token and
+                # cannot rewind: all or nothing, with >= 1 tail token left
+                # to re-run for the seeding logits
+                C = rec.consumed if (common >= rec.consumed
+                                     and P >= rec.consumed + 1) else 0
+            if C > 0:
+                plan.kind = "park-blob" if rec.blob_key else "park"
+                plan.C = C
+                plan.record = rec
+                if not rec.blob_key:
+                    plan.pages = [int(rec.page_row[i])
+                                  for i in range(-(-C // self.page_size))]
+                return plan
+            if common < lim:
+                # the prompt *contradicts* the journal: it can never serve
+                # this session again (per-session FIFO — this req is next)
+                self._drop_record(self._parked.pop(req.session))
+                self.park_misses += 1
+            # else: consistent but too short to reuse (hybrid: an exact
+            # resubmission of the recorded history) — keep the journal;
+            # completion supersedes it
+        if self._index_sharing:
+            if req.hashes is None:
+                req.hashes = kvcache.page_hashes(prompt, self.page_size)
+            k_max = max(0, P - 1) // self.page_size   # tail >= 1 token
+            pids = self.prefix_index.lookup(req.hashes[:k_max])
+            if pids:
+                plan.kind = "index"
+                plan.C = len(pids) * self.page_size
+                plan.pages = [int(p) for p in pids]
+        return plan
+
+    def _plan_pages(self, req: _Request, plan: _MatchPlan) -> int:
+        """Reservation size under the plan: full worst case minus the full
+        pages mapped read-only (shared pages cost nothing until a CoW split;
+        the boundary partial page's split is inside the writable span, and a
+        blob unpark re-allocates its pages out of the same reservation)."""
+        total = self._pages_needed(req)
+        if plan.kind in ("park", "index"):
+            return total - plan.C // self.page_size
+        return total
+
+    def _slot_for(self, plan: _MatchPlan) -> Optional[Slot]:
+        """A free admission target: the plan's own parked slot (in-place
+        unpark) or any EMPTY slot.  PARKED residencies are reclaimable too,
+        but only *after* the pool gate passes — ``_fill_slots`` defers that
+        eviction so a held request never costs a journal its row snapshot."""
+        if plan.kind == "park" and plan.record.slot is not None:
+            return self.slots[plan.record.slot]
+        return next((s for s in self.slots if s.empty), None)
+
+    def _admit(self, slot: Slot, req: _Request, plan: _MatchPlan) -> None:
         if self.kv_mode == "paged":
-            self._admit_paged(slot, req, need)
+            self._admit_paged(slot, req, plan)
             return
         # ring: one monolithic prefill into a fresh B=1 ring, copied whole
         # into the slot's rows; the slot is ACTIVE when this returns
@@ -315,24 +580,89 @@ class DecodeScheduler:
         self.prefill_tokens += prompt.shape[1]
         self._activate(slot, logits)
 
-    def _admit_paged(self, slot: Slot, req: _Request, need: int) -> None:
-        """Begin a chunked admission: clear the slot's rows, reserve its
-        worst case and stage the prompt in ``prefill_chunk`` pieces (a
-        1-token final chunk is fine — the S=1 forward is the chunk path)."""
+    def _admit_paged(self, slot: Slot, req: _Request, plan: _MatchPlan) -> None:
+        """Begin a chunked admission.  With no resident prefix the slot's
+        rows are cleared and the whole prompt is staged; with one, the
+        matched pages are mapped read-only (shared) or restored from the
+        parked blob, the parked rows are reinstalled if the slot changed,
+        and only the prompt's tail is staged in ``prefill_chunk`` pieces (a
+        1-token final chunk is fine — the S=1 forward is the chunk path).
+        Every write goes into the cache's tensors in place."""
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
-        size = self.prefill_chunk or len(prompt)
-        kvcache.cache_clear_slot(self.cache, slot.index)
-        self._page_rows[slot.index, :] = -1
+        C = plan.C
+        need = self._plan_pages(req, plan)
+        tail = prompt[C:]
+        size = self.prefill_chunk or len(tail)
+        in_place = plan.kind == "park" and plan.record.slot == slot.index
+        if not in_place:
+            kvcache.cache_clear_slot(self.cache, slot.index)
+            self._page_rows[slot.index, :] = -1
         self._reserved += need
         self._begin(slot, req)
-        slot.chunks = [prompt[i:i + size] for i in range(0, len(prompt), size)]
+        slot.session = None
+        slot.chunks = [tail[i:i + size] for i in range(0, len(tail), size)]
         slot.chunk_i = 0
-        slot.len = 0                  # host mirror of the slot's live length
+        slot.len = C                  # host mirror of the slot's live length
         slot.pages = []
+        slot.shared = []
         slot.need = need
+        slot.reused = C
+        slot.preempts = 0
+        if plan.kind in ("park", "index"):
+            # map the matched prefix read-only: one extra reference per page
+            self.allocator.share(plan.pages)
+            slot.shared = list(plan.pages)
+            self._page_rows[slot.index, :len(plan.pages)] = plan.pages
+            kvcache.set_page_row(self.cache, slot.index, self._page_rows[slot.index])
+            if plan.kind == "park":
+                rec = plan.record
+                if in_place:
+                    # the new request will overwrite the live rows; keep the
+                    # journal self-contained so it can offload mid-flight
+                    rec.state = self._snapshot_rows(slot.index)
+                    rec.slot = None
+                elif rec.state is not None:
+                    kvcache.scatter_slot_state(self.cache, slot.index, rec.state)
+                self.park_hits += 1
+            else:
+                # index pages carry KV only (index matches are gated to
+                # pure-attention families: no recurrent rows to rebuild)
+                self.index_hits += 1
+            # the snapshot's length is rec.consumed; rewind to the matched
+            # span C (attention families may reuse less than consumed)
+            self.cache["length"][slot.index] = C
+        elif plan.kind == "park-blob":
+            # restore only the reused span of the journal's blob out of
+            # this admission's own reservation; the record keeps its whole
+            # blob until superseded
+            rec = plan.record
+            npg = -(-C // self.page_size)
+            pids = self.allocator.alloc(npg)
+            self._reserved -= npg
+            slot.pages = list(pids)
+            self._page_rows[slot.index, rec.blob_pidx[:npg]] = pids
+            blob = self.blob_store.get(rec.blob_key)
+            if npg < len(rec.blob_pidx):
+                blob = kvcache.slice_page_blob(blob, 0, npg)
+            self._inject(self.cache, pids, blob)
+            kvcache.set_page_row(self.cache, slot.index, self._page_rows[slot.index])
+            kvcache.scatter_slot_state(self.cache, slot.index, rec.state)
+            self.cache["length"][slot.index] = C
+            self.park_hits += 1
+        self.shared_prefix_tokens += C
+        if C % self.page_size and slot.shared:
+            # split the partial boundary page now: the batched decode step's
+            # masked rows still write at the slot's length, so a shared page
+            # this slot will write into must go private before the next
+            # decode step, not lazily at chunk time
+            self._prepare_write_span(slot, C, 1)
+
+    def _snapshot_rows(self, slot: int) -> Dict[str, torch.Tensor]:
+        """A host copy of one slot's rows (length, recurrent state)."""
+        return kvcache.to_host(kvcache.gather_slot_state(self.cache, slot))
 
     def _begin(self, slot: Slot, req: _Request) -> None:
-        """EMPTY -> ADMITTING: bind the request and close its session's FIFO gate."""
+        """-> ADMITTING: bind the request and close its session's FIFO gate."""
         slot.to(SlotState.ADMITTING)
         slot.req = req
         slot.n_out = 0
@@ -351,41 +681,299 @@ class DecodeScheduler:
         slot.n_out = 1
         self.admitted += 1
 
+    def _map_page(self, slot: Slot, page_idx: int) -> None:
+        """Host-side mapping only — the caller pushes the updated row to the
+        device once per chunk/step."""
+        pid = self.allocator.alloc(1)[0]
+        self._page_rows[slot.index, page_idx] = pid
+        slot.pages.append(pid)
+        self._reserved -= 1
+
+    def _unmap_row(self, slot: int) -> None:
+        self._page_rows[slot, :] = -1
+        kvcache.set_page_row(self.cache, slot, self._page_rows[slot])
+
     def _release_slot(self, slot: Slot) -> None:
-        """Free a DRAINED slot's pages and unused reservation, and unmap its
-        device page-table row so residual decode traffic is dropped."""
+        """Release a DRAINED slot's page references (owned pages free when
+        their last reference dies; shared pages just drop one count) and any
+        unused reservation, and unmap its device page-table row so residual
+        decode traffic is dropped."""
         slot.to(SlotState.EMPTY)
         if self.kv_mode == "paged":
             self._reserved -= slot.need - len(slot.pages)
-            if slot.pages:
-                self.allocator.release(slot.pages)
-            self._page_rows[slot.index, :] = -1
-            kvcache.set_page_row(self.cache, slot.index, self._page_rows[slot.index])
+            if slot.pages or slot.shared:
+                self.allocator.release(slot.pages + slot.shared)
+            self._unmap_row(slot.index)
         self.slots[slot.index] = Slot(index=slot.index)
 
+    # -- session parking (cross-request KV retention) ------------------------
+
+    def _publish_index(self, row: np.ndarray, history: np.ndarray,
+                       hashes=None) -> None:
+        """Publish a finished sequence's full pages — generated span
+        included — into the prefix index (the index takes one reference per
+        adopted page).  Resident KV covers ``len(history) - 1`` tokens (the
+        final sampled token was never consumed).  ``hashes`` reuses the
+        request's prompt chain when it already covers the span (the chain
+        property makes the prompt hashes a prefix of the history hashes)."""
+        full = (len(history) - 1) // self.page_size
+        if not full:
+            return
+        if hashes is None or len(hashes) < full:
+            hashes = kvcache.page_hashes(history[: full * self.page_size],
+                                         self.page_size)
+        pids = [int(row[i]) for i in range(full)]
+        self.prefix_index.publish(hashes[:full], pids, self.allocator)
+
+    def _park_slot(self, slot: Slot, req: _Request, tokens: np.ndarray) -> None:
+        """Park a DRAINED slot: ownership of every mapped page transfers to
+        the session's journal record, full pages are published to the prefix
+        index, and the slot enters PARKED with its device row unmapped (so
+        its masked decode traffic can never touch the journal)."""
+        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        history = np.concatenate([prompt, np.asarray(tokens, np.int32).reshape(-1)])
+        row = self._page_rows[slot.index].copy()
+        self._reserved -= slot.need - len(slot.pages)
+        if self._index_sharing:
+            self._publish_index(row, history, hashes=req.hashes)
+        old = self._parked.pop(req.session, None)
+        if old is not None:
+            self._drop_record(old)          # superseded journal
+        self._parked[req.session] = ParkedSession(
+            session=req.session, history=history, consumed=slot.len,
+            page_row=row, pages=slot.pages + slot.shared, slot=slot.index,
+            parked_step=self.steps)
+        self._unmap_row(slot.index)
+        slot.to(SlotState.PARKED)
+        slot.session = req.session
+        slot.parked_step = self.steps
+        slot.req = None
+        slot.pages, slot.shared = [], []
+        slot.need = 0
+        self.parks += 1
+
+    def _evict_parked_slot(self, rec: ParkedSession) -> None:
+        """Reclaim a parked slot for a new admission: snapshot its rows to
+        the host (length + recurrent state; the pages stay resident, owned
+        by the record) and free the slot."""
+        slot = self.slots[rec.slot]
+        rec.state = self._snapshot_rows(rec.slot)
+        slot.to(SlotState.EMPTY)
+        self.slots[rec.slot] = Slot(index=rec.slot)
+        rec.slot = None
+        self.park_evictions += 1
+
+    def _offload_parked(self, rec: ParkedSession) -> None:
+        """Pool pressure: push a parked journal's pages to the blob store
+        (position-ordered, like a preemption) and release the references —
+        the session's next request restores the blob instead of
+        re-prefilling, paying a storage GET for prompt-length compute."""
+        if rec.slot is not None:
+            self._evict_parked_slot(rec)
+        npg = -(-rec.consumed // self.page_size)
+        blob = self._extract(self.cache, rec.page_row[:npg])
+        key = f"park/{rec.session}/s{self.steps}"
+        self.blob_store.put(key, blob, kvcache.blob_nbytes(blob))
+        rec.blob_key = key
+        rec.blob_pidx = list(range(npg))
+        self.allocator.release(rec.pages)
+        rec.pages = []
+        self.park_offloads += 1
+
+    def _drop_record(self, rec: ParkedSession) -> None:
+        """Forget a journal (superseded, diverged, expired, or reclaimed):
+        release its page references and delete its blob; a still-resident
+        slot goes back to EMPTY."""
+        if rec.slot is not None:
+            self.slots[rec.slot].to(SlotState.EMPTY)
+            self.slots[rec.slot] = Slot(index=rec.slot)
+        if rec.pages:
+            self.allocator.release(rec.pages)
+        if rec.blob_key:
+            self.blob_store.delete(rec.blob_key)
+
+    def _expire_parked(self) -> None:
+        for session, rec in list(self._parked.items()):
+            if self.steps - rec.parked_step > self.park_ttl_steps:
+                self._drop_record(self._parked.pop(session))
+                self.park_expirations += 1
+
+    def _reclaim_pool(self, need: int, keep: Optional[ParkedSession] = None,
+                      pinned: Sequence[int] = ()) -> None:
+        """Pool-gated admission: reclaim shareable capacity cheapest-first —
+        drop LRU prefix-index references (free if nobody else maps the
+        page), then offload parked journals to the blob store, oldest
+        first.  ``keep`` is the record the admission itself consumes and
+        ``pinned`` the index pages its plan is about to map."""
+        self.prefix_index.evict(self.allocator, self._reserved + need, pinned=pinned)
+        if self._uncommitted() >= need:
+            return
+        for rec in sorted((r for r in self._parked.values()
+                           if r.pages and r is not keep),
+                          key=lambda r: r.parked_step):
+            if self._uncommitted() >= need:
+                break
+            self._offload_parked(rec)
+
+    # -- preemption / restore (storage-backed slot reclamation) -----------------
+
+    def _preempt_for(self, need: int) -> bool:
+        """Free at least ``need - uncommitted`` pages by preempting ACTIVE
+        victims; all-or-nothing (a partial eviction would pay the offload
+        transfer without unblocking the admission)."""
+        if self.preempt_policy != "pressure":
+            return False
+        deficit = need - self._uncommitted()
+        victims = [s for s in self.slots
+                   if s.state is SlotState.ACTIVE and s.pages
+                   and s.age(self.steps) >= self.idle_preempt_steps]
+        # idleness-driven ranking: the longest-resident slot first (the
+        # mostly-idle long-runner), then the one pinning the most pages
+        victims.sort(key=lambda s: (s.age(self.steps), len(s.pages)), reverse=True)
+        chosen, freed = [], 0
+        for v in victims:
+            if freed >= deficit:
+                break
+            chosen.append(v)
+            freed += v.need   # eviction releases pages AND reservation
+        if freed < deficit:
+            return False
+        for v in chosen:
+            self._preempt(v)
+        return True
+
+    def preempt(self, index: int) -> None:
+        """Preempt one ACTIVE slot now (the policy calls this; exposed so
+        tests and drivers can force a preemption point)."""
+        self._preempt(self.slots[index])
+
+    def _preempt(self, slot: Slot) -> None:
+        slot.to(SlotState.PREEMPTED)
+        row = self._page_rows[slot.index]
+        pidx = [i for i in range(self.max_pages) if row[i] >= 0]
+        phys = [int(row[i]) for i in pidx]
+        # gather in logical order and copy to the host: the blob is
+        # position-ordered however scrambled the physical table was
+        blob = self._extract(self.cache, phys)
+        key = f"kv/{slot.req.request_id}/p{slot.preempts}"
+        self.blob_store.put(key, blob, kvcache.blob_nbytes(blob))
+        slot.blob_key = key
+        slot.blob_pidx = pidx
+        slot.restore_i = 0
+        slot.preempts += 1
+        # release the slot's whole pool commitment: page references dropped
+        # (owned pages free; shared prefix pages keep their other holders),
+        # unmapped growth back to the uncommitted margin.  The restore owns
+        # every page it injects — the blob covers shared prefix pages too —
+        # so the reservation grows back to the full worst case.
+        self._reserved -= slot.need - len(slot.pages)
+        self.allocator.release(slot.pages + slot.shared)
+        slot.pages = []
+        slot.shared = []
+        slot.need = self._pages_needed(slot.req)
+        self._unmap_row(slot.index)
+        self._preempted_order.append(slot.index)
+        self.preemptions += 1
+        self.offload_pages += len(phys)
+
+    def _start_restores(self) -> None:
+        """Fund restores FIFO in preemption order: a later blob must not
+        overtake an earlier one."""
+        for idx in list(self._preempted_order):
+            slot = self.slots[idx]
+            if self._uncommitted() < slot.need:
+                # retention must never starve a restore: index references
+                # and parked journals are reclaimable cache, a preempted
+                # request is real work (nothing else calls the reclaim path
+                # when the pending queue is empty)
+                self._reclaim_pool(slot.need)
+            if self._uncommitted() < slot.need:
+                break
+            slot.to(SlotState.RESTORING)
+            self._reserved += slot.need
+            slot.blob = self.blob_store.get(slot.blob_key)
+            self._preempted_order.remove(idx)
+            self.restores += 1
+
+    def _run_restore_chunk(self, slot: Slot) -> None:
+        """Write one chunk of a restoring slot's blob back: allocate fresh
+        physical pages, scatter the blob slice into them, re-map the page
+        table.  The final chunk reactivates the slot — it rejoins the decode
+        batch the same step, like an admission whose last chunk landed."""
+        n = len(slot.blob_pidx)
+        hi = min(slot.restore_i + (self._restore_chunk_pages or n), n)
+        phys = []
+        for j in range(slot.restore_i, hi):
+            pid = self.allocator.alloc(1)[0]
+            self._reserved -= 1
+            slot.pages.append(pid)
+            self._page_rows[slot.index, slot.blob_pidx[j]] = pid
+            phys.append(pid)
+        self._inject(self.cache, phys, kvcache.slice_page_blob(slot.blob, slot.restore_i, hi))
+        kvcache.set_page_row(self.cache, slot.index, self._page_rows[slot.index])
+        self.restored_pages += hi - slot.restore_i
+        slot.restore_i = hi
+        self.restore_chunks += 1
+        if hi == n:
+            self.blob_store.delete(slot.blob_key)
+            slot.blob = None
+            slot.blob_key = None
+            slot.blob_pidx = []
+            slot.to(SlotState.ACTIVE)
+            slot.active_since = self.steps
+
+    def drain_offload_ops(self) -> list:
+        """Storage ops since the last drain — the frontend bills these under
+        the calibrated obj_read/obj_write latency and Table-4 cost models."""
+        return self.blob_store.drain_ops()
+
     def _prepare_write_span(self, slot: Slot, pos0: int, count: int) -> None:
-        """Map the unmapped pages under ``[pos0, pos0 + count)`` for this
-        slot (alloc-on-write, within its reservation) and push the row to
-        the device once."""
+        """Make the pages under ``[pos0, pos0 + count)`` writable for this
+        slot: map unmapped pages (alloc-on-write, within the reservation)
+        and copy-on-write split any mapped page that another reference
+        still reads — the writer gets a private copy on a fresh page and
+        remaps only its own table row, so the prefix index / parked journal
+        / sibling slot keeps reading the original bytes.  The copy and the
+        row go into the cache in place; the row is pushed once."""
         changed = False
         hi = min((pos0 + count - 1) // self.page_size, self.max_pages - 1)
         for pidx in range(pos0 // self.page_size, hi + 1):
-            if self._page_rows[slot.index, pidx] < 0 and len(slot.pages) < slot.need:
-                # past the reservation the final dangling write is dropped
-                pid = self.allocator.alloc(1)[0]
-                self._page_rows[slot.index, pidx] = pid
-                slot.pages.append(pid)
-                self._reserved -= 1
+            pid = int(self._page_rows[slot.index, pidx])
+            if pid < 0:
+                if len(slot.pages) < slot.need:
+                    self._map_page(slot, pidx)
+                    changed = True
+                # else: reservation exhausted — the final dangling write past
+                # it goes to the scratch page
+            elif self.allocator.refcount(pid) > 1:
+                new = self.allocator.alloc(1)[0]
+                if pid in slot.shared:
+                    # the split of a shared prefix page was part of this
+                    # admission's reservation (need counts every writable page)
+                    self._reserved -= 1
+                    slot.shared.remove(pid)
+                else:
+                    # an owned page some external holder (index/journal) still
+                    # references: swap it out, reservation-neutral
+                    slot.pages.remove(pid)
+                slot.pages.append(new)
+                kvcache.copy_pages(self.cache, [pid], [new])
+                self.allocator.release([pid])
+                self._page_rows[slot.index, pidx] = new
+                self.cow_splits += 1
                 changed = True
         if changed:
             kvcache.set_page_row(self.cache, slot.index, self._page_rows[slot.index])
 
     def _run_chunk(self, slot: Slot) -> None:
-        """One prefill chunk for one admitting slot; the final chunk's
-        logits seed the slot's first token."""
+        """One prefill chunk for one admitting slot (alloc-on-write: map the
+        pages the chunk's span touches, CoW-splitting any shared one, then a
+        B=1 forward against the shared pool); the final chunk's logits seed
+        the slot's first token."""
         chunk = slot.chunks[slot.chunk_i]
         C = len(chunk)
-        self._prepare_write_span(slot, slot.len, C)
+        if self._has_kv:
+            self._prepare_write_span(slot, slot.len, C)
         logits = self._chunk_logits(chunk, slot.index)
         slot.len += C
         slot.chunk_i += 1
@@ -422,9 +1010,9 @@ class DecodeScheduler:
         all on the device and in place: nothing returns to the host, and
         the results go into the given ``cache``, ``last_tokens``,
         ``out_buf`` and ``out_pos``.  Fixed-shape and mask-only: every row
-        is computed, and ``active`` (n_slots,) bool keeps freed and
-        mid-admission slots' tokens, output rings, lengths and recurrent
-        rows as they were."""
+        is computed, and ``active`` (n_slots,) bool keeps freed,
+        mid-admission, preempted and parked slots' tokens, output rings,
+        lengths and recurrent rows as they were."""
         logits, new_cache = self.model.decode_step(cache, last_tokens[:, None])
         kvcache.mask_slot_rows(new_cache, cache, active)
         toks = torch.where(active, self._sample(logits[:, -1]), last_tokens)
@@ -448,22 +1036,29 @@ class DecodeScheduler:
 
     def step(self) -> List[CompletedRequest]:
         """One scheduler tick: at most one prefill chunk (round-robin over
-        admitting slots), then one batched decode step over the active
-        slots; returns the requests that completed this step (their slots
-        are refilled from the pending list before returning)."""
+        admitting slots) and one restore chunk (round-robin over restoring
+        slots), then one batched decode step over the active slots; returns
+        the requests that completed this step (their slots are refilled from
+        the pending list before returning)."""
         self._fill_slots()
         admitting = [s for s in self.slots if s.state is SlotState.ADMITTING]
         if admitting:
             pick = admitting[self._chunk_rr % len(admitting)]
             self._chunk_rr += 1
             self._run_chunk(pick)
+        restoring = [s for s in self.slots if s.state is SlotState.RESTORING]
+        if restoring:
+            pick = restoring[self._restore_rr % len(restoring)]
+            self._restore_rr += 1
+            self._run_restore_chunk(pick)
         active = [s.index for s in self.slots if s.decoding]
         if not active:
             return []
-        if self.kv_mode == "paged":
+        if self.kv_mode == "paged" and self._has_kv:
             for i in active:
-                # alloc-on-write for decode growth: map the page this step's
-                # token write lands in (within the reservation)
+                # alloc-on-write for decode growth: make the page this step's
+                # token write lands in writable — map it if unmapped (within
+                # the reservation), CoW-split it if shared
                 st = self.slots[i]
                 self._prepare_write_span(st, st.len, 1)
         mask = np.zeros((self.n_slots,), bool)
@@ -488,27 +1083,48 @@ class DecodeScheduler:
                 finished.append(CompletedRequest(
                     session=req.session, request_id=req.request_id, tokens=tokens,
                     admitted_step=st.admitted_step, finished_step=self.steps,
-                    submitted_step=st.submitted_step))
-                self._release_slot(st)
+                    submitted_step=st.submitted_step, preempts=st.preempts,
+                    reused_tokens=st.reused))
+                if self.park_sessions:
+                    self._park_slot(st, req, tokens)
+                else:
+                    if self._index_sharing:
+                        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+                        self._publish_index(self._page_rows[st.index],
+                                            np.concatenate([prompt, tokens.astype(np.int32)]),
+                                            hashes=req.hashes)
+                    self._release_slot(st)
                 self._active_sessions.discard(req.session)
                 self.completed += 1
         if finished:
             self._fill_slots()
         return finished
 
-    def reset(self) -> None:
+    def reset(self, *, clear_blob_store: bool = True) -> None:
         """Abort all in-flight work (crash recovery: the queue layer
         redelivers; completed requests are deduped by the frontend).  The
-        pool returns to fully free and every page-table row to unmapped; the
-        schedule and the sampling generator restart, so a replay is a pure
-        function of the submitted work.  Rings have no pool: each admission
-        overwrites its slot's rows whole.  The CUDA graphs are kept: their
-        static buffers are zeroed in place."""
+        pool returns to fully free and every page-table row to unmapped, the
+        prefix index and the parked-session table are cleared and (unless
+        ``clear_blob_store=False``) the blob store is emptied — a
+        redelivered admission replays from its prompt, never from an
+        orphaned blob or another life's shared pages.  The schedule and the
+        sampling generator restart, so a replay is a pure function of the
+        submitted work.  Rings have no pool: each admission overwrites its
+        slot's rows whole.  The CUDA graphs are kept: their static buffers
+        are zeroed in place."""
         self.slots = [s.force_empty() for s in self.slots]
         self.pending = []
         self._active_sessions.clear()
+        self._preempted_order = []
         self._chunk_rr = 0
+        self._restore_rr = 0
         self._gen.manual_seed(self._seed)
+        # allocator.reset() below wipes every reference wholesale, so the
+        # index and the parked table just forget their entries
+        self.prefix_index.clear()
+        self._parked.clear()
+        if clear_blob_store:
+            self.blob_store.clear()
         self.last_tokens.zero_()
         self.out_buf.zero_()
         self.out_pos.zero_()
@@ -525,40 +1141,62 @@ class DecodeScheduler:
     # -- invariant audit -------------------------------------------------------------
 
     def audit(self) -> None:
-        """Raise AssertionError if an allocator, page-table or reservation
-        invariant is violated: ``free + in_use == n_pages``; every mapped
-        page has refcount 1 and one owner; each slot's host row maps exactly
-        the pages it holds and equals the device row; the reservation ledger
-        equals the outstanding worst-case growth.  Rings have no pool to
-        audit."""
+        """Raise AssertionError if an allocator, refcount, page-table or
+        reservation invariant is violated: ``free + in_use == n_pages``;
+        every mapped page has refcount >= 1; the refcount total equals the
+        references actually held (slot owned + slot shared + parked
+        journals + prefix index); no page is owned by two slots; each slot's
+        host row maps exactly the pages it holds and equals the device row;
+        the reservation ledger equals the outstanding worst-case growth;
+        parked records and PARKED slots point at each other.  Rings have no
+        pool to audit."""
         if self.kv_mode != "paged":
             return
         a = self.allocator
         a.check()
+        refs = 0
         owned: set = set()
         for s in self.slots:
+            refs += len(s.pages) + len(s.shared)
             for p in s.pages:
                 assert p not in owned, f"page {p} owned by two slots"
                 owned.add(p)
-        assert len(owned) == a.total_refs == a.in_use, (
-            f"refcount drift: slots hold {len(owned)} pages, allocator has "
-            f"{a.in_use} in use / {a.total_refs} refs")
+        refs += sum(len(rec.pages) for rec in self._parked.values())
+        refs += len(self.prefix_index)
+        assert refs == a.total_refs, (
+            f"refcount drift: holders sum to {refs}, allocator says {a.total_refs}")
         device_rows = self.cache["page_table"].cpu().numpy()
         for s in self.slots:
             row = self._page_rows[s.index]
             mapped = {int(p) for p in row if p >= 0}
-            assert mapped == set(s.pages), (
-                f"slot {s.index} ({s.state.value}): row maps {mapped}, "
-                f"holds {set(s.pages)}")
+            held = set(s.pages) | set(s.shared)
+            assert mapped == held, (
+                f"slot {s.index} ({s.state.value}): row maps {mapped}, holds {held}")
+            for p in mapped:
+                assert a.refcount(p) >= 1, f"slot {s.index} maps freed page {p}"
             assert (device_rows[s.index] == row).all(), (
                 f"slot {s.index}: device page-table row drifted from the host mirror")
         reserved = sum(s.need - len(s.pages) for s in self.slots
-                       if s.state in (SlotState.ADMITTING, SlotState.ACTIVE))
+                       if s.state in (SlotState.ADMITTING, SlotState.ACTIVE,
+                                      SlotState.RESTORING))
         assert reserved == self._reserved, (
             f"reservation ledger drift: slots imply {reserved}, "
             f"ledger says {self._reserved}")
         assert self._uncommitted() >= 0, (
             f"over-committed pool: {self._reserved} reserved, {a.free_count} free")
+        for session, rec in self._parked.items():
+            if rec.slot is not None:
+                s = self.slots[rec.slot]
+                assert s.state is SlotState.PARKED and s.session == session, (
+                    f"parked record {session} points at slot {rec.slot} "
+                    f"in state {s.state.value} (session {s.session})")
+            assert not (rec.blob_key and rec.pages), (
+                f"parked record {session} is both resident and offloaded")
+        for s in self.slots:
+            if s.parked:
+                rec = self._parked.get(s.session)
+                assert rec is not None and rec.slot == s.index, (
+                    f"PARKED slot {s.index} for session {s.session} has no resident record")
 
     # -- reporting ------------------------------------------------------------------
 
@@ -593,8 +1231,45 @@ class DecodeScheduler:
             "kv_pool_occupancy": round(self.pool_occupancy(), 3),
         }
 
-    def stats(self) -> Dict[str, float]:
+    def offload_stats(self) -> Dict[str, float]:
+        """Offload traffic gauges: preempt/restore counts, page counts, and
+        the byte flows to and from the blob store (bytes_out = offloaded,
+        bytes_in = restored)."""
+        bs = self.blob_store
         return {
+            "preemptions": self.preemptions,
+            "restores": self.restores,
+            "restore_chunks": self.restore_chunks,
+            "offload_pages": self.offload_pages,
+            "restored_pages": self.restored_pages,
+            "offload_puts": bs.puts,
+            "offload_gets": bs.gets,
+            "offload_bytes": bs.bytes_out,
+            "restore_bytes": bs.bytes_in,
+            "offload_stored_bytes": bs.bytes_stored,
+            "offload_stored_high_water_bytes": bs.high_water_bytes,
+        }
+
+    def sharing_stats(self) -> Dict[str, float]:
+        """Prefix-sharing / parking gauges: prompt tokens served from
+        resident pages instead of re-prefilled, hit/miss counts, CoW
+        splits, and the parked-retention flows."""
+        return {
+            "shared_prefix_tokens": self.shared_prefix_tokens,
+            "park_hits": self.park_hits,
+            "park_misses": self.park_misses,
+            "index_hits": self.index_hits,
+            "cow_splits": self.cow_splits,
+            "parks": self.parks,
+            "park_evictions": self.park_evictions,
+            "park_offloads": self.park_offloads,
+            "park_expirations": self.park_expirations,
+            "parked_sessions": len(self._parked),
+            "index_pages": len(self.prefix_index),
+        }
+
+    def stats(self) -> Dict[str, float]:
+        out = {
             "steps": self.steps,
             "occupancy": round(self.occupancy(), 3),
             "prefill_tokens": self.prefill_tokens,
@@ -605,3 +1280,8 @@ class DecodeScheduler:
             "attn_backend": self.attn_backend,
             "prefill_chunks": self.prefill_chunks,
         }
+        if self.offload:
+            out.update(self.offload_stats())
+        if self.prefix_sharing or self.park_sessions:
+            out.update(self.sharing_stats())
+        return out
