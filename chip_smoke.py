@@ -260,9 +260,40 @@ last line is printed):
     steps + chunks); the replay checks as in phase 24.  Both phases print
     their wall time.
 
+26. Draft-and-verify speculative decoding on the paged pool (``gather``,
+    greedy), each target at full width and depth beside the same requests
+    served without speculation: (a) phase 3's ``minicpm-2b`` and traffic
+    (after phase 24), with a self-draft at k = 3 (the accept path; its
+    acceptance must reach 0.5) and with the same config drawn from
+    ``--seed`` + 7 at k = 2 (the reject path); (b) phase 6's
+    ``recurrentgemma-2b`` (after phase 19), 8 requests of 512 tokens, 32
+    new, 4 slots, k = 3, under a seeded 4-layer dense draft of
+    minicpm-2b's widths and the target's vocab of 256000, which rejects
+    nearly every proposal, so the rows' restore and the replay of the
+    accepted span run almost every round (at least one); (c) phase 22's
+    ``moonshot-v1-16b-a3b`` (after phase 23), a self-draft at k = 3, 4
+    requests of 512 tokens on 4 slots.  Every run: every request served
+    in per-session FIFO order, tokens in the vocab, ``audit()`` after every
+    step, and exact launch counts: RG-LRU = 18 x (verify rounds + chunks +
+    rollback replays), moe_experts = 2 x 48 x (chunks + rounds x (k + 1))
+    and the router 48 x the same for the MoE self-draft (a round is one
+    catch-up, k - 1 draft steps and one verify), no paged or flash launch;
+    without speculation the counts of phases 6 and 22 on ``gather``.  The
+    identical token streams are counted; where a stream diverges, the
+    target teacher-forced on the stream without speculation must have a
+    top-2 logit margin within 5% of the logit scale at the first
+    diverging token (a near-tie that the verify chunk's GEMM order may
+    swap).  After the first speculative run, from one state with every
+    slot decoding, the draft graph's and the verify graph's replays must
+    be bitwise their eager steps (the scratch page aside).  Printed: ms
+    per emitted token and decode tok/s with and without speculation,
+    acceptance, verify steps per token, each graph's replay ms, the eager
+    catch-up's ms, the hybrid rollbacks and their ms, captures, the graph
+    pool, peak memory and the launch counts.
+
 On the card the scheduler replays a CUDA graph for every decode step and
 every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19,
-22, 23, 24 and 25 serve on graphs; their exact launch counts are counted
+22, 23, 24, 25 and 26 serve on graphs; their exact launch counts are counted
 through replays (each replay adds the launches its capture recorded).  Phases 4, 8, 13, 17
 and 22 trace steps with ``torch.profiler`` (wall time with the profiler on,
 device busy time, idle share, kernels the device ran, launch calls the
@@ -3210,6 +3241,303 @@ def phase_hybrid_parking(fails: Failures, model, cfg, seed: int) -> None:
     release()
 
 
+# -- phase 26: draft-and-verify speculative decoding ----------------------------------
+
+SPEC_K = 3
+P26_RESEED = 7                     # 26a's reject path: the target's config from seed + 7
+H26_REQUESTS, H26_SLOTS = 8, 4     # 26b, recurrentgemma-2b
+M26_REQUESTS, M26_SLOTS = 4, 4     # 26c, moonshot-v1-16b-a3b
+P26_CHECK_PROMPT, P26_CHECK_NEW = CHUNK - 56, 300   # replay checks: one eager chunk each
+
+
+class SpecTimed(TimedScheduler):
+    """A :class:`TimedScheduler` that audits after every step (outside the
+    timed span) and times, synchronized, the speculative round's eager
+    parts: each catch-up call and each hybrid rollback replay."""
+
+    def __init__(self, sched):
+        super().__init__(sched)
+        self.catchup_ms, self.rollback_ms, self.audit_errors = [], [], []
+        self._in_round = False
+        if not sched._spec:
+            return
+        catchup, chunk_logits, spec_round = (sched._draft_catchup, sched._chunk_logits,
+                                             sched._spec_round)
+
+        def timed(fn, into):
+            def call(*args):
+                sync()
+                t0 = time.perf_counter()
+                out = fn(*args)
+                sync()
+                into.append(1e3 * (time.perf_counter() - t0))
+                return out
+            return call
+
+        timed_replay = timed(chunk_logits, self.rollback_ms)
+
+        def chunk(*args):
+            return (timed_replay if self._in_round else chunk_logits)(*args)
+
+        def round_(*args):
+            self._in_round = True
+            try:
+                return spec_round(*args)
+            finally:
+                self._in_round = False
+
+        sched._draft_catchup = timed(catchup, self.catchup_ms)
+        sched._chunk_logits = chunk
+        sched._spec_round = round_
+
+    def step(self):
+        out = super().step()
+        try:
+            self.sched.audit()
+        except AssertionError as e:
+            self.audit_errors.append(str(e))
+        return out
+
+
+def workload_prompts(vocab: int, n_requests: int, prompt_len: int, seed: int) -> dict:
+    """The prompts ``spawn_workload`` draws, by request id."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {f"r{i}": rng.integers(0, vocab, size=prompt_len).astype(np.int32)
+            for i in range(n_requests)}
+
+
+def spec_serve(fails: Failures, model, cfg, seed: int, label: str, *, draft=None, k=SPEC_K,
+               n_requests, sessions, prompt, max_new, slots) -> dict:
+    """Serve the workload through ``ServingFrontend`` -> ``DecodeScheduler(
+    kv_mode='paged', attn_backend='gather')``, greedy, with speculation when
+    ``draft`` is given; launch counts set to 0 just before the run and read
+    just after.  Checks every request served in per-session FIFO order,
+    tokens in the vocab, and ``audit()`` clean after every step."""
+    import torch
+
+    from repro_torch.coord.serving_front import ServingFrontend
+    from repro_torch.core import SimCloud
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.moe_experts import moe_experts_kernel, moe_router_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.rglru_scan import rglru_scan_kernel
+    from repro_torch.launch.serve import spawn_workload
+    from repro_torch.serve.scheduler import DecodeScheduler
+
+    sched = DecodeScheduler(model, n_slots=slots, max_seq=prompt + max_new, page_size=PAGE,
+                            prefill_chunk=CHUNK, attn_backend="gather", seed=seed,
+                            device=DEVICE, draft_model=draft,
+                            spec_k=k if draft is not None else 0)
+    timed = SpecTimed(sched)
+    cloud = SimCloud(seed=seed)
+    front = ServingFrontend(cloud, scheduler=timed, batch_size=slots)
+    spawn_workload(cloud, front, vocab=cfg.vocab, n_requests=n_requests, sessions=sessions,
+                   prompt_len=prompt, max_new=max_new, seed=seed)
+    sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cloud.run()
+    sync()
+    wall = time.perf_counter() - t0
+    counts = {"paged_attention": paged_attention_kernel.launches,
+              "flash_attention": flash_attention_kernel.launches,
+              "rglru_scan": rglru_scan_kernel.launches,
+              "moe_experts": moe_experts_kernel.launches,
+              "moe_router": moe_router_kernel.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else 0.0
+    served = sum(len(v) for v in front.completions.values())
+    fails.check(served == n_requests, f"{label}: served {served}/{n_requests} requests")
+    fifo = all(ids == sorted(ids, key=lambda r: int(r[1:]))
+               for ids in front.completions.values())
+    fails.check(fifo and len(front.completions) == sessions,
+                f"{label}: per-session FIFO over {len(front.completions)} sessions")
+    toks = tokens_by_request(front)
+    fails.check(all(t.shape == (max_new,) and (t >= 0).all() and (t < cfg.vocab).all()
+                    for t in toks.values()),
+                f"{label}: every token in [0, {cfg.vocab}), {max_new} per request")
+    fails.check(not timed.audit_errors,
+                f"{label}: audit() clean after every one of {sched.steps} steps"
+                + (f" ({timed.audit_errors[0]})" if timed.audit_errors else ""))
+    st = sched.stats()
+    ms_tok = 1e3 * timed.decode_s / max(timed.decode_only_tokens, 1)
+    out = {"label": label, "sched": sched, "tokens": toks, "counts": counts, "wall_s": wall,
+           "peak_gib": peak, "ms_per_token": ms_tok,
+           "decode_tok_s": timed.decode_only_tokens / max(timed.decode_s, 1e-9),
+           "catchup_ms": timed.catchup_ms, "rollback_ms": timed.rollback_ms, "stats": st}
+    print(f"  {label}: {wall:.3f} s wall, {sched.steps} steps, {st['decode_tokens']} decode + "
+          f"{st['prefill_tokens']} prefill tokens; steps without a chunk: "
+          f"{timed.decode_only_tokens} tokens in {timed.decode_only_steps} steps, "
+          f"{ms_tok:.3f} ms per emitted token, {out['decode_tok_s']:.1f} decode tok/s; "
+          f"peak {peak:.3f} GiB")
+    if sched._spec:
+        cu, rb = timed.catchup_ms, timed.rollback_ms
+        print(f"  {label}: k={k}, {st['spec_rounds']} rounds, acceptance "
+              f"{st['spec_acceptance_rate']} ({st['spec_accepted']}/{st['spec_proposed']}), "
+              f"{st['spec_steps_per_token']} verify steps per token ({st['spec_emitted']} "
+              f"emitted); eager catch-up {len(cu)} calls, {sum(cu) / max(len(cu), 1):.3f} ms "
+              f"mean, {max(cu, default=0.0):.3f} max; hybrid rollbacks "
+              f"{st['spec_rollbacks']}, {sum(rb) / max(len(rb), 1):.3f} ms mean")
+    print(f"  {label}: launches {counts}")
+    return out
+
+
+def spec_margins(fails: Failures, model, cfg, label: str, plain: dict, spec: dict,
+                 prompts: dict) -> int:
+    """Count the token streams the speculative run shares with the plain
+    one; at each diverging stream's first diverging token the target,
+    teacher-forced on the plain stream (a drop-free prefill of the prompt
+    and the plain tokens before it), must have its top-2 logits within
+    ``AGREE_REL_TOL`` of the logit scale: a near-tie that a chunk's GEMM
+    order may swap.  Returns the identical count."""
+    import numpy as np
+    import torch
+
+    same = [rid for rid in plain["tokens"]
+            if np.array_equal(plain["tokens"][rid], spec["tokens"][rid])]
+    print(f"  {label}: {len(same)} of {len(plain['tokens'])} token streams identical to the "
+          f"run without speculation")
+    for rid in sorted(set(plain["tokens"]) - set(same), key=lambda r: int(r[1:])):
+        a, b = plain["tokens"][rid], spec["tokens"][rid]
+        j = int(np.argmax(a != b))
+        ctx = np.concatenate([prompts[rid], a[:j]]).astype(np.int32)
+        with torch.no_grad():
+            logits, _ = model.prefill(torch.from_numpy(ctx)[None].to(DEVICE))
+        row = logits[0, -1, :cfg.vocab].float()
+        top = row.topk(2).values
+        margin, scale = (top[0] - top[1]).item(), row.abs().max().item()
+        fails.check(margin <= AGREE_REL_TOL * scale,
+                    f"{label} {rid}: first divergence at token {j} ({int(a[j])} vs "
+                    f"{int(b[j])}), teacher-forced top-2 margin {margin:.4g} <= "
+                    f"{AGREE_REL_TOL} x {scale:.4f}")
+    return len(same)
+
+
+def spec_state(sched) -> dict:
+    """Every tensor the draft or the verify step writes."""
+    out = {f"cache.{k}": v for k, v in sched.cache.items()}
+    out.update({f"draft.{k}": v for k, v in sched.draft_cache.items()})
+    out.update({f"rows.{k}": v for k, v in sched._spec_rows.items()})
+    out.update(last_tokens=sched.last_tokens, out_buf=sched.out_buf,
+               out_pos=sched.out_pos, vtok=sched._vtok, dtok=sched._dtok)
+    return out
+
+
+def spec_replay_checks(fails: Failures, sched, cfg, seed: int, label: str) -> dict:
+    """With every slot decoding (prompts of one eager chunk, a long budget)
+    after two rounds: from one state, the draft graph's replay and the
+    eager draft step, then the verify graph's replay and the eager verify
+    step, every leaf they write bitwise the same (the pool's scratch page
+    aside: unmapped rows write there in no fixed order, and nothing reads
+    it).  Then each graph's replay timed."""
+    import numpy as np
+
+    sched.reset()
+    rng = np.random.default_rng(seed + 26)
+    for i in range(sched.n_slots):
+        sched.submit(f"c{i}", f"c{i}",
+                     rng.integers(0, cfg.vocab, size=P26_CHECK_PROMPT).astype(np.int32),
+                     P26_CHECK_NEW)
+    r0 = sched.spec_rounds
+    for _ in range(4 * sched.n_slots):
+        if all(s.decoding for s in sched.slots) and sched.spec_rounds >= r0 + 2:
+            break
+        sched.step()
+    if not fails.check(all(s.decoding for s in sched.slots),
+                       f"{label}: every slot decoding for the replay checks"):
+        return {}
+    for key, eager in (("draft", sched._draft_step_impl), ("verify", sched._verify_impl)):
+        state = spec_state(sched)
+        start = {n: v.clone() for n, v in state.items()}
+        got = sched.graphs.replay(key)
+        got = None if got is None else [t.clone() for t in got]
+        replayed = {n: v.clone() for n, v in state.items()}
+        for n, v in state.items():
+            v.copy_(start[n])
+        want = eager()
+        sync()
+        diff = [n for n, v in state.items()
+                if not (v[:, :-1].equal(replayed[n][:, :-1]) if n in ("cache.kp", "cache.vp")
+                        else v.equal(replayed[n]))]
+        if got is not None:
+            diff += [f"out{i}" for i, (g, w) in enumerate(zip(got, want, strict=True))
+                     if not g.equal(w)]
+        fails.check(not diff, f"{label}: {key} graph replay bitwise its eager step over "
+                              f"{len(state)} leaves (scratch page aside): {diff or 'all equal'}")
+        del start, replayed
+    times = {key: host_ms(lambda key=key: sched.graphs.replay(key), 10)
+             for key in ("draft", "verify")}
+    print(f"  {label}: replayed draft step {times['draft']:.3f} ms, verify step "
+          f"{times['verify']:.3f} ms (10 each, host clock, synchronized)")
+    graph_report(label, sched)
+    return times
+
+
+def phase_spec(fails: Failures, model, cfg, seed: int, name: str, drafts, *, n_requests,
+               sessions, prompt, max_new, slots, min_acceptance=None) -> list:
+    """Phase 26 for one target: the run without speculation, then each
+    ``(label, draft, k)`` of ``drafts`` on the same requests, each held
+    against it (:func:`spec_margins`); exact launch counts of the RG-LRU
+    and MoE kernels; the graphs' replay checks on the first speculative
+    scheduler.  Returns one summary per run."""
+    from repro_torch.models.config import layer_pattern
+
+    if DEVICE == "cuda":
+        print(f"  card: {smi_line()}")
+    kw = dict(n_requests=n_requests, sessions=sessions, prompt=prompt, max_new=max_new,
+              slots=slots)
+    prompts = workload_prompts(cfg.vocab, n_requests, prompt, seed)
+    plain = spec_serve(fails, model, cfg, seed, f"{name} without speculation", **kw)
+    plain.pop("sched")
+    runs = [plain]
+    n_rec = layer_pattern(cfg).count("r") if cfg.family == "hybrid" else 0
+    L = cfg.n_layers if cfg.family == "moe" else 0
+    st = plain["stats"]
+    calls = st["steps"] + st["prefill_chunks"]
+    fails.check(plain["counts"]["rglru_scan"] == n_rec * calls
+                and plain["counts"]["moe_experts"] == 2 * L * calls
+                and plain["counts"]["moe_router"] == L * calls
+                and plain["counts"]["paged_attention"] == plain["counts"]["flash_attention"] == 0,
+                f"{plain['label']}: rglru {plain['counts']['rglru_scan']} == {n_rec} x "
+                f"{calls}, moe_experts {plain['counts']['moe_experts']} == 2 x {L} x {calls}, "
+                f"router {plain['counts']['moe_router']} == {L} x {calls} (decode steps + "
+                f"chunks), no paged or flash launch")
+    for i, (label, draft, k) in enumerate(drafts):
+        run = spec_serve(fails, model, cfg, seed, f"{name} {label}", draft=draft, k=k, **kw)
+        st = run["stats"]
+        rounds, chunks, rb = st["spec_rounds"], st["prefill_chunks"], st["spec_rollbacks"]
+        moe_calls = chunks + rounds * (k + 1) if draft is model else chunks + rounds
+        c = run["counts"]
+        fails.check(c["rglru_scan"] == n_rec * (rounds + chunks + rb)
+                    and c["moe_experts"] == 2 * L * moe_calls
+                    and c["moe_router"] == L * moe_calls
+                    and c["paged_attention"] == c["flash_attention"] == 0,
+                    f"{run['label']}: rglru {c['rglru_scan']} == {n_rec} x ({rounds} verify "
+                    f"rounds + {chunks} chunks + {rb} rollback replays); moe_experts "
+                    f"{c['moe_experts']} == 2 x {L} x {moe_calls} and router {c['moe_router']} "
+                    f"== {L} x {moe_calls} (target: chunks and verifies"
+                    f"{'; self-draft: a catch-up and ' + str(k - 1) + ' draft steps a round' if draft is model else ''}); "
+                    f"no paged or flash launch")
+        if n_rec:
+            fails.check(rb > 0, f"{run['label']}: {rb} hybrid rollbacks replayed")
+        run["identical"] = spec_margins(fails, model, cfg, run["label"], plain, run, prompts)
+        if min_acceptance is not None and i == 0:
+            fails.check(st["spec_acceptance_rate"] >= min_acceptance,
+                        f"{run['label']}: acceptance {st['spec_acceptance_rate']} >= "
+                        f"{min_acceptance}")
+        sched = run.pop("sched")
+        if i == 0:
+            run["replay_ms"] = spec_replay_checks(fails, sched, cfg, seed, run["label"])
+        del sched
+        runs.append(run)
+        release()
+    release()
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3275,6 +3603,19 @@ def main() -> int:
     t24 = time.perf_counter()
     phase_offload_sharing(fails, model, cfg, args.seed, counts)
     print(f"  phase 24 wall {time.perf_counter() - t24:.1f} s")
+    release()
+    print(f"[26a] {ARCH}: draft-and-verify speculative decoding on the paged pool (gather, "
+          f"greedy), {N_REQUESTS} requests over {SESSIONS} sessions, prompt {PROMPT}, "
+          f"{MAX_NEW} new, {SLOTS} slots")
+    t26 = time.perf_counter()
+    draft = build_model(cfg, device="cuda", seed=args.seed + P26_RESEED)
+    phase_spec(fails, model, cfg, args.seed, ARCH,
+               [(f"self-draft k={SPEC_K}", model, SPEC_K),
+                (f"draft reseeded +{P26_RESEED} k=2", draft, 2)],
+               n_requests=N_REQUESTS, sessions=SESSIONS, prompt=PROMPT, max_new=MAX_NEW,
+               slots=SLOTS, min_acceptance=0.5)
+    del draft
+    print(f"  phase 26a wall {time.perf_counter() - t26:.1f} s")
     del model
     torch.cuda.empty_cache()
 
@@ -3358,6 +3699,20 @@ def main() -> int:
                 and rcounts["chunks"] == 0,
                 "no paged or SSD launch and no prefill chunk in ring mode")
     r_flash = rcounts["flash_attention"]
+    release()
+    dcfg = dataclasses.replace(configs.get(ARCH), name=f"{ARCH}-4l-v{hcfg.vocab}", n_layers=4,
+                               vocab=hcfg.vocab)
+    print(f"[26b] {HYBRID}: speculative decoding, a seeded {dcfg.n_layers}-layer dense draft "
+          f"of {ARCH}'s widths and vocab {dcfg.vocab}, {H26_REQUESTS} requests, prompt "
+          f"{PROMPT}, {MAX_NEW} new, {H26_SLOTS} slots")
+    t26 = time.perf_counter()
+    draft = build_model(dcfg, device="cuda", seed=args.seed + P26_RESEED)
+    phase_spec(fails, hmodel, hcfg, args.seed, HYBRID,
+               [(f"4-layer dense draft k={SPEC_K}", draft, SPEC_K)],
+               n_requests=H26_REQUESTS, sessions=H26_REQUESTS, prompt=PROMPT,
+               max_new=MAX_NEW, slots=H26_SLOTS)
+    del draft
+    print(f"  phase 26b wall {time.perf_counter() - t26:.1f} s")
     del hmodel
     torch.cuda.empty_cache()
 
@@ -3560,6 +3915,14 @@ def main() -> int:
     phase_ring_agreement(fails, mmodel, mcfg, args.seed, prompt=MR_PROMPT,
                          max_new=MR_MAX_NEW)
     records.extend(moe_records + [m_paged, m_flash])
+    release()
+    print(f"[26c] {MOE}: speculative decoding, self-draft k={SPEC_K}, {M26_REQUESTS} requests, "
+          f"prompt {PROMPT}, {MAX_NEW} new, {M26_SLOTS} slots")
+    t26 = time.perf_counter()
+    phase_spec(fails, mmodel, mcfg, args.seed, MOE, [(f"self-draft k={SPEC_K}", mmodel, SPEC_K)],
+               n_requests=M26_REQUESTS, sessions=M26_REQUESTS, prompt=PROMPT, max_new=MAX_NEW,
+               slots=M26_SLOTS)
+    print(f"  phase 26c wall {time.perf_counter() - t26:.1f} s")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if fails:

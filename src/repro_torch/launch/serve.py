@@ -9,12 +9,15 @@ config of ``--arch`` on ``--device`` (default ``cuda``).
 
 ``--offload`` turns on storage-backed preemption, ``--prefix-sharing``
 copy-on-write prefix sharing and ``--park-sessions`` cross-request session
-parking (paged mode only).
+parking (paged mode only).  ``--spec-draft ARCH`` turns on draft-and-verify
+speculative decoding with a seeded draft of ``ARCH`` (the target's own
+model when it is ``--arch``), ``--spec-k`` drafts a round (paged, gather,
+greedy).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
       --requests 12 --sessions 3 --batch-size 4 --prompt-len 16 [--device cpu] \\
-      [--offload] [--prefix-sharing] [--park-sessions]
+      [--offload] [--prefix-sharing] [--park-sessions] [--spec-draft ARCH --spec-k K]
 """
 
 from __future__ import annotations
@@ -99,6 +102,7 @@ def build_frontend(cloud: SimCloud, cfg, model, *, mode: str, batch_size: int,
                    offload: bool = False, preempt_policy: Optional[str] = None,
                    idle_preempt_steps: int = 0, prefix_sharing: bool = False,
                    park_sessions: bool = False, park_ttl_steps: int = 0,
+                   draft_model=None, spec_k: int = 0,
                    device="cuda") -> ServingFrontend:
     """Frontend for ``mode`` in {'continuous', 'shared', 'per-session'}.
 
@@ -111,6 +115,7 @@ def build_frontend(cloud: SimCloud, cfg, model, *, mode: str, batch_size: int,
     indexed prompt prefixes read-only with copy-on-write splits;
     ``park_sessions`` retains a completed session's KV across requests
     (``park_ttl_steps`` bounds the retention; paged mode only).
+    ``draft_model`` with ``spec_k >= 1`` turns on speculative decoding.
     """
     if mode not in ("continuous", "shared", "per-session"):
         raise ValueError(f"unknown serving mode {mode!r}")
@@ -130,7 +135,8 @@ def build_frontend(cloud: SimCloud, cfg, model, *, mode: str, batch_size: int,
                                 prefix_sharing=prefix_sharing,
                                 park_sessions=park_sessions,
                                 park_ttl_steps=park_ttl_steps,
-                                attn_backend=attn_backend, device=device)
+                                attn_backend=attn_backend, draft_model=draft_model,
+                                spec_k=spec_k, device=device)
         return ServingFrontend(cloud, scheduler=sched, batch_size=batch_size)
     if temperature or top_k:
         raise ValueError(
@@ -176,9 +182,17 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
                 offload: bool = False, preempt_policy: Optional[str] = None,
                 idle_preempt_steps: int = 0, prefix_sharing: bool = False,
                 park_sessions: bool = False, park_ttl_steps: int = 0,
+                spec_draft: Optional[str] = None, spec_k: int = 0,
                 device="cuda") -> ServingFrontend:
     cfg = configs.get(arch).reduced()
     model = build_model(cfg, device=device, seed=0)
+    draft_model = None
+    if spec_draft is not None:
+        # a self-draft reuses the target's module and weights; any other
+        # arch is a reduced draft drawn from the same seed
+        draft_model = (model if spec_draft == arch else
+                       build_model(configs.get(spec_draft).reduced(), device=device, seed=0))
+        spec_k = spec_k or 3
     cloud = SimCloud(seed=seed)
     frontend = build_frontend(cloud, cfg, model, mode=mode, batch_size=batch_size,
                               max_new=max_new, prompt_len=prompt_len,
@@ -190,7 +204,8 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
                               idle_preempt_steps=idle_preempt_steps,
                               prefix_sharing=prefix_sharing,
                               park_sessions=park_sessions,
-                              park_ttl_steps=park_ttl_steps, device=device)
+                              park_ttl_steps=park_ttl_steps, draft_model=draft_model,
+                              spec_k=spec_k, device=device)
     t0 = time.time()
     spawn_workload(cloud, frontend, vocab=cfg.vocab, n_requests=n_requests,
                    sessions=sessions, prompt_len=prompt_len, max_new=max_new)
@@ -227,6 +242,11 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
                       f"{s['restore_bytes']/1024:.1f} KiB restored "
                       f"({s['offload_puts']} puts / {s['offload_gets']} gets, "
                       f"storage ${s['offload_storage_usd']:.6f})")
+            if "spec_rounds" in s:
+                print(f"speculation: k={s['spec_k']}, {s['spec_rounds']} "
+                      f"rounds, acceptance {s['spec_acceptance_rate']:.2f}, "
+                      f"{s['spec_steps_per_token']:.2f} steps/token "
+                      f"({s['spec_emitted']} tokens emitted)")
             if "shared_prefix_tokens" in s:
                 print(f"prefix sharing: {s['shared_prefix_tokens']} prompt "
                       f"tokens served from resident pages "
@@ -283,6 +303,14 @@ def main() -> None:
                     help="decode attention over the paged pool: gather the "
                          "slot's pages (reference) or stream them through "
                          "the CUDA paged-attention kernel")
+    ap.add_argument("--spec-draft", default=None, choices=configs.list_archs(),
+                    help="draft arch for draft-and-verify speculative decoding "
+                         "(same arch = self-draft; greedy + paged + gather "
+                         "backend only; the output stays the non-speculative "
+                         "stream)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="draft tokens proposed per verify round (default 3 "
+                         "when --spec-draft is set)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; nothing "
                          "falls back to the CPU)")
@@ -297,7 +325,8 @@ def main() -> None:
                 idle_preempt_steps=args.idle_preempt_steps,
                 prefix_sharing=args.prefix_sharing, park_sessions=args.park_sessions,
                 park_ttl_steps=args.park_ttl_steps,
-                attn_backend=args.attn_backend, device=args.device)
+                attn_backend=args.attn_backend, spec_draft=args.spec_draft,
+                spec_k=args.spec_k, device=args.device)
 
 
 if __name__ == "__main__":

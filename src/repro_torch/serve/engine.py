@@ -1,4 +1,8 @@
-"""Serving steps: prefill + single-token decode against a KV cache."""
+"""Serving steps: prefill, single-token decode and prefill chunks against a
+KV cache, the staging steps of offload, and the three steps of
+draft-and-verify speculative decoding (the draft's S=1 step, its batched
+catch-up and the target's verify chunk).  Every step writes into the
+caches and buffers it is given, so a CUDA graph can replay it."""
 
 from __future__ import annotations
 
@@ -38,6 +42,107 @@ def make_chunk_step(model) -> Callable:
         return logits, cache
 
     return chunk_step
+
+
+def make_draft_step(model) -> Callable:
+    """Batched S=1 greedy step of the *draft* model of a speculative
+    decoder: one proposed token per masked-in slot against the draft's own
+    per-slot ring cache, written in place.  Inactive rows keep their state
+    and their token: the decode step's masking contract.
+
+    ``draft_step(cache, last_tokens, active, out)`` writes each row's new
+    token into ``out`` (``last_tokens`` where inactive; ``out`` may be
+    ``last_tokens`` itself) and returns the logits."""
+
+    def draft_step(cache, last_tokens, active, out) -> torch.Tensor:
+        logits, new_cache = model.decode_step(cache, last_tokens[:, None])
+        kvcache.mask_slot_rows(new_cache, cache, active)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        out.copy_(torch.where(active, tok, last_tokens))
+        return logits
+
+    return draft_step
+
+
+def make_draft_catchup_step(model) -> Callable:
+    """Batched draft catch-up on the canonical token stream: every
+    masked-in slot replays the canonical tokens its draft ring has not
+    consumed, in one call per verify round.
+
+    ``tokens`` (B, W) is back-padded to the round's widest pending span and
+    ``counts`` (B,) holds each row's real span (>= 1 for active rows).  The
+    whole padded chunk runs through ``decode_step``; then each active row's
+    length advances by its own count, so the pad positions land past the
+    canonical length.  Pad-position K/V is never read: the ring path writes
+    a chunk's K/V before it attends, so a later call overwrites a pad lane
+    before any query's causal mask admits it, provided the ring is deep
+    enough that a pad write never wraps onto a live lane (the scheduler
+    sizes the draft ring for the padded worst case).
+
+    ``catchup(cache, tokens, counts, active, out)`` writes row
+    ``counts - 1`` of the greedy argmax (the last real position's token)
+    into ``out`` and returns the logits."""
+
+    def catchup(cache, tokens, counts, active, out) -> torch.Tensor:
+        logits, new_cache = model.decode_step(cache, tokens)
+        # decode_step advanced every row by the padded width W; the
+        # canonical advance is each row's own pending count
+        new_cache["length"] = cache["length"] + counts
+        kvcache.mask_slot_rows(new_cache, cache, active)
+        y = torch.argmax(logits, dim=-1).to(torch.int32)              # (B, W)
+        idx = (counts - 1).clamp(min=0).long()[:, None]
+        out.copy_(y.gather(1, idx)[:, 0])
+        return logits
+
+    return catchup
+
+
+def make_spec_verify_step(model, *, max_seq: int) -> Callable:
+    """One draft-and-verify round's target half: score ``k + 1`` tokens per
+    slot in one chunked decode step against the paged pool and accept the
+    longest prefix of drafts that matches the target's own greedy argmax.
+
+    ``verify_tokens[:, 0]`` is each slot's newest canonical token and
+    ``verify_tokens[:, 1:]`` the draft's proposals.  Position ``j``'s
+    argmax ``y[:, j]`` is what the target samples after consuming
+    ``verify_tokens[:, :j+1]``, so draft ``j+1`` is accepted iff it equals
+    ``y[:, j]``; ``a = min(cumprod(match).sum(), k_eff)`` (``k_eff`` keeps a
+    slot inside its ``max_new`` budget) accepted drafts emit ``a + 1``
+    tokens, ``y[:, :a+1]``: the drafts and the target's own bonus or
+    correction token.  Every emitted token is the target's argmax over a
+    canonical prefix, so the stream is the one S=1 decode gives wherever
+    the chunk computes what S=1 steps compute.
+
+    ``verify(cache, verify_tokens, active, k_eff, out_buf, out_pos,
+    last_tokens)`` writes in place: the cache (K/V of all ``S`` positions,
+    lengths, recurrent rows, inactive rows kept by ``mask_slot_rows``), the
+    emitted tokens into the output ring at ``out_pos % max_seq`` (other
+    columns keep their values), ``out_pos`` advanced by ``a + 1``,
+    ``last_tokens = y[b, a]``, and each active length rewound by
+    ``S - 1 - a`` to the canonical ``old + a + 1``: the rejected positions'
+    K/V sits past it, invalid to every read until a later write covers it.
+    Recurrent rows advance through all ``S`` tokens and are not rewound
+    here: a hybrid caller snapshots them before the step and replays the
+    accepted span on a partial accept.  Returns ``(y, a, logits)``."""
+
+    def verify(cache, verify_tokens, active, k_eff, out_buf, out_pos, last_tokens):
+        B, S = verify_tokens.shape
+        logits, new_cache = model.decode_step(cache, verify_tokens)
+        kvcache.mask_slot_rows(new_cache, cache, active)
+        y = torch.argmax(logits, dim=-1).to(torch.int32)              # (B, S)
+        match = (verify_tokens[:, 1:] == y[:, :-1]).to(torch.int32)
+        a = torch.minimum(torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32), k_eff)
+        j = torch.arange(S, dtype=torch.int32, device=y.device)
+        cols = ((out_pos[:, None] + j) % max_seq).long()
+        emit = active[:, None] & (j <= a[:, None])
+        out_buf.scatter_(1, cols, torch.where(emit, y, out_buf.gather(1, cols)))
+        last = y.gather(1, a.long()[:, None])[:, 0]
+        last_tokens.copy_(torch.where(active, last, last_tokens))
+        out_pos.add_(torch.where(active, a + 1, 0))
+        cache["length"].sub_(torch.where(active, S - 1 - a, 0))
+        return y, a, logits
+
+    return verify
 
 
 def make_offload_steps() -> tuple:

@@ -114,8 +114,23 @@ or the whole prompt when ``prefill_chunk`` is None) and ring mode's
 monolithic prefill run eagerly on the same kernels.  On the CPU every step
 runs eagerly.
 
-Not ported yet, and refused rather than ignored: speculative decoding,
-``mesh=``, and the fleet's hooks — ``index_journal=True``, and with it
+**Draft-and-verify speculative decoding** (``draft_model=..., spec_k=k``;
+paged, ``gather`` and greedy only): a draft model (dense or moe, the
+target's vocab, its own per-slot ring) proposes ``k`` tokens per active
+slot per tick; the target scores them and the pending canonical token in
+one chunked step against the shared pool and accepts the longest prefix
+that matches its own argmax, emitting 1..k+1 tokens a round
+(:meth:`_spec_round`).  Every emitted token is the target's argmax over a
+canonical prefix, so the stream is the non-speculative one wherever the
+verify chunk computes what S=1 steps compute, which the port holds on the
+CPU.  Rejected K/V is rewound by length, and a hybrid target's recurrent
+rows are restored and the accepted span replayed on a partial accept.  On
+the card the draft step and the verify step replay their own graphs; the
+catch-up, whose width changes every round, and the hybrid replay run
+eagerly.
+
+Not ported yet, and refused rather than ignored: ``mesh=``, and the
+fleet's hooks — ``index_journal=True``, and with it
 ``externalize_session``, ``adopt_parked`` and ``adopt_index_journal``.
 """
 
@@ -131,7 +146,8 @@ import torch
 from ..core.storage import PageBlobStore
 from ..models import kvcache
 from . import sampling
-from .engine import make_chunk_step, make_offload_steps
+from .engine import (make_chunk_step, make_draft_catchup_step, make_draft_step,
+                     make_offload_steps, make_spec_verify_step)
 from .graphs import StepGraphs
 from .lifecycle import Slot, SlotState
 
@@ -229,8 +245,7 @@ class DecodeScheduler:
         if kv_mode not in ("paged", "ring"):
             raise ValueError(f"kv_mode must be 'paged' or 'ring', got {kv_mode!r}")
         for flag, what in ((mesh is not None, "mesh="),
-                           (index_journal, "index_journal (the fleet's prefix-index journal)"),
-                           (draft_model is not None or spec_k, "speculative decoding")):
+                           (index_journal, "index_journal (the fleet's prefix-index journal)")):
             if flag:
                 raise _not_ported(what)
         if attn_backend not in ("gather", "paged_kernel"):
@@ -335,6 +350,17 @@ class DecodeScheduler:
         self.offload_pages = 0
         self.restored_pages = 0
 
+        # -- draft-and-verify speculative decoding ---------------------------
+        self.spec_k = int(spec_k)
+        self._spec = draft_model is not None and self.spec_k >= 1
+        if self._spec:
+            self._init_spec(draft_model, temperature)
+        self.spec_rounds = 0
+        self.spec_proposed = 0          # draft tokens offered to the verifier
+        self.spec_accepted = 0          # draft tokens accepted
+        self.spec_emitted = 0           # tokens emitted by verify rounds
+        self.spec_rollbacks = 0         # hybrid partial accepts replayed
+
         self.slots: List[Slot] = [Slot(index=i) for i in range(n_slots)]
         # device-side per-slot output ring: tokens accumulate on device and
         # are pulled to the host once per completion, not once per step
@@ -362,6 +388,59 @@ class DecodeScheduler:
         self.decode_tokens = 0
         self.admitted = 0
         self.completed = 0
+
+    def _init_spec(self, draft_model, temperature: float) -> None:
+        """Refuse what speculative decoding cannot serve (the reference's
+        checks, the same ``ValueError``s), then build the draft's ring, the
+        three steps and the static buffers their graphs read and write."""
+        if self.kv_mode != "paged" or not self._has_kv:
+            raise ValueError(
+                "speculative decoding verifies chunks against the shared "
+                "paged pool; it needs kv_mode='paged' and a KV-bearing "
+                "target (dense/moe/hybrid)")
+        if temperature > 0.0:
+            raise ValueError(
+                "speculative decoding is greedy-only: accept/reject compares "
+                "the target's argmax, which temperature sampling does not produce")
+        if self.attn_backend != "gather":
+            raise ValueError(
+                "speculative decoding needs attn_backend='gather': the paged "
+                "kernel only serves S=1 steps, so a verify chunk would switch "
+                "dispatch mid-request")
+        if getattr(draft_model.cfg, "family", None) not in ("dense", "moe"):
+            raise ValueError(
+                "draft family must be dense or moe: the draft rewinds to the "
+                "accepted prefix every round, which recurrent state cannot do cheaply")
+        if draft_model.cfg.vocab != self.model.cfg.vocab:
+            raise ValueError(f"draft vocab {draft_model.cfg.vocab} != target vocab "
+                             f"{self.model.cfg.vocab}")
+        if draft_model.device != self.device:
+            raise ValueError(f"draft model is on {draft_model.device}, "
+                             f"target on {self.device}")
+        self.draft_model = draft_model
+        # per-slot ring sized for the deepest proposal the draft reaches (the
+        # page table's span can overhang max_seq by a partial page) plus the
+        # batched catch-up's back-padding: a round's widest pending span W
+        # pads every row, so a row at canonical length L writes (never read)
+        # lanes up to L + W - 1; with L <= span + k and W <= max_seq + 1 the
+        # ring must be deeper than that, or a pad write would wrap onto a
+        # live lane
+        span = self.max_pages * self.page_size
+        self.draft_cache = kvcache.batched_cache(draft_model, self.n_slots,
+                                                 2 * span + self.spec_k + 2)
+        self._draft_catchup = make_draft_catchup_step(draft_model)
+        self._draft_step = make_draft_step(draft_model)
+        self._verify = make_spec_verify_step(self.model, max_seq=self.max_seq)
+        # static storage of the verify and draft graphs: the verify tokens
+        # (column 0 the target's newest token, then the k drafts, newest
+        # last), each slot's acceptance cap, the draft step's new token, and
+        # a hybrid target's recurrent rows as they were before the verify
+        i32 = dict(dtype=torch.int32, device=self.device)
+        self._vtok = torch.zeros((self.n_slots, self.spec_k + 1), **i32)
+        self._k_eff = torch.zeros((self.n_slots,), **i32)
+        self._dtok = torch.zeros((self.n_slots,), **i32)
+        self._spec_rows = {key: torch.zeros_like(self.cache[key])
+                           for key in ("h", "conv") if key in self.cache}
 
     # -- admission ----------------------------------------------------------------
 
@@ -680,6 +759,15 @@ class DecodeScheduler:
         slot.active_since = self.steps
         slot.n_out = 1
         self.admitted += 1
+        if self._spec:
+            # one host sync per admission: the draft starts from scratch on
+            # the whole canonical stream (the prompt and the first token)
+            slot.spec_last = int(tok[0])
+            slot.spec_pending = [int(t) for t in
+                                 np.asarray(slot.req.prompt, np.int32).reshape(-1)]
+            slot.spec_pending.append(slot.spec_last)
+            slot.draft_len = 0
+            self.draft_cache["length"][slot.index] = 0
 
     def _map_page(self, slot: Slot, page_idx: int) -> None:
         """Host-side mapping only — the caller pushes the updated row to the
@@ -1022,24 +1110,127 @@ class DecodeScheduler:
         out_pos.add_(active.to(torch.int32))
         last_tokens.copy_(toks)
 
+    def _graphed(self, key: str, fn):
+        """``fn()``'s result: on the card the replay of ``key``'s graph
+        (captured at the first call), on the CPU the eager step."""
+        return fn() if self.graphs is None else self.graphs.run(key, fn)
+
     def _decode(self) -> None:
-        """The batched decode step over ``self._active``: on the card the
-        decode graph's replay (captured at the first call), on the CPU the
-        eager step."""
-        def step():
-            self._step_impl(self.cache, self.last_tokens, self.out_buf, self.out_pos,
-                            self._active)
-        if self.graphs is None:
-            step()
-        else:
-            self.graphs.run("decode", step)
+        """The batched decode step over ``self._active``."""
+        self._graphed("decode", lambda: self._step_impl(
+            self.cache, self.last_tokens, self.out_buf, self.out_pos, self._active))
+
+    def _spec_round(self, active: List[int]) -> None:
+        """One draft-and-verify round over the ACTIVE slots (``_active``
+        holds their mask): the draft
+        proposes ``spec_k`` tokens per slot, the target scores all of them
+        in one chunked step against the shared pool, and each slot emits
+        the accepted prefix and the target's bonus or correction token
+        (1..spec_k+1 tokens a round, the tokens S=1 decode would emit).
+
+        One device-to-host copy a round (the emitted tokens and accepted
+        counts).  The draft's catch-up replays the canonical tokens its ring
+        has not consumed (the whole prompt after an admission, 1-2 tokens a
+        round after that) in one batched, masked, back-padded call that runs
+        eagerly (its width changes every round); the draft steps and the
+        verify replay their graphs on the card.  Rejected proposals rewind
+        the draft rows' lengths, so the draft ring tracks the canonical
+        stream.
+
+        Rollback: K/V pages need no copy, since the verify's rejected
+        positions sit past the rewound length and the next write covers
+        them before a read; pages mapped or split for the span stay with the
+        slot.  A hybrid target's recurrent rows did consume the rejected
+        tokens, so on a partial accept they are restored from the copy the
+        verify step took before it ran, and the canonical span (the pending
+        token and the ``a`` accepted drafts) replays through the chunk path."""
+        k = self.spec_k
+        spec = [self.slots[i] for i in active]
+        # 1) the draft catches up on the canonical stream: one masked call
+        #    over every slot's pending span, back-padded to the widest, its
+        #    last real token landing in the newest draft column
+        W = max(len(st.spec_pending) for st in spec)
+        tok_rows = np.zeros((self.n_slots, W), np.int32)
+        cnt_rows = np.ones((self.n_slots,), np.int32)
+        for st in spec:
+            tok_rows[st.index, :len(st.spec_pending)] = st.spec_pending
+            cnt_rows[st.index] = len(st.spec_pending)
+            st.draft_len += len(st.spec_pending)
+            st.spec_pending = []
+        self._draft_catchup(self.draft_cache, torch.from_numpy(tok_rows).to(self.device),
+                            torch.from_numpy(cnt_rows).to(self.device), self._active,
+                            self._vtok[:, k])
+        # 2) k-1 batched draft steps finish the proposal window
+        for _ in range(k - 1):
+            self._graphed("draft", self._draft_step_impl)
+        # 3) make the verify span writable (alloc-on-write and CoW split, as
+        #    decode growth but k+1 positions at once), and cap each slot's
+        #    acceptance so it cannot overrun its max_new budget
+        k_eff = np.zeros((self.n_slots,), np.int32)
+        for st in spec:
+            self._prepare_write_span(st, st.len, k + 1)
+            k_eff[st.index] = min(k, st.req.max_new - st.n_out - 1)
+        self._k_eff.copy_(torch.from_numpy(k_eff))
+        ya = self._graphed("verify", self._verify_impl)[0]
+        ya = ya.cpu().numpy()                  # the round's one host sync
+        hybrid = bool(self._spec_rows)
+        for st in spec:
+            i = st.index
+            a = int(ya[i, -1])
+            y = ya[i, :-1]
+            if hybrid and a < k:
+                # the rows consumed all k+1 verify tokens: restore the copy
+                # taken before the verify and replay the canonical span
+                # through the chunk path (its K/V rewrites the same lanes)
+                for key, rows in self._spec_rows.items():
+                    self.cache[key][:, i] = rows[:, i]
+                self.cache["length"][i] = st.len
+                self._chunk_logits(np.asarray([st.spec_last, *y[:a]], np.int32), i)
+                self.spec_rollbacks += 1
+            emitted = a + 1
+            st.n_out += emitted
+            st.len += emitted
+            st.spec_last = int(y[a])
+            adv = min(a, k - 1)       # drafts d1..d_adv proved canonical
+            st.draft_len += adv
+            # canonical tokens the draft has not consumed: y[adv..a]
+            st.spec_pending = [int(t) for t in y[adv:a + 1]]
+            self.spec_accepted += a
+            self.spec_emitted += emitted
+            self.decode_tokens += emitted
+        # rejected proposals rewind the draft rows to the canonical length
+        idx = torch.tensor([st.index for st in spec], device=self.device)
+        lens = torch.tensor([st.draft_len for st in spec], dtype=torch.int32,
+                            device=self.device)
+        self.draft_cache["length"].index_copy_(0, idx, lens)
+        self.spec_proposed += k * len(spec)
+        self.spec_rounds += 1
+
+    def _draft_step_impl(self) -> None:
+        """One batched draft step, in place: the newest draft column in,
+        the columns shifted one left and the new token appended."""
+        drafts = self._vtok[:, 1:]
+        self._draft_step(self.draft_cache, drafts[:, -1], self._active, self._dtok)
+        drafts.copy_(torch.cat([drafts[:, 1:], self._dtok[:, None]], dim=1))
+
+    def _verify_impl(self):
+        """The verify step over ``_vtok``, in place; returns ``(y | a, logits)``:
+        each slot's ``k + 1`` argmax tokens with its accepted count in the
+        last column, and the verify logits."""
+        for key, rows in self._spec_rows.items():
+            rows.copy_(self.cache[key])
+        self._vtok[:, 0].copy_(self.last_tokens)
+        y, a, logits = self._verify(self.cache, self._vtok, self._active, self._k_eff,
+                                    self.out_buf, self.out_pos, self.last_tokens)
+        return torch.cat([y, a[:, None]], dim=1), logits
 
     def step(self) -> List[CompletedRequest]:
         """One scheduler tick: at most one prefill chunk (round-robin over
         admitting slots) and one restore chunk (round-robin over restoring
-        slots), then one batched decode step over the active slots; returns
-        the requests that completed this step (their slots are refilled from
-        the pending list before returning)."""
+        slots), then one batched decode step (or, with speculation on, one
+        draft-and-verify round) over the active slots; returns the requests
+        that completed this step (their slots are refilled from the pending
+        list before returning)."""
         self._fill_slots()
         admitting = [s for s in self.slots if s.state is SlotState.ADMITTING]
         if admitting:
@@ -1054,21 +1245,24 @@ class DecodeScheduler:
         active = [s.index for s in self.slots if s.decoding]
         if not active:
             return []
-        if self.kv_mode == "paged" and self._has_kv:
-            for i in active:
-                # alloc-on-write for decode growth: make the page this step's
-                # token write lands in writable — map it if unmapped (within
-                # the reservation), CoW-split it if shared
-                st = self.slots[i]
-                self._prepare_write_span(st, st.len, 1)
         mask = np.zeros((self.n_slots,), bool)
         mask[active] = True
         self._active.copy_(torch.from_numpy(mask))
-        self._decode()
-        self.decode_tokens += len(active)
-        for i in active:
-            self.slots[i].n_out += 1
-            self.slots[i].len += 1
+        if self._spec:
+            self._spec_round(active)
+        else:
+            if self.kv_mode == "paged" and self._has_kv:
+                for i in active:
+                    # alloc-on-write for decode growth: make the page this
+                    # step's token write lands in writable — map it if
+                    # unmapped (within the reservation), CoW-split it if shared
+                    st = self.slots[i]
+                    self._prepare_write_span(st, st.len, 1)
+            self._decode()
+            self.decode_tokens += len(active)
+            for i in active:
+                self.slots[i].n_out += 1
+                self.slots[i].len += 1
         self.steps += 1
         self.slot_steps += len(active)
         self.page_step_sum += self.allocator.in_use
@@ -1137,6 +1331,13 @@ class DecodeScheduler:
             self._page_rows[:] = -1
             for slot in range(self.n_slots):
                 kvcache.cache_clear_slot(self.cache, slot)
+        if self._spec:
+            # draft rows replay from scratch at the next admission; zero
+            # lengths so stale ring lanes are invalid until overwritten
+            self.draft_cache["length"].zero_()
+            self._vtok.zero_()
+            self._k_eff.zero_()
+            self._dtok.zero_()
 
     # -- invariant audit -------------------------------------------------------------
 
@@ -1268,6 +1469,24 @@ class DecodeScheduler:
             "index_pages": len(self.prefix_index),
         }
 
+    def spec_stats(self) -> Dict[str, float]:
+        """Speculation gauges: acceptance rate (accepted / proposed drafts)
+        and verify steps per emitted token (1.0 = no speedup; 1/(k+1) =
+        every draft accepted); ``spec_rollbacks`` counts a hybrid target's
+        partial accepts, each a row restore and a replayed chunk."""
+        return {
+            "spec_k": self.spec_k,
+            "spec_rounds": self.spec_rounds,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "spec_emitted": self.spec_emitted,
+            "spec_rollbacks": self.spec_rollbacks,
+            "spec_acceptance_rate": round(self.spec_accepted / self.spec_proposed, 4)
+            if self.spec_proposed else 0.0,
+            "spec_steps_per_token": round(self.spec_rounds / self.spec_emitted, 4)
+            if self.spec_emitted else 0.0,
+        }
+
     def stats(self) -> Dict[str, float]:
         out = {
             "steps": self.steps,
@@ -1284,4 +1503,6 @@ class DecodeScheduler:
             out.update(self.offload_stats())
         if self.prefix_sharing or self.park_sessions:
             out.update(self.sharing_stats())
+        if self._spec:
+            out.update(self.spec_stats())
         return out

@@ -8,7 +8,10 @@ across 3-5 sessions.  Every completed request must equal the port's own
 eviction-free solo ``generate`` token for token, and the allocator,
 refcount and reservation invariants are audited after every step.  A
 failing sequence's event log is written to ``artifacts/diff_failures/``
-(the sequence is a pure function of the arch and the seed).
+(the sequence is a pure function of the arch, the seed and the
+speculation setting).  ``_run_sequence(..., spec=)`` runs the same soup
+with draft-and-verify speculative decoding on
+(``test_torch_spec_differential``).
 
 A hypothesis property pins the alloc/share/CoW/release round trip on the
 allocator alone.
@@ -50,6 +53,7 @@ SEEDS = ([("minicpm-2b", s) for s in range(10)]
 FAILURE_DIR = Path("artifacts/diff_failures")
 
 _ARCH_CACHE = {}
+_MODELS = {}
 
 
 class SoloRef:
@@ -67,27 +71,48 @@ class SoloRef:
         return self._memo[key]
 
 
-def _arch(name):
-    if name not in _ARCH_CACHE:
+def _model(name):
+    """(config, model, solo reference) of ``name``'s reduced config, seed 0."""
+    if name not in _MODELS:
         cfg = configs.get(name).reduced()
         model = build_model(cfg, device="cpu", seed=0)
+        _MODELS[name] = (cfg, model, SoloRef(model))
+    return _MODELS[name]
+
+
+def _arch(name, spec=None):
+    """The scheduler for ``name``, with its config and solo reference.
+    ``spec=(draft_arch, draft_seed, k)`` turns on speculative decoding;
+    ``draft_seed == 0`` with ``draft_arch == name`` is a self-draft (the
+    target's own module).  The reference is never speculative: that is
+    the parity claim."""
+    if (name, spec) not in _ARCH_CACHE:
+        cfg, model, ref = _model(name)
+        kw = {}
+        if spec is not None:
+            draft_arch, draft_seed, k = spec
+            draft = (model if (draft_arch, draft_seed) == (name, 0) else
+                     build_model(configs.get(draft_arch).reduced(), device="cpu",
+                                 seed=draft_seed))
+            kw = dict(draft_model=draft, spec_k=k)
         sched = DecodeScheduler(model, n_slots=N_SLOTS, max_seq=MAX_SEQ,
                                 page_size=PAGE_SIZE, prefill_chunk=PREFILL_CHUNK,
                                 offload=True, prefix_sharing=True, park_sessions=True,
-                                device="cpu")
-        _ARCH_CACHE[name] = (cfg, sched, SoloRef(model))
-    return _ARCH_CACHE[name]
+                                device="cpu", **kw)
+        _ARCH_CACHE[(name, spec)] = (cfg, sched, ref)
+    return _ARCH_CACHE[(name, spec)]
 
 
-def _run_sequence(arch: str, seed: int, log: Optional[list] = None) -> list:
+def _run_sequence(arch: str, seed: int, log: Optional[list] = None, spec=None) -> list:
     """One seeded event sequence; appends every event to ``log`` (so a
     caller-owned list survives an assertion failure) and raises on any
     parity or invariant violation."""
-    cfg, sched, ref = _arch(arch)
+    cfg, sched, ref = _arch(arch, spec)
     sched.reset()
     # zlib.crc32, not hash(): str hashing is salted per process, and a
     # failing (arch, seed) must replay bit-identically from the artifact
-    rng = np.random.default_rng(zlib.crc32(arch.encode()) * 100003 + seed)
+    tag = arch if spec is None else f"{arch}+{spec[0]}:{spec[1]}:{spec[2]}"
+    rng = np.random.default_rng(zlib.crc32(tag.encode()) * 100003 + seed)
     sched.park_ttl_steps = int(rng.choice([0, 0, 18]))
     sessions = [f"s{i}" for i in range(int(rng.integers(3, 6)))]
     history = {s: None for s in sessions}     # completed conversation so far
@@ -95,7 +120,7 @@ def _run_sequence(arch: str, seed: int, log: Optional[list] = None) -> list:
     shared_sys = rng.integers(0, cfg.vocab, size=2 * PAGE_SIZE).astype(np.int32)
     log = log if log is not None else []
     log.append({"arch": arch, "seed": seed, "ttl": sched.park_ttl_steps,
-                "sessions": len(sessions)})
+                "sessions": len(sessions), "spec": spec})
     rid = 0
 
     def submit(sess):
@@ -138,7 +163,7 @@ def _run_sequence(arch: str, seed: int, log: Optional[list] = None) -> list:
             log.append({"ev": "complete", "rid": name, "tokens": got.tolist()})
             np.testing.assert_array_equal(
                 got, ref.run(prompt, max_new),
-                err_msg=f"{arch} seed {seed} {name}: scheduler diverged from the "
+                err_msg=f"{tag} seed {seed} {name}: scheduler diverged from the "
                         "eviction-free solo reference")
             history[fin.session] = np.concatenate([prompt, got.astype(np.int32)])
 
@@ -167,18 +192,26 @@ def _run_sequence(arch: str, seed: int, log: Optional[list] = None) -> list:
     return log
 
 
-@pytest.mark.parametrize("arch,seed", SEEDS, ids=[f"{a}-{s}" for a, s in SEEDS])
-def test_sched_differential(arch, seed):
+def run_and_dump(arch: str, seed: int, spec=None) -> list:
+    """``_run_sequence``, writing the event log to ``FAILURE_DIR`` when it
+    raises."""
     log: list = []
     try:
-        _run_sequence(arch, seed, log)
+        return _run_sequence(arch, seed, log, spec=spec)
     except Exception as e:
         FAILURE_DIR.mkdir(parents=True, exist_ok=True)
-        path = FAILURE_DIR / f"seq_torch_{arch}_{seed}.json"
+        tag = "" if spec is None else f"_spec_{spec[0]}_{spec[1]}_{spec[2]}"
+        path = FAILURE_DIR / f"seq_torch_{arch}{tag}_{seed}.json"
         path.write_text(json.dumps(
-            {"arch": arch, "seed": seed, "error": str(e)[:2000],
-             "repro": f"_run_sequence({arch!r}, {seed})", "events": log}, indent=2))
+            {"arch": arch, "seed": seed, "spec": spec, "error": str(e)[:2000],
+             "repro": f"_run_sequence({arch!r}, {seed}, spec={spec!r})", "events": log},
+            indent=2))
         raise
+
+
+@pytest.mark.parametrize("arch,seed", SEEDS, ids=[f"{a}-{s}" for a, s in SEEDS])
+def test_sched_differential(arch, seed):
+    run_and_dump(arch, seed)
 
 
 def test_event_soup_exercises_every_mechanism():

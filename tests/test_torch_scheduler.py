@@ -250,12 +250,13 @@ def test_scheduler_matches_jax_scheduler_teacher_forced(arch):
 
 def test_unported_options_raise():
     cfg, model = tiny()
-    for kw in (dict(spec_k=2), dict(draft_model=model), dict(mesh=object()),
-               dict(index_journal=True)):
+    for kw in (dict(mesh=object()), dict(index_journal=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             DecodeScheduler(model, device="cpu", **kw)
-    # offload, prefix sharing and parking are ported: accepted on the pool
-    for kw in (dict(offload=True), dict(prefix_sharing=True), dict(park_sessions=True)):
+    # offload, prefix sharing, parking and speculation are ported: accepted
+    # on the pool (speculation is on only with a draft model and spec_k >= 1)
+    for kw in (dict(offload=True), dict(prefix_sharing=True), dict(park_sessions=True),
+               dict(draft_model=model, spec_k=2), dict(spec_k=2), dict(draft_model=model)):
         DecodeScheduler(model, device="cpu", **kw)
     with pytest.raises(ValueError, match="attn_backend"):
         DecodeScheduler(model, device="cpu", attn_backend="flash")
