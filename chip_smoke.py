@@ -184,12 +184,24 @@ last line is printed):
     printed, and fails on a wgmma that ``ptxas`` serialised (C7515, C7517,
     C7518); the work items per SM at each timed shape (``plan.py``'s item
     map over the offsets) are printed.  The
-    router kernel against the fp64 product within 1e-5 of the largest
-    logit, a row alone bitwise the same row in the call.  Timed at
-    moonshot's P = 48 (decode, 8 slots), 1536 (a 256-token chunk) and 24576
-    (a 4096-token ring prefill), uniform routing (the experts hit counted),
-    beside the plain version, ``torch._grouped_mm`` where this torch has
-    it, and its bound; the router beside the fp32 matmul.  The paged kernel
+    route kernel (``moe_route``: the fp32 router product, softmax, top-k,
+    renormalisation and the stable sort of the pairs, one launch) against
+    ``moe_route_plain`` at T = 1, 8, 256, 4096, 8192 (D 2048, 64 experts
+    top-6), 37 (D 4096, 128 top-8) and 300 tied tokens: logits within 1e-5 of the
+    fp64 product, the experts equal outside near-ties of the plain gates
+    (gap <= 1e-6; every mismatch counted), the weights within 1e-6
+    relative of the plain routing of the kernel's own logits, the sort
+    outputs exactly the plain argsort's of the kernel's own experts, the
+    last row alone bitwise, ties to the lower expert; the combine kernel
+    bitwise its plain version with and without the shared expert and the
+    kept mask; route + combine in one CUDA graph, two replays bitwise the
+    eager launches.  Timed at moonshot's P = 48 (decode, 8 slots), 1536 (a
+    256-token chunk) and 24576 (a 4096-token ring prefill), uniform routing
+    (the experts hit counted), beside the plain version,
+    ``torch._grouped_mm`` where this torch has it, and its bound; route and
+    combine at the same T beside their plain versions eager and as one
+    replayed graph (its kernel nodes counted), route beside the fp32
+    matmul.  The paged kernel
     at moonshot's decode shape (B 8, 16 kv heads of 128, 2300..2331 live
     tokens, 8 layers' pools rotated) and flash at its ring prefill (1, 4096,
     16, 16, 128), causal, as in phases 2 and 16.
@@ -202,12 +214,16 @@ last line is printed):
     in chunks of 256 (the last 252), 32 new, 8 slots, page 16.  Checks as
     in phase 3 and exact launch counts: paged = 48 x decode steps,
     moe_experts = 2 x 48 x (decode steps + chunks) (half of them gate/up),
-    every one on the ``wgmma`` route with 64-row tiles, router = 48 x
-    (decode steps + chunks), no flash.  Backend agreement as
+    every one on the ``wgmma`` route with 64-row tiles, route = combine =
+    48 x (decode steps + chunks), no flash.  Backend agreement as
     in phase 4 (traced steps), phase 20's replay checks, and one slot's
     29-token chunk vs 29 S=1 steps: every layer's MoE output on the same
-    inputs bitwise (router, routing, both launches, shared expert,
-    combine); the whole model printed, as phase 9 does.
+    inputs bitwise (route, the row gather, both expert launches, the
+    shared expert, combine); the whole model printed, as phase 9 does.
+    One layer's ``moe_ffn`` at 8, 256 and 4096 tokens: the wrappers count
+    one route, two expert and one combine launch, and every aten op it
+    dispatches is a view, an allocation or the one row gather (no torch
+    sort, argsort, searchsorted or softmax).
 23. The same model from per-slot rings: 4 requests over 4 sessions, prompt
     4096, 16 new, 4 slots.  flash = 48 x admissions, all on the tensor-core
     route; moe_experts = 2 x 48 x (admissions + decode steps), every
@@ -276,7 +292,7 @@ last line is printed):
     in per-session FIFO order, tokens in the vocab, ``audit()`` after every
     step, and exact launch counts: RG-LRU = 18 x (verify rounds + chunks +
     rollback replays), moe_experts = 2 x 48 x (chunks + rounds x (k + 1))
-    and the router 48 x the same for the MoE self-draft (a round is one
+    and route = combine = 48 x the same for the MoE self-draft (a round is one
     catch-up, k - 1 draft steps and one verify), no paged or flash launch;
     without speculation the counts of phases 6 and 22 on ``gather``.  The
     identical token streams are counted; where a stream diverges, the
@@ -707,7 +723,8 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
     from repro_torch.coord.serving_front import ServingFrontend
     from repro_torch.core import SimCloud
     from repro_torch.kernels.flash_attention import flash_attention_kernel
-    from repro_torch.kernels.moe_experts import moe_experts_kernel, moe_router_kernel
+    from repro_torch.kernels.moe_experts import (moe_combine_kernel, moe_experts_kernel,
+                                                 moe_route_kernel)
     from repro_torch.kernels.paged_attention import paged_attention_kernel
     from repro_torch.kernels.rglru_scan import rglru_scan_kernel
     from repro_torch.kernels.ssd_scan import ssd_scan_kernel
@@ -740,7 +757,8 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
               "moe_experts": moe_experts_kernel.launches,
               "moe_experts_swiglu": moe_experts_kernel.launches_by_mode["swiglu"],
               **{f"moe_experts_{r}": n for r, n in moe_experts_kernel.launches_by_route.items()},
-              "moe_router": moe_router_kernel.launches,
+              "moe_route": moe_route_kernel.launches,
+              "moe_combine": moe_combine_kernel.launches,
               "steps": sched.steps, "chunks": sched.prefill_chunks,
               "admitted": sched.admitted, "pages": sched.allocator.n_pages}
 
@@ -790,69 +808,87 @@ def phase_serving(fails: Failures, model, cfg, seed: int, *, n_requests=N_REQUES
 class RouteLog:
     """The experts every MoE layer picks, by layer and token, across the
     ``moe_ffn`` calls of a forward (one per layer, or one per layer and
-    chunk).  ``record()`` keeps a run's picks; ``compare()`` counts the
-    (token, layer) routes of another run that differ from them; ``force()``
-    makes another run pick them (each call takes its gates at the recorded
-    experts), so that two runs which differ only in attention can be
-    compared where a route would flip: routing is discrete, and a one-ulp
-    difference in a hidden state moves a near-tied gate past another."""
+    chunk), read from each call's ``route`` output.  ``record()`` keeps a
+    run's picks; ``compare()`` counts the (token, layer) routes of another
+    run that differ from them; ``force()`` makes another run pick them (each
+    call passes them to ``route`` as ``forced``: on the card the route
+    kernel takes its gates at those experts and renormalises them), so
+    that two runs which differ only in attention can be compared where a
+    route would flip: routing is discrete, and a one-ulp difference in a
+    hidden state moves a near-tied gate past another.  ``forced`` counts
+    the forced calls, ``forced_launches`` the route kernel's launches among
+    them."""
 
     def __init__(self, cfg):
         self.n_layers = cfg.n_layers
         self.picks = {}
-        self.flipped = self.routes = 0
+        self.flipped = self.routes = self.forced = self.forced_launches = 0
 
     @contextlib.contextmanager
     def _patched(self, pick):
         from repro_torch.models import moe as moe_mod
 
-        orig, calls = moe_mod.top_k_lower_first, [0]
+        orig, calls = moe_mod.route, [0]
         self.pos = dict.fromkeys(range(self.n_layers), 0)
 
-        def top_k(gates, k):
+        def route(x, w, k, forced=None):
             layer = calls[0] % self.n_layers
             calls[0] += 1
-            return pick(orig, gates, k, layer)
+            return pick(orig, x, w, k, layer)
 
-        moe_mod.top_k_lower_first = top_k
+        moe_mod.route = route
         try:
             yield self
         finally:
-            moe_mod.top_k_lower_first = orig
+            moe_mod.route = orig
 
     def record(self):
         import torch
 
         self.picks = {}
 
-        def pick(orig, gates, k, layer):
-            vals, idx = orig(gates, k)
+        def pick(orig, x, w, k, layer):
+            r = orig(x, w, k)
             prev = self.picks.get(layer)
-            self.picks[layer] = idx.clone() if prev is None else torch.cat([prev, idx])
-            return vals, idx
+            self.picks[layer] = r.idx.clone() if prev is None else torch.cat([prev, r.idx])
+            return r
         return self._patched(pick)
 
-    def _recorded(self, gates, layer):
+    def _recorded(self, n, layer):
         lo = self.pos[layer]
-        self.pos[layer] += gates.shape[0]
-        return self.picks[layer][lo:lo + gates.shape[0]]
+        self.pos[layer] += n
+        return self.picks[layer][lo:lo + n]
 
     def compare(self):
         self.flipped = self.routes = 0
 
-        def pick(orig, gates, k, layer):
-            vals, idx = orig(gates, k)
-            want = self._recorded(gates, layer)
-            self.flipped += int((idx.sort(-1)[0] != want.sort(-1)[0]).any(-1).sum())
-            self.routes += idx.shape[0]
-            return vals, idx
+        def pick(orig, x, w, k, layer):
+            r = orig(x, w, k)
+            want = self._recorded(x.shape[0], layer)
+            self.flipped += int((r.idx.sort(-1)[0] != want.sort(-1)[0]).any(-1).sum())
+            self.routes += r.idx.shape[0]
+            return r
         return self._patched(pick)
 
     def force(self):
-        def pick(orig, gates, k, layer):
-            idx = self._recorded(gates, layer)
-            return gates.gather(-1, idx), idx
+        from repro_torch.kernels.moe_experts import moe_route_kernel
+
+        self.forced = self.forced_launches = 0
+
+        def pick(orig, x, w, k, layer):
+            before = moe_route_kernel.launches
+            r = orig(x, w, k, forced=self._recorded(x.shape[0], layer).contiguous())
+            self.forced += 1
+            self.forced_launches += moe_route_kernel.launches - before
+            return r
         return self._patched(pick)
+
+    def check_forced(self, fails: Failures, what: str) -> None:
+        """On the card every forced call went through the route kernel."""
+        if DEVICE == "cuda":
+            fails.check(self.forced > 0 and self.forced_launches == self.forced,
+                        f"{what}: {self.forced_launches} route kernel launches of "
+                        f"{self.forced} forced calls")
 
     def report(self) -> str:
         return (f"{self.flipped} of {self.routes} (token, layer) routes picked another "
@@ -908,6 +944,7 @@ def phase_agreement(fails: Failures, model, cfg, seed: int, *, prompt=PROMPT,
         print(f"  free-running, {routes.report()}")
         with routes.force():
             lk = last(fused.decode_step(sched.cache, tokens)[0])
+        routes.check_forced(fails, "paged_kernel step, gather's routes forced")
         diff = (lg - lk).abs().max().item()
         what += ", paged_kernel's experts forced to gather's routes"
     fails.check(math.isfinite(diff) and diff <= AGREE_REL_TOL * scale,
@@ -2136,13 +2173,14 @@ def phase_ring_agreement(fails: Failures, model, cfg, seed: int, *, prompt: int 
         print(f"  free-running, {routes.report()}")
         with routes.force():
             paged = chunked()
+        routes.check_forced(fails, "paged chunks, the ring prefill's routes forced")
         diff = (ring - paged).abs().max().item()
         what += ", the chunks' experts forced to the ring prefill's routes"
     fails.check(math.isfinite(diff) and diff <= AGREE_REL_TOL * scale,
                 f"{what}: max |delta| {diff:.4g} <= {AGREE_REL_TOL} x {scale:.4f}")
 
 
-# -- phase 21: the grouped expert kernel and the router kernel vs their plain versions -----
+# -- phase 21: the grouped expert, route and combine kernels vs their plain versions -----
 
 
 # (T tokens, E, k, D, F, routing, shared expert): P = T k pairs
@@ -2225,12 +2263,10 @@ def moe_rel_err(got, want) -> tuple:
 def phase_moe_cases(fails: Failures, seed: int) -> None:
     """Every case through ``expert_ffn`` (the model's two launches) against
     the plain version, within 3e-2 of the output's largest magnitude; row
-    invariance and a CUDA graph's replay bitwise; the router kernel against
-    the fp32 product."""
+    invariance and a CUDA graph's replay bitwise."""
     import torch
 
-    from repro_torch.kernels.moe_experts import (expert_ffn, library_plan, moe_experts_kernel,
-                                                 moe_router_kernel, moe_router_plain, plan)
+    from repro_torch.kernels.moe_experts import expert_ffn, library_plan, moe_experts_kernel, plan
     from repro_torch.kernels.moe_experts.kernel import ROUTES
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -2304,21 +2340,143 @@ def phase_moe_cases(fails: Failures, seed: int) -> None:
     fails.check(routes_seen == set(ROUTES),
                 f"moe_experts cases ran every route the kernel has: {sorted(routes_seen)}")
     print(f"  launches by route: {moe_experts_kernel.launches_by_route}")
-    # the router: fp32 within 1e-5 of the largest logit, row-invariant
-    for T, D, E in ((1, 64, 4), (8, 2048, 64), (CHUNK, 2048, 64), (4096, 2048, 64),
-                    (37, 4096, 128)):
-        xr = torch.randn(T, D, generator=gen, device=gen.device).to(torch.bfloat16)
-        wr = torch.randn(D, E, generator=gen, device=gen.device) * D ** -0.5
-        got = moe_router_kernel(xr, wr)
-        want = moe_router_plain(xr, wr)
-        ref = xr.double() @ wr.double()
-        err = (got.double() - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        one = moe_router_kernel(xr[T - 1:T].contiguous(), wr)
-        fails.check(err <= 1e-5 * scale and torch.equal(one[0], got[T - 1]),
-                    f"moe_router vs fp64 product [T={T} D={D} E={E}]: max err {err:.3g} <= "
-                    f"1e-5 x {scale:.4g} (fp32 matmul's {(want.double() - ref).abs().max().item():.3g}); "
-                    "last row alone bitwise")
+
+
+# (T, D, E, k, kind): moonshot's decode, chunk and ring prefill and one
+# token, 8192 tokens (the sort scatters to device memory: `order` outgrows
+# shared memory), qwen3-moe's widths at a ragged T, and every token tied (a
+# zero router)
+ROUTE_CASES = [
+    (1, 2048, 64, 6, "random"), (8, 2048, 64, 6, "random"), (CHUNK, 2048, 64, 6, "random"),
+    (4096, 2048, 64, 6, "random"), (8192, 2048, 64, 6, "random"), (37, 4096, 128, 8, "random"),
+    (300, 2048, 64, 6, "tied"),
+]
+ROUTE_TIE_GAP = 1e-6       # gates closer than this may swap between the kernel and torch
+
+
+def near_tie_rows(gates, k: int):
+    """Rows whose k-th and (k+1)-th largest gates lie within ROUTE_TIE_GAP."""
+    import torch
+
+    top = torch.sort(gates, dim=-1, descending=True)[0]
+    return (top[:, k - 1] - top[:, k]) <= ROUTE_TIE_GAP
+
+
+def graphed(fn):
+    """``fn`` captured in a CUDA graph (after a warm-up on a side stream):
+    returns (replay, the captured outputs)."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    gc.collect()    # no garbage CUDAGraph freed (and destroyed) mid-capture
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph.replay, out
+
+
+def phase_route_cases(fails: Failures, seed: int) -> None:
+    """``moe_route`` against ``moe_route_plain`` (logits within 1e-5 of the
+    fp64 product; the experts equal outside near-ties of the plain gates,
+    every mismatch counted; the weights within 1e-6 relative of the plain
+    routing of the kernel's own logits; offsets, order, tok, pos and ranks
+    exactly the plain argsort's of the kernel's own experts; the last row
+    alone bitwise its row in the call), ``moe_combine`` bitwise
+    ``moe_combine_plain`` with and without the shared expert and the kept
+    mask, and both captured in one CUDA graph, replayed twice, bitwise the
+    eager launches."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.moe_experts import (moe_combine_kernel, moe_combine_plain,
+                                                 moe_route_kernel, moe_route_plain,
+                                                 route_logits_plain, route_plan,
+                                                 route_sort_plain)
+
+    name = None
+    for line in build.build_log("moe_experts").splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"moe_route_kernelILi\d|moe_combine_kernel", line)
+            name = m and m.group(0)
+        elif name and ("Used" in line or "spill" in line):
+            print(f"  ptxas {name}: {line.strip().replace('ptxas info    : ', '')}")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 21)
+    for T, D, E, k, kind in ROUTE_CASES:
+        x = torch.randn(T, D, generator=gen, device=DEVICE).to(torch.bfloat16)
+        w = (torch.zeros(D, E, device=DEVICE) if kind == "tied" else
+             torch.randn(D, E, generator=gen, device=DEVICE) * D ** -0.5)
+        before = moe_route_kernel.launches
+        got = moe_route_kernel(x, w, k)
+        one = moe_route_kernel(x[T - 1:T].contiguous(), w, k)
+        want = moe_route_plain(x, w, k)
+        own = route_logits_plain(got.logits, k)
+        sync()
+        ref = x.double() @ w.double()
+        l_err = (got.logits.double() - ref).abs().max().item()
+        l_scale = ref.abs().max().item()
+        mism = ~(got.idx == want.idx).all(-1)
+        outside = int((mism & ~near_tie_rows(want.gates, k)).sum())
+        same = (got.idx == own.idx).all(-1)
+        own_bad = int((~same & ~near_tie_rows(own.gates, k)).sum())
+        w_rel = ((got.weights - own.weights).abs() / own.weights)[same].max().item()
+        agree = ~mism
+        w_rel_plain = (((got.weights - want.weights).abs() / want.weights)[agree].max().item()
+                       if bool(agree.any()) else 0.0)
+        sort_ok = all(torch.equal(a, b) for a, b in zip(got[4:], route_sort_plain(got.idx, E)))
+        row_ok = all(torch.equal(a[0], b[T - 1]) for a, b in zip(one[:4], got[:4]))
+        tie_ok = kind != "tied" or bool(
+            (got.idx == torch.arange(k, device=DEVICE, dtype=torch.int32)).all())
+        pl = route_plan(T, D, E, k)
+        fails.check(moe_route_kernel.launches == before + 2 and l_err <= 1e-5 * l_scale
+                    and outside == 0 and own_bad == 0 and w_rel <= 1e-6 and sort_ok and row_ok
+                    and tie_ok,
+                    f"moe_route vs plain [T={T} D={D} E={E} k={k} {kind}; grid {pl.tiles} tiles "
+                    f"of {pl.tile_tokens} x {pl.groups} slice groups]: logits max err "
+                    f"{l_err:.3g} <= 1e-5 x {l_scale:.4g}; experts differ on {int(mism.sum())} "
+                    f"of {T} tokens, {outside} outside near-ties (gap <= {ROUTE_TIE_GAP}); "
+                    f"against its own logits' plain routing {own_bad} outside near-ties, "
+                    f"weights rel err {w_rel:.3g} <= 1e-6 (vs plain {w_rel_plain:.3g}); sort "
+                    f"outputs exact {sort_ok}; last row alone bitwise {row_ok}; ties to the "
+                    f"lower expert {tie_ok}")
+    # the combine, bitwise, at moonshot's chunk
+    T, D, E, k = CHUNK, 2048, 64, 6
+    x = torch.randn(T, D, generator=gen, device=DEVICE).to(torch.bfloat16)
+    w = torch.randn(D, E, generator=gen, device=DEVICE) * D ** -0.5
+    r = moe_route_kernel(x, w, k)
+    ys = torch.randn(T * k, D, generator=gen, device=DEVICE).to(torch.bfloat16)
+    ysh = torch.randn(T, D, generator=gen, device=DEVICE).to(torch.bfloat16)
+    kept = r.rank < 20
+    for label, kp, sh in (("no drop, no shared", None, None), ("shared", None, ysh),
+                          ("kept mask + shared", kept, ysh), ("kept mask", kept, None)):
+        before = moe_combine_kernel.launches
+        got = moe_combine_kernel(ys, r.pos, r.weights, kp, sh)
+        want = moe_combine_plain(ys, r.pos, r.weights, kp, sh)
+        sync()
+        fails.check(moe_combine_kernel.launches == before + 1 and torch.equal(got, want),
+                    f"moe_combine vs plain [T={T} k={k} D={D}, {label}"
+                    f"{f', {int((~kept).sum())} pairs dropped' if kp is not None else ''}]: "
+                    f"bitwise (max |delta| {(got.float() - want.float()).abs().max().item():.3g})")
+
+    def layer():
+        rr = moe_route_kernel(x, w, k)
+        return rr, moe_combine_kernel(ys, rr.pos, rr.weights, None, ysh)
+
+    eager = layer()
+    replay, captured = graphed(layer)
+    ok = True
+    for _ in range(2):
+        for t in (*captured[0], captured[1]):
+            t.zero_()
+        replay()
+        sync()
+        ok &= all(torch.equal(a, b) for a, b in zip(captured[0], eager[0])) and \
+            torch.equal(captured[1], eager[1])
+    fails.check(ok, f"moe_route + moe_combine [T={T}] captured in one CUDA graph: two replays "
+                "in a row bitwise the eager launches (the counters back at 0 after each)")
 
 
 def moe_bound(T: int, P: int, hit: int, D: int, F: int, shared: bool):
@@ -2403,12 +2561,11 @@ def phase_moe_timing(fails: Failures, seed: int, T: int, label: str) -> list:
     """moonshot's expert FFN of one layer (the two launches, with the
     shared expert) at T tokens x 6 = P pairs, uniform routing, against its
     plain version (a ``torch.matmul`` per expert), ``torch._grouped_mm``
-    where this torch has it, and its bound; and the router kernel at the
-    same T against the fp32 matmul.  The weights of one layer are 1.1 GB:
-    every launch streams its experts from HBM."""
+    where this torch has it, and its bound.  The weights of one layer are
+    1.1 GB: every launch streams its experts from HBM."""
     import torch
 
-    from repro_torch.kernels.moe_experts import expert_ffn, moe_experts_kernel, moe_router_kernel
+    from repro_torch.kernels.moe_experts import expert_ffn, moe_experts_kernel
 
     E, k, D, F = 64, 6, 2048, 1408
     gen = torch.Generator(device="cuda").manual_seed(seed + T)
@@ -2461,29 +2618,102 @@ def phase_moe_timing(fails: Failures, seed: int, T: int, label: str) -> list:
               "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
               "library_ms": library_ms}
-    # the router at the same T
+    return [record]
+
+
+def kernel_events(fn) -> tuple:
+    """(kernels the device ran, their device ms) over one call of ``fn``
+    after one warm-up call, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    ks = [e for e in prof.key_averages()
+          if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return sum(e.count for e in ks), sum(e.self_device_time_total for e in ks) / 1e3
+
+
+def phase_route_timing(fails: Failures, seed: int, T: int, label: str) -> list:
+    """moonshot's routing and combine of one layer at T tokens (D 2048, 64
+    experts top-6, the shared expert's rows): each kernel's time (CUDA
+    events, back to back) and device time per launch beside its bound,
+    its plain version run eagerly, and the torch sequence it replaces
+    captured in one CUDA graph and replayed; the fp32 matmul alone as the
+    router product's library call."""
+    import torch
+
+    from repro_torch.kernels.moe_experts import (moe_combine_kernel, moe_combine_plain,
+                                                 moe_route_kernel, moe_route_plain, route_plan)
+
+    D, E, k = 2048, 64, 6
+    P = T * k
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7 * T)
+    x = torch.randn(T, D, generator=gen, device="cuda").to(torch.bfloat16)
     w = torch.randn(D, E, generator=gen, device="cuda") * D ** -0.5
-    xf = x.contiguous()
-    lr = moe_router_kernel(xf, w)
-    ref = xf.float() @ w
-    r_err = (lr - ref).abs().max().item()
-    r_ms = cuda_time_ms(lambda i: moe_router_kernel(xf, w), 40)
-    r_dev = device_ms_per_launch(lambda i: moe_router_kernel(xf, w), 20, "moe_router_kernel")
-    r_lib = cuda_time_ms(lambda i: xf.float() @ w, 40)
-    r_bytes, r_ops = T * D * 2 + D * E * 4 + T * E * 4, 2 * T * D * E
-    rb, ro = r_bytes / HBM_BYTES_PER_S, r_ops / FP32_FLOPS_PER_S
-    print(f"  moe_router {label}: ({T}, {D}) x ({D}, {E}) fp32: kernel {r_ms:.4f} ms "
-          f"(device time per launch {r_dev} ms), "
-          f"fp32 matmul {r_lib:.4f} ms, bound {max(rb, ro) * 1e3:.5f} ms, max err {r_err:.3g}")
-    router = {"name": "moe_router", "route": "cuda",
-              "source": "src/repro_torch/kernels/csrc/moe_experts.cu",
-              "replaces": "src/repro/models/moe.py:170 (router einsum in fp32; no Pallas kernel)",
-              "shape": f"moonshot {label}: x ({T}, {D}) bf16 . w ({D}, {E}) fp32",
-              "launches": None, "max_abs_err": r_err, "ms": r_ms, "device_ms": r_dev,
-              "plain_ms": r_lib,
-              "bound_ms": max(rb, ro) * 1e3, "bound_by": "bytes" if rb >= ro else "operations",
-              "library_ms": r_lib}
-    return [record, router]
+    ys = torch.randn(P, D, generator=gen, device="cuda").to(torch.bfloat16)
+    ysh = torch.randn(T, D, generator=gen, device="cuda").to(torch.bfloat16)
+    got = moe_route_kernel(x, w, k)
+    want = moe_route_plain(x, w, k)
+    r_err = (got.logits - want.logits).abs().max().item()
+    c_got = moe_combine_kernel(ys, got.pos, got.weights, None, ysh)
+    c_err = (c_got.float() - moe_combine_plain(ys, got.pos, got.weights, None,
+                                               ysh).float()).abs().max().item()
+    iters = 40 if T <= 256 else 20
+    out = []
+    for name, kern, plain, nbytes, ops, rate, lib in (
+            ("moe_route", lambda: moe_route_kernel(x, w, k), lambda: moe_route_plain(x, w, k),
+             T * D * 2 + D * E * 4 + 2 * T * E * 4 + 2 * P * 4 + (E + 1) * 4 + 4 * P * 4,
+             2 * T * D * E, FP32_FLOPS_PER_S, lambda: x.float() @ w),
+            ("moe_combine", lambda: moe_combine_kernel(ys, got.pos, got.weights, None, ysh),
+             lambda: moe_combine_plain(ys, got.pos, got.weights, None, ysh),
+             P * D * 2 + 2 * T * D * 2 + 2 * P * 4, 2 * P * D + T * D, FP32_FLOPS_PER_S, None)):
+        ms = cuda_time_ms(lambda i: kern(), iters)
+        dev = device_ms_per_launch(lambda i: kern(), 20, f"{name}_kernel")
+        plain_ms = cuda_time_ms(lambda i: plain(), 10)
+        graph_ms, nodes = None, (None, None)
+        try:
+            replay, _ = graphed(plain)
+            graph_ms = cuda_time_ms(lambda i: replay(), iters)
+            nodes = kernel_events(replay)
+        except RuntimeError as e:
+            print(f"  {name} {label}: the plain sequence did not capture: {str(e)[:160]}")
+        lib_ms = cuda_time_ms(lambda i: lib(), iters) if lib is not None else None
+        again = cuda_time_ms(lambda i: kern(), iters, warmup=0)
+        tb, to = nbytes / HBM_BYTES_PER_S, ops / rate
+        bound = max(tb, to) * 1e3
+        extra = ""
+        if name == "moe_route":
+            pl = route_plan(T, D, E, k)
+            extra = (f"grid {pl.tiles} tiles of {pl.tile_tokens} tokens x {pl.groups} slice "
+                     f"groups, {pl.smem} B shared memory, workspace {pl.workspace} B; ")
+        print(f"  {name} {label}: T={T} P={P}: {extra}kernel {ms:.4f} ms (again {again:.4f}; "
+              f"device time per launch {dev} ms); plain eager {plain_ms:.4f} ms; plain "
+              f"sequence as one replayed graph {graph_ms} ms ({nodes[0]} kernel nodes, "
+              f"{nodes[1]} ms of device time); "
+              f"{'fp32 matmul ' + format(lib_ms, '.4f') + ' ms; ' if lib_ms else ''}bound "
+              f"{bound:.5f} ms ({nbytes / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP)")
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/moe_experts.cu",
+                    "replaces": ("src/repro/models/moe.py:171-174 (router einsum, softmax, "
+                                 "top_k, renormalisation) and the torch sort of the pairs; no "
+                                 "Pallas kernel" if name == "moe_route" else
+                                 "src/repro/models/moe.py:90-94 (the weighted combine of "
+                                 "_dispatch_ffn); no Pallas kernel"),
+                    "shape": (f"moonshot {label}: x ({T}, {D}) bf16 . w ({D}, {E}) fp32, top-{k}"
+                              if name == "moe_route" else
+                              f"moonshot {label}: ys ({P}, {D}) bf16, top-{k}, shared rows"),
+                    "launches": None, "max_abs_err": r_err if name == "moe_route" else c_err,
+                    "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+                    "graphed_plain_ms": graph_ms, "graphed_plain_nodes": nodes[0],
+                    "bound_ms": bound,
+                    "bound_by": "bytes" if tb >= to else "operations", "library_ms": lib_ms})
+    fails.check(r_err <= 1e-5 * want.logits.abs().max().item() and c_err == 0.0,
+                f"route and combine at {label}: logits max err {r_err:.3g}, combine bitwise "
+                f"({c_err:.3g})")
+    return out
 
 
 # -- phases 22-23: moonshot-v1-16b-a3b (MoE) paged and from rings ----------------------------
@@ -2493,7 +2723,7 @@ def phase_moe_parity(fails: Failures, model, cfg, seed: int) -> None:
     """One slot: a prefix as one chunk, then N tokens as one chunk or as N
     S=1 steps from copies of the same state.  Gated, bitwise: on every
     layer's MoE input taken from the chunk run, ``moe_ffn`` over the N
-    tokens equals ``moe_ffn`` of each token alone (router, routing, both
+    tokens equals ``moe_ffn`` of each token alone (route, gather, both
     launches, the shared expert and the combine).  Printed: the same
     comparison through the whole model (cuBLAS picks its attention
     projections' kernels by row count)."""
@@ -2548,6 +2778,65 @@ def phase_moe_parity(fails: Failures, model, cfg, seed: int) -> None:
     lg = (lw[0].float() - torch.cat(ls, dim=1)[0].float()).abs().max().item()
     print(f"  whole model, {n}-token chunk vs {n} S=1 steps: K/V max |delta| {diffs}, logits "
           f"max |delta| {lg:.4g} (|logits| up to {lw.float().abs().max().item():.4g})")
+
+
+# aten ops that launch no kernel: views and allocations
+NO_LAUNCH_OPS = frozenset({"aten.view", "aten._unsafe_view", "aten.slice", "aten.select",
+                           "aten.unbind", "aten.alias", "aten.as_strided", "aten.t",
+                           "aten.expand", "aten.detach", "aten.split", "aten.unsqueeze",
+                           "aten.squeeze", "aten.permute", "aten.transpose", "aten.empty",
+                           "aten.new_empty", "aten.empty_strided", "aten.empty_like"})
+
+
+def phase_moe_launches(fails: Failures, model, cfg, seed: int) -> None:
+    """One layer's ``moe_ffn`` as the serving paths call it (drop-free, no
+    aux) at a decode step's, a chunk's and a ring prefill's token counts:
+    every aten op it dispatches is logged (a ``TorchDispatchMode``), and
+    apart from views and allocations it must be the one row gather, with
+    one route, two expert and one combine launch counted by the wrappers:
+    five launches, none of them a torch sort, argsort, searchsorted or
+    softmax.  The kernels a ``torch.profiler`` trace sees are printed (it
+    may record no device event for so short a region)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels.moe_experts import (moe_combine_kernel, moe_experts_kernel,
+                                                 moe_route_kernel)
+    from repro_torch.models import moe as moe_mod
+
+    class OpLog(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 22)
+    p = model.layers[0].moe
+    wrappers = (moe_route_kernel, moe_experts_kernel, moe_combine_kernel)
+    for T in (SLOTS, CHUNK, MR_PROMPT):
+        h = torch.randn(1, T, cfg.d_model, generator=gen, device=DEVICE).to(torch.bfloat16)
+        moe_mod.moe_ffn(p, cfg, h, no_drop=True, with_aux=False)
+        sync()
+        before = [w.launches for w in wrappers]
+        with OpLog() as log:
+            moe_mod.moe_ffn(p, cfg, h, no_drop=True, with_aux=False)
+        sync()
+        counted = [w.launches - b for w, b in zip(wrappers, before)]
+        launching = [op for op in log.ops if op not in NO_LAUNCH_OPS]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            moe_mod.moe_ffn(p, cfg, h, no_drop=True, with_aux=False)
+            sync()
+        kernels = [(e.key[:48], e.count) for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        fails.check(counted == [1, 2, 1] and launching == ["aten.index_select"],
+                    f"one MoE layer at T={T} (moe_ffn, drop-free, no aux): route, experts, "
+                    f"combine launches {counted} == [1, 2, 1]; aten ops other than views and "
+                    f"allocations {launching} == ['aten.index_select'] (of {len(log.ops)} "
+                    f"dispatched); profiler kernels {kernels or 'none recorded'}")
 
 
 # -- phases 24-25: storage-backed preemption, prefix sharing, session parking -----------
@@ -2858,13 +3147,14 @@ def checked_scheduler():
 def reset_launch_counts() -> None:
     """Every kernel wrapper's launch counts to 0."""
     from repro_torch.kernels.flash_attention import flash_attention_kernel
-    from repro_torch.kernels.moe_experts import moe_experts_kernel, moe_router_kernel
+    from repro_torch.kernels.moe_experts import (moe_combine_kernel, moe_experts_kernel,
+                                                 moe_route_kernel)
     from repro_torch.kernels.paged_attention import paged_attention_kernel
     from repro_torch.kernels.rglru_scan import rglru_scan_kernel
     from repro_torch.kernels.ssd_scan import ssd_scan_kernel
 
     for w in (paged_attention_kernel, rglru_scan_kernel, ssd_scan_kernel,
-              flash_attention_kernel, moe_experts_kernel, moe_router_kernel):
+              flash_attention_kernel, moe_experts_kernel, moe_route_kernel, moe_combine_kernel):
         w.launches = 0
         for name, val in list(vars(w).items()):
             if name.startswith("launches_by_"):
@@ -3320,7 +3610,8 @@ def spec_serve(fails: Failures, model, cfg, seed: int, label: str, *, draft=None
     from repro_torch.coord.serving_front import ServingFrontend
     from repro_torch.core import SimCloud
     from repro_torch.kernels.flash_attention import flash_attention_kernel
-    from repro_torch.kernels.moe_experts import moe_experts_kernel, moe_router_kernel
+    from repro_torch.kernels.moe_experts import (moe_combine_kernel, moe_experts_kernel,
+                                                 moe_route_kernel)
     from repro_torch.kernels.paged_attention import paged_attention_kernel
     from repro_torch.kernels.rglru_scan import rglru_scan_kernel
     from repro_torch.launch.serve import spawn_workload
@@ -3347,7 +3638,8 @@ def spec_serve(fails: Failures, model, cfg, seed: int, label: str, *, draft=None
               "flash_attention": flash_attention_kernel.launches,
               "rglru_scan": rglru_scan_kernel.launches,
               "moe_experts": moe_experts_kernel.launches,
-              "moe_router": moe_router_kernel.launches}
+              "moe_route": moe_route_kernel.launches,
+              "moe_combine": moe_combine_kernel.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else 0.0
     served = sum(len(v) for v in front.completions.values())
     fails.check(served == n_requests, f"{label}: served {served}/{n_requests} requests")
@@ -3499,11 +3791,12 @@ def phase_spec(fails: Failures, model, cfg, seed: int, name: str, drafts, *, n_r
     calls = st["steps"] + st["prefill_chunks"]
     fails.check(plain["counts"]["rglru_scan"] == n_rec * calls
                 and plain["counts"]["moe_experts"] == 2 * L * calls
-                and plain["counts"]["moe_router"] == L * calls
+                and plain["counts"]["moe_route"] == plain["counts"]["moe_combine"] == L * calls
                 and plain["counts"]["paged_attention"] == plain["counts"]["flash_attention"] == 0,
                 f"{plain['label']}: rglru {plain['counts']['rglru_scan']} == {n_rec} x "
                 f"{calls}, moe_experts {plain['counts']['moe_experts']} == 2 x {L} x {calls}, "
-                f"router {plain['counts']['moe_router']} == {L} x {calls} (decode steps + "
+                f"route {plain['counts']['moe_route']} and combine "
+                f"{plain['counts']['moe_combine']} == {L} x {calls} (decode steps + "
                 f"chunks), no paged or flash launch")
     for i, (label, draft, k) in enumerate(drafts):
         run = spec_serve(fails, model, cfg, seed, f"{name} {label}", draft=draft, k=k, **kw)
@@ -3513,11 +3806,12 @@ def phase_spec(fails: Failures, model, cfg, seed: int, name: str, drafts, *, n_r
         c = run["counts"]
         fails.check(c["rglru_scan"] == n_rec * (rounds + chunks + rb)
                     and c["moe_experts"] == 2 * L * moe_calls
-                    and c["moe_router"] == L * moe_calls
+                    and c["moe_route"] == c["moe_combine"] == L * moe_calls
                     and c["paged_attention"] == c["flash_attention"] == 0,
                     f"{run['label']}: rglru {c['rglru_scan']} == {n_rec} x ({rounds} verify "
                     f"rounds + {chunks} chunks + {rb} rollback replays); moe_experts "
-                    f"{c['moe_experts']} == 2 x {L} x {moe_calls} and router {c['moe_router']} "
+                    f"{c['moe_experts']} == 2 x {L} x {moe_calls}, route {c['moe_route']} and "
+                    f"combine {c['moe_combine']} "
                     f"== {L} x {moe_calls} (target: chunks and verifies"
                     f"{'; self-draft: a catch-up and ' + str(k - 1) + ' draft steps a round' if draft is model else ''}); "
                     f"no paged or flash launch")
@@ -3817,13 +4111,15 @@ def main() -> int:
 
     mcfg = configs.get(MOE)
     mm = mcfg.moe
-    print("[21] grouped expert kernel and router kernel vs their plain versions")
+    print("[21] grouped expert, route and combine kernels vs their plain versions")
     ptxas_report(fails, "moe_experts", "moe_experts_kernel", 6)
     phase_moe_cases(fails, args.seed)
+    phase_route_cases(fails, args.seed)
     print(f"[21] kernels at {MOE}'s shapes (CUDA events)")
     moe_records = []
     for T, label in MOE_TIMED:
         moe_records.extend(phase_moe_timing(fails, args.seed, T, label))
+        moe_records.extend(phase_route_timing(fails, args.seed, T, label))
     m_paged = phase_kernel_timing(fails, mcfg, args.seed, prompt=M_PROMPT, max_new=M_MAX_NEW,
                                   layers=M_PAGED_LAYERS)
     m_paged["shape"] = (f"{MOE} decode: B={SLOTS} Hkv={mcfg.n_kv_heads} G=1 "
@@ -3858,10 +4154,11 @@ def main() -> int:
                 "decode steps")
     fails.check(mcounts["moe_experts"] == 2 * L * (steps + chunks)
                 and mcounts["moe_experts_swiglu"] == L * (steps + chunks)
-                and mcounts["moe_router"] == L * (steps + chunks),
+                and mcounts["moe_route"] == mcounts["moe_combine"] == L * (steps + chunks),
                 f"moe_experts launches {mcounts['moe_experts']} == 2 x {L} layers x ({steps} "
                 f"decode steps + {chunks} chunks), half of them gate/up "
-                f"({mcounts['moe_experts_swiglu']}); router launches {mcounts['moe_router']}")
+                f"({mcounts['moe_experts_swiglu']}); route {mcounts['moe_route']} and combine "
+                f"{mcounts['moe_combine']} == {L} x ({steps} + {chunks})")
     fails.check(mcounts["moe_experts_wgmma_bm64"] == mcounts["moe_experts"],
                 f"every moe_experts launch of paged serving on the wgmma route with 64-row "
                 f"tiles: {mcounts['moe_experts_wgmma_bm64']} of {mcounts['moe_experts']} "
@@ -3873,17 +4170,21 @@ def main() -> int:
                 "no flash, RG-LRU or SSD launch in chunked serving")
     m_paged["launches"] = mcounts["paged_attention"]
     for rec in moe_records:
-        rec["launches"] = mcounts["moe_experts" if rec["name"] == "moe_experts"
-                                  else "moe_router"]
+        rec["launches"] = mcounts[rec["name"]]
     release()
     print(f"[22] backend agreement at full width ({MOE})")
     phase_agreement(fails, mmodel, mcfg, args.seed, prompt=M_PROMPT, max_new=M_MAX_NEW)
     release()
     print(f"[20] graph replay vs eager: {MOE}, paged_kernel")
+    print("  figures before the route and combine kernels (PERF.md section 5): replayed "
+          "decode 26.263 ms host, 26.11 ms busy, idle 0.523; replayed chunk of 256 35.650 ms "
+          "host, 35.26 ms busy, idle 0.471; 7081 / 7265 host launch calls eager")
     phase_graph_replay(fails, mmodel, mcfg, args.seed, f"{MOE} paged_kernel",
                        attn_backend="paged_kernel", trace=True)
     print(f"[22] decode vs chunk prefill of one slot's MoE layers (full width)")
     phase_moe_parity(fails, mmodel, mcfg, args.seed)
+    print(f"[22] one MoE layer's launches at decode, chunk and ring prefill sizes")
+    phase_moe_launches(fails, mmodel, mcfg, args.seed)
     release()
 
     print(f"[23] {MOE} from per-slot rings: {MR_REQUESTS} requests, prompt {MR_PROMPT}, "
@@ -3897,9 +4198,10 @@ def main() -> int:
                 f"flash launches {rcounts['flash_attention']} == {L} layers x {adm} admissions, "
                 f"{rcounts['flash_tensor_core']} on the tensor cores")
     fails.check(rcounts["moe_experts"] == 2 * L * (adm + steps)
-                and rcounts["moe_router"] == L * (adm + steps),
+                and rcounts["moe_route"] == rcounts["moe_combine"] == L * (adm + steps),
                 f"moe_experts launches {rcounts['moe_experts']} == 2 x {L} layers x ({adm} "
-                f"admissions + {steps} decode steps); router {rcounts['moe_router']}")
+                f"admissions + {steps} decode steps); route {rcounts['moe_route']} and combine "
+                f"{rcounts['moe_combine']} == {L} x ({adm} + {steps})")
     fails.check(rcounts["moe_experts_wgmma_bm128"] == 2 * L * adm
                 and rcounts["moe_experts_wgmma_bm64"] == 2 * L * steps,
                 f"every moe_experts launch of ring serving on the wgmma route: "

@@ -1,6 +1,7 @@
-// Grouped expert FFN and fp32 router product of a token-choice MoE layer for
+// Grouped expert FFN, routing and combine of a token-choice MoE layer for
 // Hopper (sm_90a), bound through a plain C interface and loaded with ctypes
-// (repro_torch/kernels/moe_experts/kernel.py).
+// (repro_torch/kernels/moe_experts/kernel.py).  A layer is four launches:
+// route, the two expert launches (after one row gather), combine.
 //
 // No Pallas kernel stands behind this one: the JAX package computes its
 // experts with einsums over a capacity buffer
@@ -73,12 +74,36 @@
 // its tile's products (~27 GFLOP a layer, ~0.03 ms), which costs nothing
 // while bytes stay in flight.
 
-// The router product (moe_router_launch) is fp32 on the CUDA cores: logits
-// (T, E) = x (T, D) bf16 widened to fp32 times w (D, E) fp32, never TF32.
-// Each logit is one fixed-order sum (32 slices of D summed in order, each a
-// sequential FMA chain), so it too is row-invariant: a route cannot flip
-// between a decode step and a chunk because a library picked another
-// summation for another row count.
+// Routing (moe_route_launch), one launch a layer.  The JAX package routes
+// with an fp32 einsum, softmax, jax.lax.top_k and a renormalisation
+// (src/repro/models/moe.py::moe_ffn); no Pallas kernel stands behind it.
+// The launch writes the logits (T, E) = x (T, D) bf16 widened to fp32
+// times w (D, E) fp32 on the CUDA cores (never TF32), the softmax, the
+// top-k (ties to the lower expert) or the experts a caller forces, the k
+// weights summed in order and divided by max(sum, 1e-9), and the stable
+// counting sort of the T k pairs by expert: offsets, the pair at each
+// sorted row (order, and its token), each pair's sorted row (pos) and its
+// rank within its expert.  Each logit is one fixed-order sum (32 slices of
+// D, each an FMA chain in d order, the slice sums added in slice order):
+// bitwise the order of the earlier router kernel, and row-invariant, so a
+// route cannot flip between a decode step and a chunk.  The grid, from
+// shapes alone, splits a tile's 32 slices over up to 32 blocks while the
+// tiles alone leave SMs idle (a decode step of 8 tokens runs on 32 SMs,
+// not 2); the last block of a tile (an atomic counter) adds the slices
+// and routes its tokens, and the last tile to finish sorts, then sets the
+// counters back to 0 for the next launch.  Bound: at decode by latency
+// (the bytes, 0.5 MB of weights, take 0.17 us); at 4096 tokens by fp32
+// operations (1.07 GFLOP, 16 us at 67 TFLOP/s).  There the product, one
+// token a lane and each weight a broadcast 16-byte shared-memory load
+// (four wavefronts for 4 FMAs a lane), is held by shared-memory
+// wavefronts, not by the FMA pipes.
+//
+// Combine (moe_combine_launch), one launch a layer: out (T, D) bf16 from
+// the expert rows in sorted order, each pair's row found through pos,
+// with the plain combine's roundings (each product bf16, the k products
+// added in order in fp32, one rounding, then the shared expert's row
+// added in bf16).  Elementwise per (token, column), so bitwise its plain
+// version; bound by bytes (k + 2 rows of D bf16 a token).
 
 
 #include <cuda_bf16.h>
@@ -420,54 +445,505 @@ bool encode_group(CUtensorMap* a, CUtensorMap* w1, CUtensorMap* w2, const void* 
     return w2p == nullptr || encode_bf16_sw128(w2, w2p, 3, dw, sw, bw);
 }
 
-// -- router -------------------------------------------------------------------------
+// -- routing and combine ------------------------------------------------------------
 
-constexpr int kRouterSlices = 32;    // warps a block: slices of D, summed in order
-constexpr int kRouterTokens = 8;     // tokens a thread accumulates
+constexpr int kRouteSlices = 32;     // slices of D, each one FMA chain, summed in order
+constexpr int kRouteThreads = 512;
+constexpr int kRouteStages = 3;      // cp.async ring of slices
+constexpr int kRouteMaxE = 128;
+constexpr int kRouteMaxK = 32;
+constexpr int kRouteMaxD = 4096;
+constexpr int kRouteTilePairs = 2048;  // tt k is at most this for every E
+constexpr int kRouteScanInts = 1024;   // the sort's buffer of tile counts
+constexpr int kRouteSortSmem = 160 * 1024;  // the sort builds `order` in shared memory up to this
+constexpr int kRouteCounters = 256;  // ints of the counter buffer: one a tile, the last global
+constexpr int kRouteSortBatch = 8;   // pairs a thread scatters at a time in the sort
+constexpr int kRouteStaticSmem = (kRouteTilePairs + kRouteMaxE + 4) * 4;
 
-// One block per (8 tokens, 32 experts): lane = expert, warp = one of 32
-// slices of D (its length even, fixed by D alone).  A thread walks its
-// slice two d at a time (a bf16 pair of each token's row, two weights),
-// one FMA chain per token in d order; warp 0 then adds the 32 slice sums
-// in order.  So every logit is one sum whose order depends on D alone.
-__global__ void __launch_bounds__(32 * kRouterSlices)
-moe_router_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
-                  float* __restrict__ out, int T, int D, int E) {
-    __shared__ float part[kRouterSlices][kRouterTokens][32];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int e = blockIdx.y * 32 + lane;
-    const int t0 = blockIdx.x * kRouterTokens;
-    const int slice = (((D + kRouterSlices - 1) / kRouterSlices) + 1) & ~1;
-    const int d0 = min(D, warp * slice), d1 = min(D, d0 + slice);
-    const float* wc = w + min(e, E - 1);
-    const __nv_bfloat16* xr[kRouterTokens];
-#pragma unroll
-    for (int r = 0; r < kRouterTokens; ++r) xr[r] = x + (int64_t)min(t0 + r, T - 1) * D;
-    float acc[kRouterTokens];
-#pragma unroll
-    for (int r = 0; r < kRouterTokens; ++r) acc[r] = 0.f;
-#pragma unroll 4
-    for (int d = d0; d < d1; d += 2) {            // D even: d + 1 < d1
-        const float w0 = __ldg(wc + (int64_t)d * E), w1 = __ldg(wc + (int64_t)(d + 1) * E);
-#pragma unroll
-        for (int r = 0; r < kRouterTokens; ++r) {
-            const float2 xv = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(xr[r] + d));
-            acc[r] = fmaf(xv.x, w0, acc[r]);
-            acc[r] = fmaf(xv.y, w1, acc[r]);
+// The launch's shape, from (T, D, E, k) and the SM count alone.  A lane
+// is a token; a thread holds 4 ce experts of it (the experts padded to ep
+// = 4 eq, a power of two, split over wq warps), so a warp reads each
+// weight once for its 32 tokens (a broadcast) and each token's x pair
+// once (rows padded to an odd word stride: no bank conflict).  The 32
+// slices of a tile go to `groups` blocks (groups > 1 only while tiles x
+// groups fill at most the SMs), whose partial sums meet in the
+// workspace.  The dynamic shared memory holds the slice ring, then
+// (reused) the tile's logits, then in the last block the sort.
+struct RouteShape {
+    int eq, ep, wq, ce, tt, n_tiles, groups, slice, xs_words, x_bytes, stage_bytes, smem;
+    bool sort_smem, table_smem;
+    int64_t part_floats, ws_bytes;
+};
+
+RouteShape route_shape(int T, int D, int E, int k, int sms) {
+    RouteShape s;
+    s.eq = 1;
+    while (4 * s.eq < E) s.eq *= 2;
+    s.ep = 4 * s.eq;
+    s.wq = min(kRouteThreads / 32, s.eq);
+    s.ce = s.eq / s.wq;
+    s.tt = 32 * (kRouteThreads / 32 / s.wq);
+    s.n_tiles = (T + s.tt - 1) / s.tt;
+    s.groups = 1;
+    while (s.groups < kRouteSlices && (int64_t)s.n_tiles * s.groups * 2 <= sms) s.groups *= 2;
+    s.slice = (((D + kRouteSlices - 1) / kRouteSlices) + 1) & ~1;
+    s.xs_words = s.slice / 2 + 1;
+    s.x_bytes = (s.tt * s.xs_words * 4 + 15) & ~15;
+    s.stage_bytes = s.x_bytes + s.slice * s.ep * 4;
+    // the sort's shared memory: `order` (T k ints) and the tiles' counts
+    // (n_tiles E ints, else a chunk of them), each where it fits
+    const int64_t order_bytes = (int64_t)T * k * 4, table_bytes = (int64_t)s.n_tiles * E * 4;
+    s.sort_smem = order_bytes + kRouteScanInts * 4 <= kRouteSortSmem;
+    s.table_smem = s.sort_smem && order_bytes + max(table_bytes, (int64_t)kRouteScanInts * 4) <=
+                                      kRouteSortSmem;
+    const int64_t sort_bytes = (s.sort_smem ? order_bytes : 0) +
+                               (s.table_smem ? max(table_bytes, (int64_t)kRouteScanInts * 4)
+                                             : kRouteScanInts * 4);
+    s.smem = max(kRouteStages * s.stage_bytes, s.tt * s.ep * 4);
+    s.smem = max(s.smem, (int)sort_bytes);
+    s.part_floats = s.groups > 1 ? (int64_t)kRouteSlices * s.n_tiles * s.tt * s.ep : 0;
+    s.ws_bytes = s.part_floats * 4 + (int64_t)s.n_tiles * E * 4;
+    return s;
+}
+
+struct RouteParams {
+    const __nv_bfloat16* x;      // (T, D)
+    const float* w;              // (D, E)
+    const int* forced;           // (T, k) or null
+    float* logits;               // (T, E)
+    float* gates;                // (T, E)
+    float* weights;              // (T, k)
+    int* idx;                    // (T, k)
+    int* offsets;                // (E + 1,)
+    int* order;                  // (P,) pair at each sorted row
+    int* tok;                    // (P,) its token
+    int* pos;                    // (P,) each pair's sorted row
+    int* rank;                   // (P,) rank within its expert (the tile's rank until the sort)
+    float* part;                 // (32, n_tiles tt, ep) when groups > 1
+    int* hist;                   // (n_tiles, E)
+    int* counters;               // (kRouteCounters,), zero between launches
+    int T, D, E, k;
+    bool w_vec;                  // w's rows staged by 16-byte copies (else 4-byte)
+    RouteShape s;
+};
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+    if constexpr (BYTES == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+                     : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+                     : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit_group() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_ring() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kRouteStages - 1) : "memory");
+}
+
+// rows x cpr chunks of BYTES from src (row stride src_ld bytes; rows past
+// last_row read last_row) to dst (row stride dst_ld), by cp.async.
+template <int BYTES>
+__device__ __forceinline__ void stage_rows(unsigned char* dst, int dst_ld, const unsigned char* src,
+                                           int64_t src_ld, int rows, int last_row, int cpr) {
+    const int dr = kRouteThreads / cpr, dc = kRouteThreads - dr * cpr;
+    int r = threadIdx.x / cpr, c = threadIdx.x - r * cpr;
+    for (int i = threadIdx.x; i < rows * cpr; i += kRouteThreads) {
+        cp_async<BYTES>(dst + r * dst_ld + c * BYTES,
+                        src + (int64_t)min(r, last_row) * src_ld + c * BYTES);
+        r += dr;
+        c += dc;
+        if (c >= cpr) {
+            c -= cpr;
+            ++r;
         }
     }
-#pragma unroll
-    for (int r = 0; r < kRouterTokens; ++r) part[warp][r][lane] = acc[r];
+}
+
+// True in every thread of the one block that arrives last at `counter`
+// (of `n`), which also sets it back to 0 for the next launch.  Every
+// block's global writes before the call are visible to that block after it.
+__device__ bool last_to_arrive(int* counter, int n, int* flag) {
+    __threadfence();
     __syncthreads();
-    if (warp == 0 && e < E) {
-        for (int r = 0; r < kRouterTokens && t0 + r < T; ++r) {
-            float sum = part[0][r][lane];
+    if (threadIdx.x == 0) {
+        const bool last = atomicAdd(counter, 1) == n - 1;
+        if (last) atomicExch(counter, 0);
+        *flag = last;
+    }
+    __syncthreads();
+    if (!*flag) return false;
+    __threadfence();
+    return true;
+}
+
+// Slice sl's rows of x (the tile's tt tokens, clamped to T - 1) and of w
+// into one stage: x as bf16 pairs (tt, xs_words), w as fp32 (slice, ep);
+// one cp.async group (empty past D).
+__device__ __forceinline__ void route_stage(const RouteParams& p, int t0, int sl,
+                                            unsigned char* stage) {
+    const RouteShape& s = p.s;
+    const int d0 = min(p.D, sl * s.slice), len = min(p.D, d0 + s.slice) - d0;
+    if (len > 0) {
+        const unsigned char* xs =
+            reinterpret_cast<const unsigned char*>(p.x + (int64_t)t0 * p.D + d0);
+        const unsigned char* ws = reinterpret_cast<const unsigned char*>(p.w + (int64_t)d0 * p.E);
+        stage_rows<4>(stage, s.xs_words * 4, xs, (int64_t)p.D * 2, s.tt, p.T - 1 - t0, len / 2);
+        if (p.w_vec)
+            stage_rows<16>(stage + s.x_bytes, s.ep * 4, ws, (int64_t)p.E * 4, len, len - 1,
+                           p.E / 4);
+        else
+            stage_rows<4>(stage + s.x_bytes, s.ep * 4, ws, (int64_t)p.E * 4, len, len - 1, p.E);
+    }
+    cp_async_commit_group();
+}
+
+// Softmax, top-k (or the forced experts) and the renormalised weights of
+// token t, one warp; lg holds its logits (E floats) and takes its gates,
+// sel its k experts.  The top-k ranks every gate by counting the gates
+// above it (ties: the lower expert first, jax.lax.top_k's order).
+__device__ void route_token(const RouteParams& p, int t, float* lg, int* sel) {
+    const int lane = threadIdx.x & 31, E = p.E, k = p.k;
+    float v[kRouteMaxE / 32];
+    float m = -INFINITY;
 #pragma unroll
-            for (int k = 1; k < kRouterSlices; ++k) sum += part[k][r][lane];
-            out[(int64_t)(t0 + r) * E + e] = sum;
+    for (int c = 0; c < kRouteMaxE / 32; ++c) {
+        const int e = lane + 32 * c;
+        v[c] = e < E ? lg[e] : -INFINITY;
+        m = fmaxf(m, v[c]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < kRouteMaxE / 32; ++c) {
+        const int e = lane + 32 * c;
+        const float ex = e < E ? expf(v[c] - m) : 0.f;
+        if (e < E) p.logits[(int64_t)t * E + e] = v[c];
+        v[c] = ex;
+        sum += ex;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+#pragma unroll
+    for (int c = 0; c < kRouteMaxE / 32; ++c) {
+        const int e = lane + 32 * c;
+        if (e < E) {
+            v[c] = v[c] / sum;
+            p.gates[(int64_t)t * E + e] = v[c];
+            lg[e] = v[c];
         }
     }
+    if (lane < k) sel[lane] = 0;     // a slot no gate claims (NaN gates) stays in range
+    __syncwarp();
+    if (p.forced != nullptr) {
+        if (lane < k) sel[lane] = min(max(p.forced[(int64_t)t * k + lane], 0), E - 1);
+    } else {
+        int above[kRouteMaxE / 32] = {};
+        for (int f = 0; f < E; ++f) {
+            const float h = lg[f];
+#pragma unroll
+            for (int c = 0; c < kRouteMaxE / 32; ++c)
+                above[c] += (h > v[c]) | ((h == v[c]) & (f < lane + 32 * c));
+        }
+#pragma unroll
+        for (int c = 0; c < kRouteMaxE / 32; ++c)
+            if (lane + 32 * c < E && above[c] < k) sel[above[c]] = lane + 32 * c;
+    }
+    __syncwarp();
+    const int my_i = lane < k ? sel[lane] : 0;
+    const float my_w = lane < k ? lg[my_i] : 0.f;
+    // the k weights summed in order j = 0..k-1 in fp32, then max(sum, 1e-9)
+    float s = 0.f;
+    for (int j = 0; j < k; ++j) {
+        const float wj = __shfl_sync(0xffffffffu, my_w, j);
+        s = j == 0 ? wj : __fadd_rn(s, wj);
+    }
+    const float den = s < 1e-9f ? 1e-9f : s;
+    if (lane < k) {
+        p.weights[(int64_t)t * k + lane] = __fdiv_rn(my_w, den);
+        p.idx[(int64_t)t * k + lane] = my_i;
+    }
+}
+
+// The stable counting sort of the P = T k pairs by expert, in the last
+// block: hist's tile counts become each tile's base within its expert (a
+// scan over the tiles in order), the totals the offsets, and each pair's
+// sorted row is offsets[e] + its tile's base + its rank within the tile.
+// Where they fit, the bases stay in shared memory and `order` is built
+// there, then written out in order with `tok`.
+__device__ void route_sort(const RouteParams& p, int* dyn, int* cnt) {
+    const RouteShape& s = p.s;
+    const int E = p.E, k = p.k, tid = threadIdx.x;
+    const int P = p.T * k;
+    int* order_s = dyn;
+    int* buf = s.sort_smem ? dyn + P : dyn;
+    const int ch = s.table_smem ? s.n_tiles : max(1, kRouteScanInts / E);
+    int run = 0;
+    for (int c0 = 0; c0 < s.n_tiles; c0 += ch) {
+        const int nt = min(ch, s.n_tiles - c0);
+#pragma unroll 4
+        for (int i = tid; i < nt * E; i += kRouteThreads)
+            buf[i] = __ldcg(p.hist + (int64_t)c0 * E + i);
+        __syncthreads();
+        if (tid < E) {
+            for (int j = 0; j < nt; ++j) {
+                const int h = buf[j * E + tid];
+                buf[j * E + tid] = run;
+                run += h;
+            }
+        }
+        __syncthreads();
+        if (s.table_smem) break;
+#pragma unroll 4
+        for (int i = tid; i < nt * E; i += kRouteThreads) p.hist[(int64_t)c0 * E + i] = buf[i];
+        __syncthreads();
+    }
+    if (tid < E) cnt[tid] = run;
+    __syncthreads();
+    // offsets: an exclusive scan of the totals over the experts, by warp 0
+    if (tid < 32) {
+        int carry = 0;
+        for (int e0 = 0; e0 < E; e0 += 32) {
+            const int e = e0 + tid;
+            const int c = e < E ? cnt[e] : 0;
+            int incl = c;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int n = __shfl_up_sync(0xffffffffu, incl, o);
+                if (tid >= o) incl += n;
+            }
+            if (e < E) {
+                cnt[e] = carry + incl - c;
+                p.offsets[e] = carry + incl - c;
+            }
+            carry += __shfl_sync(0xffffffffu, incl, 31);
+        }
+        if (tid == 0) p.offsets[E] = carry;
+    }
+    __syncthreads();
+    // kRouteSortBatch pairs a thread at a time, every load of a batch issued
+    // before its stores
+    for (int b = tid; b < P; b += kRouteThreads * kRouteSortBatch) {
+        int e[kRouteSortBatch], at[kRouteSortBatch];
+#pragma unroll
+        for (int j = 0; j < kRouteSortBatch; ++j) {
+            const int q = b + j * kRouteThreads;
+            e[j] = q < P ? __ldcg(p.idx + q) : 0;
+            at[j] = q < P ? __ldcg(p.rank + q) : 0;
+        }
+#pragma unroll
+        for (int j = 0; j < kRouteSortBatch; ++j) {
+            const int q = b + j * kRouteThreads;
+            if (q < P) {
+                const int64_t h = (int64_t)((q / k) / s.tt) * E + e[j];
+                at[j] += cnt[e[j]] + (s.table_smem ? buf[h] : __ldcg(p.hist + h));
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < kRouteSortBatch; ++j) {
+            const int q = b + j * kRouteThreads;
+            if (q < P) {
+                if (s.sort_smem) {
+                    order_s[at[j]] = q;
+                } else {
+                    p.order[at[j]] = q;
+                    p.tok[at[j]] = q / k;
+                }
+                p.pos[q] = at[j];
+                p.rank[q] = at[j] - cnt[e[j]];
+            }
+        }
+    }
+    if (s.sort_smem) {
+        __syncthreads();
+        for (int i = tid; i < P; i += kRouteThreads) {
+            const int q = order_s[i];
+            p.order[i] = q;
+            p.tok[i] = q / k;
+        }
+    }
+}
+
+// One launch of the layer's routing: grid (n_tiles, groups).  Each block
+// takes its group's slices of one tile of tokens through a three-stage
+// cp.async ring and keeps one FMA chain a slice for every (token,
+// expert), d in order (as the earlier router kernel); the slice sums are
+// added in slice order, in registers (groups == 1) or, from the
+// workspace, by the last of the tile's blocks.  That block routes its
+// tile's tokens (a warp a token) and ranks its pairs within their experts
+// in pair order (__match_any_sync, 32 pairs at a time); the last tile to
+// finish sorts.
+template <int CE>
+__global__ void __launch_bounds__(kRouteThreads) moe_route_kernel(const RouteParams p) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ int tile_idx[kRouteTilePairs];     // the tile's pairs' experts
+    __shared__ int cnt[kRouteMaxE];
+    __shared__ int flag;
+    const RouteShape& s = p.s;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int tile = blockIdx.x, t0 = tile * s.tt;
+    const int tl = (warp / s.wq) * 32 + lane, cb = (warp % s.wq) * CE;  // token, first chunk
+    const int spg = kRouteSlices / s.groups, s_lo = blockIdx.y * spg;
+    const int64_t n_rows = (int64_t)s.n_tiles * s.tt;
+
+    float run[CE][4];
+    for (int i = 0; i < kRouteStages - 1; ++i) {
+        if (i < spg) route_stage(p, t0, s_lo + i, smem + i * s.stage_bytes);
+        else cp_async_commit_group();
+    }
+    for (int i = 0; i < spg; ++i) {
+        const int sl = s_lo + i, ahead = i + kRouteStages - 1;
+        if (ahead < spg)
+            route_stage(p, t0, s_lo + ahead, smem + (ahead % kRouteStages) * s.stage_bytes);
+        else
+            cp_async_commit_group();
+        cp_async_wait_ring();
+        __syncthreads();
+        const unsigned char* st = smem + (i % kRouteStages) * s.stage_bytes;
+        const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(st) + tl * s.xs_words;
+        const float* ws = reinterpret_cast<const float*>(st + s.x_bytes) + 4 * cb;
+        const int d0 = min(p.D, sl * s.slice), len = min(p.D, d0 + s.slice) - d0;
+        float acc[CE][4];
+#pragma unroll
+        for (int c = 0; c < CE; ++c)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[c][j] = 0.f;
+#pragma unroll 4
+        for (int d = 0; d < len; d += 2) {      // len even
+            const float2 xv = __bfloat1622float2(xs[d / 2]);
+#pragma unroll
+            for (int c = 0; c < CE; ++c) {
+                const float4 w0 = *reinterpret_cast<const float4*>(ws + d * s.ep + 4 * c);
+                const float4 w1 = *reinterpret_cast<const float4*>(ws + (d + 1) * s.ep + 4 * c);
+                acc[c][0] = fmaf(xv.x, w0.x, acc[c][0]);
+                acc[c][0] = fmaf(xv.y, w1.x, acc[c][0]);
+                acc[c][1] = fmaf(xv.x, w0.y, acc[c][1]);
+                acc[c][1] = fmaf(xv.y, w1.y, acc[c][1]);
+                acc[c][2] = fmaf(xv.x, w0.z, acc[c][2]);
+                acc[c][2] = fmaf(xv.y, w1.z, acc[c][2]);
+                acc[c][3] = fmaf(xv.x, w0.w, acc[c][3]);
+                acc[c][3] = fmaf(xv.y, w1.w, acc[c][3]);
+            }
+        }
+        if (s.groups == 1) {
+#pragma unroll
+            for (int c = 0; c < CE; ++c)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    run[c][j] = i == 0 ? acc[c][j] : __fadd_rn(run[c][j], acc[c][j]);
+        } else {
+#pragma unroll
+            for (int c = 0; c < CE; ++c)
+                *reinterpret_cast<float4*>(p.part + ((int64_t)sl * n_rows + t0 + tl) * s.ep +
+                                           4 * (cb + c)) =
+                    make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
+        }
+        __syncthreads();        // the stage is refilled next
+    }
+
+    float* lg = reinterpret_cast<float*>(smem);     // (tt, ep): the ring is done
+    const int n_valid = min(s.tt, p.T - t0);
+    if (s.groups == 1) {
+#pragma unroll
+        for (int c = 0; c < CE; ++c)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) lg[tl * s.ep + 4 * (cb + c) + j] = run[c][j];
+    } else {
+        if (!last_to_arrive(p.counters + tile, s.groups, &flag)) return;
+#pragma unroll 4
+        for (int i = tid; i < n_valid * p.E; i += kRouteThreads) {
+            const int r = i / p.E, e = i - r * p.E;
+            const float* src = p.part + (int64_t)(t0 + r) * s.ep + e;
+            float sum = __ldcg(src);
+#pragma unroll
+            for (int sl = 1; sl < kRouteSlices; ++sl)
+                sum = __fadd_rn(sum, __ldcg(src + sl * n_rows * s.ep));
+            lg[r * s.ep + e] = sum;
+        }
+    }
+    __syncthreads();
+    for (int r = warp; r < n_valid; r += kRouteThreads / 32)
+        route_token(p, t0 + r, lg + r * s.ep, tile_idx + r * p.k);
+    for (int e = tid; e < p.E; e += kRouteThreads) cnt[e] = 0;
+    __syncthreads();
+    if (warp == 0) {
+        const int n = n_valid * p.k;
+        for (int b = 0; b < n; b += 32) {
+            const int q = b + lane;
+            const bool ok = q < n;
+            const int e = ok ? tile_idx[q] : -1 - lane;
+            const unsigned mask = __match_any_sync(0xffffffffu, e);
+            const int before = __popc(mask & ((1u << lane) - 1u));
+            const int c0 = ok ? cnt[e] : 0;
+            __syncwarp();
+            if (ok) {
+                p.rank[(int64_t)t0 * p.k + q] = c0 + before;
+                if (before == 0) cnt[e] = c0 + __popc(mask);
+            }
+            __syncwarp();
+        }
+    }
+    __syncthreads();
+    for (int e = tid; e < p.E; e += kRouteThreads) p.hist[(int64_t)tile * p.E + e] = cnt[e];
+    if (!last_to_arrive(p.counters + kRouteCounters - 1, s.n_tiles, &flag)) return;
+    route_sort(p, reinterpret_cast<int*>(smem), cnt);
+}
+
+// out (T, D) = bf16(sum_j bf16(ys[pos[t k + j]] * bf16(weights[t, j]))), the
+// k products added in order in fp32 (a dropped pair's product is
+// bf16(0 * w)), then bf16(out + y_shared): the roundings of the plain
+// combine.  A thread takes 8 columns of one token (16-byte loads/stores).
+__global__ void __launch_bounds__(128)
+moe_combine_kernel(const __nv_bfloat16* __restrict__ ys, const int* __restrict__ pos,
+                   const float* __restrict__ weights, const unsigned char* __restrict__ kept,
+                   const __nv_bfloat16* __restrict__ y_shared, __nv_bfloat16* __restrict__ out,
+                   int T, int D, int k) {
+    const int nv = D / 8;
+    const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (v >= (int64_t)T * nv) return;
+    const int t = (int)(v / nv), c = (int)(v - (int64_t)t * nv) * 8;
+    float acc[8];
+    for (int j = 0; j < k; ++j) {
+        const int64_t q = (int64_t)t * k + j;
+        const float wb = __bfloat162float(__float2bfloat16_rn(__ldg(weights + q)));
+        const bool keep = kept == nullptr || __ldg(kept + q) != 0;
+        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+        if (keep) raw = __ldg(reinterpret_cast<const uint4*>(ys + (int64_t)__ldg(pos + q) * D + c));
+        const __nv_bfloat16* y = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const float prod = __bfloat162float(
+                __float2bfloat16_rn(__fmul_rn(__bfloat162float(y[i]), wb)));
+            acc[i] = j == 0 ? prod : __fadd_rn(acc[i], prod);
+        }
+    }
+    uint4 res;
+    __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&res);
+    uint4 sh = make_uint4(0u, 0u, 0u, 0u);
+    if (y_shared != nullptr)
+        sh = __ldg(reinterpret_cast<const uint4*>(y_shared + (int64_t)t * D + c));
+    const __nv_bfloat16* ysh = reinterpret_cast<const __nv_bfloat16*>(&sh);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        o[i] = __float2bfloat16_rn(acc[i]);
+        if (y_shared != nullptr)
+            o[i] = __float2bfloat16_rn(__fadd_rn(__bfloat162float(o[i]), __bfloat162float(ysh[i])));
+    }
+    *reinterpret_cast<uint4*>(out + (int64_t)t * D + c) = res;
+}
+
+template <int CE>
+cudaError_t launch_route(const RouteParams& p, cudaStream_t stream) {
+    cudaError_t e = cudaFuncSetAttribute(moe_route_kernel<CE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, p.s.smem);
+    if (e != cudaSuccess) return e;
+    moe_route_kernel<CE><<<dim3(p.s.n_tiles, p.s.groups), kRouteThreads, p.s.smem, stream>>>(p);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -536,19 +1012,87 @@ int moe_experts_plan(int mode, int rows0, int n_exp0, int N0, int rows1, int N1,
     return 0;
 }
 
-// logits (T, E) fp32 = x (T, D) bf16 . w (D, E) fp32, contiguous; D even
-// (x 4-byte aligned).
-int moe_router_launch(const void* x, const void* w, void* out, int T, int D, int E,
-                      void* stream) {
-    if (T < 1 || D < 2 || D % 2 || E < 1 || (reinterpret_cast<uintptr_t>(x) & 3))
+// The shape moe_route_launch takes for (T, D, E, k) on the current device:
+// out[0] tokens a tile, out[1] blocks a tile (slice groups), out[2] tiles,
+// out[3] dynamic shared memory bytes, out[4] workspace bytes (clamped to
+// 2^31 - 1), out[5] experts a thread.  T >= 1, D even and at most 4096, 1 <=
+// k <= E <= 128, k <= 32.
+int moe_route_plan(int T, int D, int E, int k, int* out) {
+    if (T < 1 || D < 2 || D % 2 || D > kRouteMaxD || E < 1 || E > kRouteMaxE || k < 1 ||
+        k > E || k > kRouteMaxK || out == nullptr)
         return (int)cudaErrorInvalidValue;
-    const int64_t gx = ((int64_t)T + kRouterTokens - 1) / kRouterTokens;
-    const int gy = (E + 31) / 32;
-    if (gx > 0x7fffffff || gy > 65535) return (int)cudaErrorInvalidValue;
-    moe_router_kernel<<<dim3((unsigned)gx, gy), 32 * kRouterSlices, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
-        static_cast<float*>(out), T, D, E);
+    const RouteShape s = route_shape(T, D, E, k, sm_count());
+    out[0] = s.tt;
+    out[1] = s.groups;
+    out[2] = s.n_tiles;
+    out[3] = s.smem;
+    out[4] = (int)(s.ws_bytes < 0x7fffffff ? s.ws_bytes : 0x7fffffff);
+    out[5] = 4 * s.ce;
+    return 0;
+}
+
+// One launch of a layer's routing (see moe_route_kernel): x (T, D) bf16 (4-byte
+// aligned), w (D, E) fp32, forced (T, k) int32 or null -> logits, gates (T,
+// E) fp32, weights (T, k) fp32, idx (T, k) int32, offsets (E + 1,), order,
+// tok, pos, rank (T k,) int32.  workspace holds moe_route_plan's bytes;
+// counters, kRouteCounters int32 zeros on the device, are left zero again by
+// every launch that completes (launches sharing them must not overlap).
+int moe_route_launch(const void* x, const void* w, const void* forced, void* logits,
+                     void* gates, void* weights, void* idx, void* offsets, void* order,
+                     void* tok, void* pos, void* rank, void* workspace, void* counters, int T,
+                     int D, int E, int k, void* stream) {
+    if (T < 1 || D < 2 || D % 2 || D > kRouteMaxD || E < 1 || E > kRouteMaxE || k < 1 ||
+        k > E || k > kRouteMaxK || (reinterpret_cast<uintptr_t>(x) & 3) ||
+        (reinterpret_cast<uintptr_t>(workspace) & 15) || counters == nullptr)
+        return (int)cudaErrorInvalidValue;
+    RouteParams p;
+    p.s = route_shape(T, D, E, k, sm_count());
+    if ((int64_t)T * k > 0x7fffffff || p.s.smem + kRouteStaticSmem > kSmemLimit ||
+        (p.s.groups > 1 && p.s.n_tiles >= kRouteCounters))
+        return (int)cudaErrorInvalidValue;
+    p.x = static_cast<const __nv_bfloat16*>(x);
+    p.w = static_cast<const float*>(w);
+    p.forced = static_cast<const int*>(forced);
+    p.logits = static_cast<float*>(logits);
+    p.gates = static_cast<float*>(gates);
+    p.weights = static_cast<float*>(weights);
+    p.idx = static_cast<int*>(idx);
+    p.offsets = static_cast<int*>(offsets);
+    p.order = static_cast<int*>(order);
+    p.tok = static_cast<int*>(tok);
+    p.pos = static_cast<int*>(pos);
+    p.rank = static_cast<int*>(rank);
+    p.part = static_cast<float*>(workspace);
+    p.hist = reinterpret_cast<int*>(static_cast<float*>(workspace) + p.s.part_floats);
+    p.counters = static_cast<int*>(counters);
+    p.T = T;
+    p.D = D;
+    p.E = E;
+    p.k = k;
+    p.w_vec = E % 4 == 0 && !(reinterpret_cast<uintptr_t>(w) & 15);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (p.s.ce) {
+        case 4: return (int)launch_route<4>(p, st);
+        case 2: return (int)launch_route<2>(p, st);
+        default: return (int)launch_route<1>(p, st);
+    }
+}
+
+// out (T, D) bf16 = the weighted sum of each token's k expert rows (see
+// moe_combine_kernel): ys (P, D) bf16 in expert order, pos (T k,) int32,
+// weights (T, k) fp32, kept (T k,) bytes or null, y_shared (T, D) bf16 or
+// null.  D a multiple of 8; ys, y_shared and out 16-byte aligned.
+int moe_combine_launch(const void* ys, const void* pos, const void* weights, const void* kept,
+                       const void* y_shared, void* out, int T, int D, int k, void* stream) {
+    const uintptr_t mis = reinterpret_cast<uintptr_t>(ys) | reinterpret_cast<uintptr_t>(out) |
+                          reinterpret_cast<uintptr_t>(y_shared);
+    if (T < 1 || D < 8 || D % 8 || k < 1 || (mis & 15)) return (int)cudaErrorInvalidValue;
+    const int64_t blocks = ((int64_t)T * (D / 8) + 127) / 128;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    moe_combine_kernel<<<(unsigned)blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(ys), static_cast<const int*>(pos),
+        static_cast<const float*>(weights), static_cast<const unsigned char*>(kept),
+        static_cast<const __nv_bfloat16*>(y_shared), static_cast<__nv_bfloat16*>(out), T, D, k);
     return (int)cudaGetLastError();
 }
 

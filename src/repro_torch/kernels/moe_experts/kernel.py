@@ -1,33 +1,40 @@
-"""Grouped expert FFN and router product: the hand-written CUDA kernels' wrappers.
+"""Grouped expert FFN, routing and combine: the hand-written CUDA kernels' wrappers.
 
-``kernels/csrc/moe_experts.cu`` holds both.  :func:`moe_experts_kernel`
+``kernels/csrc/moe_experts.cu`` holds all three.  :func:`moe_experts_kernel`
 runs one launch of the grouped expert product over the routed (token,
 expert) pairs sorted by expert, each expert's segment given by device-side
 offsets, with an optional second group (one expert over its own rows: the
-shared expert) in the same launch; :func:`moe_router_kernel` the fp32
-router product.  Both are row-invariant (a row's result depends only on
-that row) and sized from shapes alone, so a CUDA graph can hold them.
+shared expert) in the same launch; :func:`moe_route_kernel` one launch of
+the layer's routing (the fp32 router product, softmax, top-k,
+renormalisation and the stable sort of the pairs by expert);
+:func:`moe_combine_kernel` one launch of the weighted combine.  All are
+sized from shapes alone, so a CUDA graph can hold them; the expert kernel
+and the per-token part of the routing are row-invariant (a row's result
+depends only on that row), and the combine is elementwise.
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version (:mod:`.ref`), CUDA tensors launch the kernel or raise.
 ``moe_experts_kernel.launches`` counts launches (``launches_by_mode`` per
 epilogue mode, ``launches_by_route`` per route: every launch is ``wgmma``,
-on tiles of the rows the library's own plan picks, :func:`library_plan`)
-and ``moe_router_kernel.launches`` the router's, never plain-version calls;
-a CUDA graph's replay adds the launches it holds (``serve/graphs.py``).
+on tiles of the rows the library's own plan picks, :func:`library_plan`),
+``moe_route_kernel.launches`` and ``moe_combine_kernel.launches`` theirs,
+never plain-version calls; a CUDA graph's replay adds the launches it
+holds (``serve/graphs.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import plan
-from .ref import MODES, moe_experts_plain, moe_router_plain
+from .ref import (MODES, Route, moe_combine_plain, moe_experts_plain,
+                  moe_route_plain)
 
 ROUTES = ("wgmma_bm64", "wgmma_bm128")      # wgmma on tiles of 64 or 128 rows
+ROUTE_COUNTERS = 256                        # kRouteCounters: int32 counters a device
 
 _lib = None
 
@@ -44,8 +51,12 @@ def _library() -> ctypes.CDLL:
         lib.moe_experts_launch.restype = i
         lib.moe_experts_plan.argtypes = [i, i, i, i, i, i, p]
         lib.moe_experts_plan.restype = i
-        lib.moe_router_launch.argtypes = [p, p, p, i, i, i, p]
-        lib.moe_router_launch.restype = i
+        lib.moe_route_plan.argtypes = [i, i, i, i, p]
+        lib.moe_route_plan.restype = i
+        lib.moe_route_launch.argtypes = [p] * 14 + [i, i, i, i, p]
+        lib.moe_route_launch.restype = i
+        lib.moe_combine_launch.argtypes = [p, p, p, p, p, p, i, i, i, p]
+        lib.moe_combine_launch.restype = i
         lib.moe_experts_error_string.argtypes = [i]
         lib.moe_experts_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -166,13 +177,53 @@ def library_plan(mode: str, rows0: int, n_exp: int, N0: int, rows1: int = 0,
     return plan.Plan(*out)
 
 
-def moe_router_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (T, D) bf16, w (D, E) fp32, contiguous -> logits (T, E) fp32, each a
-    fixed-order fp32 sum (never TF32)."""
+class RoutePlan(NamedTuple):
+    """The shape of one ``moe_route`` launch (``moe_route_plan``)."""
+    tile_tokens: int        # tokens a tile
+    groups: int             # blocks a tile: its 32 slices of D split over them
+    tiles: int
+    smem: int               # dynamic shared memory bytes a block
+    workspace: int          # bytes: the slices' partial sums (groups > 1) and tile counts
+    thread_experts: int     # experts of one token a thread accumulates
+
+
+def route_plan(T: int, D: int, E: int, k: int) -> RoutePlan:
+    """The launch ``moe_route_launch`` makes for these shapes on the current
+    CUDA device: grid (tiles, groups) of 512 threads, from shapes alone."""
+    out = (ctypes.c_int * 6)()
+    err = _library().moe_route_plan(T, D, E, k, out)
+    if err != 0:
+        raise ValueError(f"moe_route takes T >= 1, D even and <= 4096, 1 <= k <= E <= 128 "
+                         f"and k <= 32; got T={T} D={D} E={E} k={k} ({err})")
+    return RoutePlan(*out)
+
+
+_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def _route_counters(device: torch.device) -> torch.Tensor:
+    """The device's last-block-done counters: zeroed once, left zero by
+    every launch, at one address for the process (a graph reads the
+    address it captured).  Launches on one device must not overlap."""
+    c = _counters.get(device)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("moe_route_kernel's counters are allocated by its first launch "
+                               f"on {device}, which must not be inside a CUDA graph capture")
+        c = _counters[device] = torch.zeros(ROUTE_COUNTERS, dtype=torch.int32, device=device)
+    return c
+
+
+def moe_route_kernel(x: torch.Tensor, w: torch.Tensor, k: int,
+                     forced: Optional[torch.Tensor] = None) -> Route:
+    """One launch: x (T, D) bf16, w (D, E) fp32, contiguous, and optionally
+    ``forced`` (T, k) int32 experts -> the layer's :class:`~.ref.Route`
+    (logits, gates, renormalised top-k weights and experts, and the stable
+    sort of the T k pairs by expert)."""
     if x.device.type == "cpu":
-        return moe_router_plain(x, w)
+        return moe_route_plain(x, w, k, forced)
     if x.device.type != "cuda":
-        raise ValueError(f"moe_router_kernel runs on cpu or cuda, not {x.device}")
+        raise ValueError(f"moe_route_kernel runs on cpu or cuda, not {x.device}")
     if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1]:
         raise ValueError(f"x must be (T, D) and w (D, E), got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
@@ -181,23 +232,88 @@ def moe_router_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if w.device != x.device or not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous and on one device")
     if x.shape[1] % 2 or x.data_ptr() % 4:
-        raise ValueError(f"the router reads x in bf16 pairs: D={x.shape[1]} must be even "
+        raise ValueError(f"moe_route reads x in bf16 pairs: D={x.shape[1]} must be even "
                          "and x 4-byte aligned")
     T, D = x.shape
     E = w.shape[1]
-    out = torch.empty((T, E), dtype=torch.float32, device=x.device)
+    P = T * k
+    if forced is not None and (forced.shape != (T, k) or forced.dtype != torch.int32 or
+                               forced.device != x.device or not forced.is_contiguous()):
+        raise ValueError(f"forced must be a contiguous ({T}, {k}) int32 tensor on {x.device}, "
+                         f"got {tuple(forced.shape)} {forced.dtype} on {forced.device}")
+    f32 = torch.empty(2 * T * E + P, dtype=torch.float32, device=x.device)
+    i32 = torch.empty(P + E + 1 + 4 * P, dtype=torch.int32, device=x.device)
+    logits, gates = f32[:T * E].view(T, E), f32[T * E:2 * T * E].view(T, E)
+    weights = f32[2 * T * E:].view(T, k)
+    idx, offsets = i32[:P].view(T, k), i32[P:P + E + 1]
+    order, tok, pos, rank = i32[P + E + 1:].view(4, P).unbind(0)
+    out = Route(logits, gates, weights, idx, offsets, order, tok, pos, rank)
     if T == 0:
-        return out
+        return out._replace(offsets=offsets.zero_())
     lib = _library()
     with torch.cuda.device(x.device):
+        plan = route_plan(T, D, E, k)
+        workspace = torch.empty(plan.workspace, dtype=torch.uint8, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.moe_router_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), T, D, E, stream)
+        err = lib.moe_route_launch(
+            x.data_ptr(), w.data_ptr(), None if forced is None else forced.data_ptr(),
+            *(t.data_ptr() for t in out), workspace.data_ptr(),
+            _route_counters(x.device).data_ptr(), T, D, E, k, stream)
     if err != 0:
         msg = lib.moe_experts_error_string(err).decode()
-        raise RuntimeError(f"moe_router kernel launch failed for x {tuple(x.shape)}, w "
-                           f"{tuple(w.shape)}: {msg} ({err})")
-    moe_router_kernel.launches += 1
+        raise RuntimeError(f"moe_route kernel launch failed for x {tuple(x.shape)}, w "
+                           f"{tuple(w.shape)}, k={k}: {msg} ({err})")
+    moe_route_kernel.launches += 1
     return out
 
 
-moe_router_kernel.launches = 0
+moe_route_kernel.launches = 0
+
+
+def moe_combine_kernel(ys: torch.Tensor, pos: torch.Tensor, weights: torch.Tensor,
+                       kept: Optional[torch.Tensor] = None,
+                       y_shared: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch: ys (P, D) bf16 in expert order, pos (P,) int32 each
+    pair's sorted row, weights (T, k) fp32 with T k = P, kept (P,) bool or
+    None, y_shared (T, D) bf16 or None -> out (T, D) bf16, bitwise
+    :func:`~.ref.moe_combine_plain`."""
+    if ys.device.type == "cpu":
+        return moe_combine_plain(ys, pos, weights, kept, y_shared)
+    if ys.device.type != "cuda":
+        raise ValueError(f"moe_combine_kernel runs on cpu or cuda, not {ys.device}")
+    if ys.ndim != 2 or weights.ndim != 2:
+        raise ValueError(f"ys must be (P, D) and weights (T, k), got {tuple(ys.shape)}, "
+                         f"{tuple(weights.shape)}")
+    T, k = weights.shape
+    P, D = ys.shape
+    _dense("ys", ys, (P, D), ys.device)
+    if P != T * k or D % 8:
+        raise ValueError(f"ys must hold T k = {T * k} rows of a width that is a multiple of 8, "
+                         f"got {tuple(ys.shape)}")
+    for name, t, dtype in (("pos", pos, torch.int32), ("weights", weights, torch.float32),
+                           ("kept", kept, torch.bool)):
+        if t is not None and (t.dtype != dtype or t.device != ys.device or
+                              not t.is_contiguous() or t.numel() != P):
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of {P} elements on "
+                             f"{ys.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if y_shared is not None:
+        _dense("y_shared", y_shared, (T, D), ys.device)
+    out = ys.new_empty((T, D))
+    if T == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(ys.device):
+        stream = torch.cuda.current_stream(ys.device).cuda_stream
+        err = lib.moe_combine_launch(
+            ys.data_ptr(), pos.data_ptr(), weights.data_ptr(),
+            None if kept is None else kept.data_ptr(),
+            None if y_shared is None else y_shared.data_ptr(), out.data_ptr(), T, D, k, stream)
+    if err != 0:
+        msg = lib.moe_experts_error_string(err).decode()
+        raise RuntimeError(f"moe_combine kernel launch failed for ys {tuple(ys.shape)}, weights "
+                           f"{tuple(weights.shape)}: {msg} ({err})")
+    moe_combine_kernel.launches += 1
+    return out
+
+
+moe_combine_kernel.launches = 0

@@ -6,7 +6,9 @@ pairs arrive already sorted by expert with their segment offsets, and an
 expert layer is two launches of the grouped kernel: gate and up (or up
 alone for a GELU expert) with the activation in the epilogue, then down.
 The shared expert, where the layer has one, rides in both launches as a
-second group over the layer's token rows.
+second group over the layer's token rows.  :func:`route` and
+:func:`combine` are the layer's routing and weighted combine, one launch
+each.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from typing import Mapping, Optional, Tuple
 
 import torch
 
-from .kernel import moe_experts_kernel, moe_router_kernel
+from .kernel import moe_combine_kernel, moe_experts_kernel, moe_route_kernel
+from .ref import Route
 
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
@@ -23,9 +26,22 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (T, D) bf16, w (D, E) fp32 -> router logits (T, E) fp32."""
-    return moe_router_kernel(_dense(x), w.contiguous())
+def route(x: torch.Tensor, w: torch.Tensor, k: int,
+          forced: Optional[torch.Tensor] = None) -> Route:
+    """x (T, D) bf16, w (D, E) fp32 -> the layer's :class:`~.ref.Route` of
+    the T tokens to k experts each (``forced`` (T, k) int32: those experts,
+    at their gates)."""
+    return moe_route_kernel(_dense(x), w.contiguous(), k, forced)
+
+
+def combine(ys: torch.Tensor, pos: torch.Tensor, weights: torch.Tensor,
+            kept: Optional[torch.Tensor] = None,
+            y_shared: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The experts' rows ``ys`` (P, D) in expert order back to their T
+    tokens: each token's k rows (found through ``pos``; zero where ``kept``
+    is False) weighted and summed, plus ``y_shared`` (T, D)."""
+    return moe_combine_kernel(ys, pos, weights, kept,
+                              None if y_shared is None else _dense(y_shared))
 
 
 def expert_ffn(mlp: str, xs: torch.Tensor, offsets: torch.Tensor, experts: Mapping,

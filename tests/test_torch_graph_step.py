@@ -25,7 +25,8 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.kernels.moe_experts import moe_experts_kernel, moe_router_kernel
+from repro_torch.kernels.moe_experts import (moe_combine_kernel, moe_experts_kernel,
+                                             moe_route_kernel)
 from repro_torch.kernels.paged_attention import paged_attention_kernel
 from repro_torch.kernels.rglru_scan import rglru_scan_kernel
 from repro_torch.kernels.ssd_scan import ssd_scan_kernel
@@ -261,9 +262,10 @@ def test_kernel_counters_advance_on_replay(arch):
                 "rglru": pattern.count("r"),
                 "ssd": cfg.n_layers if cfg.family == "ssm" else 0,
                 "moe_experts": 2 * cfg.n_layers if moe else 0,
-                "moe_router": cfg.n_layers if moe else 0}
+                "moe_route": cfg.n_layers if moe else 0,
+                "moe_combine": cfg.n_layers if moe else 0}
     wrappers = (paged_attention_kernel, rglru_scan_kernel, ssd_scan_kernel,
-                moe_experts_kernel, moe_router_kernel)
+                moe_experts_kernel, moe_route_kernel, moe_combine_kernel)
     before = [w.launches for w in wrappers]
     for _ in range(3):
         sched.graphs.replay("decode")

@@ -29,7 +29,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.kernels.moe_experts import (moe_experts_kernel, moe_experts_plain,
-                                             moe_router_kernel, moe_router_plain)
+                                             moe_route_kernel, moe_router_plain)
 from repro_torch.models import build_model
 from repro_torch.models import layers as tl
 from repro_torch.models import moe as tmoe
@@ -286,16 +286,18 @@ def test_plain_version_equals_a_per_pair_loop(mode):
 
 
 def test_router_plain_is_fp32_and_row_invariant():
+    """The route's logits (the router product) are fp32 and row-invariant;
+    the wrapper takes the plain version for CPU tensors."""
     gen = torch.Generator().manual_seed(1)
     x = torch.randn(37, 64, generator=gen).bfloat16()
     w = torch.randn(64, 8, generator=gen)
-    got = moe_router_kernel(x, w)
+    got = moe_route_kernel(x, w, 2).logits
     assert got.dtype == torch.float32
     want = x.double() @ w.double()
     torch.testing.assert_close(got.double(), want, atol=1e-5, rtol=1e-5)
     for t in (0, 11, 36):
         assert torch.equal(moe_router_plain(x[t:t + 1], w)[0], got[t])
-    assert moe_router_kernel.launches == 0
+    assert moe_route_kernel.launches == 0
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -357,8 +359,8 @@ def test_cuda_kernel_matches_plain_version(mode):
     3e-2), empty experts and segments that are not a multiple of the tile,
     at both tile shapes (64 and 128 rows, counted per route); rows alone
     (1-row calls on 64-row tiles, the shared rows too) bitwise the same rows
-    inside both calls; and the router kernel within 1e-5 of the fp32
-    product."""
+    inside both calls; and the route kernel's logits within 1e-5 of the
+    fp32 product."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from repro_torch.kernels.moe_experts import library_plan
@@ -392,10 +394,10 @@ def test_cuda_kernel_matches_plain_version(mode):
             assert torch.equal(one[0], got[r]) and torch.equal(one_s[0], got_s[t]), (bm, r)
     xr = torch.randn(40, K, generator=gen).bfloat16().cuda()
     wr = torch.randn(K, 64, generator=gen).cuda()
-    lr = moe_router_kernel(xr, wr)
+    lr = moe_route_kernel(xr, wr, 6).logits
     ref = (xr.double() @ wr.double())
     assert (lr.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
-    assert torch.equal(moe_router_kernel(xr[7:8].contiguous(), wr)[0], lr[7])
+    assert torch.equal(moe_route_kernel(xr[7:8].contiguous(), wr, 6).logits[0], lr[7])
 
 
 @pytest.mark.gpu

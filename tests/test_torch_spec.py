@@ -36,7 +36,8 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.kernels.moe_experts import moe_experts_kernel, moe_router_kernel
+from repro_torch.kernels.moe_experts import (moe_combine_kernel, moe_experts_kernel,
+                                             moe_route_kernel)
 from repro_torch.kernels.rglru_scan import rglru_scan_kernel
 from repro_torch.launch.serve import run_serving
 from repro_torch.models import build_model, kvcache
@@ -475,13 +476,13 @@ def test_spec_round_launch_counts_are_exact(arch, draft_arch, draft_seed):
     """One round with no prefill in its tick: RG-LRU launches = RG-LRU
     layers x (one verify + the round's rollback replays) for the hybrid
     target; moe_experts = 2 x layers x (one catch-up + k-1 draft steps +
-    one verify) and the router one per layer and call for the MoE
-    self-draft."""
+    one verify) and the route and combine kernels one each per layer and
+    call for the MoE self-draft."""
     cuda_or_skip()
     sched = card_scheduler(arch, draft_arch, draft_seed)
     while any(s.state.value == "admitting" for s in sched.slots):
         sched.step()
-    wrappers = (rglru_scan_kernel, moe_experts_kernel, moe_router_kernel)
+    wrappers = (rglru_scan_kernel, moe_experts_kernel, moe_route_kernel, moe_combine_kernel)
     before = [w.launches for w in wrappers]
     rb0, pf0 = sched.spec_rollbacks, sched.prefill_chunks
     sched.step()
@@ -491,7 +492,8 @@ def test_spec_round_launch_counts_are_exact(arch, draft_arch, draft_seed):
     cfg = sched.model.cfg
     if cfg.family == "hybrid":
         n_rec = layer_pattern(cfg).count("r")
-        assert delta == [n_rec * (1 + sched.spec_rollbacks - rb0), 0, 0]
+        assert delta == [n_rec * (1 + sched.spec_rollbacks - rb0), 0, 0, 0]
     else:
         calls = 1 + (K - 1) + 1
-        assert delta == [0, 2 * cfg.n_layers * calls, cfg.n_layers * calls]
+        assert delta == [0, 2 * cfg.n_layers * calls, cfg.n_layers * calls,
+                         cfg.n_layers * calls]
