@@ -306,10 +306,37 @@ last line is printed):
     acceptance, verify steps per token, each graph's replay ms, the eager
     catch-up's ms, the hybrid rollbacks and their ms, captures, the graph
     pool, peak memory and the launch counts.
+27. The elastic fleet, through ``launch/serve.build_frontend(fleet_size=N)``
+    -> ``ServingFrontend(fleet=FleetController)``, membership on the port's
+    ``FaaSKeeperService``, beside one unfleeted scheduler of a worker's
+    shape on the same requests: (a) phase 3's ``minicpm-2b`` (after 26a),
+    3 workers of 4 slots (``paged_kernel``, parking, prefix sharing, the
+    index journal), 24 requests over 6 sessions in one burst (a 2-page
+    system prompt; each session's 4th request extends its 3rd), a
+    ``FaultPlan`` crash at ``mid-decode`` and one at ``mid-restore``,
+    worker w2 wedged and reaped by a heartbeat sweep, scale to zero, then
+    a cold start that re-adopts the index journal and a park-meta; (b)
+    phase 6's ``recurrentgemma-2b`` (after 26b), 2 workers, 8 requests of
+    2300 tokens, scale to zero and a cold start from a park-meta carrying
+    recurrent rows.  Checks: every request served exactly once in
+    per-session FIFO order, ``fleet.audit()`` after every tick and each
+    worker's ``audit()`` after every step, zero live workers after each
+    burst, only committed journals, metas and index blobs in the store at
+    quiescence, the crashes and the eviction taken, streams equal to the
+    unfleeted run's or split at a near-tie (as phase 26), a decode replay
+    bitwise its eager step after every index adoption and meta restore
+    (the scratch page aside), each adopted page bitwise its journal blob,
+    each worker's graphs captured once over all its incarnations, and
+    exact launch counts (paged = attention layers x worker steps, RG-LRU =
+    18 x (steps + chunks)).  Printed beside the card's name and power
+    limit: spawns, retires, crashes, evictions, cold starts, meta and
+    journal traffic, captures, graph pools, peak memory, fleet decode
+    tok/s against the unfleeted run's, ms per controller tick beyond the
+    workers' steps, host gathers and the simulated invocations and cost.
 
 On the card the scheduler replays a CUDA graph for every decode step and
 every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19,
-22, 23, 24, 25 and 26 serve on graphs; their exact launch counts are counted
+22, 23, 24, 25, 26 and 27 serve on graphs; their exact launch counts are counted
 through replays (each replay adds the launches its capture recorded).  Phases 4, 8, 13, 17
 and 22 trace steps with ``torch.profiler`` (wall time with the profiler on,
 device busy time, idle share, kernels the device ran, launch calls the
@@ -3678,7 +3705,7 @@ def spec_serve(fails: Failures, model, cfg, seed: int, label: str, *, draft=None
 
 
 def spec_margins(fails: Failures, model, cfg, label: str, plain: dict, spec: dict,
-                 prompts: dict) -> int:
+                 prompts: dict, than: str = "the run without speculation") -> int:
     """Count the token streams the speculative run shares with the plain
     one; at each diverging stream's first diverging token the target,
     teacher-forced on the plain stream (a drop-free prefill of the prompt
@@ -3690,8 +3717,8 @@ def spec_margins(fails: Failures, model, cfg, label: str, plain: dict, spec: dic
 
     same = [rid for rid in plain["tokens"]
             if np.array_equal(plain["tokens"][rid], spec["tokens"][rid])]
-    print(f"  {label}: {len(same)} of {len(plain['tokens'])} token streams identical to the "
-          f"run without speculation")
+    print(f"  {label}: {len(same)} of {len(plain['tokens'])} token streams identical to "
+          f"{than}")
     for rid in sorted(set(plain["tokens"]) - set(same), key=lambda r: int(r[1:])):
         a, b = plain["tokens"][rid], spec["tokens"][rid]
         j = int(np.argmax(a != b))
@@ -3832,6 +3859,450 @@ def phase_spec(fails: Failures, model, cfg, seed: int, name: str, drafts, *, n_r
     return runs
 
 
+# -- phase 27: the elastic fleet -------------------------------------------------------
+
+P27_WORKERS, P27_SLOTS = 3, 4            # 27a: minicpm-2b workers, slots each
+P27_SESSIONS, P27_PER_SESSION = 6, 4     # 24 requests: A, B, C fresh, D extends C
+P27_SYS_PAGES, P27_TURN_TOKENS = 2, 16   # shared system prompt; user tokens of a turn
+P27_CRASHES = {("fleet:w0", "mid-decode"): 24, ("fleet:w1", "mid-restore"): 1}
+P27_WEDGE_TICK, P27_SWEEP_AFTER = 30, 6  # wedge w2 at this tick, sweep this many later
+H27_WORKERS, H27_SLOTS, H27_REQUESTS = 2, 4, 8   # 27b: recurrentgemma-2b
+
+_FLEET_WORKER = None
+
+
+def fleet_worker():
+    """``CheckedScheduler`` as a fleet worker (defined on first use): the
+    phase 24 checks, except that the decode replay is checked against its
+    eager step only after the fleet's own events — every index adoption
+    (a cold start scattering journaled pages into the pool the graphs
+    captured) and every meta restore (a park-blob restore of a journal
+    another worker left; phase 24 checks the others) — plus
+
+    - each adopted index page held bitwise against the journal blob it
+      came from (its time kept apart, ``adopt_check_s``);
+    - park snapshots shared by every worker (a session's latest park,
+      wherever it was, is what its meta holds);
+    - the graphs captured in each incarnation (between two ``reset()``s);
+    - each ``step()``'s whole wall time, checks and audit included, so the
+      controller's own time per tick is what is left of a tick.
+    Logits are not kept (nothing here teacher-forces)."""
+    global _FLEET_WORKER
+    if _FLEET_WORKER is not None:
+        return _FLEET_WORKER
+    import torch
+
+    from repro_torch.models import kvcache
+
+    class FleetWorker(checked_scheduler()):
+        shared_snaps = {}               # cleared by phase_fleet when it ends
+        FLEET_EVENTS = frozenset({"index adoption", "meta restore"})
+
+        def __init__(self, model, **kw):
+            super().__init__(model, **kw)
+            self.park_snap = self.shared_snaps
+            self.adopt_check_s = 0.0
+            self.step_wall = 0.0
+            self.incarnation_caps = []
+            self._caps_mark = 0
+            self._adopted = set()
+            self.adoption_checks = []     # (pages adopted, pages bitwise their blobs)
+
+        def captures(self):
+            return [key for key, _ in self.graphs.captures] if self.graphs is not None else []
+
+        def _decode(self):
+            if not self.pending_checks & self.FLEET_EVENTS:
+                self.pending_checks = set()
+            super()._decode()
+            self.logits.clear()
+
+        def step(self):
+            sync()
+            t0 = time.perf_counter()
+            out = super().step()
+            sync()
+            self.step_wall += time.perf_counter() - t0
+            return out
+
+        def reset(self, **kw):
+            n = len(self.captures())
+            self.incarnation_caps.append(n - self._caps_mark)
+            self._caps_mark = n
+            self._adopted.clear()
+            super().reset(**kw)
+
+        def adopt_index_journal(self):
+            had = set(self.prefix_index._pages)
+            n = super().adopt_index_journal()
+            if n:
+                self.pending_checks.add("index adoption")
+                new = [(h, pid) for h, pid in self.prefix_index._pages.items() if h not in had]
+                sync()
+                t0 = time.perf_counter()
+                ok = sum(all(torch.equal(a.cpu(), b) for a, b in zip(
+                    self._pages([pid]), (self.blob_store.blobs[
+                        kvcache.PrefixIndex.journal_key(h)][k] for k in ("kp", "vp")),
+                    strict=True)) for h, pid in new)
+                self.adoption_checks.append((len(new), ok))
+                self.adopt_check_s += time.perf_counter() - t0
+            return n
+
+        def adopt_parked(self, rec):
+            super().adopt_parked(rec)
+            self._adopted.add(rec.session)
+
+        def _admit_paged(self, slot, req, plan):
+            super()._admit_paged(slot, req, plan)
+            if plan.kind == "park-blob" and req.session in self._adopted:
+                self.pending_checks.add("meta restore")
+                self._adopted.discard(req.session)
+
+    _FLEET_WORKER = FleetWorker
+    return FleetWorker
+
+
+@contextlib.contextmanager
+def scheduler_class(cls):
+    """``launch.serve.build_frontend`` builds its workers from ``cls``."""
+    from repro_torch.launch import serve
+
+    saved = serve.DecodeScheduler
+    serve.DecodeScheduler = cls
+    try:
+        yield
+    finally:
+        serve.DecodeScheduler = saved
+
+
+def fleet_quiescent(fleet) -> list:
+    """Blobs the shared store must not hold when the fleet is idle: preempt
+    spills, and park journals no ``park-meta`` points at."""
+    metas = {m["blob_key"] for m in fleet._iter_metas().values()}
+    return [k for k in fleet.blob_store.blobs
+            if k.startswith("kv/") or (k.startswith("park/") and k not in metas)]
+
+
+def phase_fleet(fails: Failures, model, cfg, seed: int, label: str, *, workers: int, slots: int,
+                max_seq: int, max_new: int, turns: list, cold, crashes=None,
+                wedge=None) -> dict:
+    """Phase 27: serve ``turns`` (each a function of the frontend so far
+    that returns the turn's ``InferenceRequest``s, so a turn can extend
+    the streams of the turns before it) through one unfleeted
+    ``DecodeScheduler`` of a worker's shape, turn after turn (the reference
+    streams); then all of them as one burst through
+    ``build_frontend(fleet_size=workers)`` -> ``ServingFrontend(fleet=
+    FleetController)``, membership on the port's ``FaaSKeeperService``,
+    ``crashes`` the ``FaultPlan``, ``wedge`` a (tick, worker id) to wedge,
+    swept ``P27_SWEEP_AFTER`` ticks later.  The fleet scales to zero, and
+    ``cold``'s requests (one burst) cold-start it from the store.  Launch
+    counts are set to 0 just before the fleet run and read just after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.coord import MembershipService
+    from repro_torch.coord.serving_front import ServingFrontend
+    from repro_torch.core import FaaSKeeperService, FaultPlan, SimCloud
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.rglru_scan import rglru_scan_kernel
+    from repro_torch.launch.serve import build_frontend
+    from repro_torch.serve.scheduler import DecodeScheduler
+
+    sharing = cfg.family in ("dense", "moe")
+    common = dict(page_size=PAGE, prefill_chunk=CHUNK, attn_backend="paged_kernel", seed=seed,
+                  prefix_sharing=sharing, device=DEVICE)
+
+    # the unfleeted reference: one scheduler of a worker's shape, turn by turn
+    ref = TimedScheduler(DecodeScheduler(model, n_slots=slots, max_seq=max_seq,
+                                         park_sessions=True, **common))
+    rcloud = SimCloud(seed=seed)
+    rfront = ServingFrontend(rcloud, scheduler=ref, batch_size=slots)
+    by_turn = []
+    for make in turns + [cold]:
+        by_turn.append(make(rfront))
+        serve_turn(rcloud, rfront, by_turn[-1])
+    burst, cold_reqs = [r for t in by_turn[:-1] for r in t], by_turn[-1]
+    everything = burst + cold_reqs
+    want = tokens_by_request(rfront)
+    ref_tok_s = ref.decode_only_tokens / max(ref.decode_s, 1e-9)
+    ref_ms = 1e3 * ref.decode_s / max(ref.decode_only_steps, 1)
+    ref_occ = ref.decode_only_tokens / max(ref.decode_only_steps, 1)
+    del ref, rfront
+    release()
+
+    with scheduler_class(fleet_worker()):
+        cloud = SimCloud(seed=seed)
+        front = build_frontend(cloud, cfg, model, mode="continuous", batch_size=slots,
+                               max_new=max_new, prompt_len=max_seq - max_new,
+                               fleet_size=workers,
+                               scale_to_zero=True, **common)
+    fleet = front.fleet
+    scheds = list(fleet._pool)
+    mcloud = SimCloud(seed=seed)
+    svc = FaaSKeeperService(mcloud, regions=("region-0",))
+    fleet.membership = MembershipService(svc)
+    fleet.faults = FaultPlan(crashes=dict(crashes or {}))
+
+    def sweep():
+        svc.start_heartbeat(period=1.0, max_runs=1)
+        mcloud.run()
+
+    tick_s, audits, wedged = [0.0], [], {}
+    step = fleet.step
+
+    def checked_step():
+        if wedge is not None and fleet.steps == wedge[0] and wedge[1] in fleet.workers:
+            fleet.fail_worker(wedge[1])
+            wedged["at"] = fleet.steps
+        if "at" in wedged and fleet.steps == wedged["at"] + P27_SWEEP_AFTER:
+            sweep()
+        sync()
+        t0 = time.perf_counter()
+        out = step()
+        sync()
+        tick_s[0] += time.perf_counter() - t0
+        try:
+            fleet.audit()
+        except AssertionError as e:
+            audits.append(f"tick {fleet.steps}: {e}")
+        return out
+
+    fleet.step = checked_step
+    # the controller's own work outside its workers' steps, by kind
+    parts = {"_spawn": 0.0, "_finish_drain": 0.0, "_kill": 0.0}
+
+    def timed_part(name):
+        fn = getattr(fleet, name)
+
+        def call(*args):
+            sync()
+            t1 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                sync()
+                parts[name] += time.perf_counter() - t1
+        setattr(fleet, name, call)
+
+    for name in parts:
+        timed_part(name)
+    before = {id(s): (s.steps, s.prefill_chunks) for s in scheds}
+    sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    serve_turn(cloud, front, burst)
+    zero_after_burst = fleet.live_workers()
+    quiet = fleet_quiescent(fleet)
+    metas = len(fleet._iter_metas())
+    caps_before_cold = sum(len(s.captures()) for s in scheds)
+    spawns_before_cold = fleet.spawns
+    serve_turn(cloud, front, cold_reqs)
+    sync()
+    wall = time.perf_counter() - t0
+    steps = sum(s.steps - before[id(s)][0] for s in scheds)
+    chunks = sum(s.prefill_chunks - before[id(s)][1] for s in scheds)
+    counts = {"paged_attention": paged_attention_kernel.launches,
+              "rglru_scan": rglru_scan_kernel.launches, "steps": steps, "chunks": chunks}
+    sweep()
+    members = fleet.membership.members()
+    st = front.serving_stats()
+
+    n = len(everything)
+    got = tokens_by_request(front)
+    served = sum(len(v) for v in front.completions.values())
+    once = all(len(ids) == len(set(ids)) for ids in front.completions.values())
+    fails.check(served == n and once and set(got) == set(want),
+                f"{label}: every one of {n} requests served exactly once ({served} completions)")
+    fifo = all(ids == sorted(ids, key=lambda r: int(r[1:]))
+               for ids in front.completions.values())
+    fails.check(fifo, f"{label}: per-session FIFO over {len(front.completions)} sessions")
+    fails.check(all(t.shape == (max_new,) and (t >= 0).all() and (t < cfg.vocab).all()
+                    for t in got.values()), f"{label}: every token in [0, {cfg.vocab})")
+    fails.check(not audits and fleet.steps > 0,
+                f"{label}: fleet.audit() clean after every one of {fleet.steps} ticks"
+                + (f" ({audits[:2]})" if audits else ""))
+    errs = [e for s in scheds for e in s.audit_errors]
+    fails.check(not errs, f"{label}: every worker's audit() clean after every step"
+                + (f" ({errs[:2]})" if errs else ""))
+    fails.check(zero_after_burst == 0 and fleet.live_workers() == 0 and members == [],
+                f"{label}: scaled to zero after each burst ({zero_after_burst}, "
+                f"{fleet.live_workers()} live; membership {members})")
+    fails.check(not quiet and not fleet_quiescent(fleet),
+                f"{label}: at quiescence the store holds only committed journals, metas and "
+                f"index blobs ({metas} park-metas after the burst; stray {quiet})")
+    fails.check(fleet.cold_starts_from_zero == 2 and fleet.meta_adoptions >= 1,
+                f"{label}: the cold start woke the fleet from zero "
+                f"({fleet.cold_starts_from_zero} starts from zero) and adopted a park-meta "
+                f"({fleet.meta_adoptions})")
+    if sharing:
+        adopted = [c for s in scheds for c in s.adoption_checks]
+        fails.check(fleet.fleet_stats()["index_adopted"] > 0 and adopted
+                    and all(k == ok for k, ok in adopted),
+                    f"{label}: cold starts re-adopted the index journal, every page bitwise "
+                    f"its blob ({adopted})")
+    if crashes:
+        fails.check(fleet.crashes == len(crashes),
+                    f"{label}: {fleet.crashes} fail-stop crashes == the FaultPlan's "
+                    f"{len(crashes)} ({sorted(p for _, p in crashes)})")
+    if wedge is not None:
+        fails.check(fleet.evictions == 1 and "at" in wedged,
+                    f"{label}: worker {wedge[1]} wedged at tick {wedged.get('at')}, reaped by "
+                    f"a heartbeat sweep ({fleet.evictions} evictions)")
+
+    # streams against the unfleeted scheduler's
+    prompts = {r.request_id: np.asarray(r.prompt, np.int32) for r in everything}
+    same = spec_margins(fails, model, cfg, label, {"tokens": want}, {"tokens": got}, prompts,
+                        than="the unfleeted scheduler's")
+
+    # replay checks, captures
+    checks = [(e, ok, what) for s in scheds for e, ok, what in s.checks]
+    for e, ok, what in checks:
+        if not ok:
+            fails.check(ok, f"{label}: {what}")
+    events = sorted({e for e, _, _ in checks})
+    need = {"meta restore"} | ({"index adoption"} if sharing else set())
+    fails.check(need <= set(events) and all(ok for _, ok, _ in checks),
+                f"{label}: {len(checks)} decode replays bitwise their eager steps after "
+                f"{events}")
+    for s in scheds:
+        for what, ok in s.unchanged:
+            if not ok:
+                fails.check(ok, f"{label}: {what}")
+    caps = [s.captures() for s in scheds]
+    recycled = caps_before_cold == sum(len(c) for c in caps)
+    fails.check(all(sorted(c) == ["chunk", "decode"] for c in caps) and recycled,
+                f"{label}: each worker captured its decode and chunk graphs once over "
+                f"{[len(s.incarnation_caps) for s in scheds]} incarnations (captures per "
+                f"incarnation {[s.incarnation_caps for s in scheds]}); the cold start's "
+                f"recycled incarnation captured 0")
+
+    n_attn = model.n_kv_layers
+    fails.check(counts["paged_attention"] == n_attn * steps and counts["paged_attention"] > 0,
+                f"{label}: paged kernel launches {counts['paged_attention']} == {n_attn} "
+                f"attention layers x {steps} worker decode steps")
+    if cfg.family == "hybrid":
+        n_rec = cfg.n_layers - n_attn
+        fails.check(counts["rglru_scan"] == n_rec * (steps + chunks) and chunks > 0,
+                    f"{label}: rglru launches {counts['rglru_scan']} == {n_rec} RG-LRU layers x "
+                    f"({steps} worker decode steps + {chunks} chunks)")
+
+    dec_s = sum(s.decode_s for s in scheds)
+    dec_tok = sum(s.decode_only_tokens for s in scheds)
+    dec_steps = sum(s.decode_only_steps for s in scheds)
+    ticks = fleet.steps
+    # the adoption checks ran inside spawns: not the controller's time
+    checks_s = sum(s.adopt_check_s for s in scheds)
+    parts["_spawn"] -= checks_s
+    ctrl_ms = (1e3 * (tick_s[0] - sum(s.step_wall for s in scheds) - checks_s)
+               / max(ticks, 1))
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    pools = [s.graphs.pool_bytes() / 2**20 for s in scheds if s.graphs is not None]
+    print(f"  {label} [{smi_line()}]: {wall:.3f} s wall, {ticks} controller ticks, {steps} "
+          f"worker decode steps, {chunks} chunks; spawns {fleet.spawns} (before the cold "
+          f"start {spawns_before_cold}), retires {fleet.retires}, crashes {fleet.crashes}, "
+          f"evictions {fleet.evictions}, cold starts from zero {fleet.cold_starts_from_zero}")
+    print(f"  {label}: park-metas put {st['meta_puts']}, adopted {st['meta_adoptions']}, "
+          f"dropped {st['meta_dropped']}; index journal puts {st['index_journal_puts']}, "
+          f"pages adopted {st['index_adopted']}; blobs garbage-collected {st['gc_blobs']}")
+    print(f"  {label}: captures per worker {[len(c) for c in caps]}, graph pools "
+          f"{[round(p, 1) for p in pools]} MiB; peak device memory {peak / 2**30:.3f} GiB "
+          f"(check copies of the pools and park snapshots included)")
+    print(f"  {label}: fleet decode tok/s {dec_tok / max(dec_s, 1e-9):.1f} ({dec_tok} tokens "
+          f"in {dec_steps} decode-only worker steps, {dec_s:.3f} s: "
+          f"{1e3 * dec_s / max(dec_steps, 1):.2f} ms and {dec_tok / max(dec_steps, 1):.2f} "
+          f"slots a step; the workers step one after another) against the unfleeted "
+          f"scheduler's {ref_tok_s:.1f} ({ref_ms:.2f} ms and {ref_occ:.2f} slots a step)")
+    print(f"  {label}: {ctrl_ms:.3f} ms per controller tick beyond its workers' steps "
+          f"({ticks} ticks, {tick_s[0]:.3f} s in ticks, "
+          f"{sum(s.step_wall for s in scheds):.3f} s in worker steps, {checks_s:.3f} s in "
+          f"adoption checks); of the controller's "
+          f"time: spawns (index adoption) {parts['_spawn']:.3f} s, drains (journals "
+          f"externalized, then retire) {parts['_finish_drain']:.3f} s, kills (crash, "
+          f"eviction and the drains' retire) {parts['_kill']:.3f} s")
+    n_ext = sum(s.extracts for s in scheds)
+    ext_s = sum(s.extract_s for s in scheds)
+    ext_b = sum(s.extract_bytes for s in scheds)
+    print(f"  {label}: {n_ext} gathers to the host ({st['index_journal_puts']} of them index "
+          f"journal pages, the rest parked journals and spills; in worker steps and in "
+          f"drains): {ext_s:.3f} s, {ext_b / 1e9:.3f} GB, "
+          f"{1e3 * ext_s / max(n_ext, 1):.3f} ms each")
+    print(f"  {label}: simulated {st['invocations']} serving invocations, "
+          f"{st['worker_invocations']} worker invocations (${st['worker_cost_usd']:.6f}), "
+          f"total ${st['cost_usd']:.6f}, storage ${st['offload_storage_usd']:.6f} in "
+          f"{st['offload_storage_ops']} ops + ${st['park_storage_usd']:.9f} retention, "
+          f"{cloud.now:.3f} s simulated")
+    print(f"  {label}: kernel launches {counts}")
+    out = dict(counts, same=same, n=n, decode_tok_s=dec_tok / max(dec_s, 1e-9),
+               ref_tok_s=ref_tok_s, ctrl_ms=ctrl_ms)
+    fleet_worker().shared_snaps.clear()
+    del front, fleet, scheds
+    release()
+    return out
+
+
+def p27_dense_turns(cfg, seed: int):
+    """27a's traffic: 6 sessions x 4 requests of ``PROMPT`` tokens (a shared
+    2-page system prompt, then unique tokens): A, B and C fresh, D
+    extending C's stream by ``P27_TURN_TOKENS`` user tokens; the cold
+    start's request extends session s0's D the same way.  Returns
+    ``(turns, cold, max_seq)``."""
+    import numpy as np
+
+    from repro_torch.coord.serving_front import InferenceRequest
+
+    rng = np.random.default_rng(seed + 27)
+    V, S = cfg.vocab, P27_SESSIONS
+    sys_p = rng.integers(0, V, size=P27_SYS_PAGES * PAGE).astype(np.int32)
+    fresh = [[np.concatenate([sys_p, rng.integers(0, V, size=PROMPT - len(sys_p)).astype(
+        np.int32)]) for _ in range(3)] for _ in range(S)]
+    user = rng.integers(0, V, size=(S, 2, P27_TURN_TOKENS)).astype(np.int32)
+
+    def rid(s, j):
+        return f"r{P27_PER_SESSION * s + j}"
+
+    def tok(front, r):
+        return tokens_by_request(front)[r].astype(np.int32)
+
+    def extension(front, s):
+        return np.concatenate([fresh[s][2], tok(front, rid(s, 2)), user[s, 0]])
+
+    turns = [lambda front: [InferenceRequest(f"s{s}", rid(s, j), fresh[s][j], MAX_NEW)
+                            for s in range(S) for j in range(3)],
+             lambda front: [InferenceRequest(f"s{s}", rid(s, 3), extension(front, s), MAX_NEW)
+                            for s in range(S)]]
+
+    def cold(front):
+        return [InferenceRequest("s0", rid(S, 0), np.concatenate(
+            [extension(front, 0), tok(front, rid(0, 3)), user[0, 1]]), MAX_NEW)]
+
+    return turns, cold, PROMPT + 2 * (MAX_NEW + P27_TURN_TOKENS) + MAX_NEW
+
+
+def p27_hybrid_turns(cfg, seed: int):
+    """27b's traffic: ``H27_REQUESTS`` sessions of one ``H_PROMPT``-token
+    request each; the cold start's request extends session s0's stream by
+    ``P27_TURN_TOKENS`` user tokens (its park-meta carries the recurrent
+    rows).  Returns ``(turns, cold, max_seq)``."""
+    import numpy as np
+
+    from repro_torch.coord.serving_front import InferenceRequest
+
+    rng = np.random.default_rng(seed + 127)
+    V = cfg.vocab
+    first = rng.integers(0, V, size=(H27_REQUESTS, H_PROMPT)).astype(np.int32)
+    user = rng.integers(0, V, size=P27_TURN_TOKENS).astype(np.int32)
+    turns = [lambda front: [InferenceRequest(f"s{s}", f"r{s}", first[s], H_MAX_NEW)
+                            for s in range(H27_REQUESTS)]]
+
+    def cold(front):
+        return [InferenceRequest("s0", f"r{H27_REQUESTS}", np.concatenate(
+            [first[0], tokens_by_request(front)["r0"].astype(np.int32), user]), H_MAX_NEW)]
+
+    return turns, cold, H_PROMPT + 2 * H_MAX_NEW + P27_TURN_TOKENS
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3910,6 +4381,20 @@ def main() -> int:
                slots=SLOTS, min_acceptance=0.5)
     del draft
     print(f"  phase 26a wall {time.perf_counter() - t26:.1f} s")
+    release()
+    turns, cold, max_seq = p27_dense_turns(cfg, args.seed)
+    print(f"[27a] {ARCH}: the elastic fleet, {P27_WORKERS} workers of {P27_SLOTS} slots "
+          f"(paged_kernel, parking, prefix sharing, the index journal), "
+          f"{P27_SESSIONS * P27_PER_SESSION} requests over {P27_SESSIONS} sessions in one "
+          f"burst, prompt {PROMPT} ({P27_SYS_PAGES}-page system prompt), {MAX_NEW} new; "
+          f"crashes {sorted(P27_CRASHES)}, w2 wedged at tick {P27_WEDGE_TICK}; scale to "
+          f"zero, then a cold start")
+    t27 = time.perf_counter()
+    f27 = phase_fleet(fails, model, cfg, args.seed, "27a", workers=P27_WORKERS,
+                      slots=P27_SLOTS, max_seq=max_seq, max_new=MAX_NEW, turns=turns, cold=cold,
+                      crashes=P27_CRASHES, wedge=(P27_WEDGE_TICK, "w2"))
+    print(f"  phase 27a wall {time.perf_counter() - t27:.1f} s; paged kernel launches on the "
+          f"fleet {f27['paged_attention']}")
     del model
     torch.cuda.empty_cache()
 
@@ -4007,6 +4492,18 @@ def main() -> int:
                max_new=MAX_NEW, slots=H26_SLOTS)
     del draft
     print(f"  phase 26b wall {time.perf_counter() - t26:.1f} s")
+    release()
+    turns, cold, max_seq = p27_hybrid_turns(hcfg, args.seed)
+    print(f"[27b] {HYBRID}: the elastic fleet, {H27_WORKERS} workers of {H27_SLOTS} slots "
+          f"(paged_kernel, parking), {H27_REQUESTS} requests of {H_PROMPT} tokens, "
+          f"{H_MAX_NEW} new; scale to zero, then a cold start from a park-meta that carries "
+          f"recurrent rows")
+    t27 = time.perf_counter()
+    h27 = phase_fleet(fails, hmodel, hcfg, args.seed, "27b", workers=H27_WORKERS,
+                      slots=H27_SLOTS, max_seq=max_seq, max_new=H_MAX_NEW, turns=turns,
+                      cold=cold)
+    print(f"  phase 27b wall {time.perf_counter() - t27:.1f} s; launches on the fleet: paged "
+          f"{h27['paged_attention']}, rglru {h27['rglru_scan']}")
     del hmodel
     torch.cuda.empty_cache()
 

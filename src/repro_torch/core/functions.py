@@ -1,9 +1,13 @@
-"""Function runtime: event functions bound to a queue trigger (paper §2.2).
+"""Function runtime: free / event / scheduled functions (paper §2.2).
+
+* **Free functions** — invoked via API request (RPC semantics); used by the
+  distributor to fan out watch notifications.
+* **Event functions** — bound to a queue trigger (see ``queues.py``); used by
+  the writer and distributor.
+* **Scheduled functions** — cron semantics; used by the heartbeat.
 
 The runtime models cold/warm starts and GB-second billing (the §6 cost model
-charges function time at AWS Lambda rates).  This is the serving frontend's
-copy; the free and scheduled functions of the coordination service are not
-needed here.
+charges function time at AWS Lambda rates).
 """
 
 from __future__ import annotations
@@ -82,6 +86,34 @@ class FunctionRuntime:
             return result
 
         return invoke
+
+    def invoke_free(self, fn: Callable[..., Generator], *args: Any, **kwargs: Any):
+        """Fire a free function asynchronously (RPC-style); returns the Task."""
+        delay = self.cloud.sample("direct_invoke")
+        return self.cloud.spawn(fn(*args, **kwargs), name="free-fn", delay=delay)
+
+    def schedule_every(
+        self,
+        period: float,
+        fn: Callable[..., Generator],
+        stop_when: Optional[Callable[[], bool]] = None,
+        jitter: float = 0.0,
+        max_runs: Optional[int] = None,
+    ) -> None:
+        """Cron semantics: invoke ``fn`` every ``period`` virtual seconds."""
+        runs = {"n": 0}
+
+        def tick() -> None:
+            if stop_when is not None and stop_when():
+                return
+            if max_runs is not None and runs["n"] >= max_runs:
+                return
+            runs["n"] += 1
+            self.cloud.spawn(fn(), name="scheduled-fn")
+            j = float(self.cloud.rng.uniform(-jitter, jitter)) if jitter else 0.0
+            self.cloud.schedule(period + j, tick)
+
+        self.cloud.schedule(period, tick)
 
     def cost_usd(self) -> float:
         total = 0.0

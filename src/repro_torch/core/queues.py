@@ -61,6 +61,9 @@ class FifoQueue:
         self.dropped = 0
         self.dead_letters: List[Message] = []
 
+    def set_handler(self, handler: Callable[[List[Message]], Generator]) -> None:
+        self.handler = handler
+
     # -- producer side ----------------------------------------------------------
 
     def push(self, body: Any, size_kb: float = 0.064) -> Generator:

@@ -1,5 +1,4 @@
-"""Deterministic simulated-cloud substrate for FaaSKeeper (the serving
-frontend's copy: the pieces the port's serving path needs).
+"""Deterministic simulated-cloud substrate for FaaSKeeper.
 
 The paper builds FaaSKeeper from AWS services (Lambda, SQS FIFO, DynamoDB,
 S3).  This module provides the same *semantics* — the paper's explicit goal is
@@ -34,7 +33,7 @@ from __future__ import annotations
 import heapq
 import itertools
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Generator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Generator, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -61,6 +60,10 @@ class SimulatedCrash(Exception):
     """Raised inside a function body by fault injection."""
 
 
+class ConditionFailed(Exception):
+    """A conditional storage update's condition did not hold."""
+
+
 # --------------------------------------------------------------------------
 # Latency models
 # --------------------------------------------------------------------------
@@ -82,6 +85,21 @@ class LatencyModel:
     def sample(self, rng: np.random.Generator, size_kb: float = 0.0) -> float:
         base = self.median * float(np.exp(self.sigma * rng.standard_normal()))
         return max(self.floor, base + self.per_kb * size_kb)
+
+    def p(self, q: float, size_kb: float = 0.0) -> float:
+        """Analytic quantile (for cost/latency reporting without sampling)."""
+
+        # inverse CDF of standard normal via numpy
+        z = float(np.sqrt(2.0) * _erfinv(2.0 * q - 1.0))
+        return self.median * float(np.exp(self.sigma * z)) + self.per_kb * size_kb
+
+
+def _erfinv(x: float) -> float:
+    # Winitzki approximation — adequate for reporting quantiles.
+    a = 0.147
+    ln = np.log(1.0 - x * x)
+    first = 2.0 / (np.pi * a) + ln / 2.0
+    return float(np.sign(x) * np.sqrt(np.sqrt(first**2 - ln / a) - first))
 
 
 def default_latency_profile() -> Dict[str, LatencyModel]:
@@ -187,6 +205,26 @@ class Task:
         self.waiters: List[Callable[[], None]] = []
 
 
+class Future(Task):
+    """A Task that is resolved externally (no coroutine behind it).
+
+    Used for push-channel deliveries: a client coroutine can ``yield
+    Wait((future,))`` and a service resolves it when the message arrives.
+    """
+
+    def __init__(self, name: str = "future"):
+        super().__init__(gen=None, name=name)  # type: ignore[arg-type]
+
+    def resolve(self, value: Any = None) -> None:
+        if self.done:
+            return
+        self.done = True
+        self.result = value
+        for w in self.waiters:
+            w()
+        self.waiters.clear()
+
+
 class SimCloud:
     """Deterministic discrete-event cloud."""
 
@@ -204,6 +242,7 @@ class SimCloud:
         self._now = 0.0
         self._heap: List[Tuple[float, int, Callable[[], None]]] = []
         self._seq = itertools.count()
+        self.metrics: Dict[str, List[float]] = {}
         self.op_counts: Dict[str, int] = {}
 
     # -- clock / scheduling -------------------------------------------------
@@ -217,8 +256,19 @@ class SimCloud:
         self.op_counts[kind] = self.op_counts.get(kind, 0) + 1
         return dt
 
+    def record(self, metric: str, value: float) -> None:
+        self.metrics.setdefault(metric, []).append(value)
+
     def schedule(self, delay: float, cb: Callable[[], None]) -> None:
-        heapq.heappush(self._heap, (self._now + delay, next(self._seq), cb))
+        heapq.heappush(self._heap, (self._now + delay, next(self._seq), cb, None))
+
+    def schedule_cancellable(self, delay: float, cb: Callable[[], None]) -> Dict[str, bool]:
+        """Like schedule, but returns a token; set token['cancelled'] = True
+        and the entry is skipped *without advancing the clock* (stale timeout
+        timers must not drag virtual time forward)."""
+        token = {"cancelled": False}
+        heapq.heappush(self._heap, (self._now + delay, next(self._seq), cb, token))
+        return token
 
     def spawn(self, gen: Generator, name: str = "task", delay: float = 0.0) -> Task:
         task = Task(gen, name)
@@ -270,7 +320,10 @@ class SimCloud:
         """Process events until the heap empties (or a horizon is reached)."""
         events = 0
         while self._heap:
-            t, _, cb = self._heap[0]
+            t, _, cb, token = self._heap[0]
+            if token is not None and token.get("cancelled"):
+                heapq.heappop(self._heap)
+                continue
             if until is not None and t > until:
                 self._now = until
                 return
@@ -291,3 +344,16 @@ class SimCloud:
             raise task.error
         return task.result
 
+
+def percentiles(samples: Iterable[float]) -> Dict[str, float]:
+    xs = np.asarray(list(samples), dtype=np.float64)
+    if xs.size == 0:
+        return {"min": 0.0, "p50": 0.0, "p90": 0.0, "p95": 0.0, "p99": 0.0, "max": 0.0}
+    return {
+        "min": float(xs.min()),
+        "p50": float(np.percentile(xs, 50)),
+        "p90": float(np.percentile(xs, 90)),
+        "p95": float(np.percentile(xs, 95)),
+        "p99": float(np.percentile(xs, 99)),
+        "max": float(xs.max()),
+    }

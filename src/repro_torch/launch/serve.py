@@ -12,12 +12,15 @@ copy-on-write prefix sharing and ``--park-sessions`` cross-request session
 parking (paged mode only).  ``--spec-draft ARCH`` turns on draft-and-verify
 speculative decoding with a seeded draft of ``ARCH`` (the target's own
 model when it is ``--arch``), ``--spec-k`` drafts a round (paged, gather,
-greedy).
+greedy).  ``--fleet N`` serves through an elastic fleet of N disposable
+scheduler workers (paged, parked sessions and the index journal implied;
+``--min-workers``, ``--max-workers``, ``--scale-to-zero``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
       --requests 12 --sessions 3 --batch-size 4 --prompt-len 16 [--device cpu] \\
       [--offload] [--prefix-sharing] [--park-sessions] [--spec-draft ARCH --spec-k K]
+      [--fleet N [--min-workers M] [--max-workers N] [--scale-to-zero]]
 """
 
 from __future__ import annotations
@@ -31,9 +34,10 @@ import torch
 
 from .. import configs
 from ..coord.serving_front import InferenceRequest, ServingFrontend
-from ..core import SimCloud
+from ..core import PageBlobStore, SimCloud
 from ..models import build_model
 from ..serve.engine import make_decode_step, make_prefill
+from ..serve.fleet import FleetController
 from ..serve.scheduler import DecodeScheduler, supports_continuous
 
 
@@ -103,7 +107,8 @@ def build_frontend(cloud: SimCloud, cfg, model, *, mode: str, batch_size: int,
                    idle_preempt_steps: int = 0, prefix_sharing: bool = False,
                    park_sessions: bool = False, park_ttl_steps: int = 0,
                    draft_model=None, spec_k: int = 0,
-                   device="cuda") -> ServingFrontend:
+                   fleet_size: int = 0, min_workers: int = 0,
+                   scale_to_zero: bool = False, device="cuda") -> ServingFrontend:
     """Frontend for ``mode`` in {'continuous', 'shared', 'per-session'}.
 
     ``continuous`` serves through :class:`DecodeScheduler`: from the shared
@@ -116,9 +121,42 @@ def build_frontend(cloud: SimCloud, cfg, model, *, mode: str, batch_size: int,
     ``park_sessions`` retains a completed session's KV across requests
     (``park_ttl_steps`` bounds the retention; paged mode only).
     ``draft_model`` with ``spec_k >= 1`` turns on speculative decoding.
+    ``fleet_size`` > 0 serves through a :class:`FleetController` of that
+    many worker schedulers over one shared blob store (paged, parked
+    sessions and the index journal on; ``min_workers`` and
+    ``scale_to_zero`` set its autoscaler).
     """
     if mode not in ("continuous", "shared", "per-session"):
         raise ValueError(f"unknown serving mode {mode!r}")
+    if fleet_size:
+        if mode != "continuous" or not supports_continuous(cfg):
+            raise ValueError("--fleet needs the continuous scheduler "
+                             "(decoder-only families)")
+        if kv_mode != "paged" or cfg.family == "ssm":
+            raise ValueError("--fleet needs the paged KV pool "
+                             "(parked journals are page blobs)")
+        validate_pool_sizing(batch_size=batch_size, prompt_len=prompt_len,
+                             max_new=max_new, page_size=page_size,
+                             kv_pages=kv_pages, prefill_chunk=prefill_chunk,
+                             offload=offload)
+        store = PageBlobStore()     # the fleet's shared durable substrate
+        workers = [DecodeScheduler(model, n_slots=batch_size,
+                                   max_seq=prompt_len + max_new,
+                                   temperature=temperature, top_k=top_k, seed=seed,
+                                   kv_mode="paged", page_size=page_size,
+                                   prefill_chunk=prefill_chunk, kv_pages=kv_pages,
+                                   offload=offload, preempt_policy=preempt_policy,
+                                   idle_preempt_steps=idle_preempt_steps,
+                                   prefix_sharing=prefix_sharing,
+                                   park_sessions=True,
+                                   park_ttl_steps=park_ttl_steps,
+                                   blob_store=store, index_journal=True,
+                                   attn_backend=attn_backend, draft_model=draft_model,
+                                   spec_k=spec_k, device=device)
+                   for _ in range(fleet_size)]
+        ctrl = FleetController(workers, min_workers=min_workers,
+                               scale_to_zero=scale_to_zero)
+        return ServingFrontend(cloud, fleet=ctrl, batch_size=batch_size)
     if mode == "continuous" and supports_continuous(cfg):
         if kv_mode == "paged":
             validate_pool_sizing(batch_size=batch_size, prompt_len=prompt_len,
@@ -183,6 +221,8 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
                 idle_preempt_steps: int = 0, prefix_sharing: bool = False,
                 park_sessions: bool = False, park_ttl_steps: int = 0,
                 spec_draft: Optional[str] = None, spec_k: int = 0,
+                fleet: int = 0, min_workers: int = 0,
+                max_workers: Optional[int] = None, scale_to_zero: bool = False,
                 device="cuda") -> ServingFrontend:
     cfg = configs.get(arch).reduced()
     model = build_model(cfg, device=device, seed=0)
@@ -205,7 +245,10 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
                               prefix_sharing=prefix_sharing,
                               park_sessions=park_sessions,
                               park_ttl_steps=park_ttl_steps, draft_model=draft_model,
-                              spec_k=spec_k, device=device)
+                              spec_k=spec_k,
+                              fleet_size=(max_workers or fleet) if fleet else 0,
+                              min_workers=min_workers, scale_to_zero=scale_to_zero,
+                              device=device)
     t0 = time.time()
     spawn_workload(cloud, frontend, vocab=cfg.vocab, n_requests=n_requests,
                    sessions=sessions, prompt_len=prompt_len, max_new=max_new)
@@ -222,6 +265,18 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
               f"(batching {served}/{inv} = {served/inv if inv else 0.0:.1f} "
               f"req/invoke); cost ${s['cost_usd']:.6f}; dropped {s['dropped']} "
               f"(dead-letter {frontend.dead_letter_ids()})")
+        if frontend.fleet is not None:
+            print(f"fleet: {s['spawns']} spawns / {s['retires']} retires "
+                  f"({s['cold_starts_from_zero']} from zero), "
+                  f"{s['workers_live']}/{s['workers_max']} live at exit, "
+                  f"{s['meta_puts']} park-metas committed / "
+                  f"{s['meta_adoptions']} adopted, "
+                  f"{s['index_journal_puts']} index blobs journaled / "
+                  f"{s['index_adopted']} re-adopted")
+            print(f"fleet billing: {s['worker_invocations']} worker "
+                  f"invocations (${s['worker_cost_usd']:.6f}), storage "
+                  f"${s['offload_storage_usd']:.6f} ops + "
+                  f"${s['park_storage_usd']:.9f} retention")
         if frontend.scheduler is not None:
             print(f"decode scheduler: occupancy {s['occupancy']:.2f} "
                   f"slots/step over {s['steps']} steps, "
@@ -311,6 +366,19 @@ def main() -> None:
     ap.add_argument("--spec-k", type=int, default=0,
                     help="draft tokens proposed per verify round (default 3 "
                          "when --spec-draft is set)")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="serve with an elastic fleet of N disposable "
+                         "scheduler workers behind the shared dispatch "
+                         "queue (paged + parked sessions implied); 0 = one "
+                         "resident scheduler (default)")
+    ap.add_argument("--min-workers", type=int, default=0,
+                    help="always-warm worker floor the autoscaler holds")
+    ap.add_argument("--max-workers", type=int, default=None,
+                    help="worker ceiling (default: the --fleet count)")
+    ap.add_argument("--scale-to-zero", action="store_true",
+                    help="let the fleet drain-and-park every worker when "
+                         "idle; the next burst cold-starts from the blob "
+                         "store (parked journals + index blobs)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; nothing "
                          "falls back to the CPU)")
@@ -326,7 +394,9 @@ def main() -> None:
                 prefix_sharing=args.prefix_sharing, park_sessions=args.park_sessions,
                 park_ttl_steps=args.park_ttl_steps,
                 attn_backend=args.attn_backend, spec_draft=args.spec_draft,
-                spec_k=args.spec_k, device=args.device)
+                spec_k=args.spec_k, fleet=args.fleet, min_workers=args.min_workers,
+                max_workers=args.max_workers, scale_to_zero=args.scale_to_zero,
+                device=args.device)
 
 
 if __name__ == "__main__":

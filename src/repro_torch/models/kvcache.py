@@ -351,6 +351,9 @@ def page_hashes(tokens, page_size: int) -> List[bytes]:
     return out
 
 
+INDEX_JOURNAL_PREFIX = "index/"
+
+
 class PrefixIndex:
     """Content-addressed map from token-chain hashes to resident pool pages.
 
@@ -365,8 +368,13 @@ class PrefixIndex:
 
     Eviction is LRU over publish/hit order and only reclaims the *index's*
     reference — a page another slot or parked session still maps survives
-    with its remaining refcount.  The index is worker-local: physical page
-    ids mean nothing outside one pool.
+    with its remaining refcount.
+
+    The index itself is worker-local (physical page ids mean nothing outside
+    one pool), but its *entries* are durable content: :meth:`journal` pushes
+    each published page to a blob store under its chain hash, and
+    :meth:`rebuild` re-adopts journaled pages into a fresh pool on worker
+    start — how shared prefixes survive a fleet worker's death.
     """
 
     def __init__(self):
@@ -381,6 +389,61 @@ class PrefixIndex:
 
     def has(self, h: bytes) -> bool:
         return h in self._pages
+
+    @staticmethod
+    def journal_key(h: bytes) -> str:
+        """Blob-store key of one journaled entry: content-addressed by the
+        token-chain hash, so concurrent workers journaling the same prefix
+        write the same key with the same bytes (decode-written KV is bitwise
+        prefill KV)."""
+        return INDEX_JOURNAL_PREFIX + h.hex()
+
+    def journal(self, pairs, blob_store, extract) -> int:
+        """Persist ``(hash, physical page)`` entries to ``blob_store``: each
+        page's contents are gathered via ``extract(page_ids) -> blob`` (a
+        host blob) and PUT under :meth:`journal_key`.  Entries whose key is
+        already stored are skipped (same hash, same bytes).  Returns how
+        many blobs were written."""
+        n = 0
+        for h, pid in pairs:
+            key = self.journal_key(h)
+            if key in blob_store.blobs:
+                continue
+            blob = extract([int(pid)])
+            blob_store.put(key, blob, blob_nbytes(blob))
+            n += 1
+        return n
+
+    def adopt(self, h: bytes, pid: int) -> None:
+        """Record an entry whose allocator reference the caller *transfers*
+        (vs :meth:`publish`, which takes its own): the rebuild path allocates
+        a fresh page, scatters journaled contents into it, and hands the
+        alloc-time reference straight to the index."""
+        self._pages[h] = int(pid)
+
+    def rebuild(self, blob_store, allocator, budget, install) -> int:
+        """Re-adopt journaled entries into a fresh pool (worker cold start).
+
+        For every ``index/<hash>`` blob in the store not already indexed,
+        while ``budget()`` pages remain adoptable: allocate one page, call
+        ``install(pid, blob)`` to scatter the journaled contents into it,
+        and adopt the entry.  Entries that do not fit stay in the store — a
+        missed entry just re-prefills.  Returns the number of pages
+        adopted."""
+        n = 0
+        for key in list(blob_store.blobs):
+            if not key.startswith(INDEX_JOURNAL_PREFIX):
+                continue
+            h = bytes.fromhex(key[len(INDEX_JOURNAL_PREFIX):])
+            if h in self._pages:
+                continue
+            if budget() < 1:
+                break
+            pid = allocator.alloc(1)[0]
+            install(pid, blob_store.get(key))
+            self.adopt(h, pid)
+            n += 1
+        return n
 
     def publish(self, hashes: Sequence[bytes], page_ids: Sequence[int],
                 allocator: PageAllocator) -> int:

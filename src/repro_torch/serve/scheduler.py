@@ -129,9 +129,16 @@ the card the draft step and the verify step replay their own graphs; the
 catch-up, whose width changes every round, and the hybrid replay run
 eagerly.
 
-Not ported yet, and refused rather than ignored: ``mesh=``, and the
-fleet's hooks — ``index_journal=True``, and with it
-``externalize_session``, ``adopt_parked`` and ``adopt_index_journal``.
+**Fleet hooks** (:mod:`repro_torch.serve.fleet`): ``index_journal=True``
+journals every published prefix-index page to the (shared) blob store
+under its chain hash, ``blob_ns`` namespaces this worker's transient blob
+keys (``kv/<ns>...`` spills, ``park/<ns>...`` journals),
+:meth:`externalize_session` detaches a parked journal as host data plus a
+blob key, :meth:`adopt_parked` installs one a dead worker left, and
+:meth:`adopt_index_journal` scatters journaled index pages into this
+worker's pool in place (the graphs read the pool they captured).
+
+Not ported yet, and refused rather than ignored: ``mesh=``.
 """
 
 from __future__ import annotations
@@ -244,10 +251,8 @@ class DecodeScheduler:
                 f"continuous batching supports {CONTINUOUS_FAMILIES}")
         if kv_mode not in ("paged", "ring"):
             raise ValueError(f"kv_mode must be 'paged' or 'ring', got {kv_mode!r}")
-        for flag, what in ((mesh is not None, "mesh="),
-                           (index_journal, "index_journal (the fleet's prefix-index journal)")):
-            if flag:
-                raise _not_ported(what)
+        if mesh is not None:
+            raise _not_ported("mesh=")
         if attn_backend not in ("gather", "paged_kernel"):
             raise ValueError("attn_backend must be 'gather' or 'paged_kernel', "
                              f"got {attn_backend!r}")
@@ -303,6 +308,15 @@ class DecodeScheduler:
         self._attention_only = model.cfg.family in ("dense", "moe")
         self._index_sharing = self.prefix_sharing and self._attention_only
         self.prefix_index = kvcache.PrefixIndex()
+        # fleet mode: journal every published index entry to the (shared)
+        # blob store so shared prefixes survive this worker's death, and
+        # namespace this worker's transient blob keys (preempt spills,
+        # parked-journal offloads) so a dead worker's keys can be garbage
+        # collected without racing a successor's
+        self.index_journal = bool(index_journal) and self._index_sharing
+        self.blob_ns = ""
+        self.index_journal_puts = 0
+        self.index_adopted = 0
         self._parked: Dict[str, ParkedSession] = {}
         self.shared_prefix_tokens = 0   # prompt tokens never re-prefilled
         self.park_hits = 0
@@ -812,6 +826,13 @@ class DecodeScheduler:
                                          self.page_size)
         pids = [int(row[i]) for i in range(full)]
         self.prefix_index.publish(hashes[:full], pids, self.allocator)
+        if self.index_journal:
+            # persist the published entries: each full page's contents go to
+            # the shared store under its chain hash, so a successor worker
+            # can re-adopt this prefix after this worker dies
+            self.index_journal_puts += self.prefix_index.journal(
+                zip(hashes[:full], pids, strict=True), self.blob_store,
+                lambda ids: self._extract(self.cache, ids))
 
     def _park_slot(self, slot: Slot, req: _Request, tokens: np.ndarray) -> None:
         """Park a DRAINED slot: ownership of every mapped page transfers to
@@ -860,7 +881,7 @@ class DecodeScheduler:
             self._evict_parked_slot(rec)
         npg = -(-rec.consumed // self.page_size)
         blob = self._extract(self.cache, rec.page_row[:npg])
-        key = f"park/{rec.session}/s{self.steps}"
+        key = f"park/{self.blob_ns}{rec.session}/s{self.steps}"
         self.blob_store.put(key, blob, kvcache.blob_nbytes(blob))
         rec.blob_key = key
         rec.blob_pidx = list(range(npg))
@@ -885,6 +906,56 @@ class DecodeScheduler:
             if self.steps - rec.parked_step > self.park_ttl_steps:
                 self._drop_record(self._parked.pop(session))
                 self.park_expirations += 1
+
+    # -- fleet hooks (worker drain / cold start) -----------------------------
+
+    def externalize_session(self, session: str) -> ParkedSession:
+        """Fleet drain: detach one parked journal from this worker entirely.
+        The record's pages are pushed to the (shared) blob store if still
+        resident, its slot is reclaimed (its rows snapshot to the host
+        first: a parked record always holds pages), and the record — now host data (numpy history and page row,
+        CPU row tensors) plus a blob key — is popped and returned for the
+        controller to hand to a successor worker.  After this the worker
+        holds no reference to the session, and nothing in the record
+        aliases this worker's device rows, which ``reset()`` overwrites."""
+        rec = self._parked.pop(session)
+        if rec.pages:
+            self._offload_parked(rec)
+        return rec
+
+    def adopt_parked(self, rec: ParkedSession) -> None:
+        """Fleet routing: install an externalized (blob-resident) journal so
+        the next admission for its session restores from the shared store
+        instead of re-prefilling.  The record must hold no pool references —
+        those died with the worker that wrote it."""
+        if rec.pages or rec.slot is not None:
+            raise ValueError(
+                f"adopting session {rec.session!r} with live pool state "
+                "(pages/slot are worker-local and do not transfer)")
+        rec.parked_step = self.steps
+        self._parked[rec.session] = rec
+
+    def adopt_index_journal(self) -> int:
+        """Worker cold start: re-adopt journaled prefix-index entries from
+        the shared blob store into this pool (allocate, scatter, adopt — the
+        alloc-time reference transfers to the index).  Each page is
+        scattered into the existing pool in place: a recycled worker keeps
+        its captured graphs, which read the pool's storage.  Bounded so
+        adoption always leaves at least one slot's worst case uncommitted;
+        index pages are reclaimable cache either way, so a skipped entry
+        only costs a re-prefill."""
+        if not self.index_journal:
+            return 0
+
+        def install(pid, blob):
+            self._inject(self.cache, [pid], blob)
+
+        n = self.prefix_index.rebuild(
+            self.blob_store, self.allocator,
+            budget=lambda: self._uncommitted() - self.max_pages,
+            install=install)
+        self.index_adopted += n
+        return n
 
     def _reclaim_pool(self, need: int, keep: Optional[ParkedSession] = None,
                       pinned: Sequence[int] = ()) -> None:
@@ -943,7 +1014,7 @@ class DecodeScheduler:
         # gather in logical order and copy to the host: the blob is
         # position-ordered however scrambled the physical table was
         blob = self._extract(self.cache, phys)
-        key = f"kv/{slot.req.request_id}/p{slot.preempts}"
+        key = f"kv/{self.blob_ns}{slot.req.request_id}/p{slot.preempts}"
         self.blob_store.put(key, blob, kvcache.blob_nbytes(blob))
         slot.blob_key = key
         slot.blob_pidx = pidx
@@ -1467,6 +1538,8 @@ class DecodeScheduler:
             "park_expirations": self.park_expirations,
             "parked_sessions": len(self._parked),
             "index_pages": len(self.prefix_index),
+            "index_journal_puts": self.index_journal_puts,
+            "index_adopted": self.index_adopted,
         }
 
     def spec_stats(self) -> Dict[str, float]:

@@ -250,14 +250,17 @@ def test_scheduler_matches_jax_scheduler_teacher_forced(arch):
 
 def test_unported_options_raise():
     cfg, model = tiny()
-    for kw in (dict(mesh=object()), dict(index_journal=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            DecodeScheduler(model, device="cpu", **kw)
-    # offload, prefix sharing, parking and speculation are ported: accepted
-    # on the pool (speculation is on only with a draft model and spec_k >= 1)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        DecodeScheduler(model, device="cpu", mesh=object())
+    # offload, prefix sharing, parking, speculation and the fleet's index
+    # journal are ported: accepted on the pool (speculation is on only with
+    # a draft model and spec_k >= 1; the journal only with index sharing)
     for kw in (dict(offload=True), dict(prefix_sharing=True), dict(park_sessions=True),
-               dict(draft_model=model, spec_k=2), dict(spec_k=2), dict(draft_model=model)):
+               dict(draft_model=model, spec_k=2), dict(spec_k=2), dict(draft_model=model),
+               dict(index_journal=True)):
         DecodeScheduler(model, device="cpu", **kw)
+    sched = DecodeScheduler(model, device="cpu", prefix_sharing=True, index_journal=True)
+    assert sched.index_journal and sched.adopt_index_journal() == 0
     with pytest.raises(ValueError, match="attn_backend"):
         DecodeScheduler(model, device="cpu", attn_backend="flash")
     with pytest.raises(ValueError, match="model is on"):

@@ -267,9 +267,10 @@ def test_constructor_refuses_what_the_reference_refuses():
     for target, kw, match in cases:
         with pytest.raises(ValueError, match=match):
             DecodeScheduler(target, **{**spec, **kw})
-    for kw in (dict(mesh=object()), dict(index_journal=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            DecodeScheduler(dense, **spec, **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        DecodeScheduler(dense, **spec, mesh=object())
+    # the fleet's index journal is ported: it rides along with speculation
+    DecodeScheduler(dense, **spec, prefix_sharing=True, index_journal=True)
     # accepted: dense, moe and hybrid targets; dense and moe drafts
     for target in (dense, _model("moonshot-v1-16b-a3b"), hybrid):
         for draft in (dense, _model("moonshot-v1-16b-a3b", seed=7)):
