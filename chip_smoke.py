@@ -334,6 +334,31 @@ last line is printed):
     tok/s against the unfleeted run's, ms per controller tick beyond the
     workers' steps, host gathers and the simulated invocations and cost.
 
+28. The two families without a per-slot decode path, served as the JAX
+    package serves them: ``launch/serve.build_frontend(mode='continuous')``
+    falls back to the shared whole-batch flavour (one prefill and eager
+    greedy decode steps a dispatched batch, rings sized prompt + budget,
+    no frames and no patches), where sampling flags raise.  Full width and
+    depth, random weights from ``--seed``, each model loaded alone (after
+    the qwen3-14b phases, before moonshot).  (a) ``whisper-base`` (6
+    encoder + 6 decoder layers, d_model 512, 8 x 64 heads, 1500 frames):
+    16 requests over 4 sessions, batch 8, prompt 4, 224 new; no
+    hand-written kernel launches; the encoder timed at 8 x 1500 frames;
+    ``generate`` with seeded frames (8, 1500, 512), its prefill and 16
+    teacher-forced decode steps within 5% of the logit scale of
+    ``apply(tokens, frames)``.  (b) ``internvl2-2b`` (24 layers, 16 x 128
+    heads over 8): 8 requests over 4 sessions, batch 4, text prompt 4096,
+    32 new; flash launches exactly 24 x prefill batches, all on the
+    tensor cores, and no other kernel; the flash prefill of 4096 tokens
+    against the same prompt as two 2048-token decode chunks (last
+    position within 5%); ``generate`` with seeded patches (1, 256, 1024)
+    and 512 text tokens (no flash launch), teacher-forced as in (a); flash
+    timed at (1, 4096, 16, 8, 128) as in phase 16.  Both: every request
+    served exactly once in per-session FIFO order, each stream equal to
+    the model's solo ``generate`` (B = 1) or split at a near-tie (as phase
+    26).  Printed beside the card's name and power limit: weights, prefill
+    ms a batch and tok/s, decode ms a step and tok/s, peak memory.
+
 On the card the scheduler replays a CUDA graph for every decode step and
 every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19,
 22, 23, 24, 25, 26 and 27 serve on graphs; their exact launch counts are counted
@@ -4303,6 +4328,320 @@ def p27_hybrid_turns(cfg, seed: int):
     return turns, cold, H_PROMPT + 2 * H_MAX_NEW + P27_TURN_TOKENS
 
 
+# -- phase 28: whisper-base and internvl2-2b on the whole-batch serving path ----------------
+
+WHISPER = "whisper-base"
+W_REQUESTS, W_SESSIONS, W_BATCH, W_PROMPT, W_MAX_NEW = 16, 4, 8, 4, 224
+VLM = "internvl2-2b"
+V_REQUESTS, V_SESSIONS, V_BATCH, V_PROMPT, V_MAX_NEW = 8, 4, 4, 4096, 32
+V_PATCH_TEXT = 512              # text tokens after the image prefix in 28b's patch check
+P28_FORCED = 16                 # teacher-forced decode steps of the frame and patch checks
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count (flash also on its tensor-core route)."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.moe_experts import (moe_combine_kernel, moe_experts_kernel,
+                                                 moe_route_kernel)
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.rglru_scan import rglru_scan_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+
+    return {"paged_attention": paged_attention_kernel.launches,
+            "rglru_scan": rglru_scan_kernel.launches,
+            "ssd_scan": ssd_scan_kernel.launches,
+            "flash_attention": flash_attention_kernel.launches,
+            "flash_tensor_core": flash_attention_kernel.launches_by_route["tensor_core"],
+            "moe_experts": moe_experts_kernel.launches,
+            "moe_route": moe_route_kernel.launches,
+            "moe_combine": moe_combine_kernel.launches}
+
+
+class TimedModel:
+    """Times each outer ``prefill`` and ``decode_step`` call of a model on
+    the host clock, synchronized with the card, by shadowing the two
+    methods on the instance (the decode step a prefill runs inside is part
+    of the prefill); ``restore()`` removes the shadows."""
+
+    def __init__(self, model):
+        self.model = model
+        self.prefill_s, self.step_s = [], []
+        self.prefill_tokens = self.step_tokens = 0
+        self._inside = False
+        self.model.prefill = self._timed(model.prefill, lambda a: a[0], "prefill")
+        self.model.decode_step = self._timed(model.decode_step, lambda a: a[1], "step")
+
+    def _timed(self, fn, tokens_of, kind: str):
+        def run(*args, **kw):
+            if self._inside:
+                return fn(*args, **kw)
+            self._inside = True
+            try:
+                sync()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                sync()
+            finally:
+                self._inside = False
+            tokens = tokens_of(args)
+            if kind == "prefill":
+                self.prefill_s.append(time.perf_counter() - t0)
+                self.prefill_tokens += tokens.numel()
+            else:
+                self.step_s.append(time.perf_counter() - t0)
+                self.step_tokens += tokens.shape[0]
+            return out
+
+        return run
+
+    def restore(self) -> None:
+        for name in ("prefill", "decode_step"):
+            vars(self.model).pop(name, None)
+
+
+def phase_whole_batch(fails: Failures, model, cfg, seed: int, label: str, *, n_requests: int,
+                      sessions: int, batch: int, prompt: int, max_new: int) -> dict:
+    """Serve the workload through ``launch/serve.build_frontend(mode=
+    'continuous')``, which for a family without a per-slot decode path
+    falls back to the shared whole-batch flavour (one prefill and greedy
+    decode steps over each dispatched batch, on rings sized prompt + budget,
+    no frames and no patches).  Launch counts are set to 0 just before the
+    run and read just after.  Checks: the fallback, sampling flags refused
+    there, every request served exactly once in per-session FIFO order, and
+    each stream equal to the model's solo ``generate`` (B = 1) or split at
+    a near-tie (phase 26's judge).  Returns the counts and the timings."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import SimCloud
+    from repro_torch.launch.serve import build_frontend, spawn_workload
+    from repro_torch.serve.engine import generate
+
+    kw = dict(mode="continuous", batch_size=batch, max_new=max_new, prompt_len=prompt,
+              device=DEVICE)
+    try:
+        build_frontend(SimCloud(seed=seed), cfg, model, temperature=0.8, **kw)
+        fails.check(False, f"{label}: sampling refused on the whole-batch path")
+    except ValueError as e:
+        fails.check("continuous scheduler" in str(e),
+                    f"{label}: sampling refused on the whole-batch path ({e})")
+    cloud = SimCloud(seed=seed)
+    front = build_frontend(cloud, cfg, model, **kw)
+    fails.check(front.scheduler is None and front.fleet is None and front.mode == "shared",
+                f"{label}: mode='continuous' falls back to the shared whole-batch flavour "
+                f"(mode {front.mode!r}, scheduler {front.scheduler})")
+    spawn_workload(cloud, front, vocab=cfg.vocab, n_requests=n_requests, sessions=sessions,
+                   prompt_len=prompt, max_new=max_new, seed=seed)
+    timed = TimedModel(model)
+    sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        cloud.run()
+        sync()
+    finally:
+        timed.restore()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else 0.0
+
+    ids = [rid for rids in front.completions.values() for rid in rids]
+    fails.check(sorted(ids) == sorted(f"r{i}" for i in range(n_requests)),
+                f"{label}: {len(ids)} of {n_requests} requests served, each exactly once")
+    fifo = all(rids == sorted(rids, key=lambda r: int(r[1:]))
+               for rids in front.completions.values())
+    fails.check(fifo and len(front.completions) == sessions,
+                f"{label}: per-session FIFO over {len(front.completions)} sessions")
+    served = tokens_by_request(front)
+    fails.check(all(t.shape == (max_new,) and (t >= 0).all() and (t < cfg.vocab).all()
+                    for t in served.values()),
+                f"{label}: every token in [0, {cfg.vocab}), {max_new} per request")
+    batches = len(timed.prefill_s)
+    fails.check(batches >= -(-n_requests // batch) and len(timed.step_s) == batches * (max_new - 1),
+                f"{label}: {batches} prefill batches (at least ceil({n_requests}/{batch})), "
+                f"{len(timed.step_s)} decode steps == {batches} x {max_new - 1}")
+    pf_s, st_s = sum(timed.prefill_s), sum(timed.step_s)
+    out = {"counts": counts, "batches": batches, "wall_s": wall, "peak_gib": peak,
+           "prefill_ms": 1e3 * pf_s / max(batches, 1),
+           "prefill_tok_s": timed.prefill_tokens / max(pf_s, 1e-9),
+           "step_ms": 1e3 * st_s / max(len(timed.step_s), 1),
+           "decode_tok_s": timed.step_tokens / max(st_s, 1e-9)}
+    st = front.serving_stats()
+    print(f"  {label}: served in {wall:.3f} s wall, {batches} batches, prefill "
+          f"{out['prefill_ms']:.3f} ms a batch "
+          f"({', '.join(f'{1e3 * t:.3f}' for t in timed.prefill_s)}; "
+          f"{timed.prefill_tokens} tokens, "
+          f"{out['prefill_tok_s']:.1f} tok/s), decode {out['step_ms']:.3f} ms a step "
+          f"({len(timed.step_s)} steps, {out['decode_tok_s']:.1f} tok/s), peak device memory "
+          f"{peak:.3f} GiB; {st['invocations']} invocations, ${st['cost_usd']:.6f}")
+    print(f"  {label}: kernel launches {counts}")
+
+    prompts = workload_prompts(cfg.vocab, n_requests, prompt, seed)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        solo = {rid: generate(model, torch.from_numpy(p)[None].to(DEVICE), max_new,
+                              seq_len=prompt + max_new)[0].cpu().numpy()
+                for rid, p in prompts.items()}
+    print(f"  {label}: {n_requests} solo generates (B = 1) in {time.perf_counter() - t0:.1f} s")
+    out["identical"] = spec_margins(fails, model, cfg, label, {"tokens": solo},
+                                    {"tokens": served}, prompts, than="solo generate (B = 1)")
+    return out
+
+
+def phase_extra_inputs(fails: Failures, model, cfg, label: str, prompt, extra) -> None:
+    """``generate`` with frames or patches, then its stream teacher-forced:
+    the prefill's logits and ``P28_FORCED`` decode steps' logits within
+    ``AGREE_REL_TOL`` of the logit scale of ``apply(tokens, *extra)`` on
+    the same tokens."""
+    import torch
+
+    from repro_torch.serve.engine import generate
+
+    P, V = prompt.shape[1], cfg.vocab
+    seq_len = P + P28_FORCED + 1
+    with torch.no_grad():
+        stream = generate(model, prompt, P28_FORCED + 1, *extra, seq_len=seq_len)
+        ctx = torch.cat([prompt, stream[:, :P28_FORCED]], dim=1)
+        ref = model.apply(ctx, *extra)[..., :V].float()
+        logits, cache = model.prefill(prompt, *extra, seq_len=seq_len)
+        errs = [(logits[..., :V].float() - ref[:, :P]).abs().max().item()]
+        for j in range(P28_FORCED):
+            logits, cache = model.decode_step(cache, stream[:, j:j + 1])
+            errs.append((logits[:, 0, :V].float() - ref[:, P + j]).abs().max().item())
+    scale = ref.abs().max().item()
+    fails.check(bool(torch.isfinite(ref).all()) and max(errs) <= AGREE_REL_TOL * scale,
+                f"{label}: prefill logits (max err {errs[0]:.4g}) and {P28_FORCED} teacher-forced "
+                f"decode steps (max err {max(errs[1:]):.4g}) within {AGREE_REL_TOL} x "
+                f"{scale:.4f} of apply(tokens, {', '.join(str(tuple(e.shape)) for e in extra)})")
+
+
+def phase_chunked_prompt(fails: Failures, model, cfg, seed: int, label: str, prompt: int) -> None:
+    """A ``prompt``-token text prefill (flash, fresh and aligned) against
+    the same prompt as two ``decode_step`` chunks on a fresh ring (the
+    second chunk is offset into the ring, so it takes the plain path): the
+    last position's logits within ``AGREE_REL_TOL`` of their scale."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 28)
+    toks = torch.randint(0, cfg.vocab, (1, prompt), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    half = prompt // 2
+    with torch.no_grad():
+        reset_launch_counts()
+        flash, _ = model.prefill(toks)
+        n_flash = launch_counts()
+        cache = model.init_cache(1, prompt)
+        _, cache = model.decode_step(cache, toks[:, :half])
+        chunked, _ = model.decode_step(cache, toks[:, half:])
+        n_chunks = launch_counts()
+    a, b = flash[0, -1, :cfg.vocab].float(), chunked[0, -1, :cfg.vocab].float()
+    err, scale = (a - b).abs().max().item(), b.abs().max().item()
+    fails.check(n_flash["flash_attention"] == n_flash["flash_tensor_core"] == cfg.n_layers
+                and n_chunks["flash_attention"] == cfg.n_layers,
+                f"{label}: the {prompt}-token prefill launched flash {n_flash['flash_attention']} "
+                f"times ({n_flash['flash_tensor_core']} on the tensor cores) == {cfg.n_layers} "
+                f"layers, the two {half}-token chunks none")
+    fails.check(err <= AGREE_REL_TOL * scale,
+                f"{label}: flash prefill vs two {half}-token chunks, last position's logits max "
+                f"err {err:.4g} <= {AGREE_REL_TOL} x {scale:.4f}")
+
+
+def phase_whisper(fails: Failures, seed: int) -> None:
+    """28a: full-width whisper-base, whole-batch serving and frames."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    cfg = configs.get(WHISPER)
+    ed = cfg.encdec
+    print(f"[28a] full-width {WHISPER} (whole-batch): {ed.n_encoder_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, {cfg.n_heads}x"
+          f"{cfg.the_head_dim()} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {ed.n_frames} frames; "
+          f"{cfg.param_count() / 1e6:.3f} M params; {W_REQUESTS} requests over {W_SESSIONS} "
+          f"sessions, batch {W_BATCH}, prompt {W_PROMPT}, {W_MAX_NEW} new")
+    t28 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE, seed=seed)
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"  weights {sum(p.numel() for p in model.parameters()) / 1e6:.3f} M, "
+          f"{wbytes / 1e9:.4f} GB")
+    out = phase_whole_batch(fails, model, cfg, seed, WHISPER, n_requests=W_REQUESTS,
+                            sessions=W_SESSIONS, batch=W_BATCH, prompt=W_PROMPT,
+                            max_new=W_MAX_NEW)
+    fails.check(not any(out["counts"].values()),
+                f"{WHISPER}: no hand-written kernel launched ({out['counts']})")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 28)
+    frames = torch.randn(W_BATCH, ed.n_frames, cfg.d_model, generator=gen, device=DEVICE)
+    prompt = torch.randint(0, cfg.vocab, (W_BATCH, W_PROMPT), generator=gen, device=DEVICE,
+                           dtype=torch.int32)
+    if DEVICE == "cuda":
+        with torch.no_grad():
+            enc_ms = cuda_time_ms(lambda i: model.encode(frames), 20, warmup=3)
+        print(f"  {WHISPER}: encoder {enc_ms:.4f} ms for B = {W_BATCH} x {ed.n_frames} frames "
+              f"(CUDA events)")
+    reset_launch_counts()
+    phase_extra_inputs(fails, model, cfg, f"{WHISPER} generate with frames", prompt, (frames,))
+    counts = launch_counts()
+    fails.check(not any(counts.values()),
+                f"{WHISPER}: no hand-written kernel launched with frames ({counts})")
+    del model
+    release()
+    print(f"  phase 28a wall {time.perf_counter() - t28:.1f} s")
+
+
+def phase_vlm(fails: Failures, seed: int) -> dict:
+    """28b: full-width internvl2-2b, whole-batch serving (flash prefill),
+    the flash prefill against chunks, patches, and flash timed at the
+    prefill's shape; returns flash's record for the kernels line."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    cfg = configs.get(VLM)
+    print(f"[28b] full-width {VLM} (whole-batch): {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}x{cfg.the_head_dim()} heads over {cfg.n_kv_heads}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {cfg.vlm.n_patches} patches of {cfg.vlm.patch_dim}; param_count "
+          f"{cfg.param_count() / 1e9:.3f} B (no projector); {V_REQUESTS} requests over "
+          f"{V_SESSIONS} sessions, batch {V_BATCH}, text prompt {V_PROMPT}, {V_MAX_NEW} new")
+    t28 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE, seed=seed)
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"  weights {sum(p.numel() for p in model.parameters()) / 1e9:.4f} B, "
+          f"{wbytes / 1e9:.3f} GB")
+    out = phase_whole_batch(fails, model, cfg, seed, VLM, n_requests=V_REQUESTS,
+                            sessions=V_SESSIONS, batch=V_BATCH, prompt=V_PROMPT,
+                            max_new=V_MAX_NEW)
+    c = out["counts"]
+    fails.check(c["flash_attention"] == c["flash_tensor_core"] == cfg.n_layers * out["batches"],
+                f"{VLM}: flash launches {c['flash_attention']} == {cfg.n_layers} layers x "
+                f"{out['batches']} prefill batches, {c['flash_tensor_core']} on the tensor cores")
+    fails.check(not any(c[k] for k in ("paged_attention", "rglru_scan", "ssd_scan",
+                                       "moe_experts", "moe_route", "moe_combine")),
+                f"{VLM}: no paged, RG-LRU, SSD or MoE launch")
+    phase_chunked_prompt(fails, model, cfg, seed, VLM, V_PROMPT)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 29)
+    patches = torch.randn(1, cfg.vlm.n_patches, cfg.vlm.patch_dim, generator=gen, device=DEVICE)
+    text = torch.randint(0, cfg.vocab, (1, V_PATCH_TEXT), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    reset_launch_counts()
+    phase_extra_inputs(fails, model, cfg, f"{VLM} generate with patches", text, (patches,))
+    n = launch_counts()["flash_attention"]
+    fails.check(n == 0, f"{VLM}: no flash launch with {cfg.vlm.n_patches} patches and "
+                f"{V_PATCH_TEXT} text tokens ({n})")
+    del model
+    release()
+    record = None
+    if DEVICE == "cuda":
+        record = phase_flash_timing(fails, seed, VLM, (1, V_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                                                       cfg.the_head_dim()), None,
+                                    c["flash_attention"])
+    print(f"  phase 28b wall {time.perf_counter() - t28:.1f} s")
+    return record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4605,6 +4944,10 @@ def main() -> int:
     phase_graph_replay(fails, qmodel, qcfg, args.seed, f"{DENSE_RING} ring", kv_mode="ring")
     del qmodel
     release()
+
+    phase_whisper(fails, args.seed)
+    v_flash = phase_vlm(fails, args.seed)
+    records.append(v_flash)
 
     mcfg = configs.get(MOE)
     mm = mcfg.moe

@@ -1,9 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Each module defines ``CONFIG``, the full-scale config.  The dense
-architectures, the recurrentgemma hybrid, mamba2 and the two MoE
-architectures have a model in this package; the others raise until their
-family is ported.
+Each module defines ``CONFIG``, the full-scale config; every
+architecture of the JAX package has a model in this package.
 """
 
 from __future__ import annotations
@@ -22,18 +20,14 @@ _ALIAS = {
     "mamba2-1.3b": "mamba2_1p3b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "whisper-base": "whisper_base",
+    "internvl2-2b": "internvl2_2b",
 }
-
-# architectures of families this package does not serve yet
-_NOT_PORTED = ("internvl2-2b", "whisper-base")
 
 
 def get(name: str) -> ArchConfig:
     mod_name = _ALIAS.get(name, name.replace("-", "_").replace(".", "p"))
     if mod_name not in _ALIAS.values():
-        if name in _NOT_PORTED:
-            raise KeyError(f"arch {name!r} is not ported yet; "
-                           f"available: {list(_ALIAS)}")
         raise KeyError(f"unknown arch {name!r}; available: {list(_ALIAS)}")
     mod = importlib.import_module(f".{mod_name}", __package__)
     return mod.CONFIG

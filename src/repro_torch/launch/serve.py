@@ -4,8 +4,10 @@ Requests enter through the paper's per-session FIFO queues, route into one
 shared dispatch queue, and are served by the continuous-batching decode
 scheduler over the paged KV pool or per-slot rings (``--kv-mode ring``;
 slots re-admitted across sessions between decode steps), or by whole-batch
-generation (``--mode shared`` / ``per-session``).  Runs the ``.reduced()``
-config of ``--arch`` on ``--device`` (default ``cuda``).
+generation (``--mode shared`` / ``per-session``, and whatever the mode for
+the audio and VLM families, which have no per-slot decode path; as in the
+JAX package, that path passes no frames and no patches).  Runs the
+``.reduced()`` config of ``--arch`` on ``--device`` (default ``cuda``).
 
 ``--offload`` turns on storage-backed preemption, ``--prefix-sharing``
 copy-on-write prefix sharing and ``--park-sessions`` cross-request session

@@ -1,12 +1,17 @@
-"""Data-plane model zoo (dense, MoE, hybrid and SSM families so far).
+"""Data-plane model zoo: the dense, MoE, hybrid, SSM, enc-dec (audio) and
+VLM families.
 
 ``build_model(cfg, device=..., seed=...)`` dispatches on ``cfg.family`` and
 returns an ``nn.Module`` with the interface::
 
-    apply(tokens) -> logits                         # full-sequence forward
+    apply(tokens, *extra) -> logits                 # full-sequence forward
     init_cache(B, seq_len) -> cache
     decode_step(cache, tokens) -> (logits, cache)
-    prefill(tokens, seq_len=) -> (logits, cache)
+    prefill(tokens, *extra, seq_len=) -> (logits, cache)
+
+``extra`` is the frame embeddings of an enc-dec model (required by
+``apply``; zero frames when ``prefill`` gets none) and the patch embeddings
+of a VLM (optional); the other families take none.
 """
 
 from __future__ import annotations
@@ -17,14 +22,10 @@ import torch
 
 from .config import ArchConfig
 
-_NOT_PORTED = ("audio", "vlm")
-
 
 def build_model(cfg: ArchConfig, *, device="cuda", seed: Optional[int] = 0):
     """The model for ``cfg`` on ``device``, weights drawn from a
     ``torch.Generator`` on that device seeded with ``seed``."""
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.family == "dense":
         from .transformer import DenseLM as model_cls
     elif cfg.family == "moe":
@@ -33,6 +34,10 @@ def build_model(cfg: ArchConfig, *, device="cuda", seed: Optional[int] = 0):
         from .rglru import RecurrentLM as model_cls
     elif cfg.family == "ssm":
         from .mamba2 import Mamba2LM as model_cls
+    elif cfg.family == "audio":
+        from .whisper import EncDecLM as model_cls
+    elif cfg.family == "vlm":
+        from .vlm import VisionLM as model_cls
     else:
         raise ValueError(f"unknown family {cfg.family}")
     gen = torch.Generator(device=torch.device(device)).manual_seed(seed)

@@ -5,9 +5,8 @@ architectures live in :mod:`repro_torch.configs` as module-level
 constants built from this dataclass.  ``reduced()`` produces the smoke-test
 scale of the same family (same code paths, tiny dims).
 
-The sub-configs of the other families (MoE, SSM, hybrid, enc-dec, VLM) are
-kept so ``reduced()`` builds the same dataclass for every family; the dense,
-MoE, hybrid and SSM families have a model in this package so far.
+Each family's sub-config (MoE, SSM, hybrid, enc-dec, VLM) is the JAX
+package's, so ``reduced()`` builds the same dataclass for every family.
 """
 
 from __future__ import annotations
@@ -122,7 +121,9 @@ class ArchConfig:
     def param_count(self, active_only: bool = False) -> int:
         """Parameters (embedding + head + layers), counted as the JAX package
         counts them: an MoE member's experts and router but not moonshot's
-        shared expert (``active_only``: the top-k experts of a token)."""
+        shared expert (``active_only``: the top-k experts of a token), an
+        enc-dec model's encoder and cross-attention, no VLM projector, and
+        no norm scale or bias anywhere."""
         d, f = self.d_model, self.d_ff
         hd = self.the_head_dim()
         q_dim, kv = self.n_heads * hd, self.n_kv_heads * hd
@@ -151,6 +152,10 @@ class ArchConfig:
             n = self.n_layers * (attn + experts + d * m.n_experts)
         else:
             n = self.n_layers * (attn + mlp)
+            if self.family == "audio" and self.encdec is not None:
+                # encoder layers (self-attention + MLP) and the decoder's
+                # cross-attention
+                n += self.encdec.n_encoder_layers * (attn + mlp) + self.n_layers * attn
         return n + self.vocab * d * (1 if self.tie_embeddings else 2)
 
     def reduced(self) -> "ArchConfig":

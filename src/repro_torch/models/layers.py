@@ -372,3 +372,15 @@ def lm_head(p, cfg, x: torch.Tensor) -> torch.Tensor:
     if cfg.padded_vocab != cfg.vocab:
         logits[..., cfg.vocab:] = NEG_INF
     return logits * bf16_scalar(cfg.logit_scale)
+
+
+def sinusoidal_positions(S: int, d: int, offset=0, device=None) -> torch.Tensor:
+    """Length-agnostic absolute embeddings (S, d) in the compute dtype
+    (whisper): sines of the first d/2 channels, then cosines.  ``offset``
+    may be a 0-d device tensor (the cache length at a decode step)."""
+    if isinstance(offset, torch.Tensor):
+        device = offset.device
+    pos = (torch.arange(S, dtype=torch.float32, device=device) + offset)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(COMPUTE_DTYPE)

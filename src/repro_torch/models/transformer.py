@@ -137,14 +137,17 @@ class DenseLM(nn.Module):
 
     def apply(self, tokens: torch.Tensor) -> torch.Tensor:
         """Full-sequence forward -> logits (B, S, padded_vocab)."""
-        cfg = self.cfg
-        B, S = tokens.shape
-        x = layers.embed_tokens(self.embedding, cfg, tokens)
+        x = self._forward(layers.embed_tokens(self.embedding, self.cfg, tokens))
+        return layers.lm_head(self.embedding, self.cfg, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The layer stack and the final norm over embeddings (B, S, d)
+        from position 0."""
+        B, S = x.shape[0], x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
         for p in self.layers:
-            x = dense_layer_fwd(p, cfg, x, positions)
-        x = layers.apply_norm(cfg.norm, self.final_norm, x)
-        return layers.lm_head(self.embedding, cfg, x)
+            x = dense_layer_fwd(p, self.cfg, x, positions)
+        return layers.apply_norm(self.cfg.norm, self.final_norm, x)
 
     forward = apply
 
@@ -175,7 +178,16 @@ class DenseLM(nn.Module):
         tensors and carries the advanced ``length``.  ``fresh``: the cache
         is empty (a from-scratch prefill)."""
         cfg = self.cfg
-        x = layers.embed_tokens(self.embedding, cfg, tokens)
+        x = self._decode_layers(cache, layers.embed_tokens(self.embedding, cfg, tokens), fresh)
+        x = layers.apply_norm(cfg.norm, self.final_norm, x)
+        logits = layers.lm_head(self.embedding, cfg, x)
+        new_cache = dict(cache)
+        new_cache["length"] = cache["length"] + tokens.shape[1]
+        return logits, new_cache
+
+    def _decode_layers(self, cache: Dict, x: torch.Tensor, fresh: bool) -> torch.Tensor:
+        """The layer stack of a decode step over embeddings ``x`` (B, S, d)
+        at ``cache["length"]``, each layer's K/V written in place."""
         pos = cache["length"]
         paged = kvcache.is_paged(cache)
         for i, p in enumerate(self.layers):
@@ -186,11 +198,7 @@ class DenseLM(nn.Module):
                 lc = {"k": cache["k"][i], "v": cache["v"][i],
                       "positions": cache["positions"][i]}
             x = self._layer_decode(p, x, lc, pos, fresh)
-        x = layers.apply_norm(cfg.norm, self.final_norm, x)
-        logits = layers.lm_head(self.embedding, cfg, x)
-        new_cache = dict(cache)
-        new_cache["length"] = cache["length"] + tokens.shape[1]
-        return logits, new_cache
+        return x
 
     def prefill(self, tokens: torch.Tensor, *, seq_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:

@@ -170,23 +170,26 @@ def make_offload_steps() -> tuple:
 def make_prefill(model, seq_len: Optional[int] = None) -> Callable:
     """``seq_len`` sizes the cache for the *total* sequence (prompt + decode
     budget): without it the prompt-sized ring evicts the oldest prompt
-    tokens once decode wraps it."""
+    tokens once decode wraps it.  ``prefill(tokens, *extra)`` passes
+    ``extra`` (an enc-dec model's frames, a VLM's patch embeddings) to the
+    model's prefill."""
 
-    def prefill(tokens):
-        logits, cache = model.prefill(tokens, seq_len=seq_len)
+    def prefill(tokens, *extra):
+        logits, cache = model.prefill(tokens, *extra, seq_len=seq_len)
         next_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_token, cache
 
     return prefill
 
 
-def generate(model, prompt: torch.Tensor, max_new: int, *,
+def generate(model, prompt: torch.Tensor, max_new: int, *extra,
              seq_len: Optional[int] = None) -> torch.Tensor:
     """Greedy autoregressive generation; ``seq_len >= prompt + max_new``
-    gives an eviction-free decode (the scheduler's parity reference)."""
+    gives an eviction-free decode (the scheduler's parity reference).
+    ``extra`` goes to the prefill (frames, patch embeddings)."""
     prefill = make_prefill(model, seq_len)
     step = make_decode_step(model)
-    tok, cache = prefill(prompt)
+    tok, cache = prefill(prompt, *extra)
     out = [tok]
     for _ in range(max_new - 1):
         tok, _, cache = step(cache, tok[:, None])

@@ -17,6 +17,16 @@ An SSM (``Mamba2LM.init``) stacks its layers the same way, with the groups
 ``norm`` and ``ssm`` (``in_proj``, ``conv_w``, ``conv_b``, ``A_log``,
 ``dt_bias``, ``D``, ``norm``, ``out_proj``) and an untied ``head``.
 
+An enc-dec model (``EncDecLM.init``, whisper) adds a stacked encoder and
+its norm, and each decoder layer a cross-attention group::
+
+    {"embedding": {...}, "final_norm": {...}, "enc_norm": {"scale", "bias"},
+     "enc_layers": {"attn_norm", "attn", "mlp_norm", "mlp"},   # (L_enc, ...)
+     "layers": {..., "xattn_norm": {...}, "xattn": {"wq", ...}}}
+
+A VLM (``VisionLM.init``) is a dense tree plus the patch projector
+``patch_proj.{norm.{scale, bias}, w, w2}``.
+
 A hybrid model (``RecurrentLM.init``) stacks ``pattern`` super-blocks and
 keeps the non-divisible tail unstacked::
 
@@ -29,8 +39,10 @@ keeps the non-divisible tail unstacked::
 (the caller converts; this module never imports JAX) and returns a state
 dict for :class:`repro_torch.models.transformer.DenseLM`,
 :class:`repro_torch.models.moe.MoELM`,
-:class:`repro_torch.models.rglru.RecurrentLM` or
-:class:`repro_torch.models.mamba2.Mamba2LM`, one entry per layer.  Leaves
+:class:`repro_torch.models.rglru.RecurrentLM`,
+:class:`repro_torch.models.mamba2.Mamba2LM`,
+:class:`repro_torch.models.whisper.EncDecLM` or
+:class:`repro_torch.models.vlm.VisionLM`, one entry per layer.  Leaves
 are stored in the port's dtypes: bf16 for everything the JAX package casts
 to bf16 at use (identical values), fp32 for what it computes with in fp32
 (qk-norm scales, the MoE router, the RG-LRU gates, the SSD's decay, step,
@@ -89,6 +101,17 @@ def _set(tree: Dict, path: Tuple[str, ...], value) -> None:
     tree[path[-1]] = value
 
 
+def _stacked(tree: Mapping, group: str, n: int):
+    """Yield ``(layer, path, array)`` for every leaf of a group stacked on a
+    leading ``(n, ...)`` axis."""
+    for path, a in _leaves(tree[group]):
+        a = np.asarray(a)
+        if a.shape[0] != n:
+            raise ValueError(f"{group}.{'.'.join(path)}: leading dim {a.shape[0]} != {n}")
+        for i in range(n):
+            yield i, path, a[i]
+
+
 def _flat_layers(tree: Mapping, cfg):
     """Yield ``(layer, path, array)`` for every per-layer leaf; ``path`` is
     the leaf's key path inside its layer (``("attn", "wq")``, or three deep
@@ -107,23 +130,20 @@ def _flat_layers(tree: Mapping, cfg):
             for path, a in _leaves(layer):
                 yield n_sb * n + int(j[1:]), path, a
         return
-    for path, a in _leaves(tree["layers"]):
-        a = np.asarray(a)
-        if a.shape[0] != cfg.n_layers:
-            raise ValueError(f"layers.{'.'.join(path)}: leading dim {a.shape[0]} "
-                             f"!= n_layers {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            yield i, path, a[i]
+    yield from _stacked(tree, "layers", cfg.n_layers)
 
 
 def params_from_jax(tree: Mapping, cfg, device="cuda") -> Dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) -> the port's state dict."""
     sd: Dict[str, torch.Tensor] = {}
-    for group in ("embedding", "final_norm"):
-        for name, a in tree[group].items():
-            sd[f"{group}.{name}"] = _tensor(a, cfg, (group, name), device)
+    for group in ("embedding", "final_norm", "enc_norm", "patch_proj"):
+        for path, a in _leaves(tree.get(group, {})):
+            sd[".".join((group,) + path)] = _tensor(a, cfg, (group,) + path, device)
     for i, path, a in _flat_layers(tree, cfg):
         sd[f"layers.{i}.{'.'.join(path)}"] = _tensor(a, cfg, path, device)
+    if "enc_layers" in tree:
+        for i, path, a in _stacked(tree, "enc_layers", cfg.encdec.n_encoder_layers):
+            sd[f"enc_layers.{i}.{'.'.join(path)}"] = _tensor(a, cfg, path, device)
     return sd
 
 
@@ -132,14 +152,17 @@ def params_to_numpy(state: Mapping[str, torch.Tensor], cfg) -> Dict:
     def arr(t):
         return t.detach().float().cpu().numpy()
 
-    tree: Dict = {"embedding": {}, "final_norm": {}}
-    per_layer: Dict = {}
+    tree: Dict = {}
+    stacks: Dict = {"layers": {}, "enc_layers": {}}
     for key, t in state.items():
         parts = key.split(".")
-        if parts[0] == "layers":
-            per_layer.setdefault(tuple(parts[2:]), {})[int(parts[1])] = arr(t)
+        if parts[0] in stacks:
+            stacks[parts[0]].setdefault(tuple(parts[2:]), {})[int(parts[1])] = arr(t)
         else:
-            tree[parts[0]][parts[1]] = arr(t)
+            _set(tree, tuple(parts), arr(t))
+    for path, rows in stacks["enc_layers"].items():
+        _set(tree, ("enc_layers",) + path, np.stack([rows[i] for i in range(len(rows))]))
+    per_layer = stacks["layers"]
     if cfg.family != "hybrid":
         tree["layers"] = {}
         for path, rows in per_layer.items():

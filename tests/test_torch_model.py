@@ -189,23 +189,53 @@ def test_weights_round_trip():
 
 
 def test_unported_families_and_archs_raise():
-    for family in ("audio", "vlm"):
-        cfg = ArchConfig(name="m", family=family, n_layers=1, d_model=8, n_heads=2,
-                         n_kv_heads=2, d_ff=8, vocab=16)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(cfg, device="cpu")
-    for arch in ("internvl2-2b", "whisper-base"):
-        with pytest.raises(KeyError, match="not ported"):
-            configs.get(arch)
-    assert set(configs.list_archs()) == {"minicpm-2b", "qwen3-14b", "qwen1.5-110b",
-                                         "starcoder2-3b", "recurrentgemma-2b",
-                                         "mamba2-1.3b", "moonshot-v1-16b-a3b",
-                                         "qwen3-moe-235b-a22b"}
+    """Every architecture of the JAX package resolves in the port, as an
+    equal dataclass at full size and reduced; only an unknown family or
+    arch raises."""
+    assert sorted(configs.list_archs()) == sorted(jconfigs.list_archs())
+    assert len(configs.list_archs()) == 10
     for arch in configs.list_archs():
         tcfg, jcfg = configs.get(arch), jconfigs.get(arch)
         assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
         assert dataclasses.asdict(tcfg.reduced()) == dataclasses.asdict(jcfg.reduced())
         assert tcfg.padded_vocab == jcfg.padded_vocab
+    cfg = ArchConfig(name="m", family="speech", n_layers=1, d_model=8, n_heads=2,
+                     n_kv_heads=2, d_ff=8, vocab=16)
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(cfg, device="cpu")
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get("whisper-large")
+
+
+def _norm_and_bias_count(model) -> int:
+    """Parameters ``param_count`` leaves out: norm scales and biases (qk-norm
+    too), MLP and qkv biases, the vocabulary's padding rows, and a VLM's
+    projector."""
+    cfg = model.cfg
+    left = 0
+    for name, p in model.named_parameters():
+        leaf = name.split(".")[-1]
+        if leaf in ("scale", "bias", "b_up", "b_down", "bq", "bk", "bv", "q_norm", "k_norm") or \
+                name.startswith("patch_proj."):
+            left += p.numel()
+    n_tables = 1 if cfg.tie_embeddings else 2
+    return left + n_tables * (cfg.padded_vocab - cfg.vocab) * cfg.d_model
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-2b", "minicpm-2b", "qwen3-14b",
+                                  "starcoder2-3b"])
+def test_param_count_matches_jax_and_the_built_model(arch):
+    """``param_count`` equals the JAX package's for every full config, and a
+    built model (whisper-base at full size, the others reduced) holds the
+    count plus the norms, biases and padding it leaves out."""
+    for name in configs.list_archs():
+        assert configs.get(name).param_count() == jconfigs.get(name).param_count(), name
+    cfg = configs.get(arch)
+    if arch != "whisper-base":
+        cfg = cfg.reduced()
+    model = build_model(cfg, device="cpu")
+    built = sum(p.numel() for p in model.parameters())
+    assert built == cfg.param_count() + _norm_and_bias_count(model)
 
 
 def test_full_size_config_is_minicpm_2b():
