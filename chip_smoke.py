@@ -359,6 +359,35 @@ last line is printed):
     26).  Printed beside the card's name and power limit: weights, prefill
     ms a batch and tok/s, decode ms a step and tok/s, peak memory.
 
+29–33. Training (``launch/train.run_training``), last, after moonshot is
+    freed.  29: the flash backward (``flash_attention_backward_kernel``:
+    delta, dK/dV, dQ) against ``ref.py``'s plain fp32 backward, fp32
+    within 2e-4 and bf16 within 3e-2 of the largest |gradient| per dq, dk
+    and dv (D 8-256, G 1-10, S off the tile, windows 8 and 2048, B 1 and
+    2; bf16 at D % 16 == 0 on the tensor cores), two launches bitwise
+    equal, the forward with lse bitwise the forward without and its lse
+    within 1e-5; the RG-LRU backward (one reversed launch) bitwise the
+    plain reverse fold at phase 5's shapes and (1, 4096, 2560).  30: both
+    timed at the training shapes (CUDA events) beside the forward with
+    lse, the plain version and SDPA forward + backward.  31: full-depth
+    ``minicpm-2b``, 6 steps of 8 x 4096 tokens in 4 microbatches (WSD, lr
+    3e-4): losses and grad norms finite, the last loss below the first,
+    every parameter with a gradient, flash forward launches exactly 2 x
+    40 x microsteps (forward and remat recompute) and backward 40 x
+    microsteps, no paged, SSD or MoE launch; a microstep traced by kernel
+    class and the optimiser update timed on a second full model.  32:
+    ``recurrentgemma-2b``, 4 steps of 4 x 4096 in 4, the same checks with
+    8 windowed attention and 18 RG-LRU layers.  33: at 2 layers of
+    ``minicpm-2b`` (full width), (a) one step through the kernels and
+    through the plain attention, loss within 1e-3 and every gradient
+    within 3e-2 of its largest |value|; (b) a crash at step 7 resumed at
+    step 6 through the FaaSKeeper manifest, every restored leaf checked
+    against its digest, losses within 1e-3 of an uninterrupted run's, the
+    checkpoint directory removed; (c) the card refuses to train
+    ``mamba2-1.3b`` and ``moonshot-v1-16b-a3b`` before any step.  Printed
+    beside the card's name and power limit: step ms, tokens/s, MFU, peak
+    memory, optimiser ms.
+
 On the card the scheduler replays a CUDA graph for every decode step and
 every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19,
 22, 23, 24, 25, 26 and 27 serve on graphs; their exact launch counts are counted
@@ -369,8 +398,9 @@ host made, and the heaviest kernels): each traces its scheduler's eager
 decode step (and 256-token chunk) beside the replayed graph, times both
 without the profiler, and prints the captures made, the seconds each took
 and the graph pool's memory; phase 20 does the same for the
-``paged_kernel`` schedulers.  No phase is cut in depth: every path runs at
-its full depth and the whole script stays well inside its time limit.
+``paged_kernel`` schedulers.  No phase but 33 is cut in depth (2 layers:
+each save writes ~4.9 GB of fp32 state): every other path runs at its
+full depth and the whole script stays well inside its time limit.
 
 Each serving phase sets the launch counts to 0 just before it drives the
 path and reads them just after.  The line before the last is the kernels'
@@ -1027,7 +1057,8 @@ def phase_agreement(fails: Failures, model, cfg, seed: int, *, prompt=PROMPT,
 
 def profile_step(label: str, fn, record_shapes: bool = False):
     """One step under ``torch.profiler``: wall time (profiler on),
-    the device's busy time summed over kernels, the idle share, the kernels
+    the device's busy time summed over kernels and as the union of their
+    intervals (:func:`union_us`), the idle share, the kernels
     the device ran, the launch calls the host made (``cudaLaunchKernel``
     and the like, one ``cudaGraphLaunch`` for a replayed graph), and the
     kernels that take the most device time.  Returns the profile (None
@@ -1052,9 +1083,12 @@ def profile_step(label: str, fn, record_shapes: bool = False):
     if not busy:
         print(f"  profile {label}: no device time recorded (not measured)")
         return None
+    union = union_us(k[1:] for k in kernel_intervals(prof))
     print(f"  profile {label}: wall {wall_us / 1e3:.2f} ms (profiler on), "
           f"device busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
-          f"{launches} kernel launches, host launch calls {sum(calls.values())} {calls}")
+          f"{launches} kernel launches, host launch calls {sum(calls.values())} {calls}; "
+          f"union of kernel intervals {union / 1e3:.2f} ms, idle share by it "
+          f"{1 - union / wall_us:.3f}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
     return prof
@@ -3198,15 +3232,17 @@ def checked_scheduler():
 
 def reset_launch_counts() -> None:
     """Every kernel wrapper's launch counts to 0."""
-    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import (flash_attention_backward_kernel,
+                                                     flash_attention_kernel)
     from repro_torch.kernels.moe_experts import (moe_combine_kernel, moe_experts_kernel,
                                                  moe_route_kernel)
     from repro_torch.kernels.paged_attention import paged_attention_kernel
-    from repro_torch.kernels.rglru_scan import rglru_scan_kernel
+    from repro_torch.kernels.rglru_scan import rglru_scan_backward_kernel, rglru_scan_kernel
     from repro_torch.kernels.ssd_scan import ssd_scan_kernel
 
     for w in (paged_attention_kernel, rglru_scan_kernel, ssd_scan_kernel,
-              flash_attention_kernel, moe_experts_kernel, moe_route_kernel, moe_combine_kernel):
+              flash_attention_kernel, moe_experts_kernel, moe_route_kernel, moe_combine_kernel,
+              flash_attention_backward_kernel, rglru_scan_backward_kernel):
         w.launches = 0
         for name, val in list(vars(w).items()):
             if name.startswith("launches_by_"):
@@ -4340,14 +4376,19 @@ P28_FORCED = 16                 # teacher-forced decode steps of the frame and p
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count (flash also on its tensor-core route)."""
-    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import (flash_attention_backward_kernel,
+                                                     flash_attention_kernel)
     from repro_torch.kernels.moe_experts import (moe_combine_kernel, moe_experts_kernel,
                                                  moe_route_kernel)
     from repro_torch.kernels.paged_attention import paged_attention_kernel
-    from repro_torch.kernels.rglru_scan import rglru_scan_kernel
+    from repro_torch.kernels.rglru_scan import rglru_scan_backward_kernel, rglru_scan_kernel
     from repro_torch.kernels.ssd_scan import ssd_scan_kernel
 
     return {"paged_attention": paged_attention_kernel.launches,
+            "flash_attention_backward": flash_attention_backward_kernel.launches,
+            "flash_backward_tensor_core":
+                flash_attention_backward_kernel.launches_by_route["tensor_core"],
+            "rglru_scan_backward": rglru_scan_backward_kernel.launches,
             "rglru_scan": rglru_scan_kernel.launches,
             "ssd_scan": ssd_scan_kernel.launches,
             "flash_attention": flash_attention_kernel.launches,
@@ -4640,6 +4681,681 @@ def phase_vlm(fails: Failures, seed: int) -> dict:
                                     c["flash_attention"])
     print(f"  phase 28b wall {time.perf_counter() - t28:.1f} s")
     return record
+
+
+# -- phases 29-30: the flash backward and the RG-LRU backward ---------------------------------
+
+
+FLASH_BWD_CASES = [  # (B, S, H, Hkv, D, window)
+    (1, 16, 1, 1, 8, None),              # D 8, G 1
+    (2, 77, 4, 2, 16, 8),                # G 2, window 8, S off the tile, B 2
+    (1, 130, 10, 1, 256, 8),             # D 256, G 10
+    (2, 300, 40, 8, 128, None),          # G 5
+    (1, 333, 4, 4, 64, 2048),            # a window longer than S
+    (2, 700, 8, 2, 64, None),
+    (1, 2100, 10, 1, 256, 2048),         # the hybrid's window in play
+    (1, 1000, 36, 36, 64, None),         # minicpm-2b's heads
+]
+LSE_TOL = 1e-5
+RGLRU_BWD_SHAPES = [(B, L, W, kind) for B, L, W, kind in RGLRU_CASES] + [(1, 4096, 2560, "random")]
+
+
+def flash_grads_plain32(q, k, v, do, window):
+    """The plain fp32 forward (o, lse) and backward on fp32 copies of the inputs."""
+    from repro_torch.kernels.flash_attention import (flash_attention_backward_plain,
+                                                     flash_attention_plain)
+
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    o32, lse32 = flash_attention_plain(q32, k32, v32, window=window, return_lse=True)
+    return o32, lse32, flash_attention_backward_plain(q32, k32, v32, o32, lse32, do32,
+                                                      window=window)
+
+
+def bwd_bound_check(fails: Failures, label: str, got, q, k, v, o, lse, do, window) -> tuple:
+    """Each bf16 gradient element within ``ref.py::bf16_backward_rounding_bound``
+    of the fp32 plain backward on the same inputs (the kernel forward's o and
+    lse).  Also prints the share of elements whose |plain value| exceeds its
+    bound (a kernel that wrote zeros there would fail).  Returns (want, bound)."""
+    from repro_torch.kernels.flash_attention.ref import bf16_backward_rounding_bound
+
+    want, bound = bf16_backward_rounding_bound(q, k, v, o, lse, do, window=window)
+    parts = []
+    ok = True
+    for gname, g, w, b in zip(("dq", "dk", "dv"), got, want, bound, strict=True):
+        d = (g.float() - w).abs()
+        worst = (d / b).max().item()
+        above = (w.abs() > b).float().mean().item()
+        ok = ok and worst <= 1.0
+        parts.append(f"{gname} worst err/bound {worst:.3g} ({above:.0%} of |plain| above it)")
+        del d
+    fails.check(ok, f"{label}: every bf16 gradient element within bf16_backward_rounding_bound "
+                f"of the fp32 plain backward on the same inputs: " + ", ".join(parts))
+    return want, bound
+
+
+def bwd_rows(q, k, v, o, lse, do, rows: slice, keys: slice, window):
+    """(p, dS, scaled q, dO, scale) of query ``rows`` against ``keys`` alone,
+    fp32, each group's heads on their own axis (B, Hkv, G, rows, keys)."""
+    import torch
+
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q[:, rows].float().reshape(B, -1, Hkv, G, D)
+    dog = do[:, rows].float().reshape(B, -1, Hkv, G, D)
+    delta = (do[:, rows].float() * o[:, rows].float()).sum(-1)
+    delta = delta.reshape(B, -1, Hkv, G).permute(0, 2, 3, 1)
+    s = torch.einsum("bshgd,bthd->bhgst", qg, k[:, keys].float()) * scale
+    i = torch.arange(S, device=q.device)[rows][:, None]
+    j = torch.arange(S, device=q.device)[keys][None, :]
+    mask = j <= i
+    if window is not None:
+        mask = mask & (j > i - window)
+    p = torch.exp(s - lse.reshape(B, Hkv, G, S)[..., rows, None]).masked_fill(~mask, 0.0)
+    dp = torch.einsum("bshgd,bthd->bhgst", dog, v[:, keys].float())
+    return p, p * (dp - delta[..., None]), qg, dog, scale
+
+
+def dropped_bwd_tile_effects(q, k, v, o, lse, do, window, tile: int = DROP_TILE) -> dict:
+    """What a backward that left out one tile would get wrong, fp32: for dK
+    and dV the middle ``tile``-key tile's gradients without the last
+    ``tile`` query rows that see it (all of the group's heads), for dQ the
+    last row's without the middle key tile of its attended keys.  Returns
+    {name: (max |change|, the keys or row it is on)}."""
+    import torch
+
+    S = q.shape[1]
+    c0 = tile * ((S // 2) // tile)
+    hi = S if window is None else min(S, c0 + window)
+    keys = slice(c0, c0 + tile)
+    p, ds, qg, dog, scale = bwd_rows(q, k, v, o, lse, do, slice(hi - tile, hi), keys, window)
+    dv = torch.einsum("bhgst,bshgd->bthd", p, dog).abs().max().item()
+    dk = (torch.einsum("bhgst,bshgd->bthd", ds, qg) * scale).abs().max().item()
+    i = S - 1
+    lo = 0 if window is None else max(0, i - window + 1)
+    c = tile * ((lo + i + 1) // (2 * tile))
+    _, ds, _, _, scale = bwd_rows(q, k, v, o, lse, do, slice(i, i + 1), slice(c, c + tile),
+                                  window)
+    dq = (torch.einsum("bhgst,bthd->bshgd", ds, k[:, c:c + tile].float()) * scale)
+    return {"dq": (dq.abs().max().item(), slice(i, i + 1)), "dk": (dk, keys),
+            "dv": (dv, keys)}
+
+
+def phase_flash_backward_cases(fails: Failures, seed: int) -> None:
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention_backward_kernel,
+                                                     flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.kernel import route
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bwd = flash_attention_backward_kernel
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tol = TOL[name]
+        for B, S, H, Hkv, D, window in FLASH_BWD_CASES:
+            q, k, v = flash_inputs(gen, B, S, S, H, Hkv, D, dtype)
+            do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+            path = route(dtype, D)
+            label = (f"flash backward ({path}) {name} [B={B} S={S} H={H} Hkv={Hkv} D={D} "
+                     f"window={window}]")
+            o0 = flash_attention_kernel(q, k, v, window=window)
+            o, lse = flash_attention_kernel(q, k, v, window=window, return_lse=True)
+            o32, lse32, want = flash_grads_plain32(q, k, v, do, window)
+            lse_err = (lse - lse32).abs().max().item()
+            fails.check(torch.equal(o0, o) and lse_err <= LSE_TOL,
+                        f"{label}: the forward with lse is bitwise the forward without it; "
+                        f"lse within {LSE_TOL} of the plain version's (max err {lse_err:.3g})")
+            n0, r0 = bwd.launches, bwd.launches_by_route[path]
+            got = bwd(q, k, v, o, lse, do, window=window)
+            again = bwd(q, k, v, o, lse, do, window=window)
+            sync()
+            errs = {}
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
+                scale = w.abs().max().item()
+                errs[gname] = (g.float() - w).abs().max().item() / max(scale, 1e-30)
+            finite = all(torch.isfinite(g).all().item() for g in got)
+            fails.check(bwd.launches == n0 + 2 and bwd.launches_by_route[path] == r0 + 2
+                        and finite and all(e <= tol for e in errs.values()),
+                        f"{label}: max err / max |plain fp32 grad| "
+                        + ", ".join(f"{g} {e:.3g}" for g, e in errs.items()) + f" <= {tol}")
+            fails.check(all(torch.equal(a, b) for a, b in zip(got, again, strict=True)),
+                        f"{label}: two launches bitwise equal")
+            if dtype == torch.bfloat16:
+                bwd_bound_check(fails, label, got, q, k, v, o, lse, do, window)
+            if dtype == torch.bfloat16 and D % 16 == 0:
+                fails.check(path == "tensor_core", f"{label}: took the tensor-core route")
+    q, k, v = flash_inputs(gen, 1, 64, 64, 2, 1, 64, torch.bfloat16)
+    o, lse = flash_attention_kernel(q, k, v, return_lse=True)
+    k2, v2 = k[:, :32].contiguous(), v[:, :32].contiguous()
+    for label, call in (("a non-causal mask", lambda: bwd(q, k, v, o, lse, o, causal=False)),
+                        ("S != T", lambda: bwd(q, k2, v2, o, lse, o))):
+        try:
+            call()
+            fails.check(False, f"flash backward refuses {label}")
+        except NotImplementedError as e:
+            fails.check(True, f"flash backward refuses {label}: {e}")
+
+
+def phase_rglru_backward_cases(fails: Failures, seed: int) -> None:
+    import torch
+
+    from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_backward_kernel,
+                                                rglru_scan_backward_plain, rglru_scan_plain)
+
+    gen = torch.Generator().manual_seed(seed)
+    for B, L, W, kind in RGLRU_BWD_SHAPES:
+        a, _ = rglru_inputs(gen, B, L, W, kind, torch.float32)
+        g = torch.randn(B, L, W, generator=gen).to(DEVICE)
+        n0 = rglru_scan_backward_kernel.launches
+        got = rglru_scan_backward_kernel(a, g)
+        want = rglru_scan_backward_plain(a, g)
+        sync()
+        err = (got - want).abs().max().item()
+        fails.check(rglru_scan_backward_kernel.launches == n0 + 1 and torch.equal(got, want),
+                    f"rglru backward (one reversed launch) vs the plain reverse fold fp32 "
+                    f"[B={B} L={L} W={W} {kind}]: bitwise (max err {err:.3g})")
+    a, b = rglru_inputs(gen, 2, 300, 2560, "resets", torch.float32)
+    g = torch.randn(2, 300, 2560, generator=gen).to(DEVICE)
+    grads = []
+    for fn in (rglru_scan, rglru_scan_plain):
+        a1, b1 = a.clone().requires_grad_(), b.clone().requires_grad_()
+        fn(a1, b1).backward(g)
+        grads.append((a1.grad, b1.grad))
+    fails.check(all(torch.equal(x, y) for x, y in zip(*grads, strict=True)),
+                "rglru_scan's autograd Function (kernel forward and backward) vs autograd "
+                "through the plain fold [2, 300, 2560 resets]: da and db bitwise")
+
+
+def attention_pairs(S: int, window) -> int:
+    """(row, key) pairs a causal self-attention of S rows attends."""
+    return sum(min(i + 1, window or S) for i in range(S))
+
+
+def flash_bwd_bound(B, S, H, Hkv, D, window):
+    """(bytes, operations) of the backward: q, k, v, o and dO read once
+    (bf16), lse read (fp32), dq, dk and dv written once; 10 D operations
+    (S = QK^T, dP = dO V^T, dV, dK and dQ, 2 each) per query head and
+    attended pair, 2.5x the forward's."""
+    nbytes = B * ((4 * S * H * D + 4 * S * Hkv * D) * 2 + 4 * H * S)
+    return nbytes, 10 * D * H * attention_pairs(S, window) * B
+
+
+def phase_flash_backward_timing(fails: Failures, seed: int, label: str, shape,
+                                window) -> list:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_backward_kernel,
+                                                     flash_attention_backward_plain,
+                                                     flash_attention_kernel,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention.kernel import route
+    from repro_torch.kernels.flash_attention.ref import bf16_rounding_bound
+
+    B, S, H, Hkv, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(i):
+        q, k, v = flash_inputs(gen, B, S, S, H, Hkv, D, torch.bfloat16)
+        do = (0.1 * torch.randn(B, S, H, D, generator=gen, device="cuda")).to(torch.bfloat16)
+        o, lse = flash_attention_kernel(q, k, v, window=window, return_lse=True)
+        return q, k, v, o, lse, do
+
+    nbytes, ops = flash_bwd_bound(B, S, H, Hkv, D, window)
+    sets = input_sets(make, nbytes)
+    n = len(sets)
+    q, k, v, o, lse, do = sets[0]
+    got = flash_attention_backward_kernel(q, k, v, o, lse, do, window=window)
+    o32, lse32, want = flash_grads_plain32(q, k, v, do, window)
+    err = max((g.float() - w).abs().max().item() / w.abs().max().item()
+              for g, w in zip(got, want, strict=True))
+    abs_err = max((g.float() - w).abs().max().item() for g, w in zip(got, want, strict=True))
+    fails.check(err <= TOL["bfloat16"], f"flash backward vs plain fp32 at {label} {shape}: "
+                f"max err / max |grad| {err:.3g} (max abs err {abs_err:.3g})")
+    fwd_err = (o.float() - o32).abs().max().item()
+    lse_err = (lse - lse32).abs().max().item()
+    fails.check(fwd_err <= TOL["bfloat16"] and lse_err <= LSE_TOL,
+                f"flash forward with lse vs plain fp32 at {label} {shape}: o max err "
+                f"{fwd_err:.3g}, lse max err {lse_err:.3g} <= {LSE_TOL}")
+    del want, o32, lse32
+    # per element: the backward within its rounding bound, which leaving out
+    # one tile must exceed; o within the forward's (phase 16's) bound
+    _, bound = bwd_bound_check(fails, f"flash backward at {label} {shape}", got,
+                               q, k, v, o, lse, do, window)
+    drops = dropped_bwd_tile_effects(q, k, v, o, lse, do, window)
+    tols = {g: b[:, at].max().item() for (g, (_, at)), b in zip(drops.items(), bound,
+                                                               strict=True)}
+    fails.check(all(tols[g] < d for g, (d, _) in drops.items()),
+                f"flash backward at {label}: leaving out one {DROP_TILE}-row tile moves the "
+                f"gradient past its bound: " + ", ".join(
+                    f"{g} by up to {d:.3g} (bound there at most {tols[g]:.3g})"
+                    for g, (d, _) in drops.items())
+                + " (dk, dv: the middle key tile without the last q tile that sees it; dq: "
+                "the last row without the middle key tile)")
+    del bound
+    want_o, bound_o = bf16_rounding_bound(q, k, v, window=window)
+    o_excess = ((o.float() - want_o).abs() - bound_o).max().item()
+    o_last_tol = bound_o[:, -1].max().item()
+    o_drop = dropped_tile_effect(*(t.float() for t in (q, k, v)), window)
+    fails.check(o_excess <= 0 and o_last_tol < o_drop,
+                f"flash forward with lse at {label}: o within bf16_rounding_bound of the fp32 "
+                f"plain version per element (worst margin {-o_excess:.3g}); on the last row "
+                f"that bound is at most {o_last_tol:.3g}, and leaving out its middle "
+                f"{DROP_TILE}-key tile moves it by up to {o_drop:.3g}")
+    del want_o, bound_o
+    mask = None
+    if window is not None:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+    def library(j):
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in sets[j % n][:3])
+        kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+        out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=H != Hkv, **kw)
+        out.backward(sets[j % n][5].transpose(1, 2))
+
+    def backward(j):
+        flash_attention_backward_kernel(*sets[j % n], window=window)
+
+    def forward(j):
+        flash_attention_kernel(*sets[j % n][:3], window=window, return_lse=True)
+
+    iters = max(n, 10)
+    ms = cuda_time_ms(backward, iters, warmup=2)
+    fwd_ms = cuda_time_ms(forward, iters, warmup=2)
+    library_ms = cuda_time_ms(library, iters, warmup=2)
+    plain_ms = cuda_time_ms(lambda j: flash_attention_backward_plain(*sets[j % n],
+                                                                     window=window), 1, warmup=1)
+    plain_fwd_ms = cuda_time_ms(lambda j: flash_attention_plain(*sets[j % n][:3], window=window,
+                                                                return_lse=True), 1, warmup=1)
+    fwd_bytes, fwd_ops = flash_bound(S, S, H, Hkv, D, window, 2)
+    fwd_bytes, fwd_ops = B * fwd_bytes + 4 * B * H * S, B * fwd_ops
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    f_bytes, f_ops = fwd_bytes / HBM_BYTES_PER_S, fwd_ops / BF16_FLOPS_PER_S
+    fwd_bound = max(f_bytes, f_ops) * 1e3
+    print(f"  flash backward {label} {shape} window={window} bf16 ({n} input sets): kernel "
+          f"{ms:.4f} ms ({ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), bound {bound_ms:.4f} ms "
+          f"({ops / 1e9:.1f} GFLOP); forward with lse {fwd_ms:.4f} ms (bound "
+          f"{fwd_bound:.4f}); forward + backward {fwd_ms + ms:.4f} ms against SDPA forward + "
+          f"backward {library_ms:.4f} ms; plain backward {plain_ms:.2f} ms, plain forward "
+          f"with lse {plain_fwd_ms:.2f} ms")
+    common = {"route": "cuda", "kernel_route": route(torch.bfloat16, D),
+              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
+              "shape": f"{label} train: q {B}x{S}x{H}x{D}, kv heads {Hkv}, "
+                       f"{'causal' if window is None else f'window {window}'}, bf16",
+              "launches": 0}
+    return [dict(common, name="flash_attention_backward", max_abs_err=abs_err,
+                 max_err_over_max_grad=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 library_ms=library_ms, library="SDPA forward + backward",
+                 fwd_plus_bwd_ms=fwd_ms + ms,
+                 dropped_tile_effect={g: d for g, (d, _) in drops.items()},
+                 bound_where_dropped=tols),
+            dict(common, name="flash_attention_lse", max_abs_err=fwd_err, max_abs_err_lse=lse_err,
+                 ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=fwd_bound,
+                 bound_by="bytes" if f_bytes >= f_ops else "operations", library_ms=None)]
+
+
+def phase_rglru_backward_timing(fails: Failures, seed: int, shape) -> dict:
+    import torch
+
+    from repro_torch.kernels.rglru_scan import (rglru_scan_backward_kernel,
+                                                rglru_scan_backward_plain)
+
+    B, L, W = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(i):
+        a = torch.sigmoid(torch.randn(B, L, W, generator=gen, device="cuda")) * 0.98 + 0.01
+        return a, torch.randn(B, L, W, generator=gen, device="cuda")
+
+    sets = input_sets(make, 12 * B * L * W)
+    n = len(sets)
+    got = rglru_scan_backward_kernel(*sets[0])
+    want = rglru_scan_backward_plain(*sets[0])
+    max_err = (got - want).abs().max().item()
+    fails.check(torch.equal(got, want), f"rglru backward vs the plain reverse fold at {shape} "
+                f"fp32: bitwise (max err {max_err:.3g})")
+    iters = max(n, 20)
+    ms = cuda_time_ms(lambda i: rglru_scan_backward_kernel(*sets[i % n]), iters, warmup=2)
+    plain_ms = cuda_time_ms(lambda i: rglru_scan_backward_plain(*sets[i % n]), 1, warmup=1)
+    elems = B * L * W
+    t_bytes = 12 * elems / HBM_BYTES_PER_S          # read a and g, write dh (fp32)
+    t_ops = 2 * elems / FP32_FLOPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    print(f"  rglru backward {shape} fp32 ({n} input sets): wrapper (reversal copies and one "
+          f"launch) {ms:.4f} ms, plain reverse fold {plain_ms:.2f} ms, bound {bound_ms:.5f} ms")
+    return {"name": "rglru_scan_backward", "route": "cuda", "kernel_route": "staged",
+            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru_scan/kernel.py:54",
+            "shape": f"a,g {B}x{L}x{W} fp32 (backward)", "launches": 0,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+
+
+# -- phases 31-33: training on the card --------------------------------------------------------
+
+TRAIN_LR = 3e-4                 # AdamWConfig's default (run_training's 3e-3 suits reduced configs)
+T31_SEQ, T31_BATCH, T31_ACCUM, T31_STEPS = 4096, 8, 4, 6
+T32_SEQ, T32_BATCH, T32_ACCUM, T32_STEPS = 4096, 4, 4, 4
+T33_LAYERS, T33_BATCH, T33_STEPS, T33_EVERY, T33_CRASH = 2, 2, 8, 3, 7
+T33_LOSS_REL, T33_GRAD_REL = 1e-3, 3e-2
+
+
+def train_flops(cfg, n_params: int, tokens: int, seq: int) -> float:
+    """Model FLOPs of one step: 6 N a token (N every parameter, the tied
+    head's matmul included) and 12 D H a causal attended pair (forward 4,
+    backward 8), remat's recompute not counted."""
+    from repro_torch.models.config import layer_pattern
+
+    if cfg.family == "hybrid":
+        n_attn, window = layer_pattern(cfg).count("a"), cfg.hybrid.local_window
+    else:
+        n_attn, window = cfg.n_layers, cfg.sliding_window
+    seqs = tokens // seq
+    attn = 12 * cfg.the_head_dim() * cfg.n_heads * attention_pairs(seq, window) * n_attn * seqs
+    return 6 * n_params * tokens + attn
+
+
+def microstep_and_optimizer(fails: Failures, cfg, seed: int, seq: int, rows: int) -> float:
+    """On a fresh full model built for training: one microstep (``rows`` x
+    ``seq`` tokens, forward and backward) traced by kernel class, then the
+    ms of one ``adamw_update`` over its gradients (CUDA events, after a
+    warm-up)."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import AdamWConfig, adamw_update
+    from repro_torch.train.step import (TrainStepConfig, decay_mask, init_train_state,
+                                        make_loss_fn, trainable)
+
+    release()
+    model = build_model(cfg, device=DEVICE, seed=seed, train=True)
+    batch = SyntheticPipeline(cfg, ShapeSpec("t", seq, rows, "train"), DataConfig(seed=seed),
+                              device=DEVICE).host_batch(0)
+    if DEVICE == "cuda":
+        profile_train_step(model, make_loss_fn(model, TrainStepConfig()), batch, cfg.name)
+    params = trainable(model)
+    make_loss_fn(model, TrainStepConfig())(batch)[0].backward()
+    grads = {k: p.grad for k, p in params.items()}
+    state = init_train_state(params)
+    opt = AdamWConfig(lr=TRAIN_LR)
+    decay = decay_mask(model)
+    box = [state]
+
+    def update(i):
+        box[0] = adamw_update(grads, box[0], params, opt, decay)[0]
+
+    if DEVICE != "cuda":
+        update(0)
+        return 0.0
+    ms = cuda_time_ms(update, 3, warmup=1)
+    fails.check(all(torch.isfinite(p).all().item() for p in list(params.values())[:4]),
+                f"{cfg.name}: the timed optimiser updates leave finite weights")
+    del model, params, state, grads, box, batch
+    release()
+    return ms
+
+
+def kernel_intervals(prof) -> dict:
+    """The device kernels of a trace, each once: {(name, start us, end
+    us): name} from ``prof.events()`` (device type CUDA)."""
+    from torch.autograd import DeviceType
+
+    return {(e.name, e.time_range.start, e.time_range.end): e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start}
+
+
+def union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def profile_train_step(model, loss_fn, batch, label: str) -> None:
+    """Device time of one forward + backward by kernel class, from
+    ``torch.profiler`` (a breakdown of the step, not a check).  Busy time
+    is the union of the kernels' intervals on the device's clock, each
+    kernel counted once; the classes sum their kernels' durations, and
+    their total is printed beside the union (more than it only where
+    kernels overlapped)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    loss_fn(batch)[0].backward()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss_fn(batch)[0].backward()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    for p in model.parameters():
+        p.grad = None
+    kernels = kernel_intervals(prof)
+    groups: dict = {}
+    for (_, start, end), name in kernels.items():
+        name = name.lower()
+        if "flash_bwd" in name:
+            g = "flash backward"
+        elif "flash_attn" in name:
+            g = "flash forward"
+        elif "rglru" in name:
+            g = "rglru scan"
+        elif any(t in name for t in ("gemm", "xmma", "cutlass", "cublas", "sm90", "nvjet")):
+            g = "matmuls"
+        elif any(t in name for t in ("softmax", "logsumexp", "nll", "cross_entropy")):
+            g = "loss"
+        elif "reduce" in name:
+            g = "reductions"
+        else:
+            g = "elementwise and copies"
+        n, t = groups.get(g, (0, 0.0))
+        groups[g] = (n + 1, t + (end - start) / 1e3)
+    busy = union_us(k[1:] for k in kernels) / 1e3
+    summed = sum(t for _, t in groups.values())
+    span = ((max(k[2] for k in kernels) - min(k[1] for k in kernels)) / 1e3 if kernels else 0.0)
+    parts = ", ".join(f"{g} {t:.2f} ms ({n} kernels)" for g, (n, t) in
+                      sorted(groups.items(), key=lambda kv: -kv[1][1]))
+    print(f"  {label}: trace of one microstep's forward + backward: wall {wall:.1f} ms, "
+          f"{len(kernels)} kernels from first start to last end {span:.2f} ms, device busy "
+          f"{busy:.2f} ms (union of kernel intervals; their durations sum to {summed:.2f}), "
+          f"idle {1 - busy / wall:.3f}: {parts or 'no device event'}")
+
+
+def phase_train(fails: Failures, seed: int, arch: str, *, seq: int, global_batch: int,
+                accum: int, steps: int) -> dict:
+    """``run_training(..., smoke=False, device=DEVICE)`` at full width and
+    depth; every launch of the step counted and checked."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.config import layer_pattern
+
+    cfg = configs.get(arch)
+    if cfg.family == "hybrid":
+        pat = layer_pattern(cfg)
+        n_attn, n_rec = pat.count("a"), pat.count("r")
+    else:
+        n_attn, n_rec = cfg.n_layers, 0
+    micro = steps * accum
+    release()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run_training(arch, steps, smoke=False, device=DEVICE, seq_len=seq,
+                       global_batch=global_batch, accum_steps=accum, lr=TRAIN_LR, seed=seed,
+                       log_every=1)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else 0.0
+    losses, gnorms = out["losses"], out["grad_norms"]
+    fails.check(len(losses) == steps and all(math.isfinite(x) for x in losses + gnorms),
+                f"{arch}: {steps} steps, every loss and grad norm finite (losses "
+                f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in gnorms]})")
+    fails.check(losses[-1] < losses[0], f"{arch}: the last loss {losses[-1]:.4f} below the "
+                f"first {losses[0]:.4f}")
+    fails.check(out["params_without_grad"] == 0,
+                f"{arch}: every parameter of {out['n_params'] / 1e9:.3f} B received a gradient "
+                f"at every step ({out['params_without_grad']} without)")
+    fails.check(counts["flash_attention"] == 2 * n_attn * micro
+                and counts["flash_attention_backward"] == n_attn * micro
+                and counts["flash_tensor_core"] == counts["flash_attention"]
+                and counts["flash_backward_tensor_core"] == counts["flash_attention_backward"],
+                f"{arch}: flash forward launches {counts['flash_attention']} == 2 x {n_attn} "
+                f"attention layers x {micro} microsteps (forward and remat recompute), backward "
+                f"{counts['flash_attention_backward']} == {n_attn} x {micro}, all on the tensor "
+                f"cores")
+    fails.check(counts["rglru_scan"] == 2 * n_rec * micro
+                and counts["rglru_scan_backward"] == n_rec * micro,
+                f"{arch}: rglru forward launches {counts['rglru_scan']} == 2 x {n_rec} RG-LRU "
+                f"layers x {micro}, backward {counts['rglru_scan_backward']} == {n_rec} x {micro}")
+    fails.check(counts["paged_attention"] == counts["ssd_scan"] == counts["moe_experts"]
+                == counts["moe_route"] == counts["moe_combine"] == 0,
+                f"{arch}: no paged, SSD or MoE launch in training")
+    step_s = out["step_s"][1:] or out["step_s"]
+    step_ms = 1e3 * sorted(step_s)[len(step_s) // 2]
+    tokens = global_batch * seq
+    flops = train_flops(cfg, out["n_params"], tokens, seq)
+    mfu = flops / (step_ms * 1e-3) / BF16_FLOPS_PER_S
+    opt_ms = microstep_and_optimizer(fails, cfg, seed, seq, global_batch // accum)
+    print(f"  {arch} training: {steps} steps of {global_batch} x {seq} tokens in {accum} "
+          f"microbatches, first step {out['step_s'][0] * 1e3:.1f} ms, median step after it "
+          f"{step_ms:.1f} ms, {tokens / (step_ms * 1e-3):.0f} tokens/s, MFU {mfu:.4f} "
+          f"({flops / 1e12:.1f} TFLOP a step against {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s "
+          f"bf16 dense), peak memory {peak:.2f} GiB, optimiser update {opt_ms:.1f} ms; "
+          f"run_training wall {wall:.1f} s; launches {counts}")
+    return {"counts": counts, "micro": micro, "step_ms": step_ms, "mfu": mfu,
+            "peak_gib": peak, "opt_ms": opt_ms, "losses": losses}
+
+
+def phase_train_agreement(fails: Failures, seed: int) -> None:
+    """33a: one train step of minicpm-2b at full width and 2 layers through
+    the kernel Function and through the plain attention (the plain forward
+    and backward of ``ref.py``), same weights and batch."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.kernels.flash_attention import (flash_attention_backward_plain,
+                                                     flash_attention_plain, ops)
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train.step import TrainStepConfig, make_loss_fn
+
+    cfg = dataclasses.replace(configs.get(ARCH), n_layers=T33_LAYERS)
+    model = build_model(cfg, device=DEVICE, seed=seed, train=True)
+    batch = SyntheticPipeline(cfg, ShapeSpec("t", T31_SEQ, T33_BATCH, "train"),
+                              DataConfig(seed=seed), device=DEVICE).host_batch(0)
+    loss_fn = make_loss_fn(model, TrainStepConfig())
+    def plain_backward(q, k, v, o, lse, do, *, causal, window):
+        assert causal
+        return flash_attention_backward_plain(q, k, v, o, lse, do, window=window)
+
+    kernels = ops.flash_attention_kernel, ops.flash_attention_backward_kernel
+    runs = []
+    for fwd, bwd in (kernels, (flash_attention_plain, plain_backward)):
+        # the Function's two module-level calls, the kernels or their plain versions
+        ops.flash_attention_kernel, ops.flash_attention_backward_kernel = fwd, bwd
+        try:
+            loss, _ = loss_fn(batch)
+            loss.backward()
+        finally:
+            ops.flash_attention_kernel, ops.flash_attention_backward_kernel = kernels
+        runs.append((loss.item(), {k: p.grad for k, p in model.named_parameters()}))
+        for p in model.parameters():
+            p.grad = None
+    (l_k, g_k), (l_p, g_p) = runs
+    rel = {k: ((g_k[k] - g_p[k]).abs().max() / g_p[k].abs().max().clamp_min(1e-30)).item()
+           for k in g_p}
+    worst_leaf = max(rel, key=rel.get)
+    worst = rel[worst_leaf]
+    fails.check(abs(l_k - l_p) <= T33_LOSS_REL * abs(l_p) and worst <= T33_GRAD_REL,
+                f"33a {ARCH} ({T33_LAYERS} layers, full width, {T33_BATCH} x {T31_SEQ}): kernel "
+                f"loss {l_k:.6f} vs plain attention {l_p:.6f} (rel {abs(l_k - l_p) / l_p:.2e} <= "
+                f"{T33_LOSS_REL}); worst leaf's gradient difference {worst:.3g} of its largest "
+                f"|value| <= {T33_GRAD_REL} ({worst_leaf})")
+    del model, runs, g_k, g_p
+    release()
+
+
+
+def phase_train_resume(fails: Failures, seed: int) -> None:
+    """33b: crash at step 7 and resume through the FaaSKeeper manifest."""
+    import shutil
+
+    from repro_torch.launch.train import run_training
+
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(smoke=False, device=DEVICE, seq_len=T31_SEQ, global_batch=T33_BATCH,
+              lr=TRAIN_LR, seed=seed, n_layers=T33_LAYERS, log_every=100)
+    t0 = time.perf_counter()
+    full = run_training(ARCH, T33_STEPS, **kw)
+    release()
+    t1 = time.perf_counter()
+    out1 = run_training(ARCH, T33_STEPS, ckpt_dir=str(ckpt), ckpt_every=T33_EVERY,
+                        simulate_failure=T33_CRASH, **kw)
+    release()
+    t2 = time.perf_counter()
+    try:
+        out2 = run_training(ARCH, T33_STEPS, ckpt_dir=str(ckpt), resume=True, **kw)
+        restored = True
+    except IOError as e:
+        out2, restored = {"start_step": None, "losses": []}, False
+        print(f"  restore refused: {e}")
+    t3 = time.perf_counter()
+    release()
+    resume_at = (T33_CRASH // T33_EVERY) * T33_EVERY
+    fails.check(out1.get("crashed_at") == T33_CRASH and out2["start_step"] == resume_at,
+                f"33b crashed at step {out1.get('crashed_at')}, resumed at step "
+                f"{out2['start_step']} == {resume_at} through the FaaSKeeper manifest")
+    fails.check(restored, "33b every restored leaf is bitwise what was saved (sha256 of the "
+                "saved bytes, of the file read back and of the copy on the card)")
+    want = full["losses"][resume_at:]
+    got = out2["losses"]
+    rel = max((abs(a - b) / abs(b) for a, b in zip(got, want, strict=True)), default=1.0)
+    fails.check(len(got) == len(want) and rel <= T33_LOSS_REL,
+                f"33b resumed losses {[round(x, 5) for x in got]} within {T33_LOSS_REL} "
+                f"relative of the uninterrupted run's {[round(x, 5) for x in want]} (worst "
+                f"{rel:.2e})")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    fails.check(not ckpt.exists(), f"33b checkpoint directory {ckpt.name} removed")
+    print(f"  33b walls: uninterrupted {t1 - t0:.1f} s, crashed run {t2 - t1:.1f} s (2 saves "
+          f"of ~4.9 GB), resumed {t3 - t2:.1f} s")
+
+
+def phase_train_refusal(fails: Failures, seed: int) -> None:
+    """33c: the card refuses to train a family whose forward reaches a
+    kernel with no backward, before any step."""
+    import torch
+
+    from repro_torch.launch.train import run_training
+
+    for arch in (SSM, MOE):
+        reset_launch_counts()
+        before = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+        try:
+            run_training(arch, 2, smoke=False, device="cuda", seq_len=64, global_batch=1)
+            fails.check(False, f"33c run_training refuses {arch} on the card")
+        except NotImplementedError as e:
+            counts = launch_counts()
+            after = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+            fails.check(not any(counts.values()) and after == before,
+                        f"33c run_training refuses {arch} on the card before any step: {e}")
 
 
 def main() -> int:
@@ -5065,6 +5781,55 @@ def main() -> int:
                n_requests=M26_REQUESTS, sessions=M26_REQUESTS, prompt=PROMPT, max_new=MAX_NEW,
                slots=M26_SLOTS)
     print(f"  phase 26c wall {time.perf_counter() - t26:.1f} s")
+    del mmodel
+    release()
+
+    t29 = time.perf_counter()
+    print("[29] flash backward and the RG-LRU backward vs their plain versions")
+    phase_flash_backward_cases(fails, args.seed)
+    phase_rglru_backward_cases(fails, args.seed)
+    print("[30] the backward kernels at the training shapes (CUDA events)")
+    train_shapes = (
+        (ARCH, (T31_BATCH // T31_ACCUM, T31_SEQ, cfg.n_heads, cfg.n_kv_heads,
+                cfg.the_head_dim()), None),
+        (HYBRID, (T32_BATCH // T32_ACCUM, T32_SEQ, hcfg.n_heads, hcfg.n_kv_heads,
+                  hcfg.the_head_dim()), hcfg.hybrid.local_window),
+        (DENSE_RING, (1, Q_PROMPT, qcfg.n_heads, qcfg.n_kv_heads, qcfg.the_head_dim()), None))
+    train_records = {label: phase_flash_backward_timing(fails, args.seed, label, shape, window)
+                     for label, shape, window in train_shapes}
+    rglru_bwd = phase_rglru_backward_timing(fails, args.seed,
+                                            (T32_BATCH // T32_ACCUM, T32_SEQ, W))
+    print(f"  phases 29-30 wall {time.perf_counter() - t29:.1f} s")
+    print(f"[31] full-depth, full-width {ARCH} training: {cfg.n_layers} layers, "
+          f"{T31_STEPS} steps of {T31_BATCH} x {T31_SEQ} tokens in {T31_ACCUM} microbatches "
+          f"(train_4k's global batch 256 cut to {T31_BATCH}), WSD at lr {TRAIN_LR}")
+    t31 = time.perf_counter()
+    r31 = phase_train(fails, args.seed, ARCH, seq=T31_SEQ, global_batch=T31_BATCH,
+                      accum=T31_ACCUM, steps=T31_STEPS)
+    print(f"  phase 31 wall {time.perf_counter() - t31:.1f} s")
+    print(f"[32] full-width {HYBRID} training: {hcfg.n_layers} layers ({n_rec} RG-LRU, "
+          f"{n_attn} local attention), {T32_STEPS} steps of {T32_BATCH} x {T32_SEQ} tokens in "
+          f"{T32_ACCUM} microbatches, cosine at lr {TRAIN_LR}")
+    t32 = time.perf_counter()
+    r32 = phase_train(fails, args.seed, HYBRID, seq=T32_SEQ, global_batch=T32_BATCH,
+                      accum=T32_ACCUM, steps=T32_STEPS)
+    print(f"  phase 32 wall {time.perf_counter() - t32:.1f} s")
+    for label, r in ((ARCH, r31), (HYBRID, r32)):
+        bwd, lse = train_records[label]
+        bwd["launches"] = r["counts"]["flash_attention_backward"]
+        lse["launches"] = r["counts"]["flash_attention"]
+    rglru_bwd["launches"] = r32["counts"]["rglru_scan_backward"]
+    print(f"[33] {ARCH} at full width and {T33_LAYERS} layers: kernel vs plain attention, "
+          f"crash and resume; the card refuses {SSM} and {MOE}")
+    t33 = time.perf_counter()
+    phase_train_agreement(fails, args.seed)
+    phase_train_resume(fails, args.seed)
+    phase_train_refusal(fails, args.seed)
+    print(f"  phase 33 wall {time.perf_counter() - t33:.1f} s; phases 29-33 "
+          f"{time.perf_counter() - t29:.1f} s")
+    for recs in train_records.values():
+        records.extend(recs)
+    records.append(rglru_bwd)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if fails:

@@ -2,9 +2,10 @@
 
 40L d_model=2304 36H (kv=36, i.e. MHA) d_ff=5760 vocab=122753.
 Llama-like block; the MiniCPM specifics are the WSD learning-rate schedule
-(implemented in the JAX package's train/optim.py; training is not ported here yet) and the
-depth/width scaling factors: scale_emb=12, scale_depth=1.4 (residual scale
-1.4/sqrt(40)), logit scale = 1/(2304/256).
+(``train/optim.py::wsd_schedule``, which ``launch/train.py`` selects for this
+arch with the preset below) and the depth/width scaling factors:
+scale_emb=12, scale_depth=1.4 (residual scale 1.4/sqrt(40)), logit scale =
+1/(2304/256).
 """
 
 import math
@@ -30,5 +31,6 @@ CONFIG = ArchConfig(
     shapes=("train_4k", "prefill_32k", "decode_32k"),
 )
 
-# WSD (warmup-stable-decay) schedule preset, kept for the training port
+# WSD (warmup-stable-decay) schedule preset: warmup as a fraction of the run,
+# the share of the rest at peak, the floor; ``launch/train.py::optim_config``
 WSD = {"warmup_steps": 0.01, "stable_frac": 0.9, "min_ratio": 0.1}

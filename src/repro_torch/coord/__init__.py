@@ -1,9 +1,13 @@
-"""Control-plane <-> data-plane coupling: the serving frontend, and worker
-membership through ephemeral znodes on the port's FaaSKeeper service."""
+"""Control-plane <-> data-plane coupling on the port's FaaSKeeper service:
+the serving frontend, worker membership through ephemeral znodes,
+transactional checkpoint manifests and straggler detection."""
 
+from .ckpt_coord import CoordinatedManifest
 from .membership import (CONFIG_NODE, MEMBERS_DIR, MembershipService, WorkerHandle,
                          elastic_remesh_loop)
 from .serving_front import InferenceRequest, ServingFrontend
+from .stragglers import StragglerDetector, StragglerReport
 
-__all__ = ["CONFIG_NODE", "InferenceRequest", "MEMBERS_DIR", "MembershipService",
-           "ServingFrontend", "WorkerHandle", "elastic_remesh_loop"]
+__all__ = ["CONFIG_NODE", "CoordinatedManifest", "InferenceRequest", "MEMBERS_DIR",
+           "MembershipService", "ServingFrontend", "StragglerDetector", "StragglerReport",
+           "WorkerHandle", "elastic_remesh_loop"]

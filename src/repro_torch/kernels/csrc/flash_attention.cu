@@ -82,6 +82,8 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxD = 256;
 
 // ---------------------------------------------------------------------------
@@ -129,8 +131,8 @@ __device__ __forceinline__ void stage(float* tile, const T* x, int64_t stride, i
 template <typename T, int DPT>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ o, int S, int T_, int H, int Hkv, int D, int t_real,
-                  int causal, int window, float scale) {
+                  T* __restrict__ o, float* __restrict__ lse, int S, int T_, int H, int Hkv,
+                  int D, int t_real, int causal, int window, float scale) {
     extern __shared__ float smem[];
     const Layout lay(D);
     float* qs = smem + lay.q;
@@ -274,6 +276,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
         const int r = q0 + ty + kGrid * i;
         if (r >= q1) continue;
         const float inv = 1.f / fmaxf(l[i], 1e-30f);
+        if (lse != nullptr && tx == 0)
+            lse[((int64_t)b * H + h) * S + r] = m[i] + logf(fmaxf(l[i], 1e-30f));
         T* orow = o + (((int64_t)b * S + r) * H + h) * D;
 #pragma unroll
         for (int c = 0; c < DPT; ++c) {
@@ -285,8 +289,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 
 
 template <typename T, int DPT>
-cudaError_t launch_dpt(const void* q, const void* k, const void* v, void* o, int B, int S,
-                       int T_, int H, int Hkv, int D, int t_real, int causal, int window,
+cudaError_t launch_dpt(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       int S, int T_, int H, int Hkv, int D, int t_real, int causal, int window,
                        cudaStream_t stream) {
     const int smem = Layout(D).total * (int)sizeof(float);
     if (smem > 48 * 1024) {     // above 48 KB only after opting in
@@ -297,24 +301,347 @@ cudaError_t launch_dpt(const void* q, const void* k, const void* v, void* o, int
     const dim3 grid((S + kBQ - 1) / kBQ, H, B);
     flash_attn_kernel<T, DPT><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), S, T_, H, Hkv, D, t_real, causal, window,
+        static_cast<T*>(o), lse, S, T_, H, Hkv, D, t_real, causal, window,
         (float)(1.0 / sqrt((double)D)));
     return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-                   int T_, int H, int Hkv, int D, int t_real, int causal, int window,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int S, int T_, int H, int Hkv, int D, int t_real, int causal, int window,
                    cudaStream_t stream) {
-    if (D <= 16)
-        return launch_dpt<T, 1>(q, k, v, o, B, S, T_, H, Hkv, D, t_real, causal, window, stream);
-    if (D <= 32)
-        return launch_dpt<T, 2>(q, k, v, o, B, S, T_, H, Hkv, D, t_real, causal, window, stream);
-    if (D <= 64)
-        return launch_dpt<T, 4>(q, k, v, o, B, S, T_, H, Hkv, D, t_real, causal, window, stream);
-    if (D <= 128)
-        return launch_dpt<T, 8>(q, k, v, o, B, S, T_, H, Hkv, D, t_real, causal, window, stream);
-    return launch_dpt<T, 16>(q, k, v, o, B, S, T_, H, Hkv, D, t_real, causal, window, stream);
+#define FA_CC(DPT) \
+    launch_dpt<T, DPT>(q, k, v, o, lse, B, S, T_, H, Hkv, D, t_real, causal, window, stream)
+    if (D <= 16) return FA_CC(1);
+    if (D <= 32) return FA_CC(2);
+    if (D <= 64) return FA_CC(4);
+    if (D <= 128) return FA_CC(8);
+    return FA_CC(16);
+#undef FA_CC
+}
+
+// -- backward pre-pass: delta[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d] in fp32,
+// one warp per (b, i, h) row of the model's layout
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int S, int H, int D, int64_t rows) {
+    const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= rows) return;
+    const T* orow = o + row * D;
+    const T* drow = dout + row * D;
+    float acc = 0.f;
+    for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(drow[d]), to_f32(orow[d]), acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+        const int64_t sh = (int64_t)S * H;
+        const int64_t b = row / sh, rem = row - b * sh;
+        const int i = (int)(rem / H), h = (int)(rem - (int64_t)i * H);
+        delta[(b * H + h) * S + i] = acc;
+    }
+}
+
+template <typename T>
+cudaError_t launch_delta(const void* o, const void* dout, float* delta, int B, int S, int H,
+                         int D, cudaStream_t stream) {
+    const int64_t rows = (int64_t)B * S * H;
+    const int per = kThreads / 32;
+    flash_bwd_delta_kernel<T><<<(unsigned)((rows + per - 1) / per), kThreads, 0, stream>>>(
+        static_cast<const T*>(o), static_cast<const T*>(dout), delta, S, H, D, rows);
+    return cudaGetLastError();
+}
+
+// -- backward (aligned self-attention: S == T == t_real, causal, optional window)
+//
+// dK/dV: one block per (32-row kv tile, kv head, batch row), looping over the
+// 32-row q tiles that can see its keys and, inside each, over the G query
+// heads of its group, so GQA's sum over the group is taken in the block.
+// dQ: one block per (32-row q tile, head, batch row), looping over kv tiles.
+// Scores, P = exp(s scale - lse) and dS = P (dP - delta) are fp32; a 16 x 16
+// thread grid owns 2 x 2 of each 32 x 32 tile and 2 rows x ceil(D/16)
+// columns of each accumulator.
+
+constexpr int kBR = 32;                    // q and kv rows per backward tile
+
+struct BwdLayout {
+    int ld;                                 // D + 1
+    int k, v, q, dout, p, ds, total;        // offsets and size in floats
+    __host__ __device__ explicit BwdLayout(int D) {
+        ld = D + 1;
+        k = 0;
+        v = k + kBR * ld;
+        q = v + kBR * ld;
+        dout = q + kBR * ld;
+        p = dout + kBR * ld;
+        ds = p + kBR * (kBR + 1);
+        total = ds + kBR * (kBR + 1);
+    }
+};
+
+__device__ __forceinline__ bool attends(int i, int j, int S, int window) {
+    return i < S && j <= i && (window <= 0 || j > i - window);
+}
+
+template <typename T, int DPT>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      T* __restrict__ dk, T* __restrict__ dv, int S, int H, int Hkv, int D,
+                      int window, float scale) {
+    extern __shared__ float smem[];
+    const BwdLayout lay(D);
+    const int ld = lay.ld;
+    float *ks = smem + lay.k, *vs = smem + lay.v, *qs = smem + lay.q, *dos = smem + lay.dout;
+    float *ps = smem + lay.p, *dss = smem + lay.ds;
+    const int tid = threadIdx.x, tx = tid % kGrid, ty = tid / kGrid;
+    const int k0 = blockIdx.x * kBR, hk = blockIdx.y, b = blockIdx.z;
+    const int G = H / Hkv;
+    const int64_t qstride = (int64_t)H * D, kstride = (int64_t)Hkv * D;
+    const T* kb = k + ((int64_t)b * S * Hkv + hk) * D;
+    const T* vb = v + ((int64_t)b * S * Hkv + hk) * D;
+    stage(ks, kb, kstride, k0, kBR, S, D, ld, 1.f);
+    stage(vs, vb, kstride, k0, kBR, S, D, ld, 1.f);
+
+    float dka[2][DPT], dva[2][DPT];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int c = 0; c < DPT; ++c) dka[a][c] = dva[a][c] = 0.f;
+
+    // q rows that attend a key of [k0, k0 + kBR): i >= k0, and i < j + window
+    const int hi = window > 0 ? min(S, k0 + kBR - 1 + window) : S;
+    for (int q0 = (k0 / kBR) * kBR; q0 < hi; q0 += kBR) {
+        for (int g = 0; g < G; ++g) {
+            const int h = hk * G + g;
+            const T* qb = q + ((int64_t)b * S * H + h) * D;
+            const T* db = dout + ((int64_t)b * S * H + h) * D;
+            const float* lrow = lse + ((int64_t)b * H + h) * S;
+            const float* drow = delta + ((int64_t)b * H + h) * S;
+            __syncthreads();                    // the last tile's products are done
+            stage(qs, qb, qstride, q0, kBR, S, D, ld, 1.f);
+            stage(dos, db, qstride, q0, kBR, S, D, ld, 1.f);
+            __syncthreads();
+            // kv row j = k0 + ty + 16 a, q row i = q0 + tx + 16 c
+            float s[2][2], dp[2][2];
+#pragma unroll
+            for (int a = 0; a < 2; ++a)
+#pragma unroll
+                for (int c = 0; c < 2; ++c) s[a][c] = dp[a][c] = 0.f;
+            for (int d = 0; d < D; ++d) {
+                float kk[2], vv[2], qq[2], oo[2];
+#pragma unroll
+                for (int a = 0; a < 2; ++a) {
+                    kk[a] = ks[(ty + kGrid * a) * ld + d];
+                    vv[a] = vs[(ty + kGrid * a) * ld + d];
+                }
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    qq[c] = qs[(tx + kGrid * c) * ld + d];
+                    oo[c] = dos[(tx + kGrid * c) * ld + d];
+                }
+#pragma unroll
+                for (int a = 0; a < 2; ++a)
+#pragma unroll
+                    for (int c = 0; c < 2; ++c) {
+                        s[a][c] = fmaf(kk[a], qq[c], s[a][c]);
+                        dp[a][c] = fmaf(vv[a], oo[c], dp[a][c]);
+                    }
+            }
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+                const int i = q0 + tx + kGrid * c;
+                const float li = i < S ? lrow[i] : 0.f, di = i < S ? drow[i] : 0.f;
+#pragma unroll
+                for (int a = 0; a < 2; ++a) {
+                    const int j = k0 + ty + kGrid * a;
+                    const float p = attends(i, j, S, window) ? expf(s[a][c] * scale - li) : 0.f;
+                    ps[(ty + kGrid * a) * (kBR + 1) + tx + kGrid * c] = p;
+                    dss[(ty + kGrid * a) * (kBR + 1) + tx + kGrid * c] = p * (dp[a][c] - di);
+                }
+            }
+            __syncthreads();
+            for (int i = 0; i < kBR; ++i) {
+                float pj[2], dj[2];
+#pragma unroll
+                for (int a = 0; a < 2; ++a) {
+                    pj[a] = ps[(ty + kGrid * a) * (kBR + 1) + i];
+                    dj[a] = dss[(ty + kGrid * a) * (kBR + 1) + i];
+                }
+#pragma unroll
+                for (int c = 0; c < DPT; ++c) {
+                    const int col = tx + kGrid * c;
+                    const float ov = col < D ? dos[i * ld + col] : 0.f;
+                    const float qv = col < D ? qs[i * ld + col] : 0.f;
+#pragma unroll
+                    for (int a = 0; a < 2; ++a) {
+                        dva[a][c] = fmaf(pj[a], ov, dva[a][c]);
+                        dka[a][c] = fmaf(dj[a], qv, dka[a][c]);
+                    }
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+        const int j = k0 + ty + kGrid * a;
+        if (j >= S) continue;
+        const int64_t off = (((int64_t)b * S + j) * Hkv + hk) * D;
+#pragma unroll
+        for (int c = 0; c < DPT; ++c) {
+            const int col = tx + kGrid * c;
+            if (col < D) {
+                store(dk + off + col, dka[a][c] * scale);
+                store(dv + off + col, dva[a][c]);
+            }
+        }
+    }
+}
+
+template <typename T, int DPT>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq, int S, int H, int Hkv,
+                    int D, int window, float scale) {
+    extern __shared__ float smem[];
+    const BwdLayout lay(D);
+    const int ld = lay.ld;
+    float *ks = smem + lay.k, *vs = smem + lay.v, *qs = smem + lay.q, *dos = smem + lay.dout;
+    float* dss = smem + lay.ds;
+    const int tid = threadIdx.x, tx = tid % kGrid, ty = tid / kGrid;
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * kBR;      // longest rows first
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int hk = h / (H / Hkv);
+    const int64_t qstride = (int64_t)H * D, kstride = (int64_t)Hkv * D;
+    const T* kb = k + ((int64_t)b * S * Hkv + hk) * D;
+    const T* vb = v + ((int64_t)b * S * Hkv + hk) * D;
+    stage(qs, q + ((int64_t)b * S * H + h) * D, qstride, q0, kBR, S, D, ld, 1.f);
+    stage(dos, dout + ((int64_t)b * S * H + h) * D, qstride, q0, kBR, S, D, ld, 1.f);
+    float li[2], di[2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+        const int i = q0 + ty + kGrid * a;
+        li[a] = i < S ? lse[((int64_t)b * H + h) * S + i] : 0.f;
+        di[a] = i < S ? delta[((int64_t)b * H + h) * S + i] : 0.f;
+    }
+    float dqa[2][DPT];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int c = 0; c < DPT; ++c) dqa[a][c] = 0.f;
+
+    const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int hi = min(S, q0 + kBR);
+    for (int k0 = (lo / kBR) * kBR; k0 < hi; k0 += kBR) {
+        __syncthreads();
+        stage(ks, kb, kstride, k0, kBR, S, D, ld, 1.f);
+        stage(vs, vb, kstride, k0, kBR, S, D, ld, 1.f);
+        __syncthreads();
+        // q row i = q0 + ty + 16 a, kv row j = k0 + tx + 16 c
+        float s[2][2], dp[2][2];
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) s[a][c] = dp[a][c] = 0.f;
+        for (int d = 0; d < D; ++d) {
+            float qq[2], oo[2], kk[2], vv[2];
+#pragma unroll
+            for (int a = 0; a < 2; ++a) {
+                qq[a] = qs[(ty + kGrid * a) * ld + d];
+                oo[a] = dos[(ty + kGrid * a) * ld + d];
+            }
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+                kk[c] = ks[(tx + kGrid * c) * ld + d];
+                vv[c] = vs[(tx + kGrid * c) * ld + d];
+            }
+#pragma unroll
+            for (int a = 0; a < 2; ++a)
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    s[a][c] = fmaf(qq[a], kk[c], s[a][c]);
+                    dp[a][c] = fmaf(oo[a], vv[c], dp[a][c]);
+                }
+        }
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+            const int i = q0 + ty + kGrid * a;
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+                const int j = k0 + tx + kGrid * c;
+                const float p = attends(i, j, S, window) ? expf(s[a][c] * scale - li[a]) : 0.f;
+                dss[(ty + kGrid * a) * (kBR + 1) + tx + kGrid * c] = p * (dp[a][c] - di[a]);
+            }
+        }
+        __syncthreads();
+        for (int j = 0; j < kBR; ++j) {
+            float dj[2];
+#pragma unroll
+            for (int a = 0; a < 2; ++a) dj[a] = dss[(ty + kGrid * a) * (kBR + 1) + j];
+#pragma unroll
+            for (int c = 0; c < DPT; ++c) {
+                const int col = tx + kGrid * c;
+                const float kv_ = col < D ? ks[j * ld + col] : 0.f;
+#pragma unroll
+                for (int a = 0; a < 2; ++a) dqa[a][c] = fmaf(dj[a], kv_, dqa[a][c]);
+            }
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+        const int i = q0 + ty + kGrid * a;
+        if (i >= S) continue;
+        T* row = dq + (((int64_t)b * S + i) * H + h) * D;
+#pragma unroll
+        for (int c = 0; c < DPT; ++c) {
+            const int col = tx + kGrid * c;
+            if (col < D) store(row + col, dqa[a][c] * scale);
+        }
+    }
+}
+
+template <typename T, int DPT>
+cudaError_t launch_bwd_dpt(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                           int B, int S, int H, int Hkv, int D, int window, cudaStream_t stream) {
+    const int smem = BwdLayout(D).total * (int)sizeof(float);
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DPT>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return e;
+        e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DPT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return e;
+    }
+    const float scale = (float)(1.0 / sqrt((double)D));
+    const int tiles = (S + kBR - 1) / kBR;
+    const T *q_ = static_cast<const T*>(q), *k_ = static_cast<const T*>(k);
+    const T *v_ = static_cast<const T*>(v), *do_ = static_cast<const T*>(dout);
+    flash_bwd_dkdv_kernel<T, DPT><<<dim3(tiles, Hkv, B), kThreads, smem, stream>>>(
+        q_, k_, v_, do_, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H, Hkv, D,
+        window, scale);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    flash_bwd_dq_kernel<T, DPT><<<dim3(tiles, H, B), kThreads, smem, stream>>>(
+        q_, k_, v_, do_, lse, delta, static_cast<T*>(dq), S, H, Hkv, D, window, scale);
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
+                       int S, int H, int Hkv, int D, int window, cudaStream_t stream) {
+#define FA_CC_BWD(DPT) \
+    launch_bwd_dpt<T, DPT>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, Hkv, D, window, stream)
+    if (D <= 16) return FA_CC_BWD(1);
+    if (D <= 32) return FA_CC_BWD(2);
+    if (D <= 64) return FA_CC_BWD(4);
+    if (D <= 128) return FA_CC_BWD(8);
+    return FA_CC_BWD(16);
+#undef FA_CC_BWD
 }
 
 }  // namespace cc
@@ -433,8 +760,8 @@ template <int DT, int DC>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attn_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                      int S, int T_, int H, int Hkv, int D_run, int t_real, int causal,
-                      int window, float scale_log2) {
+                      float* __restrict__ lse, int S, int T_, int H, int Hkv, int D_run,
+                      int t_real, int causal, int window, float scale_log2) {
     const int D = DC > 0 ? DC : D_run;
     constexpr int BK = Tile<DT>::BK;
     constexpr int MR = Tile<DT>::MR;           // 16-row m-tiles per warp
@@ -677,6 +1004,9 @@ flash_attn_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
             const int row = w0 + 16 * r + gr + 8 * i;
             if (row >= q1) continue;
             const float inv = 1.f / fmaxf(l[r][i], 1e-30f);
+            if (lse != nullptr && tq == 0)
+                lse[((int64_t)b * H + h) * S + row] =
+                    (m[r][i] * scale_log2 + log2f(fmaxf(l[r][i], 1e-30f))) * kLn2;
             __nv_bfloat16* orow = o + (((int64_t)b * S + row) * H + h) * D;
 #pragma unroll
             for (int j = 0; j < DB; ++j) {
@@ -690,8 +1020,8 @@ flash_attn_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 }
 
 template <int DT, int DC>
-cudaError_t launch_dt(const void* q, const void* k, const void* v, void* o, int B, int S,
-                      int T_, int H, int Hkv, int D, int t_real, int causal, int window,
+cudaError_t launch_dt(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                      int S, int T_, int H, int Hkv, int D, int t_real, int causal, int window,
                       cudaStream_t stream) {
     const int smem = smem_bytes<DT>(D);
     if (smem > 48 * 1024) {
@@ -703,19 +1033,19 @@ cudaError_t launch_dt(const void* q, const void* k, const void* v, void* o, int 
     const double log2e = 1.4426950408889634;
     flash_attn_kernel_mma<DT, DC><<<grid, kThreads, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, T_, H, Hkv, D,
-        t_real, causal, window, (float)(log2e / sqrt((double)D)));
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, T_, H, Hkv,
+        D, t_real, causal, window, (float)(log2e / sqrt((double)D)));
     return cudaGetLastError();
 }
 
 // the served head dims (64, 128, 256) and the powers of two below them are
 // compiled for their exact D; other multiples of 16 take their tier's
 // kernel with D at run time
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_,
-                   int H, int Hkv, int D, int t_real, int causal, int window,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                   int T_, int H, int Hkv, int D, int t_real, int causal, int window,
                    cudaStream_t stream) {
 #define FA_TC(DT, DC) \
-    launch_dt<DT, DC>(q, k, v, o, B, S, T_, H, Hkv, D, t_real, causal, window, stream)
+    launch_dt<DT, DC>(q, k, v, o, lse, B, S, T_, H, Hkv, D, t_real, causal, window, stream)
     switch (D) {
         case 16: return FA_TC(32, 16);
         case 32: return FA_TC(32, 32);
@@ -730,6 +1060,405 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 #undef FA_TC
 }
 
+// -- backward (aligned self-attention: S == T == t_real, causal, optional window)
+//
+// FlashAttention-2's backward on mma.sync.m16n8k16, bf16 operands and fp32
+// accumulation, the probabilities recomputed from the forward's row lse:
+//
+// * dK/dV: one block of 4 warps per (64-row kv tile, kv head, column split,
+//   batch row); a warp owns 16 kv rows.  The block walks the (q tile, query
+//   head of the group) pairs that can see its keys, q and dO tiles in two
+//   cp.async stages beside that tile's lse and delta.  Per pair a warp forms
+//   S^T = K Q^T and dP^T = V dO^T (ldmatrix of K and V rows as A, q and dO rows
+//   as B), P^T = exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T (dP^T -
+//   delta), re-packs both as bf16 A-fragments (P rounded to bf16 as the
+//   forward rounds it for P.V) and accumulates dV += P^T dO and dK += dS^T Q
+//   (ldmatrix.trans of dO and q) in fp32 registers.  GQA's sum over the group
+//   stays in the block, so nothing is added atomically.  A warp's dK and dV
+//   of 16 rows take D fp32 registers a thread: at D > 128 a block keeps 128
+//   columns of them and the grid splits D, each split recomputing S^T and dP^T.
+// * dQ: one block of 4 warps per (64-row q tile, head, batch row), a warp
+//   owning 16 q rows; K and V tiles (64 rows, 32 at D > 128) in two stages.
+//   Per tile S = Q K^T, dP = dO V^T, dS = P (dP - delta), dQ += dS K.
+//
+// Launches are deterministic: every output element is written by one thread
+// after a fixed-order sum.
+
+template <int DT>
+struct BwdTile {
+    static constexpr int BK = 16 * kWarps;            // kv rows of a dK/dV block
+    static constexpr int BQ = DT > 64 ? 32 : 64;      // q rows per step of its loop
+    static constexpr int DA = DT > 128 ? 128 : DT;    // dK/dV columns a block accumulates
+    static constexpr int QB = 16 * kWarps;            // q rows of a dQ block
+    static constexpr int KB = DT > 128 ? 32 : 64;     // kv rows per step of its loop
+};
+
+template <int DT>
+__host__ __device__ constexpr int dkdv_smem_bytes(int D) {
+    return (2 * BwdTile<DT>::BK + 4 * BwdTile<DT>::BQ) * row_elems(D) * 2 +
+           4 * BwdTile<DT>::BQ * (int)sizeof(float);
+}
+
+template <int DT>
+__host__ __device__ constexpr int dq_smem_bytes(int D) {
+    return (2 * BwdTile<DT>::QB + 4 * BwdTile<DT>::KB) * row_elems(D) * 2;
+}
+
+__device__ __forceinline__ bool attends(int i, int j, int S, int window) {
+    return i < S && j <= i && (window <= 0 || j > i - window);
+}
+
+template <int DT, int DC>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H,
+                   int Hkv, int D_run, int window, float scale_log2, float scale) {
+    const int D = DC > 0 ? DC : D_run;
+    constexpr int BK = BwdTile<DT>::BK, BQ = BwdTile<DT>::BQ, DA = BwdTile<DT>::DA;
+    constexpr int NQ = BQ / 8;                 // 8-column score blocks per q tile
+    constexpr int NA = DA / 8;                 // 8-column accumulator blocks
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int ld = row_elems(D);
+    __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+    __nv_bfloat16* sv = sk + BK * ld;
+    __nv_bfloat16* sq = sv + BK * ld;          // two stages of BQ rows
+    __nv_bfloat16* sdo = sq + 2 * BQ * ld;     // two stages of BQ rows
+    float* sl = reinterpret_cast<float*>(sdo + 2 * BQ * ld);   // two stages of lse log2 e
+    float* sd = sl + 2 * BQ;                                   // two stages of delta
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int gr = lane >> 2, tq = lane & 3;
+    const int nsplit = (D + DA - 1) / DA;
+    const int k0 = blockIdx.x * BK, hk = blockIdx.y / nsplit;
+    const int c0 = (blockIdx.y - hk * nsplit) * DA, b = blockIdx.z;
+    const int G = H / Hkv;
+    const int64_t qstride = (int64_t)H * D, kstride = (int64_t)Hkv * D;
+    const __nv_bfloat16* qb = q + (int64_t)b * S * H * D;
+    const __nv_bfloat16* ob = dout + (int64_t)b * S * H * D;
+
+    load_tile<BK>(sk, k + ((int64_t)b * S * Hkv + hk) * D, kstride, k0, S, D);
+    load_tile<BK>(sv, v + ((int64_t)b * S * Hkv + hk) * D, kstride, k0, S, D);
+    // the q rows that attend a key of [k0, k0 + BK): i >= k0, and i < j + window
+    const int qhi = window > 0 ? min(S, k0 + BK - 1 + window) : S;
+    const int qt_lo = k0 / BQ, n_items = ((qhi - 1) / BQ + 1 - qt_lo) * G;
+    auto issue = [&](int n, int st) {
+        const int q0 = (qt_lo + n / G) * BQ, h = hk * G + n % G;
+        load_tile<BQ>(sq + st * BQ * ld, qb + h * D, qstride, q0, S, D);
+        load_tile<BQ>(sdo + st * BQ * ld, ob + h * D, qstride, q0, S, D);
+        const float* lrow = lse + ((int64_t)b * H + h) * S;
+        const float* drow = delta + ((int64_t)b * H + h) * S;
+        for (int t = tid; t < BQ; t += kThreads) {
+            const int i = q0 + t;
+            sl[st * BQ + t] = i < S ? lrow[i] * kLog2e : INFINITY;
+            sd[st * BQ + t] = i < S ? drow[i] : 0.f;
+        }
+    };
+    issue(0, 0);
+    cp_async_commit();
+
+    float dva[NA][4], dka[NA][4];
+#pragma unroll
+    for (int j = 0; j < NA; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dva[j][e] = dka[j][e] = 0.f;
+
+    const int j0 = k0 + 16 * warp;            // the warp's first kv row
+    const int a_off = (16 * warp + (lane & 15)) * ld + ((lane >> 4) << 3);
+    const uint32_t k_a = smem_addr(sk + a_off), v_a = smem_addr(sv + a_off);
+    const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * ld + (((lane >> 3) & 1) << 3);
+    const int t_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + ((lane >> 4) << 3);
+
+    for (int n = 0; n < n_items; ++n) {
+        const int st = n & 1;
+        cp_async_wait<0>();
+        __syncthreads();                       // every warp is done with item n - 1
+        if (n + 1 < n_items) issue(n + 1, st ^ 1);
+        cp_async_commit();
+
+        const int q0 = (qt_lo + n / G) * BQ;
+        bool live = q0 + BQ - 1 >= j0;
+        if (window > 0) live = live && q0 < j0 + 15 + window;
+        if (!live) continue;
+        const __nv_bfloat16* sqs = sq + st * BQ * ld;
+        const __nv_bfloat16* sos = sdo + st * BQ * ld;
+        const float* sls = sl + st * BQ;
+        const float* sds = sd + st * BQ;
+        float sT[NQ][4], dpT[NQ][4];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+        const uint32_t qsb = smem_addr(sqs + b_off), osb = smem_addr(sos + b_off);
+#pragma unroll
+        for (int kk = 0; kk < DT / 16; ++kk) {
+            if (kk * 16 < D) {
+                uint32_t ak[4], av[4];
+                ldsm_x4(ak, k_a + kk * 32);
+                ldsm_x4(av, v_a + kk * 32);
+#pragma unroll
+                for (int nb = 0; nb < BQ / 16; ++nb) {
+                    uint32_t bq[4], bo[4];
+                    ldsm_x4(bq, qsb + (nb * 16 * ld + kk * 16) * 2);
+                    ldsm_x4(bo, osb + (nb * 16 * ld + kk * 16) * 2);
+                    mma_bf16(sT[2 * nb], ak, bq[0], bq[1]);
+                    mma_bf16(sT[2 * nb + 1], ak, bq[2], bq[3]);
+                    mma_bf16(dpT[2 * nb], av, bo[0], bo[1]);
+                    mma_bf16(dpT[2 * nb + 1], av, bo[2], bo[3]);
+                }
+            }
+        }
+        // the mask only where the tile crosses its edge
+        bool full = q0 >= j0 + 15 && q0 + BQ <= S;
+        if (window > 0) full = full && q0 + BQ - 1 < j0 + window;
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+        for (int jb = 0; jb < NQ; ++jb) {
+            float p[4], ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int col = 8 * jb + 2 * tq + (e & 1);
+                const int j = j0 + gr + (e >> 1) * 8;
+                p[e] = fast_exp2(fmaf(sT[jb][e], scale_log2, -sls[col]));
+                if (!full && !attends(q0 + col, j, S, window)) p[e] = 0.f;
+                ds[e] = p[e] * (dpT[jb][e] - sds[col]);
+            }
+            pa[jb >> 1][(jb & 1) * 2] = pack_bf16(p[0], p[1]);
+            pa[jb >> 1][(jb & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+            da[jb >> 1][(jb & 1) * 2] = pack_bf16(ds[0], ds[1]);
+            da[jb >> 1][(jb & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        }
+        const uint32_t qst = smem_addr(sqs + t_off), ost = smem_addr(sos + t_off);
+#pragma unroll
+        for (int kb2 = 0; kb2 < BQ / 16; ++kb2) {
+#pragma unroll
+            for (int db = 0; db < DA / 16; ++db) {
+                if (c0 + db * 16 < D) {
+                    uint32_t bo[4], bq[4];
+                    ldsm_x4_trans(bo, ost + (kb2 * 16 * ld + c0 + db * 16) * 2);
+                    ldsm_x4_trans(bq, qst + (kb2 * 16 * ld + c0 + db * 16) * 2);
+                    mma_bf16(dva[2 * db], pa[kb2], bo[0], bo[1]);
+                    mma_bf16(dva[2 * db + 1], pa[kb2], bo[2], bo[3]);
+                    mma_bf16(dka[2 * db], da[kb2], bq[0], bq[1]);
+                    mma_bf16(dka[2 * db + 1], da[kb2], bq[2], bq[3]);
+                }
+            }
+        }
+    }
+    cp_async_wait<0>();
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int j = j0 + gr + 8 * i;
+        if (j >= S) continue;
+        const int64_t off = (((int64_t)b * S + j) * Hkv + hk) * D;
+#pragma unroll
+        for (int db = 0; db < NA; ++db) {
+            const int c = c0 + 8 * db + 2 * tq;
+            if (c < D && c < c0 + DA) {
+                *reinterpret_cast<uint32_t*>(dk + off + c) =
+                    pack_bf16(dka[db][2 * i] * scale, dka[db][2 * i + 1] * scale);
+                *reinterpret_cast<uint32_t*>(dv + off + c) =
+                    pack_bf16(dva[db][2 * i], dva[db][2 * i + 1]);
+            }
+        }
+    }
+}
+
+template <int DT, int DC>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dq, int S, int H, int Hkv, int D_run, int window,
+                 float scale_log2, float scale) {
+    const int D = DC > 0 ? DC : D_run;
+    constexpr int QB = BwdTile<DT>::QB, KB = BwdTile<DT>::KB;
+    constexpr int NK = KB / 8;                 // 8-key score blocks per kv tile
+    constexpr int DB = DT / 8;                 // 8-column accumulator blocks
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int ld = row_elems(D);
+    __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+    __nv_bfloat16* sdo = sq + QB * ld;
+    __nv_bfloat16* sk = sdo + QB * ld;         // two stages of KB rows
+    __nv_bfloat16* sv = sk + 2 * KB * ld;      // two stages of KB rows
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int gr = lane >> 2, tq = lane & 3;
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * QB;      // longest rows first
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int hk = h / (H / Hkv);
+    const int64_t qstride = (int64_t)H * D, kstride = (int64_t)Hkv * D;
+    const __nv_bfloat16* kb = k + ((int64_t)b * S * Hkv + hk) * D;
+    const __nv_bfloat16* vb = v + ((int64_t)b * S * Hkv + hk) * D;
+
+    const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int hi = min(S, q0 + QB);
+    const int kt_lo = lo / KB, kt_hi = (hi - 1) / KB + 1;
+    load_tile<QB>(sq, q + ((int64_t)b * S * H + h) * D, qstride, q0, S, D);
+    load_tile<QB>(sdo, dout + ((int64_t)b * S * H + h) * D, qstride, q0, S, D);
+    load_tile<KB>(sk, kb, kstride, kt_lo * KB, S, D);
+    load_tile<KB>(sv, vb, kstride, kt_lo * KB, S, D);
+    cp_async_commit();
+
+    const int w0 = q0 + 16 * warp;            // the warp's first q row
+    float l2[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int r = w0 + gr + 8 * i;
+        l2[i] = r < S ? lse[((int64_t)b * H + h) * S + r] * kLog2e : INFINITY;
+        dl[i] = r < S ? delta[((int64_t)b * H + h) * S + r] : 0.f;
+    }
+    float dqa[DB][4];
+#pragma unroll
+    for (int j = 0; j < DB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
+
+    const int a_off = (16 * warp + (lane & 15)) * ld + ((lane >> 4) << 3);
+    const uint32_t q_a = smem_addr(sq + a_off), o_a = smem_addr(sdo + a_off);
+    const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * ld + (((lane >> 3) & 1) << 3);
+    const int t_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + ((lane >> 4) << 3);
+
+    for (int kt = kt_lo; kt < kt_hi; ++kt) {
+        const int st = (kt - kt_lo) & 1;
+        cp_async_wait<0>();
+        __syncthreads();                       // every warp is done with tile kt - 1
+        if (kt + 1 < kt_hi) {
+            load_tile<KB>(sk + (st ^ 1) * KB * ld, kb, kstride, (kt + 1) * KB, S, D);
+            load_tile<KB>(sv + (st ^ 1) * KB * ld, vb, kstride, (kt + 1) * KB, S, D);
+        }
+        cp_async_commit();
+
+        const int k0 = kt * KB;
+        bool live = w0 < S && k0 <= w0 + 15;
+        if (window > 0) live = live && k0 + KB - 1 > w0 - window;
+        if (!live) continue;
+        float s[NK][4], dp[NK][4];
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        const uint32_t ksb = smem_addr(sk + st * KB * ld + b_off);
+        const uint32_t vsb = smem_addr(sv + st * KB * ld + b_off);
+#pragma unroll
+        for (int kk = 0; kk < DT / 16; ++kk) {
+            if (kk * 16 < D) {
+                uint32_t aq[4], ao[4];
+                ldsm_x4(aq, q_a + kk * 32);
+                ldsm_x4(ao, o_a + kk * 32);
+#pragma unroll
+                for (int nb = 0; nb < KB / 16; ++nb) {
+                    uint32_t bk[4], bv[4];
+                    ldsm_x4(bk, ksb + (nb * 16 * ld + kk * 16) * 2);
+                    ldsm_x4(bv, vsb + (nb * 16 * ld + kk * 16) * 2);
+                    mma_bf16(s[2 * nb], aq, bk[0], bk[1]);
+                    mma_bf16(s[2 * nb + 1], aq, bk[2], bk[3]);
+                    mma_bf16(dp[2 * nb], ao, bv[0], bv[1]);
+                    mma_bf16(dp[2 * nb + 1], ao, bv[2], bv[3]);
+                }
+            }
+        }
+        bool full = k0 + KB - 1 <= w0;
+        if (window > 0) full = full && k0 > w0 + 15 - window;
+        uint32_t da[KB / 16][4];
+#pragma unroll
+        for (int jb = 0; jb < NK; ++jb) {
+            float ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int j = k0 + 8 * jb + 2 * tq + (e & 1);
+                const int i = w0 + gr + (e >> 1) * 8;
+                float p = fast_exp2(fmaf(s[jb][e], scale_log2, -l2[e >> 1]));
+                if (!full && !attends(i, j, S, window)) p = 0.f;
+                ds[e] = p * (dp[jb][e] - dl[e >> 1]);
+            }
+            da[jb >> 1][(jb & 1) * 2] = pack_bf16(ds[0], ds[1]);
+            da[jb >> 1][(jb & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        }
+        const uint32_t kst = smem_addr(sk + st * KB * ld + t_off);
+#pragma unroll
+        for (int kb2 = 0; kb2 < KB / 16; ++kb2) {
+#pragma unroll
+            for (int db = 0; db < DT / 16; ++db) {
+                if (db * 16 < D) {
+                    uint32_t bk[4];
+                    ldsm_x4_trans(bk, kst + (kb2 * 16 * ld + db * 16) * 2);
+                    mma_bf16(dqa[2 * db], da[kb2], bk[0], bk[1]);
+                    mma_bf16(dqa[2 * db + 1], da[kb2], bk[2], bk[3]);
+                }
+            }
+        }
+    }
+    cp_async_wait<0>();
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int r = w0 + gr + 8 * i;
+        if (r >= S) continue;
+        __nv_bfloat16* row = dq + (((int64_t)b * S + r) * H + h) * D;
+#pragma unroll
+        for (int db = 0; db < DB; ++db) {
+            const int c = 8 * db + 2 * tq;
+            if (c < D)
+                *reinterpret_cast<uint32_t*>(row + c) =
+                    pack_bf16(dqa[db][2 * i] * scale, dqa[db][2 * i + 1] * scale);
+        }
+    }
+}
+
+template <int DT, int DC>
+cudaError_t launch_bwd_dt(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                          int B, int S, int H, int Hkv, int D, int window, cudaStream_t stream) {
+    using BT = BwdTile<DT>;
+    const int smem1 = dkdv_smem_bytes<DT>(D), smem2 = dq_smem_bytes<DT>(D);
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_mma<DT, DC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(flash_bwd_dq_mma<DT, DC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
+    if (e != cudaSuccess) return e;
+    const double log2e = 1.4426950408889634;
+    const float scale = (float)(1.0 / sqrt((double)D)), scale_log2 = (float)(log2e / sqrt((double)D));
+    const int nsplit = (D + BT::DA - 1) / BT::DA;
+    const auto* q_ = static_cast<const __nv_bfloat16*>(q);
+    const auto* k_ = static_cast<const __nv_bfloat16*>(k);
+    const auto* v_ = static_cast<const __nv_bfloat16*>(v);
+    const auto* do_ = static_cast<const __nv_bfloat16*>(dout);
+    flash_bwd_dkdv_mma<DT, DC><<<dim3((S + BT::BK - 1) / BT::BK, Hkv * nsplit, B), kThreads,
+                                 smem1, stream>>>(
+        q_, k_, v_, do_, lse, delta, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), S, H, Hkv, D, window, scale_log2, scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    flash_bwd_dq_mma<DT, DC><<<dim3((S + BT::QB - 1) / BT::QB, H, B), kThreads, smem2,
+                               stream>>>(
+        q_, k_, v_, do_, lse, delta, static_cast<__nv_bfloat16*>(dq), S, H, Hkv, D, window,
+        scale_log2, scale);
+    return cudaGetLastError();
+}
+
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
+                       int S, int H, int Hkv, int D, int window, cudaStream_t stream) {
+#define FA_TC_BWD(DT, DC) \
+    launch_bwd_dt<DT, DC>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, Hkv, D, window, stream)
+    switch (D) {
+        case 16: return FA_TC_BWD(32, 16);
+        case 32: return FA_TC_BWD(32, 32);
+        case 64: return FA_TC_BWD(64, 64);
+        case 128: return FA_TC_BWD(128, 128);
+        case 256: return FA_TC_BWD(256, 256);
+        default: break;
+    }
+    if (D < 64) return FA_TC_BWD(64, 0);
+    if (D < 128) return FA_TC_BWD(128, 0);
+    return FA_TC_BWD(256, 0);
+#undef FA_TC_BWD
+}
+
 }  // namespace tc
 
 }  // namespace
@@ -740,11 +1469,14 @@ extern "C" {
 // cores (bfloat16 only, D a multiple of 16, q, k and v 16-byte aligned).
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  causal: 0 or
 // 1; window: 0 for none, else the number of positions a row looks back
-// (itself included).  Returns a cudaError_t: 0 on success,
-// cudaErrorInvalidValue for a route, dtype or shape the kernel does not take.
+// (itself included).  lse: null, or a float32 (B, H, S) buffer that
+// receives each row's log-sum-exp of its scaled scores (m + log l; not
+// defined for a row with no key); o is the same either way.  Returns a
+// cudaError_t: 0 on success, cudaErrorInvalidValue for a route, dtype or
+// shape the kernel does not take.
 int flash_attention_launch(int route, int dtype, const void* q, const void* k, const void* v,
-                           void* o, int B, int S, int T, int H, int Hkv, int D, int t_real,
-                           int causal, int window, void* stream) {
+                           void* o, float* lse, int B, int S, int T, int H, int Hkv, int D,
+                           int t_real, int causal, int window, void* stream) {
     if (B < 1 || S < 1 || T < 1 || Hkv < 1 || H < Hkv || H % Hkv != 0 || D < 1 ||
         D > kMaxD || t_real < 1 || t_real > T || window < 0 || B > 65535 || H > 65535)
         return (int)cudaErrorInvalidValue;
@@ -754,14 +1486,58 @@ int flash_attention_launch(int route, int dtype, const void* q, const void* k, c
                                reinterpret_cast<uintptr_t>(v)) & 15) == 0 &&
                              (reinterpret_cast<uintptr_t>(o) & 3) == 0;
         if (dtype != 1 || D % 16 != 0 || !aligned) return (int)cudaErrorInvalidValue;
-        return (int)tc::launch(q, k, v, o, B, S, T, H, Hkv, D, t_real, causal, window, s);
+        return (int)tc::launch(q, k, v, o, lse, B, S, T, H, Hkv, D, t_real, causal, window, s);
     }
     if (route != 0) return (int)cudaErrorInvalidValue;
     if (dtype == 0)
-        return (int)cc::launch<float>(q, k, v, o, B, S, T, H, Hkv, D, t_real, causal, window, s);
+        return (int)cc::launch<float>(q, k, v, o, lse, B, S, T, H, Hkv, D, t_real, causal,
+                                      window, s);
     if (dtype == 1)
-        return (int)cc::launch<__nv_bfloat16>(q, k, v, o, B, S, T, H, Hkv, D, t_real, causal,
-                                              window, s);
+        return (int)cc::launch<__nv_bfloat16>(q, k, v, o, lse, B, S, T, H, Hkv, D, t_real,
+                                              causal, window, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// The backward of an aligned causal self-attention (S == T == t_real, key j
+// attended by row i iff j <= i and, with window > 0, j > i - window): from
+// q, k, v, the forward's o and lse and the output gradient dout (o's
+// layout and dtype), writes dq (q's layout) and dk, dv (k's layout) in the
+// inputs' dtype; delta is a float32 (B, H, S) work buffer.  Three launches
+// on the stream: the delta pre-pass, dK/dV, dQ.  route and dtype as above.
+int flash_attention_backward_launch(int route, int dtype, const void* q, const void* k,
+                                    const void* v, const void* o, const void* dout,
+                                    const float* lse, float* delta, void* dq, void* dk,
+                                    void* dv, int B, int S, int H, int Hkv, int D, int window,
+                                    void* stream) {
+    if (B < 1 || S < 1 || Hkv < 1 || H < Hkv || H % Hkv != 0 || D < 1 || D > kMaxD ||
+        window < 0 || B > 65535 || H > 65535 || lse == nullptr || delta == nullptr)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (route == 1) {
+        const uintptr_t in = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                             reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
+        const uintptr_t out = reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+                              reinterpret_cast<uintptr_t>(dv);
+        if (dtype != 1 || D % 16 != 0 || (in & 15) != 0 || (out & 3) != 0)
+            return (int)cudaErrorInvalidValue;
+        cudaError_t e = cc::launch_delta<__nv_bfloat16>(o, dout, delta, B, S, H, D, s);
+        if (e != cudaSuccess) return (int)e;
+        return (int)tc::launch_bwd(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, Hkv, D,
+                                   window, s);
+    }
+    if (route != 0) return (int)cudaErrorInvalidValue;
+    if (dtype == 0) {
+        cudaError_t e = cc::launch_delta<float>(o, dout, delta, B, S, H, D, s);
+        if (e != cudaSuccess) return (int)e;
+        return (int)cc::launch_bwd<float>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, Hkv,
+                                          D, window, s);
+    }
+    if (dtype == 1) {
+        cudaError_t e = cc::launch_delta<__nv_bfloat16>(o, dout, delta, B, S, H, D, s);
+        if (e != cudaSuccess) return (int)e;
+        return (int)cc::launch_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, B, S,
+                                                  H, Hkv, D, window, s);
+    }
     return (int)cudaErrorInvalidValue;
 }
 

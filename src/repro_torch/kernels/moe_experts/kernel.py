@@ -29,6 +29,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..grad_guard import refuse_grad
 from . import plan
 from .ref import (MODES, Route, moe_combine_plain, moe_experts_plain,
                   moe_route_plain)
@@ -124,6 +125,8 @@ def moe_experts_kernel(mode: str, x: torch.Tensor, offsets: torch.Tensor, w1: to
         return moe_experts_plain(mode, x, offsets, w1, w2, shared)
     if x.device.type != "cuda":
         raise ValueError(f"moe_experts_kernel runs on cpu or cuda, not {x.device}")
+    refuse_grad("moe_experts_kernel (the grouped expert FFN)", "1.7.2", x, w1, w2,
+                *(shared or ()))
     _check(mode, x, offsets, w1, w2, shared)
     E, K, N = w1.shape
     P = x.shape[0]
@@ -224,6 +227,7 @@ def moe_route_kernel(x: torch.Tensor, w: torch.Tensor, k: int,
         return moe_route_plain(x, w, k, forced)
     if x.device.type != "cuda":
         raise ValueError(f"moe_route_kernel runs on cpu or cuda, not {x.device}")
+    refuse_grad("moe_route_kernel (the MoE router)", "1.7.2", x, w)
     if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1]:
         raise ValueError(f"x must be (T, D) and w (D, E), got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
@@ -281,6 +285,7 @@ def moe_combine_kernel(ys: torch.Tensor, pos: torch.Tensor, weights: torch.Tenso
         return moe_combine_plain(ys, pos, weights, kept, y_shared)
     if ys.device.type != "cuda":
         raise ValueError(f"moe_combine_kernel runs on cpu or cuda, not {ys.device}")
+    refuse_grad("moe_combine_kernel (the MoE combine)", "1.7.2", ys, weights, y_shared)
     if ys.ndim != 2 or weights.ndim != 2:
         raise ValueError(f"ys must be (P, D) and weights (T, k), got {tuple(ys.shape)}, "
                          f"{tuple(weights.shape)}")

@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..grad_guard import refuse_grad
 from .plan import split_count
 from .ref import paged_attention_plain
 
@@ -117,6 +118,7 @@ def paged_attention_kernel(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                                      window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_kernel runs on cpu or cuda, not {q.device}")
+    refuse_grad("paged_attention_kernel (decode attention, serving only)", "1.7", q, kp, vp)
     B, Hkv, G, D = q.shape
     n_pages, page_size = kp.shape[0], kp.shape[1]
     max_pages = page_table.shape[1]

@@ -14,6 +14,12 @@ calls; a CUDA graph's replay adds the launches it holds,
 ``serve/graphs.py``), and ``rglru_scan_kernel.launches_by_kernel`` counts them per kernel
 (``"staged"`` or ``"direct"``), as the library's ``rglru_scan_kernel_of``
 names the one it runs.
+
+The backward (:func:`rglru_scan_backward_kernel`) is one launch of the same
+kernel over reversed inputs: the adjoint ``dh_t = g_t + a_{t+1} dh_{t+1}``
+is the recurrence run backwards, so ``a' = flip([a_1 .. a_{L-1}, 0])`` and
+``b' = flip(g)`` give ``flip(dh)``.  ``rglru_scan_backward_kernel.launches``
+counts its launches apart from the forward's.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import ctypes
 
 import torch
 
-from .ref import rglru_scan_plain
+from .ref import rglru_scan_backward_plain, rglru_scan_plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNELS = ("direct", "staged")          # index = rglru_scan_kernel_of's answer
@@ -46,11 +52,8 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a, b: (B, L, W), float32 or bfloat16, same dtype, contiguous ->
-    h (B, L, W) in that dtype, ``h_t = a_t * h_{t-1} + b_t`` from zero."""
-    if a.device.type == "cpu":
-        return rglru_scan_plain(a, b)
+def _launch(a: torch.Tensor, b: torch.Tensor):
+    """Launch the scan on CUDA tensors: ``(h, kernel name)``."""
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan_kernel runs on cpu or cuda, not {a.device}")
     if a.ndim != 3 or a.shape != b.shape:
@@ -67,7 +70,7 @@ def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"batch {B} exceeds the grid's y limit 65535")
     h = torch.empty_like(a)
     if h.numel() == 0:
-        return h
+        return h, None
     lib = _library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -78,10 +81,37 @@ def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"rglru_scan kernel launch failed: {msg} ({err})")
     kernel = KERNELS[lib.rglru_scan_kernel_of(_DTYPE_CODE[a.dtype], L, W, a.data_ptr(),
                                               b.data_ptr())]
-    rglru_scan_kernel.launches += 1
-    rglru_scan_kernel.launches_by_kernel[kernel] += 1
+    return h, kernel
+
+
+def rglru_scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b: (B, L, W), float32 or bfloat16, same dtype, contiguous ->
+    h (B, L, W) in that dtype, ``h_t = a_t * h_{t-1} + b_t`` from zero."""
+    if a.device.type == "cpu":
+        return rglru_scan_plain(a, b)
+    h, kernel = _launch(a, b)
+    if kernel is not None:
+        rglru_scan_kernel.launches += 1
+        rglru_scan_kernel.launches_by_kernel[kernel] += 1
     return h
 
 
 rglru_scan_kernel.launches = 0
 rglru_scan_kernel.launches_by_kernel = dict.fromkeys(KERNELS, 0)
+
+
+def rglru_scan_backward_kernel(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """a, g: (B, L, W), one dtype -> dh (B, L, W): the gradient of the scan's
+    h at every step given ``g`` = dLoss/dh, ``dh_t = g_t + a_{t+1} dh_{t+1}``;
+    then ``db = dh`` and ``da_t = dh_t h_{t-1}``.  In fp32 bitwise the plain
+    reverse fold (:func:`.ref.rglru_scan_backward_plain`)."""
+    if a.device.type == "cpu":
+        return rglru_scan_backward_plain(a, g)
+    a_rev = torch.cat([a[:, 1:], a.new_zeros(a.shape[0], 1, a.shape[2])], dim=1).flip(1)
+    dh_rev, kernel = _launch(a_rev.contiguous(), g.flip(1).contiguous())
+    if kernel is not None:
+        rglru_scan_backward_kernel.launches += 1
+    return dh_rev.flip(1)
+
+
+rglru_scan_backward_kernel.launches = 0

@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..grad_guard import refuse_grad
 from .ref import ssd_scan_plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -106,6 +107,7 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torc
         return ssd_scan_plain(x, dt, A, Bm, Cm, h0, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_kernel runs on cpu or cuda, not {x.device}")
+    refuse_grad("ssd_scan_kernel (the SSD scan)", "1.7.1", x, dt, A, Bm, Cm, h0)
     _check(x, dt, A, Bm, Cm, h0)
     Bsz, L, H, P = x.shape
     N = Bm.shape[-1]

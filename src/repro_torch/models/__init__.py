@@ -5,6 +5,7 @@ VLM families.
 returns an ``nn.Module`` with the interface::
 
     apply(tokens, *extra) -> logits                 # full-sequence forward
+    loss_aux(batch) -> (logits, aux loss)           # the training forward
     init_cache(B, seq_len) -> cache
     decode_step(cache, tokens) -> (logits, cache)
     prefill(tokens, *extra, seq_len=) -> (logits, cache)
@@ -20,12 +21,17 @@ from typing import Optional
 
 import torch
 
+from . import layers
 from .config import ArchConfig
 
 
-def build_model(cfg: ArchConfig, *, device="cuda", seed: Optional[int] = 0):
+def build_model(cfg: ArchConfig, *, device="cuda", seed: Optional[int] = 0,
+                train: bool = False):
     """The model for ``cfg`` on ``device``, weights drawn from a
-    ``torch.Generator`` on that device seeded with ``seed``."""
+    ``torch.Generator`` on that device seeded with ``seed``.  ``train``:
+    every parameter an fp32 master that requires grad (the JAX package's
+    ``PARAM_DTYPE``); otherwise each is stored in the dtype its uses cast
+    it to (bf16 but for the leaves computed in fp32), with no grad."""
     if cfg.family == "dense":
         from .transformer import DenseLM as model_cls
     elif cfg.family == "moe":
@@ -41,7 +47,8 @@ def build_model(cfg: ArchConfig, *, device="cuda", seed: Optional[int] = 0):
     else:
         raise ValueError(f"unknown family {cfg.family}")
     gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
-    return model_cls(cfg, device=device, generator=gen)
+    with layers.master_weights(train):
+        return model_cls(cfg, device=device, generator=gen)
 
 
 __all__ = ["ArchConfig", "build_model"]

@@ -18,6 +18,21 @@ from typing import Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
+class ShapeSpec:
+    """One input shape: a sequence length and global batch for a kind of
+    work (the reference's cells; ``TRAIN_4K`` is minicpm-2b's and
+    recurrentgemma-2b's training shape)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4096, 256, "train")
+
+
+@dataclass(frozen=True)
 class MoEConfig:
     n_experts: int
     top_k: int

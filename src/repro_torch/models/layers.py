@@ -8,6 +8,12 @@ fp32 masters and casts them to bf16 at every use, which gives the same
 values.  The qk-norm scales stay fp32 because :func:`rms_norm_head`
 computes with them in fp32.
 
+A model built for training (:func:`master_weights`, ``build_model(...,
+train=True)``) keeps every leaf as an fp32 master that requires grad, as
+the JAX package keeps ``PARAM_DTYPE = float32``; every use casts it, so the
+forward computes the same values either way.  :func:`remat` checkpoints a
+layer of the full-sequence forward as the config's ``remat`` says.
+
 Rounding follows the JAX package step by step: norm statistics in fp32
 with ``inv`` cast to the activation dtype, attention scores and softmax in
 fp32 with probabilities cast to bf16 before the PV product, scalar factors
@@ -16,11 +22,15 @@ fp32 with probabilities cast to bf16 before the PV product, scalar factors
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 import math
 from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 
 from ..kernels.flash_attention import flash_attention
 
@@ -31,6 +41,53 @@ NEG_INF = -1e30
 
 def cast(x: torch.Tensor) -> torch.Tensor:
     return x.to(COMPUTE_DTYPE)
+
+
+_MASTERS = contextvars.ContextVar("master_weights", default=False)
+
+
+@contextlib.contextmanager
+def master_weights(on: bool = True):
+    """Inside: model constructors keep every parameter an fp32 master with
+    ``requires_grad=True`` (a model built for training); outside, each
+    leaf is stored in the dtype its uses cast it to, with no grad."""
+    token = _MASTERS.set(on)
+    try:
+        yield
+    finally:
+        _MASTERS.reset(token)
+
+
+def building_masters() -> bool:
+    return _MASTERS.get()
+
+
+# Matmul outputs without batch dims, which the ``"dots"`` policy keeps (the
+# JAX package's ``dots_with_no_batch_dims_saveable``): the weight products.
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(policy: str, fn, *args):
+    """``fn(*args)``, rematerialized in the backward as ``policy`` says
+    (the JAX package's ``remat_wrap``): ``"none"`` saves every activation,
+    ``"full"`` only the inputs (``torch.utils.checkpoint``, non-reentrant:
+    the forward runs again in the backward), ``"dots"`` also the weight
+    matmuls' outputs.  Without grad, or when no input requires it (a
+    serving model), it is a plain call."""
+    if policy == "none" or not torch.is_grad_enabled() or not any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return fn(*args)
+    if policy == "full":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if policy == "dots":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat policy must be none, full or dots, got {policy!r}")
 
 
 def bf16_scalar(v: float) -> float:

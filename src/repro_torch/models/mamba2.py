@@ -27,6 +27,7 @@ can restore the rows of inactive slots (:func:`kvcache.mask_slot_rows`).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -160,15 +161,23 @@ class Mamba2LM(nn.Module):
         return 0
 
     def _run(self, tokens: torch.Tensor, cache: Optional[Dict] = None):
-        """Logits and each layer's new state (None without ``cache``)."""
+        """Logits and each layer's new state (None without ``cache``; then
+        each layer is rematerialized as ``cfg.remat`` says)."""
         cfg = self.cfg
         x = layers.embed_tokens(self.embedding, cfg, tokens)
+
+        def layer(p, x):
+            return x + mamba_mix(p.ssm, cfg, layers.apply_norm(cfg.norm, p.norm, x))[0]
+
         new = []
         for i, p in enumerate(self.layers):
+            if cache is None:
+                x = layers.remat(cfg.remat, functools.partial(layer, p), x)
+                new.append(None)
+                continue
             h = layers.apply_norm(cfg.norm, p.norm, x)
-            state = None if cache is None else {"ssm": cache["ssm"][i],
-                                                "conv": cache["conv"][i]}
-            h, st = mamba_mix(p.ssm, cfg, h, state=state)
+            h, st = mamba_mix(p.ssm, cfg, h, state={"ssm": cache["ssm"][i],
+                                                    "conv": cache["conv"][i]})
             x = x + h
             new.append(st)
         x = layers.apply_norm(cfg.norm, self.final_norm, x)
@@ -177,6 +186,11 @@ class Mamba2LM(nn.Module):
     def apply(self, tokens: torch.Tensor) -> torch.Tensor:
         """Full-sequence forward -> logits (B, S, padded_vocab)."""
         return self._run(tokens)[0]
+
+    def loss_aux(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``batch["tokens"]`` -> (logits, a zero auxiliary loss)."""
+        logits = self.apply(batch["tokens"])
+        return logits, logits.new_zeros((), dtype=torch.float32)
 
     forward = apply
 

@@ -35,6 +35,7 @@ stationary-weights decode); ``moe_ffn(mesh=...)`` raises.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -93,7 +94,10 @@ def moe_ffn(p, cfg: ArchConfig, x: torch.Tensor, *, no_drop: bool = False,
     xf = x.reshape(T, D)
     r = route(xf, p.router["w"], m.top_k)
     shared = getattr(p, "shared", None)
-    ys, y_shared = expert_ffn(cfg.mlp, xf.index_select(0, r.tok), r.offsets, p.experts,
+    experts = {k: layers.cast(w) for k, w in p.experts.items()}
+    if shared is not None:
+        shared = {k: layers.cast(w) for k, w in shared.items()}
+    ys, y_shared = expert_ffn(cfg.mlp, xf.index_select(0, r.tok), r.offsets, experts,
                               None if shared is None else (xf, shared))
     kept = None if no_drop else r.rank < capacity(T, m)
     out = combine(ys, r.pos, r.weights, kept, y_shared)
@@ -109,14 +113,14 @@ def moe_ffn(p, cfg: ArchConfig, x: torch.Tensor, *, no_drop: bool = False,
 def init_experts(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
     """Stacked (E, ...) expert weights with the JAX package's distributions,
     each drawn in fp32 and cast to bf16 at once (one (E, D, F) fp32
-    transient at a time)."""
+    transient at a time); fp32 masters while building masters."""
     m = cfg.moe
     d, f, E = cfg.d_model, m.d_expert, m.n_experts
 
     def draw(d_in, d_out):
         w = torch.randn(E, d_in, d_out, generator=gen, device=gen.device,
-                        dtype=layers.PARAM_DTYPE)
-        return layers.cast(w.mul_(1.0 / math.sqrt(d_in)))
+                        dtype=layers.PARAM_DTYPE).mul_(1.0 / math.sqrt(d_in))
+        return w if layers.building_masters() else layers.cast(w)
 
     out = {"w_gate": draw(d, f)} if cfg.mlp == "swiglu" else {}
     out["w_up"] = draw(d, f)
@@ -167,23 +171,28 @@ class MoELM(DenseLM):
         x = attn_residual_decode(p, self.cfg, x, layer_cache, pos, fresh)
         return moe_residual(p, self.cfg, x, no_drop=True, with_aux=False)[0]
 
-    def loss_aux(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward -> (logits (B, S, padded_vocab), the summed
-        aux loss times ``router_aux_weight``)."""
+    def loss_aux(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward of ``batch["tokens"]`` -> (logits (B, S,
+        padded_vocab), the summed aux loss times ``router_aux_weight``)."""
         cfg = self.cfg
+        tokens = batch["tokens"]
         B, S = tokens.shape
         x = layers.embed_tokens(self.embedding, cfg, tokens)
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for p in self.layers:
+
+        def layer(p, x, aux):
             x = attn_residual_fwd(p, cfg, x, positions)
             x, layer_aux = moe_residual(p, cfg, x, no_drop=False)
-            aux = aux + layer_aux
+            return x, aux + layer_aux
+
+        for p in self.layers:
+            x, aux = layers.remat(cfg.remat, functools.partial(layer, p), x, aux)
         x = layers.apply_norm(cfg.norm, self.final_norm, x)
         return layers.lm_head(self.embedding, cfg, x), aux * cfg.moe.router_aux_weight
 
     def apply(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.loss_aux(tokens)[0]
+        return self.loss_aux({"tokens": tokens})[0]
 
     forward = apply
 

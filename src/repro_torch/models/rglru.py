@@ -29,6 +29,7 @@ tensors, so the scheduler can restore the recurrent rows of inactive slots
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -265,21 +266,31 @@ class RecurrentLM(nn.Module):
         return self.kinds.count("a")
 
     def apply(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence forward -> logits (B, S, padded_vocab)."""
+        """Full-sequence forward -> logits (B, S, padded_vocab), each layer
+        rematerialized as ``cfg.remat`` says."""
         cfg = self.cfg
         B, S = tokens.shape
         x = layers.embed_tokens(self.embedding, cfg, tokens)
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-        for p in self.layers:
+
+        def layer(p, x):
             h = layers.apply_norm(cfg.norm, p.norm, x)
             if p.kind == "r":
                 h, _ = rec_mix(p.rec, cfg, h)
             else:
                 h = layers.attention_block(p.attn, cfg, h, positions,
                                            window=cfg.hybrid.local_window)
-            x = _mlp_residual(p, cfg, x + h)
+            return _mlp_residual(p, cfg, x + h)
+
+        for p in self.layers:
+            x = layers.remat(cfg.remat, functools.partial(layer, p), x)
         x = layers.apply_norm(cfg.norm, self.final_norm, x)
         return layers.lm_head(self.embedding, cfg, x)
+
+    def loss_aux(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``batch["tokens"]`` -> (logits, a zero auxiliary loss)."""
+        logits = self.apply(batch["tokens"])
+        return logits, logits.new_zeros((), dtype=torch.float32)
 
     forward = apply
 

@@ -9,6 +9,7 @@ shares the weights and switches the decode dispatch.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -19,13 +20,20 @@ from .config import ArchConfig
 
 
 def _params(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tree.items()})
+    return nn.ParameterDict({k: _leaf(v) for k, v in tree.items()})
+
+
+def _leaf(t: torch.Tensor) -> nn.Parameter:
+    """A parameter: trainable while building masters, frozen otherwise."""
+    return nn.Parameter(t, requires_grad=layers.building_masters())
 
 
 def _store(tree: Dict[str, torch.Tensor], fp32: tuple = ()) -> Dict[str, torch.Tensor]:
     """Storage dtype of each leaf: bf16 (the value every use casts to)
-    except the ``fp32`` names, which are computed with in fp32."""
+    except the ``fp32`` names, which are computed with in fp32; every leaf
+    stays an fp32 master while building masters."""
+    if layers.building_masters():
+        return dict(tree)
     return {k: v if k in fp32 else layers.cast(v) for k, v in tree.items()}
 
 
@@ -140,13 +148,21 @@ class DenseLM(nn.Module):
         x = self._forward(layers.embed_tokens(self.embedding, self.cfg, tokens))
         return layers.lm_head(self.embedding, self.cfg, x)
 
+    def loss_aux(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A training batch (``tokens``, and ``frames`` or ``patch_embeds``
+        where the family takes them) -> (logits, auxiliary loss): the JAX
+        models' hook, a zero aux outside MoE."""
+        logits = self.apply(batch["tokens"])
+        return logits, logits.new_zeros((), dtype=torch.float32)
+
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         """The layer stack and the final norm over embeddings (B, S, d)
-        from position 0."""
+        from position 0, each layer rematerialized as ``cfg.remat`` says."""
         B, S = x.shape[0], x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
         for p in self.layers:
-            x = dense_layer_fwd(p, self.cfg, x, positions)
+            x = layers.remat(self.cfg.remat, functools.partial(dense_layer_fwd, p, self.cfg),
+                             x, positions)
         return layers.apply_norm(self.cfg.norm, self.final_norm, x)
 
     forward = apply

@@ -17,7 +17,7 @@ from torch import nn
 
 from . import layers
 from .config import ArchConfig
-from .transformer import DenseLM, _params, _store
+from .transformer import DenseLM, _leaf, _params, _store
 
 
 class VisionLM(DenseLM):
@@ -31,11 +31,10 @@ class VisionLM(DenseLM):
         pd = cfg.vlm.patch_dim or cfg.d_model
         self.patch_proj = nn.Module()
         self.patch_proj.norm = _params(_store(layers.init_norm("layernorm", pd, self.device)))
-        self.patch_proj.w = nn.Parameter(
-            layers.cast(layers.dense_init(generator, pd, cfg.d_model)), requires_grad=False)
-        self.patch_proj.w2 = nn.Parameter(
-            layers.cast(layers.dense_init(generator, cfg.d_model, cfg.d_model)),
-            requires_grad=False)
+        proj = _store({"w": layers.dense_init(generator, pd, cfg.d_model),
+                       "w2": layers.dense_init(generator, cfg.d_model, cfg.d_model)})
+        self.patch_proj.w = _leaf(proj["w"])
+        self.patch_proj.w2 = _leaf(proj["w2"])
 
     def project_patches(self, patches: torch.Tensor) -> torch.Tensor:
         """Patch embeddings (B, P, patch_dim) -> backbone inputs (B, P, d_model)."""
@@ -53,6 +52,12 @@ class VisionLM(DenseLM):
             x = torch.cat([self.project_patches(patch_embeds), x], dim=1)
         x = self._forward(x)[:, -tokens.shape[1]:]
         return layers.lm_head(self.embedding, self.cfg, x)
+
+    def loss_aux(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``batch["tokens"]`` and, where present, ``batch["patch_embeds"]``
+        -> (logits over the text positions, a zero auxiliary loss)."""
+        logits = self.apply(batch["tokens"], batch.get("patch_embeds"))
+        return logits, logits.new_zeros((), dtype=torch.float32)
 
     forward = apply
 

@@ -15,6 +15,7 @@ prefill: ``xk``/``xv`` of shape (L, B, F, Hkv, D).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -78,10 +79,14 @@ class EncDecLM(DenseLM):
         x = layers.cast(frames) + layers.sinusoidal_positions(F, cfg.d_model,
                                                               device=frames.device)[None]
         positions = torch.arange(F, dtype=torch.int32, device=x.device)[None].expand(B, F)
-        for p in self.enc_layers:
+
+        def layer(p, x):
             a = layers.apply_norm(cfg.norm, p.attn_norm, x)
             x = x + layers.attention_block(p.attn, cfg, a, positions, causal=False)
-            x = x + layers.apply_mlp(p.mlp, cfg, layers.apply_norm(cfg.norm, p.mlp_norm, x))
+            return x + layers.apply_mlp(p.mlp, cfg, layers.apply_norm(cfg.norm, p.mlp_norm, x))
+
+        for p in self.enc_layers:
+            x = layers.remat(cfg.remat, functools.partial(layer, p), x)
         return layers.apply_norm(cfg.norm, self.enc_norm, x)
 
     # -- decoder ---------------------------------------------------------------
@@ -94,14 +99,24 @@ class EncDecLM(DenseLM):
         x = layers.embed_tokens(self.embedding, cfg, tokens)
         x = x + layers.sinusoidal_positions(S, cfg.d_model, device=x.device)[None]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-        for p in self.layers:
+
+        def layer(p, x, enc_out):
             a = layers.apply_norm(cfg.norm, p.attn_norm, x)
             x = x + layers.attention_block(p.attn, cfg, a, positions, causal=True)
             c = layers.apply_norm(cfg.norm, p.xattn_norm, x)
             x = x + _xattn(p.xattn, cfg, c, *_enc_kv(p.xattn, cfg, enc_out))
-            x = mlp_residual(p, cfg, x)
+            return mlp_residual(p, cfg, x)
+
+        for p in self.layers:
+            x = layers.remat(cfg.remat, functools.partial(layer, p), x, enc_out)
         x = layers.apply_norm(cfg.norm, self.final_norm, x)
         return layers.lm_head(self.embedding, cfg, x)
+
+    def loss_aux(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``batch["tokens"]`` and ``batch["frames"]`` -> (logits, a zero
+        auxiliary loss)."""
+        logits = self.apply(batch["tokens"], batch["frames"])
+        return logits, logits.new_zeros((), dtype=torch.float32)
 
     forward = apply
 

@@ -46,8 +46,10 @@ dict for :class:`repro_torch.models.transformer.DenseLM`,
 are stored in the port's dtypes: bf16 for everything the JAX package casts
 to bf16 at use (identical values), fp32 for what it computes with in fp32
 (qk-norm scales, the MoE router, the RG-LRU gates, the SSD's decay, step,
-skip and norm parameters).  :func:`params_to_numpy` is the inverse
-(fp32 numpy, restacked), so a test can round-trip.
+skip and norm parameters); with ``master=True`` every leaf stays fp32, the
+masters of a model built for training (``build_model(..., train=True)``).
+:func:`params_to_numpy` is the inverse (fp32 numpy, restacked), so a test
+can round-trip.
 """
 
 from __future__ import annotations
@@ -74,9 +76,9 @@ def _dtype(cfg, path: Tuple[str, ...]) -> torch.dtype:
     return torch.float32 if fp32 else COMPUTE_DTYPE
 
 
-def _tensor(a, cfg, path: Tuple[str, ...], device) -> torch.Tensor:
+def _tensor(a, cfg, path: Tuple[str, ...], device, master: bool = False) -> torch.Tensor:
     t = torch.from_numpy(np.array(a, dtype=np.float32))
-    return t.to(device=device, dtype=_dtype(cfg, path))
+    return t.to(device=device, dtype=torch.float32 if master else _dtype(cfg, path))
 
 
 def _hybrid_layout(cfg):
@@ -84,6 +86,21 @@ def _hybrid_layout(cfg):
     ``blocks.l{j}[sb]``, layer ``n_sb * n + j`` is ``tail.t{j}``."""
     n = len(cfg.hybrid.pattern)
     return cfg.n_layers // n, n
+
+
+def jax_stacked(name: str, cfg) -> bool:
+    """Whether the JAX tree holds the port's leaf ``name`` on a leading
+    layer axis: every per-layer leaf (``layers.<i>.*``, ``enc_layers.<i>.*``)
+    but those of a hybrid's unstacked tail."""
+    parts = name.split(".")
+    if parts[0] == "enc_layers":
+        return True
+    if parts[0] != "layers":
+        return False
+    if cfg.family != "hybrid":
+        return True
+    n_sb, n = _hybrid_layout(cfg)
+    return int(parts[1]) < n_sb * n
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -133,17 +150,19 @@ def _flat_layers(tree: Mapping, cfg):
     yield from _stacked(tree, "layers", cfg.n_layers)
 
 
-def params_from_jax(tree: Mapping, cfg, device="cuda") -> Dict[str, torch.Tensor]:
-    """JAX parameter tree (numpy leaves) -> the port's state dict."""
+def params_from_jax(tree: Mapping, cfg, device="cuda", master: bool = False
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX parameter tree (numpy leaves) -> the port's state dict; every
+    leaf fp32 (no cast) with ``master``."""
     sd: Dict[str, torch.Tensor] = {}
     for group in ("embedding", "final_norm", "enc_norm", "patch_proj"):
         for path, a in _leaves(tree.get(group, {})):
-            sd[".".join((group,) + path)] = _tensor(a, cfg, (group,) + path, device)
+            sd[".".join((group,) + path)] = _tensor(a, cfg, (group,) + path, device, master)
     for i, path, a in _flat_layers(tree, cfg):
-        sd[f"layers.{i}.{'.'.join(path)}"] = _tensor(a, cfg, path, device)
+        sd[f"layers.{i}.{'.'.join(path)}"] = _tensor(a, cfg, path, device, master)
     if "enc_layers" in tree:
         for i, path, a in _stacked(tree, "enc_layers", cfg.encdec.n_encoder_layers):
-            sd[f"enc_layers.{i}.{'.'.join(path)}"] = _tensor(a, cfg, path, device)
+            sd[f"enc_layers.{i}.{'.'.join(path)}"] = _tensor(a, cfg, path, device, master)
     return sd
 
 

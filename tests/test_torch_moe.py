@@ -200,7 +200,7 @@ def test_apply_and_loss_aux_match_jax_layer_forced(arch):
     _, jaux = jm.loss_aux(jp, {"tokens": jnp.asarray(toks)})
     np.testing.assert_allclose(aux_t * cfg.moe.router_aux_weight, float(jaux), rtol=2e-2)
 
-    logits, aux = tm.loss_aux(torch.from_numpy(toks))
+    logits, aux = tm.loss_aux({"tokens": torch.from_numpy(toks)})
     assert logits.shape == (2, 12, cfg.padded_vocab) and logits.dtype == torch.bfloat16
     assert torch.isfinite(logits[..., :cfg.vocab].float()).all() and aux.dtype == torch.float32
     assert torch.equal(tm.apply(torch.from_numpy(toks)), logits)
