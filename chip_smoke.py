@@ -360,16 +360,22 @@ last line is printed):
     ms a batch and tok/s, decode ms a step and tok/s, peak memory.
 
 29–33. Training (``launch/train.run_training``), last, after moonshot is
-    freed.  29: the flash backward (``flash_attention_backward_kernel``:
-    delta, dK/dV, dQ) against ``ref.py``'s plain fp32 backward, fp32
-    within 2e-4 and bf16 within 3e-2 of the largest |gradient| per dq, dk
-    and dv (D 8-256, G 1-10, S off the tile, windows 8 and 2048, B 1 and
-    2; bf16 at D % 16 == 0 on the tensor cores), two launches bitwise
-    equal, the forward with lse bitwise the forward without and its lse
-    within 1e-5; the RG-LRU backward (one reversed launch) bitwise the
-    plain reverse fold at phase 5's shapes and (1, 4096, 2560).  30: both
-    timed at the training shapes (CUDA events) beside the forward with
-    lse, the plain version and SDPA forward + backward.  31: full-depth
+    freed.  29: the flash backward (``flash_attention_backward_kernel``)
+    against ``ref.py``'s plain fp32 backward, fp32 within 2e-4 and bf16
+    within 3e-2 of the largest |gradient| per dq, dk and dv (D 8-256, G
+    1-10, S off the tile, windows 8 and 2048, B 1 and 2; bf16 at D % 16 ==
+    0 on the tensor cores, at D 64, 128 and 256 on the wgmma design, dQ
+    with delta then dK/dV, its tiles the library's as ``plan.py`` models
+    them; elsewhere mma.sync or the CUDA cores, delta, dK/dV, dQ), two
+    launches bitwise equal, the forward with lse bitwise the forward
+    without and its lse within 1e-5; the RG-LRU backward (one reverse-mode
+    launch, no copies) bitwise the plain reverse fold at phase 5's shapes
+    and (1, 4096, 2560).  30: both timed at the training shapes (CUDA
+    events) beside the forward with lse, the plain version, SDPA's
+    backward alone (its forward run before the timed region), SDPA
+    forward + backward, and one library call that returns o and the
+    log-sum-exp (``_scaled_dot_product_flash_attention`` causal,
+    ``_scaled_dot_product_efficient_attention`` with the window's mask).  31: full-depth
     ``minicpm-2b``, 6 steps of 8 x 4096 tokens in 4 microbatches (WSD, lr
     3e-4): losses and grad norms finite, the last loss below the first,
     every parameter with a gradient, flash forward launches exactly 2 x
@@ -513,9 +519,11 @@ def cuda_time_ms(fn, iters: int, warmup: int = 5) -> float:
 
 def device_ms_per_launch(fn, iters: int, kernel: str):
     """Device time per launch of the kernels whose name contains ``kernel``
-    over ``iters`` calls of ``fn(i)``, from ``torch.profiler`` (None when
-    the profiler records no device time).  Unlike the CUDA-event time of
-    back-to-back calls, it leaves out the host's launch path."""
+    over ``iters`` calls of ``fn(i)``: the mean duration of their intervals
+    in a ``torch.profiler`` trace (``kernel_intervals``, as phases 31-32
+    read it; None when the trace holds no such kernel).  Unlike the
+    CUDA-event time of back-to-back calls, it leaves out the host's launch
+    path."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
@@ -524,14 +532,13 @@ def device_ms_per_launch(fn, iters: int, kernel: str):
         for i in range(iters):
             fn(i)
         sync()
-    averages = prof.key_averages()
-    evs = [e for e in averages if kernel in e.key]
-    count = sum(e.count for e in evs)
-    if not count:
-        seen = sorted({e.key[:60] for e in averages if e.self_device_time_total > 0})
-        print(f"  profiler: no event named {kernel!r} over {iters} calls; "
-              f"device events seen: {seen[:6]}")
-    return sum(e.self_device_time_total for e in evs) / count / 1e3 if count else None
+    intervals = kernel_intervals(prof)
+    spans = [end - start for name, start, end in intervals if kernel in name]
+    if not spans:
+        seen = sorted({name[:60] for name, _, _ in intervals})
+        print(f"  profiler: no kernel named {kernel!r} over {iters} calls; "
+              f"device kernels seen: {seen[:6]}")
+    return sum(spans) / len(spans) / 1e3 if spans else None
 
 
 # -- phase 2: kernel vs plain version ------------------------------------------------
@@ -2620,6 +2627,30 @@ def ptxas_report(fails: Failures, src: str, kernel: str, instances: int) -> None
     fails.check(len(seen) == instances and not serialised,
                 f"ptxas report of {src}.cu: {len(seen)} of {instances} instances of {kernel}, "
                 f"{len(serialised)} with a wgmma serialised (C7515/C7517/C7518)")
+
+
+def flash_bwd_ptxas_report(fails: Failures) -> None:
+    """Prints ``ptxas -v``'s registers and spills for the wgmma backward's six
+    kernels (dQ and dK/dV at D = 64, 128, 256) and fails unless all six are
+    in the build's log and no ``ptxas`` warning says it serialised one's
+    wgmmas (C7513, C7515, C7517, C7518, ...)."""
+    from repro_torch.kernels import build
+
+    name, seen, serialised = None, set(), []
+    for line in build.build_log("flash_attention").splitlines():
+        m = re.search(r"flash_bwd_(dq|dkdv)_wgmmaILi(\d+)E", line)
+        if "Compiling entry" in line:
+            name = m and f"flash_bwd_{m.group(1)}_wgmma<{m.group(2)}>"
+            if name:
+                seen.add(name)
+        elif m and "serialized" in line:
+            print(f"  ptxas warning: {line.strip()}")
+            serialised.append(line.strip())
+        elif name and ("Used" in line or "spill" in line):
+            print(f"  ptxas {name}: {line.strip().replace('ptxas info    : ', '')}")
+    fails.check(len(seen) == 6 and not serialised,
+                f"ptxas report of flash_attention.cu: {len(seen)} of 6 wgmma backward kernels, "
+                f"{len(serialised)} with its wgmmas serialised")
 
 
 def grouped_mm_layer(x, xs, offsets, experts, sh):
@@ -4787,10 +4818,16 @@ def phase_flash_backward_cases(fails: Failures, seed: int) -> None:
 
     from repro_torch.kernels.flash_attention import (flash_attention_backward_kernel,
                                                      flash_attention_kernel)
-    from repro_torch.kernels.flash_attention.kernel import route
+    from repro_torch.kernels.flash_attention.kernel import library_plan, route
+    from repro_torch.kernels.flash_attention.plan import HEAD_DIMS, plan
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     bwd = flash_attention_backward_kernel
+    flash_bwd_ptxas_report(fails)
+    for D in HEAD_DIMS:
+        fails.check(library_plan(D) == plan(D)._asdict(),
+                    f"the wgmma backward's tiles at D={D} as the library states them "
+                    f"{library_plan(D)} are plan.py's")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         tol = TOL[name]
@@ -4808,9 +4845,16 @@ def phase_flash_backward_cases(fails: Failures, seed: int) -> None:
                         f"{label}: the forward with lse is bitwise the forward without it; "
                         f"lse within {LSE_TOL} of the plain version's (max err {lse_err:.3g})")
             n0, r0 = bwd.launches, bwd.launches_by_route[path]
+            d0 = dict(bwd.launches_by_design)
             got = bwd(q, k, v, o, lse, do, window=window)
             again = bwd(q, k, v, o, lse, do, window=window)
             sync()
+            design = [d for d in d0 if bwd.launches_by_design[d] != d0[d]]
+            want_design = ("cuda_core" if path == "cuda_core"
+                           else "wgmma" if D in HEAD_DIMS else "mma_sync")
+            fails.check(design == [want_design] and bwd.launches_by_design[want_design]
+                        == d0[want_design] + 2,
+                        f"{label}: both calls on the {want_design} design ({design})")
             errs = {}
             for gname, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
                 scale = w.abs().max().item()
@@ -4854,7 +4898,7 @@ def phase_rglru_backward_cases(fails: Failures, seed: int) -> None:
         sync()
         err = (got - want).abs().max().item()
         fails.check(rglru_scan_backward_kernel.launches == n0 + 1 and torch.equal(got, want),
-                    f"rglru backward (one reversed launch) vs the plain reverse fold fp32 "
+                    f"rglru backward (one reverse-mode launch) vs the plain reverse fold fp32 "
                     f"[B={B} L={L} W={W} {kind}]: bitwise (max err {err:.3g})")
     a, b = rglru_inputs(gen, 2, 300, 2560, "resets", torch.float32)
     g = torch.randn(2, 300, 2560, generator=gen).to(DEVICE)
@@ -4907,7 +4951,12 @@ def phase_flash_backward_timing(fails: Failures, seed: int, label: str, shape,
     sets = input_sets(make, nbytes)
     n = len(sets)
     q, k, v, o, lse, do = sets[0]
-    got = flash_attention_backward_kernel(q, k, v, o, lse, do, window=window)
+    bwd = flash_attention_backward_kernel
+    d0 = dict(bwd.launches_by_design)
+    got = bwd(q, k, v, o, lse, do, window=window)
+    design = [d for d in d0 if bwd.launches_by_design[d] != d0[d]]
+    fails.check(design == ["wgmma"], f"flash backward at {label} {shape} on the wgmma design "
+                f"({design})")
     o32, lse32, want = flash_grads_plain32(q, k, v, do, window)
     err = max((g.float() - w).abs().max().item() / w.abs().max().item()
               for g, w in zip(got, want, strict=True))
@@ -4950,11 +4999,43 @@ def phase_flash_backward_timing(fails: Failures, seed: int, label: str, shape,
         i = torch.arange(S, device="cuda")
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
 
+    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+
     def library(j):
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in sets[j % n][:3])
-        kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
         out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=H != Hkv, **kw)
         out.backward(sets[j % n][5].transpose(1, 2))
+
+    # SDPA's backward alone: its forward runs before the timed region and
+    # keeps its graph
+    graphs = []
+    for j in range(n):
+        ins = tuple(t.transpose(1, 2).detach().requires_grad_() for t in sets[j][:3])
+        out = F.scaled_dot_product_attention(*ins, enable_gqa=H != Hkv, **kw)
+        graphs.append((out, ins, sets[j][5].transpose(1, 2)))
+
+    def library_bwd(j):
+        out, ins, g = graphs[j % n]
+        torch.autograd.grad(out, ins, g, retain_graph=True)
+
+    # one library call that returns o and the log-sum-exp: k and v expanded
+    # to H heads before the timed region (neither call takes GQA)
+    lse_ins = [(t[0].transpose(1, 2), *(x.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                                        for x in t[1:3])) for t in sets]
+    if window is None:
+        lse_name = "aten._scaled_dot_product_flash_attention (causal)"
+
+        def library_lse(j):
+            return torch.ops.aten._scaled_dot_product_flash_attention(
+                *lse_ins[j % n], 0.0, True, False)[:2]
+    else:
+        lse_name = "aten._scaled_dot_product_efficient_attention (the window's mask as a bias)"
+        bias = torch.zeros(S, S, dtype=torch.bfloat16, device="cuda").masked_fill(
+            ~mask, float("-inf")).expand(B, H, S, S)
+
+        def library_lse(j):
+            return torch.ops.aten._scaled_dot_product_efficient_attention(
+                *lse_ins[j % n], bias, True, 0.0, False)[:2]
 
     def backward(j):
         flash_attention_backward_kernel(*sets[j % n], window=window)
@@ -4964,8 +5045,24 @@ def phase_flash_backward_timing(fails: Failures, seed: int, label: str, shape,
 
     iters = max(n, 10)
     ms = cuda_time_ms(backward, iters, warmup=2)
+    by_kernel = {name: device_ms_per_launch(backward, 5, f"flash_bwd_{name}_wgmma")
+                 for name in ("dq", "dkdv")}
     fwd_ms = cuda_time_ms(forward, iters, warmup=2)
     library_ms = cuda_time_ms(library, iters, warmup=2)
+    library_bwd_ms = cuda_time_ms(library_bwd, iters, warmup=2)
+    del graphs
+    try:
+        lib_o, lib_lse = library_lse(0)
+        lse_gap = (lib_lse[..., :S].float() - lse).abs().max().item()   # may be padded
+        o_gap = (lib_o.transpose(1, 2).float() - o.float()).abs().max().item()
+        library_lse_ms = cuda_time_ms(library_lse, iters, warmup=2)
+        print(f"  {lse_name}: {library_lse_ms:.4f} ms; its lse within {lse_gap:.3g} of the "
+              f"kernel's, o within {o_gap:.3g}")
+        del lib_o, lib_lse
+    except (RuntimeError, TypeError) as e:        # a build of torch without that call
+        library_lse_ms = None
+        print(f"  {lse_name}: not timed ({type(e).__name__}: {str(e).splitlines()[0][:160]})")
+    del lse_ins
     plain_ms = cuda_time_ms(lambda j: flash_attention_backward_plain(*sets[j % n],
                                                                      window=window), 1, warmup=1)
     plain_fwd_ms = cuda_time_ms(lambda j: flash_attention_plain(*sets[j % n][:3], window=window,
@@ -4979,25 +5076,29 @@ def phase_flash_backward_timing(fails: Failures, seed: int, label: str, shape,
     print(f"  flash backward {label} {shape} window={window} bf16 ({n} input sets): kernel "
           f"{ms:.4f} ms ({ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), bound {bound_ms:.4f} ms "
           f"({ops / 1e9:.1f} GFLOP); forward with lse {fwd_ms:.4f} ms (bound "
-          f"{fwd_bound:.4f}); forward + backward {fwd_ms + ms:.4f} ms against SDPA forward + "
-          f"backward {library_ms:.4f} ms; plain backward {plain_ms:.2f} ms, plain forward "
-          f"with lse {plain_fwd_ms:.2f} ms")
+          f"{fwd_bound:.4f}); design {design}, device ms a launch by kernel {by_kernel}; "
+          f"SDPA backward alone {library_bwd_ms:.4f} ms; "
+          f"forward + backward {fwd_ms + ms:.4f} ms against SDPA forward + backward "
+          f"{library_ms:.4f} ms; plain backward {plain_ms:.2f} ms, plain forward with lse "
+          f"{plain_fwd_ms:.2f} ms")
     common = {"route": "cuda", "kernel_route": route(torch.bfloat16, D),
               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
               "shape": f"{label} train: q {B}x{S}x{H}x{D}, kv heads {Hkv}, "
                        f"{'causal' if window is None else f'window {window}'}, bf16",
               "launches": 0}
-    return [dict(common, name="flash_attention_backward", max_abs_err=abs_err,
-                 max_err_over_max_grad=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                 library_ms=library_ms, library="SDPA forward + backward",
-                 fwd_plus_bwd_ms=fwd_ms + ms,
+    return [dict(common, name="flash_attention_backward", design=design[0] if design else None,
+                 max_abs_err=abs_err, max_err_over_max_grad=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 library_ms=library_bwd_ms, library="SDPA backward (torch.autograd.grad)",
+                 sdpa_fwd_plus_bwd_ms=library_ms, fwd_plus_bwd_ms=fwd_ms + ms,
+                 device_ms_by_kernel=by_kernel,
                  dropped_tile_effect={g: d for g, (d, _) in drops.items()},
                  bound_where_dropped=tols),
             dict(common, name="flash_attention_lse", max_abs_err=fwd_err, max_abs_err_lse=lse_err,
                  ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=fwd_bound,
-                 bound_by="bytes" if f_bytes >= f_ops else "operations", library_ms=None)]
+                 bound_by="bytes" if f_bytes >= f_ops else "operations",
+                 library_ms=library_lse_ms, library=lse_name)]
 
 
 def phase_rglru_backward_timing(fails: Failures, seed: int, shape) -> dict:
@@ -5015,7 +5116,9 @@ def phase_rglru_backward_timing(fails: Failures, seed: int, shape) -> dict:
 
     sets = input_sets(make, 12 * B * L * W)
     n = len(sets)
+    k0 = dict(rglru_scan_backward_kernel.launches_by_kernel)
     got = rglru_scan_backward_kernel(*sets[0])
+    kernel = [k for k in k0 if rglru_scan_backward_kernel.launches_by_kernel[k] != k0[k]]
     want = rglru_scan_backward_plain(*sets[0])
     max_err = (got - want).abs().max().item()
     fails.check(torch.equal(got, want), f"rglru backward vs the plain reverse fold at {shape} "
@@ -5027,9 +5130,10 @@ def phase_rglru_backward_timing(fails: Failures, seed: int, shape) -> dict:
     t_bytes = 12 * elems / HBM_BYTES_PER_S          # read a and g, write dh (fp32)
     t_ops = 2 * elems / FP32_FLOPS_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
-    print(f"  rglru backward {shape} fp32 ({n} input sets): wrapper (reversal copies and one "
-          f"launch) {ms:.4f} ms, plain reverse fold {plain_ms:.2f} ms, bound {bound_ms:.5f} ms")
-    return {"name": "rglru_scan_backward", "route": "cuda", "kernel_route": "staged",
+    print(f"  rglru backward {shape} fp32 ({n} input sets): one reverse-mode launch ({kernel}) "
+          f"{ms:.4f} ms, plain reverse fold {plain_ms:.2f} ms, bound {bound_ms:.5f} ms")
+    return {"name": "rglru_scan_backward", "route": "cuda",
+            "kernel_route": kernel[0] if kernel else None,
             "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
             "replaces": "src/repro/kernels/rglru_scan/kernel.py:54",
             "shape": f"a,g {B}x{L}x{W} fp32 (backward)", "launches": 0,

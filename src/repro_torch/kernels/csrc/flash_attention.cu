@@ -59,6 +59,14 @@
 //   TF32 would break fp32's 2e-4 contract, and no main path runs flash in
 //   fp32.
 //
+// The backward (flash_attention_backward_launch; no TPU counterpart) has
+// three designs, named by flash_attention_backward_kernel_of: on the
+// tensor-core route at D = 64, 128 and 256 (every trained head dim) the
+// wgmma design of namespace wg below (two launches: dQ with delta, then
+// dK/dV); at other multiples of 16 the mma.sync design of namespace tc;
+// on the CUDA-core route the fp32 design of namespace cc.  The last two
+// launch a delta pre-pass, dK/dV and dQ.
+//
 // Bound on the H100 (3.35 TB/s HBM; 989 TFLOP/s dense bf16 on the tensor
 // cores): at qwen3-14b's 4096-token prefill (B=1, H=40, Hkv=8, D=128) the
 // causal work is 4 D H S(S+1)/2 = 171.8 GFLOP against about 101 MB of q,
@@ -78,6 +86,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -1062,6 +1074,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 // -- backward (aligned self-attention: S == T == t_real, causal, optional window)
 //
+// The design for head dims the wgmma design (namespace wg) does not take.
 // FlashAttention-2's backward on mma.sync.m16n8k16, bf16 operands and fp32
 // accumulation, the probabilities recomputed from the forward's row lse:
 //
@@ -1461,6 +1474,861 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// Tensor-core backward for Hopper: bfloat16 at D = 64, 128 and 256
+//
+// Replaces no TPU kernel: the JAX package has no backward kernel (its train
+// step differentiates the Pallas forward,
+// src/repro/kernels/flash_attention/kernel.py:73, through XLA).  Same
+// contract and roundings as the mma.sync backward above (P and dS rounded
+// to bf16 before their products, every sum fp32, each output element
+// written once after a fixed-order sum), in two launches on the stream:
+//
+// * dQ first: one block per (q tile of 64 x kDqWgs rows, head, batch row),
+//   longest rows first.  Its consumer warpgroups (64 q rows each) first
+//   form delta = rowsum(dO o) in fp32 for their rows from o and dO (one
+//   warp a row, a fixed shuffle tree) and write it to the (B, H, S) delta
+//   buffer, so no pre-pass reads o and dO again.  Q and dO stay in shared
+//   memory; K and V tiles of 64 rows stream through a TMA ring.  Per tile
+//   S = Q K^T and dP = dO V^T by wgmma (A = Q, dO; B = K, V, all K-major),
+//   then P = exp2(S scale log2 e - lse log2 e) and dS = P (dP - delta) in
+//   registers, and dQ += dS K with dS as wgmma's register A operand (the
+//   accumulator re-packed as bf16 pairs, no shared-memory round trip) and
+//   K read MN-major from the same swizzled tile.
+// * dK/dV next: one block per (kv tile, kv head, batch row), K and V of the
+//   tile stationary.  A producer warp streams, for every q tile and query
+//   head of the group that sees those keys, the Q and dO tiles (TMA, 4-D
+//   boxes over the (B, S, H, D) layout, 128-byte swizzle) with that tile's
+//   lse and delta into an mbarrier ring.  Per item S^T = K Q^T and dP^T =
+//   V dO^T (wgmma, both operands K-major in shared memory), P^T and dS^T in
+//   registers, then dV += P^T dO and dK += dS^T Q with P^T and dS^T as the
+//   register A operand and dO, Q read MN-major (the transpose bit) from the
+//   tiles the first two products read K-major.  GQA's sum over the group
+//   is the block's walk, so nothing is added atomically.  At D <= 128 two
+//   consumer warpgroups own 64 kv rows each (128 a block) and share every
+//   streamed tile.  At D = 256 a warpgroup's dK and dV of 64 rows would
+//   need 256 fp32 registers a thread, so both warpgroups own the same 64
+//   rows and 128 columns each: warpgroup 0 forms S^T and P^T, warpgroup 1
+//   dP^T and dS^T, and they hand P^T (fp32) and dS^T (bf16 pairs) to each
+//   other through shared memory at two named barriers, so S^T and dP^T are
+//   computed once a tile, not once per column half.
+//
+// Block shape: consumer warpgroups first, then one producer warpgroup of
+// which one warp works (setmaxnreg: 240 registers a consumer thread, 24 a
+// producer thread).  The grid puts the row blocks on its slowest axis, so
+// every head's longest walks start first.  A warpgroup runs the wgmmas
+// only on the items that hold one of its attended pairs: the items before
+// and after that range it waits for and releases, so no branch steers a
+// wgmma.  The mask (one unsigned compare of i - j against the window) is
+// applied only on tiles that cross its edge for one of a warp's rows.
+// Where the registers allow (dQ at D <= 128, dK/dV at D = 64) the loop is
+// software-pipelined: S and dP of the next tile are issued with the
+// products of this one, so a warpgroup's exponentials overlap its own
+// tensor-core work; at D = 64 the stationary operands (Q and dO, or K and
+// V) are also held as register A operands, which halves the shared-memory
+// reads of the score products.  Registers that a wgmma reads are written
+// only while none is in flight, so ptxas serialises no wgmma (no C751x
+// warning; chip_smoke.py checks the build log).
+// kernels/flash_attention/plan.py models both walks for the CPU tests.
+//
+// Bound on the H100 (989 TFLOP/s dense bf16; 3.35 TB/s): 10 D operations
+// per (query head, attended pair), the five products, or the bytes of
+// q, k, v, o, dO, lse in and dq, dk, dv out (chip_smoke.py's
+// flash_bwd_bound); at every training shape the operations bound.  This
+// design does 14 D a pair (S and dP once in each kernel).  Against the
+// mma.sync design: (1) no recompute across column halves at D = 256 (14
+// D, not 18 D) and none of delta; (2) wgmma from 64-row warpgroup tiles
+// with B read from shared memory by the tensor cores and A of the second
+// products from registers, where mma.sync re-read both operands by
+// ldmatrix every k step; (3) TMA copies issued by one thread into a ring
+// of 2-4 stages, so loads of the next item overlap this item's products;
+// (4) no third launch: delta is formed in the dQ kernel.
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kTile = 64;          // q rows of a dK/dV item, kv rows of a dQ step, wgmma M
+constexpr int kBox = 64 * 128;     // one TMA box: 64 rows x 64 columns of bf16
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+
+template <int D>
+struct Cfg {
+    static_assert(D == 64 || D == 128 || D == 256, "the wgmma backward takes D 64, 128, 256");
+    static constexpr int kCols = D > 128 ? 128 : D;       // columns of one accumulator
+    // dK/dV: two consumer warpgroups; at D = 256 over the same 64 rows
+    static constexpr bool kSplit = D > 128;
+    static constexpr int kKvRows = kSplit ? 64 : 128;
+    // rings as deep as shared memory allows where the loop is pipelined
+    // (dQ at D <= 128, dK/dV at D = 64): it holds two stages at once (tile
+    // n's product, tile n + 1's scores), and at D = 64 six stages ran
+    // faster than four on the card
+    static constexpr int kKvStages = D > 128 ? 2 : (D > 64 ? 3 : 6);
+    // dQ: 64 q rows a consumer warpgroup
+    static constexpr int kDqWgs = D > 128 ? 1 : 2;
+    static constexpr int kQRows = 64 * kDqWgs;
+    static constexpr int kQStages = D > 128 ? 2 : (D > 64 ? 5 : 6);
+    static constexpr int kTileBytes = kTile * D * 2;      // one 64-row tile of Q, dO, K or V
+    static constexpr int kXp = kSplit ? kTile * kTile * 4 : 0;      // P^T handed over, fp32
+    static constexpr int kXds = kSplit ? 128 * 16 * 4 : 0;          // dS^T handed over, bf16
+    static constexpr int kv_smem() {
+        return 1024 + 2 * kKvRows * D * 2 + kKvStages * 2 * kTileBytes +
+               kKvStages * kTile * 8 + kXp + kXds + (2 * kKvStages + 1) * 8;
+    }
+    static constexpr int q_smem() {
+        return 1024 + 2 * kQRows * D * 2 + kQStages * 2 * kTileBytes + kQRows * 4 +
+               (2 * kQStages + 1) * 8;
+    }
+};
+
+struct Params {
+    CUtensorMap q, k, v, dout;          // (D, heads, S, B), box 64 x 1 x 64 x 1
+    const __nv_bfloat16* o;             // (B, S, H, D)
+    const __nv_bfloat16* dout_ptr;
+    const float* lse;                   // (B, H, S)
+    float* delta;                       // (B, H, S)
+    __nv_bfloat16 *dq, *dk, *dv;
+    int S, H, Hkv, window;
+    float scale, scale_log2;
+};
+
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr) { return sw128_desc(addr, 16, 1024); }
+
+// B (16 rows of k x N columns) from rows [16 kk, 16 kk + 16) of a tile of
+// `rows` rows read MN-major, from its 64-column box c0 on
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int c0, int kk) {
+    return sw128_desc(tile + c0 * rows * 128 + kk * 2048, rows * 128, 1024);
+}
+
+template <int NC>
+__device__ __forceinline__ void mma_rs(float (&acc)[NC / 2], const uint32_t (&a)[4], uint64_t b) {
+    if constexpr (NC == 64)
+        wgmma_m64n64k16_rs<1>(acc, a, b);
+    else
+        wgmma_m64n128k16_rs<1>(acc, a, b);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][N]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < N; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// acc (64 x 64) = rows of A (64 rows from `a`, K-major, boxes `a_rows`
+// rows apart) . rows of B (`b`, 64 rows, K-major) over D
+template <int D>
+__device__ __forceinline__ void mma_ss_rows(float (&acc)[32], uint32_t a, int a_rows, uint32_t b) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_ss<0>(acc, kmajor(a + (kk >> 2) * a_rows * 128 + (kk & 3) * 32),
+                              kmajor(b + (kk >> 2) * kBox + (kk & 3) * 32), kk);
+}
+
+// The A fragments (k steps over D) of the 64 rows at `a` (K-major, boxes
+// `a_rows` rows apart, 128-byte swizzle) by ldmatrix: warp w's 16 rows, in
+// the layout wgmma's register A operand takes.
+template <int D>
+__device__ __forceinline__ void load_frags(uint32_t (&f)[D / 16][4], uint32_t a, int a_rows) {
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int r = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+        const int chunk = 2 * (kk & 3) + (lane >> 4);
+        tc::ldsm_x4(f[kk], a + (kk >> 2) * a_rows * 128 + r * 128 + ((chunk ^ (lane & 7)) << 4));
+    }
+}
+
+// acc (64 x 64) = A (64 x D, register fragments) . rows of B (`b`, 64
+// rows, K-major) over D
+template <int D>
+__device__ __forceinline__ void mma_rs_rows(float (&acc)[32], const uint32_t (&f)[D / 16][4],
+                                            uint32_t b) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_rs<0>(acc, f[kk], kmajor(b + (kk >> 2) * kBox + (kk & 3) * 32), kk);
+}
+
+// the 64 x 64 score block's accumulator as bf16 A fragments (k steps over its columns)
+__device__ __forceinline__ void to_frags(uint32_t (&f)[4][4], const float (&x)[32]) {
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+        f[nb >> 1][(nb & 1) * 2] = tc::pack_bf16(x[4 * nb], x[4 * nb + 1]);
+        f[nb >> 1][(nb & 1) * 2 + 1] = tc::pack_bf16(x[4 * nb + 2], x[4 * nb + 3]);
+    }
+}
+
+// rows [r0, r0 + 64 n) of one head into `dst` (64-column boxes of 64 n rows)
+template <int D>
+__device__ __forceinline__ void tma_rows(unsigned char* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int head, int r0, int n, int b) {
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+        for (int r = 0; r < n; ++r)
+            tma_load_4d(dst + (c * n + r) * kBox, map, bar, 64 * c, head, r0 + 64 * r, b);
+}
+
+// Store one 64 x NC accumulator (fp32) times `mul` as bf16 rows of a
+// (rows, heads, D) tensor at row stride `stride`: rows r0 + 16 warp + gr (+
+// 8) below `limit`, columns c0 + 8 c + 2 tq (+ 1).
+template <int NC>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, int64_t stride,
+                                           const float (&acc)[NC / 2], int r0, int limit,
+                                           int c0, float mul) {
+    const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const int r = r0 + 16 * warp + (lane >> 2) + 8 * half;
+        if (r >= limit) continue;
+        __nv_bfloat16* row = out + (int64_t)r * stride + c0 + 2 * (lane & 3);
+#pragma unroll
+        for (int c = 0; c < NC / 8; ++c)
+            *reinterpret_cast<uint32_t*>(row + 8 * c) =
+                tc::pack_bf16(acc[4 * c + 2 * half] * mul, acc[4 * c + 2 * half + 1] * mul);
+    }
+}
+
+// -- dQ (and delta) ----------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)     // 256 threads at D = 256: the same entry count
+flash_bwd_dq_wgmma(const __grid_constant__ Params p) {
+    using C = Cfg<D>;
+    constexpr int NW = C::kDqWgs, QR = C::kQRows, NS = C::kQStages, NC = C::kCols;
+    constexpr bool kPipe = NS >= 3;
+    // Q and dO as register A operands (64 registers), in the pipelined loop
+    // only: the plain loop with them gave wrong gradients on the card
+    // (PERF.md §7)
+    constexpr bool kRegA = kPipe && D == 64;
+    constexpr int kQBytes = QR * D * 2;
+    constexpr int kStage = 2 * C::kTileBytes;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* sq = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    unsigned char* sdo = sq + kQBytes;
+    unsigned char* ring = sdo + kQBytes;          // NS stages of a K tile, then a V tile
+    float* sdelta = reinterpret_cast<float*>(ring + NS * kStage);
+    uint64_t* full = reinterpret_cast<uint64_t*>(sdelta + QR);
+    uint64_t* empty = full + NS;
+    uint64_t* qbar = empty + NS;
+
+    const int S = p.S, H = p.H, window = p.window;
+    // row blocks on the grid's slowest axis, longest rows first, so every
+    // head's longest blocks start before any shorter one
+    const int q0 = (gridDim.z - 1 - blockIdx.z) * QR;
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int hk = h / (H / p.Hkv);
+    // kv tiles that hold a key some row of [q0, q_hi] attends
+    const int q_hi = min(q0 + QR, S) - 1;
+    const int kt_lo = (window > 0 ? max(0, q0 - window + 1) : 0) / kTile;
+    const int n_tiles = q_hi / kTile + 1 - kt_lo;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < NS; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 4 * NW);       // lane 0 of every consumer warp
+        }
+        mbar_init(qbar, 1);
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x >> 7;
+    if (wg == NW) {
+        reg_dealloc<kProducerRegs>();
+        if (threadIdx.x != 128 * NW) return;
+        mbar_arrive_expect_tx(qbar, 2 * kQBytes);
+        tma_rows<D>(sq, &p.q, qbar, h, q0, NW, b);
+        tma_rows<D>(sdo, &p.dout, qbar, h, q0, NW, b);
+        int s = 0;
+        uint32_t phase = 0;
+        for (int n = 0; n < n_tiles; ++n) {
+            mbar_wait(&empty[s], phase ^ 1);
+            unsigned char* st = ring + s * kStage;
+            mbar_arrive_expect_tx(&full[s], kStage);
+            tma_rows<D>(st, &p.k, &full[s], hk, (kt_lo + n) * kTile, 1, b);
+            tma_rows<D>(st + C::kTileBytes, &p.v, &full[s], hk, (kt_lo + n) * kTile, 1, b);
+            if (++s == NS) {
+                s = 0;
+                phase ^= 1;
+            }
+        }
+    } else {
+        reg_alloc<kConsumerRegs>();
+        const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+        const int gr = lane >> 2, tq = lane & 3;
+        const int cwg = uniform(wg);
+        const int w0 = q0 + 64 * cwg;                     // the warpgroup's first q row
+        const int iw = w0 + 16 * warp;                    // the warp's first q row
+        // delta = rowsum(dO o) in fp32 for the warp's 16 rows: lane l sums
+        // its pairs 2 (l + 32 e), then a fixed shuffle tree; the loads of
+        // RB rows are issued together (rows past S read row S - 1, unused)
+        constexpr int RB = 16 * 64 / D;
+#pragma unroll
+        for (int r0 = 0; r0 < 16; r0 += RB) {
+            __nv_bfloat162 ov[RB][D / 64], gv[RB][D / 64];
+#pragma unroll
+            for (int rr = 0; rr < RB; ++rr) {
+                const int i = min(iw + r0 + rr, S - 1);
+                const int64_t off = (((int64_t)b * S + i) * H + h) * D;
+                const __nv_bfloat162* orow = reinterpret_cast<const __nv_bfloat162*>(p.o + off);
+                const __nv_bfloat162* drow =
+                    reinterpret_cast<const __nv_bfloat162*>(p.dout_ptr + off);
+#pragma unroll
+                for (int e = 0; e < D / 64; ++e) {
+                    ov[rr][e] = orow[lane + 32 * e];
+                    gv[rr][e] = drow[lane + 32 * e];
+                }
+            }
+#pragma unroll
+            for (int rr = 0; rr < RB; ++rr) {
+                const int i = iw + r0 + rr;
+                float acc = 0.f;
+#pragma unroll
+                for (int e = 0; e < D / 64; ++e) {
+                    const float2 o2 = __bfloat1622float2(ov[rr][e]);
+                    const float2 g2 = __bfloat1622float2(gv[rr][e]);
+                    acc = fmaf(g2.x, o2.x, acc);
+                    acc = fmaf(g2.y, o2.y, acc);
+                }
+#pragma unroll
+                for (int off = 16; off > 0; off >>= 1)
+                    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+                if (i >= S) acc = 0.f;
+                if (lane == 0) {
+                    sdelta[64 * cwg + 16 * warp + r0 + rr] = acc;
+                    if (i < S) p.delta[((int64_t)b * H + h) * S + i] = acc;
+                }
+            }
+        }
+        __syncwarp();
+        float nl2[2], dl[2];              // -lse log2 e (-inf past S) and delta of two rows
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int i = iw + gr + 8 * e;
+            nl2[e] = i < S ? -p.lse[((int64_t)b * H + h) * S + i] * kLog2e : -INFINITY;
+            dl[e] = sdelta[64 * cwg + 16 * warp + gr + 8 * e];
+        }
+        const unsigned wlim = window > 0 ? (unsigned)window : 0x7fffffffu;
+        float dq[D / NC][NC / 2];
+#pragma unroll
+        for (int c = 0; c < D / NC; ++c)
+#pragma unroll
+            for (int e = 0; e < NC / 2; ++e) dq[c][e] = 0.f;
+
+        // the warpgroup's live tiles [a, z) of the walk
+        const int i_hi = min(w0 + 63, S - 1);
+        int a = 0, z = 0;
+        if (w0 < S) {
+            const int lo = window > 0 ? max(0, w0 - window + 1) : 0;
+            a = max(lo / kTile - kt_lo, 0);
+            z = min(i_hi / kTile + 1 - kt_lo, n_tiles);
+        }
+        a = uniform(a);
+        z = uniform(max(a, z));
+        const int nt = uniform(n_tiles);
+        const uint32_t qa = smem_u32(sq) + cwg * kBox, oa = smem_u32(sdo) + cwg * kBox;
+        // tile n of the walk sits in stage n % NS, in its (n / NS)-th fill
+        auto wait_full = [&](int n) { mbar_wait(&full[n % NS], (n / NS) & 1); };
+        auto release = [&](int n) { mbar_arrive_if(&empty[n % NS], lane == 0); };
+        auto stage = [&](int n) { return smem_u32(ring + (n % NS) * kStage); };
+        float sc[32], dp[32];
+        uint32_t qf[kRegA ? D / 16 : 1][4], of[kRegA ? D / 16 : 1][4];
+        // S = Q K^T and dP = dO V^T of tile n, one commit group
+        auto issue_sp = [&](int n) {
+            wgmma_fence();
+            if constexpr (kRegA) {
+                mma_rs_rows<D>(sc, qf, stage(n));
+                mma_rs_rows<D>(dp, of, stage(n) + C::kTileBytes);
+            } else {
+                mma_ss_rows<D>(sc, qa, QR, stage(n));
+                mma_ss_rows<D>(dp, oa, QR, stage(n) + C::kTileBytes);
+            }
+            wgmma_commit();
+        };
+        // dS = P (dP - delta), P = exp2(S scale log2 e - lse log2 e) where row
+        // i attends key j (d = i - j in [0, window)), fp32 in place of S; the
+        // mask only on tiles that cross its edge for one of the warp's rows
+        auto grad_scores = [&](int n) {
+            fence_operands(sc);
+            fence_operands(dp);
+            const int k0 = (kt_lo + n) * kTile;
+            const int dlt = iw + gr - k0 - 2 * tq;
+            auto run = [&](auto masked) {
+#pragma unroll
+                for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        float pv = tc::fast_exp2(fmaf(sc[4 * nb + e], p.scale_log2, nl2[e >> 1]));
+                        if constexpr (decltype(masked)::value) {
+                            const int d = dlt + 8 * (e >> 1) - 8 * nb - (e & 1);
+                            pv = (unsigned)d < wlim ? pv : 0.f;
+                        }
+                        sc[4 * nb + e] = pv * (dp[4 * nb + e] - dl[e >> 1]);
+                    }
+            };
+            if (iw - k0 - (kTile - 1) >= 0 && (unsigned)(iw + 15 - k0) < wlim)
+                run(std::false_type{});
+            else
+                run(std::true_type{});
+        };
+        // dQ += dS K of tile n, one commit group
+        auto issue_dq = [&](int n, uint32_t (&da)[4][4]) {
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int c = 0; c < D / NC; ++c)
+                    mma_rs<NC>(dq[c], da[kk], mnmajor(stage(n), kTile, c * (NC / 64), kk));
+            wgmma_commit();
+        };
+        mbar_wait(qbar, 0);
+        if constexpr (kRegA) {
+            load_frags<D>(qf, qa, QR);
+            load_frags<D>(of, oa, QR);
+        }
+        for (int n = 0; n < a; ++n) {
+            wait_full(n);
+            release(n);
+        }
+        uint32_t da[4][4];
+        if constexpr (kPipe) {
+            // Software-pipelined: S and dP of tile n + 1 are issued with dQ
+            // of tile n, and tile n + 1's exponentials and dS run while the
+            // tensor cores finish dQ(n).  Registers that a wgmma reads are
+            // written only while none is in flight (after wait<0>: the bf16
+            // fragments) or when the next wgmma reading them comes after the
+            // next wait<0> (S in place), so ptxas keeps the wgmmas
+            // asynchronous.
+            if (a < z) {
+                wait_full(a);
+                issue_sp(a);
+                wgmma_wait<0>();
+                grad_scores(a);
+                to_frags(da, sc);
+                for (int n = a; n + 1 < z; ++n) {
+                    wait_full(n + 1);
+                    issue_sp(n + 1);
+                    issue_dq(n, da);
+                    wgmma_wait<1>();              // S/dP(n + 1) done, dQ(n) may run
+                    grad_scores(n + 1);
+                    wgmma_wait<0>();
+                    fence_frags(da);
+                    release(n);
+                    to_frags(da, sc);
+                }
+                issue_dq(z - 1, da);
+                wgmma_wait<0>();
+                release(z - 1);
+            }
+        } else {
+            for (int n = a; n < z; ++n) {
+                wait_full(n);
+                issue_sp(n);
+                wgmma_wait<0>();
+                grad_scores(n);
+                to_frags(da, sc);
+                issue_dq(n, da);
+                wgmma_wait<0>();
+                fence_frags(da);
+                release(n);
+            }
+        }
+        fence_frags(da);
+#pragma unroll
+        for (int c = 0; c < D / NC; ++c) fence_operands(dq[c]);
+        for (int n = z; n < nt; ++n) {
+            wait_full(n);
+            release(n);
+        }
+
+        __nv_bfloat16* out = p.dq + ((int64_t)b * S * H + h) * D;
+#pragma unroll
+        for (int c = 0; c < D / NC; ++c)
+            store_rows<NC>(out, (int64_t)H * D, dq[c], w0, S, c * NC, p.scale);
+    }
+}
+
+// -- dK and dV ----------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ Params p) {
+    using C = Cfg<D>;
+    constexpr int KR = C::kKvRows, NS = C::kKvStages, NC = C::kCols;
+    constexpr bool kSplit = C::kSplit;
+    constexpr bool kPipe = D == 64;       // fits the registers at D = 64 only
+    constexpr bool kRegA = kPipe;         // K and V as register A operands, as in the dQ kernel
+    constexpr int kKvBytes = KR * D * 2;
+    constexpr int kStage = 2 * C::kTileBytes;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* sk = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    unsigned char* sv = sk + kKvBytes;
+    unsigned char* ring = sv + kKvBytes;          // NS stages of a Q tile, then a dO tile
+    float* sl = reinterpret_cast<float*>(ring + NS * kStage);     // NS x 64: -lse log2 e
+    float* sdl = sl + NS * kTile;                                  // NS x 64: delta
+    float* xp = sdl + NS * kTile;                                  // split: P^T, fragment order
+    uint32_t* xds = reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(xp) + C::kXp);
+    uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(xds) + C::kXds);
+    uint64_t* empty = full + NS;
+    uint64_t* kvbar = empty + NS;
+
+    const int S = p.S, H = p.H, window = p.window;
+    const int G = H / p.Hkv;
+    // kv blocks on the grid's slowest axis: the first (longest causal walk) first
+    const int k0 = blockIdx.z * KR, hk = blockIdx.x, b = blockIdx.y;
+    // q tiles that hold a row attending some key of [k0, k_hi]; items are
+    // (q tile, query head of the group), the heads innermost
+    const int k_hi = min(k0 + KR, S) - 1;
+    const int q_last = window > 0 ? min(S - 1, k_hi + window - 1) : S - 1;
+    const int qt_lo = k0 / kTile;
+    const int n_items = (q_last / kTile + 1 - qt_lo) * G;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < NS; ++s) {
+            mbar_init(&full[s], 1 + 32);         // the TMA's expect_tx, the warp's lse/delta
+            mbar_init(&empty[s], 8);             // lane 0 of every consumer warp
+        }
+        mbar_init(kvbar, 1);
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x >> 7;
+    if (wg == 2) {
+        reg_dealloc<kProducerRegs>();
+        if (threadIdx.x >= 256 + 32) return;
+        const int lane = threadIdx.x & 31;
+        if (lane == 0) {
+            mbar_arrive_expect_tx(kvbar, 2 * kKvBytes);
+            tma_rows<D>(sk, &p.k, kvbar, hk, k0, KR / 64, b);
+            tma_rows<D>(sv, &p.v, kvbar, hk, k0, KR / 64, b);
+        }
+        int s = 0;
+        uint32_t phase = 0;
+        for (int n = 0; n < n_items; ++n) {
+            const int q0 = (qt_lo + n / G) * kTile, h = hk * G + n % G;
+            mbar_wait(&empty[s], phase ^ 1);
+            unsigned char* st = ring + s * kStage;
+            if (lane == 0) {
+                mbar_arrive_expect_tx(&full[s], kStage);
+                tma_rows<D>(st, &p.q, &full[s], h, q0, 1, b);
+                tma_rows<D>(st + C::kTileBytes, &p.dout, &full[s], h, q0, 1, b);
+            }
+            const float* lrow = p.lse + ((int64_t)b * H + h) * S;
+            const float* drow = p.delta + ((int64_t)b * H + h) * S;
+            for (int r = lane; r < kTile; r += 32) {
+                const int i = q0 + r;
+                sl[s * kTile + r] = i < S ? -lrow[i] * kLog2e : -INFINITY;
+                sdl[s * kTile + r] = i < S ? drow[i] : 0.f;
+            }
+            mbar_arrive_if(&full[s], true);
+            if (++s == NS) {
+                s = 0;
+                phase ^= 1;
+            }
+        }
+    } else {
+        reg_alloc<kConsumerRegs>();
+        const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+        const int gr = lane >> 2, tq = lane & 3;
+        const int cwg = uniform(wg);
+        const int rw = kSplit ? 0 : cwg;                  // the warpgroup's 64-row block of kv
+        const int j0 = k0 + 64 * rw;
+        const int jw = j0 + 16 * warp;                    // the warp's first kv row
+        float dk[NC / 2], dv[NC / 2];
+#pragma unroll
+        for (int e = 0; e < NC / 2; ++e) dk[e] = dv[e] = 0.f;
+
+        // the warpgroup's live items [a, z): the q tiles meeting its keys
+        const int j_hi = min(j0 + 63, S - 1);
+        int a = 0, z = 0;
+        if (j0 < S) {
+            const int top = window > 0 ? min(S - 1, j_hi + window - 1) : S - 1;
+            a = (max(j0 / kTile, qt_lo) - qt_lo) * G;
+            z = min((top / kTile + 1 - qt_lo) * G, n_items);
+        }
+        a = uniform(a);
+        z = uniform(max(a, z));
+        const int ni = uniform(n_items);
+        const uint32_t ka = smem_u32(sk) + rw * kBox, va = smem_u32(sv) + rw * kBox;
+        const unsigned wlim = window > 0 ? (unsigned)window : 0x7fffffffu;
+        // item n of the walk sits in stage n % NS, in its (n / NS)-th fill
+        auto wait_full = [&](int n) { mbar_wait(&full[n % NS], (n / NS) & 1); };
+        auto release = [&](int n) { mbar_arrive_if(&empty[n % NS], lane == 0); };
+        auto stage = [&](int n) { return smem_u32(ring + (n % NS) * kStage); };
+        // element e of score block nb of item n pairs q row i and kv row j
+        // at i - j = dlt(n) + 8 nb + (e & 1) - 8 (e >> 1); attended where
+        // that lies in [0, window)
+        auto dlt = [&](int n) { return (qt_lo + n / G) * kTile + 2 * tq - jw - gr; };
+        const int c0 = kSplit ? 2 * cwg : 0;
+        // dV += P^T dO and dK += dS^T Q over the warpgroup's columns, one group
+        auto issue_dkdv = [&](int n, uint32_t (&pa)[4][4], uint32_t (&da)[4][4]) {
+            const uint32_t qs = stage(n), os = qs + C::kTileBytes;
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                mma_rs<NC>(dv, pa[kk], mnmajor(os, kTile, c0, kk));
+                mma_rs<NC>(dk, da[kk], mnmajor(qs, kTile, c0, kk));
+            }
+            wgmma_commit();
+        };
+        mbar_wait(kvbar, 0);
+        for (int n = 0; n < a; ++n) {
+            wait_full(n);
+            release(n);
+        }
+        uint32_t pa[4][4], da[4][4];
+        if constexpr (!kSplit) {
+            float st[32], dpt[32];
+            uint32_t kf[kRegA ? D / 16 : 1][4], vf[kRegA ? D / 16 : 1][4];
+            if constexpr (kRegA) {
+                load_frags<D>(kf, ka, KR);
+                load_frags<D>(vf, va, KR);
+            }
+            // S^T = K Q^T and dP^T = V dO^T of item n, one commit group
+            auto issue_sp = [&](int n) {
+                wgmma_fence();
+                if constexpr (kRegA) {
+                    mma_rs_rows<D>(st, kf, stage(n));
+                    mma_rs_rows<D>(dpt, vf, stage(n) + C::kTileBytes);
+                } else {
+                    mma_ss_rows<D>(st, ka, KR, stage(n));
+                    mma_ss_rows<D>(dpt, va, KR, stage(n) + C::kTileBytes);
+                }
+                wgmma_commit();
+            };
+            // P^T and dS^T = P^T (dP^T - delta), fp32 in place; the mask
+            // only on items that cross its edge for one of the warp's rows
+            auto grad_scores = [&](int n) {
+                fence_operands(st);
+                fence_operands(dpt);
+                const float* ls = sl + (n % NS) * kTile;
+                const float* ds = sdl + (n % NS) * kTile;
+                const int d0 = dlt(n);
+                auto run = [&](auto masked) {
+#pragma unroll
+                    for (int nb = 0; nb < 8; ++nb) {
+                        const int col = 8 * nb + 2 * tq;
+                        const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+                        const float2 d2 = *reinterpret_cast<const float2*>(ds + col);
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            float pv = tc::fast_exp2(fmaf(st[4 * nb + e], p.scale_log2,
+                                                          (e & 1) ? l2.y : l2.x));
+                            if constexpr (decltype(masked)::value) {
+                                const int d = d0 + 8 * nb + (e & 1) - 8 * (e >> 1);
+                                pv = (unsigned)d < wlim ? pv : 0.f;
+                            }
+                            st[4 * nb + e] = pv;
+                            dpt[4 * nb + e] = pv * (dpt[4 * nb + e] - ((e & 1) ? d2.y : d2.x));
+                        }
+                    }
+                };
+                const int q0 = (qt_lo + n / G) * kTile;
+                if (q0 - jw - 15 >= 0 && (unsigned)(q0 + kTile - 1 - jw) < wlim)
+                    run(std::false_type{});
+                else
+                    run(std::true_type{});
+            };
+            if constexpr (kPipe) {
+                // software-pipelined as the dQ kernel's loop: S^T/dP^T of
+                // item n + 1 are issued with dV/dK of item n
+                if (a < z) {
+                    wait_full(a);
+                    issue_sp(a);
+                    wgmma_wait<0>();
+                    grad_scores(a);
+                    to_frags(pa, st);
+                    to_frags(da, dpt);
+                    for (int n = a; n + 1 < z; ++n) {
+                        wait_full(n + 1);
+                        issue_sp(n + 1);
+                        issue_dkdv(n, pa, da);
+                        wgmma_wait<1>();
+                        grad_scores(n + 1);
+                        wgmma_wait<0>();
+                        fence_frags(pa);
+                        fence_frags(da);
+                        release(n);
+                        to_frags(pa, st);
+                        to_frags(da, dpt);
+                    }
+                    issue_dkdv(z - 1, pa, da);
+                    wgmma_wait<0>();
+                    release(z - 1);
+                }
+            } else {
+                for (int n = a; n < z; ++n) {
+                    wait_full(n);
+                    issue_sp(n);
+                    wgmma_wait<0>();
+                    grad_scores(n);
+                    to_frags(pa, st);
+                    to_frags(da, dpt);
+                    issue_dkdv(n, pa, da);
+                    wgmma_wait<0>();
+                    fence_frags(pa);
+                    fence_frags(da);
+                    release(n);
+                }
+            }
+        } else {
+            // warpgroup 0: S^T and P^T; warpgroup 1: dP^T and dS^T
+            float2* xpf = reinterpret_cast<float2*>(xp);
+            for (int n = a; n < z; ++n) {
+                wait_full(n);
+                const uint32_t qs = stage(n), os = qs + C::kTileBytes;
+                float acc[32];
+                wgmma_fence();
+                mma_ss_rows<D>(acc, cwg == 0 ? ka : va, KR, cwg == 0 ? qs : os);
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_operands(acc);
+                if (cwg == 0) {
+                    const float* ls = sl + (n % NS) * kTile;
+                    const int d0 = dlt(n);
+#pragma unroll
+                    for (int nb = 0; nb < 8; ++nb) {
+                        const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * nb + 2 * tq);
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const int d = d0 + 8 * nb + (e & 1) - 8 * (e >> 1);
+                            acc[4 * nb + e] = (unsigned)d < wlim
+                                                  ? tc::fast_exp2(fmaf(acc[4 * nb + e],
+                                                                       p.scale_log2,
+                                                                       (e & 1) ? l2.y : l2.x))
+                                                  : 0.f;
+                        }
+                    }
+#pragma unroll
+                    for (int v = 0; v < 16; ++v)
+                        xpf[v * 128 + t] = make_float2(acc[2 * v], acc[2 * v + 1]);
+                }
+                named_bar_sync(1, 256);                   // P^T handed over
+                if (cwg == 1) {
+                    const float* ds = sdl + (n % NS) * kTile;
+                    float pt[32];
+#pragma unroll
+                    for (int v = 0; v < 16; ++v) {
+                        const float2 pv = xpf[v * 128 + t];
+                        pt[2 * v] = pv.x;
+                        pt[2 * v + 1] = pv.y;
+                    }
+#pragma unroll
+                    for (int nb = 0; nb < 8; ++nb) {
+                        const float2 d2 = *reinterpret_cast<const float2*>(ds + 8 * nb + 2 * tq);
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            acc[4 * nb + e] = pt[4 * nb + e] *
+                                              (acc[4 * nb + e] - ((e & 1) ? d2.y : d2.x));
+                    }
+                    to_frags(pa, pt);
+                    to_frags(da, acc);
+#pragma unroll
+                    for (int v = 0; v < 16; ++v) xds[v * 128 + t] = da[v >> 2][v & 3];
+                } else {
+                    to_frags(pa, acc);
+                }
+                named_bar_sync(2, 256);                   // dS^T handed over
+                if (cwg == 0) {
+#pragma unroll
+                    for (int v = 0; v < 16; ++v) da[v >> 2][v & 3] = xds[v * 128 + t];
+                }
+                issue_dkdv(n, pa, da);
+                wgmma_wait<0>();
+                fence_frags(pa);
+                fence_frags(da);
+                release(n);
+            }
+        }
+        fence_frags(pa);
+        fence_frags(da);
+        fence_operands(dv);
+        fence_operands(dk);
+        for (int n = z; n < ni; ++n) {
+            wait_full(n);
+            release(n);
+        }
+
+        const int64_t stride = (int64_t)p.Hkv * D;
+        const int64_t base = ((int64_t)b * S * p.Hkv + hk) * D;
+        const int cc = kSplit ? NC * cwg : 0;
+        store_rows<NC>(p.dk + base, stride, dk, j0, S, cc, p.scale);
+        store_rows<NC>(p.dv + base, stride, dv, j0, S, cc, 1.f);
+    }
+}
+
+// (D, heads, S, B) map of a (B, S, heads, D) bf16 tensor, box 64 x 1 x 64 x 1
+inline bool encode_heads(CUtensorMap* map, const void* x, int B, int S, int heads, int D) {
+    const uint64_t dims[4] = {(uint64_t)D, (uint64_t)heads, (uint64_t)S, (uint64_t)B};
+    const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)heads * D * 2,
+                                 (uint64_t)S * heads * D * 2};
+    const uint32_t box[4] = {64, 1, kTile, 1};
+    return encode_bf16_sw128(map, x, 4, dims, strides, box);
+}
+
+template <int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                       void* dv, int B, int S, int H, int Hkv, int window, cudaStream_t stream) {
+    using C = Cfg<D>;
+    Params p;
+    if (!encode_heads(&p.q, q, B, S, H, D) || !encode_heads(&p.dout, dout, B, S, H, D) ||
+        !encode_heads(&p.k, k, B, S, Hkv, D) || !encode_heads(&p.v, v, B, S, Hkv, D))
+        return cudaErrorNotSupported;
+    p.o = static_cast<const __nv_bfloat16*>(o);
+    p.dout_ptr = static_cast<const __nv_bfloat16*>(dout);
+    p.lse = lse;
+    p.delta = delta;
+    p.dq = static_cast<__nv_bfloat16*>(dq);
+    p.dk = static_cast<__nv_bfloat16*>(dk);
+    p.dv = static_cast<__nv_bfloat16*>(dv);
+    p.S = S;
+    p.H = H;
+    p.Hkv = Hkv;
+    p.window = window;
+    p.scale = (float)(1.0 / sqrt((double)D));
+    p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_wgmma<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::q_smem());
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kv_smem());
+    if (e != cudaSuccess) return e;
+    flash_bwd_dq_wgmma<D><<<dim3(H, B, (S + C::kQRows - 1) / C::kQRows), 128 * (C::kDqWgs + 1),
+                            C::q_smem(), stream>>>(p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    flash_bwd_dkdv_wgmma<D><<<dim3(Hkv, B, (S + C::kKvRows - 1) / C::kKvRows), 384,
+                              C::kv_smem(), stream>>>(p);
+    return cudaGetLastError();
+}
+
+// 2 = the wgmma design (D 64, 128, 256), 1 = mma.sync (other multiples of 16)
+inline bool takes(int D) { return D == 64 || D == 128 || D == 256; }
+
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int S,
+                   int H, int Hkv, int D, int window, cudaStream_t stream) {
+    switch (D) {
+        case 64:
+            return launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, Hkv, window,
+                                  stream);
+        case 128:
+            return launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, Hkv,
+                                   window, stream);
+        case 256:
+            return launch_bwd<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, Hkv,
+                                   window, stream);
+        default:
+            return cudaErrorInvalidValue;
+    }
+}
+
+}  // namespace wg
+
 }  // namespace
 
 extern "C" {
@@ -1502,8 +2370,10 @@ int flash_attention_launch(int route, int dtype, const void* q, const void* k, c
 // attended by row i iff j <= i and, with window > 0, j > i - window): from
 // q, k, v, the forward's o and lse and the output gradient dout (o's
 // layout and dtype), writes dq (q's layout) and dk, dv (k's layout) in the
-// inputs' dtype; delta is a float32 (B, H, S) work buffer.  Three launches
-// on the stream: the delta pre-pass, dK/dV, dQ.  route and dtype as above.
+// inputs' dtype; delta is a float32 (B, H, S) work buffer.  route and dtype
+// as above.  On the wgmma design (flash_attention_backward_kernel_of = 2)
+// two launches on the stream: dQ (which writes delta), then dK/dV; on the
+// others three: the delta pre-pass, dK/dV, dQ.
 int flash_attention_backward_launch(int route, int dtype, const void* q, const void* k,
                                     const void* v, const void* o, const void* dout,
                                     const float* lse, float* delta, void* dq, void* dk,
@@ -1518,8 +2388,12 @@ int flash_attention_backward_launch(int route, int dtype, const void* q, const v
                              reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
         const uintptr_t out = reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
                               reinterpret_cast<uintptr_t>(dv);
-        if (dtype != 1 || D % 16 != 0 || (in & 15) != 0 || (out & 3) != 0)
+        if (dtype != 1 || D % 16 != 0 || (in & 15) != 0 ||
+            ((out | reinterpret_cast<uintptr_t>(o)) & 3) != 0)
             return (int)cudaErrorInvalidValue;
+        if (wg::takes(D))
+            return (int)wg::launch(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, Hkv, D,
+                                   window, s);
         cudaError_t e = cc::launch_delta<__nv_bfloat16>(o, dout, delta, B, S, H, D, s);
         if (e != cudaSuccess) return (int)e;
         return (int)tc::launch_bwd(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, Hkv, D,
@@ -1539,6 +2413,36 @@ int flash_attention_backward_launch(int route, int dtype, const void* q, const v
                                                   H, Hkv, D, window, s);
     }
     return (int)cudaErrorInvalidValue;
+}
+
+// The backward design flash_attention_backward_launch runs for a dtype and
+// head dim on the route the wrapper picks for them (bf16 at a multiple of
+// 16 on the tensor cores): 2 = wgmma (D 64, 128, 256), 1 = mma.sync
+// (other multiples of 16), 0 = CUDA cores, -1 for a dtype it does not take.
+// The wrapper counts launches by it, so the rule lives here only.
+int flash_attention_backward_kernel_of(int dtype, int D) {
+    if (dtype != 0 && dtype != 1) return -1;
+    if (dtype != 1 || D % 16 != 0) return 0;
+    return wg::takes(D) ? 2 : 1;
+}
+
+// The wgmma backward's tiles at head dim D, for the CPU model of its walks
+// (kernels/flash_attention/plan.py): out = {kv rows of a dK/dV block, q
+// rows of its items, its consumer warpgroups split the columns (0 or 1),
+// q rows of a dQ block, kv rows of its steps, the dK/dV ring's stages, the
+// dQ ring's stages}.  Returns 0, or -1 where D does not take that design.
+int flash_attention_backward_plan(int D, int* out) {
+    if (!wg::takes(D)) return -1;
+#define FA_PLAN(DD)                                                                            \
+    {                                                                                          \
+        using C = wg::Cfg<DD>;                                                                 \
+        const int v[7] = {C::kKvRows, wg::kTile, C::kSplit ? 1 : 0, C::kQRows, wg::kTile,      \
+                          C::kKvStages, C::kQStages};                                          \
+        for (int i = 0; i < 7; ++i) out[i] = v[i];                                             \
+    }
+    if (D == 64) FA_PLAN(64) else if (D == 128) FA_PLAN(128) else FA_PLAN(256)
+#undef FA_PLAN
+    return 0;
 }
 
 const char* flash_attention_error_string(int err) {

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for the package's CUDA sources (included
-// by moe_experts.cu): mbarriers, TMA tile loads, wgmma descriptors and the
-// bf16 m64n128k16 wgmma, and the CUDA driver's tensor-map encoder reached
-// through the runtime (cudaGetDriverEntryPoint), so no library links
-// against libcuda.
+// by moe_experts.cu and flash_attention.cu): mbarriers, TMA tile loads (2-,
+// 3- and 4-D boxes), wgmma descriptors, the bf16 wgmmas (m64n128k16 with
+// both operands in shared memory; m64n64k16 the same with either B
+// layout; m64n64k16 and m64n128k16 with A in registers), named barriers,
+// and the CUDA driver's tensor-map encoder reached through the runtime
+// (cudaGetDriverEntryPoint), so no library links against libcuda.
 //
 // Layouts follow the PTX ISA's canonical 128-byte-swizzled forms, which
 // TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
@@ -13,6 +15,10 @@
 //     bytes apart (SBO), 64-column blocks LBO bytes apart (one TMA box
 //     each); one k16 step advances the start address by 16 rows = 2048
 //     bytes.
+// So one tile of R rows x D columns, loaded as D / 64 boxes of R rows x 64
+// columns, serves both: K-major with the rows as M or N (k step kk at box
+// kk / 4, + 32 (kk % 4) bytes) and MN-major with the rows as k (LBO = the
+// box's R x 128 bytes).
 // Every tile starts on a 1024-byte boundary (the swizzle atom), so the
 // descriptors' base offset is 0.
 
@@ -91,6 +97,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
         : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+        "r"(c3)
+        : "memory");
+}
+
 // A value the compiler can treat as warp-uniform: lane 0's, broadcast.
 __device__ __forceinline__ int uniform(int v) { return __shfl_sync(0xffffffffu, v, 0); }
 
@@ -145,8 +161,11 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        ""
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        ""
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        ""
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
         "%64, %65, p, 1, 1, 0, 1;\n"
         "}\n"
@@ -162,6 +181,95 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
           "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "n"(1));
+}
+
+// d (64 x 64, fp32) = (scale_d ? d : 0) + a (64 x 16, bf16, K-major) . b (16 x
+// 64, bf16; K-major with TB = 0, N-major with TB = 1), both read from shared
+// memory through their descriptors; the accumulator layout of
+// wgmma_m64n128k16_bf16 over 64 columns.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// d (64 x 64, fp32) = (scale_d ? d : 0) + a (64 x 16, bf16, in registers) . b
+// (16 x 64, bf16; K-major with TB = 0, N-major with TB = 1, read from shared
+// memory).
+// Warp w of the warpgroup holds rows 16 w .. 16 w + 15 of a in the layout
+// of mma.m16n8k16's A: a[0] row (t % 32) / 4, columns 2 (t % 4) (+ 1);
+// a[1] the row 8 below; a[2], a[3] the same rows 8 columns on.  So the
+// accumulator blocks 2 k and 2 k + 1 of a wgmma (columns 16 k .. 16 k +
+// 15), packed as bf16 pairs, are the A operand of k step k.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %38, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(scale_d));
+}
+
+// d (64 x 128, fp32) = (scale_d ? d : 0) + a (64 x 16, bf16, in registers) . b
+// (16 x 128, bf16; K-major with TB = 0, N-major with TB = 1, read from shared
+// memory).
+// Warp w of the warpgroup holds rows 16 w .. 16 w + 15 of a in the layout
+// of mma.m16n8k16's A: a[0] row (t % 32) / 4, columns 2 (t % 4) (+ 1);
+// a[1] the row 8 below; a[2], a[3] the same rows 8 columns on.  So the
+// accumulator blocks 2 k and 2 k + 1 of a wgmma (columns 16 k .. 16 k +
+// 15), packed as bf16 pairs, are the A operand of k step k.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %70, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %69;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+          "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(scale_d));
+}
+
+// -- named barriers ---------------------------------------------------------------------
+
+// Every one of `n` threads (a multiple of 32) waits at barrier `id` (1-15;
+// 0 is __syncthreads'); shared-memory writes before it are seen after it.
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // -- host: tensor maps ----------------------------------------------------------------
@@ -190,7 +298,7 @@ inline EncodeTiledFn encode_tiled() {
     return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first) with a box of
+// A bf16 tensor map of `rank` (2 to 5) dimensions (innermost first) with a box of
 // 64 innermost elements (128 bytes) and `box` elsewhere, 128-byte swizzle,
 // out-of-bounds elements read as zero.  strides[i] is dimension i + 1's
 // stride in bytes.  Returns false when the CUDA driver refuses it.
@@ -199,7 +307,7 @@ inline bool encode_bf16_sw128(CUtensorMap* map, const void* base, int rank,
                               const uint32_t* box) {
     EncodeTiledFn fn = encode_tiled();
     if (fn == nullptr) return false;
-    const cuuint32_t unit[3] = {1, 1, 1};
+    const cuuint32_t unit[5] = {1, 1, 1, 1, 1};   // element strides, up to rank 5
     return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
               reinterpret_cast<const cuuint64_t*>(dims),
               reinterpret_cast<const cuuint64_t*>(strides),

@@ -38,6 +38,18 @@
 // us, for a 256-token chunk at W = 2560.  The fold itself is 256 dependent
 // multiply-add pairs (about 8 cycles each, ~1.1 us at 1.8 GHz) after the
 // first stage's latency.
+//
+// Reverse mode (the backward's adjoint; no TPU kernel stands behind it:
+// the JAX package differentiates its scan through XLA).  With reverse = 1
+// the same kernels fold g = b from the end: dh_t = a_{t+1} dh_{t+1} + g_t
+// from dh_L = 0 with a_L = 0, t from L - 1 down to 0, reading a one step
+// ahead in place.  A stage of the ring holds the steps t_hi - 1 down to
+// t_hi - 32 in that order (row r: g_{t_hi-1-r} beside a_{t_hi-r}, a_L
+// stored as zero), so the fold walks its rows as the forward does.  The
+// same two roundings a step make it bitwise the plain reverse fold
+// (kernels/rglru_scan/ref.py::rglru_scan_backward_plain), with no copy,
+// flip or concatenation of a or g around the launch.  Bound: the same
+// bytes as the forward (a, g read once, dh written once).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,7 +89,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Staged kernel: W * sizeof(T) a multiple of 16 and a, b 16-byte aligned.
-template <typename T>
+template <typename T, bool REV>
 __global__ void __launch_bounds__(kLanes) rglru_scan_staged(
     const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ h, int L, int W) {
     constexpr int kElems = 16 / sizeof(T);                // elements a 16-byte chunk
@@ -90,16 +102,26 @@ __global__ void __launch_bounds__(kLanes) rglru_scan_staged(
     const int64_t base = (int64_t)blockIdx.y * L * W + w0;
     const int n_stages = (L + kSteps - 1) / kSteps;
 
-    // copy steps [s kSteps, s kSteps + kSteps) of the block's columns into
-    // ring slot s % kStages; chunks past W or rows past L are not copied
+    // copy the s-th stage's steps of the block's columns into ring slot
+    // s % kStages, row r holding step t0 + r (reverse: step L - 1 - t0 - r
+    // of b beside the next step of a, zero past the end); chunks past W or
+    // steps outside [0, L) are not copied
     auto issue = [&](int s) {
         const int slot = s % kStages, t0 = s * kSteps;
         for (int i = lane; i < kSteps * kRowChunks; i += kLanes) {
             const int r = i / kRowChunks, c = (i - r * kRowChunks) * kElems;
             if (t0 + r < L && w0 + c < W) {
-                const int64_t off = base + (int64_t)(t0 + r) * W + c;
-                cp_async16(&sa[slot][r][c], a + off);
+                const int t = REV ? L - 1 - t0 - r : t0 + r;
+                const int64_t off = base + (int64_t)t * W + c;
                 cp_async16(&sb[slot][r][c], b + off);
+                if (!REV) {
+                    cp_async16(&sa[slot][r][c], a + off);
+                } else if (t + 1 < L) {
+                    cp_async16(&sa[slot][r][c], a + off + W);
+                } else {
+#pragma unroll
+                    for (int e = 0; e < kElems; ++e) sa[slot][r][c + e] = from_float<T>(0.f);
+                }
             }
         }
     };
@@ -118,19 +140,21 @@ __global__ void __launch_bounds__(kLanes) rglru_scan_staged(
         cp_async_commit();
         const int slot = s % kStages, t0 = s * kSteps;
         if (live) {
-            T* out = h + base + lane + (int64_t)t0 * W;
+            // row r's output: step t0 + r, or L - 1 - t0 - r in reverse
+            T* out = h + base + lane + (int64_t)(REV ? L - 1 - t0 : t0) * W;
+            const int64_t step = REV ? -(int64_t)W : (int64_t)W;
             if (t0 + kSteps <= L) {
 #pragma unroll
                 for (int r = 0; r < kSteps; ++r) {
                     hv = __fadd_rn(__fmul_rn(to_float(sa[slot][r][lane]), hv),
                                    to_float(sb[slot][r][lane]));
-                    out[(int64_t)r * W] = from_float<T>(hv);
+                    out[r * step] = from_float<T>(hv);
                 }
             } else {
                 for (int r = 0; r < L - t0; ++r) {
                     hv = __fadd_rn(__fmul_rn(to_float(sa[slot][r][lane]), hv),
                                    to_float(sb[slot][r][lane]));
-                    out[(int64_t)r * W] = from_float<T>(hv);
+                    out[r * step] = from_float<T>(hv);
                 }
             }
         }
@@ -138,8 +162,9 @@ __global__ void __launch_bounds__(kLanes) rglru_scan_staged(
     cp_async_wait<0>();
 }
 
-// Direct kernel: one thread per channel, each step's loads from global memory.
-template <typename T>
+// Direct kernel: one thread per channel, each step's loads from global
+// memory (reverse: t from L - 1 down, a read one step ahead, a_L = 0).
+template <typename T, bool REV>
 __global__ void __launch_bounds__(kDirectThreads) rglru_scan_direct(
     const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ h, int L, int W) {
     const int w = blockIdx.x * kDirectThreads + threadIdx.x;
@@ -147,9 +172,11 @@ __global__ void __launch_bounds__(kDirectThreads) rglru_scan_direct(
     const int64_t base = (int64_t)blockIdx.y * L * W + w;
     float hv = 0.f;
 #pragma unroll 4
-    for (int t = 0; t < L; ++t) {
+    for (int i = 0; i < L; ++i) {
+        const int t = REV ? L - 1 - i : i;
         const int64_t off = base + (int64_t)t * W;
-        hv = __fadd_rn(__fmul_rn(to_float(a[off]), hv), to_float(b[off]));
+        const float av = REV ? (t + 1 < L ? to_float(a[off + W]) : 0.f) : to_float(a[off]);
+        hv = __fadd_rn(__fmul_rn(av, hv), to_float(b[off]));
         h[off] = from_float<T>(hv);
     }
 }
@@ -161,16 +188,16 @@ bool use_staged(int elt, int L, int W, const void* a, const void* b) {
            ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15) == 0;
 }
 
-template <typename T>
+template <typename T, bool REV>
 cudaError_t launch_typed(const void* a, const void* b, void* h, int B, int L, int W,
                          cudaStream_t stream) {
     if (use_staged((int)sizeof(T), L, W, a, b)) {
         const dim3 grid((W + kLanes - 1) / kLanes, B);
-        rglru_scan_staged<T><<<grid, kLanes, 0, stream>>>(
+        rglru_scan_staged<T, REV><<<grid, kLanes, 0, stream>>>(
             static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(h), L, W);
     } else {
         const dim3 grid((W + kDirectThreads - 1) / kDirectThreads, B);
-        rglru_scan_direct<T><<<grid, kDirectThreads, 0, stream>>>(
+        rglru_scan_direct<T, REV><<<grid, kDirectThreads, 0, stream>>>(
             static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(h), L, W);
     }
     return cudaGetLastError();
@@ -180,21 +207,28 @@ cudaError_t launch_typed(const void* a, const void* b, void* h, int B, int L, in
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (a, b and h share it).  Returns a
-// cudaError_t: 0 on success, cudaErrorInvalidValue for a dtype or shape the
-// kernel does not take.
-int rglru_scan_launch(int dtype, const void* a, const void* b, void* h, int B, int L, int W,
-                      void* stream) {
-    if (B < 0 || L < 0 || W < 0 || B > 65535) return (int)cudaErrorInvalidValue;
+// dtype: 0 = float32, 1 = bfloat16 (a, b and h share it).  reverse: 0 for
+// the scan h_t = a_t h_{t-1} + b_t, 1 for the reverse fold h_t = a_{t+1}
+// h_{t+1} + b_t from the end (a_L = 0).  Returns a cudaError_t: 0 on
+// success, cudaErrorInvalidValue for a dtype or shape the kernel does not
+// take.
+int rglru_scan_launch(int dtype, int reverse, const void* a, const void* b, void* h, int B,
+                      int L, int W, void* stream) {
+    if (B < 0 || L < 0 || W < 0 || B > 65535 || (reverse != 0 && reverse != 1))
+        return (int)cudaErrorInvalidValue;
     if (B == 0 || L == 0 || W == 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return (int)launch_typed<float>(a, b, h, B, L, W, s);
-    if (dtype == 1) return (int)launch_typed<__nv_bfloat16>(a, b, h, B, L, W, s);
+    if (dtype == 0)
+        return (int)(reverse ? launch_typed<float, true>(a, b, h, B, L, W, s)
+                             : launch_typed<float, false>(a, b, h, B, L, W, s));
+    if (dtype == 1)
+        return (int)(reverse ? launch_typed<__nv_bfloat16, true>(a, b, h, B, L, W, s)
+                             : launch_typed<__nv_bfloat16, false>(a, b, h, B, L, W, s));
     return (int)cudaErrorInvalidValue;
 }
 
-// The kernel rglru_scan_launch runs for these arguments: 1 = staged, 0 =
-// direct, -1 for a dtype it does not take.  The wrapper counts launches by
+// The kernel rglru_scan_launch runs for these arguments (either direction):
+// 1 = staged, 0 = direct, -1 for a dtype it does not take.  The wrapper counts launches by
 // it, so the rule lives here only.
 int rglru_scan_kernel_of(int dtype, int L, int W, const void* a, const void* b) {
     if (dtype != 0 && dtype != 1) return -1;

@@ -15,10 +15,21 @@ routes, chosen by :func:`route` from the dtype and the head dim alone:
 The forward can also return each row's log-sum-exp (``return_lse``);
 :func:`flash_attention_backward_kernel` takes it with the output gradient
 and runs the FlashAttention-2 backward of an aligned causal self-attention
-(optionally windowed) in three launches of the same library: the delta
-pre-pass, one dK/dV block per kv tile and kv head (GQA's group summed in
-the block, no atomics) and one dQ block per q tile and head, on the same
-route as the forward.
+(optionally windowed) on the same route as the forward, in one of three
+designs that the library's ``flash_attention_backward_kernel_of`` names
+from the dtype and D (:data:`DESIGNS`):
+
+* ``"wgmma"`` (bf16 at D = 64, 128, 256: every trained head dim): two
+  launches, dQ first (it also forms delta = rowsum(dO o)), then dK/dV;
+  warp-specialised blocks, TMA rings, wgmma with the second products' A
+  operand in registers (``kernels/flash_attention/plan.py`` models the
+  walks);
+* ``"mma_sync"`` (bf16 at other multiples of 16) and ``"cuda_core"``
+  (float32, and bf16 at other D): three launches, the delta pre-pass, one
+  dK/dV block per kv tile and kv head, one dQ block per q tile and head.
+
+Each design sums GQA's group inside a block, adds nothing atomically and
+writes every element once, so two launches are bitwise equal.
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version (:func:`.ref.flash_attention_plain`,
@@ -27,7 +38,7 @@ kernel or raise.  ``flash_attention_kernel.launches`` counts forward
 launches and ``flash_attention_backward_kernel.launches`` backward calls
 (never plain-version calls; a CUDA graph's replay adds the launches it
 holds, ``serve/graphs.py``), and ``.launches_by_route`` counts each per
-route.
+route; the backward's ``.launches_by_design`` counts its calls per design.
 """
 
 from __future__ import annotations
@@ -41,6 +52,9 @@ from .ref import flash_attention_backward_plain, flash_attention_plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("cuda_core", "tensor_core")        # index = the C interface's route code
+DESIGNS = ("cuda_core", "mma_sync", "wgmma")  # index = flash_attention_backward_kernel_of's answer
+PLAN_FIELDS = ("kv_rows", "q_tile", "split_columns", "q_rows", "kv_tile", "kv_stages",
+               "q_stages")
 MAX_HEAD_DIM = 256
 _lib = None
 
@@ -57,6 +71,10 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_backward_launch.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p,
                                                         i, i, i, i, i, i, p]
         lib.flash_attention_backward_launch.restype = i
+        lib.flash_attention_backward_kernel_of.argtypes = [i, i]
+        lib.flash_attention_backward_kernel_of.restype = i
+        lib.flash_attention_backward_plan.argtypes = [i, p]
+        lib.flash_attention_backward_plan.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -68,6 +86,16 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
     multiple of 16 runs on the tensor cores, everything else on the CUDA
     cores.  Nothing else (no shape, no failure) picks the route."""
     return "tensor_core" if dtype == torch.bfloat16 and head_dim % 16 == 0 else "cuda_core"
+
+
+def library_plan(head_dim: int) -> Optional[dict]:
+    """The wgmma backward's tiles at this head dim as the built library
+    states them (``flash_attention_backward_plan``; :data:`PLAN_FIELDS`),
+    or None where that design does not take D.  Needs the card's build."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    if _library().flash_attention_backward_plan(head_dim, out) != 0:
+        return None
+    return dict(zip(PLAN_FIELDS, out))
 
 
 def _check(q, k, v, t_real, window) -> None:
@@ -194,10 +222,13 @@ def flash_attention_backward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.T
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention backward ({path}) launch failed for q "
                            f"{tuple(q.shape)}, k {tuple(k.shape)}: {msg} ({err})")
+    design = DESIGNS[lib.flash_attention_backward_kernel_of(_DTYPE_CODE[q.dtype], D)]
     flash_attention_backward_kernel.launches += 1
     flash_attention_backward_kernel.launches_by_route[path] += 1
+    flash_attention_backward_kernel.launches_by_design[design] += 1
     return dq, dk, dv
 
 
 flash_attention_backward_kernel.launches = 0
 flash_attention_backward_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
+flash_attention_backward_kernel.launches_by_design = dict.fromkeys(DESIGNS, 0)

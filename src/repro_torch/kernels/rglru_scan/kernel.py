@@ -16,10 +16,11 @@ calls; a CUDA graph's replay adds the launches it holds,
 names the one it runs.
 
 The backward (:func:`rglru_scan_backward_kernel`) is one launch of the same
-kernel over reversed inputs: the adjoint ``dh_t = g_t + a_{t+1} dh_{t+1}``
-is the recurrence run backwards, so ``a' = flip([a_1 .. a_{L-1}, 0])`` and
-``b' = flip(g)`` give ``flip(dh)``.  ``rglru_scan_backward_kernel.launches``
-counts its launches apart from the forward's.
+kernels in their reverse mode: the adjoint ``dh_t = g_t + a_{t+1}
+dh_{t+1}`` is the recurrence run from the end, reading ``a`` one step ahead
+in place (``a_L = 0``), so no copy, flip or concatenation surrounds the
+launch.  ``rglru_scan_backward_kernel.launches`` counts its launches apart
+from the forward's, and ``.launches_by_kernel`` per kernel.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def _library() -> ctypes.CDLL:
 
         lib = load("rglru_scan")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rglru_scan_launch.argtypes = [i, p, p, p, i, i, i, p]
+        lib.rglru_scan_launch.argtypes = [i, i, p, p, p, i, i, i, p]
         lib.rglru_scan_launch.restype = i
         lib.rglru_scan_kernel_of.argtypes = [i, i, i, p, p]
         lib.rglru_scan_kernel_of.restype = i
@@ -52,8 +53,9 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor):
-    """Launch the scan on CUDA tensors: ``(h, kernel name)``."""
+def _launch(a: torch.Tensor, b: torch.Tensor, reverse: bool = False):
+    """Launch the scan (``reverse``: the fold from the end) on CUDA tensors:
+    ``(h, kernel name)``."""
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan_kernel runs on cpu or cuda, not {a.device}")
     if a.ndim != 3 or a.shape != b.shape:
@@ -74,8 +76,8 @@ def _launch(a: torch.Tensor, b: torch.Tensor):
     lib = _library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.rglru_scan_launch(_DTYPE_CODE[a.dtype], a.data_ptr(), b.data_ptr(),
-                                    h.data_ptr(), B, L, W, stream)
+        err = lib.rglru_scan_launch(_DTYPE_CODE[a.dtype], int(reverse), a.data_ptr(),
+                                    b.data_ptr(), h.data_ptr(), B, L, W, stream)
     if err != 0:
         msg = lib.rglru_scan_error_string(err).decode()
         raise RuntimeError(f"rglru_scan kernel launch failed: {msg} ({err})")
@@ -107,11 +109,12 @@ def rglru_scan_backward_kernel(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor
     reverse fold (:func:`.ref.rglru_scan_backward_plain`)."""
     if a.device.type == "cpu":
         return rglru_scan_backward_plain(a, g)
-    a_rev = torch.cat([a[:, 1:], a.new_zeros(a.shape[0], 1, a.shape[2])], dim=1).flip(1)
-    dh_rev, kernel = _launch(a_rev.contiguous(), g.flip(1).contiguous())
+    dh, kernel = _launch(a, g, reverse=True)
     if kernel is not None:
         rglru_scan_backward_kernel.launches += 1
-    return dh_rev.flip(1)
+        rglru_scan_backward_kernel.launches_by_kernel[kernel] += 1
+    return dh
 
 
 rglru_scan_backward_kernel.launches = 0
+rglru_scan_backward_kernel.launches_by_kernel = dict.fromkeys(KERNELS, 0)

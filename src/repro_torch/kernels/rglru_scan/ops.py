@@ -4,7 +4,7 @@ The JAX package's ``ops.py`` pads L and W to the TPU kernel's block
 multiples (a=1, b=0).  The CUDA kernel takes any B, L and W, so here the
 entry point only brings its inputs to the kernel's layout.  Where autograd
 needs it, the call goes through :class:`RGLRUScan`, whose backward is the
-same kernel over reversed inputs (``rglru_scan_backward_kernel``).
+same kernels in their reverse mode (``rglru_scan_backward_kernel``).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from .kernel import rglru_scan_backward_kernel, rglru_scan_kernel
 
 class RGLRUScan(torch.autograd.Function):
     """``h = scan(a, b)`` with ``db = dh`` and ``da_t = dh_t h_{t-1}``
-    (``h_{-1} = 0``), dh from one reversed launch of the kernel."""
+    (``h_{-1} = 0``), dh from one reverse-mode launch of the kernel."""
 
     @staticmethod
     def forward(ctx, a, b):

@@ -197,11 +197,12 @@ def run_training(arch: str, steps: int = 50, *, smoke: bool = True,
               f"(chain floor {pipe.optimal_loss():.3f}); stragglers: {rep.lagging}")
     with control:
         membership.leave(worker)
+        coord_cost = service.cost_summary()["total_usd"]
     return {"losses": losses, "final_loss": losses[-1] if losses else None,
             "grad_norms": grad_norms, "lrs": lrs, "step_s": step_s,
             "start_step": start_step, "params_without_grad": missing,
             "n_params": sum(p.numel() for p in params.values()),
-            "optimal_loss": pipe.optimal_loss()}
+            "optimal_loss": pipe.optimal_loss(), "coord_cost_usd": coord_cost}
 
 
 def main() -> None:

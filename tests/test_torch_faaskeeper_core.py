@@ -138,6 +138,7 @@ def _soup(core, seed: int) -> dict:
         "objects": {r: s.objects for r, s in svc.data_stores.items()},
         "stats": stats,
         "crashes": crashes,
+        "cost": svc.cost_summary(),
     }
 
 
@@ -154,6 +155,17 @@ def test_op_soup_matches_the_reference(seed):
     assert port["stats"] == ref["stats"]
     # the soup did real work on the service
     assert len(ref["trace"]) >= 10 and ref["stats"]["writer"][0] > 0
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_cost_summary_matches_the_reference(seed):
+    """``cost_summary()`` after the same soup: the reference's five totals,
+    key by key, exactly (both read the SimCloud's virtual meters)."""
+    ref = _soup(ref_core, seed)["cost"]
+    port = _soup(port_core, seed)["cost"]
+    assert list(port) == ["queue_usd", "s3_usd", "dynamodb_usd", "functions_usd", "total_usd"]
+    assert port == ref
+    assert port["total_usd"] > 0
 
 
 def test_soups_cover_the_paths():

@@ -154,6 +154,8 @@ def test_refuse_grad():
 GPU_CASES = [  # (B, S, H, Hkv, D, window)
     (1, 16, 1, 1, 8, None), (2, 77, 4, 2, 16, 8), (1, 130, 10, 1, 256, 8),
     (2, 300, 40, 8, 128, None), (1, 700, 36, 36, 64, None), (1, 900, 10, 1, 256, 256),
+    # the wgmma design: D 64 without GQA, D 128 with G 5, D 256 windowed
+    (2, 333, 8, 8, 64, None), (1, 257, 10, 2, 128, None), (1, 515, 10, 1, 256, 100),
 ]
 
 
@@ -161,14 +163,19 @@ GPU_CASES = [  # (B, S, H, Hkv, D, window)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_backward_matches_plain_version(dtype):
     """The kernel's backward on the card against the plain fp32 backward on
-    the same values, and two launches bitwise equal."""
+    the same values, and two launches bitwise equal; bf16 at D 64, 128 and
+    256 on the wgmma design."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    bwd = flash_attention_backward_kernel
     for seed, (B, S, H, Hkv, D, window) in enumerate(GPU_CASES):
         q, k, v, do = (t.cuda() for t in inputs(seed, B, S, H, Hkv, D, dtype))
         o, lse = flash_attention_kernel(q, k, v, window=window, return_lse=True)
-        got = flash_attention_backward_kernel(q, k, v, o, lse, do, window=window)
-        again = flash_attention_backward_kernel(q, k, v, o, lse, do, window=window)
+        before = dict(bwd.launches_by_design)
+        got = bwd(q, k, v, o, lse, do, window=window)
+        again = bwd(q, k, v, o, lse, do, window=window)
+        wgmma = dtype == "bfloat16" and D in (64, 128, 256)
+        assert bwd.launches_by_design["wgmma"] - before["wgmma"] == 2 * wgmma
         want = plain_backward(*(t.float() for t in (q, k, v, do)), window)
         for g, a, w in zip(got, again, want, strict=True):
             assert torch.equal(g, a) and rel_err(g, w) <= TOL[dtype]

@@ -1,5 +1,5 @@
-"""The RG-LRU scan's backward: one reversed launch of the forward kernel
-(the plain reverse fold on the CPU), bitwise equal to autograd through the
+"""The RG-LRU scan's backward: one reverse-mode launch of the forward's
+kernels (the plain reverse fold on the CPU), bitwise equal to autograd through the
 plain left fold, within 1e-6 of ``jax.vjp`` of the JAX package's
 ``reference_rglru``, and carrying the gradient to the initial state ``h0``
 through the model's fold of it into ``b_0``."""
@@ -89,3 +89,30 @@ def test_cuda_backward_is_bitwise_the_plain_reverse_fold():
         got = rglru_scan_backward_kernel(a, g)
         assert rglru_scan_backward_kernel.launches == n0 + 1
         assert torch.equal(got, rglru_scan_backward_plain(a, g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,kernel", [
+    ((1, 4096, 2560), torch.float32, "staged"),
+    ((2, 33, 64), torch.float32, "staged"),      # a tail stage of one step
+    ((1, 31, 2560), torch.float32, "direct"),    # shorter than a stage
+    ((2, 70, 35), torch.float32, "direct"),      # rows not whole 16-byte chunks
+    ((1, 300, 2560), torch.bfloat16, "staged"),
+], ids=["train", "tail", "short", "ragged", "bf16"])
+def test_cuda_reverse_mode_reads_a_in_place(shape, dtype, kernel):
+    """The reverse mode on each of its kernels: one launch, on the kernel
+    the library names, no copy of a or g (their storage is read where it
+    lies), bitwise the plain reverse fold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    a, b, g = (t.cuda().to(dtype) for t in inputs(7, *shape, resets=True))
+    n0 = dict(rglru_scan_backward_kernel.launches_by_kernel)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = rglru_scan_backward_kernel(a, g)
+        torch.cuda.synchronize()
+    n1 = rglru_scan_backward_kernel.launches_by_kernel
+    assert {k: n1[k] - n0[k] for k in n1} == {k: int(k == kernel) for k in n1}
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not any("copy" in n.lower() or "cat" in n.lower() or "flip" in n.lower()
+                   for n in names), names
+    assert torch.equal(got, rglru_scan_backward_plain(a, g))

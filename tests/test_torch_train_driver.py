@@ -154,6 +154,25 @@ def test_control_plane_is_driven_from_one_thread_at_a_time(tmp_path, monkeypatch
     assert manifest.history() == [f"step_{s:08d}" for s in range(1, 9)]
 
 
+def test_run_training_reports_its_coordination_cost(monkeypatch):
+    """``coord_cost_usd`` is the run's own service's ``cost_summary()`` total
+    (its metered queue, storage, DynamoDB and function charges)."""
+    import repro_torch.launch.train as train
+
+    made = []
+    build = train.build_control_plane
+
+    def recorded():
+        made.append(build())
+        return made[-1]
+
+    monkeypatch.setattr(train, "build_control_plane", recorded)
+    out = run_training("starcoder2-3b", steps=2, **KW)
+    (_, svc), = made
+    assert out["coord_cost_usd"] == svc.cost_summary()["total_usd"]
+    assert out["coord_cost_usd"] > 0
+
+
 def test_minicpm_takes_its_wsd_preset():
     from repro_torch.configs.minicpm_2b import WSD
 
