@@ -390,9 +390,30 @@ last line is printed):
     step 6 through the FaaSKeeper manifest, every restored leaf checked
     against its digest, losses within 1e-3 of an uninterrupted run's, the
     checkpoint directory removed; (c) the card refuses to train
-    ``mamba2-1.3b`` and ``moonshot-v1-16b-a3b`` before any step.  Printed
-    beside the card's name and power limit: step ms, tokens/s, MFU, peak
-    memory, optimiser ms.
+    ``moonshot-v1-16b-a3b`` before any step (the MoE kernels have no
+    backward).  Printed beside the card's name and power limit: step ms,
+    tokens/s, MFU, peak memory, optimiser ms.
+
+34–36. The SSD scan's backward and mamba2 training, after phase 32.  34:
+    the backward kernel (``ssd_scan_backward_kernel``: the state passes,
+    the chunk kernel and the reduction over heads, fp32 on the CUDA cores)
+    against ``ssd_scan/ref.py::ssd_scan_backward_plain`` in fp32 at
+    mamba2-1.3b's dims (H 64, P 64, N 128; L 300 and 2048), a big decay, a
+    ragged L, L = 1, h0 and dh_final given and not, fp32 and bf16, P 4-64,
+    N 8-256: every gradient (dx, ddt, dA, dBm, dCm, dh0) per element within
+    ``ref.py::bf16_backward_rounding_bound`` (its fp32 analogue for fp32
+    inputs), the worst err / bound printed; leaving out one 64-token
+    chunk's share of the state's adjoint (``dropped_chunk_effects``) must
+    exceed the bound somewhere wherever that share reaches an earlier chunk
+    or h0 (not at big decay, where it falls under bf16's resolution); two
+    launches bitwise equal.  35: the backward timed at the training shape
+    (2, 4096, 64, 64), N 128, bf16, beside the plain backward, its bound
+    (bytes at 3.35 TB/s, the chunked adjoint's operations at 989 TFLOP/s;
+    no library call computes it) and each kernel's device time.  36:
+    full-depth ``mamba2-1.3b`` (48 layers), 4 steps of 8 x 4096 tokens in
+    4 microbatches (cosine, lr 3e-4), checked as 31 with SSD forward
+    launches exactly 2 x 48 x microsteps (all on the tensor cores) and
+    backward 48 x microsteps, no flash, paged, RG-LRU or MoE launch.
 
 On the card the scheduler replays a CUDA graph for every decode step and
 every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19,
@@ -3269,11 +3290,12 @@ def reset_launch_counts() -> None:
                                                  moe_route_kernel)
     from repro_torch.kernels.paged_attention import paged_attention_kernel
     from repro_torch.kernels.rglru_scan import rglru_scan_backward_kernel, rglru_scan_kernel
-    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward_kernel, ssd_scan_kernel
 
     for w in (paged_attention_kernel, rglru_scan_kernel, ssd_scan_kernel,
               flash_attention_kernel, moe_experts_kernel, moe_route_kernel, moe_combine_kernel,
-              flash_attention_backward_kernel, rglru_scan_backward_kernel):
+              flash_attention_backward_kernel, rglru_scan_backward_kernel,
+              ssd_scan_backward_kernel):
         w.launches = 0
         for name, val in list(vars(w).items()):
             if name.startswith("launches_by_"):
@@ -4413,7 +4435,7 @@ def launch_counts() -> dict:
                                                  moe_route_kernel)
     from repro_torch.kernels.paged_attention import paged_attention_kernel
     from repro_torch.kernels.rglru_scan import rglru_scan_backward_kernel, rglru_scan_kernel
-    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward_kernel, ssd_scan_kernel
 
     return {"paged_attention": paged_attention_kernel.launches,
             "flash_attention_backward": flash_attention_backward_kernel.launches,
@@ -4422,6 +4444,8 @@ def launch_counts() -> dict:
             "rglru_scan_backward": rglru_scan_backward_kernel.launches,
             "rglru_scan": rglru_scan_kernel.launches,
             "ssd_scan": ssd_scan_kernel.launches,
+            "ssd_tensor_core": ssd_scan_kernel.launches_by_route["tensor_core"],
+            "ssd_scan_backward": ssd_scan_backward_kernel.launches,
             "flash_attention": flash_attention_kernel.launches,
             "flash_tensor_core": flash_attention_kernel.launches_by_route["tensor_core"],
             "moe_experts": moe_experts_kernel.launches,
@@ -5141,21 +5165,215 @@ def phase_rglru_backward_timing(fails: Failures, seed: int, shape) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
 
 
+# -- phases 34-35: the SSD scan's backward ---------------------------------------------------
+
+
+SSD_BWD_CASES = [  # (B, L, H, P, N, h0, dh_final, kind, dtype)
+    (2, 300, 64, 64, 128, False, False, "random", "bfloat16"),    # mamba2-1.3b, as it trains
+    (1, 2048, 64, 64, 128, True, True, "random", "bfloat16"),
+    (1, 130, 64, 64, 128, True, True, "big_decay", "bfloat16"),
+    (1, 256, 64, 64, 128, True, True, "random", "float32"),
+    (2, 37, 6, 16, 64, True, True, "big_decay", "float32"),      # ragged, one short chunk
+    (3, 200, 8, 48, 256, True, False, "dt_zero", "bfloat16"),    # N 256: 32-token chunks
+    (2, 70, 6, 4, 8, False, True, "dt_zero", "bfloat16"),        # the CUDA-core forward's dims
+    (2, 1, 8, 16, 64, True, True, "random", "bfloat16"),         # L = 1
+    (1, 1, 6, 4, 8, False, False, "random", "float32"),
+]
+SSD_BWD_DROP_CHUNK = 64         # the plain version's chunk when a chunk's share is left out
+
+
+def ssd_bwd_inputs(gen, B, L, H, P, N, h0, dh_final, kind, dtype):
+    """``ssd_inputs`` with the backward's dy (x's dtype) and dh_final (fp32 or None)."""
+    import torch
+
+    args = ssd_inputs(gen, B, L, H, P, N, h0, kind, dtype, "cuda")
+    dy = torch.randn(B, L, H, P, generator=gen, device="cuda").to(dtype)
+    dhf = torch.randn(B, H, P, N, generator=gen, device="cuda") if dh_final else None
+    return (*args, dy, dhf)
+
+
+def ssd_bwd_margins(got, args) -> dict:
+    """Each gradient of the kernel against the fp32 plain backward and
+    ``bf16_backward_rounding_bound``: {name: (max |err|, max err / bound,
+    within the bound everywhere, max effect / bound of a dropped chunk)}."""
+    from repro_torch.kernels.ssd_scan.ref import (BACKWARD_NAMES, bf16_backward_rounding_bound,
+                                                  dropped_chunk_effects)
+
+    want, bound = bf16_backward_rounding_bound(*args)
+    effects = dropped_chunk_effects(*args, chunk=SSD_BWD_DROP_CHUNK)
+    out = {}
+    for name, g, w, b in zip(BACKWARD_NAMES, got, want, bound, strict=True):
+        if w is None:
+            continue
+        err = (g.double() - w.double()).abs()
+        b = b.double()
+        ok = bool((err <= b).all().item())
+        ratio = (err / b.clamp_min(1e-300)).max().item()
+        eff = effects.get(name)
+        drop = None if eff is None else (eff.double() / b.clamp_min(1e-300)).max().item()
+        out[name] = (err.max().item(), ratio, ok, drop)
+    return out
+
+
+def phase_ssd_backward_cases(fails: Failures, seed: int) -> float:
+    """34: the backward kernel against the plain backward on the card, every
+    case once on the route ``backward_route`` names, each gradient per
+    element within ``bf16_backward_rounding_bound`` (its fp32 analogue for
+    fp32 inputs); the change a dropped chunk makes must exceed the bound
+    somewhere (where an earlier chunk or h0 is there to reach, and not at
+    big decay); two launches bitwise equal.  Returns the worst err / bound."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward_kernel
+    from repro_torch.kernels.ssd_scan.kernel import backward_route
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 34)
+    worst = 0.0
+    for B, L, H, P, N, h0, dhf, kind, dt_name in SSD_BWD_CASES:
+        dtype = getattr(torch, dt_name)
+        label = f"ssd backward ({B}, {L}, {H}, {P}, {N}) {dt_name} {kind} h0={h0} dh_final={dhf}"
+        args = ssd_bwd_inputs(gen, B, L, H, P, N, h0, dhf, kind, dtype)
+        path = backward_route(dtype, P, N)
+        n0 = dict(ssd_scan_backward_kernel.launches_by_route)
+        got = ssd_scan_backward_kernel(*args)
+        n1 = ssd_scan_backward_kernel.launches_by_route
+        fails.check({k: n1[k] - n0[k] for k in n1} == {k: int(k == path) for k in n1},
+                    f"{label}: one launch, on the {path} route")
+        again = ssd_scan_backward_kernel(*args)
+        fails.check(all((a is None and b is None) or torch.equal(a, b)
+                        for a, b in zip(got, again, strict=True)),
+                    f"{label}: two launches bitwise equal")
+        fails.check(all(g is None or torch.isfinite(g).all().item() for g in got),
+                    f"{label}: every gradient finite")
+        m = ssd_bwd_margins(got, args)
+        for name, (err, ratio, ok, _) in m.items():
+            worst = max(worst, ratio)
+            fails.check(ok, f"{label}: {name} per element within the bound (max err {err:.3g}, "
+                        f"err / bound {ratio:.3g})")
+        drops = {k: v[3] for k, v in m.items() if v[3] is not None}
+        if (L > SSD_BWD_DROP_CHUNK or h0) and kind != "big_decay":
+            # (at big decay the share that crosses a chunk boundary is
+            # scaled by exp(cums) of -10 and below: under bf16's resolution)
+            fails.check(max(drops.values(), default=0.0) > 1.0,
+                        f"{label}: leaving out one chunk's share of the state's adjoint "
+                        f"exceeds the bound (effect / bound {drops})")
+        print(f"  {label}: err / bound " + ", ".join(f"{k} {v[1]:.3g}" for k, v in m.items())
+              + "; dropped chunk effect / bound " + ", ".join(f"{k} {v:.3g}"
+                                                             for k, v in drops.items()))
+    print(f"  ssd backward: worst err / bound over {len(SSD_BWD_CASES)} cases {worst:.4g}")
+    return worst
+
+
+def ssd_bwd_bound(B, L, H, P, N, elt: int, Q: int):
+    """(bytes, operations) of the backward: x, dy, B, C (``elt`` bytes) and
+    dt read once, dx, dB, dC and ddt written once; the operations of the
+    chunked adjoint at chunk ``Q``, counted once where heads share them:
+    per chunk of q tokens C B^T and the intra-chunk dC and dB products
+    (6 q^2 N, dG summed over heads first), and per head dy x^T and W^T dy
+    (4 q^2 P), the state terms of dx, dC and dB and the two state passes
+    (10 q P N)."""
+    nbytes = (B * L * H * P * elt * 3            # x, dy in; dx out
+              + B * L * N * elt * 4              # B, C in; dB, dC out
+              + B * L * H * 4 * 2 + H * 4 * 2)   # dt in, ddt out; A, dA
+    ops = 0
+    for lo in range(0, L, Q):
+        q = min(Q, L - lo)
+        ops += B * (6 * q * q * N + H * (4 * q * q * P + 10 * q * P * N))
+    return nbytes, ops
+
+
+def phase_ssd_backward_timing(fails: Failures, seed: int, shape) -> dict:
+    """35: the backward at the training shape (bf16, no h0, no gradient on
+    the final state, as mamba2 trains), CUDA events over launches that
+    rotate two input sets, beside the plain backward; the device time of
+    each of its three kernels from a trace."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward_kernel, ssd_scan_backward_plain
+    from repro_torch.kernels.ssd_scan.kernel import _library, backward_route
+
+    B, L, H, P, N = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed + 35)
+    sets = [ssd_bwd_inputs(gen, B, L, H, P, N, False, False, "random", torch.bfloat16)
+            for _ in range(2)]
+    Q = _library().ssd_scan_backward_chunk(L, P, N)
+    nbytes, ops = ssd_bwd_bound(B, L, H, P, N, 2, Q)
+    got = ssd_scan_backward_kernel(*sets[0])
+    m = ssd_bwd_margins(got, sets[0])
+    worst = max(v[1] for v in m.values())
+    fails.check(all(v[2] for v in m.values()),
+                f"ssd backward at {shape} bf16 within the bound (err / bound {worst:.3g})")
+    max_err = max(v[0] for v in m.values())
+    del got
+    ms = cuda_time_ms(lambda i: ssd_scan_backward_kernel(*sets[i % 2]), 10, warmup=2)
+    plain_ms = cuda_time_ms(lambda i: ssd_scan_backward_plain(*sets[i % 2]), 2, warmup=1)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(4):
+            ssd_scan_backward_kernel(*sets[i % 2])
+        sync()
+    by_kernel: dict = {}
+    for name, start, end in kernel_intervals(prof):
+        if "::bwd::" in name:
+            k = name.split("::bwd::")[1].split("<")[0]
+            by_kernel[k] = by_kernel.get(k, 0.0) + (end - start) / 1e3 / 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_fp32_ms = max(t_bytes, ops / FP32_FLOPS_PER_S) * 1e3
+    print(f"  ssd backward {shape} bf16 (chunk {Q}): {ms:.4f} ms a call, device ms a call by "
+          f"kernel {({k: round(v, 4) for k, v in by_kernel.items()})}; plain backward "
+          f"{plain_ms:.2f} ms; bound {bound_ms:.5f} ms ({nbytes / 1e6:.1f} MB, "
+          f"{ops / 1e9:.1f} GFLOP at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16; "
+          f"{bound_fp32_ms:.4f} ms at {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s fp32, the rate of "
+          f"its CUDA-core arithmetic); err / bound {worst:.3g}")
+    return {"name": "ssd_scan_backward", "route": "cuda",
+            "kernel_route": backward_route(torch.bfloat16, P, N),
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:68",
+            "shape": f"x, dy {B}x{L}x{H}x{P} bf16, N={N}, no h0, no dh_final (backward)",
+            "launches": 0, "max_abs_err": max_err, "max_err_over_bound": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_fp32_ms": bound_fp32_ms, "device_ms_by_kernel": by_kernel,
+            "library_ms": None, "library": "none: no PyTorch call computes the SSD adjoint"}
+
+
 # -- phases 31-33: training on the card --------------------------------------------------------
 
 TRAIN_LR = 3e-4                 # AdamWConfig's default (run_training's 3e-3 suits reduced configs)
 T31_SEQ, T31_BATCH, T31_ACCUM, T31_STEPS = 4096, 8, 4, 6
 T32_SEQ, T32_BATCH, T32_ACCUM, T32_STEPS = 4096, 4, 4, 4
+T36_SEQ, T36_BATCH, T36_ACCUM, T36_STEPS = 4096, 8, 4, 4
 T33_LAYERS, T33_BATCH, T33_STEPS, T33_EVERY, T33_CRASH = 2, 2, 8, 3, 7
 T33_LOSS_REL, T33_GRAD_REL = 1e-3, 3e-2
+
+
+def ssd_forward_flops(cfg, seq: int) -> float:
+    """FLOPs of one sequence's SSD scans, forward, all layers: the JAX
+    package's chunked form at the config's chunk Q (``ssd_chunked``), per
+    chunk of q tokens C B^T once (2 q^2 N, one group for every head) and
+    per head the (q, q) product with x (2 q^2 P), the chunk's state (2 q P
+    N) and its read-out through C (2 q P N)."""
+    s = cfg.ssm
+    H, P, N, Q = s.n_heads(cfg.d_model), s.head_dim, s.d_state, s.chunk
+    per_seq = 0
+    for lo in range(0, seq, Q):
+        q = min(Q, seq - lo)
+        per_seq += 2 * q * q * N + H * (2 * q * q * P + 4 * q * P * N)
+    return per_seq * cfg.n_layers
 
 
 def train_flops(cfg, n_params: int, tokens: int, seq: int) -> float:
     """Model FLOPs of one step: 6 N a token (N every parameter, the tied
     head's matmul included) and 12 D H a causal attended pair (forward 4,
-    backward 8), remat's recompute not counted."""
+    backward 8); for the ``ssm`` family, which attends to nothing, 3 x the
+    SSD scans' forward FLOPs (``ssd_forward_flops``: forward once, backward
+    twice) instead; remat's recompute not counted."""
     from repro_torch.models.config import layer_pattern
 
+    if cfg.family == "ssm":
+        return 6 * n_params * tokens + 3 * ssd_forward_flops(cfg, seq) * (tokens // seq)
     if cfg.family == "hybrid":
         n_attn, window = layer_pattern(cfg).count("a"), cfg.hybrid.local_window
     else:
@@ -5255,6 +5473,11 @@ def profile_train_step(model, loss_fn, batch, label: str) -> None:
             g = "flash backward"
         elif "flash_attn" in name:
             g = "flash forward"
+        elif "::bwd::" in name and ("state_pass" in name or "chunk_kernel" in name
+                                     or "reduce_kernel" in name):
+            g = "SSD backward"
+        elif "ssd_" in name:
+            g = "SSD forward"
         elif "rglru" in name:
             g = "rglru scan"
         elif any(t in name for t in ("gemm", "xmma", "cutlass", "cublas", "sm90", "nvjet")):
@@ -5289,9 +5512,12 @@ def phase_train(fails: Failures, seed: int, arch: str, *, seq: int, global_batch
     from repro_torch.models.config import layer_pattern
 
     cfg = configs.get(arch)
+    n_ssd = 0
     if cfg.family == "hybrid":
         pat = layer_pattern(cfg)
         n_attn, n_rec = pat.count("a"), pat.count("r")
+    elif cfg.family == "ssm":
+        n_attn, n_rec, n_ssd = 0, 0, cfg.n_layers
     else:
         n_attn, n_rec = cfg.n_layers, 0
     micro = steps * accum
@@ -5327,9 +5553,15 @@ def phase_train(fails: Failures, seed: int, arch: str, *, seq: int, global_batch
                 and counts["rglru_scan_backward"] == n_rec * micro,
                 f"{arch}: rglru forward launches {counts['rglru_scan']} == 2 x {n_rec} RG-LRU "
                 f"layers x {micro}, backward {counts['rglru_scan_backward']} == {n_rec} x {micro}")
-    fails.check(counts["paged_attention"] == counts["ssd_scan"] == counts["moe_experts"]
+    fails.check(counts["ssd_scan"] == 2 * n_ssd * micro
+                and counts["ssd_tensor_core"] == counts["ssd_scan"]
+                and counts["ssd_scan_backward"] == n_ssd * micro,
+                f"{arch}: ssd forward launches {counts['ssd_scan']} == 2 x {n_ssd} SSD layers x "
+                f"{micro} (forward and remat recompute), {counts['ssd_tensor_core']} on the "
+                f"tensor cores; backward {counts['ssd_scan_backward']} == {n_ssd} x {micro}")
+    fails.check(counts["paged_attention"] == counts["moe_experts"]
                 == counts["moe_route"] == counts["moe_combine"] == 0,
-                f"{arch}: no paged, SSD or MoE launch in training")
+                f"{arch}: no paged or MoE launch in training")
     step_s = out["step_s"][1:] or out["step_s"]
     step_ms = 1e3 * sorted(step_s)[len(step_s) // 2]
     tokens = global_batch * seq
@@ -5444,12 +5676,12 @@ def phase_train_resume(fails: Failures, seed: int) -> None:
 
 def phase_train_refusal(fails: Failures, seed: int) -> None:
     """33c: the card refuses to train a family whose forward reaches a
-    kernel with no backward, before any step."""
+    kernel with no backward (the MoE family's), before any step."""
     import torch
 
     from repro_torch.launch.train import run_training
 
-    for arch in (SSM, MOE):
+    for arch in (MOE,):
         reset_launch_counts()
         before = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
         try:
@@ -5923,8 +6155,24 @@ def main() -> int:
         bwd["launches"] = r["counts"]["flash_attention_backward"]
         lse["launches"] = r["counts"]["flash_attention"]
     rglru_bwd["launches"] = r32["counts"]["rglru_scan_backward"]
+    t34 = time.perf_counter()
+    print("[34] the SSD scan's backward vs its plain version")
+    ssd_worst = phase_ssd_backward_cases(fails, args.seed)
+    print(f"[35] the SSD backward at {SSM}'s training shape (CUDA events)")
+    ssd_bwd = phase_ssd_backward_timing(fails, args.seed, (T36_BATCH // T36_ACCUM, T36_SEQ, H,
+                                                            P, N))
+    ssd_bwd["worst_err_over_bound_34"] = ssd_worst
+    print(f"[36] full-depth, full-width {SSM} training: {scfg.n_layers} layers, {T36_STEPS} "
+          f"steps of {T36_BATCH} x {T36_SEQ} tokens in {T36_ACCUM} microbatches, cosine at lr "
+          f"{TRAIN_LR}")
+    t36 = time.perf_counter()
+    r36 = phase_train(fails, args.seed, SSM, seq=T36_SEQ, global_batch=T36_BATCH,
+                      accum=T36_ACCUM, steps=T36_STEPS)
+    ssd_bwd["launches"] = r36["counts"]["ssd_scan_backward"]
+    print(f"  phase 36 wall {time.perf_counter() - t36:.1f} s; phases 34-36 "
+          f"{time.perf_counter() - t34:.1f} s")
     print(f"[33] {ARCH} at full width and {T33_LAYERS} layers: kernel vs plain attention, "
-          f"crash and resume; the card refuses {SSM} and {MOE}")
+          f"crash and resume; the card refuses {MOE}")
     t33 = time.perf_counter()
     phase_train_agreement(fails, args.seed)
     phase_train_resume(fails, args.seed)
@@ -5934,6 +6182,7 @@ def main() -> int:
     for recs in train_records.values():
         records.extend(recs)
     records.append(rglru_bwd)
+    records.append(ssd_bwd)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if fails:

@@ -72,6 +72,35 @@
 //   state in shared memory, the four contractions one after another
 //   through a 16 x 16 thread grid of 4 x 4 register tiles, all fp32.
 //
+// Backward (ssd_scan_backward_launch): the adjoint of the above given dy and
+// the final state's gradient (or none) -> dx, ddt, dA, dBm, dCm and dh0, for
+// every dtype, in fp32 arithmetic on the CUDA cores (one route), on chunks
+// of up to 64 tokens (the most shared memory holds; 64 at mamba2-1.3b's P =
+// 64, N = 128).  Three launches:
+//   1. state passes, one block per (head, 16 state rows, batch row) and
+//      direction: the state entering each chunk, walked forwards from h0,
+//      and the adjoint dh of the state leaving each chunk, walked backwards
+//      from dh_final (dh_prev = exp(cums_last) dh + sum_i exp(cums_i) dy_i
+//      C_i^T; what is left after the first chunk is dh0).  The backward
+//      runs the forward's recurrence again rather than have the forward
+//      write its chunk-entry states: the serving forward stays as it is,
+//      its chunks (128 tokens) need not be the backward's, and under remat
+//      the recompute would write them a second time anyway.  Both go to
+//      fp32 scratch (B, nc, H, P, N), 268 MB each at (2, 4096) x 64 heads.
+//   2. one block per (head, chunk, batch row): every term of the chunk for
+//      that head, through seven tile products (C B^T, dy x^T, dx, and two
+//      each for dC and dB) and a serial pass over the chunk's d(cums) and
+//      its reversed cumsum.  dx and ddt are written whole; the head's share
+//      of dB and dC goes to (B, L, H, N) fp32 partials, of dA to (B, nc, H).
+//      The mask is a select: a pair j > i never uses an exponential.
+//   3. the partials summed over heads (and chunks, for dA) in a fixed order.
+// Every sum over blocks is that second pass, so two launches on the same
+// inputs are bitwise equal: no floating-point atomics.  The chunk's cumsum
+// of dt A is one function with rounded operations only (no fma
+// contraction), so the passes and the chunk kernel see the same bits.
+// kernels/ssd_scan/ref.py::bf16_backward_rounding_bound is the per-element
+// limit against the plain backward.
+//
 // Bound on the H100 (3.35 TB/s HBM; 989 TFLOP/s dense bf16 on the tensor
 // cores): a 256-token prefill chunk of mamba2-1.3b (B=1, H=64, P=64, N=128)
 // must move about 8.5 MB (x and y bf16, B, C, dt, h0 and h_final fp32), 2.5
@@ -871,6 +900,421 @@ cudaError_t launch(const void* x, const float* dt, const float* A, const void* B
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// Backward (every dtype and dims the forward takes, as far as shared memory
+// holds a chunk of them): fp32 arithmetic on the CUDA cores, three launches
+// on the caller's stream, deterministic (no floating-point atomics; every
+// sum over blocks is a second pass in a fixed order).
+
+namespace bwd {
+
+using cc::kThreads;
+using cc::odd;
+using cc::tile_product;
+
+constexpr int kMaxQ = 64;       // chunk length cap (one warp scans it, 2 tokens a lane)
+constexpr int kSlab = 16;       // state rows a block of the state passes owns
+
+// Inclusive cumsum of dt * A over a chunk of q <= 64 tokens, by warp 0,
+// with rounded operations only (no contraction into fma), so every kernel
+// of the backward computes the same bits from the same dt.
+__device__ __forceinline__ void chunk_cums(const float* dtv, float a_h, int q, float* cums) {
+    const int lane = threadIdx.x;
+    if (lane >= 32) return;
+    const int t = 2 * lane;
+    const float d0 = t < q ? __fmul_rn(dtv[t], a_h) : 0.f;
+    const float d1 = t + 1 < q ? __fmul_rn(dtv[t + 1], a_h) : 0.f;
+    const float pair = __fadd_rn(d0, d1);
+    float s = pair;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const float v = __shfl_up_sync(0xffffffffu, s, off);
+        if (lane >= off) s = __fadd_rn(s, v);
+    }
+    const float before = __fsub_rn(s, pair);
+    if (t < q) cums[t] = __fadd_rn(before, d0);
+    if (t + 1 < q) cums[t + 1] = s;
+}
+
+// Shared memory of the state passes, in floats.
+struct PassLayout {
+    int ldN, Vs, Us, St, dtv, cums, coef, total;
+    __host__ __device__ PassLayout(int N, int Q) {
+        ldN = odd(N);
+        Vs = 0;                 // Vs[j][n]: the chunk's B (forward) or C (reverse)
+        Us = Vs + Q * ldN;      // Us[j][p]: x_j wend_j (forward) or dy_j exp(cums_j) (reverse)
+        St = Us + Q * kSlab;    // St[p][n]: the slab of the state or of its adjoint
+        dtv = St + kSlab * ldN;
+        cums = dtv + Q;
+        coef = cums + Q;
+        total = coef + Q;
+    }
+};
+
+// Shared memory of the chunk kernel, in floats.
+struct ChunkLayout {
+    int ldN, ldP, ldQ;
+    int Cs, Bs, Xs, Ys, Dh, Wm, Gm, Em, Tmp, dtv, cums, ecum, wend, rowR, colE, Sd, Td, dcum, red,
+        total;
+    __host__ __device__ ChunkLayout(int P, int N, int Q) {
+        ldN = odd(N);
+        ldP = odd(P);
+        ldQ = odd(Q);
+        Cs = 0;                 // Cs[i][n]
+        Bs = Cs + Q * ldN;      // Bs[j][n]
+        Xs = Bs + Q * ldN;      // Xs[j][p]
+        Ys = Xs + Q * ldP;      // Ys[i][p]: dy
+        Dh = Ys + Q * ldP;      // Dh[p][n]: the adjoint of the state leaving the chunk
+        Wm = Dh + P * ldN;      // Wm[i][j]: G, then W
+        Gm = Wm + Q * ldQ;      // Gm[i][j]: dG
+        Em = Gm + Q * ldQ;      // Em[i][j]: dW_ij G_ij exp(cums_i - cums_j)
+        Tmp = Em + Q * ldQ;     // Tmp[i][n]: the state terms of dC, then of dB
+        dtv = Tmp + Q * ldN;
+        cums = dtv + Q;
+        ecum = cums + Q;        // exp(cums_i)
+        wend = ecum + Q;        // exp(cums_last - cums_j), without dt_j
+        rowR = wend + Q;
+        colE = rowR + Q;
+        Sd = colE + Q;          // dy_i . (the state's share of y_i)
+        Td = Sd + Q;            // exp(cums_last - cums_j) x_j . (dh B_j)
+        dcum = Td + Q;
+        red = dcum + Q;         // kThreads partial sums of dh . h_prev
+        total = red + kThreads;
+    }
+};
+
+// blockIdx.x = head * slabs + slab, blockIdx.y = batch row, blockIdx.z =
+// 0: the state entering each chunk, walked forwards from h0, into hs;
+// 1: the adjoint of the state leaving each chunk, walked backwards from
+//    dh_final, into dhs, and what is left after the first chunk into dh0.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) state_pass_kernel(
+    const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+    const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ h0,
+    const T* __restrict__ dy, const float* __restrict__ dh_final, float* __restrict__ hs,
+    float* __restrict__ dhs, float* __restrict__ dh0, int L, int H, int P, int N, int Q) {
+    extern __shared__ float smem[];
+    const PassLayout lay(N, Q);
+    float* Vs = smem + lay.Vs;
+    float* Us = smem + lay.Us;
+    float* St = smem + lay.St;
+    float* dtv = smem + lay.dtv;
+    float* cums = smem + lay.cums;
+    float* coef = smem + lay.coef;
+    const int ldN = lay.ldN, tid = threadIdx.x;
+    const int slabs = (P + kSlab - 1) / kSlab;
+    const int h = blockIdx.x / slabs, p0 = (blockIdx.x % slabs) * kSlab;
+    const int b = blockIdx.y;
+    const bool reverse = blockIdx.z == 1;
+    const int ps = min(kSlab, P - p0);
+    const int nc = (L + Q - 1) / Q;
+    const float a_h = A[h];
+    const float* init = reverse ? dh_final : h0;
+    float* out = reverse ? dhs : hs;
+    const T* u_src = reverse ? dy : x;
+    const T* v_src = reverse ? Cm : Bm;
+    const int64_t soff = ((int64_t)b * H + h) * P * N + (int64_t)p0 * N;
+
+    for (int idx = tid; idx < ps * N; idx += kThreads) {
+        const int p = idx / N, n = idx - p * N;
+        St[p * ldN + n] = init ? init[soff + idx] : 0.f;
+    }
+    for (int k = 0; k < nc; ++k) {
+        const int c = reverse ? nc - 1 - k : k;
+        const int t0 = c * Q, q = min(Q, L - t0);
+        const int64_t tok0 = (int64_t)b * L + t0;
+        __syncthreads();        // the previous chunk's readers are done
+        // the state (or adjoint) at this chunk's boundary, each thread its own elements
+        float* o = out + (((int64_t)b * nc + c) * H + h) * P * N + (int64_t)p0 * N;
+        for (int idx = tid; idx < ps * N; idx += kThreads) {
+            const int p = idx / N, n = idx - p * N;
+            o[idx] = St[p * ldN + n];
+        }
+        for (int j = tid; j < q; j += kThreads) dtv[j] = dt[(tok0 + j) * H + h];
+        for (int idx = tid; idx < q * N; idx += kThreads) {
+            const int j = idx / N, n = idx - j * N;
+            Vs[j * ldN + n] = to_float(v_src[(tok0 + j) * N + n]);
+        }
+        __syncthreads();
+        chunk_cums(dtv, a_h, q, cums);
+        __syncthreads();
+        const float last = cums[q - 1];
+        for (int j = tid; j < q; j += kThreads)
+            coef[j] = reverse ? expf(cums[j]) : expf(last - cums[j]) * dtv[j];
+        __syncthreads();
+        for (int idx = tid; idx < q * ps; idx += kThreads) {
+            const int j = idx / ps, p = idx - j * ps;
+            Us[j * kSlab + p] = to_float(u_src[((tok0 + j) * H + h) * P + p0 + p]) * coef[j];
+        }
+        __syncthreads();
+        const float decay = expf(last);
+        for (int idx = tid; idx < ps * N; idx += kThreads) {
+            const int p = idx / N, n = idx - p * N;
+            float acc = 0.f;
+            for (int j = 0; j < q; ++j) acc = fmaf(Us[j * kSlab + p], Vs[j * ldN + n], acc);
+            float& s = St[p * ldN + n];
+            s = fmaf(s, decay, acc);
+        }
+    }
+    if (reverse && dh0) {
+        for (int idx = tid; idx < ps * N; idx += kThreads) {
+            const int p = idx / N, n = idx - p * N;
+            dh0[soff + idx] = St[p * ldN + n];
+        }
+    }
+}
+
+// One block per (head, chunk, batch row): every gradient term of the chunk
+// for that head.  dx and ddt are written whole; the head's share of dBm and
+// dCm goes to pB, pC (B, L, H, N) fp32 and its share of dA to pA (B, nc, H),
+// which reduce_kernel sums over heads (and chunks) in a fixed order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) chunk_kernel(
+    const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+    const T* __restrict__ Bm, const T* __restrict__ Cm, const T* __restrict__ dy,
+    const float* __restrict__ hs, const float* __restrict__ dhs, T* __restrict__ dx,
+    float* __restrict__ ddt, float* __restrict__ pA, float* __restrict__ pB,
+    float* __restrict__ pC, int L, int H, int P, int N, int Q) {
+    extern __shared__ float smem[];
+    const ChunkLayout lay(P, N, Q);
+    float* Cs = smem + lay.Cs;
+    float* Bs = smem + lay.Bs;
+    float* Xs = smem + lay.Xs;
+    float* Ys = smem + lay.Ys;
+    float* Dh = smem + lay.Dh;
+    float* Wm = smem + lay.Wm;
+    float* Gm = smem + lay.Gm;
+    float* Em = smem + lay.Em;
+    float* Tmp = smem + lay.Tmp;
+    float* dtv = smem + lay.dtv;
+    float* cums = smem + lay.cums;
+    float* ecum = smem + lay.ecum;
+    float* wend = smem + lay.wend;
+    float* rowR = smem + lay.rowR;
+    float* colE = smem + lay.colE;
+    float* Sv = smem + lay.Sd;
+    float* Tv = smem + lay.Td;
+    float* dcum = smem + lay.dcum;
+    float* red = smem + lay.red;
+    const int ldN = lay.ldN, ldP = lay.ldP, ldQ = lay.ldQ, tid = threadIdx.x;
+    const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+    const int nc = (L + Q - 1) / Q;
+    const int t0 = c * Q, q = min(Q, L - t0);
+    const int64_t tok0 = (int64_t)b * L + t0;
+    const float a_h = A[h];
+    const int64_t st_off = (((int64_t)b * nc + c) * H + h) * P * N;
+    const float* hp = hs + st_off;          // the state entering the chunk
+    const float* dhg = dhs + st_off;        // the adjoint of the state leaving it
+
+    for (int j = tid; j < q; j += kThreads) dtv[j] = dt[(tok0 + j) * H + h];
+    for (int idx = tid; idx < q * N; idx += kThreads) {
+        const int j = idx / N, n = idx - j * N;
+        const int64_t g = (tok0 + j) * N + n;
+        Cs[j * ldN + n] = to_float(Cm[g]);
+        Bs[j * ldN + n] = to_float(Bm[g]);
+    }
+    for (int idx = tid; idx < q * P; idx += kThreads) {
+        const int j = idx / P, p = idx - j * P;
+        const int64_t g = ((tok0 + j) * H + h) * P + p;
+        Xs[j * ldP + p] = to_float(x[g]);
+        Ys[j * ldP + p] = to_float(dy[g]);
+    }
+    for (int idx = tid; idx < P * N; idx += kThreads) {
+        const int p = idx / N, n = idx - p * N;
+        Dh[p * ldN + n] = dhg[idx];
+    }
+    __syncthreads();
+    chunk_cums(dtv, a_h, q, cums);
+    __syncthreads();
+    const float last = cums[q - 1];
+    for (int j = tid; j < q; j += kThreads) {
+        ecum[j] = expf(cums[j]);
+        wend[j] = expf(last - cums[j]);
+    }
+
+    // G = C . B^T into Wm
+    tile_product(
+        q, q, N, [=](int i, int n) { return Cs[i * ldN + n]; },
+        [=](int n, int j) { return Bs[j * ldN + n]; },
+        [=](int i, int j, float g) { Wm[i * ldQ + j] = g; });
+    __syncthreads();
+    // dW = dy . x^T; with G (same thread, same element) -> W, dG and E; the
+    // mask is a select: a pair j > i never uses an exponential
+    tile_product(
+        q, q, P, [=](int i, int p) { return Ys[i * ldP + p]; },
+        [=](int p, int j) { return Xs[j * ldP + p]; },
+        [=](int i, int j, float dw) {
+            const float g = Wm[i * ldQ + j];
+            const float l = j <= i ? expf(cums[i] - cums[j]) : 0.f;
+            Wm[i * ldQ + j] = g * l * dtv[j];
+            Gm[i * ldQ + j] = dw * l * dtv[j];
+            Em[i * ldQ + j] = dw * g * l;
+        });
+    __syncthreads();
+    for (int i = tid; i < q; i += kThreads) {
+        float r = 0.f, e = 0.f;
+        for (int j = 0; j <= i; ++j) r = fmaf(Em[i * ldQ + j], dtv[j], r);
+        for (int k = i; k < q; ++k) e += Em[k * ldQ + i];
+        rowR[i] = r;
+        colE[i] = e;
+    }
+
+    // dx_j = sum_i W_ij dy_i + exp(cums_last - cums_j) dt_j (dh B_j), depth q + N
+    tile_product(
+        q, P, q + N,
+        [=](int j, int k) {
+            return k < q ? Wm[k * ldQ + j] : Bs[j * ldN + (k - q)] * wend[j] * dtv[j];
+        },
+        [=](int k, int p) { return k < q ? Ys[k * ldP + p] : Dh[p * ldN + (k - q)]; },
+        [=](int j, int p, float v) { dx[((tok0 + j) * H + h) * P + p] = from_float<T>(v); });
+
+    // dC: the state's term exp(cums_i) h_prev^T dy_i into Tmp, its dot with
+    // C_i (the exponent's adjoint S_i), then + sum_j dG_ij B_j
+    tile_product(
+        q, N, P, [=](int i, int p) { return Ys[i * ldP + p] * ecum[i]; },
+        [=](int p, int n) { return hp[(int64_t)p * N + n]; },
+        [=](int i, int n, float v) { Tmp[i * ldN + n] = v; });
+    __syncthreads();
+    for (int i = tid; i < q; i += kThreads) {
+        float s = 0.f;
+        for (int n = 0; n < N; ++n) s = fmaf(Cs[i * ldN + n], Tmp[i * ldN + n], s);
+        Sv[i] = s;
+    }
+    tile_product(
+        q, N, q, [=](int i, int j) { return Gm[i * ldQ + j]; },
+        [=](int j, int n) { return Bs[j * ldN + n]; },
+        [=](int i, int n, float v) {
+            pC[((tok0 + i) * H + h) * N + n] = Tmp[i * ldN + n] + v;
+        });
+    __syncthreads();
+    // dB: the state's term exp(cums_last - cums_j) dh^T x_j (dt_j apart)
+    // into Tmp, its dot with B_j (T_j), then dt_j Tmp + sum_i dG_ij C_i
+    tile_product(
+        q, N, P, [=](int j, int p) { return Xs[j * ldP + p] * wend[j]; },
+        [=](int p, int n) { return Dh[p * ldN + n]; },
+        [=](int j, int n, float v) { Tmp[j * ldN + n] = v; });
+    __syncthreads();
+    for (int j = tid; j < q; j += kThreads) {
+        float s = 0.f;
+        for (int n = 0; n < N; ++n) s = fmaf(Bs[j * ldN + n], Tmp[j * ldN + n], s);
+        Tv[j] = s;
+    }
+    tile_product(
+        q, N, q, [=](int j, int i) { return Gm[i * ldQ + j]; },
+        [=](int i, int n) { return Cs[i * ldN + n]; },
+        [=](int j, int n, float v) {
+            pB[((tok0 + j) * H + h) * N + n] = fmaf(Tmp[j * ldN + n], dtv[j], v);
+        });
+
+    // dh . h_prev, each thread a fixed strided share, then a fixed tree
+    float part = 0.f;
+    for (int idx = tid; idx < P * N; idx += kThreads) {
+        const int p = idx / N, n = idx - p * N;
+        part = fmaf(Dh[p * ldN + n], hp[idx], part);
+    }
+    red[tid] = part;
+    __syncthreads();
+    for (int w = kThreads / 2; w > 0; w >>= 1) {
+        if (tid < w) red[tid] += red[tid + w];
+        __syncthreads();
+    }
+    // d(cums), its reversed cumsum d(dt A), then ddt and this block's dA
+    if (tid == 0) {
+        float tail = red[0] * ecum[q - 1];
+        for (int j = 0; j < q; ++j) tail = fmaf(dtv[j], Tv[j], tail);
+        for (int i = 0; i < q; ++i)
+            dcum[i] = rowR[i] - colE[i] * dtv[i] + Sv[i] - dtv[i] * Tv[i] + (i == q - 1 ? tail : 0.f);
+        float da = 0.f, sum_a = 0.f;
+        for (int t = q - 1; t >= 0; --t) {
+            da += dcum[t];
+            ddt[(tok0 + t) * H + h] = colE[t] + Tv[t] + a_h * da;
+            sum_a = fmaf(dtv[t], da, sum_a);
+        }
+        pA[((int64_t)b * nc + c) * H + h] = sum_a;
+    }
+}
+
+// dBm, dCm (b, t, n) = the sum over heads of pB, pC in head order; dA (h) =
+// the sum of pA over batch rows and chunks in order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) reduce_kernel(
+    const float* __restrict__ pA, const float* __restrict__ pB, const float* __restrict__ pC,
+    float* __restrict__ dA, T* __restrict__ dB, T* __restrict__ dC, int64_t rows, int H, int N,
+    int nA) {
+    const int64_t idx = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+    if (idx < rows * N) {
+        const int64_t r = idx / N, n = idx - r * N;
+        const float* sb = pB + r * H * N + n;
+        const float* sc = pC + r * H * N + n;
+        float vb = 0.f, vc = 0.f;
+        for (int h = 0; h < H; ++h) {
+            vb += sb[(int64_t)h * N];
+            vc += sc[(int64_t)h * N];
+        }
+        dB[idx] = from_float<T>(vb);
+        dC[idx] = from_float<T>(vc);
+    }
+    if (idx < H) {
+        float v = 0.f;
+        for (int k = 0; k < nA; ++k) v += pA[(int64_t)k * H + idx];
+        dA[idx] = v;
+    }
+}
+
+int chunk_for(int L, int P, int N) {
+    for (int Q = kMaxQ; Q >= 1; Q /= 2) {
+        const int q = Q < L ? Q : L;
+        if ((int64_t)ChunkLayout(P, N, q).total * 4 <= kMaxSmem &&
+            (int64_t)PassLayout(N, q).total * 4 <= kMaxSmem)
+            return q;
+    }
+    return 0;
+}
+
+template <class K>
+cudaError_t opt_in(K kernel, int smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;      // above 48 KB only after opting in
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <typename T>
+cudaError_t launch_typed(const void* x, const float* dt, const float* A, const void* Bm,
+                         const void* Cm, const float* h0, const void* dy, const float* dh_final,
+                         void* dx, float* ddt, float* dA, void* dB, void* dC, float* dh0,
+                         float* hs, float* dhs, float* pA, float* pB, float* pC, int B, int L,
+                         int H, int P, int N, cudaStream_t stream) {
+    const int Q = chunk_for(L, P, N);
+    if (Q == 0) return cudaErrorInvalidValue;
+    const int nc = (L + Q - 1) / Q;
+    if (nc > 65535) return cudaErrorInvalidValue;
+    const T* xt = static_cast<const T*>(x);
+    const T* bt = static_cast<const T*>(Bm);
+    const T* ct = static_cast<const T*>(Cm);
+    const T* dyt = static_cast<const T*>(dy);
+
+    const int pass_smem = PassLayout(N, Q).total * (int)sizeof(float);
+    cudaError_t e = opt_in(state_pass_kernel<T>, pass_smem);
+    if (e != cudaSuccess) return e;
+    const int slabs = (P + kSlab - 1) / kSlab;
+    state_pass_kernel<T><<<dim3(H * slabs, B, 2), kThreads, pass_smem, stream>>>(
+        xt, dt, A, bt, ct, h0, dyt, dh_final, hs, dhs, dh0, L, H, P, N, Q);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+    const int chunk_smem = ChunkLayout(P, N, Q).total * (int)sizeof(float);
+    if ((e = opt_in(chunk_kernel<T>, chunk_smem)) != cudaSuccess) return e;
+    chunk_kernel<T><<<dim3(H, nc, B), kThreads, chunk_smem, stream>>>(
+        xt, dt, A, bt, ct, dyt, hs, dhs, static_cast<T*>(dx), ddt, pA, pB, pC, L, H, P, N, Q);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+    const int64_t rows = (int64_t)B * L;
+    const int64_t work = rows * N > H ? rows * N : H;
+    reduce_kernel<T><<<(unsigned)((work + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+        pA, pB, pC, dA, static_cast<T*>(dB), static_cast<T*>(dC), rows, H, N, B * nc);
+    return cudaGetLastError();
+}
+
+}  // namespace bwd
+
 // 1 = tensor cores, 0 = CUDA cores: the route's rule, from dtype and dims alone
 int route_of(int dtype, int P, int N) {
     return dtype == 1 && P % 16 == 0 && (N == 64 || N == 128 || N == 256) ? 1 : 0;
@@ -911,6 +1355,49 @@ int ssd_scan_launch(int dtype, const void* x, const void* dt, const void* A, con
     if (dtype == 1)
         return (int)cc::launch_typed<__nv_bfloat16>(x, dtf, Af, Bm, Cm, h0f, y, houtf, B, L, H,
                                                     P, N, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// The backward's chunk length for this L, P and N (the longest power of two
+// up to 64, or L below it, whose tiles fit shared memory), 0 where even a
+// one-token chunk does not fit: the wrapper sizes the scratch by it.
+int ssd_scan_backward_chunk(int L, int P, int N) {
+    return L < 1 || P < 1 || N < 1 ? 0 : bwd::chunk_for(L, P, N);
+}
+
+// The backward's route: 0 = CUDA cores (fp32 arithmetic) for every dtype and
+// dims; the wrapper's backward_route() asks this, so the rule lives here only.
+int ssd_scan_backward_route(int dtype, int P, int N) { return 0; }
+
+// Gradients of ssd_scan_launch's (y, h_final) -> (dx, ddt, dA, dBm, dCm, dh0).
+// dtype as ssd_scan_launch (x, Bm, Cm, dy, dx, dBm and dCm share it); dt, A,
+// h0, dh_final, ddt, dA and dh0 float32.  h0, dh_final (no gradient on the
+// final state) and dh0 may be null.  Scratch, float32, sized by the chunk
+// length Q = ssd_scan_backward_chunk(L, P, N) and nc = ceil(L / Q): hs and
+// dhs (B, nc, H, P, N), pA (B, nc, H), pB and pC (B, L, H, N).  Three
+// launches on the stream: the state passes, the chunk kernel, the reduction.
+// Returns a cudaError_t (cudaErrorInvalidValue for a dtype or shape it does
+// not take: a chunk of this P and N beyond shared memory, B > 65535, more
+// than 65535 chunks).
+int ssd_scan_backward_launch(int dtype, const void* x, const void* dt, const void* A,
+                             const void* Bm, const void* Cm, const void* h0, const void* dy,
+                             const void* dh_final, void* dx, void* ddt, void* dA, void* dB,
+                             void* dC, void* dh0, void* hs, void* dhs, void* pA, void* pB,
+                             void* pC, int B, int L, int H, int P, int N, void* stream) {
+    if (B < 1 || L < 1 || H < 1 || P < 1 || N < 1 || B > 65535 || H > 65535)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    auto m = [](void* p) { return static_cast<float*>(p); };
+    if (dtype == 0)
+        return (int)bwd::launch_typed<float>(x, f(dt), f(A), Bm, Cm, f(h0), dy, f(dh_final), dx,
+                                             m(ddt), m(dA), dB, dC, m(dh0), m(hs), m(dhs), m(pA),
+                                             m(pB), m(pC), B, L, H, P, N, s);
+    if (dtype == 1)
+        return (int)bwd::launch_typed<__nv_bfloat16>(x, f(dt), f(A), Bm, Cm, f(h0), dy,
+                                                     f(dh_final), dx, m(ddt), m(dA), dB, dC,
+                                                     m(dh0), m(hs), m(dhs), m(pA), m(pB), m(pC),
+                                                     B, L, H, P, N, s);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -24,6 +24,19 @@ tensors launch the kernel or raise.  ``ssd_scan_kernel.launches`` counts
 kernel launches (never plain-version calls; a CUDA graph's replay adds
 the launches it holds, ``serve/graphs.py``), and
 ``ssd_scan_kernel.launches_by_route`` counts them per route.
+
+The backward (:func:`ssd_scan_backward_kernel`, one call of the library's
+``ssd_scan_backward_launch``: three launches, the state passes, the chunk
+kernel and the reduction over heads) gives (dx, ddt, dA, dBm, dCm, dh0)
+in fp32 arithmetic on the CUDA cores for every dtype, deterministically
+(no floating-point atomics).  Its chunk length is the library's
+(``ssd_scan_backward_chunk``), which sizes the scratch the wrapper
+allocates.  ``ssd_scan_backward_kernel.launches`` counts its calls that
+reach the card, ``.launches_by_route`` per route (the library's
+``ssd_scan_backward_route``: ``"cuda_core"`` for every dtype and dims).
+A direct call of the forward with an input that requires grad still
+raises (:func:`~repro_torch.kernels.grad_guard.refuse_grad`): the model
+path reaches both through ``ops.SSDScan``.
 """
 
 from __future__ import annotations
@@ -34,7 +47,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..grad_guard import refuse_grad
-from .ref import ssd_scan_plain
+from .ref import ssd_scan_backward_plain, ssd_scan_plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("cuda_core", "tensor_core")        # index = the C interface's route code
@@ -52,6 +65,12 @@ def _library() -> ctypes.CDLL:
         lib.ssd_scan_launch.restype = i
         lib.ssd_scan_route.argtypes = [i, i, i]
         lib.ssd_scan_route.restype = i
+        lib.ssd_scan_backward_launch.argtypes = [i] + [p] * 19 + [i, i, i, i, i, p]
+        lib.ssd_scan_backward_launch.restype = i
+        lib.ssd_scan_backward_chunk.argtypes = [i, i, i]
+        lib.ssd_scan_backward_chunk.restype = i
+        lib.ssd_scan_backward_route.argtypes = [i, i, i]
+        lib.ssd_scan_backward_route.restype = i
         lib.ssd_scan_error_string.argtypes = [i]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -107,7 +126,8 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torc
         return ssd_scan_plain(x, dt, A, Bm, Cm, h0, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_kernel runs on cpu or cuda, not {x.device}")
-    refuse_grad("ssd_scan_kernel (the SSD scan)", "1.7.1", x, dt, A, Bm, Cm, h0)
+    refuse_grad("ssd_scan_kernel (the SSD scan)", "1.7.1", x, dt, A, Bm, Cm, h0,
+                via="ops.SSDScan (ops.ssd_scan)")
     _check(x, dt, A, Bm, Cm, h0)
     Bsz, L, H, P = x.shape
     N = Bm.shape[-1]
@@ -142,3 +162,93 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torc
 
 ssd_scan_kernel.launches = 0
 ssd_scan_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def backward_route(dtype: torch.dtype, P: int, N: int) -> str:
+    """The route of the backward for this dtype, P and N, as the built
+    library's ``ssd_scan_backward_route`` gives it (the CUDA cores, fp32
+    arithmetic, for all of them)."""
+    return ROUTES[_library().ssd_scan_backward_route(_DTYPE_CODE[dtype], P, N)]
+
+
+def _check_backward(x, N: int, dy, dh_final) -> None:
+    Bsz, L, H, P = x.shape
+    if tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must be {tuple(x.shape)} {x.dtype} on {x.device}, got "
+                         f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    if dh_final is not None and (tuple(dh_final.shape) != (Bsz, H, P, N)
+                                 or dh_final.dtype != torch.float32
+                                 or dh_final.device != x.device):
+        raise ValueError(f"dh_final must be ({Bsz}, {H}, {P}, {N}) float32 on {x.device}, "
+                         f"got {tuple(dh_final.shape)} {dh_final.dtype} on {dh_final.device}")
+    for name, t in (("dy", dy), ("dh_final", dh_final)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def ssd_scan_backward_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                             Bm: torch.Tensor, Cm: torch.Tensor, h0: Optional[torch.Tensor],
+                             dy: torch.Tensor, dh_final: Optional[torch.Tensor] = None, *,
+                             chunk: int = 256):
+    """The gradients of :func:`ssd_scan_kernel`'s ``(y, h_final)`` given
+    ``dy`` (B, L, H, P) in x's dtype and ``dh_final`` (B, H, P, N) float32
+    or None (no gradient on the final state), the inputs as there ->
+    ``(dx, ddt, dA, dBm, dCm, dh0)``, each in its input's dtype, dh0 None
+    when h0 is None.  ``chunk`` is the plain version's (CPU tensors); the
+    kernel takes its own (``ssd_scan_backward_chunk``: up to 64 tokens),
+    which changes only the rounding (:func:`.ref.bf16_backward_rounding_bound`)."""
+    if x.device.type == "cpu":
+        return ssd_scan_backward_plain(x, dt, A, Bm, Cm, h0, dy, dh_final, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_backward_kernel runs on cpu or cuda, not {x.device}")
+    _check(x, dt, A, Bm, Cm, h0)
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    _check_backward(x, N, dy, dh_final)
+    tensors = (x, Bm, Cm, dy) + tuple(t for t in (h0, dh_final) if t is not None)
+    if any(t.data_ptr() % 16 for t in tensors if t.numel()):
+        raise ValueError("ssd_scan_backward_kernel takes x, Bm, Cm, h0, dy and dh_final "
+                         "16-byte aligned, as the forward's tensor-core route does")
+    dx, ddt, dA = torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    if x.numel() == 0 or N == 0:
+        for t in (dx, ddt, dA, dB, dC):
+            t.zero_()
+        if dh0 is not None and dh_final is not None:
+            dh0.copy_(dh_final)
+        elif dh0 is not None:
+            dh0.zero_()
+        return dx, ddt, dA, dB, dC, dh0
+    lib = _library()
+    Q = lib.ssd_scan_backward_chunk(L, P, N)
+    if Q == 0:
+        raise ValueError(f"ssd_scan_backward_kernel: a chunk of P={P}, N={N} does not fit "
+                         "shared memory (the backward holds a chunk's B, C, x, dy and the "
+                         "P x N adjoint of the state in it)")
+    nc = -(-L // Q)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    hs = torch.empty((Bsz, nc, H, P, N), **f32)
+    dhs = torch.empty((Bsz, nc, H, P, N), **f32)
+    pA = torch.empty((Bsz, nc, H), **f32)
+    pB = torch.empty((Bsz, L, H, N), **f32)
+    pC = torch.empty((Bsz, L, H, N), **f32)
+    path = backward_route(x.dtype, P, N)
+    ptr = lambda t: None if t is None else t.data_ptr()        # noqa: E731
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_scan_backward_launch(
+            _DTYPE_CODE[x.dtype], *(ptr(t) for t in (
+                x, dt, A, Bm, Cm, h0, dy, dh_final, dx, ddt, dA, dB, dC, dh0, hs, dhs, pA, pB,
+                pC)), Bsz, L, H, P, N, stream)
+    if err != 0:
+        msg = lib.ssd_scan_error_string(err).decode()
+        raise RuntimeError(f"ssd_scan backward launch failed for x {tuple(x.shape)}, N={N}: "
+                           f"{msg} ({err})")
+    ssd_scan_backward_kernel.launches += 1
+    ssd_scan_backward_kernel.launches_by_route[path] += 1
+    return dx, ddt, dA, dB, dC, dh0
+
+
+ssd_scan_backward_kernel.launches = 0
+ssd_scan_backward_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -6,6 +6,11 @@ here the entry point only brings its inputs to the kernel's layout and
 types: x, Bm and Cm in one dtype, dt, A and h0 in fp32, all contiguous,
 and x, Bm, Cm and h0 starting on a 16-byte boundary (the tensor-core route
 copies them by 16 bytes; a view that starts elsewhere is copied).
+
+Where autograd needs it (grad mode on and an input that requires grad),
+the call goes through :class:`SSDScan`, a ``torch.autograd.Function``
+whose backward is the kernel's (``ssd_scan_backward_kernel``).  Every
+other call (serving, graphs, decode) launches the forward alone, as before.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .kernel import ssd_scan_kernel
+from .kernel import ssd_scan_backward_kernel, ssd_scan_kernel
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -22,13 +27,41 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+class SSDScan(torch.autograd.Function):
+    """``(y, h_final) = ssd_scan_kernel(x, dt, A, Bm, Cm, h0)`` with the
+    kernel's backward: saves the inputs (the backward runs the state
+    passes again rather than keeping the forward's states); returns dx,
+    ddt, dA, dBm, dCm and dh0 in the inputs' dtypes.  A gradient on either
+    output may be absent (None: no gradient flows from it).  Under
+    ``torch.utils.checkpoint`` the recompute's forward saves its own."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0, chunk: int):
+        y, h_final = ssd_scan_kernel(x, dt, A, Bm, Cm, h0, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, h0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        x, dt, A, Bm, Cm, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else _aligned(dy.to(x.dtype))
+        dh_final = None if dh_final is None else _aligned(dh_final.to(dt.dtype))
+        grads = ssd_scan_backward_kernel(x, dt, A, Bm, Cm, h0, dy, dh_final, chunk=ctx.chunk)
+        return (*grads, None)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
              chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, L, H, P); dt (B, L, H); A (H,); Bm, Cm (B, L, N); h0
     (B, H, P, N) or None (a zero state) -> ``(y (B, L, H, P) in x's dtype,
-    h_final (B, H, P, N) fp32)``; fp32 math."""
-    f32 = torch.float32
-    return ssd_scan_kernel(_aligned(x), dt.to(f32).contiguous(), A.to(f32).contiguous(),
-                           _aligned(Bm.to(x.dtype)), _aligned(Cm.to(x.dtype)),
-                           None if h0 is None else _aligned(h0.to(f32)), chunk=chunk)
+    h_final (B, H, P, N) fp32)``; fp32 math (float64 for float64 inputs on
+    the CPU).  Differentiable (through :class:`SSDScan`) in every input."""
+    ft = torch.promote_types(x.dtype, torch.float32)
+    args = (_aligned(x), dt.to(ft).contiguous(), A.to(ft).contiguous(), _aligned(Bm.to(x.dtype)),
+            _aligned(Cm.to(x.dtype)), None if h0 is None else _aligned(h0.to(ft)))
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        return SSDScan.apply(*args, chunk)
+    return ssd_scan_kernel(*args, chunk=chunk)

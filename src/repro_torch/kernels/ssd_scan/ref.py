@@ -212,3 +212,243 @@ def dropped_token_effect(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     args[0][:, t] = 0.0
     y_drop, _ = ssd_scan_plain(*args, chunk=chunk)
     return t, (y[:, t] - y_drop[:, t]).abs().max().item()
+
+
+# -- the backward --------------------------------------------------------------------------------
+
+
+def _backward(x, dt, A, Bm, Cm, h0, dy, dh_final, chunk: int, *, mag: bool = False,
+              drop: Optional[int] = None):
+    """The chunked adjoint (see :func:`ssd_scan_backward_plain`), in the
+    math dtype, before any cast.  ``mag``: every subtraction of the adjoint
+    of the exponents becomes an addition and A enters the step's gradient
+    as |A|, so that on |x|, |B|, |C|, |h0|, |dy| and |dh_final| each
+    output is the sum of its terms' magnitudes.  ``drop``: chunk ``drop``'s
+    contribution to the state's adjoint is left out."""
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    ft = torch.promote_types(x.dtype, torch.float32)
+    dev = x.device
+    Q = min(chunk, L)
+    pad = (-L) % Q
+    xf, dtf, Bf, Cf, dyf = x.to(ft), dt.to(ft), Bm.to(ft), Cm.to(ft), dy.to(ft)
+    if pad:
+        xf, dyf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, dyf))
+        dtf = F.pad(dtf, (0, 0, 0, pad))           # dt = 0: decay 1, input 0
+        Bf, Cf = (F.pad(t, (0, 0, 0, pad)) for t in (Bf, Cf))
+    nc = (L + pad) // Q
+    xc, dyc = xf.reshape(Bsz, nc, Q, H, P), dyf.reshape(Bsz, nc, Q, H, P)
+    dtc = dtf.reshape(Bsz, nc, Q, H)
+    Bc, Cc = Bf.reshape(Bsz, nc, Q, N), Cf.reshape(Bsz, nc, Q, N)
+    Af = A.to(ft)
+
+    cums = torch.cumsum(dtc * Af, dim=2)                        # (B, nc, Q, H)
+    seg = cums[:, :, :, None, :] - cums[:, :, None, :, :]       # (B, nc, i, j, H)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril()
+    Lmat = torch.exp(torch.where(tri[None, None, :, :, None], seg,
+                                 torch.tensor(float("-inf"), device=dev, dtype=ft)))
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    W = G[..., None] * Lmat * dtc[:, :, None, :, :]             # W_ij, (B, nc, i, j, H)
+    last = cums[:, :, -1, :]                                    # (B, nc, H)
+    wend_ = torch.exp(last[:, :, None, :] - cums)               # exp(cums_last - cums_j)
+    ecum = torch.exp(cums)
+    decay = torch.exp(last)
+
+    # the state entering each chunk, then the state's adjoint leaving each
+    # chunk (walked from the end)
+    states = torch.einsum("bcqh,bcqn,bcqhp->bchpn", wend_ * dtc, Bc, xc)
+    h = (torch.zeros((Bsz, H, P, N), dtype=ft, device=dev) if h0 is None else h0.to(ft))
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                         # (B, nc, H, P, N)
+    dstates = torch.einsum("bcqh,bcqn,bcqhp->bchpn", ecum, Cc, dyc)
+    if drop is not None:
+        dstates[:, drop] = 0.0
+    dh = (torch.zeros((Bsz, H, P, N), dtype=ft, device=dev) if dh_final is None
+          else dh_final.to(ft))
+    dh_out = [None] * nc
+    for c in reversed(range(nc)):
+        dh_out[c] = dh
+        dh = dh * decay[:, c, :, None, None] + dstates[:, c]
+    dh_out = torch.stack(dh_out, dim=1)                         # (B, nc, H, P, N)
+
+    # within each chunk
+    dW = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
+    E = dW * G[..., None] * Lmat                                # dW_ij G_ij exp(cums_i - cums_j)
+    dG = dW * Lmat * dtc[:, :, None, :, :]
+    R = E * dtc[:, :, None, :, :]                               # the exponents' adjoint, per pair
+    dx = (torch.einsum("bcijh,bcihp->bcjhp", W, dyc)
+          + (wend_ * dtc)[..., None] * torch.einsum("bcjn,bchpn->bcjhp", Bc, dh_out))
+    dCi = ecum[..., None] * torch.einsum("bcihp,bchpn->bcihn", dyc, h_prev)
+    dC = torch.einsum("bcijh,bcjn->bcin", dG, Bc) + dCi.sum(3)
+    dBi = wend_[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", xc, dh_out)
+    dB = torch.einsum("bcijh,bcin->bcjn", dG, Cc) + (dBi * dtc[..., None]).sum(3)
+    S = torch.einsum("bcin,bcihn->bcih", Cc, dCi)               # dy_i . (the state's y_i)
+    T = torch.einsum("bcjn,bcjhn->bcjh", Bc, dBi)               # dh . (x_j B_j^T) exp(..)
+    U = decay * torch.einsum("bchpn,bchpn->bch", dh_out, h_prev)
+    s = 1.0 if mag else -1.0
+    dcums = R.sum(3) + s * R.sum(2) + S + s * dtc * T
+    dcums[:, :, -1] += (dtc * T).sum(2) + U
+    da = dcums.flip(2).cumsum(2).flip(2)                        # d(dt * A), per token
+    ddt = E.sum(2) + T + (Af.abs() if mag else Af) * da
+    dA = (dtc * da).sum((0, 1, 2))
+    return (dx.reshape(Bsz, nc * Q, H, P)[:, :L], ddt.reshape(Bsz, nc * Q, H)[:, :L], dA,
+            dB.reshape(Bsz, nc * Q, N)[:, :L], dC.reshape(Bsz, nc * Q, N)[:, :L], dh)
+
+
+BACKWARD_NAMES = ("dx", "ddt", "dA", "dBm", "dCm", "dh0")
+
+
+def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                            Bm: torch.Tensor, Cm: torch.Tensor, h0: Optional[torch.Tensor],
+                            dy: torch.Tensor, dh_final: Optional[torch.Tensor] = None, *,
+                            chunk: int = 256):
+    """The adjoint of :func:`ssd_scan_plain`: given ``dy`` (B, L, H, P) and
+    ``dh_final`` (B, H, P, N) or None (no gradient on the final state) ->
+    ``(dx, ddt, dA, dBm, dCm, dh0)``, each in its input's dtype (dh0 None
+    when h0 is None); fp32 math (fp64 for float64 x).
+
+    Per chunk, with ``cums`` the inclusive cumsum of dt A, G = C B^T, W_ij
+    = G_ij exp(cums_i - cums_j) dt_j (j <= i), ``h_prev`` the state
+    entering the chunk and ``dh`` the adjoint of the state leaving it,
+    walked backwards over chunks (``dh_prev = exp(cums_last) dh + sum_i
+    exp(cums_i) dy_i C_i^T``; after the first chunk it is dh0):
+
+        dx_j  = sum_i W_ij dy_i + exp(cums_last - cums_j) dt_j (dh B_j)
+        dW_ij = dy_i . x_j;  dG_ij = dW_ij exp(cums_i - cums_j) dt_j
+        dC_i  = sum_h [sum_j dG_ij B_j + exp(cums_i) h_prev^T dy_i]
+        dB_j  = sum_h [sum_i dG_ij C_i + exp(cums_last - cums_j) dt_j dh^T x_j]
+        ddt_j = sum_i dW_ij G_ij exp(cums_i - cums_j)
+                + exp(cums_last - cums_j) x_j . (dh B_j) + A da_j
+        dA    = sum over b and l of da dt
+
+    where ``da`` is the reversed cumsum over the chunk of d(cums), which
+    collects the terms of exp(cums_i - cums_j) (+ on i, - on j), exp(cums_i)
+    (dy_i . the state's share of y_i), exp(cums_last - cums_j) (- on j, +
+    on the last token) and exp(cums_last) (dh . h_prev, on the last token).
+    Masked pairs (j > i) take an exponent of -inf, so no positive
+    difference is ever exponentiated."""
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    if L == 0:
+        dh0 = None
+        if h0 is not None:
+            dh0 = (torch.zeros_like(h0) if dh_final is None else dh_final.to(h0.dtype).clone())
+        return (torch.zeros_like(x), torch.zeros_like(dt), torch.zeros_like(A),
+                torch.zeros_like(Bm), torch.zeros_like(Cm), dh0)
+    dx, ddt, dA, dB, dC, dh0 = _backward(x, dt, A, Bm, Cm, h0, dy, dh_final, chunk)
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(Bm.dtype),
+            dC.to(Cm.dtype), None if h0 is None else dh0.to(h0.dtype))
+
+
+def _cast(tensors, dtype):
+    return tuple(None if t is None else t.to(dtype) for t in tensors)
+
+
+def _chunk_sums(dt, A, seg: int) -> torch.Tensor:
+    """M (B, H): the largest sum of |dt A| over one chunk of ``seg`` tokens."""
+    Bsz, L, H = dt.shape
+    Q = max(min(seg, L), 1)
+    dA = F.pad((dt.double() * A.double()).abs(), (0, 0, 0, (-L) % Q)).reshape(Bsz, -1, Q, H)
+    return dA.sum(2).amax(1)
+
+
+def bf16_backward_rounding_bound(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                                 Bm: torch.Tensor, Cm: torch.Tensor,
+                                 h0: Optional[torch.Tensor], dy: torch.Tensor,
+                                 dh_final: Optional[torch.Tensor] = None, *, chunk: int = 256,
+                                 kernel_chunk: int = KERNEL_CHUNK):
+    """``(want, bound)``, each a tuple ordered as :data:`BACKWARD_NAMES`
+    (dh0 None without h0), fp32: the plain backward in fp32 on the same
+    inputs (bf16 values where the inputs are bf16), and the per-element
+    limit of the kernel's gradients against it.
+
+    The kernel (``ssd_scan.cu``'s backward) computes in fp32 on the CUDA
+    cores from the inputs' exact values, so it departs from the fp32 plain
+    version by summation order and by its exponents alone, and then rounds
+    dx, dBm and dCm to the inputs' dtype at the store (ddt, dA and dh0 stay
+    fp32).  Every term of every gradient is a product of the inputs, the
+    decays and dt; the same adjoint run on |x|, |B|, |C|, |h0|, |dy| and
+    |dh_final| in float64 with its subtractions made additions (``mag``)
+    gives each output's sum of term magnitudes ``g_abs``.  Relative to it:
+
+    * fp32 sums, both sides, each at most ``m`` deep: ``e_sum = 2^-24 m``,
+      ``m = 2 (Qc + N + P + 16) + nc`` for dx, ddt and dh0 (``Qc`` the longer
+      of this version's and the kernel's chunk, ``nc`` the kernel's chunks,
+      whose states carry roundings), ``+ H`` for dBm and dCm (a sum over
+      heads) and ``+ B L`` for dA;
+    * the exponents: each side's fp32 cumsum of dt A misses by ``d |cums|``,
+      ``d = SCAN_DEPTH 2^-24`` (as :func:`bf16_rounding_bound` takes it), so a
+      term's factor exp(cums_i - cums_j), exp(cums_i) or exp(cums_last - ..)
+      is off by at most ``4 d M`` between the two sides and a carried
+      state's by ``4 d M`` more (M (B, H): the largest sum of |dt A| over
+      one chunk of ``Qc`` tokens).  Every term is linear in head h's (dy,
+      dh_final), so the magnitude run on |dy| and |dh_final| scaled by ``8 d
+      M[b, h]`` gives each output's share of this error, heads summed;
+    * underflow: where the decays reach below fp32's normal range, each of
+      the ``m`` steps of a sum may lose up to the smallest normal, 2^-126.
+
+    Then the store, at unit roundoff ``u_s`` (2^-8 for bf16 outputs, 2^-24
+    for fp32):
+
+        bound = u_s |want| + (1 + u_s) (e_sum g_abs + g_exp + 2^-126 m)
+    """
+    f32, f64 = torch.float32, torch.float64
+    want = ssd_scan_backward_plain(*_cast((x, dt, A, Bm, Cm, h0, dy, dh_final), f32),
+                                   chunk=chunk)
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    if L == 0:
+        return want, tuple(None if w is None else torch.zeros_like(w) for w in want)
+    Qc = max(chunk, kernel_chunk)
+    M = _chunk_sums(dt, A, Qc)                                  # (B, H)
+    kappa = 8 * SCAN_DEPTH * FP32_U * M
+    args = (x.to(f64).abs(), dt.to(f64), A.to(f64), Bm.to(f64).abs(), Cm.to(f64).abs(),
+            None if h0 is None else h0.to(f64).abs())
+    dya, dfa = dy.to(f64).abs(), None if dh_final is None else dh_final.to(f64).abs()
+    g_abs = _backward(*args, dya, dfa, chunk, mag=True)
+    g_exp = _backward(*args, dya * kappa[:, None, :, None],
+                      None if dfa is None else dfa * kappa[:, :, None, None], chunk, mag=True)
+    nc = math.ceil(L / min(kernel_chunk, L))
+    base = 2 * (Qc + N + P + 16) + nc
+    depth = {"dx": base, "ddt": base, "dA": base + Bsz * L, "dBm": base + H, "dCm": base + H,
+             "dh0": base}
+    low = {"dx": x.dtype, "dBm": Bm.dtype, "dCm": Cm.dtype}
+    bounds = []
+    for name, w, ga, ge in zip(BACKWARD_NAMES, want, g_abs, g_exp, strict=True):
+        if w is None:
+            bounds.append(None)
+            continue
+        us = BF16_U if low.get(name) == torch.bfloat16 else FP32_U
+        err = FP32_U * depth[name] * ga + ge + 2.0 ** -126 * depth[name]
+        bounds.append((us * w.to(f64).abs() + (1 + us) * err).to(f32))
+    return want, tuple(bounds)
+
+
+def dropped_chunk_effects(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                          Bm: torch.Tensor, Cm: torch.Tensor, h0: Optional[torch.Tensor],
+                          dy: torch.Tensor, dh_final: Optional[torch.Tensor] = None, *,
+                          chunk: int = 256, drop: Optional[int] = None) -> dict:
+    """What a backward that lost one chunk's contribution to the state's
+    adjoint (``sum_i exp(cums_i) dy_i C_i^T`` of chunk ``drop``, the last
+    chunk by default) would get wrong: ``{name: |change|}``, per element,
+    for each gradient of :data:`BACKWARD_NAMES` that it changes (fp32 plain
+    backward; chunks of ``chunk`` tokens).  The dropped share reaches every
+    earlier chunk's dx, ddt and dBm, dA, and dh0 through the state's
+    adjoint; dCm does not depend on it.  A kernel that lost it would break
+    a per-element limit wherever the change exceeds the limit."""
+    args = _cast((x, dt, A, Bm, Cm, h0, dy, dh_final), torch.float32)
+    L = x.shape[1]
+    drop = math.ceil(L / min(chunk, max(L, 1))) - 1 if drop is None else drop
+    full = _backward(*args, chunk)
+    lost = _backward(*args, chunk, drop=drop)
+    out = {}
+    for name, g, gl in zip(BACKWARD_NAMES, full, lost, strict=True):
+        if name == "dh0" and h0 is None:
+            continue
+        diff = (g - gl).abs()
+        if diff.numel() and diff.max().item() > 0:
+            out[name] = diff
+    return out

@@ -9,10 +9,11 @@ commit and garbage pass and the step loop's progress reports take one lock,
 so they never drive it at once.  The model is built for
 training (fp32 masters, ``build_model(train=True)``) from ``--seed`` on
 ``--device`` (``cuda`` unless asked otherwise).  On the card every
-attention of 4096 tokens or more runs in the flash kernel and every RG-LRU
-recurrence in the scan kernel, forward and backward; a family whose
-forward reaches a kernel with no backward yet (the SSD scan of ``ssm``,
-the MoE kernels of ``moe``) is refused before step 0.
+attention of 4096 tokens or more runs in the flash kernel, every RG-LRU
+recurrence in the scan kernel and every SSD recurrence (mamba2, the
+``ssm`` family) in the SSD scan kernel, forward and backward; a family
+whose forward reaches a kernel with no backward yet (the MoE kernels of
+``moe``) is refused before step 0.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b --steps 50 \\
@@ -43,7 +44,6 @@ from ..train.step import TrainStepConfig, init_train_state, trainable
 
 # families whose forward reaches a kernel that has no backward yet
 NO_BACKWARD = {
-    "ssm": "the SSD scan kernel (ssd_scan_kernel; ROADMAP item 1.7.1)",
     "moe": "the MoE route, expert and combine kernels (moe_route_kernel, moe_experts_kernel, "
            "moe_combine_kernel; ROADMAP item 1.7.2)",
 }
@@ -211,7 +211,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false",
-                    help="the full config (one card holds minicpm-2b and recurrentgemma-2b)")
+                    help="the full config (one card holds minicpm-2b, recurrentgemma-2b and "
+                         "mamba2-1.3b)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--ckpt-every", type=int, default=20)
