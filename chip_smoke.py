@@ -396,24 +396,31 @@ last line is printed):
 
 34–36. The SSD scan's backward and mamba2 training, after phase 32.  34:
     the backward kernel (``ssd_scan_backward_kernel``: the state passes,
-    the chunk kernel and the reduction over heads, fp32 on the CUDA cores)
+    the chunk kernel and a reduction; on the route ``backward_route``
+    names: the tensor cores for bf16 at P a multiple of 16 and N
+    64/128/256, the CUDA cores (fp32 arithmetic) for fp32 and P 4 / N 8)
     against ``ssd_scan/ref.py::ssd_scan_backward_plain`` in fp32 at
     mamba2-1.3b's dims (H 64, P 64, N 128; L 300 and 2048), a big decay, a
     ragged L, L = 1, h0 and dh_final given and not, fp32 and bf16, P 4-64,
     N 8-256: every gradient (dx, ddt, dA, dBm, dCm, dh0) per element within
-    ``ref.py::bf16_backward_rounding_bound`` (its fp32 analogue for fp32
-    inputs), the worst err / bound printed; leaving out one 64-token
-    chunk's share of the state's adjoint (``dropped_chunk_effects``) must
-    exceed the bound somewhere wherever that share reaches an earlier chunk
-    or h0 (not at big decay, where it falls under bf16's resolution); two
-    launches bitwise equal.  35: the backward timed at the training shape
-    (2, 4096, 64, 64), N 128, bf16, beside the plain backward, its bound
-    (bytes at 3.35 TB/s, the chunked adjoint's operations at 989 TFLOP/s;
-    no library call computes it) and each kernel's device time.  36:
+    ``ref.py::bf16_backward_rounding_bound`` on the case's route and chunk
+    (its fp32 analogue for fp32 inputs), the worst err / bound printed;
+    leaving out one 64-token chunk's share of the state's adjoint
+    (``dropped_chunk_effects``) must exceed the bound somewhere wherever
+    that share reaches an earlier chunk or h0 (not at big decay, where it
+    falls under bf16's resolution); two launches bitwise equal.  35: the
+    backward timed at the training shape (2, 4096, 64, 64), N 128, on both
+    routes (bf16 on the tensor cores, fp32 on the CUDA cores), beside the
+    plain backward, its bound (bytes at 3.35 TB/s, the chunked adjoint's
+    operations at 989 TFLOP/s; no library call computes it) and each
+    kernel's device time; the library's tensor-core plan
+    (``kernel.library_plan``) equal to ``kernels/ssd_scan/plan.py``'s at 12
+    (P, N), and the route's kernels' ``ptxas`` registers and spills.  36:
     full-depth ``mamba2-1.3b`` (48 layers), 4 steps of 8 x 4096 tokens in
     4 microbatches (cosine, lr 3e-4), checked as 31 with SSD forward
     launches exactly 2 x 48 x microsteps (all on the tensor cores) and
-    backward 48 x microsteps, no flash, paged, RG-LRU or MoE launch.
+    backward 48 x microsteps (all on the tensor cores), no flash, paged,
+    RG-LRU or MoE launch.
 
 On the card the scheduler replays a CUDA graph for every decode step and
 every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19,
@@ -4446,6 +4453,8 @@ def launch_counts() -> dict:
             "ssd_scan": ssd_scan_kernel.launches,
             "ssd_tensor_core": ssd_scan_kernel.launches_by_route["tensor_core"],
             "ssd_scan_backward": ssd_scan_backward_kernel.launches,
+            "ssd_backward_tensor_core":
+                ssd_scan_backward_kernel.launches_by_route["tensor_core"],
             "flash_attention": flash_attention_kernel.launches,
             "flash_tensor_core": flash_attention_kernel.launches_by_route["tensor_core"],
             "moe_experts": moe_experts_kernel.launches,
@@ -5194,12 +5203,19 @@ def ssd_bwd_inputs(gen, B, L, H, P, N, h0, dh_final, kind, dtype):
 
 def ssd_bwd_margins(got, args) -> dict:
     """Each gradient of the kernel against the fp32 plain backward and
-    ``bf16_backward_rounding_bound``: {name: (max |err|, max err / bound,
-    within the bound everywhere, max effect / bound of a dropped chunk)}."""
+    ``bf16_backward_rounding_bound`` on the route and chunk the library
+    gives these inputs: {name: (max |err|, max err / bound, within the bound
+    everywhere, max effect / bound of a dropped chunk)}."""
+    from repro_torch.kernels.ssd_scan.kernel import backward_chunk, backward_route
     from repro_torch.kernels.ssd_scan.ref import (BACKWARD_NAMES, bf16_backward_rounding_bound,
                                                   dropped_chunk_effects)
 
-    want, bound = bf16_backward_rounding_bound(*args)
+    x, Bm = args[0], args[3]
+    _, L, _, P = x.shape
+    N = Bm.shape[-1]
+    want, bound = bf16_backward_rounding_bound(
+        *args, kernel_chunk=backward_chunk(x.dtype, L, P, N),
+        kernel_route=backward_route(x.dtype, P, N))
     effects = dropped_chunk_effects(*args, chunk=SSD_BWD_DROP_CHUNK)
     out = {}
     for name, g, w, b in zip(BACKWARD_NAMES, got, want, bound, strict=True):
@@ -5217,11 +5233,14 @@ def ssd_bwd_margins(got, args) -> dict:
 
 def phase_ssd_backward_cases(fails: Failures, seed: int) -> float:
     """34: the backward kernel against the plain backward on the card, every
-    case once on the route ``backward_route`` names, each gradient per
-    element within ``bf16_backward_rounding_bound`` (its fp32 analogue for
-    fp32 inputs); the change a dropped chunk makes must exceed the bound
-    somewhere (where an earlier chunk or h0 is there to reach, and not at
-    big decay); two launches bitwise equal.  Returns the worst err / bound."""
+    case once on the route ``backward_route`` names (the tensor-core route
+    for the bf16 cases at P a multiple of 16 and N 64/128/256, the CUDA-core
+    route for fp32 and P 4 / N 8), each gradient per element within
+    ``bf16_backward_rounding_bound`` on that route and its chunk (its fp32
+    analogue for fp32 inputs); the change a dropped chunk makes must exceed
+    the bound somewhere (where an earlier chunk or h0 is there to reach,
+    and not at big decay); two launches bitwise equal.  Returns the worst
+    err / bound."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ssd_scan_backward_kernel
@@ -5231,9 +5250,10 @@ def phase_ssd_backward_cases(fails: Failures, seed: int) -> float:
     worst = 0.0
     for B, L, H, P, N, h0, dhf, kind, dt_name in SSD_BWD_CASES:
         dtype = getattr(torch, dt_name)
-        label = f"ssd backward ({B}, {L}, {H}, {P}, {N}) {dt_name} {kind} h0={h0} dh_final={dhf}"
-        args = ssd_bwd_inputs(gen, B, L, H, P, N, h0, dhf, kind, dtype)
         path = backward_route(dtype, P, N)
+        label = (f"ssd backward ({B}, {L}, {H}, {P}, {N}) {dt_name} {kind} h0={h0} "
+                 f"dh_final={dhf} [{path}]")
+        args = ssd_bwd_inputs(gen, B, L, H, P, N, h0, dhf, kind, dtype)
         n0 = dict(ssd_scan_backward_kernel.launches_by_route)
         got = ssd_scan_backward_kernel(*args)
         n1 = ssd_scan_backward_kernel.launches_by_route
@@ -5282,61 +5302,121 @@ def ssd_bwd_bound(B, L, H, P, N, elt: int, Q: int):
     return nbytes, ops
 
 
-def phase_ssd_backward_timing(fails: Failures, seed: int, shape) -> dict:
-    """35: the backward at the training shape (bf16, no h0, no gradient on
-    the final state, as mamba2 trains), CUDA events over launches that
-    rotate two input sets, beside the plain backward; the device time of
-    each of its three kernels from a trace."""
-    import torch
+SSD_BWD_PLAN_DIMS = [(P, N) for N in (64, 128, 256) for P in (16, 48, 64, 128)]
 
-    from repro_torch.kernels.ssd_scan import ssd_scan_backward_kernel, ssd_scan_backward_plain
-    from repro_torch.kernels.ssd_scan.kernel import _library, backward_route
 
-    B, L, H, P, N = shape
-    gen = torch.Generator(device="cuda").manual_seed(seed + 35)
-    sets = [ssd_bwd_inputs(gen, B, L, H, P, N, False, False, "random", torch.bfloat16)
-            for _ in range(2)]
-    Q = _library().ssd_scan_backward_chunk(L, P, N)
-    nbytes, ops = ssd_bwd_bound(B, L, H, P, N, 2, Q)
-    got = ssd_scan_backward_kernel(*sets[0])
-    m = ssd_bwd_margins(got, sets[0])
-    worst = max(v[1] for v in m.values())
-    fails.check(all(v[2] for v in m.values()),
-                f"ssd backward at {shape} bf16 within the bound (err / bound {worst:.3g})")
-    max_err = max(v[0] for v in m.values())
-    del got
-    ms = cuda_time_ms(lambda i: ssd_scan_backward_kernel(*sets[i % 2]), 10, warmup=2)
-    plain_ms = cuda_time_ms(lambda i: ssd_scan_backward_plain(*sets[i % 2]), 2, warmup=1)
+def ssd_bwd_ptxas_report(fails: Failures) -> None:
+    """Prints ``ptxas -v``'s registers, shared memory and spills for the
+    tensor-core backward's kernels (the passes at N 64/128/256 and 16 or 32
+    state rows, the chunk kernel at N 64/128/256); fails unless all nine are
+    in the build's log."""
+    from repro_torch.kernels import build
+
+    name, seen = None, set()
+    for line in build.build_log("ssd_scan").splitlines():
+        m = re.search(r"(tc_state_pass_kernel|tc_chunk_kernel)ILi(\d+)E(?:Li(\d+)E)?", line)
+        if "Compiling entry" in line:
+            name = m and (f"{m.group(1)}<{m.group(2)}" + (f", {m.group(3)}" if m.group(3) else "")
+                          + ">")
+            if name:
+                seen.add(name)
+        elif name and ("Used" in line or "spill" in line):
+            print(f"  ptxas {name}: {line.strip().replace('ptxas info    : ', '')}")
+    fails.check(len(seen) == 9, f"ptxas report of ssd_scan.cu: {len(seen)} of 9 tensor-core "
+                f"backward kernels ({sorted(seen)})")
+
+
+def ssd_bwd_device_ms(fn, calls: int) -> dict:
+    """Device ms a call by kernel of namespace ``bwd`` over ``calls`` calls
+    of ``fn(i)``, from a ``torch.profiler`` trace."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(4):
-            ssd_scan_backward_kernel(*sets[i % 2])
+        for i in range(calls):
+            fn(i)
         sync()
     by_kernel: dict = {}
     for name, start, end in kernel_intervals(prof):
         if "::bwd::" in name:
-            k = name.split("::bwd::")[1].split("<")[0]
-            by_kernel[k] = by_kernel.get(k, 0.0) + (end - start) / 1e3 / 4
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    bound_fp32_ms = max(t_bytes, ops / FP32_FLOPS_PER_S) * 1e3
-    print(f"  ssd backward {shape} bf16 (chunk {Q}): {ms:.4f} ms a call, device ms a call by "
-          f"kernel {({k: round(v, 4) for k, v in by_kernel.items()})}; plain backward "
-          f"{plain_ms:.2f} ms; bound {bound_ms:.5f} ms ({nbytes / 1e6:.1f} MB, "
-          f"{ops / 1e9:.1f} GFLOP at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16; "
-          f"{bound_fp32_ms:.4f} ms at {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s fp32, the rate of "
-          f"its CUDA-core arithmetic); err / bound {worst:.3g}")
-    return {"name": "ssd_scan_backward", "route": "cuda",
-            "kernel_route": backward_route(torch.bfloat16, P, N),
+            k = name.split("::bwd::")[1].split("(")[0]
+            by_kernel[k] = by_kernel.get(k, 0.0) + (end - start) / 1e3 / calls
+    return by_kernel
+
+
+def phase_ssd_backward_timing(fails: Failures, seed: int, shape) -> list:
+    """35: the backward at the training shape (bf16, no h0, no gradient on
+    the final state, as mamba2 trains) on its route, the tensor cores: CUDA
+    events over launches that rotate two input sets, beside the plain
+    backward; the device time of each of its kernels from a trace; the
+    library's plan against ``plan.py`` for every (P, N) of
+    ``SSD_BWD_PLAN_DIMS`` and the kernels' ``ptxas`` report.  Then the
+    CUDA-core route at the same dims (fp32 inputs: the route's rule gives
+    it fp32) timed the same way.  Returns one record a route."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import (plan, ssd_scan_backward_kernel,
+                                              ssd_scan_backward_plain)
+    from repro_torch.kernels.ssd_scan.kernel import backward_chunk, backward_route, library_plan
+
+    B, L, H, P, N = shape
+    bad = [(p, n) for p, n in SSD_BWD_PLAN_DIMS
+           if library_plan(B, L, H, p, n) != plan.plan(B, L, H, p, n)._asdict()]
+    pl = library_plan(B, L, H, P, N)
+    fails.check(not bad, f"ssd backward plan: the library's equals plan.py's at (P, N) in "
+                f"{SSD_BWD_PLAN_DIMS} (differs at {bad}); at {shape}: {pl}")
+    print(f"  ssd backward tensor-core plan at {shape}: {pl}; plan.py agrees at "
+          f"{len(SSD_BWD_PLAN_DIMS) - len(bad)} of {len(SSD_BWD_PLAN_DIMS)} (P, N)")
+    ssd_bwd_ptxas_report(fails)
+    records = []
+    gen = torch.Generator(device="cuda").manual_seed(seed + 35)
+    for dtype in (torch.bfloat16, torch.float32):
+        elt = 2 if dtype == torch.bfloat16 else 4
+        path = backward_route(dtype, P, N)
+        sets = [ssd_bwd_inputs(gen, B, L, H, P, N, False, False, "random", dtype)
+                for _ in range(2)]
+        Q = backward_chunk(dtype, L, P, N)
+        nbytes, ops = ssd_bwd_bound(B, L, H, P, N, elt, Q)
+        n0 = dict(ssd_scan_backward_kernel.launches_by_route)
+        got = ssd_scan_backward_kernel(*sets[0])
+        fails.check(ssd_scan_backward_kernel.launches_by_route[path] == n0[path] + 1,
+                    f"ssd backward at {shape} {dtype}: launched on the {path} route")
+        m = ssd_bwd_margins(got, sets[0])
+        worst = max(v[1] for v in m.values())
+        fails.check(all(v[2] for v in m.values()),
+                    f"ssd backward at {shape} {dtype} [{path}] within the bound "
+                    f"(err / bound {worst:.3g})")
+        max_err = max(v[0] for v in m.values())
+        del got
+        ms = cuda_time_ms(lambda i: ssd_scan_backward_kernel(*sets[i % 2]), 10, warmup=2)
+        plain_ms = cuda_time_ms(lambda i: ssd_scan_backward_plain(*sets[i % 2]), 2, warmup=1)
+        by_kernel = ssd_bwd_device_ms(lambda i: ssd_scan_backward_kernel(*sets[i % 2]), 4)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_fp32_ms = max(t_bytes, ops / FP32_FLOPS_PER_S) * 1e3
+        print(f"  ssd backward {shape} {dtype} [{path}] (chunk {Q}): {ms:.4f} ms a call, device "
+              f"ms a call by kernel {({k: round(v, 4) for k, v in by_kernel.items()})}; plain "
+              f"backward {plain_ms:.2f} ms; bound {bound_ms:.5f} ms ({nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.1f} GFLOP at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16; "
+              f"{bound_fp32_ms:.4f} ms at {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s fp32); "
+              f"err / bound {worst:.3g}")
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        records.append({
+            "name": "ssd_scan_backward", "route": "cuda", "kernel_route": path,
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:68",
-            "shape": f"x, dy {B}x{L}x{H}x{P} bf16, N={N}, no h0, no dh_final (backward)",
+            "shape": f"x, dy {B}x{L}x{H}x{P} {tag}, N={N}, no h0, no dh_final (backward)",
             "launches": 0, "max_abs_err": max_err, "max_err_over_bound": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_fp32_ms": bound_fp32_ms, "device_ms_by_kernel": by_kernel,
-            "library_ms": None, "library": "none: no PyTorch call computes the SSD adjoint"}
+            "library_ms": None, "library": "none: no PyTorch call computes the SSD adjoint"})
+        del sets
+        release()
+    fails.check(records[0]["kernel_route"] == "tensor_core"
+                and records[1]["kernel_route"] == "cuda_core",
+                f"ssd backward routes at {shape}: bf16 on {records[0]['kernel_route']}, fp32 on "
+                f"{records[1]['kernel_route']}")
+    return records
 
 
 # -- phases 31-33: training on the card --------------------------------------------------------
@@ -5555,10 +5635,12 @@ def phase_train(fails: Failures, seed: int, arch: str, *, seq: int, global_batch
                 f"layers x {micro}, backward {counts['rglru_scan_backward']} == {n_rec} x {micro}")
     fails.check(counts["ssd_scan"] == 2 * n_ssd * micro
                 and counts["ssd_tensor_core"] == counts["ssd_scan"]
-                and counts["ssd_scan_backward"] == n_ssd * micro,
+                and counts["ssd_scan_backward"] == n_ssd * micro
+                and counts["ssd_backward_tensor_core"] == counts["ssd_scan_backward"],
                 f"{arch}: ssd forward launches {counts['ssd_scan']} == 2 x {n_ssd} SSD layers x "
                 f"{micro} (forward and remat recompute), {counts['ssd_tensor_core']} on the "
-                f"tensor cores; backward {counts['ssd_scan_backward']} == {n_ssd} x {micro}")
+                f"tensor cores; backward {counts['ssd_scan_backward']} == {n_ssd} x {micro}, "
+                f"{counts['ssd_backward_tensor_core']} on the tensor cores")
     fails.check(counts["paged_attention"] == counts["moe_experts"]
                 == counts["moe_route"] == counts["moe_combine"] == 0,
                 f"{arch}: no paged or MoE launch in training")
@@ -6158,9 +6240,9 @@ def main() -> int:
     t34 = time.perf_counter()
     print("[34] the SSD scan's backward vs its plain version")
     ssd_worst = phase_ssd_backward_cases(fails, args.seed)
-    print(f"[35] the SSD backward at {SSM}'s training shape (CUDA events)")
-    ssd_bwd = phase_ssd_backward_timing(fails, args.seed, (T36_BATCH // T36_ACCUM, T36_SEQ, H,
-                                                            P, N))
+    print(f"[35] the SSD backward at {SSM}'s training shape, both routes (CUDA events)")
+    ssd_bwd, ssd_bwd_cc = phase_ssd_backward_timing(
+        fails, args.seed, (T36_BATCH // T36_ACCUM, T36_SEQ, H, P, N))
     ssd_bwd["worst_err_over_bound_34"] = ssd_worst
     print(f"[36] full-depth, full-width {SSM} training: {scfg.n_layers} layers, {T36_STEPS} "
           f"steps of {T36_BATCH} x {T36_SEQ} tokens in {T36_ACCUM} microbatches, cosine at lr "
@@ -6168,7 +6250,8 @@ def main() -> int:
     t36 = time.perf_counter()
     r36 = phase_train(fails, args.seed, SSM, seq=T36_SEQ, global_batch=T36_BATCH,
                       accum=T36_ACCUM, steps=T36_STEPS)
-    ssd_bwd["launches"] = r36["counts"]["ssd_scan_backward"]
+    ssd_bwd["launches"] = r36["counts"]["ssd_backward_tensor_core"]
+    ssd_bwd_cc["launches"] = r36["counts"]["ssd_scan_backward"] - ssd_bwd["launches"]
     print(f"  phase 36 wall {time.perf_counter() - t36:.1f} s; phases 34-36 "
           f"{time.perf_counter() - t34:.1f} s")
     print(f"[33] {ARCH} at full width and {T33_LAYERS} layers: kernel vs plain attention, "
@@ -6182,7 +6265,7 @@ def main() -> int:
     for recs in train_records.values():
         records.extend(recs)
     records.append(rglru_bwd)
-    records.append(ssd_bwd)
+    records.extend([ssd_bwd, ssd_bwd_cc])
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if fails:

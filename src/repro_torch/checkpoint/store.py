@@ -11,9 +11,9 @@ Layout (the paper's split between bulk user data and control data)::
 
 A checkpoint is visible iff its manifest committed; a crash mid-save leaves
 a dangling step directory that the next save's garbage pass prunes.
-``save_async`` copies device to host synchronously, then writes the files
-and commits on a thread; saves serialise on one lock, so manifests commit
-in order.  ``restore`` checks every leaf's bytes against the digest taken
+``save_async`` copies device to host synchronously, then hands the write
+and the commit to the store's one save thread, which drains a FIFO queue:
+manifests commit in call order.  ``restore`` checks every leaf's bytes against the digest taken
 at save time, and that the tensor placed on the template's device holds
 the same bytes.
 """
@@ -23,6 +23,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import queue
 import shutil
 import threading
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
@@ -128,10 +129,13 @@ class CheckpointStore:
         self.keep = keep
         self._committer = committer or self._local_commit
         self._latest_resolver = latest_resolver or self._local_latest
-        self._threads: List[threading.Thread] = []
-        # async saves serialise on this lock: the committer talks to the
-        # (single-threaded) control plane, and manifests must commit in order
-        self._save_lock = threading.Lock()
+        # async saves run one at a time on one thread, in call order: the
+        # committer talks to the (single-threaded) control plane, and
+        # manifests must commit in order (a lock per save thread would not
+        # grant in call order)
+        self._queue: "queue.Queue[Tuple[int, Mapping]]" = queue.Queue()
+        self._worker: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
         os.makedirs(root, exist_ok=True)
 
     # -- local (non-coordinated) manifest fallback ------------------------------
@@ -163,27 +167,43 @@ class CheckpointStore:
         return os.path.join(self.root, f"step_{step:08d}")
 
     def save(self, step: int, tree: Mapping) -> None:
-        self._save_host(step, host_copy(tree))
+        """Save and commit ``tree`` as ``step``, after every earlier save."""
+        self.save_async(step, tree)
+        self.wait()
 
-    def save_async(self, step: int, tree: Mapping) -> threading.Thread:
+    def save_async(self, step: int, tree: Mapping) -> None:
+        """Copy ``tree`` to the host now; write and commit it on the save
+        thread after every earlier save (``wait`` joins)."""
         host_tree = host_copy(tree)     # synchronous device -> host; disk I/O async
-        t = threading.Thread(target=self._save_host, args=(step, host_tree), daemon=True)
-        t.start()
-        self._threads.append(t)
-        return t
+        if self._worker is None:
+            self._worker = threading.Thread(target=self._drain, daemon=True)
+            self._worker.start()
+        self._queue.put((step, host_tree))
+
+    def _drain(self) -> None:
+        while True:
+            step, host_tree = self._queue.get()
+            try:
+                self._save_host(step, host_tree)
+            except Exception as e:          # the first is re-raised by wait()
+                self._error = self._error or e
+            finally:
+                self._queue.task_done()
 
     def _save_host(self, step: int, host_tree: Mapping) -> None:
-        with self._save_lock:
-            self._gc_dangling()
-            manifest = save_tree(host_tree, self.step_dir(step))
-            manifest["step"] = step
-            self._committer(step, manifest)
-            self._gc_old()
+        self._gc_dangling()
+        manifest = save_tree(host_tree, self.step_dir(step))
+        manifest["step"] = step
+        self._committer(step, manifest)
+        self._gc_old()
 
     def wait(self) -> None:
-        for t in self._threads:
-            t.join()
-        self._threads.clear()
+        """Block until every ``save_async`` so far has committed; raise the
+        first failed save's error."""
+        self._queue.join()
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
     def latest_step(self) -> Optional[int]:
         return self._latest_resolver()

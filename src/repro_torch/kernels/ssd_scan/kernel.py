@@ -27,13 +27,24 @@ the launches it holds, ``serve/graphs.py``), and
 
 The backward (:func:`ssd_scan_backward_kernel`, one call of the library's
 ``ssd_scan_backward_launch``: three launches, the state passes, the chunk
-kernel and the reduction over heads) gives (dx, ddt, dA, dBm, dCm, dh0)
-in fp32 arithmetic on the CUDA cores for every dtype, deterministically
-(no floating-point atomics).  Its chunk length is the library's
-(``ssd_scan_backward_chunk``), which sizes the scratch the wrapper
-allocates.  ``ssd_scan_backward_kernel.launches`` counts its calls that
-reach the card, ``.launches_by_route`` per route (the library's
-``ssd_scan_backward_route``: ``"cuda_core"`` for every dtype and dims).
+kernel and a reduction) gives (dx, ddt, dA, dBm, dCm, dh0)
+deterministically (no floating-point atomics), on the forward's two
+routes by the forward's rule (the library's ``ssd_scan_backward_route``):
+
+* ``"tensor_core"`` (bf16, P a multiple of 16, N 64/128/256; mamba2-1.3b's
+  training): mma.sync with bf16 operands, the fp32 ones as hi + lo pairs;
+  the state passes walk the chunks with the state in registers, the chunk
+  kernel runs one block per (chunk, batch row) over the heads in order and
+  forms C.B^T, dC's and dB's intra-chunk products once per chunk from the
+  sum of dG over heads (no per-head partials).  Its plan (grid, chunk,
+  head order, shared memory) is :func:`library_plan`, modelled by
+  ``plan.py``;
+* ``"cuda_core"``: fp32 arithmetic for float32 and bf16 at other dims, with
+  per-head partials of dB and dC summed in head order by the third launch.
+
+Its chunk length is the library's (``ssd_scan_backward_chunk``), which
+sizes the scratch the wrapper allocates.  ``ssd_scan_backward_kernel.launches``
+counts its calls that reach the card, ``.launches_by_route`` per route.
 A direct call of the forward with an input that requires grad still
 raises (:func:`~repro_torch.kernels.grad_guard.refuse_grad`): the model
 path reaches both through ``ops.SSDScan``.
@@ -67,8 +78,10 @@ def _library() -> ctypes.CDLL:
         lib.ssd_scan_route.restype = i
         lib.ssd_scan_backward_launch.argtypes = [i] + [p] * 19 + [i, i, i, i, i, p]
         lib.ssd_scan_backward_launch.restype = i
-        lib.ssd_scan_backward_chunk.argtypes = [i, i, i]
+        lib.ssd_scan_backward_chunk.argtypes = [i, i, i, i]
         lib.ssd_scan_backward_chunk.restype = i
+        lib.ssd_scan_backward_plan.argtypes = [i, i, i, i, i, p]
+        lib.ssd_scan_backward_plan.restype = i
         lib.ssd_scan_backward_route.argtypes = [i, i, i]
         lib.ssd_scan_backward_route.restype = i
         lib.ssd_scan_error_string.argtypes = [i]
@@ -166,9 +179,31 @@ ssd_scan_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 def backward_route(dtype: torch.dtype, P: int, N: int) -> str:
     """The route of the backward for this dtype, P and N, as the built
-    library's ``ssd_scan_backward_route`` gives it (the CUDA cores, fp32
-    arithmetic, for all of them)."""
+    library's ``ssd_scan_backward_route`` gives it: the forward's rule
+    (``"tensor_core"`` for bf16 at P a multiple of 16 and N 64, 128 or
+    256, ``"cuda_core"`` otherwise).  Needs the library."""
     return ROUTES[_library().ssd_scan_backward_route(_DTYPE_CODE[dtype], P, N)]
+
+
+def backward_chunk(dtype: torch.dtype, L: int, P: int, N: int) -> int:
+    """The backward's chunk length for these dims on its route, as the
+    library's ``ssd_scan_backward_chunk`` gives it (0 where no chunk fits
+    shared memory)."""
+    return _library().ssd_scan_backward_chunk(_DTYPE_CODE[dtype], L, P, N)
+
+
+def library_plan(B: int, L: int, H: int, P: int, N: int) -> dict:
+    """The tensor-core backward's plan at these dims, as the built library
+    exports it (``ssd_scan_backward_plan``), keyed as ``plan.Plan``."""
+    out = (ctypes.c_int * 14)()
+    err = _library().ssd_scan_backward_plan(B, L, H, P, N, out)
+    if err != 0:
+        raise ValueError(f"the tensor-core backward does not take P={P}, N={N}")
+    v = list(out)
+    return {"chunk": v[0], "p_slab": v[1], "pass_rows": v[2], "chunk_grid": tuple(v[3:6]),
+            "chunk_threads": v[6], "chunk_smem": v[7], "pass_grid": tuple(v[8:11]),
+            "pass_threads": v[11], "pass_smem": v[12],
+            "head_order": "ascending" if v[13] == 0 else f"code {v[13]}"}
 
 
 def _check_backward(x, N: int, dy, dh_final) -> None:
@@ -196,7 +231,8 @@ def ssd_scan_backward_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``(dx, ddt, dA, dBm, dCm, dh0)``, each in its input's dtype, dh0 None
     when h0 is None.  ``chunk`` is the plain version's (CPU tensors); the
     kernel takes its own (``ssd_scan_backward_chunk``: up to 64 tokens),
-    which changes only the rounding (:func:`.ref.bf16_backward_rounding_bound`)."""
+    which changes only the rounding (:func:`.ref.bf16_backward_rounding_bound`
+    with the route's ``kernel_route`` and chunk)."""
     if x.device.type == "cpu":
         return ssd_scan_backward_plain(x, dt, A, Bm, Cm, h0, dy, dh_final, chunk=chunk)
     if x.device.type != "cuda":
@@ -221,7 +257,7 @@ def ssd_scan_backward_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             dh0.zero_()
         return dx, ddt, dA, dB, dC, dh0
     lib = _library()
-    Q = lib.ssd_scan_backward_chunk(L, P, N)
+    Q = lib.ssd_scan_backward_chunk(_DTYPE_CODE[x.dtype], L, P, N)
     if Q == 0:
         raise ValueError(f"ssd_scan_backward_kernel: a chunk of P={P}, N={N} does not fit "
                          "shared memory (the backward holds a chunk's B, C, x, dy and the "
@@ -231,9 +267,13 @@ def ssd_scan_backward_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     hs = torch.empty((Bsz, nc, H, P, N), **f32)
     dhs = torch.empty((Bsz, nc, H, P, N), **f32)
     pA = torch.empty((Bsz, nc, H), **f32)
-    pB = torch.empty((Bsz, L, H, N), **f32)
-    pC = torch.empty((Bsz, L, H, N), **f32)
     path = backward_route(x.dtype, P, N)
+    # per-head partials of dB and dC: the CUDA-core route's alone (the
+    # tensor-core route sums over heads inside its chunk kernel)
+    pB = pC = None
+    if path == "cuda_core":
+        pB = torch.empty((Bsz, L, H, N), **f32)
+        pC = torch.empty((Bsz, L, H, N), **f32)
     ptr = lambda t: None if t is None else t.data_ptr()        # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

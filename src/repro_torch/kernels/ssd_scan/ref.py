@@ -217,14 +217,26 @@ def dropped_token_effect(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 # -- the backward --------------------------------------------------------------------------------
 
 
+def _hilo(v: torch.Tensor) -> torch.Tensor:
+    """v as the kernel's bf16 hi + lo pair sees it: hi = bf16(v), lo =
+    bf16(v - hi), summed back in v's dtype (within 2^-16 |v| of v)."""
+    hi = v.to(torch.bfloat16).to(v.dtype)
+    return hi + (v - hi).to(torch.bfloat16).to(v.dtype)
+
+
 def _backward(x, dt, A, Bm, Cm, h0, dy, dh_final, chunk: int, *, mag: bool = False,
-              drop: Optional[int] = None):
+              drop: Optional[int] = None, split: bool = False):
     """The chunked adjoint (see :func:`ssd_scan_backward_plain`), in the
     math dtype, before any cast.  ``mag``: every subtraction of the adjoint
     of the exponents becomes an addition and A enters the step's gradient
     as |A|, so that on |x|, |B|, |C|, |h0|, |dy| and |dh_final| each
     output is the sum of its terms' magnitudes.  ``drop``: chunk ``drop``'s
-    contribution to the state's adjoint is left out."""
+    contribution to the state's adjoint is left out.  ``split``: every fp32
+    operand the tensor-core route splits enters as its bf16 hi + lo pair
+    (:func:`_hilo`): x wend dt and dy exp(cums) in the state passes, the
+    states and adjoints the chunk kernel reads, W, and the sum of dG over
+    heads."""
+    sp = _hilo if split else (lambda v: v)
     Bsz, L, H, P = x.shape
     N = Bm.shape[-1]
     ft = torch.promote_types(x.dtype, torch.float32)
@@ -256,14 +268,14 @@ def _backward(x, dt, A, Bm, Cm, h0, dy, dh_final, chunk: int, *, mag: bool = Fal
 
     # the state entering each chunk, then the state's adjoint leaving each
     # chunk (walked from the end)
-    states = torch.einsum("bcqh,bcqn,bcqhp->bchpn", wend_ * dtc, Bc, xc)
+    states = torch.einsum("bcqhp,bcqn->bchpn", sp((wend_ * dtc)[..., None] * xc), Bc)
     h = (torch.zeros((Bsz, H, P, N), dtype=ft, device=dev) if h0 is None else h0.to(ft))
     h_prev = []
     for c in range(nc):
         h_prev.append(h)
         h = h * decay[:, c, :, None, None] + states[:, c]
     h_prev = torch.stack(h_prev, dim=1)                         # (B, nc, H, P, N)
-    dstates = torch.einsum("bcqh,bcqn,bcqhp->bchpn", ecum, Cc, dyc)
+    dstates = torch.einsum("bcqhp,bcqn->bchpn", sp(ecum[..., None] * dyc), Cc)
     if drop is not None:
         dstates[:, drop] = 0.0
     dh = (torch.zeros((Bsz, H, P, N), dtype=ft, device=dev) if dh_final is None
@@ -273,18 +285,20 @@ def _backward(x, dt, A, Bm, Cm, h0, dy, dh_final, chunk: int, *, mag: bool = Fal
         dh_out[c] = dh
         dh = dh * decay[:, c, :, None, None] + dstates[:, c]
     dh_out = torch.stack(dh_out, dim=1)                         # (B, nc, H, P, N)
+    h_prev, dh_out = sp(h_prev), sp(dh_out)
 
     # within each chunk
     dW = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
     E = dW * G[..., None] * Lmat                                # dW_ij G_ij exp(cums_i - cums_j)
     dG = dW * Lmat * dtc[:, :, None, :, :]
     R = E * dtc[:, :, None, :, :]                               # the exponents' adjoint, per pair
-    dx = (torch.einsum("bcijh,bcihp->bcjhp", W, dyc)
+    dx = (torch.einsum("bcijh,bcihp->bcjhp", sp(W), dyc)
           + (wend_ * dtc)[..., None] * torch.einsum("bcjn,bchpn->bcjhp", Bc, dh_out))
     dCi = ecum[..., None] * torch.einsum("bcihp,bchpn->bcihn", dyc, h_prev)
-    dC = torch.einsum("bcijh,bcjn->bcin", dG, Bc) + dCi.sum(3)
+    dGs = sp(dG.sum(-1))                                        # dG summed over heads
+    dC = torch.einsum("bcij,bcjn->bcin", dGs, Bc) + dCi.sum(3)
     dBi = wend_[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", xc, dh_out)
-    dB = torch.einsum("bcijh,bcin->bcjn", dG, Cc) + (dBi * dtc[..., None]).sum(3)
+    dB = torch.einsum("bcij,bcin->bcjn", dGs, Cc) + (dBi * dtc[..., None]).sum(3)
     S = torch.einsum("bcin,bcihn->bcih", Cc, dCi)               # dy_i . (the state's y_i)
     T = torch.einsum("bcjn,bcjhn->bcjh", Bc, dBi)               # dh . (x_j B_j^T) exp(..)
     U = decay * torch.einsum("bchpn,bchpn->bch", dh_out, h_prev)
@@ -355,24 +369,44 @@ def _chunk_sums(dt, A, seg: int) -> torch.Tensor:
     return dA.sum(2).amax(1)
 
 
+def ssd_scan_backward_split_emulation(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                                      Bm: torch.Tensor, Cm: torch.Tensor,
+                                      h0: Optional[torch.Tensor], dy: torch.Tensor,
+                                      dh_final: Optional[torch.Tensor] = None, *,
+                                      kernel_chunk: int = KERNEL_CHUNK):
+    """The tensor-core backward's split arithmetic on the CPU, in fp32: the
+    plain backward on chunks of ``kernel_chunk`` tokens with every operand
+    the kernel splits rounded to its bf16 hi + lo pair (x wend dt and dy
+    exp(cums) in the state passes, h_prev and dh where the chunk kernel
+    reads them, W, and the sum of dG over heads) -> ``(dx, ddt, dA, dBm,
+    dCm, dh0)`` in fp32, before the store's rounding.  What the kernel's
+    products leave out of this model is fp32 summation order."""
+    args = _cast((x, dt, A, Bm, Cm, h0, dy, dh_final), torch.float32)
+    out = _backward(*args, kernel_chunk, split=True)
+    return out[:5] + ((None,) if h0 is None else out[5:])
+
+
 def bf16_backward_rounding_bound(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                  Bm: torch.Tensor, Cm: torch.Tensor,
                                  h0: Optional[torch.Tensor], dy: torch.Tensor,
                                  dh_final: Optional[torch.Tensor] = None, *, chunk: int = 256,
-                                 kernel_chunk: int = KERNEL_CHUNK):
+                                 kernel_chunk: int = KERNEL_CHUNK,
+                                 kernel_route: str = "cuda_core"):
     """``(want, bound)``, each a tuple ordered as :data:`BACKWARD_NAMES`
     (dh0 None without h0), fp32: the plain backward in fp32 on the same
     inputs (bf16 values where the inputs are bf16), and the per-element
-    limit of the kernel's gradients against it.
+    limit of the kernel's gradients against it, on the route
+    ``kernel_route`` with its chunk ``kernel_chunk``.
 
-    The kernel (``ssd_scan.cu``'s backward) computes in fp32 on the CUDA
-    cores from the inputs' exact values, so it departs from the fp32 plain
-    version by summation order and by its exponents alone, and then rounds
-    dx, dBm and dCm to the inputs' dtype at the store (ddt, dA and dh0 stay
-    fp32).  Every term of every gradient is a product of the inputs, the
-    decays and dt; the same adjoint run on |x|, |B|, |C|, |h0|, |dy| and
-    |dh_final| in float64 with its subtractions made additions (``mag``)
-    gives each output's sum of term magnitudes ``g_abs``.  Relative to it:
+    The CUDA-core route computes in fp32 from the inputs' exact values, so
+    it departs from the fp32 plain version by summation order and by its
+    exponents alone; the tensor-core route also by its splits (below).
+    Both round dx, dBm and dCm to the inputs' dtype at the store (ddt, dA
+    and dh0 stay fp32).  Every term of every gradient is a product of the
+    inputs, the decays and dt; the same adjoint run on |x|, |B|, |C|,
+    |h0|, |dy| and |dh_final| in float64 with its subtractions made
+    additions (``mag``) gives each output's sum of term magnitudes
+    ``g_abs``.  Relative to it:
 
     * fp32 sums, both sides, each at most ``m`` deep: ``e_sum = 2^-24 m``,
       ``m = 2 (Qc + N + P + 16) + nc`` for dx, ddt and dh0 (``Qc`` the longer
@@ -388,13 +422,24 @@ def bf16_backward_rounding_bound(x: torch.Tensor, dt: torch.Tensor, A: torch.Ten
       dh_final), so the magnitude run on |dy| and |dh_final| scaled by ``8 d
       M[b, h]`` gives each output's share of this error, heads summed;
     * underflow: where the decays reach below fp32's normal range, each of
-      the ``m`` steps of a sum may lose up to the smallest normal, 2^-126.
+      the ``m`` steps of a sum may lose up to the smallest normal, 2^-126;
+    * on the tensor-core route, its splits: an fp32 operand entering a
+      product as a bf16 hi + lo pair is off by at most ``u^2 = 2^-16`` of
+      its size.  A term's path holds at most four (x wend dt or dy exp(cums)
+      in a pass, then the state or adjoint where the chunk kernel reads it,
+      for each of h_prev and dh in dh . h_prev; W or the sum of dG over heads
+      is one), and, counted as the forward's bound counts them, one more at
+      each chunk boundary a carried state or adjoint crosses (at most
+      ``nc - 1``): ``e_split = (nc + 3) u^2``, ``nc`` the kernel's chunks.
+      The CUDA-core route splits nothing: ``e_split = 0``.
 
     Then the store, at unit roundoff ``u_s`` (2^-8 for bf16 outputs, 2^-24
     for fp32):
 
-        bound = u_s |want| + (1 + u_s) (e_sum g_abs + g_exp + 2^-126 m)
+        bound = u_s |want| + (1 + u_s) ((e_sum + e_split) g_abs + g_exp + 2^-126 m)
     """
+    if kernel_route not in ("cuda_core", "tensor_core"):
+        raise ValueError(f"kernel_route is cuda_core or tensor_core, got {kernel_route!r}")
     f32, f64 = torch.float32, torch.float64
     want = ssd_scan_backward_plain(*_cast((x, dt, A, Bm, Cm, h0, dy, dh_final), f32),
                                    chunk=chunk)
@@ -412,6 +457,7 @@ def bf16_backward_rounding_bound(x: torch.Tensor, dt: torch.Tensor, A: torch.Ten
     g_exp = _backward(*args, dya * kappa[:, None, :, None],
                       None if dfa is None else dfa * kappa[:, :, None, None], chunk, mag=True)
     nc = math.ceil(L / min(kernel_chunk, L))
+    e_split = (nc + 3) * BF16_U ** 2 if kernel_route == "tensor_core" else 0.0
     base = 2 * (Qc + N + P + 16) + nc
     depth = {"dx": base, "ddt": base, "dA": base + Bsz * L, "dBm": base + H, "dCm": base + H,
              "dh0": base}
@@ -423,6 +469,8 @@ def bf16_backward_rounding_bound(x: torch.Tensor, dt: torch.Tensor, A: torch.Ten
             continue
         us = BF16_U if low.get(name) == torch.bfloat16 else FP32_U
         err = FP32_U * depth[name] * ga + ge + 2.0 ** -126 * depth[name]
+        if e_split:
+            err = err + e_split * ga
         bounds.append((us * w.to(f64).abs() + (1 + us) * err).to(f32))
     return want, tuple(bounds)
 

@@ -6,9 +6,11 @@ package's ``models/mamba2.py::ssd_chunked`` on the same numpy inputs (fp32,
 ``torch.autograd.gradcheck`` of ``ops.ssd_scan`` (the ``SSDScan``
 Function) in float64.  ``bf16_backward_rounding_bound`` holds the fp32
 plain backward against the float64 one, and leaving out one chunk's share
-of the state's adjoint moves some gradient by more than it.  The CUDA
-kernel (``ssd_scan.cu``'s backward) runs only on a card: its tests skip
-here.
+of the state's adjoint moves some gradient by more than it; its
+tensor-core term holds an emulation of that route's hi + lo splits.
+``plan.py`` models the tensor-core route's grid, chunk, head order and
+shared memory.  The CUDA kernel (``ssd_scan.cu``'s backward) runs only on
+a card: its tests skip here.
 """
 
 from __future__ import annotations
@@ -26,9 +28,10 @@ except ModuleNotFoundError:
     jax = None
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan import (SSDScan, bf16_backward_rounding_bound,
-                                          dropped_chunk_effects, ssd_scan,
+                                          dropped_chunk_effects, plan, ssd_scan,
                                           ssd_scan_backward_kernel, ssd_scan_backward_plain,
-                                          ssd_scan_kernel, ssd_scan_plain)
+                                          ssd_scan_backward_split_emulation, ssd_scan_kernel,
+                                          ssd_scan_plain)
 from repro_torch.kernels.ssd_scan.ref import BACKWARD_NAMES
 
 torch.set_num_threads(2)
@@ -204,6 +207,96 @@ def test_bf16_backward_bound_holds_and_sees_a_dropped_chunk(B, L, H, P, N, with_
             assert ratio["dx"] > 1.0, ratio
 
 
+def kernel_chunk_of(N):
+    """The tensor-core route's chunk at this N (64 where the route does not
+    take N: the emulation's arithmetic holds at any dims)."""
+    return plan.chunk_len(N) if N in plan.STATE_DIMS else 64
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,L,H,P,N,with_h0,with_dh,big_decay", BOUND_CASES)
+def test_split_emulation_within_the_tensor_core_bound(B, L, H, P, N, with_h0, with_dh,
+                                                      big_decay, dtype):
+    """The plain backward with the tensor-core route's hi + lo splits (x
+    wend dt and dy exp(cums) in the passes, h_prev, dh, W and the sum of dG
+    over heads) on the route's chunks lies within
+    ``bf16_backward_rounding_bound(kernel_route="tensor_core")`` of the
+    float64 backward, and leaving out one chunk's share of the state's
+    adjoint still breaks that bound where the CUDA-core test requires it."""
+    arrays = to_torch(inputs(L * 11 + P, B, L, H, P, N, h0=with_h0, dh_final=with_dh,
+                             big_decay=big_decay))
+    args = [None if a is None else (a.to(dtype) if i in (0, 3, 4, 6) else a)
+            for i, a in enumerate(arrays)]
+    kc = kernel_chunk_of(N)
+    want, bound = bf16_backward_rounding_bound(*args, chunk=64, kernel_chunk=kc,
+                                               kernel_route="tensor_core")
+    _, bound_cc = bf16_backward_rounding_bound(*args, chunk=64, kernel_chunk=kc)
+    emu = ssd_scan_backward_split_emulation(*args, kernel_chunk=kc)
+    g64 = ssd_scan_backward_plain(*(None if a is None else a.double() for a in args), chunk=64)
+    for name, e, b, bc, g in zip(BACKWARD_NAMES, emu, bound, bound_cc, g64, strict=True):
+        if e is None:
+            assert b is None and g is None
+            continue
+        assert e.dtype == torch.float32 and e.shape == g.shape, name
+        assert ((e.double() - g).abs() <= b.double()).all(), name
+        assert (b >= bc).all(), name            # the split term only adds
+    effects = dropped_chunk_effects(*args, chunk=64)
+    if (L > 64 or with_h0) and not big_decay:
+        ratio = {k: (v.double() / bound[BACKWARD_NAMES.index(k)].double()).max().item()
+                 for k, v in effects.items()}
+        assert max(ratio.values()) > 1.0, ratio
+        if L > 64:
+            assert ratio["dx"] > 1.0, ratio
+
+
+def test_cuda_core_bound_is_the_default_and_the_split_term_grows_with_chunks():
+    """``kernel_route="cuda_core"`` is the bound as it was (no split term);
+    the tensor-core term is (nc + 3) u^2 of the magnitudes, so it grows with
+    the kernel's chunk count."""
+    args = to_torch(inputs(9, 1, 200, 3, 16, 64, h0=True, dh_final=True))
+    base = bf16_backward_rounding_bound(*args, chunk=64)
+    same = bf16_backward_rounding_bound(*args, chunk=64, kernel_route="cuda_core")
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(base[1], same[1], strict=True))
+    short = bf16_backward_rounding_bound(*args, chunk=64, kernel_route="tensor_core")[1]
+    long_ = bf16_backward_rounding_bound(*args, chunk=64, kernel_chunk=16,
+                                         kernel_route="tensor_core")[1]
+    for b, s, g in zip(base[1], short, long_, strict=True):
+        assert (s >= b).all() and (s > b).any() and (g >= s).all()
+    with pytest.raises(ValueError, match="kernel_route"):
+        bf16_backward_rounding_bound(*args, kernel_route="wgmma")
+
+
+@pytest.mark.parametrize("N", plan.STATE_DIMS)
+@pytest.mark.parametrize("P", [16, 48, 64, 128])
+def test_tensor_core_backward_plan_fits_a_block(P, N):
+    """Every (P, N) the route takes: both kernels' shared memory within the
+    H100's 232,448 bytes a block; the chunk kernel one block of 8 warps per
+    (chunk, batch row), walking the heads in ascending order; the passes one
+    block of 4 warps per (head, slab of state rows, batch row) and
+    direction."""
+    B, L, H = 2, 4096, 64
+    pl = plan.plan(B, L, H, P, N)
+    assert pl.chunk_smem <= plan.SMEM_LIMIT and pl.pass_smem <= plan.SMEM_LIMIT, pl
+    assert pl.chunk == (32 if N == 256 else 64) and pl.head_order == "ascending"
+    assert pl.chunk_grid == (L // pl.chunk, B, 1) and pl.chunk_threads == 256
+    assert P % pl.pass_rows == 0 and pl.pass_grid == (H * P // pl.pass_rows, B, 2)
+    assert pl.p_slab in (32, 64) and pl.pass_threads == 128
+    with pytest.raises(ValueError):
+        plan.plan(B, L, H, P + 8, N)
+    with pytest.raises(ValueError):
+        plan.plan(B, L, H, P, 32)
+
+
+def test_tensor_core_plan_at_mamba2s_training_shape():
+    """x (2, 4096, 64, 64), N 128: 64-token chunks, 128 chunk blocks (one
+    wave on 132 SMs), 512 pass blocks of 32 state rows."""
+    pl = plan.plan(2, 4096, 64, 64, 128)
+    assert pl.chunk_grid == (64, 2, 1) and pl.pass_grid == (128, 2, 2)
+    assert pl.p_slab == 32 and pl.pass_rows == 32
+    assert pl.chunk_smem == 147232 and pl.pass_smem == 55312
+
+
 def test_dropped_chunk_moves_only_earlier_chunks():
     """The dropped share reaches tokens before the chunk, not the chunk's
     own or later ones."""
@@ -259,6 +352,38 @@ def test_backward_source_is_hand_written_and_deterministic():
     assert bwd.count("tile_product(") == 7     # G, dW, dx, and two each for dC and dB
 
 
+def test_tensor_core_backward_source_has_no_per_head_partials():
+    """The tensor-core route's kernels (the state passes and the chunk
+    kernel of namespace bwd) take no pB or pC scratch, use no atomics, and
+    run their products on mma.sync; the library exports its plan."""
+    src = (build.CSRC / "ssd_scan.cu").read_text()
+    bwd = src[src.index("namespace bwd {"):src.index("}  // namespace bwd")]
+    tc = bwd[bwd.index("// Tensor-core route of the backward"):]
+    assert "tc_state_pass_kernel" in tc and "tc_chunk_kernel" in tc
+    assert "pB" not in tc and "pC" not in tc
+    assert "atomic" not in tc.lower() and "mma_bf16(" in tc
+    assert "ssd_scan_backward_plan" in src
+
+
+def cuda_args(seed, B, L, H, P, N, h0, dh, big, dtype):
+    arrays = to_torch(inputs(seed, B, L, H, P, N, h0=h0, dh_final=dh, big_decay=big))
+    return [None if a is None else (a.to(dtype) if i in (0, 3, 4, 6) else a).cuda()
+            for i, a in enumerate(arrays)]
+
+
+def route_bound(args):
+    """``bf16_backward_rounding_bound`` on the route and chunk the library
+    gives these inputs."""
+    from repro_torch.kernels.ssd_scan.kernel import backward_chunk, backward_route
+
+    x, Bm = args[0], args[3]
+    _, L, _, P = x.shape
+    N = Bm.shape[-1]
+    return bf16_backward_rounding_bound(
+        *args, kernel_chunk=backward_chunk(x.dtype, L, P, N) or 64,
+        kernel_route=backward_route(x.dtype, P, N))[1]
+
+
 @pytest.mark.gpu
 def test_cuda_backward_within_bound_and_bitwise_repeatable():
     if not torch.cuda.is_available():
@@ -268,14 +393,12 @@ def test_cuda_backward_within_bound_and_bitwise_repeatable():
             (1, 130, 8, 64, 128, True, True, True, torch.bfloat16),
             (2, 37, 6, 16, 64, True, True, False, torch.float32),
             (3, 1, 4, 4, 8, True, False, False, torch.bfloat16)]):
-        arrays = to_torch(inputs(seed, B, L, H, P, N, h0=h0, dh_final=dh, big_decay=big))
-        args = [None if a is None else (a.to(dtype) if i in (0, 3, 4, 6) else a).cuda()
-                for i, a in enumerate(arrays)]
+        args = cuda_args(seed, B, L, H, P, N, h0, dh, big, dtype)
         n0 = ssd_scan_backward_kernel.launches
         got = ssd_scan_backward_kernel(*args)
         again = ssd_scan_backward_kernel(*args)
         assert ssd_scan_backward_kernel.launches == n0 + 2
-        _, bound = bf16_backward_rounding_bound(*args)
+        bound = route_bound(args)
         want = ssd_scan_backward_plain(*(None if a is None else a.float() if i in (0, 3, 4, 6)
                                          else a for i, a in enumerate(args)))
         for name, g, g2, w, b in zip(BACKWARD_NAMES, got, again, want, bound, strict=True):
@@ -284,6 +407,37 @@ def test_cuda_backward_within_bound_and_bitwise_repeatable():
                 continue
             assert torch.equal(g, g2), name
             assert ((g.double() - w.double()).abs() <= b.double()).all(), name
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_core_backward_small_within_bound_and_bitwise():
+    """The tensor-core route at small shapes (two and three chunks, a ragged
+    one, P slabs of 16 and 32, N 64 and 256, L = 1): every gradient within
+    the route's bound, two launches bitwise equal, counted on that route,
+    and its plan the library's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.ssd_scan.kernel import backward_route, library_plan
+
+    for seed, (B, L, H, P, N, h0, dh) in enumerate([
+            (1, 150, 4, 64, 128, True, True), (2, 70, 3, 16, 64, False, True),
+            (1, 40, 2, 48, 256, True, False), (2, 1, 3, 32, 64, True, True)]):
+        assert backward_route(torch.bfloat16, P, N) == "tensor_core"
+        assert library_plan(B, L, H, P, N) == plan.plan(B, L, H, P, N)._asdict()
+        args = cuda_args(seed, B, L, H, P, N, h0, dh, False, torch.bfloat16)
+        n0 = ssd_scan_backward_kernel.launches_by_route["tensor_core"]
+        got = ssd_scan_backward_kernel(*args)
+        again = ssd_scan_backward_kernel(*args)
+        assert ssd_scan_backward_kernel.launches_by_route["tensor_core"] == n0 + 2
+        bound = route_bound(args)
+        want = ssd_scan_backward_plain(*(None if a is None else a.float() if i in (0, 3, 4, 6)
+                                         else a for i, a in enumerate(args)))
+        for name, g, g2, w, b in zip(BACKWARD_NAMES, got, again, want, bound, strict=True):
+            if w is None:
+                assert g is None
+                continue
+            assert torch.equal(g, g2), name
+            assert ((g.double() - w.double()).abs() <= b.double()).all(), (name, seed)
 
 
 @pytest.mark.gpu

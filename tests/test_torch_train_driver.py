@@ -91,6 +91,34 @@ def test_checkpoint_async_and_history(tmp_path):
     assert not os.path.exists(store.step_dir(10))        # older than the 2 kept
 
 
+def test_async_saves_commit_in_call_order(tmp_path, monkeypatch):
+    """The first save's write is delayed before it starts: the later saves
+    must still commit after it, so ``latest()`` is the last step saved and
+    no committed step is pruned as dangling."""
+    import time
+
+    cloud, svc = make_service()
+    manifest = CoordinatedManifest(svc)
+    store = CheckpointStore(str(tmp_path), committer=manifest.commit,
+                            latest_resolver=manifest.latest, keep=3)
+    save_host = CheckpointStore._save_host
+
+    def slow_first(self, step, host_tree):
+        if step == 10:
+            time.sleep(0.3)
+        return save_host(self, step, host_tree)
+
+    monkeypatch.setattr(CheckpointStore, "_save_host", slow_first)
+    for s in (10, 20, 30):
+        store.save_async(s, {"w": torch.full((4,), float(s))})
+    store.wait()
+    assert manifest.latest() == 30
+    assert manifest.history() == ["step_00000010", "step_00000020", "step_00000030"]
+    for s in (20, 30):
+        restored, step = store.restore({"w": torch.zeros(4)}, step=s)
+        assert step == s and float(restored["w"][0]) == float(s)
+
+
 def test_straggler_detection():
     cloud, svc = make_service()
     det = StragglerDetector(svc, lag_threshold=2)
