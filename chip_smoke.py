@@ -180,7 +180,8 @@ last line is printed):
     tiles) and of the 24576-row call (128-row tiles) alone (1-row calls on
     64-row tiles), with their shared rows, bitwise the same rows inside
     them.  One launch captured in a CUDA graph: its replay bitwise the
-    eager launch.  The ``ptxas`` report of the kernel's six instances is
+    eager launch.  The ``ptxas`` report of the kernel's ten instances (six
+    serving, four with a training forward's pre-activation stores) is
     printed, and fails on a wgmma that ``ptxas`` serialised (C7515, C7517,
     C7518); the work items per SM at each timed shape (``plan.py``'s item
     map over the offsets) are printed.  The
@@ -389,10 +390,10 @@ last line is printed):
     within 3e-2 of its largest |value|; (b) a crash at step 7 resumed at
     step 6 through the FaaSKeeper manifest, every restored leaf checked
     against its digest, losses within 1e-3 of an uninterrupted run's, the
-    checkpoint directory removed; (c) the card refuses to train
-    ``moonshot-v1-16b-a3b`` before any step (the MoE kernels have no
-    backward).  Printed beside the card's name and power limit: step ms,
-    tokens/s, MFU, peak memory, optimiser ms.
+    checkpoint directory removed; (c) the paged decode kernel, which
+    serves only, refuses a query that requires grad (every family trains
+    on the card).  Printed beside the card's name and power limit: step
+    ms, tokens/s, MFU, peak memory, optimiser ms.
 
 34–36. The SSD scan's backward and mamba2 training, after phase 32.  34:
     the backward kernel (``ssd_scan_backward_kernel``: the state passes,
@@ -422,6 +423,32 @@ last line is printed):
     backward 48 x microsteps (all on the tensor cores), no flash, paged,
     RG-LRU or MoE launch.
 
+37–39. The MoE layer's backward and moonshot training, after phase 36.
+    37: the four backward kernels of ``moe_backward.cu`` through their five
+    wrappers (``moe_combine_backward_kernel``, ``moe_down_grad_kernel``,
+    ``moe_weight_grad_kernel``, ``moe_up_grad_kernel``,
+    ``moe_route_backward_kernel``) and the gather's backward (the forward
+    combine kernel with unit weights) against their plain versions of
+    ``kernels/moe_experts/ref.py``, on one layer's forward state made by the
+    forward kernels (the gate/up launch that saves the pre-activations
+    gives h and ys bitwise as without): T 1-512, E 4-64, D 64-2048, the
+    shared expert on and off, SwiGLU and GELU, capacity drops, expert 0
+    with no row and expert 1 with one.  Combine and gather bitwise, the
+    grouped products within 4 bf16 steps (2^-8 each) of their largest
+    |element|, the route backward's dx within 2 and its dw within 1e-4;
+    leaving out the largest expert's segment (one 64-token tile for the
+    route) must exceed the bound; two launches bitwise.  38: each at
+    moonshot's training microstep (T 8192, P 49152, capacity 1.25): CUDA
+    events, device time, the plain version, the bound, and
+    ``torch._grouped_mm`` (or the plain sequence replayed as one graph) as
+    the yardstick.  39: moonshot at full width, cut to 4 of 48 layers, 4
+    steps of 8 x 4096 tokens in 4 microbatches: losses finite and falling,
+    every parameter with a gradient, route, gate/up and down launches 2 x
+    layers x microsteps each (forward and remat recompute), combine 3 x
+    (the gather's backward too), each backward wrapper layers x
+    microsteps, flash as in 31, no paged launch; MFU by active parameters
+    (``active_params``: top-6 of 64 experts).
+
 On the card the scheduler replays a CUDA graph for every decode step and
 every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19,
 22, 23, 24, 25, 26 and 27 serve on graphs; their exact launch counts are counted
@@ -432,9 +459,11 @@ host made, and the heaviest kernels): each traces its scheduler's eager
 decode step (and 256-token chunk) beside the replayed graph, times both
 without the profiler, and prints the captures made, the seconds each took
 and the graph pool's memory; phase 20 does the same for the
-``paged_kernel`` schedulers.  No phase but 33 is cut in depth (2 layers:
-each save writes ~4.9 GB of fp32 state): every other path runs at its
-full depth and the whole script stays well inside its time limit.
+``paged_kernel`` schedulers.  No phase but 33 and 39 is cut in depth (33:
+2 layers, each save writes ~4.9 GB of fp32 state; 39: 4 layers, as much of
+moonshot's 28.9 B parameters as fits one card with fp32 master, gradient
+and Adam state): every other path runs at its full depth and the whole
+script stays well inside its time limit.
 
 Each serving phase sets the launch counts to 0 just before it drives the
 path and reads them just after.  The line before the last is the kernels'
@@ -943,9 +972,9 @@ class RouteLog:
 
     @contextlib.contextmanager
     def _patched(self, pick):
-        from repro_torch.models import moe as moe_mod
+        from repro_torch.kernels.moe_experts import ops as moe_ops
 
-        orig, calls = moe_mod.route, [0]
+        orig, calls = moe_ops.route, [0]
         self.pos = dict.fromkeys(range(self.n_layers), 0)
 
         def route(x, w, k, forced=None):
@@ -953,11 +982,11 @@ class RouteLog:
             calls[0] += 1
             return pick(orig, x, w, k, layer)
 
-        moe_mod.route = route
+        moe_ops.route = route       # layer_forward's route: every MoE layer's
         try:
             yield self
         finally:
-            moe_mod.route = orig
+            moe_ops.route = orig
 
     def record(self):
         import torch
@@ -2642,8 +2671,9 @@ def ptxas_report(fails: Failures, src: str, kernel: str, instances: int) -> None
     for line in build.build_log(src).splitlines():
         serial = re.search(r"\(C75(15|17|18)\)", line)
         if "Compiling entry" in line:
-            m = re.search(rf"{kernel}ILi(\d)ELi(\d)E", line)
-            name = m and f"{kernel}<mode {m.group(1)}, {m.group(2)} consumer warpgroup(s)>"
+            m = re.search(rf"{kernel}ILi(\d)ELi(\d)E(?:Lb(\d)E)?", line)
+            name = m and (f"{kernel}<mode {m.group(1)}, {m.group(2)} consumer warpgroup(s)"
+                          f"{', pre-activation stores' if m.group(3) == '1' else ''}>")
             if name:
                 seen.add(name)
         elif serial or (kernel in line and ("Performance Loss" in line or "injected" in line)):
@@ -3302,7 +3332,7 @@ def reset_launch_counts() -> None:
     for w in (paged_attention_kernel, rglru_scan_kernel, ssd_scan_kernel,
               flash_attention_kernel, moe_experts_kernel, moe_route_kernel, moe_combine_kernel,
               flash_attention_backward_kernel, rglru_scan_backward_kernel,
-              ssd_scan_backward_kernel):
+              ssd_scan_backward_kernel, *moe_backward_wrappers().values()):
         w.launches = 0
         for name, val in list(vars(w).items()):
             if name.startswith("launches_by_"):
@@ -4458,8 +4488,22 @@ def launch_counts() -> dict:
             "flash_attention": flash_attention_kernel.launches,
             "flash_tensor_core": flash_attention_kernel.launches_by_route["tensor_core"],
             "moe_experts": moe_experts_kernel.launches,
+            "moe_experts_swiglu": moe_experts_kernel.launches_by_mode["swiglu"],
             "moe_route": moe_route_kernel.launches,
-            "moe_combine": moe_combine_kernel.launches}
+            "moe_combine": moe_combine_kernel.launches,
+            **{name: w.launches for name, w in moe_backward_wrappers().items()}}
+
+
+def moe_backward_wrappers() -> dict:
+    """The MoE backward's wrappers by record name (each counts its own
+    launches)."""
+    from repro_torch.kernels.moe_experts import kernel as mk
+
+    return {"moe_combine_backward": mk.moe_combine_backward_kernel,
+            "moe_down_grad": mk.moe_down_grad_kernel,
+            "moe_weight_grad": mk.moe_weight_grad_kernel,
+            "moe_up_grad": mk.moe_up_grad_kernel,
+            "moe_route_backward": mk.moe_route_backward_kernel}
 
 
 class TimedModel:
@@ -5425,6 +5469,7 @@ TRAIN_LR = 3e-4                 # AdamWConfig's default (run_training's 3e-3 sui
 T31_SEQ, T31_BATCH, T31_ACCUM, T31_STEPS = 4096, 8, 4, 6
 T32_SEQ, T32_BATCH, T32_ACCUM, T32_STEPS = 4096, 4, 4, 4
 T36_SEQ, T36_BATCH, T36_ACCUM, T36_STEPS = 4096, 8, 4, 4
+T39_SEQ, T39_BATCH, T39_ACCUM, T39_STEPS, T39_LAYERS = 4096, 8, 4, 4, 4
 T33_LAYERS, T33_BATCH, T33_STEPS, T33_EVERY, T33_CRASH = 2, 2, 8, 3, 7
 T33_LOSS_REL, T33_GRAD_REL = 1e-3, 3e-2
 
@@ -5444,14 +5489,27 @@ def ssd_forward_flops(cfg, seq: int) -> float:
     return per_seq * cfg.n_layers
 
 
+def active_params(cfg, n_params: int) -> int:
+    """The parameters a token runs through: every one, but for the ``moe``
+    family only top-k of the E routed experts of each layer (the router,
+    the shared expert, attention, embedding and head all count)."""
+    if cfg.family != "moe":
+        return n_params
+    m = cfg.moe
+    per_expert = (3 if cfg.mlp == "swiglu" else 2) * cfg.d_model * m.d_expert
+    return n_params - cfg.n_layers * (m.n_experts - m.top_k) * per_expert
+
+
 def train_flops(cfg, n_params: int, tokens: int, seq: int) -> float:
     """Model FLOPs of one step: 6 N a token (N every parameter, the tied
-    head's matmul included) and 12 D H a causal attended pair (forward 4,
+    head's matmul included; for ``moe`` the active parameters,
+    ``active_params``) and 12 D H a causal attended pair (forward 4,
     backward 8); for the ``ssm`` family, which attends to nothing, 3 x the
     SSD scans' forward FLOPs (``ssd_forward_flops``: forward once, backward
     twice) instead; remat's recompute not counted."""
     from repro_torch.models.config import layer_pattern
 
+    n_params = active_params(cfg, n_params)
     if cfg.family == "ssm":
         return 6 * n_params * tokens + 3 * ssd_forward_flops(cfg, seq) * (tokens // seq)
     if cfg.family == "hybrid":
@@ -5549,7 +5607,13 @@ def profile_train_step(model, loss_fn, batch, label: str) -> None:
     groups: dict = {}
     for (_, start, end), name in kernels.items():
         name = name.lower()
-        if "flash_bwd" in name:
+        if any(t in name for t in ("moe_data_grad", "moe_weight_grad", "moe_combine_backward",
+                                    "moe_route_backward")):
+            g = "MoE backward"
+        elif any(t in name for t in ("moe_experts_kernel", "moe_route_kernel",
+                                      "moe_combine_kernel")):
+            g = "MoE forward"
+        elif "flash_bwd" in name:
             g = "flash backward"
         elif "flash_attn" in name:
             g = "flash forward"
@@ -5582,9 +5646,10 @@ def profile_train_step(model, loss_fn, batch, label: str) -> None:
 
 
 def phase_train(fails: Failures, seed: int, arch: str, *, seq: int, global_batch: int,
-                accum: int, steps: int) -> dict:
+                accum: int, steps: int, n_layers=None) -> dict:
     """``run_training(..., smoke=False, device=DEVICE)`` at full width and
-    depth; every launch of the step counted and checked."""
+    depth (``n_layers`` cuts the depth); every launch of the step counted
+    and checked."""
     import torch
 
     from repro_torch import configs
@@ -5592,6 +5657,9 @@ def phase_train(fails: Failures, seed: int, arch: str, *, seq: int, global_batch
     from repro_torch.models.config import layer_pattern
 
     cfg = configs.get(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    n_moe = cfg.n_layers if cfg.family == "moe" else 0
     n_ssd = 0
     if cfg.family == "hybrid":
         pat = layer_pattern(cfg)
@@ -5608,7 +5676,7 @@ def phase_train(fails: Failures, seed: int, arch: str, *, seq: int, global_batch
     t0 = time.perf_counter()
     out = run_training(arch, steps, smoke=False, device=DEVICE, seq_len=seq,
                        global_batch=global_batch, accum_steps=accum, lr=TRAIN_LR, seed=seed,
-                       log_every=1)
+                       log_every=1, n_layers=n_layers)
     wall = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else 0.0
@@ -5641,20 +5709,32 @@ def phase_train(fails: Failures, seed: int, arch: str, *, seq: int, global_batch
                 f"{micro} (forward and remat recompute), {counts['ssd_tensor_core']} on the "
                 f"tensor cores; backward {counts['ssd_scan_backward']} == {n_ssd} x {micro}, "
                 f"{counts['ssd_backward_tensor_core']} on the tensor cores")
-    fails.check(counts["paged_attention"] == counts["moe_experts"]
-                == counts["moe_route"] == counts["moe_combine"] == 0,
-                f"{arch}: no paged or MoE launch in training")
+    bwd = {name: counts[name] for name in moe_backward_wrappers()}
+    fails.check(counts["moe_route"] == 2 * n_moe * micro
+                and counts["moe_experts"] == 4 * n_moe * micro
+                and counts["moe_experts_swiglu"] == (2 * n_moe * micro if cfg.mlp == "swiglu"
+                                                     else 0)
+                and counts["moe_combine"] == 3 * n_moe * micro
+                and all(n == n_moe * micro for n in bwd.values()),
+                f"{arch}: MoE forward launches route {counts['moe_route']} == 2 x {n_moe} MoE "
+                f"layers x {micro} (forward and remat recompute), experts {counts['moe_experts']} "
+                f"== 4 x {n_moe} x {micro} (gate/up {counts['moe_experts_swiglu']}), combine "
+                f"{counts['moe_combine']} == 3 x {n_moe} x {micro} (the forward twice and the "
+                f"gather's backward); each backward kernel {bwd} == {n_moe} x {micro}")
+    fails.check(counts["paged_attention"] == 0, f"{arch}: no paged launch in training")
     step_s = out["step_s"][1:] or out["step_s"]
     step_ms = 1e3 * sorted(step_s)[len(step_s) // 2]
     tokens = global_batch * seq
     flops = train_flops(cfg, out["n_params"], tokens, seq)
     mfu = flops / (step_ms * 1e-3) / BF16_FLOPS_PER_S
     opt_ms = microstep_and_optimizer(fails, cfg, seed, seq, global_batch // accum)
-    print(f"  {arch} training: {steps} steps of {global_batch} x {seq} tokens in {accum} "
-          f"microbatches, first step {out['step_s'][0] * 1e3:.1f} ms, median step after it "
-          f"{step_ms:.1f} ms, {tokens / (step_ms * 1e-3):.0f} tokens/s, MFU {mfu:.4f} "
-          f"({flops / 1e12:.1f} TFLOP a step against {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s "
-          f"bf16 dense), peak memory {peak:.2f} GiB, optimiser update {opt_ms:.1f} ms; "
+    active = active_params(cfg, out["n_params"])
+    print(f"  {arch} training ({cfg.n_layers} layers): {steps} steps of {global_batch} x {seq} "
+          f"tokens in {accum} microbatches, first step {out['step_s'][0] * 1e3:.1f} ms, median "
+          f"step after it {step_ms:.1f} ms, {tokens / (step_ms * 1e-3):.0f} tokens/s, MFU "
+          f"{mfu:.4f} ({flops / 1e12:.1f} TFLOP a step from {active / 1e9:.3f} B active of "
+          f"{out['n_params'] / 1e9:.3f} B parameters, against {BF16_FLOPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s bf16 dense), peak memory {peak:.2f} GiB, optimiser update {opt_ms:.1f} ms; "
           f"run_training wall {wall:.1f} s; launches {counts}")
     return {"counts": counts, "micro": micro, "step_ms": step_ms, "mfu": mfu,
             "peak_gib": peak, "opt_ms": opt_ms, "losses": losses}
@@ -5757,23 +5837,414 @@ def phase_train_resume(fails: Failures, seed: int) -> None:
 
 
 def phase_train_refusal(fails: Failures, seed: int) -> None:
-    """33c: the card refuses to train a family whose forward reaches a
-    kernel with no backward (the MoE family's), before any step."""
+    """33c: every family trains on the card now; the paged decode kernel,
+    which serves only, still refuses a CUDA input that requires grad."""
     import torch
 
-    from repro_torch.launch.train import run_training
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
 
-    for arch in (MOE,):
-        reset_launch_counts()
-        before = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
-        try:
-            run_training(arch, 2, smoke=False, device="cuda", seq_len=64, global_batch=1)
-            fails.check(False, f"33c run_training refuses {arch} on the card")
-        except NotImplementedError as e:
-            counts = launch_counts()
-            after = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
-            fails.check(not any(counts.values()) and after == before,
-                        f"33c run_training refuses {arch} on the card before any step: {e}")
+    dev = torch.device(DEVICE)
+    q = torch.randn(1, 1, 1, 64, device=dev, requires_grad=True)
+    kp = torch.randn(1, 16, 1, 64, device=dev)
+    table = torch.zeros(1, 1, dtype=torch.int32, device=dev)
+    lens = torch.ones(1, dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    try:
+        paged_attention_kernel(q, kp, kp, table, lens, lens)
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    fails.check(refused is not None and launch_counts()["paged_attention"] == 0,
+                f"33c the paged kernel (serving only) refuses a query that requires grad on the "
+                f"card, before any launch: {refused}")
+
+
+# -- phases 37-39: the MoE backward and moonshot-v1-16b-a3b training -----------------------
+
+# (T, E, k, D, F, shared, mode, drops): T = 1, drops with and without the
+# shared expert, GELU experts, ragged segments, moonshot's widths; every
+# case routes no pair to expert 0 and exactly one to expert 1
+MOE_BWD_CASES = [
+    (1, 4, 2, 64, 32, False, "swiglu", False),
+    (37, 8, 2, 64, 48, True, "swiglu", True),
+    (13, 16, 4, 128, 40, False, "gelu", True),
+    (300, 64, 6, 256, 176, True, "swiglu", False),
+    (512, 64, 6, 2048, 1408, True, "swiglu", True),
+    (512, 64, 6, 2048, 1408, False, "swiglu", False),
+]
+# The grouped products' outputs are bf16 roundings of fp32 sums that the
+# kernel and the plain version (a cuBLAS product per segment, its bf16
+# reductions in fp32) take in other orders: where a rounding falls the
+# other way an element moves by one bf16 step (2^-8 of itself), and the
+# SwiGLU epilogue chains three roundings (dh, dh b, the products).  So each
+# is held to 4 steps of its largest |element|.  Leaving one expert's
+# segment out must exceed that.
+MOE_BWD_TOL = 4 * 2.0 ** -8
+# The route backward: dx (bf16, one rounding of an fp32 sum over E) within
+# 2 steps of its largest |element|; dw (fp32 sums over T tokens in two
+# orders: within T 2^-24 of the sum of |terms| at worst, about sqrt(T)
+# 2^-24 ~ 5e-6 of the largest |dw| at T = 8192 on these inputs) within
+# 1e-4 of it, which leaving out one 64-token tile must exceed.
+ROUTE_BWD_DX_TOL = 2 * 2.0 ** -8
+ROUTE_BWD_DW_TOL = 1e-4
+T38 = 8192                       # moonshot's training microstep: 2 x 4096 tokens
+
+
+@contextlib.contextmanager
+def fp32_reductions():
+    """The plain versions' bf16 cuBLAS products reduce in fp32 (torch's
+    default lets split-K partial sums round to bf16)."""
+    import torch
+
+    m = torch.backends.cuda.matmul
+    old = m.allow_bf16_reduced_precision_reduction
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_bf16_reduced_precision_reduction = old
+
+
+def moe_bwd_inputs(gen, T, E, k, D, F, shared, mode, cap, special=True):
+    """One layer's forward state on the card, as ``MoEFFN`` saves it: x, the
+    router's route at forced experts (distinct a token; with ``special``
+    expert 0 gets no pair and expert 1 exactly one), the gathered rows, the
+    gate/up pre-activations and h (both launches' outputs), ys, the
+    capacity mask, and the weights (a shared expert 2F wide)."""
+    import torch
+
+    from repro_torch.kernels.moe_experts import expert_ffn, moe_route_kernel
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device=gen.device) * scale).to(
+            device=DEVICE, dtype=dtype)
+
+    lo = 2 if special and E >= k + 2 else 0
+    pool = torch.arange(lo, E, device=DEVICE, dtype=torch.int32)
+    pick = torch.rand(T, E - lo, generator=gen, device=gen.device).to(DEVICE).argsort(-1)[:, :k]
+    idx = pool[pick].contiguous()
+    if lo:
+        idx[0, -1] = 1
+    x = rnd(T, D)
+    w = rnd(D, E, scale=D ** -0.5, dtype=torch.float32)
+    r = moe_route_kernel(x, w, k, forced=idx)
+    exp = {"w_up": rnd(E, D, F, scale=D ** -0.5), "w_down": rnd(E, F, D, scale=F ** -0.5)}
+    if mode == "swiglu":
+        exp["w_gate"] = rnd(E, D, F, scale=D ** -0.5)
+    sh = None
+    if shared:
+        sh = {"w_gate": rnd(D, 2 * F, scale=D ** -0.5), "w_up": rnd(D, 2 * F, scale=D ** -0.5),
+              "w_down": rnd(2 * F, D, scale=(2 * F) ** -0.5)}
+    xs = x.index_select(0, r.tok)
+    ys, y_s, (a, b, a_s, b_s, h, h_s) = expert_ffn(mode, xs, r.offsets, exp,
+                                                   None if sh is None else (x, sh), save=True)
+    ys2, y_s2 = expert_ffn(mode, xs, r.offsets, exp, None if sh is None else (x, sh))
+    kept = None if cap is None else r.rank < cap
+    return dict(x=x, w=w, r=r, exp=exp, sh=sh, xs=xs, a=a, b=b, a_s=a_s, b_s=b_s, h=h, h_s=h_s,
+                ys=ys, kept=kept, same_forward=torch.equal(ys, ys2) and
+                (y_s is None or torch.equal(y_s, y_s2)),
+                dout=rnd(T, D), dgates=rnd(T, E, scale=1e-2, dtype=torch.float32))
+
+
+def rel_max(got, want) -> float:
+    """max |got - want| over max |want| (0 for an all-zero want)."""
+    scale = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() / scale if scale else 0.0
+
+
+def moe_bwd_calls(st, mode):
+    """The five backward wrappers' calls on one layer's state, as
+    ``MoEFFN.backward`` makes them, each with its plain version and what
+    leaving one piece out does: {name: (kernel(), plain(), drop(want))}."""
+    import torch
+
+    from repro_torch.kernels.moe_experts import kernel as mk
+    from repro_torch.kernels.moe_experts import ref
+
+    r, exp, sh = st["r"], st["exp"], st["sh"]
+    sw = mode == "swiglu"
+    T, k = r.weights.shape
+    dys, dwt = mk.moe_combine_backward_kernel(st["dout"], st["ys"], r.pos, r.weights, st["kept"])
+    sh_down = None if sh is None else (st["dout"], sh["w_down"], st["a_s"], st["b_s"])
+    da, db, d_s = mk.moe_down_grad_kernel(mode, dys, r.offsets, exp["w_down"], st["a"], st["b"],
+                                          sh_down)
+    w1, w2 = (exp["w_gate"], exp["w_up"]) if sw else (exp["w_up"], None)
+    jobs = []
+    if sh is not None:
+        jobs += [(st["h_s"], st["dout"], None), (st["x"], d_s[0], None)]
+        jobs += [(st["x"], d_s[1], None)] if sw else []
+    jobs += [(st["h"], dys, r.offsets), (st["xs"], da, r.offsets)]
+    jobs += [(st["xs"], db, r.offsets)] if sw else []
+    sh_up = None if sh is None else (d_s[0], d_s[1], sh["w_gate"] if sw else sh["w_up"],
+                                     sh["w_up"] if sw else None)
+    bounds = r.offsets.tolist()
+    big = max(range(len(bounds) - 1), key=lambda e: bounds[e + 1] - bounds[e])
+    lo, hi = bounds[big], bounds[big + 1]
+
+    def drop_rows(n):
+        def drop(outs):         # the largest expert's segment of the n routed outputs left out
+            outs = [o.clone() for o in outs]
+            for o in outs[:n]:
+                o[lo:hi] = 0
+            return outs
+        return drop
+
+    def drop_expert(outs):
+        outs = [o.clone() for o in outs]
+        for o, (_, _, off) in zip(outs, jobs):
+            if off is not None:
+                o[big] = 0
+        return outs
+
+    ones = torch.ones(T, k, device=DEVICE)
+    dxs = st["xs"].clone().normal_(generator=torch.Generator(device=DEVICE).manual_seed(T))
+    dx_s = st["x"].clone().normal_(generator=torch.Generator(device=DEVICE).manual_seed(T + 1))
+    tiles = min(64, T)
+
+    def route_drop(want):
+        keep = torch.ones(T, 1, device=DEVICE)
+        keep[:tiles] = 0
+        return list(ref.moe_route_backward_plain(st["x"], st["w"], r.gates, r.weights, r.idx,
+                                                 dwt * keep, st["dgates"] * keep))
+
+    def flat(out):
+        da_, db_, ds_ = out
+        return [t for t in (da_, db_, *(ds_ or ())) if t is not None]
+
+    return {
+        "moe_combine_backward": (
+            lambda: mk.moe_combine_backward_kernel(st["dout"], st["ys"], r.pos, r.weights,
+                                                   st["kept"]),
+            lambda: ref.moe_combine_backward_plain(st["dout"], st["ys"], r.pos, r.weights,
+                                                   st["kept"]), None),
+        "moe_gather_backward": (
+            lambda: (mk.moe_combine_kernel(dxs, r.pos, ones, None, dx_s),),
+            lambda: (ref.moe_gather_backward_plain(dxs, r.pos, k, dx_s),), None),
+        "moe_down_grad": (
+            lambda: flat(mk.moe_down_grad_kernel(mode, dys, r.offsets, exp["w_down"], st["a"],
+                                                 st["b"], sh_down)),
+            lambda: flat(ref.moe_down_grad_plain(mode, dys, r.offsets, exp["w_down"], st["a"],
+                                                 st["b"], sh_down)), drop_rows(2 if sw else 1)),
+        "moe_weight_grad": (lambda: mk.moe_weight_grad_kernel(jobs),
+                            lambda: [ref.moe_weight_grad_plain(*j) for j in jobs], drop_expert),
+        "moe_up_grad": (
+            lambda: [t for t in mk.moe_up_grad_kernel(da, db, r.offsets, w1, w2, sh_up)
+                     if t is not None],
+            lambda: [t for t in ref.moe_up_grad_plain(da, db, r.offsets, w1, w2, sh_up)
+                     if t is not None], drop_rows(1)),
+        "moe_route_backward": (
+            lambda: mk.moe_route_backward_kernel(st["x"], st["w"], r.gates, r.weights, r.idx, dwt,
+                                                 st["dgates"]),
+            lambda: ref.moe_route_backward_plain(st["x"], st["w"], r.gates, r.weights, r.idx,
+                                                 dwt, st["dgates"]), route_drop),
+    }
+
+
+def moe_bwd_check(fails: Failures, label: str, name: str, got, again, want, drop) -> float:
+    """Two launches bitwise; against the plain version bitwise (combine,
+    gather) or within the stated bound, which leaving a piece out exceeds.
+    Returns the worst err / bound (0 for the bitwise ones)."""
+    import torch
+
+    twice = all(torch.equal(g, a) for g, a in zip(got, again))
+    if drop is None:
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        fails.check(twice and ok, f"{name} {label}: two launches bitwise, bitwise the plain "
+                    f"version ({len(got)} outputs)")
+        return 0.0
+    tols = ([ROUTE_BWD_DX_TOL, ROUTE_BWD_DW_TOL] if name == "moe_route_backward"
+            else [MOE_BWD_TOL] * len(want))
+    errs = [rel_max(g, w) for g, w in zip(got, want)]
+    dropped = [rel_max(d, w) for d, w in zip(drop(want), want)]
+    beyond = any(d > t for d, t in zip(dropped, tols))
+    worst = max(e / t for e, t in zip(errs, tols))
+    finite = all(torch.isfinite(g.float()).all().item() for g in got)
+    fails.check(twice and finite and worst <= 1.0 and beyond,
+                f"{name} {label}: two launches bitwise; err / largest |want| "
+                f"{[f'{e:.3g}' for e in errs]} within {[f'{t:.3g}' for t in tols]} (worst "
+                f"{worst:.3f} of the bound); leaving a piece out gives "
+                f"{[f'{d:.3g}' for d in dropped]}, beyond the bound: {beyond}")
+    return worst
+
+
+def phase_moe_backward_cases(fails: Failures, seed: int) -> dict:
+    """37: every backward kernel against its plain version on the card."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 37)
+    worst = {}
+    for T, E, k, D, F, shared, mode, drops in MOE_BWD_CASES:
+        P = T * k
+        cap = max(1, P // E // 2) if drops else None
+        st = moe_bwd_inputs(gen, T, E, k, D, F, shared, mode, cap)
+        counts = (st["r"].offsets[1:] - st["r"].offsets[:-1]).tolist()
+        n_drop = 0 if cap is None else int((~st["kept"]).sum())
+        label = (f"[T={T} E={E} k={k} D={D} F={F} {mode}, shared {shared}, {n_drop} pairs "
+                 f"dropped, expert 0 {counts[0]} rows, expert 1 {counts[1]}]")
+        fails.check(st["same_forward"] and counts[0] == 0 and counts[1] == 1,
+                    f"moe_experts {label}: the gate/up launch that saves a and b gives the "
+                    f"same h and ys bitwise; expert 0 empty, expert 1 one row")
+        with fp32_reductions():
+            for name, (kern, plain, drop) in moe_bwd_calls(st, mode).items():
+                got, again = kern(), kern()
+                want = plain()
+                sync()
+                w = moe_bwd_check(fails, label, name, got, again, want, drop)
+                worst[name] = max(worst.get(name, 0.0), w)
+        del st
+        torch.cuda.empty_cache()
+    print(f"  worst err / bound by kernel: {worst}")
+    return worst
+
+
+def moe_bwd_bounds(T, P, E, D, F, mode, shared):
+    """{name: (bytes, operations, peak rate)} of each backward kernel at one
+    layer: each input read once, each output written once."""
+    n = 2 if mode == "swiglu" else 1
+    Fs = 2 * F
+    out = {
+        "moe_combine_backward": (T * D * 2 + 2 * P * D * 2 + P * (4 + 4 + 1 + 4),
+                                 3 * P * D, FP32_FLOPS_PER_S),
+        "moe_down_grad": (P * D * 2 + E * F * D * 2 + 2 * n * P * F * 2 +
+                          (T * D * 2 + Fs * D * 2 + 2 * n * T * Fs * 2 if shared else 0),
+                          2 * P * D * F + (2 * T * D * Fs if shared else 0), BF16_FLOPS_PER_S),
+        "moe_weight_grad": (2 * P * D * 2 + (n + 1) * P * F * 2 + (n + 1) * E * D * F * 2 +
+                            ((n + 1) * T * Fs * 2 + T * D * 2 * 2 + (n + 1) * D * Fs * 2
+                             if shared else 0),
+                            (n + 1) * 2 * P * D * F + ((n + 1) * 2 * T * D * Fs if shared else 0),
+                            BF16_FLOPS_PER_S),
+        "moe_up_grad": (n * P * F * 2 + n * E * D * F * 2 + P * D * 2 +
+                        (n * T * Fs * 2 + n * D * Fs * 2 + T * D * 2 if shared else 0),
+                        n * 2 * P * F * D + (n * 2 * T * Fs * D if shared else 0),
+                        BF16_FLOPS_PER_S),
+    }
+    return out
+
+
+def grouped_mm_backward(st, mode):
+    """Each grouped backward product through ``torch._grouped_mm`` (the
+    yardstick, never on the port's path; the shared expert's by a plain
+    matmul): {name: fn}, empty where this torch has no grouped product."""
+    import torch
+
+    mm = getattr(torch, "_grouped_mm", None)
+    if mm is None:
+        return {}
+    r, exp, sh = st["r"], st["exp"], st["sh"]
+    ends = r.offsets[1:]
+    dys, da, db = st["ys"], st["a"], st["b"]    # stand-ins of the same shapes
+    x_s = st["x"]
+
+    def down():
+        return mm(dys, exp["w_down"].transpose(1, 2), offs=ends), st["dout"] @ sh["w_down"].t()
+
+    def up():
+        return (mm(da, exp["w_gate"].transpose(1, 2), offs=ends) +
+                mm(db, exp["w_up"].transpose(1, 2), offs=ends),
+                st["a_s"] @ sh["w_gate"].t() + st["b_s"] @ sh["w_up"].t())
+
+    def weight():
+        return (mm(st["h"].t(), dys, offs=ends), mm(st["xs"].t(), da, offs=ends),
+                mm(st["xs"].t(), db, offs=ends), st["h_s"].t() @ st["dout"],
+                x_s.t() @ st["a_s"], x_s.t() @ st["b_s"])
+
+    return {"moe_down_grad": down, "moe_up_grad": up, "moe_weight_grad": weight}
+
+
+def phase_moe_backward_timing(fails: Failures, seed: int) -> list:
+    """38: each backward kernel at moonshot's training microstep (T = 8192
+    tokens, P = 49152 pairs, uniform routing, capacity 1.25, the shared
+    expert): CUDA-event ms, profiler device ms, the plain version's ms, the
+    bound, and the library yardstick (``torch._grouped_mm`` for the grouped
+    products, the plain torch sequence replayed as one graph for combine
+    and route)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels.moe_experts import route_backward_plan
+    from repro_torch.models.moe import capacity
+
+    cfg = configs.get(MOE)
+    m = cfg.moe
+    E, k, D, F = m.n_experts, m.top_k, cfg.d_model, m.d_expert
+    T, P = T38, T38 * m.top_k
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 38)
+    st = moe_bwd_inputs(gen, T, E, k, D, F, True, cfg.mlp, capacity(T, m), special=False)
+    calls = moe_bwd_calls(st, cfg.mlp)
+    bounds = moe_bwd_bounds(T, P, E, D, F, cfg.mlp, True)
+    bounds["moe_route_backward"] = (T * D * 2 + D * E * 4 + 2 * T * E * 4 + 3 * T * k * 4 +
+                                    T * D * 2 + D * E * 4, 4 * T * D * E, FP32_FLOPS_PER_S)
+    library = grouped_mm_backward(st, cfg.mlp)
+    dev_names = {"moe_combine_backward": "moe_combine_backward_kernel",
+                 "moe_down_grad": "moe_data_grad_kernel", "moe_up_grad": "moe_data_grad_kernel",
+                 "moe_weight_grad": "moe_weight_grad_kernel",
+                 "moe_route_backward": "moe_route_backward_kernel"}
+    replaces = {
+        "moe_combine_backward": "src/repro/models/moe.py:90-94 (the combine's backward, XLA's "
+                                "autodiff of _dispatch_ffn); no Pallas kernel",
+        "moe_down_grad": "src/repro/models/moe.py:79-81 (the down einsum's and the SwiGLU's "
+                         "backward, XLA's autodiff); no Pallas kernel",
+        "moe_weight_grad": "src/repro/models/moe.py:79-84 (the expert einsums' weight "
+                           "gradients, XLA's autodiff); no Pallas kernel",
+        "moe_up_grad": "src/repro/models/moe.py:79-80 (the gate/up einsums' data gradient, "
+                       "XLA's autodiff); no Pallas kernel",
+        "moe_route_backward": "src/repro/models/moe.py:171-174 (the router einsum, softmax, "
+                              "top_k and renormalisation's backward, XLA's autodiff); no Pallas "
+                              "kernel"}
+    n_drop = int((~st["kept"]).sum())
+    out = []
+    with fp32_reductions():
+        for name, (kern, plain, drop) in calls.items():
+            if name == "moe_gather_backward":
+                continue            # the forward combine kernel (its record is moe_combine)
+            got, again, want = kern(), kern(), plain()
+            sync()
+            worst = moe_bwd_check(fails, f"[moonshot training microstep T={T} P={P}, "
+                                  f"{n_drop} pairs dropped]", name, got, again, want, drop)
+            max_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            del got, again, want
+            ms = cuda_time_ms(lambda i: kern(), 10, warmup=2)
+            dev = device_ms_per_launch(lambda i: kern(), 5, dev_names[name])
+            plain_ms = cuda_time_ms(lambda i: plain(), 2, warmup=1)
+            again_ms = cuda_time_ms(lambda i: kern(), 10, warmup=0)
+            lib_ms, graph_ms, note = None, None, ""
+            if name in library:
+                try:
+                    lib_ms = cuda_time_ms(lambda i: library[name](), 10, warmup=2)
+                    note = f"torch._grouped_mm (+ the shared expert's matmuls) {lib_ms:.4f} ms"
+                except (RuntimeError, TypeError, ValueError, NotImplementedError) as e:
+                    note = f"torch._grouped_mm refused: {str(e).splitlines()[0][:160]}"
+            elif name in ("moe_combine_backward", "moe_route_backward"):
+                try:
+                    replay, _ = graphed(plain)
+                    graph_ms = cuda_time_ms(lambda i: replay(), 10)
+                    note = f"plain sequence as one replayed graph {graph_ms:.4f} ms"
+                    del replay
+                except RuntimeError as e:
+                    note = f"the plain sequence did not capture: {str(e)[:160]}"
+            nbytes, ops, rate = bounds[name]
+            tb, to = nbytes / HBM_BYTES_PER_S, ops / rate
+            bound = max(tb, to) * 1e3
+            extra = ""
+            if name == "moe_route_backward":
+                extra = f"plan {route_backward_plan(T, D, E, k)}; "
+            print(f"  {name} at T={T} P={P}: {extra}kernel {ms:.4f} ms (again {again_ms:.4f}; "
+                  f"device time per launch {dev} ms), {ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+                  f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s; plain {plain_ms:.4f} ms; {note}; "
+                  f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
+            out.append({"name": name, "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/moe_backward.cu",
+                        "replaces": replaces[name],
+                        "shape": f"moonshot training microstep: T={T} tokens, P={P} pairs, D={D} "
+                                 f"F={F}, shared 2F, capacity {capacity(T, m)}",
+                        "launches": None, "max_abs_err": max_err, "err_over_bound": worst,
+                        "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+                        "graphed_plain_ms": graph_ms, "bound_ms": bound,
+                        "bound_by": "bytes" if tb >= to else "operations",
+                        "library_ms": lib_ms})
+    del st, calls, library
+    release()
+    return out
 
 
 def main() -> int:
@@ -6086,7 +6557,7 @@ def main() -> int:
     mcfg = configs.get(MOE)
     mm = mcfg.moe
     print("[21] grouped expert, route and combine kernels vs their plain versions")
-    ptxas_report(fails, "moe_experts", "moe_experts_kernel", 6)
+    ptxas_report(fails, "moe_experts", "moe_experts_kernel", 10)
     phase_moe_cases(fails, args.seed)
     phase_route_cases(fails, args.seed)
     print(f"[21] kernels at {MOE}'s shapes (CUDA events)")
@@ -6254,8 +6725,24 @@ def main() -> int:
     ssd_bwd_cc["launches"] = r36["counts"]["ssd_scan_backward"] - ssd_bwd["launches"]
     print(f"  phase 36 wall {time.perf_counter() - t36:.1f} s; phases 34-36 "
           f"{time.perf_counter() - t34:.1f} s")
+    t37 = time.perf_counter()
+    print("[37] the MoE backward kernels (combine, the data and weight gradients, route; the "
+          "gather's through the combine kernel) vs their plain versions")
+    phase_moe_backward_cases(fails, args.seed)
+    print(f"[38] the MoE backward kernels at {MOE}'s training microstep (CUDA events)")
+    moe_bwd = phase_moe_backward_timing(fails, args.seed)
+    print(f"  phases 37-38 wall {time.perf_counter() - t37:.1f} s")
+    print(f"[39] full-width {MOE} training at {T39_LAYERS} of {mcfg.n_layers} layers: "
+          f"{T39_STEPS} steps of {T39_BATCH} x {T39_SEQ} tokens in {T39_ACCUM} microbatches, "
+          f"cosine at lr {TRAIN_LR}")
+    t39 = time.perf_counter()
+    r39 = phase_train(fails, args.seed, MOE, seq=T39_SEQ, global_batch=T39_BATCH,
+                      accum=T39_ACCUM, steps=T39_STEPS, n_layers=T39_LAYERS)
+    for rec in moe_bwd:
+        rec["launches"] = r39["counts"][rec["name"]]
+    print(f"  phase 39 wall {time.perf_counter() - t39:.1f} s")
     print(f"[33] {ARCH} at full width and {T33_LAYERS} layers: kernel vs plain attention, "
-          f"crash and resume; the card refuses {MOE}")
+          f"crash and resume; the paged kernel (serving only) refuses grad")
     t33 = time.perf_counter()
     phase_train_agreement(fails, args.seed)
     phase_train_resume(fails, args.seed)
@@ -6266,6 +6753,7 @@ def main() -> int:
         records.extend(recs)
     records.append(rglru_bwd)
     records.extend([ssd_bwd, ssd_bwd_cc])
+    records.extend(moe_bwd)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if fails:

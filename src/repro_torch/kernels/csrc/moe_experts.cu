@@ -132,6 +132,8 @@ enum Mode { kSwiGLU = 0, kGelu = 1, kPlain = 2 };
 struct GroupArgs {
     __nv_bfloat16* out;          // (rows, N)
     const int* offsets;          // (n_exp + 1,) on the device, or null: one segment of `rows`
+    __nv_bfloat16* pre1;         // (rows, N) or null: bf16(x.W1), the SwiGLU gate or GELU up rows
+    __nv_bfloat16* pre2;         // (rows, N) or null: bf16(x.W2), the SwiGLU up rows
     int rows, n_exp, K, N;
 };
 
@@ -215,7 +217,10 @@ __device__ __forceinline__ Item item_of(int i, const Params& p, const int* offs,
     return it;
 }
 
-template <int MODE, int NWG>
+// PRE (a training forward's gate/up launch) also stores the bf16
+// pre-activations to g.pre1 / g.pre2; the serving instances (PRE false)
+// compile without those stores.
+template <int MODE, int NWG, bool PRE>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 moe_experts_kernel(const __grid_constant__ Params p) {
     constexpr int BM = kWgRows * NWG;
@@ -369,22 +374,31 @@ moe_experts_kernel(const __grid_constant__ Params p) {
 #pragma unroll
                 for (int half = 0; half < 2; ++half) {
                     const int row = row_a + 8 * half;
-                    float v[2];
+                    float v[2], a[2], u[2] = {0.f, 0.f};
 #pragma unroll
                     for (int q = 0; q < 2; ++q) {
-                        const float a = round_bf16(acc1[4 * j + 2 * half + q]);
+                        a[q] = round_bf16(acc1[4 * j + 2 * half + q]);
                         if (MODE == kSwiGLU) {
-                            const float u = round_bf16(acc2[4 * j + 2 * half + q]);
-                            v[q] = round_bf16(silu(a)) * u;
+                            u[q] = round_bf16(acc2[4 * j + 2 * half + q]);
+                            v[q] = round_bf16(silu(a[q])) * u[q];
                         } else if (MODE == kGelu) {
-                            v[q] = gelu_tanh(a);
+                            v[q] = gelu_tanh(a[q]);
                         } else {
-                            v[q] = a;
+                            v[q] = a[q];
                         }
                     }
-                    if (row < r1 && c < g.N)             // N % 8 == 0: c + 1 < N too
-                        *reinterpret_cast<__nv_bfloat162*>(g.out + (int64_t)row * g.N + c) =
+                    if (row < r1 && c < g.N) {           // N % 8 == 0: c + 1 < N too
+                        const int64_t o = (int64_t)row * g.N + c;
+                        *reinterpret_cast<__nv_bfloat162*>(g.out + o) =
                             __floats2bfloat162_rn(v[0], v[1]);
+                        // the pre-activations the backward reads (a training forward)
+                        if (PRE && g.pre1 != nullptr)
+                            *reinterpret_cast<__nv_bfloat162*>(g.pre1 + o) =
+                                __floats2bfloat162_rn(a[0], a[1]);
+                        if (PRE && MODE == kSwiGLU && g.pre2 != nullptr)
+                            *reinterpret_cast<__nv_bfloat162*>(g.pre2 + o) =
+                                __floats2bfloat162_rn(u[0], u[1]);
+                    }
                 }
             }
         }
@@ -422,13 +436,19 @@ Plan make_plan(int mode, int rows0, int n_exp0, int N0, int rows1, int N1, int n
     return pl;
 }
 
-template <int MODE, int NWG>
-cudaError_t launch(const Params& p, const Plan& pl, cudaStream_t stream) {
-    cudaError_t e = cudaFuncSetAttribute(moe_experts_kernel<MODE, NWG>,
+template <int MODE, int NWG, bool PRE>
+cudaError_t launch_one(const Params& p, const Plan& pl, cudaStream_t stream) {
+    cudaError_t e = cudaFuncSetAttribute(moe_experts_kernel<MODE, NWG, PRE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
     if (e != cudaSuccess) return e;
-    moe_experts_kernel<MODE, NWG><<<pl.grid, 128 * (NWG + 1), pl.smem, stream>>>(p);
+    moe_experts_kernel<MODE, NWG, PRE><<<pl.grid, 128 * (NWG + 1), pl.smem, stream>>>(p);
     return cudaGetLastError();
+}
+
+template <int MODE, bool PRE>
+cudaError_t launch(const Params& p, const Plan& pl, cudaStream_t stream) {
+    return pl.bm == 2 * kWgRows ? launch_one<MODE, 2, PRE>(p, pl, stream)
+                                : launch_one<MODE, 1, PRE>(p, pl, stream);
 }
 
 // x (rows, K) with a box of BM rows; w (n_exp, K, N) with a box of 64 k x
@@ -955,13 +975,18 @@ extern "C" {
 // on the device, w1_0 / w2_0 (n_exp0, K0, N0), out0 (rows0, N0).  Group 1,
 // when rows1 > 0, is one expert over rows1 rows: x1 (rows1, K1), w1_1 /
 // w2_1 (K1, N1), out1 (rows1, N1).  All bf16, contiguous, 16-byte aligned;
-// K and N multiples of 8.  Returns a cudaError_t: 0 on success,
+// K and N multiples of 8.  pre1_g and pre2_g, (rows_g, N_g) bf16 or null,
+// take the bf16 pre-activations x.W1 and x.W2 (SwiGLU) or x.W1 (GELU) of
+// a gate/up launch for the backward (not the plain mode); any of them
+// selects the kernel's instance with those stores, and the output is the
+// same with or without them.  Returns a cudaError_t: 0 on success,
 // cudaErrorInvalidValue for a mode or shape the kernel does not take,
 // cudaErrorNotSupported when the CUDA driver encodes no tensor map for it.
 int moe_experts_launch(int mode, const void* x0, const void* offsets0, int rows0, int n_exp0,
                        const void* w1_0, const void* w2_0, void* out0, int K0, int N0,
                        const void* x1, int rows1, const void* w1_1, const void* w2_1,
-                       void* out1, int K1, int N1, void* stream) {
+                       void* out1, int K1, int N1, void* pre1_0, void* pre2_0, void* pre1_1,
+                       void* pre2_1, void* stream) {
     if (mode < 0 || mode > 2 || rows0 < 0 || n_exp0 < 1 || rows1 < 0 || K0 < 8 ||
         K0 % 8 || N0 < 8 || N0 % 8 || offsets0 == nullptr)
         return (int)cudaErrorInvalidValue;
@@ -970,14 +995,19 @@ int moe_experts_launch(int mode, const void* x0, const void* offsets0, int rows0
     const bool two = mode == kSwiGLU;
     if (two != (w2_0 != nullptr) || (rows1 > 0 && two != (w2_1 != nullptr)))
         return (int)cudaErrorInvalidValue;
+    const bool pre = pre1_0 != nullptr || pre2_0 != nullptr || pre1_1 != nullptr ||
+                     pre2_1 != nullptr;
+    if (pre && mode == kPlain) return (int)cudaErrorInvalidValue;
     const Plan pl = make_plan(mode, rows0, n_exp0, N0, rows1, N1, sm_count());
     if (pl.stages < 2 || pl.max_items > 0x7fffffff || pl.grid < 1)
         return (int)cudaErrorInvalidValue;
     Params p;
     memset(&p, 0, sizeof(p));
-    p.g0 = {static_cast<__nv_bfloat16*>(out0), static_cast<const int*>(offsets0), rows0,
+    p.g0 = {static_cast<__nv_bfloat16*>(out0), static_cast<const int*>(offsets0),
+            static_cast<__nv_bfloat16*>(pre1_0), static_cast<__nv_bfloat16*>(pre2_0), rows0,
             n_exp0, K0, N0};
-    p.g1 = {static_cast<__nv_bfloat16*>(out1), nullptr, rows1, 1, K1, N1};
+    p.g1 = {static_cast<__nv_bfloat16*>(out1), nullptr, static_cast<__nv_bfloat16*>(pre1_1),
+            static_cast<__nv_bfloat16*>(pre2_1), rows1, 1, K1, N1};
     p.stages = pl.stages;
     if (!encode_group(&p.a0, &p.w1_0, &p.w2_0, x0, w1_0, w2_0, rows0, n_exp0, K0, N0, pl.bm))
         return (int)cudaErrorNotSupported;
@@ -985,14 +1015,13 @@ int moe_experts_launch(int mode, const void* x0, const void* offsets0, int rows0
         !encode_group(&p.a1, &p.w1_1, &p.w2_1, x1, w1_1, w2_1, rows1, 1, K1, N1, pl.bm))
         return (int)cudaErrorNotSupported;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool tall = pl.bm == 2 * kWgRows;
     switch (mode) {
         case kSwiGLU:
-            return (int)(tall ? launch<kSwiGLU, 2>(p, pl, s) : launch<kSwiGLU, 1>(p, pl, s));
+            return (int)(pre ? launch<kSwiGLU, true>(p, pl, s) : launch<kSwiGLU, false>(p, pl, s));
         case kGelu:
-            return (int)(tall ? launch<kGelu, 2>(p, pl, s) : launch<kGelu, 1>(p, pl, s));
+            return (int)(pre ? launch<kGelu, true>(p, pl, s) : launch<kGelu, false>(p, pl, s));
         default:
-            return (int)(tall ? launch<kPlain, 2>(p, pl, s) : launch<kPlain, 1>(p, pl, s));
+            return (int)launch<kPlain, false>(p, pl, s);
     }
 }
 

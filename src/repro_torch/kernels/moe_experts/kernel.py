@@ -1,6 +1,7 @@
-"""Grouped expert FFN, routing and combine: the hand-written CUDA kernels' wrappers.
+"""Grouped expert FFN, routing and combine, forward and backward: the
+hand-written CUDA kernels' wrappers.
 
-``kernels/csrc/moe_experts.cu`` holds all three.  :func:`moe_experts_kernel`
+``kernels/csrc/moe_experts.cu`` holds the three forward kernels.  :func:`moe_experts_kernel`
 runs one launch of the grouped expert product over the routed (token,
 expert) pairs sorted by expert, each expert's segment given by device-side
 offsets, with an optional second group (one expert over its own rows: the
@@ -12,27 +13,40 @@ sized from shapes alone, so a CUDA graph can hold them; the expert kernel
 and the per-token part of the routing are row-invariant (a row's result
 depends only on that row), and the combine is elementwise.
 
+``kernels/csrc/moe_backward.cu`` holds the four backward kernels, behind
+five wrappers: :func:`moe_combine_backward_kernel` (dys and dweights),
+:func:`moe_down_grad_kernel` and :func:`moe_up_grad_kernel` (the grouped
+data gradient's two launches: the down launch's with the activation's
+backward in its epilogue, then the gate/up launch's),
+:func:`moe_weight_grad_kernel` (every expert weight's gradient in one
+launch) and :func:`moe_route_backward_kernel`; the row gather's backward is
+:func:`moe_combine_kernel` with unit weights.  None uses a floating-point
+atomic: two launches are bitwise equal.  Each is sized from shapes alone.
+
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version (:mod:`.ref`), CUDA tensors launch the kernel or raise.
+The forward wrappers refuse, on the card, inputs that require grad: their
+backward runs only through ``ops.MoEFFN``.
 ``moe_experts_kernel.launches`` counts launches (``launches_by_mode`` per
 epilogue mode, ``launches_by_route`` per route: every launch is ``wgmma``,
 on tiles of the rows the library's own plan picks, :func:`library_plan`),
 ``moe_route_kernel.launches`` and ``moe_combine_kernel.launches`` theirs,
 never plain-version calls; a CUDA graph's replay adds the launches it
-holds (``serve/graphs.py``).
+holds (``serve/graphs.py``).  Each backward wrapper counts its own.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..grad_guard import refuse_grad
 from . import plan
-from .ref import (MODES, Route, moe_combine_plain, moe_experts_plain,
-                  moe_route_plain)
+from .ref import (MODES, Route, moe_combine_backward_plain, moe_combine_plain,
+                  moe_down_grad_plain, moe_experts_plain, moe_route_backward_plain,
+                  moe_route_plain, moe_up_grad_plain, moe_weight_grad_plain)
 
 ROUTES = ("wgmma_bm64", "wgmma_bm128")      # wgmma on tiles of 64 or 128 rows
 ROUTE_COUNTERS = 256                        # kRouteCounters: int32 counters a device
@@ -48,7 +62,7 @@ def _library() -> ctypes.CDLL:
         lib = load("moe_experts")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.moe_experts_launch.argtypes = [i, p, p, i, i, p, p, p, i, i,
-                                           p, i, p, p, p, i, i, p]
+                                           p, i, p, p, p, i, i, p, p, p, p, p]
         lib.moe_experts_launch.restype = i
         lib.moe_experts_plan.argtypes = [i, i, i, i, i, i, p]
         lib.moe_experts_plan.restype = i
@@ -62,6 +76,10 @@ def _library() -> ctypes.CDLL:
         lib.moe_experts_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _dense(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -114,20 +132,25 @@ def _check(mode, x, offsets, w1, w2, shared) -> None:
 def moe_experts_kernel(mode: str, x: torch.Tensor, offsets: torch.Tensor, w1: torch.Tensor,
                        w2: Optional[torch.Tensor] = None,
                        shared: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                              Optional[torch.Tensor]]] = None
+                                              Optional[torch.Tensor]]] = None,
+                       pre: Optional[Sequence[Optional[torch.Tensor]]] = None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One launch: ``mode`` in ``("swiglu", "gelu", "plain")``; x (P, K)
     bf16, rows in expert order; offsets (E + 1,) int32, expert e's rows
     ``[offsets[e], offsets[e + 1])``; w1 (and w2 for SwiGLU) (E, K, N) bf16
     -> (out (P, N) bf16, shared out (R, N_s) or None).  ``shared`` is
-    ``(x_s (R, K_s), w1_s (K_s, N_s), w2_s or None)``."""
+    ``(x_s (R, K_s), w1_s (K_s, N_s), w2_s or None)``.  ``pre`` = ``(a, b,
+    a_s, b_s)`` (each an output-shaped bf16 tensor or None) takes the bf16
+    pre-activations x.W1 and x.W2 of a SwiGLU or GELU launch for the
+    backward; the output is the same with or without it."""
     if x.device.type == "cpu":
-        return moe_experts_plain(mode, x, offsets, w1, w2, shared)
+        return moe_experts_plain(mode, x, offsets, w1, w2, shared, pre)
     if x.device.type != "cuda":
         raise ValueError(f"moe_experts_kernel runs on cpu or cuda, not {x.device}")
     refuse_grad("moe_experts_kernel (the grouped expert FFN)", "1.7.2", x, w1, w2,
-                *(shared or ()))
+                *(shared or ()), via="ops.MoEFFN")
     _check(mode, x, offsets, w1, w2, shared)
+    pa, pb, pa_s, pb_s = pre if pre is not None else (None,) * 4
     E, K, N = w1.shape
     P = x.shape[0]
     out = x.new_empty((P, N))
@@ -139,18 +162,19 @@ def moe_experts_kernel(mode: str, x: torch.Tensor, offsets: torch.Tensor, w1: to
         out_s = x.new_empty((R, Ns))
     if P + R == 0:
         return out, out_s
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    for name, t, rows, n in (("pre a", pa, P, N), ("pre b", pb, P, N),
+                             ("shared pre a", pa_s, R, Ns), ("shared pre b", pb_s, R, Ns)):
+        if t is not None:
+            _dense(name, t, (rows, n), x.device)
 
     lib = _library()
     with torch.cuda.device(x.device):
         tile_rows = library_plan(mode, P, E, N, R, Ns).bm
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.moe_experts_launch(MODES.index(mode), x.data_ptr(), offsets.data_ptr(), P, E,
-                                     w1.data_ptr(), ptr(w2), out.data_ptr(), K, N,
-                                     ptr(xs), R, ptr(w1s), ptr(w2s), ptr(out_s), Ks, Ns,
-                                     stream)
+                                     w1.data_ptr(), _ptr(w2), out.data_ptr(), K, N,
+                                     _ptr(xs), R, _ptr(w1s), _ptr(w2s), _ptr(out_s), Ks, Ns,
+                                     _ptr(pa), _ptr(pb), _ptr(pa_s), _ptr(pb_s), stream)
     if err != 0:
         msg = lib.moe_experts_error_string(err).decode()
         raise RuntimeError(f"moe_experts kernel ({mode}) launch failed for x {tuple(x.shape)}, "
@@ -227,7 +251,7 @@ def moe_route_kernel(x: torch.Tensor, w: torch.Tensor, k: int,
         return moe_route_plain(x, w, k, forced)
     if x.device.type != "cuda":
         raise ValueError(f"moe_route_kernel runs on cpu or cuda, not {x.device}")
-    refuse_grad("moe_route_kernel (the MoE router)", "1.7.2", x, w)
+    refuse_grad("moe_route_kernel (the MoE router)", "1.7.2", x, w, via="ops.MoEFFN")
     if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1]:
         raise ValueError(f"x must be (T, D) and w (D, E), got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
@@ -285,7 +309,8 @@ def moe_combine_kernel(ys: torch.Tensor, pos: torch.Tensor, weights: torch.Tenso
         return moe_combine_plain(ys, pos, weights, kept, y_shared)
     if ys.device.type != "cuda":
         raise ValueError(f"moe_combine_kernel runs on cpu or cuda, not {ys.device}")
-    refuse_grad("moe_combine_kernel (the MoE combine)", "1.7.2", ys, weights, y_shared)
+    refuse_grad("moe_combine_kernel (the MoE combine)", "1.7.2", ys, weights, y_shared,
+                via="ops.MoEFFN")
     if ys.ndim != 2 or weights.ndim != 2:
         raise ValueError(f"ys must be (P, D) and weights (T, k), got {tuple(ys.shape)}, "
                          f"{tuple(weights.shape)}")
@@ -322,3 +347,350 @@ def moe_combine_kernel(ys: torch.Tensor, pos: torch.Tensor, weights: torch.Tenso
 
 
 moe_combine_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The backward (kernels/csrc/moe_backward.cu)
+# ---------------------------------------------------------------------------
+
+RB_COUNTERS = 256                           # kRbCounters: int32 counters a device
+
+_blib = None
+
+
+def _backward_library() -> ctypes.CDLL:
+    global _blib
+    if _blib is None:
+        from ..build import load
+
+        lib = load("moe_backward")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.moe_combine_backward_launch.argtypes = [p] * 7 + [i, i, i, p]
+        lib.moe_data_grad_launch.argtypes = [i, p, p, p]
+        lib.moe_weight_grad_launch.argtypes = [p, p, i, p]
+        lib.moe_route_backward_plan.argtypes = [i] * 4 + [p]
+        lib.moe_route_backward_launch.argtypes = [p] * 11 + [i] * 4 + [p]
+        for f in ("moe_combine_backward_launch", "moe_data_grad_launch",
+                  "moe_weight_grad_launch", "moe_route_backward_plan",
+                  "moe_route_backward_launch"):
+            getattr(lib, f).restype = i
+        lib.moe_backward_error_string.argtypes = [i]
+        lib.moe_backward_error_string.restype = ctypes.c_char_p
+        _blib = lib
+    return _blib
+
+
+def _raise(kernel: str, err: int, what: str) -> None:
+    if err != 0:
+        msg = _backward_library().moe_backward_error_string(err).decode()
+        raise RuntimeError(f"{kernel} launch failed for {what}: {msg} ({err})")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _on_card(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+
+
+def _offsets_ok(offsets: torch.Tensor, E: int, device) -> None:
+    if offsets.shape != (E + 1,) or offsets.dtype != torch.int32 or \
+            offsets.device != device or not offsets.is_contiguous():
+        raise ValueError(f"offsets must be a contiguous ({E + 1},) int32 tensor on {device}, got "
+                         f"{tuple(offsets.shape)} {offsets.dtype} on {offsets.device}")
+
+
+def moe_combine_backward_kernel(dout: torch.Tensor, ys: torch.Tensor, pos: torch.Tensor,
+                                weights: torch.Tensor, kept: Optional[torch.Tensor] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch: the combine's backward at dout (T, D) bf16, from ys (P,
+    D) bf16 (sorted order), pos (P,) int32, weights (T, k) fp32, kept (P,)
+    bool or None -> (dys (P, D) bf16 in sorted order, dweights (T, k)
+    fp32), both bitwise :func:`~.ref.moe_combine_backward_plain`."""
+    if ys.device.type == "cpu":
+        return moe_combine_backward_plain(dout, ys, pos, weights, kept)
+    _on_card("moe_combine_backward_kernel", ys)
+    if ys.ndim != 2 or weights.ndim != 2:
+        raise ValueError(f"ys must be (P, D) and weights (T, k), got {tuple(ys.shape)}, "
+                         f"{tuple(weights.shape)}")
+    T, k = weights.shape
+    P, D = ys.shape
+    _dense("ys", ys, (P, D), ys.device)
+    _dense("dout", dout, (T, D), ys.device)
+    if P != T * k or D % 8:
+        raise ValueError(f"ys must hold T k = {T * k} rows of a width that is a multiple of 8, "
+                         f"got {tuple(ys.shape)}")
+    for name, t, dtype in (("pos", pos, torch.int32), ("weights", weights, torch.float32),
+                           ("kept", kept, torch.bool)):
+        if t is not None and (t.dtype != dtype or t.device != ys.device or
+                              not t.is_contiguous() or t.numel() != P):
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of {P} elements on "
+                             f"{ys.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    dys = torch.empty_like(ys)
+    dweights = torch.empty_like(weights)
+    if T == 0:
+        return dys, dweights
+    lib = _backward_library()
+    with torch.cuda.device(ys.device):
+        err = lib.moe_combine_backward_launch(
+            dout.data_ptr(), ys.data_ptr(), pos.data_ptr(), weights.data_ptr(), _ptr(kept),
+            dys.data_ptr(), dweights.data_ptr(), T, D, k, _stream(ys.device))
+    _raise("moe_combine_backward", err, f"ys {tuple(ys.shape)}, weights {tuple(weights.shape)}")
+    moe_combine_backward_kernel.launches += 1
+    return dys, dweights
+
+
+moe_combine_backward_kernel.launches = 0
+
+
+def _data_grad_launch(epi: str, groups: List[tuple], device) -> None:
+    """One data-gradient launch with epilogue ``epi`` (in MODES: SwiGLU or
+    GELU backward, or plain); groups: up to two ``(g0, g1, w0, w1,
+    offsets, pre_a, pre_b, out0, out1, rows, n_exp, N, K)``."""
+    ptrs = (ctypes.c_void_p * 18)()
+    dims = (ctypes.c_int * 8)()
+    for gi, grp in enumerate(groups):
+        for j, t in enumerate(grp[:9]):
+            ptrs[9 * gi + j] = _ptr(t)
+        for j, v in enumerate(grp[9:]):
+            dims[4 * gi + j] = v
+    lib = _backward_library()
+    with torch.cuda.device(device):
+        err = lib.moe_data_grad_launch(MODES.index(epi), ptrs, dims, _stream(device))
+    _raise(f"moe_data_grad ({epi})", err, f"groups {[g[9:] for g in groups]}")
+
+
+def moe_down_grad_kernel(mode: str, dy: torch.Tensor, offsets: torch.Tensor,
+                         w_down: torch.Tensor, a: torch.Tensor, b: Optional[torch.Tensor] = None,
+                         shared: Optional[Tuple] = None):
+    """One launch of the grouped data gradient with the activation's
+    backward in its epilogue: per segment ``dh = dy . W_d[e]^T`` (dy (P,
+    D) bf16 in expert order, W_d (E, F, D) bf16, offsets (E + 1,) int32),
+    then SwiGLU's (``mode="swiglu"``: the gate/up pre-activations a, b (P,
+    F)) or GELU's (a) backward -> ``(da, db or None, (da_s, db_s) or
+    None)``; ``shared = (dy_s (R, D), W_d_s (F_s, D), a_s, b_s)``, a SwiGLU
+    shared expert, rides as a second group.  Within the stated bound of
+    :func:`~.ref.moe_down_grad_plain`."""
+    if shared is not None and mode != "swiglu":
+        raise NotImplementedError("a shared expert beside GELU experts is not ported "
+                                  "(no configuration has one)")
+    if dy.device.type == "cpu":
+        return moe_down_grad_plain(mode, dy, offsets, w_down, a, b, shared)
+    _on_card("moe_down_grad_kernel", dy)
+    if mode not in ("swiglu", "gelu") or (mode == "swiglu") != (b is not None):
+        raise ValueError(f"mode must be swiglu (with b) or gelu (without), got {mode!r}")
+    if dy.ndim != 2 or w_down.ndim != 3:
+        raise ValueError(f"dy must be (P, D) and w_down (E, F, D), got {tuple(dy.shape)}, "
+                         f"{tuple(w_down.shape)}")
+    E, F, D = w_down.shape
+    P = dy.shape[0]
+    dev = dy.device
+    _offsets_ok(offsets, E, dev)
+    for name, t, shape in (("dy", dy, (P, D)), ("w_down", w_down, (E, F, D)), ("a", a, (P, F)),
+                           ("b", b, (P, F))):
+        if t is not None:
+            _dense(name, t, shape, dev)
+    da = torch.empty_like(a)
+    db = None if b is None else torch.empty_like(b)
+    groups = [(dy, None, w_down, None, offsets, a, b, da, db, P, E, F, D)]
+    out_s = None
+    if shared is not None:
+        dy_s, w_s, a_s, b_s = shared
+        R = dy_s.shape[0]
+        Fs = w_s.shape[0]
+        for name, t, shape in (("shared dy", dy_s, (R, D)), ("shared w_down", w_s, (Fs, D)),
+                               ("shared a", a_s, (R, Fs)), ("shared b", b_s, (R, Fs))):
+            _dense(name, t, shape, dev)
+        out_s = (torch.empty_like(a_s), torch.empty_like(b_s))
+        if R > 0:
+            groups.append((dy_s, None, w_s, None, None, a_s, b_s, out_s[0], out_s[1], R, 1, Fs,
+                           D))
+    if P + (0 if shared is None else shared[0].shape[0]) > 0:
+        _data_grad_launch(mode, groups, dev)
+        moe_down_grad_kernel.launches += 1
+    return da, db, out_s
+
+
+moe_down_grad_kernel.launches = 0
+
+
+def moe_up_grad_kernel(da: torch.Tensor, db: Optional[torch.Tensor], offsets: torch.Tensor,
+                       w1: torch.Tensor, w2: Optional[torch.Tensor] = None,
+                       shared: Optional[Tuple] = None
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of the grouped data gradient of the gate/up launch: per
+    segment ``dx = da . W1[e]^T + db . W2[e]^T`` (da, db (P, F) bf16; W1,
+    W2 (E, D, F) bf16: w_gate and w_up; GELU: da . W_up^T alone) in one
+    fp32 accumulation, rounded once -> (dx (P, D), dx_s or None);
+    ``shared = (da_s, db_s, W1_s (D, F_s), W2_s)``, a SwiGLU shared expert,
+    rides as a second group.  Within the stated bound of
+    :func:`~.ref.moe_up_grad_plain`."""
+    if shared is not None and db is None:
+        raise NotImplementedError("a shared expert beside GELU experts is not ported "
+                                  "(no configuration has one)")
+    if da.device.type == "cpu":
+        return moe_up_grad_plain(da, db, offsets, w1, w2, shared)
+    _on_card("moe_up_grad_kernel", da)
+    if (db is None) != (w2 is None) or da.ndim != 2 or w1.ndim != 3:
+        raise ValueError(f"da (P, F) and W1 (E, D, F), with db and W2 both or neither; got "
+                         f"{tuple(da.shape)}, {tuple(w1.shape)}")
+    E, D, F = w1.shape
+    P = da.shape[0]
+    dev = da.device
+    _offsets_ok(offsets, E, dev)
+    for name, t, shape in (("da", da, (P, F)), ("db", db, (P, F)), ("w1", w1, (E, D, F)),
+                           ("w2", w2, (E, D, F))):
+        if t is not None:
+            _dense(name, t, shape, dev)
+    dx = da.new_empty((P, D))
+    groups = [(da, db, w1, w2, offsets, None, None, dx, None, P, E, D, F)]
+    dx_s = None
+    if shared is not None:
+        da_s, db_s, w1_s, w2_s = shared
+        R, Fs = da_s.shape
+        for name, t, shape in (("shared da", da_s, (R, Fs)), ("shared db", db_s, (R, Fs)),
+                               ("shared w1", w1_s, (D, Fs)), ("shared w2", w2_s, (D, Fs))):
+            _dense(name, t, shape, dev)
+        dx_s = da.new_empty((R, D))
+        if R > 0:
+            groups.append((da_s, db_s, w1_s, w2_s, None, None, None, dx_s, None, R, 1, D, Fs))
+    if P + (0 if dx_s is None else dx_s.shape[0]) > 0:
+        _data_grad_launch("plain", groups, dev)
+        moe_up_grad_kernel.launches += 1
+    return dx, dx_s
+
+
+moe_up_grad_kernel.launches = 0
+
+MAX_WEIGHT_JOBS = 6
+
+
+def moe_weight_grad_kernel(jobs: Sequence[Tuple[torch.Tensor, torch.Tensor,
+                                                Optional[torch.Tensor]]]) -> List[torch.Tensor]:
+    """One launch for up to six weight gradients: each job ``(a (rows, M),
+    b (rows, N), offsets (E + 1,) int32 or None)`` gives ``out[e] = a[seg
+    e]^T . b[seg e]`` (E, M, N) bf16, fp32 accumulation over the segment's
+    rows in order, one rounding (zeros for an empty segment); without
+    offsets one product over all rows, (M, N).  Within the stated bound of
+    :func:`~.ref.moe_weight_grad_plain`.  Jobs run in the order given: put
+    the longest segments first."""
+    if not jobs or len(jobs) > MAX_WEIGHT_JOBS:
+        raise ValueError(f"moe_weight_grad_kernel takes 1 to {MAX_WEIGHT_JOBS} jobs, "
+                         f"got {len(jobs)}")
+    a0 = jobs[0][0]
+    if a0.device.type == "cpu":
+        return [moe_weight_grad_plain(a, b, off) for a, b, off in jobs]
+    _on_card("moe_weight_grad_kernel", a0)
+    dev = a0.device
+    outs = []
+    ptrs = (ctypes.c_void_p * (4 * len(jobs)))()
+    dims = (ctypes.c_int * (4 * len(jobs)))()
+    for i, (a, b, off) in enumerate(jobs):
+        if a.ndim != 2 or b.ndim != 2 or a.shape[0] != b.shape[0]:
+            raise ValueError(f"job {i}: a (rows, M) and b (rows, N), got {tuple(a.shape)}, "
+                             f"{tuple(b.shape)}")
+        rows, M = a.shape
+        N = b.shape[1]
+        _dense(f"job {i} a", a, (rows, M), dev)
+        _dense(f"job {i} b", b, (rows, N), dev)
+        if M % 8 or N % 8:
+            raise ValueError(f"job {i}: M={M} and N={N} must be multiples of 8")
+        E = 1
+        if off is not None:
+            E = off.shape[0] - 1
+            _offsets_ok(off, E, dev)
+        out = a.new_empty((E, M, N) if off is not None else (M, N))
+        outs.append(out)
+        for j, t in enumerate((a, b, out, off)):
+            ptrs[4 * i + j] = _ptr(t)
+        for j, v in enumerate((rows, E, M, N)):
+            dims[4 * i + j] = v
+    lib = _backward_library()
+    with torch.cuda.device(dev):
+        err = lib.moe_weight_grad_launch(ptrs, dims, len(jobs), _stream(dev))
+    _raise("moe_weight_grad", err, f"jobs {[tuple(d) for d in zip(*[iter(dims)] * 4)]}")
+    moe_weight_grad_kernel.launches += 1
+    return outs
+
+
+moe_weight_grad_kernel.launches = 0
+
+
+class RouteBackwardPlan(NamedTuple):
+    """The shape of one ``moe_route_backward`` launch."""
+    tiles: int              # token tiles (whose dw partials are summed in order)
+    column_groups: int      # blocks a tile: 64 columns of D each
+    smem: int               # dynamic shared memory bytes a block
+    workspace: int          # bytes: the tiles' dw partials (tiles > 1)
+
+
+def route_backward_plan(T: int, D: int, E: int, k: int) -> RouteBackwardPlan:
+    """The launch ``moe_route_backward_launch`` makes for these shapes,
+    from shapes alone."""
+    out = (ctypes.c_int * 4)()
+    err = _backward_library().moe_route_backward_plan(T, D, E, k, out)
+    if err != 0:
+        raise ValueError(f"moe_route_backward takes T >= 1, D even and <= 4096, 1 <= k <= E <= "
+                         f"128 and k <= 32; got T={T} D={D} E={E} k={k} ({err})")
+    return RouteBackwardPlan(*out)
+
+
+_rb_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def moe_route_backward_kernel(x: torch.Tensor, w: torch.Tensor, gates: torch.Tensor,
+                              weights: torch.Tensor, idx: torch.Tensor, dweights: torch.Tensor,
+                              dgates: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch: the routing's backward at the gradients of its weights
+    (T, k) fp32 and gates (T, E) fp32 (or None), from x (T, D) bf16, w (D,
+    E) fp32, the gates, weights and idx (T, k) int32 of the forward -> (dx
+    (T, D) bf16, dw (D, E) fp32); dw summed over tokens in a fixed order
+    (each token tile's partial in token order, the partials in tile order).
+    Within the stated bound of :func:`~.ref.moe_route_backward_plain`."""
+    if x.device.type == "cpu":
+        return moe_route_backward_plain(x, w, gates, weights, idx, dweights, dgates)
+    _on_card("moe_route_backward_kernel", x)
+    if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1]:
+        raise ValueError(f"x must be (T, D) and w (D, E), got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    T, D = x.shape
+    E = w.shape[1]
+    k = weights.shape[1] if weights.ndim == 2 else -1
+    dev = x.device
+    for name, t, dtype, shape in (("x", x, torch.bfloat16, (T, D)), ("w", w, torch.float32, (D, E)),
+                                  ("gates", gates, torch.float32, (T, E)),
+                                  ("weights", weights, torch.float32, (T, k)),
+                                  ("idx", idx, torch.int32, (T, k)),
+                                  ("dweights", dweights, torch.float32, (T, k)),
+                                  ("dgates", dgates, torch.float32, (T, E))):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype or t.device != dev
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {shape} {dtype} tensor on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    dx = x.new_empty((T, D))
+    dw = w.new_empty((D, E))
+    if T == 0:
+        return dx, dw.zero_()
+    lib = _backward_library()
+    with torch.cuda.device(dev):
+        plan = route_backward_plan(T, D, E, k)
+        ws = torch.empty(plan.workspace, dtype=torch.uint8, device=dev)
+        c = _rb_counters.get(dev)
+        if c is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("moe_route_backward_kernel's counters are allocated by its "
+                                   f"first launch on {dev}, which must not be inside a capture")
+            c = _rb_counters[dev] = torch.zeros(RB_COUNTERS, dtype=torch.int32, device=dev)
+        err = lib.moe_route_backward_launch(
+            x.data_ptr(), w.data_ptr(), gates.data_ptr(), weights.data_ptr(), idx.data_ptr(),
+            dweights.data_ptr(), _ptr(dgates), dx.data_ptr(), dw.data_ptr(),
+            ws.data_ptr() if plan.workspace else None, c.data_ptr(), T, D, E, k, _stream(dev))
+    _raise("moe_route_backward", err, f"x {tuple(x.shape)}, w {tuple(w.shape)}, k={k}")
+    moe_route_backward_kernel.launches += 1
+    return dx, dw
+
+
+moe_route_backward_kernel.launches = 0

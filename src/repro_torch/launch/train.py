@@ -10,10 +10,10 @@ so they never drive it at once.  The model is built for
 training (fp32 masters, ``build_model(train=True)``) from ``--seed`` on
 ``--device`` (``cuda`` unless asked otherwise).  On the card every
 attention of 4096 tokens or more runs in the flash kernel, every RG-LRU
-recurrence in the scan kernel and every SSD recurrence (mamba2, the
-``ssm`` family) in the SSD scan kernel, forward and backward; a family
-whose forward reaches a kernel with no backward yet (the MoE kernels of
-``moe``) is refused before step 0.
+recurrence in the scan kernel, every SSD recurrence (mamba2, the ``ssm``
+family) in the SSD scan kernel and every MoE layer (the ``moe`` family) in
+the route, grouped expert and combine kernels, forward and backward: every
+family trains on the card.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b --steps 50 \\
@@ -41,13 +41,6 @@ from ..models import build_model
 from ..models.config import ShapeSpec
 from ..train import AdamWConfig, make_train_step
 from ..train.step import TrainStepConfig, init_train_state, trainable
-
-# families whose forward reaches a kernel that has no backward yet
-NO_BACKWARD = {
-    "moe": "the MoE route, expert and combine kernels (moe_route_kernel, moe_experts_kernel, "
-           "moe_combine_kernel; ROADMAP item 1.7.2)",
-}
-
 
 def build_control_plane():
     cloud = SimCloud(seed=0)
@@ -89,10 +82,6 @@ def run_training(arch: str, steps: int = 50, *, smoke: bool = True,
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     dev = torch.device(device)
-    if dev.type == "cuda" and cfg.family in NO_BACKWARD:
-        raise NotImplementedError(
-            f"{arch} ({cfg.family}) cannot train on the card: its forward runs "
-            f"{NO_BACKWARD[cfg.family]}, and no backward kernel exists for it yet")
     model = build_model(cfg, device=dev, seed=seed, train=True)
     shape = ShapeSpec("driver", seq_len, global_batch, "train")
     pipe = SyntheticPipeline(cfg, shape, DataConfig(seed=0), device=dev)

@@ -12,7 +12,8 @@ The JAX package gives each expert a capacity buffer and runs every expert
 over the whole buffer; drop-free routing (serving) sizes that buffer to
 T * k rows, 64x the routed work at moonshot's 64 experts top-6.  Here only
 the T * k routed pairs are computed, and a layer is five launches on every
-path: :func:`~..kernels.moe_experts.route` (the product, softmax, top-k,
+path (:func:`~..kernels.moe_experts.layer_forward`):
+:func:`~..kernels.moe_experts.route` (the product, softmax, top-k,
 renormalisation and the stable sort of the pairs by expert, with each
 expert's segment, in one launch), one row gather of the pairs' tokens,
 the two launches of the grouped expert kernel (the shared expert rides in
@@ -21,7 +22,10 @@ keeps the JAX package's order and types: each pair's output times its
 weight cast to bf16, then the k products summed (in fp32, one rounding).
 With capacity dropping (``no_drop=False``, :meth:`MoELM.apply`), a pair
 whose rank within its expert reaches the capacity contributes exactly zero
-(as ``picked * local`` masks it there).
+(as ``picked * local`` masks it there).  Under grad (training) the layer
+runs through :class:`~..kernels.moe_experts.ops.MoEFFN`: the same launches,
+and a backward of hand-written kernels; every other call (serving, graphs,
+decode) makes exactly the launches above.
 
 Every per-token step of the layer is row-invariant: the router product,
 the softmax and top-k, the grouped kernel and the elementwise combine
@@ -42,7 +46,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..kernels.moe_experts import combine, expert_ffn, route
+from ..kernels.moe_experts.ops import layer_forward, moe_layer
 from ..kernels.moe_experts.ref import _rank_within_expert, top_k_lower_first  # noqa: F401
 from . import layers
 from .config import ArchConfig
@@ -92,16 +96,20 @@ def moe_ffn(p, cfg: ArchConfig, x: torch.Tensor, *, no_drop: bool = False,
     B, S, D = x.shape
     T = B * S
     xf = x.reshape(T, D)
-    r = route(xf, p.router["w"], m.top_k)
     shared = getattr(p, "shared", None)
     experts = {k: layers.cast(w) for k, w in p.experts.items()}
     if shared is not None:
         shared = {k: layers.cast(w) for k, w in shared.items()}
-    ys, y_shared = expert_ffn(cfg.mlp, xf.index_select(0, r.tok), r.offsets, experts,
-                              None if shared is None else (xf, shared))
-    kept = None if no_drop else r.rank < capacity(T, m)
-    out = combine(ys, r.pos, r.weights, kept, y_shared)
-    aux = switch_aux(r.gates, r.offsets, m.top_k) if with_aux else None
+    leaves = (xf, p.router["w"], *experts.values(), *(shared or {}).values())
+    cap = None if no_drop else capacity(T, m)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        # training: the same launches through MoEFFN, whose backward is the kernels'
+        out, gates, offsets = moe_layer(cfg.mlp, xf, p.router["w"], experts, shared, m.top_k,
+                                        cap)
+    else:
+        out, r, _ = layer_forward(cfg.mlp, xf, p.router["w"], experts, shared, m.top_k, cap)
+        gates, offsets = r.gates, r.offsets
+    aux = switch_aux(gates, offsets, m.top_k) if with_aux else None
     return out.reshape(B, S, D), aux
 
 

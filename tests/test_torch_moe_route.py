@@ -31,6 +31,7 @@ from repro_torch import configs
 from repro_torch.kernels.moe_experts import (moe_combine_kernel, moe_combine_plain,
                                              moe_route_kernel, moe_route_plain,
                                              route_logits_plain, route_sort_plain)
+from repro_torch.kernels.moe_experts import ops as moe_ops
 from repro_torch.kernels.moe_experts.ref import _sum_in_order
 from repro_torch.models import build_model
 from repro_torch.models import moe as tmoe
@@ -206,8 +207,8 @@ def test_moe_ffn_is_route_gather_experts_combine(arch, monkeypatch):
             return fn(*a, **kw)
         return call
 
-    monkeypatch.setattr(tmoe, "route", counted("route", tmoe.route))
-    monkeypatch.setattr(tmoe, "combine", counted("combine", tmoe.combine))
+    monkeypatch.setattr(moe_ops, "route", counted("route", moe_ops.route))
+    monkeypatch.setattr(moe_ops, "combine", counted("combine", moe_ops.combine))
     x = torch.randn(2, 6, cfg.d_model, generator=torch.Generator().manual_seed(2)).bfloat16()
     p = tm.layers[0].moe
     out, aux = tmoe.moe_ffn(p, cfg, x, no_drop=False)
