@@ -437,17 +437,27 @@ last line is printed):
     grouped products within 4 bf16 steps (2^-8 each) of their largest
     |element|, the route backward's dx within 2 and its dw within 1e-4;
     leaving out the largest expert's segment (one 64-token tile for the
-    route) must exceed the bound; two launches bitwise.  38: each at
-    moonshot's training microstep (T 8192, P 49152, capacity 1.25): CUDA
-    events, device time, the plain version, the bound, and
-    ``torch._grouped_mm`` (or the plain sequence replayed as one graph) as
-    the yardstick.  39: moonshot at full width, cut to 4 of 48 layers, 4
-    steps of 8 x 4096 tokens in 4 microbatches: losses finite and falling,
-    every parameter with a gradient, route, gate/up and down launches 2 x
-    layers x microsteps each (forward and remat recompute), combine 3 x
-    (the gather's backward too), each backward wrapper layers x
-    microsteps, flash as in 31, no paged launch; MFU by active parameters
-    (``active_params``: top-6 of 64 experts).
+    route) must exceed the bound; two launches bitwise; and the weight
+    gradient with every odd expert's rows NaN / Inf, then 1e4-scaled: the
+    even experts' dW finite and within the bound (a segment's last ring
+    stage holds the next expert's rows, which the kernel clears).  The
+    grouped products (``moe_data_grad_kernel``, two launches, and
+    ``moe_weight_grad_kernel``) run on wgmma from TMA rings over
+    persistent grids.  38: each at moonshot's training microstep (T 8192,
+    P 49152, capacity 1.25): CUDA events, device time per launch
+    (``queued_device_ms``: launches queued behind a device sleep, no
+    profiler; a host that fell behind the sleep fails), TFLOP/s, the
+    plain version, the bound, and ``torch._grouped_mm`` (or the plain
+    sequence replayed as one graph) as the yardstick; for the grouped
+    products their library plans held equal to ``backward_plan.py``'s
+    model with its work items per SM, and ``ptxas``'s registers and
+    spills of their 7 instances (a wgmma serialised fails).  39: moonshot
+    at full width, cut to 4 of 48 layers, 4 steps of 8 x 4096 tokens in 4 microbatches:
+    losses finite and falling, every parameter with a gradient, route,
+    gate/up and down launches 2 x layers x microsteps each (forward and
+    remat recompute), combine 3 x (the gather's backward too), each
+    backward wrapper layers x microsteps, flash as in 31, no paged launch;
+    MFU by active parameters (``active_params``: top-6 of 64 experts).
 
 On the card the scheduler replays a CUDA graph for every decode step and
 every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19,
@@ -596,6 +606,37 @@ def device_ms_per_launch(fn, iters: int, kernel: str):
         print(f"  profiler: no kernel named {kernel!r} over {iters} calls; "
               f"device kernels seen: {seen[:6]}")
     return sum(spans) / len(spans) / 1e3 if spans else None
+
+
+def queued_device_ms(fn, iters: int):
+    """Device time per call of ``fn(i)`` over ``iters`` calls, without the
+    profiler: the host queues the calls while the device runs
+    ``torch.cuda._sleep``, so CUDA events bracket them back to back on the
+    device and the host's launch path is left out.  Valid only when the
+    host has queued every call before the sleep ends, which is checked
+    (the sleep grows 4x up to three times); None when it never was.  For
+    wrappers that launch one kernel and nothing else, it is that kernel's
+    time."""
+    import torch
+
+    fn(0)
+    sync()
+    cycles = 1 << 25                # ~17 ms at the H100's 1.98 GHz boost clock
+    for _ in range(4):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        marks[0].record()
+        torch.cuda._sleep(cycles)
+        marks[1].record()
+        for i in range(iters):
+            fn(i)
+        marks[2].record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        sync()
+        if queued_ms < marks[0].elapsed_time(marks[1]):
+            return marks[1].elapsed_time(marks[2]) / iters
+        cycles *= 4
+    return None
 
 
 # -- phase 2: kernel vs plain version ------------------------------------------------
@@ -2662,18 +2703,20 @@ def moe_schedule(offsets, P: int, E: int, D: int, F: int, T: int) -> None:
 
 def ptxas_report(fails: Failures, src: str, kernel: str, instances: int) -> None:
     """Prints ``ptxas -v``'s registers, spills and warnings for each instance of
-    ``kernel`` in the build of ``src``; fails unless all ``instances`` are in
-    the build's log and none has a wgmma serialised by ``ptxas`` (C7515,
-    C7517 or C7518: a wait after each wgmma)."""
+    ``kernel`` in the build of ``src`` (named by its template arguments as
+    they are mangled, or by ``kernel`` alone); fails unless
+    all ``instances`` are in the build's log and no kernel of ``src`` has a
+    wgmma serialised by ``ptxas`` (C7515, C7517 or C7518: a wait after each
+    wgmma)."""
     from repro_torch.kernels import build
 
     name, seen, serialised = None, set(), []
     for line in build.build_log(src).splitlines():
         serial = re.search(r"\(C75(15|17|18)\)", line)
         if "Compiling entry" in line:
-            m = re.search(rf"{kernel}ILi(\d)ELi(\d)E(?:Lb(\d)E)?", line)
-            name = m and (f"{kernel}<mode {m.group(1)}, {m.group(2)} consumer warpgroup(s)"
-                          f"{', pre-activation stores' if m.group(3) == '1' else ''}>")
+            m = re.search(rf"\d{kernel}(?:ILi(\d)ELi(\d)E(?:Lb(\d)E)?)?E", line)
+            name = m and (kernel if m.group(1) is None else
+                          f"{kernel}<{', '.join(g for g in m.groups() if g is not None)}>")
             if name:
                 seen.add(name)
         elif serial or (kernel in line and ("Performance Loss" in line or "injected" in line)):
@@ -6067,6 +6110,52 @@ def moe_bwd_check(fails: Failures, label: str, name: str, got, again, want, drop
     return worst
 
 
+def moe_bwd_neighbours(fails: Failures, label: str, st, gen) -> float:
+    """The weight gradient's segment ends: the routed jobs (h with dys, xs
+    with da and db; random bf16 of their shapes) with every odd expert's
+    rows set to NaN (a) and Inf (b), then scaled by 1e4.  A segment's last
+    ring stage also holds the next expert's rows, which the kernel clears
+    before its wgmma reads them; every even expert's dW must stay finite
+    and within MOE_BWD_TOL of the plain version (which slices the segments
+    exactly), and leaving the clearing out would put NaN or 1e8-scaled
+    terms there.  Returns the worst err / bound."""
+    import torch
+
+    from repro_torch.kernels.moe_experts import kernel as mk
+    from repro_torch.kernels.moe_experts import ref
+
+    offsets = st["r"].offsets
+    bounds = offsets.tolist()
+    E, P = len(bounds) - 1, bounds[-1]
+    odd = torch.zeros(P, dtype=torch.bool, device=DEVICE)
+    for e in range(1, E, 2):
+        odd[bounds[e]:bounds[e + 1]] = True
+    even = torch.arange(0, E, 2, device=DEVICE)
+    F, D = st["h"].shape[1], st["xs"].shape[1]
+    worst = 0.0
+    for kind in ("NaN / Inf", "1e4-scaled"):
+        jobs = []
+        for a, n in ((st["h"], D), (st["xs"], F)):
+            a = a.clone()
+            b = torch.randn(P, n, generator=gen, device=gen.device).to(DEVICE, torch.bfloat16)
+            if kind == "NaN / Inf":
+                a[odd], b[odd] = float("nan"), float("inf")
+            else:
+                a[odd], b[odd] = a[odd] * 1e4, b[odd] * 1e4
+            jobs.append((a, b, offsets))
+        got = mk.moe_weight_grad_kernel(jobs)
+        want = [ref.moe_weight_grad_plain(*j) for j in jobs]
+        sync()
+        finite = all(torch.isfinite(g[even].float()).all().item() for g in got)
+        errs = [rel_max(g[even], w[even]) for g, w in zip(got, want)]
+        worst = max(worst, max(errs) / MOE_BWD_TOL)
+        fails.check(finite and max(errs) <= MOE_BWD_TOL,
+                    f"moe_weight_grad {label}, every odd expert's rows {kind}: the even experts' "
+                    f"dW finite ({finite}), err / largest |want| {[f'{e:.3g}' for e in errs]} "
+                    f"within {MOE_BWD_TOL:.3g}")
+    return worst
+
+
 def phase_moe_backward_cases(fails: Failures, seed: int) -> dict:
     """37: every backward kernel against its plain version on the card."""
     import torch
@@ -6091,6 +6180,9 @@ def phase_moe_backward_cases(fails: Failures, seed: int) -> dict:
                 sync()
                 w = moe_bwd_check(fails, label, name, got, again, want, drop)
                 worst[name] = max(worst.get(name, 0.0), w)
+            w = moe_bwd_neighbours(fails, label, st, gen)
+            worst["moe_weight_grad, neighbours"] = max(worst.get("moe_weight_grad, neighbours",
+                                                                 0.0), w)
         del st
         torch.cuda.empty_cache()
     print(f"  worst err / bound by kernel: {worst}")
@@ -6151,10 +6243,47 @@ def grouped_mm_backward(st, mode):
     return {"moe_down_grad": down, "moe_up_grad": up, "moe_weight_grad": weight}
 
 
+def moe_bwd_schedules(fails: Failures, st, T, P, E, D, F, mlp) -> dict:
+    """The grouped products' launches at phase 38's shapes: the library's
+    plan held equal to ``backward_plan.py``'s model, and the work items per
+    SM that the model's map counts over these offsets (the kernels' own
+    lists stay on the device).  Returns {name: printed schedule}."""
+    import torch
+
+    from repro_torch.kernels.moe_experts import backward_plan as bp
+    from repro_torch.kernels.moe_experts import data_grad_plan, plan, weight_grad_plan
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    offs = st["r"].offsets.tolist()
+    out = {}
+    for name, epi, n0, n1 in (("moe_down_grad", mlp, F, 2 * F), ("moe_up_grad", "plain", D, D)):
+        lib = data_grad_plan(epi, P, E, n0, T, n1)
+        model = bp.data_grad_plan(epi, P, E, n0, T, n1, n_sms)
+        n = len(plan.items(offs, P, n0, T, n1, bm=lib.bm))
+        per = plan.items_per_block(n, lib.grid)
+        out[name] = f"{lib}; {n} work items, {n / lib.grid:.2f} per SM ({min(per)}-{max(per)})"
+        fails.check(lib == model, f"{name} plan: the library's {lib} == backward_plan.py's")
+    dims = [(T, 1, 2 * F, D), (T, 1, D, 2 * F), (T, 1, D, 2 * F), (P, E, F, D), (P, E, D, F),
+            (P, E, D, F)]
+    lib, model = weight_grad_plan(dims), bp.weight_grad_plan(dims, n_sms)
+    jobs = [(r, M, N, None if e == 1 else offs) for r, e, M, N in dims]
+    items = bp.weight_grad_items(jobs)
+    stages = [len(bp.weight_grad_stages(it.lo, it.hi)) for it in items]
+    per = plan.items_per_block(len(items), lib.grid)
+    out["moe_weight_grad"] = (f"{lib}; {len(items)} work items, {len(items) / lib.grid:.2f} per "
+                              f"SM ({min(per)}-{max(per)}), {sum(stages) / lib.grid:.1f} ring "
+                              f"stages per SM")
+    fails.check(lib == model and lib.items == len(items),
+                f"moe_weight_grad plan: the library's {lib} == backward_plan.py's")
+    for name, sched in out.items():
+        print(f"  {name} schedule: {sched}")
+    return out
+
+
 def phase_moe_backward_timing(fails: Failures, seed: int) -> list:
     """38: each backward kernel at moonshot's training microstep (T = 8192
     tokens, P = 49152 pairs, uniform routing, capacity 1.25, the shared
-    expert): CUDA-event ms, profiler device ms, the plain version's ms, the
+    expert): CUDA-event ms, device ms (``queued_device_ms``), the plain version's ms, the
     bound, and the library yardstick (``torch._grouped_mm`` for the grouped
     products, the plain torch sequence replayed as one graph for combine
     and route)."""
@@ -6175,10 +6304,9 @@ def phase_moe_backward_timing(fails: Failures, seed: int) -> list:
     bounds["moe_route_backward"] = (T * D * 2 + D * E * 4 + 2 * T * E * 4 + 3 * T * k * 4 +
                                     T * D * 2 + D * E * 4, 4 * T * D * E, FP32_FLOPS_PER_S)
     library = grouped_mm_backward(st, cfg.mlp)
-    dev_names = {"moe_combine_backward": "moe_combine_backward_kernel",
-                 "moe_down_grad": "moe_data_grad_kernel", "moe_up_grad": "moe_data_grad_kernel",
-                 "moe_weight_grad": "moe_weight_grad_kernel",
-                 "moe_route_backward": "moe_route_backward_kernel"}
+    schedules = moe_bwd_schedules(fails, st, T, P, E, D, F, cfg.mlp)
+    ptxas_report(fails, "moe_backward", "moe_data_grad_kernel", 6)
+    ptxas_report(fails, "moe_backward", "moe_weight_grad_kernel", 1)
     replaces = {
         "moe_combine_backward": "src/repro/models/moe.py:90-94 (the combine's backward, XLA's "
                                 "autodiff of _dispatch_ffn); no Pallas kernel",
@@ -6204,7 +6332,9 @@ def phase_moe_backward_timing(fails: Failures, seed: int) -> list:
             max_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
             del got, again, want
             ms = cuda_time_ms(lambda i: kern(), 10, warmup=2)
-            dev = device_ms_per_launch(lambda i: kern(), 5, dev_names[name])
+            dev = queued_device_ms(lambda i: kern(), 5)
+            fails.check(dev is not None, f"{name} at T={T}: device time per launch {dev} ms "
+                        f"(5 launches queued behind a device sleep)")
             plain_ms = cuda_time_ms(lambda i: plain(), 2, warmup=1)
             again_ms = cuda_time_ms(lambda i: kern(), 10, warmup=0)
             lib_ms, graph_ms, note = None, None, ""
@@ -6228,6 +6358,8 @@ def phase_moe_backward_timing(fails: Failures, seed: int) -> list:
             extra = ""
             if name == "moe_route_backward":
                 extra = f"plan {route_backward_plan(T, D, E, k)}; "
+            if name in schedules:
+                extra = "wgmma, persistent; "
             print(f"  {name} at T={T} P={P}: {extra}kernel {ms:.4f} ms (again {again_ms:.4f}; "
                   f"device time per launch {dev} ms), {ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
                   f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s; plain {plain_ms:.4f} ms; {note}; "
@@ -6241,7 +6373,7 @@ def phase_moe_backward_timing(fails: Failures, seed: int) -> list:
                         "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
                         "graphed_plain_ms": graph_ms, "bound_ms": bound,
                         "bound_by": "bytes" if tb >= to else "operations",
-                        "library_ms": lib_ms})
+                        "library_ms": lib_ms, "schedule": schedules.get(name)})
     del st, calls, library
     release()
     return out

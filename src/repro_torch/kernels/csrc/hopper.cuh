@@ -1,24 +1,31 @@
 // Hopper (sm_90a) building blocks for the package's CUDA sources (included
-// by moe_experts.cu and flash_attention.cu): mbarriers, TMA tile loads (2-,
-// 3- and 4-D boxes), wgmma descriptors, the bf16 wgmmas (m64n128k16 with
-// both operands in shared memory; m64n64k16 the same with either B
-// layout; m64n64k16 and m64n128k16 with A in registers), named barriers,
-// and the CUDA driver's tensor-map encoder reached through the runtime
+// by moe_experts.cu, moe_backward.cu and flash_attention.cu): mbarriers,
+// TMA tile loads (2-, 3- and 4-D boxes) and stores (3-D boxes, bulk
+// groups), the async-proxy fence, wgmma descriptors, the bf16 wgmmas
+// (m64n128k16 and m64n256k16 with both operands in shared memory and
+// either layout of each; m64n64k16 the same with either B layout;
+// m64n64k16 and m64n128k16 with A in registers), named barriers, and the
+// CUDA driver's tensor-map encoder reached through the runtime
 // (cudaGetDriverEntryPoint), so no library links against libcuda.
 //
 // Layouts follow the PTX ISA's canonical 128-byte-swizzled forms, which
 // TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
-//   K-major (A: rows of 64 bf16 = 128 bytes along k): 8-row groups 1024
-//     bytes apart (SBO; LBO unused); one k16 step advances the start
-//     address by 32 bytes.
-//   MN-major (B: rows of 64 bf16 along n, one row per k): 8-k groups 1024
-//     bytes apart (SBO), 64-column blocks LBO bytes apart (one TMA box
-//     each); one k16 step advances the start address by 16 rows = 2048
-//     bytes.
+//   K-major (A or B: rows of 64 bf16 = 128 bytes along k, one row per m
+//     or n): 8-row groups 1024 bytes apart (SBO; LBO unused); one k16 step
+//     advances the start address by 32 bytes.
+//   MN-major (A or B: rows of 64 bf16 along m or n, one row per k): 8-k
+//     groups 1024 bytes apart (SBO), 64-column blocks LBO bytes apart (one
+//     TMA box each); one k16 step advances the start address by 16 rows =
+//     2048 bytes.  A (the transpose bit TA = 1, which PTX allows for bf16
+//     read from shared memory) spans one 64-column block, B (TB = 1) one
+//     or two.
 // So one tile of R rows x D columns, loaded as D / 64 boxes of R rows x 64
 // columns, serves both: K-major with the rows as M or N (k step kk at box
 // kk / 4, + 32 (kk % 4) bytes) and MN-major with the rows as k (LBO = the
-// box's R x 128 bytes).
+// box's R x 128 bytes).  The swizzle permutes the 16-byte chunks within
+// each 128-byte row (chunk c of row r at c ^ (r % 8)), so a thread that
+// writes or clears whole rows needs no swizzle, and one that writes chunk c
+// of row r finds it at (c ^ (r % 8)) 16 bytes into the row.
 // Every tile starts on a 1024-byte boundary (the swizzle atom), so the
 // descriptors' base offset is 0.
 
@@ -107,6 +114,41 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
         : "memory");
 }
 
+// One box of shared memory into a 3-D tensor map (coordinates innermost
+// first; elements outside the tensor are not written), in this thread's
+// current bulk group.  The shared-memory source must have been written
+// before a fence_proxy_async().
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+            reinterpret_cast<uint64_t>(map)),
+        "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory accesses before later
+// async-proxy ones (wgmma operand reads, TMA loads and stores).
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // A value the compiler can treat as warp-uniform: lane 0's, broadcast.
 __device__ __forceinline__ int uniform(int v) { return __shfl_sync(0xffffffffu, v, 0); }
 
@@ -151,11 +193,13 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
     for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 128, fp32, in the warpgroup's registers) += a (64 x 16, bf16,
-// K-major) . b (16 x 128, bf16, N-major: the transpose bit), both read from
-// shared memory through their descriptors.  Thread t of the warpgroup holds
-// rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 i + 2 (t % 4) (+ 1):
-// d[4 i + 0..1] the first row, d[4 i + 2..3] the row 8 below.
+// d (64 x 128, fp32, in the warpgroup's registers) += a (64 x 16, bf16;
+// K-major with TA = 0, M-major with TA = 1) . b (16 x 128, bf16; K-major
+// with TB = 0, N-major with TB = 1), both read from shared memory through
+// their descriptors.  Thread t of the warpgroup holds rows 16 (t / 32) + (t
+// % 32) / 4 (+ 8) and columns 8 i + 2 (t % 4) (+ 1): d[4 i + 0..1] the first
+// row, d[4 i + 2..3] the row 8 below.
+template <int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t da, uint64_t db) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
@@ -167,7 +211,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         ""
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 1;\n"
+        "%64, %65, p, 1, 1, %67, %68;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
           "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
@@ -180,7 +224,52 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
           "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
           "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "n"(1));
+        : "l"(da), "l"(db), "n"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 x 256, fp32) += a (64 x 16, bf16; K-major with TA = 0, M-major with
+// TA = 1) . b (16 x 256, bf16; K-major with TB = 0, N-major with TB = 1),
+// both read from shared memory; the accumulator layout of
+// wgmma_m64n128k16_bf16 over 256 columns (d[4 i ..] columns 8 i + ...).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p, 1, 1, %131, %132;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+          "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+          "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+          "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+          "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+          "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "n"(1), "n"(TA), "n"(TB));
 }
 
 // d (64 x 64, fp32) = (scale_d ? d : 0) + a (64 x 16, bf16, K-major) . b (16 x

@@ -28,34 +28,78 @@
 //
 // Contract.  Deterministic: no floating-point atomics, every sum in a fixed
 // order, so two launches are bitwise equal.  Fixed-shape: every grid is
-// sized from shapes, never from the device-side offsets, so a launch is
-// capturable.  A segment's rows are found through the device-side offsets
-// by each block; rows outside [offsets[e], offsets[e + 1]) never enter
-// expert e's weight gradient (they load as zeros), and a segment of no rows
-// gives a zero gradient.
+// sized from shapes and the SM count, never from the device-side offsets,
+// so a launch is capturable (the tensor maps pass by value).  A segment's
+// rows are found through the device-side offsets by each block; rows
+// outside [offsets[e], offsets[e + 1]) never enter expert e's weight
+// gradient, and a segment of no rows gives a zero gradient.  Every output
+// element is one bf16 rounding of one fp32 chain of bf16 wgmma k16 steps
+// in k order (the epilogues' roundings after it).
 //
-// Design.  The grouped products are mma.sync.m16n8k16 (bf16 operands, fp32
-// accumulators) on 128 x 128 output tiles, 8 warps of 64 x 32, two blocks
-// an SM, fed by 16-byte cp.async copies (rows padded by 16 bytes, so
-// ldmatrix meets no bank conflict): the data gradient double-buffers 64 k
-// a stage (74 KB), the weight gradient rings 3 stages of 32 rows (52 KB).
-// Neither the depth nor the ring changes a result: every output is the
-// same chain of k16 steps from k = 0.  The data gradient reads both operands
-// k-contiguous (dy rows, and the weights (E, N, K) as they lie: W_d (E, F,
-// D) for dh, W_g (E, D, F) for dx); the weight gradient reads both
-// operands with the row index as k (ldmatrix.trans), one block an output
-// tile walking its segment's rows in order (no split over blocks).  One
-// block a work item, (expert, row tile, 128 columns) for the data
-// gradient, expert by expert with the row tiles innermost, so neighbouring
-// blocks share each weight tile in L2.
+// Design of the grouped products: the forward's (moe_experts.cu).  A
+// persistent grid of at most one block an SM walks a static list of work
+// items, item i on block i mod grid; a block is one producer warpgroup,
+// whose one thread keeps a ring of 64-k stages in flight with TMA
+// (128-byte swizzle, zeros outside the tensors, mbarriers full and
+// empty), and one consumer warpgroup per 64 output rows issuing bf16
+// wgmma.m64n128k16 with both operands in shared memory into fp32
+// registers; the producer streams the next item's stages while the
+// consumers run an epilogue, so no item pays a prologue.
+//
+// The data gradient (dh = dy . W_d^T with the activation's backward; dx =
+// da . W_g^T + db . W_u^T) walks the forward's item map: (expert, row tile
+// of BM rows, 128 columns), group 0's experts in order, each its column
+// tiles with the row tiles innermost, then the shared expert as group 1;
+// each block derives it from the device-side offsets by a warp scan.  BM
+// is 128 (two consumer warpgroups) where group 0's segments average 128
+// rows or more, else 64.  A (dy, da, db: (rows, K)) and B (the weights as
+// they lie, (E, N, K)) are both K-major; stages past the first operand
+// pair's K take the second pair into the same chain.  Rows of a tile past
+// its segment's end are loaded and multiplied but never stored.  The
+// epilogue is off the critical path: the consumers only stage dh =
+// bf16(acc) in shared memory and go on to the next item, while seven
+// other warps (a warpgroup of their own and the producer's idle three)
+// read dh and the item's pre-activation tiles (a, and b for SwiGLU, which
+// the producer loads by TMA after the item's last stage, into a buffer of
+// their own) and store da and db (or the plain sum) as whole 16-byte
+// chunks, two 256-byte rows a warp instruction, up to the segment's end,
+// during the next item's main loop.  The ring holds as many stages as
+// shared memory allows beside those tiles, at most 8 (6 on 128-row tiles:
+// 4 beside SwiGLU's tiles).  The roundings: dh = bf16(acc); SwiGLU da =
+// bf16(bf16(dh b) silu'(a)), db = bf16(dh bf16(silu(a))); GELU da = bf16(dh
+// gelu_tanh'(a)); plain bf16(acc).
+//
+// The weight gradient (dW[e] = A[seg e]^T . G[seg e], up to six jobs a
+// launch) walks a static list of items (job, expert, 128 rows of M, 256
+// columns of N; wgmma.m64n256k16, which reads half the B bytes a product
+// that m64n128k16 reads), jobs in the order given (the shared expert's
+// 8192-row jobs first), the N tiles innermost; K is the segment's rows,
+// walked from its first row lo in stages of 64, in order, with no split.
+// Both operands lie MN-major (a (rows, M) and b (rows, N), each contiguous
+// along its columns): 64-row x 64-column TMA boxes from row lo (TMA takes
+// any row), read with both transpose bits set.  TMA zero-fills only past
+// the tensor, so the rows at or past hi in a segment's last stage belong
+// to the next expert: the consumers clear those rows in both operands
+// (each warpgroup its A box and two B boxes; whole 128-byte rows, which
+// the swizzle leaves whole) and issue fence.proxy.async before any wgmma
+// reads them, so a neighbour's Inf or NaN never meets a zero (0 . Inf is
+// NaN).
+// The epilogue writes bf16(acc) into a swizzled staging tile and one
+// thread a warpgroup stores it by TMA, asynchronously, while the next
+// item's main loop runs.
+//
+// Routes: one for every shape the wrappers accept (bf16, widths multiples
+// of 8, 16-byte rows): TMA reads zeros past N and K and writes nothing
+// outside the output tensor.
 //
 // Bound on the H100 (989 TFLOP/s dense bf16, 3.35 TB/s) at moonshot's
 // training microstep (T = 8192 tokens, P = 49152 pairs, D = 2048, F =
-// 1408, a shared expert of 2F): the down data gradient 377 GFLOP, the
-// weight gradients 1133, the gate/up data gradient 755: ~2.3 TFLOP, 2.3 ms,
-// bound by operations.  The combine backward moves ~0.44 GB (dout, ys, dys:
-// 0.13 ms, bytes); the route backward does 4 T D E = 4.3 GFLOP of fp32 (64
-// us at 67 TFLOP/s, operations).
+// 1408, a shared expert of 2F): the down data gradient 378 GFLOP and 1.35
+// GB (dy, W_d, a, b read, da, db written: 0.40 ms, bytes), the weight
+// gradients 1134 GFLOP (1.15 ms, operations), the gate/up data gradient
+// 756 GFLOP (0.76 ms, operations).  The combine backward moves ~0.44 GB
+// (dout, ys, dys: 0.13 ms, bytes); the route backward does 4 T D E = 4.3
+// GFLOP of fp32 (64 us at 67 TFLOP/s, operations).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,98 +107,42 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;        // 8 warps
-constexpr int kBM = 128, kBN = 128;
-constexpr int kDgBK = 64, kDgStages = 2;   // data gradient: 64 k a stage, double-buffered
-constexpr int kWgBK = 32, kWgStages = 3;   // weight gradient: 32 rows a stage, 3 stages
-constexpr int kLdK = kDgBK + 8;      // a k-contiguous tile row: 72 bf16 (144 bytes)
-constexpr int kLdMN = kBM + 8;       // an m- or n-contiguous tile row: 136 bf16 (272 bytes)
+using namespace hopper;
+
+constexpr int kThreads = 256;        // combine and route backward: 8 warps
+constexpr int kBN = 128;             // output columns per item
+constexpr int kBK = 64;              // k per ring stage: one 128-byte swizzle row
+constexpr int kWgRows = 64;          // output rows per consumer warpgroup (one wgmma)
+constexpr int kMaxStages = 8;
+constexpr int kTallStages = 6;       // the data gradient's ring on 128-row tiles
+constexpr int kSmemLimit = 227 * 1024;
+constexpr int kBox = kBK * 64 * 2;   // one TMA box of 64 rows x 64 columns: 8 KiB
 constexpr int kMaxExperts = 256;
-constexpr int kDgStage = 2 * kBM * kLdK * 2;       // data gradient: A and B tiles, bytes
-constexpr int kWgStage = 2 * kWgBK * kLdMN * 2;    // weight gradient: A and B tiles, bytes
 constexpr int kMaxJobs = 6;
+constexpr int kEpiThreads = 224;     // the data gradient's epilogue: 7 warps
+constexpr int kWgBN = 256;           // the weight gradient's output columns per item
 
 enum Epi { kEpiSwiGLU = 0, kEpiGelu = 1, kEpiPlain = 2 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; with valid false the 16 bytes are zero-filled
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(valid ? 16 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr)
-                 : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr)
-                 : "memory");
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-                 : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 __device__ __forceinline__ float round_bf16(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ float2 load_bf2(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void store_bf2(__nv_bfloat16* p, float lo, float hi) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
-}
-
-// The warp's 4 x 4 fragments of 16 x 8 (64 x 32 a warp) times one k16 step:
-// a from `af`, b from `bf`.
-__device__ __forceinline__ void mma_tile(float (&acc)[4][4][4], const uint32_t (&af)[4][4],
-                                         const uint32_t (&bf)[4][2]) {
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) mma_bf16(acc[mi][nj], af[mi], bf[nj][0], bf[nj][1]);
-}
-
 // The experts' clamped offsets and first work items of one group, by warp
 // 0 (lane l a run of experts, then a warp scan): expert e's rows [offs[e],
 // offs[e + 1]), its items from first[e]; first[n_exp] the group's count.
-// Null offsets: one segment of all rows.
+template <int BM>
 __device__ void scan_items(const int* offsets, int rows, int n_exp, int nc, int* offs,
                            int* first) {
     const int lane = threadIdx.x & 31;
-    auto clamp = [&](int e) {
-        if (offsets == nullptr) return e == 0 ? 0 : rows;
-        return min(max(__ldg(offsets + e), 0), rows);
-    };
-    auto items = [&](int lo, int hi) { return (max(hi - lo, 0) + kBM - 1) / kBM * nc; };
+    auto clamp = [&](int e) { return min(max(__ldg(offsets + e), 0), rows); };
+    auto items = [&](int lo, int hi) { return max(hi - lo + BM - 1, 0) / BM * nc; };
     const int per = (n_exp + 31) / 32;
     const int e0 = min(n_exp, lane * per), e1 = min(n_exp, e0 + per);
     int sum = 0;
@@ -179,45 +167,90 @@ __device__ void scan_items(const int* offsets, int rows, int n_exp, int nc, int*
     }
 }
 
+// Byte offset, in a tile stored as 64-column boxes of `box` bytes (rows of
+// 128 bytes, 128-byte swizzle), of the bf16 pair at row r, columns 8 j +
+// 2 q (+ 1).
+__device__ __forceinline__ int pair_offset(int box, int r, int j, int q) {
+    return (j >> 3) * box + r * 128 + (((j & 7) ^ (r & 7)) << 4) + 4 * q;
+}
+
 // -- the grouped data gradient ------------------------------------------------------
 
 struct DGroup {
-    const __nv_bfloat16* g0;     // (rows, K): the first A operand (dy, or da)
-    const __nv_bfloat16* g1;     // (rows, K) or null: a second A operand (db), with w1
-    const __nv_bfloat16* w0;     // (n_exp, N, K): the B operand transposed, as the weight lies
-    const __nv_bfloat16* w1;
-    const int* offsets;          // (n_exp + 1,) on the device, or null: one segment of `rows`
-    const __nv_bfloat16* pre_a;  // (rows, N): the forward's gate (SwiGLU) or up (GELU) rows
-    const __nv_bfloat16* pre_b;  // (rows, N): the forward's up rows (SwiGLU)
     __nv_bfloat16* out0;         // (rows, N): da, or dx
     __nv_bfloat16* out1;         // (rows, N): db (SwiGLU)
+    const int* offsets;          // (n_exp + 1,) on the device, or null: one segment of `rows`
     int rows, n_exp, N, K;
+    int pairs;                   // 1, or 2: a second A operand and weight in the same sum
 };
 
 struct DParams {
+    CUtensorMap a0[2], a1[2];    // a group's first and second A operand: (K, rows), box (64, BM)
+    CUtensorMap w0[2], w1[2];    // its weights: (K, N, n_exp), box (64, 128, 1)
+    CUtensorMap pa[2], pb[2];    // its pre-activations a, b: (N, rows), box (64, BM)
     DGroup g[2];
+    int stages;
 };
 
-// Stage s of an item: the s-th 64-wide slice of K, over the first operand
-// pair for s < nk and the second after it; rows at or past r1, columns at
-// or past N and k at or past K load as zeros.
-__device__ __forceinline__ void dgrad_stage(unsigned char* st, const DGroup& g, int e, int r0,
-                                            int r1, int n0, int s, int nk) {
-    const bool second = s >= nk;
-    const int k0 = (second ? s - nk : s) * kDgBK;
-    const __nv_bfloat16* A = second ? g.g1 : g.g0;
-    const __nv_bfloat16* B = (second ? g.w1 : g.w0) + (int64_t)e * g.N * g.K;
-    __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(st);
-    __nv_bfloat16* sb = sa + kBM * kLdK;
-    constexpr int kChunks = kDgBK / 8;         // 16-byte chunks of a tile row
-#pragma unroll
-    for (int q = threadIdx.x; q < kBM * kChunks; q += kThreads) {
-        const int r = q / kChunks, ch = (q % kChunks) * 8;
-        const int row = r0 + r, k = k0 + ch, n = n0 + r;
-        const bool oka = row < r1 && k < g.K, okb = n < g.N && k < g.K;
-        cp_async16(smem_u32(sa + r * kLdK + ch), A + (oka ? (int64_t)row * g.K + k : 0), oka);
-        cp_async16(smem_u32(sb + r * kLdK + ch), B + (okb ? (int64_t)n * g.K + k : 0), okb);
+// BM x 128 pre-activation tiles an epilogue reads: SwiGLU a and b, GELU
+// a, plain none.
+__host__ __device__ constexpr int pre_tiles(int epi) {
+    return epi == kEpiSwiGLU ? 2 : epi == kEpiGelu ? 1 : 0;
+}
+
+// One ring stage: the A tile (BM rows x 64 k) and the weight tile (128 n x
+// 64 k), both K-major.
+__host__ __device__ constexpr int dg_stage_bytes(int bm) { return bm * kBK * 2 + kBN * kBK * 2; }
+
+// The epilogue's buffer: the pre-activation tiles and the staged dh tile.
+__host__ __device__ constexpr int dg_epi_bytes(int epi, int bm) {
+    return (pre_tiles(epi) + 1) * bm * kBN * 2;
+}
+
+// The ring's full and empty barriers, the epilogue's four, the clamped
+// offsets and the experts' first items.
+__host__ __device__ constexpr int dg_table_bytes(int stages, int n_exp) {
+    return (stages + 2) * 16 + 2 * (n_exp + 1) * 4;
+}
+
+__host__ __device__ constexpr int dg_smem_bytes(int epi, int bm, int stages, int n_exp) {
+    return 1024 + stages * dg_stage_bytes(bm) + dg_epi_bytes(epi, bm) +
+           dg_table_bytes(stages, n_exp);
+}
+
+struct Item {
+    int group, e, r0, r1, n0;
+};
+
+// Work item i: group 0's experts in order, each its column tiles with the
+// row tiles innermost, then group 1's the same way (the forward's map,
+// moe_experts.cu::item_of).  `cursor` walks the experts forward, as a
+// block's items only grow.  kernels/moe_experts/backward_plan.py mirrors it.
+template <int BM>
+__device__ __forceinline__ Item dg_item(int i, const DParams& p, const int* offs,
+                                        const int* first, int& cursor) {
+    Item it;
+    const int n_exp = p.g[0].n_exp;
+    if (i < first[n_exp]) {
+        while (first[cursor + 1] <= i) ++cursor;
+        const int lo = offs[cursor], hi = offs[cursor + 1];
+        const int rt = (hi - lo + BM - 1) / BM, j = i - first[cursor];
+        const int c = j / rt;
+        it.group = 0;
+        it.e = cursor;
+        it.r0 = lo + (j - c * rt) * BM;
+        it.r1 = min(it.r0 + BM, hi);
+        it.n0 = c * kBN;
+    } else {
+        const int rt = (p.g[1].rows + BM - 1) / BM, j = i - first[n_exp];
+        const int c = j / rt;
+        it.group = 1;
+        it.e = 0;
+        it.r0 = (j - c * rt) * BM;
+        it.r1 = min(it.r0 + BM, p.g[1].rows);
+        it.n0 = c * kBN;
     }
+    return it;
 }
 
 // gelu_tanh'(x), as PyTorch's GELU backward (tanh approximation) computes it
@@ -231,271 +264,476 @@ __device__ __forceinline__ float gelu_tanh_grad(float x) {
     return 0.5f * right + left * (1.f - th * th) * kBeta * (1.f + 3.f * kKappa * x_sq);
 }
 
-// One block a work item: group 0's experts in order, each its column tiles
-// with the row tiles innermost, then group 1's the same way (the forward's
-// item map).  The epilogue rounds dh = bf16(acc) as the forward rounds each
-// product, then
-//   SwiGLU: da = bf16(bf16(dh b) silu'(a)), db = bf16(dh bf16(silu(a)));
-//   GELU:   da = bf16(dh gelu_tanh'(a));
-//   plain:  out = bf16(acc).
+// The epilogue of one 8-column chunk: dh (8 bf16, bf16(acc) already), a
+// and b (the forward's pre-activations) -> out0 (da, or the plain sum) and
+// out1 (db), with the forward's roundings.
 template <int EPI>
-__global__ void __launch_bounds__(kThreads, 2)
+__device__ __forceinline__ void epilogue_chunk(const uint4& hv, const uint4& av, const uint4& bv,
+                                               uint4& o0, uint4& o1) {
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&hv);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&av);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&bv);
+    __nv_bfloat162* d0 = reinterpret_cast<__nv_bfloat162*>(&o0);
+    __nv_bfloat162* d1 = reinterpret_cast<__nv_bfloat162*>(&o1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float2 dh = __bfloat1622float2(h2[i]), a = __bfloat1622float2(a2[i]);
+        const float dhv[2] = {dh.x, dh.y}, av2[2] = {a.x, a.y};
+        float da[2], db[2] = {0.f, 0.f};
+        if (EPI == kEpiSwiGLU) {
+            const float2 b = __bfloat1622float2(b2[i]);
+            const float bv2[2] = {b.x, b.y};
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+                const float sg = 1.f / (1.f + expf(-av2[q]));
+                const float silu = round_bf16(av2[q] / (1.f + expf(-av2[q])));
+                const float dg = round_bf16(dhv[q] * bv2[q]);
+                da[q] = dg * (sg * (1.f + av2[q] * (1.f - sg)));
+                db[q] = dhv[q] * silu;
+            }
+            d1[i] = __floats2bfloat162_rn(db[0], db[1]);
+        } else {
+#pragma unroll
+            for (int q = 0; q < 2; ++q) da[q] = dhv[q] * gelu_tanh_grad(av2[q]);
+        }
+        d0[i] = __floats2bfloat162_rn(da[0], da[1]);
+    }
+}
+
+// Warpgroups: NWG consumers, the producer (one thread of its warp 0 issues
+// every TMA load; its warps 1-3 help the epilogue), the epilogue.  Dynamic
+// shared memory: the ring (1024-byte aligned stages), the epilogue's
+// buffer (the pre-activation tiles, then the staged dh tile; each two
+// 64-column boxes of BM rows), then the table.
+template <int EPI, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 2), 1)
 moe_data_grad_kernel(const __grid_constant__ DParams p) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    __shared__ int offs[kMaxExperts + 1], first[kMaxExperts + 1];
+    constexpr int BM = kWgRows * NWG;
+    constexpr int kABytes = BM * kBK * 2;
+    constexpr int kStage = dg_stage_bytes(BM);
+    constexpr int kHalf = BM * 128;              // one 64-column box of a BM x 128 tile
+    constexpr int kTile = 2 * kHalf;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    const int S = p.stages;
+    unsigned char* pre = ring + S * kStage;      // a (and b): pre_tiles(EPI) tiles
+    unsigned char* dh = pre + pre_tiles(EPI) * kTile;
+    uint64_t* full = reinterpret_cast<uint64_t*>(dh + kTile);
+    uint64_t* empty = full + S;
+    uint64_t* pre_full = empty + S;              // the pre-activation tiles landed
+    uint64_t* pre_empty = pre_full + 1;          // ... and were read
+    uint64_t* dh_full = pre_empty + 1;           // the consumers staged dh
+    uint64_t* dh_empty = dh_full + 1;            // ... and the epilogue read it
+    int* offs = reinterpret_cast<int*>(dh_empty + 1);
+    const int n_exp = p.g[0].n_exp;
+    int* first = offs + n_exp + 1;
+
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const DGroup& g0 = p.g[0];
-    if (warp == 0) scan_items(g0.offsets, g0.rows, g0.n_exp, (g0.N + kBN - 1) / kBN, offs, first);
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < S; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 4 * NWG);       // lane 0 of every consumer warp
+        }
+        mbar_init(pre_full, 1);
+        mbar_init(pre_empty, kEpiThreads);       // every epilogue thread
+        mbar_init(dh_full, 128 * NWG);           // every consumer thread
+        mbar_init(dh_empty, kEpiThreads);
+        mbar_fence_init();
+    }
+    if (warp == 0)
+        scan_items<BM>(p.g[0].offsets, p.g[0].rows, n_exp, cdiv(p.g[0].N, kBN), offs, first);
     __syncthreads();
 
-    int i = blockIdx.x, e = 0, lo, hi;
-    const bool in0 = i < first[g0.n_exp];
-    if (in0) {
-        int a = 0, b = g0.n_exp - 1;     // the last expert whose first item is at most i
-        while (a < b) {
-            const int m = (a + b + 1) >> 1;
-            if (first[m] <= i) a = m;
-            else b = m - 1;
-        }
-        e = a;
-        lo = offs[e];
-        hi = offs[e + 1];
-        i -= first[e];
-    } else {
-        i -= first[g0.n_exp];
-        const DGroup& g1 = p.g[1];
-        if (i >= (g1.rows + kBM - 1) / kBM * ((g1.N + kBN - 1) / kBN)) return;
-        lo = 0;
-        hi = g1.rows;
-    }
-    const DGroup& g = in0 ? p.g[0] : p.g[1];
-    const int rt = (hi - lo + kBM - 1) / kBM, c = i / rt;
-    const int r0 = lo + (i - c * rt) * kBM, r1 = min(r0 + kBM, hi), n0 = c * kBN;
-    const int nk = (g.K + kDgBK - 1) / kDgBK, steps = g.g1 != nullptr ? 2 * nk : nk;
-
-    float acc[4][4][4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.f;
-
-#pragma unroll
-    for (int s = 0; s < kDgStages - 1; ++s) {
-        if (s < steps) dgrad_stage(smem + s * kDgStage, g, e, r0, r1, n0, s, nk);
-        cp_async_commit();
-    }
-    const int wm = warp >> 2, wn = warp & 3;
-    for (int s = 0; s < steps; ++s) {
-        cp_async_wait<kDgStages - 2>();
-        __syncthreads();          // stage s landed; the slot refilled below is free
-        const int ahead = s + kDgStages - 1;
-        if (ahead < steps)
-            dgrad_stage(smem + (ahead % kDgStages) * kDgStage, g, e, r0, r1, n0, ahead, nk);
-        cp_async_commit();
-        const __nv_bfloat16* sa =
-            reinterpret_cast<const __nv_bfloat16*>(smem + (s % kDgStages) * kDgStage);
-        const __nv_bfloat16* sb = sa + kBM * kLdK;
-#pragma unroll
-        for (int kk = 0; kk < kDgBK; kk += 16) {
-            uint32_t af[4][4], bf[4][2];
-#pragma unroll
-            for (int mi = 0; mi < 4; ++mi) {
-                const int m = wm * 64 + mi * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-                ldsm_x4(af[mi], smem_u32(sa + m * kLdK + kk + 8 * (lane >> 4)));
+    const int n_items = first[n_exp] + cdiv(p.g[1].rows, BM) * cdiv(p.g[1].N, kBN);
+    const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+    int cursor = 0;
+    if (wg == NWG && t == 0) {
+        // producer: one thread keeps the ring full across items; after an
+        // item's last stage it loads the item's pre-activation tiles, once
+        // the epilogue has read the last item's (it had that item's main
+        // loop to do it)
+        int s = 0;
+        uint32_t phase = 0, pre_phase = 0;
+        for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+            const Item it = dg_item<BM>(i, p, offs, first, cursor);
+            const int gi = it.group;
+            const int nk = cdiv(p.g[gi].K, kBK), steps = p.g[gi].pairs * nk;
+            for (int kt = 0; kt < steps; ++kt) {
+                mbar_wait(&empty[s], phase ^ 1);
+                unsigned char* st = ring + s * kStage;
+                mbar_arrive_expect_tx(&full[s], kStage);
+                const bool second = kt >= nk;
+                const int k0 = (second ? kt - nk : kt) * kBK;
+                tma_load_2d(st, second ? &p.a1[gi] : &p.a0[gi], &full[s], k0, it.r0);
+                tma_load_3d(st + kABytes, second ? &p.w1[gi] : &p.w0[gi], &full[s], k0, it.n0,
+                            it.e);
+                if (++s == S) {
+                    s = 0;
+                    phase ^= 1;
+                }
             }
-#pragma unroll
-            for (int nj = 0; nj < 4; nj += 2) {
-                const int n = wn * 32 + nj * 8 + (lane & 7) + 8 * (lane >> 4);
-                uint32_t r[4];
-                ldsm_x4(r, smem_u32(sb + n * kLdK + kk + 8 * ((lane >> 3) & 1)));
-                bf[nj][0] = r[0];
-                bf[nj][1] = r[1];
-                bf[nj + 1][0] = r[2];
-                bf[nj + 1][1] = r[3];
+            if (EPI != kEpiPlain) {
+                mbar_wait(pre_empty, pre_phase ^ 1);
+                mbar_arrive_expect_tx(pre_full, pre_tiles(EPI) * kTile);
+                tma_load_2d(pre, &p.pa[gi], pre_full, it.n0, it.r0);
+                tma_load_2d(pre + kHalf, &p.pa[gi], pre_full, it.n0 + 64, it.r0);
+                if (EPI == kEpiSwiGLU) {
+                    tma_load_2d(pre + kTile, &p.pb[gi], pre_full, it.n0, it.r0);
+                    tma_load_2d(pre + kTile + kHalf, &p.pb[gi], pre_full, it.n0 + 64, it.r0);
+                }
+                pre_phase ^= 1;
             }
-            mma_tile(acc, af, bf);
         }
-    }
-
-    // epilogue: fragment (mi, nj) holds rows 16 mi + lane / 4 (+ 8) and
-    // columns 8 nj + 2 (lane % 4) (+ 1) of the warp's 64 x 32
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int row = r0 + wm * 64 + mi * 16 + (lane >> 2) + 8 * half;
-                const int col = n0 + wn * 32 + nj * 8 + 2 * (lane & 3);
-                if (row >= r1 || col >= g.N) continue;      // N % 8 == 0: col + 1 < N too
-                const int64_t o = (int64_t)row * g.N + col;
-                const float v0 = acc[mi][nj][2 * half], v1 = acc[mi][nj][2 * half + 1];
+    } else if (wg >= NWG && warp != 4 * NWG) {
+        // epilogue (the last warpgroup and the producer's warps 1-3): an
+        // item's dh and pre-activation tiles -> da and db (or the plain
+        // sum), while the consumers run the next item's main loop; 16-byte
+        // chunks, two 256-byte rows a warp instruction, up to the
+        // segment's end and N
+        const int et = threadIdx.x - 128 * NWG - 32;
+        uint32_t ph = 0;
+        for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+            const Item it = dg_item<BM>(i, p, offs, first, cursor);
+            const DGroup& g = p.g[it.group];
+            mbar_wait(dh_full, ph);
+            if (EPI != kEpiPlain) mbar_wait(pre_full, ph);
+            for (int q = et; q < BM * (kBN / 8); q += kEpiThreads) {
+                const int row = q >> 4, c = q & 15;
+                const int grow = it.r0 + row, col = it.n0 + 8 * c;
+                if (grow >= it.r1 || col >= g.N) continue;      // N % 8 == 0: chunks are whole
+                const int off = pair_offset(kHalf, row, c, 0);
+                const uint4 hv = *reinterpret_cast<const uint4*>(dh + off);
+                const int64_t o = (int64_t)grow * g.N + col;
                 if (EPI == kEpiPlain) {
-                    store_bf2(g.out0 + o, v0, v1);
+                    *reinterpret_cast<uint4*>(g.out0 + o) = hv;
                     continue;
                 }
-                const float2 a = load_bf2(g.pre_a + o);
-                const float av[2] = {a.x, a.y}, dh[2] = {round_bf16(v0), round_bf16(v1)};
-                float da[2], db[2] = {0.f, 0.f};
-                if (EPI == kEpiSwiGLU) {
-                    const float2 b = load_bf2(g.pre_b + o);
-                    const float bv[2] = {b.x, b.y};
-#pragma unroll
-                    for (int q = 0; q < 2; ++q) {
-                        const float sg = 1.f / (1.f + expf(-av[q]));
-                        const float silu = round_bf16(av[q] / (1.f + expf(-av[q])));
-                        const float dg = round_bf16(dh[q] * bv[q]);
-                        da[q] = dg * (sg * (1.f + av[q] * (1.f - sg)));
-                        db[q] = dh[q] * silu;
-                    }
-                    store_bf2(g.out1 + o, db[0], db[1]);
-                } else {
-#pragma unroll
-                    for (int q = 0; q < 2; ++q) da[q] = dh[q] * gelu_tanh_grad(av[q]);
-                }
-                store_bf2(g.out0 + o, da[0], da[1]);
+                const uint4 av = *reinterpret_cast<const uint4*>(pre + off);
+                const uint4 bv = EPI == kEpiSwiGLU
+                                     ? *reinterpret_cast<const uint4*>(pre + kTile + off)
+                                     : make_uint4(0u, 0u, 0u, 0u);
+                uint4 o0, o1;
+                epilogue_chunk<EPI>(hv, av, bv, o0, o1);
+                *reinterpret_cast<uint4*>(g.out0 + o) = o0;
+                if (EPI == kEpiSwiGLU) *reinterpret_cast<uint4*>(g.out1 + o) = o1;
             }
+            // the pre-activation tiles go back to the producer's TMA (the async proxy)
+            fence_proxy_async();
+            mbar_arrive_if(dh_empty, true);
+            if (EPI != kEpiPlain) mbar_arrive_if(pre_empty, true);
+            ph ^= 1;
+        }
+    } else if (wg < NWG) {
+        // consumer warpgroup wg: rows [64 wg, 64 wg + 64) of each item's
+        // tile.  Every value that steers a wgmma is broadcast from lane 0,
+        // so the compiler sees warp-uniform control flow around them.
+        float acc[64];
+        int s = 0;
+        uint32_t phase = 0, dh_phase = 0;
+        const int cwg = uniform(wg);
+        const int items_u = uniform(n_items);
+        unsigned char* mine = dh + cwg * kWgRows * 128;  // its rows of the staged dh tile
+        const int rr = 16 * (t >> 5) + ((t & 31) >> 2);
+        for (int i = blockIdx.x; i < items_u; i += gridDim.x) {
+            const Item it = dg_item<BM>(i, p, offs, first, cursor);
+            const DGroup& g = p.g[uniform(it.group)];
+            const int steps = uniform(g.pairs * cdiv(g.K, kBK));
+#pragma unroll
+            for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+            for (int kt = 0; kt < steps; ++kt) {
+                mbar_wait(&full[s], phase);
+                const uint32_t a = smem_u32(ring + s * kStage) + cwg * (kWgRows * kBK * 2);
+                const uint32_t b = smem_u32(ring + s * kStage + kABytes);
+                fence_operands(acc);
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < kBK / 16; ++kk)
+                    wgmma_m64n128k16_bf16<0, 0>(acc, sw128_desc(a + kk * 32, 16, 1024),
+                                                sw128_desc(b + kk * 32, 16, 1024));
+                wgmma_commit();
+                fence_operands(acc);
+                wgmma_wait<1>();                // stage kt - 1's products are done
+                mbar_arrive_if(&empty[s == 0 ? S - 1 : s - 1], lane == 0 && kt > 0);
+                if (++s == S) {
+                    s = 0;
+                    phase ^= 1;
+                }
+            }
+            wgmma_wait<0>();
+            fence_operands(acc);
+            mbar_arrive_if(&empty[s == 0 ? S - 1 : s - 1], lane == 0 && steps > 0);
+            // dh = bf16(acc) into the staged tile once the epilogue has read
+            // the last item's: thread t holds rows rr (+ 8) of the
+            // warpgroup's 64 and columns 8 j + 2 (t % 4) (+ 1)
+            mbar_wait(dh_empty, dh_phase ^ 1);
+#pragma unroll
+            for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+                for (int half = 0; half < 2; ++half)
+                    *reinterpret_cast<__nv_bfloat162*>(
+                        mine + pair_offset(kHalf, rr + 8 * half, j, t & 3)) =
+                        __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+            mbar_arrive_if(dh_full, true);
+            dh_phase ^= 1;
+        }
+    }
 }
 
-// The grid: at most (rows0 / BM + n_exp0) column-tile rows of items for
-// group 0 (each expert adds at most one partial row tile) and ceil(rows1 /
-// BM) for group 1, one block an item; blocks past the real count exit.
-int64_t dgrad_blocks(int rows0, int n_exp0, int N0, int rows1, int N1) {
-    const int64_t nc0 = (N0 + kBN - 1) / kBN, nc1 = (N1 + kBN - 1) / kBN;
-    return ((int64_t)rows0 / kBM + n_exp0) * nc0 +
-           (rows1 > 0 ? ((int64_t)rows1 + kBM - 1) / kBM * nc1 : 0);
+// The launch's plan, from shapes alone (kernels/moe_experts/backward_plan.py
+// mirrors it): BM 128 where group 0's segments average 128 rows or more;
+// the ring as deep as shared memory allows beside the epilogue tiles, at
+// most 8 stages (6 on 128-row tiles); at most (rows0 / BM + n_exp)
+// column-tile rows of items for group 0 (each expert adds at most one
+// partial row tile) and ceil(rows1 / BM) for group 1; one block an SM,
+// never more blocks than items.
+struct DPlan {
+    int bm, stages, smem, grid;
+    int64_t max_items;
+};
+
+int sm_count() {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+        return 0;
+    return n;
+}
+
+DPlan dg_plan(int epi, int rows0, int n_exp0, int N0, int rows1, int N1, int n_sms) {
+    DPlan pl;
+    pl.bm = (int64_t)rows0 >= (int64_t)2 * kWgRows * n_exp0 ? 2 * kWgRows : kWgRows;
+    const int s = (kSmemLimit - 1024 - dg_epi_bytes(epi, pl.bm) -
+                   dg_table_bytes(kMaxStages, n_exp0)) / dg_stage_bytes(pl.bm);
+    const int cap = pl.bm > kWgRows ? kTallStages : kMaxStages;
+    pl.stages = s < cap ? s : cap;
+    pl.smem = dg_smem_bytes(epi, pl.bm, pl.stages, n_exp0);
+    const int64_t nc0 = cdiv(N0, kBN), nc1 = cdiv(N1, kBN);
+    pl.max_items = ((int64_t)rows0 / pl.bm + n_exp0) * nc0 +
+                   (rows1 > 0 ? ((int64_t)rows1 + pl.bm - 1) / pl.bm * nc1 : 0);
+    pl.grid = (int)(pl.max_items < n_sms ? pl.max_items : n_sms);
+    return pl;
+}
+
+template <int EPI, int NWG>
+cudaError_t launch_dgrad_one(const DParams& p, const DPlan& pl, cudaStream_t stream) {
+    cudaError_t err = cudaFuncSetAttribute(moe_data_grad_kernel<EPI, NWG>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+    if (err != cudaSuccess) return err;
+    moe_data_grad_kernel<EPI, NWG><<<pl.grid, 128 * (NWG + 2), pl.smem, stream>>>(p);
+    return cudaGetLastError();
 }
 
 template <int EPI>
-cudaError_t launch_dgrad(const DParams& p, int64_t blocks, cudaStream_t stream) {
-    const int smem = kDgStages * kDgStage;
-    cudaError_t err = cudaFuncSetAttribute(moe_data_grad_kernel<EPI>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    moe_data_grad_kernel<EPI><<<(unsigned)blocks, kThreads, smem, stream>>>(p);
-    return cudaGetLastError();
+cudaError_t launch_dgrad(const DParams& p, const DPlan& pl, cudaStream_t stream) {
+    return pl.bm == 2 * kWgRows ? launch_dgrad_one<EPI, 2>(p, pl, stream)
+                                : launch_dgrad_one<EPI, 1>(p, pl, stream);
 }
 
 // -- the grouped weight gradient ----------------------------------------------------
 
 struct WJob {
-    const __nv_bfloat16* a;      // (rows, M)
-    const __nv_bfloat16* b;      // (rows, N)
-    __nv_bfloat16* out;          // (n_exp, M, N): out[e] = a[seg e]^T b[seg e]
     const int* offsets;          // (n_exp + 1,) on the device, or null: one segment of `rows`
     int rows, n_exp, M, N;
+    int tm, tn;                  // its tiles of 128 along M and of 256 along N
     int first;                   // the job's first item
 };
 
 struct WParams {
+    CUtensorMap a[kMaxJobs];     // a (rows, M): (M, rows), box (64, 64)
+    CUtensorMap b[kMaxJobs];     // b (rows, N): (N, rows), box (64, 64)
+    CUtensorMap out[kMaxJobs];   // out (n_exp, M, N): (N, M, n_exp), box (64, 64, 1)
     WJob job[kMaxJobs];
-    int n_jobs;
+    int n_jobs, n_items, stages;
 };
 
-// Rows [r, r + 32) of the segment (rows at or past hi load as zeros), M
-// columns from m0 of a, N columns from n0 of b.
-__device__ __forceinline__ void wgrad_stage(unsigned char* st, const WJob& j, int r, int hi,
-                                            int m0, int n0) {
-    __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(st);
-    __nv_bfloat16* sb = sa + kWgBK * kLdMN;
+// One ring stage: 64 rows of k, the A tile's 128 columns of M and the B
+// tile's 256 of N, as 64-column boxes.
+constexpr int kWgStage = 6 * kBox;
+constexpr int kWgOut = 8 * kBox;     // two consumer warpgroups' staged 64 x 256 output tiles
+
+__host__ __device__ constexpr int wg_smem_bytes(int stages) {
+    return 1024 + stages * kWgStage + kWgOut + stages * 16;
+}
+
+struct WItem {
+    int job, e, m0, n0, lo, hi;
+};
+
+// Item i: jobs in the order given, each expert by expert, its M tiles of
+// 128, the N tiles of 256 innermost; the segment's rows [lo, hi) from the device-side
+// offsets (clamped to the job's rows).  backward_plan.py mirrors it.
+__device__ __forceinline__ WItem wg_item(int i, const WParams& p) {
+    WItem it;
+    it.job = 0;
+    for (int q = 1; q < p.n_jobs; ++q)
+        if (p.job[q].first <= i) it.job = q;
+    const WJob& j = p.job[it.job];
+    const int k = i - j.first, per = j.tm * j.tn;
+    it.e = k / per;
+    const int rem = k - it.e * per;
+    it.m0 = (rem / j.tn) * kBN;
+    it.n0 = (rem - (rem / j.tn) * j.tn) * kWgBN;
+    it.lo = 0;
+    it.hi = j.rows;
+    if (j.offsets != nullptr) {
+        it.lo = min(max(__ldg(j.offsets + it.e), 0), j.rows);
+        it.hi = min(max(__ldg(j.offsets + it.e + 1), it.lo), j.rows);
+    }
+    return it;
+}
+
+// Rows [from, 64) of a 64-row box (128 bytes a row) to zero, by the 128
+// threads of a warpgroup.
+__device__ __forceinline__ void clear_rows(unsigned char* box, int from, int t) {
+    for (int q = from * 8 + t; q < 64 * 8; q += 128)
+        *reinterpret_cast<uint4*>(box + q * 16) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Three warpgroups: two consumers (64 rows of M each) and a producer.
+// Dynamic shared memory: the ring (1024-byte aligned stages), the staged
+// output tiles, the barriers.
+__global__ void __launch_bounds__(384, 1)
+moe_weight_grad_kernel(const __grid_constant__ WParams p) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    const int S = p.stages;
+    unsigned char* staged = ring + S * kWgStage;
+    uint64_t* full = reinterpret_cast<uint64_t*>(staged + kWgOut);
+    uint64_t* empty = full + S;
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < S; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 8);             // lane 0 of every consumer warp
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x >> 7;
+    if (wg == 2) {
+        reg_dealloc<40>();
+        if (threadIdx.x != 256) return;
+        int s = 0;
+        uint32_t phase = 0;
+        for (int i = blockIdx.x; i < p.n_items; i += gridDim.x) {
+            const WItem it = wg_item(i, p);
+            const int steps = cdiv(it.hi - it.lo, kBK);
+            for (int kt = 0; kt < steps; ++kt) {
+                mbar_wait(&empty[s], phase ^ 1);
+                unsigned char* st = ring + s * kWgStage;
+                mbar_arrive_expect_tx(&full[s], kWgStage);
+                const int r = it.lo + kt * kBK;
+                tma_load_2d(st, &p.a[it.job], &full[s], it.m0, r);
+                tma_load_2d(st + kBox, &p.a[it.job], &full[s], it.m0 + 64, r);
 #pragma unroll
-    for (int q = threadIdx.x; q < kWgBK * (kBM / 8); q += kThreads) {
-        const int rr = q >> 4, ch = (q & 15) * 8;
-        const int row = r + rr, m = m0 + ch, n = n0 + ch;
-        const bool oka = row < hi && m < j.M, okb = row < hi && n < j.N;
-        cp_async16(smem_u32(sa + rr * kLdMN + ch), j.a + (oka ? (int64_t)row * j.M + m : 0), oka);
-        cp_async16(smem_u32(sb + rr * kLdMN + ch), j.b + (okb ? (int64_t)row * j.N + n : 0), okb);
+                for (int c = 0; c < kWgBN / 64; ++c)
+                    tma_load_2d(st + (2 + c) * kBox, &p.b[it.job], &full[s], it.n0 + 64 * c, r);
+                if (++s == S) {
+                    s = 0;
+                    phase ^= 1;
+                }
+            }
+        }
+    } else {
+        // consumer warpgroup wg: rows [m0 + 64 wg, + 64) of M; values that
+        // steer a wgmma are broadcast from lane 0 (warp-uniform control flow)
+        reg_alloc<232>();
+        float acc[128];
+        int s = 0;
+        uint32_t phase = 0;
+        const int t = threadIdx.x & 127;
+        const int cwg = uniform(wg);
+        const int items_u = uniform(p.n_items);
+        unsigned char* out_tile = staged + cwg * (kWgBN / 64) * kBox;
+        const int rr = 16 * (t >> 5) + ((t & 31) >> 2);
+        for (int i = blockIdx.x; i < items_u; i += gridDim.x) {
+            const WItem it = wg_item(i, p);
+            const int lo = uniform(it.lo), hi = uniform(it.hi);
+            const int steps = cdiv(hi - lo, kBK);
+#pragma unroll
+            for (int j = 0; j < 128; ++j) acc[j] = 0.f;
+            for (int kt = 0; kt < steps; ++kt) {
+                mbar_wait(&full[s], phase);
+                unsigned char* st = ring + s * kWgStage;
+                const int valid = hi - lo - kt * kBK;
+                if (valid < kBK) {
+                    // the segment's last stage: rows at or past hi belong to
+                    // the next expert; clear them in this warpgroup's A box
+                    // and in B boxes 2 cwg, 2 cwg + 1 before either
+                    // warpgroup's wgmma
+                    clear_rows(st + cwg * kBox, valid, t);
+                    clear_rows(st + (2 + 2 * cwg) * kBox, valid, t);
+                    clear_rows(st + (3 + 2 * cwg) * kBox, valid, t);
+                    fence_proxy_async();
+                    named_bar_sync(1, 256);
+                }
+                const uint32_t a = smem_u32(st + cwg * kBox), b = smem_u32(st + 2 * kBox);
+                fence_operands(acc);
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < kBK / 16; ++kk)
+                    wgmma_m64n256k16_bf16<1, 1>(acc, sw128_desc(a + kk * 2048, kBox, 1024),
+                                                sw128_desc(b + kk * 2048, kBox, 1024));
+                wgmma_commit();
+                fence_operands(acc);
+                wgmma_wait<1>();
+                mbar_arrive_if(&empty[s == 0 ? S - 1 : s - 1], lane == 0 && kt > 0);
+                if (++s == S) {
+                    s = 0;
+                    phase ^= 1;
+                }
+            }
+            wgmma_wait<0>();
+            fence_operands(acc);
+            mbar_arrive_if(&empty[s == 0 ? S - 1 : s - 1], lane == 0 && steps > 0);
+
+            // epilogue: bf16(acc) into the warpgroup's staged tile (four
+            // 64-column boxes, 128-byte swizzle), then one thread stores it
+            // by TMA (nothing outside the tensor is written) while the next
+            // item's main loop runs
+            if (t == 0) bulk_wait_read<0>();   // the last item's stores have read the tile
+            named_bar_sync(2 + cwg, 128);
+#pragma unroll
+            for (int j = 0; j < kWgBN / 8; ++j)
+#pragma unroll
+                for (int half = 0; half < 2; ++half)
+                    *reinterpret_cast<__nv_bfloat162*>(
+                        out_tile + pair_offset(kBox, rr + 8 * half, j, t & 3)) =
+                        __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+            fence_proxy_async();
+            named_bar_sync(2 + cwg, 128);
+            if (t == 0) {
+                const int m = it.m0 + kWgRows * cwg;
+#pragma unroll
+                for (int c = 0; c < kWgBN / 64; ++c)
+                    tma_store_3d(&p.out[it.job], out_tile + c * kBox, it.n0 + 64 * c, m, it.e);
+                bulk_commit();
+            }
+        }
+        if (t == 0) bulk_wait<0>();
     }
 }
 
-// One block an output tile (job, expert, 128 rows of M, 128 columns of N),
-// walking its segment's rows in order, 32 at a time, into fp32 registers;
-// one bf16 rounding at the end.  Items: job by job (the caller puts the
-// longest segments first), expert by expert, the N tiles innermost.
-__global__ void __launch_bounds__(kThreads, 2)
-moe_weight_grad_kernel(const __grid_constant__ WParams p) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    int jb = 0;
-    for (int q = 1; q < p.n_jobs; ++q)
-        if (p.job[q].first <= (int)blockIdx.x) jb = q;
-    const WJob& j = p.job[jb];
-    const int tm = (j.M + kBM - 1) / kBM, tn = (j.N + kBN - 1) / kBN;
-    const int it = blockIdx.x - j.first;
-    const int e = it / (tm * tn), rem = it - e * tm * tn;
-    if (e >= j.n_exp) return;
-    const int m0 = (rem / tn) * kBM, n0 = (rem % tn) * kBN;
-    int lo = 0, hi = j.rows;
-    if (j.offsets != nullptr) {
-        lo = min(max(__ldg(j.offsets + e), 0), j.rows);
-        hi = min(max(__ldg(j.offsets + e + 1), lo), j.rows);
-    }
-    const int steps = (hi - lo + kWgBK - 1) / kWgBK;
+// The launch's plan (backward_plan.py mirrors it): the ring as deep as
+// shared memory allows beside the staged output tiles, at most 8 stages;
+// the items of every job; one block an SM, never more blocks than items.
+struct WPlan {
+    int stages, smem, grid;
+    int64_t items;
+};
 
-    float acc[4][4][4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.f;
-
-#pragma unroll
-    for (int s = 0; s < kWgStages - 1; ++s) {
-        if (s < steps) wgrad_stage(smem + s * kWgStage, j, lo + s * kWgBK, hi, m0, n0);
-        cp_async_commit();
-    }
-    const int wm = warp >> 2, wn = warp & 3;
-    for (int s = 0; s < steps; ++s) {
-        cp_async_wait<kWgStages - 2>();
-        __syncthreads();
-        const int ahead = s + kWgStages - 1;
-        if (ahead < steps)
-            wgrad_stage(smem + (ahead % kWgStages) * kWgStage, j, lo + ahead * kWgBK, hi, m0, n0);
-        cp_async_commit();
-        const __nv_bfloat16* sa =
-            reinterpret_cast<const __nv_bfloat16*>(smem + (s % kWgStages) * kWgStage);
-        const __nv_bfloat16* sb = sa + kWgBK * kLdMN;
-#pragma unroll
-        for (int kk = 0; kk < kWgBK; kk += 16) {
-            uint32_t af[4][4], bf[4][2];
-#pragma unroll
-            for (int mi = 0; mi < 4; ++mi) {
-                // stored [k][m]: the transposed load gives the row-major A fragment
-                const int m = wm * 64 + mi * 16 + 8 * ((lane >> 3) & 1);
-                const int k = kk + (lane & 7) + 8 * (lane >> 4);
-                ldsm_x4_trans(af[mi], smem_u32(sa + k * kLdMN + m));
-            }
-#pragma unroll
-            for (int nj = 0; nj < 4; nj += 2) {
-                const int n = wn * 32 + nj * 8 + 8 * (lane >> 4);
-                const int k = kk + (lane & 7) + 8 * ((lane >> 3) & 1);
-                uint32_t r[4];
-                ldsm_x4_trans(r, smem_u32(sb + k * kLdMN + n));
-                bf[nj][0] = r[0];
-                bf[nj][1] = r[1];
-                bf[nj + 1][0] = r[2];
-                bf[nj + 1][1] = r[3];
-            }
-            mma_tile(acc, af, bf);
-        }
-    }
-
-    __nv_bfloat16* out = j.out + (int64_t)e * j.M * j.N;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int row = m0 + wm * 64 + mi * 16 + (lane >> 2) + 8 * half;
-                const int col = n0 + wn * 32 + nj * 8 + 2 * (lane & 3);
-                if (row < j.M && col < j.N)
-                    store_bf2(out + (int64_t)row * j.N + col, acc[mi][nj][2 * half],
-                              acc[mi][nj][2 * half + 1]);
-            }
+WPlan wg_plan(const int* dims, int n_jobs, int n_sms) {
+    WPlan pl;
+    const int s = (kSmemLimit - 1024 - kWgOut - kMaxStages * 16) / kWgStage;
+    pl.stages = s < kMaxStages ? s : kMaxStages;
+    pl.smem = wg_smem_bytes(pl.stages);
+    pl.items = 0;
+    for (int i = 0; i < n_jobs; ++i)
+        pl.items += (int64_t)dims[4 * i + 1] * cdiv(dims[4 * i + 2], kBN) *
+                    cdiv(dims[4 * i + 3], kWgBN);
+    pl.grid = (int)(pl.items < n_sms ? pl.items : n_sms);
+    return pl;
 }
 
 // -- combine backward ---------------------------------------------------------------
@@ -761,6 +999,44 @@ cudaError_t launch_route_backward(const RbParams& p, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+// A group's tensor maps: the A operands (rows, K) with a box of 64 k x BM
+// rows, the weights (n_exp, N, K) with a box of 64 k x 128 n of one expert,
+// the pre-activations (rows, N) with a box of 64 columns x BM rows.
+// q: the group's 9 pointers of moe_data_grad_launch.
+bool encode_dgroup(DParams& p, int gi, const void* const* q, int bm) {
+    const DGroup& g = p.g[gi];
+    const uint64_t da[2] = {(uint64_t)g.K, (uint64_t)g.rows}, sa[1] = {(uint64_t)g.K * 2};
+    const uint32_t ba[2] = {kBK, (uint32_t)bm};
+    const uint64_t dw[3] = {(uint64_t)g.K, (uint64_t)g.N, (uint64_t)g.n_exp};
+    const uint64_t sw[2] = {(uint64_t)g.K * 2, (uint64_t)g.N * g.K * 2};
+    const uint32_t bw[3] = {kBK, kBN, 1};
+    const uint64_t dp[2] = {(uint64_t)g.N, (uint64_t)g.rows}, sp[1] = {(uint64_t)g.N * 2};
+    const uint32_t bp[2] = {64, (uint32_t)bm};
+    if (!encode_bf16_sw128(&p.a0[gi], q[0], 2, da, sa, ba) ||
+        !encode_bf16_sw128(&p.w0[gi], q[2], 3, dw, sw, bw))
+        return false;
+    if (g.pairs == 2 && (!encode_bf16_sw128(&p.a1[gi], q[1], 2, da, sa, ba) ||
+                         !encode_bf16_sw128(&p.w1[gi], q[3], 3, dw, sw, bw)))
+        return false;
+    return (q[5] == nullptr || encode_bf16_sw128(&p.pa[gi], q[5], 2, dp, sp, bp)) &&
+           (q[6] == nullptr || encode_bf16_sw128(&p.pb[gi], q[6], 2, dp, sp, bp));
+}
+
+// A job's tensor maps: a (rows, M) and b (rows, N) with boxes of 64
+// columns x 64 rows, out (n_exp, M, N) with a box of 64 x 64 of one expert.
+bool encode_wjob(WParams& p, int i, const void* a, const void* b, const void* out) {
+    const WJob& j = p.job[i];
+    const uint32_t box[3] = {64, kBK, 1};
+    const uint64_t dout[3] = {(uint64_t)j.N, (uint64_t)j.M, (uint64_t)j.n_exp};
+    const uint64_t sout[2] = {(uint64_t)j.N * 2, (uint64_t)j.M * j.N * 2};
+    if (!encode_bf16_sw128(&p.out[i], out, 3, dout, sout, box)) return false;
+    if (j.rows == 0) return true;
+    const uint64_t da[2] = {(uint64_t)j.M, (uint64_t)j.rows}, sa[1] = {(uint64_t)j.M * 2};
+    const uint64_t db[2] = {(uint64_t)j.N, (uint64_t)j.rows}, sb[1] = {(uint64_t)j.N * 2};
+    return encode_bf16_sw128(&p.a[i], a, 2, da, sa, box) &&
+           encode_bf16_sw128(&p.b[i], b, 2, db, sb, box);
+}
+
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) & 15; }
 
 }  // namespace
@@ -788,6 +1064,23 @@ int moe_combine_backward_launch(const void* dout, const void* ys, const void* po
     return (int)cudaGetLastError();
 }
 
+// The plan moe_data_grad_launch makes for these shapes on the current
+// device: out[0] rows per tile (BM), out[1] ring stages, out[2] dynamic
+// shared memory bytes, out[3] blocks, out[4] the item bound the grid was
+// sized from (clamped to 2^31 - 1).
+int moe_data_grad_plan(int epi, int rows0, int n_exp0, int N0, int rows1, int N1, int* out) {
+    if (epi < 0 || epi > 2 || rows0 < 0 || n_exp0 < 1 || n_exp0 > kMaxExperts || rows1 < 0 ||
+        out == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const DPlan pl = dg_plan(epi, rows0, n_exp0, N0, rows1, N1, sm_count());
+    out[0] = pl.bm;
+    out[1] = pl.stages;
+    out[2] = pl.smem;
+    out[3] = pl.grid;
+    out[4] = (int)(pl.max_items < 0x7fffffff ? pl.max_items : 0x7fffffff);
+    return 0;
+}
+
 // One launch of the grouped data gradient.  epi (ref.py's MODES): 0
 // SwiGLU backward (out0 = da, out1 = db, from pre_a = the forward's gate
 // rows and pre_b its up rows), 1 GELU backward (out0 = da, pre_a the up
@@ -797,6 +1090,9 @@ int moe_combine_backward_launch(const void* dout, const void* ys, const void* po
 // group's A operands are (rows, K), its weights (n_exp, N, K), its outputs
 // (rows, N); all bf16, 16-byte aligned; N and K multiples of 8; g1 and w1
 // (a second operand pair, summed into the same product) or neither.
+// Returns a cudaError_t: cudaErrorInvalidValue for a shape the kernel does
+// not take, cudaErrorNotSupported when the CUDA driver encodes no tensor
+// map for it.
 int moe_data_grad_launch(int epi, const void* const* ptrs, const int* dims, void* stream) {
     if (epi < 0 || epi > 2 || ptrs == nullptr || dims == nullptr) return (int)cudaErrorInvalidValue;
     DParams p;
@@ -805,48 +1101,67 @@ int moe_data_grad_launch(int epi, const void* const* ptrs, const int* dims, void
         const void* const* q = ptrs + 9 * gi;
         const int* d = dims + 4 * gi;
         DGroup& g = p.g[gi];
-        g.g0 = static_cast<const __nv_bfloat16*>(q[0]);
-        g.g1 = static_cast<const __nv_bfloat16*>(q[1]);
-        g.w0 = static_cast<const __nv_bfloat16*>(q[2]);
-        g.w1 = static_cast<const __nv_bfloat16*>(q[3]);
         g.offsets = static_cast<const int*>(q[4]);
-        g.pre_a = static_cast<const __nv_bfloat16*>(q[5]);
-        g.pre_b = static_cast<const __nv_bfloat16*>(q[6]);
         g.out0 = static_cast<__nv_bfloat16*>(const_cast<void*>(q[7]));
         g.out1 = static_cast<__nv_bfloat16*>(const_cast<void*>(q[8]));
         g.rows = d[0];
         g.n_exp = d[1];
         g.N = d[2];
         g.K = d[3];
+        g.pairs = q[1] != nullptr ? 2 : 1;
         if (gi == 1 && g.rows == 0) break;
         if (g.rows < 0 || g.n_exp < 1 || g.n_exp > kMaxExperts || g.N < 8 || g.N % 8 ||
             g.K < 8 || g.K % 8 || (gi == 0 && g.offsets == nullptr) ||
             (gi == 1 && (g.offsets != nullptr || g.n_exp != 1)))
             return (int)cudaErrorInvalidValue;
-        if (g.g0 == nullptr || g.w0 == nullptr || g.out0 == nullptr ||
-            (g.g1 == nullptr) != (g.w1 == nullptr) ||
-            (epi != kEpiPlain && g.pre_a == nullptr) ||
-            (epi == kEpiSwiGLU && (g.pre_b == nullptr || g.out1 == nullptr)))
+        if (q[0] == nullptr || q[2] == nullptr || g.out0 == nullptr ||
+            (q[1] == nullptr) != (q[3] == nullptr) ||
+            (epi != kEpiPlain && q[5] == nullptr) ||
+            (epi == kEpiSwiGLU && (q[6] == nullptr || g.out1 == nullptr)))
             return (int)cudaErrorInvalidValue;
         for (int i = 0; i < 9; ++i)
             if (misaligned(q[i]) && i != 4) return (int)cudaErrorInvalidValue;
     }
-    const int64_t blocks = dgrad_blocks(p.g[0].rows, p.g[0].n_exp, p.g[0].N, p.g[1].rows, p.g[1].N);
-    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    if (blocks == 0) return 0;
+    const DPlan pl = dg_plan(epi, p.g[0].rows, p.g[0].n_exp, p.g[0].N, p.g[1].rows, p.g[1].N,
+                             sm_count());
+    if (pl.stages < 2 || pl.max_items > 0x7fffffff || pl.grid < 1)
+        return pl.max_items == 0 ? 0 : (int)cudaErrorInvalidValue;
+    p.stages = pl.stages;
+    for (int gi = 0; gi < 2; ++gi)
+        if (p.g[gi].rows > 0 && !encode_dgroup(p, gi, ptrs + 9 * gi, pl.bm))
+            return (int)cudaErrorNotSupported;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (epi) {
-        case kEpiSwiGLU: return (int)launch_dgrad<kEpiSwiGLU>(p, blocks, s);
-        case kEpiGelu: return (int)launch_dgrad<kEpiGelu>(p, blocks, s);
-        default: return (int)launch_dgrad<kEpiPlain>(p, blocks, s);
+        case kEpiSwiGLU: return (int)launch_dgrad<kEpiSwiGLU>(p, pl, s);
+        case kEpiGelu: return (int)launch_dgrad<kEpiGelu>(p, pl, s);
+        default: return (int)launch_dgrad<kEpiPlain>(p, pl, s);
     }
+}
+
+// The plan moe_weight_grad_launch makes for these jobs on the current
+// device (dims as the launch takes them): out[0] ring stages, out[1]
+// dynamic shared memory bytes, out[2] blocks, out[3] work items (clamped to
+// 2^31 - 1).
+int moe_weight_grad_plan(const int* dims, int n_jobs, int* out) {
+    if (dims == nullptr || n_jobs < 1 || n_jobs > kMaxJobs || out == nullptr)
+        return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < n_jobs; ++i)
+        if (dims[4 * i + 1] < 1 || dims[4 * i + 2] < 1 || dims[4 * i + 3] < 1)
+            return (int)cudaErrorInvalidValue;
+    const WPlan pl = wg_plan(dims, n_jobs, sm_count());
+    out[0] = pl.stages;
+    out[1] = pl.smem;
+    out[2] = pl.grid;
+    out[3] = (int)(pl.items < 0x7fffffff ? pl.items : 0x7fffffff);
+    return 0;
 }
 
 // One launch of up to 6 weight gradients: job i is ptrs[4 i ..] = (a (rows,
 // M), b (rows, N), out (n_exp, M, N), offsets (n_exp + 1,) int32 or null)
 // and dims[4 i ..] = (rows, n_exp, M, N); out[e] = a[seg e]^T b[seg e],
 // expert e's rows [offsets[e], offsets[e + 1]) (all rows without offsets,
-// n_exp 1).  bf16, 16-byte aligned, M and N multiples of 8.
+// n_exp 1).  bf16, 16-byte aligned, M and N multiples of 8.  Returns a
+// cudaError_t as moe_data_grad_launch does.
 int moe_weight_grad_launch(const void* const* ptrs, const int* dims, int n_jobs, void* stream) {
     if (ptrs == nullptr || dims == nullptr || n_jobs < 1 || n_jobs > kMaxJobs)
         return (int)cudaErrorInvalidValue;
@@ -856,29 +1171,37 @@ int moe_weight_grad_launch(const void* const* ptrs, const int* dims, int n_jobs,
     int64_t items = 0;
     for (int i = 0; i < n_jobs; ++i) {
         WJob& j = p.job[i];
-        j.a = static_cast<const __nv_bfloat16*>(ptrs[4 * i]);
-        j.b = static_cast<const __nv_bfloat16*>(ptrs[4 * i + 1]);
-        j.out = static_cast<__nv_bfloat16*>(const_cast<void*>(ptrs[4 * i + 2]));
+        const void* a = ptrs[4 * i];
+        const void* b = ptrs[4 * i + 1];
+        const void* out = ptrs[4 * i + 2];
         j.offsets = static_cast<const int*>(ptrs[4 * i + 3]);
         j.rows = dims[4 * i];
         j.n_exp = dims[4 * i + 1];
         j.M = dims[4 * i + 2];
         j.N = dims[4 * i + 3];
         if (j.rows < 0 || j.n_exp < 1 || j.M < 8 || j.M % 8 || j.N < 8 || j.N % 8 ||
-            (j.offsets == nullptr && j.n_exp != 1) || j.out == nullptr ||
-            (j.rows > 0 && (j.a == nullptr || j.b == nullptr)) || misaligned(j.a) ||
-            misaligned(j.b) || misaligned(j.out))
+            (j.offsets == nullptr && j.n_exp != 1) || out == nullptr ||
+            (j.rows > 0 && (a == nullptr || b == nullptr)) || misaligned(a) || misaligned(b) ||
+            misaligned(out))
             return (int)cudaErrorInvalidValue;
+        j.tm = cdiv(j.M, kBN);
+        j.tn = cdiv(j.N, kWgBN);
         j.first = (int)items;
-        items += (int64_t)j.n_exp * ((j.M + kBM - 1) / kBM) * ((j.N + kBN - 1) / kBN);
+        items += (int64_t)j.n_exp * j.tm * j.tn;
         if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
     }
-    const int smem = kWgStages * kWgStage;
+    const WPlan pl = wg_plan(dims, n_jobs, sm_count());
+    if (pl.stages < 2 || pl.grid < 1) return (int)cudaErrorInvalidValue;
+    p.n_items = (int)items;
+    p.stages = pl.stages;
+    for (int i = 0; i < n_jobs; ++i)
+        if (!encode_wjob(p, i, ptrs[4 * i], ptrs[4 * i + 1], ptrs[4 * i + 2]))
+            return (int)cudaErrorNotSupported;
     cudaError_t err = cudaFuncSetAttribute(moe_weight_grad_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    moe_weight_grad_kernel<<<(unsigned)items, kThreads, smem, s>>>(p);
+    moe_weight_grad_kernel<<<pl.grid, 384, pl.smem, s>>>(p);
     return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
-from .kernel import (RouteBackwardPlan, RoutePlan, library_plan,
+from .kernel import (RouteBackwardPlan, RoutePlan, data_grad_plan, library_plan,
                      moe_combine_backward_kernel, moe_combine_kernel, moe_down_grad_kernel,
                      moe_experts_kernel, moe_route_backward_kernel, moe_route_kernel,
-                     moe_up_grad_kernel, moe_weight_grad_kernel, route_backward_plan, route_plan)
+                     moe_up_grad_kernel, moe_weight_grad_kernel, route_backward_plan, route_plan,
+                     weight_grad_plan)
 from .ops import MoEFFN, combine, expert_ffn, layer_forward, moe_layer, route
 from .ref import (ExpertGrads, Route, moe_combine_backward_plain, moe_combine_plain,
                   moe_down_grad_plain, moe_experts_backward_plain, moe_experts_plain,
@@ -10,11 +11,12 @@ from .ref import (ExpertGrads, Route, moe_combine_backward_plain, moe_combine_pl
                   route_logits_plain, route_sort_plain, top_k_lower_first)
 
 __all__ = ["ExpertGrads", "MoEFFN", "Route", "RouteBackwardPlan", "RoutePlan", "combine",
-           "expert_ffn", "layer_forward", "library_plan", "moe_combine_backward_kernel",
-           "moe_combine_backward_plain", "moe_combine_kernel", "moe_combine_plain",
-           "moe_down_grad_kernel", "moe_down_grad_plain", "moe_experts_backward_plain",
-           "moe_experts_kernel", "moe_experts_plain", "moe_gather_backward_plain", "moe_layer",
-           "moe_route_backward_kernel", "moe_route_backward_plain", "moe_route_kernel",
-           "moe_route_plain", "moe_router_plain", "moe_up_grad_kernel", "moe_up_grad_plain",
-           "moe_weight_grad_kernel", "moe_weight_grad_plain", "route", "route_backward_plan",
-           "route_logits_plain", "route_plan", "route_sort_plain", "top_k_lower_first"]
+           "data_grad_plan", "expert_ffn", "layer_forward", "library_plan",
+           "moe_combine_backward_kernel", "moe_combine_backward_plain", "moe_combine_kernel",
+           "moe_combine_plain", "moe_down_grad_kernel", "moe_down_grad_plain",
+           "moe_experts_backward_plain", "moe_experts_kernel", "moe_experts_plain",
+           "moe_gather_backward_plain", "moe_layer", "moe_route_backward_kernel",
+           "moe_route_backward_plain", "moe_route_kernel", "moe_route_plain", "moe_router_plain",
+           "moe_up_grad_kernel", "moe_up_grad_plain", "moe_weight_grad_kernel",
+           "moe_weight_grad_plain", "route", "route_backward_plan", "route_logits_plain",
+           "route_plan", "route_sort_plain", "top_k_lower_first", "weight_grad_plan"]

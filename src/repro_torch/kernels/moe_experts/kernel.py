@@ -43,7 +43,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..grad_guard import refuse_grad
-from . import plan
+from . import backward_plan, plan
 from .ref import (MODES, Route, moe_combine_backward_plain, moe_combine_plain,
                   moe_down_grad_plain, moe_experts_plain, moe_route_backward_plain,
                   moe_route_plain, moe_up_grad_plain, moe_weight_grad_plain)
@@ -368,11 +368,13 @@ def _backward_library() -> ctypes.CDLL:
         lib.moe_combine_backward_launch.argtypes = [p] * 7 + [i, i, i, p]
         lib.moe_data_grad_launch.argtypes = [i, p, p, p]
         lib.moe_weight_grad_launch.argtypes = [p, p, i, p]
+        lib.moe_data_grad_plan.argtypes = [i] * 6 + [p]
+        lib.moe_weight_grad_plan.argtypes = [p, i, p]
         lib.moe_route_backward_plan.argtypes = [i] * 4 + [p]
         lib.moe_route_backward_launch.argtypes = [p] * 11 + [i] * 4 + [p]
         for f in ("moe_combine_backward_launch", "moe_data_grad_launch",
-                  "moe_weight_grad_launch", "moe_route_backward_plan",
-                  "moe_route_backward_launch"):
+                  "moe_weight_grad_launch", "moe_data_grad_plan", "moe_weight_grad_plan",
+                  "moe_route_backward_plan", "moe_route_backward_launch"):
             getattr(lib, f).restype = i
         lib.moe_backward_error_string.argtypes = [i]
         lib.moe_backward_error_string.restype = ctypes.c_char_p
@@ -443,6 +445,33 @@ def moe_combine_backward_kernel(dout: torch.Tensor, ys: torch.Tensor, pos: torch
 
 
 moe_combine_backward_kernel.launches = 0
+
+
+def data_grad_plan(epi: str, rows0: int, n_exp: int, N0: int, rows1: int = 0,
+                   N1: int = 0) -> backward_plan.DataGradPlan:
+    """The plan ``moe_data_grad_launch`` makes for epilogue ``epi`` (in
+    MODES) and these shapes on the current CUDA device
+    (``moe_data_grad_plan``: tile rows, ring stages, shared memory, grid);
+    :func:`.backward_plan.data_grad_plan` models it for the CPU tests."""
+    out = (ctypes.c_int * 5)()
+    err = _backward_library().moe_data_grad_plan(MODES.index(epi), rows0, n_exp, N0, rows1, N1,
+                                                 out)
+    if err != 0:
+        raise ValueError(f"moe_data_grad_plan refused epilogue {epi!r}, rows {rows0}, {n_exp} "
+                         f"experts ({err})")
+    return backward_plan.DataGradPlan(*out)
+
+
+def weight_grad_plan(dims: Sequence[Tuple[int, int, int, int]]) -> backward_plan.WeightGradPlan:
+    """The plan ``moe_weight_grad_launch`` makes for jobs of ``(rows, n_exp,
+    M, N)`` on the current CUDA device (``moe_weight_grad_plan``);
+    :func:`.backward_plan.weight_grad_plan` models it."""
+    flat = (ctypes.c_int * (4 * len(dims)))(*[v for d in dims for v in d])
+    out = (ctypes.c_int * 4)()
+    err = _backward_library().moe_weight_grad_plan(flat, len(dims), out)
+    if err != 0:
+        raise ValueError(f"moe_weight_grad_plan refused jobs {list(dims)} ({err})")
+    return backward_plan.WeightGradPlan(*out)
 
 
 def _data_grad_launch(epi: str, groups: List[tuple], device) -> None:
