@@ -2534,14 +2534,18 @@ def phase_moe_cases(fails: Failures, seed: int) -> None:
 
 
 # (T, D, E, k, kind): moonshot's decode, chunk and ring prefill and one
-# token, 8192 tokens (the sort scatters to device memory: `order` outgrows
-# shared memory), qwen3-moe's widths at a ragged T, and every token tied (a
-# zero router)
+# token, 8192 tokens (moonshot's training microstep), qwen3-moe's widths at
+# a ragged T, every token tied (a zero router), and a ragged tile of the
+# register-tiled product (T one short of 4096, 48-wide slices, 40 experts
+# padded to 64), and rows of x or w that are no 16-byte multiples (stages
+# by cp.async, not TMA; at 2 and at 8 tokens a thread)
 ROUTE_CASES = [
     (1, 2048, 64, 6, "random"), (8, 2048, 64, 6, "random"), (CHUNK, 2048, 64, 6, "random"),
     (4096, 2048, 64, 6, "random"), (8192, 2048, 64, 6, "random"), (37, 4096, 128, 8, "random"),
-    (300, 2048, 64, 6, "tied"),
+    (300, 2048, 64, 6, "tied"), (4095, 1536, 40, 5, "random"), (50, 1030, 6, 2, "random"),
+    (2048, 1030, 40, 5, "random"),
 ]
+ROUTE_ROW_TS = (8, CHUNK, 4096)  # one row's logits bitwise the same alone and among T rows
 ROUTE_TIE_GAP = 1e-6       # gates closer than this may swap between the kernel and torch
 
 
@@ -2587,14 +2591,22 @@ def phase_route_cases(fails: Failures, seed: int) -> None:
                                                  moe_route_kernel, moe_route_plain,
                                                  route_logits_plain, route_plan,
                                                  route_sort_plain)
+    from repro_torch.kernels.moe_experts.route_plan import library_fields, route_shape
 
     name = None
     for line in build.build_log("moe_experts").splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"moe_route_kernelILi\d|moe_combine_kernel", line)
+            m = re.search(r"moe_route_kernelILi\d|moe_route_sort_kernel|moe_combine_kernel",
+                          line)
             name = m and m.group(0)
         elif name and ("Used" in line or "spill" in line):
             print(f"  ptxas {name}: {line.strip().replace('ptxas info    : ', '')}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count if DEVICE == "cuda" else 132
+    for T, D, E, k, _ in ROUTE_CASES:
+        want_pl = library_fields(route_shape(T, D, E, k, sms))
+        fails.check(tuple(route_plan(T, D, E, k)) == want_pl,
+                    f"moe_route plan [T={T} D={D} E={E} k={k}]: the library's "
+                    f"{tuple(route_plan(T, D, E, k))} == route_plan.py's {want_pl} ({sms} SMs)")
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 21)
     for T, D, E, k, kind in ROUTE_CASES:
         x = torch.randn(T, D, generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -2626,13 +2638,31 @@ def phase_route_cases(fails: Failures, seed: int) -> None:
                     and outside == 0 and own_bad == 0 and w_rel <= 1e-6 and sort_ok and row_ok
                     and tie_ok,
                     f"moe_route vs plain [T={T} D={D} E={E} k={k} {kind}; grid {pl.tiles} tiles "
-                    f"of {pl.tile_tokens} x {pl.groups} slice groups]: logits max err "
+                    f"of {pl.tile_tokens} x {pl.groups} slice groups, {pl.thread_tokens} tokens "
+                    f"a thread, {pl.sort_blocks} sort blocks]: logits max err "
                     f"{l_err:.3g} <= 1e-5 x {l_scale:.4g}; experts differ on {int(mism.sum())} "
                     f"of {T} tokens, {outside} outside near-ties (gap <= {ROUTE_TIE_GAP}); "
                     f"against its own logits' plain routing {own_bad} outside near-ties, "
                     f"weights rel err {w_rel:.3g} <= 1e-6 (vs plain {w_rel_plain:.3g}); sort "
                     f"outputs exact {sort_ok}; last row alone bitwise {row_ok}; ties to the "
                     f"lower expert {tie_ok}")
+    # one unchanged row alone and among T rows (each T on its own plan): the
+    # slice-order logits, and so the route, bitwise the same
+    D, E, k = 2048, 64, 6
+    w = torch.randn(D, E, generator=gen, device=DEVICE) * D ** -0.5
+    x0 = torch.randn(1, D, generator=gen, device=DEVICE).to(torch.bfloat16)
+    alone = moe_route_kernel(x0, w, k)
+    for T in ROUTE_ROW_TS:
+        x = torch.randn(T, D, generator=gen, device=DEVICE).to(torch.bfloat16)
+        at = T // 2
+        x[at] = x0[0]
+        got = moe_route_kernel(x, w, k)
+        sync()
+        pl = route_plan(T, D, E, k)
+        same = [torch.equal(a[at], b[0]) for a, b in zip(got[:4], alone[:4])]
+        fails.check(all(same), f"moe_route row {at} of T={T} ({pl.thread_tokens} tokens a thread, "
+                    f"{pl.groups} slice groups, {pl.tiles} tiles) vs the row alone (T=1): logits, "
+                    f"gates, weights, experts bitwise {same}")
     # the combine, bitwise, at moonshot's chunk
     T, D, E, k = CHUNK, 2048, 64, 6
     x = torch.randn(T, D, generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -2854,13 +2884,15 @@ def kernel_events(fn) -> tuple:
     return sum(e.count for e in ks), sum(e.self_device_time_total for e in ks) / 1e3
 
 
-def phase_route_timing(fails: Failures, seed: int, T: int, label: str) -> list:
-    """moonshot's routing and combine of one layer at T tokens (D 2048, 64
-    experts top-6, the shared expert's rows): each kernel's time (CUDA
-    events, back to back) and device time per launch beside its bound,
-    its plain version run eagerly, and the torch sequence it replaces
-    captured in one CUDA graph and replayed; the fp32 matmul alone as the
-    router product's library call."""
+def phase_route_timing(fails: Failures, seed: int, T: int, label: str,
+                       combine: bool = True) -> list:
+    """moonshot's routing and (with ``combine``) combine of one layer at T
+    tokens (D 2048, 64 experts top-6, the shared expert's rows): each
+    kernel's time (CUDA events, back to back) and device time per launch
+    (``queued_device_ms``: no profiler) beside its bound, its plain version
+    run eagerly, and the torch sequence it replaces captured in one CUDA
+    graph and replayed (host-timed and ``queued_device_ms``); the fp32
+    matmul alone as the router product's library call."""
     import torch
 
     from repro_torch.kernels.moe_experts import (moe_combine_kernel, moe_combine_plain,
@@ -2881,20 +2913,24 @@ def phase_route_timing(fails: Failures, seed: int, T: int, label: str) -> list:
                                                ysh).float()).abs().max().item()
     iters = 40 if T <= 256 else 20
     out = []
-    for name, kern, plain, nbytes, ops, rate, lib in (
-            ("moe_route", lambda: moe_route_kernel(x, w, k), lambda: moe_route_plain(x, w, k),
-             T * D * 2 + D * E * 4 + 2 * T * E * 4 + 2 * P * 4 + (E + 1) * 4 + 4 * P * 4,
-             2 * T * D * E, FP32_FLOPS_PER_S, lambda: x.float() @ w),
-            ("moe_combine", lambda: moe_combine_kernel(ys, got.pos, got.weights, None, ysh),
-             lambda: moe_combine_plain(ys, got.pos, got.weights, None, ysh),
-             P * D * 2 + 2 * T * D * 2 + 2 * P * 4, 2 * P * D + T * D, FP32_FLOPS_PER_S, None)):
+    timed = (
+        ("moe_route", lambda: moe_route_kernel(x, w, k), lambda: moe_route_plain(x, w, k),
+         T * D * 2 + D * E * 4 + 2 * T * E * 4 + 2 * P * 4 + (E + 1) * 4 + 4 * P * 4,
+         2 * T * D * E, FP32_FLOPS_PER_S, lambda: x.float() @ w),
+        ("moe_combine", lambda: moe_combine_kernel(ys, got.pos, got.weights, None, ysh),
+         lambda: moe_combine_plain(ys, got.pos, got.weights, None, ysh),
+         P * D * 2 + 2 * T * D * 2 + 2 * P * 4, 2 * P * D + T * D, FP32_FLOPS_PER_S, None))
+    for name, kern, plain, nbytes, ops, rate, lib in timed[:2 if combine else 1]:
         ms = cuda_time_ms(lambda i: kern(), iters)
-        dev = device_ms_per_launch(lambda i: kern(), 20, f"{name}_kernel")
+        dev = queued_device_ms(lambda i: kern(), iters)
+        fails.check(dev is not None, f"{name} {label}: device time per launch {dev} ms "
+                    f"({iters} launches queued behind a device sleep)")
         plain_ms = cuda_time_ms(lambda i: plain(), 10)
-        graph_ms, nodes = None, (None, None)
+        graph_ms, graph_dev, nodes = None, None, (None, None)
         try:
             replay, _ = graphed(plain)
             graph_ms = cuda_time_ms(lambda i: replay(), iters)
+            graph_dev = queued_device_ms(lambda i: replay(), iters)
             nodes = kernel_events(replay)
         except RuntimeError as e:
             print(f"  {name} {label}: the plain sequence did not capture: {str(e)[:160]}")
@@ -2906,11 +2942,14 @@ def phase_route_timing(fails: Failures, seed: int, T: int, label: str) -> list:
         if name == "moe_route":
             pl = route_plan(T, D, E, k)
             extra = (f"grid {pl.tiles} tiles of {pl.tile_tokens} tokens x {pl.groups} slice "
-                     f"groups, {pl.smem} B shared memory, workspace {pl.workspace} B; ")
+                     f"groups ({pl.thread_tokens} tokens a thread, {pl.slice_warps} slice warps, "
+                     f"{'TMA' if pl.tma else 'cp.async'} stages of {pl.stage_d} d), "
+                     f"{pl.sort_blocks} sort blocks, {pl.smem} B shared memory, workspace "
+                     f"{pl.workspace} B; ")
         print(f"  {name} {label}: T={T} P={P}: {extra}kernel {ms:.4f} ms (again {again:.4f}; "
               f"device time per launch {dev} ms); plain eager {plain_ms:.4f} ms; plain "
               f"sequence as one replayed graph {graph_ms} ms ({nodes[0]} kernel nodes, "
-              f"{nodes[1]} ms of device time); "
+              f"device {graph_dev} ms queued, {nodes[1]} ms profiled); "
               f"{'fp32 matmul ' + format(lib_ms, '.4f') + ' ms; ' if lib_ms else ''}bound "
               f"{bound:.5f} ms ({nbytes / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP)")
         out.append({"name": name, "route": "cuda",
@@ -2925,8 +2964,8 @@ def phase_route_timing(fails: Failures, seed: int, T: int, label: str) -> list:
                               f"moonshot {label}: ys ({P}, {D}) bf16, top-{k}, shared rows"),
                     "launches": None, "max_abs_err": r_err if name == "moe_route" else c_err,
                     "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
-                    "graphed_plain_ms": graph_ms, "graphed_plain_nodes": nodes[0],
-                    "bound_ms": bound,
+                    "graphed_plain_ms": graph_ms, "graphed_plain_device_ms": graph_dev,
+                    "graphed_plain_nodes": nodes[0], "bound_ms": bound,
                     "bound_by": "bytes" if tb >= to else "operations", "library_ms": lib_ms})
     fails.check(r_err <= 1e-5 * want.logits.abs().max().item() and c_err == 0.0,
                 f"route and combine at {label}: logits max err {r_err:.3g}, combine bitwise "
@@ -5914,6 +5953,7 @@ MOE_BWD_CASES = [
     (300, 64, 6, 256, 176, True, "swiglu", False),
     (512, 64, 6, 2048, 1408, True, "swiglu", True),
     (512, 64, 6, 2048, 1408, False, "swiglu", False),
+    (4095, 40, 5, 1536, 96, False, "swiglu", False),   # the route backward's ragged tiles
 ]
 # The grouped products' outputs are bf16 roundings of fp32 sums that the
 # kernel and the plain version (a cuBLAS product per segment, its bf16
@@ -5925,7 +5965,9 @@ MOE_BWD_CASES = [
 MOE_BWD_TOL = 4 * 2.0 ** -8
 # The route backward: dx (bf16, one rounding of an fp32 sum over E) within
 # 2 steps of its largest |element|; dw (fp32 sums over T tokens in two
-# orders: within T 2^-24 of the sum of |terms| at worst, about sqrt(T)
+# orders: the kernel's an FMA chain over each split of up to 1024 tokens in
+# order, the splits' partials added in split order, the plain version's
+# cuBLAS's; within T 2^-24 of the sum of |terms| at worst, about sqrt(T)
 # 2^-24 ~ 5e-6 of the largest |dw| at T = 8192 on these inputs) within
 # 1e-4 of it, which leaving out one 64-token tile must exceed.
 ROUTE_BWD_DX_TOL = 2 * 2.0 ** -8
@@ -6160,8 +6202,17 @@ def phase_moe_backward_cases(fails: Failures, seed: int) -> dict:
     """37: every backward kernel against its plain version on the card."""
     import torch
 
+    from repro_torch.kernels.moe_experts import route_backward_plan
+    from repro_torch.kernels.moe_experts.route_plan import (backward_library_fields,
+                                                            route_backward_shape)
+
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 37)
     worst = {}
+    for T, E, k, D, F, shared, mode, drops in MOE_BWD_CASES + [(T38, 64, 6, 2048, 0, 0, 0, 0)]:
+        want_pl = backward_library_fields(route_backward_shape(T, D, E))
+        fails.check(tuple(route_backward_plan(T, D, E, k)) == want_pl,
+                    f"moe_route_backward plan [T={T} D={D} E={E}]: the library's "
+                    f"{tuple(route_backward_plan(T, D, E, k))} == route_plan.py's {want_pl}")
     for T, E, k, D, F, shared, mode, drops in MOE_BWD_CASES:
         P = T * k
         cap = max(1, P // E // 2) if drops else None
@@ -6185,7 +6236,40 @@ def phase_moe_backward_cases(fails: Failures, seed: int) -> dict:
                                                                  0.0), w)
         del st
         torch.cuda.empty_cache()
+    worst["moe_route_backward, odd rows"] = route_backward_odd_rows(fails, gen)
     print(f"  worst err / bound by kernel: {worst}")
+    return worst
+
+
+def route_backward_odd_rows(fails: Failures, gen) -> float:
+    """The route backward where the rows of x (D = 1030) and w (E = 6) are
+    no 16-byte multiples (4-byte copies, the scalar tail of dx's loop), 50
+    tokens: within ROUTE_BWD_DX_TOL / ROUTE_BWD_DW_TOL of the plain version,
+    two launches bitwise.  Returns the worst err / bound."""
+    import torch
+
+    from repro_torch.kernels.moe_experts import kernel as mk
+    from repro_torch.kernels.moe_experts import ref
+
+    T, D, E, k = 50, 1030, 6, 2
+    x = torch.randn(T, D, generator=gen, device=gen.device).to(DEVICE, torch.bfloat16)
+    w = (torch.randn(D, E, generator=gen, device=gen.device) * D ** -0.5).to(DEVICE)
+    r = mk.moe_route_kernel(x, w, k)
+    dwt = torch.randn(T, k, generator=gen, device=gen.device).to(DEVICE)
+    dgates = (torch.randn(T, E, generator=gen, device=gen.device) * 1e-2).to(DEVICE)
+    got = mk.moe_route_backward_kernel(x, w, r.gates, r.weights, r.idx, dwt, dgates)
+    again = mk.moe_route_backward_kernel(x, w, r.gates, r.weights, r.idx, dwt, dgates)
+    with fp32_reductions():
+        want = ref.moe_route_backward_plain(x, w, r.gates, r.weights, r.idx, dwt, dgates)
+    sync()
+    errs = [rel_max(g, w_) for g, w_ in zip(got, want)]
+    tols = [ROUTE_BWD_DX_TOL, ROUTE_BWD_DW_TOL]
+    twice = all(torch.equal(a, b) for a, b in zip(got, again))
+    worst = max(e / t for e, t in zip(errs, tols))
+    fails.check(twice and worst <= 1.0,
+                f"moe_route_backward [T={T} D={D} E={E} k={k}: rows no 16-byte multiples]: two "
+                f"launches bitwise {twice}; err / largest |want| {[f'{e:.3g}' for e in errs]} "
+                f"within {[f'{t:.3g}' for t in tols]}")
     return worst
 
 
@@ -6697,6 +6781,9 @@ def main() -> int:
     for T, label in MOE_TIMED:
         moe_records.extend(phase_moe_timing(fails, args.seed, T, label))
         moe_records.extend(phase_route_timing(fails, args.seed, T, label))
+    # the router at moonshot's training microstep (its launches counted in phase 39)
+    route_train = phase_route_timing(fails, args.seed, T38, f"training microstep of {T38}",
+                                     combine=False)
     m_paged = phase_kernel_timing(fails, mcfg, args.seed, prompt=M_PROMPT, max_new=M_MAX_NEW,
                                   layers=M_PAGED_LAYERS)
     m_paged["shape"] = (f"{MOE} decode: B={SLOTS} Hkv={mcfg.n_kv_heads} G=1 "
@@ -6870,7 +6957,7 @@ def main() -> int:
     t39 = time.perf_counter()
     r39 = phase_train(fails, args.seed, MOE, seq=T39_SEQ, global_batch=T39_BATCH,
                       accum=T39_ACCUM, steps=T39_STEPS, n_layers=T39_LAYERS)
-    for rec in moe_bwd:
+    for rec in moe_bwd + route_train:
         rec["launches"] = r39["counts"][rec["name"]]
     print(f"  phase 39 wall {time.perf_counter() - t39:.1f} s")
     print(f"[33] {ARCH} at full width and {T33_LAYERS} layers: kernel vs plain attention, "
@@ -6885,7 +6972,7 @@ def main() -> int:
         records.extend(recs)
     records.append(rglru_bwd)
     records.extend([ssd_bwd, ssd_bwd_cc])
-    records.extend(moe_bwd)
+    records.extend(moe_bwd + route_train)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if fails:

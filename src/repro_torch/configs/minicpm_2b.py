@@ -32,5 +32,8 @@ CONFIG = ArchConfig(
 )
 
 # WSD (warmup-stable-decay) schedule preset: warmup as a fraction of the run,
-# the share of the rest at peak, the floor; ``launch/train.py::optim_config``
+# the share of the rest at peak, the floor.  Kept as the JAX package keeps
+# its own: ``launch/train.py::optim_config`` builds the config the JAX
+# package's ``run_training`` builds, a tenth of the run as warmup, and reads
+# no preset.
 WSD = {"warmup_steps": 0.01, "stable_frac": 0.9, "min_ratio": 0.1}

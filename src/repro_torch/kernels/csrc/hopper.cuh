@@ -1,12 +1,12 @@
 // Hopper (sm_90a) building blocks for the package's CUDA sources (included
 // by moe_experts.cu, moe_backward.cu and flash_attention.cu): mbarriers,
-// TMA tile loads (2-, 3- and 4-D boxes) and stores (3-D boxes, bulk
-// groups), the async-proxy fence, wgmma descriptors, the bf16 wgmmas
-// (m64n128k16 and m64n256k16 with both operands in shared memory and
-// either layout of each; m64n64k16 the same with either B layout;
-// m64n64k16 and m64n128k16 with A in registers), named barriers, and the
-// CUDA driver's tensor-map encoder reached through the runtime
-// (cudaGetDriverEntryPoint), so no library links against libcuda.
+// TMA tile loads (2-, 3- and 4-D boxes, 128-byte swizzled or dense) and
+// stores (3-D boxes, bulk groups), the async-proxy fence, wgmma
+// descriptors, the bf16 wgmmas (m64n128k16 and m64n256k16 with both
+// operands in shared memory and either layout of each; m64n64k16 the same
+// with either B layout; m64n64k16 and m64n128k16 with A in registers),
+// named barriers, and libcuda's tensor-map encoder reached through the
+// runtime (cudaGetDriverEntryPoint), so no library links against libcuda.
 //
 // Layouts follow the PTX ISA's canonical 128-byte-swizzled forms, which
 // TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
@@ -402,6 +402,23 @@ inline bool encode_bf16_sw128(CUtensorMap* map, const void* base, int rank,
               reinterpret_cast<const cuuint64_t*>(strides),
               reinterpret_cast<const cuuint32_t*>(box), unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map of `rank` (1 to 5) dimensions (innermost first) over elements
+// of `type` with boxes of `box` elements, no swizzle (a box lands in shared
+// memory densely, row after row; its innermost extent a multiple of 16
+// bytes), out-of-bounds elements read as zero.  strides[i] is dimension i +
+// 1's stride in bytes.  Returns false when the encoder refuses it.
+inline bool encode_dense(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                         const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
+    EncodeTiledFn fn = encode_tiled();
+    if (fn == nullptr) return false;
+    const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+    return fn(map, type, rank, const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
+              reinterpret_cast<const cuuint64_t*>(strides),
+              reinterpret_cast<const cuuint32_t*>(box), unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -1,6 +1,6 @@
 // Backward of the token-choice MoE layer for Hopper (sm_90a), bound through
 // a plain C interface and loaded with ctypes
-// (repro_torch/kernels/moe_experts/kernel.py).  Four kernels, six launches
+// (repro_torch/kernels/moe_experts/kernel.py).  Five kernels, seven launches
 // a layer, in the order the layer's autograd Function
 // (kernels/moe_experts/ops.py::MoEFFN) runs them:
 //
@@ -16,9 +16,12 @@
 //   5. the gather's backward: the forward combine kernel of moe_experts.cu
 //      with unit weights (each token's k routed rows summed in order in
 //      fp32, one rounding, then the shared expert's row added);
-//   6. route backward: the renormalisation's and the softmax's adjoints per
-//      token, dx = dlogits . w^T and dw = x^T . dlogits in fp32 on the CUDA
-//      cores (moe_route_backward).
+//   6. route backward, two launches: the renormalisation's and the
+//      softmax's adjoints once a token (dlogits) and dx = dlogits . w^T
+//      (moe_route_backward_dx), then dw = x^T . dlogits
+//      (moe_route_backward_dw), in fp32 on the CUDA cores, register-tiled
+//      (a thread 8 x 8 or 8 x 4 outputs: one shared-memory load feeds 4-8
+//      FMAs).
 //
 // No Pallas kernel stands behind these: the JAX package differentiates its
 // MoE layer (src/repro/models/moe.py::moe_ffn, _dispatch_ffn) through XLA.
@@ -99,7 +102,9 @@
 // gradients 1134 GFLOP (1.15 ms, operations), the gate/up data gradient
 // 756 GFLOP (0.76 ms, operations).  The combine backward moves ~0.44 GB
 // (dout, ys, dys: 0.13 ms, bytes); the route backward does 4 T D E = 4.3
-// GFLOP of fp32 (64 us at 67 TFLOP/s, operations).
+// GFLOP of fp32 (64 us at 67 TFLOP/s, operations): dx's chains over E keep
+// the earlier kernel's order (e = 0 .. E - 1 from 0, one bf16 rounding),
+// dw's are chains over a split's tokens, the splits added in order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -785,27 +790,59 @@ moe_combine_backward_kernel(const __nv_bfloat16* __restrict__ dout,
 
 // -- route backward -----------------------------------------------------------------
 
-constexpr int kRbSub = 64;           // tokens a sub-tile
-constexpr int kRbDs = 64;            // columns of D a block
-constexpr int kRbMaxTiles = 16;      // token tiles, whose dw partials are summed in order
+constexpr int kRbTokens = 64;        // the dx launch: tokens a block
+constexpr int kRbDlStride = kRbTokens + 4;  // dlogits (E, 64 tokens) in shared memory, padded
+constexpr int kRbStages = 2;         // the dx launch's ring of w chunks
+constexpr int kRbBatch = 4;          // tokens a warp takes through their dlogits at once
+constexpr int kRbWThreads = 128;     // the dw launch: threads a half-block at most
+constexpr int kRbMaxDt = 256;        // the dw launch: columns of D a block at most
+constexpr int kRbWTokens = 32;       // the dw launch: tokens a stage
+constexpr int kRbWStages = 4;
+constexpr int kRbMaxSplits = 8;      // the dw launch: token splits, summed in order
+constexpr int kRbSplitTokens = 1024; // tokens a split at least
 constexpr int kRbMaxE = 128, kRbMaxK = 32, kRbMaxD = 4096;
-constexpr int kRbCounters = 256;     // ints of the counter buffer: one a column group
+constexpr int kRbCounters = 256;     // ints of the counter buffer: one a D tile
 
+// Two launches.  dx: a block a tile of 64 tokens (8 warps, each 8 tokens),
+// its tokens' dlogits once (into shared memory and the workspace), then dx
+// = dlogits . w^T over D in chunks of dc columns (w rows staged by 16-byte
+// cp.async at a stride of wst floats, 4 mod 8, so 8 lanes reading 8 rows'
+// float4 meet no bank twice): lane c of warp w holds tokens 8w .. 8w + 7 x
+// columns c + 32 i (i < ci), an FMA chain over e in order from 0, four e
+// a shared-memory load of w.  dw: grid (D tiles of dt, token splits), a
+// thread 8 d x 8 e (the experts padded to ep = 8 ne, ne a power of two; e
+// 4c .. 4c + 3 and ep / 2 + 4c ..; wthreads = 2 ne dt / 8 threads, at most
+// 256, dt at most 256), an FMA chain over
+// its half of each 32-token stage of its split, in token order from 0 (x
+// and dlogits rows), the halves added; the splits' partials meet in the
+// workspace and the last block of a D tile adds them in split order.
 struct RbShape {
-    int tile_subs, n_tiles, n_dg, smem;
-    int64_t part_floats;
+    int n_tok_tiles, ci, dc, n_chunks, wst, dx_smem;
+    int ne, ep, dt, wthreads, n_dt, split, splits, dw_smem;
+    int64_t dl_floats, part_floats, ws_bytes;
 };
 
-// Token tiles of whole 64-token sub-tiles, at most 16; column groups of 64.
 RbShape rb_shape(int T, int D, int E) {
     RbShape s;
-    const int n_sub = (T + kRbSub - 1) / kRbSub;
-    const int tiles = min(kRbMaxTiles, n_sub);
-    s.tile_subs = (n_sub + tiles - 1) / tiles;
-    s.n_tiles = (n_sub + s.tile_subs - 1) / s.tile_subs;
-    s.n_dg = (D + kRbDs - 1) / kRbDs;
-    s.smem = (kRbDs * (E + 1) + kRbSub * (E + 1) + kRbSub * kRbDs) * 4;
-    s.part_floats = s.n_tiles > 1 ? (int64_t)s.n_tiles * D * E : 0;
+    s.n_tok_tiles = cdiv(T, kRbTokens);
+    s.ci = E <= 64 ? 8 : 4;
+    s.dc = 32 * s.ci;
+    s.n_chunks = cdiv(D, s.dc);
+    s.wst = ((E + 3) & ~3) + 4;
+    s.dx_smem = (E * kRbDlStride + 8 * kRbBatch * E + kRbStages * s.dc * s.wst) * 4;
+    s.ne = 1;
+    while (8 * s.ne < E) s.ne *= 2;
+    s.ep = 8 * s.ne;
+    s.dt = 8 * min(kRbWThreads / s.ne, kRbMaxDt / 8);
+    s.wthreads = 2 * s.ne * s.dt / 8;
+    s.n_dt = cdiv(D, s.dt);
+    const int want = min(kRbMaxSplits, max(1, T / kRbSplitTokens));
+    s.split = cdiv(cdiv(T, want), kRbWTokens) * kRbWTokens;
+    s.splits = cdiv(T, s.split);
+    s.dw_smem = kRbWStages * kRbWTokens * (s.dt * 2 + s.ep * 4);
+    s.dl_floats = ((int64_t)T * E + 3) & ~(int64_t)3;
+    s.part_floats = s.splits > 1 ? (int64_t)s.splits * D * E : 0;
+    s.ws_bytes = (s.dl_floats + s.part_floats) * 4;
     return s;
 }
 
@@ -819,65 +856,121 @@ struct RbParams {
     const float* dgates;         // (T, E) or null
     __nv_bfloat16* dx;           // (T, D)
     float* dw;                   // (D, E)
-    float* part;                 // (n_tiles, D, E) when n_tiles > 1
+    float* dl;                   // (T, E): the dlogits (workspace)
+    float* part;                 // (splits, D, E) when splits > 1 (workspace)
     int* counters;               // (kRbCounters,), zero between launches
     int T, D, E, k;
+    bool x_vec;                  // 16-byte copies of x rows (D % 8 == 0)
+    bool dl_vec;                 // 16-byte copies of dlogits rows (E % 4 == 0)
+    bool w_vec;                  // 16-byte copies of w rows (E % 4 == 0, w 16-byte aligned)
     RbShape s;
 };
 
-// dlogits of token t into row (E floats), one warp: the renormalisation's
-// adjoint (weights = v / max(sum_j v_j, 1e-9), v the k chosen gates, the
-// sums in order j), dv_j = (dw_j - [s >= 1e-9] sum_i dw_i w_i) / max(s,
-// 1e-9); dgates plus dv scattered to the chosen experts in order j; then
-// the softmax's adjoint g (dg - sum_e g dg).  A row past T is zero.
-__device__ void token_dlogits(const RbParams& p, int t, float* row) {
+template <int BYTES>
+__device__ __forceinline__ void rb_cp_async(void* dst, const void* src) {
+    if constexpr (BYTES == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+                     : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+                     : "memory");
+}
+
+__device__ __forceinline__ void rb_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void rb_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// dlogits of tokens t0 .. t0 + B - 1 into rows (B rows of E floats), one
+// warp, the B tokens at once: the renormalisation's adjoint (weights = v /
+// max(sum_j v_j, 1e-9), v the k chosen gates, the sums in order j), dv_j =
+// (dw_j - [s >= 1e-9] sum_i dw_i w_i) / max(s, 1e-9); dgates plus dv
+// scattered to the chosen experts in order j; then the softmax's adjoint g
+// (dg - sum_e g dg), each lane's 4 experts an FMA chain from 0, the lanes'
+// sums an xor reduction.  A row past T is zero.
+template <int B>
+__device__ void tokens_dlogits(const RbParams& p, int t0, float* rows) {
     const int lane = threadIdx.x & 31, E = p.E, k = p.k;
-    if (t >= p.T) {
-        for (int e = lane; e < E; e += 32) row[e] = 0.f;
-        return;
-    }
-    const int64_t tE = (int64_t)t * E, tk = (int64_t)t * k;
-    const int ij = lane < k ? min(max(__ldg(p.idx + tk + lane), 0), E - 1) : 0;
-    const float v = lane < k ? __ldg(p.gates + tE + ij) : 0.f;
-    const float wj = lane < k ? __ldg(p.weights + tk + lane) : 0.f;
-    const float dwj = lane < k ? __ldg(p.dweights + tk + lane) : 0.f;
-    const float pw = __fmul_rn(dwj, wj);
-    float s = 0.f, dot = 0.f;
-    for (int j = 0; j < k; ++j) {
-        const float vj = __shfl_sync(0xffffffffu, v, j), pj = __shfl_sync(0xffffffffu, pw, j);
-        s = j == 0 ? vj : __fadd_rn(s, vj);
-        dot = j == 0 ? pj : __fadd_rn(dot, pj);
-    }
-    const float den = s < 1e-9f ? 1e-9f : s;
-    const float dv = __fdiv_rn(__fsub_rn(dwj, s >= 1e-9f ? dot : 0.f), den);
-    float g[kRbMaxE / 32], dg[kRbMaxE / 32];
+    constexpr int C = kRbMaxE / 32;
+    bool ok[B];
+    int ij[B];
+    float v[B], pw[B], dwj[B], s[B], dot[B], dv[B], g[B][C], sum[B];
 #pragma unroll
-    for (int c = 0; c < kRbMaxE / 32; ++c) {
-        const int e = lane + 32 * c;
-        g[c] = e < E ? __ldg(p.gates + tE + e) : 0.f;
-        if (e < E) row[e] = p.dgates != nullptr ? __ldg(p.dgates + tE + e) : 0.f;
+    for (int q = 0; q < B; ++q) {
+        const int t = t0 + q;
+        ok[q] = t < p.T;
+        const int64_t tk = (int64_t)t * k;
+        const bool mine = ok[q] && lane < k;
+        ij[q] = mine ? min(max(__ldg(p.idx + tk + lane), 0), E - 1) : 0;
+        const float wj = mine ? __ldg(p.weights + tk + lane) : 0.f;
+        dwj[q] = mine ? __ldg(p.dweights + tk + lane) : 0.f;
+        pw[q] = __fmul_rn(dwj[q], wj);
+    }
+#pragma unroll
+    for (int q = 0; q < B; ++q) {
+        const int64_t tE = (int64_t)(t0 + q) * E;
+        v[q] = ok[q] && lane < k ? __ldg(p.gates + tE + ij[q]) : 0.f;
+        float* row = rows + q * E;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+            const int e = lane + 32 * c;
+            g[q][c] = ok[q] && e < E ? __ldg(p.gates + tE + e) : 0.f;
+            if (e < E)
+                row[e] = ok[q] && p.dgates != nullptr ? __ldg(p.dgates + tE + e) : 0.f;
+        }
+    }
+    for (int j = 0; j < k; ++j) {
+#pragma unroll
+        for (int q = 0; q < B; ++q) {
+            const float vj = __shfl_sync(0xffffffffu, v[q], j);
+            const float pj = __shfl_sync(0xffffffffu, pw[q], j);
+            s[q] = j == 0 ? vj : __fadd_rn(s[q], vj);
+            dot[q] = j == 0 ? pj : __fadd_rn(dot[q], pj);
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < B; ++q) {
+        const float den = s[q] < 1e-9f ? 1e-9f : s[q];
+        dv[q] = __fdiv_rn(__fsub_rn(dwj[q], s[q] >= 1e-9f ? dot[q] : 0.f), den);
     }
     __syncwarp();
     for (int j = 0; j < k; ++j) {
-        const float dvj = __shfl_sync(0xffffffffu, dv, j);
-        const int ej = __shfl_sync(0xffffffffu, ij, j);
-        if (lane == 0) row[ej] = __fadd_rn(row[ej], dvj);
+#pragma unroll
+        for (int q = 0; q < B; ++q) {
+            const float dvj = __shfl_sync(0xffffffffu, dv[q], j);
+            const int ej = __shfl_sync(0xffffffffu, ij[q], j);
+            if (lane == 0 && ok[q]) rows[q * E + ej] = __fadd_rn(rows[q * E + ej], dvj);
+        }
         __syncwarp();
     }
-    float sum = 0.f;
+    float dg[B][C];
 #pragma unroll
-    for (int c = 0; c < kRbMaxE / 32; ++c) {
-        const int e = lane + 32 * c;
-        dg[c] = e < E ? row[e] : 0.f;
-        sum = fmaf(g[c], dg[c], sum);
+    for (int q = 0; q < B; ++q) {
+        sum[q] = 0.f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+            const int e = lane + 32 * c;
+            dg[q][c] = e < E ? rows[q * E + e] : 0.f;
+            sum[q] = fmaf(g[q][c], dg[q][c], sum[q]);
+        }
     }
 #pragma unroll
-    for (int m = 16; m > 0; m >>= 1) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, m));
+    for (int m = 16; m > 0; m >>= 1)
 #pragma unroll
-    for (int c = 0; c < kRbMaxE / 32; ++c) {
-        const int e = lane + 32 * c;
-        if (e < E) row[e] = g[c] * (dg[c] - sum);
-    }
+        for (int q = 0; q < B; ++q)
+            sum[q] = __fadd_rn(sum[q], __shfl_xor_sync(0xffffffffu, sum[q], m));
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < B; ++q)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+            const int e = lane + 32 * c;
+            if (e < E) rows[q * E + e] = ok[q] ? g[q][c] * (dg[q][c] - sum[q]) : 0.f;
+        }
 }
 
 // True in every thread of the one block that arrives last at `counter`
@@ -897,105 +990,299 @@ __device__ bool last_to_arrive(int* counter, int n, int* flag) {
     return true;
 }
 
-// Grid (token tiles, column groups of 64).  A block takes its tile's tokens
-// 64 at a time: their dlogits (a warp a token), dx for its 64 columns
-// (fp32, e in order, one bf16 rounding), and its dw partial, each (d, e)
-// an FMA chain over the tile's tokens in order in registers (warp w: d = 8
-// w .. 8 w + 7; lane: e = lane + 32 c).  With one tile the partial is dw;
-// otherwise the tiles' partials meet in the workspace and the last block of
-// the column group adds them in tile order.
-template <int CE>
-__global__ void __launch_bounds__(kThreads) moe_route_backward_kernel(const RbParams p) {
-    extern __shared__ float sm[];
-    __shared__ int flag;
-    const int E = p.E, ldE = E + 1;
-    float* ws = sm;                          // (64 d, E + 1): w's rows d0 ..
-    float* dl = ws + kRbDs * ldE;            // (64 tokens, E + 1): dlogits
-    float* xs = dl + kRbSub * ldE;           // (64 tokens, 64 d): x in fp32
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int tile = blockIdx.x, d0 = blockIdx.y * kRbDs;
-    const int nd = min(kRbDs, p.D - d0);
-    for (int q = threadIdx.x; q < kRbDs * E; q += kThreads) {
-        const int d = q / E, e = q - d * E;
-        ws[d * ldE + e] = d < nd ? __ldg(p.w + (int64_t)(d0 + d) * E + e) : 0.f;
-    }
-    float acc[8][CE];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < CE; ++c) acc[i][c] = 0.f;
-    const int t_begin = tile * p.s.tile_subs * kRbSub;
-    const int t_end = min(p.T, t_begin + p.s.tile_subs * kRbSub);
-    for (int t0 = t_begin; t0 < t_end; t0 += kRbSub) {
-        __syncthreads();                     // the previous sub-tile's dl and xs are read
-        for (int q = threadIdx.x; q < kRbSub * kRbDs; q += kThreads) {
-            const int r = q / kRbDs, d = q - r * kRbDs, t = t0 + r;
-            xs[q] = t < p.T && d < nd ? __bfloat162float(p.x[(int64_t)t * p.D + d0 + d]) : 0.f;
+// Chunk ch of w's rows (dc rows d0 .., E floats each) into stage, at a
+// stride of wst floats, 16 bytes a copy where E % 4 == 0 (rows past D are
+// left as they are).  One group.
+__device__ __forceinline__ void rb_stage_w(const RbParams& p, int ch, float* stage) {
+    const int d0 = ch * p.s.dc, nd = min(p.s.dc, p.D - d0), E = p.E, wst = p.s.wst;
+    const float* src = p.w + (int64_t)d0 * E;
+    if (p.w_vec) {
+        const int e4 = E / 4;
+        for (int i = threadIdx.x; i < nd * e4; i += kThreads) {
+            const int d = i / e4, c = i - d * e4;
+            rb_cp_async<16>(stage + d * wst + 4 * c, src + (int64_t)d * E + 4 * c);
         }
-        for (int r = warp; r < kRbSub; r += kThreads / 32) token_dlogits(p, t0 + r, dl + r * ldE);
+    } else {
+        for (int i = threadIdx.x; i < nd * E; i += kThreads) {
+            const int d = i / E;
+            rb_cp_async<4>(stage + d * wst + i - d * E, src + i);
+        }
+    }
+    rb_commit();
+}
+
+// dx launch (grid: token tiles of 64).  Each token's dlogits once (a warp
+// 8 tokens, tokens_dlogits), kept transposed in shared memory (E, 64 + 4)
+// and written to the workspace for the dw launch; then dx over D in chunks
+// of dc columns through a two-stage ring of w rows: dx[t, d] = bf16(sum_e
+// dl[t, e] w[d, e]), one FMA chain in e order from 0 (the order of the
+// earlier route backward kernel, so dx stays bitwise).
+template <int CI>
+__global__ void __launch_bounds__(kThreads) moe_route_backward_dx_kernel(const RbParams p) {
+    extern __shared__ __align__(16) float rsm[];
+    const RbShape& s = p.s;
+    const int E = p.E, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int t0 = blockIdx.x * kRbTokens;
+    float* dls = rsm;                                // (E, 68): dlogits, token-minor
+    float* rows = dls + E * kRbDlStride;             // (8 warps, kRbBatch, E): dlogits rows
+    float* wst = rows + 8 * kRbBatch * E;            // (stages, dc, wst)
+    const int wsz = s.dc * s.wst;
+    for (int i = 0; i < kRbStages; ++i) {
+        if (i < s.n_chunks) rb_stage_w(p, i, wst + i * wsz);
+        else rb_commit();
+    }
+    float* row = rows + warp * kRbBatch * E;
+    for (int h = 0; h < 8; h += kRbBatch) {
+        tokens_dlogits<kRbBatch>(p, t0 + 8 * warp + h, row);
+        __syncwarp();
+        for (int q = 0; q < kRbBatch; ++q) {
+            const int tl = 8 * warp + h + q, t = t0 + tl;
+            for (int e = lane; e < E; e += 32) {
+                dls[e * kRbDlStride + tl] = row[q * E + e];
+                if (t < p.T) p.dl[(int64_t)t * E + e] = row[q * E + e];
+            }
+        }
+        __syncwarp();
+    }
+    const int nt = min(8, max(0, p.T - (t0 + 8 * warp)));   // this warp's tokens in T
+    for (int ch = 0; ch < s.n_chunks; ++ch) {
+        rb_wait<kRbStages - 1>();
         __syncthreads();
-        // dx: warp w tokens w + 8 i, lane columns lane and lane + 32
-        float s0[8], s1[8];
+        const float* ws = wst + (ch % kRbStages) * wsz + lane * s.wst;
+        const float* dl = dls + 8 * warp;
+        float acc[8][CI];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) s0[i] = s1[i] = 0.f;
-        for (int e = 0; e < E; ++e) {
-            const float w0 = ws[lane * ldE + e], w1 = ws[(lane + 32) * ldE + e];
+        for (int a = 0; a < 8; ++a)
 #pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                const float gv = dl[(warp + 8 * i) * ldE + e];
-                s0[i] = fmaf(gv, w0, s0[i]);
-                s1[i] = fmaf(gv, w1, s1[i]);
+            for (int b = 0; b < CI; ++b) acc[a][b] = 0.f;
+        const int e4 = E & ~3;
+        for (int e0 = 0; e0 < e4; e0 += 4) {
+            float4 w4[CI];
+#pragma unroll
+            for (int b = 0; b < CI; ++b)
+                w4[b] = *reinterpret_cast<const float4*>(ws + 32 * b * s.wst + e0);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const float* de = dl + (e0 + q) * kRbDlStride;
+                const float4 g0 = *reinterpret_cast<const float4*>(de);
+                const float4 g1 = *reinterpret_cast<const float4*>(de + 4);
+                const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+                for (int a = 0; a < 8; ++a)
+#pragma unroll
+                    for (int b = 0; b < CI; ++b) {
+                        const float wq = q == 0 ? w4[b].x : q == 1 ? w4[b].y : q == 2 ? w4[b].z
+                                                                                   : w4[b].w;
+                        acc[a][b] = fmaf(gv[a], wq, acc[a][b]);
+                    }
             }
         }
+        for (int e = e4; e < E; ++e) {
+            const float4 g0 = *reinterpret_cast<const float4*>(dl + e * kRbDlStride);
+            const float4 g1 = *reinterpret_cast<const float4*>(dl + e * kRbDlStride + 4);
+            const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            const int t = t0 + warp + 8 * i;
-            if (t >= p.T) continue;
-            __nv_bfloat16* dx = p.dx + (int64_t)t * p.D + d0;
-            if (lane < nd) dx[lane] = __float2bfloat16_rn(s0[i]);
-            if (lane + 32 < nd) dx[lane + 32] = __float2bfloat16_rn(s1[i]);
+            for (int a = 0; a < 8; ++a)
+#pragma unroll
+                for (int b = 0; b < CI; ++b)
+                    acc[a][b] = fmaf(gv[a], ws[32 * b * s.wst + e], acc[a][b]);
         }
-        // dw partial: tokens in order (rows past T are zero)
-        for (int r = 0; r < kRbSub; ++r) {
-            float xv[8], gv[CE];
+        const int d0 = ch * s.dc;
 #pragma unroll
-            for (int i = 0; i < 8; ++i) xv[i] = xs[r * kRbDs + 8 * warp + i];
+        for (int a = 0; a < 8; ++a) {
+            if (a >= nt) break;
+            __nv_bfloat16* dst = p.dx + (int64_t)(t0 + 8 * warp + a) * p.D + d0 + lane;
 #pragma unroll
-            for (int c = 0; c < CE; ++c) {
-                const int e = lane + 32 * c;
-                gv[c] = e < E ? dl[r * ldE + e] : 0.f;
-            }
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-                for (int c = 0; c < CE; ++c) acc[i][c] = fmaf(xv[i], gv[c], acc[i][c]);
+            for (int b = 0; b < CI; ++b)
+                if (d0 + lane + 32 * b < p.D) dst[32 * b] = __float2bfloat16_rn(acc[a][b]);
         }
-    }
-    float* dst = p.s.n_tiles > 1 ? p.part + (int64_t)tile * p.D * E : p.dw;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < CE; ++c) {
-            const int d = 8 * warp + i, e = lane + 32 * c;
-            if (d < nd && e < E) dst[(int64_t)(d0 + d) * E + e] = acc[i][c];
-        }
-    if (p.s.n_tiles == 1) return;
-    if (!last_to_arrive(p.counters + blockIdx.y, p.s.n_tiles, &flag)) return;
-    for (int q = threadIdx.x; q < nd * E; q += kThreads) {
-        const int64_t at = (int64_t)d0 * E + q;
-        float sum = __ldcg(p.part + at);
-        for (int tl = 1; tl < p.s.n_tiles; ++tl)
-            sum = __fadd_rn(sum, __ldcg(p.part + (int64_t)tl * p.D * E + at));
-        p.dw[at] = sum;
+        __syncthreads();                     // the stage is refilled next
+        if (ch + kRbStages < s.n_chunks)
+            rb_stage_w(p, ch + kRbStages, wst + (ch % kRbStages) * wsz);
+        else
+            rb_commit();
     }
 }
 
-template <int CE>
+// Stage i of the dw launch's split (tokens ts + 32 i ..): x rows (32, dt)
+// bf16 (columns d0 .. within D) and dlogits rows (32, ep) fp32 (E of them);
+// tokens past the split's end or T are zero rows.  One group.
+__device__ __forceinline__ void rb_stage_dw(const RbParams& p, int t_lo, int t_hi, int d0,
+                                            unsigned char* stage) {
+    const RbShape& s = p.s;
+    const int tid = threadIdx.x, nth = s.wthreads, nd = min(s.dt, p.D - d0), E = p.E;
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(stage);
+    float* ds = reinterpret_cast<float*>(stage + kRbWTokens * s.dt * 2);
+    const int n = t_hi - t_lo;
+    if (p.x_vec) {
+        const int cpr = s.dt / 8;
+        for (int i = tid; i < kRbWTokens * cpr; i += nth) {
+            const int r = i / cpr, c = 8 * (i - r * cpr);
+            if (r < n && c < nd)
+                rb_cp_async<16>(xs + r * s.dt + c, p.x + (int64_t)(t_lo + r) * p.D + d0 + c);
+            else
+                *reinterpret_cast<uint4*>(xs + r * s.dt + c) = make_uint4(0u, 0u, 0u, 0u);
+        }
+    } else {
+        const int cpr = s.dt / 2;
+        for (int i = tid; i < kRbWTokens * cpr; i += nth) {
+            const int r = i / cpr, c = 2 * (i - r * cpr);
+            if (r < n && c < nd)
+                rb_cp_async<4>(xs + r * s.dt + c, p.x + (int64_t)(t_lo + r) * p.D + d0 + c);
+            else
+                *reinterpret_cast<uint32_t*>(xs + r * s.dt + c) = 0u;
+        }
+    }
+    if (p.dl_vec) {
+        const int cpr = E / 4;
+        for (int i = tid; i < kRbWTokens * cpr; i += nth) {
+            const int r = i / cpr, c = 4 * (i - r * cpr);
+            if (r < n) rb_cp_async<16>(ds + r * s.ep + c, p.dl + (int64_t)(t_lo + r) * E + c);
+            else *reinterpret_cast<float4*>(ds + r * s.ep + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+    } else {
+        for (int i = tid; i < kRbWTokens * E; i += nth) {
+            const int r = i / E, c = i - r * E;
+            if (r < n) rb_cp_async<4>(ds + r * s.ep + c, p.dl + (int64_t)(t_lo + r) * E + c);
+            else ds[r * s.ep + c] = 0.f;
+        }
+    }
+    rb_commit();
+}
+
+// dw launch (grid: D tiles of dt x token splits; two halves of wthreads).
+// Thread (h, dg, eg) holds d0 + 8 dg .. + 7 x experts 4 eg .. + 3 and ep /
+// 2 + 4 eg ..: an FMA chain from 0 over the split's tokens in order, half h
+// taking tokens 16 h .. 16 h + 15 of every 32-token stage (x from the bf16
+// rows, dlogits from the dx launch's workspace, a four-stage cp.async
+// ring); the block's partial is half 0's chain + half 1's.  One split
+// writes dw; otherwise the partials meet in the workspace and the last
+// block of the D tile adds them in split order.
+__global__ void __launch_bounds__(2 * kRbWThreads) moe_route_backward_dw_kernel(const RbParams p) {
+    extern __shared__ __align__(16) unsigned char wsm[];
+    __shared__ int flag;
+    const RbShape& s = p.s;
+    const int E = p.E, tid = threadIdx.x, nth = s.wthreads, base = nth / 2;
+    const int hf = tid / base, ht = tid - hf * base;
+    const int eg = ht & (s.ne - 1), dg = ht / s.ne;
+    const int d0 = blockIdx.x * s.dt, split = blockIdx.y;
+    const int ts = split * s.split, te = min(p.T, ts + s.split);
+    const int n_st = cdiv(te - ts, kRbWTokens);
+    const int stage_bytes = kRbWTokens * (s.dt * 2 + s.ep * 4), half = s.ep / 2;
+    float acc[8][8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+    for (int i = 0; i < kRbWStages - 1; ++i) {
+        if (i < n_st) rb_stage_dw(p, ts + i * kRbWTokens, min(te, ts + (i + 1) * kRbWTokens), d0,
+                                  wsm + i * stage_bytes);
+        else rb_commit();
+    }
+    for (int i = 0; i < n_st; ++i) {
+        const int ahead = i + kRbWStages - 1;
+        if (ahead < n_st)
+            rb_stage_dw(p, ts + ahead * kRbWTokens, min(te, ts + (ahead + 1) * kRbWTokens), d0,
+                        wsm + (ahead % kRbWStages) * stage_bytes);
+        else
+            rb_commit();
+        rb_wait<kRbWStages - 1>();
+        __syncthreads();
+        const unsigned char* st = wsm + (i % kRbWStages) * stage_bytes;
+        const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(st) + 8 * dg;
+        const float* ds = reinterpret_cast<const float*>(st + kRbWTokens * s.dt * 2) + 4 * eg;
+        const int n = min(kRbWTokens, te - ts - i * kRbWTokens);
+        const int r_end = min(n, (hf + 1) * (kRbWTokens / 2));
+#pragma unroll 2
+        for (int r = hf * (kRbWTokens / 2); r < r_end; ++r) {
+            const uint4 xr = *reinterpret_cast<const uint4*>(xs + r * s.dt);
+            const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xr);
+            float xv[8];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const float2 f = __bfloat1622float2(xp[q]);
+                xv[2 * q] = f.x;
+                xv[2 * q + 1] = f.y;
+            }
+            const float4 g0 = *reinterpret_cast<const float4*>(ds + r * s.ep);
+            const float4 g1 = *reinterpret_cast<const float4*>(ds + r * s.ep + half);
+            const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+            for (int a = 0; a < 8; ++a)
+#pragma unroll
+                for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(xv[a], gv[b], acc[a][b]);
+        }
+        __syncthreads();                     // the stage is refilled next
+    }
+    float* xch = reinterpret_cast<float*>(wsm);      // (base, 64): half 1's chains
+    if (hf == 1) {
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+            for (int b = 0; b < 8; ++b) xch[(8 * a + b) * base + ht] = acc[a][b];
+    }
+    __syncthreads();
+    float* dst = s.splits > 1 ? p.part + (int64_t)split * p.D * E : p.dw;
+    if (hf == 0) {
+#pragma unroll
+        for (int a = 0; a < 8; ++a) {
+            const int d = d0 + 8 * dg + a;
+            if (d >= p.D) break;
+#pragma unroll
+            for (int b = 0; b < 8; ++b) {
+                const int e = (b < 4 ? 0 : half) + 4 * eg + (b & 3);
+                if (e < E)
+                    dst[(int64_t)d * E + e] = __fadd_rn(acc[a][b], xch[(8 * a + b) * base + ht]);
+            }
+        }
+    }
+    if (s.splits == 1) return;
+    if (!last_to_arrive(p.counters + blockIdx.x, s.splits, &flag)) return;
+    const int64_t lo = (int64_t)d0 * E, hi = (int64_t)min(p.D, d0 + s.dt) * E;
+    const int64_t stride = (int64_t)p.D * E;
+    const int vw = p.dl_vec ? 4 : 1;     // E % 4 == 0: the tile's range is float4 aligned
+#pragma unroll 2
+    for (int64_t q = lo + vw * tid; q < hi; q += vw * nth) {
+        float v[kRbMaxSplits][4];
+#pragma unroll
+        for (int sp = 0; sp < kRbMaxSplits; ++sp) {
+            if (sp >= s.splits) break;
+            if (vw == 4) {
+                const float4 f = __ldcg(reinterpret_cast<const float4*>(p.part + sp * stride + q));
+                v[sp][0] = f.x;
+                v[sp][1] = f.y;
+                v[sp][2] = f.z;
+                v[sp][3] = f.w;
+            } else {
+                v[sp][0] = __ldcg(p.part + sp * stride + q);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            if (j >= vw) break;
+            float sum = v[0][j];
+#pragma unroll
+            for (int sp = 1; sp < kRbMaxSplits; ++sp)
+                if (sp < s.splits) sum = __fadd_rn(sum, v[sp][j]);
+            p.dw[q + j] = sum;
+        }
+    }
+}
+
+template <int CI>
 cudaError_t launch_route_backward(const RbParams& p, cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(moe_route_backward_kernel<CE>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, p.s.smem);
+    cudaError_t err = cudaFuncSetAttribute(moe_route_backward_dx_kernel<CI>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           p.s.dx_smem);
     if (err != cudaSuccess) return err;
-    moe_route_backward_kernel<CE><<<dim3(p.s.n_tiles, p.s.n_dg), kThreads, p.s.smem, stream>>>(p);
+    moe_route_backward_dx_kernel<CI><<<p.s.n_tok_tiles, kThreads, p.s.dx_smem, stream>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(moe_route_backward_dw_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, p.s.dw_smem);
+    if (err != cudaSuccess) return err;
+    moe_route_backward_dw_kernel<<<dim3(p.s.n_dt, p.s.splits), p.s.wthreads, p.s.dw_smem,
+                                   stream>>>(p);
     return cudaGetLastError();
 }
 
@@ -1205,39 +1492,50 @@ int moe_weight_grad_launch(const void* const* ptrs, const int* dims, int n_jobs,
     return (int)cudaGetLastError();
 }
 
-// The route backward's shape for (T, D, E, k): out[0] token tiles, out[1]
-// column groups, out[2] dynamic shared memory bytes, out[3] workspace bytes
-// (clamped to 2^31 - 1).  T >= 1, D even and at most 4096, 1 <= k <= E <=
-// 128, k <= 32.
+// The route backward's shape for (T, D, E, k): out[0] token tiles of the
+// dx launch, out[1] its columns a chunk, out[2] its dynamic shared memory
+// bytes, out[3] workspace bytes (clamped to 2^31 - 1), out[4] the dw
+// launch's D tiles, out[5] its columns a tile, out[6] its token splits,
+// out[7] its tokens a split, out[8] its threads a block, out[9] its
+// dynamic shared memory bytes.  T >= 1, D even and at most 4096, 1 <= k <=
+// E <= 128, k <= 32.
 int moe_route_backward_plan(int T, int D, int E, int k, int* out) {
     if (T < 1 || D < 2 || D % 2 || D > kRbMaxD || E < 1 || E > kRbMaxE || k < 1 || k > E ||
         k > kRbMaxK || out == nullptr)
         return (int)cudaErrorInvalidValue;
     const RbShape s = rb_shape(T, D, E);
-    out[0] = s.n_tiles;
-    out[1] = s.n_dg;
-    out[2] = s.smem;
-    out[3] = (int)(s.part_floats * 4 < 0x7fffffff ? s.part_floats * 4 : 0x7fffffff);
+    out[0] = s.n_tok_tiles;
+    out[1] = s.dc;
+    out[2] = s.dx_smem;
+    out[3] = (int)(s.ws_bytes < 0x7fffffff ? s.ws_bytes : 0x7fffffff);
+    out[4] = s.n_dt;
+    out[5] = s.dt;
+    out[6] = s.splits;
+    out[7] = s.split;
+    out[8] = s.wthreads;
+    out[9] = s.dw_smem;
     return 0;
 }
 
-// One launch of the route backward (see moe_route_backward_kernel): x (T,
-// D) bf16, w (D, E) fp32, gates (T, E) fp32, weights (T, k) fp32, idx (T,
-// k) int32, dweights (T, k) fp32, dgates (T, E) fp32 or null -> dx (T, D)
-// bf16, dw (D, E) fp32.  workspace holds moe_route_backward_plan's bytes
-// (16-byte aligned); counters, kRbCounters int32 zeros on the device, are
-// left zero by every launch that completes (launches sharing them must not
-// overlap).
+// The route backward, two launches (see moe_route_backward_dx_kernel and
+// moe_route_backward_dw_kernel): x (T, D) bf16, w (D, E) fp32, gates (T, E)
+// fp32, weights (T, k) fp32, idx (T, k) int32, dweights (T, k) fp32,
+// dgates (T, E) fp32 or null -> dx (T, D) bf16, dw (D, E) fp32.  workspace
+// holds moe_route_backward_plan's bytes (16-byte aligned): the dlogits and
+// the dw launch's split partials; counters, kRbCounters int32 zeros on the
+// device, are left zero by every launch that completes (launches sharing
+// them must not overlap).
 int moe_route_backward_launch(const void* x, const void* w, const void* gates,
                               const void* weights, const void* idx, const void* dweights,
                               const void* dgates, void* dx, void* dw, void* workspace,
                               void* counters, int T, int D, int E, int k, void* stream) {
     if (T < 1 || D < 2 || D % 2 || D > kRbMaxD || E < 1 || E > kRbMaxE || k < 1 || k > E ||
-        k > kRbMaxK || counters == nullptr || misaligned(workspace))
+        k > kRbMaxK || counters == nullptr || workspace == nullptr || misaligned(workspace) ||
+        (reinterpret_cast<uintptr_t>(x) & 3))
         return (int)cudaErrorInvalidValue;
     RbParams p;
     p.s = rb_shape(T, D, E);
-    if (p.s.n_dg > kRbCounters || (p.s.n_tiles > 1 && workspace == nullptr))
+    if (p.s.n_dt > kRbCounters || p.s.dx_smem > kSmemLimit || p.s.dw_smem > kSmemLimit - 1024)
         return (int)cudaErrorInvalidValue;
     p.x = static_cast<const __nv_bfloat16*>(x);
     p.w = static_cast<const float*>(w);
@@ -1248,16 +1546,18 @@ int moe_route_backward_launch(const void* x, const void* w, const void* gates,
     p.dgates = static_cast<const float*>(dgates);
     p.dx = static_cast<__nv_bfloat16*>(dx);
     p.dw = static_cast<float*>(dw);
-    p.part = static_cast<float*>(workspace);
+    p.dl = static_cast<float*>(workspace);
+    p.part = static_cast<float*>(workspace) + p.s.dl_floats;
     p.counters = static_cast<int*>(counters);
     p.T = T;
     p.D = D;
     p.E = E;
     p.k = k;
+    p.x_vec = D % 8 == 0 && !misaligned(x);
+    p.dl_vec = E % 4 == 0;
+    p.w_vec = E % 4 == 0 && !misaligned(w);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (E <= 32) return (int)launch_route_backward<1>(p, st);
-    if (E <= 64) return (int)launch_route_backward<2>(p, st);
-    return (int)launch_route_backward<4>(p, st);
+    return (int)(p.s.ci == 8 ? launch_route_backward<8>(p, st) : launch_route_backward<4>(p, st));
 }
 
 const char* moe_backward_error_string(int err) {

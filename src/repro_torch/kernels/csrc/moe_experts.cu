@@ -74,30 +74,38 @@
 // its tile's products (~27 GFLOP a layer, ~0.03 ms), which costs nothing
 // while bytes stay in flight.
 
-// Routing (moe_route_launch), one launch a layer.  The JAX package routes
-// with an fp32 einsum, softmax, jax.lax.top_k and a renormalisation
+// Routing (moe_route_launch): the JAX package routes with an fp32 einsum,
+// softmax, jax.lax.top_k and a renormalisation
 // (src/repro/models/moe.py::moe_ffn); no Pallas kernel stands behind it.
-// The launch writes the logits (T, E) = x (T, D) bf16 widened to fp32
-// times w (D, E) fp32 on the CUDA cores (never TF32), the softmax, the
-// top-k (ties to the lower expert) or the experts a caller forces, the k
-// weights summed in order and divided by max(sum, 1e-9), and the stable
-// counting sort of the T k pairs by expert: offsets, the pair at each
-// sorted row (order, and its token), each pair's sorted row (pos) and its
-// rank within its expert.  Each logit is one fixed-order sum (32 slices of
-// D, each an FMA chain in d order, the slice sums added in slice order):
-// bitwise the order of the earlier router kernel, and row-invariant, so a
-// route cannot flip between a decode step and a chunk.  The grid, from
-// shapes alone, splits a tile's 32 slices over up to 32 blocks while the
-// tiles alone leave SMs idle (a decode step of 8 tokens runs on 32 SMs,
-// not 2); the last block of a tile (an atomic counter) adds the slices
-// and routes its tokens, and the last tile to finish sorts, then sets the
-// counters back to 0 for the next launch.  Bound: at decode by latency
-// (the bytes, 0.5 MB of weights, take 0.17 us); at 4096 tokens by fp32
-// operations (1.07 GFLOP, 16 us at 67 TFLOP/s).  There the product, one
-// token a lane and each weight a broadcast 16-byte shared-memory load
-// (four wavefronts for 4 FMAs a lane), is held by shared-memory
-// wavefronts, not by the FMA pipes.
-//
+// One launch writes the logits (T, E) = x (T, D) bf16 widened to fp32 times
+// w (D, E) fp32 on the CUDA cores (never TF32), the softmax, the top-k
+// (ties to the lower expert) or the experts a caller forces, the k weights
+// summed in order and divided by max(sum, 1e-9), and each pair's rank
+// within its expert in its tile; a tile's block also sorts when one tile
+// holds every token, else a second launch (moe_route_sort_kernel) does:
+// the stable counting sort of the T k pairs by expert (offsets, the pair
+// at each sorted row and its token, each pair's sorted row and rank).
+// Each logit is one fixed-order sum (32 slices of D, each an FMA chain in
+// d order from 0, the slice sums added in slice order): bitwise the order
+// of the earlier router kernels, and row-invariant, so a route cannot flip
+// between a decode step and a chunk.  The softmax's sum is taken in the
+// order of a warp's xor reduction over 32 lanes of up to 4 experts each
+// (the earlier kernel's), so the gates stay bitwise too.  Bound: at decode
+// by latency (the bytes, 0.5 MB of weights, take 0.17 us); at 4096 tokens
+// by fp32 operations (1.07 GFLOP, 16 us at 67 TFLOP/s).  The product is
+// register-tiled: a thread holds 8 tokens x 8 experts of one slice (2
+// tokens at small T), so one shared-memory load of w (a float4) feeds 32
+// FMAs and one of x (a bf16 pair) 16; a block's 8 warps take 8 slices of
+// the same tokens at once and fold each round's chains in slice order
+// through shared memory.  A ninth warp issues the ring's stages by TMA
+// (full and empty mbarriers), so the loads overlap the products.  The
+// grid, from shapes alone, splits a tile's slices over blocks while the
+// tiles alone would leave SMs idle; the last block of a tile (an atomic
+// counter) adds the slices from the workspace.  The serial rest runs a warp
+// a token, up to 4 tokens of a warp at once: the softmax, the top-k as k
+// rounds of a warp argmax, the weights; the 8 warps rank an eighth of the
+// tile's pairs each.  Counters are left at 0, so a launch is capturable.
+
 // Combine (moe_combine_launch), one launch a layer: out (T, D) bf16 from
 // the expert rows in sorted order, each pair's row found through pos,
 // with the plain combine's roundings (each product bf16, the k products
@@ -468,61 +476,104 @@ bool encode_group(CUtensorMap* a, CUtensorMap* w1, CUtensorMap* w2, const void* 
 // -- routing and combine ------------------------------------------------------------
 
 constexpr int kRouteSlices = 32;     // slices of D, each one FMA chain, summed in order
-constexpr int kRouteThreads = 512;
-constexpr int kRouteStages = 3;      // cp.async ring of slices
+constexpr int kRouteThreads = 256;           // the routing launch's compute threads (8 warps)
+constexpr int kRouteWarps = kRouteThreads / 32;
+constexpr int kRouteBlock = kRouteThreads + 32;  // and one producer warp issuing the TMA stages
+constexpr int kRouteStages = 3;      // the ring of stages (TMA or cp.async) at most
 constexpr int kRouteMaxE = 128;
 constexpr int kRouteMaxK = 32;
 constexpr int kRouteMaxD = 4096;
-constexpr int kRouteTilePairs = 2048;  // tt k is at most this for every E
-constexpr int kRouteScanInts = 1024;   // the sort's buffer of tile counts
-constexpr int kRouteSortSmem = 160 * 1024;  // the sort builds `order` in shared memory up to this
-constexpr int kRouteCounters = 256;  // ints of the counter buffer: one a tile, the last global
-constexpr int kRouteSortBatch = 8;   // pairs a thread scatters at a time in the sort
-constexpr int kRouteStaticSmem = (kRouteTilePairs + kRouteMaxE + 4) * 4;
+constexpr int kRouteStageCap = 32 * 1024;    // bytes of w, and of x, one stage holds at most
+constexpr int kRouteSortBlocks = 256;        // the sort launch's blocks (more only past its table)
+constexpr int kRoutePrefetch = 4;            // pairs a sort thread reads before the counts
+constexpr int kRouteSortTable = 160 * 1024;  // bytes of the sort launch's tile bases
+constexpr int kRouteCounters = 256;  // ints of the counter buffer: one a tile (groups > 1)
 
-// The launch's shape, from (T, D, E, k) and the SM count alone.  A lane
-// is a token; a thread holds 4 ce experts of it (the experts padded to ep
-// = 4 eq, a power of two, split over wq warps), so a warp reads each
-// weight once for its 32 tokens (a broadcast) and each token's x pair
-// once (rows padded to an odd word stride: no bank conflict).  The 32
-// slices of a tile go to `groups` blocks (groups > 1 only while tiles x
-// groups fill at most the SMs), whose partial sums meet in the
-// workspace.  The dynamic shared memory holds the slice ring, then
-// (reused) the tile's logits, then in the last block the sort.
+__host__ __device__ constexpr int64_t route_cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// The launch's shape, from (T, D, E, k) and the SM count alone.
+//
+// Product.  A thread holds tm tokens x 8 experts of one slice (tm = 8, or
+// 2 while tiles of 8 would leave most SMs idle): ep = E padded to 8 nc
+// (nc a power of two) splits over nc lanes, 4 + 4 experts a lane (4c ..
+// 4c + 3 and ep / 2 + 4c ..), the tokens over 32 / nc lanes (row r takes
+// tokens r, r + 32 / nc, ...).  Per two d a lane reads one bf16 pair of x
+// per token and four float4 of w (the same for the lanes of a column: a
+// broadcast), and does 16 tm FMAs.  A block is 8 compute warps: ws slice
+// warps x wt token warps; the ws warps take ws slices of the same tokens
+// at once, a tile is the wt x btw tokens.  The 32 slices of a tile go to
+// `groups` blocks; with one group the block walks `rounds` rounds of ws
+// slices and folds each round's chains in slice order into registers
+// (through the fold buffer), otherwise every slice's chain meets the
+// others' in the workspace.  A stage holds the ws slices' next ks values
+// of d: for each slice a box of x (tt rows of ks bf16, dense) and one of w
+// (ks rows of ep fp32), each on a 128-byte boundary, loaded by TMA (a
+// producer warp, full and empty mbarriers a stage) where the tensors' rows
+// are 16-byte multiples, else by cp.async.
 struct RouteShape {
-    int eq, ep, wq, ce, tt, n_tiles, groups, slice, xs_words, x_bytes, stage_bytes, smem;
-    bool sort_smem, table_smem;
+    int tm, nc, ep, btw, groups, ws, wt, tt, n_tiles, rounds, slice, stages, ks, subs, xs_words;
+    int x_box, w_box, x_bytes, stage_bytes, fold_bytes, smem;
+    int sort_chunk, sort_blocks, sort_smem;
+    bool tma;
     int64_t part_floats, ws_bytes;
 };
 
+__host__ __device__ constexpr int route_align128(int b) { return (b + 127) & ~127; }
+
 RouteShape route_shape(int T, int D, int E, int k, int sms) {
     RouteShape s;
-    s.eq = 1;
-    while (4 * s.eq < E) s.eq *= 2;
-    s.ep = 4 * s.eq;
-    s.wq = min(kRouteThreads / 32, s.eq);
-    s.ce = s.eq / s.wq;
-    s.tt = 32 * (kRouteThreads / 32 / s.wq);
-    s.n_tiles = (T + s.tt - 1) / s.tt;
-    s.groups = 1;
-    while (s.groups < kRouteSlices && (int64_t)s.n_tiles * s.groups * 2 <= sms) s.groups *= 2;
+    s.nc = 1;
+    while (8 * s.nc < E) s.nc *= 2;
+    s.ep = 8 * s.nc;
     s.slice = (((D + kRouteSlices - 1) / kRouteSlices) + 1) & ~1;
-    s.xs_words = s.slice / 2 + 1;
-    s.x_bytes = (s.tt * s.xs_words * 4 + 15) & ~15;
-    s.stage_bytes = s.x_bytes + s.slice * s.ep * 4;
-    // the sort's shared memory: `order` (T k ints) and the tiles' counts
-    // (n_tiles E ints, else a chunk of them), each where it fits
-    const int64_t order_bytes = (int64_t)T * k * 4, table_bytes = (int64_t)s.n_tiles * E * 4;
-    s.sort_smem = order_bytes + kRouteScanInts * 4 <= kRouteSortSmem;
-    s.table_smem = s.sort_smem && order_bytes + max(table_bytes, (int64_t)kRouteScanInts * 4) <=
-                                      kRouteSortSmem;
-    const int64_t sort_bytes = (s.sort_smem ? order_bytes : 0) +
-                               (s.table_smem ? max(table_bytes, (int64_t)kRouteScanInts * 4)
-                                             : kRouteScanInts * 4);
-    s.smem = max(kRouteStages * s.stage_bytes, s.tt * s.ep * 4);
-    s.smem = max(s.smem, (int)sort_bytes);
+    const int rows = 32 / s.nc;
+    s.tm = route_cdiv(T, rows * 8) * 4 >= sms ? 8 : 2;
+    s.btw = rows * s.tm;
+    // groups: the cheapest split (a block's w bytes plus the fold's workspace
+    // bytes) that fits the SMs; one group for 8 tokens a thread
+    s.groups = 1;
+    if (s.tm == 2) {
+        int64_t best = -1;
+        for (int g = kRouteSlices; g >= 1; g /= 2) {
+            const int ws = min(kRouteWarps, kRouteSlices / g), tt = kRouteWarps / ws * s.btw;
+            const int64_t tiles = route_cdiv(T, tt);
+            if (g > 1 && (tiles * g > sms || tiles >= kRouteCounters - 1)) continue;
+            const int64_t cost = (int64_t)(kRouteSlices / g) * s.slice * s.ep * 4 +
+                                 (g > 1 ? (int64_t)min(tt, T) * s.ep * kRouteSlices * 4 : 0);
+            if (best < 0 || cost < best) {
+                best = cost;
+                s.groups = g;
+            }
+        }
+    }
+    s.ws = min(kRouteWarps, kRouteSlices / s.groups);
+    s.wt = kRouteWarps / s.ws;
+    s.tt = s.wt * s.btw;
+    s.n_tiles = (int)route_cdiv(T, s.tt);
+    s.rounds = kRouteSlices / s.groups / s.ws;
+    // 8 tokens a thread: two stages of twice the d (half the stage handovers)
+    s.stages = s.tm == 8 ? 2 : kRouteStages;
+    const int cap = s.tm == 8 ? 2 * kRouteStageCap : kRouteStageCap;
+    const int ks = min(s.slice, min(cap / (s.ws * s.ep * 4), cap / (s.ws * s.tt * 2)));
+    s.ks = ks >= 8 ? ks & ~7 : max(2, ks & ~1);
+    s.subs = (int)route_cdiv(s.slice, s.ks);
+    s.xs_words = s.ks / 2;
+    s.x_box = route_align128(s.tt * s.ks * 2);
+    s.w_box = route_align128(s.ks * s.ep * 4);
+    s.x_bytes = s.ws * s.x_box;
+    s.stage_bytes = s.x_bytes + s.ws * s.w_box;
+    s.fold_bytes = s.groups == 1 ? s.ws * s.tt * s.ep * 4 : 0;
+    s.tma = D % 8 == 0 && E % 4 == 0 && s.ks % 8 == 0 && s.tt <= 256;
+    // after the products: the logits (tt, ep + 1), each token's k experts,
+    // weights and ranks, and the rank's counts (8 warps, E)
+    const int route_bytes = (s.tt * (s.ep + 1) + 3 * s.tt * k + kRouteWarps * E) * 4;
+    s.smem = 128 + max(s.stages * s.stage_bytes + s.fold_bytes, route_bytes);
     s.part_floats = s.groups > 1 ? (int64_t)kRouteSlices * s.n_tiles * s.tt * s.ep : 0;
     s.ws_bytes = s.part_floats * 4 + (int64_t)s.n_tiles * E * 4;
+    s.sort_chunk = (int)max((int64_t)1, min(route_cdiv(s.n_tiles, kRouteSortBlocks),
+                                            (int64_t)kRouteSortTable / (E * 4)));
+    s.sort_blocks = s.n_tiles > 1 ? (int)route_cdiv(s.n_tiles, s.sort_chunk) : 0;
+    s.sort_smem = s.sort_chunk * E * 4;
     return s;
 }
 
@@ -544,7 +595,10 @@ struct RouteParams {
     int* counters;               // (kRouteCounters,), zero between launches
     int T, D, E, k;
     bool w_vec;                  // w's rows staged by 16-byte copies (else 4-byte)
+    bool tma;                    // the stages loaded by TMA (s.tma and 16-byte aligned tensors)
     RouteShape s;
+    CUtensorMap xmap;            // x (T, D) bf16, box (ks, tt)
+    CUtensorMap wmap;            // w (D, E) fp32, box (ep, ks)
 };
 
 template <int BYTES>
@@ -561,8 +615,10 @@ __device__ __forceinline__ void cp_async_commit_group() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_ring() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kRouteStages - 1) : "memory");
+// Until every group but the ring's newest stages - 1 is complete.
+__device__ __forceinline__ void cp_async_wait_ring(int stages) {
+    if (stages == 2) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    else asm volatile("cp.async.wait_group 2;\n" ::: "memory");
 }
 
 // rows x cpr chunks of BYTES from src (row stride src_ld bytes; rows past
@@ -584,334 +640,649 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, int dst_ld, const
     }
 }
 
-// True in every thread of the one block that arrives last at `counter`
-// (of `n`), which also sets it back to 0 for the next launch.  Every
-// block's global writes before the call are visible to that block after it.
+// The routing launch's compute threads' barrier (the producer warp has
+// left by the time the others use it).
+__device__ __forceinline__ void route_sync() { named_bar_sync(1, kRouteThreads); }
+
+// True in every compute thread of the one block that arrives last at
+// `counter` (of `n`), which also sets it back to 0 for the next launch.
+// Every block's global writes before the call are visible to that block
+// after it.
 __device__ bool last_to_arrive(int* counter, int n, int* flag) {
     __threadfence();
-    __syncthreads();
+    route_sync();
     if (threadIdx.x == 0) {
         const bool last = atomicAdd(counter, 1) == n - 1;
         if (last) atomicExch(counter, 0);
         *flag = last;
     }
-    __syncthreads();
+    route_sync();
     if (!*flag) return false;
     __threadfence();
     return true;
 }
 
-// Slice sl's rows of x (the tile's tt tokens, clamped to T - 1) and of w
-// into one stage: x as bf16 pairs (tt, xs_words), w as fp32 (slice, ep);
-// one cp.async group (empty past D).
-__device__ __forceinline__ void route_stage(const RouteParams& p, int t0, int sl,
+// The d extent of slice sl: [d0, d0 + len).
+__device__ __forceinline__ int2 route_slice(const RouteParams& p, int sl) {
+    const int d0 = min(p.D, sl * p.s.slice);
+    return make_int2(d0, min(p.D, d0 + p.s.slice) - d0);
+}
+
+// Stage i of the block (round i / subs, sub-stage i % subs): for each slice
+// warp j, slice s_lo + round ws + j, its d values [u ks, u ks + ks) from the
+// slice's start: x rows t0 .. t0 + tt (bf16 pairs at a stride of ks / 2
+// words) and w rows (ep fp32 each).  By cp.async (rows past T read row T -
+// 1, experts past E are left as they are): one group.
+__device__ __forceinline__ void route_stage(const RouteParams& p, int t0, int s_lo, int i,
                                             unsigned char* stage) {
     const RouteShape& s = p.s;
-    const int d0 = min(p.D, sl * s.slice), len = min(p.D, d0 + s.slice) - d0;
-    if (len > 0) {
+    const int rnd = i / s.subs, a = (i - rnd * s.subs) * s.ks;
+    for (int j = 0; j < s.ws; ++j) {
+        const int2 sl = route_slice(p, s_lo + rnd * s.ws + j);
+        const int n = min(s.ks, sl.y - a);
+        if (n <= 0) continue;
         const unsigned char* xs =
-            reinterpret_cast<const unsigned char*>(p.x + (int64_t)t0 * p.D + d0);
-        const unsigned char* ws = reinterpret_cast<const unsigned char*>(p.w + (int64_t)d0 * p.E);
-        stage_rows<4>(stage, s.xs_words * 4, xs, (int64_t)p.D * 2, s.tt, p.T - 1 - t0, len / 2);
+            reinterpret_cast<const unsigned char*>(p.x + (int64_t)t0 * p.D + sl.x + a);
+        stage_rows<4>(stage + j * s.x_box, s.xs_words * 4, xs, (int64_t)p.D * 2, s.tt,
+                      p.T - 1 - t0, n / 2);
+        const unsigned char* ws =
+            reinterpret_cast<const unsigned char*>(p.w + (int64_t)(sl.x + a) * p.E);
+        unsigned char* wd = stage + s.x_bytes + j * s.w_box;
         if (p.w_vec)
-            stage_rows<16>(stage + s.x_bytes, s.ep * 4, ws, (int64_t)p.E * 4, len, len - 1,
-                           p.E / 4);
+            stage_rows<16>(wd, s.ep * 4, ws, (int64_t)p.E * 4, n, n - 1, p.E / 4);
         else
-            stage_rows<4>(stage + s.x_bytes, s.ep * 4, ws, (int64_t)p.E * 4, len, len - 1, p.E);
+            stage_rows<4>(wd, s.ep * 4, ws, (int64_t)p.E * 4, n, n - 1, p.E);
     }
     cp_async_commit_group();
 }
 
-// Softmax, top-k (or the forced experts) and the renormalised weights of
-// token t, one warp; lg holds its logits (E floats) and takes its gates,
-// sel its k experts.  The top-k ranks every gate by counting the gates
-// above it (ties: the lower expert first, jax.lax.top_k's order).
-__device__ void route_token(const RouteParams& p, int t, float* lg, int* sel) {
-    const int lane = threadIdx.x & 31, E = p.E, k = p.k;
-    float v[kRouteMaxE / 32];
-    float m = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < kRouteMaxE / 32; ++c) {
-        const int e = lane + 32 * c;
-        v[c] = e < E ? lg[e] : -INFINITY;
-        m = fmaxf(m, v[c]);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kRouteMaxE / 32; ++c) {
-        const int e = lane + 32 * c;
-        const float ex = e < E ? expf(v[c] - m) : 0.f;
-        if (e < E) p.logits[(int64_t)t * E + e] = v[c];
-        v[c] = ex;
-        sum += ex;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-#pragma unroll
-    for (int c = 0; c < kRouteMaxE / 32; ++c) {
-        const int e = lane + 32 * c;
-        if (e < E) {
-            v[c] = v[c] / sum;
-            p.gates[(int64_t)t * E + e] = v[c];
-            lg[e] = v[c];
-        }
-    }
-    if (lane < k) sel[lane] = 0;     // a slot no gate claims (NaN gates) stays in range
-    __syncwarp();
-    if (p.forced != nullptr) {
-        if (lane < k) sel[lane] = min(max(p.forced[(int64_t)t * k + lane], 0), E - 1);
-    } else {
-        int above[kRouteMaxE / 32] = {};
-        for (int f = 0; f < E; ++f) {
-            const float h = lg[f];
-#pragma unroll
-            for (int c = 0; c < kRouteMaxE / 32; ++c)
-                above[c] += (h > v[c]) | ((h == v[c]) & (f < lane + 32 * c));
-        }
-#pragma unroll
-        for (int c = 0; c < kRouteMaxE / 32; ++c)
-            if (lane + 32 * c < E && above[c] < k) sel[above[c]] = lane + 32 * c;
-    }
-    __syncwarp();
-    const int my_i = lane < k ? sel[lane] : 0;
-    const float my_w = lane < k ? lg[my_i] : 0.f;
-    // the k weights summed in order j = 0..k-1 in fp32, then max(sum, 1e-9)
-    float s = 0.f;
-    for (int j = 0; j < k; ++j) {
-        const float wj = __shfl_sync(0xffffffffu, my_w, j);
-        s = j == 0 ? wj : __fadd_rn(s, wj);
-    }
-    const float den = s < 1e-9f ? 1e-9f : s;
-    if (lane < k) {
-        p.weights[(int64_t)t * k + lane] = __fdiv_rn(my_w, den);
-        p.idx[(int64_t)t * k + lane] = my_i;
-    }
-}
-
-// The stable counting sort of the P = T k pairs by expert, in the last
-// block: hist's tile counts become each tile's base within its expert (a
-// scan over the tiles in order), the totals the offsets, and each pair's
-// sorted row is offsets[e] + its tile's base + its rank within the tile.
-// Where they fit, the bases stay in shared memory and `order` is built
-// there, then written out in order with `tok`.
-__device__ void route_sort(const RouteParams& p, int* dyn, int* cnt) {
+// The same stage by TMA, issued by one warp (a box a lane), completing on
+// `bar`: a box of x (rows past T and d past D read as zero) and one of w
+// (experts past E zero) a slice.
+__device__ __forceinline__ void route_stage_tma(const RouteParams& p, int t0, int s_lo, int i,
+                                                unsigned char* stage, uint64_t* bar) {
     const RouteShape& s = p.s;
-    const int E = p.E, k = p.k, tid = threadIdx.x;
-    const int P = p.T * k;
-    int* order_s = dyn;
-    int* buf = s.sort_smem ? dyn + P : dyn;
-    const int ch = s.table_smem ? s.n_tiles : max(1, kRouteScanInts / E);
-    int run = 0;
-    for (int c0 = 0; c0 < s.n_tiles; c0 += ch) {
-        const int nt = min(ch, s.n_tiles - c0);
-#pragma unroll 4
-        for (int i = tid; i < nt * E; i += kRouteThreads)
-            buf[i] = __ldcg(p.hist + (int64_t)c0 * E + i);
-        __syncthreads();
-        if (tid < E) {
-            for (int j = 0; j < nt; ++j) {
-                const int h = buf[j * E + tid];
-                buf[j * E + tid] = run;
-                run += h;
-            }
-        }
-        __syncthreads();
-        if (s.table_smem) break;
-#pragma unroll 4
-        for (int i = tid; i < nt * E; i += kRouteThreads) p.hist[(int64_t)c0 * E + i] = buf[i];
-        __syncthreads();
+    const int rnd = i / s.subs, a = (i - rnd * s.subs) * s.ks, lane = threadIdx.x & 31;
+    if (lane == 0) {
+        uint32_t bytes = 0;
+        for (int j = 0; j < s.ws; ++j)
+            if (route_slice(p, s_lo + rnd * s.ws + j).y > a)
+                bytes += s.tt * s.ks * 2 + s.ks * s.ep * 4;
+        mbar_arrive_expect_tx(bar, bytes);
     }
-    if (tid < E) cnt[tid] = run;
-    __syncthreads();
-    // offsets: an exclusive scan of the totals over the experts, by warp 0
-    if (tid < 32) {
-        int carry = 0;
-        for (int e0 = 0; e0 < E; e0 += 32) {
-            const int e = e0 + tid;
-            const int c = e < E ? cnt[e] : 0;
-            int incl = c;
-#pragma unroll
-            for (int o = 1; o < 32; o <<= 1) {
-                const int n = __shfl_up_sync(0xffffffffu, incl, o);
-                if (tid >= o) incl += n;
-            }
-            if (e < E) {
-                cnt[e] = carry + incl - c;
-                p.offsets[e] = carry + incl - c;
-            }
-            carry += __shfl_sync(0xffffffffu, incl, 31);
-        }
-        if (tid == 0) p.offsets[E] = carry;
-    }
-    __syncthreads();
-    // kRouteSortBatch pairs a thread at a time, every load of a batch issued
-    // before its stores
-    for (int b = tid; b < P; b += kRouteThreads * kRouteSortBatch) {
-        int e[kRouteSortBatch], at[kRouteSortBatch];
-#pragma unroll
-        for (int j = 0; j < kRouteSortBatch; ++j) {
-            const int q = b + j * kRouteThreads;
-            e[j] = q < P ? __ldcg(p.idx + q) : 0;
-            at[j] = q < P ? __ldcg(p.rank + q) : 0;
-        }
-#pragma unroll
-        for (int j = 0; j < kRouteSortBatch; ++j) {
-            const int q = b + j * kRouteThreads;
-            if (q < P) {
-                const int64_t h = (int64_t)((q / k) / s.tt) * E + e[j];
-                at[j] += cnt[e[j]] + (s.table_smem ? buf[h] : __ldcg(p.hist + h));
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < kRouteSortBatch; ++j) {
-            const int q = b + j * kRouteThreads;
-            if (q < P) {
-                if (s.sort_smem) {
-                    order_s[at[j]] = q;
-                } else {
-                    p.order[at[j]] = q;
-                    p.tok[at[j]] = q / k;
-                }
-                p.pos[q] = at[j];
-                p.rank[q] = at[j] - cnt[e[j]];
-            }
-        }
-    }
-    if (s.sort_smem) {
-        __syncthreads();
-        for (int i = tid; i < P; i += kRouteThreads) {
-            const int q = order_s[i];
-            p.order[i] = q;
-            p.tok[i] = q / k;
+    __syncwarp();
+    if (lane < 2 * s.ws) {
+        const int j = lane % s.ws;
+        const int2 sl = route_slice(p, s_lo + rnd * s.ws + j);
+        if (sl.y > a) {
+            if (lane < s.ws) tma_load_2d(stage + j * s.x_box, &p.xmap, bar, sl.x + a, t0);
+            else tma_load_2d(stage + s.x_bytes + j * s.w_box, &p.wmap, bar, 0, sl.x + a);
         }
     }
 }
 
-// One launch of the layer's routing: grid (n_tiles, groups).  Each block
-// takes its group's slices of one tile of tokens through a three-stage
-// cp.async ring and keeps one FMA chain a slice for every (token,
-// expert), d in order (as the earlier router kernel); the slice sums are
-// added in slice order, in registers (groups == 1) or, from the
-// workspace, by the last of the tile's blocks.  That block routes its
-// tile's tokens (a warp a token) and ranks its pairs within their experts
-// in pair order (__match_any_sync, 32 pairs at a time); the last tile to
-// finish sorts.
-template <int CE>
-__global__ void __launch_bounds__(kRouteThreads) moe_route_kernel(const RouteParams p) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    __shared__ int tile_idx[kRouteTilePairs];     // the tile's pairs' experts
+__device__ __forceinline__ float4 lds4(const float* q) {
+    float4 v;
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "r"(smem_u32(q)));
+    return v;
+}
+
+__device__ __forceinline__ void fma4(float* acc, float x, const float4& w) {
+    acc[0] = fmaf(x, w.x, acc[0]);
+    acc[1] = fmaf(x, w.y, acc[1]);
+    acc[2] = fmaf(x, w.z, acc[2]);
+    acc[3] = fmaf(x, w.w, acc[3]);
+}
+
+// n values of d (even) of one staged slice into the warp's chains: lane
+// (r, c) holds tokens tok0 + r + rows i (i < TM) x experts 4c .. 4c + 3 and
+// ep / 2 + 4c ..; each chain in d order.  EPC: ep known at compile time (64),
+// or 0.
+template <int TM, int EPC>
+__device__ __forceinline__ void route_chain(const RouteShape& s, const unsigned char* stage, int j,
+                                            int tok0, int lane, int n, float (&acc)[TM][8]) {
+    const int ep = EPC ? EPC : s.ep, nc = ep / 8, xw = EPC ? s.ks / 2 : s.xs_words;
+    const int c = lane & (nc - 1), r = lane / nc, rows = 32 / nc;
+    const uint32_t* xs = reinterpret_cast<const uint32_t*>(stage + j * s.x_box) + (tok0 + r) * xw;
+    const float* ws = reinterpret_cast<const float*>(stage + s.x_bytes + j * s.w_box) + 4 * c;
+    const int ehalf = ep / 2, xstep = rows * xw;
+#pragma unroll 2
+    for (int d = 0; d < n; d += 2) {
+        float2 xv[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+            xv[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + i * xstep +
+                                                                                 d / 2));
+        const float4 a0 = lds4(ws + d * ep);
+        const float4 b0 = lds4(ws + d * ep + ehalf);
+        const float4 a1 = lds4(ws + (d + 1) * ep);
+        const float4 b1 = lds4(ws + (d + 1) * ep + ehalf);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+            fma4(acc[i], xv[i].x, a0);
+            fma4(acc[i] + 4, xv[i].x, b0);
+            fma4(acc[i], xv[i].y, a1);
+            fma4(acc[i] + 4, xv[i].y, b1);
+        }
+    }
+}
+
+// Pair q's place in the sort: its sorted row `at` and its rank r within its expert.
+__device__ __forceinline__ void route_place(const RouteParams& p, int64_t q, int r, int at) {
+    p.pos[q] = at;
+    p.rank[q] = r;
+    p.order[at] = (int)q;
+    p.tok[at] = (int)(q / p.k);
+}
+
+// Offsets: an exclusive scan of cnt (E totals) over the experts by warp 0,
+// into cnt and (write_out) p.offsets.
+__device__ void route_offsets(const RouteParams& p, int* cnt, bool write_out) {
+    const int lane = threadIdx.x;
+    if (threadIdx.x >= 32) return;
+    int carry = 0;
+    for (int e0 = 0; e0 < p.E; e0 += 32) {
+        const int e = e0 + lane;
+        const int c = e < p.E ? cnt[e] : 0;
+        int incl = c;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int n = __shfl_up_sync(0xffffffffu, incl, o);
+            if (lane >= o) incl += n;
+        }
+        if (e < p.E) {
+            cnt[e] = carry + incl - c;
+            if (write_out) p.offsets[e] = carry + incl - c;
+        }
+        carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0 && write_out) p.offsets[p.E] = carry;
+}
+
+// The stable counting sort of tiles [j0, j1) of a routing launch with more
+// than one tile, by the 8 compute warps of a block (route_sync): each
+// expert's total and each tile's base within its expert (the counts of the
+// tiles before it) come from `hist` in one pass (4 experts a load where E %
+// 4 == 0; the range's own rows kept in `bases`, (j1 - j0, E) ints), summed
+// in integers; the offsets are the totals' scan; each pair's sorted row is
+// offsets[e] + its tile's base + its rank within the tile.  The first
+// kRoutePrefetch pairs a thread places are read before the pass.  red
+// holds 8 kRouteThreads ints, offs kRouteMaxE.
+__device__ void route_sort_tiles(const RouteParams& p, int j0, int j1, int* bases, int* red,
+                                 int* offs, bool write_offsets) {
+    const RouteShape& s = p.s;
+    const int tid = threadIdx.x, E = p.E, k = p.k;
+    int* red_b = red;
+    int* red_t = red + 4 * kRouteThreads;
+    const int64_t q0 = (int64_t)j0 * s.tt * k, q1 = (int64_t)min(p.T, j1 * s.tt) * k;
+    int pe[kRoutePrefetch], pr[kRoutePrefetch];
+#pragma unroll
+    for (int i = 0; i < kRoutePrefetch; ++i) {
+        const int64_t q = q0 + tid + (int64_t)kRouteThreads * i;
+        pe[i] = q < q1 ? __ldcg(p.idx + q) : 0;
+        pr[i] = q < q1 ? __ldcg(p.rank + q) : 0;
+    }
+    const int vec = E % 4 == 0 ? 4 : 1, nv = E / vec, parts = kRouteThreads / nv;
+    const int ev = tid % nv, part = tid / nv;
+    int below[4] = {0, 0, 0, 0}, total[4] = {0, 0, 0, 0};
+    if (part < parts) {
+#pragma unroll 8
+        for (int j = part; j < s.n_tiles; j += parts) {
+            const int* h = p.hist + (int64_t)j * E + vec * ev;
+            int hv[4] = {0, 0, 0, 0};
+            if (vec == 4) {
+                const int4 q = __ldcg(reinterpret_cast<const int4*>(h));
+                hv[0] = q.x;
+                hv[1] = q.y;
+                hv[2] = q.z;
+                hv[3] = q.w;
+            } else {
+                hv[0] = __ldcg(h);
+            }
+            const bool mine = j >= j0 && j < j1;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                if (q >= vec) break;
+                total[q] += hv[q];
+                below[q] += j < j0 ? hv[q] : 0;
+                if (mine) bases[(j - j0) * E + vec * ev + q] = hv[q];
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            if (q >= vec) break;
+            red_b[part * E + vec * ev + q] = below[q];
+            red_t[part * E + vec * ev + q] = total[q];
+        }
+    }
+    route_sync();
+    if (tid < E) {
+        int b = 0, t = 0;
+        for (int q = 0; q < parts; ++q) {
+            b += red_b[q * E + tid];
+            t += red_t[q * E + tid];
+        }
+        offs[tid] = t;
+        for (int j = 0; j < j1 - j0; ++j) {
+            const int h = bases[j * E + tid];
+            bases[j * E + tid] = b;
+            b += h;
+        }
+    }
+    route_sync();
+    route_offsets(p, offs, write_offsets);
+    route_sync();
+    const int tk = s.tt * k;
+#pragma unroll
+    for (int i = 0; i < kRoutePrefetch; ++i) {
+        const int64_t q = q0 + tid + (int64_t)kRouteThreads * i;
+        if (q < q1) {
+            const int r = bases[(int)((q - q0) / tk) * E + pe[i]] + pr[i];
+            route_place(p, q, r, offs[pe[i]] + r);
+        }
+    }
+#pragma unroll 4
+    for (int64_t q = q0 + tid + (int64_t)kRouteThreads * kRoutePrefetch; q < q1;
+         q += kRouteThreads) {
+        const int ex = __ldcg(p.idx + q), rr = __ldcg(p.rank + q);
+        const int r = bases[(int)((q - q0) / tk) * E + ex] + rr;
+        route_place(p, q, r, offs[ex] + r);
+    }
+}
+
+// Softmax, top-k (or the forced experts) and the renormalised weights of
+// the tile's tokens, a warp a token, B tokens of a warp at once (tokens
+// warp, warp + 8, ...): lane l holds experts l + 32 c (c < EC).  The max
+// and the softmax's sum are xor reductions over the warp, the sum each
+// lane's experts in c order from 0 (the earlier router kernel's order, so
+// the gates stay bitwise).  The top-k takes k rounds of a warp argmax over
+// the experts not yet taken, ties to the lower expert (jax.lax.top_k's
+// order), and sums the chosen gates in round order.  lg (rows of lgs)
+// holds the logits and takes the gates; topi, topv (tt, k) take the
+// experts and weights.  Writes the logits and gates out.
+template <int EC, int B>
+__device__ void route_tokens(const RouteParams& p, int t0, int n_valid, float* lg, int lgs,
+                             int* topi, float* topv) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, E = p.E, k = p.k;
+    for (int b0 = warp; b0 < n_valid; b0 += B * kRouteWarps) {
+        int t[B];
+        bool ok[B];
+        float v[B][EC], m[B], sum[B];
+#pragma unroll
+        for (int q = 0; q < B; ++q) {
+            t[q] = b0 + kRouteWarps * q;
+            ok[q] = t[q] < n_valid;
+            t[q] = ok[q] ? t[q] : b0;
+            m[q] = -INFINITY;
+#pragma unroll
+            for (int c = 0; c < EC; ++c) {
+                const int e = lane + 32 * c;
+                v[q][c] = e < E ? lg[t[q] * lgs + e] : -INFINITY;
+                m[q] = fmaxf(m[q], v[q][c]);
+            }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+            for (int q = 0; q < B; ++q) m[q] = fmaxf(m[q], __shfl_xor_sync(0xffffffffu, m[q], o));
+#pragma unroll
+        for (int q = 0; q < B; ++q) {
+            sum[q] = 0.f;
+#pragma unroll
+            for (int c = 0; c < EC; ++c) {
+                const int e = lane + 32 * c;
+                const float ex = e < E ? expf(v[q][c] - m[q]) : 0.f;
+                if (ok[q] && e < E) p.logits[(int64_t)(t0 + t[q]) * E + e] = v[q][c];
+                v[q][c] = ex;
+                sum[q] += ex;
+            }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+            for (int q = 0; q < B; ++q) sum[q] += __shfl_xor_sync(0xffffffffu, sum[q], o);
+        unsigned taken[B];
+#pragma unroll
+        for (int q = 0; q < B; ++q) {
+            taken[q] = 0u;
+#pragma unroll
+            for (int c = 0; c < EC; ++c) {
+                const int e = lane + 32 * c;
+                v[q][c] = v[q][c] / sum[q];
+                if (ok[q] && e < E) {
+                    p.gates[(int64_t)(t0 + t[q]) * E + e] = v[q][c];
+                    lg[t[q] * lgs + e] = v[q][c];
+                }
+            }
+        }
+        float my_w[B] = {}, wsum[B] = {};
+        int my_i[B] = {};
+        if (p.forced != nullptr) {
+            __syncwarp();
+#pragma unroll
+            for (int q = 0; q < B; ++q) {
+                my_i[q] = lane < k ? min(max(p.forced[(int64_t)(t0 + t[q]) * k + lane], 0), E - 1)
+                                   : 0;
+                my_w[q] = lane < k ? lg[t[q] * lgs + my_i[q]] : 0.f;
+            }
+            for (int j = 0; j < k; ++j)
+#pragma unroll
+                for (int q = 0; q < B; ++q) {
+                    const float wj = __shfl_sync(0xffffffffu, my_w[q], j);
+                    wsum[q] = j == 0 ? wj : __fadd_rn(wsum[q], wj);
+                }
+        } else {
+            for (int j = 0; j < k; ++j) {
+                float bv[B];
+                int bi[B];
+#pragma unroll
+                for (int q = 0; q < B; ++q) {
+                    bv[q] = -INFINITY;
+                    bi[q] = E;
+#pragma unroll
+                    for (int c = 0; c < EC; ++c) {
+                        const int e = lane + 32 * c;
+                        if (e < E && !((taken[q] >> c) & 1u) && v[q][c] > bv[q]) {
+                            bv[q] = v[q][c];
+                            bi[q] = e;
+                        }
+                    }
+                }
+#pragma unroll
+                for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+                    for (int q = 0; q < B; ++q) {
+                        const float ov = __shfl_xor_sync(0xffffffffu, bv[q], o);
+                        const int oi = __shfl_xor_sync(0xffffffffu, bi[q], o);
+                        if (ov > bv[q] || (ov == bv[q] && oi < bi[q])) {
+                            bv[q] = ov;
+                            bi[q] = oi;
+                        }
+                    }
+#pragma unroll
+                for (int q = 0; q < B; ++q) {
+                    if (bi[q] >= E) {       // no gate left to take (NaN gates): expert 0
+                        bi[q] = 0;
+                        bv[q] = __shfl_sync(0xffffffffu, v[q][0], 0);
+                    } else if ((bi[q] & 31) == lane) {
+                        taken[q] |= 1u << (bi[q] >> 5);
+                    }
+                    if (lane == j) {
+                        my_i[q] = bi[q];
+                        my_w[q] = bv[q];
+                    }
+                    wsum[q] = j == 0 ? bv[q] : __fadd_rn(wsum[q], bv[q]);
+                }
+            }
+        }
+        // the k weights divided by max(their sum in order j, 1e-9)
+#pragma unroll
+        for (int q = 0; q < B; ++q) {
+            const float den = wsum[q] < 1e-9f ? 1e-9f : wsum[q];
+            if (ok[q] && lane < k) {
+                topi[t[q] * k + lane] = my_i[q];
+                topv[t[q] * k + lane] = __fdiv_rn(my_w[q], den);
+            }
+        }
+        __syncwarp();
+    }
+}
+
+// One launch of the layer's routing: grid (n_tiles, groups), 8 compute warps
+// and a producer warp.  Each block takes its group's slices of one tile of
+// tokens through a three-stage ring (TMA from the producer warp, full and
+// empty mbarriers; else cp.async by the compute warps), register-tiled
+// (route_chain); the slice sums are added in slice order, through shared
+// memory (one group) or, from the workspace, by the last of the tile's
+// blocks.  That block routes its tile (route_tokens) and warp 0 ranks the
+// tile's pairs within their experts in pair order (__match_any_sync, 32 at
+// a time).  With one tile the block sorts the pairs; otherwise it leaves
+// its counts in `hist` for the sort launch.
+template <int TM, int EPC>
+__global__ void __launch_bounds__(kRouteBlock)
+moe_route_kernel(const __grid_constant__ RouteParams p) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
     __shared__ int cnt[kRouteMaxE];
     __shared__ int flag;
+    __shared__ __align__(8) uint64_t full[kRouteStages], empty[kRouteStages];
+    unsigned char* smem = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
     const RouteShape& s = p.s;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int tile = blockIdx.x, t0 = tile * s.tt;
-    const int tl = (warp / s.wq) * 32 + lane, cb = (warp % s.wq) * CE;  // token, first chunk
-    const int spg = kRouteSlices / s.groups, s_lo = blockIdx.y * spg;
+    const int tile = blockIdx.x, t0 = tile * s.tt, E = p.E, k = p.k;
+    const int n_valid = min(s.tt, p.T - t0);
+    const int s_lo = blockIdx.y * (kRouteSlices / s.groups);
+    const int n_stages = s.rounds * s.subs;
+    if (tid == 0) {
+        for (int i = 0; i < s.stages; ++i) {
+            mbar_init(&full[i], 1);
+            mbar_init(&empty[i], kRouteWarps);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+    if (warp == kRouteWarps) {          // the producer warp: TMA stages, then done
+        if (p.tma) {
+            for (int i = 0; i < n_stages; ++i) {
+                const int slot = i % s.stages;
+                if (i >= s.stages) mbar_wait(&empty[slot], ((i / s.stages) - 1) & 1);
+                route_stage_tma(p, t0, s_lo, i, smem + slot * s.stage_bytes, &full[slot]);
+            }
+        }
+        return;
+    }
+    const int wj = warp % s.ws, tok0 = (warp / s.ws) * s.btw;
+    const bool active = tok0 < n_valid;              // warp-uniform
+    const int c = lane & (s.nc - 1), r = lane / s.nc, rows = 32 / s.nc, ehalf = s.ep / 2;
+    float* fold = reinterpret_cast<float*>(smem + s.stages * s.stage_bytes);
     const int64_t n_rows = (int64_t)s.n_tiles * s.tt;
 
-    float run[CE][4];
-    for (int i = 0; i < kRouteStages - 1; ++i) {
-        if (i < spg) route_stage(p, t0, s_lo + i, smem + i * s.stage_bytes);
-        else cp_async_commit_group();
+    float run[TM];              // one group: tt ep = 256 TM outputs, TM a thread, folded in order
+    float acc[TM][8];
+    if (!p.tma) {
+        for (int i = 0; i < s.stages - 1; ++i) {
+            if (i < n_stages) route_stage(p, t0, s_lo, i, smem + i * s.stage_bytes);
+            else cp_async_commit_group();
+        }
     }
-    for (int i = 0; i < spg; ++i) {
-        const int sl = s_lo + i, ahead = i + kRouteStages - 1;
-        if (ahead < spg)
-            route_stage(p, t0, s_lo + ahead, smem + (ahead % kRouteStages) * s.stage_bytes);
-        else
-            cp_async_commit_group();
-        cp_async_wait_ring();
-        __syncthreads();
-        const unsigned char* st = smem + (i % kRouteStages) * s.stage_bytes;
-        const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(st) + tl * s.xs_words;
-        const float* ws = reinterpret_cast<const float*>(st + s.x_bytes) + 4 * cb;
-        const int d0 = min(p.D, sl * s.slice), len = min(p.D, d0 + s.slice) - d0;
-        float acc[CE][4];
+    for (int i = 0; i < n_stages; ++i) {
+        const int slot = i % s.stages;
+        if (p.tma) {
+            mbar_wait(&full[slot], (i / s.stages) & 1);
+        } else {
+            const int ahead = i + s.stages - 1;
+            if (ahead < n_stages)
+                route_stage(p, t0, s_lo, ahead, smem + (ahead % s.stages) * s.stage_bytes);
+            else
+                cp_async_commit_group();
+            cp_async_wait_ring(s.stages);
+            route_sync();
+        }
+        const int rnd = i / s.subs, u = i - rnd * s.subs;
+        const int sl = s_lo + rnd * s.ws + wj;
+        const int n = min(s.ks, route_slice(p, sl).y - u * s.ks);
+        if (u == 0) {
 #pragma unroll
-        for (int c = 0; c < CE; ++c)
+            for (int a = 0; a < TM; ++a)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[c][j] = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < len; d += 2) {      // len even
-            const float2 xv = __bfloat1622float2(xs[d / 2]);
+                for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+        }
+        if (active && n > 0)
+            route_chain<TM, EPC>(s, smem + slot * s.stage_bytes, wj, tok0, lane, n, acc);
+        if (p.tma) {                                 // the stage may be refilled
+            __syncwarp();
+            mbar_arrive_if(&empty[slot], lane == 0);
+        } else {
+            route_sync();
+        }
+        if (u != s.subs - 1) continue;
+        if (s.groups == 1) {                         // the round's chains, folded in slice order
+            route_sync();                            // the last round's fold reads are done
 #pragma unroll
-            for (int c = 0; c < CE; ++c) {
-                const float4 w0 = *reinterpret_cast<const float4*>(ws + d * s.ep + 4 * c);
-                const float4 w1 = *reinterpret_cast<const float4*>(ws + (d + 1) * s.ep + 4 * c);
-                acc[c][0] = fmaf(xv.x, w0.x, acc[c][0]);
-                acc[c][0] = fmaf(xv.y, w1.x, acc[c][0]);
-                acc[c][1] = fmaf(xv.x, w0.y, acc[c][1]);
-                acc[c][1] = fmaf(xv.y, w1.y, acc[c][1]);
-                acc[c][2] = fmaf(xv.x, w0.z, acc[c][2]);
-                acc[c][2] = fmaf(xv.y, w1.z, acc[c][2]);
-                acc[c][3] = fmaf(xv.x, w0.w, acc[c][3]);
-                acc[c][3] = fmaf(xv.y, w1.w, acc[c][3]);
+            for (int a = 0; a < TM; ++a) {
+                float* dst = fold + ((wj * s.tt) + tok0 + r + rows * a) * s.ep + 4 * c;
+                *reinterpret_cast<float4*>(dst) = make_float4(acc[a][0], acc[a][1], acc[a][2],
+                                                              acc[a][3]);
+                *reinterpret_cast<float4*>(dst + ehalf) =
+                    make_float4(acc[a][4], acc[a][5], acc[a][6], acc[a][7]);
+            }
+            route_sync();
+#pragma unroll
+            for (int m = 0; m < TM; ++m) {
+#pragma unroll
+                for (int j = 0; j < kRouteWarps; ++j) {
+                    const float v = fold[j * s.tt * s.ep + tid + kRouteThreads * m];
+                    run[m] = rnd == 0 && j == 0 ? v : __fadd_rn(run[m], v);
+                }
+            }
+        } else if (active) {                         // the slice's chains into the workspace
+#pragma unroll
+            for (int a = 0; a < TM; ++a) {
+                const int t = tok0 + r + rows * a;
+                if (t >= n_valid) continue;
+                float* dst = p.part + ((int64_t)sl * n_rows + t0 + t) * s.ep + 4 * c;
+                *reinterpret_cast<float4*>(dst) = make_float4(acc[a][0], acc[a][1], acc[a][2],
+                                                              acc[a][3]);
+                *reinterpret_cast<float4*>(dst + ehalf) =
+                    make_float4(acc[a][4], acc[a][5], acc[a][6], acc[a][7]);
             }
         }
-        if (s.groups == 1) {
-#pragma unroll
-            for (int c = 0; c < CE; ++c)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    run[c][j] = i == 0 ? acc[c][j] : __fadd_rn(run[c][j], acc[c][j]);
-        } else {
-#pragma unroll
-            for (int c = 0; c < CE; ++c)
-                *reinterpret_cast<float4*>(p.part + ((int64_t)sl * n_rows + t0 + tl) * s.ep +
-                                           4 * (cb + c)) =
-                    make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
-        }
-        __syncthreads();        // the stage is refilled next
     }
 
-    float* lg = reinterpret_cast<float*>(smem);     // (tt, ep): the ring is done
-    const int n_valid = min(s.tt, p.T - t0);
+    // the tile's logits, (tt, ep + 1), over the ring
+    const int lgs = s.ep + 1;
+    float* lg = reinterpret_cast<float*>(smem);
+    int* topi = reinterpret_cast<int*>(lg + s.tt * lgs);     // (tt, k): the tile's pairs' experts
+    float* topv = reinterpret_cast<float*>(topi + s.tt * k);
+    int* rk = reinterpret_cast<int*>(topv + s.tt * k);
+    route_sync();               // every warp is done with the ring and the fold buffer
     if (s.groups == 1) {
 #pragma unroll
-        for (int c = 0; c < CE; ++c)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) lg[tl * s.ep + 4 * (cb + c) + j] = run[c][j];
+        for (int m = 0; m < TM; ++m) {
+            const int o = tid + kRouteThreads * m, t = o / s.ep;
+            lg[t * lgs + o - t * s.ep] = run[m];
+        }
     } else {
         if (!last_to_arrive(p.counters + tile, s.groups, &flag)) return;
-#pragma unroll 4
-        for (int i = tid; i < n_valid * p.E; i += kRouteThreads) {
-            const int r = i / p.E, e = i - r * p.E;
-            const float* src = p.part + (int64_t)(t0 + r) * s.ep + e;
-            float sum = __ldcg(src);
+        const int64_t stride = n_rows * s.ep;
+        if (E % 4 == 0) {
+            const int e4 = E / 4;
+            for (int i = tid; i < n_valid * e4; i += kRouteThreads) {
+                const int t = i / e4, e = 4 * (i - t * e4);
+                const float* src = p.part + (int64_t)(t0 + t) * s.ep + e;
+                float4 v[kRouteSlices];
 #pragma unroll
-            for (int sl = 1; sl < kRouteSlices; ++sl)
-                sum = __fadd_rn(sum, __ldcg(src + sl * n_rows * s.ep));
-            lg[r * s.ep + e] = sum;
-        }
-    }
-    __syncthreads();
-    for (int r = warp; r < n_valid; r += kRouteThreads / 32)
-        route_token(p, t0 + r, lg + r * s.ep, tile_idx + r * p.k);
-    for (int e = tid; e < p.E; e += kRouteThreads) cnt[e] = 0;
-    __syncthreads();
-    if (warp == 0) {
-        const int n = n_valid * p.k;
-        for (int b = 0; b < n; b += 32) {
-            const int q = b + lane;
-            const bool ok = q < n;
-            const int e = ok ? tile_idx[q] : -1 - lane;
-            const unsigned mask = __match_any_sync(0xffffffffu, e);
-            const int before = __popc(mask & ((1u << lane) - 1u));
-            const int c0 = ok ? cnt[e] : 0;
-            __syncwarp();
-            if (ok) {
-                p.rank[(int64_t)t0 * p.k + q] = c0 + before;
-                if (before == 0) cnt[e] = c0 + __popc(mask);
+                for (int q = 0; q < kRouteSlices; ++q)
+                    v[q] = __ldcg(reinterpret_cast<const float4*>(src + q * stride));
+                float4 sum = v[0];
+#pragma unroll
+                for (int q = 1; q < kRouteSlices; ++q) {
+                    sum.x = __fadd_rn(sum.x, v[q].x);
+                    sum.y = __fadd_rn(sum.y, v[q].y);
+                    sum.z = __fadd_rn(sum.z, v[q].z);
+                    sum.w = __fadd_rn(sum.w, v[q].w);
+                }
+                float* dst = lg + t * lgs + e;
+                dst[0] = sum.x;
+                dst[1] = sum.y;
+                dst[2] = sum.z;
+                dst[3] = sum.w;
             }
-            __syncwarp();
+        } else {
+            for (int i = tid; i < n_valid * E; i += kRouteThreads) {
+                const int t = i / E, e = i - t * E;
+                const float* src = p.part + (int64_t)(t0 + t) * s.ep + e;
+                float sum = __ldcg(src);
+#pragma unroll
+                for (int q = 1; q < kRouteSlices; ++q)
+                    sum = __fadd_rn(sum, __ldcg(src + q * stride));
+                lg[t * lgs + e] = sum;
+            }
         }
     }
-    __syncthreads();
-    for (int e = tid; e < p.E; e += kRouteThreads) p.hist[(int64_t)tile * p.E + e] = cnt[e];
-    if (!last_to_arrive(p.counters + kRouteCounters - 1, s.n_tiles, &flag)) return;
-    route_sort(p, reinterpret_cast<int*>(smem), cnt);
+    route_sync();
+    // B tokens of a warp at once: 4 where every warp has 4 or more, 2 where 2
+    const int per_warp = (n_valid + kRouteWarps - 1) / kRouteWarps;
+    if (E <= 32) {
+        if (per_warp >= 4) route_tokens<1, 4>(p, t0, n_valid, lg, lgs, topi, topv);
+        else if (per_warp >= 2) route_tokens<1, 2>(p, t0, n_valid, lg, lgs, topi, topv);
+        else route_tokens<1, 1>(p, t0, n_valid, lg, lgs, topi, topv);
+    } else if (E <= 64) {
+        if (per_warp >= 4) route_tokens<2, 4>(p, t0, n_valid, lg, lgs, topi, topv);
+        else if (per_warp >= 2) route_tokens<2, 2>(p, t0, n_valid, lg, lgs, topi, topv);
+        else route_tokens<2, 1>(p, t0, n_valid, lg, lgs, topi, topv);
+    } else {
+        if (per_warp >= 4) route_tokens<4, 4>(p, t0, n_valid, lg, lgs, topi, topv);
+        else if (per_warp >= 2) route_tokens<4, 2>(p, t0, n_valid, lg, lgs, topi, topv);
+        else route_tokens<4, 1>(p, t0, n_valid, lg, lgs, topi, topv);
+    }
+    // each pair's rank within its expert in the tile, in pair order: warp w
+    // ranks the w-th eighth of the pairs (__match_any_sync, 32 at a time)
+    // into its counts cw[w], whose prefix over the warps is each eighth's base
+    int* cw = rk + s.tt * k;                         // (8 warps, E)
+    for (int i = tid; i < kRouteWarps * E; i += kRouteThreads) cw[i] = 0;
+    route_sync();
+    const int n_pairs = n_valid * k;
+    const int64_t tk = (int64_t)t0 * k;
+    for (int i = tid; i < n_pairs; i += kRouteThreads) {
+        p.weights[tk + i] = topv[i];
+        p.idx[tk + i] = topi[i];
+    }
+    const int per = (n_pairs + kRouteWarps - 1) / kRouteWarps;
+    const int w_lo = min(n_pairs, warp * per), w_hi = min(n_pairs, w_lo + per);
+    int* mine = cw + warp * E;
+    for (int b = w_lo; b < w_hi; b += 32) {
+        const int q = b + lane;
+        const bool ok = q < w_hi;
+        const int e = ok ? topi[q] : -1 - lane;
+        const unsigned mask = __match_any_sync(0xffffffffu, e);
+        const int before = __popc(mask & ((1u << lane) - 1u));
+        const int c0 = ok ? mine[e] : 0;
+        __syncwarp();
+        if (ok) {
+            rk[q] = c0 + before;
+            if (before == 0) mine[e] = c0 + __popc(mask);
+        }
+        __syncwarp();
+    }
+    route_sync();
+    for (int e = tid; e < E; e += kRouteThreads) {
+        int run_e = 0;
+        for (int w = 0; w < kRouteWarps; ++w) {
+            const int c = cw[w * E + e];
+            cw[w * E + e] = run_e;
+            run_e += c;
+        }
+        cnt[e] = run_e;
+    }
+    route_sync();
+    for (int q = w_lo + lane; q < w_hi; q += 32) {
+        rk[q] += cw[warp * E + topi[q]];
+        if (s.n_tiles > 1) p.rank[tk + q] = rk[q];
+    }
+    route_sync();
+    if (s.n_tiles == 1) {       // one tile: the stable counting sort here
+        route_offsets(p, cnt, true);
+        route_sync();
+        for (int q = tid; q < n_pairs; q += kRouteThreads)
+            route_place(p, q, rk[q], cnt[topi[q]] + rk[q]);
+        return;
+    }
+    for (int e = tid; e < E; e += kRouteThreads) p.hist[(int64_t)tile * E + e] = cnt[e];
+}
+
+// The sort launch (many tiles, after moe_route_kernel): block b sorts
+// tiles [b chunk, (b + 1) chunk); block 0 writes the offsets.
+__global__ void __launch_bounds__(kRouteThreads)
+moe_route_sort_kernel(const __grid_constant__ RouteParams p) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ int red[8 * kRouteThreads];
+    __shared__ int offs[kRouteMaxE];
+    const int j0 = blockIdx.x * p.s.sort_chunk;
+    route_sort_tiles(p, j0, min(p.s.n_tiles, j0 + p.s.sort_chunk), reinterpret_cast<int*>(smem),
+                     red, offs, blockIdx.x == 0);
 }
 
 // out (T, D) = bf16(sum_j bf16(ys[pos[t k + j]] * bf16(weights[t, j]))), the
@@ -957,12 +1328,19 @@ moe_combine_kernel(const __nv_bfloat16* __restrict__ ys, const int* __restrict__
     *reinterpret_cast<uint4*>(out + (int64_t)t * D + c) = res;
 }
 
-template <int CE>
+template <int TM, int EPC>
 cudaError_t launch_route(const RouteParams& p, cudaStream_t stream) {
-    cudaError_t e = cudaFuncSetAttribute(moe_route_kernel<CE>,
+    cudaError_t e = cudaFuncSetAttribute(moe_route_kernel<TM, EPC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, p.s.smem);
     if (e != cudaSuccess) return e;
-    moe_route_kernel<CE><<<dim3(p.s.n_tiles, p.s.groups), kRouteThreads, p.s.smem, stream>>>(p);
+    moe_route_kernel<TM, EPC>
+        <<<dim3(p.s.n_tiles, p.s.groups), kRouteBlock, p.s.smem, stream>>>(p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || p.s.n_tiles == 1) return e;
+    e = cudaFuncSetAttribute(moe_route_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             p.s.sort_smem);
+    if (e != cudaSuccess) return e;
+    moe_route_sort_kernel<<<p.s.sort_blocks, kRouteThreads, p.s.sort_smem, stream>>>(p);
     return cudaGetLastError();
 }
 
@@ -1044,8 +1422,11 @@ int moe_experts_plan(int mode, int rows0, int n_exp0, int N0, int rows1, int N1,
 // The shape moe_route_launch takes for (T, D, E, k) on the current device:
 // out[0] tokens a tile, out[1] blocks a tile (slice groups), out[2] tiles,
 // out[3] dynamic shared memory bytes, out[4] workspace bytes (clamped to
-// 2^31 - 1), out[5] experts a thread.  T >= 1, D even and at most 4096, 1 <=
-// k <= E <= 128, k <= 32.
+// 2^31 - 1), out[5] tokens a thread, out[6] slice warps a block, out[7] d
+// values of a slice a stage holds, out[8] blocks of the sort launch (0:
+// one tile, sorted in the routing launch), out[9] 1 where the stages are
+// loaded by TMA (given 16-byte aligned x and w).  T >= 1, D even and at
+// most 4096, 1 <= k <= E <= 128, k <= 32.
 int moe_route_plan(int T, int D, int E, int k, int* out) {
     if (T < 1 || D < 2 || D % 2 || D > kRouteMaxD || E < 1 || E > kRouteMaxE || k < 1 ||
         k > E || k > kRouteMaxK || out == nullptr)
@@ -1056,16 +1437,22 @@ int moe_route_plan(int T, int D, int E, int k, int* out) {
     out[2] = s.n_tiles;
     out[3] = s.smem;
     out[4] = (int)(s.ws_bytes < 0x7fffffff ? s.ws_bytes : 0x7fffffff);
-    out[5] = 4 * s.ce;
+    out[5] = s.tm;
+    out[6] = s.ws;
+    out[7] = s.ks;
+    out[8] = s.sort_blocks;
+    out[9] = s.tma;
     return 0;
 }
 
-// One launch of a layer's routing (see moe_route_kernel): x (T, D) bf16 (4-byte
-// aligned), w (D, E) fp32, forced (T, k) int32 or null -> logits, gates (T,
-// E) fp32, weights (T, k) fp32, idx (T, k) int32, offsets (E + 1,), order,
-// tok, pos, rank (T k,) int32.  workspace holds moe_route_plan's bytes;
-// counters, kRouteCounters int32 zeros on the device, are left zero again by
-// every launch that completes (launches sharing them must not overlap).
+// A layer's routing (see moe_route_kernel; with more than one tile a second
+// launch, moe_route_sort_kernel, sorts): x (T, D) bf16 (4-byte aligned), w
+// (D, E) fp32, forced (T, k) int32 or null -> logits, gates (T, E) fp32,
+// weights (T, k) fp32, idx (T, k) int32, offsets (E + 1,), order, tok, pos,
+// rank (T k,) int32.  workspace holds moe_route_plan's bytes (16-byte
+// aligned); counters, kRouteCounters int32 zeros on the device, are left
+// zero again by every launch that completes (launches sharing them must
+// not overlap).
 int moe_route_launch(const void* x, const void* w, const void* forced, void* logits,
                      void* gates, void* weights, void* idx, void* offsets, void* order,
                      void* tok, void* pos, void* rank, void* workspace, void* counters, int T,
@@ -1076,8 +1463,9 @@ int moe_route_launch(const void* x, const void* w, const void* forced, void* log
         return (int)cudaErrorInvalidValue;
     RouteParams p;
     p.s = route_shape(T, D, E, k, sm_count());
-    if ((int64_t)T * k > 0x7fffffff || p.s.smem + kRouteStaticSmem > kSmemLimit ||
-        (p.s.groups > 1 && p.s.n_tiles >= kRouteCounters))
+    if ((int64_t)T * k > 0x7fffffff || p.s.smem + kRouteMaxE * 4 + 64 > kSmemLimit ||
+        p.s.sort_smem > kSmemLimit - 4 * 1024 ||
+        (p.s.groups > 1 && p.s.n_tiles >= kRouteCounters - 1))
         return (int)cudaErrorInvalidValue;
     p.x = static_cast<const __nv_bfloat16*>(x);
     p.w = static_cast<const float*>(w);
@@ -1099,12 +1487,22 @@ int moe_route_launch(const void* x, const void* w, const void* forced, void* log
     p.E = E;
     p.k = k;
     p.w_vec = E % 4 == 0 && !(reinterpret_cast<uintptr_t>(w) & 15);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (p.s.ce) {
-        case 4: return (int)launch_route<4>(p, st);
-        case 2: return (int)launch_route<2>(p, st);
-        default: return (int)launch_route<1>(p, st);
+    p.tma = p.s.tma && !(reinterpret_cast<uintptr_t>(x) & 15) && p.w_vec;
+    memset(&p.xmap, 0, sizeof(p.xmap));
+    memset(&p.wmap, 0, sizeof(p.wmap));
+    if (p.tma) {
+        const uint64_t dx[2] = {(uint64_t)D, (uint64_t)T}, sx[1] = {(uint64_t)D * 2};
+        const uint32_t bx[2] = {(uint32_t)p.s.ks, (uint32_t)p.s.tt};
+        const uint64_t dw[2] = {(uint64_t)E, (uint64_t)D}, sw[1] = {(uint64_t)E * 4};
+        const uint32_t bw[2] = {(uint32_t)p.s.ep, (uint32_t)p.s.ks};
+        if (!encode_dense(&p.xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 2, dx, sx, bx) ||
+            !encode_dense(&p.wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, w, 2, dw, sw, bw))
+            return (int)cudaErrorNotSupported;
     }
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (p.s.ep == 64)
+        return (int)(p.s.tm == 8 ? launch_route<8, 64>(p, st) : launch_route<2, 64>(p, st));
+    return (int)(p.s.tm == 8 ? launch_route<8, 0>(p, st) : launch_route<2, 0>(p, st));
 }
 
 // out (T, D) bf16 = the weighted sum of each token's k expert rows (see

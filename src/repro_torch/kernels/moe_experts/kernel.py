@@ -13,13 +13,14 @@ sized from shapes alone, so a CUDA graph can hold them; the expert kernel
 and the per-token part of the routing are row-invariant (a row's result
 depends only on that row), and the combine is elementwise.
 
-``kernels/csrc/moe_backward.cu`` holds the four backward kernels, behind
-five wrappers: :func:`moe_combine_backward_kernel` (dys and dweights),
+``kernels/csrc/moe_backward.cu`` holds the backward kernels, behind five
+wrappers: :func:`moe_combine_backward_kernel` (dys and dweights),
 :func:`moe_down_grad_kernel` and :func:`moe_up_grad_kernel` (the grouped
 data gradient's two launches: the down launch's with the activation's
 backward in its epilogue, then the gate/up launch's),
 :func:`moe_weight_grad_kernel` (every expert weight's gradient in one
-launch) and :func:`moe_route_backward_kernel`; the row gather's backward is
+launch) and :func:`moe_route_backward_kernel` (two launches: dlogits once a
+token with dx, then dw; one call counted); the row gather's backward is
 :func:`moe_combine_kernel` with unit weights.  None uses a floating-point
 atomic: two launches are bitwise equal.  Each is sized from shapes alone.
 
@@ -30,7 +31,8 @@ backward runs only through ``ops.MoEFFN``.
 ``moe_experts_kernel.launches`` counts launches (``launches_by_mode`` per
 epilogue mode, ``launches_by_route`` per route: every launch is ``wgmma``,
 on tiles of the rows the library's own plan picks, :func:`library_plan`),
-``moe_route_kernel.launches`` and ``moe_combine_kernel.launches`` theirs,
+``moe_route_kernel.launches`` (calls: one or two launches) and
+``moe_combine_kernel.launches`` theirs,
 never plain-version calls; a CUDA graph's replay adds the launches it
 holds (``serve/graphs.py``).  Each backward wrapper counts its own.
 """
@@ -44,6 +46,7 @@ import torch
 
 from ..grad_guard import refuse_grad
 from . import backward_plan, plan
+from . import route_plan as route_model
 from .ref import (MODES, Route, moe_combine_backward_plain, moe_combine_plain,
                   moe_down_grad_plain, moe_experts_plain, moe_route_backward_plain,
                   moe_route_plain, moe_up_grad_plain, moe_weight_grad_plain)
@@ -205,23 +208,31 @@ def library_plan(mode: str, rows0: int, n_exp: int, N0: int, rows1: int = 0,
 
 
 class RoutePlan(NamedTuple):
-    """The shape of one ``moe_route`` launch (``moe_route_plan``)."""
+    """The shape of one ``moe_route`` call (``moe_route_plan``), modelled by
+    :func:`.route_plan.route_shape`."""
     tile_tokens: int        # tokens a tile
     groups: int             # blocks a tile: its 32 slices of D split over them
     tiles: int
     smem: int               # dynamic shared memory bytes a block
     workspace: int          # bytes: the slices' partial sums (groups > 1) and tile counts
-    thread_experts: int     # experts of one token a thread accumulates
+    thread_tokens: int      # tokens a thread accumulates (x 8 experts)
+    slice_warps: int        # warps of a block on different slices at once
+    stage_d: int            # d values of each slice a ring stage holds
+    sort_blocks: int        # blocks of the second (sort) launch; 0: one tile, no second launch
+    tma: int                # 1: stages loaded by TMA (for 16-byte aligned x and w), else cp.async
 
 
 def route_plan(T: int, D: int, E: int, k: int) -> RoutePlan:
-    """The launch ``moe_route_launch`` makes for these shapes on the current
-    CUDA device: grid (tiles, groups) of 512 threads, from shapes alone."""
-    out = (ctypes.c_int * 6)()
+    """The launches ``moe_route_launch`` makes for these shapes on the
+    current CUDA device: grid (tiles, groups) of 256 threads, and with more
+    than one tile a sort launch, from shapes and the SM count alone."""
+    if not route_model.accepts(T, D, E, k):
+        raise ValueError(f"moe_route takes T >= 1, D even and <= 4096, 1 <= k <= E <= 128 "
+                         f"and k <= 32; got T={T} D={D} E={E} k={k}")
+    out = (ctypes.c_int * 10)()
     err = _library().moe_route_plan(T, D, E, k, out)
     if err != 0:
-        raise ValueError(f"moe_route takes T >= 1, D even and <= 4096, 1 <= k <= E <= 128 "
-                         f"and k <= 32; got T={T} D={D} E={E} k={k} ({err})")
+        raise RuntimeError(f"moe_route_plan refused T={T} D={D} E={E} k={k} ({err})")
     return RoutePlan(*out)
 
 
@@ -243,10 +254,11 @@ def _route_counters(device: torch.device) -> torch.Tensor:
 
 def moe_route_kernel(x: torch.Tensor, w: torch.Tensor, k: int,
                      forced: Optional[torch.Tensor] = None) -> Route:
-    """One launch: x (T, D) bf16, w (D, E) fp32, contiguous, and optionally
-    ``forced`` (T, k) int32 experts -> the layer's :class:`~.ref.Route`
-    (logits, gates, renormalised top-k weights and experts, and the stable
-    sort of the T k pairs by expert)."""
+    """One call (a routing launch, and a sort launch when the tokens span
+    more than one tile; counted once in ``launches``): x (T, D) bf16, w (D,
+    E) fp32, contiguous, and optionally ``forced`` (T, k) int32 experts ->
+    the layer's :class:`~.ref.Route` (logits, gates, renormalised top-k
+    weights and experts, and the stable sort of the T k pairs by expert)."""
     if x.device.type == "cpu":
         return moe_route_plain(x, w, k, forced)
     if x.device.type != "cuda":
@@ -648,21 +660,30 @@ moe_weight_grad_kernel.launches = 0
 
 
 class RouteBackwardPlan(NamedTuple):
-    """The shape of one ``moe_route_backward`` launch."""
-    tiles: int              # token tiles (whose dw partials are summed in order)
-    column_groups: int      # blocks a tile: 64 columns of D each
-    smem: int               # dynamic shared memory bytes a block
-    workspace: int          # bytes: the tiles' dw partials (tiles > 1)
+    """The shape of one ``moe_route_backward`` call (two launches),
+    modelled by :func:`.route_plan.route_backward_shape`."""
+    token_tiles: int        # the dx launch's blocks: 64 tokens each
+    dx_columns: int         # its columns of D a chunk
+    dx_smem: int            # its dynamic shared memory bytes
+    workspace: int          # bytes: the dlogits (T, E) and the dw splits' partials
+    d_tiles: int            # the dw launch's tiles of D
+    dw_columns: int         # its columns a tile
+    splits: int             # its token splits (partials summed in split order)
+    split_tokens: int       # tokens a split
+    dw_threads: int         # its threads a block
+    dw_smem: int            # its dynamic shared memory bytes
 
 
 def route_backward_plan(T: int, D: int, E: int, k: int) -> RouteBackwardPlan:
-    """The launch ``moe_route_backward_launch`` makes for these shapes,
+    """The launches ``moe_route_backward_launch`` makes for these shapes,
     from shapes alone."""
-    out = (ctypes.c_int * 4)()
+    if not route_model.accepts(T, D, E, k):
+        raise ValueError(f"moe_route_backward takes T >= 1, D even and <= 4096, 1 <= k <= E <= "
+                         f"128 and k <= 32; got T={T} D={D} E={E} k={k}")
+    out = (ctypes.c_int * 10)()
     err = _backward_library().moe_route_backward_plan(T, D, E, k, out)
     if err != 0:
-        raise ValueError(f"moe_route_backward takes T >= 1, D even and <= 4096, 1 <= k <= E <= "
-                         f"128 and k <= 32; got T={T} D={D} E={E} k={k} ({err})")
+        raise RuntimeError(f"moe_route_backward_plan refused T={T} D={D} E={E} k={k} ({err})")
     return RouteBackwardPlan(*out)
 
 
@@ -673,12 +694,14 @@ def moe_route_backward_kernel(x: torch.Tensor, w: torch.Tensor, gates: torch.Ten
                               weights: torch.Tensor, idx: torch.Tensor, dweights: torch.Tensor,
                               dgates: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch: the routing's backward at the gradients of its weights
-    (T, k) fp32 and gates (T, E) fp32 (or None), from x (T, D) bf16, w (D,
-    E) fp32, the gates, weights and idx (T, k) int32 of the forward -> (dx
-    (T, D) bf16, dw (D, E) fp32); dw summed over tokens in a fixed order
-    (each token tile's partial in token order, the partials in tile order).
-    Within the stated bound of :func:`~.ref.moe_route_backward_plain`."""
+    """The routing's backward at the gradients of its weights (T, k) fp32
+    and gates (T, E) fp32 (or None), from x (T, D) bf16, w (D, E) fp32, the
+    gates, weights and idx (T, k) int32 of the forward -> (dx (T, D) bf16,
+    dw (D, E) fp32).  Two launches (dlogits once a token and dx, then dw),
+    counted as one call in ``launches``; dx sums over the experts in order,
+    dw over tokens in a fixed order (each split's tokens in order, the
+    splits' partials in split order).  Within the stated bound of
+    :func:`~.ref.moe_route_backward_plain`."""
     if x.device.type == "cpu":
         return moe_route_backward_plain(x, w, gates, weights, idx, dweights, dgates)
     _on_card("moe_route_backward_kernel", x)
@@ -699,6 +722,9 @@ def moe_route_backward_kernel(x: torch.Tensor, w: torch.Tensor, gates: torch.Ten
                               or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {shape} {dtype} tensor on {dev}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if D % 2 or x.data_ptr() % 4:
+        raise ValueError(f"moe_route_backward reads x in bf16 pairs: D={D} must be even and x "
+                         "4-byte aligned")
     dx = x.new_empty((T, D))
     dw = w.new_empty((D, E))
     if T == 0:
@@ -716,7 +742,7 @@ def moe_route_backward_kernel(x: torch.Tensor, w: torch.Tensor, gates: torch.Ten
         err = lib.moe_route_backward_launch(
             x.data_ptr(), w.data_ptr(), gates.data_ptr(), weights.data_ptr(), idx.data_ptr(),
             dweights.data_ptr(), _ptr(dgates), dx.data_ptr(), dw.data_ptr(),
-            ws.data_ptr() if plan.workspace else None, c.data_ptr(), T, D, E, k, _stream(dev))
+            ws.data_ptr(), c.data_ptr(), T, D, E, k, _stream(dev))
     _raise("moe_route_backward", err, f"x {tuple(x.shape)}, w {tuple(w.shape)}, k={k}")
     moe_route_backward_kernel.launches += 1
     return dx, dw

@@ -50,17 +50,12 @@ def build_control_plane():
 
 def optim_config(arch: str, steps: int, lr: float, schedule: Optional[str] = None
                  ) -> AdamWConfig:
-    """The driver's AdamW: minicpm takes WSD with its config's preset
-    (``configs/minicpm_2b.py::WSD``: warmup a fraction of the run, the
-    stable share, the floor), the others cosine with a tenth of the run as
-    warmup."""
+    """``run_training``'s AdamW, as the JAX package's ``run_training``
+    builds it: minicpm takes WSD, the others cosine, every schedule a tenth
+    of the run as warmup and the config's defaults for the rest (WSD's
+    stable share and floor; ``configs/minicpm_2b.py::WSD`` is the preset,
+    which neither reads)."""
     schedule = schedule or ("wsd" if arch.startswith("minicpm") else "cosine")
-    if schedule == "wsd":
-        from ..configs.minicpm_2b import WSD
-
-        return AdamWConfig(lr=lr, total_steps=steps, schedule="wsd",
-                           warmup_steps=max(1, round(WSD["warmup_steps"] * steps)),
-                           stable_frac=WSD["stable_frac"], min_ratio=WSD["min_ratio"])
     return AdamWConfig(lr=lr, total_steps=steps, warmup_steps=max(1, steps // 10),
                        schedule=schedule)
 

@@ -12,8 +12,10 @@ the reference, all config-selectable:
   ``.grad`` (fp32, as the reference's scan sums into fp32 zeros), and the
   sum is divided by the count;
 * int8 error-feedback gradient compression (``compress_grads``): each
-  gradient plus its residual is quantised to int8 by its max-abs scale and
-  back, and the quantisation error is carried in the optimiser state;
+  gradient plus its residual is quantised to int8 and back, one max-abs
+  scale for each leaf of the reference's tree (the port leaves of one
+  stacked JAX leaf share it, ``weights.jax_leaf_groups``), and the
+  quantisation error is carried per port leaf in the optimiser state;
 * rematerialization: the model config's ``remat`` (``layers.remat``).
 
 Weight decay falls on the leaves the reference decays: ndim >= 2 in its
@@ -24,11 +26,11 @@ tree, which stacks every per-layer leaf on a layer axis
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, List, Mapping, Tuple
 
 import torch
 
-from ..weights import jax_stacked
+from ..weights import jax_leaf_groups, jax_stacked
 from .optim import AdamWConfig, adamw_init, adamw_update
 
 
@@ -66,14 +68,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return loss
 
 
-def _compress_decompress(g: torch.Tensor, residual: torch.Tensor
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """int8 quantisation with error feedback: ``(g_hat, new residual)``."""
-    gf = g.float() + residual
-    scale = gf.abs().max() / 127.0 + 1e-12
-    q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
-    g_hat = q.float() * scale
-    return g_hat, gf - g_hat
+def compress_decompress(grads: Mapping[str, torch.Tensor],
+                        residuals: Mapping[str, torch.Tensor], groups: List[List[str]]
+                        ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """int8 quantisation with error feedback: ``(g_hat, new residual)`` by
+    port leaf.  Each group of ``groups`` (the port leaves of one JAX leaf,
+    :func:`weights.jax_leaf_groups`) shares one scale, the max |g + r| over
+    the group / 127, as the reference takes one over its stacked leaf."""
+    g_hat, new_res = {}, {}
+    for names in groups:
+        gf = {n: grads[n].float() + residuals[n] for n in names}
+        amax = torch.stack([g.abs().max() for g in gf.values()]).max()
+        scale = amax / 127.0 + 1e-12
+        for n, g in gf.items():
+            q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+            g_hat[n] = q.float() * scale
+            new_res[n] = g - g_hat[n]
+    return g_hat, new_res
 
 
 def make_loss_fn(model, step_cfg: TrainStepConfig) -> Callable:
@@ -97,6 +108,7 @@ def make_train_step(model, optim_cfg: AdamWConfig,
                     step_cfg: TrainStepConfig = TrainStepConfig()) -> Callable:
     loss_fn = make_loss_fn(model, step_cfg)
     decay = decay_mask(model)
+    groups = jax_leaf_groups(trainable(model), model.cfg)
 
     def compute_grads(params, batch):
         n = max(step_cfg.accum_steps, 1)
@@ -123,10 +135,7 @@ def make_train_step(model, optim_cfg: AdamWConfig,
         grads, metrics = compute_grads(params, batch)
         new_res = None
         if step_cfg.compress_grads:
-            new_res = {}
-            for name in grads:
-                grads[name], new_res[name] = _compress_decompress(
-                    grads[name], opt_state["compress_residual"][name])
+            grads, new_res = compress_decompress(grads, opt_state["compress_residual"], groups)
         inner = {k: opt_state[k] for k in ("mu", "nu", "step")}
         new_state, opt_metrics = adamw_update(grads, inner, params, optim_cfg, decay)
         del grads

@@ -54,7 +54,7 @@ can round-trip.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Iterable, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -101,6 +101,24 @@ def jax_stacked(name: str, cfg) -> bool:
         return True
     n_sb, n = _hybrid_layout(cfg)
     return int(parts[1]) < n_sb * n
+
+
+def jax_leaf_groups(names: Iterable[str], cfg) -> List[List[str]]:
+    """The port's leaves grouped by the JAX leaf that holds them (the
+    mapping of :func:`params_to_numpy`): a stacked per-layer leaf is one
+    group of its layers (``layers`` and ``enc_layers``; a hybrid's
+    ``blocks.l<j>``, every super-block's layer at pattern position ``j``);
+    a hybrid's unstacked tail and every other leaf stand alone."""
+    groups: Dict[tuple, List[str]] = {}
+    for name in names:
+        parts = name.split(".")
+        key: tuple = (name,)
+        if jax_stacked(name, cfg):
+            key = (parts[0],) + tuple(parts[2:])
+            if cfg.family == "hybrid" and parts[0] == "layers":
+                key += (int(parts[1]) % _hybrid_layout(cfg)[1],)
+        groups.setdefault(key, []).append(name)
+    return list(groups.values())
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):

@@ -7,6 +7,7 @@ family whose forward on the card reaches a kernel with no backward."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -202,13 +203,30 @@ def test_run_training_reports_its_coordination_cost(monkeypatch):
     assert out["coord_cost_usd"] > 0
 
 
-def test_minicpm_takes_its_wsd_preset():
-    from repro_torch.configs.minicpm_2b import WSD
+@pytest.mark.parametrize("steps", [6, 50, 200])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "starcoder2-3b"])
+def test_optim_config_matches_the_reference_run_training(arch, steps, monkeypatch):
+    """The port's AdamW config equals the one the JAX package's
+    ``run_training`` builds (captured where it reaches ``make_train_step``):
+    WSD for minicpm, cosine otherwise, a tenth of the run as warmup."""
+    import repro.launch.train as reference
 
-    cfg = optim_config("minicpm-2b", 200, 3e-4)
-    assert (cfg.schedule, cfg.warmup_steps, cfg.stable_frac, cfg.min_ratio) == \
-        ("wsd", round(WSD["warmup_steps"] * 200), WSD["stable_frac"], WSD["min_ratio"])
-    assert optim_config("starcoder2-3b", 200, 3e-4).schedule == "cosine"
+    class Captured(Exception):
+        pass
+
+    seen = []
+
+    def capture(model, optim, step_cfg=None):
+        seen.append(optim)
+        raise Captured
+
+    monkeypatch.setattr(reference, "make_train_step", capture)
+    with pytest.raises(Captured):
+        reference.run_training(arch, steps=steps, seq_len=8, global_batch=2, lr=3e-4,
+                               log_every=100)
+    got = optim_config(arch, steps, 3e-4)
+    assert dataclasses.asdict(got) == dataclasses.asdict(seen[0])
+    assert got.schedule == ("wsd" if arch.startswith("minicpm") else "cosine")
 
 
 def test_only_moe_lacks_a_backward_and_mamba2_trains():

@@ -53,9 +53,9 @@ from repro_torch.data import DataConfig, SyntheticPipeline
 from repro_torch.models import build_model
 from repro_torch.models.config import ArchConfig, ShapeSpec
 from repro_torch.train import AdamWConfig, make_train_step
-from repro_torch.train.step import (TrainStepConfig, cross_entropy, init_train_state,
-                                    make_eval_step, make_loss_fn, trainable)
-from repro_torch.weights import params_from_jax, params_to_numpy
+from repro_torch.train.step import (TrainStepConfig, compress_decompress, cross_entropy,
+                                    init_train_state, make_eval_step, make_loss_fn, trainable)
+from repro_torch.weights import jax_leaf_groups, params_from_jax, params_to_numpy
 
 try:    # the card's machine has no JAX
     import jax
@@ -68,6 +68,7 @@ try:    # the card's machine has no JAX
     from repro.models.config import ShapeSpec as JShapeSpec
     from repro.train import AdamWConfig as JAdamWConfig
     from repro.train.step import TrainStepConfig as JTrainStepConfig
+    from repro.train.step import _compress_decompress as jax_compress
     from repro.train.step import cross_entropy as jax_cross_entropy
     from repro.train.step import init_train_state as jax_init_train_state
     from repro.train.step import make_loss_fn as jax_make_loss_fn
@@ -242,6 +243,39 @@ def test_compression_error_feedback():
         trajs[comp] = losses
     assert trajs[True][-1] < trajs[True][0] - 0.2
     assert abs(trajs[True][-1] - trajs[False][-1]) < 0.25
+
+
+@pytest.mark.parametrize("arch,over", [("minicpm-2b", {}),
+                                       ("recurrentgemma-2b", {"n_layers": 8})])
+def test_compression_scale_is_the_reference_leafs(arch, over):
+    """int8 compression takes one scale for each JAX leaf, as the
+    reference's ``_compress_decompress`` over its stacked tree: the port's
+    g_hat and residual (per port leaf) at the JAX init weights' gradient and
+    a random residual are the reference's on every stacked leaf, bitwise
+    (the hybrid at 8 layers: two super-blocks of 3 and an unstacked tail of
+    2).  One scale per port leaf would quantise each layer on its own."""
+    jcfg, tcfg, jm, jp, tm, jpipe, tpipe = setup(arch, **over)
+    jg = jax.tree_util.tree_map(np.asarray, jax.grad(
+        lambda p, b: jax_make_loss_fn(jm, JTrainStepConfig())(p, b)[0])(jp, jpipe.host_batch(0)))
+    rng = np.random.default_rng(0)
+    jres = jax.tree_util.tree_map(
+        lambda g: (rng.standard_normal(g.shape) * 0.05 * np.abs(g).max()).astype(np.float32), jg)
+    pairs = jax.tree_util.tree_map(lambda g, r: jax_compress(jnp.asarray(g), jnp.asarray(r)),
+                                   jg, jres)
+    is_pair = lambda x: isinstance(x, tuple)     # noqa: E731
+    want_g = flat(jax.tree_util.tree_map(lambda pr: pr[0], pairs, is_leaf=is_pair))
+    want_r = flat(jax.tree_util.tree_map(lambda pr: pr[1], pairs, is_leaf=is_pair))
+    grads = params_from_jax(jg, tcfg, "cpu", master=True)
+    res = params_from_jax(jres, tcfg, "cpu", master=True)
+    groups = jax_leaf_groups(grads, tcfg)
+    assert sorted(n for g in groups for n in g) == sorted(grads)
+    assert len(groups) == len(want_g) and max(map(len, groups)) > 1
+    g_hat, new_res = compress_decompress(grads, res, groups)
+    got_g, got_r = flat(params_to_numpy(g_hat, tcfg)), flat(params_to_numpy(new_res, tcfg))
+    assert got_g.keys() == want_g.keys()
+    for k in want_g:
+        assert np.array_equal(got_g[k], want_g[k]), k
+        assert np.array_equal(got_r[k], want_r[k]), k
 
 
 def test_loss_decreases_to_above_the_chain_floor():
