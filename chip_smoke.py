@@ -458,6 +458,36 @@ last line is printed):
     remat recompute), combine 3 x (the gather's backward too), each
     backward wrapper layers x microsteps, flash as in 31, no paged launch;
     MFU by active parameters (``active_params``: top-6 of 64 experts).
+40. The paged kernel per shard of a split pool (``sharded_paged_attention``,
+    the reference's shard_map decomposition): lane shards (``lane_base``,
+    ``pos_stride``) at 2 and 4 shards at minicpm-2b's decode (B 8, 36 kv
+    heads, D 64, page 16), moonshot's (G 1, D 128) and recurrentgemma-2b's
+    (Hkv 1, G 10, D 256, a 2048 window past the context's start, and a
+    3-token slot beside an unmapped one), head shards at page 9 for 36 and
+    8 kv heads; each shard's launch against its plain version on its slice
+    (fp32 2e-4, bf16 3e-2) and the merged shards against the unsharded
+    kernel at the same tolerances.  Then shard 1 of 2 at minicpm-2b's and
+    recurrentgemma-2b's serving shapes (every layer's pool rotated): CUDA
+    events, device ms queued behind a sleep, the plain version, gather +
+    SDPA over the shard's lanes, the in-process merge and splice, the
+    unsharded launch's device ms and the shard's bound; the launches are
+    the (1, 2) runs' below, summed over ranks.
+41. Full-width, full-depth minicpm-2b served by ``DecodeScheduler(mesh=)``
+    on (1, 2) and (2, 2) meshes of spawned ranks on the one card (gloo on
+    CUDA tensors, ``launch/sharded_smoke.py``), ``paged_kernel``: 8
+    requests over 4 sessions, prompt 256, 16 new, 8 slots, page 16 (a lane
+    shard of 8 lanes a rank).  Tokens identical to the ``mesh=None`` run of
+    the same workload (in this process) or split at a near-tie (as phase
+    26); every rank's tokens agree; each rank's pool bytes 1/2 of the whole
+    pool's; the collective bytes of a decode step equal at a 4x pool; the
+    paged kernel launched 40 x decode steps on every rank; ms per decode
+    step, tok/s and peak memory by rank printed.  Under a mesh every step
+    runs eagerly (a collective cannot be captured in a graph).
+42. Full-width recurrentgemma-2b on (1, 2): 8 requests, prompt 2100 (past
+    the 2048-token window), 8 new, against its mesh-matched run (the same
+    sharded scheduler, one request at a time), tokens identical; pool and
+    bytes as in 41; paged launches 8 x decode steps and RG-LRU launches 18
+    x (decode steps + chunks) on every rank.
 
 On the card the scheduler replays a CUDA graph for every decode step and
 every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19,
@@ -6463,6 +6493,332 @@ def phase_moe_backward_timing(fails: Failures, seed: int) -> list:
     return out
 
 
+# -- phases 40-42: the paged kernel per shard, sharded serving -------------------------
+
+# (label, paged_case kwargs, mode, shard counts): lane shards at minicpm-2b's
+# decode, moonshot's (G = 1, D = 128) and recurrentgemma-2b's (D = 256, a
+# 2048 window past the context's start, so window_first_page runs with
+# lane_base > 0); head shards at a page size neither count divides
+SHARD_CASES = [
+    ("minicpm-2b decode", dict(B=8, Hkv=36, G=1, D=64, ps=16, mp=34, n_pages=300, fill=1.0,
+                               min_len=512), "lane", (2, 4)),
+    ("moonshot decode", dict(B=8, Hkv=16, G=1, D=128, ps=16, mp=146, n_pages=1200, fill=1.0,
+                             min_len=2300, holes=1), "lane", (2, 4)),
+    ("recurrentgemma-2b decode", dict(B=8, Hkv=1, G=10, D=256, ps=16, mp=145, n_pages=1200,
+                                      window=2048, post=True, fill=1.0, min_len=2100),
+     "lane", (2, 4)),
+    ("recurrentgemma-2b, a 3-token slot", dict(B=3, Hkv=1, G=10, D=256, ps=16, mp=40,
+                                               n_pages=130, window=100, short=True,
+                                               unmapped=True), "lane", (2, 4)),
+    ("Hkv 36, page 9", dict(B=8, Hkv=36, G=1, D=64, ps=9, mp=60, n_pages=500, fill=1.0,
+                            min_len=512, holes=1), "head", (2, 4)),
+    ("Hkv 8 (G 5, D 128), page 9", dict(B=4, Hkv=8, G=5, D=128, ps=9, mp=40, n_pages=200,
+                                        window=100), "head", (2, 4)),
+]
+SHARD_MESHES = ((1, 2), (2, 2))
+SH_REQUESTS, SH_SESSIONS, SH_PROMPT, SH_MAX_NEW = 8, 4, 256, 16       # phase 41
+SHH_REQUESTS, SHH_PROMPT, SHH_MAX_NEW = 8, 2100, 8                    # phase 42
+
+
+def shard_inputs(gen, c, dtype):
+    q, kp, vp, pt, lengths, k_new, v_new = paged_case(
+        gen, B=c["B"], Hkv=c["Hkv"], G=c["G"], D=c["D"], ps=c["ps"], mp=c["mp"],
+        n_pages=c["n_pages"], dtype=dtype, holes=c.get("holes", 0), fill=c.get("fill", 0.8),
+        min_len=c.get("min_len", 1))
+    if c.get("unmapped"):
+        pt[1] = -1
+        lengths[1] = 0
+    if c.get("short"):
+        lengths[0] = 3
+    post = c.get("post", False)
+    return dict(q=q, kp=kp, vp=vp, pt=pt, lengths=lengths,
+                q_pos=lengths - 1 if post else lengths,
+                k_new=None if post else k_new, v_new=None if post else v_new)
+
+
+def phase_shard_cases(fails: Failures, seed: int) -> None:
+    """Each shard's launch against its plain version on the same slice (as
+    phase 2), and the merged shards against the unsharded kernel."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import (paged_attention, paged_attention_kernel,
+                                                     paged_attention_plain,
+                                                     paged_shard_partials, pool_shard,
+                                                     sharded_paged_attention_local)
+
+    gen = torch.Generator().manual_seed(seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[-1]]
+        for label, c, mode, counts in SHARD_CASES:
+            x = shard_inputs(gen, c, dtype)
+            B, Hkv, G, D, ps = c["B"], c["Hkv"], c["G"], c["D"], c["ps"]
+            qg = x["q"].reshape(B, Hkv, G, D).contiguous()
+            window = c.get("window")
+            for m in counts:
+                worst, splits = 0.0, []
+                for r in range(m):
+                    kp_s, vp_s = pool_shard(x["kp"], r, m, mode), pool_shard(x["vp"], r, m, mode)
+                    args = (x["pt"], x["lengths"], x["q_pos"])
+                    acc, mx, l = paged_shard_partials(qg, kp_s, vp_s, *args, shard=r, n_shards=m,
+                                                      mode=mode, page_size=ps, window=window)
+                    splits.append(paged_attention_kernel.last_splits)
+                    if mode == "lane":
+                        w = ps // m
+                        racc, rm, rl = paged_attention_plain(qg, kp_s, vp_s, *args,
+                                                             lane_base=r * w, pos_stride=ps,
+                                                             window=window)
+                    else:
+                        h = Hkv // m
+                        racc, rm, rl = paged_attention_plain(
+                            qg[:, r * h:(r + 1) * h].contiguous(), kp_s, vp_s, *args,
+                            window=window)
+                    sync()
+                    o = acc / l.clamp(min=1e-30)[..., None]
+                    ro = racc / rl.clamp(min=1e-30)[..., None]
+                    err = max((o - ro).abs().max().item(), (mx - rm).abs().max().item(),
+                              ((l - rl).abs() / rl.clamp(min=1.0)).max().item())
+                    fails.check(err <= tol and bool(torch.isfinite(o).all()),
+                                f"{label} {mode} shard {r + 1} of {m} {str(dtype)[6:]}: kernel "
+                                f"vs plain max err {err:.3g} <= {tol}")
+                    worst = max(worst, err)
+                kw = dict(q_pos=x["q_pos"], k_new=x["k_new"], v_new=x["v_new"], window=window)
+                merged = sharded_paged_attention_local(x["q"], x["kp"], x["vp"], x["pt"],
+                                                       x["lengths"], n_shards=m, mode=mode, **kw)
+                whole = paged_attention(x["q"], x["kp"], x["vp"], x["pt"], x["lengths"], **kw)
+                err = (merged.float() - whole.float()).abs().max().item()
+                fails.check(err <= tol, f"{label} {mode} x{m} {str(dtype)[6:]}: merged shards "
+                            f"vs the unsharded kernel max err {err:.3g} <= {tol} (splits per "
+                            f"shard {splits})")
+
+
+def shard_bound(qg, pt, lengths, q_pos, window, ps, lane_lo, lane_hi) -> tuple:
+    """(bytes, flops) that one lane shard's launch must move and compute on
+    this run's data: q, its live K/V lanes, their table entries, the
+    lengths and its fp32 state."""
+    import numpy as np
+
+    B, Hs, G, D = qg.shape
+    L = lengths.cpu().numpy()
+    Q = q_pos.cpu().numpy()
+    P = pt.cpu().numpy()
+    live = pages = 0
+    for b in range(B):
+        lo_pos = -1 if window is None else int(Q[b]) - window
+        for j in range(P.shape[1]):
+            if P[b, j] < 0:
+                continue
+            pos = j * ps + np.arange(lane_lo, lane_hi)
+            n = int(((pos < L[b]) & (pos > lo_pos)).sum())
+            live += n
+            pages += n > 0
+    elt = qg.element_size()
+    nbytes = (B * Hs * G * D * elt + 2 * live * Hs * D * elt + pages * 4 + 2 * B * 4
+              + B * Hs * G * (D + 2) * 4)
+    return nbytes, 4 * live * Hs * G * D
+
+
+def phase_shard_timing(fails: Failures, seed: int, label: str, c: dict, m: int, launches,
+                       wire: int, layers: int) -> dict:
+    """Shard 1 of ``m`` of a lane-sharded pool at a serving shape, one pool
+    per layer for ``layers`` layers: the per-shard launch (CUDA events, and
+    device ms queued behind a sleep), its plain version, gather + SDPA over
+    the shard's lanes, the in-process merge of the ``m`` states with the
+    new token's splice, and the unsharded launch; the shard's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import (merge_shard_states, paged_attention_plain,
+                                                     paged_shard_partials, pool_shard)
+    from repro_torch.kernels.paged_attention.kernel import paged_attention_kernel
+    from repro_torch.kernels.paged_attention.ops import _finish
+
+    gen = torch.Generator().manual_seed(seed)
+    x = shard_inputs(gen, c, torch.bfloat16)
+    B, Hkv, G, D, ps = c["B"], c["Hkv"], c["G"], c["D"], c["ps"]
+    window = c.get("window")
+    w = ps // m
+    kps = [pool_shard(torch.randn_like(x["kp"]) if i else x["kp"], 0, m, "lane")
+           for i in range(layers)]
+    vps = [pool_shard(torch.randn_like(x["vp"]) if i else x["vp"], 0, m, "lane")
+           for i in range(layers)]
+    qg = x["q"].reshape(B, Hkv, G, D).contiguous()
+    args = (x["pt"], x["lengths"], x["q_pos"])
+
+    def shard(i):
+        return paged_shard_partials(qg, kps[i % layers], vps[i % layers], *args, shard=0,
+                                    n_shards=m, mode="lane", page_size=ps, window=window)
+
+    def plain(i):
+        return paged_attention_plain(qg, kps[i % layers], vps[i % layers], *args, lane_base=0,
+                                     pos_stride=ps, window=window)
+
+    T = c["mp"] * w
+    pos = (torch.arange(c["mp"], device="cuda")[:, None] * ps
+           + torch.arange(w, device="cuda")[None]).reshape(-1)
+    mask = (pos[None] < x["lengths"][:, None]) & (x["pt"] >= 0).repeat_interleave(w, dim=1)
+    if window is not None:
+        mask &= pos[None] > (x["q_pos"] - window)[:, None]
+    mask = mask[:, None, None, :]
+
+    def library(i):
+        k = kps[i % layers][x["pt"].long().clamp(min=0)].reshape(B, T, Hkv, D).transpose(1, 2)
+        v = vps[i % layers][x["pt"].long().clamp(min=0)].reshape(B, T, Hkv, D).transpose(1, 2)
+        return F.scaled_dot_product_attention(qg, k, v, attn_mask=mask)
+
+    acc, mx, l = shard(0)
+    racc, rm, rl = plain(0)
+    live = rl > 0
+    o = (acc / l.clamp(min=1e-30)[..., None])[live]
+    ro = (racc / rl.clamp(min=1e-30)[..., None])[live]
+    max_err = (o - ro).abs().max().item()
+    fails.check(max_err <= PAGED_SUM_REL * ro.abs().max().item(),
+                f"{label} lane shard 1 of {m}: kernel vs plain max err {max_err:.3g} <= "
+                f"{PAGED_SUM_REL} x max |o|")
+    states = [paged_shard_partials(qg, pool_shard(x["kp"], r, m, "lane"),
+                                   pool_shard(x["vp"], r, m, "lane"), *args, shard=r,
+                                   n_shards=m, mode="lane", page_size=ps, window=window)
+              for r in range(m)]
+    stacked = [torch.stack(s) for s in zip(*states)]
+
+    def merge(i):
+        return _finish(x["q"], qg, *merge_shard_states(*stacked, mode="lane"), x["k_new"],
+                       x["v_new"], x["kp"].dtype)
+
+    def unsharded(i):
+        return paged_attention_kernel(qg, x["kp"], x["vp"], *args, window=window)
+
+    ms = cuda_time_ms(shard, 200, warmup=20)
+    dev_ms = queued_device_ms(shard, 100)
+    plain_ms = cuda_time_ms(plain, 20)
+    library_ms = cuda_time_ms(library, 20)
+    merge_ms = cuda_time_ms(merge, 100)
+    whole_dev_ms = queued_device_ms(unsharded, 100)
+    nbytes, flops = shard_bound(qg, x["pt"], x["lengths"], x["q_pos"], window, ps, 0, w)
+    tb, to = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    bound_ms = max(tb, to) * 1e3
+    print(f"  {label}, lane shard 1 of {m} ({w} of {ps} lanes): kernel {ms:.4f} ms (device "
+          f"{dev_ms} ms), plain {plain_ms:.4f} ms, gather+SDPA {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({nbytes / 1e6:.3f} MB); merge of {m} states + splice "
+          f"{merge_ms:.4f} ms; unsharded launch device {whole_dev_ms} ms; {wire} collective "
+          f"bytes per decode step on the mesh")
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:99",
+            "shape": f"{label}: lane shard 1 of {m}, B={B} Hkv={Hkv} G={G} D={D}, {w} of {ps} "
+                     f"lanes a page, bf16",
+            "launches": launches, "max_abs_err": max_err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if tb >= to else "operations", "library_ms": library_ms,
+            "merge_ms": merge_ms, "unsharded_device_ms": whole_dev_ms,
+            "collective_bytes_per_step": wire}
+
+
+def sharded_judge(fails: Failures, label: str, res: dict, model, cfg, prompts,
+                  matched: bool, launches_per_step: dict) -> None:
+    """The checks of one mesh run (``sharded_smoke.verdicts``): the tokens
+    (identical to ``mesh=None``, or split at a near-tie the unsharded model
+    shows teacher-forced; the hybrid against its mesh-matched run), every
+    rank's pool 1/m of the whole, the collective bytes flat at 4x the pool,
+    and the kernels launched on every decode step of every rank."""
+    import numpy as np
+
+    mp = int(res["mesh"].split("x")[1])
+    print(f"  {label} on {res['mesh']}: mesh=None {res['single_step_ms']} ms per decode step; "
+          f"sharded {[round(x, 3) for x in res['sharded_step_ms']]} ms per decode step, "
+          f"{[round(x, 2) for x in res['sharded_tok_s']]} tok/s, peak "
+          f"{[b and round(b / 2**30, 2) for b in res['peak_bytes']]} GiB by rank; pool "
+          f"{res['pool']}; launches by rank {res['launches']}")
+    fails.check(res["ranks_agree"], f"{label} {res['mesh']}: every rank's tokens agree")
+    if matched:
+        fails.check(res["matched_identical"], f"{label} {res['mesh']}: tokens identical to the "
+                    f"mesh-matched run (the same sharded scheduler, one request at a time)")
+    elif not res["identical_outputs"]:
+        to_np = lambda d: {k: np.asarray(v) for k, v in d.items()}  # noqa: E731
+        spec_margins(fails, model, cfg, f"{label} {res['mesh']}",
+                     {"tokens": to_np(res["tokens_single"])},
+                     {"tokens": to_np(res["tokens_sharded"])}, prompts, than="mesh=None")
+    else:
+        fails.check(True, f"{label} {res['mesh']}: tokens identical to mesh=None")
+    fails.check(res["pool_split"], f"{label} {res['mesh']}: each rank's pool "
+                f"{res['pool_bytes_rank']} B == 1/{mp} of {res['pool_bytes_single']} B")
+    fails.check(res["wire_flat"], f"{label} {res['mesh']}: collective bytes per decode step "
+                f"{res['wire_per_step']} equal at a 4x pool {res['wire_per_step_4x']}")
+    for name, per_step in launches_per_step.items():
+        for r, got in enumerate(res["launches"]):
+            want = per_step(r)
+            fails.check(got[name] == want > 0, f"{label} {res['mesh']} rank {r}: {name} "
+                        f"launches {got[name]} == {want}")
+
+
+def phase_sharded_serving(fails: Failures, seed: int, *, device: str = "cuda",
+                          reduced: bool = False, n_layers=None) -> dict:
+    """Phases 41-42: minicpm-2b at full width and depth on (1, 2) and (2, 2)
+    ranks of the one card (``paged_kernel``), recurrentgemma-2b at full
+    width on (1, 2) against its mesh-matched run (``reduced`` and
+    ``n_layers`` cut them for a CPU rehearsal)."""
+    from repro_torch import configs
+    from repro_torch.launch import sharded_smoke as ss
+    from repro_torch.models.config import layer_pattern
+
+    out = {}
+    w = ss.Workload(arch=ARCH, reduced=reduced, n_layers=n_layers, attn_backend="paged_kernel",
+                    n_requests=SH_REQUESTS, sessions=SH_SESSIONS, prompt_len=SH_PROMPT,
+                    max_new=SH_MAX_NEW, n_slots=SLOTS, page_size=PAGE, prefill_chunk=CHUNK,
+                    seed=seed)
+    print(f"[41] full-width, full-depth {ARCH} served on meshes {SHARD_MESHES} of ranks on one "
+          f"card (gloo, paged_kernel): {SH_REQUESTS} requests over {SH_SESSIONS} sessions, "
+          f"prompt {SH_PROMPT}, {SH_MAX_NEW} new, {SLOTS} slots, page {PAGE}")
+    t41 = time.perf_counter()
+    model = ss.build(w, device)
+    cfg = model.cfg
+    single = ss.run_single(w, device, model=model)
+    if device == "cuda":
+        release()           # the mesh=None run's scheduler and graphs, before the ranks
+    prompts = {f"r{i}": p for i, p in enumerate(w.prompts(cfg.vocab))}
+    for dp, mp in SHARD_MESHES:
+        t0 = time.perf_counter()
+        res = ss.run_smoke(w, dp=dp, mp=mp, device=device, singles=[single])[0]
+        res["launches"] = res.pop("launches_by_rank")
+        print(f"  mesh {dp}x{mp}: {time.perf_counter() - t0:.1f} s with the spawn")
+        sharded_judge(fails, ARCH, res, model, cfg, prompts, False,
+                      {"paged_attention": lambda r, res=res: cfg.n_layers * res["decode_steps"][r]})
+        out[(dp, mp)] = res
+    del model
+    if device == "cuda":
+        release()
+    print(f"  phase 41 wall {time.perf_counter() - t41:.1f} s")
+
+    hcfg = configs.get(HYBRID)
+    print(f"[42] full-width {HYBRID} on a (1, 2) mesh against its mesh-matched run: "
+          f"{SHH_REQUESTS} requests, prompt {SHH_PROMPT} (past the "
+          f"{hcfg.hybrid.local_window}-token window), {SHH_MAX_NEW} new, {SLOTS} slots")
+    t42 = time.perf_counter()
+    hw = dataclasses.replace(w, arch=HYBRID, n_requests=SHH_REQUESTS, sessions=SHH_REQUESTS,
+                             prompt_len=SHH_PROMPT, max_new=SHH_MAX_NEW)
+    hmodel = ss.build(hw, device)
+    hcfg = hmodel.cfg
+    pat = layer_pattern(hcfg)
+    n_rec, n_attn = pat.count("r"), pat.count("a")
+    hsingle = ss.run_single(hw, device, model=hmodel)
+    if device == "cuda":
+        release()
+    hprompts = {f"r{i}": p for i, p in enumerate(hw.prompts(hcfg.vocab))}
+    res = ss.run_smoke(hw, dp=1, mp=2, device=device, singles=[hsingle], mesh_matched=True)[0]
+    res["launches"] = res.pop("launches_by_rank")
+    sharded_judge(fails, HYBRID, res, hmodel, hcfg, hprompts, True,
+                  {"paged_attention": lambda r: n_attn * res["decode_steps"][r],
+                   "rglru_scan": lambda r: n_rec * (res["decode_steps"][r]
+                                                    + res["chunks_run"][r])})
+    print(f"  {HYBRID} 1x2 vs mesh=None: tokens identical {res['identical_outputs']} "
+          f"(not required: the recurrence feeds cross-shard summation order back)")
+    out["hybrid"] = res
+    del hmodel
+    if device == "cuda":
+        release()
+    print(f"  phase 42 wall {time.perf_counter() - t42:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6968,6 +7324,23 @@ def main() -> int:
     phase_train_refusal(fails, args.seed)
     print(f"  phase 33 wall {time.perf_counter() - t33:.1f} s; phases 29-33 "
           f"{time.perf_counter() - t29:.1f} s")
+    release()
+    t40 = time.perf_counter()
+    print("[40] the paged kernel per lane or head shard vs its plain version; the merged "
+          "shards vs the unsharded kernel")
+    phase_shard_cases(fails, args.seed)
+    sharded = phase_sharded_serving(fails, args.seed)
+    print("[40] the per-shard kernel at the sharded serving shapes (CUDA events)")
+    mesh12, hyb = sharded[(1, 2)], sharded["hybrid"]
+    records.append(phase_shard_timing(
+        fails, args.seed, f"{ARCH} decode", SHARD_CASES[0][1], 2,
+        sum(n["paged_attention"] for n in mesh12["launches"]), mesh12["wire_per_step"][0][0],
+        cfg.n_layers))
+    records.append(phase_shard_timing(
+        fails, args.seed, f"{HYBRID} decode", SHARD_CASES[2][1], 2,
+        sum(n["paged_attention"] for n in hyb["launches"]), hyb["wire_per_step"][0][0],
+        n_attn))
+    print(f"  phases 40-42 wall {time.perf_counter() - t40:.1f} s")
     for recs in train_records.values():
         records.extend(recs)
     records.append(rglru_bwd)

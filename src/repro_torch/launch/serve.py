@@ -16,18 +16,22 @@ speculative decoding with a seeded draft of ``ARCH`` (the target's own
 model when it is ``--arch``), ``--spec-k`` drafts a round (paged, gather,
 greedy).  ``--fleet N`` serves through an elastic fleet of N disposable
 scheduler workers (paged, parked sessions and the index journal implied;
-``--min-workers``, ``--max-workers``, ``--scale-to-zero``).
+``--min-workers``, ``--max-workers``, ``--scale-to-zero``).  ``--mesh
+DPxMP`` serves through the sharded scheduler on ``DP * MP`` spawned ranks
+of a ``(data, model)`` mesh on ``--device`` (gloo; several ranks may share
+one card); every rank serves the same submits, and rank 0 reports.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
       --requests 12 --sessions 3 --batch-size 4 --prompt-len 16 [--device cpu] \\
       [--offload] [--prefix-sharing] [--park-sessions] [--spec-draft ARCH --spec-k K]
-      [--fleet N [--min-workers M] [--max-workers N] [--scale-to-zero]]
+      [--fleet N [--min-workers M] [--max-workers N] [--scale-to-zero]] [--mesh DPxMP]
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from typing import List, Optional
 
@@ -110,7 +114,7 @@ def build_frontend(cloud: SimCloud, cfg, model, *, mode: str, batch_size: int,
                    park_sessions: bool = False, park_ttl_steps: int = 0,
                    draft_model=None, spec_k: int = 0,
                    fleet_size: int = 0, min_workers: int = 0,
-                   scale_to_zero: bool = False, device="cuda") -> ServingFrontend:
+                   scale_to_zero: bool = False, device="cuda", mesh=None) -> ServingFrontend:
     """Frontend for ``mode`` in {'continuous', 'shared', 'per-session'}.
 
     ``continuous`` serves through :class:`DecodeScheduler`: from the shared
@@ -126,10 +130,14 @@ def build_frontend(cloud: SimCloud, cfg, model, *, mode: str, batch_size: int,
     ``fleet_size`` > 0 serves through a :class:`FleetController` of that
     many worker schedulers over one shared blob store (paged, parked
     sessions and the index journal on; ``min_workers`` and
-    ``scale_to_zero`` set its autoscaler).
+    ``scale_to_zero`` set its autoscaler).  ``mesh`` (a live DeviceMesh)
+    serves through the sharded continuous scheduler.
     """
     if mode not in ("continuous", "shared", "per-session"):
         raise ValueError(f"unknown serving mode {mode!r}")
+    if mesh is not None and (fleet_size or mode != "continuous"
+                             or not supports_continuous(cfg)):
+        raise ValueError("--mesh needs the continuous scheduler without --fleet")
     if fleet_size:
         if mode != "continuous" or not supports_continuous(cfg):
             raise ValueError("--fleet needs the continuous scheduler "
@@ -176,7 +184,7 @@ def build_frontend(cloud: SimCloud, cfg, model, *, mode: str, batch_size: int,
                                 park_sessions=park_sessions,
                                 park_ttl_steps=park_ttl_steps,
                                 attn_backend=attn_backend, draft_model=draft_model,
-                                spec_k=spec_k, device=device)
+                                spec_k=spec_k, device=device, mesh=mesh)
         return ServingFrontend(cloud, scheduler=sched, batch_size=batch_size)
     if temperature or top_k:
         raise ValueError(
@@ -225,7 +233,7 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
                 spec_draft: Optional[str] = None, spec_k: int = 0,
                 fleet: int = 0, min_workers: int = 0,
                 max_workers: Optional[int] = None, scale_to_zero: bool = False,
-                device="cuda") -> ServingFrontend:
+                device="cuda", mesh=None) -> ServingFrontend:
     cfg = configs.get(arch).reduced()
     model = build_model(cfg, device=device, seed=0)
     draft_model = None
@@ -250,15 +258,17 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
                               spec_k=spec_k,
                               fleet_size=(max_workers or fleet) if fleet else 0,
                               min_workers=min_workers, scale_to_zero=scale_to_zero,
-                              device=device)
+                              device=device, mesh=mesh)
     t0 = time.time()
     spawn_workload(cloud, frontend, vocab=cfg.vocab, n_requests=n_requests,
                    sessions=sessions, prompt_len=prompt_len, max_new=max_new)
     cloud.run()
     served = sum(len(v) for v in frontend.completions.values())
     if not quiet:
+        where = "" if mesh is None else \
+            f" (mesh {'x'.join(str(n) for n in mesh.shape)} of {mesh.size()} ranks)"
         print(f"served {served}/{n_requests} requests in {time.time()-t0:.1f}s wall "
-              f"({cloud.now:.3f}s simulated) on {device}")
+              f"({cloud.now:.3f}s simulated) on {device}{where}")
         for sess, ids in sorted(frontend.completions.items()):
             print(f"  session {sess}: completions in order {ids}")
         s = frontend.serving_stats()
@@ -312,6 +322,43 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
                       f"{s['parked_sessions']} sessions parked, retention "
                       f"${s['park_storage_usd']:.9f})")
     return frontend
+
+
+def parse_mesh(spec: Optional[str]):
+    """``"2x4"`` -> ``(dp, mp)``; None passes through."""
+    if spec is None:
+        return None
+    try:
+        dp, mp = (int(p) for p in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh wants DPxMP (e.g. 2x4), got {spec!r}")
+    if dp < 1 or mp < 1:
+        raise SystemExit(f"--mesh {spec}: both sizes must be >= 1")
+    return dp, mp
+
+
+def _serve_rank(mesh, arch: str, n_requests: int, kw: dict) -> dict:
+    """One rank of ``--mesh``: the same run on every rank, rank 0 reports."""
+    import torch.distributed as dist
+
+    front = run_serving(arch, n_requests, quiet=dist.get_rank() != 0, mesh=mesh, **kw)
+    return {sess: list(ids) for sess, ids in front.completions.items()}
+
+
+def run_serving_mesh(arch: str, n_requests: int, *, dp: int, mp: int, device="cuda",
+                     **kw) -> list:
+    """:func:`run_serving` on ``dp * mp`` spawned ranks of a ``(dp, mp)``
+    mesh; every rank must complete the same requests in the same order.
+    Returns each rank's completions by session."""
+    from .sharded_smoke import spawn_ranks
+
+    if device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--mesh on --device cuda: no CUDA device")
+    out = spawn_ranks(_serve_rank, (arch, n_requests, dict(kw, device=device)),
+                      dp=dp, mp=mp, device=device)
+    if any(o != out[0] for o in out):
+        raise RuntimeError(f"the ranks' completions differ: {out}")
+    return out
 
 
 def main() -> None:
@@ -384,8 +431,15 @@ def main() -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; nothing "
                          "falls back to the CPU)")
+    ap.add_argument("--mesh", default=None, metavar="DPxMP",
+                    help="serve sharded on DP*MP spawned ranks of a (data, model) "
+                         "mesh (gloo; ranks may share one card)")
     args = ap.parse_args()
-    run_serving(args.arch, args.requests, max_new=args.max_new,
+    mesh = parse_mesh(args.mesh)
+    serve = run_serving
+    if mesh is not None:
+        serve = functools.partial(run_serving_mesh, dp=mesh[0], mp=mesh[1])
+    serve(args.arch, args.requests, max_new=args.max_new,
                 sessions=args.sessions, batch_size=args.batch_size,
                 prompt_len=args.prompt_len, mode=args.mode,
                 temperature=args.temperature, top_k=args.top_k,

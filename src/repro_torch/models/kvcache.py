@@ -46,6 +46,16 @@ write through an unmapped page-table entry goes to the scratch page, which
 no table maps, so a freed slot's stale decode traffic can never land in a
 page that now belongs to another slot.
 
+**A split pool** (the scheduler's ``mesh=`` mode): under a sharding policy
+whose :class:`~repro_torch.dist.sharding.PoolShard` is a lane or head
+shard, this rank's ``kp``/``vp`` hold lanes ``[lo, hi)`` of every page, or
+kv heads ``[lo, hi)``, of the global pool; the page table and positions
+stay global.  :func:`cache_update_layer` writes only the rank's lanes (the
+others go to the scratch page, still without a host sync) or heads;
+:func:`paged_attn_decode` runs the kernel per shard and merges across ranks;
+:func:`attend_cache` assembles a chunk's attention over the shards in
+plain torch.
+
 Pages are refcounted (:class:`PageAllocator`): a page may be mapped by
 several slots, published in the :class:`PrefixIndex` and retained by a
 parked session at once, and a writer copy-on-write splits a shared page
@@ -59,11 +69,14 @@ place too.
 from __future__ import annotations
 
 import hashlib
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..dist.sharding import current_policy
+from . import layers
 from .layers import COMPUTE_DTYPE
 
 # Leaf keys of the shared page pool: no slot axis, never sliced per slot.
@@ -101,11 +114,26 @@ def is_paged(cache: Dict) -> bool:
     return "page_table" in cache
 
 
+def _pool_shard():
+    """This rank's slice of a split pool (lane or head shard) from the
+    active sharding policy, or None (no policy, or the pool is whole)."""
+    policy = current_policy()
+    pool = getattr(policy, "pool", None)
+    return pool if pool is not None and pool.split else None
+
+
+def _page_size(layer_cache: Dict) -> int:
+    """The pool's page size (the global one when this rank holds a lane
+    shard)."""
+    shard = _pool_shard()
+    return shard.page_size if shard is not None else layer_cache["kp"].shape[-3]
+
+
 def cache_capacity(layer_cache: Dict) -> int:
     """Token capacity of one row of a layer cache (ring T, or the page
     table's logical span for the pool)."""
     if is_paged(layer_cache):
-        return layer_cache["page_table"].shape[-1] * layer_cache["kp"].shape[-3]
+        return layer_cache["page_table"].shape[-1] * _page_size(layer_cache)
     return layer_cache["k"].shape[-3]
 
 
@@ -143,7 +171,8 @@ def cache_update_layer(layer_cache: Dict, k_new: torch.Tensor, v_new: torch.Tens
 def _paged_update_layer(layer_cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
                         pos: torch.Tensor) -> Dict:
     kp, vp, pt = layer_cache["kp"], layer_cache["vp"], layer_cache["page_table"]
-    page_size = kp.shape[1]
+    shard = _pool_shard()
+    page_size = _page_size(layer_cache)
     max_pages = pt.shape[-1]
     B, S = k_new.shape[0], k_new.shape[1]
     pos = pos.to(torch.int32)
@@ -158,6 +187,15 @@ def _paged_update_layer(layer_cache: Dict, k_new: torch.Tensor, v_new: torch.Ten
     # never lands in a page it does not own (and no host sync is needed to
     # filter them out)
     keep = (page_idx < max_pages) & (pid >= 0)
+    if shard is not None and shard.mode == "lane":
+        # a lane shard holds lanes [lo, hi) of every page: the others'
+        # tokens go to the scratch page too, still without a host sync
+        lo, hi = shard.lanes()
+        keep &= (offset >= lo) & (offset < hi)
+        offset = (offset - lo).clamp(0, hi - lo - 1)
+    elif shard is not None:
+        lo, hi = shard.heads()
+        k_new, v_new = k_new[:, :, lo:hi], v_new[:, :, lo:hi]
     pid = torch.where(keep, pid, kp.shape[0] - 1)
     kp[pid, offset] = k_new.to(kp.dtype)
     vp[pid, offset] = v_new.to(vp.dtype)
@@ -182,6 +220,9 @@ def cache_kv_view(layer_cache: Dict, upto: Optional[torch.Tensor] = None
 
 
 def _paged_kv_view(layer_cache: Dict, upto: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The slot rows' pages gathered in logical order.  On a lane shard the
+    view holds this rank's lanes of each page, at their global positions;
+    on a head shard, its kv heads of every lane."""
     kp, vp, pt = layer_cache["kp"], layer_cache["vp"], layer_cache["page_table"]
     n_pages, page_size, n_kv, head_dim = kp.shape
     B, max_pages = pt.shape
@@ -189,12 +230,70 @@ def _paged_kv_view(layer_cache: Dict, upto: torch.Tensor) -> Tuple[torch.Tensor,
     pid = pt.clamp(0, n_pages - 1).long()
     k = kp[pid].reshape(B, T, n_kv, head_dim)
     v = vp[pid].reshape(B, T, n_kv, head_dim)
-    kv_pos = torch.arange(T, dtype=torch.int32, device=pt.device)[None].expand(B, T)
+    shard = _pool_shard()
+    if shard is not None and shard.mode == "lane":
+        lo, _ = shard.lanes()
+        lane = torch.arange(page_size, dtype=torch.int32, device=pt.device)
+        page = torch.arange(max_pages, dtype=torch.int32, device=pt.device)
+        kv_pos = (page[:, None] * shard.page_size + lo + lane[None]).reshape(1, T).expand(B, T)
+    else:
+        kv_pos = torch.arange(T, dtype=torch.int32, device=pt.device)[None].expand(B, T)
     upto = upto.to(torch.int32)
     if upto.ndim == 0:
         upto = upto.expand(B)
     mapped = (pt >= 0).repeat_interleave(page_size, dim=-1)               # (B, T)
     return k, v, kv_pos, mapped & (kv_pos < upto[:, None])
+
+
+def attend_cache(layer_cache: Dict, q: torch.Tensor, positions: torch.Tensor,
+                 upto: torch.Tensor, *, window: Optional[int] = None) -> torch.Tensor:
+    """Causal attention of ``q`` (B, S, H, D) at ``positions`` over a layer
+    cache's view up to ``upto`` (:func:`cache_kv_view` + :func:`layers.sdpa`:
+    the chunk path, and S=1 decode on the ``gather`` backend).
+
+    On a split pool each rank sees a slice of the view, so the attention is
+    assembled across the ``model`` axis in plain torch (no kernel): a head
+    shard attends its own kv heads' queries and the heads are gathered (a
+    SUM of a zero-filled buffer); a lane shard computes its lanes' scores,
+    and the softmax is the fp32 running-max combine over shards (MAX of the
+    row maxima, SUM of the exponentials) before the probabilities are
+    rounded to the compute dtype, as :func:`layers.sdpa` rounds them, and
+    the shards' P.V products are summed.  Equal to the unsharded call up to
+    fp32 summation order."""
+    ck, cv, kv_pos, kv_valid = cache_kv_view(layer_cache, upto=upto)
+    shard = _pool_shard() if is_paged(layer_cache) else None
+    if shard is None:
+        return layers.sdpa(q, ck, cv, causal=True, window=window, q_positions=positions,
+                           kv_positions=kv_pos, kv_valid=kv_valid)
+    policy = current_policy()
+    B, S, H, D = q.shape
+    if shard.mode == "head":
+        lo, hi = shard.heads()
+        G = H // shard.n_kv_heads
+        o = layers.sdpa(q[:, :, lo * G:hi * G], ck, cv, causal=True, window=window,
+                        q_positions=positions, kv_positions=kv_pos, kv_valid=kv_valid)
+        out = torch.zeros((B, S, H, D), dtype=torch.float32, device=q.device)
+        out[:, :, lo * G:hi * G] = o.float()
+        return policy.all_reduce(out, "sum").to(q.dtype)
+    Hkv = ck.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, S, Hkv, G, D)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, ck).float() / math.sqrt(D)
+    mask = layers._attn_mask(positions, kv_pos, kv_valid, True, window)
+    scores = scores.masked_fill(~mask, layers.NEG_INF)
+    m = policy.all_reduce(scores.amax(dim=-1), "max")
+    e = torch.exp(scores - m[..., None])
+    l = policy.all_reduce(e.sum(dim=-1), "sum")
+    # the unsharded call streams past STREAM_KV_THRESHOLD with fp32
+    # probabilities; below it, it rounds them to the compute dtype
+    T = ck.shape[1] * shard.count
+    if S > 1 and T >= layers.STREAM_KV_THRESHOLD and T % layers.STREAM_KV_BLOCK == 0:
+        out = torch.einsum("bhgst,bthd->bshgd", e, cv.float())
+        out = policy.all_reduce(out, "sum") / l.permute(0, 3, 1, 2)[..., None]
+    else:
+        p = (e / l[..., None]).to(q.dtype).float()
+        out = policy.all_reduce(torch.einsum("bhgst,bthd->bshgd", p, cv.float()), "sum")
+    return out.to(q.dtype).reshape(B, S, H, D)
 
 
 def paged_attn_decode(layer_cache: Dict, q: torch.Tensor, pos: torch.Tensor, *,
@@ -216,16 +315,24 @@ def paged_attn_decode(layer_cache: Dict, q: torch.Tensor, pos: torch.Tensor, *,
     (hybrid local-attention layers) and lane ``pos`` itself is attended
     (lengths ``pos + 1``).  q: (B, 1, H, D).
     """
-    from ..kernels.paged_attention import paged_attention
+    from ..kernels.paged_attention import paged_attention, sharded_paged_attention
 
     B = q.shape[0]
     pos = pos.to(torch.int32)
     if pos.ndim == 0:
         pos = pos.expand(B)
     lengths = pos + 1 if include_new else pos
-    return paged_attention(q, layer_cache["kp"], layer_cache["vp"],
-                           layer_cache["page_table"], lengths, q_pos=pos,
-                           window=window, k_new=k_new, v_new=v_new)
+    args = (q, layer_cache["kp"], layer_cache["vp"], layer_cache["page_table"], lengths)
+    policy = current_policy()
+    if policy is not None and policy.shard_map_pool:
+        # the per-shard kernel over this rank's slice of the pool, and the
+        # softmax merge across the model axis (the reference's shard_map)
+        return sharded_paged_attention(*args, policy=policy, q_pos=pos, window=window,
+                                       k_new=k_new, v_new=v_new)
+    if _pool_shard() is not None:
+        raise ValueError("a split pool needs the per-shard decomposition "
+                         "(a policy with shard_map_pool)")
+    return paged_attention(*args, q_pos=pos, window=window, k_new=k_new, v_new=v_new)
 
 
 # ---------------------------------------------------------------------------
@@ -510,7 +617,7 @@ def batched_cache(model, n_slots: int, seq_len: int) -> Dict[str, torch.Tensor]:
 
 
 def paged_cache(model, n_slots: int, *, page_size: int, n_pages: int,
-                max_pages: int) -> Dict[str, torch.Tensor]:
+                max_pages: int, device=None) -> Dict[str, torch.Tensor]:
     """A paged decode cache for ``n_slots`` slots on the model's device:
     a shared pool for the layers that keep K/V, an unmapped ``(n_slots,
     max_pages)`` page table, per-slot lengths and the model's per-slot
@@ -518,8 +625,11 @@ def paged_cache(model, n_slots: int, *, page_size: int, n_pages: int,
     allocatable pages plus one scratch page at index ``n_pages`` that no
     table maps: writes through unmapped entries land there (the JAX package
     drops them as out-of-bounds scatters).  A model with no K/V layers (an
-    SSM) gets no pool."""
-    cfg, device = model.cfg, model.device
+    SSM) gets no pool.  ``device`` puts the page table, the lengths and the
+    pool elsewhere (the meta device, for their shapes alone); the recurrent
+    rows stay on the model's."""
+    cfg = model.cfg
+    device = model.device if device is None else torch.device(device)
     cache = {
         "page_table": torch.full((n_slots, max_pages), -1, dtype=torch.int32,
                                  device=device),

@@ -34,7 +34,7 @@ MoE output is bitwise the same in a decode step and in a chunk.  Nothing
 in the layer reads a device value on the host, so a CUDA graph can hold it.
 
 Not ported: the mesh paths (expert-parallel ``shard_map`` and the
-stationary-weights decode); ``moe_ffn(mesh=...)`` raises.
+stationary-weights decode, ROADMAP 1.8c); ``moe_ffn(mesh=...)`` raises.
 """
 
 from __future__ import annotations
@@ -91,7 +91,8 @@ def moe_ffn(p, cfg: ArchConfig, x: torch.Tensor, *, no_drop: bool = False,
     contributes zero."""
     if mesh is not None:
         raise NotImplementedError("moe_ffn over a mesh (expert-parallel shard_map and "
-                                  "stationary-weights decode) is not ported yet")
+                                  "stationary-weights decode) is not ported yet, "
+                                  "ROADMAP 1.8c")
     m = cfg.moe
     B, S, D = x.shape
     T = B * S

@@ -222,9 +222,7 @@ def _attn_decode(p, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
     elif S == 1 and cfg.attn_backend == "paged_kernel" and kvcache.is_paged(lc):
         o = kvcache.paged_attn_decode(lc, q, pos, window=window, include_new=True)
     else:
-        ck, cv, kv_pos, kv_valid = kvcache.cache_kv_view(lc, upto=pos + S)
-        o = layers.sdpa(q, ck, cv, causal=True, window=window,
-                        q_positions=positions, kv_positions=kv_pos, kv_valid=kv_valid)
+        o = kvcache.attend_cache(lc, q, positions, pos + S, window=window)
     o = o.reshape(B, S, cfg.n_heads * cfg.the_head_dim())
     return o @ cast(p["wo"])
 

@@ -104,11 +104,8 @@ def attn_residual_decode(p, cfg: ArchConfig, x: torch.Tensor, layer_cache: Dict,
     else:
         # S=1 decode is the chunk path at S=1: attend the post-update view,
         # so a decode step computes bit-identically to a prefill chunk
-        # covering the same token
-        upto = pos + S
-        ck, cv, kv_pos, kv_valid = kvcache.cache_kv_view(layer_cache, upto=upto)
-        o = layers.sdpa(q, ck, cv, causal=True, window=cfg.sliding_window,
-                        q_positions=positions, kv_positions=kv_pos, kv_valid=kv_valid)
+        # covering the same token (over a split pool, assembled across ranks)
+        o = kvcache.attend_cache(layer_cache, q, positions, pos + S, window=cfg.sliding_window)
     o = o.reshape(B, S, cfg.n_heads * cfg.the_head_dim())
     return x + (o @ layers.cast(p.attn["wo"])) * rs
 

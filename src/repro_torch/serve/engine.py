@@ -2,15 +2,33 @@
 KV cache, the staging steps of offload, and the three steps of
 draft-and-verify speculative decoding (the draft's S=1 step, its batched
 catch-up and the target's verify chunk).  Every step writes into the
-caches and buffers it is given, so a CUDA graph can replay it."""
+caches and buffers it is given, so a CUDA graph can replay it.
+
+The chunk factory takes ``policy``, a
+:class:`repro_torch.dist.sharding.ShardingPolicy` installed around every
+call of the step (the reference's ``_policy_scope``), so the cache's split
+pool is read and written per shard (the scheduler's ``mesh=`` mode; its
+decode step installs the policy itself).  None installs nothing, and an
+outer policy stays in force."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
 
 from ..models import kvcache
+
+
+def _policy_scope(policy):
+    """Context installing ``policy``; ambient pass-through when the caller
+    has none (None must not *clear* an outer policy here)."""
+    if policy is None:
+        return contextlib.nullcontext()
+    from ..dist import sharding
+
+    return sharding.activation_sharding(policy)
 
 
 def make_decode_step(model) -> Callable:
@@ -22,7 +40,7 @@ def make_decode_step(model) -> Callable:
     return serve_step
 
 
-def make_chunk_step(model) -> Callable:
+def make_chunk_step(model, *, policy=None) -> Callable:
     """Prefill one prompt chunk for a *single slot* of a batched paged cache.
 
     The chunk runs as a B=1 forward against the shared page pool: per-slot
@@ -36,9 +54,10 @@ def make_chunk_step(model) -> Callable:
     """
 
     def chunk_step(cache, tokens, slot):
-        one = kvcache.cache_slot_view(cache, slot)
-        logits, one_new = model.decode_step(one, tokens)
-        kvcache.cache_insert_slot(cache, one_new, slot)
+        with _policy_scope(policy):
+            one = kvcache.cache_slot_view(cache, slot)
+            logits, one_new = model.decode_step(one, tokens)
+            kvcache.cache_insert_slot(cache, one_new, slot)
         return logits, cache
 
     return chunk_step
@@ -155,7 +174,8 @@ def make_offload_steps() -> tuple:
     device memory.  ``inject(cache, page_ids, blob)`` writes a blob (or a
     chunk of one) back onto freshly allocated pages, in place.  Both are
     plain calls: the reference jits them, and its mesh variant runs them
-    under ``shard_map``, which the port does not have yet.
+    under ``shard_map``; offload under a mesh is ROADMAP 1.8b-ii, and the
+    scheduler refuses it there.
     """
 
     def extract(cache, page_ids):

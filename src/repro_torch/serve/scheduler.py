@@ -138,7 +138,24 @@ blob key, :meth:`adopt_parked` installs one a dead worker left, and
 :meth:`adopt_index_journal` scatters journaled index pages into this
 worker's pool in place (the graphs read the pool they captured).
 
-Not ported yet, and refused rather than ignored: ``mesh=``.
+**Mesh mode** (``mesh=`` a ``(data, model)`` ``DeviceMesh`` over the live
+process group, ``launch/mesh.make_smoke_mesh``): explicit SPMD.  Every rank
+is one process that runs this same host logic on the same submits and holds
+plain local tensors.  The pool is placed by
+:func:`repro_torch.dist.sharding.cache_shardings` (lanes of every page on
+``model``, else kv heads; replicated over ``data``), so each rank holds
+``1/|model|`` of it; page tables, lengths and recurrent rows are placed by
+slot on ``data`` when ``n_slots`` divides, else replicated.  A decode step
+runs the rank's slot rows (dense compute replicated over ``model``; the
+paged kernel per lane or head shard, the softmax states merged across
+``model`` by ``all_reduce``) and shares the next tokens over ``data``, so
+every rank's host state stays identical; a chunk runs on every rank of the
+owning slot's ``model`` group and its first token is shared the same way.
+The steps run under the policy's scope (:func:`..dist.sharding.
+activation_sharding`) and eagerly: a collective cannot be captured in a
+CUDA graph.  Refused under a mesh, until ROADMAP 1.8b-ii: ring mode, the
+SSM family, offload, prefix sharing, parking and speculation; the MoE
+family until 1.8c.
 """
 
 from __future__ import annotations
@@ -151,6 +168,8 @@ import numpy as np
 import torch
 
 from ..core.storage import PageBlobStore
+from ..dist import sharding
+from ..dist.compat import DeviceMesh
 from ..models import kvcache
 from . import sampling
 from .engine import (make_chunk_step, make_draft_catchup_step, make_draft_step,
@@ -227,6 +246,22 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet")
 
 
+def _mesh_refusals(model, *, kv_mode, offload, prefix_sharing, park_sessions, draft_model,
+                   spec_k) -> List[str]:
+    """What ``mesh=`` cannot serve yet, each with the ROADMAP item that
+    ports it."""
+    family = model.cfg.family
+    return [f"{what} under mesh=, ROADMAP {item}" for what, item, refused in (
+        ("kv_mode='ring'", "1.8b-ii", kv_mode == "ring"),
+        ("the SSM family", "1.8b-ii", family == "ssm"),
+        ("the MoE family", "1.8c", family == "moe"),
+        ("offload", "1.8b-ii", offload),
+        ("prefix_sharing", "1.8b-ii", prefix_sharing),
+        ("park_sessions", "1.8b-ii", park_sessions),
+        ("speculative decoding (spec_k > 0)", "1.8b-ii",
+         draft_model is not None and spec_k > 0)) if refused]
+
+
 class DecodeScheduler:
     """Continuous batching over a shared paged pool (or per-slot rings)."""
 
@@ -252,7 +287,18 @@ class DecodeScheduler:
         if kv_mode not in ("paged", "ring"):
             raise ValueError(f"kv_mode must be 'paged' or 'ring', got {kv_mode!r}")
         if mesh is not None:
-            raise _not_ported("mesh=")
+            refused = _mesh_refusals(model, kv_mode=kv_mode, offload=offload,
+                                     prefix_sharing=prefix_sharing,
+                                     park_sessions=park_sessions, draft_model=draft_model,
+                                     spec_k=spec_k)
+            if refused:
+                raise _not_ported(refused[0])
+            if not isinstance(mesh, DeviceMesh):
+                # the reference also takes an abstract mesh, to compute the
+                # cache's specs without placing it (the dry run's use)
+                raise _not_ported(f"mesh= of type {type(mesh).__name__} (a live DeviceMesh "
+                                  f"from launch/mesh.make_smoke_mesh is served; the spec-only "
+                                  f"abstract mesh is ROADMAP 1.9)")
         if attn_backend not in ("gather", "paged_kernel"):
             raise ValueError("attn_backend must be 'gather' or 'paged_kernel', "
                              f"got {attn_backend!r}")
@@ -342,11 +388,21 @@ class DecodeScheduler:
         # admitted-but-not-yet-mapped growth (the admission gate)
         self._page_rows = np.full((n_slots, self.max_pages), -1, np.int32)
         self._reserved = 0
+        self._mesh = mesh
+        self._policy = None
+        self._rows: Optional[slice] = None     # this rank's slot rows (mesh mode)
+        self._slot_split = False               # slots placed on data (mesh mode)
+        self.last_step_wire_bytes = 0          # collective bytes of the last decode step
+        self.chunks_run = 0                    # prefill chunks this rank ran (mesh mode)
         if kv_mode == "paged":
-            self.cache = kvcache.paged_cache(model, n_slots, page_size=page_size,
-                                             n_pages=self.n_pages,
-                                             max_pages=self.max_pages)
-            self._chunk = make_chunk_step(model)
+            if mesh is None:
+                self.cache = kvcache.paged_cache(model, n_slots, page_size=page_size,
+                                                 n_pages=self.n_pages,
+                                                 max_pages=self.max_pages)
+            else:
+                self.cache = self._place_cache(model, mesh)
+                self._check_same_weights(model)
+            self._chunk = make_chunk_step(model, policy=self._policy)
         else:
             self.cache = kvcache.batched_cache(model, n_slots, max_seq)
 
@@ -388,7 +444,7 @@ class DecodeScheduler:
                                          device=self.device)
         self._chunk_at = torch.zeros((), dtype=torch.int64, device=self.device)
         self.graphs = (StepGraphs(self.device, self._gen)
-                       if self.device.type == "cuda" else None)
+                       if self.device.type == "cuda" and mesh is None else None)
         self.pending: List[_Request] = []
         self._active_sessions: set = set()
         self._chunk_rr = 0            # round-robin over admitting slots
@@ -402,6 +458,110 @@ class DecodeScheduler:
         self.decode_tokens = 0
         self.admitted = 0
         self.completed = 0
+
+    # -- mesh mode -----------------------------------------------------------------
+
+    def _build_policy(self, model, mesh, pool) -> sharding.ShardingPolicy:
+        """ShardingPolicy for one model on the live mesh: slots on dp when
+        they divide, heads on model when the kv-head count divides (else the
+        seq fallback), the per-shard paged kernel for the fused backend, and
+        this rank's slice of the pool."""
+        rules = sharding.MeshRules.for_mesh(mesh)
+        msize = rules.model_size(mesh)
+        cfg = model.cfg
+        n_kv = getattr(cfg, "n_kv_heads", 0) or getattr(cfg, "n_heads", 1)
+        return sharding.ShardingPolicy.default(
+            mesh,
+            batch_shardable=bool(rules.dp) and self.n_slots % rules.dp_size(mesh) == 0,
+            attn_mode="head" if n_kv % msize == 0 else "seq",
+            decode_stationary=True,
+            shard_map_pool=self.attn_backend == "paged_kernel",
+            pool=pool)
+
+    def _place_cache(self, model, mesh) -> Dict[str, torch.Tensor]:
+        """This rank's part of the paged cache, by
+        :func:`~repro_torch.dist.sharding.serving_cache_specs`: the global
+        cache is laid out on the meta device (its recurrent rows, which are
+        small, on the card) and each leaf allocated at its local shape, so
+        no rank ever holds the whole pool.  Builds the policy and this
+        rank's slot rows."""
+        rules = sharding.MeshRules.for_mesh(mesh)
+        if rules.axis_names != ("data", "model"):
+            raise ValueError(f"the scheduler takes a ('data', 'model') mesh, got "
+                             f"{rules.axis_names}")
+        glob = kvcache.paged_cache(model, self.n_slots, page_size=self.page_size,
+                                   n_pages=self.n_pages, max_pages=self.max_pages,
+                                   device="meta")
+        pool = (sharding.PoolShard.for_pool(sharding.cache_shardings(
+            {"kp": glob["kp"]}, mesh)["kp"], tuple(glob["kp"].shape), mesh)
+            if "kp" in glob else None)
+        self._policy = self._build_policy(model, mesh, pool)
+        specs = sharding.serving_cache_specs(glob, mesh,
+                                             batch_shardable=self._policy.batch_shardable)
+        cache = {}
+        for key, leaf in glob.items():
+            if leaf.is_meta:
+                shape = sharding.local_shard(torch.empty(leaf.shape, device="meta"),
+                                             specs[key], mesh).shape
+                cache[key] = torch.full(shape, -1 if key == "page_table" else 0,
+                                        dtype=leaf.dtype, device=self.device)
+            else:
+                cache[key] = sharding.local_shard(leaf, specs[key], mesh)
+        rows = sharding.local_shard(torch.arange(self.n_slots), specs["length"], mesh)
+        self._rows = slice(int(rows[0]), int(rows[-1]) + 1)
+        self._slot_split = len(rows) < self.n_slots
+        return cache
+
+    def _check_same_weights(self, model) -> None:
+        """Every rank must hold the same weights (each builds its model from
+        the same seed): an all-reduced checksum, once."""
+        import torch.distributed as dist
+
+        sums = torch.stack([p.detach().float().sum() for p in model.parameters()])
+        sums = sums.double().cpu()
+        ramp = torch.arange(1, len(sums) + 1, dtype=torch.float64)
+        local = torch.stack([(sums * ramp).sum(), sums.abs().sum()])
+        hi, lo = local.clone(), -local
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MAX)
+        if not torch.equal(hi, -lo):
+            raise RuntimeError(f"ranks hold different weights (checksums span {(-lo).tolist()} "
+                               f"to {hi.tolist()}): build every rank's model from one seed")
+
+    def _local_row(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's cache, or None where another data
+        group holds it."""
+        if self._rows is None:
+            return slot
+        return slot - self._rows.start if self._rows.start <= slot < self._rows.stop else None
+
+    def _set_row(self, slot: int) -> None:
+        """Push the host page-table row of ``slot`` to the device."""
+        row = self._local_row(slot)
+        if row is not None:
+            kvcache.set_page_row(self.cache, row, self._page_rows[slot])
+
+    def _clear_row(self, slot: int) -> None:
+        row = self._local_row(slot)
+        if row is not None:
+            kvcache.cache_clear_slot(self.cache, row)
+
+    def _share_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """The (n_slots,) tokens of every slot from this rank's rows: a SUM
+        over ``data`` of a zero-filled buffer each data group writes its rows
+        into (the identity where slots are not split)."""
+        if not self._slot_split:
+            return local
+        full = torch.zeros((self.n_slots,) + tuple(local.shape[1:]), dtype=local.dtype,
+                           device=local.device)
+        full[self._rows] = local
+        return self._policy.all_reduce(full, "sum", axis="data")
+
+    def pool_bytes(self) -> int:
+        """Bytes of the pool this process holds (``1/|model|`` of the whole
+        pool under a split mesh)."""
+        return sum(self.cache[k].numel() * self.cache[k].element_size()
+                   for k in kvcache.POOL_KEYS if k in self.cache)
 
     def _init_spec(self, draft_model, temperature: float) -> None:
         """Refuse what speculative decoding cannot serve (the reference's
@@ -688,7 +848,7 @@ class DecodeScheduler:
         size = self.prefill_chunk or len(tail)
         in_place = plan.kind == "park" and plan.record.slot == slot.index
         if not in_place:
-            kvcache.cache_clear_slot(self.cache, slot.index)
+            self._clear_row(slot.index)
             self._page_rows[slot.index, :] = -1
         self._reserved += need
         self._begin(slot, req)
@@ -706,7 +866,7 @@ class DecodeScheduler:
             self.allocator.share(plan.pages)
             slot.shared = list(plan.pages)
             self._page_rows[slot.index, :len(plan.pages)] = plan.pages
-            kvcache.set_page_row(self.cache, slot.index, self._page_rows[slot.index])
+            self._set_row(slot.index)
             if plan.kind == "park":
                 rec = plan.record
                 if in_place:
@@ -763,9 +923,18 @@ class DecodeScheduler:
         slot.submitted_step = req.submit_step
         self._active_sessions.add(req.session)
 
-    def _activate(self, slot: Slot, logits: torch.Tensor) -> None:
-        """ADMITTING -> ACTIVE: the prompt's last logits give the first token."""
-        tok = self._sample(logits[:, -1])
+    def _activate(self, slot: Slot, logits: Optional[torch.Tensor]) -> None:
+        """ADMITTING -> ACTIVE: the prompt's last logits give the first token
+        (under a mesh, shared from the data group that ran the chunk; the
+        others pass no logits)."""
+        if logits is None:
+            tok = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        else:
+            tok = self._sample(logits[:, -1])
+        if self._slot_split:
+            full = torch.zeros((self.n_slots,), dtype=torch.int32, device=self.device)
+            full[slot.index] = tok[0]
+            tok = self._policy.all_reduce(full, "sum", axis="data")[slot.index:slot.index + 1]
         self.last_tokens[slot.index] = tok[0]
         self.out_buf[slot.index, 0] = tok[0]
         self.out_pos[slot.index] = 1
@@ -793,7 +962,7 @@ class DecodeScheduler:
 
     def _unmap_row(self, slot: int) -> None:
         self._page_rows[slot, :] = -1
-        kvcache.set_page_row(self.cache, slot, self._page_rows[slot])
+        self._set_row(slot)
 
     def _release_slot(self, slot: Slot) -> None:
         """Release a DRAINED slot's page references (owned pages free when
@@ -1122,7 +1291,7 @@ class DecodeScheduler:
                 self.cow_splits += 1
                 changed = True
         if changed:
-            kvcache.set_page_row(self.cache, slot.index, self._page_rows[slot.index])
+            self._set_row(slot.index)
 
     def _run_chunk(self, slot: Slot) -> None:
         """One prefill chunk for one admitting slot (alloc-on-write: map the
@@ -1147,7 +1316,15 @@ class DecodeScheduler:
         card a ``prefill_chunk``-token chunk replays the chunk graph from
         the static token and slot buffers (the logits are the graph's
         output, valid until its next replay); any other chunk runs
-        eagerly."""
+        eagerly.  Under a mesh, a rank whose data group does not hold the
+        slot runs nothing and returns None."""
+        if self._mesh is not None:
+            row = self._local_row(slot)
+            if row is None:
+                return None
+            self.chunks_run += 1
+            tokens = torch.as_tensor(chunk, dtype=torch.int32).to(self.device)[None]
+            return self._chunk(self.cache, tokens, row)[0]
         if self.graphs is not None and len(chunk) == self.prefill_chunk:
             self._chunk_tokens.copy_(torch.from_numpy(chunk).view(1, -1))
             self._chunk_at.fill_(slot)
@@ -1175,6 +1352,10 @@ class DecodeScheduler:
         logits, new_cache = self.model.decode_step(cache, last_tokens[:, None])
         kvcache.mask_slot_rows(new_cache, cache, active)
         toks = torch.where(active, self._sample(logits[:, -1]), last_tokens)
+        self._emit(toks, last_tokens, out_buf, out_pos, active)
+
+    def _emit(self, toks, last_tokens, out_buf, out_pos, active) -> None:
+        """Append a decode step's tokens to the output ring, in place."""
         col = (out_pos % self.max_seq).long()[:, None]
         out_buf.scatter_(1, col, torch.where(active[:, None], toks[:, None],
                                              out_buf.gather(1, col)))
@@ -1186,8 +1367,26 @@ class DecodeScheduler:
         (captured at the first call), on the CPU the eager step."""
         return fn() if self.graphs is None else self.graphs.run(key, fn)
 
+    def _mesh_decode(self) -> None:
+        """The decode step of mesh mode: this rank's slot rows against its
+        part of the cache under the policy, the tokens shared over
+        ``data``; the collective bytes it sent are kept in
+        ``last_step_wire_bytes``."""
+        rows, wire = self._rows, self._policy.wire
+        sent = wire.bytes
+        active, last = self._active[rows], self.last_tokens[rows]
+        with sharding.activation_sharding(self._policy):
+            logits, new_cache = self.model.decode_step(self.cache, last[:, None])
+            kvcache.mask_slot_rows(new_cache, self.cache, active)
+            toks = self._share_rows(torch.where(active, self._sample(logits[:, -1]), last))
+        self._emit(toks, self.last_tokens, self.out_buf, self.out_pos, self._active)
+        self.last_step_wire_bytes = wire.bytes - sent
+
     def _decode(self) -> None:
         """The batched decode step over ``self._active``."""
+        if self._mesh is not None:
+            self._mesh_decode()
+            return
         self._graphed("decode", lambda: self._step_impl(
             self.cache, self.last_tokens, self.out_buf, self.out_pos, self._active))
 
@@ -1401,7 +1600,7 @@ class DecodeScheduler:
             self._reserved = 0
             self._page_rows[:] = -1
             for slot in range(self.n_slots):
-                kvcache.cache_clear_slot(self.cache, slot)
+                self._clear_row(slot)
         if self._spec:
             # draft rows replay from scratch at the next admission; zero
             # lengths so stale ring lanes are invalid until overwritten
@@ -1446,7 +1645,8 @@ class DecodeScheduler:
                 f"slot {s.index} ({s.state.value}): row maps {mapped}, holds {held}")
             for p in mapped:
                 assert a.refcount(p) >= 1, f"slot {s.index} maps freed page {p}"
-            assert (device_rows[s.index] == row).all(), (
+            local = self._local_row(s.index)
+            assert local is None or (device_rows[local] == row).all(), (
                 f"slot {s.index}: device page-table row drifted from the host mirror")
         reserved = sum(s.need - len(s.pages) for s in self.slots
                        if s.state in (SlotState.ADMITTING, SlotState.ACTIVE,
