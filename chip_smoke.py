@@ -488,6 +488,28 @@ last line is printed):
     sharded scheduler, one request at a time), tokens identical; pool and
     bytes as in 41; paged launches 8 x decode steps and RG-LRU launches 18
     x (decode steps + chunks) on every rank.
+43. The SSD scan per head shard (``ssd_scan_shard``) at mamba2-1.3b's
+    serving shapes (a 256-token chunk from a live state, a decode step at
+    B 8), 2 and 4 shards: each against its plain version (the scan's bf16
+    bound) and bitwise against the same heads of the unsharded launch;
+    device ms of a shard's launch and of the unsharded one.
+44. Full-width, full-depth mamba2-1.3b on (1, 2), paged, its SSD state on
+    heads: tokens against ``mesh=None``, each rank's state half the whole,
+    SSD launches by kind on every rank (48 x chunks, 48 x decode steps,
+    each counted by the wrapper).
+45. Ring mode on (1, 2): minicpm-2b at full width and depth, prompts of
+    4096 tokens (every admission launches the flash kernel), against
+    ``mesh=None``; recurrentgemma-2b with its ring split on T, against its
+    mesh-matched run; ring bytes by rank and the collective bytes of a
+    decode step equal at twice ``max_seq``.
+46. The event soup of full-width minicpm-2b (``paged_kernel``, forced
+    preemptions with offload, parking with a TTL, prefix sharing) on
+    (1, 2) and (2, 2): tokens against ``mesh=None``, journals equal, page
+    moves 0 collective bytes, layer 0 of every rank's blobs bitwise its
+    shard of ``mesh=None``'s and deeper layers within ``SOUP_BLOB_REL`` of
+    the leaf's largest value and ``SOUP_BLOB_LAYER_REL`` of their layer's
+    and kv head's; the same soup on (1, 1)
+    (nothing split) with every blob bitwise ``mesh=None``'s.
 
 On the card the scheduler replays a CUDA graph for every decode step and
 every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19,
@@ -6742,7 +6764,7 @@ def sharded_judge(fails: Failures, label: str, res: dict, model, cfg, prompts,
     fails.check(res["pool_split"], f"{label} {res['mesh']}: each rank's pool "
                 f"{res['pool_bytes_rank']} B == 1/{mp} of {res['pool_bytes_single']} B")
     fails.check(res["wire_flat"], f"{label} {res['mesh']}: collective bytes per decode step "
-                f"{res['wire_per_step']} equal at a 4x pool {res['wire_per_step_4x']}")
+                f"{res['wire_per_step']} equal at a 4x pool {res['wire_per_step_big']}")
     for name, per_step in launches_per_step.items():
         for r, got in enumerate(res["launches"]):
             want = per_step(r)
@@ -6817,6 +6839,314 @@ def phase_sharded_serving(fails: Failures, seed: int, *, device: str = "cuda",
         release()
     print(f"  phase 42 wall {time.perf_counter() - t42:.1f} s")
     return out
+
+
+# -- phases 43-46: ring mode, the SSM family, offload, sharing and parking on a mesh --------
+
+SSD_SHARDS = (2, 4)
+# mamba2-1.3b's scan calls on the mesh path: a prefill chunk from a live
+# state, and a decode step of the full batch
+SSD_SHARD_SHAPES = ((1, CHUNK), (SLOTS, 1))
+SF_SSM_REQUESTS, SF_SSM_PROMPT, SF_SSM_MAX_NEW = 4, 256, 16          # phase 44
+SF_RING_REQUESTS, SF_RING_MAX_NEW = 2, 8                             # phase 45
+SF_RING_PROMPT, SF_HRING_PROMPT = 4096, 2100
+SF_SOUP = dict(events=16, sessions=4, fresh_len=(64, 128), extend_len=(8, 32),
+               max_new=(8, 16))                                     # phase 46
+SF_SOUP_SEQ, SF_SOUP_PAGES, SF_SOUP_CHUNK, SF_SOUP_TTL = 256, 32, 64, 8
+# A mesh rank's page blob against its shard of mesh=None's on the card:
+# layer 0's K/V come from the embeddings alone and must be bitwise (a
+# stale or misrouted page shows there); every later layer's come from
+# attention whose softmax sums run in another fp32 order across shards (and
+# another GEMM row count on (2, 2)), so they differ by bf16 roundings (one
+# bf16 rounding of a value is 2^-8 of it) that grow with depth, held to
+# SOUP_BLOB_REL of the leaf's largest |K/V| and to SOUP_BLOB_LAYER_REL of
+# their own layer's and kv head's.  The (1, 1) mesh, the same sharded
+# scheduler with nothing split, must give mesh=None's blobs bitwise.
+# Bitwise in the CPU tests.
+SOUP_BLOB_REL, SOUP_BLOB_LAYER_REL = 3e-2, 5e-2
+
+
+def phase_ssd_shards(fails: Failures, seed: int) -> list:
+    """Phase 43: the SSD scan per head shard at mamba2-1.3b's serving
+    shapes (a 256-token prefill chunk from a live state, a decode step at
+    B = 8), bf16 x, B and C and fp32 dt, A and state, over 2 and 4 shards.
+    Each shard's launch against its plain version (the scan's derived
+    bf16 bound) and against the same heads of the unsharded launch
+    (bitwise: the route depends on the dtype, P and N alone, and heads
+    never mix); device ms of a shard's launch and of the unsharded one
+    (queued behind a sleep), the wrapper's (its slicing copies included),
+    the plain version's, and the shard's bound.  Returns the kernel records
+    of the 2-way shards (their launches filled in from phase 44)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_plain, ssd_scan_shard
+    from repro_torch.kernels.ssd_scan.kernel import route
+
+    cfg = configs.get(SSM)
+    s = cfg.ssm
+    H, P, N = s.n_heads(cfg.d_model), s.head_dim, s.d_state
+    path = route(torch.bfloat16, P, N)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    records = []
+    for B, L in SSD_SHARD_SHAPES:
+        args = ssd_inputs(gen, B, L, H, P, N, True, "random", torch.bfloat16, "cuda")
+        x, dt, A, Bm, Cm, h0 = args
+        y, h = ssd_scan_kernel(*args)
+        whole_ms = queued_device_ms(lambda i: ssd_scan_kernel(*args), 50)
+        for m in SSD_SHARDS:
+            w = H // m
+            shards = []
+            for r in range(m):
+                sl = slice(r * w, (r + 1) * w)
+                shards.append((x[:, :, sl].contiguous(), dt[:, :, sl].contiguous(),
+                               A[sl].contiguous(), Bm, Cm, h0[:, sl].contiguous()))
+            before = ssd_scan_kernel.launches_by_route[path]
+            outs = [ssd_scan_shard(x, dt, A, Bm, Cm, own[5], shard=r, n_shards=m)
+                    for r, own in enumerate(shards)]
+            fails.check(ssd_scan_kernel.launches_by_route[path] == before + m,
+                        f"{SSM} SSD scan over {m} head shards at B={B} L={L}: {m} launches on "
+                        f"the {path} route")
+            worst, bitwise = 0.0, True
+            for r, ((ys, hs), own) in enumerate(zip(outs, shards)):
+                worst = max(worst, ssd_bf16_check(
+                    fails, f"{SSM} SSD shard {r + 1} of {m} at B={B} L={L} vs plain", ys, hs,
+                    own, split=path == "tensor_core" and L > 1))
+                sl = slice(r * w, (r + 1) * w)
+                bitwise &= torch.equal(ys, y[:, :, sl]) and torch.equal(hs, h[:, sl])
+            fails.check(bitwise, f"{SSM} SSD at B={B} L={L}: every one of {m} shards' y and "
+                        f"final state bitwise the same heads of the unsharded launch (the "
+                        f"{path} route at {w} heads as at {H})")
+            own = shards[0]
+            dev_ms = queued_device_ms(lambda i: ssd_scan_kernel(*own), 50)
+            wrap_ms = cuda_time_ms(lambda i: ssd_scan_shard(x, dt, A, Bm, Cm, own[5], shard=0,
+                                                            n_shards=m), 50)
+            plain_ms = cuda_time_ms(lambda i: ssd_scan_plain(*own), 5, warmup=1)
+            nbytes, ops = ssd_bound(B, L, w, P, N, 2, CHUNK)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            print(f"  {SSM} SSD at B={B} L={L}, shard 1 of {m} ({w} of {H} heads): kernel device "
+                  f"{dev_ms} ms (unsharded launch {whole_ms} ms), the wrapper with its slicing "
+                  f"{wrap_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                  f"({nbytes / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP); inputs warm in L2")
+            if m == 2:
+                records.append({
+                    "name": "ssd_scan", "route": "cuda", "kernel_route": path,
+                    "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                    "replaces": "src/repro/kernels/ssd_scan/kernel.py:68",
+                    "shape": f"head shard 1 of 2: x {B}x{L}x{w}x{P} bf16, N={N}, h0 fp32",
+                    "L": L, "launches": 0, "max_abs_err": worst, "ms": dev_ms,
+                    "wrapper_ms": wrap_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": None, "unsharded_device_ms": whole_ms})
+    return records
+
+
+def features_judge(fails: Failures, label: str, res: dict, cfg, prompts, *, matched: bool,
+                   launches: dict, model_fn) -> None:
+    """The checks of one mesh run of phases 44-46 (``sharded_smoke.verdicts``):
+    the tokens (identical to mesh=None, or split at a near-tie the unsharded
+    model shows teacher-forced; the hybrid against its mesh-matched run),
+    each rank's part of every split leaf, the collective bytes of a decode
+    step flat, and every kernel of the path launched on every rank as
+    counted (``launches``: name -> rank -> want)."""
+    import numpy as np
+
+    mesh = res["mesh"]
+    print(f"  {label} on {mesh}: mesh=None {res['single_step_ms']} ms per decode step; sharded "
+          f"{[x and round(x, 3) for x in res['sharded_step_ms']]} ms per decode step, chunk "
+          f"steps {[x and round(x, 3) for x in res['sharded_chunk_ms']]} ms, "
+          f"{[round(x, 2) for x in res['sharded_tok_s']]} tok/s; collective bytes per decode "
+          f"step {res['wire_per_step']} (bigger pool or 2x max_seq {res['wire_per_step_big']}),"
+          f" per chunk {res['chunk_wire']}; collective ms per decode step "
+          f"{res['wire_ms_per_step']}, per chunk {res['wire_ms_per_chunk']}; peak "
+          f"{[b and round(b / 2**30, 2) for b in res['peak_bytes']]} GiB; launches by rank "
+          f"{res['launches_by_rank']}")
+    fails.check(res["ranks_agree"], f"{label} {mesh}: every rank's tokens agree")
+    if matched:
+        fails.check(res["matched_identical"], f"{label} {mesh}: tokens identical to the "
+                    f"mesh-matched run (the same sharded scheduler, one request at a time)")
+    elif not res["identical_outputs"]:
+        single, sharded = res["tokens_single"], res["tokens_sharded"]
+        if fails.check(set(single) == set(sharded), f"{label} {mesh}: the same requests as "
+                       f"mesh=None ({len(sharded)} of {len(single)})"):
+            to_np = lambda d: {k: np.asarray(v) for k, v in d.items()}  # noqa: E731
+            spec_margins(fails, model_fn(), cfg, f"{label} {mesh}", {"tokens": to_np(single)},
+                         {"tokens": to_np(sharded)}, prompts, than="mesh=None")
+    else:
+        fails.check(True, f"{label} {mesh}: tokens identical to mesh=None")
+    for key, what in (("pool", "pool"), ("ring", "ring K/V"), ("state", "SSD state")):
+        if res.get(f"{key}_split") is not None:
+            extra = (f" (+ {res['ring_scratch_bytes_rank']} B of scratch lanes)"
+                     if key == "ring" else "")
+            fails.check(res[f"{key}_split"], f"{label} {mesh}: each rank's {what} "
+                        f"{res[f'{key}_bytes_rank']} B{extra} is its part of "
+                        f"{res[f'{key}_bytes_single']} B (1/|model| of its data group's)")
+    fails.check(res["wire_flat"], f"{label} {mesh}: collective bytes per decode step "
+                f"{res['wire_per_step']} equal at the bigger pool or 2x max_seq "
+                f"{res['wire_per_step_big']}")
+    for name, want in launches.items():
+        for r, got in enumerate(res["launches_by_rank"]):
+            fails.check(got[name] == want(r) > 0, f"{label} {mesh} rank {r}: {name} launches "
+                        f"{got[name]} == {want(r)}")
+
+
+def soup_judge(fails: Failures, label: str, res: dict) -> None:
+    """The event soup's own checks: blobs, journals, page moves, and the
+    preemption and restore times beside mesh=None's."""
+    mesh = res["mesh"]
+    st, st1 = res["stats"], res["single_stats"]
+    print(f"  {label} soup on {mesh}: {res['requests']} requests, {st['preemptions']} "
+          f"preemptions / {st['restores']} restores, {st['park_hits']} park hits, "
+          f"{st['index_hits']} index hits, {st['cow_splits']} CoW splits, "
+          f"{st['park_evictions']} parked-slot evictions, {st['park_offloads']} parked offloads, "
+          f"{st['park_expirations']} expirations (mesh=None: {st1['preemptions']} / "
+          f"{st1['restores']} / {st1['park_hits']} / {st1['index_hits']}); {res['blobs']} "
+          f"blobs; slot-row bytes over data {res['row_wire_bytes']}, K/V writes shared over "
+          f"data {res['kv_share_bytes']} bytes; forced preemption "
+          f"{res['sharded_preempt_ms']} ms by rank (mesh=None {res['single_preempt_ms']}), "
+          f"step with a restore chunk {res['sharded_restore_ms']} ms (mesh=None "
+          f"{res['single_restore_ms']})")
+    fails.check(st["preemptions"] > 0 and st["restores"] == st["preemptions"] and res["blobs"],
+                f"{label} {mesh}: the soup preempted and restored "
+                f"({st['preemptions']} / {st['restores']}), {res['blobs']} blobs")
+    fails.check(res["pages_move_no_bytes"], f"{label} {mesh}: page moves sent "
+                f"{res['page_wire_bytes']} collective bytes, forced preemptions "
+                f"{res['preempt_wire']}")
+    fails.check(res["journals_equal"], f"{label} {mesh}: every rank's billed storage journal "
+                f"equals mesh=None's")
+    if fails.check(res["identical_outputs"], f"{label} {mesh}: the soup's requests and "
+                   f"tokens are mesh=None's, so its blobs are comparable"):
+        fails.check(res["blob_layer0_bitwise"], f"{label} {mesh}: layer 0 of each rank's "
+                    f"{res['blobs']} blobs bitwise its lane shard of mesh=None's (layers "
+                    f"bitwise per blob and rank {res['blob_layers_bitwise']})")
+        whole = res["blob_rel_err_whole"]
+        fails.check(whole is not None and whole <= SOUP_BLOB_REL, f"{label} {mesh}: each "
+                    f"rank's blobs against its lane shard of mesh=None's: bitwise "
+                    f"{res['blobs_bitwise']}; largest |difference| over the leaf's largest "
+                    f"|value| {whole} <= {SOUP_BLOB_REL}")
+        by_layer = res["blob_rel_err_by_layer"] or []
+        fails.check(res["blob_rel_err"] is not None
+                    and res["blob_rel_err"] <= SOUP_BLOB_LAYER_REL, f"{label} {mesh}: largest "
+                    f"|difference| over the largest |value| of its layer and kv head "
+                    f"{res['blob_rel_err']} <= {SOUP_BLOB_LAYER_REL}; by layer "
+                    f"{[round(x, 5) for x in by_layer]}")
+
+
+def phase_sharded_features(fails: Failures, seed: int, *, device: str = "cuda",
+                           reduced: bool = False) -> dict:
+    """Phases 44-46 on ranks of the one card (gloo), the (1, 2) workloads in
+    one spawn: mamba2-1.3b at full width and depth, paged, its SSD state on
+    heads; ring mode for minicpm-2b at full width and depth with prompts of
+    SF_RING_PROMPT tokens (each admission launches the flash kernel) and
+    for recurrentgemma-2b at full width with a T-split ring (against its
+    mesh-matched run); and the event soup of minicpm-2b at full width and
+    depth (paged_kernel, a pool of SF_SOUP_PAGES pages, parking with a TTL,
+    prefix sharing over a shared system prompt) on (1, 2) and (2, 2), and
+    on (1, 1) as the witness that the blobs' drift comes from the split.
+    ``reduced`` (and smaller SF_* sizes) cut them for a CPU rehearsal.
+    Returns the mesh runs and the SSD launches of phase 44 by kind, summed
+    over ranks from the wrapper's counts."""
+    import numpy as np
+
+    from repro_torch.launch import sharded_smoke as ss
+    from repro_torch.models import build_model
+    from repro_torch.models.config import layer_pattern
+
+    common = dict(reduced=reduced, seed=seed, page_size=PAGE)
+    w44 = ss.Workload(arch=SSM, attn_backend="gather", n_requests=SF_SSM_REQUESTS,
+                      sessions=SF_SSM_REQUESTS, prompt_len=SF_SSM_PROMPT, max_new=SF_SSM_MAX_NEW,
+                      n_slots=SLOTS, prefill_chunk=CHUNK, **common)
+    w45 = ss.Workload(arch=ARCH, kv_mode="ring", attn_backend="gather",
+                      n_requests=SF_RING_REQUESTS, sessions=SF_RING_REQUESTS,
+                      prompt_len=SF_RING_PROMPT, max_new=SF_RING_MAX_NEW, n_slots=SF_RING_REQUESTS,
+                      prefill_chunk=CHUNK, **common)
+    w45h = dataclasses.replace(w45, arch=HYBRID, prompt_len=SF_HRING_PROMPT)
+    w46 = ss.Workload(arch=ARCH, attn_backend="paged_kernel", n_slots=4,
+                      prefill_chunk=SF_SOUP_CHUNK, max_seq=SF_SOUP_SEQ, kv_pages=SF_SOUP_PAGES,
+                      offload=True, prefix_sharing=True, park_sessions=True,
+                      park_ttl_steps=SF_SOUP_TTL, soup=ss.Soup(**SF_SOUP), **common)
+    jobs = [(w44, False), (w45, False), (w45h, True), (w46, False)]
+    cfgs = [w.config() for w, _ in jobs]
+    s = cfgs[0].ssm
+    print(f"[44-46] on (1, 2) ranks of one card (gloo): {SSM} paged ({cfgs[0].n_layers} layers, "
+          f"{s.n_heads(cfgs[0].d_model)} SSD heads on model), {SF_SSM_REQUESTS} requests, prompt "
+          f"{SF_SSM_PROMPT}, {SF_SSM_MAX_NEW} new; rings: {ARCH} ({cfgs[1].n_layers} layers, "
+          f"prompt {SF_RING_PROMPT}) and {HYBRID} (prompt {SF_HRING_PROMPT}), {SF_RING_REQUESTS} "
+          f"requests, {SF_RING_MAX_NEW} new; the event soup of {ARCH} (paged_kernel, "
+          f"{SF_SOUP_PAGES} pages of {PAGE}, chunk {SF_SOUP_CHUNK}, max_seq {SF_SOUP_SEQ}, TTL "
+          f"{SF_SOUP_TTL}: {SF_SOUP}), also on (2, 2)")
+    t0 = time.perf_counter()
+    singles = []
+    for w, _ in jobs:
+        singles.append(ss.run_single(w, device))
+        if device == "cuda":
+            release()
+    print(f"  the mesh=None runs: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    res12 = ss.run_smoke([w for w, _ in jobs], dp=1, mp=2, device=device,
+                         mesh_matched=[m for _, m in jobs], singles=singles)
+    print(f"  (1, 2): {time.perf_counter() - t1:.1f} s with the spawn")
+    t1 = time.perf_counter()
+    res22 = ss.run_smoke([w46], dp=2, mp=2, device=device, singles=[singles[3]])[0]
+    print(f"  (2, 2): {time.perf_counter() - t1:.1f} s with the spawn")
+    t1 = time.perf_counter()
+    res11 = ss.run_smoke([w46], dp=1, mp=1, device=device, singles=[singles[3]])[0]
+    print(f"  (1, 1): {time.perf_counter() - t1:.1f} s with the spawn")
+
+    def model_fn(w):
+        return lambda: build_model(w.config(), device=device, seed=w.seed)
+
+    def prompts(w):
+        return {f"r{i}": p for i, p in enumerate(w.prompts(w.config().vocab))}
+
+    on_card = device == "cuda"
+    r44, r45, r45h, r46 = res12
+    c44 = cfgs[0]
+    print(f"[44] {SSM} at full width and depth on (1, 2), paged: SSD state on heads "
+          f"{r44['ssm']}")
+    features_judge(fails, SSM, r44, c44, prompts(w44), matched=False, model_fn=model_fn(w44),
+                   launches={"ssd_scan": lambda r: c44.n_layers * (
+                       r44["decode_steps"][r] + r44["chunks_run"][r])} if on_card else {})
+    for r, kinds in enumerate(r44["ssd_launches_by_kind"] if on_card else []):
+        want = {"chunk": c44.n_layers * r44["chunks_run"][r],
+                "decode": c44.n_layers * r44["decode_steps"][r]}
+        fails.check(kinds == want and min(kinds.values()) > 0, f"{SSM} (1, 2) rank {r}: SSD "
+                    f"launches by kind {kinds} == {want} (a layer's chunk or decode step each)")
+    print(f"[45] ring mode on (1, 2): {ARCH} ring {r45['ring']}, {HYBRID} ring {r45h['ring']}")
+    features_judge(fails, f"{ARCH} rings", r45, cfgs[1], prompts(w45), matched=False,
+                   model_fn=model_fn(w45),
+                   launches={"flash_attention": lambda r: cfgs[1].n_layers * r45["chunks_run"][r]}
+                   if on_card else {})
+    n_rec = layer_pattern(cfgs[2]).count("r")
+    features_judge(fails, f"{HYBRID} rings", r45h, cfgs[2], prompts(w45h), matched=True,
+                   model_fn=model_fn(w45h),
+                   launches={"rglru_scan": lambda r: n_rec * (r45h["decode_steps"][r]
+                                                              + r45h["chunks_run"][r])}
+                   if on_card else {})
+    fails.check(r45h["ring"]["mode"] == "seq", f"{HYBRID}'s one kv head: the ring splits on T "
+                f"({r45h['ring']})")
+    print(f"[46] the event soup of {ARCH} on (1, 2) and (2, 2)")
+    c46 = cfgs[3]
+    for res in (r46, res22):
+        soup_prompts = {c[1]: np.asarray(c[2], np.int32) for c in res["completions"]}
+        features_judge(fails, f"{ARCH} soup", res, c46, soup_prompts, matched=False,
+                       model_fn=model_fn(w46),
+                       launches={"paged_attention": lambda r, res=res: c46.n_layers
+                                 * res["decode_steps"][r]} if on_card else {})
+        soup_judge(fails, ARCH, res)
+    # the witness: the same sharded scheduler on (1, 1), nothing split and
+    # eager as every mesh run, against mesh=None's replayed graphs
+    print(f"  {ARCH} soup on 1x1: tokens identical {res11['identical_outputs']}, blobs bitwise "
+          f"{res11['blobs_bitwise']} (largest |difference| {res11['blob_rel_err']})")
+    fails.check(res11["identical_outputs"] and res11["blobs_bitwise"], f"{ARCH} soup on 1x1 "
+                f"(nothing split): tokens and all {res11['blobs']} blobs bitwise mesh=None's, so "
+                f"the deeper layers' drift on (1, 2) and (2, 2) comes from the split")
+    if on_card:
+        release()
+    kinds = r44["ssd_launches_by_kind"]
+    return {"ssd_launches": {kind: sum(k[kind] for k in kinds) for kind in ("chunk", "decode")},
+            "mesh12": res12, "mesh22": res22, "mesh11": res11}
 
 
 def main() -> int:
@@ -7341,6 +7671,16 @@ def main() -> int:
         sum(n["paged_attention"] for n in hyb["launches"]), hyb["wire_per_step"][0][0],
         n_attn))
     print(f"  phases 40-42 wall {time.perf_counter() - t40:.1f} s")
+    release()
+    t43 = time.perf_counter()
+    print(f"[43] the SSD scan per head shard at {SSM}'s serving shapes vs its plain version and "
+          f"the unsharded launch")
+    ssd_shards = phase_ssd_shards(fails, args.seed)
+    features = phase_sharded_features(fails, args.seed)
+    for rec in ssd_shards:
+        rec["launches"] = features["ssd_launches"]["chunk" if rec.pop("L") > 1 else "decode"]
+    records.extend(ssd_shards)
+    print(f"  phases 43-46 wall {time.perf_counter() - t43:.1f} s")
     for recs in train_records.values():
         records.extend(recs)
     records.append(rglru_bwd)

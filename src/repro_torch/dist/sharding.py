@@ -31,9 +31,12 @@ Three layers, as in the reference:
   is never re-laid-out implicitly, so ``constrain`` leaves plain tensors
   unchanged and only redistributes a ``DTensor``.  The port's model code
   does not call it: under a mesh every rank runs the dense compute of its
-  slots replicated over ``model``, and only the paged pool is split
-  (``models/kvcache.py`` reads the policy's :class:`PoolShard` and merges
-  the per-shard softmax states through the collectives named here).
+  slots replicated over ``model``, and only the decode state is split: the
+  paged pool, the per-slot rings and the SSD state's heads
+  (``models/kvcache.py`` reads the policy's :class:`PoolShard` and
+  :class:`RingShard` and merges the per-shard softmax states,
+  ``models/mamba2.py`` its :class:`SSMShard` and gathers the scan's heads,
+  through the collectives named here).
 
 Collectives are explicit: :meth:`ShardingPolicy.all_reduce` runs
 ``dist.all_reduce`` over one axis's sub-group of the ``DeviceMesh`` and
@@ -46,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import time
 from contextvars import ContextVar
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
@@ -382,23 +386,35 @@ def cache_shardings(cache, mesh, *, scratch_pages: int = 1):
 
 
 def serving_cache_specs(cache, mesh, *, batch_shardable: bool):
-    """Where a sharded scheduler keeps each leaf of its paged cache: the pool
-    as :func:`cache_shardings` places it (lanes, then heads, on ``model``;
-    replicated over dp), and every per-slot leaf (page table, lengths,
-    recurrent rows) with its slot axis on dp when the slots divide
-    (``batch_shardable``), else replicated, and nothing on ``model``: each
-    rank runs its slots' dense compute, the RG-LRU scan included,
-    replicated over ``model``."""
+    """Where a sharded scheduler keeps each leaf of its cache (paged or
+    rings).  The leaves the model axis splits follow :func:`cache_shardings`:
+    the pool (lanes, then heads, on ``model``; replicated over dp), the ring
+    ``k``/``v`` (kv heads on ``model`` when they divide, else the ring axis
+    T) with ``positions`` following their T split (the reference leaves
+    ``positions`` whole and lets GSPMD gather it; here each rank keeps the
+    positions of its own lanes), and the SSD state ``ssm`` (heads on
+    ``model``).  Every per-slot leaf has its slot axis on dp when the slots
+    divide (``batch_shardable``), else replicated.  The conv tails and the
+    RG-LRU state ``h`` are on nothing but dp: each rank runs its slots'
+    dense compute, the conv and the RG-LRU scan included, replicated over
+    ``model`` (the reference splits their channel axis on ``model``, which
+    for the SSD conv would cut across the ``[x, B, C]`` boundaries of its
+    input)."""
     rules = MeshRules.for_mesh(mesh)
-    pool = cache_shardings({k: v for k, v in cache.items() if k in POOL_KEYS}, mesh)
+    placed = cache_shardings({k: v for k, v in cache.items()
+                              if k in POOL_KEYS or k in ("k", "v", "ssm")}, mesh)
     dp = tuple(rules.dp) if batch_shardable and rules.dp else None
     out = {}
     for key, leaf in cache.items():
         if key in POOL_KEYS:
-            out[key] = pool[key]
+            out[key] = placed[key]
             continue
         entries: list = [None] * leaf.ndim
         entries[0 if key in ("page_table", "length") else 1] = dp
+        if key in ("k", "v", "ssm"):    # (L, B, T, Hkv, D) / (L, B, H, P, N)
+            entries[2:] = placed[key][2:]
+        elif key == "positions":         # (L, B, T): the rings' T split
+            entries[2] = placed["k"][2]
         out[key] = P(*entries)
     return out
 
@@ -512,8 +528,7 @@ class PoolShard:
         rules = MeshRules.for_mesh(mesh)
         nd = len(pool_shape)
         count = rules.model_size(mesh)
-        index = (_coordinate(mesh)[rules.model]
-                 if not isinstance(mesh, AbstractMesh) else 0)
+        index = _model_index(mesh)
         ps, hkv = pool_shape[-3], pool_shape[-2]
         if count == 1:          # every rank holds the whole pool
             return cls("replicated", 0, 1, ps, hkv)
@@ -542,18 +557,103 @@ class PoolShard:
         return lo, lo + w
 
 
+def _model_index(mesh) -> int:
+    rules = MeshRules.for_mesh(mesh)
+    return _coordinate(mesh)[rules.model] if not isinstance(mesh, AbstractMesh) else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class RingShard:
+    """Which slice of the per-slot rings (``k``/``v`` (L, B, T, Hkv, D),
+    ``positions`` (L, B, T)) this rank holds: ``mode`` "head" (kv heads
+    ``[index * n_kv_heads / count, ...)``), "seq" (ring lanes ``[index * T /
+    count, ...)``) or "replicated"; ``T`` and ``n_kv_heads`` are the global
+    ones.  A T-split ring keeps :attr:`scratch` extra lanes past its own:
+    a token whose lane another shard holds is written there (no host sync
+    filters it out) and never read."""
+
+    mode: str
+    index: int
+    count: int
+    T: int
+    n_kv_heads: int
+
+    @classmethod
+    def for_ring(cls, spec, ring_shape: Tuple[int, ...], mesh) -> "RingShard":
+        """The layout :func:`serving_cache_specs` gave a ring of global
+        shape ``(L, B, T, Hkv, D)``."""
+        T, hkv = ring_shape[-3], ring_shape[-2]
+        count = MeshRules.for_mesh(mesh).model_size(mesh)
+        if count > 1 and spec[-2] is not None:
+            return cls("head", _model_index(mesh), count, T, hkv)
+        if count > 1 and spec[-3] is not None:
+            return cls("seq", _model_index(mesh), count, T, hkv)
+        return cls("replicated", 0, 1, T, hkv)
+
+    @property
+    def split(self) -> bool:
+        return self.mode in ("head", "seq")
+
+    @property
+    def scratch(self) -> int:
+        return 1 if self.mode == "seq" else 0
+
+    def lanes(self) -> Tuple[int, int]:
+        w = self.T // self.count if self.mode == "seq" else self.T
+        lo = self.index * w if self.mode == "seq" else 0
+        return lo, lo + w
+
+    def heads(self) -> Tuple[int, int]:
+        w = self.n_kv_heads // self.count if self.mode == "head" else self.n_kv_heads
+        lo = self.index * w if self.mode == "head" else 0
+        return lo, lo + w
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMShard:
+    """Which heads of the SSD state ``ssm`` (L, B, H, P, N) this rank
+    holds: ``mode`` "head" (heads ``[index * n_heads / count, ...)``) or
+    "replicated"; ``n_heads`` is the global H."""
+
+    mode: str
+    index: int
+    count: int
+    n_heads: int
+
+    @classmethod
+    def for_state(cls, spec, state_shape: Tuple[int, ...], mesh) -> "SSMShard":
+        """The layout :func:`serving_cache_specs` gave an ``ssm`` leaf of
+        global shape ``(L, B, H, P, N)``."""
+        count = MeshRules.for_mesh(mesh).model_size(mesh)
+        if count > 1 and spec[-3] is not None:
+            return cls("head", _model_index(mesh), count, state_shape[-3])
+        return cls("replicated", 0, 1, state_shape[-3])
+
+    @property
+    def split(self) -> bool:
+        return self.mode == "head"
+
+    def heads(self) -> Tuple[int, int]:
+        w = self.n_heads // self.count if self.split else self.n_heads
+        lo = self.index * w if self.split else 0
+        return lo, lo + w
+
+
 # ---------------------------------------------------------------------------
 # Activation policy
 # ---------------------------------------------------------------------------
 
 
 class WireCounter:
-    """Bytes sent through collectives (each call's payload per rank) and the
-    number of calls."""
+    """Bytes sent through collectives (each call's payload per rank), the
+    number of calls, and the host seconds they took (each timed from the
+    moment its operand is ready: a CUDA operand's stream is synchronised
+    first, so the time is the collective's, not the queued work's)."""
 
     def __init__(self):
         self.bytes = 0
         self.calls = 0
+        self.seconds = 0.0
 
 
 _REDUCE_OPS = ("sum", "max")
@@ -574,6 +674,8 @@ class ShardingPolicy:
     decode_stationary: bool = False      # stationary-weights MoE decode
     shard_map_pool: bool = False         # per-shard paged kernel + merge
     pool: Optional[PoolShard] = None     # this rank's slice of the pool
+    ring: Optional[RingShard] = None     # ... of the per-slot rings
+    ssm: Optional[SSMShard] = None       # ... of the SSD state's heads
     wire: WireCounter = dataclasses.field(default_factory=WireCounter, compare=False)
 
     @classmethod
@@ -581,7 +683,8 @@ class ShardingPolicy:
                 attn_mode: str = "head", decode_stationary: bool = False,
                 shard_map_pool: bool = False,
                 overrides: Optional[Dict[str, PartitionSpec]] = None,
-                pool: Optional[PoolShard] = None) -> "ShardingPolicy":
+                pool: Optional[PoolShard] = None, ring: Optional[RingShard] = None,
+                ssm: Optional[SSMShard] = None) -> "ShardingPolicy":
         """The standard rule table.
 
         ``attn_mode="head"`` shards attention heads on ``model`` (needs the
@@ -616,7 +719,7 @@ class ShardingPolicy:
         return cls(mesh=mesh, specs=specs, rules=rules,
                    batch_shardable=batch_shardable, attn_mode=attn_mode,
                    decode_stationary=decode_stationary,
-                   shard_map_pool=shard_map_pool, pool=pool)
+                   shard_map_pool=shard_map_pool, pool=pool, ring=ring, ssm=ssm)
 
     def axis_size(self, axis: str) -> int:
         return int(mesh_axes(self.mesh)[axis])
@@ -637,8 +740,12 @@ class ShardingPolicy:
             raise ValueError("collectives need a live DeviceMesh, not an AbstractMesh")
         self.wire.bytes += t.numel() * t.element_size()
         self.wire.calls += 1
+        if t.is_cuda:
+            torch.cuda.current_stream(t.device).synchronize()
+        t0 = time.perf_counter()
         dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
                         group=self.mesh.get_group(axis))
+        self.wire.seconds += time.perf_counter() - t0
         return t
 
     def collective_bytes(self) -> int:

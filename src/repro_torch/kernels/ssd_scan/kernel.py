@@ -22,8 +22,11 @@ Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version (:func:`.ref.ssd_scan_plain`, chunked by ``chunk``), CUDA
 tensors launch the kernel or raise.  ``ssd_scan_kernel.launches`` counts
 kernel launches (never plain-version calls; a CUDA graph's replay adds
-the launches it holds, ``serve/graphs.py``), and
-``ssd_scan_kernel.launches_by_route`` counts them per route.
+the launches it holds, ``serve/graphs.py``),
+``ssd_scan_kernel.launches_by_route`` counts them per route, and
+``ssd_scan_kernel.launches_by_kind`` per length: ``"decode"`` (L = 1, on
+the tensor-core route the streaming ``ssd_decode_kernel``) and ``"chunk"``
+(L >= 2).
 
 The backward (:func:`ssd_scan_backward_kernel`, one call of the library's
 ``ssd_scan_backward_launch``: three launches, the state passes, the chunk
@@ -170,11 +173,13 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torc
                            f"N={N}: {msg} ({err})")
     ssd_scan_kernel.launches += 1
     ssd_scan_kernel.launches_by_route[path] += 1
+    ssd_scan_kernel.launches_by_kind["decode" if L == 1 else "chunk"] += 1
     return y, h_final
 
 
 ssd_scan_kernel.launches = 0
 ssd_scan_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
+ssd_scan_kernel.launches_by_kind = dict.fromkeys(("chunk", "decode"), 0)
 
 
 def backward_route(dtype: torch.dtype, P: int, N: int) -> str:

@@ -11,6 +11,11 @@ Where autograd needs it (grad mode on and an input that requires grad),
 the call goes through :class:`SSDScan`, a ``torch.autograd.Function``
 whose backward is the kernel's (``ssd_scan_backward_kernel``).  Every
 other call (serving, graphs, decode) launches the forward alone, as before.
+
+:func:`ssd_scan_shard` is the scan on one shard of the heads (the serving
+path's SSD state split on the ``model`` axis of a mesh): heads never mix in
+the scan, so it is one launch on the heads' slices of x, dt and A with the
+shard's own state.
 """
 
 from __future__ import annotations
@@ -65,3 +70,30 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
         return SSDScan.apply(*args, chunk)
     return ssd_scan_kernel(*args, chunk=chunk)
+
+
+def ssd_scan_shard(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, h0: Optional[torch.Tensor] = None, *, shard: int,
+                   n_shards: int, chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan over heads ``[shard * H / n_shards, (shard + 1) * H /
+    n_shards)`` of x (B, L, H, P), dt (B, L, H) and A (H,), from the shard's
+    own state ``h0`` (B, H / n_shards, P, N) or a zero state; Bm and Cm
+    (B, L, N) are every head's.  Returns that shard's ``(y (B, L, H /
+    n_shards, P), h_final (B, H / n_shards, P, N))``: one call of
+    :func:`~.kernel.ssd_scan_kernel` on the slices, made contiguous and
+    16-byte aligned (on a CUDA tensor the kernel, on the route the
+    unsharded launch takes, since the route depends on the dtype, P and N
+    alone; on the CPU the plain version).  Serving only: an input that
+    requires grad raises, as the forward kernel does."""
+    H = x.shape[2]
+    if not 0 <= shard < n_shards or H % n_shards:
+        raise ValueError(f"shard {shard} of {n_shards} does not split {H} heads")
+    w = H // n_shards
+    lo = shard * w
+    if h0 is not None and tuple(h0.shape[:2]) != (x.shape[0], w):
+        raise ValueError(f"h0 must be the shard's state (B, {w}, P, N), got {tuple(h0.shape)}")
+    ft = torch.promote_types(x.dtype, torch.float32)
+    return ssd_scan_kernel(_aligned(x[:, :, lo:lo + w]), dt[:, :, lo:lo + w].to(ft).contiguous(),
+                           A[lo:lo + w].to(ft).contiguous(), _aligned(Bm.to(x.dtype)),
+                           _aligned(Cm.to(x.dtype)),
+                           None if h0 is None else _aligned(h0.to(ft)), chunk=chunk)

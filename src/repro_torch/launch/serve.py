@@ -19,7 +19,11 @@ scheduler workers (paged, parked sessions and the index journal implied;
 ``--min-workers``, ``--max-workers``, ``--scale-to-zero``).  ``--mesh
 DPxMP`` serves through the sharded scheduler on ``DP * MP`` spawned ranks
 of a ``(data, model)`` mesh on ``--device`` (gloo; several ranks may share
-one card); every rank serves the same submits, and rank 0 reports.
+one card); every rank serves the same submits, and rank 0 reports.  Under
+``--mesh`` the paged pool and ``--kv-mode ring``, the SSM family,
+``--offload``, ``--prefix-sharing`` and ``--park-sessions`` are served;
+speculation and the MoE family are refused (``DecodeScheduler`` names the
+ROADMAP item).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\

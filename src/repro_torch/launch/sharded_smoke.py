@@ -20,15 +20,30 @@ For the mesh the smoke also measures
     statistics, whose size does not depend on the pool, so the bytes must
     not grow.
 
+With ``--kv-mode ring`` the slots own rings (split on kv heads, else on
+their T axis), every admission is one monolithic prefill, and the
+collective bytes of a decode step must be the same at twice ``max_seq``.
+
 The default arch is dense (``minicpm-2b``), which holds the strict
 token-for-token claim; ``--mesh-matched`` instead holds the mesh run
 against the same sharded scheduler serving one request at a time (the
 reference's ``sched`` claim, for the hybrid, whose recurrence feeds
 cross-shard summation order back on itself).
 
+A :class:`Workload` with a :class:`Soup` runs the seeded event soup of the
+scheduler differential harness instead (fresh, multi-turn and
+shared-system-prompt admissions across sessions, forced preemptions with
+offload, parking with a TTL, prefix sharing), with ``audit()`` after every
+step on every rank.  Its verdicts add: each rank's page blobs are its
+shard of the ``mesh=None`` run's blobs, the billed
+storage journals are equal, and the page moves send no collective bytes
+(a slot's rows, snapshot when a parked slot is reclaimed, move over
+``data``).
+
 Usage::
 
   PYTHONPATH=src python -m repro_torch.launch.sharded_smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.sharded_smoke --device cpu --kv-mode ring
   PYTHONPATH=src python -m repro_torch.launch.sharded_smoke --mesh 2x2   # on the card
 """
 
@@ -48,9 +63,14 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.storage import PageBlobStore
+
 PAGE_SIZE = 4            # divides the mesh's model axis -> lane decomposition
 N_SLOTS = 4              # divides the mesh's data axis
 JOIN_TIMEOUT_S = 600.0
+SOUP_SYSTEM_PAGES = 2    # the event soup's shared system prompt
+SOUP_PREEMPT_P = 0.12    # its chance of a forced preemption each round
+SOUP_DRAIN_STEPS = 4000  # the most steps its drain may take
 
 
 # ---------------------------------------------------------------------------
@@ -119,6 +139,22 @@ def spawn_ranks(fn: Callable, args: tuple = (), *, dp: int, mp: int, device: str
 
 
 @dataclasses.dataclass(frozen=True)
+class Soup:
+    """The seeded event soup's shape (the scheduler differential harness's
+    defaults): ``events`` rounds, each submitting to idle sessions with
+    probability 0.35 (a multi-turn extension of the session's history,
+    a prompt opening with the shared system prompt of SOUP_SYSTEM_PAGES
+    pages, or a fresh one), forcing a preemption with probability
+    SOUP_PREEMPT_P, and stepping once; then a drain."""
+
+    events: int = 28
+    sessions: int = 4
+    fresh_len: tuple = (5, 12)
+    extend_len: tuple = (1, 4)
+    max_new: tuple = (2, 4)
+
+
+@dataclasses.dataclass(frozen=True)
 class Workload:
     arch: str = "minicpm-2b"
     reduced: bool = True          # the config's reduced widths (CPU tests)
@@ -132,6 +168,14 @@ class Workload:
     page_size: int = PAGE_SIZE
     prefill_chunk: int = PAGE_SIZE
     seed: int = 0
+    kv_mode: str = "paged"
+    max_seq: Optional[int] = None   # None: prompt_len + max_new
+    kv_pages: Optional[int] = None  # None: the scheduler's default pool
+    offload: bool = False
+    prefix_sharing: bool = False
+    park_sessions: bool = False
+    park_ttl_steps: int = 0
+    soup: Optional[Soup] = None     # the event soup instead of a plain drive
 
     def config(self):
         from .. import configs
@@ -148,6 +192,10 @@ class Workload:
         return [rng.integers(0, vocab, size=self.prompt_len).astype(np.int32)
                 for _ in range(self.n_requests)]
 
+    @property
+    def seq(self) -> int:
+        return self.max_seq or self.prompt_len + self.max_new
+
 
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
@@ -160,13 +208,82 @@ def build(w: Workload, device):
     return build_model(w.config(), device=device, seed=w.seed)
 
 
-def scheduler(w: Workload, model, mesh=None, kv_pages: Optional[int] = None):
+def scheduler(w: Workload, model, mesh=None, kv_pages: Optional[int] = None,
+              max_seq: Optional[int] = None, blob_store=None):
     from ..serve.scheduler import DecodeScheduler
 
-    return DecodeScheduler(model, n_slots=w.n_slots, max_seq=w.prompt_len + w.max_new,
+    return DecodeScheduler(model, n_slots=w.n_slots, max_seq=max_seq or w.seq,
                            page_size=w.page_size, prefill_chunk=w.prefill_chunk,
-                           attn_backend=w.attn_backend, device=model.device, mesh=mesh,
-                           kv_pages=kv_pages)
+                           attn_backend=w.attn_backend if w.kv_mode == "paged" else "gather",
+                           device=model.device, mesh=mesh, kv_mode=w.kv_mode,
+                           kv_pages=kv_pages if kv_pages is not None else w.kv_pages,
+                           blob_store=blob_store, offload=w.offload,
+                           prefix_sharing=w.prefix_sharing, park_sessions=w.park_sessions,
+                           park_ttl_steps=w.park_ttl_steps)
+
+
+class RecordingStore(PageBlobStore):
+    """A page-blob store that also keeps every blob it is given, in order
+    (``history``), so a mesh run's blobs can be held against ``mesh=None``'s
+    after their restores have deleted them."""
+
+    def __init__(self):
+        super().__init__()
+        self.history: list = []
+
+    def put(self, key: str, blob, nbytes: int) -> None:
+        super().put(key, blob, nbytes)
+        self.history.append((key, blob))
+
+
+def blob_shard(blob, pool: Dict[str, Any]):
+    """The shard of a whole page blob ``{"kp", "vp": (L, n, ps, Hkv, D)}``
+    that the rank of ``pool`` (a :class:`PoolShard` as a dict) holds: its
+    lanes (axis 2) or kv heads (axis 3)."""
+    if pool is None or pool["mode"] == "replicated":
+        return blob
+    dim = 2 if pool["mode"] == "lane" else 3
+    return {key: leaf.narrow(dim, leaf.shape[dim] // pool["count"] * pool["index"],
+                             leaf.shape[dim] // pool["count"]) for key, leaf in blob.items()}
+
+
+def blob_agreement(ranks, single) -> Dict[str, Any]:
+    """Each rank's blobs against its shard of ``mesh=None``'s, in put order:
+    whether every one is bitwise, whether layer 0 of every one is (its K/V
+    come from the embeddings alone, so a stale or misrouted page shows
+    there), per blob the layers (leading axis) that are bitwise, the
+    largest |difference| over the largest |value| of its leaf
+    (``blob_rel_err_whole``), and over the largest |value| of its own layer
+    and kv head, in all and per layer."""
+    none = {"blobs_bitwise": False, "blob_layer0_bitwise": False, "blob_rel_err": None,
+            "blob_rel_err_whole": None, "blob_rel_err_by_layer": None,
+            "blob_layers_bitwise": None}
+    bitwise, layer0, layers, by_layer, whole_err = True, True, [], None, 0.0
+    for r in ranks:
+        if [k for k, _ in r["blobs"]] != [k for k, _ in single["blobs"]]:
+            return none
+        for (_, got), (_, whole) in zip(r["blobs"], single["blobs"]):
+            want = blob_shard(whole, r["pool"])
+            same = [all(torch.equal(got[k][i], want[k][i]) for k in got)
+                    for i in range(got["kp"].shape[0])]
+            layers.append(sum(same))
+            bitwise &= all(same)
+            layer0 &= same[0]
+            for k in got:
+                err = (got[k].float() - want[k].float()).abs()
+                whole_err = max(whole_err, err.max().item()
+                                / (want[k].float().abs().max().item() or 1.0))
+                # (L, n, ps, Hkv, D): reduce to one value a layer and kv head
+                diff = err.amax(dim=(1, 2, 4))
+                scale = want[k].float().abs().amax(dim=(1, 2, 4))
+                rel = torch.where(diff == 0, torch.zeros_like(diff), diff / scale)
+                rel = rel.amax(dim=1)
+                by_layer = rel if by_layer is None else torch.maximum(by_layer, rel)
+    return {"blobs_bitwise": bitwise, "blob_layer0_bitwise": layer0,
+            "blob_rel_err": None if by_layer is None else by_layer.max().item(),
+            "blob_rel_err_whole": whole_err,
+            "blob_rel_err_by_layer": None if by_layer is None else by_layer.tolist(),
+            "blob_layers_bitwise": layers}
 
 
 def drive(sched, w: Workload, prompts: Sequence[np.ndarray], *, one_at_a_time: bool = False
@@ -174,31 +291,185 @@ def drive(sched, w: Workload, prompts: Sequence[np.ndarray], *, one_at_a_time: b
     """Serve ``prompts`` (request ``r<i>`` in session ``s<i mod sessions>``)
     to completion: all submitted at once, or one request at a time.
     Returns the tokens by request, the step count, the wall ms of each step
-    that ran a decode step and no chunk, and the collective bytes of each
-    decode step (mesh mode)."""
+    that ran a decode step and no chunk and of each that ran a chunk (its
+    decode step included), and the collective bytes of each decode step
+    and each chunk this rank ran (mesh mode)."""
     outputs: Dict[str, list] = {}
-    step_ms, wire = [], []
+    step_ms, wire, chunk_ms, chunk_wire, wire_ms, chunk_wire_ms = [], [], [], [], [], []
     steps = 0
     batches = [[i] for i in range(len(prompts))] if one_at_a_time else [range(len(prompts))]
     for batch in batches:
         for i in batch:
             sched.submit(f"s{i % w.sessions}", f"r{i}", prompts[i], w.max_new)
         while sched.busy():
-            decoded, chunks = sched.decode_tokens, sched.prefill_chunks
+            decoded, chunks, ran = sched.decode_tokens, sched.prefill_chunks, sched.chunks_run
             _sync(sched.device)
             t0 = time.perf_counter()
             for fin in sched.step():
                 outputs[fin.request_id] = np.asarray(fin.tokens).tolist()
             _sync(sched.device)
+            ms = (time.perf_counter() - t0) * 1e3
             if sched.decode_tokens > decoded:
                 wire.append(sched.last_step_wire_bytes)
+                wire_ms.append(sched.last_step_wire_ms)
                 if sched.prefill_chunks == chunks:      # a step of decode alone
-                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    step_ms.append(ms)
+            if sched.chunks_run > ran:
+                chunk_ms.append(ms)
+                chunk_wire.append(sched.last_chunk_wire_bytes)
+                chunk_wire_ms.append(sched.last_chunk_wire_ms)
             steps += 1
             if steps > 100_000:
                 raise RuntimeError("the scheduler failed to drain")
     return {"tokens": outputs, "steps": steps, "step_ms": step_ms, "wire": wire,
-            "decode_tokens": sched.decode_tokens}
+            "wire_ms": wire_ms, "chunk_ms": chunk_ms, "chunk_wire": chunk_wire,
+            "chunk_wire_ms": chunk_wire_ms, "decode_tokens": sched.decode_tokens}
+
+
+def event_soup(sched, w: Workload, vocab: int) -> Dict[str, Any]:
+    """The workload's seeded event soup (``w.soup``, drawn from ``w.seed``)
+    on ``sched``: :func:`soup_events` over ``w.soup.sessions`` sessions.
+    Every rank of a mesh draws the same events, since the host state is the
+    same on every rank."""
+    rng = np.random.default_rng(w.seed)
+    sessions = [f"s{i}" for i in range(w.soup.sessions)]
+    system = rng.integers(0, vocab, size=SOUP_SYSTEM_PAGES * w.page_size).astype(np.int32)
+    return soup_events(sched, rng, sessions, system, w.soup, w.seq, vocab)
+
+
+def soup_events(sched, rng, sessions: Sequence[str], system: np.ndarray, soup: Soup, seq: int,
+                vocab: int, *, log: Optional[list] = None, on_complete=None
+                ) -> Dict[str, Any]:
+    """The event soup's rounds and drain on ``sched`` (:class:`Soup`), drawn
+    from ``rng``, prompts of ``vocab`` tokens at most ``seq`` long with
+    their budgets, ``system`` the shared system prompt, ``audit()`` after
+    every step; raises on a violation of per-session FIFO order, on a
+    drain that does not end and on a leaked page reference.  ``log`` gets
+    every event (submits with their kind, forced preemptions, completions,
+    drain steps); ``on_complete(session, request, prompt, tokens)`` sees
+    each completion (a reference check may raise there).  Returns the
+    completions in order (session, request, prompt, budget, tokens), the
+    counters, the collective bytes of each decode step and of each forced
+    preemption, and the wall ms of each forced preemption, of each step
+    that ran a restore chunk and of each that ran a decode step alone."""
+    from ..serve.lifecycle import SlotState
+
+    history: Dict[str, Any] = dict.fromkeys(sessions)
+    inflight: Dict[str, tuple] = {}
+    done, preempt_ms, preempt_wire, restore_ms = [], [], [], []
+    wire, wire_ms, step_ms = [], [], []
+    rid = 0
+    policy = getattr(sched, "_policy", None)
+    log = log if log is not None else []
+
+    def submit(sess):
+        nonlocal rid
+        h = history[sess]
+        roll = rng.random()
+        if h is not None and roll < 0.6 and len(h) + 8 <= seq:
+            # multi-turn: extend this session's conversation
+            prompt = np.concatenate([h, rng.integers(
+                0, vocab, int(rng.integers(*soup.extend_len))).astype(np.int32)])
+            kind = "extend"
+        elif roll < 0.8:
+            # the shared system prompt across sessions (prefix-index food)
+            prompt = np.concatenate([system, rng.integers(
+                0, vocab, int(rng.integers(*soup.fresh_len))).astype(np.int32)])
+            kind = "shared"
+        else:
+            prompt = rng.integers(0, vocab, int(rng.integers(*soup.fresh_len))).astype(np.int32)
+            kind = "fresh"
+        max_new = min(int(rng.integers(soup.max_new[0], soup.max_new[1] + 1)),
+                      seq - len(prompt))
+        if max_new < 1:
+            history[sess] = None            # conversation too long: restart
+            return
+        name = f"r{rid}"
+        rid += 1
+        sched.submit(sess, name, prompt, max_new)
+        inflight[sess] = (name, prompt, max_new)
+        log.append({"ev": "submit", "session": sess, "rid": name, "kind": kind,
+                    "prompt": prompt.tolist(), "max_new": max_new})
+
+    def step():
+        restores, decoded, chunks = sched.restore_chunks, sched.decode_tokens, sched.prefill_chunks
+        _sync(sched.device)
+        t0 = time.perf_counter()
+        fins = sched.step()
+        _sync(sched.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        if sched.decode_tokens > decoded:
+            wire.append(sched.last_step_wire_bytes)
+            wire_ms.append(sched.last_step_wire_ms)
+            if sched.prefill_chunks == chunks and sched.restore_chunks == restores:
+                step_ms.append(ms)
+        if sched.restore_chunks > restores:
+            restore_ms.append(ms)
+        sched.audit()
+        for fin in fins:
+            name, prompt, max_new = inflight.pop(fin.session)
+            if fin.request_id != name:
+                raise AssertionError("per-session FIFO violated")
+            tokens = np.asarray(fin.tokens).astype(np.int32)
+            log.append({"ev": "complete", "rid": name, "tokens": tokens.tolist()})
+            if on_complete is not None:
+                on_complete(fin.session, name, prompt, max_new, tokens)
+            done.append((fin.session, name, prompt.tolist(), max_new, tokens.tolist()))
+            history[fin.session] = np.concatenate([prompt, tokens])
+
+    for _ in range(soup.events):
+        for sess in sessions:
+            if sess not in inflight and rng.random() < 0.35:
+                submit(sess)
+        if rng.random() < SOUP_PREEMPT_P:
+            victims = [s for s in sched.slots if s.state is SlotState.ACTIVE and s.pages]
+            if victims:
+                v = victims[int(rng.integers(len(victims)))]
+                log.append({"ev": "preempt", "slot": v.index})
+                sent = policy.wire.bytes if policy is not None else 0
+                _sync(sched.device)
+                t0 = time.perf_counter()
+                sched.preempt(v.index)
+                _sync(sched.device)
+                preempt_ms.append((time.perf_counter() - t0) * 1e3)
+                preempt_wire.append((policy.wire.bytes if policy is not None else 0) - sent)
+        step()
+    drained = 0
+    while sched.busy():
+        step()
+        log.append({"ev": "drain-step"})
+        drained += 1
+        if drained > SOUP_DRAIN_STEPS:
+            raise RuntimeError("the scheduler failed to drain")
+    a = sched.allocator
+    held = sum(len(r.pages) for r in sched._parked.values()) + len(sched.prefix_index)
+    if a.total_refs != held:
+        raise AssertionError(f"leaked references: {a.total_refs} != {held}")
+    return {"completions": done, "stats": sched.stats(), "preempt_ms": preempt_ms,
+            "preempt_wire": preempt_wire, "restore_ms": restore_ms, "wire": wire,
+            "wire_ms": wire_ms, "step_ms": step_ms}
+
+
+def sched_ref(w: Workload, model, mesh, completions) -> Dict[str, list]:
+    """The reference's ``SchedRef`` on this mesh: a second scheduler with
+    the same steps, eviction-free (no offload, no forced preemption, no
+    prefix sharing, an ample pool), parking sessions when the workload's
+    pool has pages so a multi-turn extension takes the same parked path,
+    serving each completed request alone, in completion order, under its
+    own session.  Returns its tokens by request."""
+    paged = w.kv_mode == "paged"
+    ref = scheduler(dataclasses.replace(w, offload=False, prefix_sharing=False,
+                                        park_sessions=paged, park_ttl_steps=0,
+                                        kv_pages=None), model, mesh)
+    out = {}
+    for session, name, prompt, max_new, _ in completions:
+        ref.submit(session, name, np.asarray(prompt, np.int32), max_new)
+        while True:
+            fins = ref.step()
+            if fins:
+                out[name] = np.asarray(fins[0].tokens).tolist()
+                break
+    return out
 
 
 def _one_decode_wire(sched, w: Workload, prompt: np.ndarray) -> int:
@@ -210,45 +481,80 @@ def _one_decode_wire(sched, w: Workload, prompt: np.ndarray) -> int:
     return sched.last_step_wire_bytes
 
 
+def _launch_wrappers() -> dict:
+    from ..kernels.flash_attention import flash_attention_kernel
+    from ..kernels.paged_attention import paged_attention_kernel
+    from ..kernels.rglru_scan import rglru_scan_kernel
+    from ..kernels.ssd_scan import ssd_scan_kernel
+
+    return {"paged_attention": paged_attention_kernel, "rglru_scan": rglru_scan_kernel,
+            "ssd_scan": ssd_scan_kernel, "flash_attention": flash_attention_kernel}
+
+
 def serve_rank(mesh, w: Workload, *, mesh_matched: bool = False) -> Dict[str, Any]:
-    """One rank of the mesh run: the workload on ``mesh``, then the decode
-    step's collective bytes at a pool 4x larger, and (``mesh_matched``)
-    the same sharded scheduler serving one request at a time."""
+    """One rank of the mesh run: the workload (or its event soup) on
+    ``mesh``, then the decode step's collective bytes at a pool 4x larger
+    (paged) or at twice ``max_seq`` (rings), and (``mesh_matched``) the
+    same sharded scheduler serving each request alone."""
     import torch.distributed as dist
 
     device = "cuda" if mesh.device_type == "cuda" else "cpu"
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    from ..kernels.paged_attention import paged_attention_kernel
-    from ..kernels.rglru_scan import rglru_scan_kernel
-
+    wrappers = _launch_wrappers()
     model = build(w, device)
     prompts = w.prompts(model.cfg.vocab)
-    sched = scheduler(w, model, mesh)
-    for wrapper in (paged_attention_kernel, rglru_scan_kernel):
+    store = RecordingStore()
+    sched = scheduler(w, model, mesh, blob_store=store)
+    for wrapper in wrappers.values():
         wrapper.launches = 0
+    ssd_kinds = wrappers["ssd_scan"].launches_by_kind
+    ssd_kinds.update(dict.fromkeys(ssd_kinds, 0))
     t0 = time.perf_counter()
-    run = drive(sched, w, prompts)
+    if w.soup is not None:
+        run = event_soup(sched, w, model.cfg.vocab)
+        run["tokens"] = {c[1]: c[4] for c in run["completions"]}
+        run.update(steps=sched.steps, chunk_ms=[], chunk_wire=[], chunk_wire_ms=[],
+                   decode_tokens=sched.decode_tokens)
+    else:
+        run = drive(sched, w, prompts)
     _sync(device)
     wall = time.perf_counter() - t0
+    policy = sched._policy
     out = {"rank": dist.get_rank(), "coord": tuple(mesh.get_coordinate()),
            "tokens": run["tokens"], "steps": run["steps"], "step_ms": run["step_ms"],
            "wall_s": wall, "decode_tokens": run["decode_tokens"],
            "decode_steps": len(run["wire"]), "chunks_run": sched.chunks_run,
-           "launches": {"paged_attention": paged_attention_kernel.launches,
-                        "rglru_scan": rglru_scan_kernel.launches},
-           "wire_per_step": sorted(set(run["wire"])), "pool_bytes": sched.pool_bytes(),
-           "pool": dataclasses.asdict(sched._policy.pool) if sched._policy.pool else None,
-           "n_pages": sched.n_pages}
+           "launches": {name: fn.launches for name, fn in wrappers.items()},
+           "ssd_launches_by_kind": dict(ssd_kinds),
+           "wire_per_step": sorted(set(run["wire"])), "wire_ms": run["wire_ms"],
+           "chunk_wire_ms": run["chunk_wire_ms"], "chunk_ms": run["chunk_ms"],
+           "chunk_wire": sorted(set(run["chunk_wire"])), "pool_bytes": sched.pool_bytes(),
+           "ring_bytes": sched.held_bytes(("k", "v")),
+           "ring_scratch_bytes": sched.ring_scratch_bytes(),
+           "state_bytes": sched.held_bytes(("ssm",)),
+           "pool": dataclasses.asdict(policy.pool) if policy.pool else None,
+           "ring": dataclasses.asdict(policy.ring) if policy.ring else None,
+           "ssm": dataclasses.asdict(policy.ssm) if policy.ssm else None,
+           "n_pages": sched.n_pages, "slot_split": sched._slot_split,
+           "row_wire_bytes": sched.row_wire_bytes,
+           "page_wire_bytes": sched.page_wire_bytes, "kv_share_bytes": sched.kv_share_bytes,
+           "blobs": store.history, "journal": store.ops}
+    if w.soup is not None:
+        for key in ("completions", "stats", "preempt_ms", "preempt_wire", "restore_ms"):
+            out[key] = run[key]
     del sched
-    big = scheduler(w, model, mesh, kv_pages=4 * (w.n_slots * -(-(w.prompt_len + w.max_new)
-                                                                 // w.page_size)))
-    out["wire_per_step_4x"] = _one_decode_wire(big, w, prompts[0])
+    if w.kv_mode == "ring":
+        big = scheduler(w, model, mesh, max_seq=2 * w.seq)
+    else:
+        big = scheduler(w, model, mesh, kv_pages=4 * (w.n_slots * -(-w.seq // w.page_size)))
+    out["wire_per_step_big"] = _one_decode_wire(big, w, prompts[0])
     out["pool_bytes_4x"] = big.pool_bytes()
     del big
     if mesh_matched:
-        out["matched_tokens"] = drive(scheduler(w, model, mesh), w, prompts,
-                                      one_at_a_time=True)["tokens"]
+        out["matched_tokens"] = (
+            sched_ref(w, model, mesh, run["completions"]) if w.soup is not None else
+            drive(scheduler(w, model, mesh), w, prompts, one_at_a_time=True)["tokens"])
     if device == "cuda":
         out["peak_bytes"] = torch.cuda.max_memory_allocated()
     return out
@@ -261,12 +567,23 @@ def serve_rank_jobs(mesh, jobs: Sequence[tuple]) -> list:
 
 
 def run_single(w: Workload, device, model=None) -> Dict[str, Any]:
-    """The workload on ``mesh=None`` in this process (:func:`drive`'s result
-    and the pool's bytes), on ``model`` or a fresh one."""
+    """The workload on ``mesh=None`` in this process (:func:`drive`'s or
+    :func:`event_soup`'s result, the pool's and rings' bytes, and the
+    storage journal and blobs), on ``model`` or a fresh one."""
     model = build(w, device) if model is None else model
-    sched = scheduler(w, model)
-    single = drive(sched, w, w.prompts(model.cfg.vocab))
+    store = RecordingStore()
+    sched = scheduler(w, model, blob_store=store)
+    if w.soup is not None:
+        single = event_soup(sched, w, model.cfg.vocab)
+        single["tokens"] = {c[1]: c[4] for c in single["completions"]}
+        single["steps"] = sched.steps
+    else:
+        single = drive(sched, w, w.prompts(model.cfg.vocab))
     single["pool_bytes"] = sched.pool_bytes()
+    single["ring_bytes"] = sched.held_bytes(("k", "v"))
+    single["state_bytes"] = sched.held_bytes(("ssm",))
+    single["blobs"] = store.history
+    single["journal"] = store.ops
     return single
 
 
@@ -276,34 +593,79 @@ def verdicts(w: Workload, single: Dict[str, Any], ranks: Sequence[Dict[str, Any]
     inputs and verdicts in one dict (``ok`` is their conjunction)."""
     r0 = ranks[0]
     res: Dict[str, Any] = {
-        "arch": w.arch, "backend": w.attn_backend, "mesh": f"{dp}x{mp}", "device": device,
-        "requests": w.n_requests, "prompt_len": w.prompt_len, "max_new": w.max_new,
-        "single_steps": single["steps"], "sharded_steps": r0["steps"],
+        "arch": w.arch, "backend": w.attn_backend if w.kv_mode == "paged" else "gather",
+        "kv_mode": w.kv_mode, "mesh": f"{dp}x{mp}",
+        "device": device, "requests": len(r0["tokens"]), "prompt_len": w.prompt_len,
+        "max_new": w.max_new, "single_steps": single["steps"], "sharded_steps": r0["steps"],
         "single_step_ms": _median(single["step_ms"]),
         "sharded_step_ms": [_median(r["step_ms"]) for r in ranks],
         "sharded_tok_s": [r["decode_tokens"] / r["wall_s"] for r in ranks],
         "ranks_agree": all(r["tokens"] == r0["tokens"] for r in ranks),
-        "pool": r0["pool"],
+        "pool": r0["pool"], "ring": r0["ring"], "ssm": r0["ssm"],
         "pool_bytes_single": single.get("pool_bytes"),
         "pool_bytes_rank": [r["pool_bytes"] for r in ranks],
+        "ring_bytes_single": single.get("ring_bytes"),
+        "ring_bytes_rank": [r["ring_bytes"] for r in ranks],
+        "ring_scratch_bytes_rank": [r["ring_scratch_bytes"] for r in ranks],
+        "state_bytes_single": single.get("state_bytes"),
+        "state_bytes_rank": [r["state_bytes"] for r in ranks],
         "wire_per_step": [r["wire_per_step"] for r in ranks],
-        "wire_per_step_4x": [r["wire_per_step_4x"] for r in ranks],
+        "wire_per_step_big": [r["wire_per_step_big"] for r in ranks],
+        "chunk_wire": [r["chunk_wire"] for r in ranks],
+        "wire_ms_per_step": [_median(r["wire_ms"]) for r in ranks],
+        "wire_ms_per_chunk": [_median(r["chunk_wire_ms"]) for r in ranks],
+        "sharded_chunk_ms": [_median(r["chunk_ms"]) for r in ranks],
+        "row_wire_bytes": [r["row_wire_bytes"] for r in ranks],
+        "page_wire_bytes": [r["page_wire_bytes"] for r in ranks],
+        "kv_share_bytes": [r["kv_share_bytes"] for r in ranks],
         "peak_bytes": [r.get("peak_bytes") for r in ranks],
         "launches_by_rank": [r["launches"] for r in ranks],
+        "ssd_launches_by_kind": [r["ssd_launches_by_kind"] for r in ranks],
         "decode_steps": [r["decode_steps"] for r in ranks],
         "chunks_run": [r["chunks_run"] for r in ranks],
     }
     res["identical_outputs"] = r0["tokens"] == single["tokens"]
     if mesh_matched:
         res["matched_identical"] = all(r["matched_tokens"] == r["tokens"] for r in ranks)
-    res["pool_split"] = all(r["pool_bytes"] * mp == single["pool_bytes"] for r in ranks)
+    # each rank holds 1/mp of every leaf the model axis splits (a T-split
+    # ring's scratch lane aside), and the rings and the SSD state of its
+    # data group's slots alone where the slots split over data
+    split = [("pool_bytes", "pool_split", None), ("ring_bytes", "ring_split", "ring_scratch_bytes"),
+             ("state_bytes", "state_split", None)]
+    checks = [res["ranks_agree"]]
+    for key, verdict, extra in split:
+        if single.get(key):
+            res[verdict] = all(
+                (r[key] - (r[extra] if extra else 0)) * mp
+                * (dp if r["slot_split"] and key != "pool_bytes" else 1) == single[key]
+                for r in ranks)
+            checks.append(res[verdict])
     res["wire_flat"] = all(len(r["wire_per_step"]) == 1
-                           and r["wire_per_step"][0] == r["wire_per_step_4x"]
+                           and r["wire_per_step"][0] == r["wire_per_step_big"]
                            for r in ranks)
+    checks.append(res["wire_flat"])
+    if w.soup is not None:
+        # the page moves (preemption, restore, parked offload, CoW) send
+        # nothing; every rank bills what mesh=None bills; and each rank's
+        # blobs are its shard of mesh=None's, where the tokens agree
+        res["preempt_wire"] = [sum(r["preempt_wire"]) for r in ranks]
+        res["pages_move_no_bytes"] = all(r["page_wire_bytes"] == 0 == sum(r["preempt_wire"])
+                                         for r in ranks)
+        res["journals_equal"] = all(r["journal"] == single["journal"] for r in ranks)
+        res["blobs"] = len(single["blobs"])
+        if res["identical_outputs"]:
+            res.update(blob_agreement(ranks, single))
+        for key in ("preempt_ms", "restore_ms"):
+            res[f"single_{key}"] = _median(single[key])
+            res[f"sharded_{key}"] = [_median(r[key]) for r in ranks]
+        res["stats"] = r0["stats"]
+        res["single_stats"] = single["stats"]
+        res["completions"] = r0["completions"]
+        checks += [res["pages_move_no_bytes"], res["journals_equal"]]
     res["tokens_single"] = single["tokens"]
     res["tokens_sharded"] = r0["tokens"]
-    res["ok"] = all([res["ranks_agree"], res["wire_flat"], res["pool_split"],
-                     res["matched_identical"] if mesh_matched else res["identical_outputs"]])
+    checks.append(res["matched_identical"] if mesh_matched else res["identical_outputs"])
+    res["ok"] = all(checks)
     return res
 
 
@@ -346,6 +708,8 @@ def main() -> None:
                     help="lanes a page: the model axis dividing it splits lanes, else kv heads")
     ap.add_argument("--mesh-matched", action="store_true",
                     help="hold the mesh run against itself one request at a time")
+    ap.add_argument("--kv-mode", default="paged", choices=["paged", "ring"],
+                    help="the shared page pool (default) or per-slot rings")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     try:
@@ -357,13 +721,15 @@ def main() -> None:
     w = Workload(arch=args.arch, reduced=not args.full_width, n_layers=args.layers,
                  attn_backend=args.attn_backend, n_requests=args.requests,
                  sessions=args.sessions, prompt_len=args.prompt_len, max_new=args.max_new,
-                 page_size=args.page_size)
+                 page_size=args.page_size, kv_mode=args.kv_mode)
     res = run_smoke(w, dp=dp, mp=mp, device=args.device, mesh_matched=args.mesh_matched)[0]
+    big = "2x max_seq" if args.kv_mode == "ring" else "4x pool"
     print(f"{res['arch']} [{res['backend']}] on {res['device']}: mesh=None "
           f"{res['single_step_ms']} ms/step vs {res['mesh']} {res['sharded_step_ms']} ms/step; "
           f"pool {res['pool']}, rank pool bytes {res['pool_bytes_rank']} of "
-          f"{res['pool_bytes_single']}; collective bytes per decode step "
-          f"{res['wire_per_step']} (4x pool {res['wire_per_step_4x']}); "
+          f"{res['pool_bytes_single']}; ring {res['ring']}, rank ring bytes "
+          f"{res['ring_bytes_rank']} of {res['ring_bytes_single']}; collective bytes per "
+          f"decode step {res['wire_per_step']} ({big} {res['wire_per_step_big']}); "
           f"identical_outputs={res['identical_outputs']}"
           + (f" matched_identical={res['matched_identical']}" if args.mesh_matched else ""))
     if args.out:

@@ -54,7 +54,10 @@ stay global.  :func:`cache_update_layer` writes only the rank's lanes (the
 others go to the scratch page, still without a host sync) or heads;
 :func:`paged_attn_decode` runs the kernel per shard and merges across ranks;
 :func:`attend_cache` assembles a chunk's attention over the shards in
-plain torch.
+plain torch.  Split rings (a :class:`~repro_torch.dist.sharding.RingShard`)
+hold kv heads ``[lo, hi)``, or ring lanes ``[lo, hi)`` of the global T plus
+one scratch lane, with ``positions`` split as ``k``/``v`` are; the same
+three functions serve them, with T and the lanes always the global ones.
 
 Pages are refcounted (:class:`PageAllocator`): a page may be mapped by
 several slots, published in the :class:`PrefixIndex` and retained by a
@@ -122,6 +125,13 @@ def _pool_shard():
     return pool if pool is not None and pool.split else None
 
 
+def _ring_shard():
+    """This rank's slice of split rings (head or T shard) from the active
+    sharding policy, or None."""
+    ring = getattr(current_policy(), "ring", None)
+    return ring if ring is not None and ring.split else None
+
+
 def _page_size(layer_cache: Dict) -> int:
     """The pool's page size (the global one when this rank holds a lane
     shard)."""
@@ -131,10 +141,11 @@ def _page_size(layer_cache: Dict) -> int:
 
 def cache_capacity(layer_cache: Dict) -> int:
     """Token capacity of one row of a layer cache (ring T, or the page
-    table's logical span for the pool)."""
+    table's logical span for the pool; the global ones on a shard)."""
     if is_paged(layer_cache):
         return layer_cache["page_table"].shape[-1] * _page_size(layer_cache)
-    return layer_cache["k"].shape[-3]
+    shard = _ring_shard()
+    return shard.T if shard is not None else layer_cache["k"].shape[-3]
 
 
 def cache_update_layer(layer_cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -144,11 +155,16 @@ def cache_update_layer(layer_cache: Dict, k_new: torch.Tensor, v_new: torch.Tens
     One layer's cache: ring ``k``/``v`` (B, T, Hkv, D) + ``positions``
     (B, T), or pool ``kp``/``vp`` (n_pages, page_size, Hkv, D) +
     ``page_table``.  k_new/v_new: (B, S, Hkv, D); ``pos`` scalar or (B,).
+    On a ring shard (a :class:`~repro_torch.dist.sharding.RingShard` in the
+    active policy) the lanes are the global ring's: a head shard writes its
+    kv heads, a T shard the tokens whose lane ``abs_pos % T`` it holds, the
+    others into its scratch lane, without a host sync.
     """
     if is_paged(layer_cache):
         return _paged_update_layer(layer_cache, k_new, v_new, pos)
     k, v, positions = layer_cache["k"], layer_cache["v"], layer_cache["positions"]
-    T = k.shape[1]
+    shard = _ring_shard()
+    T = shard.T if shard is not None else k.shape[1]
     B, S = k_new.shape[0], k_new.shape[1]
     pos = pos.to(torch.int32)
     if S > T:
@@ -161,6 +177,15 @@ def cache_update_layer(layer_cache: Dict, k_new: torch.Tensor, v_new: torch.Tens
         pos = pos.expand(B)
     abs_pos = pos[:, None] + torch.arange(S, dtype=torch.int32, device=pos.device)
     slots = (abs_pos % T).long()
+    if shard is not None and shard.mode == "head":
+        lo, hi = shard.heads()
+        k_new, v_new = k_new[:, :, lo:hi], v_new[:, :, lo:hi]
+    elif shard is not None:
+        # S <= T here, so each lane takes at most one token; the lanes of
+        # other shards all go to the scratch lane past this shard's own
+        lo, hi = shard.lanes()
+        own = (slots >= lo) & (slots < hi)
+        slots = torch.where(own, slots - lo, hi - lo)
     b = torch.arange(B, device=pos.device)[:, None]
     k[b, slots] = k_new.to(k.dtype)
     v[b, slots] = v_new.to(v.dtype)
@@ -206,17 +231,21 @@ def cache_kv_view(layer_cache: Dict, upto: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(k, v, kv_positions, kv_valid) for :func:`layers.sdpa`.
 
-    The ring is read directly (``positions`` doubles as the validity mask).
-    The pool is gathered in logical page order; ``upto`` (scalar or (B,)
-    live length) is required there — lanes at or past it, and lanes on
-    unmapped pages, are masked invalid.
+    The ring is read directly (``positions`` doubles as the validity mask;
+    a T shard's scratch lane is left out).  The pool is gathered in logical
+    page order; ``upto`` (scalar or (B,) live length) is required there —
+    lanes at or past it, and lanes on unmapped pages, are masked invalid.
     """
     if is_paged(layer_cache):
         if upto is None:
             raise ValueError("paged cache view needs `upto` (the live length)")
         return _paged_kv_view(layer_cache, upto)
-    pos = layer_cache["positions"]
-    return layer_cache["k"], layer_cache["v"], pos, pos >= 0
+    k, v, pos = layer_cache["k"], layer_cache["v"], layer_cache["positions"]
+    shard = _ring_shard()
+    if shard is not None and shard.scratch:
+        n = k.shape[1] - shard.scratch
+        k, v, pos = k[:, :n], v[:, :n], pos[:, :n]
+    return k, v, pos, pos >= 0
 
 
 def _paged_kv_view(layer_cache: Dict, upto: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -251,17 +280,18 @@ def attend_cache(layer_cache: Dict, q: torch.Tensor, positions: torch.Tensor,
     cache's view up to ``upto`` (:func:`cache_kv_view` + :func:`layers.sdpa`:
     the chunk path, and S=1 decode on the ``gather`` backend).
 
-    On a split pool each rank sees a slice of the view, so the attention is
-    assembled across the ``model`` axis in plain torch (no kernel): a head
-    shard attends its own kv heads' queries and the heads are gathered (a
-    SUM of a zero-filled buffer); a lane shard computes its lanes' scores,
+    On a split pool or split rings each rank sees a slice of the view, so
+    the attention is assembled across the ``model`` axis in plain torch (no
+    kernel): a head shard attends its own kv heads' queries and the heads
+    are gathered (a SUM of a zero-filled buffer); a lane shard of the pool
+    or a T shard of the rings computes its lanes' scores,
     and the softmax is the fp32 running-max combine over shards (MAX of the
     row maxima, SUM of the exponentials) before the probabilities are
     rounded to the compute dtype, as :func:`layers.sdpa` rounds them, and
     the shards' P.V products are summed.  Equal to the unsharded call up to
     fp32 summation order."""
     ck, cv, kv_pos, kv_valid = cache_kv_view(layer_cache, upto=upto)
-    shard = _pool_shard() if is_paged(layer_cache) else None
+    shard = _pool_shard() if is_paged(layer_cache) else _ring_shard()
     if shard is None:
         return layers.sdpa(q, ck, cv, causal=True, window=window, q_positions=positions,
                            kv_positions=kv_pos, kv_valid=kv_valid)
@@ -738,12 +768,36 @@ def set_page_row(batch_cache: Dict, slot: int, row) -> Dict:
     return batch_cache
 
 
+def _own_slice(key: str, leaf: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of a per-slot ``leaf`` (slot axis 1) under the
+    active policy, where the leaf is whole (its split axis at the global
+    size): the ring shard's kv heads or lanes, the SSD state's heads.  A
+    leaf that is already this rank's part, and every other leaf, comes
+    back as it is."""
+    ring = _ring_shard()
+    if ring is not None and key in ("k", "v") and ring.mode == "head":
+        lo, hi = ring.heads()
+        return leaf[..., lo:hi, :] if leaf.shape[-2] == ring.n_kv_heads else leaf
+    if ring is not None and key in RING_KEYS and ring.mode == "seq":
+        lo, hi = ring.lanes()
+        return leaf[:, :, lo:hi] if leaf.shape[2] == ring.T else leaf
+    ssm = getattr(current_policy(), "ssm", None)
+    if key == "ssm" and ssm is not None and ssm.split:
+        lo, hi = ssm.heads()
+        return leaf[:, :, lo:hi] if leaf.shape[2] == ssm.n_heads else leaf
+    return leaf
+
+
 def cache_insert_slot(batch_cache: Dict, one_cache: Dict, slot) -> Dict:
     """Copy a B=1 cache into row ``slot`` (an int or a 0-d int64 device
     tensor): the slot's length, its whole ring rows (``k``, ``v``,
     ``positions``: a ring prefill-on-admit) and its recurrent rows.  The
     pool and the page-table row of a chunk step on a
-    :func:`cache_slot_view` were written through in place."""
+    :func:`cache_slot_view` were written through in place.  Under an
+    active policy that splits the rings or the SSD state, a leaf of
+    ``one_cache`` at the global size (a ring prefill run whole) gives
+    ``batch_cache``, this rank's part, its slice (an int ``slot`` only; a
+    T shard's scratch lane is left as it was)."""
     if isinstance(slot, torch.Tensor):
         idx = slot.reshape(1)
         batch_cache["length"].index_copy_(0, idx, one_cache["length"].reshape(1))
@@ -752,7 +806,11 @@ def cache_insert_slot(batch_cache: Dict, one_cache: Dict, slot) -> Dict:
         return batch_cache
     batch_cache["length"][slot] = one_cache["length"].reshape(())
     for key in _per_slot(batch_cache):
-        batch_cache[key][:, slot] = one_cache[key][:, 0]
+        src = _own_slice(key, one_cache[key])[:, 0]
+        dst = batch_cache[key][:, slot]
+        if key in RING_KEYS:
+            dst = dst.narrow(1, 0, src.shape[1])
+        dst.copy_(src)
     return batch_cache
 
 
@@ -835,7 +893,9 @@ def gather_slot_state(cache: Dict, slot: int) -> Dict[str, torch.Tensor]:
     (and ring rows in ring mode) — everything but the shared pool and the
     page table, which the scheduler mirrors on the host.  A copy, on the
     cache's device; :func:`scatter_slot_state` is its exact inverse into
-    any slot."""
+    any slot.  ``slot`` is a row of ``cache`` as this rank holds it (under
+    a mesh, its local row; a head-split ``ssm`` snapshots this rank's
+    heads)."""
     idx = torch.tensor([slot], device=cache["length"].device)
     out = {"length": cache["length"].index_select(0, idx)}
     for key in _per_slot(cache):
@@ -859,10 +919,13 @@ def slice_page_blob(blob: Dict, lo: int, hi: int) -> Dict[str, torch.Tensor]:
     return {key: leaf[:, lo:hi] for key, leaf in blob.items()}
 
 
-def blob_nbytes(blob: Dict) -> int:
+def blob_nbytes(blob: Dict, pool_split: int = 1) -> int:
     """Payload size of a page blob or a row snapshot (drives the storage
-    billing)."""
-    return sum(leaf.numel() * leaf.element_size() for leaf in blob.values())
+    billing).  ``pool_split``: the blob's pool leaves are this rank's
+    ``1/pool_split`` of the pool (a lane or head shard), and the size billed
+    is the whole blob's, so every rank bills what ``mesh=None`` bills."""
+    return sum(leaf.numel() * leaf.element_size() * (pool_split if key in POOL_KEYS else 1)
+               for key, leaf in blob.items())
 
 
 def to_host(blob: Dict) -> Dict[str, torch.Tensor]:

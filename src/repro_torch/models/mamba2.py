@@ -23,6 +23,15 @@ no K/V (``n_kv_layers == 0``)::
 
 A decode step returns **new** ``ssm``/``conv`` tensors, so the scheduler
 can restore the rows of inactive slots (:func:`kvcache.mask_slot_rows`).
+
+Under a sharding policy whose :class:`~repro_torch.dist.sharding.SSMShard`
+splits the heads (the scheduler's ``mesh=`` mode), each rank's ``ssm``
+holds its heads of the state: the input projection, the conv and its tail
+run whole on every rank of the ``model`` axis, the scan and the ``D`` skip
+run on the rank's heads (``ssd_scan_shard``), and ``y`` is gathered over
+``model`` as a SUM of a zero-filled buffer in y's dtype (exact: one rank
+writes each element) before the gate, the norm and the output projection,
+which see the whole of it.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.sharding import current_policy
 from . import layers
 from .config import ArchConfig
 from .layers import cast
@@ -94,8 +104,10 @@ def mamba_mix(p, cfg: ArchConfig, x: torch.Tensor, state: Optional[Dict] = None
     fp32, 'conv': (B, K-1, d_xbc)}`` given: a continuation (S=1 decode, or
     a chunk of chunked prefill) from that state, and the state it leaves is
     returned as new tensors (the given one is not written); None: a
-    full-sequence forward from a zero state, which returns no state."""
-    from ..kernels.ssd_scan import ssd_scan
+    full-sequence forward from a zero state, which returns no state.  A
+    continuation under a policy that splits the state's heads takes and
+    returns this rank's heads of ``ssm``."""
+    from ..kernels.ssd_scan import ssd_scan, ssd_scan_shard
 
     s, di, nh, d_xbc = _dims(cfg)
     B, L, _ = x.shape
@@ -108,11 +120,22 @@ def mamba_mix(p, cfg: ArchConfig, x: torch.Tensor, state: Optional[Dict] = None
     xh = xs.reshape(B, L, nh, s.head_dim)
     dtp = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
-    y, h_final = ssd_scan(xh, dtp, A, Bm, Cm, state["ssm"] if continuing else None,
-                          chunk=s.chunk)
+    policy = current_policy()
+    shard = getattr(policy, "ssm", None)
+    if continuing and shard is not None and shard.split:
+        lo, hi = shard.heads()
+        ys, h_final = ssd_scan_shard(xh, dtp, A, Bm, Cm, state["ssm"], shard=shard.index,
+                                     n_shards=shard.count, chunk=s.chunk)
+        ys = ys + xh[:, :, lo:hi] * p["D"].float()[lo:hi].to(ys.dtype)[None, None, :, None]
+        y = torch.zeros((B, L, nh, s.head_dim), dtype=ys.dtype, device=x.device)
+        y[:, :, lo:hi] = ys
+        y = policy.all_reduce(y, "sum")
+    else:
+        y, h_final = ssd_scan(xh, dtp, A, Bm, Cm, state["ssm"] if continuing else None,
+                              chunk=s.chunk)
+        y = y + xh * p["D"].float().to(y.dtype)[None, None, :, None]
     new_state = {"conv": tail, "ssm": h_final} if continuing else None
 
-    y = y + xh * p["D"].float().to(y.dtype)[None, None, :, None]
     y = y.reshape(B, L, di) * F.silu(z)
     yf = y.float()  # grouped RMSNorm (one group)
     y = (yf * torch.rsqrt(yf.square().mean(-1, keepdim=True) + 1e-6)

@@ -4,11 +4,11 @@ draft-and-verify speculative decoding (the draft's S=1 step, its batched
 catch-up and the target's verify chunk).  Every step writes into the
 caches and buffers it is given, so a CUDA graph can replay it.
 
-The chunk factory takes ``policy``, a
+The chunk and offload factories take ``policy``, a
 :class:`repro_torch.dist.sharding.ShardingPolicy` installed around every
 call of the step (the reference's ``_policy_scope``), so the cache's split
-pool is read and written per shard (the scheduler's ``mesh=`` mode; its
-decode step installs the policy itself).  None installs nothing, and an
+pool, rings and SSD state are read and written per shard (the scheduler's
+``mesh=`` mode; its decode step installs the policy itself).  None installs nothing, and an
 outer policy stays in force."""
 
 from __future__ import annotations
@@ -164,7 +164,7 @@ def make_spec_verify_step(model, *, max_seq: int) -> Callable:
     return verify
 
 
-def make_offload_steps() -> tuple:
+def make_offload_steps(*, policy=None) -> tuple:
     """The staging steps of storage-backed preemption and parked-session
     offload, ``(extract, inject)``.
 
@@ -173,16 +173,29 @@ def make_offload_steps() -> tuple:
     puts in the object store is a dict of CPU tensors, so an offload frees
     device memory.  ``inject(cache, page_ids, blob)`` writes a blob (or a
     chunk of one) back onto freshly allocated pages, in place.  Both are
-    plain calls: the reference jits them, and its mesh variant runs them
-    under ``shard_map``; offload under a mesh is ROADMAP 1.8b-ii, and the
-    scheduler refuses it there.
+    plain calls (the reference jits them).
+
+    With a ``policy`` (the scheduler's ``mesh=`` mode) both run under it,
+    on this rank's part of the pool, as the reference's ``shard_map``
+    variant does: the page axis is never split, so a page's take and
+    scatter are local to each lane or head shard; the blob holds this
+    rank's lanes or heads of each page (the layout
+    :func:`~repro_torch.dist.sharding.offload_stage_shardings` gives the
+    staging buffer), no collective runs, and an inject of a blob whose
+    page shape is not the local pool's raises.
     """
 
     def extract(cache, page_ids):
-        return kvcache.to_host(kvcache.gather_pages(cache, page_ids))
+        with _policy_scope(policy):
+            return kvcache.to_host(kvcache.gather_pages(cache, page_ids))
 
     def inject(cache, page_ids, blob) -> None:
-        kvcache.scatter_pages(cache, page_ids, blob)
+        with _policy_scope(policy):
+            for key, src in blob.items():
+                if policy is not None and src.shape[2:] != cache[key].shape[2:]:
+                    raise ValueError(f"{key} blob of page shape {tuple(src.shape[2:])} is not "
+                                     f"this rank's shard {tuple(cache[key].shape[2:])}")
+            kvcache.scatter_pages(cache, page_ids, blob)
 
     return extract, inject
 

@@ -141,21 +141,36 @@ worker's pool in place (the graphs read the pool they captured).
 **Mesh mode** (``mesh=`` a ``(data, model)`` ``DeviceMesh`` over the live
 process group, ``launch/mesh.make_smoke_mesh``): explicit SPMD.  Every rank
 is one process that runs this same host logic on the same submits and holds
-plain local tensors.  The pool is placed by
-:func:`repro_torch.dist.sharding.cache_shardings` (lanes of every page on
-``model``, else kv heads; replicated over ``data``), so each rank holds
-``1/|model|`` of it; page tables, lengths and recurrent rows are placed by
-slot on ``data`` when ``n_slots`` divides, else replicated.  A decode step
-runs the rank's slot rows (dense compute replicated over ``model``; the
-paged kernel per lane or head shard, the softmax states merged across
-``model`` by ``all_reduce``) and shares the next tokens over ``data``, so
-every rank's host state stays identical; a chunk runs on every rank of the
-owning slot's ``model`` group and its first token is shared the same way.
-The steps run under the policy's scope (:func:`..dist.sharding.
-activation_sharding`) and eagerly: a collective cannot be captured in a
-CUDA graph.  Refused under a mesh, until ROADMAP 1.8b-ii: ring mode, the
-SSM family, offload, prefix sharing, parking and speculation; the MoE
-family until 1.8c.
+plain local tensors, placed by
+:func:`repro_torch.dist.sharding.serving_cache_specs`: the pool's lanes of
+every page on ``model``, else its kv heads (replicated over ``data``); the
+rings' kv heads on ``model``, else their T axis (each rank keeps one
+scratch lane past its own); the SSD state's heads on ``model``; page
+tables, lengths, the rings, the SSD state and the recurrent rows by slot on
+``data`` when ``n_slots`` divides, else replicated.  So each rank holds
+``1/|model|`` of the pool, the rings and the SSD state, and the conv tails
+and RG-LRU state of its slots whole.  A decode step runs the rank's slot
+rows (dense compute replicated over ``model``; the paged kernel per lane
+or head shard, or a ring shard's scores, the softmax states merged across
+``model`` by ``all_reduce``; the SSD scan per head shard, its output
+gathered over ``model``) and shares the next tokens over ``data``, so
+every rank's host state stays identical.  A chunk, or ring mode's
+monolithic prefill, runs on every rank of the owning slot's ``model``
+group and its first token is shared the same way; the ring prefill runs
+whole (the flash kernel at 4096 tokens or more, replicated over
+``model``) and each rank keeps its slice of the ring.  The page moves of
+offload, sharing and parking run on every rank, each on its own part of
+the pool, with no collective: a blob is this rank's lanes or heads of its
+pages (each rank's blob store holds its own, under the same key), billed
+at the whole blob's size.  A slot's rows (length and recurrent state,
+snapshot when a parked slot is reclaimed) move over ``data`` as a SUM of a
+zero-filled buffer, so a session may come back in a slot another data
+group holds.  The steps run under the policy's scope
+(:func:`..dist.sharding.activation_sharding`) and eagerly: a collective
+cannot be captured in a CUDA graph.  Refused under a mesh: speculation,
+the fleet's cross-worker hand-over (``externalize_session``,
+``adopt_parked``, ``adopt_index_journal`` and ``index_journal=True``: a
+blob is per shard here) until ROADMAP 1.8b-iii, the MoE family until 1.8c.
 """
 
 from __future__ import annotations
@@ -246,19 +261,17 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet")
 
 
-def _mesh_refusals(model, *, kv_mode, offload, prefix_sharing, park_sessions, draft_model,
-                   spec_k) -> List[str]:
+def _mesh_refusal(what: str):
+    return _not_ported(f"{what} under mesh=, ROADMAP 1.8b-iii")
+
+
+def _mesh_refusals(model, *, index_journal, draft_model, spec_k) -> List[str]:
     """What ``mesh=`` cannot serve yet, each with the ROADMAP item that
     ports it."""
-    family = model.cfg.family
     return [f"{what} under mesh=, ROADMAP {item}" for what, item, refused in (
-        ("kv_mode='ring'", "1.8b-ii", kv_mode == "ring"),
-        ("the SSM family", "1.8b-ii", family == "ssm"),
-        ("the MoE family", "1.8c", family == "moe"),
-        ("offload", "1.8b-ii", offload),
-        ("prefix_sharing", "1.8b-ii", prefix_sharing),
-        ("park_sessions", "1.8b-ii", park_sessions),
-        ("speculative decoding (spec_k > 0)", "1.8b-ii",
+        ("the MoE family", "1.8c", model.cfg.family == "moe"),
+        ("index_journal=True", "1.8b-iii", index_journal),
+        ("speculative decoding (spec_k > 0)", "1.8b-iii",
          draft_model is not None and spec_k > 0)) if refused]
 
 
@@ -287,10 +300,8 @@ class DecodeScheduler:
         if kv_mode not in ("paged", "ring"):
             raise ValueError(f"kv_mode must be 'paged' or 'ring', got {kv_mode!r}")
         if mesh is not None:
-            refused = _mesh_refusals(model, kv_mode=kv_mode, offload=offload,
-                                     prefix_sharing=prefix_sharing,
-                                     park_sessions=park_sessions, draft_model=draft_model,
-                                     spec_k=spec_k)
+            refused = _mesh_refusals(model, index_journal=index_journal,
+                                     draft_model=draft_model, spec_k=spec_k)
             if refused:
                 raise _not_ported(refused[0])
             if not isinstance(mesh, DeviceMesh):
@@ -393,22 +404,37 @@ class DecodeScheduler:
         self._rows: Optional[slice] = None     # this rank's slot rows (mesh mode)
         self._slot_split = False               # slots placed on data (mesh mode)
         self.last_step_wire_bytes = 0          # collective bytes of the last decode step
-        self.chunks_run = 0                    # prefill chunks this rank ran (mesh mode)
-        if kv_mode == "paged":
-            if mesh is None:
-                self.cache = kvcache.paged_cache(model, n_slots, page_size=page_size,
-                                                 n_pages=self.n_pages,
-                                                 max_pages=self.max_pages)
-            else:
-                self.cache = self._place_cache(model, mesh)
-                self._check_same_weights(model)
-            self._chunk = make_chunk_step(model, policy=self._policy)
+        self.last_step_wire_ms = 0.0           # ... and their host ms
+        self.last_chunk_wire_bytes = 0         # ... of the last chunk this rank ran
+        self.last_chunk_wire_ms = 0.0
+        self.chunks_run = 0                    # prefill chunks (or ring prefills) this rank ran
+        self.row_wire_bytes = 0                # collective bytes of slot-row moves (mesh mode)
+        self.page_wire_bytes = 0               # ... of page moves: none by design
+        self.kv_share_bytes = 0                # ... of written K/V shared over data
+        if mesh is not None:
+            self.cache = self._place_cache(model, mesh)
+            self._check_same_weights(model)
+        elif kv_mode == "paged":
+            self.cache = kvcache.paged_cache(model, n_slots, page_size=page_size,
+                                             n_pages=self.n_pages, max_pages=self.max_pages)
         else:
             self.cache = kvcache.batched_cache(model, n_slots, max_seq)
+        if kv_mode == "paged":
+            self._chunk = make_chunk_step(model, policy=self._policy)
+        # where slots split over data, a data group computes (and writes the
+        # K/V of) its own slots alone; once pages can be read or stored
+        # outside the slot that wrote them, every write is shared over data,
+        # so each data group's copy of the pool holds every page
+        self._share_kv = (mesh is not None and self._slot_split and paged_kv
+                          and (self.offload or self.prefix_sharing or self.park_sessions))
 
         # -- offload plumbing ------------------------------------------------
         self.blob_store = blob_store if blob_store is not None else PageBlobStore()
-        self._extract, self._inject = make_offload_steps()
+        self._extract, self._inject = make_offload_steps(policy=self._policy)
+        # billed blob size: a lane or head shard holds 1/count of each page
+        self._pool_split = (self._policy.pool.count
+                            if self._policy is not None and self._policy.pool is not None
+                            and self._policy.pool.split else 1)
         # restore chunking mirrors prefill chunking: a restore step moves
         # about one prefill chunk's worth of tokens (>= 1 page)
         self._restore_chunk_pages = (max(1, prefill_chunk // page_size)
@@ -461,11 +487,11 @@ class DecodeScheduler:
 
     # -- mesh mode -----------------------------------------------------------------
 
-    def _build_policy(self, model, mesh, pool) -> sharding.ShardingPolicy:
+    def _build_policy(self, model, mesh, pool, ring, ssm) -> sharding.ShardingPolicy:
         """ShardingPolicy for one model on the live mesh: slots on dp when
         they divide, heads on model when the kv-head count divides (else the
         seq fallback), the per-shard paged kernel for the fused backend, and
-        this rank's slice of the pool."""
+        this rank's slices of the pool, the rings and the SSD state."""
         rules = sharding.MeshRules.for_mesh(mesh)
         msize = rules.model_size(mesh)
         cfg = model.cfg
@@ -476,37 +502,47 @@ class DecodeScheduler:
             attn_mode="head" if n_kv % msize == 0 else "seq",
             decode_stationary=True,
             shard_map_pool=self.attn_backend == "paged_kernel",
-            pool=pool)
+            pool=pool, ring=ring, ssm=ssm)
 
     def _place_cache(self, model, mesh) -> Dict[str, torch.Tensor]:
-        """This rank's part of the paged cache, by
+        """This rank's part of the cache (paged or rings), by
         :func:`~repro_torch.dist.sharding.serving_cache_specs`: the global
-        cache is laid out on the meta device (its recurrent rows, which are
-        small, on the card) and each leaf allocated at its local shape, so
-        no rank ever holds the whole pool.  Builds the policy and this
-        rank's slot rows."""
+        cache's shapes are laid out on fake tensors (nothing allocated) and
+        each leaf allocated at its local shape, so no rank ever holds the
+        whole pool, rings or SSD state; a T-split ring gets its scratch lane.
+        Builds the policy and this rank's slot rows."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
         rules = sharding.MeshRules.for_mesh(mesh)
         if rules.axis_names != ("data", "model"):
             raise ValueError(f"the scheduler takes a ('data', 'model') mesh, got "
                              f"{rules.axis_names}")
-        glob = kvcache.paged_cache(model, self.n_slots, page_size=self.page_size,
-                                   n_pages=self.n_pages, max_pages=self.max_pages,
-                                   device="meta")
-        pool = (sharding.PoolShard.for_pool(sharding.cache_shardings(
-            {"kp": glob["kp"]}, mesh)["kp"], tuple(glob["kp"].shape), mesh)
-            if "kp" in glob else None)
-        self._policy = self._build_policy(model, mesh, pool)
+        with FakeTensorMode():
+            if self.kv_mode == "paged":
+                glob = kvcache.paged_cache(model, self.n_slots, page_size=self.page_size,
+                                           n_pages=self.n_pages, max_pages=self.max_pages)
+            else:
+                glob = kvcache.batched_cache(model, self.n_slots, self.max_seq)
+        shapes = {key: tuple(leaf.shape) for key, leaf in glob.items()}
+        placed = sharding.cache_shardings({k: glob[k] for k in ("kp", "k", "ssm") if k in glob},
+                                          mesh)
+        pool = (sharding.PoolShard.for_pool(placed["kp"], shapes["kp"], mesh)
+                if "kp" in glob else None)
+        ring = (sharding.RingShard.for_ring(placed["k"], shapes["k"], mesh)
+                if "k" in glob else None)
+        ssm = (sharding.SSMShard.for_state(placed["ssm"], shapes["ssm"], mesh)
+               if "ssm" in glob else None)
+        self._policy = self._build_policy(model, mesh, pool, ring, ssm)
         specs = sharding.serving_cache_specs(glob, mesh,
                                              batch_shardable=self._policy.batch_shardable)
         cache = {}
         for key, leaf in glob.items():
-            if leaf.is_meta:
-                shape = sharding.local_shard(torch.empty(leaf.shape, device="meta"),
-                                             specs[key], mesh).shape
-                cache[key] = torch.full(shape, -1 if key == "page_table" else 0,
-                                        dtype=leaf.dtype, device=self.device)
-            else:
-                cache[key] = sharding.local_shard(leaf, specs[key], mesh)
+            shape = list(sharding.local_shard(torch.empty(shapes[key], device="meta"),
+                                              specs[key], mesh).shape)
+            if key in kvcache.RING_KEYS and ring.scratch:
+                shape[2] += ring.scratch
+            fill = -1 if key in ("page_table", "positions") else 0
+            cache[key] = torch.full(shape, fill, dtype=leaf.dtype, device=self.device)
         rows = sharding.local_shard(torch.arange(self.n_slots), specs["length"], mesh)
         self._rows = slice(int(rows[0]), int(rows[-1]) + 1)
         self._slot_split = len(rows) < self.n_slots
@@ -546,6 +582,18 @@ class DecodeScheduler:
         if row is not None:
             kvcache.cache_clear_slot(self.cache, row)
 
+    def _set_length(self, slot: int, n: int) -> None:
+        row = self._local_row(slot)
+        if row is not None:
+            self.cache["length"][row] = n
+
+    def _put_rows(self, slot: int, state: Dict[str, torch.Tensor]) -> None:
+        """Install a row snapshot (:meth:`_snapshot_rows`) into ``slot``'s
+        rows, where this rank holds them."""
+        row = self._local_row(slot)
+        if row is not None:
+            kvcache.scatter_slot_state(self.cache, row, state)
+
     def _share_rows(self, local: torch.Tensor) -> torch.Tensor:
         """The (n_slots,) tokens of every slot from this rank's rows: a SUM
         over ``data`` of a zero-filled buffer each data group writes its rows
@@ -557,11 +605,23 @@ class DecodeScheduler:
         full[self._rows] = local
         return self._policy.all_reduce(full, "sum", axis="data")
 
+    def held_bytes(self, keys) -> int:
+        """Bytes of the cache leaves ``keys`` this process holds."""
+        return sum(self.cache[k].numel() * self.cache[k].element_size()
+                   for k in keys if k in self.cache)
+
     def pool_bytes(self) -> int:
         """Bytes of the pool this process holds (``1/|model|`` of the whole
         pool under a split mesh)."""
+        return self.held_bytes(kvcache.POOL_KEYS)
+
+    def ring_scratch_bytes(self) -> int:
+        """Bytes of the K/V scratch lanes of T-split rings (none otherwise)."""
+        ring = self._policy.ring if self._policy is not None else None
+        if ring is None or not ring.scratch:
+            return 0
         return sum(self.cache[k].numel() * self.cache[k].element_size()
-                   for k in kvcache.POOL_KEYS if k in self.cache)
+                   // self.cache[k].shape[2] * ring.scratch for k in ("k", "v"))
 
     def _init_spec(self, draft_model, temperature: float) -> None:
         """Refuse what speculative decoding cannot serve (the reference's
@@ -824,11 +884,19 @@ class DecodeScheduler:
             self._admit_paged(slot, req, plan)
             return
         # ring: one monolithic prefill into a fresh B=1 ring, copied whole
-        # into the slot's rows; the slot is ACTIVE when this returns
+        # into the slot's rows; the slot is ACTIVE when this returns.  Under
+        # a mesh the owning data group runs it whole (replicated over
+        # model) and each rank keeps its slice of the ring
         self._begin(slot, req)
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int32).reshape(1, -1))
-        logits, one = self.model.prefill(prompt.to(self.device), seq_len=self.max_seq)
-        kvcache.cache_insert_slot(self.cache, one, slot.index)
+        row = self._local_row(slot.index)
+        logits = None
+        if row is not None:
+            logits, one = self.model.prefill(prompt.to(self.device), seq_len=self.max_seq)
+            if self._mesh is not None:
+                self.chunks_run += 1
+            with sharding.activation_sharding(self._policy):
+                kvcache.cache_insert_slot(self.cache, one, row)
         slot.len = prompt.shape[1]
         self.prefill_tokens += prompt.shape[1]
         self._activate(slot, logits)
@@ -875,7 +943,7 @@ class DecodeScheduler:
                     rec.state = self._snapshot_rows(slot.index)
                     rec.slot = None
                 elif rec.state is not None:
-                    kvcache.scatter_slot_state(self.cache, slot.index, rec.state)
+                    self._put_rows(slot.index, rec.state)
                 self.park_hits += 1
             else:
                 # index pages carry KV only (index matches are gated to
@@ -883,7 +951,7 @@ class DecodeScheduler:
                 self.index_hits += 1
             # the snapshot's length is rec.consumed; rewind to the matched
             # span C (attention families may reuse less than consumed)
-            self.cache["length"][slot.index] = C
+            self._set_length(slot.index, C)
         elif plan.kind == "park-blob":
             # restore only the reused span of the journal's blob out of
             # this admission's own reservation; the record keeps its whole
@@ -897,10 +965,10 @@ class DecodeScheduler:
             blob = self.blob_store.get(rec.blob_key)
             if npg < len(rec.blob_pidx):
                 blob = kvcache.slice_page_blob(blob, 0, npg)
-            self._inject(self.cache, pids, blob)
-            kvcache.set_page_row(self.cache, slot.index, self._page_rows[slot.index])
-            kvcache.scatter_slot_state(self.cache, slot.index, rec.state)
-            self.cache["length"][slot.index] = C
+            self._page_move(self._inject, self.cache, pids, blob)
+            self._set_row(slot.index)
+            self._put_rows(slot.index, rec.state)
+            self._set_length(slot.index, C)
             self.park_hits += 1
         self.shared_prefix_tokens += C
         if C % self.page_size and slot.shared:
@@ -911,8 +979,72 @@ class DecodeScheduler:
             self._prepare_write_span(slot, C, 1)
 
     def _snapshot_rows(self, slot: int) -> Dict[str, torch.Tensor]:
-        """A host copy of one slot's rows (length, recurrent state)."""
-        return kvcache.to_host(kvcache.gather_slot_state(self.cache, slot))
+        """A host copy of one slot's rows (length, recurrent state; under a
+        mesh this rank's part of them, the SSD state's heads).  Where slots
+        are split over ``data``, the owning data group's rows reach every
+        rank as a SUM over ``data`` of a zero-filled buffer (counted in
+        ``row_wire_bytes``), so any data group can install them."""
+        row = self._local_row(slot)
+        if not self._slot_split:
+            return kvcache.to_host(kvcache.gather_slot_state(self.cache, row))
+        state = kvcache.gather_slot_state(self.cache, 0 if row is None else row)
+        wire = self._policy.wire
+        sent = wire.bytes
+        for key, leaf in state.items():
+            if row is None:
+                leaf.zero_()
+            self._policy.all_reduce(leaf, "sum", axis="data")
+        self.row_wire_bytes += wire.bytes - sent
+        return kvcache.to_host(state)
+
+    def _share_written(self, spans, pad_to: int = 0) -> None:
+        """Keep the pool replicated over ``data`` where slots are split
+        (``_share_kv``): the K/V the owning data group just wrote at the
+        positions of ``spans`` (``(slot, pos0, count)``) go into every other
+        data group's copy of the pool, as one SUM over ``data`` of a
+        zero-filled buffer of those pool cells (exact).  Each rank moves the
+        cells of its own lanes or heads; a position no page maps, or whose
+        lane another model shard holds, is a scratch cell, as are the
+        ``pad_to`` fillers that keep a decode step's bytes fixed."""
+        pool = self._policy.pool
+        lo, hi = pool.lanes() if pool is not None else (0, self.page_size)
+        cells, own = [], []
+        for slot, pos0, count in spans:
+            mine = self._local_row(slot) is not None
+            for pos in range(pos0, pos0 + count):
+                page, lane = divmod(pos, self.page_size)
+                pid = int(self._page_rows[slot, page]) if page < self.max_pages else -1
+                if pid >= 0 and lo <= lane < hi:
+                    cells.append((pid, lane - lo))
+                    own.append(mine)
+        while len(cells) < pad_to:
+            cells.append((self.n_pages, 0))
+            own.append(False)
+        if not cells:
+            return
+        pid, lane = (torch.tensor(c, dtype=torch.long, device=self.device) for c in zip(*cells))
+        keep = torch.tensor(own, device=self.device)[None, None, :, None, None]
+        kv = torch.stack([self.cache["kp"][:, pid, lane], self.cache["vp"][:, pid, lane]])
+        kv = torch.where(keep, kv, torch.zeros((), dtype=kv.dtype, device=self.device))
+        sent = self._policy.wire.bytes
+        self._policy.all_reduce(kv, "sum", axis="data")
+        self.kv_share_bytes += self._policy.wire.bytes - sent
+        self.cache["kp"][:, pid, lane] = kv[0]
+        self.cache["vp"][:, pid, lane] = kv[1]
+
+    def _page_move(self, fn, *args):
+        """``fn(*args)`` (a page extract, inject or copy), its collective
+        bytes (none by design: each rank moves its own part of the pool)
+        counted in ``page_wire_bytes``."""
+        if self._policy is None:
+            return fn(*args)
+        sent = self._policy.wire.bytes
+        out = fn(*args)
+        self.page_wire_bytes += self._policy.wire.bytes - sent
+        return out
+
+    def _blob_nbytes(self, blob) -> int:
+        return kvcache.blob_nbytes(blob, self._pool_split)
 
     def _begin(self, slot: Slot, req: _Request) -> None:
         """-> ADMITTING: bind the request and close its session's FIFO gate."""
@@ -1049,9 +1181,9 @@ class DecodeScheduler:
         if rec.slot is not None:
             self._evict_parked_slot(rec)
         npg = -(-rec.consumed // self.page_size)
-        blob = self._extract(self.cache, rec.page_row[:npg])
+        blob = self._page_move(self._extract, self.cache, rec.page_row[:npg])
         key = f"park/{self.blob_ns}{rec.session}/s{self.steps}"
-        self.blob_store.put(key, blob, kvcache.blob_nbytes(blob))
+        self.blob_store.put(key, blob, self._blob_nbytes(blob))
         rec.blob_key = key
         rec.blob_pidx = list(range(npg))
         self.allocator.release(rec.pages)
@@ -1086,7 +1218,10 @@ class DecodeScheduler:
         CPU row tensors) plus a blob key — is popped and returned for the
         controller to hand to a successor worker.  After this the worker
         holds no reference to the session, and nothing in the record
-        aliases this worker's device rows, which ``reset()`` overwrites."""
+        aliases this worker's device rows, which ``reset()`` overwrites.
+        Refused under a mesh (a blob there is one rank's shard)."""
+        if self._mesh is not None:
+            raise _mesh_refusal("externalize_session")
         rec = self._parked.pop(session)
         if rec.pages:
             self._offload_parked(rec)
@@ -1096,7 +1231,9 @@ class DecodeScheduler:
         """Fleet routing: install an externalized (blob-resident) journal so
         the next admission for its session restores from the shared store
         instead of re-prefilling.  The record must hold no pool references —
-        those died with the worker that wrote it."""
+        those died with the worker that wrote it.  Refused under a mesh."""
+        if self._mesh is not None:
+            raise _mesh_refusal("adopt_parked")
         if rec.pages or rec.slot is not None:
             raise ValueError(
                 f"adopting session {rec.session!r} with live pool state "
@@ -1112,7 +1249,9 @@ class DecodeScheduler:
         its captured graphs, which read the pool's storage.  Bounded so
         adoption always leaves at least one slot's worst case uncommitted;
         index pages are reclaimable cache either way, so a skipped entry
-        only costs a re-prefill."""
+        only costs a re-prefill.  Refused under a mesh."""
+        if self._mesh is not None:
+            raise _mesh_refusal("adopt_index_journal")
         if not self.index_journal:
             return 0
 
@@ -1182,9 +1321,9 @@ class DecodeScheduler:
         phys = [int(row[i]) for i in pidx]
         # gather in logical order and copy to the host: the blob is
         # position-ordered however scrambled the physical table was
-        blob = self._extract(self.cache, phys)
+        blob = self._page_move(self._extract, self.cache, phys)
         key = f"kv/{self.blob_ns}{slot.req.request_id}/p{slot.preempts}"
-        self.blob_store.put(key, blob, kvcache.blob_nbytes(blob))
+        self.blob_store.put(key, blob, self._blob_nbytes(blob))
         slot.blob_key = key
         slot.blob_pidx = pidx
         slot.restore_i = 0
@@ -1237,8 +1376,9 @@ class DecodeScheduler:
             slot.pages.append(pid)
             self._page_rows[slot.index, slot.blob_pidx[j]] = pid
             phys.append(pid)
-        self._inject(self.cache, phys, kvcache.slice_page_blob(slot.blob, slot.restore_i, hi))
-        kvcache.set_page_row(self.cache, slot.index, self._page_rows[slot.index])
+        self._page_move(self._inject, self.cache, phys,
+                        kvcache.slice_page_blob(slot.blob, slot.restore_i, hi))
+        self._set_row(slot.index)
         self.restored_pages += hi - slot.restore_i
         slot.restore_i = hi
         self.restore_chunks += 1
@@ -1285,7 +1425,7 @@ class DecodeScheduler:
                     # references: swap it out, reservation-neutral
                     slot.pages.remove(pid)
                 slot.pages.append(new)
-                kvcache.copy_pages(self.cache, [pid], [new])
+                self._page_move(kvcache.copy_pages, self.cache, [pid], [new])
                 self.allocator.release([pid])
                 self._page_rows[slot.index, pidx] = new
                 self.cow_splits += 1
@@ -1303,6 +1443,8 @@ class DecodeScheduler:
         if self._has_kv:
             self._prepare_write_span(slot, slot.len, C)
         logits = self._chunk_logits(chunk, slot.index)
+        if self._share_kv:
+            self._share_written([(slot.index, slot.len, C)])
         slot.len += C
         slot.chunk_i += 1
         self.prefill_tokens += C
@@ -1323,8 +1465,13 @@ class DecodeScheduler:
             if row is None:
                 return None
             self.chunks_run += 1
+            wire = self._policy.wire
+            sent, secs = wire.bytes, wire.seconds
             tokens = torch.as_tensor(chunk, dtype=torch.int32).to(self.device)[None]
-            return self._chunk(self.cache, tokens, row)[0]
+            logits = self._chunk(self.cache, tokens, row)[0]
+            self.last_chunk_wire_bytes = wire.bytes - sent
+            self.last_chunk_wire_ms = (wire.seconds - secs) * 1e3
+            return logits
         if self.graphs is not None and len(chunk) == self.prefill_chunk:
             self._chunk_tokens.copy_(torch.from_numpy(chunk).view(1, -1))
             self._chunk_at.fill_(slot)
@@ -1373,14 +1520,18 @@ class DecodeScheduler:
         ``data``; the collective bytes it sent are kept in
         ``last_step_wire_bytes``."""
         rows, wire = self._rows, self._policy.wire
-        sent = wire.bytes
+        sent, secs = wire.bytes, wire.seconds
         active, last = self._active[rows], self.last_tokens[rows]
         with sharding.activation_sharding(self._policy):
             logits, new_cache = self.model.decode_step(self.cache, last[:, None])
             kvcache.mask_slot_rows(new_cache, self.cache, active)
+            if self._share_kv:
+                self._share_written([(s.index, s.len, 1) for s in self.slots if s.decoding],
+                                    pad_to=self.n_slots)
             toks = self._share_rows(torch.where(active, self._sample(logits[:, -1]), last))
         self._emit(toks, self.last_tokens, self.out_buf, self.out_pos, self._active)
         self.last_step_wire_bytes = wire.bytes - sent
+        self.last_step_wire_ms = (wire.seconds - secs) * 1e3
 
     def _decode(self) -> None:
         """The batched decode step over ``self._active``."""

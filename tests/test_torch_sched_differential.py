@@ -29,9 +29,9 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.launch.sharded_smoke import SOUP_SYSTEM_PAGES, Soup, soup_events
 from repro_torch.models import build_model, kvcache
 from repro_torch.serve.engine import generate
-from repro_torch.serve.lifecycle import SlotState
 from repro_torch.serve.scheduler import DecodeScheduler
 
 torch.set_num_threads(2)
@@ -44,6 +44,7 @@ MAX_NEW = (2, 4)                  # per-request decode budget range
 FRESH_LEN = (5, 12)               # fresh prompt length range
 EXTEND_LEN = (1, 4)               # extra user tokens per multi-turn turn
 N_EVENTS = 28
+SOUP = Soup(events=N_EVENTS, fresh_len=FRESH_LEN, extend_len=EXTEND_LEN, max_new=MAX_NEW)
 
 # dense gets the widest sweep; moe and hybrid pin the family-specific paths
 SEEDS = ([("minicpm-2b", s) for s in range(10)]
@@ -104,7 +105,8 @@ def _arch(name, spec=None):
 
 
 def _run_sequence(arch: str, seed: int, log: Optional[list] = None, spec=None) -> list:
-    """One seeded event sequence; appends every event to ``log`` (so a
+    """One seeded event sequence (``sharded_smoke.soup_events``, the soup
+    the mesh runs drive too); appends every event to ``log`` (so a
     caller-owned list survives an assertion failure) and raises on any
     parity or invariant violation."""
     cfg, sched, ref = _arch(arch, spec)
@@ -115,80 +117,19 @@ def _run_sequence(arch: str, seed: int, log: Optional[list] = None, spec=None) -
     rng = np.random.default_rng(zlib.crc32(tag.encode()) * 100003 + seed)
     sched.park_ttl_steps = int(rng.choice([0, 0, 18]))
     sessions = [f"s{i}" for i in range(int(rng.integers(3, 6)))]
-    history = {s: None for s in sessions}     # completed conversation so far
-    inflight = {}                             # session -> (rid, prompt, max_new)
-    shared_sys = rng.integers(0, cfg.vocab, size=2 * PAGE_SIZE).astype(np.int32)
+    shared_sys = rng.integers(0, cfg.vocab, size=SOUP_SYSTEM_PAGES * PAGE_SIZE).astype(np.int32)
     log = log if log is not None else []
     log.append({"arch": arch, "seed": seed, "ttl": sched.park_ttl_steps,
                 "sessions": len(sessions), "spec": spec})
-    rid = 0
 
-    def submit(sess):
-        nonlocal rid
-        h = history[sess]
-        roll = rng.random()
-        if h is not None and roll < 0.6 and len(h) + 8 <= MAX_SEQ:
-            # multi-turn: extend this session's parked conversation
-            prompt = np.concatenate(
-                [h, rng.integers(0, cfg.vocab,
-                                 int(rng.integers(*EXTEND_LEN))).astype(np.int32)])
-            kind = "extend"
-        elif roll < 0.8:
-            # shared system prompt across sessions (prefix-index food)
-            prompt = np.concatenate(
-                [shared_sys, rng.integers(0, cfg.vocab,
-                                          int(rng.integers(*FRESH_LEN))).astype(np.int32)])
-            kind = "shared"
-        else:
-            prompt = rng.integers(0, cfg.vocab,
-                                  int(rng.integers(*FRESH_LEN))).astype(np.int32)
-            kind = "fresh"
-        max_new = int(rng.integers(MAX_NEW[0], MAX_NEW[1] + 1))
-        max_new = min(max_new, MAX_SEQ - len(prompt))   # full-ring room
-        if max_new < 1:
-            history[sess] = None              # conversation too long: restart
-            return
-        name = f"r{rid}"
-        rid += 1
-        sched.submit(sess, name, prompt, max_new)
-        inflight[sess] = (name, prompt, max_new)
-        log.append({"ev": "submit", "session": sess, "rid": name, "kind": kind,
-                    "prompt": prompt.tolist(), "max_new": max_new})
+    def against_solo(session, name, prompt, max_new, got):
+        np.testing.assert_array_equal(
+            got, ref.run(prompt, max_new),
+            err_msg=f"{tag} seed {seed} {name}: scheduler diverged from the "
+                    "eviction-free solo reference")
 
-    def on_finished(fins):
-        for fin in fins:
-            name, prompt, max_new = inflight.pop(fin.session)
-            assert fin.request_id == name, "per-session FIFO violated"
-            got = np.asarray(fin.tokens)
-            log.append({"ev": "complete", "rid": name, "tokens": got.tolist()})
-            np.testing.assert_array_equal(
-                got, ref.run(prompt, max_new),
-                err_msg=f"{tag} seed {seed} {name}: scheduler diverged from the "
-                        "eviction-free solo reference")
-            history[fin.session] = np.concatenate([prompt, got.astype(np.int32)])
-
-    for _ev in range(N_EVENTS):
-        for sess in sessions:
-            if sess not in inflight and rng.random() < 0.35:
-                submit(sess)
-        if rng.random() < 0.12:
-            victims = [s for s in sched.slots if s.state is SlotState.ACTIVE and s.pages]
-            if victims:
-                v = victims[int(rng.integers(len(victims)))]
-                log.append({"ev": "preempt", "slot": v.index})
-                sched.preempt(v.index)
-        fins = sched.step()
-        sched.audit()
-        on_finished(fins)
-    while sched.busy():
-        on_finished(sched.step())
-        sched.audit()
-        log.append({"ev": "drain-step"})
-        assert len(log) < 4000, "failed to drain"
-    # quiescent state: only parked journals and the index may hold pages
-    a = sched.allocator
-    held = sum(len(r.pages) for r in sched._parked.values()) + len(sched.prefix_index)
-    assert a.total_refs == held, f"leaked references: {a.total_refs} != {held}"
+    soup_events(sched, rng, sessions, shared_sys, SOUP, MAX_SEQ, cfg.vocab, log=log,
+                on_complete=against_solo)
     return log
 
 

@@ -17,13 +17,16 @@ here rather than running out the suite's clock.
 The launchers run as their users run them, in subprocesses:
 ``python -m repro_torch.launch.sharded_smoke --device cpu`` and
 ``python -m repro_torch.launch.serve --mesh 1x2 --device cpu``.  Each
-refusal of ``mesh=`` raises, naming the ROADMAP item that ports it.
+refusal of ``mesh=`` raises, naming the ROADMAP item that ports it: the
+constructor's on an abstract mesh, the fleet's hand-over hooks on a live
+(1, 1) mesh in a spawned rank.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -52,6 +55,33 @@ ROWS = {
             # a page of 3 lanes: the model axis splits kv heads instead
             (dict(DENSE, attn_backend="paged_kernel", page_size=3, prefill_chunk=3), False)],
 }
+
+LIVE_REFUSALS = """
+import json
+from repro_torch import configs
+from repro_torch.launch.sharded_smoke import spawn_ranks
+from repro_torch.models import build_model
+from repro_torch.serve.scheduler import DecodeScheduler, ParkedSession
+
+def rank(mesh):
+    model = build_model(configs.get("minicpm-2b").reduced(), device="cpu")
+    sched = DecodeScheduler(model, device="cpu", mesh=mesh, prefix_sharing=True,
+                            park_sessions=True)
+    calls = {"externalize_session": lambda: sched.externalize_session("s0"),
+             "adopt_parked": lambda: sched.adopt_parked(ParkedSession("s0", None, 0, None, [])),
+             "adopt_index_journal": sched.adopt_index_journal}
+    out = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            out[name] = ["returned", ""]
+        except Exception as e:
+            out[name] = [type(e).__name__, str(e)]
+    return out
+
+if __name__ == "__main__":
+    print(json.dumps(spawn_ranks(rank, dp=1, mp=1, device="cpu", timeout_s=120)))
+"""
 
 SERVE_MESH = """
 import json, sys
@@ -90,6 +120,9 @@ def runs(tmp_path_factory):
                              "--requests", "4", "--prompt-len", "8", "--max-new", "4",
                              "--page-size", "4", "--prefill-chunk", "4", "--mesh", "1x2",
                              "--attn-backend", "paged_kernel", "--device", "cpu"])
+    script = tmp_path_factory.mktemp("refusals") / "live_refusals.py"
+    script.write_text(LIVE_REFUSALS)
+    procs["live_refusals"] = _start([str(script)])
     done = {name: _finish(p) for name, p in procs.items()}
     done["smoke_json"] = out
     return done
@@ -119,7 +152,7 @@ def test_sharded_tokens_match(runs, mesh, i):
     mode = "head" if w.get("page_size", 4) % 2 else "lane"
     assert res["pool"]["mode"] == mode and res["pool"]["count"] == 2
     assert res["pool_split"], (res["pool_bytes_rank"], res["pool_bytes_single"])
-    assert res["wire_flat"], (res["wire_per_step"], res["wire_per_step_4x"])
+    assert res["wire_flat"], (res["wire_per_step"], res["wire_per_step_big"])
     assert all(len(w) == 1 and w[0] > 0 for w in res["wire_per_step"])
     assert res["ok"]
 
@@ -146,22 +179,33 @@ def _tiny(arch):
 
 
 REFUSALS = [
-    ("minicpm-2b", dict(kv_mode="ring"), "kv_mode='ring' under mesh=, ROADMAP 1.8b-ii"),
-    ("mamba2-1.3b", dict(), "the SSM family under mesh=, ROADMAP 1.8b-ii"),
     ("moonshot-v1-16b-a3b", dict(), "the MoE family under mesh=, ROADMAP 1.8c"),
-    ("minicpm-2b", dict(offload=True), "offload under mesh=, ROADMAP 1.8b-ii"),
-    ("minicpm-2b", dict(prefix_sharing=True), "prefix_sharing under mesh=, ROADMAP 1.8b-ii"),
-    ("minicpm-2b", dict(park_sessions=True), "park_sessions under mesh=, ROADMAP 1.8b-ii"),
-    ("minicpm-2b", dict(spec_k=2, draft="self"), r"speculative decoding \(spec_k > 0\) under"),
+    ("minicpm-2b", dict(spec_k=2, draft="self"),
+     r"speculative decoding \(spec_k > 0\) under mesh=, ROADMAP 1\.8b-iii"),
     ("minicpm-2b", dict(), "abstract mesh is ROADMAP 1.9"),
+    ("minicpm-2b", dict(index_journal=True, prefix_sharing=True),
+     r"index_journal=True under mesh=, ROADMAP 1\.8b-iii"),
+    # the fleet's hand-over hooks, on a live (1, 1) mesh (LIVE_REFUSALS)
+    ("minicpm-2b", dict(call="externalize_session"),
+     r"externalize_session under mesh=, ROADMAP 1\.8b-iii"),
+    ("minicpm-2b", dict(call="adopt_parked"), r"adopt_parked under mesh=, ROADMAP 1\.8b-iii"),
+    ("minicpm-2b", dict(call="adopt_index_journal"),
+     r"adopt_index_journal under mesh=, ROADMAP 1\.8b-iii"),
 ]
 
 
 @pytest.mark.parametrize("arch,kw,match", REFUSALS,
                          ids=[m.split(" under")[0][:24] for _, _, m in REFUSALS])
-def test_mesh_refusals_raise(arch, kw, match):
-    model = _tiny(arch)
+def test_mesh_refusals_raise(runs, arch, kw, match):
     kw = dict(kw)
+    call = kw.pop("call", None)
+    if call is not None:
+        rc, out, err = runs["live_refusals"]
+        assert rc == 0, err[-4000:]
+        got = json.loads(out.strip().splitlines()[-1])[0][call]
+        assert got[0] == "NotImplementedError" and re.search(match, got[1]), got
+        return
+    model = _tiny(arch)
     if kw.pop("draft", None):
         kw["draft_model"] = model
     with pytest.raises(NotImplementedError, match=match):
