@@ -510,6 +510,41 @@ last line is printed):
     the leaf's largest value and ``SOUP_BLOB_LAYER_REL`` of their layer's
     and kv head's; the same soup on (1, 1)
     (nothing split) with every blob bitwise ``mesh=None``'s.
+47. The grouped expert kernel on one expert shard (``ops.layer_forward_shard``'s
+    launches: the route's offsets viewed at the shard's experts, the
+    shard's weights, the shared expert in both launches) at moonshot's
+    decode, chunk and ring prefill shapes (T 8, 256, 4096), 2 and 4
+    shards: each shard's rows bitwise the unsharded launch's rows, its
+    shared rows bitwise; ``moe_combine``'s fp32 partial mode bitwise its
+    plain version, and over every pair cast bitwise the bf16 mode; the
+    partials summed and cast within one bf16 ulp of the unsharded combine
+    (differing elements counted); device ms of a shard's two launches
+    beside the unsharded pair's, plain, ``torch._grouped_mm`` on the
+    segment and the bound; the partial combine's device ms and bound.
+48. Full-width, full-depth moonshot-v1-16b-a3b on (1, 2) ranks of the one
+    card, each rank holding only its 32 experts a layer: paged
+    (``paged_kernel``, 8 requests, prompt 256, 4 new, 8 slots) and from
+    a ring (2 x 4096-token prompts on one slot, flash every admission), each against
+    its mesh-matched run; the paged workload on (1, 1) against
+    ``mesh=None``.  Each rank's expert bytes half the model's, its peak
+    memory; routes and MoE inputs bitwise across ``model`` (digests of
+    the first MoE calls); on every rank route, combine (fp32 partial) and
+    half the grouped kernel's launches 48 x (decode steps + chunks or
+    prefills), each also by step kind (decode, chunk or ring prefill, as
+    the wrappers count them), paged 48 x decode steps, flash 48 x ring
+    prefills; a decode step's wall ms and collective bytes (flat at a 4x
+    pool).
+49. The event soup of moonshot-v1-16b-a3b at full width and M49_LAYERS of
+    its 48 layers (four ranks' weights on one card) on (2, 2) against its
+    mesh-matched run, with the checks of 48 and the soup's preemptions,
+    page moves and (where the tokens are ``mesh=None``'s) journals.
+
+Phases 40-49 run after 33 in this order: the kernel checks of 40, 43 and
+47; the ``mesh=None`` runs of 41-49's workloads, one model at a time;
+one spawn of ranks for each mesh shape (``MeshJobs``: (1, 2) serves 41,
+42, 44-46 and 48 in turn, (2, 2) 41, 46 and 49, (1, 1) 46 and 48; a
+spawn's ranks pay their start, CUDA and gloo set-up once); then each
+phase's checks, and 40's timing at the shapes 41-42 served.
 
 On the card the scheduler replays a CUDA graph for every decode step and
 every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19,
@@ -521,11 +556,13 @@ host made, and the heaviest kernels): each traces its scheduler's eager
 decode step (and 256-token chunk) beside the replayed graph, times both
 without the profiler, and prints the captures made, the seconds each took
 and the graph pool's memory; phase 20 does the same for the
-``paged_kernel`` schedulers.  No phase but 33 and 39 is cut in depth (33:
-2 layers, each save writes ~4.9 GB of fp32 state; 39: 4 layers, as much of
-moonshot's 28.9 B parameters as fits one card with fp32 master, gradient
-and Adam state): every other path runs at its full depth and the whole
-script stays well inside its time limit.
+``paged_kernel`` schedulers.  No phase but 33, 39 and 49 is cut in
+depth (33: 2 layers, each save writes ~4.9 GB of fp32 state; 39: 4
+layers, as much of moonshot's 28.9 B parameters as fits one card with
+fp32 master, gradient and Adam state; 49: M49_LAYERS of 48 layers, four
+ranks' moonshot weights on one card): every other path runs at its full
+depth.  The whole script, the kernels' build included, must end within
+1200 s on the card.
 
 Each serving phase sets the launch counts to 0 just before it drives the
 path and reads them just after.  The line before the last is the kernels'
@@ -6735,7 +6772,7 @@ def phase_shard_timing(fails: Failures, seed: int, label: str, c: dict, m: int, 
             "collective_bytes_per_step": wire}
 
 
-def sharded_judge(fails: Failures, label: str, res: dict, model, cfg, prompts,
+def sharded_judge(fails: Failures, label: str, res: dict, model_fn, cfg, prompts,
                   matched: bool, launches_per_step: dict) -> None:
     """The checks of one mesh run (``sharded_smoke.verdicts``): the tokens
     (identical to ``mesh=None``, or split at a near-tie the unsharded model
@@ -6756,7 +6793,7 @@ def sharded_judge(fails: Failures, label: str, res: dict, model, cfg, prompts,
                     f"mesh-matched run (the same sharded scheduler, one request at a time)")
     elif not res["identical_outputs"]:
         to_np = lambda d: {k: np.asarray(v) for k, v in d.items()}  # noqa: E731
-        spec_margins(fails, model, cfg, f"{label} {res['mesh']}",
+        spec_margins(fails, model_fn(), cfg, f"{label} {res['mesh']}",
                      {"tokens": to_np(res["tokens_single"])},
                      {"tokens": to_np(res["tokens_sharded"])}, prompts, than="mesh=None")
     else:
@@ -6772,72 +6809,101 @@ def sharded_judge(fails: Failures, label: str, res: dict, model, cfg, prompts,
                         f"launches {got[name]} == {want}")
 
 
-def phase_sharded_serving(fails: Failures, seed: int, *, device: str = "cuda",
-                          reduced: bool = False, n_layers=None) -> dict:
-    """Phases 41-42: minicpm-2b at full width and depth on (1, 2) and (2, 2)
-    ranks of the one card (``paged_kernel``), recurrentgemma-2b at full
-    width on (1, 2) against its mesh-matched run (``reduced`` and
-    ``n_layers`` cut them for a CPU rehearsal)."""
-    from repro_torch import configs
-    from repro_torch.launch import sharded_smoke as ss
-    from repro_torch.models.config import layer_pattern
+class MeshJobs:
+    """The mesh phases' workloads (41-42, 44-46, 48-49) gathered by mesh
+    shape, so that each shape is one spawn of ranks on the card (a spawn
+    pays its ranks' start, CUDA and gloo set-up once): each job is a
+    workload, whether it is held to its mesh-matched run, and its
+    ``mesh=None`` run, made beforehand in this process."""
 
-    out = {}
+    def __init__(self):
+        self.jobs: dict = {}        # (dp, mp) -> [(key, workload, matched, single)]
+
+    def add(self, mesh: tuple, key: str, w, single: dict, matched: bool = False) -> None:
+        self.jobs.setdefault(mesh, []).append((key, w, matched, single))
+
+    def run(self, device: str = "cuda") -> dict:
+        """Every mesh shape's jobs in one spawn; ``{(key, mesh): verdicts}``."""
+        from repro_torch.launch import sharded_smoke as ss
+
+        out = {}
+        for (dp, mp), jobs in self.jobs.items():
+            t0 = time.perf_counter()
+            res = ss.run_smoke([w for _, w, _, _ in jobs], dp=dp, mp=mp, device=device,
+                               mesh_matched=[m for _, _, m, _ in jobs],
+                               singles=[single for *_, single in jobs])
+            print(f"  ({dp}, {mp}): {[key for key, *_ in jobs]} in {time.perf_counter() - t0:.1f} "
+                  f"s with the spawn")
+            for (key, *_), r in zip(jobs, res):
+                out[(key, (dp, mp))] = r
+        return out
+
+
+def _lazy_model(w, device: str):
+    """A function building ``w``'s model, for a check that needs it only when tokens
+    differ (the mesh runs hold no model in this process)."""
+    from repro_torch.launch import sharded_smoke as ss
+
+    return lambda: ss.build(w, device)
+
+
+def plan_sharded_serving(jobs: MeshJobs, seed: int, *, device: str = "cuda",
+                         reduced: bool = False, n_layers=None) -> dict:
+    """Phases 41-42's workloads and their ``mesh=None`` runs: minicpm-2b at
+    full width on (1, 2) and (2, 2) ranks of the one card
+    (``paged_kernel``), recurrentgemma-2b at full width on (1, 2) against
+    its mesh-matched run (``n_layers`` cuts both; ``reduced`` for a CPU
+    rehearsal)."""
+    from repro_torch.launch import sharded_smoke as ss
+
     w = ss.Workload(arch=ARCH, reduced=reduced, n_layers=n_layers, attn_backend="paged_kernel",
                     n_requests=SH_REQUESTS, sessions=SH_SESSIONS, prompt_len=SH_PROMPT,
                     max_new=SH_MAX_NEW, n_slots=SLOTS, page_size=PAGE, prefill_chunk=CHUNK,
                     seed=seed)
-    print(f"[41] full-width, full-depth {ARCH} served on meshes {SHARD_MESHES} of ranks on one "
-          f"card (gloo, paged_kernel): {SH_REQUESTS} requests over {SH_SESSIONS} sessions, "
-          f"prompt {SH_PROMPT}, {SH_MAX_NEW} new, {SLOTS} slots, page {PAGE}")
-    t41 = time.perf_counter()
-    model = ss.build(w, device)
-    cfg = model.cfg
-    single = ss.run_single(w, device, model=model)
-    if device == "cuda":
-        release()           # the mesh=None run's scheduler and graphs, before the ranks
-    prompts = {f"r{i}": p for i, p in enumerate(w.prompts(cfg.vocab))}
-    for dp, mp in SHARD_MESHES:
-        t0 = time.perf_counter()
-        res = ss.run_smoke(w, dp=dp, mp=mp, device=device, singles=[single])[0]
-        res["launches"] = res.pop("launches_by_rank")
-        print(f"  mesh {dp}x{mp}: {time.perf_counter() - t0:.1f} s with the spawn")
-        sharded_judge(fails, ARCH, res, model, cfg, prompts, False,
-                      {"paged_attention": lambda r, res=res: cfg.n_layers * res["decode_steps"][r]})
-        out[(dp, mp)] = res
-    del model
-    if device == "cuda":
-        release()
-    print(f"  phase 41 wall {time.perf_counter() - t41:.1f} s")
-
-    hcfg = configs.get(HYBRID)
-    print(f"[42] full-width {HYBRID} on a (1, 2) mesh against its mesh-matched run: "
-          f"{SHH_REQUESTS} requests, prompt {SHH_PROMPT} (past the "
-          f"{hcfg.hybrid.local_window}-token window), {SHH_MAX_NEW} new, {SLOTS} slots")
-    t42 = time.perf_counter()
     hw = dataclasses.replace(w, arch=HYBRID, n_requests=SHH_REQUESTS, sessions=SHH_REQUESTS,
                              prompt_len=SHH_PROMPT, max_new=SHH_MAX_NEW)
-    hmodel = ss.build(hw, device)
-    hcfg = hmodel.cfg
+    single = ss.run_single(w, device)
+    hsingle = ss.run_single(hw, device)
+    if device == "cuda":
+        release()           # the mesh=None runs' models, schedulers and graphs
+    for mesh in SHARD_MESHES:
+        jobs.add(mesh, "41", w, single)
+    jobs.add((1, 2), "42", hw, hsingle, matched=True)
+    return {"w": w, "hw": hw, "device": device}
+
+
+def judge_sharded_serving(fails: Failures, plan: dict, results: dict) -> dict:
+    """Phases 41-42's checks on their mesh runs (:func:`sharded_judge`)."""
+    from repro_torch.models.config import layer_pattern
+
+    w, hw, device = plan["w"], plan["hw"], plan["device"]
+    cfg, hcfg = w.config(), hw.config()
+    print(f"[41] full-width {ARCH} at {cfg.n_layers} layers served on meshes {SHARD_MESHES} of "
+          f"ranks on one card (gloo, paged_kernel): {SH_REQUESTS} requests over {SH_SESSIONS} "
+          f"sessions, prompt {SH_PROMPT}, {SH_MAX_NEW} new, {SLOTS} slots, page {PAGE}")
+    prompts = {f"r{i}": p for i, p in enumerate(w.prompts(cfg.vocab))}
+    out = {}
+    for mesh in SHARD_MESHES:
+        res = results[("41", mesh)]
+        res["launches"] = res.pop("launches_by_rank")
+        sharded_judge(fails, ARCH, res, _lazy_model(w, device), cfg, prompts, False,
+                      {"paged_attention": lambda r, res=res: cfg.n_layers * res["decode_steps"][r]})
+        out[mesh] = res
+    print(f"[42] full-width {HYBRID} at {hcfg.n_layers} layers on a (1, 2) mesh against its "
+          f"mesh-matched run: {SHH_REQUESTS} requests, prompt {SHH_PROMPT} (past the "
+          f"{hcfg.hybrid.local_window}-token window), {SHH_MAX_NEW} new, {SLOTS} slots")
     pat = layer_pattern(hcfg)
     n_rec, n_attn = pat.count("r"), pat.count("a")
-    hsingle = ss.run_single(hw, device, model=hmodel)
-    if device == "cuda":
-        release()
     hprompts = {f"r{i}": p for i, p in enumerate(hw.prompts(hcfg.vocab))}
-    res = ss.run_smoke(hw, dp=1, mp=2, device=device, singles=[hsingle], mesh_matched=True)[0]
+    res = results[("42", (1, 2))]
     res["launches"] = res.pop("launches_by_rank")
-    sharded_judge(fails, HYBRID, res, hmodel, hcfg, hprompts, True,
+    sharded_judge(fails, HYBRID, res, _lazy_model(hw, device), hcfg, hprompts, True,
                   {"paged_attention": lambda r: n_attn * res["decode_steps"][r],
                    "rglru_scan": lambda r: n_rec * (res["decode_steps"][r]
                                                     + res["chunks_run"][r])})
     print(f"  {HYBRID} 1x2 vs mesh=None: tokens identical {res['identical_outputs']} "
           f"(not required: the recurrence feeds cross-shard summation order back)")
     out["hybrid"] = res
-    del hmodel
-    if device == "cuda":
-        release()
-    print(f"  phase 42 wall {time.perf_counter() - t42:.1f} s")
     return out
 
 
@@ -7033,25 +7099,20 @@ def soup_judge(fails: Failures, label: str, res: dict) -> None:
                     f"{[round(x, 5) for x in by_layer]}")
 
 
-def phase_sharded_features(fails: Failures, seed: int, *, device: str = "cuda",
-                           reduced: bool = False) -> dict:
-    """Phases 44-46 on ranks of the one card (gloo), the (1, 2) workloads in
-    one spawn: mamba2-1.3b at full width and depth, paged, its SSD state on
-    heads; ring mode for minicpm-2b at full width and depth with prompts of
+def plan_sharded_features(mesh_jobs: MeshJobs, seed: int, *, device: str = "cuda",
+                          reduced: bool = False) -> dict:
+    """Phases 44-46's workloads and their ``mesh=None`` runs, for ranks of
+    the one card (gloo): mamba2-1.3b at full width, paged, its SSD state on
+    heads; ring mode for minicpm-2b at full width with prompts of
     SF_RING_PROMPT tokens (each admission launches the flash kernel) and
     for recurrentgemma-2b at full width with a T-split ring (against its
-    mesh-matched run); and the event soup of minicpm-2b at full width and
-    depth (paged_kernel, a pool of SF_SOUP_PAGES pages, parking with a TTL,
-    prefix sharing over a shared system prompt) on (1, 2) and (2, 2), and
-    on (1, 1) as the witness that the blobs' drift comes from the split.
-    ``reduced`` (and smaller SF_* sizes) cut them for a CPU rehearsal.
-    Returns the mesh runs and the SSD launches of phase 44 by kind, summed
-    over ranks from the wrapper's counts."""
-    import numpy as np
-
+    mesh-matched run), all on (1, 2); and the event soup of minicpm-2b at
+    full width (paged_kernel, a pool of SF_SOUP_PAGES pages, parking with a
+    TTL, prefix sharing over a shared system prompt) on (1, 2) and (2, 2),
+    and on (1, 1) as the witness that the blobs' drift comes from the
+    split.  ``reduced`` (and smaller SF_* sizes) cut them for a CPU
+    rehearsal."""
     from repro_torch.launch import sharded_smoke as ss
-    from repro_torch.models import build_model
-    from repro_torch.models.config import layer_pattern
 
     common = dict(reduced=reduced, seed=seed, page_size=PAGE)
     w44 = ss.Workload(arch=SSM, attn_backend="gather", n_requests=SF_SSM_REQUESTS,
@@ -7073,7 +7134,8 @@ def phase_sharded_features(fails: Failures, seed: int, *, device: str = "cuda",
           f"{s.n_heads(cfgs[0].d_model)} SSD heads on model), {SF_SSM_REQUESTS} requests, prompt "
           f"{SF_SSM_PROMPT}, {SF_SSM_MAX_NEW} new; rings: {ARCH} ({cfgs[1].n_layers} layers, "
           f"prompt {SF_RING_PROMPT}) and {HYBRID} (prompt {SF_HRING_PROMPT}), {SF_RING_REQUESTS} "
-          f"requests, {SF_RING_MAX_NEW} new; the event soup of {ARCH} (paged_kernel, "
+          f"requests, {SF_RING_MAX_NEW} new; the event soup of {ARCH} at {cfgs[3].n_layers} "
+          f"layers (paged_kernel, "
           f"{SF_SOUP_PAGES} pages of {PAGE}, chunk {SF_SOUP_CHUNK}, max_seq {SF_SOUP_SEQ}, TTL "
           f"{SF_SOUP_TTL}: {SF_SOUP}), also on (2, 2)")
     t0 = time.perf_counter()
@@ -7082,20 +7144,29 @@ def phase_sharded_features(fails: Failures, seed: int, *, device: str = "cuda",
         singles.append(ss.run_single(w, device))
         if device == "cuda":
             release()
-    print(f"  the mesh=None runs: {time.perf_counter() - t0:.1f} s")
-    t1 = time.perf_counter()
-    res12 = ss.run_smoke([w for w, _ in jobs], dp=1, mp=2, device=device,
-                         mesh_matched=[m for _, m in jobs], singles=singles)
-    print(f"  (1, 2): {time.perf_counter() - t1:.1f} s with the spawn")
-    t1 = time.perf_counter()
-    res22 = ss.run_smoke([w46], dp=2, mp=2, device=device, singles=[singles[3]])[0]
-    print(f"  (2, 2): {time.perf_counter() - t1:.1f} s with the spawn")
-    t1 = time.perf_counter()
-    res11 = ss.run_smoke([w46], dp=1, mp=1, device=device, singles=[singles[3]])[0]
-    print(f"  (1, 1): {time.perf_counter() - t1:.1f} s with the spawn")
+    print(f"  the mesh=None runs of phases 44-46: {time.perf_counter() - t0:.1f} s")
+    for key, (w, matched), single in zip(("44", "45", "45h", "46"), jobs, singles):
+        mesh_jobs.add((1, 2), key, w, single, matched)
+    for mesh in ((2, 2), (1, 1)):
+        mesh_jobs.add(mesh, "46", jobs[3][0], singles[3])
+    return {"jobs": jobs, "cfgs": cfgs, "device": device}
+
+
+def judge_sharded_features(fails: Failures, plan: dict, results: dict) -> dict:
+    """Phases 44-46's checks on their mesh runs.  Returns the mesh runs and
+    the SSD launches of phase 44 by kind, summed over ranks from the
+    wrapper's counts."""
+    import numpy as np
+
+    from repro_torch.models.config import layer_pattern
+
+    (w44, _), (w45, _), (w45h, _), (w46, _) = plan["jobs"]
+    cfgs, device = plan["cfgs"], plan["device"]
+    res12 = [results[(key, (1, 2))] for key in ("44", "45", "45h", "46")]
+    res22, res11 = results[("46", (2, 2))], results[("46", (1, 1))]
 
     def model_fn(w):
-        return lambda: build_model(w.config(), device=device, seed=w.seed)
+        return _lazy_model(w, device)
 
     def prompts(w):
         return {f"r{i}": p for i, p in enumerate(w.prompts(w.config().vocab))}
@@ -7147,6 +7218,317 @@ def phase_sharded_features(fails: Failures, seed: int, *, device: str = "cuda",
     kinds = r44["ssd_launches_by_kind"]
     return {"ssd_launches": {kind: sum(k[kind] for k in kinds) for kind in ("chunk", "decode")},
             "mesh12": res12, "mesh22": res22, "mesh11": res11}
+
+
+# -- phases 47-49: the MoE family on a mesh, each rank holding only its experts ---------
+
+MOE_SHARDS = (2, 4)              # phase 47: expert shards of moonshot's 64 experts
+MOE_SHARD_KINDS = ("decode", "chunk", "prefill")  # MOE_TIMED's shapes as the steps' kinds
+MM_REQUESTS, MM_PROMPT, MM_MAX_NEW = 8, CHUNK, 4               # phase 48, paged
+# phase 48, rings: one slot (a 4096-token ring's fresh whole prefill ring
+# and twice max_seq for the wire check beside each rank's 29 GiB of weights)
+MMR_REQUESTS, MMR_SLOTS, MMR_PROMPT, MMR_MAX_NEW = 2, 1, 4096, 4
+M49_LAYERS = 4                   # phase 49: four ranks' weights on one card, in time
+
+
+def bf16_ulp(t):
+    """One bf16 step at each element's magnitude."""
+    import torch
+
+    a = t.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def phase_moe_shards(fails: Failures, seed: int) -> list:
+    """Phase 47: the grouped expert kernel on one expert shard of moonshot's
+    layer (``ops.layer_forward_shard``'s launches: the route's offsets
+    viewed at the shard's experts, the shard's (E/m, ·, ·) weights, the
+    shared expert in both launches) at the decode, chunk and ring prefill
+    shapes, m = 2 and 4: each shard's rows bitwise the unsharded launch's
+    rows for the same experts, its shared rows bitwise; the combine's fp32
+    partial mode bitwise its plain version, and cast to bf16 bitwise the
+    bf16 mode without the shared rows; the m partials summed in shard
+    order and cast within one bf16 ulp of the unsharded combine (the count
+    of differing elements printed); device ms of a shard's two launches
+    beside the unsharded pair's, the plain version, ``torch._grouped_mm`` on
+    the shard's segment and the bound.  Returns the kernel records of shard
+    1 of 2 and of the partial combine, each with the step ``kind`` whose
+    launches phase 48 fills in."""
+    import torch
+
+    from repro_torch.kernels.moe_experts import (combine, expert_ffn,
+                                                 moe_combine_partial_plain, route, shard_kept)
+
+    E, k, D, F = 64, 6, 2048, 1408
+    records = []
+    for (T, label), kind in zip(MOE_TIMED, MOE_SHARD_KINDS):
+        gen = torch.Generator(device="cuda").manual_seed(seed + 47 + T)
+        x, _, _, experts, sh = moe_inputs(gen, T, E, k, D, F, "random", True)
+        w_router = (torch.randn(D, E, generator=gen, device="cuda") * D ** -0.5).float()
+        r = route(x, w_router, k)
+        xs = x.index_select(0, r.tok)
+        P = T * k
+        ys, y_s = expert_ffn("swiglu", xs, r.offsets, experts, (x, sh))
+        whole = combine(ys, r.pos, r.weights)                  # bf16, no shared rows
+        part_whole = combine(ys, r.pos, r.weights, partial=True)
+        fails.check(torch.equal(part_whole.to(torch.bfloat16), whole),
+                    f"moe_combine at {label}: the fp32 partial of every pair, cast, bitwise the "
+                    f"bf16 mode without the shared rows")
+        whole_ms = queued_device_ms(lambda i: expert_ffn("swiglu", xs, r.offsets, experts,
+                                                         (x, sh)), 20)
+        bf16_ms = queued_device_ms(lambda i: combine(ys, r.pos, r.weights), 50)
+        offs = r.offsets.tolist()
+        for m in MOE_SHARDS:
+            w = E // m
+            total, rows_ok, shared_ok, part_ok, err = None, True, True, True, 0.0
+            for s in range(m):
+                lo, hi = s * w, (s + 1) * w
+                local = {n: t[lo:hi] for n, t in experts.items()}
+                o = r.offsets[lo:hi + 1]
+                ys_s, y_s_s = expert_ffn("swiglu", xs, o, local, (x, sh))
+                a, b = offs[lo], offs[hi]
+                rows_ok &= torch.equal(ys_s[a:b], ys[a:b])
+                shared_ok &= torch.equal(y_s_s, y_s)
+                kept = shard_kept(r.idx, lo, hi)
+                part = combine(ys_s, r.pos, r.weights, kept, partial=True)
+                plain = moe_combine_partial_plain(ys_s, r.pos, r.weights, kept)
+                part_ok &= torch.equal(part, plain)
+                err = max(err, (part - plain).abs().max().item())
+                total = part if total is None else total + part
+                if m == 2 and s == 0:
+                    shard = (lo, hi, local, o, a, b, kept, ys_s, part)
+            fails.check(rows_ok and shared_ok, f"moe_experts at {label} (P={P}): every one of "
+                        f"{m} expert shards' rows bitwise the unsharded launch's rows for its "
+                        f"experts, and its shared expert's rows bitwise")
+            fails.check(part_ok, f"moe_combine fp32 partial at {label}, {m} shards: each bitwise "
+                        f"its plain version (max |difference| {err})")
+            summed = total.to(torch.bfloat16)
+            d = (summed.float() - whole.float()).abs()
+            n_diff = int((d > 0).sum())
+            fails.check(bool((d <= bf16_ulp(whole)).all()), f"moe_combine at {label}: {m} "
+                        f"partials summed in shard order and cast within one bf16 ulp of the "
+                        f"unsharded combine at every element ({n_diff} of {d.numel()} differ, "
+                        f"max {d.max().item():.3g})")
+        lo, hi, local, o, a, b, kept, ys_s, part = shard
+        hit = sum(1 for e in range(lo, hi) if offs[e + 1] > offs[e])
+        P_s = b - a
+        dev_ms = queued_device_ms(lambda i: expert_ffn("swiglu", xs, o, local, (x, sh)), 20)
+        ms = cuda_time_ms(lambda i: expert_ffn("swiglu", xs, o, local, (x, sh)), 20)
+        plain_ms = cuda_time_ms(lambda i: moe_plain_layer(x, xs, o, local, sh), 3, warmup=1)
+        want = moe_plain_layer(x, xs, o, local, sh)
+        got = expert_ffn("swiglu", xs, o, local, (x, sh))
+        e_err, scale = moe_rel_err((got[0][a:b], got[1]), (want[0][a:b], want[1]))
+        fails.check(e_err <= TOL["bfloat16"] * scale, f"moe_experts shard 1 of 2 at {label}: "
+                    f"max err {e_err:.3g} <= 3e-2 x {scale:.4g} of its plain version")
+        library_ms, lib_note = None, "torch._grouped_mm: absent"
+        gmm = grouped_mm_layer(x, xs[a:b].contiguous(), (o - a).contiguous(), local, sh)
+        if gmm is not None:
+            try:
+                gmm()
+                library_ms = cuda_time_ms(lambda i: gmm(), 20)
+                lib_note = f"torch._grouped_mm on the segment {library_ms:.4f} ms"
+            except (RuntimeError, TypeError, ValueError, NotImplementedError) as e:
+                lib_note = f"torch._grouped_mm refused: {str(e).splitlines()[0][:120]}"
+        nbytes, ops = moe_bound(T, P_s, hit, D, F, True)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        print(f"  moe_experts {label}, expert shard 1 of 2 ({P_s} of {P} pairs, {hit} of {E // 2} "
+              f"experts hit, + the shared expert): device {dev_ms} ms for the two launches "
+              f"(unsharded pair {whole_ms} ms; PERF.md section 6: 0.2612 / 0.4232 / 1.0657 ms "
+              f"wall at P = 48 / 1536 / 24576), CUDA events {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, {lib_note}, bound {bound_ms:.5f} ms ({nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.2f} GFLOP)")
+        records.append({
+            "name": "moe_experts", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_experts.cu",
+            "replaces": "src/repro/models/moe.py:204 (the shard_map body's _dispatch_ffn "
+                        "einsums on a rank's experts; no Pallas kernel)",
+            "shape": f"moonshot {label}, expert shard 1 of 2: experts [{lo}, {hi}), {P_s} of "
+                     f"{P} pairs, {hit} hit, D={D} F={F}, shared 2F over {T} rows, bf16",
+            "kind": kind, "launches": 0, "max_abs_err": e_err, "ms": dev_ms, "wall_ms": ms,
+            "unsharded_device_ms": whole_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms})
+        n_kept = int(kept.sum())
+        c_ms = queued_device_ms(lambda i: combine(ys_s, r.pos, r.weights, kept, partial=True), 50)
+        c_plain_ms = cuda_time_ms(lambda i: moe_combine_partial_plain(ys_s, r.pos, r.weights,
+                                                                     kept), 5, warmup=1)
+        c_bytes = n_kept * D * 2 + T * D * 4 + P * (4 + 4 + 1)
+        c_bound = c_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"  moe_combine fp32 partial at {label}, shard 1 of 2 ({n_kept} of {P} pairs read): "
+              f"device {c_ms} ms (the bf16 mode over every pair {bf16_ms} ms), plain "
+              f"{c_plain_ms:.4f} ms, bound {c_bound:.5f} ms ({c_bytes / 1e6:.2f} MB)")
+        records.append({
+            "name": "moe_combine", "route": "cuda", "mode": "fp32 partial",
+            "source": "src/repro_torch/kernels/csrc/moe_experts.cu",
+            "replaces": "src/repro/models/moe.py:210 (the shard_map body's weighted combine "
+                        "before its psum; no Pallas kernel)",
+            "shape": f"moonshot {label}, shard 1 of 2: ys ({P}, {D}) bf16, {n_kept} pairs kept, "
+                     f"top-{k}, out ({T}, {D}) fp32",
+            "kind": kind, "launches": 0, "max_abs_err": err, "ms": c_ms, "plain_ms": c_plain_ms,
+            "bound_ms": c_bound, "bound_by": "bytes", "library_ms": None})
+        del x, experts, sh, r, xs, ys, y_s, shard, total
+        release()
+    return records
+
+
+def moe_mesh_judge(fails: Failures, label: str, res: dict, *, matched: bool, n_layers: int,
+                   paged: bool, ring: bool) -> None:
+    """The checks of one MoE mesh run (``sharded_smoke.verdicts``): tokens
+    against the mesh-matched run (or ``mesh=None``'s where nothing splits),
+    each rank's expert bytes 1/m of the model's, routes and MoE inputs
+    bitwise across every model group, the split state's bytes, the
+    collective bytes of a decode step flat, and every wrapper's launches on
+    every rank as the path makes them: route, combine (the fp32 partial
+    where the experts split) and half the grouped kernel's once a layer a
+    decode step, chunk or ring prefill, and so by the step kind the
+    wrappers counted each launch under; the paged kernel once a layer a
+    decode step; flash once a layer a ring prefill."""
+    mesh = res["mesh"]
+    split = res["experts"]["mode"] == "expert"
+    print(f"  {label} on {mesh}: experts {res['experts']}; expert bytes by rank "
+          f"{res['expert_bytes_rank']} of {res['expert_bytes_single']}; peak "
+          f"{[b and round(b / 2**30, 3) for b in res['peak_bytes']]} GiB by rank; mesh=None "
+          f"{res['single_step_ms']} ms per decode step, sharded "
+          f"{[x and round(x, 3) for x in res['sharded_step_ms']]} ms per decode step, chunk "
+          f"steps {[x and round(x, 3) for x in res['sharded_chunk_ms']]} ms; collective bytes "
+          f"per decode step {res['wire_per_step']} (bigger pool or 2x max_seq "
+          f"{res['wire_per_step_big']}), per chunk or ring prefill {res['chunk_wire']}; "
+          f"collective ms per decode step {res['wire_ms_per_step']}, per chunk "
+          f"{res['wire_ms_per_chunk']}; launches by rank {res['launches_by_rank']}, combine by "
+          f"mode {res['combine_launches_by_mode']}; tokens identical to mesh=None "
+          f"{res['identical_outputs']}")
+    fails.check(res["ranks_agree"], f"{label} {mesh}: every rank's tokens agree")
+    if matched:
+        fails.check(res["matched_identical"], f"{label} {mesh}: tokens identical to the "
+                    f"mesh-matched run (the same sharded scheduler, one request at a time)")
+    else:
+        fails.check(res["identical_outputs"], f"{label} {mesh}: tokens identical to mesh=None")
+    fails.check(res["expert_split"], f"{label} {mesh}: each rank's expert bytes "
+                f"{res['expert_bytes_rank']} are 1/{res['experts']['count']} of the model's "
+                f"{res['expert_bytes_single']}")
+    fails.check(res["routes_agree"], f"{label} {mesh}: every rank of each model group saw the "
+                f"same MoE inputs and routed them to the same experts (digests of the first "
+                f"MoE calls: the first chunks and decode steps)")
+    for key in ("pool", "ring"):
+        if res.get(f"{key}_split") is not None:
+            fails.check(res[f"{key}_split"], f"{label} {mesh}: each rank's {key} "
+                        f"{res[f'{key}_bytes_rank']} B is its part of {res[f'{key}_bytes_single']}")
+    fails.check(res["wire_flat"], f"{label} {mesh}: collective bytes per decode step "
+                f"{res['wire_per_step']} equal at the bigger pool or 2x max_seq "
+                f"{res['wire_per_step_big']}")
+    for r, (got, modes) in enumerate(zip(res["launches_by_rank"],
+                                         res["combine_launches_by_mode"])):
+        steps, chunks = res["decode_steps"][r], res["chunks_run"][r]
+        layer_calls = n_layers * (steps + chunks)
+        want = {"moe_route": layer_calls, "moe_experts": 2 * layer_calls,
+                "moe_combine": layer_calls,
+                "paged_attention": n_layers * steps if paged else 0,
+                "flash_attention": n_layers * chunks if ring else 0}
+        ok = all(got[n] == v for n, v in want.items()) and layer_calls > 0
+        listed = ", ".join(f"{n}: {got[n]}" for n in want)
+        fails.check(ok, f"{label} {mesh} rank {r}: launches {{{listed}}} "
+                    f"== {want} ({n_layers} layers x ({steps} decode steps + {chunks} chunks "
+                    f"or prefills))")
+        mode = "fp32" if split else "bf16"
+        fails.check(modes[mode] == layer_calls, f"{label} {mesh} rank {r}: every combine in "
+                    f"the {mode} mode ({modes})")
+        kinds = res["moe_launches_by_kind"][r]
+        fill = "prefill" if ring else "chunk"
+        for name, per in (("moe_route", 1), ("moe_experts", 2), ("moe_combine", 1)):
+            want_k = {"decode": per * n_layers * steps, fill: per * n_layers * chunks}
+            got_k = kinds[name]
+            fails.check(all(got_k.get(kd, 0) == want_k.get(kd, 0) for kd in got_k),
+                        f"{label} {mesh} rank {r}: {name} launches by kind {got_k}, "
+                        f"{want_k} and none else")
+
+
+def plan_moe_mesh(mesh_jobs: MeshJobs, seed: int, *, device: str = "cuda",
+                  reduced: bool = False, layers49: int = M49_LAYERS) -> dict:
+    """Phases 48-49's workloads and their ``mesh=None`` runs (one model at a
+    time, each freed before the ranks spawn), for ranks of the one card
+    (gloo), each rank holding only its experts (``build_model(...,
+    mesh=)``): moonshot-v1-16b-a3b at full width and depth on (1, 2), paged
+    (``paged_kernel``) and from a ring of MMR_PROMPT-token prompts (every
+    admission launches flash), each against its mesh-matched run, and the
+    paged workload on (1, 1) against ``mesh=None``; then the event soup at
+    full width and ``layers49`` of its 48 layers on (2, 2) (four ranks'
+    weights on one card) against its mesh-matched run."""
+    from repro_torch.launch import sharded_smoke as ss
+
+    w48 = ss.Workload(arch=MOE, reduced=reduced, attn_backend="paged_kernel",
+                      n_requests=MM_REQUESTS, sessions=MM_REQUESTS, prompt_len=MM_PROMPT,
+                      max_new=MM_MAX_NEW, n_slots=SLOTS, page_size=PAGE, prefill_chunk=CHUNK,
+                      seed=seed)
+    w48r = dataclasses.replace(w48, kv_mode="ring", attn_backend="gather",
+                               n_requests=MMR_REQUESTS, sessions=MMR_REQUESTS,
+                               prompt_len=MMR_PROMPT, max_new=MMR_MAX_NEW, n_slots=MMR_SLOTS)
+    w49 = ss.Workload(arch=MOE, reduced=reduced, n_layers=layers49, attn_backend="paged_kernel",
+                      n_slots=4, page_size=PAGE, prefill_chunk=SF_SOUP_CHUNK,
+                      max_seq=SF_SOUP_SEQ, kv_pages=SF_SOUP_PAGES, offload=True,
+                      prefix_sharing=True, park_sessions=True, park_ttl_steps=SF_SOUP_TTL,
+                      soup=ss.Soup(**SF_SOUP), seed=seed)
+    t0 = time.perf_counter()
+    model = ss.build(w48, device)
+    s48 = ss.run_single(w48, device, model=model)
+    s48r = ss.run_single(w48r, device, model=model)
+    del model
+    if device == "cuda":
+        release()
+    s49 = ss.run_single(w49, device)
+    if device == "cuda":
+        release()
+    print(f"  the mesh=None runs of phases 48-49: {time.perf_counter() - t0:.1f} s")
+    mesh_jobs.add((1, 2), "48", w48, s48, matched=True)
+    mesh_jobs.add((1, 2), "48r", w48r, s48r, matched=True)
+    mesh_jobs.add((1, 1), "48", w48, s48)
+    mesh_jobs.add((2, 2), "49", w49, s49, matched=True)
+    return {"w48": w48, "w49": w49}
+
+
+def judge_moe_mesh(fails: Failures, plan: dict, results: dict) -> dict:
+    """Phases 48-49's checks on their mesh runs (:func:`moe_mesh_judge`,
+    and the soup's own).  Returns the runs."""
+    cfg, cfg49 = plan["w48"].config(), plan["w49"].config()
+    print(f"[48] {MOE} at full width and depth ({cfg.n_layers} layers, {cfg.moe.n_experts} "
+          f"experts, each rank holding its half) on (1, 2) ranks of one card (gloo): paged "
+          f"(paged_kernel) {MM_REQUESTS} requests, prompt {MM_PROMPT}, {MM_MAX_NEW} new, "
+          f"{SLOTS} slots; rings {MMR_REQUESTS} x {MMR_PROMPT} tokens, {MMR_MAX_NEW} new, "
+          f"{MMR_SLOTS} slot; each against its mesh-matched run; the paged workload on (1, 1) "
+          f"against mesh=None")
+    r48, r48r = results[("48", (1, 2))], results[("48r", (1, 2))]
+    r11, r49 = results[("48", (1, 1))], results[("49", (2, 2))]
+    L = cfg.n_layers
+    moe_mesh_judge(fails, f"{MOE} paged", r48, matched=True, n_layers=L, paged=True, ring=False)
+    moe_mesh_judge(fails, f"{MOE} rings", r48r, matched=True, n_layers=L, paged=False,
+                   ring=True)
+    fails.check(r48r["ring"]["mode"] == "head", f"{MOE} rings split on kv heads ({r48r['ring']})")
+    moe_mesh_judge(fails, f"{MOE} paged", r11, matched=False, n_layers=L, paged=True,
+                   ring=False)
+    print(f"[49] the event soup of {MOE} at full width and {cfg49.n_layers} of 48 layers on "
+          f"(2, 2) (paged_kernel, {SF_SOUP_PAGES} pages of {PAGE}, chunk {SF_SOUP_CHUNK}, "
+          f"max_seq {SF_SOUP_SEQ}, TTL {SF_SOUP_TTL}: {SF_SOUP}) against its mesh-matched run")
+    moe_mesh_judge(fails, f"{MOE} soup", r49, matched=True, n_layers=cfg49.n_layers, paged=True,
+                   ring=False)
+    st = r49["stats"]
+    print(f"  {MOE} soup on 2x2: {r49['requests']} requests, {st['preemptions']} preemptions / "
+          f"{st['restores']} restores, {st['park_hits']} park hits, {st['index_hits']} index "
+          f"hits, {st['cow_splits']} CoW splits, {st['park_offloads']} parked offloads; "
+          f"{r49['blobs']} blobs; slot-row bytes over data {r49['row_wire_bytes']}, K/V writes "
+          f"shared over data {r49['kv_share_bytes']} bytes; forced preemption "
+          f"{r49['sharded_preempt_ms']} ms by rank (mesh=None {r49['single_preempt_ms']})")
+    fails.check(st["preemptions"] > 0 and st["restores"] == st["preemptions"],
+                f"{MOE} soup 2x2: preempted and restored ({st['preemptions']} / "
+                f"{st['restores']})")
+    fails.check(r49["pages_move_no_bytes"], f"{MOE} soup 2x2: page moves sent "
+                f"{r49['page_wire_bytes']} collective bytes, forced preemptions "
+                f"{r49['preempt_wire']}")
+    if r49["identical_outputs"]:
+        fails.check(r49["journals_equal"], f"{MOE} soup 2x2: tokens identical to mesh=None, "
+                    f"and every rank's billed storage journal equals mesh=None's")
+    else:
+        print(f"  {MOE} soup 2x2: tokens differ from mesh=None's (the routed sum's one-ulp "
+              f"reassociation flips near-tied routes), so its journals are not comparable")
+    return {"paged": r48, "rings": r48r, "mesh11": r11, "soup": r49}
 
 
 def main() -> int:
@@ -7659,7 +8041,25 @@ def main() -> int:
     print("[40] the paged kernel per lane or head shard vs its plain version; the merged "
           "shards vs the unsharded kernel")
     phase_shard_cases(fails, args.seed)
-    sharded = phase_sharded_serving(fails, args.seed)
+    print(f"[43] the SSD scan per head shard at {SSM}'s serving shapes vs its plain version and "
+          f"the unsharded launch")
+    ssd_shards = phase_ssd_shards(fails, args.seed)
+    print(f"[47] the grouped expert kernel per expert shard and the combine's fp32 partial at "
+          f"{MOE}'s shapes vs the unsharded launch and the plain version")
+    moe_shard_records = phase_moe_shards(fails, args.seed)
+    print(f"  phases 40, 43, 47 wall {time.perf_counter() - t40:.1f} s")
+    t41 = time.perf_counter()
+    mesh_jobs = MeshJobs()
+    print(f"[41-49] the mesh=None runs of the mesh phases, then one spawn of ranks on the card "
+          f"for each mesh shape")
+    plan41 = plan_sharded_serving(mesh_jobs, args.seed)
+    plan44 = plan_sharded_features(mesh_jobs, args.seed)
+    plan48 = plan_moe_mesh(mesh_jobs, args.seed)
+    results = mesh_jobs.run()
+    print(f"  the mesh runs of phases 41-49: {time.perf_counter() - t41:.1f} s")
+    sharded = judge_sharded_serving(fails, plan41, results)
+    features = judge_sharded_features(fails, plan44, results)
+    moe_mesh = judge_moe_mesh(fails, plan48, results)
     print("[40] the per-shard kernel at the sharded serving shapes (CUDA events)")
     mesh12, hyb = sharded[(1, 2)], sharded["hybrid"]
     records.append(phase_shard_timing(
@@ -7670,17 +8070,16 @@ def main() -> int:
         fails, args.seed, f"{HYBRID} decode", SHARD_CASES[2][1], 2,
         sum(n["paged_attention"] for n in hyb["launches"]), hyb["wire_per_step"][0][0],
         n_attn))
-    print(f"  phases 40-42 wall {time.perf_counter() - t40:.1f} s")
-    release()
-    t43 = time.perf_counter()
-    print(f"[43] the SSD scan per head shard at {SSM}'s serving shapes vs its plain version and "
-          f"the unsharded launch")
-    ssd_shards = phase_ssd_shards(fails, args.seed)
-    features = phase_sharded_features(fails, args.seed)
     for rec in ssd_shards:
         rec["launches"] = features["ssd_launches"]["chunk" if rec.pop("L") > 1 else "decode"]
     records.extend(ssd_shards)
-    print(f"  phases 43-46 wall {time.perf_counter() - t43:.1f} s")
+    for rec in moe_shard_records:
+        kind = rec.pop("kind")
+        run = moe_mesh["rings" if kind == "prefill" else "paged"]["moe_launches_by_kind"]
+        rec["launches"] = sum(n[rec["name"]][kind] for n in run)
+    records.extend(moe_shard_records)
+    print(f"  phases 40-49 wall {time.perf_counter() - t40:.1f} s")
+    release()
     for recs in train_records.values():
         records.extend(recs)
     records.append(rglru_bwd)

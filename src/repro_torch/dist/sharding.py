@@ -36,7 +36,9 @@ Three layers, as in the reference:
   (``models/kvcache.py`` reads the policy's :class:`PoolShard` and
   :class:`RingShard` and merges the per-shard softmax states,
   ``models/mamba2.py`` its :class:`SSMShard` and gathers the scan's heads,
-  through the collectives named here).
+  through the collectives named here), and the MoE experts
+  (``models/moe.py`` reads its :class:`ExpertShard`, each rank computing
+  its experts' pairs and all-reducing the fp32 partial sum).
 
 Collectives are explicit: :meth:`ShardingPolicy.all_reduce` runs
 ``dist.all_reduce`` over one axis's sub-group of the ``DeviceMesh`` and
@@ -639,6 +641,66 @@ class SSMShard:
         return lo, lo + w
 
 
+def expert_serving_spec(shape: Tuple[int, ...], mesh) -> PartitionSpec:
+    """Where a serving rank keeps an expert leaf (``w_gate``/``w_up`` (E, D,
+    F), ``w_down`` (E, F, D), or any (..., E, ·, ·) stack): experts on
+    ``model``, each expert whole, replicated over ``data``.  This is the
+    reference's storage rule (``_rule_expert_in`` / ``_rule_expert_out``)
+    with its ``dp`` entry dropped, divisibility-guarded the same way: where
+    E does not divide over ``model`` every rank keeps every expert.
+
+    Divergence: the reference also splits each expert's D over ``data``
+    (FSDP), and its stationary decode then gathers the step's tokens over
+    ``dp``, psums the gate/up partials over ``dp`` and all-gathers the down
+    output over ``dp`` (``src/repro/models/moe.py:127-137``).  Here a chunk
+    step or a ring prefill belongs to one data group, so that split would
+    put three collectives on ``data`` inside every MoE layer of a step the
+    other data group does not run; it waits for ROADMAP 1.8c-ii, and costs
+    memory only where ``data`` > 1."""
+    rules = MeshRules.for_mesh(mesh)
+    return _fit_spec(_nspec(len(shape), {-3: rules.model}), tuple(shape), mesh)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertShard:
+    """Which experts of an MoE layer this rank holds and computes: ``mode``
+    "expert" (experts ``[index * n_experts / count, (index + 1) * n_experts
+    / count)``, from the rank's ``model`` coordinate) or "replicated" (every
+    expert; a size-1 ``model`` axis, or E indivisible by it);
+    ``n_experts`` is the global E (:func:`expert_serving_spec`)."""
+
+    mode: str
+    index: int
+    count: int
+    n_experts: int
+
+    @classmethod
+    def for_mesh(cls, mesh, n_experts: int) -> "ExpertShard":
+        """The shard :func:`expert_serving_spec` gives this rank of
+        ``mesh`` (rank 0's of an abstract mesh)."""
+        count = MeshRules.for_mesh(mesh).model_size(mesh)
+        if count == 1 or expert_serving_spec((n_experts, 1, 1), mesh)[0] is None:
+            return cls.whole(n_experts)
+        return cls("expert", _model_index(mesh), count, n_experts)
+
+    @classmethod
+    def whole(cls, n_experts: int) -> "ExpertShard":
+        return cls("replicated", 0, 1, n_experts)
+
+    @property
+    def split(self) -> bool:
+        return self.mode == "expert"
+
+    @property
+    def local(self) -> int:
+        """Experts this rank holds."""
+        return self.n_experts // self.count
+
+    def experts(self) -> Tuple[int, int]:
+        lo = self.index * self.local
+        return lo, lo + self.local
+
+
 # ---------------------------------------------------------------------------
 # Activation policy
 # ---------------------------------------------------------------------------
@@ -676,6 +738,7 @@ class ShardingPolicy:
     pool: Optional[PoolShard] = None     # this rank's slice of the pool
     ring: Optional[RingShard] = None     # ... of the per-slot rings
     ssm: Optional[SSMShard] = None       # ... of the SSD state's heads
+    experts: Optional[ExpertShard] = None  # ... of each MoE layer's experts (None: all)
     wire: WireCounter = dataclasses.field(default_factory=WireCounter, compare=False)
 
     @classmethod
@@ -684,7 +747,8 @@ class ShardingPolicy:
                 shard_map_pool: bool = False,
                 overrides: Optional[Dict[str, PartitionSpec]] = None,
                 pool: Optional[PoolShard] = None, ring: Optional[RingShard] = None,
-                ssm: Optional[SSMShard] = None) -> "ShardingPolicy":
+                ssm: Optional[SSMShard] = None,
+                experts: Optional[ExpertShard] = None) -> "ShardingPolicy":
         """The standard rule table.
 
         ``attn_mode="head"`` shards attention heads on ``model`` (needs the
@@ -719,7 +783,15 @@ class ShardingPolicy:
         return cls(mesh=mesh, specs=specs, rules=rules,
                    batch_shardable=batch_shardable, attn_mode=attn_mode,
                    decode_stationary=decode_stationary,
-                   shard_map_pool=shard_map_pool, pool=pool, ring=ring, ssm=ssm)
+                   shard_map_pool=shard_map_pool, pool=pool, ring=ring, ssm=ssm,
+                   experts=experts)
+
+    def whole_state(self) -> "ShardingPolicy":
+        """This policy with no decode-state shard (pool, rings, SSD state):
+        a from-scratch prefill into a fresh whole ring runs under it, its
+        MoE layers still on this rank's experts, counted in the same
+        :attr:`wire`."""
+        return dataclasses.replace(self, pool=None, ring=None, ssm=None, shard_map_pool=False)
 
     def axis_size(self, axis: str) -> int:
         return int(mesh_axes(self.mesh)[axis])

@@ -111,7 +111,10 @@
 // with the plain combine's roundings (each product bf16, the k products
 // added in order in fp32, one rounding, then the shared expert's row
 // added in bf16).  Elementwise per (token, column), so bitwise its plain
-// version; bound by bytes (k + 2 rows of D bf16 a token).
+// version; bound by bytes (k + 2 rows of D bf16 a token).  Its partial
+// mode (moe_combine_partial_launch, an expert shard's part under a mesh)
+// stores the fp32 sum uncast and adds no shared row (k rows of D bf16 in,
+// one of D fp32 out a token).
 
 
 #include <cuda_bf16.h>
@@ -1288,11 +1291,15 @@ moe_route_sort_kernel(const __grid_constant__ RouteParams p) {
 // out (T, D) = bf16(sum_j bf16(ys[pos[t k + j]] * bf16(weights[t, j]))), the
 // k products added in order in fp32 (a dropped pair's product is
 // bf16(0 * w)), then bf16(out + y_shared): the roundings of the plain
-// combine.  A thread takes 8 columns of one token (16-byte loads/stores).
+// combine.  With PARTIAL the fp32 sum itself is stored, uncast, with no
+// shared row (an expert shard's part of the routed sum, which the caller
+// all-reduces over the shards before the one cast).  A thread takes 8
+// columns of one token (16-byte loads, 16- or 32-byte stores).
+template <bool PARTIAL>
 __global__ void __launch_bounds__(128)
 moe_combine_kernel(const __nv_bfloat16* __restrict__ ys, const int* __restrict__ pos,
                    const float* __restrict__ weights, const unsigned char* __restrict__ kept,
-                   const __nv_bfloat16* __restrict__ y_shared, __nv_bfloat16* __restrict__ out,
+                   const __nv_bfloat16* __restrict__ y_shared, void* __restrict__ out_raw,
                    int T, int D, int k) {
     const int nv = D / 8;
     const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -1313,6 +1320,12 @@ moe_combine_kernel(const __nv_bfloat16* __restrict__ ys, const int* __restrict__
             acc[i] = j == 0 ? prod : __fadd_rn(acc[i], prod);
         }
     }
+    if (PARTIAL) {
+        float4* o = reinterpret_cast<float4*>(static_cast<float*>(out_raw) + (int64_t)t * D + c);
+        o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+        return;
+    }
     uint4 res;
     __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&res);
     uint4 sh = make_uint4(0u, 0u, 0u, 0u);
@@ -1325,7 +1338,7 @@ moe_combine_kernel(const __nv_bfloat16* __restrict__ ys, const int* __restrict__
         if (y_shared != nullptr)
             o[i] = __float2bfloat16_rn(__fadd_rn(__bfloat162float(o[i]), __bfloat162float(ysh[i])));
     }
-    *reinterpret_cast<uint4*>(out + (int64_t)t * D + c) = res;
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out_raw) + (int64_t)t * D + c) = res;
 }
 
 template <int TM, int EPC>
@@ -1516,10 +1529,28 @@ int moe_combine_launch(const void* ys, const void* pos, const void* weights, con
     if (T < 1 || D < 8 || D % 8 || k < 1 || (mis & 15)) return (int)cudaErrorInvalidValue;
     const int64_t blocks = ((int64_t)T * (D / 8) + 127) / 128;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    moe_combine_kernel<<<(unsigned)blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+    moe_combine_kernel<false><<<(unsigned)blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const __nv_bfloat16*>(ys), static_cast<const int*>(pos),
         static_cast<const float*>(weights), static_cast<const unsigned char*>(kept),
-        static_cast<const __nv_bfloat16*>(y_shared), static_cast<__nv_bfloat16*>(out), T, D, k);
+        static_cast<const __nv_bfloat16*>(y_shared), out, T, D, k);
+    return (int)cudaGetLastError();
+}
+
+// out (T, D) fp32 = the same sum before its cast, with no shared row (see
+// moe_combine_kernel<true>): an expert shard's partial, the pairs of other
+// shards' experts dropped through kept.  ys 16-byte aligned, out 32-byte.
+int moe_combine_partial_launch(const void* ys, const void* pos, const void* weights,
+                               const void* kept, void* out, int T, int D, int k, void* stream) {
+    const uintptr_t mis = reinterpret_cast<uintptr_t>(ys) | reinterpret_cast<uintptr_t>(out);
+    if (T < 1 || D < 8 || D % 8 || k < 1 || (mis & 15) ||
+        (reinterpret_cast<uintptr_t>(out) & 31))
+        return (int)cudaErrorInvalidValue;
+    const int64_t blocks = ((int64_t)T * (D / 8) + 127) / 128;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    moe_combine_kernel<true><<<(unsigned)blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(ys), static_cast<const int*>(pos),
+        static_cast<const float*>(weights), static_cast<const unsigned char*>(kept), nullptr,
+        out, T, D, k);
     return (int)cudaGetLastError();
 }
 

@@ -32,13 +32,20 @@ backward runs only through ``ops.MoEFFN``.
 epilogue mode, ``launches_by_route`` per route: every launch is ``wgmma``,
 on tiles of the rows the library's own plan picks, :func:`library_plan`),
 ``moe_route_kernel.launches`` (calls: one or two launches) and
-``moe_combine_kernel.launches`` theirs,
+``moe_combine_kernel.launches`` theirs (``launches_by_mode``: the bf16
+output, or the fp32 partial of an expert shard under a mesh),
 never plain-version calls; a CUDA graph's replay adds the launches it
-holds (``serve/graphs.py``).  Each backward wrapper counts its own.
+holds (``serve/graphs.py``).  The three forward wrappers also count each
+launch in ``launches_by_kind`` under the step kind their caller set with
+:func:`launch_kind` (the scheduler's decode steps, prefill chunks and
+ring prefills; "other" outside any).  Each backward wrapper counts its
+own.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -47,14 +54,33 @@ import torch
 from ..grad_guard import refuse_grad
 from . import backward_plan, plan
 from . import route_plan as route_model
-from .ref import (MODES, Route, moe_combine_backward_plain, moe_combine_plain,
+from .ref import (MODES, Route, moe_combine_backward_plain, moe_combine_partial_plain,
+                  moe_combine_plain,
                   moe_down_grad_plain, moe_experts_plain, moe_route_backward_plain,
                   moe_route_plain, moe_up_grad_plain, moe_weight_grad_plain)
 
 ROUTES = ("wgmma_bm64", "wgmma_bm128")      # wgmma on tiles of 64 or 128 rows
 ROUTE_COUNTERS = 256                        # kRouteCounters: int32 counters a device
 
+KINDS = ("decode", "chunk", "prefill", "other")   # launch_kind's step kinds
+_KIND = contextvars.ContextVar("moe_launch_kind", default="other")
+
 _lib = None
+
+
+@contextlib.contextmanager
+def launch_kind(kind: str):
+    """Within its scope the forward wrappers count their launches under
+    ``kind`` in ``launches_by_kind``: "decode" (a decode step), "chunk" (a
+    prefill chunk on a live cache), "prefill" (a from-scratch prefill into
+    a fresh ring) or "other"."""
+    if kind not in KINDS:
+        raise ValueError(f"launch kind {kind!r} is not one of {KINDS}")
+    token = _KIND.set(kind)
+    try:
+        yield
+    finally:
+        _KIND.reset(token)
 
 
 def _library() -> ctypes.CDLL:
@@ -75,6 +101,8 @@ def _library() -> ctypes.CDLL:
         lib.moe_route_launch.restype = i
         lib.moe_combine_launch.argtypes = [p, p, p, p, p, p, i, i, i, p]
         lib.moe_combine_launch.restype = i
+        lib.moe_combine_partial_launch.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.moe_combine_partial_launch.restype = i
         lib.moe_experts_error_string.argtypes = [i]
         lib.moe_experts_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -185,12 +213,14 @@ def moe_experts_kernel(mode: str, x: torch.Tensor, offsets: torch.Tensor, w1: to
     moe_experts_kernel.launches += 1
     moe_experts_kernel.launches_by_mode[mode] += 1
     moe_experts_kernel.launches_by_route[f"wgmma_bm{tile_rows}"] += 1
+    moe_experts_kernel.launches_by_kind[_KIND.get()] += 1
     return out, out_s
 
 
 moe_experts_kernel.launches = 0
 moe_experts_kernel.launches_by_mode = dict.fromkeys(MODES, 0)
 moe_experts_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
+moe_experts_kernel.launches_by_kind = dict.fromkeys(KINDS, 0)
 
 
 def library_plan(mode: str, rows0: int, n_exp: int, N0: int, rows1: int = 0,
@@ -304,20 +334,32 @@ def moe_route_kernel(x: torch.Tensor, w: torch.Tensor, k: int,
         raise RuntimeError(f"moe_route kernel launch failed for x {tuple(x.shape)}, w "
                            f"{tuple(w.shape)}, k={k}: {msg} ({err})")
     moe_route_kernel.launches += 1
+    moe_route_kernel.launches_by_kind[_KIND.get()] += 1
     return out
 
 
 moe_route_kernel.launches = 0
+moe_route_kernel.launches_by_kind = dict.fromkeys(KINDS, 0)
 
 
 def moe_combine_kernel(ys: torch.Tensor, pos: torch.Tensor, weights: torch.Tensor,
                        kept: Optional[torch.Tensor] = None,
-                       y_shared: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       y_shared: Optional[torch.Tensor] = None, *,
+                       partial: bool = False) -> torch.Tensor:
     """One launch: ys (P, D) bf16 in expert order, pos (P,) int32 each
     pair's sorted row, weights (T, k) fp32 with T k = P, kept (P,) bool or
     None, y_shared (T, D) bf16 or None -> out (T, D) bf16, bitwise
-    :func:`~.ref.moe_combine_plain`."""
+    :func:`~.ref.moe_combine_plain`.  ``partial``: out (T, D) fp32, the sum
+    before its cast, with no shared row (an expert shard's part of the
+    routed sum, which the caller all-reduces over the shards), bitwise
+    :func:`~.ref.moe_combine_partial_plain`.  A pair whose ``kept`` is
+    False is never read.  Both modes count in ``launches``, and each in
+    ``launches_by_mode`` ("bf16", "fp32")."""
+    if partial and y_shared is not None:
+        raise ValueError("the partial combine adds no shared row: add it after the reduction")
     if ys.device.type == "cpu":
+        if partial:
+            return moe_combine_partial_plain(ys, pos, weights, kept)
         return moe_combine_plain(ys, pos, weights, kept, y_shared)
     if ys.device.type != "cuda":
         raise ValueError(f"moe_combine_kernel runs on cpu or cuda, not {ys.device}")
@@ -340,25 +382,35 @@ def moe_combine_kernel(ys: torch.Tensor, pos: torch.Tensor, weights: torch.Tenso
                              f"{ys.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
     if y_shared is not None:
         _dense("y_shared", y_shared, (T, D), ys.device)
-    out = ys.new_empty((T, D))
+    out = ys.new_empty((T, D), dtype=torch.float32 if partial else ys.dtype)
     if T == 0:
         return out
     lib = _library()
+    kept_ptr = None if kept is None else kept.data_ptr()
     with torch.cuda.device(ys.device):
         stream = torch.cuda.current_stream(ys.device).cuda_stream
-        err = lib.moe_combine_launch(
-            ys.data_ptr(), pos.data_ptr(), weights.data_ptr(),
-            None if kept is None else kept.data_ptr(),
-            None if y_shared is None else y_shared.data_ptr(), out.data_ptr(), T, D, k, stream)
+        if partial:
+            err = lib.moe_combine_partial_launch(ys.data_ptr(), pos.data_ptr(),
+                                                 weights.data_ptr(), kept_ptr, out.data_ptr(),
+                                                 T, D, k, stream)
+        else:
+            err = lib.moe_combine_launch(
+                ys.data_ptr(), pos.data_ptr(), weights.data_ptr(), kept_ptr,
+                None if y_shared is None else y_shared.data_ptr(), out.data_ptr(), T, D, k,
+                stream)
     if err != 0:
         msg = lib.moe_experts_error_string(err).decode()
         raise RuntimeError(f"moe_combine kernel launch failed for ys {tuple(ys.shape)}, weights "
                            f"{tuple(weights.shape)}: {msg} ({err})")
     moe_combine_kernel.launches += 1
+    moe_combine_kernel.launches_by_mode["fp32" if partial else "bf16"] += 1
+    moe_combine_kernel.launches_by_kind[_KIND.get()] += 1
     return out
 
 
 moe_combine_kernel.launches = 0
+moe_combine_kernel.launches_by_mode = {"bf16": 0, "fp32": 0}
+moe_combine_kernel.launches_by_kind = dict.fromkeys(KINDS, 0)
 
 
 # ---------------------------------------------------------------------------

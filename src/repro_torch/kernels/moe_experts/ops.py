@@ -16,19 +16,21 @@ paths: every call without grad (serving, graphs, decode) makes it alone,
 and :func:`moe_layer`, where autograd needs it (grad mode on and an input
 that requires grad), runs it through :class:`MoEFFN`, a
 ``torch.autograd.Function`` whose backward is the kernels of
-``moe_backward.cu``.
+``moe_backward.cu``.  :func:`layer_forward_shard` is the layer on one
+expert shard under a mesh: the same launches with the combine's fp32
+partial all-reduced over ``model``.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import Callable, List, Mapping, Optional, Tuple
 
 import torch
 
 from .kernel import (moe_combine_backward_kernel, moe_combine_kernel, moe_down_grad_kernel,
                      moe_experts_kernel, moe_route_backward_kernel, moe_route_kernel,
                      moe_up_grad_kernel, moe_weight_grad_kernel)
-from .ref import Route
+from .ref import Route, shard_kept
 
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
@@ -36,22 +38,33 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+ROUTE_OBSERVERS: List[Callable[[torch.Tensor, Route], None]] = []
+"""Callbacks :func:`route` calls with each layer's input and its route,
+in order (a check that every rank of a ``model`` group routes alike adds
+one for its scope)."""
+
+
 def route(x: torch.Tensor, w: torch.Tensor, k: int,
           forced: Optional[torch.Tensor] = None) -> Route:
     """x (T, D) bf16, w (D, E) fp32 -> the layer's :class:`~.ref.Route` of
     the T tokens to k experts each (``forced`` (T, k) int32: those experts,
-    at their gates)."""
-    return moe_route_kernel(_dense(x), w.contiguous(), k, forced)
+    at their gates); each of :data:`ROUTE_OBSERVERS` then sees (x, the
+    route)."""
+    r = moe_route_kernel(_dense(x), w.contiguous(), k, forced)
+    for observe in ROUTE_OBSERVERS:
+        observe(x, r)
+    return r
 
 
 def combine(ys: torch.Tensor, pos: torch.Tensor, weights: torch.Tensor,
             kept: Optional[torch.Tensor] = None,
-            y_shared: Optional[torch.Tensor] = None) -> torch.Tensor:
+            y_shared: Optional[torch.Tensor] = None, *, partial: bool = False) -> torch.Tensor:
     """The experts' rows ``ys`` (P, D) in expert order back to their T
     tokens: each token's k rows (found through ``pos``; zero where ``kept``
-    is False) weighted and summed, plus ``y_shared`` (T, D)."""
+    is False) weighted and summed, plus ``y_shared`` (T, D).  ``partial``:
+    the fp32 sum before its cast, with no shared row."""
     return moe_combine_kernel(ys, pos, weights, kept,
-                              None if y_shared is None else _dense(y_shared))
+                              None if y_shared is None else _dense(y_shared), partial=partial)
 
 
 def expert_ffn(mlp: str, xs: torch.Tensor, offsets: torch.Tensor, experts: Mapping,
@@ -104,6 +117,34 @@ def layer_forward(mlp: str, x: torch.Tensor, w_router: torch.Tensor, experts: Ma
     kept = None if cap is None else r.rank < cap
     out = combine(ys, r.pos, r.weights, kept, y_shared)
     return out, r, (kept, xs, ys, *pre[0]) if save else None
+
+
+def layer_forward_shard(mlp: str, x: torch.Tensor, w_router: torch.Tensor, experts: Mapping,
+                        shared: Optional[Mapping], k: int, cap: Optional[int], lo: int, hi: int,
+                        all_reduce: Callable[[torch.Tensor], torch.Tensor]):
+    """One expert shard's routed FFN of a layer (experts ``[lo, hi)``,
+    ``experts`` that shard's (hi - lo, ·, ·) weights), the same five
+    launches and one collective: :func:`route` of all T tokens (every rank
+    of a ``model`` group routes them alike); the row gather; the two
+    expert launches over the shard's segment of the expert-sorted rows,
+    ``[offsets[lo], offsets[hi])``, with the route's offsets viewed at
+    ``[lo, hi]`` (no sort, no host read; the segment's rows land at their
+    sorted positions of the (T k, D) buffer, the rest never written nor
+    read), the shared expert riding in both; :func:`combine` into an fp32
+    (T, D) partial, every other shard's pair contributing exactly zero
+    through ``kept``; then ``all_reduce`` (the SUM over ``model``, in place)
+    of that partial, one cast to bf16 and the shared rows added: the order
+    of the unsharded combine, so a single shard is bitwise
+    :func:`layer_forward`.  Returns (out (T, D), the route)."""
+    r = route(x, w_router, k)
+    xs = x.index_select(0, r.tok)
+    ys, y_shared = expert_ffn(mlp, xs, r.offsets[lo:hi + 1], experts,
+                              None if shared is None else (x, shared))
+    part = combine(ys, r.pos, r.weights, shard_kept(r.idx, lo, hi, r.rank, cap), partial=True)
+    out = all_reduce(part).to(x.dtype)
+    if y_shared is not None:
+        out = out + y_shared
+    return out, r
 
 
 _KEYS = ("w_gate", "w_up", "w_down")

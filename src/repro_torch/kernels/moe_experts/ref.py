@@ -207,6 +207,23 @@ def moe_route_plain(x: torch.Tensor, w: torch.Tensor, k: int,
     return route_logits_plain(moe_router_plain(x, w), k, forced)
 
 
+def moe_combine_partial_plain(ys: torch.Tensor, pos: torch.Tensor, weights: torch.Tensor,
+                              kept: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The combine's fp32 sum before its cast: ys (P, D) bf16 in expert
+    order, pos (P,), weights (T, k) fp32, kept (P,) bool or None -> (T, D)
+    fp32, each pair's row (zero where dropped) times its weight cast to
+    bf16, the k products summed in order in fp32; no shared row.  Cast to
+    bf16 it is :func:`moe_combine_plain` without ``y_shared``, bitwise.  A
+    pair whose ``kept`` is False is never read (its row may be garbage)."""
+    T, k = weights.shape
+    picked = ys[pos.long()]                                        # back to pair order
+    if kept is not None:
+        picked = torch.where(kept[:, None], picked, torch.zeros((), dtype=picked.dtype,
+                                                                device=picked.device))
+    picked = picked * weights.reshape(-1)[:, None].to(ys.dtype)
+    return _sum_in_order(picked.reshape(T, k, -1))
+
+
 def moe_combine_plain(ys: torch.Tensor, pos: torch.Tensor, weights: torch.Tensor,
                       kept: Optional[torch.Tensor] = None,
                       y_shared: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -214,16 +231,66 @@ def moe_combine_plain(ys: torch.Tensor, pos: torch.Tensor, weights: torch.Tensor
     (P,) bool or None, y_shared (T, D) or None -> (T, D) bf16: each pair's
     row (zero where dropped) times its weight cast to bf16, the k products
     summed in order in fp32, cast, then the shared expert's row added."""
-    T, k = weights.shape
-    picked = ys[pos.long()]                                        # back to pair order
-    if kept is not None:
-        picked = torch.where(kept[:, None], picked, torch.zeros((), dtype=picked.dtype,
-                                                                device=picked.device))
-    picked = picked * weights.reshape(-1)[:, None].to(ys.dtype)
-    out = _sum_in_order(picked.reshape(T, k, -1)).to(ys.dtype)
+    out = moe_combine_partial_plain(ys, pos, weights, kept).to(ys.dtype)
     if y_shared is not None:
         out = out + y_shared
     return out
+
+
+def shard_kept(idx: torch.Tensor, lo: int, hi: int, rank: Optional[torch.Tensor] = None,
+               cap: Optional[int] = None) -> torch.Tensor:
+    """(T k,) bool in pair order: the pairs of ``idx`` (T, k) routed to an
+    expert in ``[lo, hi)`` (and, with ``cap``, of ``rank`` within it below
+    the capacity)."""
+    e = idx.reshape(-1)
+    kept = (e >= lo) & (e < hi)
+    return kept if cap is None else kept & (rank < cap)
+
+
+def moe_shard_partial_plain(mlp: str, x: torch.Tensor, r: Route, experts, lo: int, hi: int,
+                            cap: Optional[int] = None) -> torch.Tensor:
+    """One expert shard's part of a layer's routed sum: the pairs of route
+    ``r`` on experts ``[lo, hi)`` (``experts``: that shard's (hi - lo, ·,
+    ·) weights) through their FFN, at their sorted rows (their contiguous
+    segment ``[offsets[lo], offsets[hi])``), combined into an fp32 (T, D)
+    partial with every other pair contributing exactly zero."""
+    xs = x[r.tok.long()]
+    offs = r.offsets[lo:hi + 1]
+    if mlp == "swiglu":
+        ys, _ = moe_experts_plain("swiglu", xs, offs, experts["w_gate"], experts["w_up"])
+    else:
+        ys, _ = moe_experts_plain("gelu", xs, offs, experts["w_up"])
+    ys, _ = moe_experts_plain("plain", ys, offs, experts["w_down"])
+    return moe_combine_partial_plain(ys, r.pos, r.weights, shard_kept(r.idx, lo, hi, r.rank, cap))
+
+
+def moe_shards_plain(mlp: str, x: torch.Tensor, w_router: torch.Tensor, experts, shared,
+                     k: int, m: int, cap: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, Route]:
+    """A layer's routed FFN split over ``m`` expert shards, in one process:
+    the route once, each shard's :func:`moe_shard_partial_plain` over its
+    E/m experts (``experts`` whole), the partials summed in shard order in
+    fp32 (the all-reduce over ``model``), cast to bf16, then the shared
+    expert's rows added.  Returns (out (T, D), the routed sum in bf16
+    before the shared rows, the route)."""
+    r = moe_route_plain(x, w_router, k)
+    E = w_router.shape[1]
+    if E % m:
+        raise ValueError(f"{E} experts do not split over {m} shards")
+    w = E // m
+    total = None
+    for s in range(m):
+        part = moe_shard_partial_plain(mlp, x, r, {n: t[s * w:(s + 1) * w]
+                                                   for n, t in experts.items()},
+                                       s * w, (s + 1) * w, cap)
+        total = part if total is None else total + part
+    routed = total.to(x.dtype)
+    out = routed
+    if shared is not None:
+        y_s, _, _ = _ffn_plain("swiglu", x, shared["w_gate"], shared["w_up"])
+        y_s = row_products(y_s, shared["w_down"], x.dtype)
+        out = routed + y_s
+    return out, routed, r
 
 
 # ---------------------------------------------------------------------------

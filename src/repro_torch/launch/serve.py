@@ -20,10 +20,10 @@ scheduler workers (paged, parked sessions and the index journal implied;
 DPxMP`` serves through the sharded scheduler on ``DP * MP`` spawned ranks
 of a ``(data, model)`` mesh on ``--device`` (gloo; several ranks may share
 one card); every rank serves the same submits, and rank 0 reports.  Under
-``--mesh`` the paged pool and ``--kv-mode ring``, the SSM family,
-``--offload``, ``--prefix-sharing`` and ``--park-sessions`` are served;
-speculation and the MoE family are refused (``DecodeScheduler`` names the
-ROADMAP item).
+``--mesh`` the paged pool and ``--kv-mode ring``, the SSM and MoE
+families (each rank holding only its experts), ``--offload``,
+``--prefix-sharing`` and ``--park-sessions`` are served; speculation is
+refused (``DecodeScheduler`` names the ROADMAP item).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
@@ -239,7 +239,8 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
                 max_workers: Optional[int] = None, scale_to_zero: bool = False,
                 device="cuda", mesh=None) -> ServingFrontend:
     cfg = configs.get(arch).reduced()
-    model = build_model(cfg, device=device, seed=0)
+    # on a mesh an MoE model holds only this rank's experts
+    model = build_model(cfg, device=device, seed=0, mesh=mesh)
     draft_model = None
     if spec_draft is not None:
         # a self-draft reuses the target's module and weights; any other

@@ -30,6 +30,15 @@ against the same sharded scheduler serving one request at a time (the
 reference's ``sched`` claim, for the hybrid, whose recurrence feeds
 cross-shard summation order back on itself).
 
+For the MoE family each rank builds only its experts
+(``build_model(..., mesh=)``) and the verdicts add: each rank holds
+``1/|model|`` of the model's expert bytes, and every rank of a ``model``
+group routes the same inputs to the same experts (:class:`RouteDigests`
+over the first MoE calls: the first chunks and decode steps).  A free
+mesh run is held to its mesh-matched run (``--mesh-matched``): near-tied
+routes flip at one bf16 ulp, and on a split over ``model`` the routed
+sum may differ from ``mesh=None``'s by one.
+
 A :class:`Workload` with a :class:`Soup` runs the seeded event soup of the
 scheduler differential harness instead (fresh, multi-turn and
 shared-system-prompt admissions across sessions, forced preemptions with
@@ -50,6 +59,7 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -202,10 +212,51 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def build(w: Workload, device):
+def build(w: Workload, device, mesh=None):
+    """The workload's model; on a rank of ``mesh``, that rank's (an MoE
+    model holds only its experts)."""
     from ..models import build_model
 
-    return build_model(w.config(), device=device, seed=w.seed)
+    return build_model(w.config(), device=device, seed=w.seed, mesh=mesh)
+
+
+def expert_bytes(model) -> int:
+    """Bytes of the MoE expert leaves this process holds (0 outside MoE)."""
+    return sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+               if ".moe.experts." in n)
+
+
+class RouteDigests:
+    """Within its scope, a digest of every MoE layer's input and of the
+    experts its route picks (an observer of ``moe_experts.ops.route``, each
+    call: one host copy of x and of the route's experts), for the first
+    ``limit`` calls: every rank of a ``model`` group must route the same
+    tokens to the same experts, or a pair is computed by no rank or by
+    two."""
+
+    def __init__(self, limit: int):
+        self.limit = limit
+        self.digests: list = []
+
+    def _observe(self, x: torch.Tensor, r) -> None:
+        import hashlib
+
+        if len(self.digests) < self.limit:
+            h = hashlib.sha1(x.detach().contiguous().view(torch.uint8).cpu().numpy())
+            h.update(r.idx.detach().cpu().numpy().tobytes())
+            self.digests.append(h.hexdigest())
+
+    def __enter__(self):
+        from ..kernels.moe_experts.ops import ROUTE_OBSERVERS
+
+        ROUTE_OBSERVERS.append(self._observe)
+        return self
+
+    def __exit__(self, *exc):
+        from ..kernels.moe_experts.ops import ROUTE_OBSERVERS
+
+        ROUTE_OBSERVERS.remove(self._observe)
+        return False
 
 
 def scheduler(w: Workload, model, mesh=None, kv_pages: Optional[int] = None,
@@ -474,8 +525,10 @@ def sched_ref(w: Workload, model, mesh, completions) -> Dict[str, list]:
 
 def _one_decode_wire(sched, w: Workload, prompt: np.ndarray) -> int:
     """The collective bytes of one decode step of ``sched`` (every decode
-    step computes every row, so any step's bytes are every step's)."""
-    sched.submit("wire", "wire", prompt, 2)
+    step computes every row, so any step's bytes are every step's, whatever
+    the prompt: a few of its tokens are admitted, which keeps a long ring
+    prefill's transients out of this check)."""
+    sched.submit("wire", "wire", prompt[:4], 2)
     while sched.decode_tokens == 0:
         sched.step()
     return sched.last_step_wire_bytes
@@ -483,12 +536,15 @@ def _one_decode_wire(sched, w: Workload, prompt: np.ndarray) -> int:
 
 def _launch_wrappers() -> dict:
     from ..kernels.flash_attention import flash_attention_kernel
+    from ..kernels.moe_experts import moe_combine_kernel, moe_experts_kernel, moe_route_kernel
     from ..kernels.paged_attention import paged_attention_kernel
     from ..kernels.rglru_scan import rglru_scan_kernel
     from ..kernels.ssd_scan import ssd_scan_kernel
 
     return {"paged_attention": paged_attention_kernel, "rglru_scan": rglru_scan_kernel,
-            "ssd_scan": ssd_scan_kernel, "flash_attention": flash_attention_kernel}
+            "ssd_scan": ssd_scan_kernel, "flash_attention": flash_attention_kernel,
+            "moe_route": moe_route_kernel, "moe_experts": moe_experts_kernel,
+            "moe_combine": moe_combine_kernel}
 
 
 def serve_rank(mesh, w: Workload, *, mesh_matched: bool = False) -> Dict[str, Any]:
@@ -502,22 +558,27 @@ def serve_rank(mesh, w: Workload, *, mesh_matched: bool = False) -> Dict[str, An
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     wrappers = _launch_wrappers()
-    model = build(w, device)
+    model = build(w, device, mesh)
     prompts = w.prompts(model.cfg.vocab)
     store = RecordingStore()
     sched = scheduler(w, model, mesh, blob_store=store)
     for wrapper in wrappers.values():
         wrapper.launches = 0
-    ssd_kinds = wrappers["ssd_scan"].launches_by_kind
-    ssd_kinds.update(dict.fromkeys(ssd_kinds, 0))
+    by_kind = {name: wrappers[name].launches_by_kind
+               for name in ("ssd_scan", "moe_route", "moe_experts", "moe_combine")}
+    combine_modes = wrappers["moe_combine"].launches_by_mode
+    for counts in (*by_kind.values(), combine_modes):
+        counts.update(dict.fromkeys(counts, 0))
+    digests = RouteDigests(4 * model.cfg.n_layers)
     t0 = time.perf_counter()
-    if w.soup is not None:
-        run = event_soup(sched, w, model.cfg.vocab)
-        run["tokens"] = {c[1]: c[4] for c in run["completions"]}
-        run.update(steps=sched.steps, chunk_ms=[], chunk_wire=[], chunk_wire_ms=[],
-                   decode_tokens=sched.decode_tokens)
-    else:
-        run = drive(sched, w, prompts)
+    with digests if model.cfg.family == "moe" else contextlib.nullcontext():
+        if w.soup is not None:
+            run = event_soup(sched, w, model.cfg.vocab)
+            run["tokens"] = {c[1]: c[4] for c in run["completions"]}
+            run.update(steps=sched.steps, chunk_ms=[], chunk_wire=[], chunk_wire_ms=[],
+                       decode_tokens=sched.decode_tokens)
+        else:
+            run = drive(sched, w, prompts)
     _sync(device)
     wall = time.perf_counter() - t0
     policy = sched._policy
@@ -526,7 +587,12 @@ def serve_rank(mesh, w: Workload, *, mesh_matched: bool = False) -> Dict[str, An
            "wall_s": wall, "decode_tokens": run["decode_tokens"],
            "decode_steps": len(run["wire"]), "chunks_run": sched.chunks_run,
            "launches": {name: fn.launches for name, fn in wrappers.items()},
-           "ssd_launches_by_kind": dict(ssd_kinds),
+           "ssd_launches_by_kind": dict(by_kind["ssd_scan"]),
+           "moe_launches_by_kind": {name: dict(counts) for name, counts in by_kind.items()
+                                    if name != "ssd_scan"},
+           "combine_launches_by_mode": dict(combine_modes),
+           "route_digests": digests.digests, "expert_bytes": expert_bytes(model),
+           "experts": (dataclasses.asdict(policy.experts) if policy.experts else None),
            "wire_per_step": sorted(set(run["wire"])), "wire_ms": run["wire_ms"],
            "chunk_wire_ms": run["chunk_wire_ms"], "chunk_ms": run["chunk_ms"],
            "chunk_wire": sorted(set(run["chunk_wire"])), "pool_bytes": sched.pool_bytes(),
@@ -543,7 +609,10 @@ def serve_rank(mesh, w: Workload, *, mesh_matched: bool = False) -> Dict[str, An
     if w.soup is not None:
         for key in ("completions", "stats", "preempt_ms", "preempt_wire", "restore_ms"):
             out[key] = run[key]
+    if device == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
     del sched
+    _free(device)           # each scheduler's cache before the next is placed
     if w.kv_mode == "ring":
         big = scheduler(w, model, mesh, max_seq=2 * w.seq)
     else:
@@ -551,19 +620,35 @@ def serve_rank(mesh, w: Workload, *, mesh_matched: bool = False) -> Dict[str, An
     out["wire_per_step_big"] = _one_decode_wire(big, w, prompts[0])
     out["pool_bytes_4x"] = big.pool_bytes()
     del big
+    _free(device)
     if mesh_matched:
         out["matched_tokens"] = (
             sched_ref(w, model, mesh, run["completions"]) if w.soup is not None else
             drive(scheduler(w, model, mesh), w, prompts, one_at_a_time=True)["tokens"])
-    if device == "cuda":
-        out["peak_bytes"] = torch.cuda.max_memory_allocated()
     return out
+
+
+def _free(device) -> None:
+    """Collect what a finished scheduler leaves (it holds reference
+    cycles) and return the cached blocks, so several ranks' models fit one
+    card."""
+    import gc
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def serve_rank_jobs(mesh, jobs: Sequence[tuple]) -> list:
     """One rank of several mesh runs in one spawn: ``jobs`` holds
-    ``(workload, mesh_matched)`` pairs, each served by :func:`serve_rank`."""
-    return [serve_rank(mesh, w, mesh_matched=matched) for w, matched in jobs]
+    ``(workload, mesh_matched)`` pairs, each served by :func:`serve_rank`
+    on a model of its own; the last job's model (its schedulers hold
+    reference cycles) is collected before the next is built."""
+    out = []
+    for w, matched in jobs:
+        out.append(serve_rank(mesh, w, mesh_matched=matched))
+        _free(mesh.device_type)
+    return out
 
 
 def run_single(w: Workload, device, model=None) -> Dict[str, Any]:
@@ -579,6 +664,7 @@ def run_single(w: Workload, device, model=None) -> Dict[str, Any]:
         single["steps"] = sched.steps
     else:
         single = drive(sched, w, w.prompts(model.cfg.vocab))
+    single["expert_bytes"] = expert_bytes(model)
     single["pool_bytes"] = sched.pool_bytes()
     single["ring_bytes"] = sched.held_bytes(("k", "v"))
     single["state_bytes"] = sched.held_bytes(("ssm",))
@@ -625,6 +711,20 @@ def verdicts(w: Workload, single: Dict[str, Any], ranks: Sequence[Dict[str, Any]
         "chunks_run": [r["chunks_run"] for r in ranks],
     }
     res["identical_outputs"] = r0["tokens"] == single["tokens"]
+    if single.get("expert_bytes"):
+        # an MoE model: each rank holds E/mp experts (every one where E does
+        # not divide), and every rank of a model group routes alike
+        res["experts"] = r0["experts"]
+        res["expert_bytes_single"] = single["expert_bytes"]
+        res["expert_bytes_rank"] = [r["expert_bytes"] for r in ranks]
+        res["expert_split"] = all(r["expert_bytes"] * r["experts"]["count"]
+                                  == single["expert_bytes"] for r in ranks)
+        groups: Dict[int, list] = {}
+        for r in ranks:
+            groups.setdefault(r["coord"][0], []).append(r["route_digests"])
+        res["routes_agree"] = all(d == g[0] and len(d) > 0 for g in groups.values() for d in g)
+        res["combine_launches_by_mode"] = [r["combine_launches_by_mode"] for r in ranks]
+        res["moe_launches_by_kind"] = [r["moe_launches_by_kind"] for r in ranks]
     if mesh_matched:
         res["matched_identical"] = all(r["matched_tokens"] == r["tokens"] for r in ranks)
     # each rank holds 1/mp of every leaf the model axis splits (a T-split
@@ -644,6 +744,8 @@ def verdicts(w: Workload, single: Dict[str, Any], ranks: Sequence[Dict[str, Any]
                            and r["wire_per_step"][0] == r["wire_per_step_big"]
                            for r in ranks)
     checks.append(res["wire_flat"])
+    if "expert_split" in res:
+        checks += [res["expert_split"], res["routes_agree"]]
     if w.soup is not None:
         # the page moves (preemption, restore, parked offload, CoW) send
         # nothing; every rank bills what mesh=None bills; and each rank's
@@ -728,7 +830,11 @@ def main() -> None:
           f"{res['single_step_ms']} ms/step vs {res['mesh']} {res['sharded_step_ms']} ms/step; "
           f"pool {res['pool']}, rank pool bytes {res['pool_bytes_rank']} of "
           f"{res['pool_bytes_single']}; ring {res['ring']}, rank ring bytes "
-          f"{res['ring_bytes_rank']} of {res['ring_bytes_single']}; collective bytes per "
+          f"{res['ring_bytes_rank']} of {res['ring_bytes_single']}; "
+          + (f"experts {res['experts']}, rank expert bytes {res['expert_bytes_rank']} of "
+             f"{res['expert_bytes_single']}, routes agree {res['routes_agree']}; "
+             if "expert_split" in res else "")
+          + f"collective bytes per "
           f"decode step {res['wire_per_step']} ({big} {res['wire_per_step_big']}); "
           f"identical_outputs={res['identical_outputs']}"
           + (f" matched_identical={res['matched_identical']}" if args.mesh_matched else ""))

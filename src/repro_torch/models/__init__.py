@@ -26,12 +26,16 @@ from .config import ArchConfig
 
 
 def build_model(cfg: ArchConfig, *, device="cuda", seed: Optional[int] = 0,
-                train: bool = False):
+                train: bool = False, mesh=None):
     """The model for ``cfg`` on ``device``, weights drawn from a
     ``torch.Generator`` on that device seeded with ``seed``.  ``train``:
     every parameter an fp32 master that requires grad (the JAX package's
     ``PARAM_DTYPE``); otherwise each is stored in the dtype its uses cast
-    it to (bf16 but for the leaves computed in fp32), with no grad."""
+    it to (bf16 but for the leaves computed in fp32), with no grad.
+    ``mesh`` (a live ``DeviceMesh``, serving only): this rank's model, which
+    for the MoE family holds only the rank's experts
+    (:class:`~repro_torch.dist.sharding.ExpertShard`), each leaf bitwise
+    that slice of the ``mesh=None`` model's; every other weight whole."""
     if cfg.family == "dense":
         from .transformer import DenseLM as model_cls
     elif cfg.family == "moe":
@@ -46,9 +50,18 @@ def build_model(cfg: ArchConfig, *, device="cuda", seed: Optional[int] = 0,
         from .vlm import VisionLM as model_cls
     else:
         raise ValueError(f"unknown family {cfg.family}")
+    kw = {}
+    if mesh is not None:
+        if train:
+            raise NotImplementedError("training under a mesh (the reference has no sharded "
+                                      "training) is not ported, ROADMAP 1.8c")
+        if cfg.family == "moe":
+            from ..dist.sharding import ExpertShard
+
+            kw["expert_shard"] = ExpertShard.for_mesh(mesh, cfg.moe.n_experts)
     gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
     with layers.master_weights(train):
-        return model_cls(cfg, device=device, generator=gen)
+        return model_cls(cfg, device=device, generator=gen, **kw)
 
 
 __all__ = ["ArchConfig", "build_model"]

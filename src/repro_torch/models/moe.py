@@ -33,8 +33,30 @@ compute a token the same way whatever else shares the call, so a token's
 MoE output is bitwise the same in a decode step and in a chunk.  Nothing
 in the layer reads a device value on the host, so a CUDA graph can hold it.
 
-Not ported: the mesh paths (expert-parallel ``shard_map`` and the
-stationary-weights decode, ROADMAP 1.8c); ``moe_ffn(mesh=...)`` raises.
+Under a mesh (a :class:`~..dist.sharding.ShardingPolicy` installed, as
+the sharded scheduler installs it) each rank holds only its
+:class:`~..dist.sharding.ExpertShard`, experts ``[r E/m, (r + 1) E/m)``
+of each layer on ``model`` rank ``r``, whole in D, the same on every rank
+of ``data`` (``build_model(..., mesh=)`` draws each leaf and keeps the
+rank's slice); the router, the shared expert and the rest of the layer are
+whole on every rank.  ``moe_ffn`` then runs, over the tokens of its data
+group, :func:`~..kernels.moe_experts.ops.layer_forward_shard`: every rank
+of a ``model`` group routes all T tokens alike, runs the grouped kernel
+on its experts' contiguous segment of the sorted pairs, combines into an
+fp32 partial, and one ``all_reduce`` SUM over ``model`` precedes the one
+cast and the shared expert's rows.  This is the reference's
+expert-parallel ``shard_map`` body (``src/repro/models/moe.py:204-222``),
+and on a mesh with ``data`` = 1 also its stationary-weights decode
+(``:103-153``): in both no weight moves.  The reference picks between them
+by ``DECODE_TOKEN_THRESHOLD`` (2048 tokens: below it, gathering the
+experts' FSDP-split weights would dominate a decode step's collectives);
+the port keeps each expert whole in D (ROADMAP 1.8c-ii), so no weight ever
+moves and no threshold is needed: experts split (E % m = 0) take the
+shard path whatever T, experts whole (E % m != 0) run the plain layer on
+every rank with no collective.  A single shard is bitwise the plain layer;
+over m shards the routed sum differs from it only by the fp32 partials'
+reassociation before the one cast (one bf16 ulp at most).  Under grad on
+a mesh ``moe_ffn`` raises: the reference has no sharded training.
 """
 
 from __future__ import annotations
@@ -46,7 +68,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..kernels.moe_experts.ops import layer_forward, moe_layer
+from ..dist.sharding import ExpertShard, current_policy
+from ..kernels.moe_experts.ops import layer_forward, layer_forward_shard, moe_layer
 from ..kernels.moe_experts.ref import _rank_within_expert, top_k_lower_first  # noqa: F401
 from . import layers
 from .config import ArchConfig
@@ -83,16 +106,14 @@ def capacity(tokens: int, m) -> int:
 
 
 def moe_ffn(p, cfg: ArchConfig, x: torch.Tensor, *, no_drop: bool = False,
-            with_aux: bool = True, mesh=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+            with_aux: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``p`` a :class:`MoELayer`'s ``moe``; x (B, S, D) bf16 -> (output (B,
     S, D), aux load-balance loss, fp32 scalar, or None without
     ``with_aux``).  ``no_drop=True`` (decode, chunked and ring prefill)
     routes every pair; otherwise a pair past its expert's capacity
-    contributes zero."""
-    if mesh is not None:
-        raise NotImplementedError("moe_ffn over a mesh (expert-parallel shard_map and "
-                                  "stationary-weights decode) is not ported yet, "
-                                  "ROADMAP 1.8c")
+    contributes zero.  Under a policy whose :class:`ExpertShard` splits the
+    experts, the layer must hold that shard (``build_model(..., mesh=)``):
+    this rank's part of the layer and the all-reduce over ``model``."""
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
@@ -103,10 +124,28 @@ def moe_ffn(p, cfg: ArchConfig, x: torch.Tensor, *, no_drop: bool = False,
         shared = {k: layers.cast(w) for k, w in shared.items()}
     leaves = (xf, p.router["w"], *experts.values(), *(shared or {}).values())
     cap = None if no_drop else capacity(T, m)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+    policy = current_policy()
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
+    if grad and policy is not None:
+        raise NotImplementedError("moe_ffn under grad on a mesh (sharded training; the "
+                                  "reference has none) is not ported, ROADMAP 1.8c")
+    # a policy that places no experts (none, or one of another family) keeps every one whole
+    experts_at = None if policy is None else policy.experts
+    want = ExpertShard.whole(m.n_experts) if experts_at is None else experts_at
+    if p.shard != want:
+        raise ValueError(f"this layer holds experts {p.shard.experts()} of {m.n_experts} (rank "
+                         f"{p.shard.index} of {p.shard.count} on model) but runs under "
+                         f"{'no policy' if policy is None else f'a policy of {want}'}: "
+                         f"serve it under its mesh's ShardingPolicy")
+    if grad:
         # training: the same launches through MoEFFN, whose backward is the kernels'
         out, gates, offsets = moe_layer(cfg.mlp, xf, p.router["w"], experts, shared, m.top_k,
                                         cap)
+    elif want.split:
+        lo, hi = want.experts()
+        out, r = layer_forward_shard(cfg.mlp, xf, p.router["w"], experts, shared, m.top_k, cap,
+                                     lo, hi, lambda t: policy.all_reduce(t, "sum"))
+        gates, offsets = r.gates, r.offsets
     else:
         out, r, _ = layer_forward(cfg.mlp, xf, p.router["w"], experts, shared, m.top_k, cap)
         gates, offsets = r.gates, r.offsets
@@ -119,16 +158,25 @@ def moe_ffn(p, cfg: ArchConfig, x: torch.Tensor, *, no_drop: bool = False,
 # ---------------------------------------------------------------------------
 
 
-def init_experts(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+def init_experts(gen: torch.Generator, cfg: ArchConfig,
+                 shard: Optional[ExpertShard] = None) -> Dict[str, torch.Tensor]:
     """Stacked (E, ...) expert weights with the JAX package's distributions,
     each drawn in fp32 and cast to bf16 at once (one (E, D, F) fp32
-    transient at a time); fp32 masters while building masters."""
+    transient at a time); fp32 masters while building masters.  With a
+    split ``shard`` each leaf keeps only the shard's experts, bitwise that
+    slice of the whole model's at the same seed (the whole leaf is drawn,
+    sliced and freed, leaf by leaf); None or a whole shard keeps every
+    expert."""
     m = cfg.moe
     d, f, E = cfg.d_model, m.d_expert, m.n_experts
+    lo, hi = (0, E) if shard is None else shard.experts()
 
     def draw(d_in, d_out):
         w = torch.randn(E, d_in, d_out, generator=gen, device=gen.device,
-                        dtype=layers.PARAM_DTYPE).mul_(1.0 / math.sqrt(d_in))
+                        dtype=layers.PARAM_DTYPE)
+        if hi - lo < E:
+            w = w[lo:hi].clone()
+        w.mul_(1.0 / math.sqrt(d_in))
         return w if layers.building_masters() else layers.cast(w)
 
     out = {"w_gate": draw(d, f)} if cfg.mlp == "swiglu" else {}
@@ -140,10 +188,13 @@ def init_experts(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tenso
 class MoELayer(nn.Module):
     """Parameters of one MoE decoder layer, named as in the JAX tree:
     ``attn_norm``, ``attn``, ``mlp_norm`` and ``moe`` with ``router.w``
-    (D, E) fp32, ``experts.{w_gate, w_up, w_down}`` (E, ...) bf16 and, for
-    moonshot, ``shared.{w_gate, w_up, w_down}``."""
+    (D, E) fp32, ``experts.{w_gate, w_up, w_down}`` (E, ...) bf16 (this
+    rank's E/m under a split ``shard``) and, for moonshot,
+    ``shared.{w_gate, w_up, w_down}``; ``moe.shard`` is the
+    :class:`ExpertShard` it holds (whole without one)."""
 
-    def __init__(self, cfg: ArchConfig, gen: torch.Generator):
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator,
+                 shard: Optional[ExpertShard] = None):
         super().__init__()
         self.attn_norm = _params(_store(layers.init_norm(cfg.norm, cfg.d_model, gen.device)))
         self.attn = _params(_store(layers.init_attention(gen, cfg),
@@ -152,7 +203,8 @@ class MoELayer(nn.Module):
         self.moe = nn.Module()
         self.moe.router = _params({"w": layers.dense_init(gen, cfg.d_model,
                                                           cfg.moe.n_experts)})
-        self.moe.experts = _params(init_experts(gen, cfg))
+        self.moe.shard = shard or ExpertShard.whole(cfg.moe.n_experts)
+        self.moe.experts = _params(init_experts(gen, cfg, self.moe.shard))
         if has_shared_expert(cfg):
             self.moe.shared = _params(_store(layers.init_mlp(gen, cfg,
                                                              d_ff=2 * cfg.moe.d_expert)))
@@ -168,12 +220,20 @@ def moe_residual(p: MoELayer, cfg: ArchConfig, x: torch.Tensor, *, no_drop: bool
 
 
 class MoELM(DenseLM):
-    """MoE decoder LM: :class:`DenseLM` with :class:`MoELayer` layers.
+    """MoE decoder LM: :class:`DenseLM` with :class:`MoELayer` layers
+    (``expert_shard``: the :class:`ExpertShard` each layer holds, a split
+    one under a mesh, whole without one).
     ``apply``/``loss_aux`` route with capacity dropping, as the JAX
     package's forward does; ``decode_step`` and ``prefill`` route drop-free."""
 
+    def __init__(self, cfg: ArchConfig, *, device="cuda",
+                 generator: Optional[torch.Generator] = None,
+                 expert_shard: Optional[ExpertShard] = None):
+        self.expert_shard = expert_shard or ExpertShard.whole(cfg.moe.n_experts)
+        super().__init__(cfg, device=device, generator=generator)
+
     def _make_layer(self, cfg: ArchConfig, gen: torch.Generator) -> nn.Module:
-        return MoELayer(cfg, gen)
+        return MoELayer(cfg, gen, self.expert_shard)
 
     def _layer_decode(self, p, x: torch.Tensor, layer_cache: Dict, pos: torch.Tensor,
                       fresh: bool) -> torch.Tensor:

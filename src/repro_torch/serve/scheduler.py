@@ -167,10 +167,15 @@ snapshot when a parked slot is reclaimed) move over ``data`` as a SUM of a
 zero-filled buffer, so a session may come back in a slot another data
 group holds.  The steps run under the policy's scope
 (:func:`..dist.sharding.activation_sharding`) and eagerly: a collective
-cannot be captured in a CUDA graph.  Refused under a mesh: speculation,
+cannot be captured in a CUDA graph.  The MoE family runs each layer on
+the rank's expert shard (:class:`..dist.sharding.ExpertShard`; the model,
+from ``build_model(..., mesh=)``, holds only those experts) with one
+all-reduce over ``model`` a layer; ring mode's
+prefill runs under the policy without its state shards
+(``ShardingPolicy.whole_state``).  Refused under a mesh: speculation,
 the fleet's cross-worker hand-over (``externalize_session``,
 ``adopt_parked``, ``adopt_index_journal`` and ``index_journal=True``: a
-blob is per shard here) until ROADMAP 1.8b-iii, the MoE family until 1.8c.
+blob is per shard here) until ROADMAP 1.8b-iii.
 """
 
 from __future__ import annotations
@@ -185,6 +190,7 @@ import torch
 from ..core.storage import PageBlobStore
 from ..dist import sharding
 from ..dist.compat import DeviceMesh
+from ..kernels.moe_experts.kernel import launch_kind
 from ..models import kvcache
 from . import sampling
 from .engine import (make_chunk_step, make_draft_catchup_step, make_draft_step,
@@ -269,10 +275,26 @@ def _mesh_refusals(model, *, index_journal, draft_model, spec_k) -> List[str]:
     """What ``mesh=`` cannot serve yet, each with the ROADMAP item that
     ports it."""
     return [f"{what} under mesh=, ROADMAP {item}" for what, item, refused in (
-        ("the MoE family", "1.8c", model.cfg.family == "moe"),
         ("index_journal=True", "1.8b-iii", index_journal),
         ("speculative decoding (spec_k > 0)", "1.8b-iii",
          draft_model is not None and spec_k > 0)) if refused]
+
+
+def _same_everywhere(params, group=None) -> None:
+    """Raise unless every rank of ``group`` (default: all) holds the same
+    ``params``: two all-reduced checksums (a ramp-weighted and an absolute
+    sum of the leaves' sums)."""
+    import torch.distributed as dist
+
+    sums = torch.stack([p.detach().float().sum() for p in params]).double().cpu()
+    ramp = torch.arange(1, len(sums) + 1, dtype=torch.float64)
+    local = torch.stack([(sums * ramp).sum(), sums.abs().sum()])
+    hi, lo = local.clone(), -local
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MAX, group=group)
+    if not torch.equal(hi, -lo):
+        raise RuntimeError(f"ranks hold different weights (checksums span {(-lo).tolist()} "
+                           f"to {hi.tolist()}): build every rank's model from one seed")
 
 
 class DecodeScheduler:
@@ -496,13 +518,20 @@ class DecodeScheduler:
         msize = rules.model_size(mesh)
         cfg = model.cfg
         n_kv = getattr(cfg, "n_kv_heads", 0) or getattr(cfg, "n_heads", 1)
+        experts = None
+        if cfg.family == "moe":
+            experts = sharding.ExpertShard.for_mesh(mesh, cfg.moe.n_experts)
+            if model.expert_shard != experts:
+                raise ValueError(f"the model holds {model.expert_shard} but this rank of the "
+                                 f"mesh computes {experts}: build it with "
+                                 f"build_model(..., mesh=mesh)")
         return sharding.ShardingPolicy.default(
             mesh,
             batch_shardable=bool(rules.dp) and self.n_slots % rules.dp_size(mesh) == 0,
             attn_mode="head" if n_kv % msize == 0 else "seq",
             decode_stationary=True,
             shard_map_pool=self.attn_backend == "paged_kernel",
-            pool=pool, ring=ring, ssm=ssm)
+            pool=pool, ring=ring, ssm=ssm, experts=experts)
 
     def _place_cache(self, model, mesh) -> Dict[str, torch.Tensor]:
         """This rank's part of the cache (paged or rings), by
@@ -550,19 +579,15 @@ class DecodeScheduler:
 
     def _check_same_weights(self, model) -> None:
         """Every rank must hold the same weights (each builds its model from
-        the same seed): an all-reduced checksum, once."""
-        import torch.distributed as dist
-
-        sums = torch.stack([p.detach().float().sum() for p in model.parameters()])
-        sums = sums.double().cpu()
-        ramp = torch.arange(1, len(sums) + 1, dtype=torch.float64)
-        local = torch.stack([(sums * ramp).sum(), sums.abs().sum()])
-        hi, lo = local.clone(), -local
-        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
-        dist.all_reduce(lo, op=dist.ReduceOp.MAX)
-        if not torch.equal(hi, -lo):
-            raise RuntimeError(f"ranks hold different weights (checksums span {(-lo).tolist()} "
-                               f"to {hi.tolist()}): build every rank's model from one seed")
+        the same seed): an all-reduced checksum, once.  A rank holding only
+        its experts checks them against its ``data`` group (the ranks of its
+        ``model`` coordinate), and every other leaf against every rank."""
+        split = model.cfg.family == "moe" and model.expert_shard.split
+        named = list(model.named_parameters())
+        _same_everywhere([p for n, p in named if not (split and ".moe.experts." in n)])
+        if split:
+            _same_everywhere([p for n, p in named if ".moe.experts." in n],
+                             self._mesh.get_group("data"))
 
     def _local_row(self, slot: int) -> Optional[int]:
         """``slot``'s row in this rank's cache, or None where another data
@@ -891,10 +916,20 @@ class DecodeScheduler:
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int32).reshape(1, -1))
         row = self._local_row(slot.index)
         logits = None
+        if row is not None and self._mesh is None:
+            with launch_kind("prefill"):
+                logits, one = self.model.prefill(prompt.to(self.device), seq_len=self.max_seq)
+        elif row is not None:
+            # the fresh B=1 ring is whole; an MoE layer still runs on this
+            # rank's experts and all-reduces over its model group
+            wire = self._policy.wire
+            sent, secs = wire.bytes, wire.seconds
+            with sharding.activation_sharding(self._policy.whole_state()), launch_kind("prefill"):
+                logits, one = self.model.prefill(prompt.to(self.device), seq_len=self.max_seq)
+            self.last_chunk_wire_bytes = wire.bytes - sent
+            self.last_chunk_wire_ms = (wire.seconds - secs) * 1e3
+            self.chunks_run += 1
         if row is not None:
-            logits, one = self.model.prefill(prompt.to(self.device), seq_len=self.max_seq)
-            if self._mesh is not None:
-                self.chunks_run += 1
             with sharding.activation_sharding(self._policy):
                 kvcache.cache_insert_slot(self.cache, one, row)
         slot.len = prompt.shape[1]
@@ -1460,25 +1495,26 @@ class DecodeScheduler:
         output, valid until its next replay); any other chunk runs
         eagerly.  Under a mesh, a rank whose data group does not hold the
         slot runs nothing and returns None."""
-        if self._mesh is not None:
-            row = self._local_row(slot)
-            if row is None:
-                return None
-            self.chunks_run += 1
-            wire = self._policy.wire
-            sent, secs = wire.bytes, wire.seconds
+        with launch_kind("chunk"):
+            if self._mesh is not None:
+                row = self._local_row(slot)
+                if row is None:
+                    return None
+                self.chunks_run += 1
+                wire = self._policy.wire
+                sent, secs = wire.bytes, wire.seconds
+                tokens = torch.as_tensor(chunk, dtype=torch.int32).to(self.device)[None]
+                logits = self._chunk(self.cache, tokens, row)[0]
+                self.last_chunk_wire_bytes = wire.bytes - sent
+                self.last_chunk_wire_ms = (wire.seconds - secs) * 1e3
+                return logits
+            if self.graphs is not None and len(chunk) == self.prefill_chunk:
+                self._chunk_tokens.copy_(torch.from_numpy(chunk).view(1, -1))
+                self._chunk_at.fill_(slot)
+                return self.graphs.run("chunk", lambda: self._chunk(
+                    self.cache, self._chunk_tokens, self._chunk_at)[0])
             tokens = torch.as_tensor(chunk, dtype=torch.int32).to(self.device)[None]
-            logits = self._chunk(self.cache, tokens, row)[0]
-            self.last_chunk_wire_bytes = wire.bytes - sent
-            self.last_chunk_wire_ms = (wire.seconds - secs) * 1e3
-            return logits
-        if self.graphs is not None and len(chunk) == self.prefill_chunk:
-            self._chunk_tokens.copy_(torch.from_numpy(chunk).view(1, -1))
-            self._chunk_at.fill_(slot)
-            return self.graphs.run("chunk", lambda: self._chunk(
-                self.cache, self._chunk_tokens, self._chunk_at)[0])
-        tokens = torch.as_tensor(chunk, dtype=torch.int32).to(self.device)[None]
-        return self._chunk(self.cache, tokens, slot)[0]
+            return self._chunk(self.cache, tokens, slot)[0]
 
     # -- decode loop ---------------------------------------------------------------
 
@@ -1535,11 +1571,12 @@ class DecodeScheduler:
 
     def _decode(self) -> None:
         """The batched decode step over ``self._active``."""
-        if self._mesh is not None:
-            self._mesh_decode()
-            return
-        self._graphed("decode", lambda: self._step_impl(
-            self.cache, self.last_tokens, self.out_buf, self.out_pos, self._active))
+        with launch_kind("decode"):
+            if self._mesh is not None:
+                self._mesh_decode()
+                return
+            self._graphed("decode", lambda: self._step_impl(
+                self.cache, self.last_tokens, self.out_buf, self.out_pos, self._active))
 
     def _spec_round(self, active: List[int]) -> None:
         """One draft-and-verify round over the ACTIVE slots (``_active``

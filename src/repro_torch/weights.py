@@ -168,15 +168,31 @@ def _flat_layers(tree: Mapping, cfg):
     yield from _stacked(tree, "layers", cfg.n_layers)
 
 
-def params_from_jax(tree: Mapping, cfg, device="cuda", master: bool = False
+def _is_expert(path: Tuple[str, ...]) -> bool:
+    return tuple(path[-3:-1]) == ("moe", "experts")
+
+
+def params_from_jax(tree: Mapping, cfg, device="cuda", master: bool = False, mesh=None
                     ) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) -> the port's state dict; every
-    leaf fp32 (no cast) with ``master``."""
+    leaf fp32 (no cast) with ``master``.  With ``mesh`` (serving), the state
+    dict of this rank's model (``build_model(..., mesh=)``): each MoE
+    layer's expert leaves hold only the rank's
+    :class:`~repro_torch.dist.sharding.ExpertShard`, every other leaf
+    whole."""
+    shard = None
+    if mesh is not None and cfg.family == "moe":
+        from .dist.sharding import ExpertShard
+
+        shard = ExpertShard.for_mesh(mesh, cfg.moe.n_experts)
     sd: Dict[str, torch.Tensor] = {}
     for group in ("embedding", "final_norm", "enc_norm", "patch_proj"):
         for path, a in _leaves(tree.get(group, {})):
             sd[".".join((group,) + path)] = _tensor(a, cfg, (group,) + path, device, master)
     for i, path, a in _flat_layers(tree, cfg):
+        if shard is not None and _is_expert(path):
+            lo, hi = shard.experts()
+            a = np.asarray(a)[lo:hi]
         sd[f"layers.{i}.{'.'.join(path)}"] = _tensor(a, cfg, path, device, master)
     if "enc_layers" in tree:
         for i, path, a in _stacked(tree, "enc_layers", cfg.encdec.n_encoder_layers):
@@ -185,7 +201,9 @@ def params_from_jax(tree: Mapping, cfg, device="cuda", master: bool = False
 
 
 def params_to_numpy(state: Mapping[str, torch.Tensor], cfg) -> Dict:
-    """The port's state dict -> the JAX tree layout, fp32 numpy leaves."""
+    """The port's state dict -> the JAX tree layout, fp32 numpy leaves.
+    Refuses a rank's model that holds only its experts (``build_model(...,
+    mesh=)``): that state is one shard of the tree."""
     def arr(t):
         return t.detach().float().cpu().numpy()
 
@@ -193,6 +211,10 @@ def params_to_numpy(state: Mapping[str, torch.Tensor], cfg) -> Dict:
     stacks: Dict = {"layers": {}, "enc_layers": {}}
     for key, t in state.items():
         parts = key.split(".")
+        if cfg.family == "moe" and _is_expert(tuple(parts)) and t.shape[0] != cfg.moe.n_experts:
+            raise ValueError(f"{key} holds {t.shape[0]} of {cfg.moe.n_experts} experts (one "
+                             f"rank's shard under a mesh): params_to_numpy takes a whole "
+                             f"model; gather the experts over the model axis first")
         if parts[0] in stacks:
             stacks[parts[0]].setdefault(tuple(parts[2:]), {})[int(parts[1])] = arr(t)
         else:

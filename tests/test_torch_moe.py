@@ -326,9 +326,15 @@ def test_model_builds_and_mesh_paths_raise():
     shared = 3 * small.d_model * 2 * small.moe.d_expert * small.n_layers
     norms = (2 * small.n_layers + 1) * small.d_model      # not counted there either
     assert sum(p.numel() for p in tm.parameters()) == small.param_count() + shared + norms
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tmoe.moe_ffn(tm.layers[0].moe, small, torch.zeros(1, 2, small.d_model).bfloat16(),
-                     mesh=object())
+    # the mesh path serves (tests/test_torch_moe_mesh.py); training on it raises
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.compat import AbstractMesh
+
+    policy = shd.ShardingPolicy.default(AbstractMesh((1, 2), ("data", "model")))
+    master = build_model(small, device="cpu", train=True)
+    with shd.activation_sharding(policy), pytest.raises(NotImplementedError,
+                                                        match="not ported, ROADMAP 1.8c"):
+        tmoe.moe_ffn(master.layers[0].moe, small, torch.zeros(1, 2, small.d_model).bfloat16())
 
 
 def _cuda_case(mode, gen, lens, K, N, shared_rows):

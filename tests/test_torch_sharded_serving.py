@@ -179,7 +179,10 @@ def _tiny(arch):
 
 
 REFUSALS = [
-    ("moonshot-v1-16b-a3b", dict(), "the MoE family under mesh=, ROADMAP 1.8c"),
+    # the MoE family is served on a mesh (tests/test_torch_moe_mesh_serving.py);
+    # its speculation still raises
+    ("moonshot-v1-16b-a3b", dict(spec_k=2, draft="self"),
+     r"speculative decoding \(spec_k > 0\) under mesh=, ROADMAP 1\.8b-iii"),
     ("minicpm-2b", dict(spec_k=2, draft="self"),
      r"speculative decoding \(spec_k > 0\) under mesh=, ROADMAP 1\.8b-iii"),
     ("minicpm-2b", dict(), "abstract mesh is ROADMAP 1.9"),
@@ -195,7 +198,8 @@ REFUSALS = [
 
 
 @pytest.mark.parametrize("arch,kw,match", REFUSALS,
-                         ids=[m.split(" under")[0][:24] for _, _, m in REFUSALS])
+                         ids=["the MoE family" if a.startswith("moonshot") else
+                              m.split(" under")[0][:24] for a, _, m in REFUSALS])
 def test_mesh_refusals_raise(runs, arch, kw, match):
     kw = dict(kw)
     call = kw.pop("call", None)
