@@ -538,13 +538,43 @@ last line is printed):
     its 48 layers (four ranks' weights on one card) on (2, 2) against its
     mesh-matched run, with the checks of 48 and the soup's preemptions,
     page moves and (where the tokens are ``mesh=None``'s) journals.
+50. Speculation on a mesh (gather, greedy): (a) phase 41's minicpm-2b
+    workload at full width and depth on (1, 2) with the self-draft at k = 3
+    and a draft reseeded +P26_RESEED at k = 2, and on (2, 2) with the
+    self-draft, each held to the ``mesh=None`` run without speculation
+    (tokens equal, or near-tied at each stream's first divergence), the
+    self-draft's acceptance at least 0.5, one round's collective bytes
+    (flat at a 4x pool) and ms by rank; (b) moonshot-v1-16b-a3b at full
+    width and depth on (1, 2), self-draft k = 3, 4 requests, prompt 256,
+    4 new, held to its mesh-matched run without speculation (tokens equal,
+    or near-tied at each stream's first divergence, as 26c), routes
+    bitwise across ``model``, every MoE wrapper's launches by step kind
+    exactly layers x (rounds x k) draft, layers x rounds verify and layers
+    x chunks, and none else; peak memory by rank.
+51. The elastic fleet on (1, 2): P51_WORKERS workers of 4 slots of
+    minicpm-2b at full width and depth (``paged_kernel``, parking, prefix
+    sharing, the index journal) serve phase 41's requests in one burst
+    over a 2-page system prompt, with a crash mid-decode and one
+    mid-restore (P51_CRASHES), scale to zero, then cold start for a second
+    turn on two sessions (adopting their parked records and the journaled
+    index pages) and scale to zero again; held to the same fleet on
+    ``mesh=None`` token for token, its stats and its log of events and
+    adoptions equal; every rank's fleet agrees (an all-reduced digest);
+    each rank's page blobs its lane shard of ``mesh=None``'s (layer 0
+    bitwise, deeper layers within the bounds of 46); every rank bills what
+    ``mesh=None`` bills; paged-kernel launches = layers x that rank's
+    worker decode steps, by counter.
 
-Phases 40-49 run after 33 in this order: the kernel checks of 40, 43 and
-47; the ``mesh=None`` runs of 41-49's workloads, one model at a time;
-one spawn of ranks for each mesh shape (``MeshJobs``: (1, 2) serves 41,
-42, 44-46 and 48 in turn, (2, 2) 41, 46 and 49, (1, 1) 46 and 48; a
-spawn's ranks pay their start, CUDA and gloo set-up once); then each
-phase's checks, and 40's timing at the shapes 41-42 served.
+Phases 40-51 run after 33 in this order: the kernel checks of 40, 43 and
+47; the ``mesh=None`` runs of moonshot's workloads (48-49, 50b); one
+spawn of ranks for each mesh shape (``MeshJobs``: (1, 2) serves 41, 42,
+44-46, 50a and 51, then 48 and 50b, (2, 2) 41, 46, 50a and 49, (1, 1) 46
+and 48; a spawn's ranks pay their start, CUDA and gloo set-up once; each
+job prints its wall by rank, the first of a spawn a probe of its ranks'
+host and card), the ``mesh=None`` runs of the other workloads made in
+this process while the first spawn serves; then each phase's checks, and
+40's timing at the shapes 41-42 served.  Every phase prints its wall
+(``wall: <phase> <s> s``).
 
 On the card the scheduler replays a CUDA graph for every decode step and
 every 256-token chunk (``serve/graphs.py``), so phases 3, 6, 11, 17, 19,
@@ -654,6 +684,47 @@ def smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def parent_state() -> dict:
+    """This process's share of the card and the host just before it spawns
+    ranks: the allocator's reserved and allocated GiB, the card's used MiB
+    (``nvidia-smi``), this process's resident GiB, the host's available
+    GiB, its Python and OS threads, and the host's load average."""
+    import threading
+
+    import torch
+
+    out = {"reserved_gib": torch.cuda.memory_reserved() / 2**30,
+           "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+           "threads": [t.name for t in threading.enumerate()]}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    out["smi_used"] = smi.stdout.strip()
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(("VmRSS:", "Threads:")):
+                key, val = line.split()[:2]
+                out[key.rstrip(":")] = int(val)
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                out["mem_available_gib"] = int(line.split()[1]) / 2**20
+    with open("/proc/loadavg") as f:
+        out["loadavg"] = f.read().split()[:3]
+    return out
+
+
+class Walls:
+    """Each phase's wall seconds, printed as it ends (``wall: <phase> <s> s``)."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+
+    def mark(self, label: str) -> None:
+        now = time.perf_counter()
+        print(f"  wall: {label} {now - self.t:.1f} s (at {now - self.t0:.1f} s)")
+        self.t = now
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 5) -> float:
@@ -6810,33 +6881,97 @@ def sharded_judge(fails: Failures, label: str, res: dict, model_fn, cfg, prompts
 
 
 class MeshJobs:
-    """The mesh phases' workloads (41-42, 44-46, 48-49) gathered by mesh
+    """The mesh phases' workloads (41-42, 44-46, 48-51) gathered by mesh
     shape, so that each shape is one spawn of ranks on the card (a spawn
     pays its ranks' start, CUDA and gloo set-up once): each job is a
     workload, whether it is held to its mesh-matched run, and its
-    ``mesh=None`` run, made beforehand in this process."""
+    ``mesh=None`` run: a dict made beforehand, or a function that makes it
+    in this process while the first spawn's ranks serve (this process
+    would idle otherwise).  A ``late`` job runs last in its spawn, and in
+    the first spawn only once those functions are done and their models
+    freed: its ranks need the card to themselves (two ranks of moonshot
+    hold 62 GiB)."""
 
     def __init__(self):
-        self.jobs: dict = {}        # (dp, mp) -> [(key, workload, matched, single)]
+        self.jobs: dict = {}        # (dp, mp) -> [job dicts]
 
-    def add(self, mesh: tuple, key: str, w, single: dict, matched: bool = False) -> None:
-        self.jobs.setdefault(mesh, []).append((key, w, matched, single))
+    def add(self, mesh: tuple, key: str, w, single, matched: bool = False,
+            late: bool = False) -> None:
+        self.jobs.setdefault(mesh, []).append(
+            {"key": key, "w": w, "matched": matched, "single": single, "late": late})
 
     def run(self, device: str = "cuda") -> dict:
         """Every mesh shape's jobs in one spawn; ``{(key, mesh): verdicts}``."""
+        import os
+        import resource
+        import shutil
+        import tempfile
+
         from repro_torch.launch import sharded_smoke as ss
 
         out = {}
+        pending = [j for jobs in self.jobs.values() for j in jobs if callable(j["single"])]
         for (dp, mp), jobs in self.jobs.items():
+            jobs = sorted(jobs, key=lambda j: j["late"])
+            gate, gate_dir = None, None
+            if pending and any(j["late"] for j in jobs):
+                gate_dir = tempfile.mkdtemp(prefix="mesh_jobs_")
+                gate = (next(i for i, j in enumerate(jobs) if j["late"]),
+                        os.path.join(gate_dir, "go"))
+            if device == "cuda":
+                print(f"  ({dp}, {mp}) spawn: this process before it {parent_state()}")
             t0 = time.perf_counter()
-            res = ss.run_smoke([w for _, w, _, _ in jobs], dp=dp, mp=mp, device=device,
-                               mesh_matched=[m for _, _, m, _ in jobs],
-                               singles=[single for *_, single in jobs])
-            print(f"  ({dp}, {mp}): {[key for key, *_ in jobs]} in {time.perf_counter() - t0:.1f} "
-                  f"s with the spawn")
-            for (key, *_), r in zip(jobs, res):
-                out[(key, (dp, mp))] = r
+            cpu0 = resource.getrusage(resource.RUSAGE_SELF)
+            ranks = ss.Ranks(ss.serve_rank_jobs,
+                             ([(j["w"], j["matched"]) for j in jobs], gate), dp=dp, mp=mp,
+                             device=device)
+            try:
+                try:
+                    if pending:
+                        t1 = time.perf_counter()
+                        for j in pending:
+                            j["single"] = j["single"]()
+                            if device == "cuda":
+                                release()
+                        print(f"  the mesh=None runs of {[j['key'] for j in pending]}, while "
+                              f"the ranks served: {time.perf_counter() - t1:.1f} s")
+                        pending = []
+                    if gate is not None:
+                        open(gate[1], "w").close()
+                except BaseException:
+                    ranks.kill()
+                    raise
+                results = ranks.join()
+            finally:
+                if gate_dir is not None:
+                    shutil.rmtree(gate_dir, ignore_errors=True)
+            cpu1 = resource.getrusage(resource.RUSAGE_SELF)
+            print(f"  ({dp}, {mp}): {[j['key'] for j in jobs]} in {time.perf_counter() - t0:.1f} "
+                  f"s with the spawn; this process's CPU over the spawn "
+                  f"{cpu1.ru_utime - cpu0.ru_utime:.1f} s user, "
+                  f"{cpu1.ru_stime - cpu0.ru_stime:.1f} s system")
+            for i, j in enumerate(jobs):
+                r = ss.verdicts(j["w"], j["single"], [ranks_out[i] for ranks_out in results],
+                                dp=dp, mp=mp, device=device, mesh_matched=j["matched"])
+                print(f"    job {j['key']} on ({dp}, {mp}): {[round(s, 1) for s in r['job_s']]} s "
+                      f"by rank; a decode step (or round) "
+                      f"{[x and round(x, 3) for x in r['sharded_step_ms']]} ms, in collectives "
+                      f"{[x and round(x, 3) for x in r['wire_ms_per_step']]} ms"
+                      + (f"; the ranks' probes {r['probe']}" if r["probe"][0] else ""))
+                out[(j["key"], (dp, mp))] = r
         return out
+
+
+def _memo(fn):
+    """``fn`` called once: the first call's result, kept for the next."""
+    kept = []
+
+    def once():
+        if not kept:
+            kept.append(fn())
+        return kept[0]
+
+    return once
 
 
 def _lazy_model(w, device: str):
@@ -6853,7 +6988,8 @@ def plan_sharded_serving(jobs: MeshJobs, seed: int, *, device: str = "cuda",
     full width on (1, 2) and (2, 2) ranks of the one card
     (``paged_kernel``), recurrentgemma-2b at full width on (1, 2) against
     its mesh-matched run (``n_layers`` cuts both; ``reduced`` for a CPU
-    rehearsal)."""
+    rehearsal); the ``mesh=None`` runs are made while the ranks serve
+    (:class:`MeshJobs`)."""
     from repro_torch.launch import sharded_smoke as ss
 
     w = ss.Workload(arch=ARCH, reduced=reduced, n_layers=n_layers, attn_backend="paged_kernel",
@@ -6862,13 +6998,10 @@ def plan_sharded_serving(jobs: MeshJobs, seed: int, *, device: str = "cuda",
                     seed=seed)
     hw = dataclasses.replace(w, arch=HYBRID, n_requests=SHH_REQUESTS, sessions=SHH_REQUESTS,
                              prompt_len=SHH_PROMPT, max_new=SHH_MAX_NEW)
-    single = ss.run_single(w, device)
-    hsingle = ss.run_single(hw, device)
-    if device == "cuda":
-        release()           # the mesh=None runs' models, schedulers and graphs
+    single = _memo(lambda: ss.run_single(w, device))
     for mesh in SHARD_MESHES:
         jobs.add(mesh, "41", w, single)
-    jobs.add((1, 2), "42", hw, hsingle, matched=True)
+    jobs.add((1, 2), "42", hw, _memo(lambda: ss.run_single(hw, device)), matched=True)
     return {"w": w, "hw": hw, "device": device}
 
 
@@ -7138,13 +7271,7 @@ def plan_sharded_features(mesh_jobs: MeshJobs, seed: int, *, device: str = "cuda
           f"layers (paged_kernel, "
           f"{SF_SOUP_PAGES} pages of {PAGE}, chunk {SF_SOUP_CHUNK}, max_seq {SF_SOUP_SEQ}, TTL "
           f"{SF_SOUP_TTL}: {SF_SOUP}), also on (2, 2)")
-    t0 = time.perf_counter()
-    singles = []
-    for w, _ in jobs:
-        singles.append(ss.run_single(w, device))
-        if device == "cuda":
-            release()
-    print(f"  the mesh=None runs of phases 44-46: {time.perf_counter() - t0:.1f} s")
+    singles = [_memo(lambda w=w: ss.run_single(w, device)) for w, _ in jobs]
     for key, (w, matched), single in zip(("44", "45", "45h", "46"), jobs, singles):
         mesh_jobs.add((1, 2), key, w, single, matched)
     for mesh in ((2, 2), (1, 1)):
@@ -7452,7 +7579,9 @@ def plan_moe_mesh(mesh_jobs: MeshJobs, seed: int, *, device: str = "cuda",
     admission launches flash), each against its mesh-matched run, and the
     paged workload on (1, 1) against ``mesh=None``; then the event soup at
     full width and ``layers49`` of its 48 layers on (2, 2) (four ranks'
-    weights on one card) against its mesh-matched run."""
+    weights on one card) against its mesh-matched run; and phase 50b's
+    speculation (a self-draft, gather) on (1, 2) against its mesh-matched
+    run without speculation."""
     from repro_torch.launch import sharded_smoke as ss
 
     w48 = ss.Workload(arch=MOE, reduced=reduced, attn_backend="paged_kernel",
@@ -7471,6 +7600,12 @@ def plan_moe_mesh(mesh_jobs: MeshJobs, seed: int, *, device: str = "cuda",
     model = ss.build(w48, device)
     s48 = ss.run_single(w48, device, model=model)
     s48r = ss.run_single(w48r, device, model=model)
+    # phase 50b's mesh-matched claim needs no mesh=None run; this one (without
+    # speculation, gather) is printed beside it
+    w50b = dataclasses.replace(w48, attn_backend="gather", n_requests=M50_REQUESTS,
+                               sessions=M50_REQUESTS, prompt_len=M50_PROMPT,
+                               max_new=M50_MAX_NEW, spec=(MOE, seed, SPEC_K))
+    s50b = ss.run_single(w50b, device, model=model)
     del model
     if device == "cuda":
         release()
@@ -7478,11 +7613,13 @@ def plan_moe_mesh(mesh_jobs: MeshJobs, seed: int, *, device: str = "cuda",
     if device == "cuda":
         release()
     print(f"  the mesh=None runs of phases 48-49: {time.perf_counter() - t0:.1f} s")
-    mesh_jobs.add((1, 2), "48", w48, s48, matched=True)
-    mesh_jobs.add((1, 2), "48r", w48r, s48r, matched=True)
-    mesh_jobs.add((1, 1), "48", w48, s48)
-    mesh_jobs.add((2, 2), "49", w49, s49, matched=True)
-    return {"w48": w48, "w49": w49}
+    # the ranks of the first spawn serve these once the card is theirs
+    mesh_jobs.add((1, 2), "48", w48, s48, matched=True, late=True)
+    mesh_jobs.add((1, 2), "48r", w48r, s48r, matched=True, late=True)
+    mesh_jobs.add((1, 1), "48", w48, s48, late=True)
+    mesh_jobs.add((2, 2), "49", w49, s49, matched=True, late=True)
+    mesh_jobs.add((1, 2), "50b", w50b, s50b, matched=True, late=True)
+    return {"w48": w48, "w49": w49, "w50b": w50b}
 
 
 def judge_moe_mesh(fails: Failures, plan: dict, results: dict) -> dict:
@@ -7531,6 +7668,195 @@ def judge_moe_mesh(fails: Failures, plan: dict, results: dict) -> dict:
     return {"paged": r48, "rings": r48r, "mesh11": r11, "soup": r49}
 
 
+# -- phases 50-51: speculation and the elastic fleet on a mesh --------------------
+
+M50_REQUESTS, M50_PROMPT, M50_MAX_NEW = 4, CHUNK, 4    # phase 50b: moonshot, self-draft
+P51_WORKERS = 2                  # phase 51: workers of SLOTS // 2 slots each
+P51_CRASHES = (("w0", "mid-decode", 8), ("w1", "mid-restore", 0))
+
+
+def plan_spec_fleet(mesh_jobs: MeshJobs, seed: int, *, device: str = "cuda",
+                    reduced: bool = False, n_layers=None) -> dict:
+    """Phases 50a and 51's workloads and their ``mesh=None`` runs (one
+    minicpm-2b model at full width, freed before the ranks spawn): 50a,
+    phase 41's workload served speculatively (gather, greedy) on (1, 2)
+    with the self-draft at k = SPEC_K and a draft reseeded +P26_RESEED at
+    k = 2, and on (2, 2) with the self-draft, each held to the ``mesh=None``
+    run without speculation; 51, the fleet of P51_WORKERS workers
+    (``paged_kernel``, parking, prefix sharing, the index journal) on
+    (1, 2): phase 41's requests in one burst over a 2-page system prompt,
+    P51_CRASHES, a scale to zero, a second turn on two sessions (the cold
+    start adopting their parked records and the journaled index pages),
+    held to the same fleet on ``mesh=None``.  ``reduced`` and ``n_layers``
+    cut both for a CPU rehearsal.  The ``mesh=None`` runs are made while
+    the ranks serve (:class:`MeshJobs`)."""
+    from repro_torch.launch import sharded_smoke as ss
+
+    base = ss.Workload(arch=ARCH, reduced=reduced, n_layers=n_layers, attn_backend="gather",
+                       n_requests=SH_REQUESTS, sessions=SH_SESSIONS, prompt_len=SH_PROMPT,
+                       max_new=SH_MAX_NEW, n_slots=SLOTS, page_size=PAGE, prefill_chunk=CHUNK,
+                       seed=seed)
+    w_self = dataclasses.replace(base, spec=(ARCH, seed, SPEC_K))
+    w_other = dataclasses.replace(base, spec=(ARCH, seed + P26_RESEED, 2))
+    w51 = dataclasses.replace(
+        base, attn_backend="paged_kernel", n_slots=SLOTS // 2,
+        max_seq=SH_PROMPT + 2 * SH_MAX_NEW + ss.FLEET_EXTEND,
+        fleet=ss.Fleet(workers=P51_WORKERS, crashes=P51_CRASHES))
+    @_memo
+    def singles():
+        model = ss.build(base, device)
+        return {"50a": ss.run_single(w_self, device, model=model),    # without speculation
+                "51": ss.run_single(w51, device, model=model)}
+
+    single50, single51 = (_memo(lambda key=key: singles()[key]) for key in ("50a", "51"))
+    mesh_jobs.add((1, 2), "50a", w_self, single50)
+    mesh_jobs.add((1, 2), "50a-reseeded", w_other, single50)
+    mesh_jobs.add((2, 2), "50a", w_self, single50)
+    mesh_jobs.add((1, 2), "51", w51, single51)
+    return {"w_self": w_self, "w_other": w_other, "w51": w51, "device": device}
+
+
+def judge_spec_fleet(fails: Failures, plan: dict, moe_plan: dict, results: dict) -> dict:
+    """Phases 50-51's checks on their mesh runs."""
+    import numpy as np
+
+    device = plan["device"]
+    on_card = device == "cuda"
+    cfg = plan["w_self"].config()
+    prompts = {f"r{i}": p for i, p in enumerate(plan["w_self"].prompts(cfg.vocab))}
+    print(f"[50a] {ARCH} at {cfg.n_layers} layers, speculative (gather, greedy) on meshes of ranks "
+          f"of one card: {SH_REQUESTS} requests over {SH_SESSIONS} sessions, prompt {SH_PROMPT}, "
+          f"{SH_MAX_NEW} new, {SLOTS} slots; each held to the mesh=None run without speculation")
+    out = {}
+    for key, mesh, w in (("50a", (1, 2), plan["w_self"]),
+                         ("50a-reseeded", (1, 2), plan["w_other"]),
+                         ("50a", (2, 2), plan["w_self"])):
+        res = results[(key, mesh)]
+        _, seed, k = w.spec
+        label = f"{ARCH} {'self-draft' if seed == w.seed else f'draft +{P26_RESEED}'} k={k}"
+        st = res["spec_stats"]
+        print(f"  {label} on {res['mesh']}: one round's collective bytes {res['wire_one']} by rank "
+              f"(at a 4x pool {res['wire_per_step_big']}), a round's collective ms "
+              f"{res['wire_ms_per_step']}; a round "
+              f"{[x and round(x, 3) for x in res['sharded_step_ms']]} ms by rank (mesh=None "
+              f"without speculation {res['single_step_ms']} ms a decode step); acceptance "
+              f"{[s['spec_acceptance_rate'] for s in st]}, {st[0]['spec_rounds']} rounds, "
+              f"{st[0]['spec_emitted']} tokens; peak "
+              f"{[b and round(b / 2**30, 2) for b in res['peak_bytes']]} GiB")
+        fails.check(res["ranks_agree"], f"{label} {res['mesh']}: every rank's tokens agree")
+        if res["identical_outputs"]:
+            fails.check(True, f"{label} {res['mesh']}: tokens identical to mesh=None without "
+                        f"speculation")
+        else:
+            to_np = lambda d: {r: np.asarray(v) for r, v in d.items()}  # noqa: E731
+            spec_margins(fails, _lazy_model(w, device)(), cfg, f"{label} {res['mesh']}",
+                         {"tokens": to_np(res["tokens_single"])},
+                         {"tokens": to_np(res["tokens_sharded"])}, prompts,
+                         than="mesh=None without speculation")
+        fails.check(res["wire_flat"], f"{label} {res['mesh']}: a round's collective bytes "
+                    f"{res['wire_one']} equal at a 4x pool {res['wire_per_step_big']}")
+        if seed == w.seed:
+            fails.check(min(s["spec_acceptance_rate"] for s in st) >= 0.5,
+                        f"{label} {res['mesh']}: acceptance "
+                        f"{[s['spec_acceptance_rate'] for s in st]} >= 0.5")
+        out[(key, mesh)] = res
+    w50b = moe_plan["w50b"]
+    mcfg = w50b.config()
+    L, k = mcfg.n_layers, w50b.spec[2]
+    res = results[("50b", (1, 2))]
+    st = res["spec_stats"]
+    print(f"[50b] {MOE} at {L} layers, self-draft k={k} (gather) on (1, 2), each rank holding half "
+          f"its experts: {M50_REQUESTS} requests, prompt {M50_PROMPT}, {M50_MAX_NEW} new, {SLOTS} "
+          f"slots; peak {[b and round(b / 2**30, 3) for b in res['peak_bytes']]} GiB by rank; "
+          f"one round's collective bytes {res['wire_one']}, ms {res['wire_ms_per_step']}; a "
+          f"round {[x and round(x, 3) for x in res['sharded_step_ms']]} ms; acceptance "
+          f"{[s['spec_acceptance_rate'] for s in st]}; tokens identical to mesh=None without "
+          f"speculation {res['identical_outputs']}")
+    fails.check(res["ranks_agree"], f"{MOE} spec (1, 2): every rank's tokens agree")
+    if res["matched_identical"]:
+        fails.check(True, f"{MOE} spec (1, 2): tokens identical to its mesh-matched run "
+                    f"without speculation (one request at a time)")
+    else:
+        # as phase 26c holds moonshot's speculation: a verify chunk of k + 1
+        # tokens and S=1 steps are bitwise alike on the CPU, not on the card
+        # (its GEMMs reassociate by row count), so a stream may split where
+        # the target is near-tied
+        to_np = lambda d: {r: np.asarray(v) for r, v in d.items()}  # noqa: E731
+        mprompts = {f"r{i}": p for i, p in enumerate(w50b.prompts(mcfg.vocab))}
+        spec_margins(fails, _lazy_model(w50b, device)(), mcfg, f"{MOE} spec (1, 2)",
+                     {"tokens": to_np(res["tokens_matched"])},
+                     {"tokens": to_np(res["tokens_sharded"])}, mprompts,
+                     than="its mesh-matched run without speculation")
+        if on_card:
+            release()
+    fails.check(res["routes_agree"], f"{MOE} spec (1, 2): routes and MoE inputs bitwise across "
+                f"model (digests of the first MoE calls)")
+    fails.check(res["expert_split"], f"{MOE} spec (1, 2): each rank's expert bytes "
+                f"{res['expert_bytes_rank']} half of {res['expert_bytes_single']}")
+    fails.check(res["wire_flat"], f"{MOE} spec (1, 2): a round's collective bytes "
+                f"{res['wire_one']} equal at a 4x pool {res['wire_per_step_big']}")
+    for r, kinds in enumerate(res["moe_launches_by_kind"] if on_card else []):
+        rounds, chunks = st[r]["spec_rounds"], res["chunks_run"][r]
+        for name, per in (("moe_route", 1), ("moe_experts", 2), ("moe_combine", 1)):
+            want = {"draft": per * L * rounds * k, "verify": per * L * rounds,
+                    "chunk": per * L * chunks}
+            got = kinds[name]
+            fails.check(all(got.get(kd, 0) == want.get(kd, 0) for kd in got)
+                        and min(want.values()) > 0,
+                        f"{MOE} spec (1, 2) rank {r}: {name} launches by kind {got} == {want} "
+                        f"({L} layers x {rounds} rounds of a catch-up and {k - 1} draft steps, "
+                        f"and a verify; {chunks} chunks) and none else")
+    out["50b"] = res
+    w51 = plan["w51"]
+    res = results[("51", (1, 2))]
+    st, st1 = res["stats"], res["single_fleet"]["fleet"]
+    print(f"[51] the elastic fleet of {ARCH} at {cfg.n_layers} layers on (1, 2): {P51_WORKERS} "
+          f"workers of {w51.n_slots} slots (paged_kernel, parking, prefix sharing, the index "
+          f"journal), {SH_REQUESTS} requests over {SH_SESSIONS} sessions in one burst, prompt "
+          f"{SH_PROMPT}, {SH_MAX_NEW} new, crashes {P51_CRASHES}, a scale to zero, a second turn "
+          f"on {w51.fleet.second} sessions: fleet {st}; worker decode steps "
+          f"{res['worker_steps']} by rank; a worker decode step "
+          f"{res['wire_per_step']} collective bytes; peak "
+          f"{[b and round(b / 2**30, 2) for b in res['peak_bytes']]} GiB; {res['blobs']} blobs")
+    fails.check(res["ranks_agree"] and res["fleet_agrees"], f"{ARCH} fleet (1, 2): every rank's "
+                f"tokens, fleet stats, worker events and adoptions agree (an all-reduced digest)")
+    fails.check(res["identical_outputs"], f"{ARCH} fleet (1, 2): all {res['requests']} requests' "
+                f"tokens identical to the fleet on mesh=None")
+    fails.check(res["fleet_record"]["fleet"] == st1
+                and res["fleet_record"]["log"] == res["single_fleet"]["log"],
+                f"{ARCH} fleet (1, 2): the fleet's stats and its log of events and adoptions "
+                f"equal mesh=None's")
+    fails.check(st["crashes"] == len(P51_CRASHES) and st["cold_starts_from_zero"] >= 2
+                and st["meta_adoptions"] == w51.fleet.second and st["index_adopted"] > 0,
+                f"{ARCH} fleet (1, 2): {st['crashes']} crashes, {st['cold_starts_from_zero']} "
+                f"cold starts from zero, {st['meta_adoptions']} parked records and "
+                f"{st['index_adopted']} index pages adopted")
+    fails.check(res["wire_flat"], f"{ARCH} fleet (1, 2): a worker decode step's collective "
+                f"bytes {res['wire_per_step']} equal at a 4x pool {res['wire_per_step_big']}")
+    fails.check(res["pages_move_no_bytes"] and res["journals_equal"], f"{ARCH} fleet (1, 2): "
+                f"page moves sent {res['page_wire_bytes']} collective bytes; every rank's "
+                f"billed storage journal equals mesh=None's")
+    if res["identical_outputs"]:
+        fails.check(res["blob_layer0_bitwise"], f"{ARCH} fleet (1, 2): layer 0 of each rank's "
+                    f"page blobs bitwise its shard of mesh=None's (layers bitwise per blob "
+                    f"{res['blob_layers_bitwise']})")
+        fails.check(res["blob_rel_err_whole"] is not None
+                    and res["blob_rel_err_whole"] <= SOUP_BLOB_REL
+                    and res["blob_rel_err"] <= SOUP_BLOB_LAYER_REL,
+                    f"{ARCH} fleet (1, 2): each rank's blobs against its shard of mesh=None's: "
+                    f"bitwise {res['blobs_bitwise']}; largest |difference| over the leaf's "
+                    f"{res['blob_rel_err_whole']} <= {SOUP_BLOB_REL}, over its layer's and kv "
+                    f"head's {res['blob_rel_err']} <= {SOUP_BLOB_LAYER_REL}")
+    if on_card:
+        for r, got in enumerate(res["launches_by_rank"]):
+            want = cfg.n_layers * res["worker_steps"][r]
+            fails.check(got["paged_attention"] == want > 0, f"{ARCH} fleet (1, 2) rank {r}: "
+                        f"paged kernel launches {got['paged_attention']} == {cfg.n_layers} "
+                        f"layers x {res['worker_steps'][r]} worker decode steps")
+    out["51"] = res
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7550,6 +7876,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     fails = Failures()
     t_start = time.perf_counter()
+    walls = Walls()
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
     print(f"[1] card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
@@ -7561,11 +7888,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}")
 
+    walls.mark("1")
     print("[2] kernel vs plain version")
     phase_kernel_cases(fails, args.seed)
     cfg = configs.get(ARCH)
     record = phase_kernel_timing(fails, cfg, args.seed)
 
+    walls.mark("2")
     print(f"[3] full-width {ARCH} serving: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads}x{cfg.the_head_dim()} heads, vocab "
           f"{cfg.vocab} (padded {cfg.padded_vocab}), {cfg.param_count() / 1e9:.3f} B params")
@@ -7585,18 +7914,22 @@ def main() -> int:
                       f"D={cfg.the_head_dim()} bf16"
     record["launches"] = counts["paged_attention"]
 
+    walls.mark("3")
     print("[4] backend agreement at full width")
     phase_agreement(fails, model, cfg, args.seed)
+    walls.mark("4")
     print(f"[20] graph replay vs eager: {ARCH}, paged_kernel and gather")
     phase_graph_replay(fails, model, cfg, args.seed, f"{ARCH} paged_kernel",
                        attn_backend="paged_kernel", trace=True)
     phase_graph_replay(fails, model, cfg, args.seed, f"{ARCH} gather")
     release()
+    walls.mark("20 (minicpm)")
     print(f"[24] {ARCH}: storage-backed preemption, prefix sharing, session parking")
     t24 = time.perf_counter()
     phase_offload_sharing(fails, model, cfg, args.seed, counts)
     print(f"  phase 24 wall {time.perf_counter() - t24:.1f} s")
     release()
+    walls.mark("24")
     print(f"[26a] {ARCH}: draft-and-verify speculative decoding on the paged pool (gather, "
           f"greedy), {N_REQUESTS} requests over {SESSIONS} sessions, prompt {PROMPT}, "
           f"{MAX_NEW} new, {SLOTS} slots")
@@ -7611,6 +7944,7 @@ def main() -> int:
     print(f"  phase 26a wall {time.perf_counter() - t26:.1f} s")
     release()
     turns, cold, max_seq = p27_dense_turns(cfg, args.seed)
+    walls.mark("26a")
     print(f"[27a] {ARCH}: the elastic fleet, {P27_WORKERS} workers of {P27_SLOTS} slots "
           f"(paged_kernel, parking, prefix sharing, the index journal), "
           f"{P27_SESSIONS * P27_PER_SESSION} requests over {P27_SESSIONS} sessions in one "
@@ -7626,6 +7960,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    walls.mark("27a")
     print("[5] RG-LRU scan kernel and the paged kernel at D=256 vs plain versions")
     phase_rglru_cases(fails, args.seed)
     phase_kernel_cases(fails, args.seed, cases=PAGED_CASES_D256)
@@ -7633,6 +7968,7 @@ def main() -> int:
     hcfg = configs.get(HYBRID)
     pat = layer_pattern(hcfg)
     n_rec, n_attn = pat.count("r"), pat.count("a")
+    walls.mark("5")
     print(f"[6] full-width {HYBRID} serving: {hcfg.n_layers} layers ({n_rec} RG-LRU, "
           f"{n_attn} local attention, window {hcfg.hybrid.local_window}), d_model "
           f"{hcfg.d_model}, {hcfg.n_heads}x{hcfg.the_head_dim()} heads (kv "
@@ -7661,6 +7997,7 @@ def main() -> int:
     fails.check(hcounts["flash_attention"] == 0,
                 f"no flash launch in chunked prefill ({hcounts['flash_attention']})")
 
+    walls.mark("6")
     print("[7] kernels at the hybrid's serving shapes (CUDA events)")
     records = [record]
     records.append(phase_paged_timing_d256(fails, hcfg, args.seed,
@@ -7672,21 +8009,26 @@ def main() -> int:
                             ((1, 2048, W), 0)):
         records.append(phase_rglru_timing(fails, args.seed, shape, launches))
 
+    walls.mark("7")
     print("[8] backend agreement at full width (hybrid)")
     phase_agreement(fails, hmodel, hcfg, args.seed, prompt=H_PROMPT, max_new=H_MAX_NEW)
 
+    walls.mark("8")
     print("[9] decode vs chunk prefill of one slot's recurrent rows (full width)")
     phase_recurrent_parity(fails, hmodel, hcfg, args.seed)
+    walls.mark("9")
     print(f"[20] graph replay vs eager: {HYBRID}, paged_kernel")
     phase_graph_replay(fails, hmodel, hcfg, args.seed, f"{HYBRID} paged_kernel",
                        attn_backend="paged_kernel", trace=True)
     release()
+    walls.mark("20 (hybrid)")
     print(f"[25] {HYBRID}: {P25_SESSIONS} sessions x {P25_TURNS} turns on {P25_SLOTS} slots, "
           f"parking and offload, two preemptions forced mid-decode")
     t25 = time.perf_counter()
     phase_hybrid_parking(fails, hmodel, hcfg, args.seed)
     print(f"  phase 25 wall {time.perf_counter() - t25:.1f} s")
 
+    walls.mark("25")
     print(f"[19] {HYBRID} in ring mode on phase 6's model: {R_REQUESTS} requests, prompt "
           f"{R_PROMPT} (window {hcfg.hybrid.local_window}), {R_MAX_NEW} new")
     rcounts = phase_serving(fails, hmodel, hcfg, args.seed, n_requests=R_REQUESTS,
@@ -7709,6 +8051,7 @@ def main() -> int:
     release()
     dcfg = dataclasses.replace(configs.get(ARCH), name=f"{ARCH}-4l-v{hcfg.vocab}", n_layers=4,
                                vocab=hcfg.vocab)
+    walls.mark("19")
     print(f"[26b] {HYBRID}: speculative decoding, a seeded {dcfg.n_layers}-layer dense draft "
           f"of {ARCH}'s widths and vocab {dcfg.vocab}, {H26_REQUESTS} requests, prompt "
           f"{PROMPT}, {MAX_NEW} new, {H26_SLOTS} slots")
@@ -7722,6 +8065,7 @@ def main() -> int:
     print(f"  phase 26b wall {time.perf_counter() - t26:.1f} s")
     release()
     turns, cold, max_seq = p27_hybrid_turns(hcfg, args.seed)
+    walls.mark("26b")
     print(f"[27b] {HYBRID}: the elastic fleet, {H27_WORKERS} workers of {H27_SLOTS} slots "
           f"(paged_kernel, parking), {H27_REQUESTS} requests of {H_PROMPT} tokens, "
           f"{H_MAX_NEW} new; scale to zero, then a cold start from a park-meta that carries "
@@ -7735,12 +8079,14 @@ def main() -> int:
     del hmodel
     torch.cuda.empty_cache()
 
+    walls.mark("27b")
     print("[10] SSD scan kernel vs its plain chunked form")
     phase_ssd_cases(fails, args.seed)
 
     scfg = configs.get(SSM)
     ss = scfg.ssm
     H, P, N = ss.n_heads(scfg.d_model), ss.head_dim, ss.d_state
+    walls.mark("10")
     print(f"[11] full-width {SSM} serving: {scfg.n_layers} layers, d_model {scfg.d_model}, "
           f"d_inner {ss.d_inner(scfg.d_model)}, {H} SSD heads of {P}, d_state {N}, d_conv "
           f"{ss.d_conv}, vocab {scfg.vocab} (padded {scfg.padded_vocab}), "
@@ -7768,26 +8114,32 @@ def main() -> int:
                 and scounts["rglru_scan"] == 0 and scounts["flash_attention"] == 0,
                 f"no pool pages ({scounts['pages']}) and no attention or RG-LRU launches")
 
+    walls.mark("11")
     print(f"[12] SSD kernel at {SSM}'s serving shapes (CUDA events)")
     for shape, launches in (((1, CHUNK, H, P, N), scfg.n_layers * chunks),
                             ((SLOTS, 1, H, P, N), scfg.n_layers * steps),
                             ((1, 2048, H, P, N), 0)):
         records.append(phase_ssd_timing(fails, args.seed, shape, launches))
 
+    walls.mark("12")
     print(f"[13] {SSM} decode step and prefill chunk: costs outside the kernel, traces")
     phase_ssm_steps(fails, smodel, scfg, args.seed)
 
+    walls.mark("13")
     print("[14] decode vs chunk prefill of one SSM slot (full width)")
     phase_ssm_parity(fails, smodel, scfg, args.seed)
+    walls.mark("14")
     print(f"[20] graph replay vs eager: {SSM}")
     phase_graph_replay(fails, smodel, scfg, args.seed, SSM)
     del smodel
     torch.cuda.empty_cache()
 
+    walls.mark("20 (mamba2)")
     print("[15] flash-attention kernel vs its plain version")
     phase_flash_cases(fails, args.seed)
 
     qcfg = configs.get(DENSE_RING)
+    walls.mark("15")
     print("[16] flash kernel at the prefill shapes (CUDA events)")
     flash_shapes = (
         (DENSE_RING, (1, Q_PROMPT, qcfg.n_heads, qcfg.n_kv_heads, qcfg.the_head_dim()), None),
@@ -7799,6 +8151,7 @@ def main() -> int:
                      in zip(flash_shapes, (None, 0, r_flash), strict=True)]
     records.extend(flash_records)
 
+    walls.mark("16")
     print(f"[17] full-width {DENSE_RING} served from per-slot rings: {qcfg.n_layers} layers, "
           f"d_model {qcfg.d_model}, {qcfg.n_heads}x{qcfg.the_head_dim()} heads over "
           f"{qcfg.n_kv_heads} kv heads, qk-norm {qcfg.qk_norm}, d_ff {qcfg.d_ff}, vocab "
@@ -7827,8 +8180,10 @@ def main() -> int:
     flash_records[0]["launches"] = qcounts["flash_attention"]
     torch.cuda.empty_cache()
 
+    walls.mark("17")
     print(f"[18] ring prefill (flash) vs paged chunked prefill at full width ({DENSE_RING})")
     phase_ring_agreement(fails, qmodel, qcfg, args.seed)
+    walls.mark("18")
     print(f"[20] graph replay vs eager: {DENSE_RING} rings (decode)")
     phase_graph_replay(fails, qmodel, qcfg, args.seed, f"{DENSE_RING} ring", kv_mode="ring")
     del qmodel
@@ -7840,10 +8195,12 @@ def main() -> int:
 
     mcfg = configs.get(MOE)
     mm = mcfg.moe
+    walls.mark("20 (qwen3 rings), 28a-b")
     print("[21] grouped expert, route and combine kernels vs their plain versions")
     ptxas_report(fails, "moe_experts", "moe_experts_kernel", 10)
     phase_moe_cases(fails, args.seed)
     phase_route_cases(fails, args.seed)
+    walls.mark("21 (cases)")
     print(f"[21] kernels at {MOE}'s shapes (CUDA events)")
     moe_records = []
     for T, label in MOE_TIMED:
@@ -7863,6 +8220,7 @@ def main() -> int:
     release()
 
     free, total = torch.cuda.mem_get_info()
+    walls.mark("21 (timing)")
     print(f"[22] full-width {MOE} served paged: {mcfg.n_layers} layers, d_model "
           f"{mcfg.d_model}, {mcfg.n_heads}x{mcfg.the_head_dim()} heads (kv {mcfg.n_kv_heads}), "
           f"{mm.n_experts} experts top-{mm.top_k} of width {mm.d_expert} + a shared expert of "
@@ -7904,21 +8262,26 @@ def main() -> int:
     for rec in moe_records:
         rec["launches"] = mcounts[rec["name"]]
     release()
+    walls.mark("22 (serving)")
     print(f"[22] backend agreement at full width ({MOE})")
     phase_agreement(fails, mmodel, mcfg, args.seed, prompt=M_PROMPT, max_new=M_MAX_NEW)
     release()
+    walls.mark("22 (agreement)")
     print(f"[20] graph replay vs eager: {MOE}, paged_kernel")
     print("  figures before the route and combine kernels (PERF.md section 5): replayed "
           "decode 26.263 ms host, 26.11 ms busy, idle 0.523; replayed chunk of 256 35.650 ms "
           "host, 35.26 ms busy, idle 0.471; 7081 / 7265 host launch calls eager")
     phase_graph_replay(fails, mmodel, mcfg, args.seed, f"{MOE} paged_kernel",
                        attn_backend="paged_kernel", trace=True)
+    walls.mark("20 (moonshot)")
     print(f"[22] decode vs chunk prefill of one slot's MoE layers (full width)")
     phase_moe_parity(fails, mmodel, mcfg, args.seed)
+    walls.mark("22 (parity)")
     print(f"[22] one MoE layer's launches at decode, chunk and ring prefill sizes")
     phase_moe_launches(fails, mmodel, mcfg, args.seed)
     release()
 
+    walls.mark("22 (launches)")
     print(f"[23] {MOE} from per-slot rings: {MR_REQUESTS} requests, prompt {MR_PROMPT}, "
           f"{MR_MAX_NEW} new, {MR_REQUESTS} slots")
     rcounts = phase_serving(fails, mmodel, mcfg, args.seed, n_requests=MR_REQUESTS,
@@ -7945,11 +8308,13 @@ def main() -> int:
                 "no paged, RG-LRU or SSD launch and no prefill chunk in ring mode")
     m_flash["launches"] = rcounts["flash_attention"]
     release()
+    walls.mark("23 (serving)")
     print(f"[23] ring prefill (flash) vs paged chunked prefill at full width ({MOE})")
     phase_ring_agreement(fails, mmodel, mcfg, args.seed, prompt=MR_PROMPT,
                          max_new=MR_MAX_NEW)
     records.extend(moe_records + [m_paged, m_flash])
     release()
+    walls.mark("23 (agreement)")
     print(f"[26c] {MOE}: speculative decoding, self-draft k={SPEC_K}, {M26_REQUESTS} requests, "
           f"prompt {PROMPT}, {MAX_NEW} new, {M26_SLOTS} slots")
     t26 = time.perf_counter()
@@ -7961,9 +8326,11 @@ def main() -> int:
     release()
 
     t29 = time.perf_counter()
+    walls.mark("26c")
     print("[29] flash backward and the RG-LRU backward vs their plain versions")
     phase_flash_backward_cases(fails, args.seed)
     phase_rglru_backward_cases(fails, args.seed)
+    walls.mark("29")
     print("[30] the backward kernels at the training shapes (CUDA events)")
     train_shapes = (
         (ARCH, (T31_BATCH // T31_ACCUM, T31_SEQ, cfg.n_heads, cfg.n_kv_heads,
@@ -7976,6 +8343,7 @@ def main() -> int:
     rglru_bwd = phase_rglru_backward_timing(fails, args.seed,
                                             (T32_BATCH // T32_ACCUM, T32_SEQ, W))
     print(f"  phases 29-30 wall {time.perf_counter() - t29:.1f} s")
+    walls.mark("30")
     print(f"[31] full-depth, full-width {ARCH} training: {cfg.n_layers} layers, "
           f"{T31_STEPS} steps of {T31_BATCH} x {T31_SEQ} tokens in {T31_ACCUM} microbatches "
           f"(train_4k's global batch 256 cut to {T31_BATCH}), WSD at lr {TRAIN_LR}")
@@ -7983,6 +8351,7 @@ def main() -> int:
     r31 = phase_train(fails, args.seed, ARCH, seq=T31_SEQ, global_batch=T31_BATCH,
                       accum=T31_ACCUM, steps=T31_STEPS)
     print(f"  phase 31 wall {time.perf_counter() - t31:.1f} s")
+    walls.mark("31")
     print(f"[32] full-width {HYBRID} training: {hcfg.n_layers} layers ({n_rec} RG-LRU, "
           f"{n_attn} local attention), {T32_STEPS} steps of {T32_BATCH} x {T32_SEQ} tokens in "
           f"{T32_ACCUM} microbatches, cosine at lr {TRAIN_LR}")
@@ -7996,12 +8365,15 @@ def main() -> int:
         lse["launches"] = r["counts"]["flash_attention"]
     rglru_bwd["launches"] = r32["counts"]["rglru_scan_backward"]
     t34 = time.perf_counter()
+    walls.mark("32")
     print("[34] the SSD scan's backward vs its plain version")
     ssd_worst = phase_ssd_backward_cases(fails, args.seed)
+    walls.mark("34")
     print(f"[35] the SSD backward at {SSM}'s training shape, both routes (CUDA events)")
     ssd_bwd, ssd_bwd_cc = phase_ssd_backward_timing(
         fails, args.seed, (T36_BATCH // T36_ACCUM, T36_SEQ, H, P, N))
     ssd_bwd["worst_err_over_bound_34"] = ssd_worst
+    walls.mark("35")
     print(f"[36] full-depth, full-width {SSM} training: {scfg.n_layers} layers, {T36_STEPS} "
           f"steps of {T36_BATCH} x {T36_SEQ} tokens in {T36_ACCUM} microbatches, cosine at lr "
           f"{TRAIN_LR}")
@@ -8013,12 +8385,15 @@ def main() -> int:
     print(f"  phase 36 wall {time.perf_counter() - t36:.1f} s; phases 34-36 "
           f"{time.perf_counter() - t34:.1f} s")
     t37 = time.perf_counter()
+    walls.mark("36")
     print("[37] the MoE backward kernels (combine, the data and weight gradients, route; the "
           "gather's through the combine kernel) vs their plain versions")
     phase_moe_backward_cases(fails, args.seed)
+    walls.mark("37")
     print(f"[38] the MoE backward kernels at {MOE}'s training microstep (CUDA events)")
     moe_bwd = phase_moe_backward_timing(fails, args.seed)
     print(f"  phases 37-38 wall {time.perf_counter() - t37:.1f} s")
+    walls.mark("38")
     print(f"[39] full-width {MOE} training at {T39_LAYERS} of {mcfg.n_layers} layers: "
           f"{T39_STEPS} steps of {T39_BATCH} x {T39_SEQ} tokens in {T39_ACCUM} microbatches, "
           f"cosine at lr {TRAIN_LR}")
@@ -8028,6 +8403,7 @@ def main() -> int:
     for rec in moe_bwd + route_train:
         rec["launches"] = r39["counts"][rec["name"]]
     print(f"  phase 39 wall {time.perf_counter() - t39:.1f} s")
+    walls.mark("39")
     print(f"[33] {ARCH} at full width and {T33_LAYERS} layers: kernel vs plain attention, "
           f"crash and resume; the paged kernel (serving only) refuses grad")
     t33 = time.perf_counter()
@@ -8038,28 +8414,37 @@ def main() -> int:
           f"{time.perf_counter() - t29:.1f} s")
     release()
     t40 = time.perf_counter()
+    walls.mark("33")
     print("[40] the paged kernel per lane or head shard vs its plain version; the merged "
           "shards vs the unsharded kernel")
     phase_shard_cases(fails, args.seed)
+    walls.mark("40")
     print(f"[43] the SSD scan per head shard at {SSM}'s serving shapes vs its plain version and "
           f"the unsharded launch")
     ssd_shards = phase_ssd_shards(fails, args.seed)
+    walls.mark("43")
     print(f"[47] the grouped expert kernel per expert shard and the combine's fp32 partial at "
           f"{MOE}'s shapes vs the unsharded launch and the plain version")
     moe_shard_records = phase_moe_shards(fails, args.seed)
     print(f"  phases 40, 43, 47 wall {time.perf_counter() - t40:.1f} s")
     t41 = time.perf_counter()
     mesh_jobs = MeshJobs()
-    print(f"[41-49] the mesh=None runs of the mesh phases, then one spawn of ranks on the card "
-          f"for each mesh shape")
+    walls.mark("47")
+    print(f"[41-51] the mesh phases' workloads: one spawn of ranks on the card for each mesh "
+          f"shape, the mesh=None runs made while the first one serves")
     plan41 = plan_sharded_serving(mesh_jobs, args.seed)
     plan44 = plan_sharded_features(mesh_jobs, args.seed)
     plan48 = plan_moe_mesh(mesh_jobs, args.seed)
+    plan50 = plan_spec_fleet(mesh_jobs, args.seed)
+    walls.mark("48-49, 50b (mesh=None runs)")
     results = mesh_jobs.run()
-    print(f"  the mesh runs of phases 41-49: {time.perf_counter() - t41:.1f} s")
+    print(f"  the mesh runs of phases 41-51: {time.perf_counter() - t41:.1f} s")
+    walls.mark("41-51 (the spawns, the other mesh=None runs made meanwhile)")
     sharded = judge_sharded_serving(fails, plan41, results)
     features = judge_sharded_features(fails, plan44, results)
     moe_mesh = judge_moe_mesh(fails, plan48, results)
+    judge_spec_fleet(fails, plan50, plan48, results)
+    walls.mark("41-51 (the checks)")
     print("[40] the per-shard kernel at the sharded serving shapes (CUDA events)")
     mesh12, hyb = sharded[(1, 2)], sharded["hybrid"]
     records.append(phase_shard_timing(
@@ -8078,7 +8463,7 @@ def main() -> int:
         run = moe_mesh["rings" if kind == "prefill" else "paged"]["moe_launches_by_kind"]
         rec["launches"] = sum(n[rec["name"]][kind] for n in run)
     records.extend(moe_shard_records)
-    print(f"  phases 40-49 wall {time.perf_counter() - t40:.1f} s")
+    print(f"  phases 40-51 wall {time.perf_counter() - t40:.1f} s")
     release()
     for recs in train_records.values():
         records.extend(recs)
@@ -8086,6 +8471,7 @@ def main() -> int:
     records.extend([ssd_bwd, ssd_bwd_cc])
     records.extend(moe_bwd + route_train)
 
+    walls.mark("40 and the kernel record")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if fails:
         print(f"chip_smoke: {len(fails)} check(s) failed:", file=sys.stderr)

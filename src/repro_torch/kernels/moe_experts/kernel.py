@@ -37,9 +37,9 @@ output, or the fp32 partial of an expert shard under a mesh),
 never plain-version calls; a CUDA graph's replay adds the launches it
 holds (``serve/graphs.py``).  The three forward wrappers also count each
 launch in ``launches_by_kind`` under the step kind their caller set with
-:func:`launch_kind` (the scheduler's decode steps, prefill chunks and
-ring prefills; "other" outside any).  Each backward wrapper counts its
-own.
+:func:`launch_kind` (the scheduler's decode steps, prefill chunks, ring
+prefills and speculation's draft and verify steps; "other" outside
+any).  Each backward wrapper counts its own.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ from .ref import (MODES, Route, moe_combine_backward_plain, moe_combine_partial_
 ROUTES = ("wgmma_bm64", "wgmma_bm128")      # wgmma on tiles of 64 or 128 rows
 ROUTE_COUNTERS = 256                        # kRouteCounters: int32 counters a device
 
-KINDS = ("decode", "chunk", "prefill", "other")   # launch_kind's step kinds
+KINDS = ("decode", "chunk", "prefill", "draft", "verify", "other")   # launch_kind's step kinds
 _KIND = contextvars.ContextVar("moe_launch_kind", default="other")
 
 _lib = None
@@ -73,7 +73,8 @@ def launch_kind(kind: str):
     """Within its scope the forward wrappers count their launches under
     ``kind`` in ``launches_by_kind``: "decode" (a decode step), "chunk" (a
     prefill chunk on a live cache), "prefill" (a from-scratch prefill into
-    a fresh ring) or "other"."""
+    a fresh ring), "draft" (a speculation round's draft catch-up and draft
+    steps), "verify" (its verify chunk) or "other"."""
     if kind not in KINDS:
         raise ValueError(f"launch kind {kind!r} is not one of {KINDS}")
     token = _KIND.set(kind)

@@ -22,8 +22,10 @@ of a ``(data, model)`` mesh on ``--device`` (gloo; several ranks may share
 one card); every rank serves the same submits, and rank 0 reports.  Under
 ``--mesh`` the paged pool and ``--kv-mode ring``, the SSM and MoE
 families (each rank holding only its experts), ``--offload``,
-``--prefix-sharing`` and ``--park-sessions`` are served; speculation is
-refused (``DecodeScheduler`` names the ROADMAP item).
+``--prefix-sharing``, ``--park-sessions``, speculation and ``--fleet``
+(every worker on the same mesh, each rank's workers sharing that rank's
+blob store; the ranks' fleet and serving stats and worker events must
+agree) are served.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
@@ -135,13 +137,13 @@ def build_frontend(cloud: SimCloud, cfg, model, *, mode: str, batch_size: int,
     many worker schedulers over one shared blob store (paged, parked
     sessions and the index journal on; ``min_workers`` and
     ``scale_to_zero`` set its autoscaler).  ``mesh`` (a live DeviceMesh)
-    serves through the sharded continuous scheduler.
+    serves through the sharded continuous scheduler (every fleet worker on
+    that mesh).
     """
     if mode not in ("continuous", "shared", "per-session"):
         raise ValueError(f"unknown serving mode {mode!r}")
-    if mesh is not None and (fleet_size or mode != "continuous"
-                             or not supports_continuous(cfg)):
-        raise ValueError("--mesh needs the continuous scheduler without --fleet")
+    if mesh is not None and (mode != "continuous" or not supports_continuous(cfg)):
+        raise ValueError("--mesh needs the continuous scheduler")
     if fleet_size:
         if mode != "continuous" or not supports_continuous(cfg):
             raise ValueError("--fleet needs the continuous scheduler "
@@ -166,7 +168,7 @@ def build_frontend(cloud: SimCloud, cfg, model, *, mode: str, batch_size: int,
                                    park_ttl_steps=park_ttl_steps,
                                    blob_store=store, index_journal=True,
                                    attn_backend=attn_backend, draft_model=draft_model,
-                                   spec_k=spec_k, device=device)
+                                   spec_k=spec_k, device=device, mesh=mesh)
                    for _ in range(fleet_size)]
         ctrl = FleetController(workers, min_workers=min_workers,
                                scale_to_zero=scale_to_zero)
@@ -246,7 +248,8 @@ def run_serving(arch: str, n_requests: int = 12, *, max_new: int = 8,
         # a self-draft reuses the target's module and weights; any other
         # arch is a reduced draft drawn from the same seed
         draft_model = (model if spec_draft == arch else
-                       build_model(configs.get(spec_draft).reduced(), device=device, seed=0))
+                       build_model(configs.get(spec_draft).reduced(), device=device, seed=0,
+                                   mesh=mesh))
         spec_k = spec_k or 3
     cloud = SimCloud(seed=seed)
     frontend = build_frontend(cloud, cfg, model, mode=mode, batch_size=batch_size,
@@ -343,10 +346,18 @@ def parse_mesh(spec: Optional[str]):
 
 
 def _serve_rank(mesh, arch: str, n_requests: int, kw: dict) -> dict:
-    """One rank of ``--mesh``: the same run on every rank, rank 0 reports."""
+    """One rank of ``--mesh``: the same run on every rank, rank 0 reports;
+    a fleet's serving and fleet stats, worker events and adoptions must
+    agree on every rank (an all-reduced digest)."""
     import torch.distributed as dist
 
+    from ..serve.scheduler import ranks_agree
+    from .sharded_smoke import fleet_record
+
     front = run_serving(arch, n_requests, quiet=dist.get_rank() != 0, mesh=mesh, **kw)
+    if front.fleet is not None and not ranks_agree(
+            {"serving": front.serving_stats(), **fleet_record(front.fleet)}):
+        raise RuntimeError("the ranks' fleets disagree (stats, worker events or adoptions)")
     return {sess: list(ids) for sess, ids in front.completions.items()}
 
 

@@ -49,6 +49,16 @@ storage journals are equal, and the page moves send no collective bytes
 (a slot's rows, snapshot when a parked slot is reclaimed, move over
 ``data``).
 
+A :class:`Workload` with ``spec`` speculates (gather, greedy; a draft of
+the target's arch and seed is the target's own module): a plain drive is
+held to ``mesh=None`` without speculation, a soup to ``mesh=None``'s
+speculative soup (its requests depend on when its streams end), and a
+round's collective bytes must be the same at a 4x pool.  One with a
+:class:`Fleet` serves through an elastic fleet of workers on the mesh
+(:func:`fleet_turns` or the fleet differential's :func:`fleet_soup`),
+each rank's workers sharing that rank's blob store; the verdicts add
+that every rank's fleet record (:func:`fleet_record`) agrees.
+
 Usage::
 
   PYTHONPATH=src python -m repro_torch.launch.sharded_smoke --device cpu
@@ -109,38 +119,118 @@ def _rank_main(rank: int, world: int, dp: int, mp: int, device: str, tmp: str,
         dist.destroy_process_group()
 
 
+def host_probe(device: str, launches: int = 500) -> Dict[str, Any]:
+    """What one process sees of its host and card, in a few seconds: a pure
+    Python loop's ms (the CPU share it gets), the host µs a tiny kernel
+    launch costs, a 4096^3 bf16 matmul's device ms (the card's clocks), the
+    µs of a 16 KiB ``all_reduce`` over every rank of a tensor on ``device``
+    and of one in host memory (when a process group is up), its torch and
+    OS thread counts, the cores it may run on, and the allocator's OOM
+    retries."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(200_000):
+        acc += i
+    out: Dict[str, Any] = {"python_ms": (time.perf_counter() - t0) * 1e3,
+                           "torch_threads": torch.get_num_threads(),
+                           "cpu_count": os.cpu_count(),
+                           "affinity": len(os.sched_getaffinity(0))}
+    with open("/proc/self/status") as f:
+        out["os_threads"] = next(int(line.split()[1]) for line in f
+                                 if line.startswith("Threads:"))
+    x = torch.zeros(16, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        x.add_(1)
+    _sync(device)
+    out["launch_us"] = (time.perf_counter() - t0) / launches * 1e6
+    if torch.device(device).type == "cuda":
+        a = torch.randn(4096, 4096, device=device, dtype=torch.bfloat16)
+        a @ a
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            a @ a
+        end.record()
+        end.synchronize()
+        out["matmul_ms"] = start.elapsed_time(end) / 10
+        out["alloc_retries"] = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    if dist.is_initialized():
+        for key, where in (("all_reduce_us", device), ("host_all_reduce_us", "cpu")):
+            t = torch.zeros(4096, device=where)
+            dist.all_reduce(t)
+            _sync(device)
+            t0 = time.perf_counter()
+            for _ in range(100):
+                dist.all_reduce(t)
+            _sync(device)
+            out[key] = (time.perf_counter() - t0) / 100 * 1e6
+    return out
+
+
+class Ranks:
+    """``dp * mp`` ranks of a ``(dp, mp)`` ``("data", "model")`` mesh,
+    spawned at construction, each running ``fn(mesh, *args)``; the caller
+    may work while they run and :meth:`join` them later.  ``fn`` must be
+    importable (module level) and its result picklable.  The process
+    group's collectives time out after ``timeout_s``, and the join gives up
+    (terminating every rank) at the same bound from the spawn; a rank that
+    raises re-raises at the join."""
+
+    def __init__(self, fn: Callable, args: tuple = (), *, dp: int, mp: int,
+                 device: str = "cuda", timeout_s: float = JOIN_TIMEOUT_S):
+        import torch.multiprocessing as tmp_mp
+
+        self.world, self.timeout_s = dp * mp, timeout_s
+        self.tmp = tempfile.mkdtemp(prefix="sharded_smoke_")
+        self.deadline = time.monotonic() + timeout_s
+        try:
+            self.ctx = tmp_mp.spawn(_rank_main, args=(self.world, dp, mp, device, self.tmp,
+                                                      timeout_s, fn, args),
+                                    nprocs=self.world, join=False)
+        except BaseException:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+            raise
+
+    def kill(self) -> None:
+        """End every rank now (the caller failed while they ran)."""
+        for p in self.ctx.processes:
+            if p.is_alive():
+                p.kill()
+        for p in self.ctx.processes:
+            p.join(10)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def join(self) -> list:
+        """Each rank's result, by rank."""
+        try:
+            while not self.ctx.join(timeout=max(0.0, min(5.0, self.deadline - time.monotonic()))):
+                if time.monotonic() >= self.deadline:
+                    for p in self.ctx.processes:
+                        p.terminate()
+                    for p in self.ctx.processes:
+                        p.join(10)
+                        if p.is_alive():
+                            p.kill()
+                    raise TimeoutError(f"{self.world} ranks did not finish in "
+                                       f"{self.timeout_s:.0f} s")
+            out = []
+            for r in range(self.world):
+                with open(os.path.join(self.tmp, f"rank{r}.pkl"), "rb") as f:
+                    out.append(pickle.load(f))
+            return out
+        finally:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+
+
 def spawn_ranks(fn: Callable, args: tuple = (), *, dp: int, mp: int, device: str = "cuda",
                 timeout_s: float = JOIN_TIMEOUT_S) -> list:
-    """Run ``fn(mesh, *args)`` on ``dp * mp`` spawned ranks of a ``(dp, mp)``
-    ``("data", "model")`` mesh and return each rank's result, by rank.
-    ``fn`` must be importable (module level) and its result picklable.  The
-    process group's collectives time out after ``timeout_s``, and the join
-    gives up (terminating every rank) at the same bound; a rank that raises
-    re-raises here."""
-    import torch.multiprocessing as tmp_mp
-
-    world = dp * mp
-    tmp = tempfile.mkdtemp(prefix="sharded_smoke_")
-    try:
-        ctx = tmp_mp.spawn(_rank_main, args=(world, dp, mp, device, tmp, timeout_s, fn, args),
-                           nprocs=world, join=False)
-        deadline = time.monotonic() + timeout_s
-        while not ctx.join(timeout=max(0.0, min(5.0, deadline - time.monotonic()))):
-            if time.monotonic() >= deadline:
-                for p in ctx.processes:
-                    p.terminate()
-                for p in ctx.processes:
-                    p.join(10)
-                    if p.is_alive():
-                        p.kill()
-                raise TimeoutError(f"{world} ranks did not finish in {timeout_s:.0f} s")
-        out = []
-        for r in range(world):
-            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
-                out.append(pickle.load(f))
-        return out
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    """Run ``fn(mesh, *args)`` on :class:`Ranks` and return each rank's
+    result, by rank."""
+    return Ranks(fn, args, dp=dp, mp=mp, device=device, timeout_s=timeout_s).join()
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +255,27 @@ class Soup:
 
 
 @dataclasses.dataclass(frozen=True)
+class Fleet:
+    """An elastic fleet (:class:`~repro_torch.serve.fleet.FleetController`)
+    of ``workers`` schedulers of the workload's slots, parking sessions,
+    sharing prefixes and journaling the index over one blob store (a rank's
+    own on a mesh), with ``crashes`` (``(worker, point, occurrence)``, the
+    :class:`~repro_torch.core.FaultPlan`'s) and scale to zero.  ``soup``:
+    the fleet differential harness's seeded soup of the workload's seed
+    (scale-ups, forced scale-downs, wedged workers reaped by heartbeat
+    eviction, crashes drawn at mid-decode, mid-restore and mid-park);
+    otherwise the turns of :func:`fleet_turns`: the workload's requests in
+    one burst, a scale to zero, then a second turn on ``second`` of its
+    sessions, the cold start that adopts their parked records and the
+    journaled index pages, and a scale to zero again."""
+
+    workers: int = 2
+    crashes: tuple = ()
+    second: int = 2
+    soup: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class Workload:
     arch: str = "minicpm-2b"
     reduced: bool = True          # the config's reduced widths (CPU tests)
@@ -186,6 +297,8 @@ class Workload:
     park_sessions: bool = False
     park_ttl_steps: int = 0
     soup: Optional[Soup] = None     # the event soup instead of a plain drive
+    spec: Optional[tuple] = None    # (draft arch, draft seed, k): speculation (gather, greedy)
+    fleet: Optional[Fleet] = None   # an elastic fleet of workers instead of one scheduler
 
     def config(self):
         from .. import configs
@@ -218,6 +331,26 @@ def build(w: Workload, device, mesh=None):
     from ..models import build_model
 
     return build_model(w.config(), device=device, seed=w.seed, mesh=mesh)
+
+
+def build_draft(w: Workload, model, device, mesh=None):
+    """The draft of ``w.spec``: the target's own module where the draft is
+    its arch and seed (a self-draft), else a model of the draft's arch (the
+    target's widths and depth where the arch is the target's, else the
+    draft arch's config, reduced as the target is) from the draft's seed;
+    None without speculation."""
+    from .. import configs
+    from ..models import build_model
+
+    if w.spec is None:
+        return None
+    arch, seed, _ = w.spec
+    if (arch, seed) == (w.arch, w.seed):
+        return model
+    cfg = w.config() if arch == w.arch else configs.get(arch)
+    if arch != w.arch and w.reduced:
+        cfg = cfg.reduced()
+    return build_model(cfg, device=device, seed=seed, mesh=mesh)
 
 
 def expert_bytes(model) -> int:
@@ -260,7 +393,10 @@ class RouteDigests:
 
 
 def scheduler(w: Workload, model, mesh=None, kv_pages: Optional[int] = None,
-              max_seq: Optional[int] = None, blob_store=None):
+              max_seq: Optional[int] = None, blob_store=None, draft=None,
+              index_journal: bool = False):
+    """The workload's scheduler (speculating with ``draft`` where ``w.spec``
+    sets it)."""
     from ..serve.scheduler import DecodeScheduler
 
     return DecodeScheduler(model, n_slots=w.n_slots, max_seq=max_seq or w.seq,
@@ -270,7 +406,17 @@ def scheduler(w: Workload, model, mesh=None, kv_pages: Optional[int] = None,
                            kv_pages=kv_pages if kv_pages is not None else w.kv_pages,
                            blob_store=blob_store, offload=w.offload,
                            prefix_sharing=w.prefix_sharing, park_sessions=w.park_sessions,
-                           park_ttl_steps=w.park_ttl_steps)
+                           park_ttl_steps=w.park_ttl_steps, index_journal=index_journal,
+                           draft_model=draft if w.spec is not None else None,
+                           spec_k=w.spec[2] if w.spec is not None else 0)
+
+
+def step_wire(sched) -> tuple:
+    """The collective bytes and ms of ``sched``'s last decode step, or of
+    its last round where it speculates."""
+    if sched._spec:
+        return sched.last_round_wire_bytes, sched.last_round_wire_ms
+    return sched.last_step_wire_bytes, sched.last_step_wire_ms
 
 
 class RecordingStore(PageBlobStore):
@@ -305,7 +451,10 @@ def blob_agreement(ranks, single) -> Dict[str, Any]:
     there), per blob the layers (leading axis) that are bitwise, the
     largest |difference| over the largest |value| of its leaf
     (``blob_rel_err_whole``), and over the largest |value| of its own layer
-    and kv head, in all and per layer."""
+    and kv head, in all and per layer (a fleet's park-meta records are
+    host data, not pages, and are left out)."""
+    from ..serve.fleet import PARK_META_PREFIX
+
     none = {"blobs_bitwise": False, "blob_layer0_bitwise": False, "blob_rel_err": None,
             "blob_rel_err_whole": None, "blob_rel_err_by_layer": None,
             "blob_layers_bitwise": None}
@@ -313,7 +462,9 @@ def blob_agreement(ranks, single) -> Dict[str, Any]:
     for r in ranks:
         if [k for k, _ in r["blobs"]] != [k for k, _ in single["blobs"]]:
             return none
-        for (_, got), (_, whole) in zip(r["blobs"], single["blobs"]):
+        for (key, got), (_, whole) in zip(r["blobs"], single["blobs"]):
+            if key.startswith(PARK_META_PREFIX):    # a fleet's directory record, not pages
+                continue
             want = blob_shard(whole, r["pool"])
             same = [all(torch.equal(got[k][i], want[k][i]) for k in got)
                     for i in range(got["kp"].shape[0])]
@@ -361,8 +512,9 @@ def drive(sched, w: Workload, prompts: Sequence[np.ndarray], *, one_at_a_time: b
             _sync(sched.device)
             ms = (time.perf_counter() - t0) * 1e3
             if sched.decode_tokens > decoded:
-                wire.append(sched.last_step_wire_bytes)
-                wire_ms.append(sched.last_step_wire_ms)
+                sent, secs = step_wire(sched)
+                wire.append(sent)
+                wire_ms.append(secs)
                 if sched.prefill_chunks == chunks:      # a step of decode alone
                     step_ms.append(ms)
             if sched.chunks_run > ran:
@@ -450,8 +602,9 @@ def soup_events(sched, rng, sessions: Sequence[str], system: np.ndarray, soup: S
         _sync(sched.device)
         ms = (time.perf_counter() - t0) * 1e3
         if sched.decode_tokens > decoded:
-            wire.append(sched.last_step_wire_bytes)
-            wire_ms.append(sched.last_step_wire_ms)
+            sent, secs = step_wire(sched)
+            wire.append(sent)
+            wire_ms.append(secs)
             if sched.prefill_chunks == chunks and sched.restore_chunks == restores:
                 step_ms.append(ms)
         if sched.restore_chunks > restores:
@@ -523,15 +676,218 @@ def sched_ref(w: Workload, model, mesh, completions) -> Dict[str, list]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The elastic fleet
+# ---------------------------------------------------------------------------
+
+FLEET_EXTEND = 8          # user tokens a second turn adds to its session's history
+FLEET_DRAIN_TICKS = 20000  # the most ticks a drain or a scale to zero may take
+FLEET_SOUP = dict(events=22, sessions=(3, 6), fresh_len=(5, 12), extend_len=(1, 4),
+                  max_new=(2, 4), crash_p=0.25, crash_at=6)
+FLEET_CRASH_POINTS = ("mid-decode", "mid-restore", "mid-park")
+
+
+def fleet_of(w: Workload, model, mesh=None, store=None, draft=None):
+    """The workload's fleet: ``w.fleet.workers`` schedulers of ``w.n_slots``
+    slots over one blob store (``store``), each parking sessions and
+    journaling the prefix index, scaling to zero, with the
+    :class:`~repro_torch.core.FaultPlan` of ``w.fleet.crashes``."""
+    from ..core import FaultPlan
+    from ..serve.fleet import FleetController
+
+    store = store if store is not None else RecordingStore()
+    wp = dataclasses.replace(w, park_sessions=True, prefix_sharing=True)
+    workers = [scheduler(wp, model, mesh, blob_store=store, draft=draft, index_journal=True)
+               for _ in range(w.fleet.workers)]
+    crashes = {(f"fleet:{wid}", point): n for wid, point, n in w.fleet.crashes}
+    return FleetController(workers, min_workers=0, scale_to_zero=True, drain_idle_steps=3,
+                           faults=FaultPlan(crashes=crashes))
+
+
+def fleet_tick(fleet, done: list, wire: list, inflight: dict, on_complete=None) -> None:
+    """One tick of ``fleet``, its ledger audited after it: completions go to
+    ``done`` in order (per-session FIFO checked against ``inflight``, which
+    maps a session to the request it completes next), and each worker
+    decode step's collective bytes to ``wire``."""
+    before = {wid: w.sched.decode_tokens for wid, w in fleet.workers.items()}
+    for fin in fleet.step():
+        name, prompt, max_new = inflight.pop(fin.session)
+        if fin.request_id != name:
+            raise AssertionError("per-session FIFO violated across the fleet")
+        tokens = np.asarray(fin.tokens).astype(np.int32)
+        if on_complete is not None:
+            on_complete(fin.session, name, prompt, max_new, tokens)
+        done.append((fin.session, name, np.asarray(prompt).tolist(), max_new, tokens.tolist()))
+    for wid, w in fleet.workers.items():
+        if w.sched.decode_tokens > before.get(wid, w.sched.decode_tokens):
+            wire.append(step_wire(w.sched)[0])
+    fleet.audit()
+
+
+def fleet_turns(fleet, w: Workload, vocab: int) -> Dict[str, Any]:
+    """The scripted fleet scenario (:class:`Fleet`), drawn from ``w.seed``:
+    ``w.n_requests`` prompts of ``w.prompt_len`` tokens (a shared system
+    prompt of SOUP_SYSTEM_PAGES pages, then their own), request ``r<i>`` in
+    session ``s<i mod sessions>``, in one burst; a scale to zero (every
+    worker drains and externalizes its parked sessions); then the cold
+    start: the first ``w.fleet.second`` sessions each extend their history
+    by FLEET_EXTEND tokens; a scale to zero again.  Returns the
+    completions in order and each worker decode step's collective bytes."""
+    rng = np.random.default_rng(w.seed)
+    system = rng.integers(0, vocab, SOUP_SYSTEM_PAGES * w.page_size).astype(np.int32)
+    done, wire, inflight, history, queued = [], [], {}, {}, []
+
+    def track(session, name, prompt, max_new, tokens):
+        history[session] = np.concatenate([np.asarray(prompt, np.int32), tokens])
+
+    def submit(session, name, prompt):
+        fleet.submit(session, name, prompt, w.max_new)
+        queued.append((session, name, prompt))
+
+    def drain(what: str) -> None:
+        for _ in range(FLEET_DRAIN_TICKS):
+            for q in list(queued):      # a session's next request completes next
+                if q[0] not in inflight:
+                    inflight[q[0]] = (q[1], q[2], w.max_new)
+                    queued.remove(q)
+            if not (fleet.busy() or inflight):
+                break
+            fleet_tick(fleet, done, wire, inflight, track)
+        else:
+            raise RuntimeError(f"the fleet did not drain {what}")
+        for _ in range(FLEET_DRAIN_TICKS):
+            if not fleet.live_workers():
+                return
+            fleet_tick(fleet, done, wire, inflight)
+        raise RuntimeError(f"the fleet did not scale to zero after {what}")
+
+    for i in range(w.n_requests):
+        submit(f"s{i % w.sessions}", f"r{i}", np.concatenate(
+            [system, rng.integers(0, vocab, w.prompt_len - len(system)).astype(np.int32)]))
+    drain("the burst")
+    for j in range(w.fleet.second):
+        session = f"s{j}"
+        submit(session, f"r{w.n_requests + j}", np.concatenate(
+            [history[session], rng.integers(0, vocab, FLEET_EXTEND).astype(np.int32)]))
+    drain("the second turn")
+    return {"completions": done, "wire": wire}
+
+
+def fleet_soup(fleet, w: Workload, vocab: int) -> Dict[str, Any]:
+    """The fleet differential harness's seeded soup on ``fleet`` (its draws
+    in its order, from ``w.seed`` and the tag ``fleet-<arch>``): crashes at
+    mid-decode, mid-restore and mid-park drawn for each worker, 3-5
+    sessions submitting fresh, shared-system-prompt and multi-turn prompts,
+    scale-up bursts, forced scale-downs and wedged workers reaped by
+    heartbeat eviction (each rank's own membership service on its own
+    simulated cloud), then a drain and a scale to zero; the ledger audited
+    every tick.  Returns the completions in order and each worker decode
+    step's collective bytes."""
+    import zlib
+
+    from ..coord import MembershipService
+    from ..core import FaaSKeeperService, FaultPlan, SimCloud
+
+    soup = FLEET_SOUP
+    rng = np.random.default_rng(zlib.crc32(f"fleet-{w.arch}".encode()) * 100003 + w.seed)
+    crashes = {}
+    for k in range(fleet.max_workers):
+        for point in FLEET_CRASH_POINTS:
+            if rng.random() < soup["crash_p"]:
+                crashes[(f"fleet:w{k}", point)] = int(rng.integers(0, soup["crash_at"]))
+    fleet.reset(faults=FaultPlan(crashes=crashes))
+    cloud = SimCloud(seed=w.seed)
+    svc = FaaSKeeperService(cloud, regions=("region-0",))
+    fleet.membership = MembershipService(svc)
+
+    def sweep():
+        svc.start_heartbeat(period=1.0, max_runs=1)
+        cloud.run()
+
+    sessions = [f"s{i}" for i in range(int(rng.integers(*soup["sessions"])))]
+    history = dict.fromkeys(sessions)
+    inflight: dict = {}
+    system = rng.integers(0, vocab, size=SOUP_SYSTEM_PAGES * w.page_size).astype(np.int32)
+    done, wire = [], []
+    rid = 0
+
+    def submit(sess):
+        nonlocal rid
+        h = history[sess]
+        roll = rng.random()
+        if h is not None and roll < 0.6 and len(h) + 8 <= w.seq:
+            prompt = np.concatenate([h, rng.integers(
+                0, vocab, int(rng.integers(*soup["extend_len"]))).astype(np.int32)])
+        elif roll < 0.8:
+            prompt = np.concatenate([system, rng.integers(
+                0, vocab, int(rng.integers(*soup["fresh_len"]))).astype(np.int32)])
+        else:
+            prompt = rng.integers(0, vocab, int(rng.integers(*soup["fresh_len"]))).astype(
+                np.int32)
+        max_new = min(int(rng.integers(soup["max_new"][0], soup["max_new"][1] + 1)),
+                      w.seq - len(prompt))
+        if max_new < 1:
+            history[sess] = None
+            return
+        fleet.submit(sess, f"r{rid}", prompt, max_new)
+        inflight[sess] = (f"r{rid}", prompt, max_new)
+        rid += 1
+
+    def track(session, name, prompt, max_new, tokens):
+        history[session] = np.concatenate([np.asarray(prompt, np.int32), tokens])
+
+    for _ in range(soup["events"]):
+        for sess in sessions:
+            if sess not in inflight and rng.random() < 0.35:
+                submit(sess)
+        if rng.random() < 0.08:
+            fleet.scale_up()
+        if rng.random() < 0.08:
+            fleet.scale_down()
+        if rng.random() < 0.06:
+            live = [x.worker_id for x in fleet.workers.values() if x.state != "wedged"]
+            if live:
+                fleet.fail_worker(live[int(rng.integers(len(live)))])
+        if rng.random() < 0.25:
+            sweep()
+        fleet_tick(fleet, done, wire, inflight, track)
+    for _ in range(FLEET_DRAIN_TICKS):
+        if not fleet.busy():
+            break
+        sweep()
+        fleet_tick(fleet, done, wire, inflight, track)
+    else:
+        raise RuntimeError("the fleet did not drain")
+    for _ in range(FLEET_DRAIN_TICKS):
+        if not fleet.live_workers():
+            break
+        sweep()
+        fleet_tick(fleet, done, wire, inflight)
+    else:
+        raise RuntimeError("the fleet did not scale to zero")
+    if inflight:
+        raise AssertionError(f"requests lost: {sorted(inflight)}")
+    return {"completions": done, "wire": wire}
+
+
+def fleet_record(fleet) -> Dict[str, Any]:
+    """What every rank of a mesh fleet must agree on: the fleet's stats,
+    its log of worker events and adoptions in order, and every worker's
+    scheduler stats."""
+    return {"fleet": fleet.fleet_stats(), "log": list(fleet.log),
+            "workers": [s.stats() for s in fleet._all_scheds()]}
+
+
 def _one_decode_wire(sched, w: Workload, prompt: np.ndarray) -> int:
     """The collective bytes of one decode step of ``sched`` (every decode
     step computes every row, so any step's bytes are every step's, whatever
     the prompt: a few of its tokens are admitted, which keeps a long ring
-    prefill's transients out of this check)."""
+    prefill's transients out of this check), or of the first speculation
+    round after that admission (its catch-up spans the prompt)."""
     sched.submit("wire", "wire", prompt[:4], 2)
     while sched.decode_tokens == 0:
         sched.step()
-    return sched.last_step_wire_bytes
+    return step_wire(sched)[0]
 
 
 def _launch_wrappers() -> dict:
@@ -547,21 +903,58 @@ def _launch_wrappers() -> dict:
             "moe_combine": moe_combine_kernel}
 
 
-def serve_rank(mesh, w: Workload, *, mesh_matched: bool = False) -> Dict[str, Any]:
-    """One rank of the mesh run: the workload (or its event soup) on
-    ``mesh``, then the decode step's collective bytes at a pool 4x larger
-    (paged) or at twice ``max_seq`` (rings), and (``mesh_matched``) the
-    same sharded scheduler serving each request alone."""
+def serve_workload(w: Workload, model, mesh=None, store=None, draft=None) -> tuple:
+    """``w`` on ``mesh`` (None: in this process): its fleet (the soup or the
+    turns), its event soup or a plain drive.  Returns the run (tokens by
+    request, the collective bytes of each decode step or round, ...), the
+    scheduler whose placement it reports (a fleet's first worker: every
+    worker is placed alike) and the fleet (or None)."""
+    vocab = model.cfg.vocab
+    if w.fleet is not None:
+        fleet = fleet_of(w, model, mesh, store, draft)
+        workers = list(fleet._pool)
+        run = fleet_soup(fleet, w, vocab) if w.fleet.soup else fleet_turns(fleet, w, vocab)
+        run.update(tokens={c[1]: c[4] for c in run["completions"]}, steps=fleet.steps,
+                   step_ms=[], wire_ms=[], chunk_ms=[], chunk_wire=[], chunk_wire_ms=[],
+                   decode_tokens=sum(x.decode_tokens for x in workers),
+                   chunks_run=sum(x.chunks_run for x in workers),
+                   worker_steps=sum(x.steps for x in workers), stats=fleet.fleet_stats())
+        return run, workers[0], fleet
+    sched = scheduler(w, model, mesh, blob_store=store, draft=draft)
+    if w.soup is not None:
+        run = event_soup(sched, w, vocab)
+        run.update(tokens={c[1]: c[4] for c in run["completions"]}, steps=sched.steps,
+                   chunk_ms=[], chunk_wire=[], chunk_wire_ms=[],
+                   decode_tokens=sched.decode_tokens)
+    else:
+        run = drive(sched, w, w.prompts(vocab))
+    run["chunks_run"] = sched.chunks_run
+    return run, sched, None
+
+
+def serve_rank(mesh, w: Workload, *, mesh_matched: bool = False,
+               probe: bool = True) -> Dict[str, Any]:
+    """One rank of the mesh run: the workload (its fleet, its event soup or
+    a plain drive) on ``mesh``, then the decode step's (or a speculation
+    round's) collective bytes at a pool 4x larger (paged) or at twice
+    ``max_seq`` (rings), and (``mesh_matched``) the same sharded scheduler,
+    without speculation or a fleet, serving each request alone; a fleet's
+    record (:func:`fleet_record`) is checked equal on every rank.  ``probe``:
+    first :func:`host_probe` the rank (returned under "probe")."""
     import torch.distributed as dist
 
+    from ..serve.scheduler import ranks_agree
+
     device = "cuda" if mesh.device_type == "cuda" else "cpu"
+    t_job = time.perf_counter()
+    probe = host_probe(device) if probe else None
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     wrappers = _launch_wrappers()
     model = build(w, device, mesh)
+    draft = build_draft(w, model, device, mesh)
     prompts = w.prompts(model.cfg.vocab)
     store = RecordingStore()
-    sched = scheduler(w, model, mesh, blob_store=store)
     for wrapper in wrappers.values():
         wrapper.launches = 0
     by_kind = {name: wrappers[name].launches_by_kind
@@ -572,20 +965,14 @@ def serve_rank(mesh, w: Workload, *, mesh_matched: bool = False) -> Dict[str, An
     digests = RouteDigests(4 * model.cfg.n_layers)
     t0 = time.perf_counter()
     with digests if model.cfg.family == "moe" else contextlib.nullcontext():
-        if w.soup is not None:
-            run = event_soup(sched, w, model.cfg.vocab)
-            run["tokens"] = {c[1]: c[4] for c in run["completions"]}
-            run.update(steps=sched.steps, chunk_ms=[], chunk_wire=[], chunk_wire_ms=[],
-                       decode_tokens=sched.decode_tokens)
-        else:
-            run = drive(sched, w, prompts)
+        run, sched, fleet = serve_workload(w, model, mesh, store, draft)
     _sync(device)
     wall = time.perf_counter() - t0
     policy = sched._policy
     out = {"rank": dist.get_rank(), "coord": tuple(mesh.get_coordinate()),
            "tokens": run["tokens"], "steps": run["steps"], "step_ms": run["step_ms"],
            "wall_s": wall, "decode_tokens": run["decode_tokens"],
-           "decode_steps": len(run["wire"]), "chunks_run": sched.chunks_run,
+           "decode_steps": len(run["wire"]), "chunks_run": run["chunks_run"],
            "launches": {name: fn.launches for name, fn in wrappers.items()},
            "ssd_launches_by_kind": dict(by_kind["ssd_scan"]),
            "moe_launches_by_kind": {name: dict(counts) for name, counts in by_kind.items()
@@ -609,22 +996,42 @@ def serve_rank(mesh, w: Workload, *, mesh_matched: bool = False) -> Dict[str, An
     if w.soup is not None:
         for key in ("completions", "stats", "preempt_ms", "preempt_wire", "restore_ms"):
             out[key] = run[key]
+    if w.spec is not None:
+        out["spec_stats"] = sched.spec_stats()
+    if fleet is not None:
+        out.update(completions=run["completions"], stats=run["stats"],
+                   worker_steps=run["worker_steps"], fleet=fleet_record(fleet))
+        out["fleet_agree"] = ranks_agree(out["fleet"])
     if device == "cuda":
         out["peak_bytes"] = torch.cuda.max_memory_allocated()
-    del sched
+    del sched, fleet
     _free(device)           # each scheduler's cache before the next is placed
+    # the one-scheduler form of the workload: its decode step's (or round's)
+    # bytes at the default pool and at a bigger one, and its matched run
+    wb = dataclasses.replace(w, fleet=None, park_sessions=w.park_sessions or bool(w.fleet),
+                             prefix_sharing=w.prefix_sharing or bool(w.fleet))
+    if w.spec is not None:
+        out["wire_one"] = _one_decode_wire(scheduler(wb, model, mesh, draft=draft), w, prompts[0])
+        _free(device)
     if w.kv_mode == "ring":
-        big = scheduler(w, model, mesh, max_seq=2 * w.seq)
+        big = scheduler(wb, model, mesh, max_seq=2 * w.seq, draft=draft)
     else:
-        big = scheduler(w, model, mesh, kv_pages=4 * (w.n_slots * -(-w.seq // w.page_size)))
+        big = scheduler(wb, model, mesh, kv_pages=4 * (w.n_slots * -(-w.seq // w.page_size)),
+                        draft=draft)
     out["wire_per_step_big"] = _one_decode_wire(big, w, prompts[0])
     out["pool_bytes_4x"] = big.pool_bytes()
     del big
     _free(device)
     if mesh_matched:
+        wr = dataclasses.replace(wb, spec=None)
         out["matched_tokens"] = (
-            sched_ref(w, model, mesh, run["completions"]) if w.soup is not None else
-            drive(scheduler(w, model, mesh), w, prompts, one_at_a_time=True)["tokens"])
+            sched_ref(wr, model, mesh, run["completions"])
+            if w.soup is not None or w.fleet is not None else
+            drive(scheduler(wr, model, mesh), w, prompts, one_at_a_time=True)["tokens"])
+    if probe is not None and device == "cuda":
+        probe["alloc_retries_after"] = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    out["probe"] = probe
+    out["job_s"] = time.perf_counter() - t_job
     return out
 
 
@@ -639,31 +1046,47 @@ def _free(device) -> None:
         torch.cuda.empty_cache()
 
 
-def serve_rank_jobs(mesh, jobs: Sequence[tuple]) -> list:
+def serve_rank_jobs(mesh, jobs: Sequence[tuple], gate: Optional[tuple] = None) -> list:
     """One rank of several mesh runs in one spawn: ``jobs`` holds
     ``(workload, mesh_matched)`` pairs, each served by :func:`serve_rank`
     on a model of its own; the last job's model (its schedulers hold
-    reference cycles) is collected before the next is built."""
+    reference cycles) is collected before the next is built; the first
+    job probes the rank (:func:`host_probe`).  ``gate``
+    ``(index, path)``: job ``index`` starts once ``path`` exists (the
+    spawning process's sign that it has freed the card for the jobs
+    from there on)."""
     out = []
-    for w, matched in jobs:
-        out.append(serve_rank(mesh, w, mesh_matched=matched))
+    for i, (w, matched) in enumerate(jobs):
+        if gate is not None and i == gate[0]:
+            _wait_for(gate[1])
+        out.append(serve_rank(mesh, w, mesh_matched=matched, probe=i == 0))
         _free(mesh.device_type)
     return out
 
 
+def _wait_for(path: str, timeout_s: float = JOIN_TIMEOUT_S) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if time.monotonic() >= deadline:
+            raise TimeoutError(f"{path} did not appear in {timeout_s:.0f} s")
+        time.sleep(0.2)
+
+
 def run_single(w: Workload, device, model=None) -> Dict[str, Any]:
-    """The workload on ``mesh=None`` in this process (:func:`drive`'s or
-    :func:`event_soup`'s result, the pool's and rings' bytes, and the
-    storage journal and blobs), on ``model`` or a fresh one."""
+    """The workload on ``mesh=None`` in this process (:func:`serve_workload`'s
+    run, the pool's and rings' bytes, and the storage journal and blobs),
+    on ``model`` or a fresh one."""
     model = build(w, device) if model is None else model
     store = RecordingStore()
-    sched = scheduler(w, model, blob_store=store)
-    if w.soup is not None:
-        single = event_soup(sched, w, model.cfg.vocab)
-        single["tokens"] = {c[1]: c[4] for c in single["completions"]}
-        single["steps"] = sched.steps
-    else:
-        single = drive(sched, w, w.prompts(model.cfg.vocab))
+    # a plain drive's speculation is held to the run without it; a soup's
+    # or a fleet's requests depend on when its streams end, so there it is
+    # held to mesh=None's speculative run
+    plain = w.soup is None and w.fleet is None
+    single, sched, fleet = serve_workload(dataclasses.replace(w, spec=None) if plain else w,
+                                          model, None, store,
+                                          None if plain else build_draft(w, model, device))
+    if fleet is not None:
+        single["fleet"] = fleet_record(fleet)
     single["expert_bytes"] = expert_bytes(model)
     single["pool_bytes"] = sched.pool_bytes()
     single["ring_bytes"] = sched.held_bytes(("k", "v"))
@@ -687,6 +1110,7 @@ def verdicts(w: Workload, single: Dict[str, Any], ranks: Sequence[Dict[str, Any]
         "sharded_step_ms": [_median(r["step_ms"]) for r in ranks],
         "sharded_tok_s": [r["decode_tokens"] / r["wall_s"] for r in ranks],
         "ranks_agree": all(r["tokens"] == r0["tokens"] for r in ranks),
+        "job_s": [r["job_s"] for r in ranks], "probe": [r["probe"] for r in ranks],
         "pool": r0["pool"], "ring": r0["ring"], "ssm": r0["ssm"],
         "pool_bytes_single": single.get("pool_bytes"),
         "pool_bytes_rank": [r["pool_bytes"] for r in ranks],
@@ -727,6 +1151,7 @@ def verdicts(w: Workload, single: Dict[str, Any], ranks: Sequence[Dict[str, Any]
         res["moe_launches_by_kind"] = [r["moe_launches_by_kind"] for r in ranks]
     if mesh_matched:
         res["matched_identical"] = all(r["matched_tokens"] == r["tokens"] for r in ranks)
+        res["tokens_matched"] = r0["matched_tokens"]
     # each rank holds 1/mp of every leaf the model axis splits (a T-split
     # ring's scratch lane aside), and the rings and the SSD state of its
     # data group's slots alone where the slots split over data
@@ -740,9 +1165,16 @@ def verdicts(w: Workload, single: Dict[str, Any], ranks: Sequence[Dict[str, Any]
                 * (dp if r["slot_split"] and key != "pool_bytes" else 1) == single[key]
                 for r in ranks)
             checks.append(res[verdict])
-    res["wire_flat"] = all(len(r["wire_per_step"]) == 1
-                           and r["wire_per_step"][0] == r["wire_per_step_big"]
-                           for r in ranks)
+    if w.spec is not None:
+        # a round's bytes follow its catch-up's width: the same first round
+        # at the default pool and at the bigger one
+        res["wire_one"] = [r["wire_one"] for r in ranks]
+        res["wire_flat"] = all(r["wire_one"] == r["wire_per_step_big"] > 0 for r in ranks)
+        res["spec_stats"] = [r["spec_stats"] for r in ranks]
+    else:
+        res["wire_flat"] = all(len(r["wire_per_step"]) == 1
+                               and r["wire_per_step"][0] == r["wire_per_step_big"]
+                               for r in ranks)
     checks.append(res["wire_flat"])
     if "expert_split" in res:
         checks += [res["expert_split"], res["routes_agree"]]
@@ -764,27 +1196,48 @@ def verdicts(w: Workload, single: Dict[str, Any], ranks: Sequence[Dict[str, Any]
         res["single_stats"] = single["stats"]
         res["completions"] = r0["completions"]
         checks += [res["pages_move_no_bytes"], res["journals_equal"]]
+    if w.fleet is not None:
+        # every rank's fleet made the same decisions (an all-reduced digest
+        # of its record); each rank bills what mesh=None bills and holds its
+        # shard of mesh=None's blobs, where the tokens agree
+        res["fleet_agrees"] = all(r["fleet_agree"] for r in ranks)
+        res["fleet_record"], res["single_fleet"] = r0["fleet"], single["fleet"]
+        res["stats"], res["completions"] = r0["stats"], r0["completions"]
+        res["worker_steps"] = [r["worker_steps"] for r in ranks]
+        res["pages_move_no_bytes"] = all(r["page_wire_bytes"] == 0 for r in ranks)
+        res["journals_equal"] = all(r["journal"] == single["journal"] for r in ranks)
+        res["blobs"] = len(single["blobs"])
+        if res["identical_outputs"]:
+            res.update(blob_agreement(ranks, single))
+        checks += [res["fleet_agrees"], res["pages_move_no_bytes"]]
     res["tokens_single"] = single["tokens"]
     res["tokens_sharded"] = r0["tokens"]
-    checks.append(res["matched_identical"] if mesh_matched else res["identical_outputs"])
+    tokens_ok = res["matched_identical"] if mesh_matched else res["identical_outputs"]
+    if w.spec is not None:
+        res["spec_matches"] = tokens_ok
+    checks.append(tokens_ok)
     res["ok"] = all(checks)
     return res
 
 
 def run_smoke(ws, *, dp: int = 2, mp: int = 2, device: str = "cuda", mesh_matched=False,
-              timeout_s: float = JOIN_TIMEOUT_S, singles=None) -> list:
-    """Each workload of ``ws`` (one or a list) on ``mesh=None`` here (unless
-    ``singles`` holds those runs already) and on ``dp x mp`` spawned ranks,
-    all in one spawn; :func:`verdicts` of each.  ``mesh_matched``: a bool
-    for every workload, or one per workload."""
+              timeout_s: float = JOIN_TIMEOUT_S) -> list:
+    """Each workload of ``ws`` (one or a list) on ``dp x mp`` spawned ranks,
+    all in one spawn, and on ``mesh=None`` here while they run;
+    :func:`verdicts` of each.  ``mesh_matched``: a bool for every
+    workload, or one per workload."""
     ws = [ws] if isinstance(ws, Workload) else list(ws)
     matched = ([mesh_matched] * len(ws) if isinstance(mesh_matched, bool)
                else list(mesh_matched))
-    if singles is None:
+    ranks = Ranks(serve_rank_jobs, (list(zip(ws, matched)),), dp=dp, mp=mp, device=device,
+                  timeout_s=timeout_s)
+    try:
         singles = [run_single(w, device) for w in ws]
-    ranks = spawn_ranks(serve_rank_jobs, (list(zip(ws, matched)),), dp=dp, mp=mp,
-                        device=device, timeout_s=timeout_s)
-    return [verdicts(w, single, [r[i] for r in ranks], dp=dp, mp=mp, device=device,
+    except BaseException:
+        ranks.kill()
+        raise
+    out = ranks.join()
+    return [verdicts(w, single, [r[i] for r in out], dp=dp, mp=mp, device=device,
                      mesh_matched=m)
             for i, (w, single, m) in enumerate(zip(ws, singles, matched))]
 

@@ -535,19 +535,20 @@ class PrefixIndex:
         prefill KV)."""
         return INDEX_JOURNAL_PREFIX + h.hex()
 
-    def journal(self, pairs, blob_store, extract) -> int:
+    def journal(self, pairs, blob_store, extract, pool_split: int = 1) -> int:
         """Persist ``(hash, physical page)`` entries to ``blob_store``: each
         page's contents are gathered via ``extract(page_ids) -> blob`` (a
-        host blob) and PUT under :meth:`journal_key`.  Entries whose key is
-        already stored are skipped (same hash, same bytes).  Returns how
-        many blobs were written."""
+        host blob) and PUT under :meth:`journal_key`, billed at the whole
+        page's size (a split pool's blob is one of ``pool_split`` shards).
+        Entries whose key is already stored are skipped (same hash, same
+        bytes).  Returns how many blobs were written."""
         n = 0
         for h, pid in pairs:
             key = self.journal_key(h)
             if key in blob_store.blobs:
                 continue
             blob = extract([int(pid)])
-            blob_store.put(key, blob, blob_nbytes(blob))
+            blob_store.put(key, blob, blob_nbytes(blob, pool_split))
             n += 1
         return n
 

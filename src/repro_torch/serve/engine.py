@@ -4,12 +4,12 @@ draft-and-verify speculative decoding (the draft's S=1 step, its batched
 catch-up and the target's verify chunk).  Every step writes into the
 caches and buffers it is given, so a CUDA graph can replay it.
 
-The chunk and offload factories take ``policy``, a
+The chunk, offload and speculation factories take ``policy``, a
 :class:`repro_torch.dist.sharding.ShardingPolicy` installed around every
 call of the step (the reference's ``_policy_scope``), so the cache's split
 pool, rings and SSD state are read and written per shard (the scheduler's
-``mesh=`` mode; its decode step installs the policy itself).  None installs nothing, and an
-outer policy stays in force."""
+``mesh=`` mode; its decode step installs the policy itself).  None installs
+nothing, and an outer policy stays in force."""
 
 from __future__ import annotations
 
@@ -63,7 +63,7 @@ def make_chunk_step(model, *, policy=None) -> Callable:
     return chunk_step
 
 
-def make_draft_step(model) -> Callable:
+def make_draft_step(model, *, policy=None) -> Callable:
     """Batched S=1 greedy step of the *draft* model of a speculative
     decoder: one proposed token per masked-in slot against the draft's own
     per-slot ring cache, written in place.  Inactive rows keep their state
@@ -74,8 +74,9 @@ def make_draft_step(model) -> Callable:
     ``last_tokens`` itself) and returns the logits."""
 
     def draft_step(cache, last_tokens, active, out) -> torch.Tensor:
-        logits, new_cache = model.decode_step(cache, last_tokens[:, None])
-        kvcache.mask_slot_rows(new_cache, cache, active)
+        with _policy_scope(policy):
+            logits, new_cache = model.decode_step(cache, last_tokens[:, None])
+            kvcache.mask_slot_rows(new_cache, cache, active)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         out.copy_(torch.where(active, tok, last_tokens))
         return logits
@@ -83,7 +84,7 @@ def make_draft_step(model) -> Callable:
     return draft_step
 
 
-def make_draft_catchup_step(model) -> Callable:
+def make_draft_catchup_step(model, *, policy=None) -> Callable:
     """Batched draft catch-up on the canonical token stream: every
     masked-in slot replays the canonical tokens its draft ring has not
     consumed, in one call per verify round.
@@ -103,11 +104,12 @@ def make_draft_catchup_step(model) -> Callable:
     into ``out`` and returns the logits."""
 
     def catchup(cache, tokens, counts, active, out) -> torch.Tensor:
-        logits, new_cache = model.decode_step(cache, tokens)
-        # decode_step advanced every row by the padded width W; the
-        # canonical advance is each row's own pending count
-        new_cache["length"] = cache["length"] + counts
-        kvcache.mask_slot_rows(new_cache, cache, active)
+        with _policy_scope(policy):
+            logits, new_cache = model.decode_step(cache, tokens)
+            # decode_step advanced every row by the padded width W; the
+            # canonical advance is each row's own pending count
+            new_cache["length"] = cache["length"] + counts
+            kvcache.mask_slot_rows(new_cache, cache, active)
         y = torch.argmax(logits, dim=-1).to(torch.int32)              # (B, W)
         idx = (counts - 1).clamp(min=0).long()[:, None]
         out.copy_(y.gather(1, idx)[:, 0])
@@ -116,7 +118,7 @@ def make_draft_catchup_step(model) -> Callable:
     return catchup
 
 
-def make_spec_verify_step(model, *, max_seq: int) -> Callable:
+def make_spec_verify_step(model, *, max_seq: int, policy=None) -> Callable:
     """One draft-and-verify round's target half: score ``k + 1`` tokens per
     slot in one chunked decode step against the paged pool and accept the
     longest prefix of drafts that matches the target's own greedy argmax.
@@ -142,26 +144,41 @@ def make_spec_verify_step(model, *, max_seq: int) -> Callable:
     K/V sits past it, invalid to every read until a later write covers it.
     Recurrent rows advance through all ``S`` tokens and are not rewound
     here: a hybrid caller snapshots them before the step and replays the
-    accepted span on a partial accept.  Returns ``(y, a, logits)``."""
+    accepted span on a partial accept.  Returns ``(y, a, logits)``.
+
+    Under a ``policy`` the call scores this rank's slot rows against its
+    part of the pool; ``out_buf``, ``out_pos`` and ``last_tokens`` may then
+    be None, and the caller emits the tokens of every slot with
+    :func:`spec_emit` once ``y`` and ``a`` are shared."""
 
     def verify(cache, verify_tokens, active, k_eff, out_buf, out_pos, last_tokens):
         B, S = verify_tokens.shape
-        logits, new_cache = model.decode_step(cache, verify_tokens)
-        kvcache.mask_slot_rows(new_cache, cache, active)
+        with _policy_scope(policy):
+            logits, new_cache = model.decode_step(cache, verify_tokens)
+            kvcache.mask_slot_rows(new_cache, cache, active)
         y = torch.argmax(logits, dim=-1).to(torch.int32)              # (B, S)
         match = (verify_tokens[:, 1:] == y[:, :-1]).to(torch.int32)
         a = torch.minimum(torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32), k_eff)
-        j = torch.arange(S, dtype=torch.int32, device=y.device)
-        cols = ((out_pos[:, None] + j) % max_seq).long()
-        emit = active[:, None] & (j <= a[:, None])
-        out_buf.scatter_(1, cols, torch.where(emit, y, out_buf.gather(1, cols)))
-        last = y.gather(1, a.long()[:, None])[:, 0]
-        last_tokens.copy_(torch.where(active, last, last_tokens))
-        out_pos.add_(torch.where(active, a + 1, 0))
+        if out_buf is not None:
+            spec_emit(y, a, active, out_buf, out_pos, last_tokens, max_seq=max_seq)
         cache["length"].sub_(torch.where(active, S - 1 - a, 0))
         return y, a, logits
 
     return verify
+
+
+def spec_emit(y, a, active, out_buf, out_pos, last_tokens, *, max_seq: int) -> None:
+    """A verify round's emission, in place: each active row's ``y[:, :a+1]``
+    into the output ring at ``out_pos % max_seq`` (other columns keep their
+    values), ``out_pos`` advanced by ``a + 1`` and ``last_tokens = y[b, a]``."""
+    S = y.shape[1]
+    j = torch.arange(S, dtype=torch.int32, device=y.device)
+    cols = ((out_pos[:, None] + j) % max_seq).long()
+    emit = active[:, None] & (j <= a[:, None])
+    out_buf.scatter_(1, cols, torch.where(emit, y, out_buf.gather(1, cols)))
+    last = y.gather(1, a.long()[:, None])[:, 0]
+    last_tokens.copy_(torch.where(active, last, last_tokens))
+    out_pos.add_(torch.where(active, a + 1, 0))
 
 
 def make_offload_steps(*, policy=None) -> tuple:

@@ -10,6 +10,13 @@ controller can spawn workers on queue bursts, drain-then-park them on
 scale-down, kill them on crashes, and scale the whole fleet to zero, with a
 cold start rebuilding a worker from storage alone.
 
+On a mesh (every worker a ``DecodeScheduler(mesh=)`` on the same live
+mesh, as the reference's launcher builds them) every rank runs the same
+controller over the same submits, fault plan and events, and its workers
+share that rank's blob store: a blob there is the rank's lanes or heads of
+its pages, under the same key on every rank, and a ``park-meta`` record
+names the mesh shape that wrote it (adopting it on another shape raises).
+
 Coordination uses the repo's own primitives: each worker holds an ephemeral
 znode via :class:`~repro_torch.coord.membership.MembershipService` (heartbeat
 eviction is the crash detector — a wedged worker stops renewing and the
@@ -142,6 +149,9 @@ class FleetController:
         self._seq = 0
         self.steps = 0
         self.events: List[WorkerEvent] = []
+        # every lifecycle event and park-meta adoption in order, never
+        # drained (the ranks of a mesh fleet must agree on it)
+        self.log: List[tuple] = []
         self.last_decoded_workers = 0   # workers that decoded in the last tick
 
         # gauges
@@ -269,8 +279,7 @@ class FleetController:
         self.spawns += 1
         if from_zero:
             self.cold_starts_from_zero += 1
-        self.events.append(WorkerEvent("spawn", wid, self.steps,
-                                       from_zero=from_zero))
+        self._event(WorkerEvent("spawn", wid, self.steps, from_zero=from_zero))
         return w
 
     def _autoscale(self) -> None:
@@ -308,7 +317,7 @@ class FleetController:
         meta = {"session": rec.session, "history": rec.history,
                 "consumed": rec.consumed, "page_row": rec.page_row,
                 "state": rec.state, "blob_key": rec.blob_key,
-                "blob_pidx": list(rec.blob_pidx)}
+                "blob_pidx": list(rec.blob_pidx), "mesh_shape": rec.mesh_shape}
         nbytes = _META_OVERHEAD_BYTES + rec.history.nbytes
         if rec.state is not None:
             nbytes += kvcache.blob_nbytes(rec.state)
@@ -333,9 +342,10 @@ class FleetController:
             consumed=int(meta["consumed"]),
             page_row=np.asarray(meta["page_row"]), pages=[], slot=None,
             state=meta["state"], blob_key=meta["blob_key"],
-            blob_pidx=list(meta["blob_pidx"]))
+            blob_pidx=list(meta["blob_pidx"]), mesh_shape=meta["mesh_shape"])
         w.sched.adopt_parked(rec)
         self.meta_adoptions += 1
+        self.log.append(("adopt", w.worker_id, self.steps, session))
         # the meta stays until this session next completes: if the adopter
         # crashes mid-restore, the journal must still be re-adoptable
         return True
@@ -382,8 +392,7 @@ class FleetController:
             self.evictions += 1
         elif reason == "retire":
             self.retires += 1
-        self.events.append(WorkerEvent(reason, w.worker_id, self.steps,
-                                       busy_steps=w.busy_steps))
+        self._event(WorkerEvent(reason, w.worker_id, self.steps, busy_steps=w.busy_steps))
 
     def _reap_evicted(self) -> None:
         """Heartbeat-eviction crash detection: any worker whose ephemeral
@@ -506,6 +515,10 @@ class FleetController:
         self.pending = []
         self._inflight.clear()
 
+    def _event(self, ev: WorkerEvent) -> None:
+        self.events.append(ev)
+        self.log.append(dataclasses.astuple(ev))
+
     def drain_events(self) -> List[WorkerEvent]:
         ev, self.events = self.events, []
         return ev
@@ -532,6 +545,7 @@ class FleetController:
         self._inflight.clear()
         self._incarnations.clear()
         self.events = []
+        self.log = []
         self._seq = 0
         self.steps = 0
         self.faults = faults

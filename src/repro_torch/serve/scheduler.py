@@ -162,7 +162,12 @@ whole (the flash kernel at 4096 tokens or more, replicated over
 offload, sharing and parking run on every rank, each on its own part of
 the pool, with no collective: a blob is this rank's lanes or heads of its
 pages (each rank's blob store holds its own, under the same key), billed
-at the whole blob's size.  A slot's rows (length and recurrent state,
+at the whole blob's size.  The fleet's hand-over works the same way: an
+index-journal blob is this rank's shard of the page, and a parked record
+(:meth:`externalize_session`, :meth:`adopt_parked`) carries the whole slot
+rows and the key of this rank's blob shard; both are read back only on the
+mesh shape that wrote them (a record from another ``(data, model)`` shape
+is refused).  A slot's rows (length and recurrent state,
 snapshot when a parked slot is reclaimed) move over ``data`` as a SUM of a
 zero-filled buffer, so a session may come back in a slot another data
 group holds.  The steps run under the policy's scope
@@ -172,10 +177,13 @@ the rank's expert shard (:class:`..dist.sharding.ExpertShard`; the model,
 from ``build_model(..., mesh=)``, holds only those experts) with one
 all-reduce over ``model`` a layer; ring mode's
 prefill runs under the policy without its state shards
-(``ShardingPolicy.whole_state``).  Refused under a mesh: speculation,
-the fleet's cross-worker hand-over (``externalize_session``,
-``adopt_parked``, ``adopt_index_journal`` and ``index_journal=True``: a
-blob is per shard here) until ROADMAP 1.8b-iii.
+(``ShardingPolicy.whole_state``).  Speculation runs the reference's mesh
+branch: the draft has a ring placed as ring mode's (kv heads on
+``model``, else T) and a policy of its own (a MoE draft holds that
+policy's experts; a self-draft is the target's module), each data group
+runs the catch-up, the draft steps and the verify chunk on its own slots'
+rows, and the verify's tokens and each slot's acceptance are shared over
+``data`` in one collective a round (``last_round_wire_bytes``).
 """
 
 from __future__ import annotations
@@ -194,7 +202,7 @@ from ..kernels.moe_experts.kernel import launch_kind
 from ..models import kvcache
 from . import sampling
 from .engine import (make_chunk_step, make_draft_catchup_step, make_draft_step,
-                     make_offload_steps, make_spec_verify_step)
+                     make_offload_steps, make_spec_verify_step, spec_emit)
 from .graphs import StepGraphs
 from .lifecycle import Slot, SlotState
 
@@ -251,6 +259,7 @@ class ParkedSession:
     blob_key: Optional[str] = None        # pages offloaded under pool pressure
     blob_pidx: List[int] = dataclasses.field(default_factory=list)
     parked_step: int = 0
+    mesh_shape: Optional[tuple] = None    # (data, model) of the mesh that wrote it
 
 
 @dataclasses.dataclass
@@ -265,19 +274,6 @@ class _MatchPlan:
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet")
-
-
-def _mesh_refusal(what: str):
-    return _not_ported(f"{what} under mesh=, ROADMAP 1.8b-iii")
-
-
-def _mesh_refusals(model, *, index_journal, draft_model, spec_k) -> List[str]:
-    """What ``mesh=`` cannot serve yet, each with the ROADMAP item that
-    ports it."""
-    return [f"{what} under mesh=, ROADMAP {item}" for what, item, refused in (
-        ("index_journal=True", "1.8b-iii", index_journal),
-        ("speculative decoding (spec_k > 0)", "1.8b-iii",
-         draft_model is not None and spec_k > 0)) if refused]
 
 
 def _same_everywhere(params, group=None) -> None:
@@ -295,6 +291,23 @@ def _same_everywhere(params, group=None) -> None:
     if not torch.equal(hi, -lo):
         raise RuntimeError(f"ranks hold different weights (checksums span {(-lo).tolist()} "
                            f"to {hi.tolist()}): build every rank's model from one seed")
+
+
+def ranks_agree(record, group=None) -> bool:
+    """Whether every rank of ``group`` (default: all) holds the same
+    ``record`` (stats dicts, event tuples: anything whose ``repr`` is equal
+    for equal values): its SHA-256 words all-reduced by MAX and by MAX of
+    their negations, as :func:`_same_everywhere` checks weights."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    words = np.frombuffer(hashlib.sha256(repr(record).encode()).digest(), dtype=np.int32)
+    local = torch.from_numpy(words.astype(np.int64))
+    hi, lo = local.clone(), -local
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MAX, group=group)
+    return torch.equal(hi, -lo)
 
 
 class DecodeScheduler:
@@ -322,10 +335,6 @@ class DecodeScheduler:
         if kv_mode not in ("paged", "ring"):
             raise ValueError(f"kv_mode must be 'paged' or 'ring', got {kv_mode!r}")
         if mesh is not None:
-            refused = _mesh_refusals(model, index_journal=index_journal,
-                                     draft_model=draft_model, spec_k=spec_k)
-            if refused:
-                raise _not_ported(refused[0])
             if not isinstance(mesh, DeviceMesh):
                 # the reference also takes an abstract mesh, to compute the
                 # cache's specs without placing it (the dry run's use)
@@ -422,13 +431,17 @@ class DecodeScheduler:
         self._page_rows = np.full((n_slots, self.max_pages), -1, np.int32)
         self._reserved = 0
         self._mesh = mesh
+        self._mesh_shape = tuple(int(n) for n in mesh.shape) if mesh is not None else None
         self._policy = None
+        self._draft_policy = None
         self._rows: Optional[slice] = None     # this rank's slot rows (mesh mode)
         self._slot_split = False               # slots placed on data (mesh mode)
         self.last_step_wire_bytes = 0          # collective bytes of the last decode step
         self.last_step_wire_ms = 0.0           # ... and their host ms
         self.last_chunk_wire_bytes = 0         # ... of the last chunk this rank ran
         self.last_chunk_wire_ms = 0.0
+        self.last_round_wire_bytes = 0         # ... of the last speculation round
+        self.last_round_wire_ms = 0.0
         self.chunks_run = 0                    # prefill chunks (or ring prefills) this rank ran
         self.row_wire_bytes = 0                # collective bytes of slot-row moves (mesh mode)
         self.page_wire_bytes = 0               # ... of page moves: none by design
@@ -562,20 +575,43 @@ class DecodeScheduler:
         ssm = (sharding.SSMShard.for_state(placed["ssm"], shapes["ssm"], mesh)
                if "ssm" in glob else None)
         self._policy = self._build_policy(model, mesh, pool, ring, ssm)
+        cache, specs = self._allocate(glob, mesh, ring)
+        rows = sharding.local_shard(torch.arange(self.n_slots), specs["length"], mesh)
+        self._rows = slice(int(rows[0]), int(rows[-1]) + 1)
+        self._slot_split = len(rows) < self.n_slots
+        return cache
+
+    def _allocate(self, glob, mesh, ring) -> tuple:
+        """This rank's leaves of the global cache ``glob`` (fake tensors),
+        placed by :func:`~repro_torch.dist.sharding.serving_cache_specs`
+        and allocated at their local shapes (a T-split ring with its
+        scratch lane); returns them and the specs."""
         specs = sharding.serving_cache_specs(glob, mesh,
                                              batch_shardable=self._policy.batch_shardable)
         cache = {}
         for key, leaf in glob.items():
-            shape = list(sharding.local_shard(torch.empty(shapes[key], device="meta"),
+            shape = list(sharding.local_shard(torch.empty(tuple(leaf.shape), device="meta"),
                                               specs[key], mesh).shape)
             if key in kvcache.RING_KEYS and ring.scratch:
                 shape[2] += ring.scratch
             fill = -1 if key in ("page_table", "positions") else 0
             cache[key] = torch.full(shape, fill, dtype=leaf.dtype, device=self.device)
-        rows = sharding.local_shard(torch.arange(self.n_slots), specs["length"], mesh)
-        self._rows = slice(int(rows[0]), int(rows[-1]) + 1)
-        self._slot_split = len(rows) < self.n_slots
-        return cache
+        return cache, specs
+
+    def _place_draft_cache(self, draft_model, depth: int) -> Dict[str, torch.Tensor]:
+        """This rank's part of the draft's per-slot ring, placed as ring
+        mode places a target's (kv heads on ``model``, else T with a
+        scratch lane; slots on ``data`` where they divide), and the draft's
+        own policy (the reference's ``_build_policy(draft_model, mesh)``)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        mesh = self._mesh
+        with FakeTensorMode():
+            glob = kvcache.batched_cache(draft_model, self.n_slots, depth)
+        placed = sharding.cache_shardings({"k": glob["k"]}, mesh)
+        ring = sharding.RingShard.for_ring(placed["k"], tuple(glob["k"].shape), mesh)
+        self._draft_policy = self._build_policy(draft_model, mesh, None, ring, None)
+        return self._allocate(glob, mesh, ring)[0]
 
     def _check_same_weights(self, model) -> None:
         """Every rank must hold the same weights (each builds its model from
@@ -684,12 +720,17 @@ class DecodeScheduler:
         # lanes up to L + W - 1; with L <= span + k and W <= max_seq + 1 the
         # ring must be deeper than that, or a pad write would wrap onto a
         # live lane
-        span = self.max_pages * self.page_size
-        self.draft_cache = kvcache.batched_cache(draft_model, self.n_slots,
-                                                 2 * span + self.spec_k + 2)
-        self._draft_catchup = make_draft_catchup_step(draft_model)
-        self._draft_step = make_draft_step(draft_model)
-        self._verify = make_spec_verify_step(self.model, max_seq=self.max_seq)
+        depth = 2 * self.max_pages * self.page_size + self.spec_k + 2
+        if self._mesh is None:
+            self.draft_cache = kvcache.batched_cache(draft_model, self.n_slots, depth)
+        else:
+            self.draft_cache = self._place_draft_cache(draft_model, depth)
+            if draft_model is not self.model:
+                self._check_same_weights(draft_model)
+        self._draft_catchup = make_draft_catchup_step(draft_model, policy=self._draft_policy)
+        self._draft_step = make_draft_step(draft_model, policy=self._draft_policy)
+        self._verify = make_spec_verify_step(self.model, max_seq=self.max_seq,
+                                             policy=self._policy)
         # static storage of the verify and draft graphs: the verify tokens
         # (column 0 the target's newest token, then the k drafts, newest
         # last), each slot's acceptance cap, the draft step's new token, and
@@ -1117,7 +1158,9 @@ class DecodeScheduler:
                                  np.asarray(slot.req.prompt, np.int32).reshape(-1)]
             slot.spec_pending.append(slot.spec_last)
             slot.draft_len = 0
-            self.draft_cache["length"][slot.index] = 0
+            row = self._local_row(slot.index)
+            if row is not None:
+                self.draft_cache["length"][row] = 0
 
     def _map_page(self, slot: Slot, page_idx: int) -> None:
         """Host-side mapping only — the caller pushes the updated row to the
@@ -1168,7 +1211,7 @@ class DecodeScheduler:
             # can re-adopt this prefix after this worker dies
             self.index_journal_puts += self.prefix_index.journal(
                 zip(hashes[:full], pids, strict=True), self.blob_store,
-                lambda ids: self._extract(self.cache, ids))
+                lambda ids: self._page_move(self._extract, self.cache, ids), self._pool_split)
 
     def _park_slot(self, slot: Slot, req: _Request, tokens: np.ndarray) -> None:
         """Park a DRAINED slot: ownership of every mapped page transfers to
@@ -1187,7 +1230,7 @@ class DecodeScheduler:
         self._parked[req.session] = ParkedSession(
             session=req.session, history=history, consumed=slot.len,
             page_row=row, pages=slot.pages + slot.shared, slot=slot.index,
-            parked_step=self.steps)
+            parked_step=self.steps, mesh_shape=self._mesh_shape)
         self._unmap_row(slot.index)
         slot.to(SlotState.PARKED)
         slot.session = req.session
@@ -1254,9 +1297,9 @@ class DecodeScheduler:
         controller to hand to a successor worker.  After this the worker
         holds no reference to the session, and nothing in the record
         aliases this worker's device rows, which ``reset()`` overwrites.
-        Refused under a mesh (a blob there is one rank's shard)."""
-        if self._mesh is not None:
-            raise _mesh_refusal("externalize_session")
+        Under a mesh the record holds the slot's whole rows (shared over
+        ``data`` when they were snapshot) and the key of this rank's blob
+        shard, and names the mesh shape that wrote it."""
         rec = self._parked.pop(session)
         if rec.pages:
             self._offload_parked(rec)
@@ -1266,9 +1309,14 @@ class DecodeScheduler:
         """Fleet routing: install an externalized (blob-resident) journal so
         the next admission for its session restores from the shared store
         instead of re-prefilling.  The record must hold no pool references —
-        those died with the worker that wrote it.  Refused under a mesh."""
-        if self._mesh is not None:
-            raise _mesh_refusal("adopt_parked")
+        those died with the worker that wrote it — and must come from a
+        scheduler on this mesh shape (``mesh=None`` included): its blob is a
+        shard of this shape's pool."""
+        if rec.mesh_shape != self._mesh_shape:
+            raise ValueError(
+                f"session {rec.session!r} was parked on mesh shape {rec.mesh_shape} and this "
+                f"scheduler serves mesh shape {self._mesh_shape}: a parked record is read "
+                f"back only on the (data, model) shape that wrote it")
         if rec.pages or rec.slot is not None:
             raise ValueError(
                 f"adopting session {rec.session!r} with live pool state "
@@ -1284,14 +1332,14 @@ class DecodeScheduler:
         its captured graphs, which read the pool's storage.  Bounded so
         adoption always leaves at least one slot's worst case uncommitted;
         index pages are reclaimable cache either way, so a skipped entry
-        only costs a re-prefill.  Refused under a mesh."""
-        if self._mesh is not None:
-            raise _mesh_refusal("adopt_index_journal")
+        only costs a re-prefill.  Under a mesh each blob is this rank's
+        shard of its page, written on this mesh shape (a blob of another
+        shard's page shape is refused by the inject)."""
         if not self.index_journal:
             return 0
 
         def install(pid, blob):
-            self._inject(self.cache, [pid], blob)
+            self._page_move(self._inject, self.cache, [pid], blob)
 
         n = self.prefix_index.rebuild(
             self.blob_store, self.allocator,
@@ -1604,9 +1652,13 @@ class DecodeScheduler:
         token and the ``a`` accepted drafts) replays through the chunk path."""
         k = self.spec_k
         spec = [self.slots[i] for i in active]
+        rows = self._rows if self._rows is not None else slice(None)
+        wire = self._policy.wire if self._policy is not None else None
+        sent, secs = (wire.bytes, wire.seconds) if wire is not None else (0, 0.0)
         # 1) the draft catches up on the canonical stream: one masked call
         #    over every slot's pending span, back-padded to the widest, its
-        #    last real token landing in the newest draft column
+        #    last real token landing in the newest draft column (under a
+        #    mesh each data group over its own slots' rows)
         W = max(len(st.spec_pending) for st in spec)
         tok_rows = np.zeros((self.n_slots, W), np.int32)
         cnt_rows = np.ones((self.n_slots,), np.int32)
@@ -1615,12 +1667,13 @@ class DecodeScheduler:
             cnt_rows[st.index] = len(st.spec_pending)
             st.draft_len += len(st.spec_pending)
             st.spec_pending = []
-        self._draft_catchup(self.draft_cache, torch.from_numpy(tok_rows).to(self.device),
-                            torch.from_numpy(cnt_rows).to(self.device), self._active,
-                            self._vtok[:, k])
-        # 2) k-1 batched draft steps finish the proposal window
-        for _ in range(k - 1):
-            self._graphed("draft", self._draft_step_impl)
+        with launch_kind("draft"):
+            self._draft_catchup(self.draft_cache, torch.from_numpy(tok_rows[rows]).to(self.device),
+                                torch.from_numpy(cnt_rows[rows]).to(self.device),
+                                self._active[rows], self._vtok[rows, k])
+            # 2) k-1 batched draft steps finish the proposal window
+            for _ in range(k - 1):
+                self._graphed("draft", self._draft_step_impl)
         # 3) make the verify span writable (alloc-on-write and CoW split, as
         #    decode growth but k+1 positions at once), and cap each slot's
         #    acceptance so it cannot overrun its max_new budget
@@ -1629,7 +1682,11 @@ class DecodeScheduler:
             self._prepare_write_span(st, st.len, k + 1)
             k_eff[st.index] = min(k, st.req.max_new - st.n_out - 1)
         self._k_eff.copy_(torch.from_numpy(k_eff))
-        ya = self._graphed("verify", self._verify_impl)[0]
+        with launch_kind("verify"):
+            ya = self._graphed("verify", self._verify_impl)[0]
+        if self._share_kv:
+            self._share_written([(st.index, st.len, k + 1) for st in spec],
+                                pad_to=self.n_slots * (k + 1))
         ya = ya.cpu().numpy()                  # the round's one host sync
         hybrid = bool(self._spec_rows)
         for st in spec:
@@ -1639,11 +1696,16 @@ class DecodeScheduler:
             if hybrid and a < k:
                 # the rows consumed all k+1 verify tokens: restore the copy
                 # taken before the verify and replay the canonical span
-                # through the chunk path (its K/V rewrites the same lanes)
-                for key, rows in self._spec_rows.items():
-                    self.cache[key][:, i] = rows[:, i]
-                self.cache["length"][i] = st.len
+                # through the chunk path (its K/V rewrites the same lanes),
+                # on the ranks that hold the slot
+                row = self._local_row(i)
+                if row is not None:
+                    for key, saved in self._spec_rows.items():
+                        self.cache[key][:, row] = saved[:, row]
+                self._set_length(i, st.len)
                 self._chunk_logits(np.asarray([st.spec_last, *y[:a]], np.int32), i)
+                if self._share_kv:
+                    self._share_written([(i, st.len, a + 1)])
                 self.spec_rollbacks += 1
             emitted = a + 1
             st.n_out += emitted
@@ -1657,30 +1719,44 @@ class DecodeScheduler:
             self.spec_emitted += emitted
             self.decode_tokens += emitted
         # rejected proposals rewind the draft rows to the canonical length
-        idx = torch.tensor([st.index for st in spec], device=self.device)
-        lens = torch.tensor([st.draft_len for st in spec], dtype=torch.int32,
-                            device=self.device)
-        self.draft_cache["length"].index_copy_(0, idx, lens)
+        held = [(self._local_row(st.index), st.draft_len) for st in spec]
+        held = [(row, n) for row, n in held if row is not None]
+        if held:
+            idx = torch.tensor([row for row, _ in held], device=self.device)
+            lens = torch.tensor([n for _, n in held], dtype=torch.int32, device=self.device)
+            self.draft_cache["length"].index_copy_(0, idx, lens)
         self.spec_proposed += k * len(spec)
         self.spec_rounds += 1
+        if wire is not None:
+            self.last_round_wire_bytes = wire.bytes - sent
+            self.last_round_wire_ms = (wire.seconds - secs) * 1e3
 
     def _draft_step_impl(self) -> None:
         """One batched draft step, in place: the newest draft column in,
-        the columns shifted one left and the new token appended."""
-        drafts = self._vtok[:, 1:]
-        self._draft_step(self.draft_cache, drafts[:, -1], self._active, self._dtok)
-        drafts.copy_(torch.cat([drafts[:, 1:], self._dtok[:, None]], dim=1))
+        the columns shifted one left and the new token appended (under a
+        mesh, over this rank's slot rows)."""
+        rows = self._rows if self._rows is not None else slice(None)
+        drafts, dtok = self._vtok[rows, 1:], self._dtok[rows]
+        self._draft_step(self.draft_cache, drafts[:, -1], self._active[rows], dtok)
+        drafts.copy_(torch.cat([drafts[:, 1:], dtok[:, None]], dim=1))
 
     def _verify_impl(self):
         """The verify step over ``_vtok``, in place; returns ``(y | a, logits)``:
         each slot's ``k + 1`` argmax tokens with its accepted count in the
-        last column, and the verify logits."""
-        for key, rows in self._spec_rows.items():
-            rows.copy_(self.cache[key])
+        last column, and the verify logits.  Under a mesh the step scores
+        this rank's slot rows, ``y | a`` is shared over ``data`` (one
+        collective a round, as a decode step's tokens) and every slot's
+        tokens are emitted from it, so every rank's output ring agrees."""
+        for key, saved in self._spec_rows.items():
+            saved.copy_(self.cache[key])
         self._vtok[:, 0].copy_(self.last_tokens)
-        y, a, logits = self._verify(self.cache, self._vtok, self._active, self._k_eff,
-                                    self.out_buf, self.out_pos, self.last_tokens)
-        return torch.cat([y, a[:, None]], dim=1), logits
+        rows = self._rows if self._rows is not None else slice(None)
+        y, a, logits = self._verify(self.cache, self._vtok[rows], self._active[rows],
+                                    self._k_eff[rows], None, None, None)
+        ya = self._share_rows(torch.cat([y, a[:, None]], dim=1))
+        spec_emit(ya[:, :-1], ya[:, -1], self._active, self.out_buf, self.out_pos,
+                  self.last_tokens, max_seq=self.max_seq)
+        return ya, logits
 
     def step(self) -> List[CompletedRequest]:
         """One scheduler tick: at most one prefill chunk (round-robin over

@@ -328,8 +328,9 @@ def test_scheduler_steps_label_the_moe_launches(kv_mode):
     """The scheduler names the step kind the MoE wrappers count each launch
     under (``launches_by_kind`` on the card): every route of a decode step
     under "decode", of a prefill chunk under "chunk", of a ring prefill
-    under "prefill", and "other" outside the scheduler; a route observer
-    sees every call, and only within its scope."""
+    under "prefill", and "other" outside the scheduler ("draft" and
+    "verify" are speculation's kinds; any other name raises); a route
+    observer sees every call, and only within its scope."""
     from collections import Counter
 
     from repro_torch.kernels.moe_experts import ROUTE_OBSERVERS
@@ -368,5 +369,8 @@ def test_scheduler_steps_label_the_moe_launches(kv_mode):
             assert mk._KIND.get() == "chunk"
         assert mk._KIND.get() == "decode"
     assert mk._KIND.get() == "other"
-    with pytest.raises(ValueError, match="launch kind"), mk.launch_kind("verify"):
+    for kind in ("draft", "verify"):     # speculation's steps (tests/test_torch_sharded_spec.py)
+        with mk.launch_kind(kind):
+            assert mk._KIND.get() == kind
+    with pytest.raises(ValueError, match="launch kind"), mk.launch_kind("sample"):
         pass

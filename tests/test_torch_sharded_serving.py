@@ -16,10 +16,15 @@ here rather than running out the suite's clock.
 
 The launchers run as their users run them, in subprocesses:
 ``python -m repro_torch.launch.sharded_smoke --device cpu`` and
-``python -m repro_torch.launch.serve --mesh 1x2 --device cpu``.  Each
-refusal of ``mesh=`` raises, naming the ROADMAP item that ports it: the
-constructor's on an abstract mesh, the fleet's hand-over hooks on a live
-(1, 1) mesh in a spawned rank.
+``python -m repro_torch.launch.serve --mesh 1x2 --device cpu``.  The
+constructor refuses an abstract mesh, naming the ROADMAP item that ports
+it, and speculation on the paged kernel with the reference's
+``ValueError``.  What a mesh once refused and now serves is held on a
+live (1, 2) spawn: speculation (dense against solo ``generate``, the MoE
+family against the same mesh without it), the index journal (each blob
+this rank's lanes of a page), and the fleet's hand-over hooks
+(``externalize_session``, ``adopt_parked``, ``adopt_index_journal``)
+across schedulers sharing the rank's blob store.
 """
 
 from __future__ import annotations
@@ -32,10 +37,12 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro_torch import configs
 from repro_torch.dist.compat import AbstractMesh
 from repro_torch.models import build_model
+from repro_torch.serve.engine import generate
 from repro_torch.serve.scheduler import DecodeScheduler
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -56,31 +63,70 @@ ROWS = {
             (dict(DENSE, attn_backend="paged_kernel", page_size=3, prefill_chunk=3), False)],
 }
 
-LIVE_REFUSALS = """
+LIVE_SERVED = """
 import json
+import numpy as np
 from repro_torch import configs
+from repro_torch.core import PageBlobStore
 from repro_torch.launch.sharded_smoke import spawn_ranks
 from repro_torch.models import build_model
-from repro_torch.serve.scheduler import DecodeScheduler, ParkedSession
+from repro_torch.serve.scheduler import DecodeScheduler
+
+# two prompts sharing their first two pages
+PROMPTS = [list(range(1, 11)), list(range(1, 9)) + [40, 41]]
+
+def serve(sched, reqs):
+    for session, name, prompt, n in reqs:
+        sched.submit(session, name, np.asarray(prompt, np.int32), n)
+    out = {}
+    while sched.busy():
+        for fin in sched.step():
+            out[fin.request_id] = np.asarray(fin.tokens).tolist()
+        sched.audit()
+    return out
 
 def rank(mesh):
-    model = build_model(configs.get("minicpm-2b").reduced(), device="cpu")
-    sched = DecodeScheduler(model, device="cpu", mesh=mesh, prefix_sharing=True,
-                            park_sessions=True)
-    calls = {"externalize_session": lambda: sched.externalize_session("s0"),
-             "adopt_parked": lambda: sched.adopt_parked(ParkedSession("s0", None, 0, None, [])),
-             "adopt_index_journal": sched.adopt_index_journal}
     out = {}
-    for name, fn in calls.items():
-        try:
-            fn()
-            out[name] = ["returned", ""]
-        except Exception as e:
-            out[name] = [type(e).__name__, str(e)]
+    kw = dict(n_slots=2, max_seq=24, page_size=4, prefill_chunk=4, device="cpu", mesh=mesh)
+    reqs = [("s0", "r0", PROMPTS[0], 6), ("s1", "r1", PROMPTS[1], 6)]
+    for arch in ("minicpm-2b", "moonshot-v1-16b-a3b"):
+        # speculation with a self-draft, beside the same mesh without it
+        model = build_model(configs.get(arch).reduced(), device="cpu", mesh=mesh)
+        spec = DecodeScheduler(model, draft_model=model, spec_k=3, **kw)
+        out[arch] = {"spec": serve(spec, reqs), "plain": serve(DecodeScheduler(model, **kw), reqs),
+                     "spec_stats": spec.spec_stats()}
+    # the fleet's hand-over: three workers sharing this rank's blob store
+    model = build_model(configs.get("minicpm-2b").reduced(), device="cpu", mesh=mesh)
+    store = PageBlobStore()
+    fkw = dict(kw, park_sessions=True, prefix_sharing=True, index_journal=True,
+               blob_store=store)
+    a = DecodeScheduler(model, **fkw)
+    out["first"] = serve(a, [("s0", "r0", PROMPTS[0], 4)])
+    out["index_journal_puts"] = a.index_journal_puts
+    out["index_blob_shapes"] = [list(b["kp"].shape) for k, b in store.blobs.items()
+                                if k.startswith("index/")]
+    rec = a.externalize_session("s0")
+    out["record"] = {"blob_key": rec.blob_key, "pages": rec.pages, "slot": rec.slot,
+                     "mesh_shape": list(rec.mesh_shape), "state": sorted(rec.state),
+                     "blob_lanes": store.blobs[rec.blob_key]["kp"].shape[2]}
+    b = DecodeScheduler(model, **fkw)
+    b.adopt_parked(rec)
+    out["next"] = PROMPTS[0] + out["first"]["r0"] + [7, 8]
+    out["adopted"] = serve(b, [("s0", "r2", out["next"], 4)])
+    out["adopted_stats"] = b.sharing_stats()
+    c = DecodeScheduler(model, **fkw)
+    out["index_adopted"] = c.adopt_index_journal()
+    out["after_index"] = serve(c, [("s1", "r3", PROMPTS[1], 4)])
+    out["index_hits"] = c.index_hits
+    try:            # the reference's refusal, on the live mesh
+        DecodeScheduler(model, draft_model=model, spec_k=2, attn_backend="paged_kernel", **kw)
+        out["paged_kernel_spec"] = ["returned", ""]
+    except Exception as e:
+        out["paged_kernel_spec"] = [type(e).__name__, str(e)]
     return out
 
 if __name__ == "__main__":
-    print(json.dumps(spawn_ranks(rank, dp=1, mp=1, device="cpu", timeout_s=120)))
+    print(json.dumps(spawn_ranks(rank, dp=1, mp=2, device="cpu", timeout_s=120)))
 """
 
 SERVE_MESH = """
@@ -120,9 +166,9 @@ def runs(tmp_path_factory):
                              "--requests", "4", "--prompt-len", "8", "--max-new", "4",
                              "--page-size", "4", "--prefill-chunk", "4", "--mesh", "1x2",
                              "--attn-backend", "paged_kernel", "--device", "cpu"])
-    script = tmp_path_factory.mktemp("refusals") / "live_refusals.py"
-    script.write_text(LIVE_REFUSALS)
-    procs["live_refusals"] = _start([str(script)])
+    script = tmp_path_factory.mktemp("served") / "live_served.py"
+    script.write_text(LIVE_SERVED)
+    procs["live_served"] = _start([str(script)])
     done = {name: _finish(p) for name, p in procs.items()}
     done["smoke_json"] = out
     return done
@@ -178,40 +224,81 @@ def _tiny(arch):
     return build_model(cfg, device="cpu")
 
 
-REFUSALS = [
-    # the MoE family is served on a mesh (tests/test_torch_moe_mesh_serving.py);
-    # its speculation still raises
-    ("moonshot-v1-16b-a3b", dict(spec_k=2, draft="self"),
-     r"speculative decoding \(spec_k > 0\) under mesh=, ROADMAP 1\.8b-iii"),
-    ("minicpm-2b", dict(spec_k=2, draft="self"),
-     r"speculative decoding \(spec_k > 0\) under mesh=, ROADMAP 1\.8b-iii"),
-    ("minicpm-2b", dict(), "abstract mesh is ROADMAP 1.9"),
-    ("minicpm-2b", dict(index_journal=True, prefix_sharing=True),
-     r"index_journal=True under mesh=, ROADMAP 1\.8b-iii"),
-    # the fleet's hand-over hooks, on a live (1, 1) mesh (LIVE_REFUSALS)
-    ("minicpm-2b", dict(call="externalize_session"),
-     r"externalize_session under mesh=, ROADMAP 1\.8b-iii"),
-    ("minicpm-2b", dict(call="adopt_parked"), r"adopt_parked under mesh=, ROADMAP 1\.8b-iii"),
-    ("minicpm-2b", dict(call="adopt_index_journal"),
-     r"adopt_index_journal under mesh=, ROADMAP 1\.8b-iii"),
+PROMPTS = [list(range(1, 11)), list(range(1, 9)) + [40, 41]]     # LIVE_SERVED's
+
+
+def _solo(model, prompt, max_new):
+    return generate(model, torch.tensor([prompt], dtype=torch.int32), max_new,
+                    seq_len=24)[0].tolist()
+
+
+def _served(runs, case):
+    """What the live (1, 2) spawn served for ``case`` (LIVE_SERVED), on
+    every rank alike."""
+    rc, out, err = runs["live_served"]
+    assert rc == 0, err[-4000:]
+    ranks = json.loads(out.strip().splitlines()[-1])
+    assert all(r == ranks[0] for r in ranks), "the ranks disagree"
+    r = ranks[0]
+    dense = _tiny("minicpm-2b")
+    if case == "moe speculation":
+        got = r["moonshot-v1-16b-a3b"]
+        assert got["spec"] == got["plain"] and len(got["spec"]) == 2
+        assert got["spec_stats"]["spec_rounds"] > 0
+    elif case == "speculation":
+        got = r["minicpm-2b"]
+        for rid, prompt in zip(("r0", "r1"), PROMPTS):
+            assert got["spec"][rid] == _solo(dense, prompt, 6)
+        assert got["spec_stats"]["spec_accepted"] > 0
+    elif case == "index_journal":
+        # every published full page journaled, as this rank's 2 of 4 lanes
+        assert r["index_journal_puts"] > 0 and r["index_blob_shapes"]
+        assert all(shape[2] == 2 for shape in r["index_blob_shapes"])
+    elif case == "externalize_session":
+        rec = r["record"]
+        assert rec["blob_key"] and rec["pages"] == [] and rec["slot"] is None
+        assert rec["mesh_shape"] == [1, 2] and "length" in rec["state"]
+        assert rec["blob_lanes"] == 2
+    elif case == "adopt_parked":
+        assert r["adopted"]["r2"] == _solo(dense, r["next"], 4)
+        assert r["adopted_stats"]["park_hits"] == 1
+    elif case == "adopt_index_journal":
+        assert r["index_adopted"] > 0 and r["index_hits"] == 1
+        assert r["after_index"]["r3"] == _solo(dense, PROMPTS[1], 4)
+
+
+# each case keeps the id it had while its path was refused under a mesh:
+# the paths served since are held on the live (1, 2) spawn (LIVE_SERVED);
+# the abstract mesh still raises, and so does speculation on the paged
+# kernel, with the reference's ValueError
+MESH_CASES = [
+    ("the MoE family", "served", "moe speculation"),
+    ("speculative decoding \\(s", "served", "speculation"),
+    ("abstract mesh is ROADMAP", "raises", "abstract mesh is ROADMAP 1.9"),
+    ("index_journal=True", "served", "index_journal"),
+    ("externalize_session", "served", "externalize_session"),
+    ("adopt_parked", "served", "adopt_parked"),
+    ("adopt_index_journal", "served", "adopt_index_journal"),
+    ("paged_kernel speculation", "raises",
+     "speculative decoding needs attn_backend='gather'"),
 ]
 
 
-@pytest.mark.parametrize("arch,kw,match", REFUSALS,
-                         ids=["the MoE family" if a.startswith("moonshot") else
-                              m.split(" under")[0][:24] for a, _, m in REFUSALS])
-def test_mesh_refusals_raise(runs, arch, kw, match):
-    kw = dict(kw)
-    call = kw.pop("call", None)
-    if call is not None:
-        rc, out, err = runs["live_refusals"]
-        assert rc == 0, err[-4000:]
-        got = json.loads(out.strip().splitlines()[-1])[0][call]
-        assert got[0] == "NotImplementedError" and re.search(match, got[1]), got
+@pytest.mark.parametrize("kind,case", [(k, c) for _, k, c in MESH_CASES],
+                         ids=[i for i, _, _ in MESH_CASES])
+def test_mesh_refusals_raise(runs, kind, case):
+    """What ``mesh=`` refuses, it refuses as the reference does; what it
+    once refused and now serves, it serves (the live (1, 2) spawn)."""
+    if kind == "served":
+        _served(runs, case)
         return
-    model = _tiny(arch)
-    if kw.pop("draft", None):
-        kw["draft_model"] = model
-    with pytest.raises(NotImplementedError, match=match):
-        DecodeScheduler(model, device="cpu", mesh=AbstractMesh((1, 2), ("data", "model")),
-                        **kw)
+    model = _tiny("minicpm-2b")
+    if case.startswith("abstract"):
+        with pytest.raises(NotImplementedError, match=case):
+            DecodeScheduler(model, device="cpu", mesh=AbstractMesh((1, 2), ("data", "model")))
+        return
+    rc, out, err = runs["live_served"]
+    assert rc == 0, err[-4000:]
+    for r in json.loads(out.strip().splitlines()[-1]):
+        kind, msg = r["paged_kernel_spec"]
+        assert kind == "ValueError" and re.search(case, msg), r["paged_kernel_spec"]
